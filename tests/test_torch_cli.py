@@ -35,6 +35,30 @@ def test_cli_prints_generate_text(tmp_path):
     assert "cpu: prefill" in out.stderr
 
 
+def test_cli_on_a_q4km_file_made_by_the_quantize_cli(tmp_path):
+    """The two entry points a user runs on a downloaded F16 file: requantize
+    to Q4_K_M, then generate (Q4_K and Q6_K weights, unfused wq/wk/wv)."""
+    from conftest import subprocess_env
+
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.generate import Generator
+    from zllm_torch.testing import make_llama_gguf
+
+    src, path = str(tmp_path / "f16.gguf"), str(tmp_path / "q4km.gguf")
+    make_llama_gguf(src, **dict(SMALL_LLAMA, gtype=GGMLType.F16), with_tokenizer=True)
+    for args in (["zllm_torch.quantize", src, path, "Q4_K_M"],
+                 ["zllm_torch.cli", path, "-p", "hi", "-n", "4", "--greedy", "--device", "cpu"]):
+        out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                             timeout=120, env=subprocess_env(), cwd=REPO)
+        assert out.returncode == 0, out.stderr
+    m = Model.load(path, device="cpu", dtype=torch.bfloat16)
+    assert m.params["layers"][0]["wv"].fmt == GGMLType.Q6_K
+    ids = m.tokenizer.encode("hi", add_special=True, parse_special=True)
+    res = Generator(m, max_len=2048).generate(ids, max_new=4, eos_id=m.tokenizer.eos_id)
+    assert out.stdout == res.text + "\n"
+
+
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "zllm_torch")):

@@ -1,14 +1,15 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on the
-card, over the variants the main path does not reach (dtypes, head dims,
-batch rows, sinks, windows, softcap, ragged M and N).
+"""The port's six CUDA kernels against their plain PyTorch versions, on the
+card, over the variants the main path does not reach (dtypes, formats,
+head dims, batch rows, sinks, windows, softcap, ragged M and N, the padded
+head).
 
 Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 (which needs no JAX) with:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 nmse < 1e-6 (exact integer dots; only f32 sum order, and an
-ulp of rsqrt/exp may move one int8 code), K3 < 1e-6 (bf16 operands, f32 sum
-order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
+Tolerances: K1/K4 nmse < 1e-6 (exact integer dots; only f32 sum order, and
+an ulp of rsqrt/exp may move one int8 code), K3/K5 < 1e-6 (bf16 operands,
+f32 sum order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
 probability may move by an ulp).
 """
 
@@ -21,7 +22,7 @@ from zllm_torch.ops import attention as ta
 from zllm_torch.ops import layers as tl
 from zllm_torch.ops import qmatmul as tq
 from zllm_torch.quant import blocks as qb
-from zllm_torch.quant.repack import repack
+from zllm_torch.quant.repack import pad_n, repack
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,71 @@ def test_k3_matches_plain(dev, m, k, n, xdtype):
     torch.cuda.synchronize()
     assert got.shape == (m, n)
     assert _nmse(got, tq.q4k_gemm_plain(x, w)) < 1e-6
+
+
+INT_FMTS = [GGMLType.Q6_K, GGMLType.Q8_0]
+
+
+def _int_weight(fmt, n: int, k: int, seed: int, dev, n_pad: int = 0):
+    """A random Q6_K/Q8_0 weight; `n_pad` > n zero-pads it as the loader
+    pads the head."""
+    rng = np.random.default_rng(seed)
+    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
+    w = repack(raw, (n, k), fmt, dev)
+    return pad_n(w, n_pad) if n_pad else w
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n,n_pad", [(256, 128, 0), (2048, 256, 0), (5632, 2048, 0),
+                                       (2048, 32000, 32768)])
+def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
+    w = _int_weight(fmt, n, k, k + n, dev, n_pad)
+    x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
+    aux = _randn((k,), 2, dev, scale=0.1) + 1.0 if fuse == "norm" else None
+    before = tq.int8_matvec.launches
+    got = tq.int8_matvec(x, w, fuse, aux, 1e-5)
+    torch.cuda.synchronize()
+    assert tq.int8_matvec.launches == before + 1
+    assert _nmse(got, tq.int8_matvec_plain(x, w, fuse, aux, 1e-5)) < 1e-6
+    if n_pad:
+        assert not got[:, n:].any()
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("m,k,n,n_pad", [(1, 256, 128, 0), (7, 512, 384, 0),
+                                         (64, 2048, 256, 0), (256, 5632, 2048, 0),
+                                         (256, 2048, 32000, 32768)])
+def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
+    w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
+    x = _randn((m, k), 3, dev, xdtype)
+    before = tq.dequant_gemm.launches
+    got = tq.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert tq.dequant_gemm.launches == before + 1
+    assert got.shape == (m, w.shape[1])
+    assert _nmse(got, tq.dequant_gemm_plain(x, w)) < 1e-6
+    if n_pad:
+        assert not got[:, n:].any()
+
+
+def test_k4_k5_q6k_random_blocks(dev):
+    """Random Q6_K bytes (every nibble and crumb position, signed scales),
+    held column by column: a bit-order slip shows in the columns it hits."""
+    n, k = 256, 2048
+    raw = np.random.default_rng(8).integers(0, 256, size=(n * k // 256, 210), dtype=np.uint8)
+    raw[:, 208:210] = np.frombuffer(np.float16(0.01).tobytes(), np.uint8)
+    w = repack(raw.reshape(n, -1), (n, k), GGMLType.Q6_K, dev)
+    x = _randn((1, k), 4, dev)
+    got, want = tq.int8_matvec(x, w), tq.int8_matvec_plain(x, w)
+    # exact integer dots: only the f32 sum order differs in any column
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    xm = _randn((32, k), 5, dev)
+    got, want = tq.dequant_gemm(xm, w), tq.dequant_gemm_plain(xm, w)
+    col_err = ((got - want) ** 2).sum(0) / ((want ** 2).sum(0) + 1e-30)
+    assert float(col_err.max()) < 1e-6
 
 
 @pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])

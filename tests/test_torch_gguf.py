@@ -1,6 +1,6 @@
 """zllm_torch GGUF I/O and codecs against zllm's: the same metadata and
-tensor bytes on read, byte-identical files on write, byte-identical Q4_K
-encoding and bit-exact decoding."""
+tensor bytes on read, byte-identical files on write, byte-identical Q4_K,
+Q6_K, Q8_0 and F16 encoding and bit-exact decoding."""
 
 import numpy as np
 import pytest
@@ -77,17 +77,37 @@ def test_q4k_encode_byte_identical(rows):
     assert np.array_equal(qb.quantize(x, GGMLType.Q4_K), zqb.quantize(x, GGMLType.Q4_K))
 
 
-@pytest.mark.parametrize("fmt", [GGMLType.F32, GGMLType.F16, GGMLType.Q4_K],
+@pytest.mark.parametrize("fmt", [GGMLType.Q6_K, GGMLType.Q8_0, GGMLType.F16],
                          ids=lambda t: t.name)
+@pytest.mark.parametrize("rows", [1, 64])
+def test_encode_byte_identical(fmt, rows):
+    """The Q4_K_M file's other encoders: Q6_K (attn_v, half of ffn_down, the
+    head), Q8_0, and F16 (the quantizer's fallback)."""
+    x = (RNG.standard_normal((rows, 512)) * RNG.uniform(0.01, 3.0)).astype(np.float32)
+    x[0, :40] = 0.0  # all-zero groups take the safe-inverse branch
+    assert np.array_equal(qb.quantize(x, fmt), zqb.quantize(x, fmt))
+
+
+@pytest.mark.parametrize("fmt", [GGMLType.F32, GGMLType.F16, GGMLType.Q4_K, GGMLType.Q6_K,
+                                 GGMLType.Q8_0], ids=lambda t: t.name)
 def test_decode_bit_exact(fmt):
     x = RNG.standard_normal((16, 512)).astype(np.float32)
     raw = zqb.quantize(x, fmt)
     assert np.array_equal(qb.dequantize(raw, fmt), zqb.dequantize(raw, fmt))
 
 
+def test_q6k_decode_random_blocks_bit_exact():
+    """Random bytes, not an encoder's output: every nibble and crumb position
+    of ql/qh and every sign of the int8 scales is exercised, so a bit-order
+    slip cannot hide behind symmetric weights."""
+    raw = RNG.integers(0, 256, size=(32, 210), dtype=np.uint8)
+    raw[:, 208:210] = np.frombuffer(np.float16(0.01).tobytes(), np.uint8)  # finite d
+    assert np.array_equal(qb.dequantize(raw, GGMLType.Q6_K), zqb.dequantize(raw, GGMLType.Q6_K))
+
+
 def test_unsupported_format_raises():
-    x = RNG.standard_normal((2, 64)).astype(np.float32)
+    x = RNG.standard_normal((2, 256)).astype(np.float32)
     with pytest.raises(NotImplementedError):
-        qb.quantize(x, GGMLType.Q8_0)
+        qb.quantize(x, GGMLType.Q5_K)
     with pytest.raises(NotImplementedError):
-        qb.dequantize(zqb.quantize(x, GGMLType.Q8_0), GGMLType.Q8_0)
+        qb.dequantize(zqb.quantize(x, GGMLType.Q5_K), GGMLType.Q5_K)

@@ -34,18 +34,47 @@ def to_np(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
 
 
-def q4k_qtensor(n: int, k: int, seed: int, npack: bool = True):
-    """A zllm Q4_K QTensor (repack, then optionally to_npack) and its raw
-    GGUF rows [N, row_bytes]."""
+def quant_qtensor(fmt: GGMLType, n: int, k: int, seed: int):
+    """A zllm QTensor of format `fmt` (repacked from random weights) and its
+    raw GGUF rows [N, row_bytes]."""
     from zllm.quant import blocks as qb
     from zllm.quant import repack as rp
 
     rng = np.random.default_rng(seed)
-    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.5, GGMLType.Q4_K)
-    qt = rp.repack(raw, (n, k), GGMLType.Q4_K)
+    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.5, fmt)
+    return rp.repack(raw, (n, k), fmt), raw
+
+
+def q4k_qtensor(n: int, k: int, seed: int, npack: bool = True):
+    """A zllm Q4_K QTensor (repack, then optionally to_npack) and its raw
+    GGUF rows [N, row_bytes]."""
+    from zllm.quant import repack as rp
+
+    qt, raw = quant_qtensor(GGMLType.Q4_K, n, k, seed)
     if npack:
         qt = rp.to_npack(qt)
     return qt, raw
+
+
+def f16_llama_gguf(path: str, seed: int = 0) -> str:
+    """SMALL_LLAMA's geometry written in F16 by zllm's factory: the input
+    the quantizers take."""
+    from zllm.testing import make_llama_gguf
+
+    shape = {k: v for k, v in SMALL_LLAMA.items() if k != "gtype"}
+    return make_llama_gguf(path, **shape, gtype=GGMLType.F16, seed=seed, with_tokenizer=True)
+
+
+def zllm_quantized_gguf(folder, ftype: str) -> str:
+    """An F16 SMALL_LLAMA file requantized to `ftype` by zllm's
+    tools/quantize.py (Q4_K_M: attn_v, ffn_down of layer 0 and the head
+    Q6_K, the rest Q4_K)."""
+    from tools.quantize import quantize_file
+
+    src = f16_llama_gguf(str(folder / "f16.gguf"))
+    out = str(folder / f"{ftype}.gguf")
+    quantize_file(src, out, ftype, quiet=True)
+    return out
 
 
 def qtensor_numpy(qt) -> dict:

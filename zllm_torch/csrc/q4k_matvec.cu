@@ -7,7 +7,8 @@
 //   c_g = pi_g * a_g * dx_g - b_g * (dx_g * sum(xq_g)),
 //   a_g = f32(d) * sc_g, b_g = f32(dmin) * mn_g   (exact two-level Q4_K)
 // Prologues: "q" (x as is), "norm" (rms_norm(x) * w, the full-row mean
-// square reduced first), "glu" (silu(g) * u over the fused gate|up row).
+// square reduced first), "glu" (silu(g) * u over the fused gate|up row),
+// shared with K4 in matvec_common.cuh.
 //
 // Bound on the H100: the Q4_K bytes of the weight (4.5 bits a weight; this
 // layout, with sc/mn unpacked to bytes, reads 4.625), read once; the arithmetic is 2*K*N int8 ops, ~1000x under the
@@ -15,7 +16,7 @@
 // shared memory (int8 codes, f32 dx, int32 sums per group; eight lanes a
 // group), then each warp
 // streams whole output columns: a column's packed nibbles are contiguous
-// along K (QWeight layout, zllm_torch/quant/repack.py), so two lanes read
+// along K (Q4KWeight layout, zllm_torch/quant/repack.py), so two lanes read
 // one 64-element chunk as two 16-byte loads.  A warp issues all loads of
 // a column (packed bytes and scales, up to 4 chunk rounds, in registers)
 // before it uses any, and issues its first column's loads before the
@@ -23,29 +24,16 @@
 // nibbles of four bytes are four codes of group 2c and the high nibbles
 // four codes of group 2c+1, each against four int8 activations in one
 // __dp4a.  A lane-pair shuffle joins the two halves of a chunk into exact
-// integer group dots, and each lane applies its group's scales.  Rounding follows the Pallas
-// kernel: rintf(x / dx) with IEEE division (built without fast math).
+// integer group dots, and each lane applies its group's scales.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "matvec_common.cuh"
 
 namespace {
 
+using namespace zt;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-enum Fuse { kQ = 0, kNorm = 1, kGlu = 2 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 constexpr int kRounds = 4;  // chunk rounds (16 chunks each) held in registers
 
@@ -83,13 +71,8 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_kernel(
     const __half* __restrict__ dmin, float* __restrict__ y, int K, int N,
     int cols_per_warp, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = K / 32;
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);           // [K]
-  float* dxs = reinterpret_cast<float*>(smem + K);         // [G]
-  int* sxs = reinterpret_cast<int*>(dxs + G);              // [G]
-  __shared__ float red[kWarps];
-  __shared__ float rscale;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const QuantRow<32> row(smem, K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nchunk = K / 64;
   const int part = lane & 1;
 
@@ -98,66 +81,7 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_kernel(
   ColRegs cr;
   const int n0 = blockIdx.x * cols_per_warp * kWarps + warp;
   if (n0 < N) fetch_col(cr, qs, sc, mn, d, dmin, n0, K, 0, lane);
-
-  float r = 1.f;
-  if (MODE == kNorm) {
-    float s = 0.f;
-    for (int k = tid; k < K; k += kThreads) {
-      const float v = to_f(x[k]);
-      s += v * v;
-    }
-    s = warp_sum(s);
-    if (lane == 0) red[warp] = s;
-    __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < kWarps; ++w) t += red[w];
-      rscale = rsqrtf(t / (float)K + eps);
-    }
-    __syncthreads();
-    r = rscale;
-  }
-
-  // quantize: eight lanes per 32-group, four elements per lane (G is a
-  // multiple of 8, so every lane of a warp takes part in each round)
-  const int sub = lane & 7;
-  for (int g = tid >> 3; g < G; g += kThreads / 8) {
-    const int k0 = g * 32 + sub * 4;
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + i;
-      if (MODE == kNorm) {
-        v[i] = to_f(x[k]) * aux[k] * r;
-      } else if (MODE == kGlu) {
-        const float gg = to_f(x[k]);
-        const float u = to_f(x[K + k]);
-        v[i] = gg * (1.f / (1.f + expf(-gg))) * u;
-      } else {
-        v[i] = to_f(x[k]);
-      }
-    }
-    float am = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
-    am = fmaxf(am, __shfl_xor_sync(kFull, am, 1));
-    am = fmaxf(am, __shfl_xor_sync(kFull, am, 2));
-    am = fmaxf(am, __shfl_xor_sync(kFull, am, 4));
-    const float dx = fmaxf(am / 127.f, 1e-12f);
-    int q[4], sx = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      q[i] = (int)fminf(fmaxf(rintf(v[i] / dx), -127.f), 127.f);
-      sx += q[i];
-    }
-    *reinterpret_cast<char4*>(xq + k0) = make_char4(q[0], q[1], q[2], q[3]);
-    sx += __shfl_xor_sync(kFull, sx, 1);
-    sx += __shfl_xor_sync(kFull, sx, 2);
-    sx += __shfl_xor_sync(kFull, sx, 4);
-    if (sub == 0) {
-      dxs[g] = dx;
-      sxs[g] = sx;
-    }
-  }
-  __syncthreads();
+  quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
 
   for (int j = 0; j < cols_per_warp; ++j) {
     const int n = (blockIdx.x * cols_per_warp + j) * kWarps + warp;
@@ -172,8 +96,8 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_kernel(
         int plo = 0, phi = 0;
         if (c < nchunk) {
           const uint4 wv = cr.wv[it];
-          const int4 xl = *reinterpret_cast<const int4*>(xq + c * 64 + part * 16);
-          const int4 xh = *reinterpret_cast<const int4*>(xq + c * 64 + 32 + part * 16);
+          const int4 xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
+          const int4 xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
           plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
           phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
           plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
@@ -191,8 +115,8 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_kernel(
           const int pi = part ? phi : plo;
           const float a = __half2float(cr.dh[it]) * (float)cr.scb[it];
           const float b = __half2float(cr.dmh[it]) * (float)cr.mnb[it];
-          const float dx = dxs[g];
-          acc += (float)pi * a * dx - b * (dx * (float)sxs[g]);
+          const float dx = row.dx[g];
+          acc += (float)pi * a * dx - b * (dx * (float)row.sx[g]);
         }
       }
     }
@@ -211,8 +135,7 @@ int launch(const void* x, const float* aux, const uint8_t* qs, const uint8_t* sc
   cpw = cpw < 1 ? 1 : (cpw > 4 ? 4 : cpw);
   const int per_block = kWarps * cpw;
   const dim3 grid((N + per_block - 1) / per_block);
-  const size_t shmem = (size_t)K + (size_t)(K / 32) * 8;
-  q4k_matvec_kernel<TX, MODE><<<grid, kThreads, shmem, stream>>>(
+  q4k_matvec_kernel<TX, MODE><<<grid, kThreads, QuantRow<32>::bytes(K), stream>>>(
       static_cast<const TX*>(x), aux, qs, sc, mn, d, dmin, y, K, N, cpw, eps);
   return (int)cudaGetLastError();
 }

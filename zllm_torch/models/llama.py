@@ -1,19 +1,22 @@
 """Llama forward pass (plain PyTorch around the port's kernels).
 
 The counterpart of `zllm/models/llama.py::forward` / `layer_forward` for
-the plain llama block: RMS norm -> fused wqkv -> rope -> GQA attention with
+the plain llama block: RMS norm -> fused wqkv (or wq, wk, wv apart when
+their formats differ, as in Q4_K_M files) -> rope -> GQA attention with
 KV-cache insert -> wo -> RMS norm -> fused gate|up -> SwiGLU -> down, both
 residual; final norm and output head.  The decode fast paths sit where
 `zllm` has them:
 
-  * T=1, B=1: the attention RMS norm is fused into the wqkv matvec (K1,
-    fuse="norm"), the FFN norm into the gate|up matvec and SwiGLU into the
-    down matvec (K1, "norm"/"glu"), the final norm into the head matvec;
+  * T=1, B=1: the attention RMS norm is fused into the wqkv matvec
+    (fuse="norm"; unfused projections take the plain norm), the FFN norm
+    into the gate|up matvec and SwiGLU into the down matvec ("norm"/"glu"),
+    the final norm into the head matvec; each matvec is K1 for a Q4_K
+    weight and K4 for Q6_K or Q8_0;
   * T=1 with a KV cache: the whole attention block is one kernel (K2).
 
-Every other shape takes the unfused path: RMS norm, `linear` (K3 for the
-quantized weights of a multi-row batch), rope, cache insert, then prefill
-attention (K6).  MoE, MLA, LoRA, sliding window, ALiBi and sinks are not
+Every other shape takes the unfused path: RMS norm, `linear` (K3 or K5 for
+the quantized weights of a multi-row batch), rope, cache insert, then
+prefill attention (K6).  MoE, MLA, LoRA, sliding window, ALiBi and sinks are not
 part of this block.
 """
 
@@ -36,12 +39,19 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
 
-    qkv = None
-    if t == 1 and b == 1:  # decode: norm fused into the qkv matvec prologue
-        qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
-                                layer["wqkv"])
-    if qkv is None:
-        qkv = linear(rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer["wqkv"])
+    if "wqkv" in layer:
+        qkv = None
+        if t == 1 and b == 1:  # decode: norm fused into the qkv matvec prologue
+            qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
+                                    layer["wqkv"])
+        if qkv is None:
+            qkv = linear(rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer["wqkv"])
+    else:
+        # projections of different formats stay apart (loader._fusable):
+        # the plain norm, then one matvec or GEMM each, as zllm's unfused
+        # branch; their outputs side by side are the fused layout
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        qkv = torch.cat([linear(h, layer[key]) for key in ("wq", "wk", "wv")], dim=-1)
     qkv = qkv.reshape(b, t, -1)
     qd, kvd, d = cfg.q_dim, cfg.kv_dim, cfg.head_dim
 

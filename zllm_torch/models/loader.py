@@ -1,11 +1,13 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
-Q4_K matmul weights become `QWeight`s (quantized on the device, consumed by
-the port's kernels); the token embedding is dequantized to a dense tensor
-of the model dtype, norm weights to f32.  At load, as `zllm` does by
-default: the adjacent-pair rope of llama GGUFs is turned into half-split
-("neox") rope by permuting the wq/wk columns, wq|wk|wv and gate|up are
-fused along N, and the output head is zero-padded to a multiple of 1024.
+Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s (quantized on the
+device, consumed by the port's kernels); the token embedding is dequantized
+to a dense tensor of the model dtype, norm weights to f32.  At load, as
+`zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
+into half-split ("neox") rope by permuting the wq/wk columns, wq|wk|wv and
+gate|up are fused along N where the weights share one format (in a Q4_K_M
+file wq/wk are Q4_K and wv Q6_K, so they stay apart), and the output head
+is zero-padded to a multiple of 1024.
 
 `params_from_jax` carries `zllm`'s loaded parameters (handed over as numpy
 arrays) into this layout, so a test can run both packages on the very
@@ -19,8 +21,7 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, read_gguf
-from ..quant import blocks as qb
-from ..quant.repack import QWeight, concat_n, from_planes, pad_n, repack
+from ..quant.repack import WEIGHT_CLASSES, Q6KWeight, QWeight, concat_n, from_planes, pad_n, repack
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
@@ -56,13 +57,14 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
 
 
 def _load_matmul(f: GGUFFile, name: str, dtype, device):
-    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_K) or dense [K, N]."""
+    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_K, Q6_K, Q8_0) or
+    dense [K, N] (F32, F16)."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
-    if meta.gtype == GGMLType.Q4_K:
+    if meta.gtype in WEIGHT_CLASSES:
         return repack(f.tensor_bytes(name), meta.shape, meta.gtype, device)
-    if meta.gtype not in qb.supported_decode():
+    if meta.gtype not in (GGMLType.F32, GGMLType.F16):
         raise NotImplementedError(f"{name}: {meta.gtype.name} weights are not in zllm_torch yet")
     x = np.ascontiguousarray(f.tensor_f32(name).T)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
@@ -124,8 +126,9 @@ def rope_to_neox(params: dict, cfg: ModelConfig) -> tuple[dict, ModelConfig]:
 
 
 def _fusable(ws) -> bool:
+    """One kernel can take the fused weight: one format and one K."""
     if all(isinstance(w, QWeight) for w in ws):
-        return len({w.shape[0] for w in ws}) == 1
+        return len({(w.fmt, w.shape[0]) for w in ws}) == 1
     if not any(isinstance(w, QWeight) for w in ws):
         return len({w.shape[0] for w in ws}) == 1 and len({w.dtype for w in ws}) == 1
     return False
@@ -175,48 +178,76 @@ class Model:
         return cls(cfg, params, tok, dev, path)
 
 
-def _q4k_from_jax(desc: dict, device) -> QWeight:
-    """One `zllm` Q4_K QTensor, as numpy planes, -> QWeight.
+def _unfold(plane: np.ndarray, fold: int, bits: int) -> np.ndarray:
+    """zllm's split fold packing along K -> uint8 [K, N] values: within each
+    chunk of `fold` rows, field i of byte r holds row r + i * fold/per
+    (nibbles: bits 4, per 2; crumbs: bits 2, per 4)."""
+    per = 8 // bits
+    rows, n = plane.shape
+    g = np.asarray(plane).astype(np.uint8).reshape(rows // (fold // per), fold // per, n)
+    parts = [(g >> (bits * i)) & ((1 << bits) - 1) for i in range(per)]
+    return np.concatenate(parts, axis=1).reshape(rows * per, n)
 
-    The "diet" planes: qs (split-half fold nibbles [K/2, N], or with npack
-    int8 [K, N/2] bytes holding column c in the low nibble and column
+
+def _f16_nk(plane, rows: int) -> np.ndarray:
+    """An fp16 plane [rows (+ padding), N], fp16 or its uint16 bits -> [N, rows]."""
+    plane = np.asarray(plane)[:rows]
+    return np.ascontiguousarray((plane.view(np.float16) if plane.dtype == np.uint16
+                                 else plane.astype(np.float16)).T)
+
+
+def _q4k_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """The "diet" Q4_K planes: qs (split-half fold nibbles [K/2, N], or with
+    npack int8 [K, N/2] bytes holding column c in the low nibble and column
     c + N/2 in the high one, stored XOR 0x80), sm u16 [K/32, N] = sc | mn<<6,
     sd/sb fp16 bits [K/256 rounded up to 8 rows, N]."""
     k, n = desc["shape"]
     p = desc["planes"]
     if "sm" not in p:
         raise NotImplementedError("only the exact two-level ('diet') Q4_K planes carry across")
-    qs = np.asarray(p["qs"])
     if desc["npack"]:
-        bp = qs.view(np.uint8)
+        bp = np.asarray(p["qs"]).view(np.uint8)
         codes = np.concatenate([bp & 0xF, (bp >> 4) ^ 0x8], axis=1)  # [K, N]
     else:
-        fold = int(desc["fold"])
-        g = qs.astype(np.uint8).reshape(k // fold, fold // 2, n)
-        codes = np.concatenate([g & 0xF, g >> 4], axis=1).reshape(k, n)
+        codes = _unfold(p["qs"], int(desc["fold"]), 4)
     c = np.ascontiguousarray(codes.T).reshape(n, k // 64, 2, 32)
     sm = np.asarray(p["sm"]).astype(np.uint16)
-
-    def f16(plane):
-        plane = np.asarray(plane)[: k // 256]
-        return np.ascontiguousarray((plane.view(np.float16) if plane.dtype == np.uint16
-                                     else plane.astype(np.float16)).T)
-
-    planes = {
+    return {
         "qs": (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).astype(np.uint8).reshape(n, k // 2),
         "sc": np.ascontiguousarray((sm & 63).T).astype(np.uint8),
         "mn": np.ascontiguousarray((sm >> 6).T).astype(np.uint8),
-        "d": f16(p["sd"]),
-        "dmin": f16(p["sb"]),
+        "d": _f16_nk(p["sd"], k // 256),
+        "dmin": _f16_nk(p["sb"], k // 256),
     }
-    return from_planes(planes, (k, n), device)
+
+
+def _q6k_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's Q6_K planes: ql split-half fold nibbles [K/2, N], qh
+    split-quarter fold crumbs [K/4, N], a fp16 bits [K/16, N]."""
+    k, n = desc["shape"]
+    p, fold = desc["planes"], int(desc["fold"])
+    codes = _unfold(p["ql"], fold, 4) | (_unfold(p["qh"], fold, 2) << 4)  # [K, N] 0..63
+    return {**Q6KWeight.pack_codes(np.ascontiguousarray(codes.T)), "a": _f16_nk(p["a"], k // 16)}
+
+
+def _q80_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's Q8_0 planes: qs int8 [K, N], d fp16 bits [K/32, N]."""
+    k, n = desc["shape"]
+    p = desc["planes"]
+    return {"qs": np.ascontiguousarray(np.asarray(p["qs"]).view(np.int8).T),
+            "d": _f16_nk(p["d"], k // 32)}
+
+
+_FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q6_K: _q6k_from_jax,
+             GGMLType.Q8_0: _q80_from_jax}
 
 
 def _leaf_from_jax(key: str, val, *, dtype, device):
     if isinstance(val, dict):
-        if GGMLType(val["fmt"]) != GGMLType.Q4_K:
-            raise NotImplementedError(f"{key}: {GGMLType(val['fmt']).name} does not carry across")
-        return _q4k_from_jax(val, device)
+        fmt = GGMLType(val["fmt"])
+        if fmt not in _FROM_JAX:
+            raise NotImplementedError(f"{key}: {fmt.name} does not carry across")
+        return from_planes(_FROM_JAX[fmt](val), tuple(val["shape"]), fmt, device)
     t = torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device)
     return t if key in _VECTOR_KEYS else t.to(dtype)
 
@@ -226,7 +257,7 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
 
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
-    "planes": {name: numpy}}.  Q4_K is the only format carried across."""
+    "planes": {name: numpy}}.  Q4_K, Q6_K and Q8_0 carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

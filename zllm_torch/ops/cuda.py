@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under `zllm_torch/csrc/` exports a plain C interface.  It is
-compiled with `nvcc` for `sm_90a` into its own shared library, at first use,
-into `.cache/zllm_torch_kernels/` at the root of the checkout, under a name
-keyed by a hash of the source and the flags.  All sources build in
+Each `.cu` source under `zllm_torch/csrc/` exports a plain C interface.  It
+is compiled with `nvcc` for `sm_90a` into its own shared library, at first
+use, into `.cache/zllm_torch_kernels/` at the root of the checkout, under a
+name keyed by a hash of the source, the shared headers (`*.cuh`) and the
+flags.  All sources build in
 parallel (one `nvcc` each).  Libraries are loaded with `ctypes`; the
 wrappers in `ops/qmatmul.py` and `ops/attention.py` pass device pointers
 and the current stream as integers.
@@ -30,6 +31,8 @@ CACHE = Path(__file__).resolve().parents[2] / ".cache" / "zllm_torch_kernels"
 SOURCES = {
     "q4k_matvec": "q4k_matvec.cu",
     "q4k_gemm": "q4k_gemm.cu",
+    "int8_matvec": "int8_matvec.cu",
+    "dequant_gemm": "dequant_gemm.cu",
     "attn_decode": "attn_decode.cu",
     "flash_attn": "flash_attn.cu",
 }
@@ -58,6 +61,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return CACHE / f"{name}-{key}.so"
 

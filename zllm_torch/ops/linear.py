@@ -1,18 +1,19 @@
 """Linear-layer dispatch: dense tensors or quantized `QWeight`s.
 
-A `QWeight` goes to the decode matvec kernel (K1) for one row and to the
-prefill GEMM kernel (K3) for more; both return f32, as `zllm`'s kernels
-do.  The fused decode hooks put the RMS norm or the SwiGLU gating into the
-matvec's prologue (counterpart of `zllm/ops/linear.py`'s
-fused_norm_linear / fused_glu_linear, without the global hook registry:
-the port always has its kernels)."""
+A `QWeight` goes to its format's decode matvec kernel for one row (K1 for
+Q4_K, K4 for Q6_K and Q8_0) and to its prefill GEMM kernel for more (K3,
+K5); all return f32, as `zllm`'s kernels do.  The fused decode hooks put
+the RMS norm or the SwiGLU gating into the matvec's prologue (counterpart
+of `zllm/ops/linear.py`'s fused_norm_linear / fused_glu_linear, without
+the global hook registry: the port always has its kernels).  A format the
+port has no kernel for raises NotImplementedError."""
 
 from __future__ import annotations
 
 import torch
 
 from ..quant.repack import QWeight
-from .qmatmul import q4k_gemm, q4k_matvec
+from . import qmatmul as qmm
 
 
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -20,7 +21,7 @@ def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None) -> torch.Tensor
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QWeight):
-        y2 = q4k_matvec(x2, w) if x2.shape[0] == 1 else q4k_gemm(x2, w)
+        y2 = qmm.matvec(x2, w) if x2.shape[0] == 1 else qmm.gemm(x2, w)
     else:
         y2 = x2 @ w.to(x.dtype)
     y = y2.reshape(*lead, -1)
@@ -33,11 +34,11 @@ def fused_norm_linear(x2: torch.Tensor, wn: torch.Tensor, eps: float, w):
     """rms_norm(x2, wn, eps) @ w in one kernel, or None (fallback)."""
     if not isinstance(w, QWeight) or x2.shape[0] != 1:
         return None
-    return q4k_matvec(x2, w, fuse="norm", aux=wn, eps=eps)
+    return qmm.matvec(x2, w, fuse="norm", aux=wn, eps=eps)
 
 
 def fused_glu_linear(gup2: torch.Tensor, w):
     """swiglu(gup2 halves) @ w in one kernel, or None (fallback)."""
     if not isinstance(w, QWeight) or gup2.shape[0] != 1 or gup2.shape[1] != 2 * w.shape[0]:
         return None
-    return q4k_matvec(gup2, w, fuse="glu")
+    return qmm.matvec(gup2, w, fuse="glu")

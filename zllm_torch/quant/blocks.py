@@ -1,10 +1,11 @@
-"""Blockwise quantization codecs (numpy, host-side): the subset the Q4_K
+"""Blockwise quantization codecs (numpy, host-side): the subset the port's
 llama path needs.
 
-A copy of `zllm.quant.blocks` restricted to F32/F16 decode and the Q4_K
-decoder and encoder (layouts: reference ggml/src/ggml-common.h; reference
-kernels: ggml/src/ggml-quants.c).  The encoder's bytes are identical to
-`zllm`'s, so `zllm_torch.testing.make_llama_gguf` writes the same files.
+A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_K, Q6_K and
+Q8_0 decoders and encoders (layouts: reference ggml/src/ggml-common.h;
+reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
+identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
+`zllm_torch.quantize` write the same files.
 
 All functions operate on `blocks: uint8[N, type_size] -> f32[N, block_size]`
 (decode) and the reverse (encode).  Use `dequantize`/`quantize` for whole
@@ -19,7 +20,8 @@ import numpy as np
 
 from ..gguf.constants import GGML_BLOCK_SIZES, QK_K, GGMLType
 
-__all__ = ["GGML_BLOCK_SIZES", "dequantize", "quantize", "supported_decode", "unpack_kscales"]
+__all__ = ["GGML_BLOCK_SIZES", "dequantize", "quantize", "supported_decode", "supported_encode",
+           "unpack_kscales"]
 
 
 def _f16(b: np.ndarray) -> np.ndarray:
@@ -49,9 +51,34 @@ def _nib_pack(q: np.ndarray, pair: int) -> np.ndarray:
     return (g[:, :, 0, :] | (g[:, :, 1, :] << np.uint8(4))).reshape(n, -1)
 
 
+def _bits_unpack(b: np.ndarray, nbits: int, stride: int) -> np.ndarray:
+    """Unpack `nbits`-wide fields: element (k*stride + j) lives in byte j at
+    bit position k*nbits.  b: uint8[N, stride] -> uint8[N, (8//nbits)*stride]."""
+    n = b.shape[0]
+    per = 8 // nbits
+    shifts = (np.arange(per, dtype=np.uint8) * nbits).reshape(1, per, 1)
+    vals = (b.reshape(n, 1, stride) >> shifts) & np.uint8((1 << nbits) - 1)
+    return vals.reshape(n, per * stride)
+
+
+def _bits_pack(q: np.ndarray, nbits: int, stride: int) -> np.ndarray:
+    """Inverse of _bits_unpack."""
+    n = q.shape[0]
+    per = 8 // nbits
+    g = q.reshape(n, per, stride).astype(np.uint8)
+    shifts = (np.arange(per, dtype=np.uint8) * nbits).reshape(1, per, 1)
+    return np.bitwise_or.reduce(g << shifts, axis=1)
+
+
 def _round_away(x: np.ndarray) -> np.ndarray:
     """Round half away from zero (C roundf), unlike numpy's banker rounding."""
     return np.sign(x) * np.floor(np.abs(x) + 0.5)
+
+
+def _signed_absmax(x: np.ndarray) -> np.ndarray:
+    """Per-row value with the largest magnitude, sign preserved -> [N,1]."""
+    idx = np.abs(x).argmax(axis=-1, keepdims=True)
+    return np.take_along_axis(x, idx, axis=-1)
 
 
 def _safe_inv(d: np.ndarray) -> np.ndarray:
@@ -84,6 +111,21 @@ def _dec_f32(b):
 
 def _dec_f16(b):
     return _f16(b)
+
+
+def _enc_f16(x):
+    return _to_f16_bytes(x)
+
+
+def _dec_q8_0(b):
+    d, qs = b[:, :2], b[:, 2:]
+    return _f16(d) * qs.view(np.int8).astype(np.float32)
+
+
+def _enc_q8_0(x):
+    d = np.abs(x).max(axis=-1, keepdims=True) / 127.0
+    q = _round_away(x * _safe_inv(d)).astype(np.int8)
+    return np.concatenate([_to_f16_bytes(d), q.view(np.uint8)], axis=1)
 
 
 def _dec_q4_k(b):
@@ -119,18 +161,56 @@ def _enc_q4_k(x):
     )
 
 
+def _dec_q6_k(b):
+    n = b.shape[0]
+    ql, qh, sb, d = b[:, :128], b[:, 128:192], b[:, 192:208], b[:, 208:210]
+    scales = sb.view(np.int8).astype(np.float32)  # [N,16]
+    dl = _f16(d) * scales
+    lo = np.concatenate([_nib_lo_hi(ql[:, c * 64 : (c + 1) * 64], 64) for c in range(2)],
+                        axis=1)
+    hi = np.concatenate([_bits_unpack(qh[:, c * 32 : (c + 1) * 32], 2, 32) for c in range(2)],
+                        axis=1)
+    q = (lo | (hi << np.uint8(4))).astype(np.int8) - np.int8(32)
+    return (dl[:, :, None] * q.reshape(n, 16, 16).astype(np.float32)).reshape(n, QK_K)
+
+
+def _enc_q6_k(x):
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    s_f = _signed_absmax(g.reshape(-1, 16)).reshape(n, 16) / -32.0
+    d = np.abs(s_f).max(axis=-1, keepdims=True) / 127.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(-128, 127).astype(np.int8)
+    dl = d * sc.astype(np.float32)
+    q = _round_away(g * _safe_inv(dl)[:, :, None]).clip(-32, 31).astype(np.int8)
+    qb = (q.reshape(n, QK_K).astype(np.int16) + 32).astype(np.uint8)
+    ql = np.concatenate([_nib_pack(qb[:, c * 128 : (c + 1) * 128] & 0x0F, 64)
+                         for c in range(2)], axis=1)
+    qh = np.concatenate([_bits_pack(qb[:, c * 128 : (c + 1) * 128] >> 4, 2, 32)
+                         for c in range(2)], axis=1)
+    return np.concatenate([ql, qh, sc.view(np.uint8), _to_f16_bytes(d)], axis=1)
+
+
 _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F32: _dec_f32,
     GGMLType.F16: _dec_f16,
+    GGMLType.Q8_0: _dec_q8_0,
     GGMLType.Q4_K: _dec_q4_k,
+    GGMLType.Q6_K: _dec_q6_k,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
+    GGMLType.F16: _enc_f16,
+    GGMLType.Q8_0: _enc_q8_0,
     GGMLType.Q4_K: _enc_q4_k,
+    GGMLType.Q6_K: _enc_q6_k,
 }
 
 
 def supported_decode() -> set[GGMLType]:
     return set(_DECODERS)
+
+
+def supported_encode() -> set[GGMLType]:
+    return set(_ENCODERS)
 
 
 def dequantize(data: np.ndarray, gtype: GGMLType) -> np.ndarray:

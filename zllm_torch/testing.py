@@ -1,7 +1,7 @@
 """Synthetic GGUF model factory for tests, dry runs, and benchmarks.
 
-Builds random llama-family GGUF files with the port's writer + Q4_K
-encoder so the whole stack (reader -> QWeight -> kernels -> runtime) can be
+Builds random llama-family GGUF files with the port's writer and encoders
+so the whole stack (reader -> QWeight -> kernels -> runtime) can be
 exercised without model downloads.  For the same arguments it writes the
 same bytes as `zllm.testing.make_llama_gguf`.
 """
