@@ -4,10 +4,14 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no final result line):
-  1. build the six CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
+  1. build the eight CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M (zllm_torch.quantize
      from an F16 file) and Q8_0, each generated on the GPU (kernels) and on
-     the CPU (their plain versions), logits compared step by step;
+     the CPU (their plain versions), logits compared step by step; and the
+     2-layer Q4_K_M file served by the continuous-batching Engine (f32, f32
+     paged KV, 2 slots) on the GPU and on the CPU: three prompts, one across
+     a page, then a re-send sharing a 128-token page; tokens, reuse and step
+     counters must be identical;
   3. main paths, at TinyLlama geometry (all 22 layers, full width, random
      weights from a seed, byte-level tokenizer), loaded in bf16 on the GPU,
      each Generator(max_len=2048).generate on a 300-token prompt (two
@@ -18,12 +22,20 @@ Phases, each fatal on failure (non-zero exit, no final result line):
        - Q4_K_M (zllm_torch.quantize from an F16 file: attn_v, the first 11
          ffn_down and the head Q6_K): 99 K1 + 34 K4 + 22 K2 per decode step,
          99 K3 + 34 K5 + 22 K6 per chunk;
+     and the serving path: that Q4_K_M model behind zllm_torch.server's
+     ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
+     128) on a local port: four concurrent greedy completions, a streaming
+     chat, a re-send sharing two pages, then the four bodies one at a time
+     (same texts required); per engine step 99 K3 + 34 K5, and 22 K9 per
+     decode step or 22 K10 per mixed prefill step, K1/K2/K4/K6 never;
   4. each kernel at its main path's shapes against its plain PyTorch
      version on the card (tolerance stated per kernel), timed (device time,
      launches replayed from a CUDA graph) beside the plain version, the
      one-call PyTorch yardstick where there is one, and its bound (bytes
      over 3.35 TB/s or operations over the peak of their type); K4 and K5
-     also once each on a full-width Q8_0 weight.
+     also once each on a full-width Q8_0 weight, K3 and K5 also at the
+     engine's decode M = 4; K9/K10 at the serving path's shapes with a
+     scrambled page table.
 
 Prints one JSON line per phase result, then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
@@ -34,9 +46,12 @@ Built kernels and the GGUF files are cached under .cache/ in the checkout.
 from __future__ import annotations
 
 import json
+import random
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -53,6 +68,11 @@ NEW_TOKENS = 32
 MAX_LEN = 2048
 CHUNK = 256
 SMALL = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512)
+SERVE_PROMPT_BYTES = (300, 200, 129, 40)
+SERVE_NEW_TOKENS = 32
+ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
+                   "tokens_prefix_reused_total", "decode_steps_total", "prefill_steps_total",
+                   "context_shifts_total", "pages_cow_unshared_total", "engine_errors_total")
 
 
 def fail(msg: str):
@@ -282,6 +302,163 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str):
     return model, counts
 
 
+def wait_done(reqs, seconds: float = 300.0):
+    deadline = time.time() + seconds
+    while not all(r.done for r in reqs):
+        if time.time() > deadline:
+            fail("engine requests did not finish in time")
+        time.sleep(0.005)
+
+
+def small_engine_check(torch, kernels: dict):
+    """The continuous-batching Engine on the GPU (kernels) and on the CPU
+    (plain versions): the 2-layer Q4_K_M file in f32 with an f32 paged KV
+    cache, 2 slots, max_len 256, chunk 16, greedy.  Each wave is submitted
+    from the engine thread between two steps, so both engines admit it at
+    the same step."""
+    from zllm_torch.models.loader import Model
+    from zllm_torch.server.engine import Engine, Request
+
+    path, _ = gguf_file("small", SMALL, "Q4_K_M")
+    rng = random.Random(0)
+
+    def ids(n):
+        return [1] + [rng.randrange(3, SMALL["vocab_size"]) for _ in range(n - 1)]
+
+    p_long = ids(140)  # crosses the first 128-token page
+    waves = [[ids(40), p_long, ids(25)], [p_long[:130] + [7]]]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = Model.load(str(path), device=dev, dtype=torch.float32)
+        eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, kv_dtype=torch.float32)
+        before = {name: fn.launches for name, fn in kernels.items()}
+        eng.start()
+        try:
+            got = []
+            for wave in waves:
+                reqs = eng.run_in_loop(lambda wave=wave: [
+                    eng.submit(Request(prompt_tokens=p, max_new=8, temp=0.0)) for p in wave])
+                wait_done(reqs)
+                got += [(r.out_tokens, r.finish_reason, r.n_prompt_reused, r.error) for r in reqs]
+        finally:
+            eng.stop()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (got, {k: eng.metrics[k] for k in ENGINE_COUNTERS},
+                     {name: fn.launches - before[name] for name, fn in kernels.items()})
+    (g_got, g_cnt, g_k), (c_got, c_cnt, _) = runs["cuda"], runs["cpu"]
+    res = {"phase": "small_engine_gpu_vs_cpu", "ftype": "Q4_K_M", "shape": SMALL,
+           "dtype": "float32", "kv_dtype": "float32", "n_slots": 2, "max_len": 256, "chunk": 16,
+           "tokens_equal": g_got == c_got, "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
+           "n_prompt_reused": [r[2] for r in g_got], "gpu_launches": g_k}
+    emit(res)
+    if any(r[3] for r in g_got + c_got):
+        fail(f"engine errors: {[r[3] for r in g_got + c_got]}")
+    if g_got != c_got or g_cnt != c_cnt:
+        fail(f"GPU engine disagrees with the CPU engine: {g_got} / {c_got}, {g_cnt} / {c_cnt}")
+    if g_got[-1][2] < 128 or not (g_k["paged_attention"] and g_k["paged_attn_decode_update"]):
+        fail(f"small engine run shared no page or launched no paged kernel: {res}")
+
+
+def serve_phase(torch, model, kernels: dict, card: str) -> dict:
+    """The serving main path: ZllmServer (defaults) over the TinyLlama-
+    geometry Q4_K_M model on a local port.  Warm up, set the launch counts
+    to 0, then the traffic; the counts must match the engine's own step
+    counters exactly.  Returns the counts."""
+    from zllm_torch.server.http import ZllmServer
+
+    srv = ZllmServer(model, port=0)
+    srv.start_background()
+    eng = srv.engine
+    text = ("The quick brown fox jumps over the lazy dog while the chip counts every "
+            "byte it reads. ") * 8
+
+    def post(path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read().decode()
+
+    def completion(n_bytes, tail=""):
+        return {"prompt": text[:n_bytes] + tail, "max_tokens": SERVE_NEW_TOKENS,
+                "temperature": 0}
+
+    try:
+        post("/v1/completions", completion(40))  # warm-up
+        for fn in kernels.values():
+            fn.launches = 0
+        m0 = dict(eng.metrics)
+        ttft0 = (eng.hist_ttft.total, eng.hist_ttft.n)
+
+        results = {}
+
+        def client(n):
+            results[n] = json.loads(post("/v1/completions", completion(n)))
+
+        threads = [threading.Thread(target=client, args=(n,)) for n in SERVE_PROMPT_BYTES]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        window = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or len(results) != len(SERVE_PROMPT_BYTES):
+            fail("serve: concurrent requests did not finish")
+        gen_tokens = sum(r["usage"]["completion_tokens"] for r in results.values())
+        ttft_n = eng.hist_ttft.n - ttft0[1]
+        ttft_mean = (eng.hist_ttft.total - ttft0[0]) / max(ttft_n, 1)
+
+        events = [ln[6:] for ln in post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": text[:120]}], "stream": True,
+            "max_tokens": SERVE_NEW_TOKENS, "temperature": 0}).splitlines()
+            if ln.startswith("data: ")]
+        chat_finish = json.loads(events[-2])["choices"][0]["finish_reason"] if len(events) > 1 else ""
+        resend = json.loads(post("/v1/completions", completion(280, " and then it rests.")))
+        reused = eng.metrics["tokens_prefix_reused_total"] - m0["tokens_prefix_reused_total"]
+        sequential = {n: json.loads(post("/v1/completions", completion(n)))
+                      for n in SERVE_PROMPT_BYTES}
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        m1 = dict(eng.metrics)
+    finally:
+        srv.shutdown()
+
+    steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
+    dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
+    L = model.cfg.n_layers
+    low = L // 2
+    expected = {name: 0 for name in kernels}
+    expected.update(paged_attn_decode_update=L * dec, paged_attention=L * pre,
+                    q4k_gemm=(4 * L + (L - low)) * (dec + pre),
+                    dequant_gemm=(L + low + 1) * (dec + pre))
+    finishes = [r["choices"][0]["finish_reason"] for r in
+                (*results.values(), resend, *sequential.values())] + [chat_finish]
+    same = all(results[n]["choices"][0]["text"] == sequential[n]["choices"][0]["text"]
+               for n in SERVE_PROMPT_BYTES)
+    emit({"phase": "serve", "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+          "dtype": "bfloat16", "kv_dtype": "bfloat16", "n_slots": eng.n_slots,
+          "max_len": eng.max_len, "chunk": eng.prefill_chunk, "page_size": eng.alloc.ps,
+          "prompt_bytes": list(SERVE_PROMPT_BYTES), "max_tokens": SERVE_NEW_TOKENS,
+          "concurrent_window_s": window, "generated_tokens": gen_tokens,
+          "generated_tok_s": gen_tokens / window, "requests_s": len(results) / window,
+          "ttft_mean_s": ttft_mean, "ttft_n": ttft_n, "prefix_reused_after_resend": reused,
+          "concurrent_equals_sequential": same, "finish_reasons": finishes,
+          "engine_counters": steps, "launches": counts, "launches_expected": expected,
+          "card": card})
+    if steps["engine_errors_total"] or m1["engine_errors_total"] or "error" in finishes \
+            or "" in finishes:
+        fail(f"serve: engine errors {steps['engine_errors_total']}, finishes {finishes}")
+    if not same:
+        fail("serve: concurrent texts differ from the same bodies sent one at a time: "
+             f"{[(results[n]['choices'][0]['text'], sequential[n]['choices'][0]['text']) for n in SERVE_PROMPT_BYTES]}")
+    if reused < 256:
+        fail(f"serve: {reused} prompt tokens reused after the re-send, wanted >= 256")
+    if counts != expected or not dec or not pre:
+        fail(f"serve: kernel launch counts {counts} != expected {expected}")
+    return counts
+
+
 def main():
     if not (REPO / "zllm_torch" / "csrc").is_dir():
         fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")
@@ -314,19 +491,23 @@ def main():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "built": sorted(reports), "ptxas": ptxas})
 
-    for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
-        small_model_check(torch, ftype)
-
-    # ---- main paths at TinyLlama geometry -------------------------------
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
-               "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention}
+               "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention,
+               "paged_attn_decode_update": att.paged_attn_decode_update,
+               "paged_attention": att.paged_attention}
 
+    for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
+        small_model_check(torch, ftype)
+    small_engine_check(torch, kernels)
+
+    # ---- main paths at TinyLlama geometry -------------------------------
     def want_q4k(cfg, n_steps, n_chunks):
         L = cfg.n_layers  # wqkv, wo, gate|up, down a layer + the head
         return {"q4k_matvec": (4 * L + 1) * n_steps, "int8_matvec": 0,
                 "attn_decode_qkv": L * n_steps, "q4k_gemm": (4 * L + 1) * n_chunks,
-                "dequant_gemm": 0, "flash_attention": L * n_chunks}
+                "dequant_gemm": 0, "flash_attention": L * n_chunks,
+                "paged_attn_decode_update": 0, "paged_attention": 0}
 
     def want_q4km(cfg, n_steps, n_chunks):
         # Q4_K: wq, wk, wo, gate|up a layer + ffn_down of the last L/2;
@@ -335,11 +516,13 @@ def main():
         k1, k4 = 4 * L + (L - low), L + low + 1
         return {"q4k_matvec": k1 * n_steps, "int8_matvec": k4 * n_steps,
                 "attn_decode_qkv": L * n_steps, "q4k_gemm": k1 * n_chunks,
-                "dequant_gemm": k4 * n_chunks, "flash_attention": L * n_chunks}
+                "dequant_gemm": k4 * n_chunks, "flash_attention": L * n_chunks,
+                "paged_attn_decode_update": 0, "paged_attention": 0}
 
     model, counts_q4k = main_path(torch, "Q4_K", kernels, want_q4k, card)
     model_m, counts_q4km = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
-    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km}
+    counts_serve = serve_phase(torch, model_m, kernels, card)
+    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "serve": counts_serve}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -516,6 +699,118 @@ def main():
                              f"[1,{hkv},{MAX_LEN},{hd}] bf16", launches_per_chunk=per_layer))
     del ks, vs
 
+    # K9 / K10 at the serving path's shapes: 4 slots, 16 logical pages of
+    # 128 (max_len 2048), 65 physical pages per layer pool, a scrambled table
+    # (physical != logical), bf16 pools, f32 q/k/v (the GEMMs' output dtype)
+    n_slots, ps, lp = 4, 128, MAX_LEN // 128
+    n_pages = n_slots * lp + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(2)) + 1
+    table = torch.zeros((n_slots, lp + 1), dtype=torch.int32)
+    table[:, :lp] = perm.reshape(n_slots, lp).to(torch.int32)
+    table = table.to("cuda")
+    pool_shape = (hkv, n_pages * ps, hd)
+    kpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in layers]
+    vpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in layers]
+    horizon = lp * ps
+
+    def gathered(pool):  # [B, Hkv, S, D] through the table (outside any timing)
+        rows = (table[:, :lp].long()[:, torch.arange(horizon, device="cuda") // ps] * ps
+                + torch.arange(horizon, device="cuda") % ps)
+        return pool[:, rows.reshape(-1)].reshape(hkv, n_slots, horizon, hd).transpose(0, 1)
+
+    # K9: a page edge, position 0, a mid-page position and a trash row
+    pos9 = torch.tensor([[255], [0], [300], [horizon]], dtype=torch.int32, device="cuda")
+    q9 = randn(n_slots, 1, hq, hd)
+    kn9, vn9 = randn(n_slots, 1, hkv, hd), randn(n_slots, 1, hkv, hd)
+    kw9 = dict(page_size=ps, scale=scale)
+    ka, va, kb, vb = kpools[0].clone(), vpools[0].clone(), kpools[0].clone(), vpools[0].clone()
+    a = att.paged_attn_decode_update(q9, kn9, vn9, ka, va, table, pos9, **kw9)
+    b = att.paged_attn_decode_update_plain(q9, kn9, vn9, kb, vb, table, pos9, **kw9)
+    live = pos9[:, 0] < horizon
+    k9_err = nmse(a[live].float(), b[live].float())
+    k9_abs = float((a[live].float() - b[live].float()).abs().max())
+    if not (torch.equal(ka[:, ps:], kb[:, ps:]) and torch.equal(va[:, ps:], vb[:, ps:])
+            and torch.equal(ka[:, :ps], kpools[0][:, :ps])):
+        fail("K9's pools differ from its plain version's outside the trash page "
+             "(or it wrote the trash page)")
+
+    def k9():
+        for kp_, vp_ in zip(kpools, vpools):
+            att.paged_attn_decode_update(q9, kn9, vn9, kp_, vp_, table, pos9, **kw9)
+
+    def k9_plain():
+        for kp_, vp_ in zip(kpools, vpools):
+            att.paged_attn_decode_update_plain(q9, kn9, vn9, kp_, vp_, table, pos9, **kw9)
+
+    read9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist())  # visible slots
+    nbytes = per_layer * (2 * hkv * read9 * hd * 2 + (q9.numel() + 2 * kn9.numel()) * 4
+                          + q9.numel() * 4 + 2 * int(live.sum()) * hkv * hd * 2)
+    ops = per_layer * 4 * hq * read9 * hd
+    bms, bby = bound_ms(nbytes, ops, "bf16")
+    lines.append(dict(name="paged_attn_decode_update", route="cuda",
+                      source="zllm_torch/csrc/paged_decode.cu", replaces="zllm/ops/attention.py:665",
+                      launches=counts_serve["paged_attn_decode_update"], max_abs_err=k9_abs,
+                      ms=cuda_ms(k9, 20), plain_ms=cuda_ms(k9_plain, 2), bound_ms=bms,
+                      bound_by=bby, library_ms=None,
+                      library="none (no one call inserts and attends through a page table)",
+                      nmse=k9_err, tolerance=1e-6,
+                      launches_by_path=by_path("paged_attn_decode_update"),
+                      unit="one serve decode step (22 launches)",
+                      shapes=f"q [{n_slots},1,{hq},{hd}] f32, k/v_new [{n_slots},1,{hkv},{hd}] f32, "
+                             f"pools [{hkv},{n_pages * ps},{hd}] bf16, table [{n_slots},{lp + 1}] "
+                             f"scrambled, pos {pos9[:, 0].tolist()}", launches_per_step=per_layer))
+
+    # K10: one mixed step's attention, chunk 128: rows from 0, from 256 (a
+    # page edge), from 300 (mid-page, across a page) and a trash row
+    t10 = 128
+    pos10 = (torch.tensor([0, 256, 300, horizon], dtype=torch.int32, device="cuda")[:, None]
+             + torch.arange(t10, dtype=torch.int32, device="cuda")[None])
+    q10 = randn(n_slots, t10, hq, hd)
+    kw10 = dict(page_size=ps, scale=scale)
+    a = att.paged_attention(q10, kpools[0], vpools[0], table, pos10, **kw10)
+    b = att.paged_attention_plain(q10, kpools[0], vpools[0], table, pos10, **kw10)
+    live10 = pos10[:, 0] < horizon
+    k10_err = nmse(a[live10].float(), b[live10].float())
+    k10_abs = float((a[live10] - b[live10]).abs().max())
+    kg = [gathered(kp_) for kp_ in kpools]
+    vg = [gathered(vp_) for vp_ in vpools]
+    q10b = q10.to(torch.bfloat16).transpose(1, 2)
+    mask10 = (torch.arange(horizon, device="cuda")[None, None, :]
+              <= pos10[:, :, None]).reshape(n_slots, 1, t10, horizon)
+
+    def k10():
+        for kp_, vp_ in zip(kpools, vpools):
+            att.paged_attention(q10, kp_, vp_, table, pos10, **kw10)
+
+    def k10_plain():
+        for kp_, vp_ in zip(kpools, vpools):
+            att.paged_attention_plain(q10, kp_, vp_, table, pos10, **kw10)
+
+    def k10_lib():  # SDPA on K/V gathered before the timed window
+        for k_, v_ in zip(kg, vg):
+            F.scaled_dot_product_attention(q10b, k_, v_, attn_mask=mask10, scale=scale,
+                                           enable_gqa=True)
+
+    # slots read per row (its pages), and (query, slot) pairs the causal
+    # mask lets through: query t of a row from p0 sees slots 0 .. p0 + t
+    reads10 = [min(int(p_) + t10 - 1, horizon - 1) + 1 for p_ in pos10[:, 0].tolist()]
+    pairs10 = sum(min(int(p_) + t, horizon - 1) + 1
+                  for p_ in pos10[:, 0].tolist() for t in range(t10))
+    nbytes = per_layer * (2 * q10.numel() * 4 + 2 * hkv * sum(reads10) * hd * 2)
+    ops = per_layer * 4 * hq * pairs10 * hd
+    bms, bby = bound_ms(nbytes, ops, "bf16")
+    lines.append(dict(name="paged_attention", route="cuda", source="zllm_torch/csrc/paged_attn.cu",
+                      replaces="zllm/ops/attention.py:350", launches=counts_serve["paged_attention"],
+                      max_abs_err=k10_abs, ms=cuda_ms(k10, 10), plain_ms=cuda_ms(k10_plain, 2),
+                      bound_ms=bms, bound_by=bby, library_ms=cuda_ms(k10_lib, 10),
+                      library="scaled_dot_product_attention on K/V gathered outside the timing",
+                      nmse=k10_err, tolerance=1e-6, launches_by_path=by_path("paged_attention"),
+                      unit="one serve mixed step (22 launches)",
+                      shapes=f"q [{n_slots},{t10},{hq},{hd}] f32 from {pos10[:, 0].tolist()}, "
+                             f"pools [{hkv},{n_pages * ps},{hd}] bf16, table scrambled",
+                      launches_per_step=per_layer))
+    del kpools, vpools, kg, vg
+
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
     # the bf16 residual
@@ -556,6 +851,28 @@ def main():
                              "head 2048->32000 (launched padded to 32768)], all Q6_K",
                       launches_per_chunk=len(gcalls5)))
 
+    # K3 and K5 at the engine's decode M = 4 (one row per slot): one serve
+    # decode step's 99 Q4_K and 34 Q6_K GEMMs of the Q4_K_M model
+    x4 = {d_model: randn(4, d_model), n_ff: randn(4, n_ff)}
+    xh4 = randn(4, d_model, dtype=torch.bfloat16)
+
+    def rows4(x):
+        return xh4 if x.dtype == torch.bfloat16 else x4[x.shape[1]]
+
+    g4_k3 = [(rows4(x), w) for x, w in gcalls_m]
+    g4_k5 = [(rows4(x), w) for x, w in gcalls5]
+    by_name = {ln["name"]: ln for ln in lines}
+    by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
+        gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
+                   GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1)),
+        launches=len(g4_k3), shapes="M=4 x the 99 Q4_K weights of a Q4_K_M step")
+    by_name["dequant_gemm"]["serve_decode_step_m4"] = dict(
+        gemm_phase(torch, qmm.dequant_gemm, qmm.dequant_gemm_plain, g4_k5, n_real,
+                   GGUF_BYTES_PER_WEIGHT["Q6_K"], check=(0, len(g4_k5) - 1)),
+        launches=len(g4_k5), shapes="M=4 x the 34 Q6_K weights of a Q4_K_M step")
+    bad_m4 = [n for n in ("q4k_gemm", "dequant_gemm")
+              if not by_name[n]["serve_decode_step_m4"]["nmse"] <= 1e-6]
+
     # K4 and K5 once each on a full-width Q8_0 weight (gate shape 2048->5632)
     rng_w = torch.Generator().manual_seed(1)
     w8 = repack(qb.quantize((torch.randn(n_ff, d_model, generator=rng_w) * 0.05).numpy(),
@@ -587,8 +904,9 @@ def main():
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
-    if bad or bad_q8:
-        fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8})")
+    if bad or bad_q8 or bad_m4:
+        fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
+             f"M=4: {bad_m4})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})

@@ -197,3 +197,82 @@ def test_k6_matches_plain(dev, case, kvdtype):
     torch.cuda.synchronize()
     assert got.dtype == qdtype and got.shape == q.shape
     assert _nmse(got.float(), want.float()) < 1e-5
+
+
+def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
+    """Random pools [Hkv, P*ps, D] and a table whose pages are scrambled
+    (physical != logical), with the trash page 0 pinned in the last column."""
+    n_pages = b * lp + 1
+    k_pool = _randn((hkv, n_pages * ps, d), seed, dev, pdtype)
+    v_pool = _randn((hkv, n_pages * ps, d), seed + 1, dev, pdtype)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    table = np.zeros((b, lp + 1), np.int32)
+    table[:, :lp] = perm.reshape(b, lp)
+    return k_pool, v_pool, torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+@pytest.mark.parametrize("case", ["chunk", "t1", "window", "softcap", "d128", "ragged",
+                                  "g1", "trash_row"])
+def test_k10_matches_plain(dev, case, qdtype, pdtype):
+    b, hq, hkv, lp, ps = 3, 32, 4, 8, 128
+    d = 128 if case == "d128" else 64
+    if case == "g1":
+        hq = hkv
+    t = {"t1": 1, "ragged": 37}.get(case, 128)
+    q = _randn((b, t, hq, d), 20, dev, qdtype)
+    k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 21)
+    starts = torch.tensor([0, 300, 1000], dtype=torch.int32, device=dev)
+    if case == "trash_row":
+        starts[2] = lp * ps  # the engine's idle row
+    positions = starts[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None]
+    kw = dict(page_size=ps, scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
+              window=200 if case == "window" else 0)
+    before = ta.paged_attention.launches
+    got = ta.paged_attention(q, k_pool, v_pool, table, positions, **kw)
+    want = ta.paged_attention_plain(q, k_pool, v_pool, table, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.paged_attention.launches == before + 1
+    assert got.dtype == qdtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    rows = 2 if case == "trash_row" else b
+    assert _nmse(got[:rows].float(), want[:rows].float()) < 1e-6
+
+
+@pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+@pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
+                                  "g4", "long"])
+def test_k9_matches_plain(dev, case, qdtype, pdtype):
+    """Positions include a page edge, 0, a mid-page one and a trash row; the
+    pools must come out bit-identical outside the trash page 0."""
+    b, hq, hkv, lp, ps = 4, 32, 4, 16, 128
+    d = 128 if case == "d128" else 64
+    if case == "g4":
+        hq = 16
+    pos_vals = {"page_edge": [127, 128, 255, lp * ps],
+                "start": [0, 1, 2, lp * ps],
+                "long": [lp * ps - 1, 1500, 2000, 3]}.get(case, [0, 300, 1000, lp * ps])
+    positions = torch.tensor(pos_vals, dtype=torch.int32, device=dev)[:, None]
+    q = _randn((b, 1, hq, d), 30, dev, qdtype)
+    kn = _randn((b, 1, hkv, d), 31, dev, qdtype)
+    vn = _randn((b, 1, hkv, d), 32, dev, qdtype)
+    k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 33)
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    kw = dict(page_size=ps, scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
+              window=300 if case == "window" else 0)
+    before = ta.paged_attn_decode_update.launches
+    got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, positions, **kw)
+    want = ta.paged_attn_decode_update_plain(q, kn, vn, k2, v2, table, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.paged_attn_decode_update.launches == before + 1
+    assert got.dtype == qdtype and got.shape == q.shape
+    live = positions[:, 0] < lp * ps
+    assert _nmse(got[live].float(), want[live].float()) < 1e-6
+    assert torch.equal(k_pool[:, ps:], k2[:, ps:]) and torch.equal(v_pool[:, ps:], v2[:, ps:])
+    assert torch.equal(k_pool[:, :ps], k2[:, :ps])  # no row writes the trash page

@@ -1,0 +1,82 @@
+// K10: multi-token GQA attention over a paged KV pool.
+//
+// Replaces zllm/ops/attention.py::_paged_attn_kernel (launched by
+// paged_attention): queries q[B, T, Hq, D] at consecutive positions
+// pos0[b] + t attend the logical slots 0 .. LP*ps - 1 of their row, read
+// through the page table, over slots <= pos (and > pos - window), with
+// optional logit softcap.  As in zllm, the causal mask comes from pos0
+// alone: the engine's mixed step puts a generating row's one real token in
+// column 0 and trash positions in the rest, and reads back column 0 only.
+//
+// Layout: each layer's pool is token-major, [Hkv, P * ps, D]; slot s of
+// row b is pool row table[b, s / ps] * ps + s % ps of head h.  The TPU
+// kernel streams one page per grid step through its scalar-prefetched
+// table; here the tile loop of attn_tile.cuh (shared with K6) streams
+// 64-slot tiles, and since ps is a multiple of 64 a tile never straddles a
+// page: one table read a tile gives its base row, and its 64 rows are
+// contiguous.
+//
+// Bound on the H100: 4 * Hq * D FLOPs per visible (query, slot) pair over
+// the 989 TFLOP/s tensor-core peak, or the q/out bytes and the bytes of the
+// pages read over 3.35 TB/s, whichever is larger; at the serve path's mixed
+// step (chunk 128, rows from 0, 256, 300 and a trash row) it is the bytes,
+// by a small margin.  A block takes 32 of the T * G query rows of one
+// (slot, kv head), so a chunk of 128 at G = 8 gives 32 x Hkv x B blocks.
+
+#include "attn_tile.cuh"
+
+namespace {
+
+using namespace zt_attn;
+
+template <typename T>
+struct PagedKV {
+  const T* k;
+  const T* v;
+  const int* table;  // [B, TW]
+  int TW, ps, D;
+  size_t head_stride;  // P * ps * D elements per head
+  __device__ __forceinline__ size_t off(int b, int h, int s0) const {
+    const int page = __ldg(table + (size_t)b * TW + s0 / ps);
+    return (size_t)h * head_stride + ((size_t)page * ps + s0 % ps) * D;
+  }
+  __device__ __forceinline__ const T* k_rows(int b, int h, int s0) const { return k + off(b, h, s0); }
+  __device__ __forceinline__ const T* v_rows(int b, int h, int s0) const { return v + off(b, h, s0); }
+};
+
+template <typename TQ, typename TKV>
+int launch_d(int D, const void* q, const void* k, const void* v, const int* table,
+             const int* pos0, void* out, int B, int T, int Hq, int Hkv, int n_rows, int TW,
+             int ps, float scale, float softcap, int window, cudaStream_t s) {
+  const PagedKV<TKV> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), table, TW, ps,
+                        D, (size_t)n_rows * D};
+  const int S = (TW - 1) * ps;  // the last table column is the trash pin
+  if (D == 64)
+    return launch_tiles<TQ, TKV, 64>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
+                                     softcap, window, s);
+  if (D == 128)
+    return launch_tiles<TQ, TKV, 128>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
+                                      softcap, window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16.  Pools [Hkv, n_rows, D] with
+// n_rows = P * ps; table int32 [B, TW]; pos0 int32 [B].
+extern "C" int zt_paged_attention(const void* q, int q_dtype, const void* k_pool,
+                                  const void* v_pool, int kv_dtype, const int* table,
+                                  const int* pos0, void* out, int B, int T, int Hq, int Hkv,
+                                  int D, int n_rows, int TW, int ps, float scale, float softcap,
+                                  int window, void* stream) {
+  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % KT != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ZT_ARGS D, q, k_pool, v_pool, table, pos0, out, B, T, Hq, Hkv, n_rows, TW, ps, scale, \
+                softcap, window, s
+  if (q_dtype == 0 && kv_dtype == 0) return launch_d<float, float>(ZT_ARGS);
+  if (q_dtype == 0 && kv_dtype == 1) return launch_d<float, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 0) return launch_d<__nv_bfloat16, float>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+#undef ZT_ARGS
+  return (int)cudaErrorInvalidValue;
+}

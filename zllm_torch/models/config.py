@@ -81,6 +81,11 @@ class ModelConfig:
         )
         if scaling == "longrope" or int(kv("expert_count", 0)) > 0:
             raise NotImplementedError("longrope and MoE llama are not in zllm_torch yet")
+        if int(kv("attention.sliding_window", 0) or 0) > 0:
+            # zllm reads the window for llama files too; attending the full
+            # context instead would be another model
+            raise NotImplementedError("sliding-window attention is not in zllm_torch yet "
+                                      "(ROADMAP queue 1 item 6: KVCacheSWA)")
         return cls(
             arch=arch,
             n_layers=int(kv("block_count")),

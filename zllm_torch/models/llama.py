@@ -12,30 +12,39 @@ residual; final norm and output head.  The decode fast paths sit where
     into the gate|up matvec and SwiGLU into the down matvec ("norm"/"glu"),
     the final norm into the head matvec; each matvec is K1 for a Q4_K
     weight and K4 for Q6_K or Q8_0;
-  * T=1 with a KV cache: the whole attention block is one kernel (K2).
+  * T=1 with a contiguous KV cache: the whole attention block is one
+    kernel (K2).
 
 Every other shape takes the unfused path: RMS norm, `linear` (K3 or K5 for
 the quantized weights of a multi-row batch), rope, cache insert, then
-prefill attention (K6).  MoE, MLA, LoRA, sliding window, ALiBi and sinks are not
-part of this block.
+prefill attention (K6).  With the serving engine's paged cache
+(`runtime/paged.PagedKVCache`) every row has its own positions: at T=1 rope
+runs outside the kernel and K9 inserts and attends in one launch, as zllm
+does; at T>1 the rows are scattered into their pages (`kv.update`) and K10
+attends through the page table.  MoE, MLA, LoRA, sliding window, ALiBi and
+sinks are not part of this block.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.attention import attn_decode_qkv, flash_attention
+from ..ops.attention import (
+    attn_decode_qkv, flash_attention, paged_attention, paged_attn_decode_update,
+)
 from ..ops.layers import apply_rope, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
 from ..runtime.kvcache import KVCache
+from ..runtime.paged import PagedKVCache
 
 
 def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                  kv: KVCache | None, il: int, rope=None, start: int | None = None
-                  ) -> torch.Tensor:
+                  kv: KVCache | PagedKVCache | None, il: int, rope=None,
+                  start: int | None = None) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
-    `rope` is the decode step's cos/sin table (built once per step);
-    `start` the first cache slot of a multi-token insert (a host int)."""
+    `rope` is the contiguous decode step's cos/sin table (built once per
+    step); `start` the first slot of a contiguous multi-token insert (a host
+    int)."""
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
 
@@ -55,7 +64,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     qkv = qkv.reshape(b, t, -1)
     qd, kvd, d = cfg.q_dim, cfg.kv_dim, cfg.head_dim
 
-    if kv is not None and t == 1:
+    paged = isinstance(kv, PagedKVCache)
+    if isinstance(kv, KVCache) and t == 1:
         # the whole decode attention block in one kernel: split, rope,
         # in-place cache insert, attention
         if rope is None:
@@ -69,13 +79,24 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         v = qkv[..., qd + kvd:].reshape(b, t, -1, d)
         q = apply_rope(q, positions, cfg.rope)
         k = apply_rope(k, positions, cfg.rope)
-        if kv is not None:
+        if paged and t == 1:  # K9: insert into the page, attend, in one launch
+            att = paged_attn_decode_update(q, k, v, kv.k[il], kv.v[il], kv.table, positions,
+                                           page_size=kv.page_size, scale=scale,
+                                           softcap=cfg.attn_logit_softcap)
+        elif paged:  # scatter the rows into their pages, then K10
+            kv.update(il, k, v, positions)
+            att = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
+                                  page_size=kv.page_size, scale=scale,
+                                  softcap=cfg.attn_logit_softcap)
+        elif kv is not None:
             kv.update(il, k, v, start)
             k_all, v_all = kv.layer(il)
+            att = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
+                                  positions, scale=scale, softcap=cfg.attn_logit_softcap)
         else:
-            k_all, v_all = k.transpose(1, 2), v.transpose(1, 2)
-        att = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
-                              positions, scale=scale, softcap=cfg.attn_logit_softcap)
+            att = flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
+                                  v.transpose(1, 2).contiguous(), positions, scale=scale,
+                                  softcap=cfg.attn_logit_softcap)
     x = x + linear(att.reshape(b, t, -1), layer["wo"])
 
     ff = None
@@ -97,16 +118,19 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
-            kv: KVCache | None = None, *, start: int | None = None,
+            kv: KVCache | PagedKVCache | None = None, *, start: int | None = None,
             logits_for: str = "all") -> torch.Tensor:
     """tokens/positions [B, T] int32 -> logits [B, T or 1, vocab] f32.
-    The cache is updated in place; with a cache and T > 1, `start` is the
-    host copy of positions[:, 0] (every row's first position)."""
-    if kv is not None and tokens.shape[1] > 1 and start is None:
-        raise ValueError("a multi-token step with a KV cache needs its start position")
+    The cache is updated in place.  Only the contiguous `KVCache` needs a
+    host start: with it and T > 1, `start` is the host copy of
+    positions[:, 0] (every row's first position).  A `PagedKVCache` writes
+    each token at its own position, so its rows may sit anywhere (the
+    serving engine's slots, trash rows included) and `start` is unused."""
+    if isinstance(kv, KVCache) and tokens.shape[1] > 1 and start is None:
+        raise ValueError("a multi-token step with a contiguous KV cache needs its start position")
     x = params["tok_emb"][tokens.long()]
     rope = None
-    if kv is not None and tokens.shape[1] == 1:
+    if isinstance(kv, KVCache) and tokens.shape[1] == 1:
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
     for il, layer in enumerate(params["layers"]):
         x = layer_forward(layer, cfg, x, positions, kv, il, rope, start)

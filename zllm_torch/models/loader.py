@@ -163,6 +163,14 @@ class Model:
         self.device = device
         self.path = path
 
+    @property
+    def chat_template(self) -> str:
+        """The GGUF's tokenizer.chat_template jinja source ("" without a
+        tokenizer), read by `server/chat.py`'s format detection."""
+        if self.tokenizer is not None:
+            return self.tokenizer.vocab.chat_template
+        return ""
+
     @classmethod
     def load(cls, path: str, *, device="cuda", dtype=torch.bfloat16) -> "Model":
         dev = resolve_device(device)

@@ -1,6 +1,7 @@
-"""Attention kernels: the whole decode attention block (K2) and prefill
-attention (K6), each a hand-written CUDA kernel with its plain PyTorch
-version beside it.
+"""Attention kernels: the whole decode attention block (K2), prefill
+attention (K6), paged multi-token attention (K10) and the paged decode step
+(K9), each a hand-written CUDA kernel with its plain PyTorch version beside
+it.
 
   * `attn_decode_qkv` replaces `zllm/ops/attention.py::_attn_decode_qkv_kernel`
     (via `attn_decode_qkv`): split the fused [B, Hq+2Hkv, D] projection row,
@@ -11,9 +12,20 @@ version beside it.
     `flash_attention`): multi-token GQA attention, causal from a base
     position, window, softcap, sinks in the denominator.
     Source: `zllm_torch/csrc/flash_attn.cu`.
+  * `paged_attention` replaces `zllm/ops/attention.py::_paged_attn_kernel`
+    (via `paged_attention`): K6's attention with K/V read from a paged pool
+    through the page table; causal from positions[:, 0], window, softcap.
+    Source: `zllm_torch/csrc/paged_attn.cu` (K6's tile loop,
+    `csrc/attn_tile.cuh`, behind a page-table addressor).
+  * `paged_attn_decode_update` replaces
+    `zllm/ops/attention.py::_paged_decode_kernel` (via
+    `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
+    place, attend over the page table.  Source: `zllm_torch/csrc/paged_decode.cu`.
 
-The TPU tiling gates of `zllm` (`use_decode_qkv`, `use_fused`) are not
-carried over: on the card these kernels take every shape they are given.
+The paged pools are token-major, [Hkv, P * ps, D] (zllm's are token-minor;
+see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
+`use_fused`, `use_paged_decode_fused`) are not carried over: on the card
+these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
 `.launches`.
@@ -200,3 +212,154 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: paged multi-token attention
+# ---------------------------------------------------------------------------
+
+def _check_paged(q, k_pool, v_pool, table, page_size: int):
+    b, hq, d = q.shape[0], q.shape[2], q.shape[3]
+    hkv = k_pool.shape[0]
+    if (k_pool.dim() != 3 or k_pool.shape != v_pool.shape or k_pool.shape[2] != d
+            or hq % hkv or k_pool.shape[1] % page_size or table.dim() != 2
+            or table.shape[0] != b or table.shape[1] < 2):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)} "
+                         f"table {tuple(table.shape)} page {page_size}")
+
+
+def _paged_cuda_checks(q, k_pool, v_pool, table, page_size: int, tile: int):
+    if q.dtype not in cuda.DTYPE_CODE or k_pool.dtype not in cuda.DTYPE_CODE \
+            or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
+    if q.shape[3] not in (64, 128):
+        raise ValueError(f"head_dim {q.shape[3]} not supported")
+    if page_size % tile:
+        raise ValueError(f"page_size {page_size} is not a multiple of {tile}")
+    if table.dtype != torch.int32:
+        raise ValueError("the page table must be int32")
+
+
+def paged_attention_plain(q, k_pool, v_pool, table, positions, *, page_size: int,
+                          scale: float, softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Plain version of K10: gather the pages into [B, Hkv, S, D], then K6's
+    plain attention (f32 masked softmax, probabilities cast to the pool
+    dtype before P.V)."""
+    from ..runtime.paged import PagedKV
+
+    k, v = PagedKV(k_pool, v_pool, table, page_size).gather()
+    return flash_attention_plain(q, k, v, positions, scale=scale, softcap=softcap, window=window)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    table: torch.Tensor, positions: torch.Tensor, *, page_size: int,
+                    scale: float, softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """q [B, T, Hq, D]; pools [Hkv, P * ps, D]; table int32 [B, LP + 1];
+    positions [B, T] consecutive per row (only positions[:, 0] is read).
+    Returns [B, T, Hq, D] in q's dtype."""
+    _check_paged(q, k_pool, v_pool, table, page_size)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, table, positions, page_size=page_size,
+                                     scale=scale, softcap=softcap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _paged_cuda_checks(q, k_pool, v_pool, table, page_size, 64)
+    pos0 = positions[:, 0].contiguous()
+    if pos0.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    cuda.require_cuda(q, k_pool, v_pool, table, pos0)
+    b, t, hq, d = q.shape
+    out = torch.empty_like(q)
+    fn = cuda.bind("paged_attn", "zt_paged_attention",
+                   [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                    _P])
+    err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
+             cuda.DTYPE_CODE[k_pool.dtype], table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
+             b, t, hq, k_pool.shape[0], d, k_pool.shape[1], table.shape[1], page_size,
+             float(scale), float(softcap), int(window), cuda.stream())
+    cuda.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: paged decode step (insert + attend)
+# ---------------------------------------------------------------------------
+
+def paged_attn_decode_update_plain(q, k_new, v_new, k_pool, v_pool, table, positions, *,
+                                   page_size: int, scale: float, softcap: float = 0.0,
+                                   window: int = 0) -> torch.Tensor:
+    """Plain version of K9.  Rows with pos < horizon write their new K/V
+    (cast to the pool dtype) into the pools in place; then gather and K6's
+    plain attention at T=1.  Returns att [B, 1, Hq, D]."""
+    from ..runtime.paged import PagedKV
+
+    b = q.shape[0]
+    view = PagedKV(k_pool, v_pool, table, page_size)
+    pos = positions.reshape(b).long()
+    # a row past the horizon addresses the trash page through the pinned
+    # last column and writes back what is there (no host sync, so a CUDA
+    # graph can capture this too)
+    live = (pos < view.shape[2])[None, :, None]
+    lp = (pos // page_size).clamp(max=table.shape[1] - 1)
+    rows = table.long().gather(1, lp[:, None])[:, 0] * page_size + pos % page_size
+    k_pool[:, rows] = torch.where(live, k_new[:, 0].transpose(0, 1).to(k_pool.dtype), k_pool[:, rows])
+    v_pool[:, rows] = torch.where(live, v_new[:, 0].transpose(0, 1).to(v_pool.dtype), v_pool[:, rows])
+    k, v = view.gather()
+    return flash_attention_plain(q, k, v, pos.to(torch.int32)[:, None], scale=scale,
+                                 softcap=softcap, window=window)
+
+
+def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                             k_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor,
+                             positions: torch.Tensor, *, page_size: int, scale: float,
+                             softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """One layer's T=1 paged step.  q [B, 1, Hq, D] and k_new/v_new
+    [B, 1, Hkv, D] roped, one dtype; pools [Hkv, P * ps, D] updated in place;
+    table int32 [B, LP + 1]; positions int32 [B, 1] (rows at or past the
+    horizon LP * ps insert nothing).  Returns att [B, 1, Hq, D] in q's
+    dtype."""
+    _check_paged(q, k_pool, v_pool, table, page_size)
+    b, _, hq, d = q.shape
+    hkv = k_pool.shape[0]
+    if q.shape[1] != 1 or k_new.shape != (b, 1, hkv, d) or v_new.shape != k_new.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k_new {tuple(k_new.shape)}")
+    if q.device.type == "cpu":
+        return paged_attn_decode_update_plain(q, k_new, v_new, k_pool, v_pool, table, positions,
+                                              page_size=page_size, scale=scale, softcap=softcap,
+                                              window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _paged_cuda_checks(q, k_pool, v_pool, table, page_size, 1)
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise ValueError("q, k_new and v_new must share one dtype")
+    if hq // hkv > 8:
+        raise ValueError(f"query group {hq // hkv} > 8 not supported")
+    pos = positions.reshape(b).contiguous()
+    if pos.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    cuda.require_cuda(q, k_new, v_new, k_pool, v_pool, table, pos, aligned=(k_pool, v_pool))
+    n_pages = table.shape[1] - 1
+    out = torch.empty_like(q)
+    # per (slot, q head): the scores of every slot, then each page's softmax
+    # stats (2) and P.V partial (D)
+    scratch = torch.empty((b, hq, n_pages * (page_size + d + 2)), dtype=torch.float32,
+                          device=q.device)
+    fn = cuda.bind("paged_decode", "zt_paged_attn_decode_update",
+                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                    _F, _I, _P])
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cuda.DTYPE_CODE[q.dtype],
+             k_pool.data_ptr(), v_pool.data_ptr(), cuda.DTYPE_CODE[k_pool.dtype],
+             table.data_ptr(), pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, hq, hkv,
+             d, k_pool.shape[1], table.shape[1], page_size, float(scale), float(softcap),
+             int(window), cuda.stream())
+    cuda.check(err, "paged_attn_decode_update")
+    paged_attn_decode_update.launches += 1
+    return out
+
+
+paged_attn_decode_update.launches = 0

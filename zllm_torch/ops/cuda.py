@@ -35,6 +35,8 @@ SOURCES = {
     "dequant_gemm": "dequant_gemm.cu",
     "attn_decode": "attn_decode.cu",
     "flash_attn": "flash_attn.cu",
+    "paged_attn": "paged_attn.cu",
+    "paged_decode": "paged_decode.cu",
 }
 
 # No --use_fast_math: the matvec's int8 codes come from rintf(x / dx) with

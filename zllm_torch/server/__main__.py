@@ -1,0 +1,53 @@
+"""OpenAI-compatible continuous-batching server (counterpart of
+`tools/server.py`).
+
+Usage: python -m zllm_torch.server MODEL.gguf [--host 127.0.0.1 --port 8080
+       --slots 4 --ctx 2048 --kv-type bf16 --jinja --device cuda]
+
+Runs on the GPU unless --device cpu is given.  It offers only what the
+port serves: no router, speculative or lookahead decoding, q8/f16 KV,
+multi-device serving or media.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m zllm_torch.server")
+    ap.add_argument("model", help="GGUF file (plain llama: Q4_K, Q4_K_M, Q8_0, F16, F32)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--slots", type=int, default=4, help="concurrent sequences")
+    ap.add_argument("--ctx", type=int, default=2048, help="context per slot (rounded up to 128)")
+    ap.add_argument("--kv-type", default="bf16", choices=["bf16", "f32"],
+                    help="KV cache element type")
+    ap.add_argument("--jinja", action="store_true",
+                    help="render the GGUF's embedded jinja chat template")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model runs (cpu: the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    from ..models.loader import Model
+    from .http import ZllmServer
+
+    print(f"loading {args.model} ...", file=sys.stderr)
+    m = Model.load(args.model, device=args.device, dtype=torch.bfloat16)
+    if m.tokenizer is None:
+        ap.error(f"{args.model} has no tokenizer")
+    srv = ZllmServer(m, n_slots=args.slots, max_len=args.ctx, host=args.host, port=args.port,
+                     jinja=args.jinja,
+                     kv_dtype={"bf16": torch.bfloat16, "f32": torch.float32}[args.kv_type])
+    print(f"listening on http://{args.host}:{args.port}", file=sys.stderr)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,571 @@
+"""Continuous-batching inference engine over the paged KV cache
+(counterpart of `zllm/server/engine.py::Engine`, its paged dense-llama
+layout).
+
+A fixed pool of slots shares one page pool; one engine thread runs the
+steps:
+  * prompt chunks and generating slots share one batch: every prompting
+    slot's next chunk rides in its own row of an [n_slots, chunk] step and
+    a generating slot's token rides in column 0 (`_mixed_step`, K10); with
+    no prompt pending the step is [n_slots, 1] (`_decode_step`, K9).  Rows
+    with nothing to do sit at position max_len, the trash page;
+  * prompt-prefix reuse: a request shares the full 128-token pages of the
+    longest common prefix with any slot's cache (even a busy slot's: full
+    pages are immutable), and prefills only the rest;
+  * context shift: a generating slot that reaches max_len drops the oldest
+    half of its window (keeping n_keep) and re-rotates K in place, after a
+    copy-on-write unshare of pages it shares;
+  * sampling is one batched chain over all slots with per-slot parameters
+    and one torch.Generator per slot (`sampling/batched.py`); grammar
+    masking stays on the host, applied by resampling the rows whose first
+    draw the grammar refuses;
+  * the loop survives step errors: in-flight requests finish with a typed
+    error and the engine keeps serving.
+
+The model runs on its own device: a CUDA model's steps launch the port's
+kernels (K9/K10 attention, K3/K5 for the quantized matmuls), a CPU model's
+the plain versions.  What this engine does not port raises
+NotImplementedError naming its ROADMAP item: the contiguous layout,
+q8/f16 KV, speculative and lookahead decoding, tp/dp/pp/mesh and
+coordinated serving, media.  Recurrent, hybrid, MLA and SWA models do not
+load in zllm_torch at all (`models/config.py`).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from enum import Enum
+
+import numpy as np
+import torch
+
+from ..models.llama import forward
+from ..runtime.paged import PageAllocator, PagedKVCache, shift_context_row_paged
+from ..sampling import batched
+
+PENALTY_WINDOW = 64
+NEG_INF = -1e30  # matches sampling.batched.NEG_INF
+PAGE_SIZE = 128  # sets which prefixes are shareable (whole pages only)
+
+
+class Histogram:
+    """Prometheus-style cumulative histogram."""
+
+    def __init__(self, buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)  # +Inf
+        self.total = 0.0
+        self.n = 0
+
+    def observe(self, v: float):
+        self.total += v
+        self.n += 1
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+    def prometheus(self, name: str) -> str:
+        out, cum = [], 0
+        for b, c in zip(self.buckets, self.counts):
+            cum += c
+            out.append(f'{name}_bucket{{le="{b}"}} {cum}')
+        out.append(f'{name}_bucket{{le="+Inf"}} {self.n}')
+        out.append(f"{name}_sum {self.total}")
+        out.append(f"{name}_count {self.n}")
+        return "\n".join(out)
+
+
+class SlotState(Enum):
+    IDLE = 0
+    PROMPT = 1  # prefilling
+    GENERATING = 2
+
+
+@dataclass
+class Request:
+    prompt_tokens: list[int]
+    max_new: int = 128
+    grammar: object = None  # grammar.GrammarSampler (constrained decoding)
+    temp: float = 0.8
+    top_k: int = 40
+    top_p: float = 0.95
+    min_p: float = 0.05
+    typical_p: float = 1.0
+    top_n_sigma: float = 0.0
+    xtc_probability: float = 0.0
+    xtc_threshold: float = 0.1
+    repeat_penalty: float = 1.0
+    freq_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    dry_multiplier: float = 0.0
+    dry_base: float = 1.75
+    dry_allowed_length: int = 2
+    dynatemp_range: float = 0.0
+    dynatemp_exponent: float = 1.0
+    mirostat: int = 0  # 0 off, 2 = mirostat-v2 (v1 maps to v2)
+    mirostat_tau: float = 5.0
+    mirostat_eta: float = 0.1
+    seed: int = -1
+    n_keep: int = 0  # tokens preserved by context shift
+    media: list = field(default_factory=list)  # not ported: submit refuses it
+    stop_tokens: frozenset = frozenset()
+    stop_strings: tuple = ()
+    stream_q: "queue.Queue" = field(default_factory=queue.Queue)
+    rid: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
+    # results
+    done: bool = False
+    out_tokens: list[int] = field(default_factory=list)
+    finish_reason: str = ""
+    error: str = ""
+    n_prompt_reused: int = 0
+    stop_trim_chars: int = -1  # char offset of the matched stop string in the text
+    _text: str = ""  # decoded-so-far (stop-string scanning only)
+    _stopdec: object = None  # IncrementalDecoder for _text
+    t_submit: float = field(default_factory=time.time)
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+
+@dataclass
+class _Slot:
+    idx: int
+    state: SlotState = SlotState.IDLE
+    req: Request | None = None
+    pos: int = 0  # next absolute position
+    prompt_left: list[int] = field(default_factory=list)
+    last_token: int = 0
+    generated: int = 0
+    # tokens whose K/V currently live in this slot's pages [0, pos)
+    cache_tokens: list[int] = field(default_factory=list)
+
+
+def _common_prefix(a: list[int], b: list[int]) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not in zllm_torch's engine yet (ROADMAP queue 1 item 8)")
+
+
+class Engine:
+    def __init__(self, model, n_slots: int = 4, max_len: int = 2048, prefill_chunk: int = 128,
+                 kv_dtype=None, speculative: bool = False, draft_model=None, kv_layout: str = "auto",
+                 tp: int = 1, dp: int = 1, pp: int = 1, mesh=None, coordinated: bool = False,
+                 lookahead: bool = False):
+        if kv_layout not in ("auto", "paged"):
+            raise _not_ported(f"kv_layout={kv_layout!r} (the contiguous engine layout with K8)")
+        if kv_dtype is not None and not isinstance(kv_dtype, torch.dtype):
+            raise _not_ported(f"kv_dtype={kv_dtype!r} (the q8 KV cache with K7)")
+        if kv_dtype not in (None, torch.bfloat16, torch.float32):
+            raise _not_ported(f"kv_dtype={kv_dtype} (f16 KV)")
+        if speculative or draft_model is not None:
+            raise _not_ported("speculative decoding")
+        if lookahead:
+            raise _not_ported("lookahead decoding")
+        if (tp or 1) * (dp or 1) * (pp or 1) > 1 or mesh is not None or coordinated:
+            raise _not_ported("multi-device serving (tp/dp/pp/mesh, coordinated)")
+        self.model = model
+        self.device = model.device
+        self.n_slots = n_slots
+        self.prefill_chunk = prefill_chunk
+        cfg = model.cfg
+
+        # shared page pool + per-slot page tables; full prefix pages are
+        # shared across slots read-only
+        self.max_len = -(-max_len // PAGE_SIZE) * PAGE_SIZE
+        self.alloc = PageAllocator(n_slots, self.max_len, PAGE_SIZE)
+        for i in range(n_slots):
+            self.alloc.assign_slot(i, None, 0)
+        self.kv = PagedKVCache.create(
+            cfg.n_layers, n_slots, self.max_len, cfg.n_kv_heads, cfg.head_dim,
+            kv_dtype or torch.bfloat16, page_size=PAGE_SIZE, device=self.device,
+        ).with_table(self.alloc.table)
+
+        # per-slot sampling parameters, generators and penalty windows
+        self._params = batched.SlotParams(n_slots)
+        self._br_mask = torch.from_numpy(
+            batched.breaker_mask(model.tokenizer, cfg.vocab_size)).to(self.device)
+        self._gens = [torch.Generator(device=self.device) for _ in range(n_slots)]
+        for i, g in enumerate(self._gens):
+            g.manual_seed(i)
+        self._recent = np.full((n_slots, PENALTY_WINDOW), -1, np.int32)
+        self._mu = np.full((n_slots,), 10.0, np.float32)  # mirostat-v2 state
+
+        self.slots = [_Slot(idx=i) for i in range(n_slots)]
+        self.pending: "queue.Queue[Request]" = queue.Queue()
+        self._control: "queue.Queue" = queue.Queue()  # callables run on the engine thread
+        self._stop = False
+        self._wake = threading.Event()
+        self.metrics = {
+            "requests_total": 0,
+            "tokens_generated_total": 0,
+            "tokens_prefilled_total": 0,
+            "tokens_prefix_reused_total": 0,
+            "decode_steps_total": 0,
+            "prefill_steps_total": 0,
+            "context_shifts_total": 0,
+            "pages_cow_unshared_total": 0,
+            "engine_errors_total": 0,
+        }
+        self.hist_ttft = Histogram()  # time to first token (s)
+        self.hist_per_token = Histogram((0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0))
+        self.hist_request = Histogram()
+        self.thread = threading.Thread(target=self._loop, daemon=True, name="zllm-engine")
+
+    # -- public API ---------------------------------------------------------
+    def start(self):
+        self.thread.start()
+
+    def stop(self):
+        self._stop = True
+        self._wake.set()
+        self.thread.join(timeout=30)
+
+    def submit(self, req: Request) -> Request:
+        if len(req.prompt_tokens) >= self.max_len:
+            raise ValueError(f"prompt ({len(req.prompt_tokens)}) exceeds context ({self.max_len})")
+        if req.media:
+            raise _not_ported("media (multimodal requests)")
+        self.metrics["requests_total"] += 1
+        self.pending.put(req)
+        self._wake.set()
+        return req
+
+    def run_in_loop(self, fn):
+        """Execute fn() on the engine thread between steps; returns its
+        result (cache mutations must not race the step)."""
+        if not self.thread.is_alive():
+            return fn()
+        done = threading.Event()
+        box = {}
+
+        def wrapper():
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001 — handed back to the caller
+                box["error"] = e
+            done.set()
+
+        self._control.put(wrapper)
+        self._wake.set()
+        if not done.wait(timeout=120):
+            raise TimeoutError("engine control task timed out")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def metrics_view(self) -> dict:
+        return dict(self.metrics)
+
+    def slot_info(self) -> list[dict]:
+        return [
+            {
+                "id": s.idx,
+                "state": s.state.name.lower(),
+                "n_past": s.pos,
+                "n_cached": len(s.cache_tokens),
+                "request": s.req.rid if s.req else None,
+                "generated": s.generated,
+            }
+            for s in self.slots
+        ]
+
+    # -- engine loop --------------------------------------------------------
+    def _admit(self):
+        while True:
+            idle = [s for s in self.slots if s.state == SlotState.IDLE]
+            if not idle:
+                return
+            try:
+                req = self.pending.get_nowait()
+            except queue.Empty:
+                return
+            # the idle slot with the longest reusable prefix
+            best, best_n = idle[0], 0
+            for s in idle:
+                ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
+                if ncp > best_n:
+                    best, best_n = s, ncp
+            src_slot = best
+            # full prefix pages can be shared from ANY slot (even a busy one:
+            # full pages are immutable), so search all of them
+            for s in self.slots:
+                ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
+                if ncp > best_n:
+                    src_slot, best_n = s, ncp
+                    if s.state == SlotState.IDLE:
+                        best = s
+            # keep >= 1 token to prefill so the step yields next-token logits
+            n_reuse = min(best_n, len(req.prompt_tokens) - 1)
+            n_reuse -= n_reuse % self.alloc.ps  # only FULL pages are shareable
+            if n_reuse < 16:  # not worth the bookkeeping below this
+                n_reuse = 0
+            slot = best
+            if n_reuse > 0 and src_slot is not slot:
+                self.alloc.assign_slot(slot.idx, src_slot.idx, n_reuse // self.alloc.ps)
+                self.kv = self.kv.with_table(self.alloc.table)
+            elif n_reuse == 0:
+                # fresh mapping (drops any retained pages of this slot)
+                self.alloc.assign_slot(slot.idx, None, 0)
+                self.kv = self.kv.with_table(self.alloc.table)
+            # n_reuse > 0 and the source is the slot itself: keep its mapping
+            slot.req = req
+            slot.state = SlotState.PROMPT
+            slot.pos = n_reuse
+            slot.cache_tokens = req.prompt_tokens[:n_reuse]
+            slot.prompt_left = list(req.prompt_tokens[n_reuse:])
+            slot.generated = 0
+            req.n_prompt_reused = n_reuse
+            self.metrics["tokens_prefix_reused_total"] += n_reuse
+            # per-slot sampling params + generator seed + penalty window
+            self._params.set_slot(slot.idx, req)
+            self._mu[slot.idx] = 2.0 * req.mirostat_tau
+            seed = req.seed if req.seed >= 0 else int(time.time_ns() & 0x7FFFFFFF) + slot.idx
+            self._gens[slot.idx].manual_seed(seed)
+            hist = req.prompt_tokens[-PENALTY_WINDOW:]
+            self._recent[slot.idx] = -1
+            if hist:
+                self._recent[slot.idx, -len(hist):] = hist
+
+    def _finish(self, slot: _Slot, reason: str, error: str = ""):
+        req = slot.req
+        req.finish_reason = reason
+        req.error = error
+        req.done = True
+        req.t_done = time.time()
+        if req.t_first_token:
+            self.hist_ttft.observe(req.t_first_token - req.t_submit)
+            if len(req.out_tokens) > 1:
+                self.hist_per_token.observe(
+                    (req.t_done - req.t_first_token) / (len(req.out_tokens) - 1)
+                )
+        self.hist_request.observe(req.t_done - req.t_submit)
+        req.stream_q.put(None)  # sentinel
+        slot.state = SlotState.IDLE
+        slot.req = None
+
+    def _loop(self):
+        # inference mode is thread-local: the engine thread enters it itself
+        with torch.inference_mode():
+            while not self._stop:
+                try:
+                    self._step_once()
+                except Exception as e:  # noqa: BLE001
+                    # a failed step must not kill the engine thread: error
+                    # out the in-flight requests, keep serving
+                    self.metrics["engine_errors_total"] += 1
+                    msg = f"{type(e).__name__}: {e}"
+                    for s in self.slots:
+                        if s.req is not None:
+                            s.cache_tokens = []
+                            s.pos = 0
+                            self._finish(s, "error", msg)
+
+    def _step_once(self):
+        while True:  # control tasks run between steps
+            try:
+                self._control.get_nowait()()
+            except queue.Empty:
+                break
+        self._admit()
+        prompt_slots = [s for s in self.slots if s.state == SlotState.PROMPT]
+        gen_slots = [s for s in self.slots if s.state == SlotState.GENERATING]
+
+        if not prompt_slots and not gen_slots:
+            self._wake.wait(timeout=0.05)
+            self._wake.clear()
+            return
+
+        for s in gen_slots:
+            if s.pos + 1 >= self.max_len:
+                self._shift_slot(s)
+
+        if prompt_slots:
+            self._mixed_step(prompt_slots, gen_slots)
+        else:
+            self._decode_step(gen_slots)
+
+    def _shift_slot(self, slot: _Slot):
+        """Discard the oldest half of the slot's window, keep n_keep."""
+        if not self.alloc.exclusively_owned(slot.idx):
+            # the shift rewrites pages in place: copy-on-write unshare the
+            # shared prefix pages first (fresh private pages + page copies)
+            try:
+                copies = self.alloc.unshare_slot(slot.idx)
+            except IndexError:
+                self._finish(slot, "length")  # page pool exhausted
+                return
+            self.kv = self.kv.copy_pages(copies).with_table(self.alloc.table)
+            self.metrics["pages_cow_unshared_total"] += len(copies)
+        n_keep = slot.req.n_keep if slot.req else 0
+        n_discard = max((self.max_len - n_keep) // 2, 1)
+        self.kv = shift_context_row_paged(self.kv, self.model.cfg.rope, slot.idx, n_keep, n_discard)
+        slot.pos -= n_discard
+        slot.cache_tokens = slot.cache_tokens[:n_keep] + slot.cache_tokens[n_keep + n_discard:]
+        self.metrics["context_shifts_total"] += 1
+
+    def _forward(self, toks: np.ndarray, pos: np.ndarray, logits_for: str) -> torch.Tensor:
+        return forward(self.model.params, self.model.cfg, torch.from_numpy(toks).to(self.device),
+                       torch.from_numpy(pos).to(self.device), self.kv, logits_for=logits_for)
+
+    def _mixed_step(self, prompt_slots, gen_slots):
+        """One [n_slots, chunk] step: every PROMPT slot's next chunk rides
+        in its own row, plus one decode token for every generating slot
+        (column 0)."""
+        toks = np.zeros((self.n_slots, self.prefill_chunk), dtype=np.int32)
+        pos = np.full((self.n_slots, self.prefill_chunk), self.max_len, dtype=np.int32)  # trash
+        chunks = {}
+        for ps in prompt_slots:
+            chunk_real = min(self.prefill_chunk, len(ps.prompt_left))
+            chunks[ps.idx] = chunk_real
+            toks[ps.idx, :chunk_real] = ps.prompt_left[:chunk_real]
+            pos[ps.idx, :chunk_real] = np.arange(ps.pos, ps.pos + chunk_real)
+        for s in gen_slots:
+            toks[s.idx, 0] = s.last_token
+            pos[s.idx, 0] = s.pos
+
+        logits = self._forward(toks, pos, "all")
+        self.metrics["prefill_steps_total"] += 1
+        cols = np.zeros((self.n_slots,), np.int64)
+        sample_rows = []
+        for ps in prompt_slots:
+            chunk_real = chunks[ps.idx]
+            ps.cache_tokens.extend(ps.prompt_left[:chunk_real])
+            ps.pos += chunk_real
+            ps.prompt_left = ps.prompt_left[chunk_real:]
+            self.metrics["tokens_prefilled_total"] += chunk_real
+            if not ps.prompt_left:
+                cols[ps.idx] = chunk_real - 1
+                sample_rows.append(ps)
+                ps.state = SlotState.GENERATING
+        for s in gen_slots:
+            s.cache_tokens.append(s.last_token)
+            s.pos += 1
+
+        sample_rows.extend(gen_slots)
+        if sample_rows:
+            self._sample_and_emit(logits, cols, sample_rows)
+
+    def _decode_step(self, gen_slots):
+        toks = np.zeros((self.n_slots, 1), dtype=np.int32)
+        pos = np.full((self.n_slots, 1), self.max_len, dtype=np.int32)  # trash for idle rows
+        for s in gen_slots:
+            toks[s.idx, 0] = s.last_token
+            pos[s.idx, 0] = s.pos
+        logits = self._forward(toks, pos, "last")
+        self.metrics["decode_steps_total"] += 1
+        for s in gen_slots:
+            s.cache_tokens.append(s.last_token)
+            s.pos += 1
+        self._sample_and_emit(logits, np.zeros((self.n_slots,), np.int64), gen_slots)
+
+    # -- sampling & emission ------------------------------------------------
+    def _sample_and_emit(self, logits, cols, slots):
+        """Batched chain sampling with the grammar applied inside the chain:
+        sample once unconstrained; if a grammar slot drew a disallowed
+        token, fold the grammar mask into that slot's raw logits and rerun
+        the full chain for it."""
+        dev = self.device
+        rows = torch.arange(self.n_slots, device=dev)
+        picked = logits[rows, torch.from_numpy(cols).to(dev)]  # [n_slots, V]
+        args = torch.from_numpy(np.stack(self._params.arrays())).to(dev).unbind(0)
+        recent = torch.from_numpy(self._recent).to(dev)
+        toks, _, mu1 = batched.sample_batch(picked, self._gens, recent, self._br_mask,
+                                            torch.from_numpy(self._mu).to(dev), *args)
+        toks_host = toks.cpu().numpy()
+        reject = [s for s in slots
+                  if s.req.grammar is not None and not s.req.grammar.allowed([int(toks_host[s.idx])])]
+        if not reject:
+            self._mu = mu1.cpu().numpy().copy()
+            for s in slots:
+                self._emit_token(s, int(toks_host[s.idx]))
+            return
+
+        picked_host = picked.cpu().numpy()
+        masked = picked_host.copy()
+        for s in reject:
+            masked[s.idx] += self._grammar_mask_row(s.req, picked_host[s.idx])
+        # resampled rows advance their generator twice, the others once
+        states = [g.get_state() for g in self._gens]
+        toks2, _, mu2 = batched.sample_batch(torch.from_numpy(masked).to(dev), self._gens, recent,
+                                             self._br_mask, mu1, *args)
+        toks2_host = toks2.cpu().numpy()
+        rej = np.zeros((self.n_slots,), bool)
+        for s in reject:
+            rej[s.idx] = True
+        for i, g in enumerate(self._gens):
+            if not rej[i]:
+                g.set_state(states[i])
+        self._mu = np.where(rej, mu2.cpu().numpy(), mu1.cpu().numpy()).astype(np.float32)
+        for s in slots:
+            tok = int(toks2_host[s.idx]) if rej[s.idx] else int(toks_host[s.idx])
+            self._emit_token(s, tok)
+
+    def _grammar_mask_row(self, req, logits_row: np.ndarray) -> np.ndarray:
+        """[V] additive mask (0 allowed / NEG_INF disallowed) from the
+        grammar automaton, scanning candidates in descending-logit stages so
+        it runs over the few thousand tokens that carry probability mass
+        before falling through to the tail."""
+        order = np.argsort(-logits_row)
+        v = logits_row.shape[0]
+        allowed: list[int] = []
+        for a, b in ((0, 512), (512, 4096), (4096, v)):
+            if a >= v:
+                break
+            allowed.extend(req.grammar.allowed(order[a:b]))
+            if len(allowed) >= 16:
+                break
+        mask = np.full((v,), NEG_INF, np.float32)
+        if allowed:
+            mask[allowed] = 0.0
+        else:  # dead end: surface as a stop (EOS) rather than crash
+            mask[self.model.tokenizer.eos_id if self.model.tokenizer else 0] = 0.0
+        return mask
+
+    def _check_stop_strings(self, req: Request) -> bool:
+        """Scan the decoded text for any stop string; records the match
+        offset so the HTTP layer trims the stop text from the output."""
+        if self.model.tokenizer is None:
+            return False
+        if req._stopdec is None:
+            from ..tokenizer import IncrementalDecoder
+
+            req._stopdec = IncrementalDecoder(self.model.tokenizer)
+        req._text += req._stopdec.push(req.out_tokens[-1])
+        for ss in req.stop_strings:
+            i = req._text.find(ss)
+            if i >= 0:
+                req.stop_trim_chars = i
+                return True
+        return False
+
+    def _emit_token(self, slot: _Slot, tok: int):
+        req = slot.req
+        if req.grammar is not None:
+            req.grammar.accept_token(tok)
+        slot.last_token = tok
+        slot.generated += 1
+        req.out_tokens.append(tok)
+        self._recent[slot.idx] = np.roll(self._recent[slot.idx], -1)
+        self._recent[slot.idx, -1] = tok
+        if req.t_first_token == 0.0:
+            req.t_first_token = time.time()
+        self.metrics["tokens_generated_total"] += 1
+        req.stream_q.put(tok)
+
+        if tok in req.stop_tokens:
+            self._finish(slot, "stop")
+        elif req.stop_strings and self._check_stop_strings(req):
+            self._finish(slot, "stop")
+        elif slot.generated >= req.max_new:
+            self._finish(slot, "length")

@@ -1,0 +1,328 @@
+"""OpenAI-compatible HTTP server over the continuous-batching engine
+(counterpart of `zllm/server/http.py::ZllmServer`).
+
+GET /health, /v1/models, /props, /slots, /metrics (Prometheus); POST
+/v1/completions (also /completion, /completions), /v1/chat/completions
+(both with streaming SSE), /tokenize, /detokenize, /apply-template; stop
+strings and the grammar / json_schema / response_format fields.  Routes
+zllm serves that the port does not yet answer 501 with the ROADMAP item
+that brings them.  Stdlib ThreadingHTTPServer: request threads block on
+per-request queues fed by the engine thread.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from .chat import apply_chat_template
+from .engine import Engine, Request
+
+# zllm routes not ported yet -> what brings them (ROADMAP queue 1 item 8)
+_NOT_PORTED = {
+    "/v1/messages": "the Anthropic messages API",
+    "/v1/messages/count_tokens": "the Anthropic messages API",
+    "/embeddings": "embeddings and rerank",
+    "/v1/embeddings": "embeddings and rerank",
+    "/rerank": "embeddings and rerank",
+    "/v1/rerank": "embeddings and rerank",
+    "/infill": "/infill",
+}
+
+
+def _not_ported_error(what: str) -> dict:
+    return {"error": {"message": f"{what} is not in zllm_torch's server yet "
+                                 "(ROADMAP queue 1 item 8)", "type": "not_implemented"}}
+
+
+def _sse(obj) -> bytes:
+    return b"data: " + json.dumps(obj).encode() + b"\n\n"
+
+
+class ZllmServer:
+    def __init__(self, model, n_slots: int = 4, max_len: int = 2048, host="127.0.0.1",
+                 port=8080, jinja: bool = False, kv_dtype=None):
+        self.model = model
+        self.jinja = jinja
+        self.engine = Engine(model, n_slots=n_slots, max_len=max_len, kv_dtype=kv_dtype)
+        self.host = host
+        self.port = port
+        self.httpd: ThreadingHTTPServer | None = None
+        self._t0 = time.time()
+
+    # -- request building ---------------------------------------------------
+    def _make_request(self, body: dict, prompt_tokens: list[int]) -> Request:
+        tok = self.model.tokenizer
+        stop_tokens = {tok.eos_id} if tok and tok.eos_id >= 0 else set()
+        gbnf = body.get("grammar")
+        schema = body.get("json_schema") or (
+            body.get("response_format", {}).get("json_schema", {}).get("schema")
+            if isinstance(body.get("response_format"), dict) else None
+        )
+        if schema is not None and gbnf is None:
+            from ..grammar import json_schema_to_gbnf
+
+            gbnf = json_schema_to_gbnf(schema)
+        grammar = None
+        if gbnf:
+            from ..grammar import GrammarSampler, parse_gbnf
+
+            grammar = GrammarSampler(parse_gbnf(gbnf), tok)
+        stop = body.get("stop", body.get("stop_strings", []))
+        if isinstance(stop, str):
+            stop = [stop]
+        return Request(
+            grammar=grammar,
+            prompt_tokens=prompt_tokens,
+            max_new=int(body.get("max_tokens", body.get("n_predict", 128))),
+            temp=float(body.get("temperature", 0.8)),
+            top_k=int(body.get("top_k", 40)),
+            top_p=float(body.get("top_p", 0.95)),
+            min_p=float(body.get("min_p", 0.05)),
+            typical_p=float(body.get("typical_p", body.get("typ_p", 1.0))),
+            top_n_sigma=float(body.get("top_n_sigma", 0.0)),
+            xtc_probability=float(body.get("xtc_probability", 0.0)),
+            xtc_threshold=float(body.get("xtc_threshold", 0.1)),
+            dry_multiplier=float(body.get("dry_multiplier", 0.0)),
+            dry_base=float(body.get("dry_base", 1.75)),
+            dry_allowed_length=int(body.get("dry_allowed_length", 2)),
+            dynatemp_range=float(body.get("dynatemp_range", 0.0)),
+            dynatemp_exponent=float(body.get("dynatemp_exponent", 1.0)),
+            mirostat=int(body.get("mirostat", 0)),
+            mirostat_tau=float(body.get("mirostat_tau", 5.0)),
+            mirostat_eta=float(body.get("mirostat_eta", 0.1)),
+            repeat_penalty=float(body.get("repeat_penalty", 1.0)),
+            freq_penalty=float(body.get("frequency_penalty", 0.0)),
+            presence_penalty=float(body.get("presence_penalty", 0.0)),
+            seed=int(body.get("seed", -1)),
+            n_keep=int(body.get("n_keep", 0)),
+            stop_tokens=frozenset(stop_tokens),
+            stop_strings=tuple(stop),
+        )
+
+    def serve_forever(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _json(self, code: int, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _read_body(self) -> dict:
+                n = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(n) or b"{}")
+
+            # ---- GET ----
+            def do_GET(self):
+                if self.path == "/health":
+                    self._json(200, {"status": "ok"})
+                elif self.path == "/v1/models":
+                    self._json(200, {
+                        "object": "list",
+                        "data": [{"id": server.model.path or "model", "object": "model",
+                                  "created": int(server._t0), "owned_by": "zllm"}],
+                    })
+                elif self.path == "/props":
+                    cfg = server.model.cfg
+                    self._json(200, {
+                        "model_path": server.model.path,
+                        "n_ctx": server.engine.max_len,
+                        "n_slots": server.engine.n_slots,
+                        "arch": cfg.arch,
+                        "n_params_shape": {"layers": cfg.n_layers, "embd": cfg.n_embd},
+                    })
+                elif self.path == "/slots":
+                    self._json(200, server.engine.slot_info())
+                elif self.path == "/metrics":
+                    lines = []
+                    for k, v in server.engine.metrics_view().items():
+                        lines.append(f"# TYPE zllm_{k} counter")
+                        lines.append(f"zllm_{k} {v}")
+                    for name, h in (
+                        ("zllm_time_to_first_token_seconds", server.engine.hist_ttft),
+                        ("zllm_inter_token_latency_seconds", server.engine.hist_per_token),
+                        ("zllm_request_duration_seconds", server.engine.hist_request),
+                    ):
+                        lines.append(f"# TYPE {name} histogram")
+                        lines.append(h.prometheus(name))
+                    data = ("\n".join(lines) + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                else:
+                    self._json(404, {"error": "not found"})
+
+            # ---- POST ----
+            def do_POST(self):
+                try:
+                    body = self._read_body()
+                    if self.path in ("/v1/completions", "/completion", "/completions"):
+                        self._completion(body, chat=False)
+                    elif self.path == "/v1/chat/completions":
+                        if body.get("tools"):
+                            self._json(501, _not_ported_error("tool calls (tools in a chat body)"))
+                        else:
+                            self._completion(body, chat=True)
+                    elif self.path == "/tokenize":
+                        ids = server.model.tokenizer.encode(
+                            body.get("content", ""), add_special=bool(body.get("add_special", False)),
+                            parse_special=bool(body.get("parse_special", False)),
+                        )
+                        self._json(200, {"tokens": ids})
+                    elif self.path == "/detokenize":
+                        text = server.model.tokenizer.decode(body.get("tokens", []))
+                        self._json(200, {"content": text})
+                    elif self.path == "/apply-template":
+                        text = apply_chat_template(
+                            server.model, body.get("messages", []),
+                            add_assistant=bool(body.get("add_generation_prompt", True)),
+                            jinja=server.jinja or bool(body.get("jinja", False)),
+                        )
+                        self._json(200, {"prompt": text})
+                    elif self.path in _NOT_PORTED:
+                        self._json(501, _not_ported_error(_NOT_PORTED[self.path]))
+                    elif self.path.startswith("/slots/"):
+                        self._json(501, _not_ported_error("/slots save/restore"))
+                    else:
+                        self._json(404, {"error": "not found"})
+                except BrokenPipeError:
+                    pass
+                except Exception as e:  # noqa: BLE001 — the request's error reply
+                    try:
+                        self._json(500, {"error": {"message": str(e), "type": type(e).__name__}})
+                    except OSError:
+                        pass
+
+            def _completion(self, body: dict, chat: bool):
+                tok = server.model.tokenizer
+                if chat:
+                    text = apply_chat_template(server.model, body.get("messages", []),
+                                               jinja=server.jinja)
+                else:
+                    text = body.get("prompt", "")
+                if isinstance(text, list):
+                    text = "".join(text)
+                ids = tok.encode(text, add_special=True, parse_special=True)
+                # chat templates that render their own BOS (llama3's
+                # <|begin_of_text|>) would otherwise double it
+                if len(ids) >= 2 and ids[0] == tok.bos_id and ids[1] == tok.bos_id:
+                    ids = ids[1:]
+                req = server._make_request(body, ids)
+                stream = bool(body.get("stream", False))
+                server.engine.submit(req)
+
+                created = int(time.time())
+                oid = ("chatcmpl-" if chat else "cmpl-") + req.rid
+                if stream:
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/event-stream")
+                    self.send_header("Cache-Control", "no-cache")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+
+                    def chunked(data: bytes):
+                        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+
+                    from ..tokenizer import IncrementalDecoder
+
+                    inc = IncrementalDecoder(tok)
+                    sent = 0
+                    done = False
+                    # stop-string holdback: never emit a tail that could be
+                    # the start of a stop string
+                    holdback = max((len(s) for s in req.stop_strings), default=1) - 1
+                    pending = ""
+                    stopped = False
+                    while not done:
+                        t = req.stream_q.get()
+                        done = t is None
+                        if stopped:
+                            continue
+                        pending += inc.flush() if done else inc.push(t)
+                        hit = min((i for i in (pending.find(s) for s in req.stop_strings) if i >= 0),
+                                  default=-1)
+                        if hit >= 0:
+                            piece, pending, stopped = pending[:hit], "", True
+                        elif done:
+                            piece, pending = pending, ""
+                        elif len(pending) > holdback:
+                            cut = len(pending) - holdback
+                            piece, pending = pending[:cut], pending[cut:]
+                        else:
+                            piece = ""
+                        if not piece:
+                            continue
+                        if chat:
+                            delta = {"role": "assistant", "content": piece} if sent == 0 else {"content": piece}
+                            payload = {"id": oid, "object": "chat.completion.chunk", "created": created,
+                                       "model": "zllm", "choices": [{"index": 0, "delta": delta, "finish_reason": None}]}
+                        else:
+                            payload = {"id": oid, "object": "text_completion", "created": created,
+                                       "model": "zllm", "choices": [{"index": 0, "text": piece, "finish_reason": None}]}
+                        chunked(_sse(payload))
+                        sent += 1
+                    fin = {"id": oid, "object": "chat.completion.chunk" if chat else "text_completion",
+                           "created": created, "model": "zllm",
+                           "choices": [{"index": 0, "delta": {} if chat else None, "text": None if chat else "",
+                                        "finish_reason": req.finish_reason}]}
+                    chunked(_sse(fin))
+                    chunked(b"data: [DONE]\n\n")
+                    chunked(b"")
+                    return
+
+                # non-streaming: drain
+                while req.stream_q.get() is not None:
+                    pass
+                out_text = tok.decode(req.out_tokens)
+                for ss in req.stop_strings:
+                    i = out_text.find(ss)
+                    if i >= 0:
+                        out_text = out_text[:i]
+                        break
+                usage = {"prompt_tokens": len(ids), "completion_tokens": len(req.out_tokens),
+                         "total_tokens": len(ids) + len(req.out_tokens)}
+                if chat:
+                    self._json(200, {
+                        "id": oid, "object": "chat.completion", "created": created, "model": "zllm",
+                        "choices": [{"index": 0, "message": {"role": "assistant", "content": out_text},
+                                     "finish_reason": req.finish_reason}],
+                        "usage": usage,
+                    })
+                else:
+                    self._json(200, {
+                        "id": oid, "object": "text_completion", "created": created, "model": "zllm",
+                        "choices": [{"index": 0, "text": out_text, "finish_reason": req.finish_reason}],
+                        "usage": usage,
+                    })
+
+        self.engine.start()
+        httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self.port = httpd.server_address[1]  # before start_background sees httpd
+        self.httpd = httpd
+        httpd.serve_forever()
+
+    def start_background(self):
+        t = threading.Thread(target=self.serve_forever, daemon=True, name="zllm-http")
+        t.start()
+        while self.httpd is None:
+            time.sleep(0.02)
+        return t
+
+    def shutdown(self):
+        if self.httpd:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+        self.engine.stop()
