@@ -4,14 +4,16 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no final result line):
-  1. build the eight CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
+  1. build the nine CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M (zllm_torch.quantize
      from an F16 file) and Q8_0, each generated on the GPU (kernels) and on
      the CPU (their plain versions), logits compared step by step; and the
-     2-layer Q4_K_M file served by the continuous-batching Engine (f32, f32
-     paged KV, 2 slots) on the GPU and on the CPU: three prompts, one across
-     a page, then a re-send sharing a 128-token page; tokens, reuse and step
-     counters must be identical;
+     2-layer Q4_K_M file served by the continuous-batching Engine (f32, 2
+     slots) on the GPU and on the CPU, in three KV layouts: f32 paged, f32
+     contiguous and q8 (int8, contiguous): three prompts, one across a page,
+     then a re-send sharing its first 130 tokens; tokens, reuse and step
+     counters must be identical, and each layout's GPU run must launch its
+     attention kernels (paged K9/K10, contiguous K2/K6, q8 K7 alone);
   3. main paths, at TinyLlama geometry (all 22 layers, full width, random
      weights from a seed, byte-level tokenizer), loaded in bf16 on the GPU,
      each Generator(max_len=2048).generate on a 300-token prompt (two
@@ -27,7 +29,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      128) on a local port: four concurrent greedy completions, a streaming
      chat, a re-send sharing two pages, then the four bodies one at a time
      (same texts required); per engine step 99 K3 + 34 K5, and 22 K9 per
-     decode step or 22 K10 per mixed prefill step, K1/K2/K4/K6 never;
+     decode step or 22 K10 per mixed prefill step, K1/K2/K4/K6/K7 never;
+     then the same server and traffic with the q8 KV cache (`kv_dtype="q8"`,
+     the contiguous layout): per engine step 99 K3 + 34 K5 + 22 K7, no other
+     kernel;
   4. each kernel at its main path's shapes against its plain PyTorch
      version on the card (tolerance stated per kernel), timed (device time,
      launches replayed from a CUDA graph) beside the plain version, the
@@ -35,7 +40,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      over 3.35 TB/s or operations over the peak of their type); K4 and K5
      also once each on a full-width Q8_0 weight, K3 and K5 also at the
      engine's decode M = 4; K9/K10 at the serving path's shapes with a
-     scrambled page table.
+     scrambled page table; K7 at the q8 serving path's decode and mixed
+     steps, over int8 and over bf16 K/V.
 
 Prints one JSON line per phase result, then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
@@ -310,12 +316,26 @@ def wait_done(reqs, seconds: float = 300.0):
         time.sleep(0.005)
 
 
-def small_engine_check(torch, kernels: dict):
+# KV configurations of the small engine check: engine keywords, the kernels
+# its GPU run must launch, and those it must not
+SMALL_ENGINE_LAYOUTS = {
+    "paged": (dict(kv_dtype="f32"), ("paged_attention", "paged_attn_decode_update"),
+              ("attn_decode_qkv", "flash_attention", "flash_attention_blockwise")),
+    "contiguous": (dict(kv_dtype="f32", kv_layout="contiguous"),
+                   ("attn_decode_qkv", "flash_attention"),
+                   ("paged_attention", "paged_attn_decode_update", "flash_attention_blockwise")),
+    "q8": (dict(kv_dtype="q8"), ("flash_attention_blockwise",),
+           ("attn_decode_qkv", "flash_attention", "paged_attention",
+            "paged_attn_decode_update")),
+}
+
+
+def small_engine_check(torch, kernels: dict, layout: str):
     """The continuous-batching Engine on the GPU (kernels) and on the CPU
-    (plain versions): the 2-layer Q4_K_M file in f32 with an f32 paged KV
-    cache, 2 slots, max_len 256, chunk 16, greedy.  Each wave is submitted
-    from the engine thread between two steps, so both engines admit it at
-    the same step."""
+    (plain versions): the 2-layer Q4_K_M file in f32, 2 slots, max_len 256,
+    chunk 16, greedy, in one KV layout of SMALL_ENGINE_LAYOUTS.  Each wave
+    is submitted from the engine thread between two steps, so both engines
+    admit it at the same step."""
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
 
@@ -327,10 +347,12 @@ def small_engine_check(torch, kernels: dict):
 
     p_long = ids(140)  # crosses the first 128-token page
     waves = [[ids(40), p_long, ids(25)], [p_long[:130] + [7]]]
+    kw, must, must_not = SMALL_ENGINE_LAYOUTS[layout]
+    kw = dict(kw, kv_dtype=torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"])
     runs = {}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.float32)
-        eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, kv_dtype=torch.float32)
+        eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, **kw)
         before = {name: fn.launches for name, fn in kernels.items()}
         eng.start()
         try:
@@ -347,27 +369,32 @@ def small_engine_check(torch, kernels: dict):
         runs[dev] = (got, {k: eng.metrics[k] for k in ENGINE_COUNTERS},
                      {name: fn.launches - before[name] for name, fn in kernels.items()})
     (g_got, g_cnt, g_k), (c_got, c_cnt, _) = runs["cuda"], runs["cpu"]
-    res = {"phase": "small_engine_gpu_vs_cpu", "ftype": "Q4_K_M", "shape": SMALL,
-           "dtype": "float32", "kv_dtype": "float32", "n_slots": 2, "max_len": 256, "chunk": 16,
-           "tokens_equal": g_got == c_got, "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
+    res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": "Q4_K_M",
+           "shape": SMALL, "dtype": "float32", "kv": str(kw["kv_dtype"]), "n_slots": 2,
+           "max_len": 256, "chunk": 16, "tokens_equal": g_got == c_got,
+           "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
            "n_prompt_reused": [r[2] for r in g_got], "gpu_launches": g_k}
     emit(res)
     if any(r[3] for r in g_got + c_got):
         fail(f"engine errors: {[r[3] for r in g_got + c_got]}")
     if g_got != c_got or g_cnt != c_cnt:
-        fail(f"GPU engine disagrees with the CPU engine: {g_got} / {c_got}, {g_cnt} / {c_cnt}")
-    if g_got[-1][2] < 128 or not (g_k["paged_attention"] and g_k["paged_attn_decode_update"]):
-        fail(f"small engine run shared no page or launched no paged kernel: {res}")
+        fail(f"GPU engine disagrees with the CPU engine ({layout}): {g_got} / {c_got}, "
+             f"{g_cnt} / {c_cnt}")
+    # the re-send reuses 128 (a whole page) or, contiguous, its 130 tokens
+    if g_got[-1][2] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not):
+        fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
 
-def serve_phase(torch, model, kernels: dict, card: str) -> dict:
-    """The serving main path: ZllmServer (defaults) over the TinyLlama-
-    geometry Q4_K_M model on a local port.  Warm up, set the launch counts
-    to 0, then the traffic; the counts must match the engine's own step
-    counters exactly.  Returns the counts."""
+def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
+    """The serving main path: ZllmServer (defaults; `kv_dtype="q8"` for the
+    q8 KV cache, whose auto layout is the contiguous one) over the
+    TinyLlama-geometry Q4_K_M model on a local port.  Warm up, set the
+    launch counts to 0, then the traffic; the counts must match the
+    engine's own step counters exactly.  Returns the counts."""
     from zllm_torch.server.http import ZllmServer
 
-    srv = ZllmServer(model, port=0)
+    q8 = kv_dtype == "q8"
+    srv = ZllmServer(model, port=0, kv_dtype=kv_dtype)
     srv.start_background()
     eng = srv.engine
     text = ("The quick brown fox jumps over the lazy dog while the chip counts every "
@@ -429,16 +456,31 @@ def serve_phase(torch, model, kernels: dict, card: str) -> dict:
     L = model.cfg.n_layers
     low = L // 2
     expected = {name: 0 for name in kernels}
-    expected.update(paged_attn_decode_update=L * dec, paged_attention=L * pre,
-                    q4k_gemm=(4 * L + (L - low)) * (dec + pre),
+    expected.update(q4k_gemm=(4 * L + (L - low)) * (dec + pre),
                     dequant_gemm=(L + low + 1) * (dec + pre))
+    if q8:
+        expected.update(flash_attention_blockwise=L * (dec + pre))
+    else:
+        expected.update(paged_attn_decode_update=L * dec, paged_attention=L * pre)
+    # the cache's bytes against a bf16 contiguous cache of the same slots
+    kv = eng.kv
+    kv_bytes = sum(x.numel() * x.element_size()
+                   for name in (("k", "v", "ks", "vs") if q8 else ("k", "v"))
+                   for x in getattr(kv, name))
+    layout = {"kv_layout": "contiguous", "kv_dtype": "q8 (int8 codes + f32 scales)",
+              "kv_slots": kv.max_len} if q8 else {
+        "kv_layout": "paged", "kv_dtype": "bfloat16", "page_size": eng.alloc.ps}
+    bf16_bytes = 2 * L * eng.n_slots * model.cfg.n_kv_heads * (
+        kv.max_len if q8 else eng.max_len) * model.cfg.head_dim * 2
     finishes = [r["choices"][0]["finish_reason"] for r in
                 (*results.values(), resend, *sequential.values())] + [chat_finish]
     same = all(results[n]["choices"][0]["text"] == sequential[n]["choices"][0]["text"]
                for n in SERVE_PROMPT_BYTES)
-    emit({"phase": "serve", "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
-          "dtype": "bfloat16", "kv_dtype": "bfloat16", "n_slots": eng.n_slots,
-          "max_len": eng.max_len, "chunk": eng.prefill_chunk, "page_size": eng.alloc.ps,
+    emit({"phase": "serve_q8" if q8 else "serve",
+          "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+          "dtype": "bfloat16", **layout, "n_slots": eng.n_slots,
+          "max_len": eng.max_len, "chunk": eng.prefill_chunk, "kv_bytes": kv_bytes,
+          "kv_bytes_bf16_contiguous": bf16_bytes, "kv_bytes_ratio": kv_bytes / bf16_bytes,
           "prompt_bytes": list(SERVE_PROMPT_BYTES), "max_tokens": SERVE_NEW_TOKENS,
           "concurrent_window_s": window, "generated_tokens": gen_tokens,
           "generated_tok_s": gen_tokens / window, "requests_s": len(results) / window,
@@ -452,8 +494,10 @@ def serve_phase(torch, model, kernels: dict, card: str) -> dict:
     if not same:
         fail("serve: concurrent texts differ from the same bodies sent one at a time: "
              f"{[(results[n]['choices'][0]['text'], sequential[n]['choices'][0]['text']) for n in SERVE_PROMPT_BYTES]}")
-    if reused < 256:
-        fail(f"serve: {reused} prompt tokens reused after the re-send, wanted >= 256")
+    # paged: the re-send shares two full pages; contiguous: an idle slot's
+    # own prefix
+    if reused < (1 if q8 else 256):
+        fail(f"serve: {reused} prompt tokens reused after the re-send")
     if counts != expected or not dec or not pre:
         fail(f"serve: kernel launch counts {counts} != expected {expected}")
     return counts
@@ -495,11 +539,13 @@ def main():
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
                "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention,
                "paged_attn_decode_update": att.paged_attn_decode_update,
-               "paged_attention": att.paged_attention}
+               "paged_attention": att.paged_attention,
+               "flash_attention_blockwise": att.flash_attention_blockwise}
 
     for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
         small_model_check(torch, ftype)
-    small_engine_check(torch, kernels)
+    for layout in SMALL_ENGINE_LAYOUTS:
+        small_engine_check(torch, kernels, layout)
 
     # ---- main paths at TinyLlama geometry -------------------------------
     def want_q4k(cfg, n_steps, n_chunks):
@@ -507,7 +553,8 @@ def main():
         return {"q4k_matvec": (4 * L + 1) * n_steps, "int8_matvec": 0,
                 "attn_decode_qkv": L * n_steps, "q4k_gemm": (4 * L + 1) * n_chunks,
                 "dequant_gemm": 0, "flash_attention": L * n_chunks,
-                "paged_attn_decode_update": 0, "paged_attention": 0}
+                "paged_attn_decode_update": 0, "paged_attention": 0,
+                "flash_attention_blockwise": 0}
 
     def want_q4km(cfg, n_steps, n_chunks):
         # Q4_K: wq, wk, wo, gate|up a layer + ffn_down of the last L/2;
@@ -517,12 +564,15 @@ def main():
         return {"q4k_matvec": k1 * n_steps, "int8_matvec": k4 * n_steps,
                 "attn_decode_qkv": L * n_steps, "q4k_gemm": k1 * n_chunks,
                 "dequant_gemm": k4 * n_chunks, "flash_attention": L * n_chunks,
-                "paged_attn_decode_update": 0, "paged_attention": 0}
+                "paged_attn_decode_update": 0, "paged_attention": 0,
+                "flash_attention_blockwise": 0}
 
     model, counts_q4k = main_path(torch, "Q4_K", kernels, want_q4k, card)
     model_m, counts_q4km = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
     counts_serve = serve_phase(torch, model_m, kernels, card)
-    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "serve": counts_serve}
+    counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
+    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "serve": counts_serve,
+             "serve_q8": counts_q8}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -811,6 +861,92 @@ def main():
                       launches_per_step=per_layer))
     del kpools, vpools, kg, vg
 
+    # K7 at the q8 serving path's shapes: 4 slots, S = 2176 (max_len 2048 +
+    # chunk 128), f32 q (the GEMMs' output dtype), one step's 22 layers, each
+    # its own K/V: a decode step (rows at 255, 0, 300 and a trash row at
+    # 2048) and a mixed step (chunk 128, rows from 0, 256, 300 and a trash
+    # row), over int8 codes with f32 scales (the q8 cache) and over bf16 K/V
+    s7 = MAX_LEN + 128
+    gen7 = torch.Generator(device="cuda")
+    gen7.manual_seed(7)
+
+    def codes():
+        return torch.randint(-127, 128, (n_slots, hkv, s7, hd), generator=gen7, device="cuda",
+                             dtype=torch.int8)
+
+    def scales():
+        return randn(n_slots, hkv, s7, 1).abs() * 0.01 + 1e-3
+
+    kv7 = {"int8": [(codes(), codes(), scales(), scales()) for _ in layers],
+           "bf16": [(randn(n_slots, hkv, s7, hd, dtype=torch.bfloat16),
+                     randn(n_slots, hkv, s7, hd, dtype=torch.bfloat16), None, None)
+                    for _ in layers]}
+
+    def k7_case(t7: int, starts: list, form: str) -> dict:
+        kvs = kv7[form]
+        pos7 = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+                + torch.arange(t7, dtype=torch.int32, device="cuda")[None])
+        q7 = randn(n_slots, t7, hq, hd)
+        k_, v_, ks_, vs_ = kvs[0]
+        a = att.flash_attention_blockwise(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+        b = att.flash_attention_blockwise_plain(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+
+        def run(fn):
+            def go():
+                for k_, v_, ks_, vs_ in kvs:
+                    fn(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+            return go
+
+        def bf16(x, sc):
+            return x if sc is None else (x.float() * sc).to(torch.bfloat16)
+
+        deq = [(bf16(k_, ks_), bf16(v_, vs_)) for k_, v_, ks_, vs_ in kvs]  # outside the timing
+        q7b = q7.to(torch.bfloat16).transpose(1, 2)
+        mask7 = (torch.arange(s7, device="cuda")[None, None, :]
+                 <= pos7[:, :, None]).reshape(n_slots, 1, t7, s7)
+
+        def lib():
+            for k_, v_ in deq:
+                F.scaled_dot_product_attention(q7b, k_, v_, attn_mask=mask7, scale=scale,
+                                               enable_gqa=True)
+
+        # slots each row reads (its widest query's span) and the (query,
+        # slot) pairs the causal mask lets through, each query its own span
+        seen = sum(min(p_ + t7 - 1, s7 - 1) + 1 for p_ in starts)
+        pairs = sum(min(p_ + t, s7 - 1) + 1 for p_ in starts for t in range(t7))
+        slot_bytes = 2 * hkv * (hd + 4) if form == "int8" else 2 * hkv * hd * 2
+        nbytes = per_layer * (seen * slot_bytes + 2 * q7.numel() * 4)
+        bms, bby = bound_ms(nbytes, per_layer * 4 * hq * hd * pairs, "bf16")
+        reps = 20 if t7 == 1 else 5
+        return dict(ms=cuda_ms(run(att.flash_attention_blockwise), reps),
+                    plain_ms=cuda_ms(run(att.flash_attention_blockwise_plain), 2),
+                    library_ms=cuda_ms(lib, reps), bound_ms=bms, bound_by=bby,
+                    nmse=nmse(a, b), max_abs_err=float((a - b).abs().max()), tolerance=1e-6,
+                    shapes=f"q [{n_slots},{t7},{hq},{hd}] f32 from {starts}, k/v "
+                           f"[{n_slots},{hkv},{s7},{hd}] " + (
+                               "int8 + f32 scales [.., 1]" if form == "int8" else "bf16"))
+
+    dec7, mix7 = [255, 0, 300, MAX_LEN], [0, 256, 300, MAX_LEN]
+    k7 = {"int8_decode": k7_case(1, dec7, "int8"), "int8_mixed": k7_case(128, mix7, "int8"),
+          "bf16_decode": k7_case(1, dec7, "bf16"), "bf16_mixed": k7_case(128, mix7, "bf16")}
+    head7 = k7["int8_decode"]
+    lines.append(dict(name="flash_attention_blockwise", route="cuda",
+                      source="zllm_torch/csrc/attn_blockwise.cu",
+                      replaces="zllm/ops/attention.py:165",
+                      launches=counts_q8["flash_attention_blockwise"],
+                      **{k: head7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "nmse", "max_abs_err", "tolerance",
+                                               "shapes")},
+                      library="scaled_dot_product_attention on K/V dequantized to bf16 outside "
+                              "the timing",
+                      launches_by_path=by_path("flash_attention_blockwise"),
+                      unit="one serve_q8 decode step (22 launches), int8 K/V",
+                      launches_per_step=per_layer,
+                      serve_q8_mixed_step=k7["int8_mixed"], bf16_decode_step=k7["bf16_decode"],
+                      bf16_mixed_step=k7["bf16_mixed"]))
+    bad_k7 = [name for name, r in k7.items() if not r["nmse"] <= r["tolerance"]]
+    del kv7
+
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
     # the bf16 residual
@@ -904,9 +1040,9 @@ def main():
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
-    if bad or bad_q8 or bad_m4:
+    if bad or bad_q8 or bad_m4 or bad_k7:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
-             f"M=4: {bad_m4})")
+             f"M=4: {bad_m4}, K7: {bad_k7})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})

@@ -1,7 +1,7 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card, over the variants the main path does not reach (dtypes, formats,
 head dims, batch rows, sinks, windows, softcap, ragged M and N, the padded
-head).
+head, trash rows).
 
 Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 (which needs no JAX) with:
@@ -10,7 +10,8 @@ Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 Tolerances: K1/K4 nmse < 1e-6 (exact integer dots; only f32 sum order, and
 an ulp of rsqrt/exp may move one int8 code), K3/K5 < 1e-6 (bf16 operands,
 f32 sum order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
-probability may move by an ulp).
+probability may move by an ulp), K9/K10 < 1e-6, K7 < 1e-6 (1e-5 with a
+bf16 q, whose output rounds to bf16).
 """
 
 import numpy as np
@@ -276,3 +277,61 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
     assert _nmse(got[live].float(), want[live].float()) < 1e-6
     assert torch.equal(k_pool[:, ps:], k2[:, ps:]) and torch.equal(v_pool[:, ps:], v2[:, ps:])
     assert torch.equal(k_pool[:, :ps], k2[:, :ps])  # no row writes the trash page
+
+
+# K7: (T, G, D, S, row starts, window, softcap, sinks, q dtype); S = 2176 is
+# the engine's q8 cache (max_len 2048 + chunk 128), row start 2048 its
+# trash row; R = T * G <= 32 takes the split form, more rows the tile loop
+K7_CASES = {
+    "decode_g8": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.float32),
+    "decode_g1_s144": (1, 1, 64, 144, [143, 0, 77, 144], 0, 0.0, False, torch.float32),
+    "decode_g4_d128": (1, 4, 128, 2176, [2047, 5, 1000, 2048], 0, 0.0, False, torch.float32),
+    "t16_g1_s144": (16, 1, 64, 144, [0, 100, 128, 60], 0, 0.0, False, torch.float32),
+    "t16_g4": (16, 4, 64, 2176, [0, 700, 1500, 2048], 0, 0.0, False, torch.float32),
+    "chunk_g8": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 0.0, False, torch.float32),
+    "chunk_d128": (128, 4, 128, 2176, [0, 256, 1900, 2048], 0, 0.0, False, torch.float32),
+    "s64": (16, 4, 64, 64, [0, 10, 48, 30], 0, 0.0, False, torch.float32),
+    "window_decode": (1, 8, 64, 2176, [255, 0, 1300, 2048], 100, 0.0, False, torch.float32),
+    "window_chunk": (16, 8, 64, 2176, [0, 256, 1300, 2048], 100, 0.0, False, torch.float32),
+    "softcap_decode": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 30.0, False, torch.float32),
+    "softcap_chunk": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 30.0, False, torch.float32),
+    "sinks_decode": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, True, torch.float32),
+    "sinks_chunk": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 0.0, True, torch.float32),
+    "bf16q_decode": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.bfloat16),
+    "bf16q_chunk": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 0.0, False, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_matches_plain(dev, case, kv):
+    """Tolerance: nmse < 1e-6 with an f32 q (f32 sum order only: neither
+    side rounds a probability), < 1e-5 with a bf16 q, whose output is
+    rounded to bf16 on both sides (an ulp may flip)."""
+    t, g, d, s, starts, window, softcap, sinks, qdtype = K7_CASES[case]
+    b, hkv = 4, 4
+    hq = g * hkv
+    q = _randn((b, t, hq, d), 40, dev, qdtype)
+    if kv == "int8":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(41)
+        k = torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device=dev, dtype=torch.int8)
+        ks = _randn((b, hkv, s, 1), 42, dev).abs() * 0.01 + 1e-3
+        vs = _randn((b, hkv, s, 1), 43, dev).abs() * 0.01 + 1e-3
+    else:
+        k = _randn((b, hkv, s, d), 44, dev, torch.bfloat16)
+        v = _randn((b, hkv, s, d), 45, dev, torch.bfloat16)
+        ks = vs = None
+    positions = (torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+                 + torch.arange(t, dtype=torch.int32, device=dev)[None])
+    kw = dict(scale=d ** -0.5, softcap=softcap, window=window, ks=ks, vs=vs,
+              sinks=_randn((hq,), 46, dev) if sinks else None)
+    before = ta.flash_attention_blockwise.launches
+    got = ta.flash_attention_blockwise(q, k, v, positions, **kw)
+    want = ta.flash_attention_blockwise_plain(q, k, v, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention_blockwise.launches == before + 1
+    assert got.dtype == qdtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)

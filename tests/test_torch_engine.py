@@ -163,18 +163,22 @@ def test_engine_matches_zllm(runs, case):
         assert tcount["decode_steps_total"] > 0 and tcount["prefill_steps_total"] > 0
 
 
-def test_engine_counts_no_kernel_launch_on_cpu(gguf):
-    """A CPU engine runs the plain versions: no kernel counter moves."""
+@pytest.mark.parametrize("kw", [{}, dict(kv_layout="contiguous"), dict(kv_dtype="q8")],
+                         ids=["paged", "contiguous", "q8"])
+def test_engine_counts_no_kernel_launch_on_cpu(gguf, kw):
+    """A CPU engine runs the plain versions, in every layout: no kernel
+    counter moves."""
     from zllm_torch.models.loader import Model
     from zllm_torch.ops import attention, qmatmul
     from zllm_torch.server.engine import Engine, Request
 
     kernels = (attention.paged_attention, attention.paged_attn_decode_update,
-               attention.attn_decode_qkv, attention.flash_attention, qmatmul.q4k_gemm,
-               qmatmul.dequant_gemm, qmatmul.q4k_matvec, qmatmul.int8_matvec)
+               attention.attn_decode_qkv, attention.flash_attention,
+               attention.flash_attention_blockwise, qmatmul.q4k_gemm, qmatmul.dequant_gemm,
+               qmatmul.q4k_matvec, qmatmul.int8_matvec)
     before = [k.launches for k in kernels]
     eng = Engine(Model.load(gguf, device="cpu", dtype=torch.float32), n_slots=2, max_len=128,
-                 prefill_chunk=16)
+                 prefill_chunk=16, **kw)
     eng.start()
     try:
         req = eng.submit(Request(prompt_tokens=[1, 5, 9, 40], max_new=3, temp=0.0))
@@ -188,12 +192,10 @@ def test_engine_counts_no_kernel_launch_on_cpu(gguf):
     assert [k.launches for k in kernels] == before
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="contiguous"), dict(kv_dtype="q8"),
-                                dict(kv_dtype=torch.float16), dict(speculative=True),
+@pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16), dict(speculative=True),
                                 dict(lookahead=True), dict(tp=2), dict(dp=2), dict(pp=2),
                                 dict(coordinated=True)],
-                         ids=["contiguous", "q8", "f16", "speculative", "lookahead", "tp", "dp",
-                              "pp", "coordinated"])
+                         ids=["f16", "speculative", "lookahead", "tp", "dp", "pp", "coordinated"])
 def test_unported_options_raise(gguf, kw):
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine

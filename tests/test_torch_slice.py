@@ -136,7 +136,7 @@ def test_prefill_chunk_over_max_len_is_a_typed_error(gguf):
 
 @pytest.mark.parametrize("start", [0, 21, 60])
 def test_kvcache_update_matches_zllm(start):
-    """The in-place insert at a host start writes what zllm's functional
+    """The in-place insert at positions[:, 0] writes what zllm's functional
     update writes, including the clamp of a run past the end (start 60 with
     16 rows in 64 slots lands at 48: the trash-row convention)."""
     import jax.numpy as jnp
@@ -150,24 +150,28 @@ def test_kvcache_update_matches_zllm(start):
     positions = np.arange(start, start + 16, dtype=np.int32)[None]
     zkv = zkv.update(0, jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(positions))
     kv = KVCache.create(1, 1, 64, 2, 8, torch.float32, "cpu")
-    kv.update(0, torch.from_numpy(k_new), torch.from_numpy(v_new), start)
+    kv.update(0, torch.from_numpy(k_new), torch.from_numpy(v_new), torch.from_numpy(positions))
     np.testing.assert_array_equal(to_np(kv.k[0]), to_np(zkv.k[0]))
     np.testing.assert_array_equal(to_np(kv.v[0]), to_np(zkv.v[0]))
 
 
 def test_multi_token_step_with_cache_needs_its_start(gguf):
+    """A multi-token step takes each row's start from its positions on the
+    device (no host start): row 0's run lands at slots 0-3, row 1's at
+    10-13, and no other slot is written."""
     from zllm_torch.models.llama import forward
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.kvcache import KVCache
 
     m = Model.load(gguf, device="cpu", dtype=torch.float32)
     cfg = m.cfg
-    kv = KVCache.create(cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim, torch.float32, "cpu")
-    tok = torch.tensor([PROMPT[:4]], dtype=torch.int32)
-    pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(ValueError, match="needs its start position"):
-        forward(m.params, cfg, tok, pos, kv)
-    assert forward(m.params, cfg, tok, pos, kv, start=0).shape == (1, 4, cfg.vocab_size)
+    kv = KVCache.create(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim, torch.float32, "cpu")
+    tok = torch.tensor([PROMPT[:4], PROMPT[4:8]], dtype=torch.int32)
+    pos = torch.tensor([[0], [10]], dtype=torch.int32) + torch.arange(4, dtype=torch.int32)
+    assert forward(m.params, cfg, tok, pos, kv).shape == (2, 4, cfg.vocab_size)
+    written = kv.k[0].abs().sum(dim=(1, 3)) > 0  # [B, S]
+    assert written[0].nonzero().flatten().tolist() == [0, 1, 2, 3]
+    assert written[1].nonzero().flatten().tolist() == [10, 11, 12, 13]
 
 
 def test_cuda_load_without_gpu_raises(gguf, monkeypatch):

@@ -1,14 +1,19 @@
 // The multi-token attention tile loop shared by K6 (flash_attn.cu, a
-// contiguous cache) and K10 (paged_attn.cu, a page pool read through a page
-// table).  The two differ only in where a tile of K/V rows lives, which the
-// KV addressor type answers: `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point
-// at the row of slot s0, and the KT rows from s0 on are contiguous.
+// contiguous cache), K10 (paged_attn.cu, a page pool read through a page
+// table) and K7's multi-row form (attn_blockwise.cu, bf16 or int8 K/V).
+// They differ only in where a tile of K/V rows lives, which the KV
+// addressor type answers: `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point at
+// the row of slot s0, and the KT rows from s0 on are contiguous.  An
+// addressor with `kScales` true (int8 codes) also gives `k_scales` /
+// `v_scales(b, h, s0)`, the f32 scale of each row from s0 on, and a row is
+// loaded into the shared tile times its scale.
 //
 // Queries q[B, T, Hq, D] at consecutive positions pos0[b] + t attend slots
 // 0 .. S-1 that are <= pos (and > pos - window), with optional logit
 // softcap and per-head attention sinks in the softmax denominator.  Scores
-// are f32; the probabilities are normalized, then cast to V's dtype before
-// P.V (f32 accumulate), as the Pallas kernels do.
+// are f32; the probabilities are normalized, then (kRoundP, K6 and K10)
+// cast to V's dtype before P.V (f32 accumulate), as the Pallas kernels do;
+// K7's stay f32.
 //
 // Design (simple first, CUDA cores, no tensor cores yet): a block takes 32
 // query rows of one kv head (rows t-major, group-minor, so the grouped
@@ -32,6 +37,7 @@ constexpr int QR = 32, KT = 64, kThreads = 128;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -44,7 +50,19 @@ constexpr size_t smem_bytes() {
                           (size_t)QR * (KT + 1) + 2 * QR);
 }
 
-template <typename TQ, typename TKV, int D, typename KV>
+// the scales of the KT rows from slot s0 on, or null for an unscaled KV
+template <typename KV>
+__device__ __forceinline__ const float* k_scales(const KV& kv, int b, int h, int s0) {
+  if constexpr (KV::kScales) return kv.k_scales(b, h, s0);
+  else return nullptr;
+}
+template <typename KV>
+__device__ __forceinline__ const float* v_scales(const KV& kv, int b, int h, int s0) {
+  if constexpr (KV::kScales) return kv.v_scales(b, h, s0);
+  else return nullptr;
+}
+
+template <typename TQ, typename TKV, int D, typename KV, bool kRoundP>
 __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
     const TQ* __restrict__ q, const KV kv, const int* __restrict__ pos0,
     const float* __restrict__ sinks, TQ* __restrict__ out, int T, int Hq, int Hkv, int S,
@@ -117,18 +135,24 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
       }
     }
   };
-  // the KT rows of slots s0.. from `src` (the row of slot s0)
-  auto load_tile = [&](const TKV* src, float* dst, int s0, int stride) {
+  // the KT rows of slots s0.. from `src` (the row of slot s0), each times
+  // its scale in `scl` for a scaled KV
+  auto load_tile = [&](const TKV* src, const float* scl, float* dst, int s0, int stride) {
     for (int e = tid; e < KT * D; e += kThreads) {
       const int j = e / D, dd = e % D, s = s0 + j;
-      dst[j * stride + dd] = s < S ? to_f(src[(size_t)j * D + dd]) : 0.f;
+      float x = 0.f;
+      if (s < S) {
+        x = to_f(src[(size_t)j * D + dd]);
+        if constexpr (KV::kScales) x *= scl[j];
+      }
+      dst[j * stride + dd] = x;
     }
   };
 
   // sweep 1: online row max and denominator
   for (int tile = tlo; tile <= thi; ++tile) {
     const int s0 = tile * KT;
-    load_tile(kv.k_rows(b, h, s0), ksh, s0, D + 1);
+    load_tile(kv.k_rows(b, h, s0), k_scales(kv, b, h, s0), ksh, s0, D + 1);
     __syncthreads();
     tile_scores(s0);
     __syncthreads();
@@ -167,7 +191,8 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
   }
   __syncthreads();
 
-  // sweep 2: normalized probabilities (rounded to V's dtype) times V; each
+  // sweep 2: normalized probabilities (rounded to V's dtype unless K7's)
+  // times V; each
   // thread a block of 4 rows x D/16 dims (dims td + 16*j)
   constexpr int kDims = D / 16;
   float acc[4][kDims];
@@ -177,8 +202,8 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
     for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
   for (int tile = tlo; tile <= thi; ++tile) {
     const int s0 = tile * KT;
-    load_tile(kv.k_rows(b, h, s0), ksh, s0, D + 1);
-    load_tile(kv.v_rows(b, h, s0), vsh, s0, D);
+    load_tile(kv.k_rows(b, h, s0), k_scales(kv, b, h, s0), ksh, s0, D + 1);
+    load_tile(kv.v_rows(b, h, s0), v_scales(kv, b, h, s0), vsh, s0, D);
     __syncthreads();
     tile_scores(s0);
     __syncthreads();
@@ -186,8 +211,9 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
       const int rr = e / KT, jj = e % KT;
       const float sc = ssh[rr * (KT + 1) + jj];
       const float l = lrow[rr];
-      ssh[rr * (KT + 1) + jj] =
-          (sc > -INFINITY && l > 0.f) ? to_f(from_f<TKV>(expf(sc - mrow[rr]) / l)) : 0.f;
+      float p = (sc > -INFINITY && l > 0.f) ? expf(sc - mrow[rr]) / l : 0.f;
+      if constexpr (kRoundP) p = to_f(from_f<TKV>(p));
+      ssh[rr * (KT + 1) + jj] = p;
     }
     __syncthreads();
 #pragma unroll 4
@@ -216,12 +242,12 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
 }
 
 // One launch of the tile kernel: grid (row tiles of T*G, Hkv, B).
-template <typename TQ, typename TKV, int D, typename KV>
+template <typename TQ, typename TKV, int D, typename KV, bool kRoundP = true>
 int launch_tiles(const void* q, const KV& kv, const int* pos0, const float* sinks, void* out,
                  int B, int T, int Hq, int Hkv, int S, float scale, float softcap, int window,
                  cudaStream_t stream) {
   constexpr size_t shmem = smem_bytes<D>();
-  auto kern = attn_tile_kernel<TQ, TKV, D, KV>;
+  auto kern = attn_tile_kernel<TQ, TKV, D, KV, kRoundP>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {
     const cudaError_t err =

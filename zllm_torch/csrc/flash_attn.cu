@@ -27,6 +27,7 @@ struct ContigKV {
   const T* k;
   const T* v;
   int Hkv, S, D;
+  static constexpr bool kScales = false;
   __device__ __forceinline__ size_t off(int b, int h, int s0) const {
     return (((size_t)b * Hkv + h) * S + s0) * D;
   }

@@ -36,6 +36,7 @@ struct PagedKV {
   const int* table;  // [B, TW]
   int TW, ps, D;
   size_t head_stride;  // P * ps * D elements per head
+  static constexpr bool kScales = false;
   __device__ __forceinline__ size_t off(int b, int h, int s0) const {
     const int page = __ldg(table + (size_t)b * TW + s0 / ps);
     return (size_t)h * head_stride + ((size_t)page * ps + s0 % ps) * D;

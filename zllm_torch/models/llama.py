@@ -16,13 +16,15 @@ residual; final norm and output head.  The decode fast paths sit where
     kernel (K2).
 
 Every other shape takes the unfused path: RMS norm, `linear` (K3 or K5 for
-the quantized weights of a multi-row batch), rope, cache insert, then
-prefill attention (K6).  With the serving engine's paged cache
-(`runtime/paged.PagedKVCache`) every row has its own positions: at T=1 rope
-runs outside the kernel and K9 inserts and attends in one launch, as zllm
-does; at T>1 the rows are scattered into their pages (`kv.update`) and K10
-attends through the page table.  MoE, MLA, LoRA, sliding window, ALiBi and
-sinks are not part of this block.
+the quantized weights of a multi-row batch), rope, the per-row cache
+insert (`kv.update`, each row from its own positions[:, 0]), then
+attention: K6 over a contiguous `KVCache`; with the q8 cache
+(`runtime/kvcache.KVCacheQ8`) at every T, K7 over its int8 codes and
+scales.  With the serving engine's paged cache (`runtime/paged.PagedKVCache`)
+at T=1 rope runs outside the kernel and K9 inserts and attends in one
+launch, as zllm does; at T>1 the rows are scattered into their pages and
+K10 attends through the page table.  MoE, MLA, LoRA, sliding window, ALiBi
+and sinks are not part of this block.
 """
 
 from __future__ import annotations
@@ -30,21 +32,21 @@ from __future__ import annotations
 import torch
 
 from ..ops.attention import (
-    attn_decode_qkv, flash_attention, paged_attention, paged_attn_decode_update,
+    attn_decode_qkv, flash_attention, flash_attention_blockwise, paged_attention,
+    paged_attn_decode_update,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
-from ..runtime.kvcache import KVCache
+from ..runtime.kvcache import KVCache, KVCacheQ8
 from ..runtime.paged import PagedKVCache
 
 
 def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                  kv: KVCache | PagedKVCache | None, il: int, rope=None,
-                  start: int | None = None) -> torch.Tensor:
+                  kv: KVCache | KVCacheQ8 | PagedKVCache | None, il: int,
+                  rope=None) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
     `rope` is the contiguous decode step's cos/sin table (built once per
-    step); `start` the first slot of a contiguous multi-token insert (a host
-    int)."""
+    step)."""
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
 
@@ -88,8 +90,13 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             att = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
                                   page_size=kv.page_size, scale=scale,
                                   softcap=cfg.attn_logit_softcap)
+        elif isinstance(kv, KVCacheQ8):  # quantize and insert, then K7 on the codes
+            kv.update(il, k, v, positions)
+            kq, vq = kv.layer(il)
+            att = flash_attention_blockwise(q.contiguous(), kq.q, vq.q, positions, scale=scale,
+                                            softcap=cfg.attn_logit_softcap, ks=kq.s, vs=vq.s)
         elif kv is not None:
-            kv.update(il, k, v, start)
+            kv.update(il, k, v, positions)
             k_all, v_all = kv.layer(il)
             att = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
                                   positions, scale=scale, softcap=cfg.attn_logit_softcap)
@@ -118,22 +125,20 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
-            kv: KVCache | PagedKVCache | None = None, *, start: int | None = None,
+            kv: KVCache | KVCacheQ8 | PagedKVCache | None = None, *,
             logits_for: str = "all") -> torch.Tensor:
     """tokens/positions [B, T] int32 -> logits [B, T or 1, vocab] f32.
-    The cache is updated in place.  Only the contiguous `KVCache` needs a
-    host start: with it and T > 1, `start` is the host copy of
-    positions[:, 0] (every row's first position).  A `PagedKVCache` writes
-    each token at its own position, so its rows may sit anywhere (the
-    serving engine's slots, trash rows included) and `start` is unused."""
-    if isinstance(kv, KVCache) and tokens.shape[1] > 1 and start is None:
-        raise ValueError("a multi-token step with a contiguous KV cache needs its start position")
+    The cache is updated in place, each row at its own positions, so the
+    rows may sit anywhere (the serving engine's slots, trash rows
+    included): a contiguous cache writes row b's run from positions[b, 0]
+    (clamped to end at its last slot), a paged one each token at its own
+    position."""
     x = params["tok_emb"][tokens.long()]
     rope = None
     if isinstance(kv, KVCache) and tokens.shape[1] == 1:
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
     for il, layer in enumerate(params["layers"]):
-        x = layer_forward(layer, cfg, x, positions, kv, il, rope, start)
+        x = layer_forward(layer, cfg, x, positions, kv, il, rope)
 
     logits = None
     if logits_for == "last" and x.shape[0] == 1:  # final norm fused into the head

@@ -1,7 +1,7 @@
 """Attention kernels: the whole decode attention block (K2), prefill
-attention (K6), paged multi-token attention (K10) and the paged decode step
-(K9), each a hand-written CUDA kernel with its plain PyTorch version beside
-it.
+attention (K6), blockwise attention over bf16 or int8 K/V (K7), paged
+multi-token attention (K10) and the paged decode step (K9), each a
+hand-written CUDA kernel with its plain PyTorch version beside it.
 
   * `attn_decode_qkv` replaces `zllm/ops/attention.py::_attn_decode_qkv_kernel`
     (via `attn_decode_qkv`): split the fused [B, Hq+2Hkv, D] projection row,
@@ -21,6 +21,13 @@ it.
     `zllm/ops/attention.py::_paged_decode_kernel` (via
     `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
     place, attend over the page table.  Source: `zllm_torch/csrc/paged_decode.cu`.
+  * `flash_attention_blockwise` replaces
+    `zllm/ops/attention.py::_attnb_kernel` (via `flash_attention_blockwise`):
+    multi-token GQA attention with an online softmax over KV blocks, causal
+    from positions[:, 0], window, softcap, sinks; K/V in bf16, or int8
+    codes (`QuantKV`, the q8 KV cache) whose per-vector scales multiply the
+    scores (K) and the probabilities (V).  The probabilities stay f32.
+    Source: `zllm_torch/csrc/attn_blockwise.cu`.
 
 The paged pools are token-major, [Hkv, P * ps, D] (zllm's are token-minor;
 see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
@@ -34,6 +41,7 @@ launches the kernel or raises.  Each wrapper counts launches in
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -363,3 +371,129 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
 
 
 paged_attn_decode_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: blockwise attention, bf16/f32 or int8 (q8) K/V
+# ---------------------------------------------------------------------------
+
+class QuantKV(NamedTuple):
+    """One half of the q8 KV cache as an attention input: int8 codes and
+    per-vector f32 scales (zllm's `QuantKV`; `KVCacheQ8.layer` makes them)."""
+
+    q: torch.Tensor  # int8 [B, Hkv, S, D]
+    s: torch.Tensor  # f32 [B, Hkv, S, 1]
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return self.q.to(dtype) * self.s.to(dtype)
+
+
+# a decode-shaped call (T * G query rows of a kv head at most this) splits
+# the slots over blocks (csrc/attn_blockwise.cu); more rows take the tile loop
+BLOCKWISE_SPLIT_ROWS = 32
+BLOCKWISE_SPLIT = 128  # slots a block of the split path takes
+KV_CODE = {torch.bfloat16: 1, torch.int8: 2}  # the K/V the kernel takes
+
+
+def flash_attention_blockwise_plain(q, k, v, positions, *, scale: float, softcap: float = 0.0,
+                                    window: int = 0, sinks: torch.Tensor | None = None,
+                                    ks: torch.Tensor | None = None,
+                                    vs: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K7 (zllm `_attnb_kernel` math): f32 scores
+    (q . k) * scale, times the key's scale for int8 K, softcap, the causal
+    / window mask from positions[:, 0] + t, an exact softmax with the sink
+    logit in its max and denominator; the unnormalized probabilities times
+    the value's scale for int8 V, then P.V in f32 over the denominator.
+    The probabilities are never rounded."""
+    b, t, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, t, hkv, g, d)
+    scores = torch.einsum("bthgd,bhsd->bhgts", qf, k.float()) * scale
+    if ks is not None:
+        scores = scores * ks.float().reshape(b, hkv, 1, 1, s)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    qp = positions[:, :1].long() + torch.arange(t, device=q.device)[None, :]  # [B, T]
+    cols = torch.arange(s, device=q.device)[None, None, :]
+    mask = cols <= qp[:, :, None]
+    if window > 0:
+        mask = mask & (cols > qp[:, :, None] - window)
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sink = sinks.float().reshape(1, hkv, g, 1, 1)
+        m = torch.maximum(m, sink)
+    p = torch.exp(scores - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        denom = denom + torch.exp(sink - m)
+    if vs is not None:
+        p = p * vs.float().reshape(b, hkv, 1, 1, s)
+    out = torch.einsum("bhgts,bhsd->bthgd", p, v.float()) / denom.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              positions: torch.Tensor, *, scale: float, softcap: float = 0.0,
+                              window: int = 0, sinks: torch.Tensor | None = None,
+                              ks: torch.Tensor | None = None,
+                              vs: torch.Tensor | None = None) -> torch.Tensor:
+    """q [B, T, Hq, D]; k/v [B, Hkv, S, D] bf16, or int8 codes with ks/vs
+    f32 [B, Hkv, S, 1] (the plain version also takes f32 K/V); positions
+    [B, T] (only positions[:, 0] is read: query t of row b sits at
+    positions[b, 0] + t); any S >= 1.  Returns [B, T, Hq, D] in q's
+    dtype."""
+    b, t, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if (ks is None) != (vs is None) or (ks is not None) != (k.dtype == torch.int8):
+        raise ValueError("int8 K/V go with their scales ks/vs, and only they do")
+    if ks is not None and (ks.shape != (b, hkv, s, 1) or vs.shape != ks.shape):
+        raise ValueError(f"bad scale shapes {tuple(ks.shape)} / {tuple(vs.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_blockwise_plain(q, k, v, positions, scale=scale, softcap=softcap,
+                                               window=window, sinks=sinks, ks=ks, vs=vs)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dtype not in cuda.DTYPE_CODE or k.dtype not in KV_CODE or v.dtype != k.dtype:
+        raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the kernel takes f32/bf16 q "
+                         "and bf16 or int8 K/V")
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} not supported")
+    pos0 = positions[:, 0].contiguous()
+    if pos0.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    if sinks is not None and (sinks.dtype != torch.float32 or sinks.numel() != hq):
+        raise ValueError("sinks must be float32 [Hq]")
+    scales = [] if ks is None else [ks, vs]
+    if any(x.dtype != torch.float32 for x in scales):
+        raise ValueError("ks/vs must be float32")
+    q = q.contiguous()
+    cuda.require_cuda(q, k, v, pos0, *scales, *([sinks] if sinks is not None else []),
+                      aligned=(k, v))
+    out = torch.empty_like(q)
+    rows = t * (hq // hkv)
+    scratch = None
+    if rows <= BLOCKWISE_SPLIT_ROWS:  # per split: each row's (max, sum, P.V)
+        n_split = -(-s // BLOCKWISE_SPLIT)
+        scratch = torch.empty((b * hkv * n_split * rows * (d + 2),), dtype=torch.float32,
+                              device=q.device)
+    fn = cuda.bind("attn_blockwise", "zt_attn_blockwise",
+                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                    _I, _P])
+    err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
+             KV_CODE[k.dtype], cuda.ptr(ks), cuda.ptr(vs), pos0.data_ptr(), cuda.ptr(sinks),
+             out.data_ptr(), cuda.ptr(scratch), b, t, hq, hkv, s, d, float(scale),
+             float(softcap), int(window), cuda.stream())
+    cuda.check(err, "flash_attention_blockwise")
+    flash_attention_blockwise.launches += 1
+    return out
+
+
+flash_attention_blockwise.launches = 0

@@ -37,6 +37,7 @@ SOURCES = {
     "flash_attn": "flash_attn.cu",
     "paged_attn": "paged_attn.cu",
     "paged_decode": "paged_decode.cu",
+    "attn_blockwise": "attn_blockwise.cu",
 }
 
 # No --use_fast_math: the matvec's int8 codes come from rintf(x / dx) with

@@ -53,7 +53,7 @@ class Generator:
         pos = torch.from_numpy(positions[None]).to(self.device)
         with torch.inference_mode():
             return forward(self.model.params, self.model.cfg, tok, pos, self.kv,
-                           start=int(positions[0]), logits_for=logits_for)
+                           logits_for=logits_for)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -1,16 +1,46 @@
-"""Contiguous KV cache: per layer [B, Hkv, S, D] tensors updated in place.
+"""Contiguous KV caches: per layer [B, Hkv, S, D] tensors updated in place.
 
-Slot index == absolute token position.  The counterpart of
-`zllm/runtime/kvcache.py::KVCache`; JAX's arrays are immutable and the
-cache is threaded through the forward pass, here the tensors are written
-in place (the decode kernel writes its row itself).
+Slot index == absolute token position.  The counterparts of
+`zllm/runtime/kvcache.py::KVCache` and `KVCacheQ8`; JAX's arrays are
+immutable and the cache is threaded through the forward pass, here the
+tensors are written in place (the decode kernel K2 writes its row itself).
+
+  * `KVCache`: bf16 or f32 K/V.
+  * `KVCacheQ8`: int8 codes with one f32 scale per [D] vector (llama.cpp's
+    `-ctk/-ctv q8_0`), half the bytes a token of bf16.  Quantizing and
+    inserting are plain PyTorch on the device, as they are XLA in zllm;
+    attention reads the codes and scales directly (K7,
+    `ops/attention.flash_attention_blockwise`).
+  * `shift_context_row`: the serving engine's per-row context shift over
+    all three layouts (contiguous, q8, paged).
+
+The engine's caches hold `max_len + prefill_chunk` slots: inactive rows sit
+at position max_len, and a run of T writes starting at or past S - T is
+moved back to end at S - 1, as zllm's `dynamic_update_slice` clamps, so
+their writes stay in the trash region [max_len, S).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from ..ops.attention import QuantKV
+
+
+def _run_slots(positions: torch.Tensor, t: int, s: int):
+    """Row and slot indices [B, 1], [B, T] of each row's run of t slots:
+    it starts at clamp(positions[b, 0], 0, s - t), on the device (no host
+    read, so rows may start anywhere)."""
+    lo = positions[:, :1].long().clamp(0, s - t)
+    rows = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    return rows, lo + torch.arange(t, device=positions.device)[None, :]
+
+
+def _tensors(xs, device):
+    return [torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(device) for x in xs]
 
 
 @dataclass
@@ -25,28 +55,155 @@ class KVCache:
         return cls(k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layers)],
                    v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layers)])
 
+    @classmethod
+    def from_jax(cls, k, v, device="cuda") -> "KVCache":
+        """zllm's per-layer arrays (numpy) -> this cache, value for value."""
+        return cls(k=_tensors(k, device), v=_tensors(v, device))
+
     @property
     def max_len(self) -> int:
         return self.k[0].shape[2]
 
     @property
+    def n_layers(self) -> int:
+        return len(self.k)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.k[0].dtype
 
-    def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, start: int):
-        """Write k/v [B, T, H, D] of layer il at slots start .. start+T-1 of
-        every row.
-
-        A run whose start exceeds S - T is moved back to end at slot S - 1,
-        as JAX's dynamic_update_slice clamps (the trash-row convention:
-        padded prefill positions clamp to max_len - 1, and write-before-attend
-        keeps those slots safe).  `start` is a host int, so the insert needs
-        no read back from the device."""
-        t = k_new.shape[1]
-        lo = min(max(int(start), 0), self.max_len - t)
-        self.k[il][:, :, lo:lo + t] = k_new.transpose(1, 2).to(self.dtype)
-        self.v[il][:, :, lo:lo + t] = v_new.transpose(1, 2).to(self.dtype)
+    def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor):
+        """Write k/v [B, T, H, D] of layer il: row b's T tokens at slots
+        p .. p+T-1, p = clamp(positions[b, 0], 0, S - T).  Positions are
+        consecutive per row except where the engine pads a row with trash
+        positions after its real tokens; only positions[:, 0] is read."""
+        rows, idx = _run_slots(positions, k_new.shape[1], self.max_len)
+        self.k[il][rows, :, idx] = k_new.to(self.dtype)
+        self.v[il][rows, :, idx] = v_new.to(self.dtype)
 
     def layer(self, il: int) -> tuple[torch.Tensor, torch.Tensor]:
         """-> k, v as [B, Hkv, S, D]."""
         return self.k[il], self.v[il]
+
+
+@dataclass
+class KVCacheQ8:
+    """Per-vector symmetric int8 KV: each [D] key/value vector stores int8
+    codes and one f32 scale (zllm's `KVCacheQ8`)."""
+
+    k: list  # L x int8 [B, Hkv, S, D]
+    v: list
+    ks: list  # L x f32 [B, Hkv, S, 1]
+    vs: list
+
+    @classmethod
+    def create(cls, n_layers: int, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+               device="cuda") -> "KVCacheQ8":
+        shape, sshape = (batch, n_kv_heads, max_len, head_dim), (batch, n_kv_heads, max_len, 1)
+
+        def codes():
+            return [torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(n_layers)]
+
+        def scales():  # created at 1, as zllm's
+            return [torch.ones(sshape, dtype=torch.float32, device=device)
+                    for _ in range(n_layers)]
+
+        return cls(k=codes(), v=codes(), ks=scales(), vs=scales())
+
+    @classmethod
+    def from_jax(cls, k, v, ks, vs, device="cuda") -> "KVCacheQ8":
+        """zllm's per-layer codes and scales (numpy) -> this cache."""
+        return cls(k=_tensors(k, device), v=_tensors(v, device), ks=_tensors(ks, device),
+                   vs=_tensors(vs, device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[2]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.k)
+
+    @staticmethod
+    def _quant(x: torch.Tensor):
+        """[..., D] -> int8 codes and f32 scales [..., 1]: s = max|x| / 127
+        (at least 1e-12), codes round(x / s) half to even, clipped to ±127;
+        bit-exact with zllm's."""
+        xf = x.float()
+        s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+    def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor):
+        """Quantize k/v [B, T, H, D] and write them as `KVCache.update`
+        does."""
+        rows, idx = _run_slots(positions, k_new.shape[1], self.max_len)
+        for codes, scales, x in ((self.k, self.ks, k_new), (self.v, self.vs, v_new)):
+            q, s = self._quant(x)
+            codes[il][rows, :, idx] = q
+            scales[il][rows, :, idx] = s
+
+    def layer(self, il: int) -> tuple[QuantKV, QuantKV]:
+        """-> (k, v) as `QuantKV` pairs of codes and scales."""
+        return QuantKV(self.k[il], self.ks[il]), QuantKV(self.v[il], self.vs[il])
+
+
+def _splice(a: torch.Tensor, mid: torch.Tensor, fill: torch.Tensor, n_keep: int, hz: int):
+    """One row [H, S, X]: keep [0, n_keep), then `mid`, then `fill`, then
+    the region past the horizon as it is."""
+    return torch.cat([a[:, :n_keep], mid, fill, a[:, hz:]], dim=1)
+
+
+def _shift_contiguous(kv: KVCache, rope_params, row: int, n_keep: int, n_discard: int, hz: int):
+    from ..ops.layers import apply_rope
+
+    for il in range(kv.n_layers):
+        rk, rv = kv.k[il][row], kv.v[il][row]  # [H, S, D]
+        mk = rk[:, n_keep + n_discard:hz].transpose(0, 1)[None]  # [1, T, H, D]
+        delta = torch.full((1, mk.shape[1]), -n_discard, dtype=torch.int32, device=mk.device)
+        mk = apply_rope(mk, delta, rope_params)[0].transpose(0, 1)
+        zk = torch.zeros_like(rk[:, :n_discard])
+        nk = _splice(rk, mk, zk, n_keep, hz)
+        nv = _splice(rv, rv[:, n_keep + n_discard:hz], zk, n_keep, hz)
+        kv.k[il][row] = nk
+        kv.v[il][row] = nv
+
+
+def _shift_q8(kv: KVCacheQ8, rope_params, row: int, n_keep: int, n_discard: int, hz: int):
+    """The moved K is dequantized, re-rotated and requantized (scales
+    recomputed); V codes and scales just slide down (zllm's
+    `_shift_context_row_q8`)."""
+    from ..ops.layers import apply_rope
+
+    for il in range(kv.n_layers):
+        rk, rs = kv.k[il][row], kv.ks[il][row]  # [H, S, D] int8, [H, S, 1] f32
+        mk = rk[:, n_keep + n_discard:hz].float() * rs[:, n_keep + n_discard:hz]
+        delta = torch.full((1, mk.shape[1]), -n_discard, dtype=torch.int32, device=mk.device)
+        mk = apply_rope(mk.transpose(0, 1)[None], delta, rope_params)[0].transpose(0, 1)
+        mq, ms = KVCacheQ8._quant(mk)
+        zq, zs = torch.zeros_like(rk[:, :n_discard]), torch.ones_like(rs[:, :n_discard])
+        rv, rvs = kv.v[il][row], kv.vs[il][row]
+        nk, nks = _splice(rk, mq, zq, n_keep, hz), _splice(rs, ms, zs, n_keep, hz)
+        nv = _splice(rv, rv[:, n_keep + n_discard:hz], zq, n_keep, hz)
+        nvs = _splice(rvs, rvs[:, n_keep + n_discard:hz], zs, n_keep, hz)
+        kv.k[il][row], kv.ks[il][row], kv.v[il][row], kv.vs[il][row] = nk, nks, nv, nvs
+
+
+def shift_context_row(kv, rope_params, row: int, n_keep: int, n_discard: int,
+                      horizon: int | None = None):
+    """Per-row context shift for the serving engine: within batch row `row`,
+    drop `n_discard` slots after the first `n_keep`, slide [n_keep +
+    n_discard, horizon) down, zero the freed tail, and re-rotate the moved
+    K by -n_discard positions.  Slots at or past `horizon` (the engine's
+    trash region; S when None) stay as they are.  A `PagedKVCache` shifts
+    through its page table (`runtime/paged.shift_context_row_paged`; its
+    horizon is its own).  In place; returns kv."""
+    from .paged import PagedKVCache, shift_context_row_paged
+
+    if isinstance(kv, PagedKVCache):
+        return shift_context_row_paged(kv, rope_params, row, n_keep, n_discard)
+    hz = kv.max_len if horizon is None else horizon
+    if isinstance(kv, KVCacheQ8):
+        _shift_q8(kv, rope_params, row, n_keep, n_discard, hz)
+    else:
+        _shift_contiguous(kv, rope_params, row, n_keep, n_discard, hz)
+    return kv

@@ -2,11 +2,13 @@
 `tools/server.py`).
 
 Usage: python -m zllm_torch.server MODEL.gguf [--host 127.0.0.1 --port 8080
-       --slots 4 --ctx 2048 --kv-type bf16 --jinja --device cuda]
+       --slots 4 --ctx 2048 --kv-type bf16 --kv-layout auto --jinja
+       --device cuda]
 
-Runs on the GPU unless --device cpu is given.  It offers only what the
-port serves: no router, speculative or lookahead decoding, q8/f16 KV,
-multi-device serving or media.
+Runs on the GPU unless --device cpu is given.  `--kv-type q8` serves from
+the int8 KV cache (llama.cpp's -ctk/-ctv q8_0), which takes the contiguous
+layout.  It offers only what the port serves: no router, speculative or
+lookahead decoding, f16 KV, multi-device serving or media.
 """
 
 from __future__ import annotations
@@ -23,9 +25,14 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--slots", type=int, default=4, help="concurrent sequences")
-    ap.add_argument("--ctx", type=int, default=2048, help="context per slot (rounded up to 128)")
-    ap.add_argument("--kv-type", default="bf16", choices=["bf16", "f32"],
-                    help="KV cache element type")
+    ap.add_argument("--ctx", type=int, default=2048,
+                    help="context per slot (paged: rounded up to 128)")
+    ap.add_argument("--kv-type", default="bf16", choices=["bf16", "f32", "q8"],
+                    help="KV cache element type (q8 = int8-quantized cache, llama.cpp's "
+                         "-ctk/-ctv q8_0)")
+    ap.add_argument("--kv-layout", default="auto", choices=["auto", "paged", "contiguous"],
+                    help="KV cache layout: paged = shared page pool + cross-slot prefix "
+                         "sharing (auto: paged, contiguous for q8)")
     ap.add_argument("--jinja", action="store_true",
                     help="render the GGUF's embedded jinja chat template")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -40,8 +47,9 @@ def main(argv=None):
     if m.tokenizer is None:
         ap.error(f"{args.model} has no tokenizer")
     srv = ZllmServer(m, n_slots=args.slots, max_len=args.ctx, host=args.host, port=args.port,
-                     jinja=args.jinja,
-                     kv_dtype={"bf16": torch.bfloat16, "f32": torch.float32}[args.kv_type])
+                     jinja=args.jinja, kv_layout=args.kv_layout,
+                     kv_dtype={"bf16": torch.bfloat16, "f32": torch.float32,
+                               "q8": "q8"}[args.kv_type])
     print(f"listening on http://{args.host}:{args.port}", file=sys.stderr)
     try:
         srv.serve_forever()

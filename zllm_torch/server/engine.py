@@ -1,20 +1,30 @@
-"""Continuous-batching inference engine over the paged KV cache
-(counterpart of `zllm/server/engine.py::Engine`, its paged dense-llama
-layout).
+"""Continuous-batching inference engine (counterpart of
+`zllm/server/engine.py::Engine` for dense llama models), in two KV layouts:
 
-A fixed pool of slots shares one page pool; one engine thread runs the
-steps:
+  * paged (the default): slots share one page pool through per-slot page
+    tables (`runtime/paged.py`; K9 decode, K10 mixed steps);
+  * contiguous: one [n_slots, Hkv, max_len + prefill_chunk, D] stripe per
+    layer, slot index == position (`runtime/kvcache.py`): bf16/f32 K/V
+    (K2 decode, K6 mixed steps), or the int8 q8 cache, `kv_dtype="q8"`,
+    which always takes this layout (K7 at every step).
+`kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0", as in zllm.
+
+One engine thread runs the steps:
   * prompt chunks and generating slots share one batch: every prompting
     slot's next chunk rides in its own row of an [n_slots, chunk] step and
-    a generating slot's token rides in column 0 (`_mixed_step`, K10); with
-    no prompt pending the step is [n_slots, 1] (`_decode_step`, K9).  Rows
-    with nothing to do sit at position max_len, the trash page;
-  * prompt-prefix reuse: a request shares the full 128-token pages of the
-    longest common prefix with any slot's cache (even a busy slot's: full
-    pages are immutable), and prefills only the rest;
+    a generating slot's token rides in column 0 with trash positions after
+    it (`_mixed_step`); with no prompt pending the step is [n_slots, 1]
+    (`_decode_step`).  Rows with nothing to do sit at position max_len,
+    the trash page or the contiguous stripe's trash region [max_len, S);
+  * prompt-prefix reuse: paged, a request shares the full 128-token pages
+    of the longest common prefix with any slot's cache (even a busy
+    slot's: full pages are immutable); contiguous, it reuses the longest
+    common prefix of an idle slot's own cache, in place; either way it
+    prefills only the rest;
   * context shift: a generating slot that reaches max_len drops the oldest
-    half of its window (keeping n_keep) and re-rotates K in place, after a
-    copy-on-write unshare of pages it shares;
+    half of its window (keeping n_keep) and re-rotates K in place (q8:
+    dequantized, rotated, requantized), after a copy-on-write unshare of
+    pages it shares;
   * sampling is one batched chain over all slots with per-slot parameters
     and one torch.Generator per slot (`sampling/batched.py`); grammar
     masking stays on the host, applied by resampling the rows whose first
@@ -23,12 +33,14 @@ steps:
     error and the engine keeps serving.
 
 The model runs on its own device: a CUDA model's steps launch the port's
-kernels (K9/K10 attention, K3/K5 for the quantized matmuls), a CPU model's
-the plain versions.  What this engine does not port raises
-NotImplementedError naming its ROADMAP item: the contiguous layout,
-q8/f16 KV, speculative and lookahead decoding, tp/dp/pp/mesh and
-coordinated serving, media.  Recurrent, hybrid, MLA and SWA models do not
-load in zllm_torch at all (`models/config.py`).
+kernels (the layout's attention kernels, K3/K5 for the quantized matmuls),
+a CPU model's the plain versions.  Invalid settings raise ValueError: an
+unknown `kv_dtype` string and q8 with the paged layout, as zllm's do, and
+an unknown layout (which zllm serves as contiguous).  What this engine
+does not port raises NotImplementedError naming
+its ROADMAP item: f16 KV, speculative and lookahead decoding,
+tp/dp/pp/mesh and coordinated serving, media.  Recurrent, hybrid, MLA and
+SWA models do not load in zllm_torch at all (`models/config.py`).
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ import numpy as np
 import torch
 
 from ..models.llama import forward
-from ..runtime.paged import PageAllocator, PagedKVCache, shift_context_row_paged
+from ..runtime.kvcache import KVCache, KVCacheQ8, shift_context_row
+from ..runtime.paged import PageAllocator, PagedKVCache
 from ..sampling import batched
 
 PENALTY_WINDOW = 64
@@ -141,7 +154,7 @@ class _Slot:
     prompt_left: list[int] = field(default_factory=list)
     last_token: int = 0
     generated: int = 0
-    # tokens whose K/V currently live in this slot's pages [0, pos)
+    # tokens whose K/V currently live in this slot's cache [0, pos)
     cache_tokens: list[int] = field(default_factory=list)
 
 
@@ -162,11 +175,20 @@ class Engine:
                  kv_dtype=None, speculative: bool = False, draft_model=None, kv_layout: str = "auto",
                  tp: int = 1, dp: int = 1, pp: int = 1, mesh=None, coordinated: bool = False,
                  lookahead: bool = False):
-        if kv_layout not in ("auto", "paged"):
-            raise _not_ported(f"kv_layout={kv_layout!r} (the contiguous engine layout with K8)")
-        if kv_dtype is not None and not isinstance(kv_dtype, torch.dtype):
-            raise _not_ported(f"kv_dtype={kv_dtype!r} (the q8 KV cache with K7)")
-        if kv_dtype not in (None, torch.bfloat16, torch.float32):
+        if kv_layout not in ("auto", "paged", "contiguous"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r} (auto, paged or contiguous)")
+        # kv_dtype: a torch dtype, or the string "q8"/"q8_0" for the int8
+        # cache, which needs the contiguous layout ("auto" picks it)
+        quant = isinstance(kv_dtype, str)
+        if kv_layout == "auto":
+            kv_layout = "contiguous" if quant else "paged"
+        if quant:
+            if kv_dtype.lower() not in ("q8", "q8_0"):
+                raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'q8' or a torch dtype)")
+            if kv_layout == "paged":
+                raise ValueError("kv_dtype='q8' requires the contiguous KV layout")
+            kv_dtype = None
+        elif kv_dtype not in (None, torch.bfloat16, torch.float32):
             raise _not_ported(f"kv_dtype={kv_dtype} (f16 KV)")
         if speculative or draft_model is not None:
             raise _not_ported("speculative decoding")
@@ -180,16 +202,29 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         cfg = model.cfg
 
-        # shared page pool + per-slot page tables; full prefix pages are
-        # shared across slots read-only
-        self.max_len = -(-max_len // PAGE_SIZE) * PAGE_SIZE
-        self.alloc = PageAllocator(n_slots, self.max_len, PAGE_SIZE)
-        for i in range(n_slots):
-            self.alloc.assign_slot(i, None, 0)
-        self.kv = PagedKVCache.create(
-            cfg.n_layers, n_slots, self.max_len, cfg.n_kv_heads, cfg.head_dim,
-            kv_dtype or torch.bfloat16, page_size=PAGE_SIZE, device=self.device,
-        ).with_table(self.alloc.table)
+        self.paged = kv_layout == "paged"
+        if self.paged:
+            # shared page pool + per-slot page tables; full prefix pages are
+            # shared across slots read-only
+            self.max_len = -(-max_len // PAGE_SIZE) * PAGE_SIZE
+            self.alloc = PageAllocator(n_slots, self.max_len, PAGE_SIZE)
+            for i in range(n_slots):
+                self.alloc.assign_slot(i, None, 0)
+            self.kv = PagedKVCache.create(
+                cfg.n_layers, n_slots, self.max_len, cfg.n_kv_heads, cfg.head_dim,
+                kv_dtype or torch.bfloat16, page_size=PAGE_SIZE, device=self.device,
+            ).with_table(self.alloc.table)
+        else:
+            # one stripe per slot, with the trash region [max_len, max_len +
+            # prefill_chunk) past the attendable horizon: an inactive row's
+            # run of writes from max_len stays inside it
+            self.max_len = max_len
+            shape = (cfg.n_layers, n_slots, max_len + prefill_chunk, cfg.n_kv_heads,
+                     cfg.head_dim)
+            if quant:
+                self.kv = KVCacheQ8.create(*shape, device=self.device)
+            else:
+                self.kv = KVCache.create(*shape, kv_dtype or torch.bfloat16, self.device)
 
         # per-slot sampling parameters, generators and penalty windows
         self._params = batched.SlotParams(n_slots)
@@ -297,28 +332,31 @@ class Engine:
                 if ncp > best_n:
                     best, best_n = s, ncp
             src_slot = best
-            # full prefix pages can be shared from ANY slot (even a busy one:
-            # full pages are immutable), so search all of them
-            for s in self.slots:
-                ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
-                if ncp > best_n:
-                    src_slot, best_n = s, ncp
-                    if s.state == SlotState.IDLE:
-                        best = s
+            if self.paged:
+                # full prefix pages can be shared from ANY slot (even a busy
+                # one: full pages are immutable), so search all of them
+                for s in self.slots:
+                    ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
+                    if ncp > best_n:
+                        src_slot, best_n = s, ncp
+                        if s.state == SlotState.IDLE:
+                            best = s
             # keep >= 1 token to prefill so the step yields next-token logits
             n_reuse = min(best_n, len(req.prompt_tokens) - 1)
-            n_reuse -= n_reuse % self.alloc.ps  # only FULL pages are shareable
+            if self.paged:
+                n_reuse -= n_reuse % self.alloc.ps  # only FULL pages are shareable
             if n_reuse < 16:  # not worth the bookkeeping below this
                 n_reuse = 0
             slot = best
-            if n_reuse > 0 and src_slot is not slot:
-                self.alloc.assign_slot(slot.idx, src_slot.idx, n_reuse // self.alloc.ps)
-                self.kv = self.kv.with_table(self.alloc.table)
-            elif n_reuse == 0:
-                # fresh mapping (drops any retained pages of this slot)
-                self.alloc.assign_slot(slot.idx, None, 0)
-                self.kv = self.kv.with_table(self.alloc.table)
-            # n_reuse > 0 and the source is the slot itself: keep its mapping
+            if self.paged:
+                if n_reuse > 0 and src_slot is not slot:
+                    self.alloc.assign_slot(slot.idx, src_slot.idx, n_reuse // self.alloc.ps)
+                    self.kv = self.kv.with_table(self.alloc.table)
+                elif n_reuse == 0:
+                    # fresh mapping (drops any retained pages of this slot)
+                    self.alloc.assign_slot(slot.idx, None, 0)
+                    self.kv = self.kv.with_table(self.alloc.table)
+                # n_reuse > 0 and the source is the slot itself: keep its mapping
             slot.req = req
             slot.state = SlotState.PROMPT
             slot.pos = n_reuse
@@ -397,7 +435,7 @@ class Engine:
 
     def _shift_slot(self, slot: _Slot):
         """Discard the oldest half of the slot's window, keep n_keep."""
-        if not self.alloc.exclusively_owned(slot.idx):
+        if self.paged and not self.alloc.exclusively_owned(slot.idx):
             # the shift rewrites pages in place: copy-on-write unshare the
             # shared prefix pages first (fresh private pages + page copies)
             try:
@@ -409,7 +447,8 @@ class Engine:
             self.metrics["pages_cow_unshared_total"] += len(copies)
         n_keep = slot.req.n_keep if slot.req else 0
         n_discard = max((self.max_len - n_keep) // 2, 1)
-        self.kv = shift_context_row_paged(self.kv, self.model.cfg.rope, slot.idx, n_keep, n_discard)
+        self.kv = shift_context_row(self.kv, self.model.cfg.rope, slot.idx, n_keep, n_discard,
+                                    horizon=self.max_len)
         slot.pos -= n_discard
         slot.cache_tokens = slot.cache_tokens[:n_keep] + slot.cache_tokens[n_keep + n_discard:]
         self.metrics["context_shifts_total"] += 1

@@ -43,10 +43,11 @@ def _sse(obj) -> bytes:
 
 class ZllmServer:
     def __init__(self, model, n_slots: int = 4, max_len: int = 2048, host="127.0.0.1",
-                 port=8080, jinja: bool = False, kv_dtype=None):
+                 port=8080, jinja: bool = False, kv_layout: str = "auto", kv_dtype=None):
         self.model = model
         self.jinja = jinja
-        self.engine = Engine(model, n_slots=n_slots, max_len=max_len, kv_dtype=kv_dtype)
+        self.engine = Engine(model, n_slots=n_slots, max_len=max_len, kv_layout=kv_layout,
+                             kv_dtype=kv_dtype)
         self.host = host
         self.port = port
         self.httpd: ThreadingHTTPServer | None = None
