@@ -4,16 +4,19 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no final result line):
-  1. build the nine CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
+  1. build the eleven CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M (zllm_torch.quantize
-     from an F16 file) and Q8_0, each generated on the GPU (kernels) and on
-     the CPU (their plain versions), logits compared step by step; and the
-     2-layer Q4_K_M file served by the continuous-batching Engine (f32, 2
-     slots) on the GPU and on the CPU, in three KV layouts: f32 paged, f32
-     contiguous and q8 (int8, contiguous): three prompts, one across a page,
-     then a re-send sharing its first 130 tokens; tokens, reuse and step
-     counters must be identical, and each layout's GPU run must launch its
-     attention kernels (paged K9/K10, contiguous K2/K6, q8 K7 alone);
+     from an F16 file) and Q8_0, and 2-layer OLMo-2 files in Q4_K and
+     Q4_K_M, each generated on the GPU (kernels) and on the CPU (their plain
+     versions), logits compared step by step; and the 2-layer Q4_K_M files
+     served by the continuous-batching Engine (f32, 2 slots) on the GPU and
+     on the CPU: the llama in three KV layouts, f32 paged, f32 contiguous
+     and q8 (int8, contiguous), the OLMo-2 one in f32 contiguous and f32
+     paged: three prompts, one across a page, then a re-send sharing its
+     first 130 tokens; tokens, reuse and step counters must be identical,
+     and each run on the GPU must launch its attention kernels and no other
+     (llama: paged K9/K10, contiguous K2/K6, q8 K7 alone; OLMo-2: contiguous
+     K8/K6, never K2; paged K9/K10);
   3. main paths, at TinyLlama geometry (all 22 layers, full width, random
      weights from a seed, byte-level tokenizer), loaded in bf16 on the GPU,
      each Generator(max_len=2048).generate on a 300-token prompt (two
@@ -24,6 +27,12 @@ Phases, each fatal on failure (non-zero exit, no final result line):
        - Q4_K_M (zllm_torch.quantize from an F16 file: attn_v, the first 11
          ffn_down and the head Q6_K): 99 K1 + 34 K4 + 22 K2 per decode step,
          99 K3 + 34 K5 + 22 K6 per chunk;
+     then OLMo-2-0425-1B geometry (16 layers, n_embd 2048, 16/16 heads of
+     128, n_ff 8192, vocab 100352; Q4_K everywhere, random weights from a
+     seed), the same generate: 65 K1 + 16 K8 per decode step, 65 K3 + 16 K6
+     per chunk, K2 never (phase `main_path`, model olmo2); then that model
+     with ZLLM_QMM_HBM=1 fed the same tokens for 8 decode steps: 65 K12 +
+     16 K8 a step, K1 never, logits equal to the K1 run's (`olmo2_hbm`);
      and the serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
@@ -41,7 +50,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      also once each on a full-width Q8_0 weight, K3 and K5 also at the
      engine's decode M = 4; K9/K10 at the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
-     steps, over int8 and over bf16 K/V.
+     steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
+     at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
+     K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
+     matvecs, beside K1 on the same calls.
 
 Prints one JSON line per phase result, then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
@@ -52,6 +64,7 @@ Built kernels and the GGUF files are cached under .cache/ in the checkout.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
@@ -74,6 +87,8 @@ NEW_TOKENS = 32
 MAX_LEN = 2048
 CHUNK = 256
 SMALL = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512)
+SMALL_OLMO2 = dict(SMALL, arch="olmo2", n_kv_heads=4, norm_eps=1e-6, rope_base=500000.0)
+HBM_STEPS = 8  # decode steps of the olmo2_hbm phase
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -209,9 +224,10 @@ def prompt_ids(tok, n: int) -> list[int]:
 
 
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
-    """A random-weight llama GGUF in `ftype` (cached): Q4_K and Q8_0 written
-    directly by the factory, Q4_K_M requantized by zllm_torch.quantize from
-    an F16 file, as users make one.  Returns (path, seconds to make it)."""
+    """A random-weight llama or OLMo-2 GGUF (`shape` may name the arch) in
+    `ftype` (cached): Q4_K and Q8_0 written directly by the factory, Q4_K_M
+    requantized by zllm_torch.quantize from an F16 file, as users make one.
+    Returns (path, seconds to make it)."""
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.quantize import quantize_file
     from zllm_torch.testing import make_llama_gguf
@@ -230,13 +246,13 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     return path, time.perf_counter() - t0
 
 
-def small_model_check(torch, ftype: str):
+def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMALL):
     """Kernels on the GPU vs plain versions on the CPU, same model, same
     tokens fed to both (teacher forcing), logits compared each step."""
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
 
-    path, _ = gguf_file("small", SMALL, ftype)
+    path, _ = gguf_file(name, shape, ftype)
     runs = {}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
@@ -254,7 +270,7 @@ def small_model_check(torch, ftype: str):
     errs = [nmse(a, b) for a, b in zip(steps, cpu_logits)]
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b)) for a, b in zip(steps, cpu_logits))
     tol = 1e-3
-    res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": SMALL,
+    res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": shape,
            "logits_nmse_max": max(errs), "tolerance": tol, "argmax_agree": f"{agree}/{len(errs)}",
            "finite": all(bool(torch.isfinite(a).all()) for a in steps)}
     emit(res)
@@ -262,17 +278,18 @@ def small_model_check(torch, ftype: str):
         fail(f"small-model GPU logits disagree with the CPU plain path: {res}")
 
 
-def main_path(torch, ftype: str, kernels: dict, want, card: str):
-    """Load the TinyLlama-geometry file, warm up, then one generate with the
-    launch counters set to 0 just before and read just after; `want(cfg,
-    n_steps, n_chunks)` gives the expected counts.  Returns the model and
-    the counts."""
+def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama"):
+    """Load the TinyLlama-geometry file (`name` "olmo2": OLMo-2-0425-1B
+    geometry), warm up, then one generate with the launch counters set to 0
+    just before and read just after; `want(cfg, n_steps, n_chunks)` gives
+    the expected counts.  Returns the model, the counts, the generator and
+    the prompt's and generated tokens."""
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
-    from zllm_torch.testing import TINYLLAMA_SHAPE
+    from zllm_torch.testing import OLMO2_1B_SHAPE, TINYLLAMA_SHAPE
 
-    shape = dict(TINYLLAMA_SHAPE)
-    path, t_gguf = gguf_file("tinyllama", shape, ftype)
+    shape = dict(OLMO2_1B_SHAPE if name == "olmo2" else TINYLLAMA_SHAPE)
+    path, t_gguf = gguf_file(name, shape, ftype)
     t0 = time.perf_counter()
     model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -292,7 +309,8 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str):
     expected = want(cfg, n_steps, n_chunks)
     last_logits = gen._decode_one(res.tokens[-1], PROMPT_TOKENS + n_steps).float()
     torch.cuda.synchronize()
-    emit({"phase": "main_path", "model": f"tinyllama-geometry {ftype} (random weights, seed 0)",
+    label = "OLMo-2-0425-1B geometry" if name == "olmo2" else "tinyllama-geometry"
+    emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
           "shape": shape, "dtype": "bfloat16", "prompt_tokens": PROMPT_TOKENS,
           "prefill_chunks": n_chunks, "new_tokens": len(res.tokens),
           "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
@@ -305,7 +323,48 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str):
         fail(f"{ftype}: kernel launch counts {counts} != expected {expected}")
     if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
         fail(f"{ftype}: main-path logits are not finite or have the wrong shape")
-    return model, counts
+    return model, counts, gen, ids, res.tokens
+
+
+def hbm_phase(torch, gen, kernels: dict, ids: list, tokens: list, card: str) -> dict:
+    """The OLMo-2 model's decode steps with ZLLM_QMM_HBM=1 (K12 for every
+    Q4_K matvec) against the same steps through K1: both runs prefill the
+    prompt, then take the main path's first HBM_STEPS greedy tokens as their
+    inputs.  The K12 run's launches are counted from 0 (after its prefill);
+    its logits must equal the K1 run's.  Returns the counts."""
+    def decode(hbm: bool):
+        gen.reset()
+        gen.prefill(ids)
+        torch.cuda.synchronize()
+        if hbm:
+            os.environ["ZLLM_QMM_HBM"] = "1"
+            for fn in kernels.values():
+                fn.launches = 0
+        try:
+            out = [gen._decode_one(tok, len(ids) + i).float()
+                   for i, tok in enumerate(tokens[:HBM_STEPS])]
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("ZLLM_QMM_HBM", None)
+        return out
+
+    k1_logits = decode(False)
+    hbm_logits = decode(True)
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    L = gen.model.cfg.n_layers
+    expected = {name: 0 for name in kernels}
+    expected.update(q4k_matvec_hbm=(4 * L + 1) * HBM_STEPS, attn_decode_update=L * HBM_STEPS)
+    errs = [nmse(a, b) for a, b in zip(hbm_logits, k1_logits)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(hbm_logits, k1_logits))
+    emit({"phase": "olmo2_hbm", "model": "OLMo-2-0425-1B geometry Q4_K (random weights, seed 0)",
+          "env": "ZLLM_QMM_HBM=1", "decode_steps": HBM_STEPS, "launches": counts,
+          "launches_expected": expected, "logits_nmse_vs_k1_max": max(errs), "tolerance": 1e-6,
+          "logits_bitwise_equal_k1": bitwise, "card": card})
+    if counts != expected:
+        fail(f"olmo2_hbm: kernel launch counts {counts} != expected {expected}")
+    if not bitwise and max(errs) > 1e-6:
+        fail(f"olmo2_hbm: K12 logits differ from K1's (nmse {max(errs)})")
+    return counts
 
 
 def wait_done(reqs, seconds: float = 300.0):
@@ -316,30 +375,33 @@ def wait_done(reqs, seconds: float = 300.0):
         time.sleep(0.005)
 
 
-# KV configurations of the small engine check: engine keywords, the kernels
-# its GPU run must launch, and those it must not
+# configurations of the small engine check: the model, engine keywords, the
+# attention kernels its GPU run must launch (every other one must not)
+ATTENTION_KERNELS = ("attn_decode_qkv", "attn_decode_update", "flash_attention",
+                     "flash_attention_blockwise", "paged_attention", "paged_attn_decode_update")
 SMALL_ENGINE_LAYOUTS = {
-    "paged": (dict(kv_dtype="f32"), ("paged_attention", "paged_attn_decode_update"),
-              ("attn_decode_qkv", "flash_attention", "flash_attention_blockwise")),
-    "contiguous": (dict(kv_dtype="f32", kv_layout="contiguous"),
-                   ("attn_decode_qkv", "flash_attention"),
-                   ("paged_attention", "paged_attn_decode_update", "flash_attention_blockwise")),
-    "q8": (dict(kv_dtype="q8"), ("flash_attention_blockwise",),
-           ("attn_decode_qkv", "flash_attention", "paged_attention",
-            "paged_attn_decode_update")),
+    "paged": ("small", dict(kv_dtype="f32"), ("paged_attention", "paged_attn_decode_update")),
+    "contiguous": ("small", dict(kv_dtype="f32", kv_layout="contiguous"),
+                   ("attn_decode_qkv", "flash_attention")),
+    "q8": ("small", dict(kv_dtype="q8"), ("flash_attention_blockwise",)),
+    "olmo2_contiguous": ("small_olmo2", dict(kv_dtype="f32", kv_layout="contiguous"),
+                         ("attn_decode_update", "flash_attention")),
+    "olmo2_paged": ("small_olmo2", dict(kv_dtype="f32"),
+                    ("paged_attention", "paged_attn_decode_update")),
 }
 
 
 def small_engine_check(torch, kernels: dict, layout: str):
     """The continuous-batching Engine on the GPU (kernels) and on the CPU
-    (plain versions): the 2-layer Q4_K_M file in f32, 2 slots, max_len 256,
-    chunk 16, greedy, in one KV layout of SMALL_ENGINE_LAYOUTS.  Each wave
-    is submitted from the engine thread between two steps, so both engines
-    admit it at the same step."""
+    (plain versions): a 2-layer Q4_K_M file (llama or OLMo-2) in f32, 2
+    slots, max_len 256, chunk 16, greedy, in one configuration of
+    SMALL_ENGINE_LAYOUTS.  Each wave is submitted from the engine thread
+    between two steps, so both engines admit it at the same step."""
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
 
-    path, _ = gguf_file("small", SMALL, "Q4_K_M")
+    name, kw, must = SMALL_ENGINE_LAYOUTS[layout]
+    path, _ = gguf_file(name, SMALL_OLMO2 if name == "small_olmo2" else SMALL, "Q4_K_M")
     rng = random.Random(0)
 
     def ids(n):
@@ -347,7 +409,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
 
     p_long = ids(140)  # crosses the first 128-token page
     waves = [[ids(40), p_long, ids(25)], [p_long[:130] + [7]]]
-    kw, must, must_not = SMALL_ENGINE_LAYOUTS[layout]
+    must_not = [n for n in ATTENTION_KERNELS if n not in must]
     kw = dict(kw, kv_dtype=torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"])
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -370,7 +432,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
                      {name: fn.launches - before[name] for name, fn in kernels.items()})
     (g_got, g_cnt, g_k), (c_got, c_cnt, _) = runs["cuda"], runs["cpu"]
     res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": "Q4_K_M",
-           "shape": SMALL, "dtype": "float32", "kv": str(kw["kv_dtype"]), "n_slots": 2,
+           "shape": SMALL_OLMO2 if name == "small_olmo2" else SMALL, "dtype": "float32", "kv": str(kw["kv_dtype"]), "n_slots": 2,
            "max_len": 256, "chunk": 16, "tokens_equal": g_got == c_got,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
            "n_prompt_reused": [r[2] for r in g_got], "gpu_launches": g_k}
@@ -540,39 +602,52 @@ def main():
                "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention,
                "paged_attn_decode_update": att.paged_attn_decode_update,
                "paged_attention": att.paged_attention,
-               "flash_attention_blockwise": att.flash_attention_blockwise}
+               "flash_attention_blockwise": att.flash_attention_blockwise,
+               "attn_decode_update": att.attn_decode_update,
+               "q4k_matvec_hbm": qmm.q4k_matvec_hbm}
 
     for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
         small_model_check(torch, ftype)
+    for ftype in ("Q4_K", "Q4_K_M"):
+        small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
 
     # ---- main paths at TinyLlama geometry -------------------------------
     def want_q4k(cfg, n_steps, n_chunks):
         L = cfg.n_layers  # wqkv, wo, gate|up, down a layer + the head
-        return {"q4k_matvec": (4 * L + 1) * n_steps, "int8_matvec": 0,
-                "attn_decode_qkv": L * n_steps, "q4k_gemm": (4 * L + 1) * n_chunks,
-                "dequant_gemm": 0, "flash_attention": L * n_chunks,
-                "paged_attn_decode_update": 0, "paged_attention": 0,
-                "flash_attention_blockwise": 0}
+        return dict({name: 0 for name in kernels}, q4k_matvec=(4 * L + 1) * n_steps,
+                    attn_decode_qkv=L * n_steps, q4k_gemm=(4 * L + 1) * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    def want_olmo2(cfg, n_steps, n_chunks):
+        # the same matmuls as want_q4k (K1 with fuse "q" for the layers'
+        # four, "norm" for the head), and K8 where llama takes K2
+        L = cfg.n_layers
+        return dict({name: 0 for name in kernels}, q4k_matvec=(4 * L + 1) * n_steps,
+                    attn_decode_update=L * n_steps, q4k_gemm=(4 * L + 1) * n_chunks,
+                    flash_attention=L * n_chunks)
 
     def want_q4km(cfg, n_steps, n_chunks):
         # Q4_K: wq, wk, wo, gate|up a layer + ffn_down of the last L/2;
         # Q6_K: wv a layer + ffn_down of the first L/2 + the head
         L, low = cfg.n_layers, cfg.n_layers // 2
         k1, k4 = 4 * L + (L - low), L + low + 1
-        return {"q4k_matvec": k1 * n_steps, "int8_matvec": k4 * n_steps,
-                "attn_decode_qkv": L * n_steps, "q4k_gemm": k1 * n_chunks,
-                "dequant_gemm": k4 * n_chunks, "flash_attention": L * n_chunks,
-                "paged_attn_decode_update": 0, "paged_attention": 0,
-                "flash_attention_blockwise": 0}
+        return dict({name: 0 for name in kernels}, q4k_matvec=k1 * n_steps,
+                    int8_matvec=k4 * n_steps, attn_decode_qkv=L * n_steps,
+                    q4k_gemm=k1 * n_chunks, dequant_gemm=k4 * n_chunks,
+                    flash_attention=L * n_chunks)
 
-    model, counts_q4k = main_path(torch, "Q4_K", kernels, want_q4k, card)
-    model_m, counts_q4km = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
+    model, counts_q4k, *_ = main_path(torch, "Q4_K", kernels, want_q4k, card)
+    model_m, counts_q4km, *_ = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
+    model_o, counts_olmo2, gen_o, ids_o, toks_o = main_path(torch, "Q4_K", kernels, want_olmo2,
+                                                            card, name="olmo2")
+    counts_hbm = hbm_phase(torch, gen_o, kernels, ids_o, toks_o, card)
+    del gen_o
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
-    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "serve": counts_serve,
-             "serve_q8": counts_q8}
+    paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
+             "olmo2_hbm": counts_hbm, "serve": counts_serve, "serve_q8": counts_q8}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -947,6 +1022,111 @@ def main():
     bad_k7 = [name for name, r in k7.items() if not r["nmse"] <= r["tolerance"]]
     del kv7
 
+    # K8: one OLMo-2 decode step's 16 attentions (B = 1, 16/16 heads of 128,
+    # the Generator's bf16 cache of 2048 slots, pos 331 = the last step's),
+    # each layer its own cache; and one TinyLlama-geometry contiguous engine
+    # decode step (4 rows at 255, 0, 300 and a trash row at max_len 2048, in
+    # the engine's stripe of 2048 + 128 slots, 32/4 heads of 64, G = 8)
+    def k8_case(n_layers: int, b: int, hq_: int, hkv_: int, d: int, s: int, pos_vals: list):
+        pos8 = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")[:, None]
+        q8_ = randn(b, 1, hq_, d)
+        kn8, vn8 = randn(b, 1, hkv_, d), randn(b, 1, hkv_, d)
+        kcs8 = [randn(b, hkv_, s, d, dtype=torch.bfloat16) for _ in range(n_layers)]
+        vcs8 = [randn(b, hkv_, s, d, dtype=torch.bfloat16) for _ in range(n_layers)]
+        kw8 = dict(scale=d ** -0.5)
+        ka, va, kb, vb = kcs8[0].clone(), vcs8[0].clone(), kcs8[0].clone(), vcs8[0].clone()
+        a = att.attn_decode_update(q8_, kn8, vn8, ka, va, pos8, **kw8)
+        b_ = att.attn_decode_update_plain(q8_, kn8, vn8, kb, vb, pos8, **kw8)
+        if not (torch.equal(ka, kb) and torch.equal(va, vb)):
+            fail("K8's updated caches differ from its plain version's")
+
+        def run(fn):
+            def go():
+                for kc_, vc_ in zip(kcs8, vcs8):
+                    fn(q8_, kn8, vn8, kc_, vc_, pos8, **kw8)
+            return go
+
+        qb = q8_.to(torch.bfloat16).transpose(1, 2)  # [B, Hq, 1, D]
+        mask8 = (torch.arange(s, device="cuda")[None, :] <= pos8).reshape(b, 1, 1, s)
+
+        def lib():  # SDPA on the caches the kernel already inserted into
+            for kc_, vc_ in zip(kcs8, vcs8):
+                F.scaled_dot_product_attention(qb, kc_, vc_, attn_mask=mask8, scale=kw8["scale"],
+                                               enable_gqa=True)
+
+        seen = sum(min(p_ + 1, s) for p_ in pos_vals)  # the slots each row attends
+        nbytes = n_layers * (2 * hkv_ * seen * d * 2 + (q8_.numel() + 2 * kn8.numel()) * 4
+                             + q8_.numel() * 4 + 2 * b * hkv_ * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq_ * seen * d, "bf16")
+        return dict(ms=cuda_ms(run(att.attn_decode_update), 20),
+                    plain_ms=cuda_ms(run(att.attn_decode_update_plain), 2),
+                    library_ms=cuda_ms(lib, 20), bound_ms=bms, bound_by=bby,
+                    nmse=nmse(a.float(), b_.float()),
+                    max_abs_err=float((a.float() - b_.float()).abs().max()), tolerance=1e-6,
+                    shapes=f"q [{b},1,{hq_},{d}] f32, k/v_new [{b},1,{hkv_},{d}] f32, cache "
+                           f"[{b},{hkv_},{s},{d}] bf16, pos {pos_vals}, {n_layers} layers")
+
+    cfg_o = model_o.cfg
+    k8_o = k8_case(cfg_o.n_layers, 1, cfg_o.n_heads, cfg_o.n_kv_heads, cfg_o.head_dim, MAX_LEN,
+                   [pos_v])
+    k8_t = k8_case(per_layer, 4, hq, hkv, hd, MAX_LEN + 128, [255, 0, 300, MAX_LEN])
+    lines.append(dict(name="attn_decode_update", route="cuda",
+                      source="zllm_torch/csrc/attn_decode_update.cu",
+                      replaces="zllm/ops/attention.py:499",
+                      launches=counts_olmo2["attn_decode_update"], **k8_o,
+                      library="scaled_dot_product_attention on the already-inserted cache "
+                              "(attention only: no one call inserts and attends)",
+                      launches_by_path=by_path("attn_decode_update"),
+                      unit=f"one OLMo-2 decode step ({cfg_o.n_layers} launches)",
+                      launches_per_step=cfg_o.n_layers, tinyllama_engine_step=k8_t))
+    bad_k8 = [] if k8_t["nmse"] <= k8_t["tolerance"] else ["tinyllama_engine_step"]
+
+    # K12 over one OLMo-2 decode step's 65 Q4_K matvecs (the layers' four
+    # with fuse "q" on the raw stream, the head with the final norm) and the
+    # TinyLlama Q4_K step's 89, with K1 on the same calls in this run
+    layers_o, head_o = model_o.params["layers"], model_o.params["output"]
+    x_o, x_ffo = randn(1, cfg_o.n_embd, scale=3.0), randn(1, cfg_o.n_ff)
+    calls_o = []
+    for layer in layers_o:
+        calls_o += [(x_o, layer["wqkv"], "q", None), (x_o, layer["wo"], "q", None),
+                    (x_o, layer["ffn_gateup"], "q", None), (x_ffo, layer["ffn_down"], "q", None)]
+    calls_o.append((x_o, head_o, "norm", model_o.params["out_norm"]))
+    bpw4 = GGUF_BYTES_PER_WEIGHT["Q4_K"]
+    check_o = (0, 1, 2, 3, len(calls_o) - 1)
+
+    def by_role(n_calls):  # the four matvecs of each layer, then the head
+        return {role: list(range(i, n_calls - 1, 4))
+                for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))} | {
+                    "head": [n_calls - 1]}
+
+    k12_o = matvec_phase(torch, qmm.q4k_matvec_hbm, qmm.q4k_matvec_hbm_plain, calls_o, n_real,
+                         bpw4, cfg_o.norm_eps, check=check_o, groups=by_role(len(calls_o)))
+    k1_o = matvec_phase(torch, qmm.q4k_matvec, None, calls_o, n_real, bpw4, cfg_o.norm_eps,
+                        groups=by_role(len(calls_o)))
+    k12_t = matvec_phase(torch, qmm.q4k_matvec_hbm, None, calls, n_real, bpw4, cfg.norm_eps,
+                         groups=by_role(len(calls)))
+    k1_t = matvec_phase(torch, qmm.q4k_matvec, None, calls, n_real, bpw4, cfg.norm_eps,
+                        groups=by_role(len(calls)))
+    bitwise = all(torch.equal(qmm.q4k_matvec_hbm(x, w, fuse, aux, eps_),
+                              qmm.q4k_matvec(x, w, fuse, aux, eps_))
+                  for (x, w, fuse, aux), eps_ in
+                  [(calls_o[i], cfg_o.norm_eps) for i in check_o]
+                  + [(calls[i], cfg.norm_eps) for i in (0, 1, 2, 3, len(calls) - 1)])
+    lines.append(dict(name="q4k_matvec_hbm", route="cuda", source="zllm_torch/csrc/q4k_matvec_hbm.cu",
+                      replaces="zllm/ops/qmatmul.py:1170", launches=counts_hbm["q4k_matvec_hbm"],
+                      **k12_o, tolerance=1e-6, bitwise_equal_k1=bitwise,
+                      launches_by_path=by_path("q4k_matvec_hbm"),
+                      unit=f"one OLMo-2 decode step ({len(calls_o)} launches)",
+                      shapes="16 x [wqkv 2048->6144, wo 2048->2048, gate|up 2048->16384, down "
+                             "8192->2048] (fuse q) + head norm 2048->100352",
+                      k1_same_calls_ms=k1_o["ms"], k1_ms_by_group=k1_o["ms_by_group"],
+                      tinyllama_q4k_step=dict(ms=k12_t["ms"], k1_ms=k1_t["ms"],
+                                              ms_by_group=k12_t["ms_by_group"],
+                                              k1_ms_by_group=k1_t["ms_by_group"],
+                                              bound_ms=k12_t["bound_ms"], launches=len(calls))))
+    if not bitwise:
+        fail("K12 differs from K1 bit for bit on the same calls")
+
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
     # the bf16 residual
@@ -1040,9 +1220,9 @@ def main():
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
-    if bad or bad_q8 or bad_m4 or bad_k7:
+    if bad or bad_q8 or bad_m4 or bad_k7 or bad_k8:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
-             f"M=4: {bad_m4}, K7: {bad_k7})")
+             f"M=4: {bad_m4}, K7: {bad_k7}, K8: {bad_k8})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})

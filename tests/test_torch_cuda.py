@@ -10,8 +10,10 @@ Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 Tolerances: K1/K4 nmse < 1e-6 (exact integer dots; only f32 sum order, and
 an ulp of rsqrt/exp may move one int8 code), K3/K5 < 1e-6 (bf16 operands,
 f32 sum order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
-probability may move by an ulp), K9/K10 < 1e-6, K7 < 1e-6 (1e-5 with a
-bf16 q, whose output rounds to bf16).
+probability may move by an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
+with a bf16 q, whose output rounds to bf16), and K12 equal to K1's kernel
+bit for bit (each lane does K1's arithmetic in K1's order) and < 1e-6
+against the plain version.
 """
 
 import numpy as np
@@ -248,7 +250,7 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
                                            (torch.bfloat16, torch.bfloat16)],
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
-                                  "g4", "long"])
+                                  "g4", "g16", "long"])
 def test_k9_matches_plain(dev, case, qdtype, pdtype):
     """Positions include a page edge, 0, a mid-page one and a trash row; the
     pools must come out bit-identical outside the trash page 0."""
@@ -256,6 +258,8 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
     d = 128 if case == "d128" else 64
     if case == "g4":
         hq = 16
+    if case == "g16":  # a group wider than a block's 8 query rows: two chunks
+        hq = 64
     pos_vals = {"page_edge": [127, 128, 255, lp * ps],
                 "start": [0, 1, 2, lp * ps],
                 "long": [lp * ps - 1, 1500, 2000, 3]}.get(case, [0, 300, 1000, lp * ps])
@@ -335,3 +339,70 @@ def test_k7_matches_plain(dev, case, kv):
     assert got.dtype == qdtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+@pytest.mark.parametrize("k,n", [(256, 40), (2304, 72), (2048, 6144), (8192, 2048),
+                                 (2048, 16384)])
+def test_k12_matches_k1(dev, k, n, fuse, xdtype):
+    """K = 2304 gives an odd number of super-blocks a column (the block's
+    d/dmin runs start mid-word); N = 40 and 72 leave a block's last warps
+    without a column."""
+    w = _qweight(n, k, k + n, dev)
+    x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
+    aux = _randn((k,), 2, dev, scale=0.1) + 1.0 if fuse == "norm" else None
+    before = tq.q4k_matvec_hbm.launches
+    got = tq.q4k_matvec_hbm(x, w, fuse, aux, 1e-5)
+    torch.cuda.synchronize()
+    assert tq.q4k_matvec_hbm.launches == before + 1
+    assert torch.equal(got, tq.q4k_matvec(x, w, fuse, aux, 1e-5))
+    assert _nmse(got, tq.q4k_matvec_hbm_plain(x, w, fuse, aux, 1e-5)) < 1e-6
+
+
+# K8: (B, G, D, S, positions, window, softcap); S = 2048 with pos 331 is the
+# OLMo-2 decode step, S = 2176 the engine's contiguous stripe (max_len 2048
+# + chunk 128, a trash row at 2048), pos == S a trash row past the stripe
+K8_CASES = {
+    "olmo2": (1, 1, 128, 2048, [331], 0, 0.0),
+    "engine_g8": (4, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0),
+    "mid_g4": (1, 4, 128, 512, [331], 0, 0.0),
+    "block_edge": (1, 4, 64, 512, [255], 0, 0.0),
+    "start": (1, 1, 64, 256, [0], 0, 0.0),
+    "b2": (2, 4, 128, 512, [17, 300], 0, 0.0),
+    "window": (2, 1, 128, 512, [400, 40], 100, 0.0),
+    "trash_row": (2, 4, 64, 256, [256, 100], 0, 0.0),
+    "softcap": (1, 4, 128, 256, [200], 0, 30.0),
+    "g16_ragged": (2, 16, 64, 300, [299, 5], 0, 0.0),
+    "s200": (1, 1, 64, 200, [150], 0, 0.0),
+}
+
+
+@pytest.mark.parametrize("qdtype,cdtype", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_matches_plain(dev, case, qdtype, cdtype):
+    """The caches must come out bit-identical to the plain version's: one
+    row written per batch row, at min(pos, S - 1)."""
+    b, g, d, s, pos_vals, window, softcap = K8_CASES[case]
+    hkv = 2 if g >= 8 else 4
+    hq = g * hkv
+    positions = torch.tensor(pos_vals, dtype=torch.int32, device=dev)[:, None]
+    q = _randn((b, 1, hq, d), 50, dev, qdtype)
+    kn = _randn((b, 1, hkv, d), 51, dev, qdtype)
+    vn = _randn((b, 1, hkv, d), 52, dev, qdtype)
+    kc = _randn((b, hkv, s, d), 53, dev, cdtype)
+    vc = _randn((b, hkv, s, d), 54, dev, cdtype)
+    k2, v2 = kc.clone(), vc.clone()
+    kw = dict(scale=d ** -0.5, softcap=softcap, window=window)
+    before = ta.attn_decode_update.launches
+    got = ta.attn_decode_update(q, kn, vn, kc, vc, positions, **kw)
+    want = ta.attn_decode_update_plain(q, kn, vn, k2, v2, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.attn_decode_update.launches == before + 1
+    assert got.dtype == qdtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)

@@ -56,6 +56,39 @@ def test_make_llama_gguf_byte_identical(tmp_path, with_tokenizer):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
+def test_make_llama_gguf_arch_llama_byte_identical(tmp_path):
+    """Naming arch="llama" (the factory's default) still writes zllm's bytes."""
+    a, b = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
+    zmake(a, **SMALL_LLAMA, seed=4)
+    make_llama_gguf(b, **SMALL_LLAMA, seed=4, arch="llama")
+    assert open(a, "rb").read() == open(b, "rb").read()
+
+
+def test_make_olmo2_gguf_has_olmo2_tensors(tmp_path):
+    """arch="olmo2" writes llama.cpp's OLMo-2 tensor names and metadata, no
+    pre-norms, and zllm reads the file as an olmo2 model; other arches are
+    refused."""
+    import jax.numpy as jnp
+
+    from zllm.models.loader import Model
+
+    path = make_llama_gguf(str(tmp_path / "o.gguf"), **SMALL_LLAMA, arch="olmo2", norm_eps=1e-6)
+    with read_gguf(path) as f:
+        assert f.architecture == "olmo2"
+        assert f.metadata["olmo2.attention.layer_norm_rms_epsilon"] == pytest.approx(1e-6)
+        blk = sorted(n.split(".", 2)[2] for n in f.tensors if n.startswith("blk.0."))
+        assert blk == sorted(["attn_q.weight", "attn_k.weight", "attn_v.weight",
+                              "attn_output.weight", "attn_q_norm.weight", "attn_k_norm.weight",
+                              "post_attention_norm.weight", "ffn_gate.weight", "ffn_up.weight",
+                              "ffn_down.weight", "post_ffw_norm.weight"])
+        q_dim = SMALL_LLAMA["n_heads"] * (SMALL_LLAMA["n_embd"] // SMALL_LLAMA["n_heads"])
+        assert f.tensors["blk.1.attn_q_norm.weight"].shape == (q_dim,)
+    m = Model.load(path, dtype=jnp.float32)
+    assert m.cfg.arch == "olmo2" and "attn_norm" not in m.params["layers"][0]
+    with pytest.raises(ValueError, match="llama or olmo2"):
+        make_llama_gguf(str(tmp_path / "q.gguf"), arch="qwen3")
+
+
 def test_writer_rewrites_file_byte_identical(small_gguf, tmp_path):
     """Read a file with the port and write it back with the port's writer."""
     out = str(tmp_path / "copy.gguf")

@@ -1,0 +1,135 @@
+"""K12 (`q4k_matvec_hbm`) and the `ZLLM_QMM_HBM=1` switch, on the CPU.
+
+With the switch on, `matvec` sends a Q4_K weight to K12 (whose plain
+version is K1's) and Q6_K/Q8_0 weights still to K4; other formats raise.
+K12's CPU result is held to zllm's `_qmm_w4a8np_hbm_call` run with
+interpret=True on the same planes (an npack Q4_K weight, K = N = 512,
+tn = tk = 256, as tests/test_npack.py sets them up), for the "q", "norm"
+and "glu" prologues, at nmse < 1e-8: the group dots are exact integers on
+both sides, and only the f32 sum order differs (plus an ulp of rsqrt in
+the "norm" prologue)."""
+
+import numpy as np
+import pytest
+import torch
+from test_torch_oracle import nmse, q4k_qtensor, qtensor_numpy, quant_qtensor, to_np
+
+from zllm.gguf.constants import GGMLType
+
+from zllm_torch.models.loader import params_from_jax
+from zllm_torch.ops import qmatmul as tq
+
+K = N = 512
+
+
+@pytest.fixture(scope="module")
+def weights():
+    qt, _ = q4k_qtensor(N, K, seed=9, npack=True)
+    w = params_from_jax({"output": qtensor_numpy(qt), "layers": []}, device="cpu")["output"]
+    return qt, w
+
+
+def _spy(monkeypatch, name):
+    calls = []
+    real = getattr(tq, name)
+
+    def spy(*args, **kw):
+        calls.append(name)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tq, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+def test_k12_matches_pallas_hbm_kernel(weights, fuse, monkeypatch):
+    import jax.numpy as jnp
+
+    from zllm.ops import qmatmul as qmm
+
+    monkeypatch.setenv("ZLLM_QMM_HBM", "1")
+    qt, w = weights
+    rng = np.random.default_rng(5)
+    names = qmm._plane_names(qt)
+    pt = tuple(qmm._plane_view(qt, nm) for nm in names)
+    kw = dict(fmt=qt.fmt, fold=qt.fold, k=K, n=N, tn=256, tk=256, fuse=fuse,
+              diet=names is qmm._Q4K_DIET, interpret=True)
+    eps, aux = 1e-5, None
+    if fuse == "norm":
+        x = rng.standard_normal((1, K)).astype(np.float32)
+        wn = rng.standard_normal((1, K)).astype(np.float32)
+        want = qmm._qmm_w4a8np_hbm_call(jnp.asarray(x), jnp.asarray(wn), pt, eps=eps, **kw)
+        aux = torch.from_numpy(wn.reshape(K))
+    else:
+        x = rng.standard_normal((1, 2 * K if fuse == "glu" else K)).astype(np.float32)
+        want = qmm._qmm_w4a8np_hbm_call(jnp.asarray(x), None, pt, **kw)
+    hbm, k1 = _spy(monkeypatch, "q4k_matvec_hbm"), _spy(monkeypatch, "q4k_matvec")
+    got = tq.matvec(torch.from_numpy(x), w, fuse, aux, eps)
+    assert hbm == ["q4k_matvec_hbm"] and k1 == []
+    assert tuple(got.shape) == (1, N) and got.dtype == torch.float32
+    assert nmse(to_np(got), to_np(want)) < 1e-8
+    # K12's plain version is K1's
+    assert torch.equal(got, tq.q4k_matvec_plain(torch.from_numpy(x), w, fuse, aux, eps))
+
+
+@pytest.mark.parametrize("value", [None, "0"])
+def test_switch_off_routes_to_k1(weights, monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv("ZLLM_QMM_HBM", raising=False)
+    else:
+        monkeypatch.setenv("ZLLM_QMM_HBM", value)
+    hbm, k1 = _spy(monkeypatch, "q4k_matvec_hbm"), _spy(monkeypatch, "q4k_matvec")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, K)).astype(np.float32))
+    tq.matvec(x, weights[1])
+    assert k1 == ["q4k_matvec"] and hbm == []
+
+
+def test_switch_is_read_at_each_dispatch(weights, monkeypatch):
+    """Flipping the variable between two calls moves the next call."""
+    hbm, k1 = _spy(monkeypatch, "q4k_matvec_hbm"), _spy(monkeypatch, "q4k_matvec")
+    x = torch.ones(1, K)
+    monkeypatch.setenv("ZLLM_QMM_HBM", "1")
+    tq.matvec(x, weights[1])
+    monkeypatch.setenv("ZLLM_QMM_HBM", "0")
+    tq.matvec(x, weights[1])
+    assert hbm == ["q4k_matvec_hbm"] and k1 == ["q4k_matvec"]
+
+
+@pytest.mark.parametrize("fmt", [GGMLType.Q6_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_int8_formats_keep_k4_under_the_switch(fmt, monkeypatch):
+    monkeypatch.setenv("ZLLM_QMM_HBM", "1")
+    qt, _ = quant_qtensor(fmt, 256, K, seed=11)
+    w = params_from_jax({"output": qtensor_numpy(qt), "layers": []}, device="cpu")["output"]
+    k4, hbm = _spy(monkeypatch, "int8_matvec"), _spy(monkeypatch, "q4k_matvec_hbm")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, K)).astype(np.float32))
+    got = tq.matvec(x, w)
+    assert k4 == ["int8_matvec"] and hbm == []
+    assert torch.equal(got, tq.int8_matvec_plain(x, w))
+
+
+def test_other_formats_raise_under_the_switch(monkeypatch):
+    from zllm_torch.quant.repack import Q80Weight
+
+    class Q40Weight(Q80Weight):
+        fmt = GGMLType.Q4_0
+
+    monkeypatch.setenv("ZLLM_QMM_HBM", "1")
+    w = Q40Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+                  d=torch.zeros(128, 8, dtype=torch.float16))
+    with pytest.raises(NotImplementedError, match="Q4_0/Q4_1 slice"):
+        tq.matvec(torch.zeros(1, 256), w)
+
+
+def test_k12_wrapper_checks(weights):
+    """The same argument checks as K1; other devices raise."""
+    _, w = weights
+    before = tq.q4k_matvec_hbm.launches
+    x = torch.ones(1, K)
+    assert torch.equal(tq.q4k_matvec_hbm(x, w), tq.q4k_matvec_plain(x, w))
+    assert tq.q4k_matvec_hbm.launches == before
+    with pytest.raises(ValueError):
+        tq.q4k_matvec_hbm(torch.zeros(1, K + 1), w)
+    with pytest.raises(ValueError):
+        tq.q4k_matvec_hbm(x, w, fuse="norm")  # no norm weight
+    with pytest.raises(ValueError, match="no kernel"):
+        tq.q4k_matvec_hbm(x.to("meta"), w)

@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 import torch  # noqa: F401  (thread count set by the oracle module)
-from test_torch_oracle import f16_llama_gguf
+from test_torch_oracle import SMALL_LLAMA, f16_llama_gguf
 
 from zllm.gguf.constants import GGMLType
 from zllm_torch import quantize as tq
@@ -32,6 +32,26 @@ def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
         assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
         assert types["blk.0.ffn_down.weight"] == ("F16", "Q6_K")
         assert types["blk.1.ffn_down.weight"] == ("F16", "Q4_K")
+
+
+def test_olmo2_q4km_byte_identical(tmp_path):
+    """An F16 OLMo-2 file (the port's factory) requantized to Q4_K_M: the
+    same bytes as tools/quantize.py; the q/k norms and post-norms stay F32."""
+    from tools.quantize import quantize_file
+
+    from zllm_torch.testing import make_llama_gguf
+
+    shape = {k: v for k, v in SMALL_LLAMA.items() if k != "gtype"}
+    src = make_llama_gguf(str(tmp_path / "f16.gguf"), **shape, arch="olmo2", norm_eps=1e-6,
+                          gtype=GGMLType.F16, seed=5, with_tokenizer=True)
+    want, got = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
+    quantize_file(src, want, "Q4_K_M", quiet=True)
+    types = tq.quantize_file(src, got, "Q4_K_M", quiet=True)
+    assert open(got, "rb").read() == open(want, "rb").read()
+    assert types["blk.0.attn_q_norm.weight"] == ("F32", "F32")
+    assert types["blk.1.post_ffw_norm.weight"] == ("F32", "F32")
+    assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
+    assert types["blk.0.attn_q.weight"] == ("F16", "Q4_K")
 
 
 def test_cli_writes_the_same_file(f16_gguf, tmp_path):

@@ -1,6 +1,7 @@
 """Model hyper-parameters resolved from GGUF metadata: the fields the
 llama path reads (counterpart of `zllm/models/config.py::ModelConfig`,
-whose `from_gguf` resolves the same keys the same way for plain llama)."""
+whose `from_gguf` resolves the same keys the same way for plain llama and
+OLMo-2)."""
 
 from __future__ import annotations
 
@@ -11,8 +12,13 @@ from ..ops.layers import RopeParams
 
 _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 
-# architectures whose graph is the plain llama block this port runs
-SUPPORTED_ARCHES = ("llama",)
+# architectures whose graph is the llama block this port runs: plain llama,
+# and OLMo-2 (no pre-norms; whole-projection q/k RMS norms; RMS post-norms
+# on the attention and FFN outputs)
+SUPPORTED_ARCHES = ("llama", "olmo2")
+# architectures whose GGUFs carry half-split rope natively (zllm's
+# _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
+NEOX_ROPE_ARCHES = ("olmo2",)
 
 
 @dataclass(frozen=True)
@@ -71,7 +77,8 @@ class ModelConfig:
         rope = RopeParams(
             dim=rope_dim,
             base=float(kv("rope.freq_base", 10000.0)),
-            style="norm",  # llama GGUFs are permuted for adjacent-pair rope
+            # llama GGUFs are permuted for adjacent-pair rope
+            style="neox" if arch in NEOX_ROPE_ARCHES else "norm",
             scaling=scaling if scale_factor != 1.0 or scaling == "llama3" else "none",
             scale_factor=scale_factor,
             orig_ctx=int(kv("rope.scaling.original_context_length", kv("context_length", 4096))),

@@ -1,4 +1,4 @@
-"""Llama forward pass (plain PyTorch around the port's kernels).
+"""Llama and OLMo-2 forward pass (plain PyTorch around the port's kernels).
 
 The counterpart of `zllm/models/llama.py::forward` / `layer_forward` for
 the plain llama block: RMS norm -> fused wqkv (or wq, wk, wv apart when
@@ -25,6 +25,21 @@ at T=1 rope runs outside the kernel and K9 inserts and attends in one
 launch, as zllm does; at T>1 the rows are scattered into their pages and
 K10 attends through the page table.  MoE, MLA, LoRA, sliding window, ALiBi
 and sinks are not part of this block.
+
+OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
+projections read the raw residual stream through `linear` (at T=1, B=1
+that is K1 with fuse="q"; zllm's fused-norm fast paths need the pre-norms),
+then one RMS norm over the whole q projection and one over k (not per
+head, so K2 cannot take the step), neox rope, attention, wo, an RMS
+post-norm on the attention output; the FFN reads the raw stream (gate|up,
+SwiGLU, down) and its output gets the second RMS post-norm.  Attention by
+cache: a contiguous bf16/f32 `KVCache` at T=1 goes to K8
+(`attn_decode_update`: insert the roped row and attend in one call), at
+T>1 to the insert and K6; the paged cache to K9/K10 and the q8 cache to K7,
+as for llama.  zllm's TPU gate for its K8 (`use_decode_fused`: G % 8 == 0
+or G == Hq) is not carried over: OLMo-2-1B (G = 1) fails it, so zllm on a
+TPU takes its unfused path there, while the port sends every such step to
+K8.
 """
 
 from __future__ import annotations
@@ -32,13 +47,80 @@ from __future__ import annotations
 import torch
 
 from ..ops.attention import (
-    attn_decode_qkv, flash_attention, flash_attention_blockwise, paged_attention,
-    paged_attn_decode_update,
+    attn_decode_qkv, attn_decode_update, flash_attention, flash_attention_blockwise,
+    paged_attention, paged_attn_decode_update,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
 from ..runtime.kvcache import KVCache, KVCacheQ8
 from ..runtime.paged import PagedKVCache
+
+
+def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) -> torch.Tensor:
+    """Attention of roped q [B, T, Hq, D] and k/v [B, T, Hkv, D] with the
+    new rows inserted into `kv` (if any) at their positions."""
+    b, t = q.shape[:2]
+    softcap = cfg.attn_logit_softcap
+    if isinstance(kv, PagedKVCache) and t == 1:  # K9: insert into the page, attend
+        return paged_attn_decode_update(q, k, v, kv.k[il], kv.v[il], kv.table, positions,
+                                        page_size=kv.page_size, scale=scale, softcap=softcap)
+    if isinstance(kv, PagedKVCache):  # scatter the rows into their pages, then K10
+        kv.update(il, k, v, positions)
+        return paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
+                               page_size=kv.page_size, scale=scale, softcap=softcap)
+    if isinstance(kv, KVCacheQ8):  # quantize and insert, then K7 on the codes
+        kv.update(il, k, v, positions)
+        kq, vq = kv.layer(il)
+        return flash_attention_blockwise(q.contiguous(), kq.q, vq.q, positions, scale=scale,
+                                         softcap=softcap, ks=kq.s, vs=vq.s)
+    if kv is not None and t == 1:  # K8: insert the row at min(pos, S-1), attend
+        return attn_decode_update(q, k, v, kv.k[il], kv.v[il], positions, scale=scale,
+                                  softcap=softcap)
+    if kv is not None:
+        kv.update(il, k, v, positions)
+        k_all, v_all = kv.layer(il)
+        return flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
+                               positions, scale=scale, softcap=softcap)
+    return flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), positions, scale=scale,
+                           softcap=softcap)
+
+
+def _split_heads(qkv: torch.Tensor, cfg):
+    b, t = qkv.shape[:2]
+    qd, kvd, d = cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    return (qkv[..., :qd].reshape(b, t, -1, d), qkv[..., qd:qd + kvd].reshape(b, t, -1, d),
+            qkv[..., qd + kvd:].reshape(b, t, -1, d))
+
+
+def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
+    """The q|k|v rows of h: the fused wqkv, or wq, wk, wv apart when their
+    formats differ (loader._fusable), side by side as the fused layout."""
+    if "wqkv" in layer:
+        return linear(h, layer["wqkv"])
+    return torch.cat([linear(h, layer[key]) for key in ("wq", "wk", "wv")], dim=-1)
+
+
+def _ffn_core(layer: dict, h: torch.Tensor) -> torch.Tensor:
+    gup = linear(h, layer["ffn_gateup"])
+    half = gup.shape[-1] // 2
+    return linear(swiglu(gup[..., :half], gup[..., half:]), layer["ffn_down"])
+
+
+def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
+                 il: int) -> torch.Tensor:
+    """One OLMo-2 block (zllm's layer_forward without attn_norm / ffn_norm,
+    with the whole-projection q/k norms and the post-norms)."""
+    b, t = x.shape[:2]
+    scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
+    q, k, v = _split_heads(_projections(layer, x).reshape(b, t, -1), cfg)
+    q = rms_norm(q.reshape(b, t, -1), layer["attn_q_norm"], cfg.norm_eps).reshape(q.shape)
+    k = rms_norm(k.reshape(b, t, -1), layer["attn_k_norm"], cfg.norm_eps).reshape(k.shape)
+    q = apply_rope(q, positions, cfg.rope)
+    k = apply_rope(k, positions, cfg.rope)
+    att = linear(_attend(q, k, v, kv, il, positions, cfg, scale).reshape(b, t, -1), layer["wo"])
+    x = x + rms_norm(att, layer["attn_post_norm"], cfg.norm_eps)
+    return x + rms_norm(_ffn_core(layer, x), layer["ffn_post_norm"], cfg.norm_eps)
 
 
 def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -47,63 +129,33 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
     `rope` is the contiguous decode step's cos/sin table (built once per
     step)."""
+    if cfg.arch == "olmo2":
+        return _olmo2_layer(layer, cfg, x, positions, kv, il)
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
 
-    if "wqkv" in layer:
-        qkv = None
-        if t == 1 and b == 1:  # decode: norm fused into the qkv matvec prologue
-            qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
-                                    layer["wqkv"])
-        if qkv is None:
-            qkv = linear(rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer["wqkv"])
-    else:
-        # projections of different formats stay apart (loader._fusable):
-        # the plain norm, then one matvec or GEMM each, as zllm's unfused
-        # branch; their outputs side by side are the fused layout
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        qkv = torch.cat([linear(h, layer[key]) for key in ("wq", "wk", "wv")], dim=-1)
+    qkv = None
+    if "wqkv" in layer and t == 1 and b == 1:  # decode: norm fused into the qkv matvec
+        qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
+                                layer["wqkv"])
+    if qkv is None:
+        qkv = _projections(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     qkv = qkv.reshape(b, t, -1)
-    qd, kvd, d = cfg.q_dim, cfg.kv_dim, cfg.head_dim
 
-    paged = isinstance(kv, PagedKVCache)
     if isinstance(kv, KVCache) and t == 1:
         # the whole decode attention block in one kernel: split, rope,
         # in-place cache insert, attention
+        d = cfg.head_dim
         if rope is None:
             rope = rope_table(positions[:, 0], cfg.rope, d)
         att = attn_decode_qkv(qkv.reshape(b, -1, d).contiguous(), kv.k[il], kv.v[il],
                               positions[:, 0].contiguous(), rope, scale=scale,
                               softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
     else:
-        q = qkv[..., :qd].reshape(b, t, -1, d)
-        k = qkv[..., qd:qd + kvd].reshape(b, t, -1, d)
-        v = qkv[..., qd + kvd:].reshape(b, t, -1, d)
+        q, k, v = _split_heads(qkv, cfg)
         q = apply_rope(q, positions, cfg.rope)
         k = apply_rope(k, positions, cfg.rope)
-        if paged and t == 1:  # K9: insert into the page, attend, in one launch
-            att = paged_attn_decode_update(q, k, v, kv.k[il], kv.v[il], kv.table, positions,
-                                           page_size=kv.page_size, scale=scale,
-                                           softcap=cfg.attn_logit_softcap)
-        elif paged:  # scatter the rows into their pages, then K10
-            kv.update(il, k, v, positions)
-            att = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
-                                  page_size=kv.page_size, scale=scale,
-                                  softcap=cfg.attn_logit_softcap)
-        elif isinstance(kv, KVCacheQ8):  # quantize and insert, then K7 on the codes
-            kv.update(il, k, v, positions)
-            kq, vq = kv.layer(il)
-            att = flash_attention_blockwise(q.contiguous(), kq.q, vq.q, positions, scale=scale,
-                                            softcap=cfg.attn_logit_softcap, ks=kq.s, vs=vq.s)
-        elif kv is not None:
-            kv.update(il, k, v, positions)
-            k_all, v_all = kv.layer(il)
-            att = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
-                                  positions, scale=scale, softcap=cfg.attn_logit_softcap)
-        else:
-            att = flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(), positions, scale=scale,
-                                  softcap=cfg.attn_logit_softcap)
+        att = _attend(q, k, v, kv, il, positions, cfg, scale)
     x = x + linear(att.reshape(b, t, -1), layer["wo"])
 
     ff = None
@@ -118,9 +170,7 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                             layer["ffn_down"])
             ff = ff.reshape(b, t, -1)
     if ff is None:
-        gup = linear(rms_norm(x, layer["ffn_norm"], cfg.norm_eps), layer["ffn_gateup"])
-        half = gup.shape[-1] // 2
-        ff = linear(swiglu(gup[..., :half], gup[..., half:]), layer["ffn_down"])
+        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps))
     return x + ff
 
 
@@ -135,7 +185,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
     position."""
     x = params["tok_emb"][tokens.long()]
     rope = None
-    if isinstance(kv, KVCache) and tokens.shape[1] == 1:
+    if isinstance(kv, KVCache) and tokens.shape[1] == 1 and cfg.arch != "olmo2":
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
     for il, layer in enumerate(params["layers"]):
         x = layer_forward(layer, cfg, x, positions, kv, il, rope)

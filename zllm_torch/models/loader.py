@@ -2,8 +2,11 @@
 
 Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s (quantized on the
 device, consumed by the port's kernels); the token embedding is dequantized
-to a dense tensor of the model dtype, norm weights to f32.  At load, as
-`zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
+to a dense tensor of the model dtype, norm weights to f32.  A llama layer
+has the pre-norms attn_norm and ffn_norm; an OLMo-2 layer has none, but
+attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over the whole
+projection) and the post-norms attn_post_norm and ffn_post_norm.  At load,
+as `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
 into half-split ("neox") rope by permuting the wq/wk columns, wq|wk|wv and
 gate|up are fused along N where the weights share one format (in a Q4_K_M
 file wq/wk are Q4_K and wv Q6_K, so they stay apart), and the output head
@@ -25,19 +28,29 @@ from ..quant.repack import WEIGHT_CLASSES, Q6KWeight, QWeight, concat_n, from_pl
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
-# GGUF tensor suffix -> params key, per layer (the plain llama block)
+# GGUF tensor suffix -> params key, per layer (the llama and OLMo-2 blocks;
+# llama.cpp writes OLMo-2's post-norms as post_attention_norm / post_ffw_norm)
 _LAYER_MAP = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_output.weight": "wo",
+    "attn_q_norm.weight": "attn_q_norm",
+    "attn_k_norm.weight": "attn_k_norm",
+    "attn_post_norm.weight": "attn_post_norm",
+    "post_attention_norm.weight": "attn_post_norm",
     "ffn_norm.weight": "ffn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_post_norm.weight": "ffn_post_norm",
+    "post_ffw_norm.weight": "ffn_post_norm",
 }
-_VECTOR_KEYS = {"attn_norm", "ffn_norm", "out_norm"}
+# each architecture's norm vectors: a layer holds exactly these
+ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
+              "olmo2": {"attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_post_norm"}}
+_VECTOR_KEYS = {"out_norm"} | set().union(*ARCH_NORMS.values())
 
 
 def resolve_device(device) -> torch.device:
@@ -88,7 +101,12 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
                 val = _load_matmul(f, name, dtype, device)
             params["layers"][int(il)][key] = val
         else:
-            raise NotImplementedError(f"tensor {name} is not part of the plain llama block")
+            raise NotImplementedError(f"tensor {name} is not part of the {cfg.arch} block")
+    for il, layer in enumerate(params["layers"]):
+        norms = {key for key in layer if key in _VECTOR_KEYS}
+        if norms != ARCH_NORMS[cfg.arch]:
+            raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the norms "
+                                      f"{sorted(norms)}, not {sorted(ARCH_NORMS[cfg.arch])}")
     if "output" not in params:  # tied embedding
         params["output"] = params["tok_emb"].float().t().contiguous().to(dtype)
     return params

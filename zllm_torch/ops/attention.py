@@ -1,7 +1,8 @@
 """Attention kernels: the whole decode attention block (K2), prefill
-attention (K6), blockwise attention over bf16 or int8 K/V (K7), paged
-multi-token attention (K10) and the paged decode step (K9), each a
-hand-written CUDA kernel with its plain PyTorch version beside it.
+attention (K6), blockwise attention over bf16 or int8 K/V (K7), the
+contiguous decode step (K8), paged multi-token attention (K10) and the
+paged decode step (K9), each a hand-written CUDA kernel with its plain
+PyTorch version beside it.
 
   * `attn_decode_qkv` replaces `zllm/ops/attention.py::_attn_decode_qkv_kernel`
     (via `attn_decode_qkv`): split the fused [B, Hq+2Hkv, D] projection row,
@@ -21,6 +22,11 @@ hand-written CUDA kernel with its plain PyTorch version beside it.
     `zllm/ops/attention.py::_paged_decode_kernel` (via
     `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
     place, attend over the page table.  Source: `zllm_torch/csrc/paged_decode.cu`.
+  * `attn_decode_update` replaces `zllm/ops/attention.py::_attn_decode_kernel`
+    (via `attn_decode_update`): T=1, insert the roped new K/V row into the
+    contiguous cache in place at min(pos, S-1), attend.  Source:
+    `zllm_torch/csrc/attn_decode_update.cu` (K9's split step,
+    `csrc/decode_split.cuh`, behind a contiguous addressor).
   * `flash_attention_blockwise` replaces
     `zllm/ops/attention.py::_attnb_kernel` (via `flash_attention_blockwise`):
     multi-token GQA attention with an online softmax over KV blocks, causal
@@ -31,8 +37,8 @@ hand-written CUDA kernel with its plain PyTorch version beside it.
 
 The paged pools are token-major, [Hkv, P * ps, D] (zllm's are token-minor;
 see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
-`use_fused`, `use_paged_decode_fused`) are not carried over: on the card
-these kernels take every shape they are given.
+`use_fused`, `use_decode_fused`, `use_paged_decode_fused`) are not carried
+over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
 `.launches`.
@@ -344,8 +350,6 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
     _paged_cuda_checks(q, k_pool, v_pool, table, page_size, 1)
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError("q, k_new and v_new must share one dtype")
-    if hq // hkv > 8:
-        raise ValueError(f"query group {hq // hkv} > 8 not supported")
     pos = positions.reshape(b).contiguous()
     if pos.dtype != torch.int32:
         raise ValueError("positions must be int32")
@@ -371,6 +375,94 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
 
 
 paged_attn_decode_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: contiguous decode step (insert + attend)
+# ---------------------------------------------------------------------------
+
+DECODE_SPLIT = 128  # slots a block of K8's split step takes
+
+
+def attn_decode_update_plain(q, k_new, v_new, kc, vc, positions, *, scale: float,
+                             softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Plain version of K8 (zllm `_attn_decode_kernel` math).  Writes the
+    new rows, cast to the cache dtype, at min(pos, S-1) of kc/vc in place;
+    f32 scores of the unrounded q, causal/window mask from pos, softcap,
+    probabilities normalized and cast to the cache dtype before P.V (f32
+    accumulate).  Returns att [B, 1, Hq, D] in q's dtype."""
+    b, _, hq, d = q.shape
+    hkv, s = kc.shape[1], kc.shape[2]
+    g = hq // hkv
+    pos = positions.reshape(b).long()
+    rows = torch.arange(b, device=kc.device)
+    pw = pos.clamp(max=s - 1)
+    kc[rows, :, pw] = k_new[:, 0].to(kc.dtype)
+    vc[rows, :, pw] = v_new[:, 0].to(vc.dtype)
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float().reshape(b, hkv, g, d), kc.float()) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    cols = torch.arange(s, device=kc.device)[None, :]
+    mask = cols <= pos[:, None]
+    if window > 0:
+        mask = mask & (cols > pos[:, None] - window)
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(vc.dtype)
+    out = torch.einsum("bhgs,bhsd->bhgd", probs.float(), vc.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                       kc: torch.Tensor, vc: torch.Tensor, positions: torch.Tensor, *,
+                       scale: float, softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """One layer's T=1 step over a contiguous cache.  q [B, 1, Hq, D] and
+    k_new/v_new [B, 1, Hkv, D] roped, one dtype; kc/vc [B, Hkv, S, D],
+    updated in place at row min(pos, S-1); positions int32 [B, 1] (pos ==
+    S is a trash row: it writes slot S-1 and attends all S slots).  Returns
+    att [B, 1, Hq, D] in q's dtype."""
+    b, t, hq, d = q.shape
+    hkv, s = kc.shape[1], kc.shape[2]
+    if (t != 1 or hq % hkv or k_new.shape != (b, 1, hkv, d) or v_new.shape != k_new.shape
+            or kc.shape != (b, hkv, s, d) or vc.shape != kc.shape or positions.numel() != b):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k_new {tuple(k_new.shape)} "
+                         f"cache {tuple(kc.shape)} positions {tuple(positions.shape)}")
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype or vc.dtype != kc.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, k/v_new {k_new.dtype}/{v_new.dtype}, "
+                         f"cache {kc.dtype}/{vc.dtype}: q, k_new and v_new share one, the "
+                         "caches another")
+    if q.device.type == "cpu":
+        return attn_decode_update_plain(q, k_new, v_new, kc, vc, positions, scale=scale,
+                                        softcap=softcap, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dtype not in cuda.DTYPE_CODE or kc.dtype not in cuda.DTYPE_CODE:
+        raise ValueError(f"dtypes q {q.dtype}, cache {kc.dtype}: the kernel takes f32/bf16")
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} not supported")
+    pos = positions.reshape(b).contiguous()
+    if pos.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    cuda.require_cuda(q, k_new, v_new, kc, vc, pos, aligned=(kc, vc))
+    n_split = -(-s // DECODE_SPLIT)
+    out = torch.empty_like(q)
+    # per (row, q head): the scores of every slot, then each split's softmax
+    # stats (2) and P.V partial (D)
+    scratch = torch.empty((b, hq, s + n_split * (d + 2)), dtype=torch.float32, device=q.device)
+    fn = cuda.bind("attn_decode_update", "zt_attn_decode_update",
+                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                    _P])
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cuda.DTYPE_CODE[q.dtype],
+             kc.data_ptr(), vc.data_ptr(), cuda.DTYPE_CODE[kc.dtype], pos.data_ptr(),
+             out.data_ptr(), scratch.data_ptr(), b, hq, hkv, d, s, DECODE_SPLIT, float(scale),
+             float(softcap), int(window), cuda.stream())
+    cuda.check(err, "attn_decode_update")
+    attn_decode_update.launches += 1
+    return out
+
+
+attn_decode_update.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,8 @@ SOURCES = {
     "paged_attn": "paged_attn.cu",
     "paged_decode": "paged_decode.cu",
     "attn_blockwise": "attn_blockwise.cu",
+    "attn_decode_update": "attn_decode_update.cu",
+    "q4k_matvec_hbm": "q4k_matvec_hbm.cu",
 }
 
 # No --use_fast_math: the matvec's int8 codes come from rintf(x / dx) with

@@ -1,13 +1,19 @@
-"""Quantized matmuls on `QWeight`s: the decode matvecs (K1, K4) and the
-prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its plain
+"""Quantized matmuls on `QWeight`s: the decode matvecs (K1, K12, K4) and
+the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its plain
 PyTorch version beside it.  `matvec` and `gemm` dispatch on the weight's
-format: Q4_K to K1/K3, Q6_K and Q8_0 to K4/K5.
+format: Q4_K to K1/K3 (K12 instead of K1 under `ZLLM_QMM_HBM=1`), Q6_K and
+Q8_0 to K4/K5.
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
     `_qmm_w4a8np_call`): M=1, activations quantized to int8 per 32-group
     after an optional RMS-norm (`fuse="norm"`) or SwiGLU (`fuse="glu"`)
     prologue, integer group dots, then `pi*a*dx - b*dx*sum(xq)` in f32.
     Source: `zllm_torch/csrc/q4k_matvec.cu`.
+  * `q4k_matvec_hbm` (K12) replaces `zllm/ops/qmatmul.py::_w4a8np_hbm_kernel`
+    (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`) for
+    Q4_K: K1's maths and prologues, the weight planes brought into shared
+    memory through a multi-stage cp.async pipeline.  Its plain version is
+    K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
     `_qmm_w4a8_call`) for Q6_K and Q8_0: the same prologues, with int8
     groups of the format's width (16 for Q6_K, 32 for Q8_0), integer group
@@ -28,6 +34,7 @@ launches the kernel or raises.  Each wrapper counts its launches in
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -139,6 +146,39 @@ def q4k_matvec(x: torch.Tensor, w: Q4KWeight, fuse: str = "q", aux: torch.Tensor
 
 
 q4k_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12: decode matvec with the weight planes pipelined through shared memory
+# ---------------------------------------------------------------------------
+
+q4k_matvec_hbm_plain = q4k_matvec_plain
+
+
+def q4k_matvec_hbm(x: torch.Tensor, w: Q4KWeight, fuse: str = "q",
+                   aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
+    """K1's function (y[1, N] f32; x and fuse as for `q4k_matvec`) through
+    K12, whose weight fetch is a multi-stage pipeline into shared memory."""
+    _require_q4k(w)
+    k, n = w.shape
+    _check_matvec_args(x, k, fuse, aux)
+    if x.device.type == "cpu":
+        return q4k_matvec_hbm_plain(x, w, fuse, aux, eps)
+    _check_cuda_x(x, fuse, aux)
+    _check_qweight(w, x.device)
+    cuda.require_cuda(x, *([aux] if fuse == "norm" else []))
+    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
+    fn = cuda.bind("q4k_matvec_hbm", "zt_q4k_matvec_hbm", [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                                           _I, _I, _I, _F, _P])
+    err = fn(x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(aux) if fuse == "norm" else None,
+             w.qs.data_ptr(), w.sc.data_ptr(), w.mn.data_ptr(), w.d.data_ptr(),
+             w.dmin.data_ptr(), y.data_ptr(), k, n, FUSE_CODE[fuse], float(eps), cuda.stream())
+    cuda.check(err, "q4k_matvec_hbm")
+    q4k_matvec_hbm.launches += 1
+    return y
+
+
+q4k_matvec_hbm.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +313,15 @@ dequant_gemm.launches = 0
 
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
-    """The decode matvec for w's format: Q4_K -> K1, Q6_K/Q8_0 -> K4."""
+    """The decode matvec for w's format: Q4_K -> K1, or K12 when
+    ZLLM_QMM_HBM=1 (read at each dispatch, as zllm reads it at each trace);
+    Q6_K/Q8_0 -> K4."""
+    hbm = os.environ.get("ZLLM_QMM_HBM", "0") == "1"
     if w.fmt == GGMLType.Q4_K:
-        return q4k_matvec(x, w, fuse, aux, eps)
+        return (q4k_matvec_hbm if hbm else q4k_matvec)(x, w, fuse, aux, eps)
+    if hbm and w.fmt not in INT8_FMT_CODE:
+        raise NotImplementedError(f"ZLLM_QMM_HBM=1 takes Q4_K here; its {w.fmt.name} form comes "
+                                  "with the Q4_0/Q4_1 slice (ROADMAP queue 2: K12)")
     return int8_matvec(x, w, fuse, aux, eps)
 
 

@@ -3,7 +3,10 @@
 Builds random llama-family GGUF files with the port's writer and encoders
 so the whole stack (reader -> QWeight -> kernels -> runtime) can be
 exercised without model downloads.  For the same arguments it writes the
-same bytes as `zllm.testing.make_llama_gguf`.
+same bytes as `zllm.testing.make_llama_gguf`; `arch="olmo2"` writes an
+OLMo-2 file instead (llama.cpp's tensor names: no attn_norm / ffn_norm,
+attn_q_norm [q_dim], attn_k_norm [kv_dim], post_attention_norm and
+post_ffw_norm), which zllm's loader reads.
 """
 
 from __future__ import annotations
@@ -31,31 +34,36 @@ def make_llama_gguf(
     n_experts: int = 0,
     n_experts_used: int = 2,
     with_tokenizer: bool = False,
+    arch: str = "llama",
+    norm_eps: float = 1e-5,
 ) -> str:
+    if arch not in ("llama", "olmo2"):
+        raise ValueError(f"arch {arch!r}: the factory writes llama or olmo2")
+    olmo2 = arch == "olmo2"
     rng = np.random.default_rng(seed)
     head_dim = n_embd // n_heads
     q_dim = n_heads * head_dim
     kv_dim = n_kv_heads * head_dim
 
     w = GGUFWriter(path)
-    w.add("general.architecture", "llama")
+    w.add("general.architecture", arch)
     w.add("general.name", "zllm-synthetic")
-    w.add("llama.block_count", n_layers)
-    w.add("llama.context_length", ctx_len)
-    w.add("llama.embedding_length", n_embd)
-    w.add("llama.feed_forward_length", n_ff)
-    w.add("llama.attention.head_count", n_heads)
-    w.add("llama.attention.head_count_kv", n_kv_heads)
-    w.add("llama.attention.key_length", head_dim)
-    w.add("llama.attention.value_length", head_dim)
-    w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add("llama.rope.freq_base", rope_base)
-    w.add("llama.rope.dimension_count", head_dim)
-    w.add("llama.vocab_size", vocab_size)
+    w.add(f"{arch}.block_count", n_layers)
+    w.add(f"{arch}.context_length", ctx_len)
+    w.add(f"{arch}.embedding_length", n_embd)
+    w.add(f"{arch}.feed_forward_length", n_ff)
+    w.add(f"{arch}.attention.head_count", n_heads)
+    w.add(f"{arch}.attention.head_count_kv", n_kv_heads)
+    w.add(f"{arch}.attention.key_length", head_dim)
+    w.add(f"{arch}.attention.value_length", head_dim)
+    w.add(f"{arch}.attention.layer_norm_rms_epsilon", norm_eps)
+    w.add(f"{arch}.rope.freq_base", rope_base)
+    w.add(f"{arch}.rope.dimension_count", head_dim)
+    w.add(f"{arch}.vocab_size", vocab_size)
     if n_experts:
-        w.add("llama.expert_count", n_experts)
-        w.add("llama.expert_used_count", n_experts_used)
-        w.add("llama.expert_feed_forward_length", n_ff)
+        w.add(f"{arch}.expert_count", n_experts)
+        w.add(f"{arch}.expert_used_count", n_experts_used)
+        w.add(f"{arch}.expert_feed_forward_length", n_ff)
     if with_tokenizer:
         # byte-level SPM vocab (vocab_size >= 259): unk/bos/eos + 256 bytes
         assert vocab_size >= 259, "with_tokenizer needs vocab_size >= 259"
@@ -102,12 +110,18 @@ def make_llama_gguf(
     emit("token_embd.weight", (vocab_size, n_embd))
     for il in range(n_layers):
         o = f"blk.{il}."
-        emit(o + "attn_norm.weight", (n_embd,), 1.0, force_f32=True)
+        if not olmo2:
+            emit(o + "attn_norm.weight", (n_embd,), 1.0, force_f32=True)
         emit(o + "attn_q.weight", (q_dim, n_embd))
         emit(o + "attn_k.weight", (kv_dim, n_embd))
         emit(o + "attn_v.weight", (kv_dim, n_embd))
         emit(o + "attn_output.weight", (n_embd, q_dim))
-        emit(o + "ffn_norm.weight", (n_embd,), 1.0, force_f32=True)
+        if olmo2:
+            emit(o + "attn_q_norm.weight", (q_dim,), 1.0, force_f32=True)
+            emit(o + "attn_k_norm.weight", (kv_dim,), 1.0, force_f32=True)
+            emit(o + "post_attention_norm.weight", (n_embd,), 1.0, force_f32=True)
+        else:
+            emit(o + "ffn_norm.weight", (n_embd,), 1.0, force_f32=True)
         if n_experts:
             emit(o + "ffn_gate_inp.weight", (n_experts, n_embd), force_f32=True)
             for stack, shp in (
@@ -130,6 +144,8 @@ def make_llama_gguf(
             emit(o + "ffn_gate.weight", (n_ff, n_embd))
             emit(o + "ffn_up.weight", (n_ff, n_embd))
             emit(o + "ffn_down.weight", (n_embd, n_ff))
+        if olmo2:
+            emit(o + "post_ffw_norm.weight", (n_embd,), 1.0, force_f32=True)
     emit("output_norm.weight", (n_embd,), 1.0, force_f32=True)
     emit("output.weight", (vocab_size, n_embd))
     w.write()
@@ -140,4 +156,12 @@ def make_llama_gguf(
 # the model shape the chip smoke test drives at full width
 TINYLLAMA_SHAPE = dict(
     n_layers=22, n_embd=2048, n_heads=32, n_kv_heads=4, n_ff=5632, vocab_size=32000
+)
+
+# OLMo-2-0425-1B (huggingface.co/allenai/OLMo-2-0425-1B config.json): 16
+# layers, 2048 emb, 16 heads / 16 kv (head_dim 128), ff 8192, vocab 100352,
+# rope theta 500000, rms_norm_eps 1e-6, untied head
+OLMO2_1B_SHAPE = dict(
+    arch="olmo2", n_layers=16, n_embd=2048, n_heads=16, n_kv_heads=16, n_ff=8192,
+    vocab_size=100352, rope_base=500000.0, norm_eps=1e-6,
 )
