@@ -4,19 +4,21 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no final result line):
-  1. build the eleven CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
-  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M (zllm_torch.quantize
-     from an F16 file) and Q8_0, and 2-layer OLMo-2 files in Q4_K and
-     Q4_K_M, each generated on the GPU (kernels) and on the CPU (their plain
-     versions), logits compared step by step; and the 2-layer Q4_K_M files
-     served by the continuous-batching Engine (f32, 2 slots) on the GPU and
-     on the CPU: the llama in three KV layouts, f32 paged, f32 contiguous
-     and q8 (int8, contiguous), the OLMo-2 one in f32 contiguous and f32
-     paged: three prompts, one across a page, then a re-send sharing its
-     first 130 tokens; tokens, reuse and step counters must be identical,
-     and each run on the GPU must launch its attention kernels and no other
-     (llama: paged K9/K10, contiguous K2/K6, q8 K7 alone; OLMo-2: contiguous
-     K8/K6, never K2; paged K9/K10);
+  1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
+  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
+     `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
+     OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
+     (kernels) and on the CPU (their plain versions), logits compared step
+     by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
+     launched); and the 2-layer Q4_K_M files served by the
+     continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
+     the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
+     contiguous), the OLMo-2 one in f32 contiguous and f32 paged, and the
+     Q4_0 llama paged: three prompts, one across a page, then a re-send
+     sharing its first 130 tokens; tokens, reuse and step counters must be
+     identical, and each run on the GPU must launch its attention kernels
+     and no other (llama: paged K9/K10, contiguous K2/K6, q8 K7 alone;
+     OLMo-2: contiguous K8/K6, never K2; paged K9/K10);
   3. main paths, at TinyLlama geometry (all 22 layers, full width, random
      weights from a seed, byte-level tokenizer), loaded in bf16 on the GPU,
      each Generator(max_len=2048).generate on a 300-token prompt (two
@@ -33,7 +35,15 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      per chunk, K2 never (phase `main_path`, model olmo2); then that model
      with ZLLM_QMM_HBM=1 fed the same tokens for 8 decode steps: 65 K12 +
      16 K8 a step, K1 never, logits equal to the K1 run's (`olmo2_hbm`);
-     and the serving path: that Q4_K_M model behind zllm_torch.server's
+     then the Q4_0 / Q4_1 slice: TinyLlama geometry in Q4_0 (`python -m
+     zllm_torch.quantize` from the F16 file: token_embd Q4_K, every matmul
+     Q4_0), the same generate (89 K1 + 22 K2 a step, 89 K3 + 22 K6 a
+     chunk), then 8 steps with ZLLM_QMM_DUALDOT=1 (`q4_0_dualdot`: 22 K11
+     + 67 K1 + 22 K2 a step, logits within 1e-4 nmse of the K1 run's);
+     OLMo-2 geometry in Q4_1 (the factory), the same generate (65 K1 + 16
+     K8 a step, 65 K3 + 16 K6 a chunk), then `olmo2_q4_1_dualdot` (64 K11
+     + 1 K1 + 16 K8 a step) and `olmo2_q4_1_hbm` (65 K12 + 16 K8 a step,
+     logits equal to the K1 run's); and the serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
      chat, a re-send sharing two pages, then the four bodies one at a time
@@ -53,7 +63,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
-     matvecs, beside K1 on the same calls.
+     matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
+     Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
+     over the Q4_0 step's 22 wo matvecs and the Q4_1 step's 64 fuse-"q"
+     ones, beside K1 on the same calls.
 
 Prints one JSON line per phase result, then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
@@ -72,6 +85,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 CACHE = REPO / ".cache" / "chip_smoke"
@@ -79,8 +93,10 @@ CACHE = REPO / ".cache" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # GGUF bytes per weight: a Q4_K super-block holds 256 weights in 144 bytes,
-# a Q6_K one in 210, a Q8_0 block 32 weights in 34
-GGUF_BYTES_PER_WEIGHT = {"Q4_K": 144 / 256, "Q6_K": 210 / 256, "Q8_0": 34 / 32}
+# a Q6_K one in 210; a block of 32 weights is 34 bytes in Q8_0, 18 in Q4_0
+# and 20 in Q4_1
+GGUF_BYTES_PER_WEIGHT = {"Q4_K": 144 / 256, "Q6_K": 210 / 256, "Q8_0": 34 / 32,
+                         "Q4_0": 18 / 32, "Q4_1": 20 / 32}
 
 PROMPT_TOKENS = 300
 NEW_TOKENS = 32
@@ -88,7 +104,7 @@ MAX_LEN = 2048
 CHUNK = 256
 SMALL = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512)
 SMALL_OLMO2 = dict(SMALL, arch="olmo2", n_kv_heads=4, norm_eps=1e-6, rope_base=500000.0)
-HBM_STEPS = 8  # decode steps of the olmo2_hbm phase
+SWITCH_STEPS = 8  # decode steps of the phases under ZLLM_QMM_HBM / ZLLM_QMM_DUALDOT
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -223,32 +239,43 @@ def prompt_ids(tok, n: int) -> list[int]:
     return ids
 
 
+# presets made as users make them: `python -m zllm_torch.quantize` on an
+# F16 file of the same model (kept in the cache for the next preset)
+REQUANTIZED = ("Q4_K_M", "Q4_0")
+
+
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     """A random-weight llama or OLMo-2 GGUF (`shape` may name the arch) in
-    `ftype` (cached): Q4_K and Q8_0 written directly by the factory, Q4_K_M
-    requantized by zllm_torch.quantize from an F16 file, as users make one.
-    Returns (path, seconds to make it)."""
+    `ftype` (cached): the REQUANTIZED presets made by `python -m
+    zllm_torch.quantize` from the model's F16 file, any other type written
+    directly by the factory.  Returns (path, seconds to make it)."""
     from zllm_torch.gguf.constants import GGMLType
-    from zllm_torch.quantize import quantize_file
     from zllm_torch.testing import make_llama_gguf
 
     path = CACHE / f"{name}_{ftype.lower()}.gguf"
     t0 = time.perf_counter()
     if not path.exists():
-        if ftype == "Q4_K_M":
+        if ftype in REQUANTIZED:
             src = CACHE / f"{name}_f16.gguf"
-            make_llama_gguf(str(src), **shape, gtype=GGMLType.F16, seed=0, with_tokenizer=True)
-            quantize_file(str(src), str(path), "Q4_K_M", quiet=True)
-            src.unlink()
+            if not src.exists():
+                make_llama_gguf(str(src), **shape, gtype=GGMLType.F16, seed=0,
+                                with_tokenizer=True)
+            q = subprocess.run([sys.executable, "-m", "zllm_torch.quantize", str(src), str(path),
+                                ftype], cwd=REPO, capture_output=True, text=True, timeout=600)
+            if q.returncode != 0:
+                fail(f"zllm_torch.quantize {ftype} failed: {q.stderr[-2000:]}")
         else:
             make_llama_gguf(str(path), **shape, gtype=GGMLType[ftype], seed=0,
                             with_tokenizer=True)
     return path, time.perf_counter() - t0
 
 
-def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMALL):
+def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMALL,
+                      env: dict | None = None, kernels: dict | None = None, must=()):
     """Kernels on the GPU vs plain versions on the CPU, same model, same
-    tokens fed to both (teacher forcing), logits compared each step."""
+    tokens fed to both (teacher forcing), logits compared each step; `env`
+    set on both sides, and each kernel named in `must` launched on the
+    GPU."""
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
 
@@ -260,22 +287,27 @@ def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMAL
         runs[dev] = (m, gen)
     ids = prompt_ids(runs["cpu"][0].tokenizer, 40)
     cpu_gen, gpu_gen = runs["cpu"][1], runs["cuda"][1]
-    cpu_logits = [cpu_gen.prefill(ids).float()]
-    steps = [gpu_gen.prefill(ids).float().cpu()]
-    tok = int(torch.argmax(cpu_logits[0]))
-    for i in range(8):  # the CPU's greedy tokens drive both sides
-        cpu_logits.append(cpu_gen._decode_one(tok, len(ids) + i).float())
-        steps.append(gpu_gen._decode_one(tok, len(ids) + i).float().cpu())
-        tok = int(torch.argmax(cpu_logits[-1]))
+    before = {n: kernels[n].launches for n in must}
+    with mock.patch.dict(os.environ, env or {}):
+        cpu_logits = [cpu_gen.prefill(ids).float()]
+        steps = [gpu_gen.prefill(ids).float().cpu()]
+        tok = int(torch.argmax(cpu_logits[0]))
+        for i in range(8):  # the CPU's greedy tokens drive both sides
+            cpu_logits.append(cpu_gen._decode_one(tok, len(ids) + i).float())
+            steps.append(gpu_gen._decode_one(tok, len(ids) + i).float().cpu())
+            tok = int(torch.argmax(cpu_logits[-1]))
+    launched = {n: kernels[n].launches - before[n] for n in must}
     errs = [nmse(a, b) for a, b in zip(steps, cpu_logits)]
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b)) for a, b in zip(steps, cpu_logits))
     tol = 1e-3
-    res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": shape,
+    res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": shape, "env": env or {},
            "logits_nmse_max": max(errs), "tolerance": tol, "argmax_agree": f"{agree}/{len(errs)}",
-           "finite": all(bool(torch.isfinite(a).all()) for a in steps)}
+           "finite": all(bool(torch.isfinite(a).all()) for a in steps), "gpu_launches": launched}
     emit(res)
     if not res["finite"] or max(errs) > tol:
         fail(f"small-model GPU logits disagree with the CPU plain path: {res}")
+    if not all(launched.values()):
+        fail(f"small-model GPU run did not launch {must}: {res}")
 
 
 def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama"):
@@ -326,44 +358,41 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     return model, counts, gen, ids, res.tokens
 
 
-def hbm_phase(torch, gen, kernels: dict, ids: list, tokens: list, card: str) -> dict:
-    """The OLMo-2 model's decode steps with ZLLM_QMM_HBM=1 (K12 for every
-    Q4_K matvec) against the same steps through K1: both runs prefill the
-    prompt, then take the main path's first HBM_STEPS greedy tokens as their
-    inputs.  The K12 run's launches are counted from 0 (after its prefill);
-    its logits must equal the K1 run's.  Returns the counts."""
-    def decode(hbm: bool):
-        gen.reset()
-        gen.prefill(ids)
+def decode_steps(torch, gen, kernels: dict, ids: list, tokens: list, env: str = ""):
+    """Prefill the prompt, then SWITCH_STEPS decode steps fed the main
+    path's greedy tokens, with `env`=1 set for the steps alone and the
+    launch counts set to 0 just before them.  Returns the steps' logits."""
+    gen.reset()
+    gen.prefill(ids)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    with mock.patch.dict(os.environ, {env: "1"} if env else {}):
+        out = [gen._decode_one(tok, len(ids) + i).float()
+               for i, tok in enumerate(tokens[:SWITCH_STEPS])]
         torch.cuda.synchronize()
-        if hbm:
-            os.environ["ZLLM_QMM_HBM"] = "1"
-            for fn in kernels.values():
-                fn.launches = 0
-        try:
-            out = [gen._decode_one(tok, len(ids) + i).float()
-                   for i, tok in enumerate(tokens[:HBM_STEPS])]
-            torch.cuda.synchronize()
-        finally:
-            os.environ.pop("ZLLM_QMM_HBM", None)
-        return out
+    return out
 
-    k1_logits = decode(False)
-    hbm_logits = decode(True)
+
+def switch_phase(torch, gen, kernels: dict, ids: list, tokens: list, card: str, *, phase: str,
+                 model: str, env: str, expected: dict, k1_logits: list) -> dict:
+    """A main-path model's decode steps with `env`=1 against the same steps
+    through K1 (`k1_logits`, from decode_steps without it): the launches
+    must be `expected` and the logits bit-identical to K1's (K11 and K12
+    apply K1's integer dots and epilogue in K1's order).  Returns the
+    counts."""
+    logits = decode_steps(torch, gen, kernels, ids, tokens, env)
     counts = {name: fn.launches for name, fn in kernels.items()}
-    L = gen.model.cfg.n_layers
-    expected = {name: 0 for name in kernels}
-    expected.update(q4k_matvec_hbm=(4 * L + 1) * HBM_STEPS, attn_decode_update=L * HBM_STEPS)
-    errs = [nmse(a, b) for a, b in zip(hbm_logits, k1_logits)]
-    bitwise = all(torch.equal(a, b) for a, b in zip(hbm_logits, k1_logits))
-    emit({"phase": "olmo2_hbm", "model": "OLMo-2-0425-1B geometry Q4_K (random weights, seed 0)",
-          "env": "ZLLM_QMM_HBM=1", "decode_steps": HBM_STEPS, "launches": counts,
-          "launches_expected": expected, "logits_nmse_vs_k1_max": max(errs), "tolerance": 1e-6,
-          "logits_bitwise_equal_k1": bitwise, "card": card})
+    expected = dict({name: 0 for name in kernels}, **expected)
+    errs = [nmse(a, b) for a, b in zip(logits, k1_logits)]
+    same = all(torch.equal(a, b) for a, b in zip(logits, k1_logits))
+    emit({"phase": phase, "model": model, "env": f"{env}=1", "decode_steps": SWITCH_STEPS,
+          "launches": counts, "launches_expected": expected, "logits_nmse_vs_k1_max": max(errs),
+          "tolerance": 0.0, "logits_bitwise_equal_k1": same, "card": card})
     if counts != expected:
-        fail(f"olmo2_hbm: kernel launch counts {counts} != expected {expected}")
-    if not bitwise and max(errs) > 1e-6:
-        fail(f"olmo2_hbm: K12 logits differ from K1's (nmse {max(errs)})")
+        fail(f"{phase}: kernel launch counts {counts} != expected {expected}")
+    if not same:
+        fail(f"{phase}: logits differ from the K1 run's (nmse {max(errs)})")
     return counts
 
 
@@ -380,28 +409,50 @@ def wait_done(reqs, seconds: float = 300.0):
 ATTENTION_KERNELS = ("attn_decode_qkv", "attn_decode_update", "flash_attention",
                      "flash_attention_blockwise", "paged_attention", "paged_attn_decode_update")
 SMALL_ENGINE_LAYOUTS = {
-    "paged": ("small", dict(kv_dtype="f32"), ("paged_attention", "paged_attn_decode_update")),
-    "contiguous": ("small", dict(kv_dtype="f32", kv_layout="contiguous"),
+    "paged": ("small", "Q4_K_M", dict(kv_dtype="f32"),
+              ("paged_attention", "paged_attn_decode_update")),
+    "contiguous": ("small", "Q4_K_M", dict(kv_dtype="f32", kv_layout="contiguous"),
                    ("attn_decode_qkv", "flash_attention")),
-    "q8": ("small", dict(kv_dtype="q8"), ("flash_attention_blockwise",)),
-    "olmo2_contiguous": ("small_olmo2", dict(kv_dtype="f32", kv_layout="contiguous"),
+    "q8": ("small", "Q4_K_M", dict(kv_dtype="q8"), ("flash_attention_blockwise",)),
+    "olmo2_contiguous": ("small_olmo2", "Q4_K_M", dict(kv_dtype="f32", kv_layout="contiguous"),
                          ("attn_decode_update", "flash_attention")),
-    "olmo2_paged": ("small_olmo2", dict(kv_dtype="f32"),
+    "olmo2_paged": ("small_olmo2", "Q4_K_M", dict(kv_dtype="f32"),
                     ("paged_attention", "paged_attn_decode_update")),
+    "q4_0_paged": ("small", "Q4_0", dict(kv_dtype="f32"),
+                   ("paged_attention", "paged_attn_decode_update")),
 }
+
+
+# a sampled logits row of the small engine, GPU against CPU, while both
+# sides have seen the same tokens: f32 sum order, and a bf16 rounding of a
+# GEMM operand that it moves, leave nmse ~1e-5 and up to ~4e-3 a logit on
+# the H100, in every layout
+ENGINE_NMSE = 1e-4
+# the layouts whose run on random weights meets a step with a top-two gap
+# within such a difference, and the widest gap at which the two engines'
+# tokens may part (twice the largest difference, rounded up)
+TIE_LAYOUTS = ("q4_0_paged",)
+TIE_GAP = 1e-2
 
 
 def small_engine_check(torch, kernels: dict, layout: str):
     """The continuous-batching Engine on the GPU (kernels) and on the CPU
-    (plain versions): a 2-layer Q4_K_M file (llama or OLMo-2) in f32, 2
-    slots, max_len 256, chunk 16, greedy, in one configuration of
+    (plain versions): a 2-layer Q4_K_M or Q4_0 file (llama or OLMo-2) in
+    f32, 2 slots, max_len 256, chunk 16, greedy, in one configuration of
     SMALL_ENGINE_LAYOUTS.  Each wave is submitted from the engine thread
-    between two steps, so both engines admit it at the same step."""
+    between two steps, so both engines admit it at the same step.  Counters,
+    finish reasons and reuse must be equal, and every sampled logits row
+    made from the same tokens on both sides within ENGINE_NMSE of the CPU's.
+    Tokens must be identical, except in a layout of TIE_LAYOUTS, where a
+    request's tokens may part at one sampled step after its first: there
+    the GPU must take the CPU's second token, and the CPU's top-two gap be
+    at most TIE_GAP and at most twice that row's largest GPU-vs-CPU logit
+    difference."""
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
 
-    name, kw, must = SMALL_ENGINE_LAYOUTS[layout]
-    path, _ = gguf_file(name, SMALL_OLMO2 if name == "small_olmo2" else SMALL, "Q4_K_M")
+    name, ftype, kw, must = SMALL_ENGINE_LAYOUTS[layout]
+    path, _ = gguf_file(name, SMALL_OLMO2 if name == "small_olmo2" else SMALL, ftype)
     rng = random.Random(0)
 
     def ids(n):
@@ -411,10 +462,19 @@ def small_engine_check(torch, kernels: dict, layout: str):
     waves = [[ids(40), p_long, ids(25)], [p_long[:130] + [7]]]
     must_not = [n for n in ATTENTION_KERNELS if n not in must]
     kw = dict(kw, kv_dtype=torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"])
-    runs = {}
+    runs, logits = {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.float32)
         eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, **kw)
+
+        def record(lg, cols, slots, _real=eng._sample_and_emit, _rec=logits[dev]):
+            rows = lg.float().cpu()
+            for s_ in slots:  # each request's sampled logits rows, by its prompt
+                _rec.setdefault(tuple(s_.req.prompt_tokens), []).append(
+                    rows[s_.idx, int(cols[s_.idx])])
+            return _real(lg, cols, slots)
+
+        eng._sample_and_emit = record
         before = {name: fn.launches for name, fn in kernels.items()}
         eng.start()
         try:
@@ -423,7 +483,8 @@ def small_engine_check(torch, kernels: dict, layout: str):
                 reqs = eng.run_in_loop(lambda wave=wave: [
                     eng.submit(Request(prompt_tokens=p, max_new=8, temp=0.0)) for p in wave])
                 wait_done(reqs)
-                got += [(r.out_tokens, r.finish_reason, r.n_prompt_reused, r.error) for r in reqs]
+                got += [(tuple(r.prompt_tokens), r.out_tokens, r.finish_reason, r.n_prompt_reused,
+                         r.error) for r in reqs]
         finally:
             eng.stop()
         if dev == "cuda":
@@ -431,19 +492,44 @@ def small_engine_check(torch, kernels: dict, layout: str):
         runs[dev] = (got, {k: eng.metrics[k] for k in ENGINE_COUNTERS},
                      {name: fn.launches - before[name] for name, fn in kernels.items()})
     (g_got, g_cnt, g_k), (c_got, c_cnt, _) = runs["cuda"], runs["cpu"]
-    res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": "Q4_K_M",
-           "shape": SMALL_OLMO2 if name == "small_olmo2" else SMALL, "dtype": "float32", "kv": str(kw["kv_dtype"]), "n_slots": 2,
-           "max_len": 256, "chunk": 16, "tokens_equal": g_got == c_got,
+    per_req, bad = [], []
+    for (prompt, g_toks, *_), (_, c_toks, *_) in zip(g_got, c_got):
+        g_rows, c_rows = logits["cuda"][prompt], logits["cpu"][prompt]
+        if (len(g_rows), len(c_rows)) != (len(g_toks), len(c_toks)):
+            fail(f"small engine ({layout}): {len(g_rows)}/{len(c_rows)} logits rows recorded "
+                 f"for {len(g_toks)}/{len(c_toks)} tokens")
+        part = next((i for i, (a, b) in enumerate(zip(g_toks, c_toks)) if a != b), None)
+        shared = len(c_rows) if part is None else part + 1  # rows made from the same tokens
+        pairs = list(zip(g_rows[:shared], c_rows[:shared]))
+        req = {"tokens": len(c_toks), "parted_at": part,
+               "logits_nmse_max": max((nmse(a, b) for a, b in pairs), default=0.0),
+               "logit_diff_max": max((float((a - b).abs().max()) for a, b in pairs), default=0.0)}
+        if req["logits_nmse_max"] > ENGINE_NMSE:
+            bad.append(f"logits nmse {req['logits_nmse_max']}")
+        if part is not None:
+            top = c_rows[part].topk(2)
+            req.update(cpu_top2_gap=float(top.values[0] - top.values[1]),
+                       logit_diff_at_part=float((g_rows[part] - c_rows[part]).abs().max()),
+                       gpu_took_cpu_second=int(top.indices[1]) == g_toks[part])
+            if not (layout in TIE_LAYOUTS and part >= 1 and req["gpu_took_cpu_second"]
+                    and req["cpu_top2_gap"] <= min(TIE_GAP, 2 * req["logit_diff_at_part"])):
+                bad.append(f"tokens part at step {part} with no near tie there: {req}")
+        per_req.append(req)
+    res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": ftype,
+           "shape": SMALL_OLMO2 if name == "small_olmo2" else SMALL, "dtype": "float32",
+           "kv": str(kw["kv_dtype"]), "n_slots": 2, "max_len": 256, "chunk": 16,
+           "tokens_equal": g_got == c_got, "requests": per_req, "logits_nmse_tolerance": ENGINE_NMSE,
+           "tie_gap_limit": TIE_GAP if layout in TIE_LAYOUTS else 0.0,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
-           "n_prompt_reused": [r[2] for r in g_got], "gpu_launches": g_k}
+           "n_prompt_reused": [r[3] for r in g_got], "gpu_launches": g_k}
     emit(res)
-    if any(r[3] for r in g_got + c_got):
-        fail(f"engine errors: {[r[3] for r in g_got + c_got]}")
-    if g_got != c_got or g_cnt != c_cnt:
-        fail(f"GPU engine disagrees with the CPU engine ({layout}): {g_got} / {c_got}, "
+    if any(r[4] for r in g_got + c_got):
+        fail(f"engine errors: {[r[4] for r in g_got + c_got]}")
+    if bad or [r[2:] for r in g_got] != [r[2:] for r in c_got] or g_cnt != c_cnt:
+        fail(f"GPU engine disagrees with the CPU engine ({layout}): {bad}; {g_got} / {c_got}, "
              f"{g_cnt} / {c_cnt}")
     # the re-send reuses 128 (a whole page) or, contiguous, its 130 tokens
-    if g_got[-1][2] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not):
+    if g_got[-1][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not):
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
 
@@ -604,12 +690,17 @@ def main():
                "paged_attention": att.paged_attention,
                "flash_attention_blockwise": att.flash_attention_blockwise,
                "attn_decode_update": att.attn_decode_update,
-               "q4k_matvec_hbm": qmm.q4k_matvec_hbm}
+               "q4k_matvec_hbm": qmm.q4k_matvec_hbm, "w4a8dd_matvec": qmm.w4a8dd_matvec}
 
     for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
         small_model_check(torch, ftype)
     for ftype in ("Q4_K", "Q4_K_M"):
         small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
+    dualdot = {"ZLLM_QMM_DUALDOT": "1"}
+    for env, must in ((None, ("q4k_matvec",)), (dualdot, ("w4a8dd_matvec",))):
+        small_model_check(torch, "Q4_0", env=env, kernels=kernels, must=must)
+        small_model_check(torch, "Q4_1", "small_olmo2", SMALL_OLMO2, env=env, kernels=kernels,
+                          must=must)
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
 
@@ -642,12 +733,54 @@ def main():
     model_m, counts_q4km, *_ = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
     model_o, counts_olmo2, gen_o, ids_o, toks_o = main_path(torch, "Q4_K", kernels, want_olmo2,
                                                             card, name="olmo2")
-    counts_hbm = hbm_phase(torch, gen_o, kernels, ids_o, toks_o, card)
+    L_o = model_o.cfg.n_layers
+    counts_hbm = switch_phase(
+        torch, gen_o, kernels, ids_o, toks_o, card, phase="olmo2_hbm",
+        model="OLMo-2-0425-1B geometry Q4_K (random weights, seed 0)", env="ZLLM_QMM_HBM",
+        expected=dict(q4k_matvec_hbm=(4 * L_o + 1) * SWITCH_STEPS,
+                      attn_decode_update=L_o * SWITCH_STEPS),
+        k1_logits=decode_steps(torch, gen_o, kernels, ids_o, toks_o))
     del gen_o
+
+    # the Q4_0 / Q4_1 slice: TinyLlama geometry in Q4_0 (zllm_torch.quantize
+    # from the F16 file: token_embd Q4_K, every matmul Q4_0), K1 then K11
+    # under ZLLM_QMM_DUALDOT=1 (the 22 wo matvecs, fuse "q"); OLMo-2
+    # geometry in Q4_1 (the factory), K1, then K11 for its 64 fuse-"q"
+    # matvecs, then K12 for all 65
+    model_40, counts_q40, gen_40, ids_40, toks_40 = main_path(torch, "Q4_0", kernels, want_q4k,
+                                                              card)
+    L_t = model_40.cfg.n_layers
+    counts_q40_dd = switch_phase(
+        torch, gen_40, kernels, ids_40, toks_40, card, phase="q4_0_dualdot",
+        model="tinyllama-geometry Q4_0 (random weights, seed 0)", env="ZLLM_QMM_DUALDOT",
+        expected=dict(w4a8dd_matvec=L_t * SWITCH_STEPS, q4k_matvec=(3 * L_t + 1) * SWITCH_STEPS,
+                      attn_decode_qkv=L_t * SWITCH_STEPS),
+        k1_logits=decode_steps(torch, gen_40, kernels, ids_40, toks_40))
+    del gen_40
+    model_o1, counts_o1, gen_o1, ids_o1, toks_o1 = main_path(torch, "Q4_1", kernels, want_olmo2,
+                                                             card, name="olmo2")
+    label_o1 = "OLMo-2-0425-1B geometry Q4_1 (random weights, seed 0)"
+    k1_o1 = decode_steps(torch, gen_o1, kernels, ids_o1, toks_o1)
+    counts_o1_dd = switch_phase(
+        torch, gen_o1, kernels, ids_o1, toks_o1, card, phase="olmo2_q4_1_dualdot", model=label_o1,
+        env="ZLLM_QMM_DUALDOT",
+        expected=dict(w4a8dd_matvec=4 * L_o * SWITCH_STEPS, q4k_matvec=SWITCH_STEPS,
+                      attn_decode_update=L_o * SWITCH_STEPS),
+        k1_logits=k1_o1)
+    counts_o1_hbm = switch_phase(
+        torch, gen_o1, kernels, ids_o1, toks_o1, card, phase="olmo2_q4_1_hbm", model=label_o1,
+        env="ZLLM_QMM_HBM",
+        expected=dict(q4k_matvec_hbm=(4 * L_o + 1) * SWITCH_STEPS,
+                      attn_decode_update=L_o * SWITCH_STEPS),
+        k1_logits=k1_o1)
+    del gen_o1
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
-             "olmo2_hbm": counts_hbm, "serve": counts_serve, "serve_q8": counts_q8}
+             "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
+             "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
+             "olmo2_q4_1_hbm": counts_o1_hbm, "serve": counts_serve, "serve_q8": counts_q8}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -669,10 +802,13 @@ def main():
     d_model, n_ff = cfg.n_embd, cfg.n_ff
     layers_m, head_m = model_m.params["layers"], model_m.params["output"]
 
+    # the function's own columns: a TinyLlama head is padded to 32768 for
+    # the layout, but only the vocabulary's columns count toward the bound
+    real_cols = {id(m_.params["output"]): m_.cfg.vocab_size
+                 for m_ in (model, model_m, model_40, model_o, model_o1)}
+
     def n_real(w):
-        # the function's own columns: the head is padded to 32768 for the
-        # layout, but only the vocabulary's columns count toward the bound
-        return cfg.vocab_size if w is head or w is head_m else w.shape[1]
+        return real_cols.get(id(w), w.shape[1])
 
     x_res = randn(1, d_model, scale=3.0)
     x_att = randn(1, d_model)
@@ -1127,6 +1263,83 @@ def main():
     if not bitwise:
         fail("K12 differs from K1 bit for bit on the same calls")
 
+    # K1, K3, K12 in their Q4_0 / Q4_1 forms and K11, at the two new main
+    # paths' steps and chunks: TinyLlama Q4_0 (89 matvecs: K1, K12; its 22
+    # wo: K11 beside K1) and OLMo-2 Q4_1 (65 matvecs: K1, K12; its 64
+    # fuse-"q" ones: K11 beside K1)
+    calls_40 = []
+    for layer in model_40.params["layers"]:
+        calls_40 += [(x_res, layer["wqkv"], "norm", layer["attn_norm"]),
+                     (x_att, layer["wo"], "q", None),
+                     (x_res, layer["ffn_gateup"], "norm", layer["ffn_norm"]),
+                     (x_gup, layer["ffn_down"], "glu", None)]
+    calls_40.append((x_res, model_40.params["output"], "norm", model_40.params["out_norm"]))
+    calls_o1 = []
+    for layer in model_o1.params["layers"]:
+        calls_o1 += [(x_o, layer["wqkv"], "q", None), (x_o, layer["wo"], "q", None),
+                     (x_o, layer["ffn_gateup"], "q", None), (x_ffo, layer["ffn_down"], "q", None)]
+    calls_o1.append((x_o, model_o1.params["output"], "norm", model_o1.params["out_norm"]))
+    xs_o = {cfg_o.n_embd: randn(m_rows, cfg_o.n_embd), cfg_o.n_ff: randn(m_rows, cfg_o.n_ff)}
+    legacy = {  # form -> (step calls, eps, GGUF bytes a weight, chunk calls)
+        "q4_0": (calls_40, cfg.norm_eps, GGUF_BYTES_PER_WEIGHT["Q4_0"],
+                 [(xs[w.shape[0]], w) for _, w, _, _ in calls_40]),
+        "olmo2_q4_1": (calls_o1, cfg_o.norm_eps, GGUF_BYTES_PER_WEIGHT["Q4_1"],
+                       [(xs_o[w.shape[0]], w) for _, w, _, _ in calls_o1]),
+    }
+
+    def dd(x, w, fuse, aux, eps):  # K11 and its plain version in matvec_phase's form
+        return qmm.w4a8dd_matvec(x, w)
+
+    def dd_plain(x, w, fuse, aux, eps):
+        return qmm.w4a8dd_matvec_plain(*qmm.quantize_acts_plain(x), w)
+
+    legacy_lines, bad_legacy = {}, []
+    for form, (lcalls, leps, bpw, lgcalls) in legacy.items():
+        last = len(lcalls) - 1
+        dd_idx = [i for i, c in enumerate(lcalls) if c[2] == "q"]
+        dd_calls = [lcalls[i] for i in dd_idx]
+        k1 = matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, lcalls, n_real, bpw, leps,
+                          check=(0, 1, 2, 3, last))
+        k12 = matvec_phase(torch, qmm.q4k_matvec_hbm, None, lcalls, n_real, bpw, leps)
+        k3 = gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, lgcalls, n_real, bpw,
+                        check=(0, 1, 2, 3, last))
+        k11 = matvec_phase(torch, dd, dd_plain, dd_calls, n_real, bpw, leps,
+                           check=(0, 1, len(dd_calls) - 1))
+        k1_dd = matvec_phase(torch, qmm.q4k_matvec, None, dd_calls, n_real, bpw, leps)
+        k12_same = all(torch.equal(qmm.q4k_matvec_hbm(x, w, f, a, leps),
+                                   qmm.q4k_matvec(x, w, f, a, leps))
+                       for x, w, f, a in (lcalls[i] for i in (0, 1, 2, 3, last)))
+        k11_same = all(torch.equal(dd(x, w, f, a, leps), qmm.q4k_matvec(x, w, f, a, leps))
+                       for x, w, f, a in (dd_calls[i] for i in (0, 1, len(dd_calls) - 1)))
+        legacy_lines[form] = dict(
+            k1=dict(k1, launches=len(lcalls)), k3=dict(k3, launches=len(lgcalls)),
+            k12=dict(k12, launches=len(lcalls), k1_ms=k1["ms"], bitwise_equal_k1=k12_same),
+            k11=dict(k11, launches=len(dd_calls), k1_same_calls_ms=k1_dd["ms"],
+                     bitwise_equal_k1=k11_same))
+        bad_legacy += [f"{form} {name}" for name, r in
+                       (("K1", k1), ("K3", k3), ("K11", k11)) if not r["nmse"] <= 1e-6]
+        bad_legacy += [f"{form} {name} != K1" for name, same in (("K12", k12_same),
+                                                                 ("K11", k11_same)) if not same]
+
+    k11_t = legacy_lines["q4_0"]["k11"]
+    lines.append(dict(name="w4a8dd_matvec", route="cuda", source="zllm_torch/csrc/w4a8dd_matvec.cu",
+                      replaces="zllm/ops/qmatmul.py:902",
+                      launches=counts_q40_dd["w4a8dd_matvec"],
+                      **{k: k11_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "nmse", "max_abs_err",
+                                               "k1_same_calls_ms", "bitwise_equal_k1")},
+                      tolerance=1e-6, launches_by_path=by_path("w4a8dd_matvec"),
+                      unit=f"one TinyLlama Q4_0 decode step's {k11_t['launches']} wo matvecs "
+                           "(each a quantize launch and a dot launch)",
+                      shapes="22 x wo 2048->2048 Q4_0, x f32",
+                      olmo2_q4_1_step=dict(legacy_lines["olmo2_q4_1"]["k11"],
+                                           shapes="16 x [wqkv 2048->6144, wo 2048->2048, "
+                                                  "gate|up 2048->16384, down 8192->2048] Q4_1")))
+    by_name = {ln["name"]: ln for ln in lines}
+    for name, key in (("q4k_matvec", "k1"), ("q4k_gemm", "k3"), ("q4k_matvec_hbm", "k12")):
+        by_name[name]["q4_0_tinyllama"] = legacy_lines["q4_0"][key]
+        by_name[name]["q4_1_olmo2"] = legacy_lines["olmo2_q4_1"][key]
+
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
     # the bf16 residual
@@ -1177,7 +1390,7 @@ def main():
 
     g4_k3 = [(rows4(x), w) for x, w in gcalls_m]
     g4_k5 = [(rows4(x), w) for x, w in gcalls5]
-    by_name = {ln["name"]: ln for ln in lines}
+    by_name = {ln["name"]: ln for ln in lines}  # now with K4 and K5
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
                    GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1)),
@@ -1220,9 +1433,9 @@ def main():
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
-    if bad or bad_q8 or bad_m4 or bad_k7 or bad_k8:
+    if bad or bad_q8 or bad_m4 or bad_k7 or bad_k8 or bad_legacy:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
-             f"M=4: {bad_m4}, K7: {bad_k7}, K8: {bad_k8})")
+             f"M=4: {bad_m4}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: {bad_legacy})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})

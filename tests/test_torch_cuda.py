@@ -13,7 +13,10 @@ f32 sum order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
 probability may move by an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
 with a bf16 q, whose output rounds to bf16), and K12 equal to K1's kernel
 bit for bit (each lane does K1's arithmetic in K1's order) and < 1e-6
-against the plain version.
+against the plain version; K1/K3/K12 hold the same tolerances in their
+Q4_0/Q4_1 forms, K11 < 1e-6 (exact integer dots, f32 sum order), and K11's
+quantize launch is bit-equal to `quantize_groups` (rintf and torch.round
+both round half to even).
 """
 
 import numpy as np
@@ -43,10 +46,11 @@ def _nmse(a, b) -> float:
     return float(((a - b) ** 2).mean() / ((b ** 2).mean() + 1e-30))
 
 
-def _qweight(n: int, k: int, seed: int, dev):
+def _qweight(n: int, k: int, seed: int, dev, fmt=GGMLType.Q4_K):
+    """A random weight of a nibble format (Q4_K, Q4_0, Q4_1)."""
     rng = np.random.default_rng(seed)
-    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, GGMLType.Q4_K)
-    return repack(raw, (n, k), GGMLType.Q4_K, dev)
+    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
+    return repack(raw, (n, k), fmt, dev)
 
 
 def _randn(shape, seed, dev, dtype=torch.float32, scale=1.0):
@@ -406,3 +410,74 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
     assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+# the legacy nibble formats through K1, K3, K12 and K11: odd N (a block's
+# last warps without a column), K = 2304 (nine 256-chunks), wide N (the
+# OLMo-2 head)
+LEGACY = [GGMLType.Q4_0, GGMLType.Q4_1]
+LEGACY_KN = [(256, 40), (2304, 72), (2048, 6144), (8192, 2048), (2048, 100352)]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+@pytest.mark.parametrize("fmt", LEGACY, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n", LEGACY_KN)
+def test_k1_k12_legacy_match_plain(dev, k, n, fmt, fuse, xdtype):
+    """K1 against its plain version; K12 equal to K1 bit for bit."""
+    w = _qweight(n, k, k + n, dev, fmt)
+    x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
+    aux = _randn((k,), 2, dev, scale=0.1) + 1.0 if fuse == "norm" else None
+    before = (tq.q4k_matvec.launches, tq.q4k_matvec_hbm.launches)
+    got = tq.q4k_matvec(x, w, fuse, aux, 1e-5)
+    hbm = tq.q4k_matvec_hbm(x, w, fuse, aux, 1e-5)
+    torch.cuda.synchronize()
+    assert (tq.q4k_matvec.launches, tq.q4k_matvec_hbm.launches) == (before[0] + 1, before[1] + 1)
+    assert _nmse(got, tq.q4k_matvec_plain(x, w, fuse, aux, 1e-5)) < 1e-6
+    assert torch.equal(hbm, got)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", LEGACY, ids=lambda t: t.name)
+@pytest.mark.parametrize("m,k,n", [(1, 256, 64), (7, 512, 200), (64, 2048, 2560),
+                                   (256, 8192, 2048), (256, 2048, 32768)])
+def test_k3_legacy_matches_plain(dev, m, k, n, fmt, xdtype):
+    w = _qweight(n, k, m + k + n, dev, fmt)
+    x = _randn((m, k), 3, dev, xdtype)
+    before = tq.q4k_gemm.launches
+    got = tq.q4k_gemm(x, w)
+    torch.cuda.synchronize()
+    assert tq.q4k_gemm.launches == before + 1 and got.shape == (m, n)
+    assert _nmse(got, tq.q4k_gemm_plain(x, w)) < 1e-6
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", LEGACY, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n", LEGACY_KN)
+def test_k11_matches_plain(dev, k, n, fmt, xdtype):
+    w = _qweight(n, k, k + n + 1, dev, fmt)
+    x = _randn((1, k), 4, dev, xdtype, scale=2.0)
+    before = tq.w4a8dd_matvec.launches
+    got = tq.w4a8dd_matvec(x, w)
+    torch.cuda.synchronize()
+    assert tq.w4a8dd_matvec.launches == before + 1 and got.shape == (1, n)
+    want = tq.w4a8dd_matvec_plain(*tq.quantize_acts_plain(x), w)
+    assert _nmse(got, want) < 1e-6
+    assert _nmse(got, tq.q4k_matvec(x, w)) < 1e-6
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [256, 2304, 2048, 5632, 8192])
+def test_k11_quantize_bit_equal(dev, k, xdtype):
+    """A zero group (dx clamped to 1e-12), a group of exact halves (dx = 1:
+    ties of the rounding) and a wide one beside Gaussian groups."""
+    x = _randn((1, k), 5, dev, scale=3.0)
+    x[0, :32] = 0.0
+    x[0, 32:64] = torch.arange(32, device=dev) - 15.5
+    x[0, 32] = 127.0
+    x[0, 64:96] *= 1e4
+    x = x.to(xdtype)
+    got = tq.quantize_acts(x)
+    torch.cuda.synchronize()
+    want = tq.quantize_acts_plain(x)
+    assert got[0].dtype == torch.int8 and all(torch.equal(a, b) for a, b in zip(got, want))

@@ -56,6 +56,17 @@ def test_make_llama_gguf_byte_identical(tmp_path, with_tokenizer):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q4_1], ids=lambda t: t.name)
+def test_make_llama_gguf_q4_legacy_byte_identical(tmp_path, gtype):
+    """gtype Q4_0/Q4_1 (the port's legacy-nibble encoders) writes zllm's
+    bytes."""
+    a, b = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
+    kw = dict(SMALL_LLAMA, gtype=gtype, seed=6, with_tokenizer=True)
+    zmake(a, **kw)
+    make_llama_gguf(b, **kw)
+    assert open(a, "rb").read() == open(b, "rb").read()
+
+
 def test_make_llama_gguf_arch_llama_byte_identical(tmp_path):
     """Naming arch="llama" (the factory's default) still writes zllm's bytes."""
     a, b = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
@@ -122,7 +133,8 @@ def test_encode_byte_identical(fmt, rows):
 
 
 @pytest.mark.parametrize("fmt", [GGMLType.F32, GGMLType.F16, GGMLType.Q4_K, GGMLType.Q6_K,
-                                 GGMLType.Q8_0], ids=lambda t: t.name)
+                                 GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1],
+                         ids=lambda t: t.name)
 def test_decode_bit_exact(fmt):
     x = RNG.standard_normal((16, 512)).astype(np.float32)
     raw = zqb.quantize(x, fmt)
@@ -136,6 +148,18 @@ def test_q6k_decode_random_blocks_bit_exact():
     raw = RNG.integers(0, 256, size=(32, 210), dtype=np.uint8)
     raw[:, 208:210] = np.frombuffer(np.float16(0.01).tobytes(), np.uint8)  # finite d
     assert np.array_equal(qb.dequantize(raw, GGMLType.Q6_K), zqb.dequantize(raw, GGMLType.Q6_K))
+
+
+@pytest.mark.parametrize("fmt,row", [(GGMLType.Q4_0, 18), (GGMLType.Q4_1, 20)],
+                         ids=["Q4_0", "Q4_1"])
+def test_q4_legacy_decode_random_blocks_bit_exact(fmt, row):
+    """Random code bytes (every nibble position) under finite fp16 scales
+    and mins: ggml's in-block order (byte j holds codes j and j + 16)."""
+    raw = RNG.integers(0, 256, size=(32, row), dtype=np.uint8)
+    raw[:, :2] = np.frombuffer(np.float16(0.01).tobytes(), np.uint8)
+    if fmt == GGMLType.Q4_1:
+        raw[:, 2:4] = np.frombuffer(np.float16(-0.07).tobytes(), np.uint8)
+    assert np.array_equal(qb.dequantize(raw, fmt), zqb.dequantize(raw, fmt))
 
 
 def test_unsupported_format_raises():

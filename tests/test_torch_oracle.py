@@ -45,15 +45,22 @@ def quant_qtensor(fmt: GGMLType, n: int, k: int, seed: int):
     return rp.repack(raw, (n, k), fmt), raw
 
 
-def q4k_qtensor(n: int, k: int, seed: int, npack: bool = True):
-    """A zllm Q4_K QTensor (repack, then optionally to_npack) and its raw
+def nibble_qtensor(fmt: GGMLType, n: int, k: int, seed: int, npack: bool = True):
+    """A zllm QTensor of a nibble format (Q4_K, Q4_0, Q4_1; repack, then
+    optionally to_npack, as zllm's loader does for N % 256 == 0) and its raw
     GGUF rows [N, row_bytes]."""
     from zllm.quant import repack as rp
 
-    qt, raw = quant_qtensor(GGMLType.Q4_K, n, k, seed)
+    qt, raw = quant_qtensor(fmt, n, k, seed)
     if npack:
         qt = rp.to_npack(qt)
+        assert qt.npack, "to_npack needs N % 256 == 0"
     return qt, raw
+
+
+def q4k_qtensor(n: int, k: int, seed: int, npack: bool = True):
+    """A zllm Q4_K QTensor (see nibble_qtensor) and its raw GGUF rows."""
+    return nibble_qtensor(GGMLType.Q4_K, n, k, seed, npack)
 
 
 def f16_llama_gguf(path: str, seed: int = 0) -> str:

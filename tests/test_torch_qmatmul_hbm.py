@@ -1,7 +1,8 @@
 """K12 (`q4k_matvec_hbm`) and the `ZLLM_QMM_HBM=1` switch, on the CPU.
 
 With the switch on, `matvec` sends a Q4_K weight to K12 (whose plain
-version is K1's) and Q6_K/Q8_0 weights still to K4; other formats raise.
+version is K1's) and Q6_K/Q8_0 weights still to K4; a format no kernel
+takes raises.  (K12's Q4_0/Q4_1 forms: tests/test_torch_q4_legacy.py.)
 K12's CPU result is held to zllm's `_qmm_w4a8np_hbm_call` run with
 interpret=True on the same planes (an npack Q4_K weight, K = N = 512,
 tn = tk = 256, as tests/test_npack.py sets them up), for the "q", "norm"
@@ -110,13 +111,13 @@ def test_int8_formats_keep_k4_under_the_switch(fmt, monkeypatch):
 def test_other_formats_raise_under_the_switch(monkeypatch):
     from zllm_torch.quant.repack import Q80Weight
 
-    class Q40Weight(Q80Weight):
-        fmt = GGMLType.Q4_0
+    class Q5KWeight(Q80Weight):
+        fmt = GGMLType.Q5_K
 
     monkeypatch.setenv("ZLLM_QMM_HBM", "1")
-    w = Q40Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+    w = Q5KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
                   d=torch.zeros(128, 8, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="Q4_0/Q4_1 slice"):
+    with pytest.raises(NotImplementedError, match="not Q5_K"):
         tq.matvec(torch.zeros(1, 256), w)
 
 

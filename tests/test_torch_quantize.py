@@ -1,7 +1,7 @@
 """`zllm_torch.quantize` against `tools/quantize.py`: the same per-tensor
 type choice for every preset and byte-identical output files for the
-presets whose encoders the port has (Q4_K_M, Q4_K_S, Q6_K, Q8_0), from one
-F16 synthetic model."""
+presets whose encoders the port has (Q4_K_M, Q4_K_S, Q6_K, Q8_0, Q4_0,
+Q4_1), from one F16 synthetic model."""
 
 import os
 
@@ -19,7 +19,7 @@ def f16_gguf(tmp_path_factory):
     return f16_llama_gguf(str(tmp_path_factory.mktemp("q") / "f16.gguf"), seed=2)
 
 
-@pytest.mark.parametrize("ftype", ["Q4_K_M", "Q4_K_S", "Q6_K", "Q8_0"])
+@pytest.mark.parametrize("ftype", ["Q4_K_M", "Q4_K_S", "Q6_K", "Q8_0", "Q4_0", "Q4_1"])
 def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
     from tools.quantize import quantize_file
 
@@ -32,6 +32,10 @@ def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
         assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
         assert types["blk.0.ffn_down.weight"] == ("F16", "Q6_K")
         assert types["blk.1.ffn_down.weight"] == ("F16", "Q4_K")
+    if ftype in ("Q4_0", "Q4_1"):  # the embedding is bumped to Q4_K, the rest keeps the preset
+        assert types["token_embd.weight"] == ("F16", "Q4_K")
+        assert {t for name, (_, t) in types.items() if name != "token_embd.weight"
+                and not name.endswith("norm.weight")} == {ftype}
 
 
 def test_olmo2_q4km_byte_identical(tmp_path):

@@ -1,5 +1,7 @@
-// The activation prologue shared by the decode matvecs K1 (q4k_matvec.cu)
-// and K4 (int8_matvec.cu): the counterpart of zllm/ops/qmatmul.py::
+// The activation prologue shared by the decode matvecs K1 (q4k_matvec.cu),
+// K12 (q4k_matvec_hbm.cu), K4 (int8_matvec.cu) and K11's quantize launch
+// (w4a8dd_matvec.cu), and the nibble formats' scales and epilogue (below):
+// the counterpart of zllm/ops/qmatmul.py::
 // _prologue_quant.  prologue(x) is "q" (x as is), "norm" (rms_norm(x) * w,
 // the full-row mean square reduced first) or "glu" (silu(g) * u over the
 // fused gate|up row); the f32 row is then quantized to int8 per GROUP-wide
@@ -114,6 +116,105 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The nibble formats of K1, K11, K12 (and K3's tile decoders): one code
+// plane qs [N, K/2] (byte 32c + i holds codes 64c + i and 64c + 32 + i,
+// zllm_torch/quant/repack.py) and per-format scale planes, passed as s0..s3:
+//   Q4_K: s0 = sc, s1 = mn (uint8 [N, K/32]), s2 = d, s3 = dmin (fp16 [N, K/256])
+//   Q4_0: s0 = d (fp16 [N, K/32])
+//   Q4_1: s0 = a, s1 = b (fp16 [N, K/32]; b = -m)
+// GroupScale<FMT> holds one 32-group's scales in registers and applies
+// zllm's f32 epilogue to the group's exact integer dot pi (sx: the group's
+// activation code sum, e = dx * sx):
+//   Q4_K, Q4_1: pi * a * dx - b * e
+//   Q4_0:       (pi - 8 * sx) * d * dx, the -8 applied to the integers
+// ---------------------------------------------------------------------------
+
+enum NibbleFmt { kQ4K = 0, kQ40 = 1, kQ41 = 2 };
+
+struct NibblePlanes {
+  const uint8_t* qs;
+  const void* s0;
+  const void* s1;
+  const void* s2;
+  const void* s3;
+};
+
+template <int FMT>
+struct GroupScale;
+
+template <>
+struct GroupScale<kQ4K> {
+  uint8_t sc, mn;
+  __half d, dmin;
+  __device__ __forceinline__ void load(const NibblePlanes& p, size_t n, int g, int K) {
+    const int G = K / 32;
+    sc = static_cast<const uint8_t*>(p.s0)[n * G + g];
+    mn = static_cast<const uint8_t*>(p.s1)[n * G + g];
+    d = static_cast<const __half*>(p.s2)[n * (K / 256) + (g >> 3)];
+    dmin = static_cast<const __half*>(p.s3)[n * (K / 256) + (g >> 3)];
+  }
+  __device__ __forceinline__ float term_e(int pi, int, float dx, float e) const {
+    const float a = __half2float(d) * (float)sc;
+    const float b = __half2float(dmin) * (float)mn;
+    return (float)pi * a * dx - b * e;
+  }
+};
+
+template <>
+struct GroupScale<kQ40> {
+  __half d;
+  __device__ __forceinline__ void load(const NibblePlanes& p, size_t n, int g, int K) {
+    d = static_cast<const __half*>(p.s0)[n * (K / 32) + g];
+  }
+  __device__ __forceinline__ float term_e(int pi, int sx, float dx, float) const {
+    return (float)(pi - 8 * sx) * __half2float(d) * dx;
+  }
+};
+
+template <>
+struct GroupScale<kQ41> {
+  __half a, b;
+  __device__ __forceinline__ void load(const NibblePlanes& p, size_t n, int g, int K) {
+    a = static_cast<const __half*>(p.s0)[n * (K / 32) + g];
+    b = static_cast<const __half*>(p.s1)[n * (K / 32) + g];
+  }
+  __device__ __forceinline__ float term_e(int pi, int, float dx, float e) const {
+    return (float)pi * __half2float(a) * dx - __half2float(b) * e;
+  }
+};
+
+// the epilogue with e computed from the code sum, as K1 and K12 take it
+template <int FMT>
+__device__ __forceinline__ float group_term(const GroupScale<FMT>& s, int pi, int sx, float dx) {
+  return s.term_e(pi, sx, dx, dx * (float)sx);
+}
+
+// one column's nibble-weight data for up to ROUNDS rounds of 16 chunks, in
+// the registers of the lane pair that takes chunk c_base + 16 * round +
+// lane / 2: lane % 2 holds bytes [16 * (lane % 2), +16) of the chunk's 32
+// and the scales of its group 2c + lane % 2 (K1 and K11)
+template <int FMT, int ROUNDS>
+struct ColRegs {
+  uint4 wv[ROUNDS];
+  GroupScale<FMT> s[ROUNDS];
+};
+
+template <int FMT, int ROUNDS>
+__device__ __forceinline__ void fetch_col(ColRegs<FMT, ROUNDS>& cr, const NibblePlanes& w, int n,
+                                          int K, int c_base, int lane) {
+  const int nchunk = K / 64, part = lane & 1;
+#pragma unroll
+  for (int it = 0; it < ROUNDS; ++it) {
+    const int c = c_base + it * 16 + (lane >> 1);
+    if (c < nchunk) {
+      cr.wv[it] =
+          *reinterpret_cast<const uint4*>(w.qs + (size_t)n * (K / 2) + c * 32 + part * 16);
+      cr.s[it].load(w, (size_t)n, 2 * c + part, K);
+    }
+  }
 }
 
 }  // namespace zt

@@ -1,31 +1,34 @@
-// K12: Q4_K decode matvec (M = 1) on the int8 path, with the weight planes
-// brought global -> shared through an explicit multi-stage pipeline.
+// K12: decode matvec (M = 1) of the nibble formats Q4_K, Q4_0 and Q4_1 on
+// the int8 path, with the weight planes brought global -> shared through an
+// explicit multi-stage pipeline.
 //
 // Replaces zllm/ops/qmatmul.py::_w4a8np_hbm_kernel (launched by
-// _qmm_w4a8np_hbm_call when ZLLM_QMM_HBM=1) for Q4_K: K1's maths
-// (q4k_matvec.cu), y[n] = sum_g pi_g * a_g * dx_g - b_g * (dx_g * sum(xq_g))
-// over the int8-quantized activation row, with K1's prologues ("q", "norm",
-// "glu", matvec_common.cuh).  The TPU kernel keeps the weight planes in HBM
-// and double-buffers its own DMAs of the next K-step's tiles while the
-// current one computes, the per-256 super planes fetched once per N tile.
+// _qmm_w4a8np_hbm_call when ZLLM_QMM_HBM=1): K1's maths (q4k_matvec.cu),
+// y[n] = sum_g of zllm's per-group epilogue over the int8-quantized
+// activation row (GroupScale, matvec_common.cuh), with K1's prologues ("q",
+// "norm", "glu").  The TPU kernel keeps the weight planes in HBM and
+// double-buffers its own DMAs of the next K-step's tiles while the current
+// one computes, the per-256 super planes fetched once per N tile.
 //
-// Bound on the H100: the Q4_K bytes of the weight, read once (as K1's).
-// Design: where K1 loads each column's packed nibbles and scales straight
-// into registers, here a block owns NB = 8 * cpw columns (a warp takes
-// columns warp, warp + 8, ...) and walks K in stages of 1024 weights: each
-// stage is the block's qs (512 bytes a column), sc and mn bytes (32 each)
-// for that K-step, copied by all threads with cp.async (16- and 8-byte
-// copies, one commit group a stage) into a ring of kStages shared buffers,
-// so kStages - 1 K-steps are in flight while one computes.  The block's
-// d / dmin runs (contiguous over its columns: K/256 halves a column) come
-// with the first stage's group, once per block, as the TPU kernel fetches
-// its super planes once per N tile; they are copied in 4-byte words from
-// the word holding the first half (the run need not be 4-byte aligned), the
-// last word cut to the plane's end.  The first stages are issued before the
-// activation prologue, so HBM latency overlaps the quantization.  A lane
-// computes exactly what it computes in K1 (chunk c = 16 * stage + lane / 2,
-// its group 2c + lane % 2, the same expression, accumulated in the same
-// order, then the same warp sum), so the result is K1's bit for bit.
+// Bound on the H100: the weight bytes, read once (as K1's).  Design: where
+// K1 loads each column's packed nibbles and scales straight into
+// registers, here a block owns NB = 8 * cpw columns (a warp takes columns
+// warp, warp + 8, ...) and walks K in stages of 1024 weights: each stage is
+// the block's qs (512 bytes a column) and per-group scale planes for that
+// K-step (Q4_K sc and mn, 32 bytes each; Q4_0 d, 64 bytes; Q4_1 a and b, 64
+// bytes each), copied by all threads with cp.async (16- and 8-byte copies,
+// one commit group a stage) into a ring of kStages shared buffers, so
+// kStages - 1 K-steps are in flight while one computes.  For Q4_K the
+// block's d / dmin runs (contiguous over its columns: K/256 halves a
+// column) come with the first stage's group, once per block, as the TPU
+// kernel fetches its super planes once per N tile; they are copied in
+// 4-byte words from the word holding the first half (the run need not be
+// 4-byte aligned), the last word cut to the plane's end.  The first stages
+// are issued before the activation prologue, so HBM latency overlaps the
+// quantization.  A lane computes exactly what it computes in K1 (chunk
+// c = 16 * stage + lane / 2, its group 2c + lane % 2, the same epilogue,
+// accumulated in the same order, then the same warp sum), so the result is
+// K1's bit for bit in every format.
 // At the decode shapes (K of at most eight stages, so the ring rarely
 // refills) it runs slower than K1: a stage waits on the whole block's
 // copies, where K1's warps each run on as their own loads land (PERF.md).
@@ -39,10 +42,17 @@ using namespace zt;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;
-constexpr int kChunks = 16;               // 64-weight chunks a stage holds per column
-constexpr int kQsBytes = kChunks * 32;    // packed nibbles a column a stage
-constexpr int kScBytes = kChunks * 2;     // sc (and mn) bytes a column a stage
-constexpr int kColBytes = kQsBytes + 2 * kScBytes;
+constexpr int kChunks = 16;             // 64-weight chunks a stage holds per column
+constexpr int kQsBytes = kChunks * 32;  // packed nibbles a column a stage
+
+// a stage's per-group scale planes: how many, and their bytes a column
+// (2 * kChunks groups; Q4_K one byte a group, Q4_0/Q4_1 one fp16)
+template <int FMT>
+struct StagePlanes {
+  static constexpr int kCount = FMT == kQ40 ? 1 : 2;
+  static constexpr int kBytes = FMT == kQ4K ? 2 * kChunks : 4 * kChunks;
+  static constexpr int kCol = kQsBytes + kCount * kBytes;  // a column's stage bytes
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -67,15 +77,16 @@ __device__ __forceinline__ void cp_wait() {
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 // the dynamic shared memory of a block: the quantized row, the stage ring,
-// then the d and dmin runs (NB * K/256 halves each, plus one word of slack
-// for the alignment shift)
+// then (Q4_K) the d and dmin runs (NB * K/256 halves each, plus one word of
+// slack for the alignment shift)
+template <int FMT>
 struct Layout {
   size_t row, stages, dbuf, total;
   __host__ __device__ Layout(int K, int NB) {
     row = 0;
     stages = align16((size_t)K + (size_t)(K / 32) * 8);  // QuantRow<32>::bytes(K)
-    dbuf = stages + (size_t)kStages * NB * kColBytes;
-    total = dbuf + 2 * align16((size_t)NB * (K / 256) * 2 + 4);
+    dbuf = stages + (size_t)kStages * NB * StagePlanes<FMT>::kCol;
+    total = dbuf + (FMT == kQ4K ? 2 * dbytes(K, NB) : 0);
   }
   __host__ __device__ static size_t dbytes(int K, int NB) {
     return align16((size_t)NB * (K / 256) * 2 + 4);
@@ -95,48 +106,51 @@ __device__ __forceinline__ void copy_run(unsigned char* dst, const __half* plane
   }
 }
 
-template <typename TX, int MODE>
+template <typename TX, int MODE, int FMT>
 __global__ void __launch_bounds__(kThreads) q4k_matvec_hbm_kernel(
-    const TX* __restrict__ x, const float* __restrict__ aux,
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ sc,
-    const uint8_t* __restrict__ mn, const __half* __restrict__ d,
-    const __half* __restrict__ dmin, float* __restrict__ y, int K, int N, int cpw, float eps) {
+    const TX* __restrict__ x, const float* __restrict__ aux, const NibblePlanes w,
+    float* __restrict__ y, int K, int N, int cpw, float eps) {
+  using SP = StagePlanes<FMT>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int NB = kWarps * cpw;
   const int nchunk = K / 64, G = K / 32, KS = K / 256;
   const int n_stages = (nchunk + kChunks - 1) / kChunks;
-  const Layout lay(K, NB);
+  const Layout<FMT> lay(K, NB);
   const QuantRow<32> row(smem + lay.row, K);
   unsigned char* stages = smem + lay.stages;
-  const size_t dbytes = Layout::dbytes(K, NB);
+  const size_t dbytes = Layout<FMT>::dbytes(K, NB);
   unsigned char* dsm = smem + lay.dbuf;
   unsigned char* dmsm = dsm + dbytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, part = lane & 1;
   const int n0 = blockIdx.x * NB;
   const int n_cols = min(NB, N - n0);  // the block's columns that exist
+  // a group's bytes in a scale plane: Q4_K one, Q4_0/Q4_1 one fp16
+  constexpr int kGroupBytes = FMT == kQ4K ? 1 : 2;
+  const unsigned char* planes[2] = {static_cast<const unsigned char*>(w.s0),
+                                    static_cast<const unsigned char*>(w.s1)};
 
   auto issue = [&](int t) {
-    unsigned char* st = stages + (size_t)(t % kStages) * NB * kColBytes;
+    unsigned char* st = stages + (size_t)(t % kStages) * NB * SP::kCol;
     const int cr = min(kChunks, nchunk - t * kChunks);  // chunks this stage, a multiple of 4
     const int qp = cr * 2;                              // 16-byte pieces a column
     for (int i = threadIdx.x; i < n_cols * qp; i += kThreads) {
       const int ci = i / qp, p = i % qp;
       cp_async16(st + ci * kQsBytes + p * 16,
-                 qs + (size_t)(n0 + ci) * (K / 2) + (size_t)t * kQsBytes + p * 16);
+                 w.qs + (size_t)(n0 + ci) * (K / 2) + (size_t)t * kQsBytes + p * 16);
     }
-    const int sp = cr / 4;  // 8-byte pieces a column, of sc and of mn
-    unsigned char* ssc = st + NB * kQsBytes;
-    unsigned char* smn = ssc + NB * kScBytes;
+    const int sp = cr * kGroupBytes / 4;  // 8-byte pieces a column, of each scale plane
     for (int i = threadIdx.x; i < n_cols * sp; i += kThreads) {
       const int ci = i / sp, p = i % sp;
-      const size_t off = (size_t)(n0 + ci) * G + (size_t)t * kScBytes + p * 8;
-      cp_async8(ssc + ci * kScBytes + p * 8, sc + off);
-      cp_async8(smn + ci * kScBytes + p * 8, mn + off);
+      const size_t off = ((size_t)(n0 + ci) * G + (size_t)t * 2 * kChunks) * kGroupBytes + p * 8;
+#pragma unroll
+      for (int m = 0; m < SP::kCount; ++m)
+        cp_async8(st + NB * (kQsBytes + m * SP::kBytes) + ci * SP::kBytes + p * 8,
+                  planes[m] + off);
     }
-    if (t == 0) {  // the block's super-block scales, once
+    if (FMT == kQ4K && t == 0) {  // the block's super-block scales, once
       const size_t e0 = (size_t)n0 * KS, e1 = (size_t)(n0 + n_cols) * KS;
-      copy_run(dsm, d, e0, e1, (size_t)N * KS);
-      copy_run(dmsm, dmin, e0, e1, (size_t)N * KS);
+      copy_run(dsm, static_cast<const __half*>(w.s2), e0, e1, (size_t)N * KS);
+      copy_run(dmsm, static_cast<const __half*>(w.s3), e0, e1, (size_t)N * KS);
     }
   };
 
@@ -158,9 +172,9 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_hbm_kernel(
     if (t + kStages - 1 < n_stages) issue(t + kStages - 1);
     cp_commit();
 
-    const unsigned char* st = stages + (size_t)(t % kStages) * NB * kColBytes;
-    const unsigned char* ssc = st + NB * kQsBytes;
-    const unsigned char* smn = ssc + NB * kScBytes;
+    const unsigned char* st = stages + (size_t)(t % kStages) * NB * SP::kCol;
+    const unsigned char* sp0 = st + NB * kQsBytes;
+    const unsigned char* sp1 = sp0 + NB * SP::kBytes;
     const int c = t * kChunks + (lane >> 1);
     int4 xl = make_int4(0, 0, 0, 0), xh = xl;
     if (c < nchunk) {
@@ -187,13 +201,22 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_hbm_kernel(
       plo += __shfl_xor_sync(kFull, plo, 1);
       phi += __shfl_xor_sync(kFull, phi, 1);
       if (c < nchunk) {
-        // even lane takes group 2c (low nibbles), odd lane group 2c+1
+        // even lane takes group 2c (low nibbles), odd lane group 2c+1; the
+        // group's place in the stage is the lane
         const int g = 2 * c + part;
-        const int pi = part ? phi : plo;
-        const float a = __half2float(dh[ci * KS + (g >> 3)]) * (float)ssc[ci * kScBytes + lane];
-        const float b = __half2float(dmh[ci * KS + (g >> 3)]) * (float)smn[ci * kScBytes + lane];
-        const float dx = row.dx[g];
-        acc[j] += (float)pi * a * dx - b * (dx * (float)row.sx[g]);
+        GroupScale<FMT> s;
+        if constexpr (FMT == kQ4K) {
+          s.sc = sp0[ci * SP::kBytes + lane];
+          s.mn = sp1[ci * SP::kBytes + lane];
+          s.d = dh[ci * KS + (g >> 3)];
+          s.dmin = dmh[ci * KS + (g >> 3)];
+        } else if constexpr (FMT == kQ40) {
+          s.d = reinterpret_cast<const __half*>(sp0 + ci * SP::kBytes)[lane];
+        } else {
+          s.a = reinterpret_cast<const __half*>(sp0 + ci * SP::kBytes)[lane];
+          s.b = reinterpret_cast<const __half*>(sp1 + ci * SP::kBytes)[lane];
+        }
+        acc[j] += group_term(s, part ? phi : plo, row.sx[g], row.dx[g]);
       }
     }
   }
@@ -207,55 +230,60 @@ __global__ void __launch_bounds__(kThreads) q4k_matvec_hbm_kernel(
   }
 }
 
-template <typename TX, int MODE>
-int launch(const void* x, const float* aux, const uint8_t* qs, const uint8_t* sc,
-           const uint8_t* mn, const __half* d, const __half* dmin, float* y, int K, int N,
+template <typename TX, int MODE, int FMT>
+int launch(const void* x, const float* aux, const NibblePlanes& w, float* y, int K, int N,
            float eps, cudaStream_t stream) {
   // K1's choice of columns per warp, so the blocks cover the same columns
   int cpw = N / (kWarps * 2 * 132);
   cpw = cpw < 1 ? 1 : (cpw > 4 ? 4 : cpw);
   const int per_block = kWarps * cpw;
-  const size_t bytes = Layout(K, per_block).total;
-  auto kern = q4k_matvec_hbm_kernel<TX, MODE>;
+  const size_t bytes = Layout<FMT>(K, per_block).total;
+  auto kern = q4k_matvec_hbm_kernel<TX, MODE, FMT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((N + per_block - 1) / per_block);
-  kern<<<grid, kThreads, bytes, stream>>>(static_cast<const TX*>(x), aux, qs, sc, mn, d, dmin, y,
-                                          K, N, cpw, eps);
+  kern<<<grid, kThreads, bytes, stream>>>(static_cast<const TX*>(x), aux, w, y, K, N, cpw, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename TX>
-int launch_mode(int mode, const void* x, const float* aux, const uint8_t* qs,
-                const uint8_t* sc, const uint8_t* mn, const __half* d, const __half* dmin,
-                float* y, int K, int N, float eps, cudaStream_t s) {
+template <typename TX, int FMT>
+int launch_mode(int mode, const void* x, const float* aux, const NibblePlanes& w, float* y,
+                int K, int N, float eps, cudaStream_t s) {
   switch (mode) {
-    case kQ: return launch<TX, kQ>(x, aux, qs, sc, mn, d, dmin, y, K, N, eps, s);
-    case kNorm: return launch<TX, kNorm>(x, aux, qs, sc, mn, d, dmin, y, K, N, eps, s);
-    case kGlu: return launch<TX, kGlu>(x, aux, qs, sc, mn, d, dmin, y, K, N, eps, s);
+    case kQ: return launch<TX, kQ, FMT>(x, aux, w, y, K, N, eps, s);
+    case kNorm: return launch<TX, kNorm, FMT>(x, aux, w, y, K, N, eps, s);
+    case kGlu: return launch<TX, kGlu, FMT>(x, aux, w, y, K, N, eps, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TX>
+int launch_fmt(int fmt, int mode, const void* x, const float* aux, const NibblePlanes& w,
+               float* y, int K, int N, float eps, cudaStream_t s) {
+  switch (fmt) {
+    case kQ4K: return launch_mode<TX, kQ4K>(mode, x, aux, w, y, K, N, eps, s);
+    case kQ40: return launch_mode<TX, kQ40>(mode, x, aux, w, y, K, N, eps, s);
+    case kQ41: return launch_mode<TX, kQ41>(mode, x, aux, w, y, K, N, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  mode: 0 = q, 1 = norm, 2 = glu.
-// Planes as K1 takes them (Q4KWeight): qs [N, K/2], sc/mn [N, K/32] bytes,
-// d/dmin fp16 [N, K/256]; every plane 16-byte aligned.
-extern "C" int zt_q4k_matvec_hbm(const void* x, int x_dtype, const float* aux,
-                                 const uint8_t* qs, const uint8_t* sc, const uint8_t* mn,
-                                 const void* d, const void* dmin, float* y, int K, int N,
-                                 int mode, float eps, void* stream) {
+// fmt: 0 = Q4_K, 1 = Q4_0, 2 = Q4_1.  x_dtype: 0 = float32, 1 = bfloat16.
+// mode: 0 = q, 1 = norm, 2 = glu.  Planes as K1 takes them (NibblePlanes,
+// matvec_common.cuh); every plane 16-byte aligned.
+extern "C" int zt_q4k_matvec_hbm(int fmt, const void* x, int x_dtype, const float* aux,
+                                 const uint8_t* qs, const void* s0, const void* s1,
+                                 const void* s2, const void* s3, float* y, int K, int N, int mode,
+                                 float eps, void* stream) {
   if (K % 256 != 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const __half* dh = static_cast<const __half*>(d);
-  const __half* dmh = static_cast<const __half*>(dmin);
+  const NibblePlanes w{qs, s0, s1, s2, s3};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0)
-    return launch_mode<float>(mode, x, aux, qs, sc, mn, dh, dmh, y, K, N, eps, s);
-  if (x_dtype == 1)
-    return launch_mode<__nv_bfloat16>(mode, x, aux, qs, sc, mn, dh, dmh, y, K, N, eps, s);
+  if (x_dtype == 0) return launch_fmt<float>(fmt, mode, x, aux, w, y, K, N, eps, s);
+  if (x_dtype == 1) return launch_fmt<__nv_bfloat16>(fmt, mode, x, aux, w, y, K, N, eps, s);
   return (int)cudaErrorInvalidValue;
 }

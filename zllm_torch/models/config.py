@@ -20,6 +20,43 @@ SUPPORTED_ARCHES = ("llama", "olmo2")
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
 NEOX_ROPE_ARCHES = ("olmo2",)
 
+# `{arch}.*` keys zllm's from_gguf reads for any architecture and its llama
+# forward applies, none of which the port's forward does: the key -> a test
+# that the file's value leaves zllm's model the port's (the default)
+_UNPORTED_OPTIONS = {
+    "embedding_scale": lambda v: float(v) == 1.0,
+    "residual_scale": lambda v: float(v) == 1.0,
+    "attention.clamp_kqv": lambda v: not float(v or 0.0),
+    "attention.query_pre_attn_scalar": lambda v: not v,
+    "use_parallel_residual": lambda v: not bool(v),
+    "swin_norm": lambda v: not bool(v),
+    "attention.max_alibi_bias": lambda v: not float(v or 0.0),
+}
+_OPTIONS_ITEM = "ROADMAP queue 1 item 8: the llama-block options of other families"
+
+
+def _is_per_layer(v) -> bool:
+    return isinstance(v, (list, tuple)) or getattr(v, "ndim", 0) == 1
+
+
+def _refuse_unported(kv):
+    """Raise NotImplementedError for metadata that would make zllm compute
+    another model than the port's forward does."""
+    for key, is_default in _UNPORTED_OPTIONS.items():
+        val = kv(key)
+        if val is not None and not is_default(val):
+            raise NotImplementedError(f"{key}={val!r} is not in zllm_torch yet ({_OPTIONS_ITEM})")
+    # zllm takes attention.output_scale as the score scale when neither
+    # query_pre_attn_scalar nor attention.scale sets one
+    out_scale = kv("attention.output_scale")
+    if float(out_scale or 0.0) and not float(kv("attention.scale", 0.0) or 0.0):
+        raise NotImplementedError(f"attention.output_scale={out_scale!r} is not in zllm_torch "
+                                  f"yet ({_OPTIONS_ITEM})")
+    for key in ("attention.head_count", "attention.head_count_kv", "feed_forward_length"):
+        if _is_per_layer(kv(key)):
+            raise NotImplementedError(f"per-layer {key} is not in zllm_torch yet "
+                                      f"({_OPTIONS_ITEM})")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -59,6 +96,7 @@ class ModelConfig:
         def kv(suffix: str, default=None):
             return f.metadata.get(f"{arch}.{suffix}", default)
 
+        _refuse_unported(kv)
         n_heads = int(kv("attention.head_count", 1) or 1)
         n_embd = int(kv("embedding_length"))
         head_dim = int(kv("attention.key_length", n_embd // n_heads) or 1)
@@ -92,7 +130,7 @@ class ModelConfig:
             # zllm reads the window for llama files too; attending the full
             # context instead would be another model
             raise NotImplementedError("sliding-window attention is not in zllm_torch yet "
-                                      "(ROADMAP queue 1 item 6: KVCacheSWA)")
+                                      "(ROADMAP queue 1 item 3: KVCacheSWA)")
         return cls(
             arch=arch,
             n_layers=int(kv("block_count")),

@@ -1,7 +1,7 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
-Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s (quantized on the
-device, consumed by the port's kernels); the token embedding is dequantized
+Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s
+(quantized on the device, consumed by the port's kernels); the token embedding is dequantized
 to a dense tensor of the model dtype, norm weights to f32.  A llama layer
 has the pre-norms attn_norm and ffn_norm; an OLMo-2 layer has none, but
 attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over the whole
@@ -70,8 +70,8 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
 
 
 def _load_matmul(f: GGUFFile, name: str, dtype, device):
-    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_K, Q6_K, Q8_0) or
-    dense [K, N] (F32, F16)."""
+    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_0, Q4_1, Q4_K, Q6_K,
+    Q8_0) or dense [K, N] (F32, F16)."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
@@ -222,29 +222,50 @@ def _f16_nk(plane, rows: int) -> np.ndarray:
                                  else plane.astype(np.float16)).T)
 
 
-def _q4k_from_jax(desc: dict) -> dict[str, np.ndarray]:
-    """The "diet" Q4_K planes: qs (split-half fold nibbles [K/2, N], or with
-    npack int8 [K, N/2] bytes holding column c in the low nibble and column
-    c + N/2 in the high one, stored XOR 0x80), sm u16 [K/32, N] = sc | mn<<6,
-    sd/sb fp16 bits [K/256 rounded up to 8 rows, N]."""
-    k, n = desc["shape"]
+def _nibble_codes_from_jax(desc: dict) -> np.ndarray:
+    """zllm's 4-bit code plane -> uint8 codes [N, K]: split-half fold
+    nibbles [K/2, N], or with npack int8 [K, N/2] bytes holding column c in
+    the low nibble and column c + N/2 in the high one, stored XOR 0x80."""
     p = desc["planes"]
-    if "sm" not in p:
-        raise NotImplementedError("only the exact two-level ('diet') Q4_K planes carry across")
     if desc["npack"]:
         bp = np.asarray(p["qs"]).view(np.uint8)
         codes = np.concatenate([bp & 0xF, (bp >> 4) ^ 0x8], axis=1)  # [K, N]
     else:
         codes = _unfold(p["qs"], int(desc["fold"]), 4)
-    c = np.ascontiguousarray(codes.T).reshape(n, k // 64, 2, 32)
+    return np.ascontiguousarray(codes.T)
+
+
+def _pack_nibbles(codes: np.ndarray) -> np.ndarray:
+    """uint8 codes [N, K] -> the nibble formats' qs plane [N, K/2]."""
+    n, k = codes.shape
+    c = codes.reshape(n, k // 64, 2, 32)
+    return (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).astype(np.uint8).reshape(n, k // 2)
+
+
+def _q4k_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """The "diet" Q4_K planes: qs (see _nibble_codes_from_jax), sm u16
+    [K/32, N] = sc | mn<<6, sd/sb fp16 bits [K/256 rounded up to 8 rows, N]."""
+    k, n = desc["shape"]
+    p = desc["planes"]
+    if "sm" not in p:
+        raise NotImplementedError("only the exact two-level ('diet') Q4_K planes carry across")
     sm = np.asarray(p["sm"]).astype(np.uint16)
     return {
-        "qs": (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).astype(np.uint8).reshape(n, k // 2),
+        "qs": _pack_nibbles(_nibble_codes_from_jax(desc)),
         "sc": np.ascontiguousarray((sm & 63).T).astype(np.uint8),
         "mn": np.ascontiguousarray((sm >> 6).T).astype(np.uint8),
         "d": _f16_nk(p["sd"], k // 256),
         "dmin": _f16_nk(p["sb"], k // 256),
     }
+
+
+def _legacy_nibble_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's Q4_0 (qs, d) and Q4_1 (qs, a, b) planes: qs as for Q4_K, the
+    scales fp16 [K/32, N] per 32-group."""
+    k, _ = desc["shape"]
+    scales = ("d",) if GGMLType(desc["fmt"]) == GGMLType.Q4_0 else ("a", "b")
+    return {"qs": _pack_nibbles(_nibble_codes_from_jax(desc)),
+            **{name: _f16_nk(desc["planes"][name], k // 32) for name in scales}}
 
 
 def _q6k_from_jax(desc: dict) -> dict[str, np.ndarray]:
@@ -264,7 +285,8 @@ def _q80_from_jax(desc: dict) -> dict[str, np.ndarray]:
             "d": _f16_nk(p["d"], k // 32)}
 
 
-_FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q6_K: _q6k_from_jax,
+_FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_jax,
+             GGMLType.Q4_1: _legacy_nibble_from_jax, GGMLType.Q6_K: _q6k_from_jax,
              GGMLType.Q8_0: _q80_from_jax}
 
 
@@ -283,7 +305,7 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
 
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
-    "planes": {name: numpy}}.  Q4_K, Q6_K and Q8_0 carry across."""
+    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

@@ -40,6 +40,7 @@ SOURCES = {
     "attn_blockwise": "attn_blockwise.cu",
     "attn_decode_update": "attn_decode_update.cu",
     "q4k_matvec_hbm": "q4k_matvec_hbm.cu",
+    "w4a8dd_matvec": "w4a8dd_matvec.cu",
 }
 
 # No --use_fast_math: the matvec's int8 codes come from rintf(x / dx) with

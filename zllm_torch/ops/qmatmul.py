@@ -1,29 +1,39 @@
-"""Quantized matmuls on `QWeight`s: the decode matvecs (K1, K12, K4) and
-the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its plain
-PyTorch version beside it.  `matvec` and `gemm` dispatch on the weight's
-format: Q4_K to K1/K3 (K12 instead of K1 under `ZLLM_QMM_HBM=1`), Q6_K and
-Q8_0 to K4/K5.
+"""Quantized matmuls on `QWeight`s: the decode matvecs (K1, K12, K11, K4)
+and the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its
+plain PyTorch version beside it.  `matvec` and `gemm` dispatch on the
+weight's format: the nibble formats Q4_K, Q4_0 and Q4_1 to K1/K3 (K12 or
+K11 instead of K1 under the switches `matvec` names), Q6_K and Q8_0 to
+K4/K5.
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
-    `_qmm_w4a8np_call`): M=1, activations quantized to int8 per 32-group
-    after an optional RMS-norm (`fuse="norm"`) or SwiGLU (`fuse="glu"`)
-    prologue, integer group dots, then `pi*a*dx - b*dx*sum(xq)` in f32.
-    Source: `zllm_torch/csrc/q4k_matvec.cu`.
+    `_qmm_w4a8np_call`) for the three nibble formats: M=1, activations
+    quantized to int8 per 32-group after an optional RMS-norm
+    (`fuse="norm"`) or SwiGLU (`fuse="glu"`) prologue, integer group dots,
+    then zllm's epilogue in f32: Q4_K and Q4_1 `pi*a*dx - b*(dx*sum(xq))`,
+    Q4_0 `(pi - 8*sum(xq))*d*dx` (the -8 in integers).  Source:
+    `zllm_torch/csrc/q4k_matvec.cu`.
   * `q4k_matvec_hbm` (K12) replaces `zllm/ops/qmatmul.py::_w4a8np_hbm_kernel`
-    (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`) for
-    Q4_K: K1's maths and prologues, the weight planes brought into shared
-    memory through a multi-stage cp.async pipeline.  Its plain version is
-    K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
+    (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`):
+    K1's maths and prologues, the weight planes brought into shared memory
+    through a multi-stage cp.async pipeline, bit-identical to K1.  Its plain
+    version is K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
+  * `w4a8dd_matvec` (K11) replaces `zllm/ops/qmatmul.py::_w4a8dd_kernel`
+    (via `_qmm_w4a8dd_call`, under `ZLLM_QMM_DUALDOT=1`) for Q4_0 and Q4_1:
+    the activation row is quantized once, outside the dot kernel
+    (`quantize_acts`: int8 codes, dx and e = dx*sum(xq) per 32-group, as
+    zllm's `_quant_acts`), then each packed byte is dotted whole through
+    two signed views; epilogue Q4_0 `(pi - 8*s)*d*dx`, Q4_1 `pi*a*dx - b*e`.
+    Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
     `_qmm_w4a8_call`) for Q6_K and Q8_0: the same prologues, with int8
     groups of the format's width (16 for Q6_K, 32 for Q8_0), integer group
     dots against the signed codes, then `pi*a*dx` in f32 (no min term).
     Source: `zllm_torch/csrc/int8_matvec.cu`.
   * `q4k_gemm` (K3) replaces `zllm/ops/qmatmul.py::_qmm_np_kernel` (via
-    `_qmm_np_call`) and `dequant_gemm` (K5) replaces `_qmm_kernel` (via
-    `_qmm_call`) for Q6_K and Q8_0: [M, K] x dequant(W) with x and the
-    dequantized weight both rounded to bf16 in the kernel and products
-    accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`,
+    `_qmm_np_call`) for the nibble formats and `dequant_gemm` (K5) replaces
+    `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x dequant(W)
+    with x and the dequantized weight both rounded to bf16 in the kernel
+    and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`,
     `dequant_gemm.cu` (one tile loop, `gemm_tile.cuh`).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -39,7 +49,7 @@ import os
 import torch
 
 from ..gguf.constants import GGMLType
-from ..quant.repack import Q4KWeight, QWeight
+from ..quant.repack import NibbleWeight, QWeight
 from . import cuda
 
 FUSE_CODE = {"q": 0, "norm": 1, "glu": 2}
@@ -69,21 +79,36 @@ def quantize_groups(xf: torch.Tensor, group: int = 32):
     symmetric int8 per group, dx = max(max|x|/127, 1e-12),
     xq = clip(rint(x/dx))."""
     xg = xf.reshape(-1, group)
-    dx = torch.clamp_min(xg.abs().amax(dim=-1) / 127.0, 1e-12)
+    amax = xg.abs().amax(dim=-1)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which can miss the quotient by an ulp
+    dx = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
     xq = torch.clamp(torch.round(xg / dx[:, None]), -127, 127)
     return xq, dx, xq.sum(dim=-1)
 
 
-def q4k_matvec_plain(x, w: Q4KWeight, fuse="q", aux=None, eps=0.0) -> torch.Tensor:
+def _nibble_epilogue(pi, w: NibbleWeight, dx, sx, e=None):
+    """zllm's per-group f32 epilogue of the nibble formats over exact
+    integer group dots `pi` [N, G] (f32): Q4_0 (pi - 8*sx)*d*dx, the offset
+    applied to the integers; Q4_K and Q4_1 pi*a*dx - b*e, e = dx*sx unless
+    given."""
+    if w.OFFSET:
+        pi = pi - w.OFFSET * sx
+    a, b = w.group_scales()
+    c = pi * a * dx
+    if b is not None:
+        c = c - b * (dx * sx if e is None else e)
+    return c
+
+
+def q4k_matvec_plain(x, w: NibbleWeight, fuse="q", aux=None, eps=0.0) -> torch.Tensor:
     """Plain version of K1: y [1, N] f32."""
     k, n = w.shape
     xq, dx, sx = quantize_groups(_prologue(x, k, fuse, aux, eps))
     codes = w.codes().float().reshape(n, k // 32, 32)
     # |partial sums| <= 32*15*127 < 2^24: the f32 group dots are exact integers
     pi = (codes * xq[None]).sum(dim=-1)  # [N, G]
-    a, b = w.group_scales()
-    c = pi * a * dx - b * (dx * sx)
-    return c.sum(dim=-1).reshape(1, n)
+    return _nibble_epilogue(pi, w, dx, sx).sum(dim=-1).reshape(1, n)
 
 
 def _check_qweight(w: QWeight, dev):
@@ -96,9 +121,16 @@ def _check_qweight(w: QWeight, dev):
         raise ValueError(f"K={w.shape[0]} is not a multiple of 256")
 
 
-def _require_q4k(w: QWeight):
-    if w.fmt != GGMLType.Q4_K:
-        raise NotImplementedError(f"K1/K3 take Q4_K, not {w.fmt.name}")
+# the nibble formats K1, K3 and K12 take (the `fmt` argument of their C
+# entry points) and those K11 takes
+NIBBLE_FMT_CODE = {GGMLType.Q4_K: 0, GGMLType.Q4_0: 1, GGMLType.Q4_1: 2}
+DUALDOT_FMTS = (GGMLType.Q4_0, GGMLType.Q4_1)
+
+
+def _require_nibble(w: QWeight, formats=NIBBLE_FMT_CODE, what="K1/K3/K12"):
+    if w.fmt not in formats:
+        raise NotImplementedError(f"{what} take {', '.join(f.name for f in formats)}, "
+                                  f"not {w.fmt.name}")
 
 
 def _check_matvec_args(x, k, fuse, aux):
@@ -120,27 +152,34 @@ def _check_cuda_x(x, fuse, aux):
         raise ValueError("norm weight must be float32")
 
 
-def q4k_matvec(x: torch.Tensor, w: Q4KWeight, fuse: str = "q", aux: torch.Tensor | None = None,
-               eps: float = 0.0) -> torch.Tensor:
-    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path.
-
-    fuse="q": x [1, K];  "norm": x is the raw residual [1, K], aux the RMS
-    weight [K];  "glu": x is the fused gate|up row [1, 2K]."""
-    _require_q4k(w)
+def _nibble_matvec(name: str, x, w: NibbleWeight, fuse, aux, eps) -> torch.Tensor:
+    """Launch K1 or K12 (C entry point zt_<name>) after the common checks."""
     k, n = w.shape
-    _check_matvec_args(x, k, fuse, aux)
-    if x.device.type == "cpu":
-        return q4k_matvec_plain(x, w, fuse, aux, eps)
     _check_cuda_x(x, fuse, aux)
     _check_qweight(w, x.device)
     cuda.require_cuda(x, *([aux] if fuse == "norm" else []))
     y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    fn = cuda.bind("q4k_matvec", "zt_q4k_matvec", [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                                   _I, _I, _I, _F, _P])
-    err = fn(x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(aux) if fuse == "norm" else None,
-             w.qs.data_ptr(), w.sc.data_ptr(), w.mn.data_ptr(), w.d.data_ptr(),
-             w.dmin.data_ptr(), y.data_ptr(), k, n, FUSE_CODE[fuse], float(eps), cuda.stream())
-    cuda.check(err, "q4k_matvec")
+    fn = cuda.bind(name, f"zt_{name}", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _F, _P])
+    err = fn(NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype],
+             cuda.ptr(aux) if fuse == "norm" else None, *_plane_ptrs(w, 5), y.data_ptr(), k, n,
+             FUSE_CODE[fuse], float(eps), cuda.stream())
+    cuda.check(err, name)
+    return y
+
+
+def q4k_matvec(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
+               aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
+    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q4_K, Q4_0
+    or Q4_1.
+
+    fuse="q": x [1, K];  "norm": x is the raw residual [1, K], aux the RMS
+    weight [K];  "glu": x is the fused gate|up row [1, 2K]."""
+    _require_nibble(w)
+    _check_matvec_args(x, w.shape[0], fuse, aux)
+    if x.device.type == "cpu":
+        return q4k_matvec_plain(x, w, fuse, aux, eps)
+    y = _nibble_matvec("q4k_matvec", x, w, fuse, aux, eps)
     q4k_matvec.launches += 1
     return y
 
@@ -155,30 +194,87 @@ q4k_matvec.launches = 0
 q4k_matvec_hbm_plain = q4k_matvec_plain
 
 
-def q4k_matvec_hbm(x: torch.Tensor, w: Q4KWeight, fuse: str = "q",
+def q4k_matvec_hbm(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
                    aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
-    """K1's function (y[1, N] f32; x and fuse as for `q4k_matvec`) through
-    K12, whose weight fetch is a multi-stage pipeline into shared memory."""
-    _require_q4k(w)
-    k, n = w.shape
-    _check_matvec_args(x, k, fuse, aux)
+    """K1's function (y[1, N] f32; x, w and fuse as for `q4k_matvec`)
+    through K12, whose weight fetch is a multi-stage pipeline into shared
+    memory."""
+    _require_nibble(w)
+    _check_matvec_args(x, w.shape[0], fuse, aux)
     if x.device.type == "cpu":
         return q4k_matvec_hbm_plain(x, w, fuse, aux, eps)
-    _check_cuda_x(x, fuse, aux)
-    _check_qweight(w, x.device)
-    cuda.require_cuda(x, *([aux] if fuse == "norm" else []))
-    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    fn = cuda.bind("q4k_matvec_hbm", "zt_q4k_matvec_hbm", [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                                           _I, _I, _I, _F, _P])
-    err = fn(x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(aux) if fuse == "norm" else None,
-             w.qs.data_ptr(), w.sc.data_ptr(), w.mn.data_ptr(), w.d.data_ptr(),
-             w.dmin.data_ptr(), y.data_ptr(), k, n, FUSE_CODE[fuse], float(eps), cuda.stream())
-    cuda.check(err, "q4k_matvec_hbm")
+    y = _nibble_matvec("q4k_matvec_hbm", x, w, fuse, aux, eps)
     q4k_matvec_hbm.launches += 1
     return y
 
 
 q4k_matvec_hbm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: decode matvec on activations quantized beforehand (dual-dot bytes)
+# ---------------------------------------------------------------------------
+
+def quantize_acts_plain(x: torch.Tensor):
+    """zllm's `_quant_acts` for one row x [1, K]: (xq int8 [K], dx f32
+    [K/32], e = dx*sum(xq) f32 [K/32])."""
+    xq, dx, sx = quantize_groups(x.reshape(-1).float())
+    return xq.reshape(-1).to(torch.int8), dx, dx * sx
+
+
+def quantize_acts(x: torch.Tensor):
+    """(xq, dx, e) of `quantize_acts_plain`; on a CUDA tensor one launch of
+    the quantize kernel in `csrc/w4a8dd_matvec.cu`, bit-equal to the plain
+    version."""
+    k = x.numel()
+    if k % 256 or (x.dim() == 2 and x.shape[0] != 1):
+        raise ValueError(f"quantize_acts wants one row of K % 256 == 0, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return quantize_acts_plain(x)
+    _check_cuda_x(x, "q", None)
+    cuda.require_cuda(x)
+    xq = torch.empty(k, dtype=torch.int8, device=x.device)
+    dx = torch.empty(k // 32, dtype=torch.float32, device=x.device)
+    e = torch.empty_like(dx)
+    fn = cuda.bind("w4a8dd_matvec", "zt_quantize_acts", [_P, _I, _P, _P, _P, _I, _P])
+    err = fn(x.data_ptr(), cuda.DTYPE_CODE[x.dtype], xq.data_ptr(), dx.data_ptr(), e.data_ptr(),
+             k, cuda.stream())
+    cuda.check(err, "quantize_acts")
+    return xq, dx, e
+
+
+def w4a8dd_matvec_plain(xq: torch.Tensor, dx: torch.Tensor, e: torch.Tensor,
+                        w: NibbleWeight) -> torch.Tensor:
+    """Plain version of K11's dot: y [1, N] f32 from the quantized row."""
+    k, n = w.shape
+    xg = xq.float().reshape(k // 32, 32)
+    codes = w.codes().float().reshape(n, k // 32, 32)
+    pi = (codes * xg[None]).sum(dim=-1)  # exact integers, as in K1
+    return _nibble_epilogue(pi, w, dx, xg.sum(dim=-1), e).sum(dim=-1).reshape(1, n)
+
+
+def w4a8dd_matvec(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
+    """y[1, N] f32 = x @ dequant(w) for a Q4_0 or Q4_1 weight: x [1, K]
+    quantized by `quantize_acts`, then K11's dot (no prologue: zllm's norm
+    and glu prologues never reach K11)."""
+    _require_nibble(w, DUALDOT_FMTS, "K11")
+    k, n = w.shape
+    _check_matvec_args(x, k, "q", None)
+    if x.device.type == "cpu":
+        return w4a8dd_matvec_plain(*quantize_acts_plain(x), w)
+    _check_qweight(w, x.device)
+    xq, dx, e = quantize_acts(x)
+    y = torch.empty((1, n), dtype=torch.float32, device=x.device)
+    fn = cuda.bind("w4a8dd_matvec", "zt_w4a8dd_matvec", [_I, _P, _P, _P, _P, _P, _P, _P,
+                                                         _I, _I, _P])
+    err = fn(NIBBLE_FMT_CODE[w.fmt], xq.data_ptr(), dx.data_ptr(), e.data_ptr(),
+             *_plane_ptrs(w, 3), y.data_ptr(), k, n, cuda.stream())
+    cuda.check(err, "w4a8dd_matvec")
+    w4a8dd_matvec.launches += 1
+    return y
+
+
+w4a8dd_matvec.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +294,12 @@ def int8_matvec_plain(x, w: QWeight, fuse="q", aux=None, eps=0.0) -> torch.Tenso
     return (pi * w.group_scale() * dx).sum(dim=-1).reshape(1, n)
 
 
-def _plane_ptrs(w: QWeight) -> list[int | None]:
-    """K4/K5's three plane pointers: Q6_K ql, qh, a; Q8_0 qs, d, (none)."""
+def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
+    """The weight's plane pointers in PLANES order, padded with None to the
+    `count` a C entry point takes: K4/K5 three (Q6_K ql, qh, a; Q8_0 qs,
+    d); K1/K3/K12 five (qs, then Q4_K sc, mn, d, dmin; Q4_0 d; Q4_1 a, b)."""
     ptrs = [p.data_ptr() for p in w.planes().values()]
-    return ptrs + [None] * (3 - len(ptrs))
+    return ptrs + [None] * (count - len(ptrs))
 
 
 def _check_int8_shape(w: QWeight):
@@ -228,7 +326,7 @@ def int8_matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor 
     fn = cuda.bind("int8_matvec", "zt_int8_matvec", [_I, _P, _I, _P, _P, _P, _P, _P,
                                                      _I, _I, _I, _F, _P])
     err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype],
-             cuda.ptr(aux) if fuse == "norm" else None, *_plane_ptrs(w),
+             cuda.ptr(aux) if fuse == "norm" else None, *_plane_ptrs(w, 3),
              y.data_ptr(), k, n, FUSE_CODE[fuse], float(eps), cuda.stream())
     cuda.check(err, "int8_matvec")
     int8_matvec.launches += 1
@@ -267,18 +365,19 @@ def _gemm_cuda_x(x: torch.Tensor, w: QWeight):
     return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
 
 
-def q4k_gemm(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
-    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K)."""
-    _require_q4k(w)
+def q4k_gemm(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
+    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K, Q4_0
+    or Q4_1)."""
+    _require_nibble(w)
     k, n = w.shape
     _check_gemm_x(x, k)
     if x.device.type == "cpu":
         return dequant_gemm_plain(x, w)
     y = _gemm_cuda_x(x, w)
-    fn = cuda.bind("q4k_gemm", "zt_q4k_gemm", [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-    err = fn(x.data_ptr(), cuda.DTYPE_CODE[x.dtype], w.qs.data_ptr(), w.sc.data_ptr(),
-             w.mn.data_ptr(), w.d.data_ptr(), w.dmin.data_ptr(), y.data_ptr(), x.shape[0], k, n,
-             cuda.stream())
+    fn = cuda.bind("q4k_gemm", "zt_q4k_gemm", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                               _I, _I, _I, _P])
+    err = fn(NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], *_plane_ptrs(w, 5),
+             y.data_ptr(), x.shape[0], k, n, cuda.stream())
     cuda.check(err, "q4k_gemm")
     q4k_gemm.launches += 1
     return y
@@ -297,7 +396,7 @@ def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     y = _gemm_cuda_x(x, w)
     fn = cuda.bind("dequant_gemm", "zt_dequant_gemm", [_I, _P, _I, _P, _P, _P, _P,
                                                        _I, _I, _I, _P])
-    err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], *_plane_ptrs(w),
+    err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], *_plane_ptrs(w, 3),
              y.data_ptr(), x.shape[0], k, n, cuda.stream())
     cuda.check(err, "dequant_gemm")
     dequant_gemm.launches += 1
@@ -313,20 +412,31 @@ dequant_gemm.launches = 0
 
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
-    """The decode matvec for w's format: Q4_K -> K1, or K12 when
-    ZLLM_QMM_HBM=1 (read at each dispatch, as zllm reads it at each trace);
-    Q6_K/Q8_0 -> K4."""
-    hbm = os.environ.get("ZLLM_QMM_HBM", "0") == "1"
-    if w.fmt == GGMLType.Q4_K:
-        return (q4k_matvec_hbm if hbm else q4k_matvec)(x, w, fuse, aux, eps)
-    if hbm and w.fmt not in INT8_FMT_CODE:
-        raise NotImplementedError(f"ZLLM_QMM_HBM=1 takes Q4_K here; its {w.fmt.name} form comes "
-                                  "with the Q4_0/Q4_1 slice (ROADMAP queue 2: K12)")
+    """The decode matvec for w's format.  Q6_K/Q8_0 -> K4.  The nibble
+    formats Q4_K, Q4_0 and Q4_1 -> K1 by default, and under two switches,
+    read from the environment at each dispatch (as zllm reads them at each
+    trace):
+      * ZLLM_QMM_HBM=1: K12 for every prologue;
+      * ZLLM_QMM_DUALDOT=1: K11 for the fuse="q" matvecs of Q4_0/Q4_1
+        weights; "norm" and "glu" stay on K1, as in zllm.
+    With both set K12 wins.  zllm takes K11 only for a weight its loader
+    left out of the npack layout (ZLLM_NPACK=0, or N % 256 != 0), K12 only
+    for an npack one, so the two never meet on one weight there; the port
+    has one layout, so the switches alone decide.  The values do not depend
+    on the route (K12 is K1 bit for bit; K11 differs from K1 in the f32 sum
+    order only)."""
+    if w.fmt in NIBBLE_FMT_CODE:
+        if os.environ.get("ZLLM_QMM_HBM", "0") == "1":
+            return q4k_matvec_hbm(x, w, fuse, aux, eps)
+        if (fuse == "q" and w.fmt in DUALDOT_FMTS
+                and os.environ.get("ZLLM_QMM_DUALDOT", "0") == "1"):
+            return w4a8dd_matvec(x, w)
+        return q4k_matvec(x, w, fuse, aux, eps)
     return int8_matvec(x, w, fuse, aux, eps)
 
 
 def gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """The prefill GEMM for w's format: Q4_K -> K3, Q6_K/Q8_0 -> K5."""
-    if w.fmt == GGMLType.Q4_K:
+    """The prefill GEMM for w's format: Q4_K/Q4_0/Q4_1 -> K3, Q6_K/Q8_0 -> K5."""
+    if w.fmt in NIBBLE_FMT_CODE:
         return q4k_gemm(x, w)
     return dequant_gemm(x, w)

@@ -1,8 +1,8 @@
 """Blockwise quantization codecs (numpy, host-side): the subset the port's
 llama path needs.
 
-A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_K, Q6_K and
-Q8_0 decoders and encoders (layouts: reference ggml/src/ggml-common.h;
+A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_0, Q4_1,
+Q4_K, Q6_K and Q8_0 decoders and encoders (layouts: reference ggml/src/ggml-common.h;
 reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
 identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
 `zllm_torch.quantize` write the same files.
@@ -128,6 +128,32 @@ def _enc_q8_0(x):
     return np.concatenate([_to_f16_bytes(d), q.view(np.uint8)], axis=1)
 
 
+def _dec_q4_0(b):
+    d, qs = b[:, :2], b[:, 2:]
+    q = _nib_lo_hi(qs, 16).astype(np.int8) - np.int8(8)
+    return _f16(d) * q.astype(np.float32)
+
+
+def _enc_q4_0(x):
+    d = _signed_absmax(x) / -8.0
+    q = np.trunc(x * _safe_inv(d) + 8.5).clip(0, 15).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _nib_pack(q, 16)], axis=1)
+
+
+def _dec_q4_1(b):
+    d, m, qs = b[:, :2], b[:, 2:4], b[:, 4:]
+    q = _nib_lo_hi(qs, 16).astype(np.float32)
+    return _f16(d) * q + _f16(m)
+
+
+def _enc_q4_1(x):
+    mx = x.max(axis=-1, keepdims=True)
+    mn = x.min(axis=-1, keepdims=True)
+    d = (mx - mn) / 15.0
+    q = np.trunc((x - mn) * _safe_inv(d) + 0.5).clip(0, 15).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(mn), _nib_pack(q, 16)], axis=1)
+
+
 def _dec_q4_k(b):
     n = b.shape[0]
     d, dmin, sb, qs = b[:, :2], b[:, 2:4], b[:, 4:16], b[:, 16:]
@@ -193,12 +219,16 @@ def _enc_q6_k(x):
 _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F32: _dec_f32,
     GGMLType.F16: _dec_f16,
+    GGMLType.Q4_0: _dec_q4_0,
+    GGMLType.Q4_1: _dec_q4_1,
     GGMLType.Q8_0: _dec_q8_0,
     GGMLType.Q4_K: _dec_q4_k,
     GGMLType.Q6_K: _dec_q6_k,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _enc_f16,
+    GGMLType.Q4_0: _enc_q4_0,
+    GGMLType.Q4_1: _enc_q4_1,
     GGMLType.Q8_0: _enc_q8_0,
     GGMLType.Q4_K: _enc_q4_k,
     GGMLType.Q6_K: _enc_q6_k,

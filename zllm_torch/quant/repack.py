@@ -1,25 +1,32 @@
-"""GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_K, Q6_K,
-Q8_0).
+"""GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_0, Q4_1,
+Q4_K, Q6_K, Q8_0).
 
 `zllm.quant.repack` cuts each weight into planes shaped for the TPU's
-(8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for Q4_K
-an N-major packed-byte variant whose high nibble holds column c + N/2.
-None of that helps a GPU.  Here every plane keeps one row per output
-column, as the GGUF file has it, so that one warp streams one column's
-bytes along K with 16-byte loads.  The logical weight is y = x @ W with
-W[K, N] (GGUF stores W^T as [N, K]).
+(8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for the
+nibble formats an N-major packed-byte variant whose high nibble holds
+column c + N/2.  None of that helps a GPU.  Here every plane keeps one row
+per output column, as the GGUF file has it, so that one warp streams one
+column's bytes along K with 16-byte loads.  The logical weight is y = x @ W
+with W[K, N] (GGUF stores W^T as [N, K]).
 
-Q4_K (`Q4KWeight`):
+The nibble formats (`NibbleWeight`: Q4_K, Q4_0, Q4_1) share one code plane:
   * qs   uint8 [N, K/2]:  qs[n, 32c + i] = code[n, 64c + i]
-                          | code[n, 64c + 32 + i] << 4   (ggml's nibble order
-                          inside each 64-element chunk c, so the low nibbles
-                          of 4 bytes are 4 consecutive codes of group 2c and
-                          the high nibbles 4 codes of group 2c + 1)
-  * sc, mn uint8 [N, K/32]: 6-bit group scale and min
-  * d, dmin fp16 [N, K/256]: superblock scales
-  The scales stay exact and two-level: a = f32(d) * sc, b = f32(dmin) * mn,
-  w = code * a - b, as ggml's dequantize_row_q4_K and `zllm`'s Q4_K
-  kernels compute them.
+                          | code[n, 64c + 32 + i] << 4   (ggml's Q4_K nibble
+                          order inside each 64-element chunk c, so the low
+                          nibbles of 4 bytes are 4 consecutive codes of group
+                          2c and the high nibbles 4 codes of group 2c + 1;
+                          Q4_0/Q4_1 blocks pair code j with code j + 16 of
+                          one 32-block instead, and are re-paired at load)
+and differ in their scales:
+  * Q4_K (`Q4KWeight`): sc, mn uint8 [N, K/32], the 6-bit group scale and
+    min; d, dmin fp16 [N, K/256], the superblock scales.  The scales stay
+    exact and two-level: a = f32(d) * sc, b = f32(dmin) * mn, w = code * a
+    - b, as ggml's dequantize_row_q4_K and `zllm`'s Q4_K kernels compute
+    them.
+  * Q4_0 (`Q40Weight`): d fp16 [N, K/32];  w = (code - 8) * d, the -8
+    applied to the integer code first, as `zllm`'s kernels do.
+  * Q4_1 (`Q41Weight`): a = d and b = -m, fp16 [N, K/32];  w = code * a - b
+    (`zllm/quant/repack.py::_rp_q4_1`'s contract).
 
 Q6_K (`Q6KWeight`), each 256-element superblock in ggml's bit order:
   * ql uint8 [N, K/2]: the superblock's 128 bytes; in half h (64 bytes)
@@ -100,8 +107,48 @@ class QWeight:
         return self._replace(self.shape[1], lambda p: p.index_select(0, idx).contiguous())
 
 
+class NibbleWeight(QWeight):
+    """A 4-bit format in the shared `qs` layout above (K1, K3, K11, K12 take
+    all of them): codes 0..15, OFFSET subtracted from the integer codes
+    first, then per-32-group w = (code - OFFSET) * a - b."""
+
+    OFFSET: ClassVar[int] = 0
+
+    def codes(self) -> torch.Tensor:
+        """uint8 [N, K] codes 0..15 in natural k order."""
+        k, n = self.shape
+        b = self.qs.reshape(n, k // 64, 1, 32)
+        return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
+
+    def group_scales(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Per-32-group f32 (a, b) [N, K/32]; b is None for a format without
+        a min term."""
+        raise NotImplementedError
+
+    def dequant_nk(self) -> torch.Tensor:
+        """f32 [N, K]: w = (code - OFFSET) * a - b."""
+        k, n = self.shape
+        a, b = self.group_scales()
+        q = self.codes().float().reshape(n, k // 32, 32)
+        if self.OFFSET:
+            q = q - self.OFFSET
+        w = q * a[..., None]
+        if b is not None:
+            w = w - b[..., None]
+        return w.reshape(n, k)
+
+    @staticmethod
+    def pair_legacy(qs: np.ndarray, n: int, k: int) -> np.ndarray:
+        """Q4_0/Q4_1 nibbles (byte j of a 32-block holds codes j and j + 16)
+        [N, K/2] -> the shared qs plane (byte 32c + i holds codes 64c + i
+        and 64c + 32 + i)."""
+        b = qs.reshape(n, k // 64, 2, 16)
+        c = np.concatenate([b & 0xF, b >> 4], axis=3)  # the codes of blocks 2c, 2c + 1
+        return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2)
+
+
 @dataclass
-class Q4KWeight(QWeight):
+class Q4KWeight(NibbleWeight):
     """A Q4_K weight in the layout above."""
 
     shape: tuple[int, int]
@@ -115,24 +162,11 @@ class Q4KWeight(QWeight):
                               "mn": (torch.uint8, 32), "d": (torch.float16, QK_K),
                               "dmin": (torch.float16, QK_K)}
 
-    def codes(self) -> torch.Tensor:
-        """uint8 [N, K] codes 0..15 in natural k order."""
-        k, n = self.shape
-        b = self.qs.reshape(n, k // 64, 1, 32)
-        return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
-
     def group_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-32-group f32 (a, b) [N, K/32]: a = d*sc, b = dmin*mn (exact)."""
+        """a = d*sc, b = dmin*mn (exact)."""
         a = self.d.float().repeat_interleave(8, dim=1) * self.sc.float()
         b = self.dmin.float().repeat_interleave(8, dim=1) * self.mn.float()
         return a, b
-
-    def dequant_nk(self) -> torch.Tensor:
-        """f32 [N, K]: w = code * a - b."""
-        k, n = self.shape
-        a, b = self.group_scales()
-        q = self.codes().float().reshape(n, k // 32, 32)
-        return (q * a[..., None] - b[..., None]).reshape(n, k)
 
     @staticmethod
     def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
@@ -144,6 +178,49 @@ class Q4KWeight(QWeight):
             "d": np.ascontiguousarray(b[:, 0:2]).view("<f2").reshape(n, k // QK_K),
             "dmin": np.ascontiguousarray(b[:, 2:4]).view("<f2").reshape(n, k // QK_K),
         }
+
+
+@dataclass
+class Q40Weight(NibbleWeight):
+    """A Q4_0 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    d: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q4_0
+    OFFSET: ClassVar[int] = 8
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "d": (torch.float16, 32)}
+
+    def group_scales(self) -> tuple[torch.Tensor, None]:
+        return self.d.float(), None
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        return {"qs": NibbleWeight.pair_legacy(np.ascontiguousarray(b[:, 2:]), n, k),
+                "d": np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // 32)}
+
+
+@dataclass
+class Q41Weight(NibbleWeight):
+    """A Q4_1 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q4_1
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 32),
+                              "b": (torch.float16, 32)}
+
+    def group_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.a.float(), self.b.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        m = np.ascontiguousarray(b[:, 2:4]).view("<f2").reshape(n, k // 32)
+        return {"qs": NibbleWeight.pair_legacy(np.ascontiguousarray(b[:, 4:]), n, k),
+                "a": np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // 32),
+                "b": -m}  # negating an fp16 is exact
 
 
 class _IntWeight(QWeight):
@@ -242,13 +319,13 @@ class Q80Weight(_IntWeight):
 
 
 WEIGHT_CLASSES: dict[GGMLType, type[QWeight]] = {
-    cls.fmt: cls for cls in (Q4KWeight, Q6KWeight, Q80Weight)}
+    cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q6KWeight, Q80Weight)}
 
 
 def _weight_class(fmt) -> type[QWeight]:
     cls = WEIGHT_CLASSES.get(GGMLType(fmt))
     if cls is None:
-        raise NotImplementedError(f"zllm_torch keeps Q4_K, Q6_K and Q8_0 quantized, "
+        raise NotImplementedError(f"zllm_torch keeps Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 quantized, "
                                   f"not {GGMLType(fmt).name}")
     return cls
 

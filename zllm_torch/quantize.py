@@ -7,8 +7,8 @@ llama_tensor_get_type, simplified as `tools/quantize.py` has them: the
 embedding, the output head, attn_v and part of ffn_down get bumped types),
 quantizes and writes a new GGUF.  Given the same input it writes the same
 bytes as `tools/quantize.py`.  Every preset can name its types, but a type
-the port has no encoder for (`quant/blocks.py`: F16, Q8_0, Q4_K, Q6_K)
-raises NotImplementedError before anything is written.
+the port has no encoder for (`quant/blocks.py`: F16, Q4_0, Q4_1, Q8_0,
+Q4_K, Q6_K) raises NotImplementedError before anything is written.
 
 Usage: python -m zllm_torch.quantize IN.gguf OUT.gguf Q4_K_M
 """
