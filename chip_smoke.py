@@ -4,7 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no final result line):
-  1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel);
+  1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel),
+     and print the `-Xptxas -v` registers and spill bytes of the tensor-core
+     attention loop's instantiations (csrc/attn_mma.cuh; a spill fails);
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -51,7 +53,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      decode step or 22 K10 per mixed prefill step, K1/K2/K4/K6/K7 never;
      then the same server and traffic with the q8 KV cache (`kv_dtype="q8"`,
      the contiguous layout): per engine step 99 K3 + 34 K5 + 22 K7, no other
-     kernel;
+     kernel; in both, every mixed step's 22 K10 or K7 launches must have
+     taken the tensor-core loop (the wrapper's `mma_launches`);
   4. each kernel at its main path's shapes against its plain PyTorch
      version on the card (tolerance stated per kernel), timed (device time,
      launches replayed from a CUDA graph) beside the plain version, the
@@ -150,6 +153,40 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+def ptxas_entries(reports: dict, needle: str) -> list[dict]:
+    """The `-Xptxas -v` report of each kernel entry whose name holds
+    `needle`: its (demangled) name, registers, stack frame, spill stores
+    and loads."""
+    import re
+
+    out, cur = [], None
+    for log in reports.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = dict(name=m.group(1), registers=None, stack_bytes=0, spill_stores=0,
+                           spill_loads=0)
+                if needle in cur["name"]:
+                    out.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", line)
+            if m and cur is not None:
+                cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(e["name"] for e in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for e, nm in zip(out, names):
+                e["name"] = nm.replace("zt_mma::attn_mma_kernel", "attn_mma_kernel")
+    except OSError:
+        pass
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -539,9 +576,13 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
     TinyLlama-geometry Q4_K_M model on a local port.  Warm up, set the
     launch counts to 0, then the traffic; the counts must match the
     engine's own step counters exactly.  Returns the counts."""
+    from zllm_torch.ops import attention as att
     from zllm_torch.server.http import ZllmServer
 
     q8 = kv_dtype == "q8"
+    # the mixed steps' attention must take the tensor-core loop (bf16 pools;
+    # int8 codes at 1024 query rows a kv head), counted apart on its wrapper
+    mma_fn = att.flash_attention_blockwise if q8 else att.paged_attention
     srv = ZllmServer(model, port=0, kv_dtype=kv_dtype)
     srv.start_background()
     eng = srv.engine
@@ -563,6 +604,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
         post("/v1/completions", completion(40))  # warm-up
         for fn in kernels.values():
             fn.launches = 0
+        mma_fn.mma_launches = 0
         m0 = dict(eng.metrics)
         ttft0 = (eng.hist_ttft.total, eng.hist_ttft.n)
 
@@ -595,6 +637,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
                       for n in SERVE_PROMPT_BYTES}
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in kernels.items()}
+        mma = mma_fn.mma_launches
         m1 = dict(eng.metrics)
     finally:
         srv.shutdown()
@@ -635,7 +678,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
           "ttft_mean_s": ttft_mean, "ttft_n": ttft_n, "prefix_reused_after_resend": reused,
           "concurrent_equals_sequential": same, "finish_reasons": finishes,
           "engine_counters": steps, "launches": counts, "launches_expected": expected,
-          "card": card})
+          "mma_launches": mma, "mma_launches_expected": L * pre, "card": card})
     if steps["engine_errors_total"] or m1["engine_errors_total"] or "error" in finishes \
             or "" in finishes:
         fail(f"serve: engine errors {steps['engine_errors_total']}, finishes {finishes}")
@@ -648,7 +691,10 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
         fail(f"serve: {reused} prompt tokens reused after the re-send")
     if counts != expected or not dec or not pre:
         fail(f"serve: kernel launch counts {counts} != expected {expected}")
-    return counts
+    if mma != L * pre:
+        fail(f"serve: {mma} of the {L * pre} mixed-step attentions took the tensor-core loop "
+             f"(attn_mma.cuh)")
+    return dict(counts, mma_launches=mma)
 
 
 def main():
@@ -682,6 +728,13 @@ def main():
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "built": sorted(reports), "ptxas": ptxas})
+    mma_build = ptxas_entries(reports, "attn_mma_kernel")
+    emit({"phase": "build_attn_mma", "instantiations": mma_build,
+          "note": "registers and spills of the tensor-core attention loop (K7 multi-row, "
+                  "K10 bf16)" if mma_build else "not built in this run (cached)"})
+    spills = [e for e in mma_build if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"the tensor-core attention loop spills: {spills}")
 
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
@@ -1062,6 +1115,7 @@ def main():
     bms, bby = bound_ms(nbytes, ops, "bf16")
     lines.append(dict(name="paged_attention", route="cuda", source="zllm_torch/csrc/paged_attn.cu",
                       replaces="zllm/ops/attention.py:350", launches=counts_serve["paged_attention"],
+                      mma_launches=counts_serve["mma_launches"],
                       max_abs_err=k10_abs, ms=cuda_ms(k10, 10), plain_ms=cuda_ms(k10_plain, 2),
                       bound_ms=bms, bound_by=bby, library_ms=cuda_ms(k10_lib, 10),
                       library="scaled_dot_product_attention on K/V gathered outside the timing",
@@ -1145,6 +1199,7 @@ def main():
                       source="zllm_torch/csrc/attn_blockwise.cu",
                       replaces="zllm/ops/attention.py:165",
                       launches=counts_q8["flash_attention_blockwise"],
+                      mma_launches=counts_q8["mma_launches"],
                       **{k: head7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "nmse", "max_abs_err", "tolerance",
                                                "shapes")},

@@ -223,30 +223,47 @@ def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
                                            (torch.bfloat16, torch.bfloat16)],
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["chunk", "t1", "window", "softcap", "d128", "ragged",
-                                  "g1", "trash_row"])
+                                  "g1", "trash_row", "ps64", "ps256", "g16", "idle_first",
+                                  "gen_row"])
 def test_k10_matches_plain(dev, case, qdtype, pdtype):
-    b, hq, hkv, lp, ps = 3, 32, 4, 8, 128
+    """Horizon 1024 slots (ps 64, 128 or 256); bf16 pools take the
+    tensor-core loop, f32 pools the tile loop.  `idle_first`: the engine's
+    idle row (pos0 = horizon) is row 0; `gen_row`: a mixed step's generating
+    row, its one real token in column 0 and trash positions after it."""
+    b, hq, hkv = 3, 32, 4
+    ps = {"ps64": 64, "ps256": 256}.get(case, 128)
+    lp = 1024 // ps
     d = 128 if case == "d128" else 64
     if case == "g1":
         hq = hkv
+    if case == "g16":
+        hq = 16 * hkv
     t = {"t1": 1, "ragged": 37}.get(case, 128)
     q = _randn((b, t, hq, d), 20, dev, qdtype)
     k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 21)
     starts = torch.tensor([0, 300, 1000], dtype=torch.int32, device=dev)
     if case == "trash_row":
         starts[2] = lp * ps  # the engine's idle row
+    if case == "idle_first":
+        starts[0] = lp * ps
+    if case == "gen_row":
+        starts[1] = 777
     positions = starts[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None]
     kw = dict(page_size=ps, scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
               window=200 if case == "window" else 0)
     before = ta.paged_attention.launches
+    before_mma = ta.paged_attention.mma_launches
     got = ta.paged_attention(q, k_pool, v_pool, table, positions, **kw)
     want = ta.paged_attention_plain(q, k_pool, v_pool, table, positions, **kw)
     torch.cuda.synchronize()
     assert ta.paged_attention.launches == before + 1
+    assert ta.paged_attention.mma_launches == before_mma + (pdtype == torch.bfloat16)
     assert got.dtype == qdtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
-    rows = 2 if case == "trash_row" else b
-    assert _nmse(got[:rows].float(), want[:rows].float()) < 1e-6
+    live = (starts < lp * ps).cpu()
+    assert _nmse(got[live].float(), want[live].float()) < 1e-6
+    if case == "gen_row":
+        assert _nmse(got[1, 0].float(), want[1, 0].float()) < 1e-6
 
 
 @pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
@@ -254,11 +271,14 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
                                            (torch.bfloat16, torch.bfloat16)],
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
-                                  "g4", "g16", "long"])
+                                  "g4", "g16", "long", "ps64_window_softcap"])
 def test_k9_matches_plain(dev, case, qdtype, pdtype):
     """Positions include a page edge, 0, a mid-page one and a trash row; the
-    pools must come out bit-identical outside the trash page 0."""
+    pools must come out bit-identical outside the trash page 0.  With bf16
+    pools the plain version rounds exp(s - running max) a page at a time."""
     b, hq, hkv, lp, ps = 4, 32, 4, 16, 128
+    if case == "ps64_window_softcap":
+        lp, ps = 32, 64
     d = 128 if case == "d128" else 64
     if case == "g4":
         hq = 16
@@ -273,8 +293,9 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
     vn = _randn((b, 1, hkv, d), 32, dev, qdtype)
     k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 33)
     k2, v2 = k_pool.clone(), v_pool.clone()
-    kw = dict(page_size=ps, scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
-              window=300 if case == "window" else 0)
+    kw = dict(page_size=ps, scale=d ** -0.5,
+              softcap=30.0 if case in ("softcap", "ps64_window_softcap") else 0.0,
+              window=300 if case in ("window", "ps64_window_softcap") else 0)
     before = ta.paged_attn_decode_update.launches
     got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, positions, **kw)
     want = ta.paged_attn_decode_update_plain(q, kn, vn, k2, v2, table, positions, **kw)
@@ -289,7 +310,8 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
 
 # K7: (T, G, D, S, row starts, window, softcap, sinks, q dtype); S = 2176 is
 # the engine's q8 cache (max_len 2048 + chunk 128), row start 2048 its
-# trash row; R = T * G <= 32 takes the split form, more rows the tile loop
+# trash row; R = T * G <= 32 takes the split form, more rows the tensor-core
+# loop (attn_mma.cuh)
 K7_CASES = {
     "decode_g8": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.float32),
     "decode_g1_s144": (1, 1, 64, 144, [143, 0, 77, 144], 0, 0.0, False, torch.float32),
@@ -307,6 +329,10 @@ K7_CASES = {
     "sinks_chunk": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 0.0, True, torch.float32),
     "bf16q_decode": (1, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.bfloat16),
     "bf16q_chunk": (128, 8, 64, 2176, [0, 256, 300, 2048], 0, 0.0, False, torch.bfloat16),
+    "chunk_g1_d128": (128, 1, 128, 2176, [0, 256, 1900, 2048], 0, 0.0, False, torch.float32),
+    "ragged_t37": (37, 4, 64, 2176, [0, 700, 1500, 2048], 0, 0.0, False, torch.float32),
+    "window_sinks_chunk": (128, 8, 64, 2176, [0, 256, 1300, 2048], 100, 0.0, True,
+                           torch.float32),
 }
 
 
@@ -336,10 +362,12 @@ def test_k7_matches_plain(dev, case, kv):
     kw = dict(scale=d ** -0.5, softcap=softcap, window=window, ks=ks, vs=vs,
               sinks=_randn((hq,), 46, dev) if sinks else None)
     before = ta.flash_attention_blockwise.launches
+    before_mma = ta.flash_attention_blockwise.mma_launches
     got = ta.flash_attention_blockwise(q, k, v, positions, **kw)
     want = ta.flash_attention_blockwise_plain(q, k, v, positions, **kw)
     torch.cuda.synchronize()
     assert ta.flash_attention_blockwise.launches == before + 1
+    assert ta.flash_attention_blockwise.mma_launches == before_mma + (t * g > 32)
     assert got.dtype == qdtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)

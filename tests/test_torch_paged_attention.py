@@ -102,6 +102,97 @@ def test_paged_decode_plain_matches_zllm(case):
         np.testing.assert_array_equal(to_np(k_t), kp.transpose(0, 2, 1))
 
 
+# bf16 pools: the rounding of exp(s - running max) to bf16 before P.V is
+# where a plain version that normalizes first parts from zllm (nmse ~3e-6);
+# rounded where zllm rounds, only f32 sum order and an ulp of exp remain
+BF16_NMSE = 1e-8
+
+
+def _nmse(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(((a - b) ** 2).mean() / ((b ** 2).mean() + 1e-30))
+
+
+def _pools_bf16(b, seed, ps):
+    """bf16 pools of 512 slots a row (zllm layout, and the port's) and a
+    scrambled table."""
+    import jax.numpy as jnp
+
+    from zllm.runtime.paged import PagedKVCache as ZPaged
+
+    r = np.random.default_rng(seed)
+    z = ZPaged.create(1, b, HZ, HKV, D, jnp.bfloat16, page_size=ps)
+    tbl = np.asarray(z.table).copy()
+    lp = HZ // ps
+    tbl[:, :lp] = tbl[:, :lp][:, ::-1]
+    kz = jnp.asarray(r.standard_normal(z.k[0].shape).astype(np.float32), jnp.bfloat16)
+    vz = jnp.asarray(r.standard_normal(z.v[0].shape).astype(np.float32), jnp.bfloat16)
+
+    def port(x):
+        return torch.from_numpy(np.asarray(x.astype(jnp.float32)).transpose(0, 2, 1).copy()
+                                ).to(torch.bfloat16).contiguous()
+
+    return kz, vz, port(kz), port(vz), tbl, r
+
+
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("variant", ["causal", "window", "softcap"])
+def test_paged_attention_plain_matches_zllm_bf16(t, variant, ps):
+    """bf16 pools, f32 q (the serve path's dtypes): rows from 300 (mid-page),
+    from 120 (a chunk across a page edge at T 16) and the trash row."""
+    import jax.numpy as jnp
+
+    from zllm.ops.attention import paged_attention as zpa
+    from zllm_torch.ops import attention as ta
+
+    kz, vz, kp, vp, tbl, r = _pools_bf16(3, 13 + ps, ps)
+    window = 96 if variant == "window" else 0
+    softcap = 30.0 if variant == "softcap" else 0.0
+    starts = [300, 120 if t > 1 else 0, HZ]
+    pos = np.stack([np.arange(p, p + t) for p in starts]).astype(np.int32)
+    q = r.standard_normal((3, t, HQ, D)).astype(np.float32)
+    want = zpa(jnp.asarray(q), kz, vz, jnp.asarray(tbl), jnp.asarray(pos), page_size=ps,
+               scale=SCALE, softcap=softcap, window=window, interpret=True)
+    got = ta.paged_attention(torch.from_numpy(q), kp, vp, torch.from_numpy(tbl),
+                             torch.from_numpy(pos), page_size=ps, scale=SCALE, softcap=softcap,
+                             window=window)
+    assert got.shape == (3, t, HQ, D) and got.dtype == torch.float32
+    assert _nmse(to_np(got)[:2], np.asarray(want)[:2]) <= BF16_NMSE
+
+
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("case", ["mid", "page_edge", "b2", "window", "softcap"])
+def test_paged_decode_plain_matches_zllm_bf16(case, ps):
+    """bf16 pools, f32 q/k/v rows; the pools after the insert equal zllm's
+    outside the trash page."""
+    import jax.numpy as jnp
+
+    from zllm.ops.attention import paged_attn_decode_update as zpd
+    from zllm_torch.ops import attention as ta
+
+    b = 2 if case == "b2" else 1
+    window = 96 if case == "window" else 0
+    softcap = 30.0 if case == "softcap" else 0.0
+    pos_vals = {"page_edge": [255], "b2": [37, 450], "window": [400]}.get(case, [300])
+    positions = np.asarray([[p] for p in pos_vals], np.int32)
+    kz, vz, kp, vp, tbl, r = _pools_bf16(b, 7 + ps, ps)
+    q = r.standard_normal((b, 1, HQ, D)).astype(np.float32)
+    kn = r.standard_normal((b, 1, HKV, D)).astype(np.float32)
+    vn = r.standard_normal((b, 1, HKV, D)).astype(np.float32)
+    att_z, kp_z, _ = zpd(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), kz, vz,
+                         jnp.asarray(tbl), jnp.asarray(positions), page_size=ps, scale=SCALE,
+                         softcap=softcap, window=window, interpret=True)
+    att = ta.paged_attn_decode_update(torch.from_numpy(q), torch.from_numpy(kn),
+                                      torch.from_numpy(vn), kp, vp, torch.from_numpy(tbl),
+                                      torch.from_numpy(positions), page_size=ps, scale=SCALE,
+                                      softcap=softcap, window=window)
+    assert att.shape == (b, 1, HQ, D)
+    assert _nmse(to_np(att), np.asarray(att_z)) <= BF16_NMSE
+    np.testing.assert_array_equal(to_np(kp.float())[:, ps:],
+                                  np.asarray(kp_z.astype(jnp.float32)).transpose(0, 2, 1)[:, ps:])
+
+
 def test_paged_wrappers_check_shapes():
     from zllm_torch.ops import attention as ta
 

@@ -28,11 +28,15 @@
 //    2, grid (R, Hkv, B), D threads: each row's splits combined at their
 //    common max, the sink added, the sum divided.  Since the probabilities
 //    are not rounded, the split is exact up to f32 reassociation.
-//  * tile, R > 32 (a mixed prefill step, R = 1024): K6's tile loop
-//    (attn_tile.cuh) behind an addressor that loads each int8 row times its
-//    scale into the f32 shared tiles, with the probabilities left
-//    unrounded.
+//  * multi-row, R > 32 (a mixed prefill step, R = 1024; its own entry,
+//    zt_attn_blockwise_mma): the one-pass tensor-core loop of attn_mma.cuh
+//    (shared with K10) behind a contiguous addressor, in chunks of 128
+//    slots: an f32 q split into three bf16 parts, int8 codes converted to
+//    bf16 in shared memory (exact), K's scale on the f32 score, the
+//    unrounded probability times V's scale split into three bf16 parts for
+//    three P.V products, the sinks joined at the end.
 
+#include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -47,8 +51,8 @@ constexpr int VT = 64;         // V rows a P.V sub-tile stages through shared me
 constexpr int MAXR = 32;       // query rows of a kv head the split form takes
 constexpr unsigned kFull = 0xffffffffu;
 
-// contiguous K/V [B, Hkv, S, D] for the tile loop; with kScaled the int8
-// codes' f32 scales [B, Hkv, S]
+// contiguous K/V [B, Hkv, S, D] for the multi-row loop; with kScaled the
+// int8 codes' f32 scales [B, Hkv, S]
 template <typename T, bool kScaled>
 struct BlockKV {
   const T* k;
@@ -289,19 +293,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, cons
              cudaStream_t stream) {
   const int R = a.T * (a.Hq / a.Hkv);
   if (R <= 8) return launch_split<TQ, TKV, D, 8>(q, k, v, out, B, a, stream);
-  if (R <= MAXR) return launch_split<TQ, TKV, D, MAXR>(q, k, v, out, B, a, stream);
-  if (a.ks != nullptr) {
-    const BlockKV<TKV, true> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), a.ks,
-                                a.vs, a.Hkv, a.S, D};
-    return zt_attn::launch_tiles<TQ, TKV, D, BlockKV<TKV, true>, false>(
-        q, kv, a.pos0, a.sinks, out, B, a.T, a.Hq, a.Hkv, a.S, a.scale, a.softcap, a.window,
-        stream);
-  }
-  const BlockKV<TKV, false> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), nullptr,
-                               nullptr, a.Hkv, a.S, D};
-  return zt_attn::launch_tiles<TQ, TKV, D, BlockKV<TKV, false>, false>(
-      q, kv, a.pos0, a.sinks, out, B, a.T, a.Hq, a.Hkv, a.S, a.scale, a.softcap, a.window,
-      stream);
+  return launch_split<TQ, TKV, D, MAXR>(q, k, v, out, B, a, stream);
 }
 
 template <typename TQ, typename TKV>
@@ -312,12 +304,54 @@ int launch(int D, const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+constexpr int kChunk = 128;  // slots a chunk of the multi-row loop
+
+// int8 codes come with their scales (the entry checks), bf16 K/V without
+template <typename TQ, typename TKV, int D>
+int launch_mma_d(const void* k, const void* v, const float* ks, const float* vs,
+                 const zt_mma::Params& p, cudaStream_t stream) {
+  constexpr bool kScaled = sizeof(TKV) == 1;
+  const BlockKV<TKV, kScaled> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks, vs,
+                                 p.Hkv, p.S, D};
+  return zt_mma::launch_mma<TQ, TKV, D, kChunk, false>(kv, p, stream);
+}
+
+template <typename TQ, typename TKV>
+int launch_mma(int D, const void* k, const void* v, const float* ks, const float* vs,
+               const zt_mma::Params& p, cudaStream_t stream) {
+  if (D == 64) return launch_mma_d<TQ, TKV, 64>(k, v, ks, vs, p, stream);
+  if (D == 128) return launch_mma_d<TQ, TKV, 128>(k, v, ks, vs, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype codes: q 0 = float32, 1 = bfloat16; k/v 1 = bfloat16, 2 = int8 (then
+// The multi-row form (attn_mma.cuh), for R = T * Hq / Hkv > 32 query rows a
+// kv head (it takes any R); dtype codes and shapes as zt_attn_blockwise,
+// no scratch.
+extern "C" int zt_attn_blockwise_mma(const void* q, int q_dtype, const void* k, const void* v,
+                                     int kv_dtype, const float* ks, const float* vs,
+                                     const int* pos0, const float* sinks, void* out, int B,
+                                     int T, int Hq, int Hkv, int S, int D, float scale,
+                                     float softcap, int window, void* stream) {
+  if (Hq % Hkv != 0 || T <= 0 || S <= 0 || (kv_dtype == 2) != (ks != nullptr && vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const zt_mma::Params p{q, out, pos0, sinks, B, T, Hq, Hkv, S, kChunk, scale, softcap, window};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ZT_ARGS D, k, v, ks, vs, p, st
+  if (q_dtype == 0 && kv_dtype == 1) return launch_mma<float, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return launch_mma<float, int8_t>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_mma<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 2) return launch_mma<__nv_bfloat16, int8_t>(ZT_ARGS);
+#undef ZT_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form, R = T * Hq / Hkv <= 32 query rows a kv head.  dtype
+// codes: q 0 = float32, 1 = bfloat16; k/v 1 = bfloat16, 2 = int8 (then
 // ks/vs are its f32 scales [B, Hkv, S], else null).  pos0 int32 [B]; sinks
 // f32 [Hq] or null; out like q; scratch f32 [B * Hkv * ceil(S / 128) * R *
-// (D + 2)] when R = T * Hq / Hkv <= 32 (else unused, may be null).
+// (D + 2)].
 extern "C" int zt_attn_blockwise(const void* q, int q_dtype, const void* k, const void* v,
                                  int kv_dtype, const float* ks, const float* vs, const int* pos0,
                                  const float* sinks, void* out, float* scratch, int B, int T,
@@ -325,7 +359,7 @@ extern "C" int zt_attn_blockwise(const void* q, int q_dtype, const void* k, cons
                                  int window, void* stream) {
   if (Hq % Hkv != 0 || T <= 0 || S <= 0 || (kv_dtype == 2) != (ks != nullptr && vs != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (T * (Hq / Hkv) <= MAXR && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (T * (Hq / Hkv) > MAXR || scratch == nullptr) return (int)cudaErrorInvalidValue;
   const Args a{pos0, ks, vs, sinks, scratch, T, Hq, Hkv, S, (S + SPL - 1) / SPL,
                scale, softcap, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,0 +1,555 @@
+// The one-pass multi-token attention loop on the bf16 tensor cores, shared
+// by K10 (paged_attn.cu, bf16 pools read through a page table) and K7's
+// multi-row form (attn_blockwise.cu, bf16 K/V or int8 codes with f32
+// scales, T * G > 32 query rows a kv head).  They differ in where a chunk of
+// K/V rows lives, which the KV addressor answers as attn_tile.cuh's do:
+// `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point at the row of slot s0, and
+// the CH rows from s0 on are contiguous; an addressor with `kScales` (int8
+// codes) also gives `k_scales` / `v_scales(b, h, s0)`, the f32 scale of
+// each row from s0 on.  attn_tile.cuh's CUDA-core loop stays for K6 and
+// for K10's f32 pools.
+//
+// Queries q[B, T, Hq, D] (f32 or bf16) at consecutive positions
+// pos0[b] + t attend slots 0 .. S-1 that are <= pos (and > pos - window),
+// with optional logit softcap; f32 scores, the finite NEG_INF of zllm's
+// kernels for masked ones, and zllm's online softmax (m = max(m, chunk
+// max), alpha = exp(m - m'), l = l * alpha + sum(p), acc = acc * alpha +
+// P.V, acc / l at the end).  Two forms, by kPage:
+//   * K10 (kPage, zllm `_paged_attn_kernel`): the running max advances once
+//     a page of ps slots (ps a multiple of CH); p = exp(s - m) is rounded to
+//     bf16 (the pool dtype) before P.V, l sums the unrounded p.  A page of
+//     CH slots is scored once, its scores held in registers; a larger page
+//     is walked twice, once for its max, once for P.V.  The rounding points
+//     are the plain version's (`ops/attention.py::paged_online_plain`).
+//   * K7 (zllm `_attnb_kernel`): the max advances a chunk of CH = 128
+//     slots; K's scale multiplies the score, V's the probability, which is
+//     never rounded: p * vs is split into three bf16 parts and P.V is three
+//     products.  Sink logits join at the end.
+//
+// Tensor cores without rounding the reference's f32 operands: K's int8
+// codes and bf16 K/V are exact in bf16, and an f32 x is split into three
+// bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+// whose sum is x to 2^-24: S = (q_hi + q_mid + q_lo).K on mma.sync
+// m16n8k16 bf16 with f32 accumulators keeps zllm's f32 scores.  Two parts
+// (16 bits) are not enough: with them the server's greedy tokens parted
+// between a mixed step (this loop) and a decode step (K7's split form,
+// f32 on the CUDA cores).  A bf16 q is one part.
+//
+// Bound on the H100: 4 * Hq * D FLOPs per visible (query, slot) pair over
+// the 989 TFLOP/s bf16 peak, or the bytes of the slots each row sees plus
+// q/out over 3.35 TB/s.  Design: a block takes 32 query rows of one (row
+// b, kv head), rows t-major and group-minor, in two row groups of 16, each
+// served by two warps that take one half of every chunk's slots; the
+// halves swap their row maxima through shared memory, so both keep the one
+// running max zllm keeps, and their acc and l are added at the end (the
+// critical path, the idle row's blocks, runs two warps where one would walk
+// every slot).  The block keeps q's parts in shared memory (ldmatrix per
+// k-step) and streams the K/V chunks of its band through a two-stage shared
+// ring filled with 16-byte cp.async (int8 chunks converted to bf16 tiles in
+// shared memory once they land).  Scores, scale, K scale, softcap, mask
+// (skipped for a half every row sees whole), the online max and sum (quad
+// shuffles) and the probabilities stay in the accumulator registers, which
+// are the A operand of P.V; V comes through ldmatrix.trans.  Chunks outside
+// the block's causal/window band are skipped.  Blocks are ordered so that
+// the rows with the most slots to read, above all the engine's idle row at
+// pos0 >= horizon, start first.  What sets the pace on the card is not the
+// MMA issue but the work on each fragment element (scale, mask, exp, the
+// splits) and the barriers of every chunk: the mask and the softcap run
+// only where needed, each under a uniform branch, and int8 codes become
+// bf16 by byte permutes and one f32 add, not by the quarter-rate
+// conversion instructions.
+
+#pragma once
+
+#include "attn_tile.cuh"
+#include "gemm_tile.cuh"
+
+namespace zt_mma {
+
+using zt::cp_async16;
+using zt::cp_async_commit;
+using zt::cp_async_wait_all;
+using zt::ldmatrix_x4;
+using zt::mma_bf16;
+using zt::pack_bf16;
+
+constexpr int kRowWarps = 2;   // row groups of 16 query rows a block
+constexpr int kSlotWarps = 2;  // warps a row group, each a share of every chunk's slots
+constexpr int QB = 16 * kRowWarps;                  // query rows a block
+constexpr int kThreads = 32 * kRowWarps * kSlotWarps;
+constexpr float kNegInf = -2.4e38f;  // zllm's NEG_INF
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+template <typename T> struct IsF32 { static constexpr bool value = false; };
+template <> struct IsF32<float> { static constexpr bool value = true; };
+
+struct Params {
+  const void* q;
+  void* out;
+  const int* pos0;
+  const float* sinks;  // [Hq] or null (K7 only)
+  int B, T, Hq, Hkv, S, ps;
+  float scale, softcap;
+  int window;
+};
+
+// shared memory of one instantiation, in bytes
+template <typename TQ, typename TKV, int D, int CH, bool kScales>
+struct Layout {
+  static constexpr int QS = D + 8;                   // row stride of q and the bf16 tiles
+  static constexpr int RS = D + 16 / sizeof(TKV);    // row stride of a staged chunk
+  static constexpr int NQ = IsF32<TQ>::value ? 3 : 1;  // bf16 parts of q
+  static constexpr bool kConvert = sizeof(TKV) == 1; // int8 chunks -> bf16 tiles
+  static constexpr size_t q_bytes = (size_t)QB * QS * 2 * NQ;
+  static constexpr size_t tile_bytes = (size_t)CH * RS * sizeof(TKV);
+  static constexpr size_t stage_bytes = 2 * tile_bytes + (kScales ? 2 * CH * 4 : 0);
+  static constexpr size_t work_bytes = kConvert ? 2 * (size_t)CH * QS * 2 : 0;
+  static constexpr size_t bytes = q_bytes + 2 * stage_bytes + work_bytes;
+};
+
+// (a, b) as N packed bf16 pairs whose sum is (a, b): hi, then (N = 3) mid
+// and lo of the remainders, each subtraction exact in f32
+template <int N>
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  if constexpr (N > 1) {
+    const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+    a -= h.x;
+    b -= h.y;
+    mid = pack_bf16(a, b);
+    const float2 m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&mid));
+    lo = pack_bf16(a - m.x, b - m.y);
+  }
+}
+
+// four int8 codes (a 32-bit word) as two packed bf16 pairs, exactly, on
+// the integer and f32 pipes: code c is the f32 whose bits are 2^23 +
+// (c + 128), less 2^23 + 128, and an integer of 8 bits is the upper half of
+// its f32 (I2F and F2F run at a quarter of the rate)
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// slots a row of q sees, the measure by which blocks are ordered
+__device__ __forceinline__ int row_span(const Params& a, int b) {
+  const int p0 = a.pos0[b];
+  const int hi = min(p0 + a.T - 1, a.S - 1);
+  const int lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+  return hi - lo;
+}
+
+// Two blocks an SM (shared memory holds no more at D 64): the bound leaves
+// ptxas up to 255 registers a thread, where without it it capped the D 128,
+// 128-slot K10 form at 168 and spilled.
+template <typename TQ, typename TKV, int D, int CH, bool kPage, typename KV>
+__global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, const Params a) {
+  using L = Layout<TQ, TKV, D, CH, KV::kScales>;
+  constexpr int QS = L::QS, RS = L::RS, ND = D / 8;
+  constexpr int HC = CH / kSlotWarps, NT = HC / 8;  // a warp's slots of a chunk, n-tiles of 8
+  static_assert(HC % 16 == 0 && D % 16 == 0, "shapes");
+  static_assert((size_t)(kSlotWarps - 1) * QB * (D + 1) * 4 <= 2 * L::stage_bytes, "combine");
+  static_assert(!(kPage && KV::kScales), "K10 takes no scales");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [NQ][QB][QS]
+  unsigned char* stages = smem + L::q_bytes;
+  __nv_bfloat16* work = reinterpret_cast<__nv_bfloat16*>(stages + 2 * L::stage_bytes);
+  __shared__ int b_sel;
+  __shared__ float xm[kSlotWarps][QB];  // each share's row maxima of a chunk
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp / kSlotWarps, sh = warp % kSlotWarps;  // row group, share of a chunk
+  const int G = a.Hq / a.Hkv, R = a.T * G, nrb = (R + QB - 1) / QB;
+
+  // block order: rows by their span, longest first (ties by index); within
+  // a row the later (longer) row blocks first
+  const int per_row = a.Hkv * nrb;
+  const int rank = blockIdx.x / per_row, rem = blockIdx.x % per_row;
+  const int rb = nrb - 1 - rem / a.Hkv, h = rem % a.Hkv;
+  for (int bb = tid; bb < a.B; bb += kThreads) {
+    const int wb = row_span(a, bb);
+    int k = 0;
+    for (int o = 0; o < a.B; ++o) {
+      const int wo = row_span(a, o);
+      k += (wo > wb) || (wo == wb && o < bb);
+    }
+    if (k == rank) b_sel = bb;
+  }
+
+  // q rows -> shared, as NQ bf16 parts
+  const int r0 = rb * QB, r_end = min(r0 + QB, R);
+  {
+    const TQ* q = static_cast<const TQ*>(a.q);
+    __syncthreads();  // b_sel
+    const int b = b_sel;
+    for (int e = tid; e < QB * D / 4; e += kThreads) {
+      const int rr = e / (D / 4), dd = (e % (D / 4)) * 4, r = r0 + rr;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < R) {
+        const TQ* src = q + (((size_t)b * a.T + r / G) * a.Hq + h * G + r % G) * D + dd;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = zt_attn::to_f(src[i]);
+      }
+      uint32_t pk[3][2];
+      split_pair<L::NQ>(x[0], x[1], pk[0][0], pk[1][0], pk[2][0]);
+      split_pair<L::NQ>(x[2], x[3], pk[0][1], pk[1][1], pk[2][1]);
+#pragma unroll
+      for (int part = 0; part < L::NQ; ++part)
+        *reinterpret_cast<uint2*>(qs + (part * QB + rr) * QS + dd) =
+            make_uint2(pk[part][0], pk[part][1]);
+    }
+  }
+  const int b = b_sel;
+  const int p0 = a.pos0[b];
+
+  // the block's band of slots, walked in visits of CH slots: a page of ps
+  // (K7: ps = CH) once, or twice (max, then P.V) when ps > CH
+  const int qp_min = p0 + r0 / G, qp_max = p0 + (r_end - 1) / G;
+  const int col_hi = min(qp_max, a.S - 1);
+  const int col_lo = a.window > 0 ? max(0, qp_min - a.window + 1) : 0;
+  const int ps = kPage ? a.ps : CH;
+  const int nc = ps / CH;
+  const bool two = nc > 1;
+  const int vpp = two ? 2 * nc : 1;
+  const int pg_lo = col_lo / ps;
+  const int nv = col_lo <= col_hi ? (col_hi / ps - pg_lo + 1) * vpp : 0;
+
+  auto issue = [&](int v) {
+    const int w = v % vpp, phase = two ? w / nc : 1;
+    const int s0 = (pg_lo + v / vpp) * ps + (two ? w % nc : 0) * CH;
+    TKV* kt = reinterpret_cast<TKV*>(stages + (v & 1) * L::stage_bytes);
+    TKV* vt = kt + CH * RS;
+    const TKV* kg = kv.k_rows(b, h, s0);
+    const TKV* vg = kv.v_rows(b, h, s0);
+    constexpr int kPer = 16 / sizeof(TKV), kRowP = D / kPer;
+    for (int p = tid; p < CH * kRowP; p += kThreads) {
+      const int j = p / kRowP, c = (p % kRowP) * kPer;
+      const bool ok = s0 + j < a.S;
+      const size_t go = ok ? (size_t)j * D + c : 0;
+      cp_async16(kt + j * RS + c, kg + go, ok ? 16 : 0);
+      if (phase) cp_async16(vt + j * RS + c, vg + go, ok ? 16 : 0);
+    }
+    if constexpr (KV::kScales) {
+      float* sc = reinterpret_cast<float*>(vt + CH * RS);  // ks [CH], vs [CH]
+      const float* kgs = kv.k_scales(b, h, s0);
+      const float* vgs = kv.v_scales(b, h, s0);
+      for (int j = tid; j < 2 * CH; j += kThreads) {
+        const int jj = j % CH;
+        const bool ok = s0 + jj < a.S;
+        cp_async4(sc + j, (j < CH ? kgs : vgs) + (ok ? jj : 0), ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this thread's two rows (gid, gid + 8 of its row group's 16), and the
+  // rows of the warp (for the chunks that need no mask)
+  const int wr0 = rg * 16, so = sh * HC;
+  int qp[2];
+  bool rv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + wr0 + gid + 8 * i;
+    rv[i] = r < R;
+    qp[i] = p0 + r / G;
+  }
+  const bool rows_full = r0 + wr0 + 15 < R;
+  const int wqp_lo = p0 + (r0 + wr0) / G, wqp_hi = p0 + min(r0 + wr0 + 15, R - 1) / G;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, pm[2] = {kNegInf, kNegInf};
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  if (nv > 0) issue(0);
+  for (int v = 0; v < nv; ++v) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk v has landed; chunk v - 1's stage, tiles and xm are free
+    if (v + 1 < nv) issue(v + 1);  // in flight while chunk v computes
+    const int w = v % vpp, phase = two ? w / nc : 1;
+    const int s0 = (pg_lo + v / vpp) * ps + (two ? w % nc : 0) * CH;
+    const unsigned char* sb = stages + (v & 1) * L::stage_bytes;
+    const __nv_bfloat16* kb;
+    const __nv_bfloat16* vb;
+    const float* ksc = nullptr;
+    const float* vsc = nullptr;
+    if constexpr (KV::kScales) {
+      ksc = reinterpret_cast<const float*>(sb + 2 * L::tile_bytes) + so;
+      vsc = ksc + CH;
+    }
+    if constexpr (L::kConvert) {  // int8 chunk -> bf16 tiles (exact)
+      const int8_t* src = reinterpret_cast<const int8_t*>(sb);
+      constexpr int kRowP = D / 16, kPieces = CH * kRowP;
+      for (int p = tid; p < 2 * kPieces; p += kThreads) {
+        const int t = p / kPieces, pp = p % kPieces, j = pp / kRowP, c = (pp % kRowP) * 16;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + t * CH * RS + j * RS + c);
+        const uint32_t wd[4] = {raw.x, raw.y, raw.z, raw.w};
+        uint32_t pk[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) i8x4_to_bf16(wd[i], pk[2 * i], pk[2 * i + 1]);
+        uint4* dst = reinterpret_cast<uint4*>(work + t * CH * QS + j * QS + c);
+        dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+      }
+      __syncthreads();
+      kb = work + so * QS;
+      vb = work + (CH + so) * QS;
+    } else {
+      kb = reinterpret_cast<const __nv_bfloat16*>(sb) + so * RS;
+      vb = reinterpret_cast<const __nv_bfloat16*>(sb) + (CH + so) * RS;
+    }
+
+    // scores of this warp's half: s[n] the 16x8 accumulator of slots
+    // s0 + so + 8n .. +7
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[L::NQ][4];
+#pragma unroll
+      for (int part = 0; part < L::NQ; ++part)
+        ldmatrix_x4(aq[part], qs + (part * QB + wr0 + (lane & 15)) * QS + kk * 16 +
+                                  (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * QS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+        for (int part = 0; part < L::NQ; ++part) {
+          mma_bf16(s[2 * np], aq[part], b0);
+          mma_bf16(s[2 * np + 1], aq[part], b1);
+        }
+      }
+    }
+    // scale, K scale, softcap, mask (only where some slot of the half is
+    // outside some row's band); the half's row max
+    const int c0 = s0 + so;
+    const bool full = rows_full && c0 + HC <= a.S && c0 + HC - 1 <= wqp_lo &&
+                      (a.window <= 0 || c0 > wqp_hi - a.window);
+    // each step a loop of its own under a uniform branch, so that a chunk
+    // without softcap or mask runs none of their code
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * a.scale;
+        if constexpr (KV::kScales) x *= ksc[n * 8 + tig * 2 + (e & 1)];
+        s[n][e] = x;
+      }
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = tanhf(s[n][e] / a.softcap) * a.softcap;
+    }
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, col = c0 + n * 8 + tig * 2 + (e & 1);
+          const bool ok = rv[i] && col < a.S && col <= qp[i] &&
+                          (a.window <= 0 || col > qp[i] - a.window);
+          s[n][e] = ok ? s[n][e] : kNegInf;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    // the running max advances once a page (two-pass: after its max pass),
+    // over both halves of the chunk
+    if (!two || phase == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        if (tig == 0) xm[sh][wr0 + gid + 8 * i] = mx[i];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int o2 = 1; o2 < kSlotWarps; ++o2)
+          mx[i] = fmaxf(mx[i], xm[(sh + o2) % kSlotWarps][wr0 + gid + 8 * i]);
+      bool advance = true;
+      if (two) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) pm[i] = (w == 0) ? mx[i] : fmaxf(pm[i], mx[i]);
+        advance = w == nc - 1;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mx[i] = pm[i];
+      }
+      if (advance) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], mx[i]);
+          const float alpha = expf(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= alpha;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            o[n][2 * i] *= alpha;
+            o[n][2 * i + 1] *= alpha;
+          }
+        }
+      }
+    }
+    if (!two || phase == 1) {
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[n][e] - m[e >> 1]);
+          ls[e >> 1] += p;
+          s[n][e] = p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+        l[i] += ls[i];
+      }
+      // P.V: the probabilities of 16 slots are the A fragment of a k-step:
+      // a0 (row gid, k 0-7), a1 (row gid+8, k 0-7), a2 (row gid, k 8-15),
+      // a3 (row gid+8, k 8-15); K10 one part (the rounded p), K7 three
+      // (p * vs unrounded)
+      constexpr int NP = kPage ? 1 : 3;
+#pragma unroll
+      for (int k2 = 0; k2 < HC / 16; ++k2) {
+        uint32_t ap[3][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {  // n-tiles 2 k2 (k 0-7), 2 k2 + 1 (k 8-15)
+          float x[4] = {s[2 * k2 + hf][0], s[2 * k2 + hf][1], s[2 * k2 + hf][2],
+                        s[2 * k2 + hf][3]};
+          if constexpr (KV::kScales) {
+            const int jj = (2 * k2 + hf) * 8 + tig * 2;
+            const float v0 = vsc[jj], v1 = vsc[jj + 1];
+            x[0] *= v0;
+            x[1] *= v1;
+            x[2] *= v0;
+            x[3] *= v1;
+          }
+          split_pair<NP>(x[0], x[1], ap[0][hf * 2], ap[1][hf * 2], ap[2][hf * 2]);
+          split_pair<NP>(x[2], x[3], ap[0][hf * 2 + 1], ap[1][hf * 2 + 1], ap[2][hf * 2 + 1]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vb + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS +
+                                   dn * 16 + (lane >> 4) * 8);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+          for (int part = 0; part < NP; ++part) {
+            mma_bf16(o[2 * dn], ap[part], b0);
+            mma_bf16(o[2 * dn + 1], ap[part], b1);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // the last chunk is read: its stage takes the shares' partials
+
+  // the other shares' acc and l join share 0's (the running max is the
+  // same in all), then sinks (K7) and acc / l
+  float* part = reinterpret_cast<float*>(stages);  // [SW - 1][QB][D + 1], copies done
+  if (sh > 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = part + ((sh - 1) * QB + wr0 + gid + 8 * i) * (D + 1);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        row[n * 8 + tig * 2] = o[n][2 * i];
+        row[n * 8 + tig * 2 + 1] = o[n][2 * i + 1];
+      }
+      if (tig == 0) row[D] = l[i];
+    }
+  }
+  __syncthreads();
+  if (sh > 0) return;
+  TQ* out = static_cast<TQ*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + wr0 + gid + 8 * i;
+    if (r >= R) continue;
+    float li = l[i], acc[ND][2];
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] = o[n][2 * i];
+      acc[n][1] = o[n][2 * i + 1];
+    }
+#pragma unroll
+    for (int o2 = 0; o2 < kSlotWarps - 1; ++o2) {
+      const float* row = part + (o2 * QB + wr0 + gid + 8 * i) * (D + 1);
+      li += row[D];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] += row[n * 8 + tig * 2];
+        acc[n][1] += row[n * 8 + tig * 2 + 1];
+      }
+    }
+    const int t = r / G, head = h * G + r % G;
+    float rs = 1.f;
+    if (!kPage && a.sinks != nullptr) {
+      const float sk = a.sinks[head];
+      const float mf = fmaxf(m[i], sk);
+      rs = expf(m[i] - mf);
+      li = li * rs + expf(sk - mf);
+    }
+    TQ* dst = out + (((size_t)b * a.T + t) * a.Hq + head) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int d = n * 8 + tig * 2;
+      const float y0 = acc[n][0] * rs, y1 = acc[n][1] * rs;
+      dst[d] = zt_attn::from_f<TQ>(li > 0.f ? y0 / li : 0.f);
+      dst[d + 1] = zt_attn::from_f<TQ>(li > 0.f ? y1 / li : 0.f);
+    }
+  }
+}
+
+// One launch: grid (B * Hkv * ceil(T * G / QB)), kThreads threads.
+template <typename TQ, typename TKV, int D, int CH, bool kPage, typename KV>
+int launch_mma(const KV& kv, const Params& a, cudaStream_t stream) {
+  constexpr size_t shmem = Layout<TQ, TKV, D, CH, KV::kScales>::bytes;
+  auto kern = attn_mma_kernel<TQ, TKV, D, CH, kPage, KV>;
+  static bool attr_set = false;  // once per instantiation, not inside graph captures
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int nrb = (a.T * (a.Hq / a.Hkv) + QB - 1) / QB;
+  kern<<<a.B * a.Hkv * nrb, kThreads, shmem, stream>>>(kv, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace zt_mma

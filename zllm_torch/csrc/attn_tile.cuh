@@ -1,19 +1,20 @@
-// The multi-token attention tile loop shared by K6 (flash_attn.cu, a
-// contiguous cache), K10 (paged_attn.cu, a page pool read through a page
-// table) and K7's multi-row form (attn_blockwise.cu, bf16 or int8 K/V).
-// They differ only in where a tile of K/V rows lives, which the KV
+// The multi-token attention tile loop on the CUDA cores, used by K6
+// (flash_attn.cu, a contiguous cache, f32 or bf16) and by K10's f32 pools
+// (paged_attn.cu, a page pool read through a page table), where bf16
+// tensor-core operands would round K/V.  K10's bf16 pools and K7's
+// multi-row form take the one-pass tensor-core loop of attn_mma.cuh
+// instead; its helpers to_f / from_f are shared from here.  The users
+// differ only in where a tile of K/V rows lives, which the KV
 // addressor type answers: `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point at
-// the row of slot s0, and the KT rows from s0 on are contiguous.  An
-// addressor with `kScales` true (int8 codes) also gives `k_scales` /
-// `v_scales(b, h, s0)`, the f32 scale of each row from s0 on, and a row is
-// loaded into the shared tile times its scale.
+// the row of slot s0, and the KT rows from s0 on are contiguous.
 //
 // Queries q[B, T, Hq, D] at consecutive positions pos0[b] + t attend slots
 // 0 .. S-1 that are <= pos (and > pos - window), with optional logit
 // softcap and per-head attention sinks in the softmax denominator.  Scores
-// are f32; the probabilities are normalized, then (kRoundP, K6 and K10)
-// cast to V's dtype before P.V (f32 accumulate), as the Pallas kernels do;
-// K7's stay f32.
+// are f32; the probabilities are normalized, then cast to V's
+// dtype before P.V (f32 accumulate), as zllm's `_attn_kernel` (K6) does;
+// for f32 pools the cast is the identity, so K10's f32 form equals zllm's
+// page-by-page rounding too.
 //
 // Design (simple first, CUDA cores, no tensor cores yet): a block takes 32
 // query rows of one kv head (rows t-major, group-minor, so the grouped
@@ -50,19 +51,7 @@ constexpr size_t smem_bytes() {
                           (size_t)QR * (KT + 1) + 2 * QR);
 }
 
-// the scales of the KT rows from slot s0 on, or null for an unscaled KV
-template <typename KV>
-__device__ __forceinline__ const float* k_scales(const KV& kv, int b, int h, int s0) {
-  if constexpr (KV::kScales) return kv.k_scales(b, h, s0);
-  else return nullptr;
-}
-template <typename KV>
-__device__ __forceinline__ const float* v_scales(const KV& kv, int b, int h, int s0) {
-  if constexpr (KV::kScales) return kv.v_scales(b, h, s0);
-  else return nullptr;
-}
-
-template <typename TQ, typename TKV, int D, typename KV, bool kRoundP>
+template <typename TQ, typename TKV, int D, typename KV>
 __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
     const TQ* __restrict__ q, const KV kv, const int* __restrict__ pos0,
     const float* __restrict__ sinks, TQ* __restrict__ out, int T, int Hq, int Hkv, int S,
@@ -135,24 +124,18 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
       }
     }
   };
-  // the KT rows of slots s0.. from `src` (the row of slot s0), each times
-  // its scale in `scl` for a scaled KV
-  auto load_tile = [&](const TKV* src, const float* scl, float* dst, int s0, int stride) {
+  // the KT rows of slots s0.. from `src` (the row of slot s0)
+  auto load_tile = [&](const TKV* src, float* dst, int s0, int stride) {
     for (int e = tid; e < KT * D; e += kThreads) {
       const int j = e / D, dd = e % D, s = s0 + j;
-      float x = 0.f;
-      if (s < S) {
-        x = to_f(src[(size_t)j * D + dd]);
-        if constexpr (KV::kScales) x *= scl[j];
-      }
-      dst[j * stride + dd] = x;
+      dst[j * stride + dd] = s < S ? to_f(src[(size_t)j * D + dd]) : 0.f;
     }
   };
 
   // sweep 1: online row max and denominator
   for (int tile = tlo; tile <= thi; ++tile) {
     const int s0 = tile * KT;
-    load_tile(kv.k_rows(b, h, s0), k_scales(kv, b, h, s0), ksh, s0, D + 1);
+    load_tile(kv.k_rows(b, h, s0), ksh, s0, D + 1);
     __syncthreads();
     tile_scores(s0);
     __syncthreads();
@@ -191,8 +174,7 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
   }
   __syncthreads();
 
-  // sweep 2: normalized probabilities (rounded to V's dtype unless K7's)
-  // times V; each
+  // sweep 2: normalized probabilities, rounded to V's dtype, times V; each
   // thread a block of 4 rows x D/16 dims (dims td + 16*j)
   constexpr int kDims = D / 16;
   float acc[4][kDims];
@@ -202,8 +184,8 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
     for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
   for (int tile = tlo; tile <= thi; ++tile) {
     const int s0 = tile * KT;
-    load_tile(kv.k_rows(b, h, s0), k_scales(kv, b, h, s0), ksh, s0, D + 1);
-    load_tile(kv.v_rows(b, h, s0), v_scales(kv, b, h, s0), vsh, s0, D);
+    load_tile(kv.k_rows(b, h, s0), ksh, s0, D + 1);
+    load_tile(kv.v_rows(b, h, s0), vsh, s0, D);
     __syncthreads();
     tile_scores(s0);
     __syncthreads();
@@ -211,9 +193,8 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
       const int rr = e / KT, jj = e % KT;
       const float sc = ssh[rr * (KT + 1) + jj];
       const float l = lrow[rr];
-      float p = (sc > -INFINITY && l > 0.f) ? expf(sc - mrow[rr]) / l : 0.f;
-      if constexpr (kRoundP) p = to_f(from_f<TKV>(p));
-      ssh[rr * (KT + 1) + jj] = p;
+      const float p = (sc > -INFINITY && l > 0.f) ? expf(sc - mrow[rr]) / l : 0.f;
+      ssh[rr * (KT + 1) + jj] = to_f(from_f<TKV>(p));
     }
     __syncthreads();
 #pragma unroll 4
@@ -242,12 +223,12 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(
 }
 
 // One launch of the tile kernel: grid (row tiles of T*G, Hkv, B).
-template <typename TQ, typename TKV, int D, typename KV, bool kRoundP = true>
+template <typename TQ, typename TKV, int D, typename KV>
 int launch_tiles(const void* q, const KV& kv, const int* pos0, const float* sinks, void* out,
                  int B, int T, int Hq, int Hkv, int S, float scale, float softcap, int window,
                  cudaStream_t stream) {
   constexpr size_t shmem = smem_bytes<D>();
-  auto kern = attn_tile_kernel<TQ, TKV, D, KV, kRoundP>;
+  auto kern = attn_tile_kernel<TQ, TKV, D, KV>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {
     const cudaError_t err =

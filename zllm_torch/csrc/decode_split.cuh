@@ -13,8 +13,15 @@
 // q[B, 1, Hq, D] (roped, not rounded to the cache dtype) and the new rows
 // k/v_new[B, 1, Hkv, D] (roped K); the new rows are cast to the cache dtype.
 // GQA attention over slots <= pos (and > pos - window), logit softcap, f32
-// scores and softmax, probabilities normalized and cast to the cache dtype
-// before P.V (f32 accumulate), as K6 and K10 do; the output is in q's dtype.
+// scores and softmax; the output is in q's dtype.  The probabilities are
+// cast to the cache dtype before P.V (f32 accumulate) where the reference
+// kernel casts them, which the addressor's `kPageRound` says:
+//   * false (K8, zllm's `_attn_decode_kernel`): normalized, then cast;
+//   * true (K9, zllm's `_paged_decode_kernel`, an online softmax a page a
+//     grid step): exp(s - M_j) cast, M_j the running max after page j (the
+//     max of the split maxima of the row's pages 0..j), and the sum of the
+//     pages' P.V, each times exp(M_j - M), divided once by the f32
+//     denominator sum(exp(s - M)) at the end, M the row's max.
 //
 // Bound on the H100: the bytes of the K/V slots each row sees, 2 * Hkv *
 // (visible slots) * D * sizeof(cache) a row, over 3.35 TB/s; the work is a
@@ -24,11 +31,14 @@
 //      query rows (shared memory), writes the scores to a global f32 scratch
 //      row and the split's per-head max and sum of exponentials to a stats
 //      scratch;
-//   2. P.V, same grid: each split's block combines every split's stats into
-//      the row's max and denominator, forms the normalized probabilities
-//      rounded to the cache dtype, and sums P.V over its split's V rows
-//      (staged through shared memory) into a per-split partial;
-//   3. the partials of a row's splits are summed in split order.
+//   2. P.V, same grid: each split's block combines the splits' stats into
+//      the row's max and denominator (kPageRound: the running max after its
+//      own split), forms the probabilities rounded to the cache dtype, and
+//      sums P.V over its split's V rows (staged through shared memory) into
+//      a per-split partial;
+//   3. the partials of a row's splits are summed in split order
+//      (kPageRound: each rescaled to the row's max, then divided by the
+//      denominator).
 // The insert: the blocks of the split that holds the insert slot dot it from
 // their shared copy of the new K row (rounded to the cache dtype), and the
 // chunk-0 block writes the row in launch 1; launch 2 reads V from the cache.
@@ -154,6 +164,7 @@ struct PagedAddr {
   const int* table;
   int TW, n_rows;
   static constexpr bool kClampInsert = false;
+  static constexpr bool kPageRound = true;
   __device__ size_t split_base(int b, int h, int j, int ps, int D) const {
     return ((size_t)h * n_rows + (size_t)__ldg(table + (size_t)b * TW + j) * ps) * D;
   }
@@ -163,6 +174,7 @@ struct PagedAddr {
 struct ContigAddr {
   int Hkv, S;
   static constexpr bool kClampInsert = true;
+  static constexpr bool kPageRound = false;
   __device__ size_t split_base(int b, int h, int j, int ps, int D) const {
     return (((size_t)b * Hkv + h) * S + (size_t)j * ps) * D;
   }
@@ -272,12 +284,15 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
   if (s0 > s1) return;
   if (tid < Gc) {  // the row's max and denominator from every visible split's stats
     const float* st = a.stats + (size_t)(b * a.Hq + head0 + tid) * NP * 2;
-    const int j0 = sp.lo / a.ps, j1 = sp.hi / a.ps;
+    const int j0 = sp.lo / a.ps, j1 = Addr::kPageRound ? j : sp.hi / a.ps;
     float m = -INFINITY;
     for (int jj = j0; jj <= j1; ++jj) m = fmaxf(m, st[2 * jj]);
-    float l = 0.f;
-    for (int jj = j0; jj <= j1; ++jj)
-      if (st[2 * jj + 1] > 0.f) l += st[2 * jj + 1] * expf(st[2 * jj] - m);
+    float l = 1.f;  // kPageRound: divided once, in launch 3
+    if constexpr (!Addr::kPageRound) {
+      l = 0.f;
+      for (int jj = j0; jj <= j1; ++jj)
+        if (st[2 * jj + 1] > 0.f) l += st[2 * jj + 1] * expf(st[2 * jj] - m);
+    }
     m_row[tid] = m;
     l_row[tid] = l;
   }
@@ -293,9 +308,13 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
     for (int e = tid; e < Gc * KT; e += kThreads) {
       const int g = e / KT, i = e % KT;
       const float l = l_row[g];
-      psh[e] = (i < n && l > 0.f)
-                   ? to_f(from_f<TP>(expf(srow[(size_t)g * S + t0 + i] - m_row[g]) / l))
-                   : 0.f;
+      float p = 0.f;
+      if (i < n && l > 0.f) {
+        p = expf(srow[(size_t)g * S + t0 + i] - m_row[g]);
+        if constexpr (!Addr::kPageRound) p /= l;
+        p = to_f(from_f<TP>(p));
+      }
+      psh[e] = p;
     }
     // the sub-tile's V rows, 16 bytes a load; rows past s1 are zeros
     constexpr int kVec = 16 / sizeof(TP);
@@ -333,14 +352,29 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
   }
 }
 
-// launch 3: grid (Hq, B), D threads: out = the sum of the visible splits' P.V
-template <typename TQ, int D>
+// launch 3: grid (Hq, B), D threads: out = the sum of the visible splits'
+// P.V (kPageRound: split j's times exp(M_j - M), then over the denominator)
+template <typename TQ, int D, bool kPageRound>
 __global__ void __launch_bounds__(D) split_sum(TQ* __restrict__ out, const Args a) {
   const int head = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const Span sp(a.pos[b], a.S, a.window);
+  const int j0 = sp.lo / a.ps, j1 = sp.hi / a.ps;
   const float* p = a.part + (size_t)(b * a.Hq + head) * a.NP * D + d;
   float o = 0.f;
-  for (int jj = sp.lo / a.ps; jj <= sp.hi / a.ps; ++jj) o += p[(size_t)jj * D];
+  if constexpr (kPageRound) {
+    const float* st = a.stats + (size_t)(b * a.Hq + head) * a.NP * 2;
+    float m = -INFINITY;
+    for (int jj = j0; jj <= j1; ++jj) m = fmaxf(m, st[2 * jj]);
+    float l = 0.f, mj = -INFINITY;
+    for (int jj = j0; jj <= j1; ++jj) {
+      mj = fmaxf(mj, st[2 * jj]);
+      l += st[2 * jj + 1] * expf(st[2 * jj] - m);
+      o += p[(size_t)jj * D] * expf(mj - m);
+    }
+    o = l > 0.f ? o / l : 0.f;
+  } else {
+    for (int jj = j0; jj <= j1; ++jj) o += p[(size_t)jj * D];
+  }
   out[((size_t)b * a.Hq + head) * D + d] = from_f<TQ>(o);
 }
 
@@ -355,7 +389,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
       static_cast<TP*>(k_cache), static_cast<TP*>(v_cache), a, addr);                         \
   split_pv<TP, DD, Addr><<<grid, kThreads, 0, stream>>>(static_cast<const TP*>(v_cache), a,   \
                                                         addr);                                \
-  split_sum<TQ, DD><<<dim3(a.Hq, B), DD, 0, stream>>>(static_cast<TQ*>(out), a)
+  split_sum<TQ, DD, Addr::kPageRound><<<dim3(a.Hq, B), DD, 0, stream>>>(static_cast<TQ*>(out), a)
   if (D == 64) {
     ZT_LAUNCH(64);
   } else if (D == 128) {

@@ -11,18 +11,27 @@
 // Layout: each layer's pool is token-major, [Hkv, P * ps, D]; slot s of
 // row b is pool row table[b, s / ps] * ps + s % ps of head h.  The TPU
 // kernel streams one page per grid step through its scalar-prefetched
-// table; here the tile loop of attn_tile.cuh (shared with K6) streams
-// 64-slot tiles, and since ps is a multiple of 64 a tile never straddles a
-// page: one table read a tile gives its base row, and its 64 rows are
-// contiguous.
+// table and keeps an online softmax whose max advances once a page, with
+// exp(s - max) rounded to the pool dtype before P.V.  Here, for bf16
+// pools (the serving path's), the one-pass tensor-core loop of
+// attn_mma.cuh (shared with K7's multi-row form) does the same: chunks of
+// 128 slots (64 when ps is not a multiple of 128) never straddle a page, so
+// one table read a chunk gives its base row and its rows are contiguous; a
+// page of one chunk is scored once, a larger one walked twice (its max,
+// then P.V).  f32 pools (the f32 engines and tests; bf16 operands would
+// round K/V) take the CUDA-core tile loop of attn_tile.cuh (shared with
+// K6) in 64-slot tiles, whose probabilities, normalized before the
+// rounding to f32, are the same values.
 //
 // Bound on the H100: 4 * Hq * D FLOPs per visible (query, slot) pair over
 // the 989 TFLOP/s tensor-core peak, or the q/out bytes and the bytes of the
 // pages read over 3.35 TB/s, whichever is larger; at the serve path's mixed
 // step (chunk 128, rows from 0, 256, 300 and a trash row) it is the bytes,
-// by a small margin.  A block takes 32 of the T * G query rows of one
-// (slot, kv head), so a chunk of 128 at G = 8 gives 32 x Hkv x B blocks.
+// by a small margin.  A block of the bf16 loop takes 32 of the T * G query
+// rows of one (slot, kv head), so a chunk of 128 at G = 8 gives 32 x Hkv x
+// B blocks, the idle row's first.
 
+#include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -45,39 +54,75 @@ struct PagedKV {
   __device__ __forceinline__ const T* v_rows(int b, int h, int s0) const { return v + off(b, h, s0); }
 };
 
-template <typename TQ, typename TKV>
+// the tile loop over f32 pools
+template <typename TQ>
 int launch_d(int D, const void* q, const void* k, const void* v, const int* table,
              const int* pos0, void* out, int B, int T, int Hq, int Hkv, int n_rows, int TW,
              int ps, float scale, float softcap, int window, cudaStream_t s) {
-  const PagedKV<TKV> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), table, TW, ps,
-                        D, (size_t)n_rows * D};
+  const PagedKV<float> kv{static_cast<const float*>(k), static_cast<const float*>(v), table, TW,
+                          ps, D, (size_t)n_rows * D};
   const int S = (TW - 1) * ps;  // the last table column is the trash pin
   if (D == 64)
-    return launch_tiles<TQ, TKV, 64>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
-                                     softcap, window, s);
+    return launch_tiles<TQ, float, 64>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
+                                       softcap, window, s);
   if (D == 128)
-    return launch_tiles<TQ, TKV, 128>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
-                                      softcap, window, s);
+    return launch_tiles<TQ, float, 128>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
+                                        softcap, window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TQ, int D, int CH>
+int launch_mma_d(const PagedKV<__nv_bfloat16>& kv, const zt_mma::Params& a, cudaStream_t s) {
+  return zt_mma::launch_mma<TQ, __nv_bfloat16, D, CH, true>(kv, a, s);
+}
+
+template <typename TQ>
+int launch_mma_q(int D, const PagedKV<__nv_bfloat16>& kv, const zt_mma::Params& a,
+                 cudaStream_t s) {
+  const bool ch128 = a.ps % 128 == 0;
+  if (D == 64) return ch128 ? launch_mma_d<TQ, 64, 128>(kv, a, s) : launch_mma_d<TQ, 64, 64>(kv, a, s);
+  if (D == 128)
+    return ch128 ? launch_mma_d<TQ, 128, 128>(kv, a, s) : launch_mma_d<TQ, 128, 64>(kv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Pools [Hkv, n_rows, D] with
-// n_rows = P * ps; table int32 [B, TW]; pos0 int32 [B].
+// The tensor-core loop (attn_mma.cuh): bf16 pools only (kv_dtype must be
+// 1), q 0 = float32 or 1 = bfloat16; shapes as zt_paged_attention.
+extern "C" int zt_paged_attention_mma(const void* q, int q_dtype, const void* k_pool,
+                                      const void* v_pool, int kv_dtype, const int* table,
+                                      const int* pos0, void* out, int B, int T, int Hq, int Hkv,
+                                      int D, int n_rows, int TW, int ps, float scale,
+                                      float softcap, int window, void* stream) {
+  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % 64 != 0 || kv_dtype != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k_pool),
+                                  static_cast<const __nv_bfloat16*>(v_pool), table, TW, ps, D,
+                                  (size_t)n_rows * D};
+  const zt_mma::Params a{q, out, pos0, nullptr, B, T, Hq, Hkv, (TW - 1) * ps, ps,
+                         scale, softcap, window};
+  if (q_dtype == 0) return launch_mma_q<float>(D, kv, a, s);
+  if (q_dtype == 1) return launch_mma_q<__nv_bfloat16>(D, kv, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The CUDA-core tile loop (attn_tile.cuh), f32 pools (kv_dtype 0).  dtype
+// codes: 0 = float32, 1 = bfloat16.  Pools [Hkv, n_rows, D] with n_rows =
+// P * ps; table int32 [B, TW]; pos0 int32 [B].
 extern "C" int zt_paged_attention(const void* q, int q_dtype, const void* k_pool,
                                   const void* v_pool, int kv_dtype, const int* table,
                                   const int* pos0, void* out, int B, int T, int Hq, int Hkv,
                                   int D, int n_rows, int TW, int ps, float scale, float softcap,
                                   int window, void* stream) {
-  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % KT != 0) return (int)cudaErrorInvalidValue;
+  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % KT != 0 || kv_dtype != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ZT_ARGS D, q, k_pool, v_pool, table, pos0, out, B, T, Hq, Hkv, n_rows, TW, ps, scale, \
                 softcap, window, s
-  if (q_dtype == 0 && kv_dtype == 0) return launch_d<float, float>(ZT_ARGS);
-  if (q_dtype == 0 && kv_dtype == 1) return launch_d<float, __nv_bfloat16>(ZT_ARGS);
-  if (q_dtype == 1 && kv_dtype == 0) return launch_d<__nv_bfloat16, float>(ZT_ARGS);
-  if (q_dtype == 1 && kv_dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0) return launch_d<float>(ZT_ARGS);
+  if (q_dtype == 1) return launch_d<__nv_bfloat16>(ZT_ARGS);
 #undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -9,9 +9,11 @@
 // A row with pos < LP * ps (the horizon) writes its new K/V, cast to the
 // pool dtype, at its position; a row at or past the horizon (the engine's
 // trash rows) writes nothing.  Then GQA attention over slots <= pos (and
-// > pos - window), logit softcap, f32 scores and softmax, probabilities
-// normalized and cast to the pool dtype before P.V (f32 accumulate), as
-// K6 and K10 do.  Pages past pos and outside the window are never read.
+// > pos - window), logit softcap, f32 scores, and zllm's page-by-page
+// online softmax: exp(s - running max after the page) cast to the pool
+// dtype before P.V (f32 accumulate), one division by the f32 denominator
+// at the end, as K10 does.  Pages past pos and outside the window are
+// never read.
 //
 // Bound on the H100: the bytes of the pages it must read, 2 * Hkv *
 // (visible slots) * D * sizeof(pool) a row, over 3.35 TB/s; the work is a
@@ -19,8 +21,11 @@
 // step, here every (logical page, kv head, slot) is a block, so a row's
 // pages are read in parallel (flash-decoding), in three launches: the
 // split decode step of decode_split.cuh with a page-table addressor (a
-// split is a page), which K8 shares with a contiguous one.  Other slots
-// read only full prefix pages, which are never an insert page.
+// split is a page, `kPageRound`), which K8 shares with a contiguous one.
+// Launch 2 rounds a page's probabilities at the running max after that
+// page (the prefix max of the split maxima) and launch 3 rescales each
+// page's P.V to the row's max, so the splits still run in parallel.  Other
+// slots read only full prefix pages, which are never an insert page.
 
 #include "decode_split.cuh"
 

@@ -14,10 +14,13 @@ PyTorch version beside it.
     position, window, softcap, sinks in the denominator.
     Source: `zllm_torch/csrc/flash_attn.cu`.
   * `paged_attention` replaces `zllm/ops/attention.py::_paged_attn_kernel`
-    (via `paged_attention`): K6's attention with K/V read from a paged pool
-    through the page table; causal from positions[:, 0], window, softcap.
-    Source: `zllm_torch/csrc/paged_attn.cu` (K6's tile loop,
-    `csrc/attn_tile.cuh`, behind a page-table addressor).
+    (via `paged_attention`): multi-token attention with K/V read from a
+    paged pool through the page table; causal from positions[:, 0], window,
+    softcap; zllm's page-by-page online softmax, exp(s - running max)
+    rounded to the pool dtype.  Source: `zllm_torch/csrc/paged_attn.cu`
+    (bf16 pools: the tensor-core loop `csrc/attn_mma.cuh`, shared with K7;
+    f32 pools: K6's tile loop `csrc/attn_tile.cuh`; a page-table addressor
+    for either).
   * `paged_attn_decode_update` replaces
     `zllm/ops/attention.py::_paged_decode_kernel` (via
     `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
@@ -33,7 +36,8 @@ PyTorch version beside it.
     from positions[:, 0], window, softcap, sinks; K/V in bf16, or int8
     codes (`QuantKV`, the q8 KV cache) whose per-vector scales multiply the
     scores (K) and the probabilities (V).  The probabilities stay f32.
-    Source: `zllm_torch/csrc/attn_blockwise.cu`.
+    Source: `zllm_torch/csrc/attn_blockwise.cu` (more than 32 query rows a
+    kv head: the tensor-core loop `csrc/attn_mma.cuh`, shared with K10).
 
 The paged pools are token-major, [Hkv, P * ps, D] (zllm's are token-minor;
 see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
@@ -41,7 +45,8 @@ see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
 over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
-`.launches`.
+`.launches`; K7 and K10 also count in `.mma_launches` those of their
+tensor-core loop.
 """
 
 from __future__ import annotations
@@ -254,15 +259,67 @@ def _paged_cuda_checks(q, k_pool, v_pool, table, page_size: int, tile: int):
         raise ValueError("the page table must be int32")
 
 
+def paged_online_plain(q, k, v, pos0, *, page_size: int, scale: float, softcap: float = 0.0,
+                       window: int = 0) -> torch.Tensor:
+    """zllm's page-by-page online softmax (`_paged_attn_kernel`,
+    `_paged_decode_kernel`) over the gathered K/V [B, Hkv, S, D] in the pool
+    dtype: query t of row b sits at pos0[b] + t.  Page j runs for row b if
+    some query of the row sees a slot of it; it does m' = max(m, page max),
+    alpha = exp(m - m'), p = exp(s - m'), l = l * alpha + sum(p) from the
+    unrounded p, acc = acc * alpha + p.to(pool dtype) @ V; the output is
+    acc / l.  Masked scores are the finite NEG_INF, so a page masked for a
+    whole row before the row's first seen slot adds the junk zllm adds
+    (p = 1), which the first seen page's alpha = 0 wipes.  Every page is
+    computed and kept only where it runs (no host sync, so a CUDA graph can
+    capture this)."""
+    b, t, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g, ps = hq // hkv, page_size
+    dev = q.device
+    qf = q.float().reshape(b, t, hkv, g, d)
+    p0 = pos0.reshape(b).long()
+    qp = p0[:, None] + torch.arange(t, device=dev)[None, :]  # [B, T]
+    m = torch.full((b, hkv, g, t, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, t, d), dtype=torch.float32, device=dev)
+    for j in range(s // ps):
+        col0 = j * ps
+        run = col0 <= p0 + (t - 1)
+        if window > 0:
+            run = run & (col0 + ps > p0 - window + 1)
+        sc = torch.einsum("bthgd,bhsd->bhgts", qf, k[:, :, col0:col0 + ps].float()) * scale
+        if softcap > 0:
+            sc = torch.tanh(sc / softcap) * softcap
+        cols = col0 + torch.arange(ps, device=dev)[None, None, :]
+        mask = cols <= qp[:, :, None]
+        if window > 0:
+            mask = mask & (cols > qp[:, :, None] - window)
+        sc = sc.masked_fill(~mask[:, None, None], NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhgts,bhsd->bhgtd", p.to(v.dtype).float(),
+                          v[:, :, col0:col0 + ps].float())
+        keep = run.reshape(b, 1, 1, 1, 1)
+        m = torch.where(keep, m_new, m)
+        l = torch.where(keep, l_new, l)
+        acc = torch.where(keep, acc * alpha + pv, acc)
+    out = (acc / l).permute(0, 3, 1, 2, 4)  # [B, T, Hkv, G, D]
+    return out.reshape(b, t, hq, d).to(q.dtype)
+
+
 def paged_attention_plain(q, k_pool, v_pool, table, positions, *, page_size: int,
                           scale: float, softcap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """Plain version of K10: gather the pages into [B, Hkv, S, D], then K6's
-    plain attention (f32 masked softmax, probabilities cast to the pool
-    dtype before P.V)."""
+    """Plain version of K10: gather the pages into [B, Hkv, S, D], then
+    zllm's page-by-page online softmax (`paged_online_plain`: f32 scores,
+    exp(s - running max) rounded to the pool dtype before P.V, one division
+    at the end)."""
     from ..runtime.paged import PagedKV
 
     k, v = PagedKV(k_pool, v_pool, table, page_size).gather()
-    return flash_attention_plain(q, k, v, positions, scale=scale, softcap=softcap, window=window)
+    return paged_online_plain(q, k, v, positions[:, 0], page_size=page_size, scale=scale,
+                              softcap=softcap, window=window)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -281,10 +338,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     pos0 = positions[:, 0].contiguous()
     if pos0.dtype != torch.int32:
         raise ValueError("positions must be int32")
-    cuda.require_cuda(q, k_pool, v_pool, table, pos0)
+    q = q.contiguous()
+    cuda.require_cuda(q, k_pool, v_pool, table, pos0, aligned=(k_pool, v_pool))
     b, t, hq, d = q.shape
     out = torch.empty_like(q)
-    fn = cuda.bind("paged_attn", "zt_paged_attention",
+    mma = k_pool.dtype == torch.bfloat16  # the tensor-core loop; f32 pools the tile loop
+    fn = cuda.bind("paged_attn", "zt_paged_attention_mma" if mma else "zt_paged_attention",
                    [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                     _P])
     err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
@@ -293,10 +352,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
              float(scale), float(softcap), int(window), cuda.stream())
     cuda.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.mma_launches += mma
     return out
 
 
 paged_attention.launches = 0
+paged_attention.mma_launches = 0  # of them, launches of the tensor-core loop (bf16 pools)
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +368,9 @@ def paged_attn_decode_update_plain(q, k_new, v_new, k_pool, v_pool, table, posit
                                    page_size: int, scale: float, softcap: float = 0.0,
                                    window: int = 0) -> torch.Tensor:
     """Plain version of K9.  Rows with pos < horizon write their new K/V
-    (cast to the pool dtype) into the pools in place; then gather and K6's
-    plain attention at T=1.  Returns att [B, 1, Hq, D]."""
+    (cast to the pool dtype) into the pools in place; then gather and
+    zllm's page-by-page online softmax at T=1 (`paged_online_plain`).
+    Returns att [B, 1, Hq, D]."""
     from ..runtime.paged import PagedKV
 
     b = q.shape[0]
@@ -323,8 +385,8 @@ def paged_attn_decode_update_plain(q, k_new, v_new, k_pool, v_pool, table, posit
     k_pool[:, rows] = torch.where(live, k_new[:, 0].transpose(0, 1).to(k_pool.dtype), k_pool[:, rows])
     v_pool[:, rows] = torch.where(live, v_new[:, 0].transpose(0, 1).to(v_pool.dtype), v_pool[:, rows])
     k, v = view.gather()
-    return flash_attention_plain(q, k, v, pos.to(torch.int32)[:, None], scale=scale,
-                                 softcap=softcap, window=window)
+    return paged_online_plain(q, k, v, pos, page_size=page_size, scale=scale, softcap=softcap,
+                              window=window)
 
 
 def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -571,21 +633,28 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       aligned=(k, v))
     out = torch.empty_like(q)
     rows = t * (hq // hkv)
-    scratch = None
-    if rows <= BLOCKWISE_SPLIT_ROWS:  # per split: each row's (max, sum, P.V)
+    args = (q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(), KV_CODE[k.dtype],
+            cuda.ptr(ks), cuda.ptr(vs), pos0.data_ptr(), cuda.ptr(sinks), out.data_ptr())
+    shape = (b, t, hq, hkv, s, d, float(scale), float(softcap), int(window), cuda.stream())
+    mma = rows > BLOCKWISE_SPLIT_ROWS
+    if mma:  # the multi-row form: the tensor-core loop
+        fn = cuda.bind("attn_blockwise", "zt_attn_blockwise_mma",
+                       [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                        _I, _P])
+        err = fn(*args, *shape)
+    else:  # the split form; per split: each row's (max, sum, P.V)
         n_split = -(-s // BLOCKWISE_SPLIT)
         scratch = torch.empty((b * hkv * n_split * rows * (d + 2),), dtype=torch.float32,
                               device=q.device)
-    fn = cuda.bind("attn_blockwise", "zt_attn_blockwise",
-                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                    _I, _P])
-    err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
-             KV_CODE[k.dtype], cuda.ptr(ks), cuda.ptr(vs), pos0.data_ptr(), cuda.ptr(sinks),
-             out.data_ptr(), cuda.ptr(scratch), b, t, hq, hkv, s, d, float(scale),
-             float(softcap), int(window), cuda.stream())
+        fn = cuda.bind("attn_blockwise", "zt_attn_blockwise",
+                       [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _F, _I, _P])
+        err = fn(*args, scratch.data_ptr(), *shape)
     cuda.check(err, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1
+    flash_attention_blockwise.mma_launches += mma
     return out
 
 
 flash_attention_blockwise.launches = 0
+flash_attention_blockwise.mma_launches = 0  # of them, launches of the multi-row (tensor-core) form
