@@ -6,7 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure (non-zero exit, no final result line):
   1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel),
      and print the `-Xptxas -v` registers and spill bytes of the tensor-core
-     attention loop's instantiations (csrc/attn_mma.cuh; a spill fails);
+     attention loop's instantiations (csrc/attn_mma.cuh) and of K5's sliced
+     loop (csrc/gemm_slice.cuh); a spill fails;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -61,7 +62,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      one-call PyTorch yardstick where there is one, and its bound (bytes
      over 3.35 TB/s or operations over the peak of their type); K4 and K5
      also once each on a full-width Q8_0 weight, K3 and K5 also at the
-     engine's decode M = 4; K9/K10 at the serving path's shapes with a
+     engine's decode M = 4 (K5 by weight role), and K5's rows at M = 4
+     against the same rows of an M = 512 call on every Q6_K weight of the
+     Q4_K_M model, bit for bit (a difference fails); K9/K10 at the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
      steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
@@ -735,6 +738,14 @@ def main():
     spills = [e for e in mma_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the tensor-core attention loop spills: {spills}")
+    slice_build = ptxas_entries(reports, "zt_slice")
+    emit({"phase": "build_gemm_slice", "instantiations": slice_build,
+          "note": "registers and spills of K5's sliced loop (csrc/gemm_slice.cuh: RowForm "
+                  "and TileForm per format) and its round and reduction kernels"
+                  if slice_build else "not built in this run (cached)"})
+    spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"K5's sliced loop spills: {spills}")
 
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
@@ -1452,10 +1463,28 @@ def main():
         launches=len(g4_k3), shapes="M=4 x the 99 Q4_K weights of a Q4_K_M step")
     by_name["dequant_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.dequant_gemm, qmm.dequant_gemm_plain, g4_k5, n_real,
-                   GGUF_BYTES_PER_WEIGHT["Q6_K"], check=(0, len(g4_k5) - 1)),
+                   GGUF_BYTES_PER_WEIGHT["Q6_K"], check=(0, groups["ffn_down"][0], len(g4_k5) - 1),
+                   groups=groups),
         launches=len(g4_k5), shapes="M=4 x the 34 Q6_K weights of a Q4_K_M step")
     bad_m4 = [n for n in ("q4k_gemm", "dequant_gemm")
               if not by_name[n]["serve_decode_step_m4"]["nmse"] <= 1e-6]
+
+    # K5's rows do not depend on M: the engine's 4-row decode step (row
+    # form) and its 512-row mixed step (tile form) give a generating row the
+    # same bits, on every Q6_K weight of the Q4_K_M model
+    x512 = {d_model: randn(512, d_model), n_ff: randn(512, n_ff)}
+    xh512 = randn(512, d_model, dtype=torch.bfloat16)
+    rows_same = []
+    for x, w in gcalls5:
+        xb = xh512 if x.dtype == torch.bfloat16 else x512[x.shape[1]]
+        full = qmm.dequant_gemm(xb, w)
+        rows_same.append(torch.equal(qmm.dequant_gemm(xb[:4], w), full[:4])
+                         and torch.equal(qmm.dequant_gemm(xb[508:], w), full[508:]))
+    by_name["dequant_gemm"]["rows_m4_equal_m512"] = dict(weights=len(rows_same),
+                                                         bitwise_equal=sum(rows_same))
+    if not all(rows_same):
+        fail(f"K5 rows at M = 4 differ from the same rows of an M = 512 call: "
+             f"{len(rows_same) - sum(rows_same)} of {len(rows_same)} weights")
 
     # K4 and K5 once each on a full-width Q8_0 weight (gate shape 2048->5632)
     rng_w = torch.Generator().manual_seed(1)

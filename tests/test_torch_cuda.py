@@ -9,8 +9,9 @@ Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 
 Tolerances: K1/K4 nmse < 1e-6 (exact integer dots; only f32 sum order, and
 an ulp of rsqrt/exp may move one int8 code), K3/K5 < 1e-6 (bf16 operands,
-f32 sum order), K2/K6 < 1e-5 (f32 sum order, then one bf16 rounding of a
-probability may move by an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
+f32 sum order; K5's rows equal bit for bit whatever M and form), K2/K6 <
+1e-5 (f32 sum order, then one bf16 rounding of a probability may move by
+an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
 with a bf16 q, whose output rounds to bf16), and K12 equal to K1's kernel
 bit for bit (each lane does K1's arithmetic in K1's order) and < 1e-6
 against the plain version; K1/K3/K12 hold the same tolerances in their
@@ -119,7 +120,13 @@ def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
 @pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("m,k,n,n_pad", [(1, 256, 128, 0), (7, 512, 384, 0),
                                          (64, 2048, 256, 0), (256, 5632, 2048, 0),
-                                         (256, 2048, 32000, 32768)])
+                                         (256, 2048, 32000, 32768),
+                                         (4, 768, 384, 0), (4, 2048, 256, 0),
+                                         (4, 5632, 2048, 0), (4, 2048, 32000, 32768),
+                                         (16, 2048, 256, 0), (17, 768, 256, 0),
+                                         (128, 5632, 2048, 0), (256, 2048, 256, 0),
+                                         (512, 768, 384, 0), (512, 2048, 256, 0),
+                                         (37, 5632, 2048, 0), (300, 2048, 32000, 32768)])
 def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
     x = _randn((m, k), 3, dev, xdtype)
@@ -131,6 +138,24 @@ def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     assert _nmse(got, tq.dequant_gemm_plain(x, w)) < 1e-6
     if n_pad:
         assert not got[:, n:].any()
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
+def test_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
+    """Every row is summed slice by slice in zllm's order, so its bits do
+    not depend on M or on the form (row form M <= 16, tile form above, the
+    slices split over blocks or not), and repeated calls agree."""
+    w = _int_weight(fmt, n, k, k + n, dev)
+    x = _randn((512, k), 6, dev, xdtype)
+    full = tq.dequant_gemm(x, w)
+    assert torch.equal(tq.dequant_gemm(x[:4], w), full[:4])
+    assert torch.equal(tq.dequant_gemm(x[508:], w), full[508:])
+    assert torch.equal(tq.dequant_gemm(x[:16], w), tq.dequant_gemm(x[:17], w)[:16])
+    assert torch.equal(tq.dequant_gemm(x[:37], w), full[:37])
+    assert torch.equal(tq.dequant_gemm(x, w), full)
+    torch.cuda.synchronize()
 
 
 def test_k4_k5_q6k_random_blocks(dev):

@@ -2,127 +2,130 @@
 // Q8_0: y[M, N] (f32) = bf16(x)[M, K] @ bf16(dequant(W)).
 //
 // Replaces zllm/ops/qmatmul.py::_qmm_kernel (launched by _qmm_call from
-// qmatmul), instantiated for these two of its formats: the weight tile is
+// qmatmul), instantiated for these two of its formats: the weight is
 // dequantized in f32 as _dequant_tile does (Q6_K: ((ql | qh << 4) - 32) *
-// f32(a); Q8_0: qs * f32(d)) and rounded to bf16; x (f32 or bf16) is
-// rounded to bf16 in the kernel; the products are accumulated in f32.
+// f32(a); Q8_0: qs * f32(d)) and rounded to bf16 (round to nearest even);
+// x (f32 or bf16) is rounded to bf16 in the kernel; the products are
+// summed in f32 in zllm's order, one partial per 512-wide (or 256-wide)
+// k-slice added in slice order.
 //
-// Bound on the H100: at prefill shapes (M = 256 rows a chunk) the 2*M*K*N
-// bf16 FLOPs over the 989 TFLOP/s tensor-core peak.  Design: K3's tile
-// loop (gemm_tile.cuh) with a decoder per format; a thread takes 32
+// Bound on the H100: at the engine's decode M = 4 the weight bytes over
+// 3.35 TB/s; at prefill shapes (M = 256 rows a chunk) the 2*M*K*N bf16
+// FLOPs over the 989 TFLOP/s tensor-core peak.  Design: the sliced loop of
+// gemm_slice.cuh (a split-K row form for M <= 16, a 128-row tile form
+// above), with a decoder per format; a thread copies and decodes 16
 // consecutive k of one column in each 64-wide step:
-//   Q6_K step c (superblock c/4, quarter c%4): the 32 ql bytes whose low
-//     (even quarter) or high (odd quarter) nibbles hold the 32 codes, the
-//     32 qh bytes whose crumb 2(c%2) + half holds their top bits, and the
-//     two 16-group scales.  ql is read twice and qh four times over a
-//     superblock's four steps (from L1/L2): the GEMM is bound by its FLOPs.
-//   Q8_0 step c: group 2c + half, 32 int8 codes and one scale.
+//   Q6_K step c (128-wide chunk c/2, half c%2), quarter q: the 16 ql bytes
+//     16q.. of the chunk, whose low (even half) or high (odd half) nibbles
+//     hold the codes, the 16 qh bytes 16(q%2).. whose crumb 2(c%2) + q/2
+//     holds their top bits, and the 4-byte pair of scales holding group
+//     4c + q.  The even half fetches ql and qh, and the odd half reads
+//     them from the even half's ring stage: it fetches only its scales.
+//   Q8_0 step c, quarter q: 16 int8 codes and the pair of scales holding
+//     group 2c + q/2.
 
-#include "gemm_tile.cuh"
+#include "gemm_slice.cuh"
 
 namespace {
 
-using namespace zt;
+using zt::pack_bf16;
+using zt_slice::cp_async16;
+using zt_slice::cp_async4;
 
-__device__ __forceinline__ uint4 ld16(const uint8_t* p) {
-  return *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ float half_of(uint32_t word, int i) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(word >> (16 * i))));
 }
 
-__device__ __forceinline__ uint32_t byte_of(const uint4 (&v)[2], int i) {
-  const uint32_t w[8] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w};
-  return (w[i >> 2] >> (8 * (i & 3))) & 0xFFu;
+// four values (the bytes of b: codes minus `bias`, or int8 when is_signed)
+// times sc, as two bf16 pairs.  A byte u becomes the float 2^23 + u by a
+// byte permute (no int-to-float conversion), exact; less 2^23 + bias it is
+// the code, exact, and the product with sc is exact in f32 (6 or 8 bits by
+// fp16's 11), rounded once to bf16.
+__device__ __forceinline__ uint2 scale4(uint32_t b, int bias, float sc, bool is_signed) {
+  if (is_signed) {  // s + 128 as an unsigned byte
+    b ^= 0x80808080u;
+    bias = 128;
+  }
+  const float off = 8388608.f + (float)bias;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = (__int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 | e)) - off) * sc;
+  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
 }
 
-struct Q6KTile {
+struct Q6KSlice {
   const uint8_t* ql;  // [N, K/2]
   const uint8_t* qh;  // [N, K/4]
   const __half* a;    // [N, K/16]
   int K;
-  struct Stage {
-    uint4 l[2], h[2];
-    float a0, a1;
-    int nsh, csh;  // nibble and crumb shifts
-  };
-  __device__ __forceinline__ void fetch(Stage& st, size_t col, int c, int bh) const {
-    const int sb = c >> 2, quarter = c & 3, half = quarter >> 1, odd = quarter & 1;
-    const uint8_t* lp = ql + col * (K / 2) + sb * 128 + half * 64 + bh * 32;
-    const uint8_t* hp = qh + col * (K / 4) + sb * 64 + half * 32;
-    st.l[0] = ld16(lp);
-    st.l[1] = ld16(lp + 16);
-    st.h[0] = ld16(hp);
-    st.h[1] = ld16(hp + 16);
-    const int g = 4 * c + 2 * bh;  // the 16-groups of k = 64c + 32bh + [0, 32)
-    st.a0 = __half2float(a[col * (K / 16) + g]);
-    st.a1 = __half2float(a[col * (K / 16) + g + 1]);
-    st.nsh = 4 * odd;
-    st.csh = 2 * (2 * odd + bh);
-  }
-  __device__ __forceinline__ void dequant(const Stage& st, uint4 (&v)[4]) const {
-    uint32_t o[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      float f[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const uint32_t q = ((byte_of(st.l, i + e) >> st.nsh) & 0xFu) |
-                           (((byte_of(st.h, i + e) >> st.csh) & 0x3u) << 4);
-        f[e] = (float)((int)q - 32) * (i < 16 ? st.a0 : st.a1);
-      }
-      o[i >> 1] = pack_bf16(f[0], f[1]);
+  static constexpr int kPieces = 2;
+  __device__ __forceinline__ void fetch(uint4* p, int stride, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    const int ch = c >> 1, hh = c & 1;
+    if (!hh) {
+      cp_async16(p, ql + col * (K / 2) + ch * 64 + 16 * q, 16);
+      cp_async16(p + stride, qh + col * (K / 4) + ch * 32 + 16 * (q & 1), 16);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = make_uint4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+    cp_async4(word, a + col * (K / 16) + ch * 8 + 4 * hh + (q & 2));
   }
-  __device__ __forceinline__ static int slot(int bh, int i) { return 4 * bh + i; }
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4* prev, int stride,
+                                          uint32_t word, int c, int q, uint4 (&v)[2]) const {
+    const int hh = c & 1, nsh = 4 * hh, csh = 2 * (2 * hh + (q >> 1));
+    const float sc = half_of(word, q & 1);
+    const uint4* b = hh ? prev : p;  // the chunk's ql and qh, from its even step
+    const uint4 l = b[0], h = b[stride];
+    const uint32_t lw[4] = {l.x, l.y, l.z, l.w}, hw[4] = {h.x, h.y, h.z, h.w};
+    uint2 o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t codes = ((lw[j] >> nsh) & 0x0F0F0F0Fu) | (((hw[j] >> csh) & 0x03030303u) << 4);
+      o[j] = scale4(codes, 32, sc, false);
+    }
+    v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
+    v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
+  }
 };
 
-struct Q80Tile {
+struct Q80Slice {
   const int8_t* qs;  // [N, K]
   const __half* d;   // [N, K/32]
   int K;
-  struct Stage {
-    uint4 q[2];
-    float d;
-  };
-  __device__ __forceinline__ void fetch(Stage& st, size_t col, int c, int bh) const {
-    const int g = 2 * c + bh;
-    const uint8_t* p = reinterpret_cast<const uint8_t*>(qs) + col * K + g * 32;
-    st.q[0] = ld16(p);
-    st.q[1] = ld16(p + 16);
-    st.d = __half2float(d[col * (K / 32) + g]);
+  static constexpr int kPieces = 1;
+  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    cp_async16(p, qs + col * K + 64 * c + 16 * q, 16);
+    cp_async4(word, d + col * (K / 32) + 2 * c);
   }
-  __device__ __forceinline__ void dequant(const Stage& st, uint4 (&v)[4]) const {
-    uint32_t o[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const float f0 = (float)(int8_t)byte_of(st.q, i) * st.d;
-      const float f1 = (float)(int8_t)byte_of(st.q, i + 1) * st.d;
-      o[i >> 1] = pack_bf16(f0, f1);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = make_uint4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word, int,
+                                          int q, uint4 (&v)[2]) const {
+    const float sc = half_of(word, q >> 1);
+    const uint4 b = p[0];
+    const uint2 o0 = scale4(b.x, 0, sc, true), o1 = scale4(b.y, 0, sc, true),
+                o2 = scale4(b.z, 0, sc, true), o3 = scale4(b.w, 0, sc, true);
+    v[0] = make_uint4(o0.x, o0.y, o1.x, o1.y);
+    v[1] = make_uint4(o2.x, o2.y, o3.x, o3.y);
   }
-  __device__ __forceinline__ static int slot(int bh, int i) { return 4 * bh + i; }
 };
 
 }  // namespace
 
 // fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d).
-// xdtype: 0 = f32, 1 = bf16.
-extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, const void* p0,
-                               const void* p1, const void* p2, float* y, int M, int K, int N,
-                               void* stream) {
+// xdtype, xb, tk, form, spb and ws as for zt_slice::launch_slice_gemm: an
+// f32 x adds a launch that rounds it into xb, a call with spb < K / tk one
+// that reduces the slice partials in order.
+extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, void* xb, const void* p0,
+                               const void* p1, const void* p2, float* y, float* ws, int M, int K,
+                               int N, int tk, int form, int spb, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (fmt == 0) {
-    const Q6KTile w{static_cast<const uint8_t*>(p0), static_cast<const uint8_t*>(p1),
-                    static_cast<const __half*>(p2), K};
-    return zt::launch_gemm(x, xdtype, w, y, M, K, N, s);
+    const Q6KSlice w{static_cast<const uint8_t*>(p0), static_cast<const uint8_t*>(p1),
+                     static_cast<const __half*>(p2), K};
+    return zt_slice::launch_slice_gemm(x, xdtype, xb, w, y, ws, M, K, N, tk, form, spb, s);
   }
   if (fmt == 1) {
-    const Q80Tile w{static_cast<const int8_t*>(p0), static_cast<const __half*>(p1), K};
-    return zt::launch_gemm(x, xdtype, w, y, M, K, N, s);
+    const Q80Slice w{static_cast<const int8_t*>(p0), static_cast<const __half*>(p1), K};
+    return zt_slice::launch_slice_gemm(x, xdtype, xb, w, y, ws, M, K, N, tk, form, spb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

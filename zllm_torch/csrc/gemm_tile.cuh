@@ -1,6 +1,7 @@
-// The prefill GEMM tile loop shared by K3 (q4k_gemm.cu) and K5
-// (dequant_gemm.cu): y[M, N] (f32) = bf16(x)[M, K] @ bf16(dequant(W)),
-// templated on the weight decoder W.
+// The prefill GEMM tile loop of K3 (q4k_gemm.cu; K5 runs the sliced loop
+// of gemm_slice.cuh, and K3 is to move onto it): y[M, N] (f32) = bf16(x)[M,
+// K] @ bf16(dequant(W)), templated on the weight decoder W.  Its mma and
+// cp.async helpers also serve attn_mma.cuh and gemm_slice.cuh.
 //
 // 64x64 output tiles, four warps of 32x32, K in steps of 64.  The x tile of
 // the next step is copied with cp.async into a staging tile in x's own

@@ -33,8 +33,10 @@ K4/K5.
     `_qmm_np_call`) for the nibble formats and `dequant_gemm` (K5) replaces
     `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x dequant(W)
     with x and the dequantized weight both rounded to bf16 in the kernel
-    and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`,
-    `dequant_gemm.cu` (one tile loop, `gemm_tile.cuh`).
+    and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
+    (the tile loop `gemm_tile.cuh`) and `dequant_gemm.cu` (the sliced loop
+    `gemm_slice.cuh`: zllm's k-slice sum order, so a row's bits do not
+    depend on M).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its launches in
@@ -340,11 +342,23 @@ int8_matvec.launches = 0
 # K3 / K5: prefill GEMMs
 # ---------------------------------------------------------------------------
 
+def slice_width(k: int) -> int:
+    """zllm's k-step of `_qmm_kernel`: tk = 2 * fold = 512 when K % 512 == 0,
+    else fold = 256 (its default ZLLM_QMM_TK_MULT=2)."""
+    return 512 if k % 512 == 0 else 256
+
+
 def dequant_gemm_plain(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """Plain version of K3 and K5: bf16(x) @ bf16(dequant(w)), f32 accumulate."""
+    """Plain version of K3 and K5: bf16(x) @ bf16(dequant(w)), f32
+    accumulate, in zllm's sum order: one f32 product per k-slice of
+    `slice_width(K)`, added to a zero output in slice order."""
     xb = x.to(torch.bfloat16).float()
     wb = w.dequant_nk().to(torch.bfloat16).float()
-    return xb @ wb.t()
+    k, tk = w.shape[0], slice_width(w.shape[0])
+    y = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for s in range(0, k, tk):
+        y += xb[:, s:s + tk] @ wb[:, s:s + tk].t()
+    return y
 
 
 q4k_gemm_plain = dequant_gemm_plain
@@ -386,18 +400,60 @@ def q4k_gemm(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
 q4k_gemm.launches = 0
 
 
+ROW_M = 16  # K5's row form rows (split-K, one slice a block)
+TILE_M, TILE_N = 128, 128  # K5's tile form block
+
+
+def slice_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
+    """(tk, S, form, spb) of one K5 call: S slices of tk; form 0 (row form,
+    one slice a block) or 1 (tile form); spb slices a block along the split.
+    The tile form takes M > 16 when its tiles times slices fill the `sms`
+    SMs (one block each), and splits the slices only as far as its tiles
+    alone leave SMs idle.  No choice here changes a value: every row is
+    summed slice by slice in order whatever the form and the split."""
+    tk = slice_width(k)
+    s = k // tk
+    tiles = (n // TILE_N) * -(-m // TILE_M)
+    if m <= ROW_M or tiles * s < sms:
+        return tk, s, 0, 1
+    nsplit = max(1, min(s, sms // tiles))
+    return tk, s, 1, -(-s // nsplit)
+
+
+def _sm_count(dev: torch.device) -> int:
+    count = _SM_COUNT.get(dev.index)
+    if count is None:
+        count = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return count
+
+
+_SM_COUNT: dict[int | None, int] = {}
+
+
 def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q6_K, Q8_0)."""
+    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q6_K,
+    Q8_0), summed in `dequant_gemm_plain`'s slice order.  Besides the loop,
+    an f32 x takes a launch that rounds it to bf16 (into a workspace), and
+    a call whose slices are split over blocks one that reduces the slice
+    partials (kept in a second workspace) in order; a call counts as one
+    launch."""
     _check_int8_shape(w)
     k, n = w.shape
     _check_gemm_x(x, k)
     if x.device.type == "cpu":
         return dequant_gemm_plain(x, w)
     y = _gemm_cuda_x(x, w)
-    fn = cuda.bind("dequant_gemm", "zt_dequant_gemm", [_I, _P, _I, _P, _P, _P, _P,
-                                                       _I, _I, _I, _P])
-    err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], *_plane_ptrs(w, 3),
-             y.data_ptr(), x.shape[0], k, n, cuda.stream())
+    m = x.shape[0]
+    tk, s, form, spb = slice_plan(m, k, n, _sm_count(x.device))
+    xb = torch.empty((m, k), dtype=torch.bfloat16, device=x.device) if x.dtype == torch.float32 \
+        else None
+    ws = (torch.empty((s - spb + 1, m, n), dtype=torch.float32, device=x.device)
+          if spb < s else None)
+    fn = cuda.bind("dequant_gemm", "zt_dequant_gemm", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                                       _I, _I, _I, _I, _I, _I, _P])
+    err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(xb),
+             *_plane_ptrs(w, 3), y.data_ptr(), cuda.ptr(ws), m, k, n, tk, form, spb,
+             cuda.stream())
     cuda.check(err, "dequant_gemm")
     dequant_gemm.launches += 1
     return y
