@@ -6,8 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure (non-zero exit, no final result line):
   1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel),
      and print the `-Xptxas -v` registers and spill bytes of the tensor-core
-     attention loop's instantiations (csrc/attn_mma.cuh) and of K5's sliced
-     loop (csrc/gemm_slice.cuh); a spill fails;
+     attention loop's instantiations (csrc/attn_mma.cuh) and of the sliced
+     GEMM loop (csrc/gemm_slice.cuh) under K3's and K5's decoders; a spill
+     fails, and so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -51,20 +52,24 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      128) on a local port: four concurrent greedy completions, a streaming
      chat, a re-send sharing two pages, then the four bodies one at a time
      (same texts required); per engine step 99 K3 + 34 K5, and 22 K9 per
-     decode step or 22 K10 per mixed prefill step, K1/K2/K4/K6/K7 never;
+     decode step or 22 K10 + 22 K9 per mixed prefill step (K9 once more
+     for column 0, the generating rows' token), K1/K2/K4/K6/K7 never;
      then the same server and traffic with the q8 KV cache (`kv_dtype="q8"`,
-     the contiguous layout): per engine step 99 K3 + 34 K5 + 22 K7, no other
-     kernel; in both, every mixed step's 22 K10 or K7 launches must have
-     taken the tensor-core loop (the wrapper's `mma_launches`);
+     the contiguous layout): per engine step 99 K3 + 34 K5 + 22 K7 (44 in
+     a mixed step, the second 22 for column 0), no other kernel; in both,
+     every mixed step's 22 K10 or first 22 K7 launches must have taken the
+     tensor-core loop (the wrapper's `mma_launches`);
   4. each kernel at its main path's shapes against its plain PyTorch
      version on the card (tolerance stated per kernel), timed (device time,
      launches replayed from a CUDA graph) beside the plain version, the
      one-call PyTorch yardstick where there is one, and its bound (bytes
      over 3.35 TB/s or operations over the peak of their type); K4 and K5
      also once each on a full-width Q8_0 weight, K3 and K5 also at the
-     engine's decode M = 4 (K5 by weight role), and K5's rows at M = 4
-     against the same rows of an M = 512 call on every Q6_K weight of the
-     Q4_K_M model, bit for bit (a difference fails); K9/K10 at the serving path's shapes with a
+     engine's decode M = 4 (K3 and K5 timed by weight role in every chunk
+     and step), and K3's and K5's rows at M = 4 against the same rows of an
+     M = 512 call on every Q4_K and Q6_K weight of the Q4_K_M model and on
+     a Q4_0 and a Q4_1 weight, bit for bit (a difference fails); K9/K10 at
+     the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
      steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
@@ -652,10 +657,12 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
     expected = {name: 0 for name in kernels}
     expected.update(q4k_gemm=(4 * L + (L - low)) * (dec + pre),
                     dequant_gemm=(L + low + 1) * (dec + pre))
+    # a mixed step attends column 0 (a generating row's token) once more
+    # through the T=1 kernel, as a decode step does (models/llama.py::_attend)
     if q8:
-        expected.update(flash_attention_blockwise=L * (dec + pre))
+        expected.update(flash_attention_blockwise=L * (dec + 2 * pre))
     else:
-        expected.update(paged_attn_decode_update=L * dec, paged_attention=L * pre)
+        expected.update(paged_attn_decode_update=L * (dec + pre), paged_attention=L * pre)
     # the cache's bytes against a bf16 contiguous cache of the same slots
     kv = eng.kv
     kv_bytes = sum(x.numel() * x.element_size()
@@ -740,12 +747,19 @@ def main():
         fail(f"the tensor-core attention loop spills: {spills}")
     slice_build = ptxas_entries(reports, "zt_slice")
     emit({"phase": "build_gemm_slice", "instantiations": slice_build,
-          "note": "registers and spills of K5's sliced loop (csrc/gemm_slice.cuh: RowForm "
-                  "and TileForm per format) and its round and reduction kernels"
-                  if slice_build else "not built in this run (cached)"})
+          "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
+                  "(q4k_gemm.cu: NibbleSlice for Q4_K, Q4_0, Q4_1) and K5 (dequant_gemm.cu: "
+                  "Q6KSlice, Q80Slice), RowForm and TileForm per decoder, and its round and "
+                  "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
-        fail(f"K5's sliced loop spills: {spills}")
+        fail(f"the sliced GEMM loop spills: {spills}")
+    for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
+                          ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
+        loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
+                 if any(d in e["name"] for d in decoders)]
+        if lib in reports and len(loops) != 2 * (3 if lib == "q4k_gemm" else 2):
+            fail(f"{lib}: {len(loops)} sliced-loop instantiations built, not one a form and format")
 
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
@@ -954,6 +968,11 @@ def main():
                              f"bf16, pos {pos_v}", launches_per_step=per_layer))
     del kcs, vcs
 
+    def by_role(n_calls):  # the four matmuls of each layer, then the head
+        return {role: list(range(i, n_calls - 1, 4))
+                for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))} | {
+                    "head": [n_calls - 1]}
+
     # K3: one Q4_K prefill chunk's 89 GEMMs at M = 256; and the 99 of Q4_K_M
     m_rows = CHUNK
     xs = {d_model: randn(m_rows, d_model), n_ff: randn(m_rows, n_ff)}
@@ -963,19 +982,23 @@ def main():
         gcalls += [(xs[d_model], layer["wqkv"]), (xs[d_model], layer["wo"]),
                    (xs[d_model], layer["ffn_gateup"]), (xs[n_ff], layer["ffn_down"])]
     gcalls.append((xs[d_model], head))
-    gcalls_m = []
+    gcalls_m, roles_m = [], {}
     for layer in layers_m:  # wq, wk, gate|up take normed bf16 rows, wo and down f32
-        gcalls_m += [(xh_m, layer["wq"]), (xh_m, layer["wk"]), (xs[d_model], layer["wo"]),
-                     (xh_m, layer["ffn_gateup"])]
+        pairs = [("wq", xh_m), ("wk", xh_m), ("wo", xs[d_model]), ("ffn_gateup", xh_m)]
         if layer["ffn_down"].fmt == GGMLType.Q4_K:
-            gcalls_m.append((xs[n_ff], layer["ffn_down"]))
+            pairs.append(("ffn_down", xs[n_ff]))
+        for role, x in pairs:
+            roles_m.setdefault(role, []).append(len(gcalls_m))
+            gcalls_m.append((x, layer[role]))
     q4km_k3 = gemm_phase(torch, qmm.q4k_gemm, None, gcalls_m, n_real,
-                         GGUF_BYTES_PER_WEIGHT["Q4_K"])
+                         GGUF_BYTES_PER_WEIGHT["Q4_K"], groups=roles_m)
     lines.append(dict(name="q4k_gemm", route="cuda", source="zllm_torch/csrc/q4k_gemm.cu",
                       replaces="zllm/ops/qmatmul.py:1402", launches=counts_q4k["q4k_gemm"],
+                      loop="zllm_torch/csrc/gemm_slice.cuh",
                       **gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, gcalls, n_real,
                                    GGUF_BYTES_PER_WEIGHT["Q4_K"],
-                                   check=(0, 1, 2, 3, len(gcalls) - 1)),
+                                   check=(0, 1, 2, 3, len(gcalls) - 1),
+                                   groups=by_role(len(gcalls))),
                       tolerance=1e-6, launches_by_path=by_path("q4k_gemm"),
                       unit="one Q4_K prefill chunk (89 launches)",
                       shapes="M=256 x 22 x [2048->2560, 2048->2048, 2048->11264, 5632->2048] "
@@ -1296,11 +1319,6 @@ def main():
     bpw4 = GGUF_BYTES_PER_WEIGHT["Q4_K"]
     check_o = (0, 1, 2, 3, len(calls_o) - 1)
 
-    def by_role(n_calls):  # the four matvecs of each layer, then the head
-        return {role: list(range(i, n_calls - 1, 4))
-                for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))} | {
-                    "head": [n_calls - 1]}
-
     k12_o = matvec_phase(torch, qmm.q4k_matvec_hbm, qmm.q4k_matvec_hbm_plain, calls_o, n_real,
                          bpw4, cfg_o.norm_eps, check=check_o, groups=by_role(len(calls_o)))
     k1_o = matvec_phase(torch, qmm.q4k_matvec, None, calls_o, n_real, bpw4, cfg_o.norm_eps,
@@ -1368,7 +1386,7 @@ def main():
                           check=(0, 1, 2, 3, last))
         k12 = matvec_phase(torch, qmm.q4k_matvec_hbm, None, lcalls, n_real, bpw, leps)
         k3 = gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, lgcalls, n_real, bpw,
-                        check=(0, 1, 2, 3, last))
+                        check=(0, 1, 2, 3, last), groups=by_role(len(lgcalls)))
         k11 = matvec_phase(torch, dd, dd_plain, dd_calls, n_real, bpw, leps,
                            check=(0, 1, len(dd_calls) - 1))
         k1_dd = matvec_phase(torch, qmm.q4k_matvec, None, dd_calls, n_real, bpw, leps)
@@ -1436,6 +1454,7 @@ def main():
     gcalls5 = [(xh_m if w.shape[0] == d_model else xs[n_ff], w) for _, w, _, _ in calls4]
     lines.append(dict(name="dequant_gemm", route="cuda", source="zllm_torch/csrc/dequant_gemm.cu",
                       replaces="zllm/ops/qmatmul.py:1542", launches=counts_q4km["dequant_gemm"],
+                      loop="zllm_torch/csrc/gemm_slice.cuh",
                       **gemm_phase(torch, qmm.dequant_gemm, qmm.dequant_gemm_plain, gcalls5,
                                    n_real, GGUF_BYTES_PER_WEIGHT["Q6_K"],
                                    check=(0, groups["ffn_down"][0], len(gcalls5) - 1),
@@ -1459,7 +1478,7 @@ def main():
     by_name = {ln["name"]: ln for ln in lines}  # now with K4 and K5
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
-                   GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1)),
+                   GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1), groups=roles_m),
         launches=len(g4_k3), shapes="M=4 x the 99 Q4_K weights of a Q4_K_M step")
     by_name["dequant_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.dequant_gemm, qmm.dequant_gemm_plain, g4_k5, n_real,
@@ -1469,22 +1488,37 @@ def main():
     bad_m4 = [n for n in ("q4k_gemm", "dequant_gemm")
               if not by_name[n]["serve_decode_step_m4"]["nmse"] <= 1e-6]
 
-    # K5's rows do not depend on M: the engine's 4-row decode step (row
-    # form) and its 512-row mixed step (tile form) give a generating row the
-    # same bits, on every Q6_K weight of the Q4_K_M model
-    x512 = {d_model: randn(512, d_model), n_ff: randn(512, n_ff)}
+    # K3's and K5's rows do not depend on M: the engine's 4-row decode step
+    # (row form) and its 512-row mixed step (tile form) give a generating
+    # row the same bits, on every Q4_K (K3) and Q6_K (K5) weight of the
+    # Q4_K_M model, and on a Q4_0 (gate|up) and a Q4_1 (OLMo-2 ffn_down) one
+    x512 = {k: randn(512, k) for k in (d_model, n_ff, cfg_o.n_ff)}
     xh512 = randn(512, d_model, dtype=torch.bfloat16)
-    rows_same = []
-    for x, w in gcalls5:
-        xb = xh512 if x.dtype == torch.bfloat16 else x512[x.shape[1]]
-        full = qmm.dequant_gemm(xb, w)
-        rows_same.append(torch.equal(qmm.dequant_gemm(xb[:4], w), full[:4])
-                         and torch.equal(qmm.dequant_gemm(xb[508:], w), full[508:]))
-    by_name["dequant_gemm"]["rows_m4_equal_m512"] = dict(weights=len(rows_same),
-                                                         bitwise_equal=sum(rows_same))
-    if not all(rows_same):
-        fail(f"K5 rows at M = 4 differ from the same rows of an M = 512 call: "
-             f"{len(rows_same) - sum(rows_same)} of {len(rows_same)} weights")
+
+    def rows_same(fn, pairs):
+        same = []
+        for x, w in pairs:
+            xb = xh512 if x.dtype == torch.bfloat16 else x512[x.shape[1]]
+            full = fn(xb, w)
+            same.append(torch.equal(fn(xb[:4], w), full[:4])
+                        and torch.equal(fn(xb[508:], w), full[508:]))
+        return sum(same), len(same)
+
+    w40 = model_40.params["layers"][0]["ffn_gateup"]
+    w41 = model_o1.params["layers"][0]["ffn_down"]
+    rows = {"dequant_gemm": {"Q4_K_M Q6_K": rows_same(qmm.dequant_gemm, gcalls5)},
+            "q4k_gemm": {"Q4_K_M Q4_K": rows_same(qmm.q4k_gemm, gcalls_m),
+                         "Q4_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w40)]),
+                         "Q4_1 OLMo-2 ffn_down": rows_same(qmm.q4k_gemm,
+                                                           [(x512[cfg_o.n_ff], w41)])}}
+    bad_rows = []
+    for name, sets in rows.items():
+        by_name[name]["rows_m4_equal_m512"] = {
+            label: dict(weights=n, bitwise_equal=ok) for label, (ok, n) in sets.items()}
+        bad_rows += [f"{name} {label}: {n - ok} of {n}" for label, (ok, n) in sets.items()
+                     if ok != n]
+    if bad_rows:
+        fail(f"rows at M = 4 differ from the same rows of an M = 512 call: {bad_rows}")
 
     # K4 and K5 once each on a full-width Q8_0 weight (gate shape 2048->5632)
     rng_w = torch.Generator().manual_seed(1)

@@ -9,7 +9,8 @@ Marked `cuda`: skipped where no CUDA device is visible.  Run on a GPU host
 
 Tolerances: K1/K4 nmse < 1e-6 (exact integer dots; only f32 sum order, and
 an ulp of rsqrt/exp may move one int8 code), K3/K5 < 1e-6 (bf16 operands,
-f32 sum order; K5's rows equal bit for bit whatever M and form), K2/K6 <
+f32 sum order; both on one sliced loop, their rows equal bit for bit
+whatever M and form), K2/K6 <
 1e-5 (f32 sum order, then one bf16 rounding of a probability may move by
 an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
 with a bf16 q, whose output rounds to bf16), and K12 equal to K1's kernel
@@ -47,11 +48,13 @@ def _nmse(a, b) -> float:
     return float(((a - b) ** 2).mean() / ((b ** 2).mean() + 1e-30))
 
 
-def _qweight(n: int, k: int, seed: int, dev, fmt=GGMLType.Q4_K):
-    """A random weight of a nibble format (Q4_K, Q4_0, Q4_1)."""
+def _qweight(n: int, k: int, seed: int, dev, fmt=GGMLType.Q4_K, n_pad: int = 0):
+    """A random weight of a nibble format (Q4_K, Q4_0, Q4_1); `n_pad` > n
+    zero-pads it as the loader pads the head."""
     rng = np.random.default_rng(seed)
     raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
-    return repack(raw, (n, k), fmt, dev)
+    w = repack(raw, (n, k), fmt, dev)
+    return pad_n(w, n_pad) if n_pad else w
 
 
 def _randn(shape, seed, dev, dtype=torch.float32, scale=1.0):
@@ -74,16 +77,46 @@ def test_k1_matches_plain(dev, k, n, fuse, xdtype):
     assert _nmse(got, tq.q4k_matvec_plain(x, w, fuse, aux, 1e-5)) < 1e-6
 
 
-@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("m,k,n", [(1, 256, 64), (7, 512, 200), (64, 2048, 2560),
-                                   (256, 5632, 2048), (256, 2048, 32768)])
-def test_k3_matches_plain(dev, m, k, n, xdtype):
-    w = _qweight(n, k, m + k + n, dev)
+# K3's cases (m, k, n, n_pad): ragged N, K5's M range (4, 16, 17, 37, 128,
+# 300, 512: both forms, split and not) and the models' shapes (wk 2048->256,
+# gate|up 2048->11264, ffn_down 5632->2048 and OLMo-2's 8192->2048, the head
+# 2048->32000 padded to 32768)
+K3_CASES = [(1, 256, 64, 0), (7, 512, 200, 0), (64, 2048, 2560, 0), (256, 5632, 2048, 0),
+            (256, 2048, 32768, 0), (37, 512, 200, 0), (300, 2048, 200, 0),
+            (4, 2048, 256, 0), (4, 2048, 2048, 0), (4, 2048, 11264, 0), (4, 5632, 2048, 0),
+            (4, 8192, 2048, 0), (4, 2048, 32000, 32768), (16, 2048, 256, 0),
+            (17, 768, 256, 0), (37, 5632, 2048, 0), (128, 5632, 2048, 0),
+            (256, 2048, 11264, 0), (256, 8192, 2048, 0), (300, 2048, 32000, 32768),
+            (512, 768, 384, 0), (512, 2048, 256, 0), (512, 2048, 2560, 0),
+            (3, 1024, 202, 0)]  # M*N not a multiple of 4, split slices
+
+
+def _k3_case(dev, m, k, n, n_pad, xdtype, fmt):
+    w = _qweight(n, k, m + k + n, dev, fmt, n_pad)
     x = _randn((m, k), 3, dev, xdtype)
+    before = tq.q4k_gemm.launches
     got = tq.q4k_gemm(x, w)
     torch.cuda.synchronize()
-    assert got.shape == (m, n)
+    assert tq.q4k_gemm.launches == before + 1 and got.shape == (m, w.shape[1])
     assert _nmse(got, tq.q4k_gemm_plain(x, w)) < 1e-6
+    if n_pad:
+        assert not got[:, n:].any()
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n,n_pad", K3_CASES)
+def test_k3_matches_plain(dev, m, k, n, n_pad, xdtype):
+    _k3_case(dev, m, k, n, n_pad, xdtype, GGMLType.Q4_K)
+
+
+def test_k3_refuses_odd_n(dev):
+    """The sliced loop stores column pairs: an odd N raises before any
+    launch (the CPU's plain version takes it)."""
+    w = _qweight(65, 256, 7, dev)
+    before = tq.q4k_gemm.launches
+    with pytest.raises(ValueError, match="even N"):
+        tq.q4k_gemm(_randn((4, 256), 3, dev), w)
+    assert tq.q4k_gemm.launches == before
 
 
 INT_FMTS = [GGMLType.Q6_K, GGMLType.Q8_0]
@@ -140,22 +173,55 @@ def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
         assert not got[:, n:].any()
 
 
+SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *INT_FMTS]
+
+
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", SLICE_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
-def test_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
-    """Every row is summed slice by slice in zllm's order, so its bits do
-    not depend on M or on the form (row form M <= 16, tile form above, the
-    slices split over blocks or not), and repeated calls agree."""
-    w = _int_weight(fmt, n, k, k + n, dev)
+def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
+    """K3 (Q4_K, Q4_0, Q4_1) and K5 (Q6_K, Q8_0) sum every row slice by
+    slice in zllm's order, so its bits do not depend on M or on the form
+    (row form M <= 16, tile form above, the slices split over blocks or
+    not), and repeated calls agree."""
+    w = (_int_weight(fmt, n, k, k + n, dev) if fmt in INT_FMTS
+         else _qweight(n, k, k + n, dev, fmt))
     x = _randn((512, k), 6, dev, xdtype)
-    full = tq.dequant_gemm(x, w)
-    assert torch.equal(tq.dequant_gemm(x[:4], w), full[:4])
-    assert torch.equal(tq.dequant_gemm(x[508:], w), full[508:])
-    assert torch.equal(tq.dequant_gemm(x[:16], w), tq.dequant_gemm(x[:17], w)[:16])
-    assert torch.equal(tq.dequant_gemm(x[:37], w), full[:37])
-    assert torch.equal(tq.dequant_gemm(x, w), full)
+    full = tq.gemm(x, w)
+    assert torch.equal(tq.gemm(x[:4], w), full[:4])
+    assert torch.equal(tq.gemm(x[508:], w), full[508:])
+    assert torch.equal(tq.gemm(x[:16], w), tq.gemm(x[:17], w)[:16])
+    assert torch.equal(tq.gemm(x[:37], w), full[:37])
+    assert torch.equal(tq.gemm(x, w), full)
     torch.cuda.synchronize()
+
+
+# GGUF block bytes of the nibble formats: (block bytes, offsets of the fp16
+# scales) -- Q4_K d, dmin then 12 scale bytes and 128 of codes; Q4_0 d then
+# 16 of codes; Q4_1 d, m then 16 of codes
+NIBBLE_BLOCKS = {GGMLType.Q4_K: (144, (0, 2)), GGMLType.Q4_0: (18, (0,)),
+                 GGMLType.Q4_1: (20, (0, 2))}
+
+
+@pytest.mark.parametrize("m,n", [(4, 200), (32, 256), (256, 4096)])
+@pytest.mark.parametrize("fmt", list(NIBBLE_BLOCKS), ids=lambda t: t.name)
+def test_k3_random_blocks(dev, fmt, m, n):
+    """Random bytes in every code and 6-bit scale position (Q4_K's 12
+    packed scale bytes too), fp16 scales drawn from a finite range, held
+    column by column: a nibble, slot or scale-word slip shows in the columns
+    it hits.  M = 4 and 32 run the row form, 256 x 4096 the tile form."""
+    k = 2048
+    size, scales = NIBBLE_BLOCKS[fmt]
+    rng = np.random.default_rng(9 + size)
+    raw = rng.integers(0, 256, size=(n * k // (256 if size == 144 else 32), size), dtype=np.uint8)
+    for off in scales:
+        vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
+        raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+    w = repack(raw.reshape(n, -1), (n, k), fmt, dev)
+    x = _randn((m, k), 5, dev)
+    got, want = tq.q4k_gemm(x, w), tq.q4k_gemm_plain(x, w)
+    col_err = ((got - want) ** 2).sum(0) / ((want ** 2).sum(0) + 1e-30)
+    assert float(col_err.max()) < 1e-6
 
 
 def test_k4_k5_q6k_random_blocks(dev):
@@ -492,16 +558,9 @@ def test_k1_k12_legacy_match_plain(dev, k, n, fmt, fuse, xdtype):
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fmt", LEGACY, ids=lambda t: t.name)
-@pytest.mark.parametrize("m,k,n", [(1, 256, 64), (7, 512, 200), (64, 2048, 2560),
-                                   (256, 8192, 2048), (256, 2048, 32768)])
-def test_k3_legacy_matches_plain(dev, m, k, n, fmt, xdtype):
-    w = _qweight(n, k, m + k + n, dev, fmt)
-    x = _randn((m, k), 3, dev, xdtype)
-    before = tq.q4k_gemm.launches
-    got = tq.q4k_gemm(x, w)
-    torch.cuda.synchronize()
-    assert tq.q4k_gemm.launches == before + 1 and got.shape == (m, n)
-    assert _nmse(got, tq.q4k_gemm_plain(x, w)) < 1e-6
+@pytest.mark.parametrize("m,k,n,n_pad", K3_CASES + [(256, 2048, 100352, 0)])
+def test_k3_legacy_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
+    _k3_case(dev, m, k, n, n_pad, xdtype, fmt)
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -534,3 +593,53 @@ def test_k11_quantize_bit_equal(dev, k, xdtype):
     torch.cuda.synchronize()
     want = tq.quantize_acts_plain(x)
     assert got[0].dtype == torch.int8 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kv", ["paged_bf16", "q8"])
+def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
+    """Greedy requests served together (a generating row riding the mixed
+    steps of another request's prefill) and one at a time give the same
+    logits rows and tokens, bit for bit: K3/K5 rows do not depend on M, and
+    a mixed step attends a one-token row through the T=1 kernel (K9; K7's
+    split form with the q8 cache), as a decode step does."""
+    import time
+
+    from zllm_torch.models.loader import Model
+    from zllm_torch.server.engine import Engine, Request
+    from zllm_torch.testing import make_llama_gguf
+
+    path = make_llama_gguf(str(tmp_path / "m.gguf"), gtype=GGMLType.Q4_K, seed=0)
+    model = Model.load(path, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    prompts = [[1] + [int(t) for t in rng.integers(3, 512, n - 1)] for n in (70, 40, 9)]
+
+    def serve(groups):
+        eng = Engine(model, n_slots=4, max_len=256, prefill_chunk=16,
+                     kv_dtype="q8" if kv == "q8" else torch.bfloat16)
+        rows, real = {}, eng._sample_and_emit
+
+        def record(lg, cols, slots):
+            for s in slots:
+                rows.setdefault(tuple(s.req.prompt_tokens), []).append(
+                    lg[s.idx, int(cols[s.idx])].float().cpu())
+            return real(lg, cols, slots)
+
+        eng._sample_and_emit = record
+        eng.start()
+        try:
+            for group in groups:
+                reqs = eng.run_in_loop(lambda g=group: [
+                    eng.submit(Request(prompt_tokens=p, max_new=12, temp=0.0)) for p in g])
+                deadline = time.time() + 120
+                while not all(r.done for r in reqs):
+                    assert time.time() < deadline, "engine timed out"
+                    time.sleep(0.005)
+        finally:
+            eng.stop()
+        return rows
+
+    together, alone = serve([prompts]), serve([[p] for p in prompts])
+    for p in prompts:
+        a, b = together[tuple(p)], alone[tuple(p)]
+        assert len(a) == len(b) == 12
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -62,7 +62,7 @@
 #pragma once
 
 #include "attn_tile.cuh"
-#include "gemm_tile.cuh"
+#include "mma_ptx.cuh"
 
 namespace zt_mma {
 

@@ -13,8 +13,9 @@
 // 3.35 TB/s; at prefill shapes (M = 256 rows a chunk) the 2*M*K*N bf16
 // FLOPs over the 989 TFLOP/s tensor-core peak.  Design: the sliced loop of
 // gemm_slice.cuh (a split-K row form for M <= 16, a 128-row tile form
-// above), with a decoder per format; a thread copies and decodes 16
-// consecutive k of one column in each 64-wide step:
+// above; K3 runs the same loop), with a decoder per format; a thread copies
+// and decodes 16 consecutive k of one column in each 64-wide step (its
+// units 2q and 2q + 1 of the step's weight row):
 //   Q6_K step c (128-wide chunk c/2, half c%2), quarter q: the 16 ql bytes
 //     16q.. of the chunk, whose low (even half) or high (odd half) nibbles
 //     hold the codes, the 16 qh bytes 16(q%2).. whose crumb 2(c%2) + q/2
@@ -60,6 +61,7 @@ struct Q6KSlice {
   const __half* a;    // [N, K/16]
   int K;
   static constexpr int kPieces = 2;
+  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
   __device__ __forceinline__ void fetch(uint4* p, int stride, uint32_t* word, size_t col, int c,
                                         int q) const {
     const int ch = c >> 1, hh = c & 1;
@@ -70,7 +72,8 @@ struct Q6KSlice {
     cp_async4(word, a + col * (K / 16) + ch * 8 + 4 * hh + (q & 2));
   }
   __device__ __forceinline__ void dequant(const uint4* p, const uint4* prev, int stride,
-                                          uint32_t word, int c, int q, uint4 (&v)[2]) const {
+                                          uint32_t word, size_t, int c, int q,
+                                          uint4 (&v)[2]) const {
     const int hh = c & 1, nsh = 4 * hh, csh = 2 * (2 * hh + (q >> 1));
     const float sc = half_of(word, q & 1);
     const uint4* b = hh ? prev : p;  // the chunk's ql and qh, from its even step
@@ -92,13 +95,14 @@ struct Q80Slice {
   const __half* d;   // [N, K/32]
   int K;
   static constexpr int kPieces = 1;
+  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
   __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
                                         int q) const {
     cp_async16(p, qs + col * K + 64 * c + 16 * q, 16);
     cp_async4(word, d + col * (K / 32) + 2 * c);
   }
-  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word, int,
-                                          int q, uint4 (&v)[2]) const {
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
+                                          size_t, int, int q, uint4 (&v)[2]) const {
     const float sc = half_of(word, q >> 1);
     const uint4 b = p[0];
     const uint2 o0 = scale4(b.x, 0, sc, true), o1 = scale4(b.y, 0, sc, true),

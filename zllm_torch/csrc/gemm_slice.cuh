@@ -1,7 +1,8 @@
-// The sliced dequant-GEMM loop of K5 (dequant_gemm.cu):
-// y[M, N] (f32) = bf16(x)[M, K] @ bf16(dequant(W)), templated on the weight
-// decoder W, in zllm's sum order (_qmm_kernel): K is cut into slices of tk
-// = 512 (256 when K % 512 != 0); each slice's product P_s is a chain of
+// The sliced dequant-GEMM loop of K3 (q4k_gemm.cu: Q4_K, Q4_0, Q4_1) and
+// K5 (dequant_gemm.cu: Q6_K, Q8_0): y[M, N] (f32) = bf16(x)[M, K] @
+// bf16(dequant(W)), templated on the weight decoder W, in zllm's sum order
+// (_qmm_kernel): K is cut into slices of tk = 512 (256 when K % 512 != 0);
+// each slice's product P_s is a chain of
 // mma.sync m16n8k16 (bf16 x bf16 -> f32) over the slice's 16-wide k-steps
 // in k order, from zero, and y = ((0 + P_0) + P_1) + ... in slice order.
 // An MMA's output element depends only on its own row of A and column of
@@ -17,13 +18,17 @@
 //     x 128 columns, 16 warps of 32 x 32, so a weight step is dequantized
 //     once for 128 rows and an x step serves 128 columns; when the output
 //     tiles alone leave SMs idle the slices are split over blocks too.
-// The caller picks the form; the bits do not depend on it.
+// The caller picks the form; the bits do not depend on it.  Any even N:
+// the last column block masks the columns past N (their weights zeroed,
+// their outputs not stored).
 // A block walks its slices in 64-wide steps.  Each step's x piece (bf16)
 // and raw weight bytes go into a ring of NST stages in shared memory with
 // cp.async (x rows XOR-swizzled in 16-byte units, so ldmatrix reads them
 // where they land, without bank conflicts); each thread dequantizes exactly
 // the weight bytes it copied itself (through W's exact dequant, rounded to
-// bf16, round to nearest even), so that needs no barrier before it.  The
+// bf16, round to nearest even), so that needs no barrier before it (a
+// decoder may pass scale words it copied to the other threads of its column
+// through registers, with __shfl_sync).  The
 // dequantized weight tiles are double-buffered: step c's MMAs run while
 // step c+1 is dequantized into the other buffer, one barrier a step.
 // x comes in bf16: an f32 x is first rounded to bf16 (round to nearest
@@ -44,23 +49,26 @@
 // continues the fold in slice order: the same bits as one block's fold,
 // with no float atomics, the same on every call.
 //
-// A decoder W (4 threads a column, each 16 consecutive k of a step)
-// provides
+// A decoder W (4 threads a column, the lanes 4j..4j+3 of a warp, each 16
+// of a step's 64 k) provides
 //   static constexpr int kPieces;    16-byte pieces a thread copies a step,
 //                                    besides one 4-byte scale word
 //   void fetch(uint4* p, int stride, uint32_t* word, size_t col, int c, int q) const;
 //        cp.async the bytes of step c (64-wide, global index; a block's
-//        first step is even), k quarter q, into p[0], p[stride], ... and
-//        *word
-//   void dequant(const uint4* p, const uint4* prev, int stride, uint32_t word, int c,
-//                int q, uint4 (&v)[2]) const;
-//        16 bf16 values, k = 64c + 16q + [0, 16); prev holds this thread's
-//        pieces of step c-1 (still in the ring), so an odd step may reuse
-//        bytes the even one fetched
+//        first step is even) for thread q of the column into p[0],
+//        p[stride], ... and *word
+//   void dequant(const uint4* p, const uint4* prev, int stride, uint32_t word,
+//                size_t col, int c, int q, uint4 (&v)[2]) const;
+//        16 bf16 values, two 16-byte units of the step's 64-wide weight
+//        row; prev holds this thread's pieces of step c-1 (still in the
+//        ring), so an odd step may reuse bytes the even one fetched; called
+//        by every thread of the block at once (a shuffle may exchange the
+//        column's scale words)
+//   static int slot(int q, int i);   the unit (k / 8, 0..7) v[i] fills
 
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "mma_ptx.cuh"
 
 namespace zt_slice {
 
@@ -76,10 +84,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 4 bytes global -> shared, asynchronous
+// 4 or 8 bytes global -> shared, asynchronous
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem_row) {
@@ -163,11 +175,11 @@ __global__ void __launch_bounds__(F::kThreads, F::kMinBlocks) slice_gemm_kernel(
     const int st = c % NST;
     uint4 v[2];
     w.dequant(Rp + st * W::kPieces * T + tid, Rp + (c + NST - 1) % NST * W::kPieces * T + tid,
-              T, Rw[st * T + tid], c0 + c, bq, v);
+              T, Rw[st * T + tid], ccol, c0 + c, bq, v);
     if (!col_ok) v[0] = v[1] = make_uint4(0u, 0u, 0u, 0u);
     uint4* brow = reinterpret_cast<uint4*>(Bs + (c & 1) * BN * LDS + bn * LDS);
-    brow[2 * bq] = v[0];
-    brow[2 * bq + 1] = v[1];
+    brow[W::slot(bq, 0)] = v[0];
+    brow[W::slot(bq, 1)] = v[1];
   };
   auto store = [&](float* out, const float (&a)[MI][NI][4]) {
 #pragma unroll
@@ -259,20 +271,29 @@ __global__ void __launch_bounds__(F::kThreads, F::kMinBlocks) slice_gemm_kernel(
   if (first) store(gridDim.z == 1 ? y : ws, tot);
 }
 
-// y = ws[0] + ws[1] + ... + ws[n - 1], in that order; mn4 = M*N/4
-__global__ void slice_reduce_kernel(const float4* __restrict__ ws, float4* __restrict__ y,
-                                    int mn4, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn4) return;
-  float4 a = ws[i];
-  for (int s = 1; s < n; ++s) {
-    const float4 b = ws[(size_t)s * mn4 + i];
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
+// y = ws[0] + ws[1] + ... + ws[n - 1], in that order (the partials M*N =
+// mn floats apart), four elements a thread; float4 loads when mn % 4 == 0
+__global__ void slice_reduce_kernel(const float* __restrict__ ws, float* __restrict__ y, int mn,
+                                    int n) {
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= mn) return;
+  if (!(mn & 3)) {
+    float4 a = *reinterpret_cast<const float4*>(ws + i);
+    for (int s = 1; s < n; ++s) {
+      const float4 b = *reinterpret_cast<const float4*>(ws + (size_t)s * mn + i);
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    *reinterpret_cast<float4*>(y + i) = a;
+  } else {
+    for (int j = i; j < min(i + 4, mn); ++j) {
+      float a = ws[j];
+      for (int s = 1; s < n; ++s) a += ws[(size_t)s * mn + j];
+      y[j] = a;
+    }
   }
-  y[i] = a;
 }
 
 // xb = bf16(x), round to nearest even; n4 = M*K/4
@@ -295,13 +316,11 @@ int launch_form(const __nv_bfloat16* x, const W& w, float* y, float* ws, int M, 
     attr = true;
   }
   const int S = K / (sps * BK), nsplit = (S + spb - 1) / spb;
-  const dim3 grid((M + F::BM - 1) / F::BM, N / F::BN, nsplit);
+  const dim3 grid((M + F::BM - 1) / F::BM, (N + F::BN - 1) / F::BN, nsplit);
   slice_gemm_kernel<F, W><<<grid, F::kThreads, smem, s>>>(x, w, y, ws, M, K, N, sps, spb);
   if (nsplit > 1) {
-    const int mn4 = M * N / 4;
-    slice_reduce_kernel<<<(mn4 + 255) / 256, 256, 0, s>>>(reinterpret_cast<const float4*>(ws),
-                                                          reinterpret_cast<float4*>(y), mn4,
-                                                          S - spb + 1);
+    const int mn = M * N, threads = (mn + 3) / 4;
+    slice_reduce_kernel<<<(threads + 255) / 256, 256, 0, s>>>(ws, y, mn, S - spb + 1);
   }
   return (int)cudaGetLastError();
 }
@@ -309,15 +328,13 @@ int launch_form(const __nv_bfloat16* x, const W& w, float* y, float* ws, int M, 
 // xdtype: 0 = f32 (rounded into xb, M*K bf16, first), 1 = bf16 (xb
 // unused).  tk: the slice width (256 or 512, dividing K); form: 0 = RowForm
 // (spb = 1), 1 = TileForm; spb: slices a split, ws: (S - spb + 1) * M * N
-// floats when spb < S (S = K / tk), else unused.  N must be a multiple of
-// the form's block width (32 or 128).
+// floats when spb < S (S = K / tk), else unused.  Any even N.
 template <class W>
 int launch_slice_gemm(const void* x, int xdtype, void* xb, const W& w, float* y, float* ws,
                       int M, int K, int N, int tk, int form, int spb, cudaStream_t s) {
-  if (M <= 0 || N <= 0 || (tk != 256 && tk != 512) || K % tk || spb < 1 ||
+  if (M <= 0 || N <= 0 || N % 2 || (tk != 256 && tk != 512) || K % tk || spb < 1 ||
       (xdtype != 0 && xdtype != 1) || (xdtype == 0 && !xb) || (form != 0 && form != 1) ||
-      N % (form ? TileForm::BN : RowForm::BN) || (form == 0 && spb != 1) ||
-      (spb < K / tk && !ws))
+      (form == 0 && spb != 1) || (spb < K / tk && !ws))
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xr = static_cast<const __nv_bfloat16*>(x);
   if (xdtype == 0) {

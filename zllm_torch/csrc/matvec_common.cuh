@@ -119,7 +119,7 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The nibble formats of K1, K11, K12 (and K3's tile decoders): one code
+// The nibble formats of K1, K11, K12 (and K3's decoders, q4k_gemm.cu): one code
 // plane qs [N, K/2] (byte 32c + i holds codes 64c + i and 64c + 32 + i,
 // zllm_torch/quant/repack.py) and per-format scale planes, passed as s0..s3:
 //   Q4_K: s0 = sc, s1 = mn (uint8 [N, K/32]), s2 = d, s3 = dmin (fp16 [N, K/256])

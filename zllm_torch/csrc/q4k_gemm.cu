@@ -3,104 +3,137 @@
 //
 // Replaces zllm/ops/qmatmul.py::_qmm_np_kernel (launched by _qmm_np_call):
 // the weight is dequantized in f32 with zllm's expressions and rounded to
-// bf16 (Q4_K: code * f32(d)*sc - f32(dmin)*mn, the exact two-level scales;
-// Q4_1: code * a - b; Q4_0: (code - 8) * d); x (f32 or bf16) is rounded to
-// bf16 in the kernel, round to nearest even, as the Pallas kernel rounds
-// it; the products are accumulated in f32.
+// bf16, round to nearest even (Q4_K: code * f32(d)*sc - f32(dmin)*mn, the
+// exact two-level scales; Q4_1: code * a - b; Q4_0: (code - 8) * d; every
+// product is exact in f32, so each value is rounded once); x (f32 or bf16)
+// is rounded to bf16, round to nearest even, as the Pallas kernel rounds
+// it; the products are summed in f32 in K5's order, one partial per
+// 512-wide (or 256-wide) k-slice added in slice order, so a row's bits do
+// not depend on M.  zllm's own k-step here is 256 x a multiplier that
+// depends on M (the VMEM window of _qmm_np_call): no one order matches it
+// at every M, and the port keeps the one that is the same at every M.
 //
-// Bound on the H100: at prefill shapes (M = 256 rows a chunk) the
-// 2*M*K*N bf16 FLOPs over the 989 TFLOP/s tensor-core peak; the weight
-// bytes are read once per 64-row block of x.  Design (simple first): the
-// tile loop of gemm_tile.cuh (shared with K5), whose 64-wide K step is one
-// 64-element chunk of the nibble layout: a thread takes 16 of a column's 32
-// packed bytes, the low nibbles 16 codes of group 2c and the high nibbles
-// 16 of group 2c+1; one decoder per format differs only in its scale
-// fetch and its dequantizing expression.
+// Bound on the H100: at the engine's decode M = 4 the weight bytes over
+// 3.35 TB/s (144 bytes per 256 Q4_K weights); at prefill shapes (M = 256
+// rows a chunk) the 2*M*K*N bf16 FLOPs over the 989 TFLOP/s tensor-core
+// peak.  Design: the sliced loop of gemm_slice.cuh, K5's, so that M = 4
+// runs its split-K row form (a grid of columns x slices instead of N/64
+// blocks walking all of K) and a chunk its 128 x 128 tile form (a weight
+// step dequantized once for 128 rows, a 4-stage cp.async ring, one barrier
+// a step).  On the card (`python -m zllm_torch.k5_ablation --fmt q4_k`)
+// the tile form is paced by its shared-memory fragment reloads, as K5's
+// is, and the row form at M = 4 by its launches (the reduction's most).
+// One decoder per format, `NibbleSlice`: byte 32c + i of a column's qs row
+// holds the codes 64c + i (low nibble) and 64c + 32 + i (high), so in
+// step c thread q of the column copies the 8 bytes 32c + 8q.. once, and
+// dequantizes them to k = 64c + 8q.. (low) and 64c + 32 + 8q.. (high),
+// the units q and 4 + q of the weight row.  Every thread needs the scales
+// of groups 2c and 2c + 1, which lie in one 4-byte word of each plane: the
+// column's four threads copy one word each (Q4_K: sc, mn, d, dmin; Q4_1:
+// a, b, a, b; Q4_0: d each) and exchange them with __shfl_sync.
 
-#include "gemm_tile.cuh"
+#include "gemm_slice.cuh"
 #include "matvec_common.cuh"
 
 namespace {
 
 using namespace zt;
+using zt_slice::cp_async4;
+using zt_slice::cp_async8;
+
+__device__ __forceinline__ float half_of(uint32_t word, int i) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(word >> (16 * i))));
+}
+
+// four codes (the bytes of b) less `off`, times a, less c, as two bf16
+// pairs; a byte u becomes the float 2^23 + u by a byte permute (no
+// int-to-float conversion), exact, and less 2^23 + off the code, exact
+__device__ __forceinline__ uint2 nibble4(uint32_t b, float off, float a, float c) {
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = (__int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 | e)) - off) * a - c;
+  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
 
 template <int FMT>
-struct NibbleTile {
+struct NibbleSlice {
   NibblePlanes p;  // qs [N, K/2] and the format's scale planes
   int K;
-  struct Stage {
-    uint4 wv;  // 32 packed nibbles
-    float alo, blo, ahi, bhi;
-  };
-  __device__ __forceinline__ void fetch(Stage& st, size_t col, int c, int bh) const {
-    const int G = K / 32;
-    st.wv = *reinterpret_cast<const uint4*>(p.qs + col * (K / 2) + c * 32 + bh * 16);
-    const int g = 2 * c;  // groups 2c (low nibbles) and 2c+1 (high)
-    if constexpr (FMT == kQ4K) {  // one superblock
-      const uint8_t* sc = static_cast<const uint8_t*>(p.s0);
-      const uint8_t* mn = static_cast<const uint8_t*>(p.s1);
-      const float dd = __half2float(static_cast<const __half*>(p.s2)[col * (K / 256) + (g >> 3)]);
-      const float dm = __half2float(static_cast<const __half*>(p.s3)[col * (K / 256) + (g >> 3)]);
-      st.alo = dd * (float)sc[col * G + g];
-      st.blo = dm * (float)mn[col * G + g];
-      st.ahi = dd * (float)sc[col * G + g + 1];
-      st.bhi = dm * (float)mn[col * G + g + 1];
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  // v[0] (low nibbles) is k 8q.. of the step, v[1] (high) k 32 + 8q..
+  __device__ __forceinline__ static int slot(int q, int i) { return q + 4 * i; }
+  __device__ __forceinline__ void fetch(uint4* pc, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    cp_async8(pc, p.qs + col * (K / 2) + 32 * c + 8 * q);
+    const size_t G = K / 32;
+    if constexpr (FMT == kQ4K) {  // sc, mn: bytes 2c, 2c + 1; d, dmin: superblock c / 4
+      if (q < 2)
+        cp_async4(word, static_cast<const uint8_t*>(q ? p.s1 : p.s0) + col * G + (2 * c & ~3));
+      else
+        cp_async4(word, static_cast<const __half*>(q == 2 ? p.s2 : p.s3) +
+                            ((col * (K / 256) + (c >> 2)) & ~(size_t)1));
+    } else {  // Q4_1 a (even q), b (odd q); Q4_0 d: halves 2c, 2c + 1
+      const void* plane = (FMT == kQ41 && (q & 1)) ? p.s1 : p.s0;
+      cp_async4(word, static_cast<const __half*>(plane) + col * G + 2 * c);
+    }
+  }
+  __device__ __forceinline__ void dequant(const uint4* pc, const uint4*, int, uint32_t word,
+                                          size_t col, int c, int, uint4 (&v)[2]) const {
+    float alo, ahi, blo = 0.f, bhi = 0.f, off = 8388608.f;
+    if constexpr (FMT == kQ4K) {
+      const uint32_t wsc = __shfl_sync(kFull, word, 0, 4), wmn = __shfl_sync(kFull, word, 1, 4);
+      const uint32_t wd = __shfl_sync(kFull, word, 2, 4), wdm = __shfl_sync(kFull, word, 3, 4);
+      const int sh = 8 * (2 * c & 3), h = (int)((col * (K / 256) + (c >> 2)) & 1);
+      const float d = half_of(wd, h), dm = half_of(wdm, h);
+      alo = d * (float)((wsc >> sh) & 0xFFu);
+      ahi = d * (float)((wsc >> (sh + 8)) & 0xFFu);
+      blo = dm * (float)((wmn >> sh) & 0xFFu);
+      bhi = dm * (float)((wmn >> (sh + 8)) & 0xFFu);
+    } else if constexpr (FMT == kQ41) {
+      const uint32_t wa = __shfl_sync(kFull, word, 0, 4), wb = __shfl_sync(kFull, word, 1, 4);
+      alo = half_of(wa, 0);
+      ahi = half_of(wa, 1);
+      blo = half_of(wb, 0);
+      bhi = half_of(wb, 1);
     } else {
-      const __half* a = static_cast<const __half*>(p.s0);
-      st.alo = __half2float(a[col * G + g]);
-      st.ahi = __half2float(a[col * G + g + 1]);
-      st.blo = st.bhi = 0.f;  // Q4_0 has no min term
-      if constexpr (FMT == kQ41) {
-        const __half* b = static_cast<const __half*>(p.s1);
-        st.blo = __half2float(b[col * G + g]);
-        st.bhi = __half2float(b[col * G + g + 1]);
-      }
+      alo = half_of(word, 0);
+      ahi = half_of(word, 1);
+      off += 8.f;
     }
-  }
-  __device__ __forceinline__ static float weight(uint32_t q, float a, float b) {
-    if constexpr (FMT == kQ40) return ((float)q - 8.f) * a;
-    return (float)q * a - b;
-  }
-  // v[0..1]: the low nibbles (k = 16bh .. 16bh+15 of the step), v[2..3]:
-  // the high nibbles (k = 32 + 16bh ..)
-  __device__ __forceinline__ void dequant(const Stage& st, uint4 (&v)[4]) const {
-    uint32_t lo[8], hi[8];
-    const uint32_t words[4] = {st.wv.x, st.wv.y, st.wv.z, st.wv.w};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t b0 = (words[w] >> (16 * h)) & 0xFFu;
-        const uint32_t b1 = (words[w] >> (16 * h + 8)) & 0xFFu;
-        lo[2 * w + h] = pack_bf16(weight(b0 & 0xFu, st.alo, st.blo),
-                                  weight(b1 & 0xFu, st.alo, st.blo));
-        hi[2 * w + h] = pack_bf16(weight(b0 >> 4, st.ahi, st.bhi),
-                                  weight(b1 >> 4, st.ahi, st.bhi));
-      }
-    }
-    v[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    v[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    v[2] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    v[3] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-  }
-  __device__ __forceinline__ static int slot(int bh, int i) {
-    return (i >> 1) * 4 + bh * 2 + (i & 1);
+    const uint4 b = pc[0];
+    const uint2 l0 = nibble4(b.x & 0x0F0F0F0Fu, off, alo, blo),
+                l1 = nibble4(b.y & 0x0F0F0F0Fu, off, alo, blo),
+                h0 = nibble4((b.x >> 4) & 0x0F0F0F0Fu, off, ahi, bhi),
+                h1 = nibble4((b.y >> 4) & 0x0F0F0F0Fu, off, ahi, bhi);
+    v[0] = make_uint4(l0.x, l0.y, l1.x, l1.y);
+    v[1] = make_uint4(h0.x, h0.y, h1.x, h1.y);
   }
 };
 
 }  // namespace
 
-// fmt: 0 = Q4_K, 1 = Q4_0, 2 = Q4_1 (scale planes s0..s3 as NibblePlanes in
-// matvec_common.cuh).  xdtype: 0 = f32, 1 = bf16.
-extern "C" int zt_q4k_gemm(int fmt, const void* x, int xdtype, const uint8_t* qs, const void* s0,
-                           const void* s1, const void* s2, const void* s3, float* y, int M,
-                           int K, int N, void* stream) {
+// fmt: 0 = Q4_K, 1 = Q4_0, 2 = Q4_1 (qs and scale planes s0..s3 as
+// NibblePlanes in matvec_common.cuh).  xdtype, xb, tk, form, spb and ws as
+// for zt_slice::launch_slice_gemm: an f32 x adds a launch that rounds it
+// into xb, a call with spb < K / tk one that reduces the slice partials in
+// order.
+extern "C" int zt_q4k_gemm(int fmt, const void* x, int xdtype, void* xb, const uint8_t* qs,
+                           const void* s0, const void* s1, const void* s2, const void* s3,
+                           float* y, float* ws, int M, int K, int N, int tk, int form, int spb,
+                           void* stream) {
   const NibblePlanes p{qs, s0, s1, s2, s3};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case kQ4K: return zt::launch_gemm(x, xdtype, NibbleTile<kQ4K>{p, K}, y, M, K, N, s);
-    case kQ40: return zt::launch_gemm(x, xdtype, NibbleTile<kQ40>{p, K}, y, M, K, N, s);
-    case kQ41: return zt::launch_gemm(x, xdtype, NibbleTile<kQ41>{p, K}, y, M, K, N, s);
+    case kQ4K:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, NibbleSlice<kQ4K>{p, K}, y, ws, M, K, N,
+                                         tk, form, spb, s);
+    case kQ40:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, NibbleSlice<kQ40>{p, K}, y, ws, M, K, N,
+                                         tk, form, spb, s);
+    case kQ41:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, NibbleSlice<kQ41>{p, K}, y, ws, M, K, N,
+                                         tk, form, spb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,25 @@
-"""What each part of K5's loop costs on the card: K5 (`csrc/dequant_gemm.cu`
-on `csrc/gemm_slice.cuh`) built as it is and again with one part taken out
-of its source, each variant timed on the 34 Q6_K GEMMs of a Q4_K_M
-TinyLlama step or chunk (22 wv 2048->256 and the head 2048->32768 on bf16
-rows, 11 ffn_down 5632->2048 on f32 rows; random weight bytes).  The
-variants compute wrong values; only their times mean anything.
+"""What each part of the sliced GEMM loop (`csrc/gemm_slice.cuh`) costs on
+the card: K5 (`csrc/dequant_gemm.cu`) or K3 (`csrc/q4k_gemm.cu`) built as
+it is and again with one part of the loop taken out of its source, each
+variant timed on the GEMMs of a Q4_K_M TinyLlama step or chunk, random
+weight bytes:
+  q6_k (K5): its 34 Q6_K weights, 22 wv 2048->256 and the head
+    2048->32768 on bf16 rows, 11 ffn_down 5632->2048 on f32 rows;
+  q4_k (K3): its 99 Q4_K weights, 22 each of wq 2048->2048, wk 2048->256
+    and gate|up 2048->11264 on bf16 rows and wo 2048->2048 on f32 rows,
+    and 11 ffn_down 5632->2048 on f32 rows.
+The variants compute wrong values; only their times mean anything.
 
 Run on a CUDA host from the root of a checkout:
-    python -m zllm_torch.k5_ablation [M ...]        (default: 4 256)
-Prints one JSON line per M: device ms by weight role for each variant,
-the unchanged build timed first and last."""
+    python -m zllm_torch.k5_ablation [--fmt q6_k|q4_k] [M ...]
+(defaults: q6_k, M 4 256).  Prints one JSON line per M: device ms by
+weight role for each variant, the unchanged build timed first and last.
+    python -m zllm_torch.k5_ablation --plans [--fmt q6_k|q4_k] [M ...]
+(default M 44 256 512: the Generator's chunks of a 300-token prompt and the
+engine's mixed step) times the unchanged build instead under every plan
+(the row form, and the tile form at each split), one JSON line per role
+and M, beside the plan `ops/qmatmul.py::slice_plan` picks, to hold its
+cost model against."""
 
 from __future__ import annotations
 
@@ -21,9 +32,12 @@ import torch
 
 from .ops import cuda
 from .ops import qmatmul as qmm
-from .quant.repack import Q6KWeight
+from .quant.repack import Q4KWeight, Q6KWeight, QWeight
 
 OUT = cuda.CACHE.parent / "k5_ablation"
+
+# format -> (kernel library, weight planes its entry point takes, fmt code)
+KERNELS = {"q6_k": ("dequant_gemm", 3, 0), "q4_k": ("q4k_gemm", 5, 0)}
 
 # variant -> (file, text, replacement): one part of the loop taken out
 VARIANTS = {
@@ -42,11 +56,12 @@ VARIANTS = {
 }
 
 
-def build() -> dict[str, ctypes._CFuncPtr]:
-    """Each variant's zt_dequant_gemm, built in parallel."""
+def build(lib: str, n_planes: int) -> dict[str, ctypes._CFuncPtr]:
+    """Each variant's zt_<lib> (K5's zt_dequant_gemm or K3's zt_q4k_gemm),
+    built in parallel."""
     procs = {}
     for name in ("base", *VARIANTS):
-        d = OUT / name
+        d = OUT / lib / name
         d.mkdir(parents=True, exist_ok=True)
         for f in cuda.CSRC.glob("*.cu*"):
             text = f.read_text()
@@ -56,7 +71,8 @@ def build() -> dict[str, ctypes._CFuncPtr]:
                     raise RuntimeError(f"{name}: {old!r} not in {f.name}")
                 text = text.replace(old, new)
             (d / f.name).write_text(text)
-        cmd = [cuda.nvcc(), *cuda.NVCC_FLAGS, "-o", str(d / "k5.so"), str(d / "dequant_gemm.cu")]
+        cmd = [cuda.nvcc(), *cuda.NVCC_FLAGS, "-o", str(d / f"{lib}.so"),
+               str(d / cuda.SOURCES[lib])]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     fns = {}
@@ -64,26 +80,18 @@ def build() -> dict[str, ctypes._CFuncPtr]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        fn = ctypes.CDLL(str(OUT / name / "k5.so")).zt_dequant_gemm
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(OUT / lib / name / f"{lib}.so")), f"zt_{lib}")
+        fn.argtypes = qmm.slice_argtypes(n_planes)
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
-def call(fn, x: torch.Tensor, w: Q6KWeight, sms: int) -> torch.Tensor:
-    """One K5 call through `fn`, with the wrapper's plan and workspaces."""
-    m, (k, n) = x.shape[0], w.shape
-    tk, s, form, spb = qmm.slice_plan(m, k, n, sms)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    xb = torch.empty((m, k), dtype=torch.bfloat16, device=x.device) \
-        if x.dtype == torch.float32 else None
-    ws = torch.empty((s - spb + 1, m, n), dtype=torch.float32, device=x.device) \
-        if spb < s else None
-    cuda.check(fn(0, x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(xb),
-                  *qmm._plane_ptrs(w, 3), y.data_ptr(), cuda.ptr(ws), m, k, n, tk, form, spb,
-                  cuda.stream()), "k5 variant")
+def call(fn, x: torch.Tensor, w: QWeight, code: int, n_planes: int, plan=None) -> torch.Tensor:
+    """One call through `fn`, with the wrapper's plan (or `plan`) and
+    workspaces."""
+    y = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    cuda.check(qmm.slice_call(fn, code, x, w, n_planes, y, plan), "ablation call")
     return y
 
 
@@ -108,36 +116,93 @@ def graph_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main(ms=(4, 256)):
+def weights(fmt: str, g: torch.Generator):
+    """[(weight, x dtype)] in call order, and {role: call indices}."""
+    def u8(n, cols, hi=256):
+        return torch.randint(0, hi, (n, cols), dtype=torch.uint8, device="cuda", generator=g)
+
+    def half(n, cols, scale):
+        return (torch.randn(n, cols, device="cuda", generator=g) * scale).half()
+
+    bf, f32 = torch.bfloat16, torch.float32
+    if fmt == "q6_k":
+        def q6k(n, k):
+            return Q6KWeight((k, n), ql=u8(n, k // 2), qh=u8(n, k // 4), a=half(n, k // 16, 0.01))
+
+        calls = [(q6k(256, 2048), bf) for _ in range(22)] + \
+            [(q6k(2048, 5632), f32) for _ in range(11)] + [(q6k(32768, 2048), bf)]
+        return calls, {"wv": range(22), "ffn_down": range(22, 33), "head": [33]}
+
+    def q4k(n, k):
+        return Q4KWeight((k, n), qs=u8(n, k // 2), sc=u8(n, k // 32, 64), mn=u8(n, k // 32, 64),
+                         d=half(n, k // 256, 0.001), dmin=half(n, k // 256, 0.001))
+
+    layer = [("wq", 2048, bf), ("wk", 256, bf), ("wo", 2048, f32), ("gate_up", 11264, bf)]
+    calls, roles = [], {}
+    for _ in range(22):
+        for role, n, dt in layer:
+            roles.setdefault(role, []).append(len(calls))
+            calls.append((q4k(n, 2048), dt))
+    roles["ffn_down"] = list(range(len(calls), len(calls) + 11))
+    calls += [(q4k(2048, 5632), f32) for _ in range(11)]
+    return calls, roles
+
+
+def plans(fmt: str, ms, g: torch.Generator):
+    """Each role's GEMMs under every plan at each M (see the module note)."""
+    lib, n_planes, code = KERNELS[fmt]
+    fn = cuda.bind(lib, f"zt_{lib}", qmm.slice_argtypes(n_planes))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wcalls, roles = weights(fmt, g)
+    for m in ms:
+        for role, idx in roles.items():
+            ws = [wcalls[i][0] for i in idx]
+            (k, n), dt = ws[0].shape, wcalls[idx[0]][1]
+            x = torch.randn(m, k, device="cuda", generator=g).to(dt)
+            tk = qmm.slice_width(k)
+            s = k // tk
+            cands = {"row": (tk, s, 0, 1)}
+            if m > qmm.ROW_M:
+                cands |= {f"tile_spb{spb}": (tk, s, 1, spb) for spb in range(1, s + 1)}
+            t = {name: graph_ms(lambda p=p: [call(fn, x, w, code, n_planes, p) for w in ws])
+                 for name, p in cands.items()}
+            _, _, form, spb = qmm.slice_plan(m, k, n, sms)
+            print(json.dumps({"fmt": fmt, "m": m, "role": role, "k": k, "n": n, "x": str(dt),
+                              "calls": len(ws), "ms": t, "fastest": min(t, key=t.get),
+                              "picked": f"tile_spb{spb}" if form else "row",
+                              "card": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main(argv):
+    fmt, timing_plans = "q6_k", argv[:1] == ["--plans"]
+    argv = argv[timing_plans:]
+    if argv[:1] == ["--fmt"]:
+        fmt, argv = argv[1], argv[2:]
+    if fmt not in KERNELS:
+        raise SystemExit(f"--fmt takes {', '.join(KERNELS)}, not {fmt}")
+    ms = [int(a) for a in argv] or ([44, 256, 512] if timing_plans else [4, 256])
     if not torch.cuda.is_available():
         raise SystemExit("k5_ablation needs a CUDA GPU")
-    fns = build()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-
-    def q6k(n, k):
-        return Q6KWeight((k, n), ql=torch.randint(0, 256, (n, k // 2), dtype=torch.uint8,
-                                                  device="cuda", generator=g),
-                         qh=torch.randint(0, 256, (n, k // 4), dtype=torch.uint8, device="cuda",
-                                          generator=g),
-                         a=(torch.randn(n, k // 16, device="cuda", generator=g) * 0.01).half())
-
-    weights = [q6k(256, 2048) for _ in range(22)] + [q6k(2048, 5632) for _ in range(11)] + \
-        [q6k(32768, 2048)]
-    roles = {"wv": range(22), "ffn_down": range(22, 33), "head": [33]}
+    if timing_plans:
+        return plans(fmt, ms, g)
+    lib, n_planes, code = KERNELS[fmt]
+    fns = build(lib, n_planes)
+    wcalls, roles = weights(fmt, g)
     for m in ms:
-        xs = {2048: torch.randn(m, 2048, device="cuda", generator=g).bfloat16(),
-              5632: torch.randn(m, 5632, device="cuda", generator=g)}
-        calls = [(xs[w.shape[0]], w) for w in weights]
-        out = {"m": int(m), "card": torch.cuda.get_device_name(0)}
+        xs = {(k, dt): torch.randn(m, k, device="cuda", generator=g).to(dt)
+              for k, dt in {(w.shape[0], dt) for w, dt in wcalls}}
+        calls = [(xs[w.shape[0], dt], w) for w, dt in wcalls]
+        out = {"fmt": fmt, "m": m, "card": torch.cuda.get_device_name(0)}
         for name in ("base", *VARIANTS, "base_again"):
             fn = fns[name.removesuffix("_again")]
-            t = {role: graph_ms(lambda idx=idx: [call(fn, *calls[i], sms) for i in idx])
+            t = {role: graph_ms(lambda idx=idx: [call(fn, *calls[i], code, n_planes)
+                                                 for i in idx])
                  for role, idx in roles.items()}
             out[name] = dict(t, all=sum(t.values()))
         print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
-    main([int(a) for a in sys.argv[1:]] or (4, 256))
+    main(sys.argv[1:])

@@ -23,8 +23,14 @@ attention: K6 over a contiguous `KVCache`; with the q8 cache
 scales.  With the serving engine's paged cache (`runtime/paged.PagedKVCache`)
 at T=1 rope runs outside the kernel and K9 inserts and attends in one
 launch, as zllm does; at T>1 the rows are scattered into their pages and
-K10 attends through the page table.  MoE, MLA, LoRA, sliding window, ALiBi
-and sinks are not part of this block.
+K10 attends through the page table.  A row of a T>1 step that holds one
+token (trash positions after column 0: the engine's generating rows,
+which ride its mixed steps in column 0) takes its attention from the
+T=1 kernel as well, K9 (with the q8 cache, K7's split form), so that it
+gets the bits a decode step would give it: the multi-row kernels (K10,
+K7's tensor-core form) agree with the T=1 ones only to f32 rounding, and a
+request's greedy tokens must not depend on the steps it rides.  MoE, MLA,
+LoRA, sliding window, ALiBi and sinks are not part of this block.
 
 OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
 projections read the raw residual stream through `linear` (at T=1, B=1
@@ -56,23 +62,51 @@ from ..runtime.kvcache import KVCache, KVCacheQ8
 from ..runtime.paged import PagedKVCache
 
 
+def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
+                    first: torch.Tensor) -> torch.Tensor:
+    """`out` [B, T, ...] of a T>1 step with column 0 replaced by `first`
+    [B, 1, ...] (the T=1 kernel's attention of column 0) in every row that
+    holds one token: column 1 is not column 0's next position, or (T > 2)
+    columns 1 and 2 hold the same (trash) position."""
+    one = positions[:, 1] != positions[:, 0] + 1
+    if positions.shape[1] > 2:
+        one |= positions[:, 1] == positions[:, 2]
+    one = one.reshape(-1, *[1] * (out.dim() - 2))
+    out[:, 0] = torch.where(one, first[:, 0], out[:, 0])
+    return out
+
+
 def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) -> torch.Tensor:
     """Attention of roped q [B, T, Hq, D] and k/v [B, T, Hkv, D] with the
     new rows inserted into `kv` (if any) at their positions."""
     b, t = q.shape[:2]
     softcap = cfg.attn_logit_softcap
-    if isinstance(kv, PagedKVCache) and t == 1:  # K9: insert into the page, attend
-        return paged_attn_decode_update(q, k, v, kv.k[il], kv.v[il], kv.table, positions,
-                                        page_size=kv.page_size, scale=scale, softcap=softcap)
-    if isinstance(kv, PagedKVCache):  # scatter the rows into their pages, then K10
-        kv.update(il, k, v, positions)
-        return paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
-                               page_size=kv.page_size, scale=scale, softcap=softcap)
+    if isinstance(kv, PagedKVCache):
+        def k9(q_, k_, v_, pos):  # insert into the page, attend
+            return paged_attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], kv.table, pos,
+                                            page_size=kv.page_size, scale=scale,
+                                            softcap=softcap)
+
+        if t == 1:
+            return k9(q, k, v, positions)
+        kv.update(il, k, v, positions)  # scatter the rows into their pages, then K10
+        out = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
+                              page_size=kv.page_size, scale=scale, softcap=softcap)
+        # column 0 once more through K9, which writes the rows kv.update wrote
+        first = k9(*(x[:, :1].contiguous() for x in (q, k, v, positions)))
+        return _one_token_rows(out, positions, first)
     if isinstance(kv, KVCacheQ8):  # quantize and insert, then K7 on the codes
         kv.update(il, k, v, positions)
         kq, vq = kv.layer(il)
-        return flash_attention_blockwise(q.contiguous(), kq.q, vq.q, positions, scale=scale,
-                                         softcap=softcap, ks=kq.s, vs=vq.s)
+
+        def k7(q_, pos):
+            return flash_attention_blockwise(q_.contiguous(), kq.q, vq.q, pos.contiguous(),
+                                             scale=scale, softcap=softcap, ks=kq.s, vs=vq.s)
+
+        out = k7(q, positions)
+        if t == 1:
+            return out
+        return _one_token_rows(out, positions, k7(q[:, :1], positions[:, :1]))
     if kv is not None and t == 1:  # K8: insert the row at min(pos, S-1), attend
         return attn_decode_update(q, k, v, kv.k[il], kv.v[il], positions, scale=scale,
                                   softcap=softcap)

@@ -15,8 +15,13 @@ NEG_INF_REF = -1e30  # masked-logit filler of the reference attention
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * weight in f32, cast back to x's dtype.
+    The mean of squares is summed in f64 and rounded to f32: a reduction's
+    order depends on how many rows it has, and f64 keeps that from showing
+    in the f32 mean (the squares are exact in f64), so a row's bits do not
+    depend on the rows beside it."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = torch.mean(xf.double().square(), dim=-1, keepdim=True).float()
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
 

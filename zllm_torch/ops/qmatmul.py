@@ -34,9 +34,10 @@ K4/K5.
     `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x dequant(W)
     with x and the dequantized weight both rounded to bf16 in the kernel
     and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
-    (the tile loop `gemm_tile.cuh`) and `dequant_gemm.cu` (the sliced loop
-    `gemm_slice.cuh`: zllm's k-slice sum order, so a row's bits do not
-    depend on M).
+    and `dequant_gemm.cu`, a weight decoder per format on one loop, the
+    sliced loop `gemm_slice.cuh`: zllm's k-slice sum order (`_qmm_kernel`'s;
+    zllm's K3 moves its own k-step with M), so a row's bits do not depend
+    on M; `slice_plan` picks its form and split.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its launches in
@@ -46,6 +47,8 @@ launches the kernel or raises.  Each wrapper counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import os
 
 import torch
@@ -350,8 +353,8 @@ def slice_width(k: int) -> int:
 
 def dequant_gemm_plain(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     """Plain version of K3 and K5: bf16(x) @ bf16(dequant(w)), f32
-    accumulate, in zllm's sum order: one f32 product per k-slice of
-    `slice_width(K)`, added to a zero output in slice order."""
+    accumulate, in zllm's `_qmm_kernel` sum order: one f32 product per
+    k-slice of `slice_width(K)`, added to a zero output in slice order."""
     xb = x.to(torch.bfloat16).float()
     wb = w.dequant_nk().to(torch.bfloat16).float()
     k, tk = w.shape[0], slice_width(w.shape[0])
@@ -379,45 +382,56 @@ def _gemm_cuda_x(x: torch.Tensor, w: QWeight):
     return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
 
 
-def q4k_gemm(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
-    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K, Q4_0
-    or Q4_1)."""
-    _require_nibble(w)
-    k, n = w.shape
-    _check_gemm_x(x, k)
-    if x.device.type == "cpu":
-        return dequant_gemm_plain(x, w)
-    y = _gemm_cuda_x(x, w)
-    fn = cuda.bind("q4k_gemm", "zt_q4k_gemm", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
-                                               _I, _I, _I, _P])
-    err = fn(NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], *_plane_ptrs(w, 5),
-             y.data_ptr(), x.shape[0], k, n, cuda.stream())
-    cuda.check(err, "q4k_gemm")
-    q4k_gemm.launches += 1
-    return y
+ROW_M = 16  # the sliced loop's row form rows (split-K, one slice a block)
+ROW_N, TILE_M, TILE_N = 32, 128, 128  # its row form's columns, its tile form block
+# `slice_plan`'s cost model, fitted to the K3 and K5 calls of the models'
+# prefill and engine shapes on an H100 (every form and split timed by
+# `python -m zllm_torch.k5_ablation --plans`): a 64-wide step takes a
+# tile-form block 1.6 us and the row form 1.5 ns a block on average over
+# its grid; a call whose slices are split pays a launch (2 us) and moves
+# its partials (the first split's prefix and each later slice's own) out
+# and back, and y out, at 3 TB/s.
+TILE_STEP_S, ROW_STEP_S, LAUNCH_S, MOVE_BYTES_PER_S = 1.6e-6, 1.5e-9, 2e-6, 3e12
 
 
-q4k_gemm.launches = 0
+def _split_seconds(m: int, n: int, slots: int) -> float:
+    """The reduction of a split call: its launch and the partials' bytes."""
+    return LAUNCH_S + (2 * slots + 1) * 4 * m * n / MOVE_BYTES_PER_S if slots > 1 else 0.0
 
 
-ROW_M = 16  # K5's row form rows (split-K, one slice a block)
-TILE_M, TILE_N = 128, 128  # K5's tile form block
+def _rounds(blocks: int, spb: int, s: int, sms: int) -> int:
+    """Slices until the last of `blocks` tiles x ceil(s / spb) splits ends,
+    the blocks started in grid order (split after split) on `sms` SMs, one
+    block each: the split's spb slices, the last split's remainder."""
+    ends = [0] * sms
+    for z in range(0, s, spb):
+        for _ in range(blocks):
+            heapq.heapreplace(ends, ends[0] + min(spb, s - z))
+    return max(ends)
 
 
+@functools.lru_cache(maxsize=None)
 def slice_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
-    """(tk, S, form, spb) of one K5 call: S slices of tk; form 0 (row form,
-    one slice a block) or 1 (tile form); spb slices a block along the split.
-    The tile form takes M > 16 when its tiles times slices fill the `sms`
-    SMs (one block each), and splits the slices only as far as its tiles
-    alone leave SMs idle.  No choice here changes a value: every row is
-    summed slice by slice in order whatever the form and the split."""
+    """(tk, S, form, spb) of one K3 or K5 call: S slices of tk; form 0 (row
+    form, one slice a block) or 1 (tile form); spb slices a block along the
+    split (1 in the row form).  M <= 16 takes the row form; above, the form
+    and split of least time in the cost model above (on ties the fewest
+    splits, then the row form).  The launcher takes every plan made here:
+    any M, any even N, tk 256 or 512 dividing K.  No choice here changes a
+    value: every row is summed slice by slice in order whatever the form
+    and the split."""
     tk = slice_width(k)
-    s = k // tk
-    tiles = (n // TILE_N) * -(-m // TILE_M)
-    if m <= ROW_M or tiles * s < sms:
+    s, steps = k // tk, tk // 64
+    if m <= ROW_M:
         return tk, s, 0, 1
-    nsplit = max(1, min(s, sms // tiles))
-    return tk, s, 1, -(-s // nsplit)
+    row_blocks = -(-m // ROW_M) * -(-n // ROW_N) * s
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    cost = {0: row_blocks * steps * ROW_STEP_S + _split_seconds(m, n, s)}
+    for spb in range(s, 0, -1):
+        cost[spb] = (_rounds(tiles, spb, s, sms) * steps * TILE_STEP_S
+                     + _split_seconds(m, n, s - spb + 1))
+    best = min(cost, key=cost.get)
+    return (tk, s, 0, 1) if best == 0 else (tk, s, 1, best)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -428,6 +442,58 @@ def _sm_count(dev: torch.device) -> int:
 
 
 _SM_COUNT: dict[int | None, int] = {}
+
+
+def slice_argtypes(n_planes: int) -> list:
+    """ctypes argument types of a C entry point on the sliced loop
+    (zt_q4k_gemm, zt_dequant_gemm): fmt, x, xdtype, xb, the weight's
+    `n_planes` planes, y, ws, M, K, N, tk, form, spb, stream."""
+    return [_I, _P, _I, _P, *[_P] * n_planes, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def slice_call(fn, fmt_code: int, x: torch.Tensor, w: QWeight, n_planes: int,
+               y: torch.Tensor, plan: tuple[int, int, int, int] | None = None) -> int:
+    """One call of `fn` (argument types `slice_argtypes`) into y with
+    `slice_plan`'s tk, form and split (or `plan`'s), and the workspaces it
+    needs: x rounded to bf16 when it is f32, the slice partials when the
+    slices are split.  Returns the entry point's error code."""
+    m, (k, n) = x.shape[0], w.shape
+    tk, s, form, spb = plan or slice_plan(m, k, n, _sm_count(x.device))
+    xb = torch.empty((m, k), dtype=torch.bfloat16, device=x.device) if x.dtype == torch.float32 \
+        else None
+    ws = (torch.empty((s - spb + 1, m, n), dtype=torch.float32, device=x.device)
+          if spb < s else None)
+    return fn(fmt_code, x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(xb),
+              *_plane_ptrs(w, n_planes), y.data_ptr(), cuda.ptr(ws), m, k, n, tk, form, spb,
+              cuda.stream())
+
+
+def _slice_gemm(name: str, fmt_code: int, x: torch.Tensor, w: QWeight, n_planes: int):
+    """K3 or K5 (library `name`, entry point zt_<name>) after the checks."""
+    if w.shape[1] % 2:
+        raise ValueError(f"the sliced GEMM loop takes an even N, not {w.shape[1]}")
+    y = _gemm_cuda_x(x, w)
+    fn = cuda.bind(name, f"zt_{name}", slice_argtypes(n_planes))
+    cuda.check(slice_call(fn, fmt_code, x, w, n_planes, y), name)
+    return y
+
+
+def q4k_gemm(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
+    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K, Q4_0
+    or Q4_1), summed in `dequant_gemm_plain`'s slice order, on K5's loop
+    and with its extra launches (see `dequant_gemm`); a call counts as one
+    launch."""
+    _require_nibble(w)
+    k, n = w.shape
+    _check_gemm_x(x, k)
+    if x.device.type == "cpu":
+        return dequant_gemm_plain(x, w)
+    y = _slice_gemm("q4k_gemm", NIBBLE_FMT_CODE[w.fmt], x, w, 5)
+    q4k_gemm.launches += 1
+    return y
+
+
+q4k_gemm.launches = 0
 
 
 def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
@@ -442,19 +508,7 @@ def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     _check_gemm_x(x, k)
     if x.device.type == "cpu":
         return dequant_gemm_plain(x, w)
-    y = _gemm_cuda_x(x, w)
-    m = x.shape[0]
-    tk, s, form, spb = slice_plan(m, k, n, _sm_count(x.device))
-    xb = torch.empty((m, k), dtype=torch.bfloat16, device=x.device) if x.dtype == torch.float32 \
-        else None
-    ws = (torch.empty((s - spb + 1, m, n), dtype=torch.float32, device=x.device)
-          if spb < s else None)
-    fn = cuda.bind("dequant_gemm", "zt_dequant_gemm", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
-                                                       _I, _I, _I, _I, _I, _I, _P])
-    err = fn(INT8_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype], cuda.ptr(xb),
-             *_plane_ptrs(w, 3), y.data_ptr(), cuda.ptr(ws), m, k, n, tk, form, spb,
-             cuda.stream())
-    cuda.check(err, "dequant_gemm")
+    y = _slice_gemm("dequant_gemm", INT8_FMT_CODE[w.fmt], x, w, 3)
     dequant_gemm.launches += 1
     return y
 
