@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure (non-zero exit, no final result line):
   1. build the twelve CUDA kernels from zllm_torch/csrc (nvcc, in parallel),
      and print the `-Xptxas -v` registers and spill bytes of the tensor-core
-     attention loop's instantiations (csrc/attn_mma.cuh) and of the sliced
-     GEMM loop (csrc/gemm_slice.cuh) under K3's and K5's decoders; a spill
-     fails, and so does a build that lacks one of their instantiations;
+     attention loops' instantiations (csrc/attn_mma.cuh; K6's two-pass form
+     in csrc/flash_attn.cu) and of the sliced GEMM loop
+     (csrc/gemm_slice.cuh) under K3's and K5's decoders; a spill fails, and
+     so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -22,30 +23,35 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      sharing its first 130 tokens; tokens, reuse and step counters must be
      identical, and each run on the GPU must launch its attention kernels
      and no other (llama: paged K9/K10, contiguous K2/K6, q8 K7 alone;
-     OLMo-2: contiguous K8/K6, never K2; paged K9/K10);
+     OLMo-2: contiguous K8/K6, never K2; paged K9/K10), the contiguous ones
+     one K6 a layer and mixed step and one K2 or K8 a layer and step (a
+     mixed step's column 0 once more through the decode step's kernel);
   3. main paths, at TinyLlama geometry (all 22 layers, full width, random
      weights from a seed, byte-level tokenizer), loaded in bf16 on the GPU,
      each Generator(max_len=2048).generate on a 300-token prompt (two
      256-token prefill chunks) with 32 greedy tokens, the launch counters
-     set to 0 just before and read just after:
+     set to 0 just before and read just after (a chunk, a T > 1 step over
+     the contiguous cache, also attends column 0 through the decode step's
+     kernel, K2 or K8, and its K6 launches must all take the tensor-core
+     form, `mma_launches`):
        - Q4_K everywhere: 89 K1 + 22 K2 launches per decode step, 89 K3 +
-         22 K6 per chunk;
+         22 K6 + 22 K2 per chunk;
        - Q4_K_M (zllm_torch.quantize from an F16 file: attn_v, the first 11
          ffn_down and the head Q6_K): 99 K1 + 34 K4 + 22 K2 per decode step,
-         99 K3 + 34 K5 + 22 K6 per chunk;
+         99 K3 + 34 K5 + 22 K6 + 22 K2 per chunk;
      then OLMo-2-0425-1B geometry (16 layers, n_embd 2048, 16/16 heads of
      128, n_ff 8192, vocab 100352; Q4_K everywhere, random weights from a
      seed), the same generate: 65 K1 + 16 K8 per decode step, 65 K3 + 16 K6
-     per chunk, K2 never (phase `main_path`, model olmo2); then that model
+     + 16 K8 per chunk, K2 never (phase `main_path`, model olmo2); then that model
      with ZLLM_QMM_HBM=1 fed the same tokens for 8 decode steps: 65 K12 +
      16 K8 a step, K1 never, logits equal to the K1 run's (`olmo2_hbm`);
      then the Q4_0 / Q4_1 slice: TinyLlama geometry in Q4_0 (`python -m
      zllm_torch.quantize` from the F16 file: token_embd Q4_K, every matmul
-     Q4_0), the same generate (89 K1 + 22 K2 a step, 89 K3 + 22 K6 a
-     chunk), then 8 steps with ZLLM_QMM_DUALDOT=1 (`q4_0_dualdot`: 22 K11
-     + 67 K1 + 22 K2 a step, logits within 1e-4 nmse of the K1 run's);
+     Q4_0), the same generate (89 K1 + 22 K2 a step, 89 K3 + 22 K6 + 22
+     K2 a chunk), then 8 steps with ZLLM_QMM_DUALDOT=1 (`q4_0_dualdot`: 22
+     K11 + 67 K1 + 22 K2 a step, logits within 1e-4 nmse of the K1 run's);
      OLMo-2 geometry in Q4_1 (the factory), the same generate (65 K1 + 16
-     K8 a step, 65 K3 + 16 K6 a chunk), then `olmo2_q4_1_dualdot` (64 K11
+     K8 a step, 65 K3 + 16 K6 + 16 K8 a chunk), then `olmo2_q4_1_dualdot` (64 K11
      + 1 K1 + 16 K8 a step) and `olmo2_q4_1_hbm` (65 K12 + 16 K8 a step,
      logits equal to the K1 run's); and the serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
@@ -56,8 +62,11 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      for column 0, the generating rows' token), K1/K2/K4/K6/K7 never;
      then the same server and traffic with the q8 KV cache (`kv_dtype="q8"`,
      the contiguous layout): per engine step 99 K3 + 34 K5 + 22 K7 (44 in
-     a mixed step, the second 22 for column 0), no other kernel; in both,
-     every mixed step's 22 K10 or first 22 K7 launches must have taken the
+     a mixed step, the second 22 for column 0), no other kernel; then
+     `serve_contig`, the bf16 contiguous stripe (`kv_layout="contiguous"`):
+     per engine step 99 K3 + 34 K5, and 22 K2 a decode step or 22 K6 + 22
+     K2 a mixed step (K2 once more for column 0); in all three, every mixed
+     step's 22 K10, first 22 K7 or 22 K6 launches must have taken the
      tensor-core loop (the wrapper's `mma_launches`);
   4. each kernel at its main path's shapes against its plain PyTorch
      version on the card (tolerance stated per kernel), timed (device time,
@@ -68,7 +77,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      engine's decode M = 4 (K3 and K5 timed by weight role in every chunk
      and step), and K3's and K5's rows at M = 4 against the same rows of an
      M = 512 call on every Q4_K and Q6_K weight of the Q4_K_M model and on
-     a Q4_0 and a Q4_1 weight, bit for bit (a difference fails); K9/K10 at
+     a Q4_0 and a Q4_1 weight, bit for bit (a difference fails); K6 at a
+     TinyLlama and an OLMo-2 prefill chunk and a `serve_contig` mixed
+     step; K9/K10 at
      the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
      steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
@@ -379,8 +390,11 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     gen.reset()
     for fn in kernels.values():
         fn.launches = 0
+    k6 = kernels["flash_attention"]
+    k6.mma_launches = 0
     res = gen.generate(ids, max_new=NEW_TOKENS)
     counts = {name: fn.launches for name, fn in kernels.items()}
+    k6_mma = k6.mma_launches
     n_chunks = -(-PROMPT_TOKENS // CHUNK)
     n_steps = len(res.tokens) - 1
     expected = want(cfg, n_steps, n_chunks)
@@ -393,11 +407,15 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
           "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
-          "launches": counts, "launches_expected": expected, "card": card})
+          "launches": counts, "launches_expected": expected,
+          "flash_attention_mma_launches": k6_mma, "card": card})
     if n_steps != NEW_TOKENS - 1:
         fail(f"{ftype}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
         fail(f"{ftype}: kernel launch counts {counts} != expected {expected}")
+    if k6_mma != counts["flash_attention"]:  # the Generator's bf16 cache
+        fail(f"{ftype}: {k6_mma} of {counts['flash_attention']} K6 launches took the "
+             "tensor-core form")
     if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
         fail(f"{ftype}: main-path logits are not finite or have the wrong shape")
     return model, counts, gen, ids, res.tokens
@@ -560,13 +578,22 @@ def small_engine_check(torch, kernels: dict, layout: str):
                     and req["cpu_top2_gap"] <= min(TIE_GAP, 2 * req["logit_diff_at_part"])):
                 bad.append(f"tokens part at step {part} with no near tie there: {req}")
         per_req.append(req)
+    # contiguous: a mixed step attends column 0 once more through the T=1
+    # kernel, K2 (llama) or K8 (OLMo-2), as a decode step does
+    want = {}
+    if kw.get("kv_layout") == "contiguous":
+        n_l = (SMALL_OLMO2 if name == "small_olmo2" else SMALL)["n_layers"]
+        dec, pre = g_cnt["decode_steps_total"], g_cnt["prefill_steps_total"]
+        t1 = "attn_decode_update" if name == "small_olmo2" else "attn_decode_qkv"
+        want = {t1: n_l * (dec + pre), "flash_attention": n_l * pre}
     res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": ftype,
            "shape": SMALL_OLMO2 if name == "small_olmo2" else SMALL, "dtype": "float32",
            "kv": str(kw["kv_dtype"]), "n_slots": 2, "max_len": 256, "chunk": 16,
            "tokens_equal": g_got == c_got, "requests": per_req, "logits_nmse_tolerance": ENGINE_NMSE,
            "tie_gap_limit": TIE_GAP if layout in TIE_LAYOUTS else 0.0,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
-           "n_prompt_reused": [r[3] for r in g_got], "gpu_launches": g_k}
+           "n_prompt_reused": [r[3] for r in g_got], "gpu_launches": g_k,
+           "gpu_launches_expected": want}
     emit(res)
     if any(r[4] for r in g_got + c_got):
         fail(f"engine errors: {[r[4] for r in g_got + c_got]}")
@@ -574,24 +601,31 @@ def small_engine_check(torch, kernels: dict, layout: str):
         fail(f"GPU engine disagrees with the CPU engine ({layout}): {bad}; {g_got} / {c_got}, "
              f"{g_cnt} / {c_cnt}")
     # the re-send reuses 128 (a whole page) or, contiguous, its 130 tokens
-    if g_got[-1][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not):
+    if g_got[-1][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not) \
+            or any(g_k[n] != c for n, c in want.items()):
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
 
-def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
+def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
+                kv_layout: str = "auto") -> dict:
     """The serving main path: ZllmServer (defaults; `kv_dtype="q8"` for the
-    q8 KV cache, whose auto layout is the contiguous one) over the
-    TinyLlama-geometry Q4_K_M model on a local port.  Warm up, set the
-    launch counts to 0, then the traffic; the counts must match the
-    engine's own step counters exactly.  Returns the counts."""
+    q8 KV cache, whose auto layout is the contiguous one; `kv_layout=
+    "contiguous"` for the bf16 contiguous stripe) over the TinyLlama-geometry
+    Q4_K_M model on a local port.  Warm up, set the launch counts to 0, then
+    the traffic; the counts must match the engine's own step counters
+    exactly.  Returns the counts."""
     from zllm_torch.ops import attention as att
     from zllm_torch.server.http import ZllmServer
 
     q8 = kv_dtype == "q8"
+    contig = kv_layout == "contiguous" and not q8
+    phase = "serve_q8" if q8 else "serve_contig" if contig else "serve"
     # the mixed steps' attention must take the tensor-core loop (bf16 pools;
-    # int8 codes at 1024 query rows a kv head), counted apart on its wrapper
-    mma_fn = att.flash_attention_blockwise if q8 else att.paged_attention
-    srv = ZllmServer(model, port=0, kv_dtype=kv_dtype)
+    # int8 codes at 1024 query rows a kv head; K6's bf16 form over the
+    # contiguous stripe), counted apart on its wrapper
+    mma_fn = (att.flash_attention_blockwise if q8 else att.flash_attention if contig
+              else att.paged_attention)
+    srv = ZllmServer(model, port=0, kv_dtype=kv_dtype, kv_layout=kv_layout)
     srv.start_background()
     eng = srv.engine
     text = ("The quick brown fox jumps over the lazy dog while the chip counts every "
@@ -629,7 +663,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
             t.join(timeout=600)
         window = time.perf_counter() - t0
         if any(t.is_alive() for t in threads) or len(results) != len(SERVE_PROMPT_BYTES):
-            fail("serve: concurrent requests did not finish")
+            fail(f"{phase}: concurrent requests did not finish")
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results.values())
         ttft_n = eng.hist_ttft.n - ttft0[1]
         ttft_mean = (eng.hist_ttft.total - ttft0[0]) / max(ttft_n, 1)
@@ -658,9 +692,12 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
     expected.update(q4k_gemm=(4 * L + (L - low)) * (dec + pre),
                     dequant_gemm=(L + low + 1) * (dec + pre))
     # a mixed step attends column 0 (a generating row's token) once more
-    # through the T=1 kernel, as a decode step does (models/llama.py::_attend)
+    # through the T=1 kernel, as a decode step does (models/llama.py:
+    # `_attend`; over the contiguous stripe K2 in `layer_forward`)
     if q8:
         expected.update(flash_attention_blockwise=L * (dec + 2 * pre))
+    elif contig:
+        expected.update(attn_decode_qkv=L * (dec + pre), flash_attention=L * pre)
     else:
         expected.update(paged_attn_decode_update=L * (dec + pre), paged_attention=L * pre)
     # the cache's bytes against a bf16 contiguous cache of the same slots
@@ -668,16 +705,16 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
     kv_bytes = sum(x.numel() * x.element_size()
                    for name in (("k", "v", "ks", "vs") if q8 else ("k", "v"))
                    for x in getattr(kv, name))
-    layout = {"kv_layout": "contiguous", "kv_dtype": "q8 (int8 codes + f32 scales)",
-              "kv_slots": kv.max_len} if q8 else {
-        "kv_layout": "paged", "kv_dtype": "bfloat16", "page_size": eng.alloc.ps}
+    layout = {"kv_layout": "paged", "kv_dtype": "bfloat16", "page_size": eng.alloc.ps} if (
+        eng.paged) else {"kv_layout": "contiguous", "kv_slots": kv.max_len, "kv_dtype":
+                         "q8 (int8 codes + f32 scales)" if q8 else "bfloat16"}
     bf16_bytes = 2 * L * eng.n_slots * model.cfg.n_kv_heads * (
-        kv.max_len if q8 else eng.max_len) * model.cfg.head_dim * 2
+        eng.max_len if eng.paged else kv.max_len) * model.cfg.head_dim * 2
     finishes = [r["choices"][0]["finish_reason"] for r in
                 (*results.values(), resend, *sequential.values())] + [chat_finish]
     same = all(results[n]["choices"][0]["text"] == sequential[n]["choices"][0]["text"]
                for n in SERVE_PROMPT_BYTES)
-    emit({"phase": "serve_q8" if q8 else "serve",
+    emit({"phase": phase,
           "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
           "dtype": "bfloat16", **layout, "n_slots": eng.n_slots,
           "max_len": eng.max_len, "chunk": eng.prefill_chunk, "kv_bytes": kv_bytes,
@@ -691,19 +728,18 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None) -> dict:
           "mma_launches": mma, "mma_launches_expected": L * pre, "card": card})
     if steps["engine_errors_total"] or m1["engine_errors_total"] or "error" in finishes \
             or "" in finishes:
-        fail(f"serve: engine errors {steps['engine_errors_total']}, finishes {finishes}")
+        fail(f"{phase}: engine errors {steps['engine_errors_total']}, finishes {finishes}")
     if not same:
-        fail("serve: concurrent texts differ from the same bodies sent one at a time: "
+        fail(f"{phase}: concurrent texts differ from the same bodies sent one at a time: "
              f"{[(results[n]['choices'][0]['text'], sequential[n]['choices'][0]['text']) for n in SERVE_PROMPT_BYTES]}")
     # paged: the re-send shares two full pages; contiguous: an idle slot's
     # own prefix
-    if reused < (1 if q8 else 256):
-        fail(f"serve: {reused} prompt tokens reused after the re-send")
+    if reused < (256 if eng.paged else 1):
+        fail(f"{phase}: {reused} prompt tokens reused after the re-send")
     if counts != expected or not dec or not pre:
-        fail(f"serve: kernel launch counts {counts} != expected {expected}")
+        fail(f"{phase}: kernel launch counts {counts} != expected {expected}")
     if mma != L * pre:
-        fail(f"serve: {mma} of the {L * pre} mixed-step attentions took the tensor-core loop "
-             f"(attn_mma.cuh)")
+        fail(f"{phase}: {mma} of the {L * pre} mixed-step attentions took the tensor-core loop")
     return dict(counts, mma_launches=mma)
 
 
@@ -739,12 +775,16 @@ def main():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "built": sorted(reports), "ptxas": ptxas})
     mma_build = ptxas_entries(reports, "attn_mma_kernel")
-    emit({"phase": "build_attn_mma", "instantiations": mma_build,
-          "note": "registers and spills of the tensor-core attention loop (K7 multi-row, "
-                  "K10 bf16)" if mma_build else "not built in this run (cached)"})
-    spills = [e for e in mma_build if e["spill_stores"] or e["spill_loads"]]
+    k6_build = ptxas_entries({"flash_attn": reports.get("flash_attn", "")}, "flash_mma_kernel")
+    emit({"phase": "build_attn_mma", "instantiations": mma_build + k6_build,
+          "note": "registers and spills of the tensor-core attention loops: attn_mma.cuh (K7 "
+                  "multi-row, K10 bf16) and K6's two-pass form (flash_attn.cu, bf16 K/V; "
+                  "q f32/bf16 x D 64/128)" if mma_build else "not built in this run (cached)"})
+    spills = [e for e in mma_build + k6_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the tensor-core attention loop spills: {spills}")
+    if "flash_attn" in reports and len(k6_build) != 4:
+        fail(f"flash_attn: {len(k6_build)} tensor-core instantiations built, not 4")
     slice_build = ptxas_entries(reports, "zt_slice")
     emit({"phase": "build_gemm_slice", "instantiations": slice_build,
           "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
@@ -783,10 +823,12 @@ def main():
         small_engine_check(torch, kernels, layout)
 
     # ---- main paths at TinyLlama geometry -------------------------------
+    # every T > 1 step over the contiguous cache (a prefill chunk here)
+    # attends column 0 once more through the decode step's kernel, K2 or K8
     def want_q4k(cfg, n_steps, n_chunks):
         L = cfg.n_layers  # wqkv, wo, gate|up, down a layer + the head
         return dict({name: 0 for name in kernels}, q4k_matvec=(4 * L + 1) * n_steps,
-                    attn_decode_qkv=L * n_steps, q4k_gemm=(4 * L + 1) * n_chunks,
+                    attn_decode_qkv=L * (n_steps + n_chunks), q4k_gemm=(4 * L + 1) * n_chunks,
                     flash_attention=L * n_chunks)
 
     def want_olmo2(cfg, n_steps, n_chunks):
@@ -794,8 +836,8 @@ def main():
         # four, "norm" for the head), and K8 where llama takes K2
         L = cfg.n_layers
         return dict({name: 0 for name in kernels}, q4k_matvec=(4 * L + 1) * n_steps,
-                    attn_decode_update=L * n_steps, q4k_gemm=(4 * L + 1) * n_chunks,
-                    flash_attention=L * n_chunks)
+                    attn_decode_update=L * (n_steps + n_chunks),
+                    q4k_gemm=(4 * L + 1) * n_chunks, flash_attention=L * n_chunks)
 
     def want_q4km(cfg, n_steps, n_chunks):
         # Q4_K: wq, wk, wo, gate|up a layer + ffn_down of the last L/2;
@@ -803,7 +845,7 @@ def main():
         L, low = cfg.n_layers, cfg.n_layers // 2
         k1, k4 = 4 * L + (L - low), L + low + 1
         return dict({name: 0 for name in kernels}, q4k_matvec=k1 * n_steps,
-                    int8_matvec=k4 * n_steps, attn_decode_qkv=L * n_steps,
+                    int8_matvec=k4 * n_steps, attn_decode_qkv=L * (n_steps + n_chunks),
                     q4k_gemm=k1 * n_chunks, dequant_gemm=k4 * n_chunks,
                     flash_attention=L * n_chunks)
 
@@ -855,10 +897,12 @@ def main():
 
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
+    counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
-             "olmo2_q4_1_hbm": counts_o1_hbm, "serve": counts_serve, "serve_q8": counts_q8}
+             "olmo2_q4_1_hbm": counts_o1_hbm, "serve": counts_serve, "serve_q8": counts_q8,
+             "serve_contig": counts_contig}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -1006,46 +1050,79 @@ def main():
                       launches_per_chunk=len(gcalls),
                       q4km_chunk=dict(q4km_k3, launches=len(gcalls_m))))
 
-    # K6: one prefill chunk's 22 attentions: the second chunk (base 256)
-    base = CHUNK
-    q = randn(1, CHUNK, hq, hd)
-    ks = [randn(1, hkv, MAX_LEN, hd, dtype=torch.bfloat16) for _ in layers]
-    vs = [randn(1, hkv, MAX_LEN, hd, dtype=torch.bfloat16) for _ in layers]
-    positions = (base + torch.arange(CHUNK, device="cuda", dtype=torch.int32))[None]
-    a = att.flash_attention(q, ks[0], vs[0], positions, scale=scale)
-    b = att.flash_attention_plain(q, ks[0], vs[0], positions, scale=scale)
-    k6_err, k6_abs = nmse(a, b), float((a - b).abs().max())
-    qbf = q.to(torch.bfloat16).transpose(1, 2)
-    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
-            <= positions[0, :, None]).reshape(1, 1, CHUNK, MAX_LEN)
+    # K6 (bf16 K/V: the tensor-core form): one step's attentions, each layer
+    # its own K/V, rows b from starts[b]: a TinyLlama prefill chunk (the
+    # second, base 256, 22 layers), an OLMo-2 one (16 layers, 16/16 heads of
+    # 128) and a contiguous serve mixed step (chunk 128, rows from 0, 256,
+    # 300 and an idle row at 2048, S = 2048 + 128)
     import torch.nn.functional as F
 
-    def k6():
-        for k_, v_ in zip(ks, vs):
-            att.flash_attention(q, k_, v_, positions, scale=scale)
+    def k6_case(n_layers: int, t: int, hq_: int, hkv_: int, d: int, s: int, starts: list,
+                qdtype=torch.float32):
+        b = len(starts)
+        pos6 = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+                + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+        q6 = randn(b, t, hq_, d, dtype=qdtype)
+        kvs = [(randn(b, hkv_, s, d, dtype=torch.bfloat16), randn(b, hkv_, s, d,
+                                                                 dtype=torch.bfloat16))
+               for _ in range(n_layers)]
+        kw6 = dict(scale=d ** -0.5)
+        a = att.flash_attention(q6, *kvs[0], pos6, **kw6)
+        b_ = att.flash_attention_plain(q6, *kvs[0], pos6, **kw6)
 
-    def k6_plain():
-        for k_, v_ in zip(ks, vs):
-            att.flash_attention_plain(q, k_, v_, positions, scale=scale)
+        def run(fn):
+            def go():
+                for k_, v_ in kvs:
+                    fn(q6, k_, v_, pos6, **kw6)
+            return go
 
-    def k6_lib():
-        for k_, v_ in zip(ks, vs):
-            F.scaled_dot_product_attention(qbf, k_, v_, attn_mask=mask, scale=scale,
-                                           enable_gqa=True)
+        q6b = q6.to(torch.bfloat16).transpose(1, 2)
+        mask6 = (torch.arange(s, device="cuda")[None, None, :]
+                 <= pos6[:, :, None]).reshape(b, 1, t, s)
 
-    visible = sum(base + t + 1 for t in range(CHUNK))
-    nbytes = per_layer * (q.numel() * 4 * 2 + 2 * hkv * (base + CHUNK) * hd * 2)
-    ops = per_layer * 4 * hq * hd * visible
-    bms, bby = bound_ms(nbytes, ops, "bf16")
+        def lib():
+            for k_, v_ in kvs:
+                F.scaled_dot_product_attention(q6b, k_, v_, attn_mask=mask6, enable_gqa=True,
+                                               **kw6)
+
+        # slots each row reads (its widest query's span) and the (query,
+        # slot) pairs the causal mask lets through, each query its own span
+        seen = sum(min(p_ + t - 1, s - 1) + 1 for p_ in starts)
+        pairs = sum(min(p_ + i, s - 1) + 1 for p_ in starts for i in range(t))
+        nbytes = n_layers * (2 * q6.numel() * q6.element_size() + 2 * hkv_ * seen * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq_ * d * pairs, "bf16")
+        return dict(ms=cuda_ms(run(att.flash_attention), 10),
+                    plain_ms=cuda_ms(run(att.flash_attention_plain), 2),
+                    library_ms=cuda_ms(lib, 10), bound_ms=bms, bound_by=bby,
+                    nmse=nmse(a, b_), max_abs_err=float((a - b_).abs().max()), tolerance=1e-5,
+                    launches=n_layers,
+                    shapes=f"q [{b},{t},{hq_},{d}] {str(qdtype)[6:]} from {starts}, k/v "
+                           f"[{b},{hkv_},{s},{d}] bf16, {n_layers} layers")
+
+    cfg_o = model_o.cfg
+    # (a bf16 q is one bf16 part where an f32 q is three: the MMAs' share)
+    k6 = {"tinyllama_chunk": k6_case(per_layer, CHUNK, hq, hkv, hd, MAX_LEN, [CHUNK]),
+          "tinyllama_chunk_bf16_q": k6_case(per_layer, CHUNK, hq, hkv, hd, MAX_LEN, [CHUNK],
+                                            torch.bfloat16),
+          "olmo2_chunk": k6_case(cfg_o.n_layers, CHUNK, cfg_o.n_heads, cfg_o.n_kv_heads,
+                                 cfg_o.head_dim, MAX_LEN, [CHUNK]),
+          "serve_contig_mixed_step": k6_case(per_layer, 128, hq, hkv, hd, MAX_LEN + 128,
+                                             [0, 256, 300, MAX_LEN])}
+    head6 = k6["tinyllama_chunk"]
     lines.append(dict(name="flash_attention", route="cuda", source="zllm_torch/csrc/flash_attn.cu",
                       replaces="zllm/ops/attention.py:33", launches=counts_q4k["flash_attention"],
-                      max_abs_err=k6_abs, ms=cuda_ms(k6, 10), plain_ms=cuda_ms(k6_plain, 2),
-                      bound_ms=bms, bound_by=bby, library_ms=cuda_ms(k6_lib, 10), nmse=k6_err,
-                      tolerance=1e-5, launches_by_path=by_path("flash_attention"),
-                      unit="one prefill chunk (22 launches)",
-                      shapes=f"q [1,{CHUNK},{hq},{hd}] f32 at base {base}, k/v "
-                             f"[1,{hkv},{MAX_LEN},{hd}] bf16", launches_per_chunk=per_layer))
-    del ks, vs
+                      mma_launches=counts_contig["mma_launches"],
+                      **{k: head6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "nmse", "max_abs_err", "tolerance",
+                                               "shapes")},
+                      library="scaled_dot_product_attention", form="bf16 K/V: two passes on "
+                      "the tensor cores; f32 K/V: the tile loop attn_tile.cuh",
+                      launches_by_path=by_path("flash_attention"),
+                      unit="one TinyLlama prefill chunk (22 launches)",
+                      launches_per_chunk=per_layer, olmo2_chunk=k6["olmo2_chunk"],
+                      bf16_q_chunk=k6["tinyllama_chunk_bf16_q"],
+                      serve_contig_mixed_step=k6["serve_contig_mixed_step"]))
+    bad_k6 = [name for name, r in k6.items() if not r["nmse"] <= r["tolerance"]]
 
     # K9 / K10 at the serving path's shapes: 4 slots, 16 logical pages of
     # 128 (max_len 2048), 65 physical pages per layer pool, a scrambled table
@@ -1291,7 +1368,6 @@ def main():
                     shapes=f"q [{b},1,{hq_},{d}] f32, k/v_new [{b},1,{hkv_},{d}] f32, cache "
                            f"[{b},{hkv_},{s},{d}] bf16, pos {pos_vals}, {n_layers} layers")
 
-    cfg_o = model_o.cfg
     k8_o = k8_case(cfg_o.n_layers, 1, cfg_o.n_heads, cfg_o.n_kv_heads, cfg_o.head_dim, MAX_LEN,
                    [pos_v])
     k8_t = k8_case(per_layer, 4, hq, hkv, hd, MAX_LEN + 128, [255, 0, 300, MAX_LEN])
@@ -1551,9 +1627,10 @@ def main():
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
-    if bad or bad_q8 or bad_m4 or bad_k7 or bad_k8 or bad_legacy:
+    if bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
-             f"M=4: {bad_m4}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: {bad_legacy})")
+             f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "
+             f"{bad_legacy})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})

@@ -271,14 +271,38 @@ def test_k2_matches_plain(dev, case, cdtype):
     assert _nmse(k1.float(), k2.float()) < 1e-9
 
 
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("style", ["norm", "neox"])
+def test_k2_rope_equals_apply_rope(dev, style, cdtype):
+    """K2's in-kernel rope of the new k row gives apply_rope's bits (cast to
+    the cache dtype), so a mixed step's re-insert of slot pos0 through K2
+    (models/llama.py) leaves a prompt row's slot as kv.update wrote it."""
+    b, hq, hkv, d, s = 4, 32, 4, 64, 2176
+    qkv3 = _randn((b, hq + 2 * hkv, d), 13, dev, scale=3.0)
+    kc = _randn((b, hkv, s, d), 14, dev, cdtype)
+    vc = _randn((b, hkv, s, d), 15, dev, cdtype)
+    pos = torch.tensor([0, 256, 300, 2048], dtype=torch.int32, device=dev)
+    rope = tl.RopeParams(dim=d, style=style)
+    ta.attn_decode_qkv(qkv3, kc, vc, pos, tl.rope_table(pos, rope, d), scale=d ** -0.5)
+    want = tl.apply_rope(qkv3[:, None, hq:hq + hkv], pos[:, None], rope).to(cdtype)
+    torch.cuda.synchronize()
+    rows = torch.arange(b, device=dev)
+    assert torch.equal(kc[rows, :, pos.long()], want[:, 0])
+
+
+K6_SHAPES = {"tinyllama": (32, 4, 64), "olmo2": (16, 16, 128)}  # Hq, Hkv, D
+
+
 @pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
 @pytest.mark.parametrize("case", ["plain", "sinks", "softcap", "window", "base0", "b2",
-                                  "d128", "ragged", "bf16q"])
+                                  "d128", "ragged", "bf16q", "olmo2"])
 def test_k6_matches_plain(dev, case, kvdtype):
     b = 2 if case == "b2" else 1
     d = 128 if case == "d128" else 64
     t = 37 if case == "ragged" else 256
     hq, hkv, s = 32, 4, 1024
+    if case == "olmo2":  # OLMo-2-0425-1B: G = 1, D = 128
+        hq, hkv, d = K6_SHAPES["olmo2"]
     base = 0 if case == "base0" else 256
     qdtype = torch.bfloat16 if case == "bf16q" else torch.float32
     q = _randn((b, t, hq, d), 9, dev, qdtype)
@@ -295,6 +319,51 @@ def test_k6_matches_plain(dev, case, kvdtype):
     torch.cuda.synchronize()
     assert got.dtype == qdtype and got.shape == q.shape
     assert _nmse(got.float(), want.float()) < 1e-5
+
+
+def _k6_inputs(dev, shape, b, t, s, qdtype, kvdtype, seed):
+    hq, hkv, d = K6_SHAPES[shape]
+    return (_randn((b, t, hq, d), seed, dev, qdtype),
+            _randn((b, hkv, s, d), seed + 1, dev, kvdtype),
+            _randn((b, hkv, s, d), seed + 2, dev, kvdtype), d ** -0.5)
+
+
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("shape", list(K6_SHAPES))
+@pytest.mark.parametrize("window", [0, 100])
+def test_k6_rows_do_not_depend_on_t_or_b(dev, window, shape, qdtype, kvdtype):
+    """A row's bits depend on its q, its position and the cache only: the
+    rows of a T = 44 call equal the first 44 rows of a T = 128 call from the
+    same pos0, and row b of a B = 4 call (rows from 0, 256, 300 and an idle
+    row at 2048) equals a B = 1 call on that row, bit for bit."""
+    s = 2176
+    q, k, v, scale = _k6_inputs(dev, shape, 4, 128, s, qdtype, kvdtype, 20)
+    starts = torch.tensor([0, 256, 300, 2048], dtype=torch.int32, device=dev)
+    pos = starts[:, None] + torch.arange(128, dtype=torch.int32, device=dev)[None]
+    kw = dict(scale=scale, window=window)
+    full = ta.flash_attention(q, k, v, pos, **kw)
+    short = ta.flash_attention(q[:, :44].contiguous(), k, v, pos[:, :44], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(short, full[:, :44])
+    for r in range(4):
+        one = ta.flash_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1], pos[r:r + 1], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], full[r])
+
+
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
+def test_k6_counts_tensor_core_launches(dev, kvdtype):
+    """bf16 K/V take the tensor-core form and count in `.mma_launches`; f32
+    K/V take the tile loop and do not."""
+    q, k, v, scale = _k6_inputs(dev, "tinyllama", 1, 64, 512, torch.float32, kvdtype, 30)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    before = (ta.flash_attention.launches, ta.flash_attention.mma_launches)
+    ta.flash_attention(q, k, v, pos, scale=scale)
+    torch.cuda.synchronize()
+    mma = int(kvdtype == torch.bfloat16)
+    assert (ta.flash_attention.launches, ta.flash_attention.mma_launches) == (
+        before[0] + 1, before[1] + mma)
 
 
 def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
@@ -595,27 +664,35 @@ def test_k11_quantize_bit_equal(dev, k, xdtype):
     assert got[0].dtype == torch.int8 and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("kv", ["paged_bf16", "q8"])
+@pytest.mark.parametrize("kv", ["paged_bf16", "q8", "contiguous_bf16", "olmo2_contiguous_bf16"])
 def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     """Greedy requests served together (a generating row riding the mixed
     steps of another request's prefill) and one at a time give the same
     logits rows and tokens, bit for bit: K3/K5 rows do not depend on M, and
     a mixed step attends a one-token row through the T=1 kernel (K9; K7's
-    split form with the q8 cache), as a decode step does."""
+    split form with the q8 cache; over a contiguous bf16 cache K2 for llama,
+    K8 for OLMo-2), as a decode step does.  The fourth prompt extends the
+    first's first 50 tokens: alone, the contiguous and q8 layouts reuse
+    them and prefill its last token as a chunk of one, which keeps the
+    multi-row kernel's bits as inside its longer chunk served together."""
     import time
 
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
     from zllm_torch.testing import make_llama_gguf
 
-    path = make_llama_gguf(str(tmp_path / "m.gguf"), gtype=GGMLType.Q4_K, seed=0)
+    olmo2 = dict(arch="olmo2", n_kv_heads=4, norm_eps=1e-6, rope_base=500000.0)
+    path = make_llama_gguf(str(tmp_path / "m.gguf"), gtype=GGMLType.Q4_K, seed=0,
+                           **(olmo2 if kv.startswith("olmo2") else {}))
     model = Model.load(path, device="cuda", dtype=torch.bfloat16)
+    layout = dict(kv_dtype="q8") if kv == "q8" else dict(
+        kv_dtype=torch.bfloat16, kv_layout="contiguous" if "contiguous" in kv else "paged")
     rng = np.random.default_rng(3)
     prompts = [[1] + [int(t) for t in rng.integers(3, 512, n - 1)] for n in (70, 40, 9)]
+    prompts.append(prompts[0][:50] + [7])
 
     def serve(groups):
-        eng = Engine(model, n_slots=4, max_len=256, prefill_chunk=16,
-                     kv_dtype="q8" if kv == "q8" else torch.bfloat16)
+        eng = Engine(model, n_slots=4, max_len=256, prefill_chunk=16, **layout)
         rows, real = {}, eng._sample_and_emit
 
         def record(lg, cols, slots):

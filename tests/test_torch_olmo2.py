@@ -187,10 +187,12 @@ def test_decode_steps_take_k8_never_k2(files, monkeypatch):
     m = Model.load(files[("gqa", "Q4_K")], device="cpu", dtype=torch.bfloat16)
     gen = Generator(m, max_len=64, prefill_chunk=16)
     gen.prefill(PROMPT)
-    assert calls == {"attn_decode_update": 0, "attn_decode_qkv": 0,
+    # a chunk (T > 1) attends column 0 once more through K8, as the
+    # engine's mixed steps must (models/llama.py::_attend)
+    assert calls == {"attn_decode_update": 2 * m.cfg.n_layers, "attn_decode_qkv": 0,
                      "flash_attention": 2 * m.cfg.n_layers}
     gen.decode_steps(5, 3)
-    assert calls == {"attn_decode_update": 3 * m.cfg.n_layers, "attn_decode_qkv": 0,
+    assert calls == {"attn_decode_update": 5 * m.cfg.n_layers, "attn_decode_qkv": 0,
                      "flash_attention": 2 * m.cfg.n_layers}
 
 

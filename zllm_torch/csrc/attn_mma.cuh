@@ -6,8 +6,10 @@
 // `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point at the row of slot s0, and
 // the CH rows from s0 on are contiguous; an addressor with `kScales` (int8
 // codes) also gives `k_scales` / `v_scales(b, h, s0)`, the f32 scale of
-// each row from s0 on.  attn_tile.cuh's CUDA-core loop stays for K6 and
-// for K10's f32 pools.
+// each row from s0 on.  K6's bf16 K/V take a two-pass loop of their own
+// (flash_attn.cu: the row's final max and sum before any probability is
+// rounded) built from this file's layout and helpers; attn_tile.cuh's
+// CUDA-core loop stays for K6's f32 K/V and K10's f32 pools.
 //
 // Queries q[B, T, Hq, D] (f32 or bf16) at consecutive positions
 // pos0[b] + t attend slots 0 .. S-1 that are <= pos (and > pos - window),
@@ -158,6 +160,111 @@ __device__ __forceinline__ int row_span(const Params& a, int b) {
   return hi - lo;
 }
 
+// This block's row block rb and kv head h, and (into the shared *b_sel,
+// read after a barrier) its row b: rows by their span, longest first (ties
+// by index), so the rows with the most slots to read start first; within
+// a row the later (longer) row blocks first.
+__device__ __forceinline__ void order_block(const Params& a, int nrb, int& rb, int& h,
+                                            int* b_sel) {
+  const int per_row = a.Hkv * nrb;
+  const int rank = blockIdx.x / per_row, rem = blockIdx.x % per_row;
+  rb = nrb - 1 - rem / a.Hkv;
+  h = rem % a.Hkv;
+  for (int bb = threadIdx.x; bb < a.B; bb += kThreads) {
+    const int wb = row_span(a, bb);
+    int k = 0;
+    for (int o = 0; o < a.B; ++o) {
+      const int wo = row_span(a, o);
+      k += (wo > wb) || (wo == wb && o < bb);
+    }
+    if (k == rank) *b_sel = bb;
+  }
+}
+
+// Query rows r0 .. r0 + QB - 1 of (row b, kv head h) -> shared qs
+// [NQ][QB][QS], as NQ bf16 parts (zeros past the R = T * G rows).
+template <typename TQ, int D, int NQ, int QS>
+__device__ __forceinline__ void stage_q(const Params& a, int b, int h, int r0,
+                                        __nv_bfloat16* qs) {
+  const TQ* q = static_cast<const TQ*>(a.q);
+  const int G = a.Hq / a.Hkv, R = a.T * G;
+  for (int e = threadIdx.x; e < QB * D / 4; e += kThreads) {
+    const int rr = e / (D / 4), dd = (e % (D / 4)) * 4, r = r0 + rr;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < R) {
+      const TQ* src = q + (((size_t)b * a.T + r / G) * a.Hq + h * G + r % G) * D + dd;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = zt_attn::to_f(src[i]);
+    }
+    uint32_t pk[3][2];
+    split_pair<NQ>(x[0], x[1], pk[0][0], pk[1][0], pk[2][0]);
+    split_pair<NQ>(x[2], x[3], pk[0][1], pk[1][1], pk[2][1]);
+#pragma unroll
+    for (int part = 0; part < NQ; ++part)
+      *reinterpret_cast<uint2*>(qs + (part * QB + rr) * QS + dd) =
+          make_uint2(pk[part][0], pk[part][1]);
+  }
+}
+
+// A warp's scores of NT * 8 slots of a chunk: s[n] (zeroed here) the 16x8
+// accumulator of the rows wr0 .. wr0 + 15 and the K rows 8n .. 8n + 7 of
+// kb (row stride QS), over the NQ parts of q in shared qs.
+template <int NQ, int NT, int D, int QS>
+__device__ __forceinline__ void chunk_scores(float (&s)[NT][4], const __nv_bfloat16* qs,
+                                             const __nv_bfloat16* kb, int wr0, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t aq[NQ][4];
+#pragma unroll
+    for (int part = 0; part < NQ; ++part)
+      ldmatrix_x4(aq[part], qs + (part * QB + wr0 + (lane & 15)) * QS + kk * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * QS + kk * 16 +
+                         ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+      for (int part = 0; part < NQ; ++part) {
+        mma_bf16(s[2 * np], aq[part], b0);
+        mma_bf16(s[2 * np + 1], aq[part], b1);
+      }
+    }
+  }
+}
+
+// Softcap, then the mask (zllm's finite NEG_INF), skipped when `full` (every
+// slot of the half inside every row's band), each a loop of its own under a
+// uniform branch, so that a chunk without softcap or mask runs none of
+// their code.  Slot c0 + 8n + 2 tig + (e & 1) of row i = e >> 1 (position
+// qp[i], valid rv[i]).
+template <int NT>
+__device__ __forceinline__ void cap_and_mask(float (&s)[NT][4], const Params& a, bool full,
+                                             int c0, int tig, const bool* rv, const int* qp) {
+  if (a.softcap > 0.f) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = tanhf(s[n][e] / a.softcap) * a.softcap;
+  }
+  if (!full) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = c0 + n * 8 + tig * 2 + (e & 1);
+        const bool ok = rv[i] && col < a.S && col <= qp[i] &&
+                        (a.window <= 0 || col > qp[i] - a.window);
+        s[n][e] = ok ? s[n][e] : kNegInf;
+      }
+  }
+}
+
 // Two blocks an SM (shared memory holds no more at D 64): the bound leaves
 // ptxas up to 255 registers a thread, where without it it capped the D 128,
 // 128-slot K10 form at 168 and spilled.
@@ -181,45 +288,12 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
   const int rg = warp / kSlotWarps, sh = warp % kSlotWarps;  // row group, share of a chunk
   const int G = a.Hq / a.Hkv, R = a.T * G, nrb = (R + QB - 1) / QB;
 
-  // block order: rows by their span, longest first (ties by index); within
-  // a row the later (longer) row blocks first
-  const int per_row = a.Hkv * nrb;
-  const int rank = blockIdx.x / per_row, rem = blockIdx.x % per_row;
-  const int rb = nrb - 1 - rem / a.Hkv, h = rem % a.Hkv;
-  for (int bb = tid; bb < a.B; bb += kThreads) {
-    const int wb = row_span(a, bb);
-    int k = 0;
-    for (int o = 0; o < a.B; ++o) {
-      const int wo = row_span(a, o);
-      k += (wo > wb) || (wo == wb && o < bb);
-    }
-    if (k == rank) b_sel = bb;
-  }
-
-  // q rows -> shared, as NQ bf16 parts
+  int rb, h;
+  order_block(a, nrb, rb, h, &b_sel);
   const int r0 = rb * QB, r_end = min(r0 + QB, R);
-  {
-    const TQ* q = static_cast<const TQ*>(a.q);
-    __syncthreads();  // b_sel
-    const int b = b_sel;
-    for (int e = tid; e < QB * D / 4; e += kThreads) {
-      const int rr = e / (D / 4), dd = (e % (D / 4)) * 4, r = r0 + rr;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < R) {
-        const TQ* src = q + (((size_t)b * a.T + r / G) * a.Hq + h * G + r % G) * D + dd;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = zt_attn::to_f(src[i]);
-      }
-      uint32_t pk[3][2];
-      split_pair<L::NQ>(x[0], x[1], pk[0][0], pk[1][0], pk[2][0]);
-      split_pair<L::NQ>(x[2], x[3], pk[0][1], pk[1][1], pk[2][1]);
-#pragma unroll
-      for (int part = 0; part < L::NQ; ++part)
-        *reinterpret_cast<uint2*>(qs + (part * QB + rr) * QS + dd) =
-            make_uint2(pk[part][0], pk[part][1]);
-    }
-  }
+  __syncthreads();  // b_sel
   const int b = b_sel;
+  stage_q<TQ, D, L::NQ, QS>(a, b, h, r0, qs);
   const int p0 = a.pos0[b];
 
   // the block's band of slots, walked in visits of CH slots: a page of ps
@@ -323,37 +397,12 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
     // scores of this warp's half: s[n] the 16x8 accumulator of slots
     // s0 + so + 8n .. +7
     float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[L::NQ][4];
-#pragma unroll
-      for (int part = 0; part < L::NQ; ++part)
-        ldmatrix_x4(aq[part], qs + (part * QB + wr0 + (lane & 15)) * QS + kk * 16 +
-                                  (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * QS + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-#pragma unroll
-        for (int part = 0; part < L::NQ; ++part) {
-          mma_bf16(s[2 * np], aq[part], b0);
-          mma_bf16(s[2 * np + 1], aq[part], b1);
-        }
-      }
-    }
+    chunk_scores<L::NQ, NT, D, QS>(s, qs, kb, wr0, lane);
     // scale, K scale, softcap, mask (only where some slot of the half is
     // outside some row's band); the half's row max
     const int c0 = s0 + so;
     const bool full = rows_full && c0 + HC <= a.S && c0 + HC - 1 <= wqp_lo &&
                       (a.window <= 0 || c0 > wqp_hi - a.window);
-    // each step a loop of its own under a uniform branch, so that a chunk
-    // without softcap or mask runs none of their code
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -362,23 +411,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
         if constexpr (KV::kScales) x *= ksc[n * 8 + tig * 2 + (e & 1)];
         s[n][e] = x;
       }
-    if (a.softcap > 0.f) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = tanhf(s[n][e] / a.softcap) * a.softcap;
-    }
-    if (!full) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, col = c0 + n * 8 + tig * 2 + (e & 1);
-          const bool ok = rv[i] && col < a.S && col <= qp[i] &&
-                          (a.window <= 0 || col > qp[i] - a.window);
-          s[n][e] = ok ? s[n][e] : kNegInf;
-        }
-    }
+    cap_and_mask<NT>(s, a, full, c0, tig, rv, qp);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < NT; ++n)

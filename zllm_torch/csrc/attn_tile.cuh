@@ -1,9 +1,10 @@
-// The multi-token attention tile loop on the CUDA cores, used by K6
-// (flash_attn.cu, a contiguous cache, f32 or bf16) and by K10's f32 pools
+// The multi-token attention tile loop on the CUDA cores, used by K6's f32
+// K/V (flash_attn.cu, a contiguous cache) and by K10's f32 pools
 // (paged_attn.cu, a page pool read through a page table), where bf16
 // tensor-core operands would round K/V.  K10's bf16 pools and K7's
 // multi-row form take the one-pass tensor-core loop of attn_mma.cuh
-// instead; its helpers to_f / from_f are shared from here.  The users
+// instead, K6's bf16 K/V its own two-pass one (flash_attn.cu); the helpers
+// to_f / from_f are shared from here.  The users
 // differ only in where a tile of K/V rows lives, which the KV
 // addressor type answers: `k_rows(b, h, s0)` / `v_rows(b, h, s0)` point at
 // the row of slot s0, and the KT rows from s0 on are contiguous.

@@ -20,7 +20,7 @@
 // page of one chunk is scored once, a larger one walked twice (its max,
 // then P.V).  f32 pools (the f32 engines and tests; bf16 operands would
 // round K/V) take the CUDA-core tile loop of attn_tile.cuh (shared with
-// K6) in 64-slot tiles, whose probabilities, normalized before the
+// K6's f32 K/V) in 64-slot tiles, whose probabilities, normalized before the
 // rounding to f32, are the same values.
 //
 // Bound on the H100: 4 * Hq * D FLOPs per visible (query, slot) pair over

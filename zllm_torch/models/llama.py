@@ -24,13 +24,18 @@ scales.  With the serving engine's paged cache (`runtime/paged.PagedKVCache`)
 at T=1 rope runs outside the kernel and K9 inserts and attends in one
 launch, as zllm does; at T>1 the rows are scattered into their pages and
 K10 attends through the page table.  A row of a T>1 step that holds one
-token (trash positions after column 0: the engine's generating rows,
-which ride its mixed steps in column 0) takes its attention from the
-T=1 kernel as well, K9 (with the q8 cache, K7's split form), so that it
-gets the bits a decode step would give it: the multi-row kernels (K10,
-K7's tensor-core form) agree with the T=1 ones only to f32 rounding, and a
-request's greedy tokens must not depend on the steps it rides.  MoE, MLA,
-LoRA, sliding window, ALiBi and sinks are not part of this block.
+generating token (one trash position repeated after column 0: the
+engine's generating rows, which ride its mixed steps in column 0; the
+engine pads a prompt run with distinct trash positions) takes its
+attention from the T=1 kernel as well, K9 (with the q8 cache, K7's split
+form; over a contiguous bf16/f32 cache K2, run on column 0 of the raw
+projection rows after K6), so that it gets the bits a decode step would
+give it: the multi-row kernels (K10, K7's tensor-core form, K6) agree
+with the T=1 ones only to f32 rounding, and a request's greedy tokens
+must not depend on the steps it rides.  Every T>1 step runs the T=1
+kernel on column 0, the Generator's prefill chunks too (their rows hold
+many tokens and keep the multi-row kernel's output).  MoE, MLA, LoRA,
+sliding window, ALiBi and sinks are not part of this block.
 
 OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
 projections read the raw residual stream through `linear` (at T=1, B=1
@@ -41,11 +46,11 @@ post-norm on the attention output; the FFN reads the raw stream (gate|up,
 SwiGLU, down) and its output gets the second RMS post-norm.  Attention by
 cache: a contiguous bf16/f32 `KVCache` at T=1 goes to K8
 (`attn_decode_update`: insert the roped row and attend in one call), at
-T>1 to the insert and K6; the paged cache to K9/K10 and the q8 cache to K7,
-as for llama.  zllm's TPU gate for its K8 (`use_decode_fused`: G % 8 == 0
-or G == Hq) is not carried over: OLMo-2-1B (G = 1) fails it, so zllm on a
-TPU takes its unfused path there, while the port sends every such step to
-K8.
+T>1 to the insert and K6, then K8 on column 0 for the one-token rows; the
+paged cache to K9/K10 and the q8 cache to K7, as for llama.  zllm's TPU
+gate for its K8 (`use_decode_fused`: G % 8 == 0 or G == Hq) is not
+carried over: OLMo-2-1B (G = 1) fails it, so zllm on a TPU takes its
+unfused path there, while the port sends every such step to K8.
 """
 
 from __future__ import annotations
@@ -66,11 +71,14 @@ def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
                     first: torch.Tensor) -> torch.Tensor:
     """`out` [B, T, ...] of a T>1 step with column 0 replaced by `first`
     [B, 1, ...] (the T=1 kernel's attention of column 0) in every row that
-    holds one token: column 1 is not column 0's next position, or (T > 2)
-    columns 1 and 2 hold the same (trash) position."""
-    one = positions[:, 1] != positions[:, 0] + 1
+    holds one generating token: columns 1 and 2 hold the same (trash)
+    position, or (T = 2) column 1 is not column 0's next position.  The
+    engine pads a prompt run with distinct trash positions, so a prompt
+    chunk of one token keeps the multi-row kernel's bits."""
     if positions.shape[1] > 2:
-        one |= positions[:, 1] == positions[:, 2]
+        one = positions[:, 1] == positions[:, 2]
+    else:
+        one = positions[:, 1] != positions[:, 0] + 1
     one = one.reshape(-1, *[1] * (out.dim() - 2))
     out[:, 0] = torch.where(one, first[:, 0], out[:, 0])
     return out
@@ -107,14 +115,22 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) ->
         if t == 1:
             return out
         return _one_token_rows(out, positions, k7(q[:, :1], positions[:, :1]))
-    if kv is not None and t == 1:  # K8: insert the row at min(pos, S-1), attend
-        return attn_decode_update(q, k, v, kv.k[il], kv.v[il], positions, scale=scale,
-                                  softcap=softcap)
     if kv is not None:
+        def k8(q_, k_, v_, pos):  # insert the row at min(pos, S-1), attend
+            return attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], pos, scale=scale,
+                                      softcap=softcap)
+
+        if t == 1:
+            return k8(q, k, v, positions)
         kv.update(il, k, v, positions)
         k_all, v_all = kv.layer(il)
-        return flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
-                               positions, scale=scale, softcap=softcap)
+        out = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
+                              positions, scale=scale, softcap=softcap)
+        if cfg.arch != "olmo2":  # llama's T=1 kernel is K2, which layer_forward runs
+            return out
+        # column 0 once more through K8, which writes the k/v kv.update wrote
+        first = k8(*(x[:, :1].contiguous() for x in (q, k, v, positions)))
+        return _one_token_rows(out, positions, first)
     return flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
                            v.transpose(1, 2).contiguous(), positions, scale=scale,
                            softcap=softcap)
@@ -161,8 +177,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   kv: KVCache | KVCacheQ8 | PagedKVCache | None, il: int,
                   rope=None) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
-    `rope` is the contiguous decode step's cos/sin table (built once per
-    step)."""
+    `rope` is K2's cos/sin table at positions[:, 0] over a contiguous
+    cache (built once per step)."""
     if cfg.arch == "olmo2":
         return _olmo2_layer(layer, cfg, x, positions, kv, il)
     b, t = x.shape[:2]
@@ -176,20 +192,27 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         qkv = _projections(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     qkv = qkv.reshape(b, t, -1)
 
+    if isinstance(kv, KVCache) and rope is None:
+        rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
+
+    def k2(row):  # the whole decode attention block in one kernel: split, rope,
+        # in-place cache insert at min(pos, S-1), attention
+        return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
+                               kv.v[il], positions[:, 0].contiguous(), rope, scale=scale,
+                               softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+
     if isinstance(kv, KVCache) and t == 1:
-        # the whole decode attention block in one kernel: split, rope,
-        # in-place cache insert, attention
-        d = cfg.head_dim
-        if rope is None:
-            rope = rope_table(positions[:, 0], cfg.rope, d)
-        att = attn_decode_qkv(qkv.reshape(b, -1, d).contiguous(), kv.k[il], kv.v[il],
-                              positions[:, 0].contiguous(), rope, scale=scale,
-                              softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+        att = k2(qkv)
     else:
         q, k, v = _split_heads(qkv, cfg)
         q = apply_rope(q, positions, cfg.rope)
         k = apply_rope(k, positions, cfg.rope)
         att = _attend(q, k, v, kv, il, positions, cfg, scale)
+        if isinstance(kv, KVCache):
+            # column 0 once more through K2, as a decode step: it re-inserts
+            # every row's slot pos0 with its own rope, whose bits equal
+            # apply_rope's (one f32 product and one sum a pair, no FMA)
+            att = _one_token_rows(att, positions, k2(qkv[:, :1]))
     x = x + linear(att.reshape(b, t, -1), layer["wo"])
 
     ff = None
@@ -219,7 +242,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
     position."""
     x = params["tok_emb"][tokens.long()]
     rope = None
-    if isinstance(kv, KVCache) and tokens.shape[1] == 1 and cfg.arch != "olmo2":
+    if isinstance(kv, KVCache) and cfg.arch != "olmo2":  # K2's table, once a step
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
     for il, layer in enumerate(params["layers"]):
         x = layer_forward(layer, cfg, x, positions, kv, il, rope)

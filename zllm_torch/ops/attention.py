@@ -11,16 +11,19 @@ PyTorch version beside it.
     Source: `zllm_torch/csrc/attn_decode.cu`.
   * `flash_attention` replaces `zllm/ops/attention.py::_attn_kernel` (via
     `flash_attention`): multi-token GQA attention, causal from a base
-    position, window, softcap, sinks in the denominator.
-    Source: `zllm_torch/csrc/flash_attn.cu`.
+    position, window, softcap, sinks in the denominator; the probabilities
+    normalized, then rounded to V's dtype.  Source:
+    `zllm_torch/csrc/flash_attn.cu` (bf16 K/V: two passes on the tensor
+    cores, the row's max and sum, then P.V; f32 K/V: the tile loop
+    `csrc/attn_tile.cuh`, shared with K10's f32 pools).
   * `paged_attention` replaces `zllm/ops/attention.py::_paged_attn_kernel`
     (via `paged_attention`): multi-token attention with K/V read from a
     paged pool through the page table; causal from positions[:, 0], window,
     softcap; zllm's page-by-page online softmax, exp(s - running max)
     rounded to the pool dtype.  Source: `zllm_torch/csrc/paged_attn.cu`
     (bf16 pools: the tensor-core loop `csrc/attn_mma.cuh`, shared with K7;
-    f32 pools: K6's tile loop `csrc/attn_tile.cuh`; a page-table addressor
-    for either).
+    f32 pools: the tile loop `csrc/attn_tile.cuh`, shared with K6's f32
+    form; a page-table addressor for either).
   * `paged_attn_decode_update` replaces
     `zllm/ops/attention.py::_paged_decode_kernel` (via
     `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
@@ -45,8 +48,8 @@ see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
 over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
-`.launches`; K7 and K10 also count in `.mma_launches` those of their
-tensor-core loop.
+`.launches`; K6, K7 and K10 also count in `.mma_launches` those of their
+tensor-core form.
 """
 
 from __future__ import annotations
@@ -218,19 +221,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
         raise ValueError("positions must be int32")
     if sinks is not None and (sinks.dtype != torch.float32 or sinks.numel() != hq):
         raise ValueError("sinks must be float32 [Hq]")
-    cuda.require_cuda(q, k, v, pos0, *([sinks] if sinks is not None else []))
+    cuda.require_cuda(q, k, v, pos0, *([sinks] if sinks is not None else []), aligned=(k, v))
     out = torch.empty_like(q)
-    fn = cuda.bind("flash_attn", "zt_flash_attention",
+    mma = k.dtype == torch.bfloat16  # the tensor-core form; f32 K/V the tile loop
+    fn = cuda.bind("flash_attn", "zt_flash_attention_mma" if mma else "zt_flash_attention",
                    [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
     err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
              cuda.DTYPE_CODE[k.dtype], pos0.data_ptr(), cuda.ptr(sinks), out.data_ptr(),
              b, t, hq, hkv, s, d, float(scale), float(softcap), int(window), cuda.stream())
     cuda.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.mma_launches += mma
     return out
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0  # of them, launches of the tensor-core form (bf16 K/V)
 
 
 # ---------------------------------------------------------------------------

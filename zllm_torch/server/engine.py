@@ -13,8 +13,9 @@ One engine thread runs the steps:
   * prompt chunks and generating slots share one batch: every prompting
     slot's next chunk rides in its own row of an [n_slots, chunk] step and
     a generating slot's token rides in column 0 with trash positions after
-    it (`_mixed_step`); with no prompt pending the step is [n_slots, 1]
-    (`_decode_step`).  Rows with nothing to do sit at position max_len,
+    it (one repeated; a prompt chunk pads with distinct ones, so the model
+    tells the two apart: `_mixed_step`); with no prompt pending the step
+    is [n_slots, 1] (`_decode_step`).  Rows with nothing to do sit at position max_len,
     the trash page or the contiguous stripe's trash region [max_len, S);
   * prompt-prefix reuse: paged, a request shares the full 128-token pages
     of the longest common prefix with any slot's cache (even a busy
@@ -469,6 +470,12 @@ class Engine:
             chunks[ps.idx] = chunk_real
             toks[ps.idx, :chunk_real] = ps.prompt_left[:chunk_real]
             pos[ps.idx, :chunk_real] = np.arange(ps.pos, ps.pos + chunk_real)
+            # a prompt run pads with distinct trash positions, a generating
+            # row with one: models/llama.py gives a row whose columns 1 and
+            # 2 hold one position the decode step's attention kernel, so a
+            # prompt's last token gets the same bits whether it rides alone
+            # (after a reused prefix) or inside a longer chunk
+            pos[ps.idx, chunk_real:] = self.max_len + np.arange(self.prefill_chunk - chunk_real)
         for s in gen_slots:
             toks[s.idx, 0] = s.last_token
             pos[s.idx, 0] = s.pos
