@@ -8,8 +8,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      and print the `-Xptxas -v` registers and spill bytes of the tensor-core
      attention loops' instantiations (csrc/attn_mma.cuh; K6's two-pass form
      in csrc/flash_attn.cu) and of the sliced GEMM loop
-     (csrc/gemm_slice.cuh) under K3's and K5's decoders; a spill fails, and
-     so does a build that lacks one of their instantiations;
+     (csrc/gemm_slice.cuh) under K3's and K5's decoders, and of the
+     one-launch cluster decode step (csrc/decode_cluster.cuh) under K7's
+     and K9's addressors; a spill fails, and so does a build that lacks
+     one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -82,7 +84,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      step; K9/K10 at
      the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
-     steps, over int8 and over bf16 K/V; K8 at the OLMo-2 decode step and
+     steps, over int8 and over bf16 K/V; K9 and K7's split form also once
+     at S = 8320 with a row at 8000 (65 chunks over the cluster's 8 blocks),
+     and their CUDA launches per call counted by torch.profiler (1 each:
+     one thread-block cluster); K8 at the OLMo-2 decode step and
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
@@ -206,6 +211,28 @@ def ptxas_entries(reports: dict, needle: str) -> list[dict]:
     except OSError:
         pass
     return out
+
+
+def cuda_launches(fn) -> int | None:
+    """The CUDA kernels one call of fn() launches, counted by torch.profiler
+    over a second call (the first builds and sets attributes); None where
+    the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+    except RuntimeError as err:  # the profiler, not the kernel: fn() ran above
+        print(f"chip_smoke: torch.profiler unavailable: {err}", file=sys.stderr, flush=True)
+        return None
+    n = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -794,6 +821,20 @@ def main():
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the sliced GEMM loop spills: {spills}")
+    cluster_build = ptxas_entries({lib: reports.get(lib, "") for lib in
+                                   ("attn_blockwise", "paged_decode")}, "decode_cluster_kernel")
+    emit({"phase": "build_decode_cluster", "instantiations": cluster_build,
+          "note": "registers and spills of the one-launch cluster decode step "
+                  "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
+                  "K/V int8/bf16 x D 64/128) and K9 (paged_decode.cu: q f32/bf16 x pools "
+                  "f32/bf16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
+    spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"the cluster decode step spills: {spills}")
+    for lib in ("attn_blockwise", "paged_decode"):
+        inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
+        if lib in reports and len(inst) != 8:
+            fail(f"{lib}: {len(inst)} cluster decode instantiations built, not 8")
     for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
                           ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
@@ -1167,6 +1208,33 @@ def main():
         for kp_, vp_ in zip(kpools, vpools):
             att.paged_attn_decode_update_plain(q9, kn9, vn9, kp_, vp_, table, pos9, **kw9)
 
+    # one call at S = 8320 (65 pages a row): a row at 8000 spans more pages
+    # than the cluster's 8 blocks share evenly
+    lp_l = 65
+    n_pages_l = n_slots * lp_l + 1
+    perm_l = torch.randperm(n_pages_l - 1, generator=torch.Generator().manual_seed(3)) + 1
+    table_l = torch.zeros((n_slots, lp_l + 1), dtype=torch.int32)
+    table_l[:, :lp_l] = perm_l.reshape(n_slots, lp_l).to(torch.int32)
+    table_l = table_l.to("cuda")
+    pos9_l = torch.tensor([[8000], [4100], [0], [lp_l * ps]], dtype=torch.int32, device="cuda")
+    kl = randn(hkv, n_pages_l * ps, hd, dtype=torch.bfloat16)
+    vl = randn(hkv, n_pages_l * ps, hd, dtype=torch.bfloat16)
+    kl2, vl2 = kl.clone(), vl.clone()
+    a = att.paged_attn_decode_update(q9, kn9, vn9, kl, vl, table_l, pos9_l, **kw9)
+    b = att.paged_attn_decode_update_plain(q9, kn9, vn9, kl2, vl2, table_l, pos9_l, **kw9)
+    live_l = pos9_l[:, 0] < lp_l * ps
+    k9_long = dict(nmse=nmse(a[live_l].float(), b[live_l].float()), tolerance=1e-6,
+                   pools_equal=bool(torch.equal(kl, kl2) and torch.equal(vl, vl2)),
+                   shapes=f"pools [{hkv},{n_pages_l * ps},{hd}] bf16, table [{n_slots},"
+                          f"{lp_l + 1}] scrambled, pos {pos9_l[:, 0].tolist()}")
+    if not (k9_long["nmse"] <= 1e-6 and k9_long["pools_equal"]):
+        fail(f"K9 at S = 8320 disagrees with its plain version: {k9_long}")
+    del kl, vl, kl2, vl2
+    k9_calls = cuda_launches(lambda: att.paged_attn_decode_update(q9, kn9, vn9, kpools[0],
+                                                                  vpools[0], table, pos9, **kw9))
+    if k9_calls not in (None, 1):
+        fail(f"K9 launched {k9_calls} CUDA kernels a call, not one cluster launch")
+
     read9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist())  # visible slots
     nbytes = per_layer * (2 * hkv * read9 * hd * 2 + (q9.numel() + 2 * kn9.numel()) * 4
                           + q9.numel() * 4 + 2 * int(live.sum()) * hkv * hd * 2)
@@ -1183,7 +1251,10 @@ def main():
                       unit="one serve decode step (22 launches)",
                       shapes=f"q [{n_slots},1,{hq},{hd}] f32, k/v_new [{n_slots},1,{hkv},{hd}] f32, "
                              f"pools [{hkv},{n_pages * ps},{hd}] bf16, table [{n_slots},{lp + 1}] "
-                             f"scrambled, pos {pos9[:, 0].tolist()}", launches_per_step=per_layer))
+                             f"scrambled, pos {pos9[:, 0].tolist()}", launches_per_step=per_layer,
+                      cuda_launches_per_call=k9_calls if k9_calls is not None else "not measured",
+                      cluster_blocks=att.DECODE_CLUSTER, s8320_check=k9_long,
+                      form="one thread-block-cluster launch (csrc/decode_cluster.cuh)"))
 
     # K10: one mixed step's attention, chunk 128: rows from 0, from 256 (a
     # page edge), from 300 (mid-page, across a page) and a trash row
@@ -1302,7 +1373,33 @@ def main():
                            f"[{n_slots},{hkv},{s7},{hd}] " + (
                                "int8 + f32 scales [.., 1]" if form == "int8" else "bf16"))
 
+    # one split-form call at S = 8320 (65 chunks a row), int8 K/V, a row at 8000
+    s7l = 8320
+    pos7_l = torch.tensor([[8000], [4100], [0], [s7l]], dtype=torch.int32, device="cuda")
+    q7l = randn(n_slots, 1, hq, hd)
+    k7l = torch.randint(-127, 128, (n_slots, hkv, s7l, hd), generator=gen7, device="cuda",
+                        dtype=torch.int8)
+    v7l = torch.randint(-127, 128, (n_slots, hkv, s7l, hd), generator=gen7, device="cuda",
+                        dtype=torch.int8)
+    ks7l = randn(n_slots, hkv, s7l, 1).abs() * 0.01 + 1e-3
+    vs7l = randn(n_slots, hkv, s7l, 1).abs() * 0.01 + 1e-3
+    a = att.flash_attention_blockwise(q7l, k7l, v7l, pos7_l, scale=scale, ks=ks7l, vs=vs7l)
+    b = att.flash_attention_blockwise_plain(q7l, k7l, v7l, pos7_l, scale=scale, ks=ks7l,
+                                            vs=vs7l)
+    k7_long = dict(nmse=nmse(a, b), tolerance=1e-6,
+                   shapes=f"q [{n_slots},1,{hq},{hd}] f32 at {pos7_l[:, 0].tolist()}, k/v "
+                          f"[{n_slots},{hkv},{s7l},{hd}] int8 + f32 scales")
+    if not k7_long["nmse"] <= 1e-6:
+        fail(f"K7's split form at S = 8320 disagrees with its plain version: {k7_long}")
+    del k7l, v7l, ks7l, vs7l
+
     dec7, mix7 = [255, 0, 300, MAX_LEN], [0, 256, 300, MAX_LEN]
+    pos7_dec = torch.tensor(dec7, dtype=torch.int32, device="cuda")[:, None]
+    k_, v_, ks_, vs_ = kv7["int8"][0]
+    k7_calls = cuda_launches(lambda: att.flash_attention_blockwise(
+        q7l, k_, v_, pos7_dec, scale=scale, ks=ks_, vs=vs_))
+    if k7_calls not in (None, 1):
+        fail(f"K7's split form launched {k7_calls} CUDA kernels a call, not one cluster launch")
     k7 = {"int8_decode": k7_case(1, dec7, "int8"), "int8_mixed": k7_case(128, mix7, "int8"),
           "bf16_decode": k7_case(1, dec7, "bf16"), "bf16_mixed": k7_case(128, mix7, "bf16")}
     head7 = k7["int8_decode"]
@@ -1320,7 +1417,11 @@ def main():
                       unit="one serve_q8 decode step (22 launches), int8 K/V",
                       launches_per_step=per_layer,
                       serve_q8_mixed_step=k7["int8_mixed"], bf16_decode_step=k7["bf16_decode"],
-                      bf16_mixed_step=k7["bf16_mixed"]))
+                      bf16_mixed_step=k7["bf16_mixed"],
+                      cuda_launches_per_call=k7_calls if k7_calls is not None else "not measured",
+                      cluster_blocks=att.DECODE_CLUSTER, s8320_check=k7_long,
+                      form="split (R <= 32): one thread-block-cluster launch "
+                           "(csrc/decode_cluster.cuh); mixed: attn_mma.cuh"))
     bad_k7 = [name for name, r in k7.items() if not r["nmse"] <= r["tolerance"]]
     del kv7
 

@@ -431,14 +431,25 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
                                            (torch.bfloat16, torch.bfloat16)],
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
-                                  "g4", "g16", "long", "ps64_window_softcap"])
+                                  "g4", "g16", "long", "ps64_window_softcap", "s8320",
+                                  "window_mid", "s20480"])
 def test_k9_matches_plain(dev, case, qdtype, pdtype):
     """Positions include a page edge, 0, a mid-page one and a trash row; the
     pools must come out bit-identical outside the trash page 0.  With bf16
-    pools the plain version rounds exp(s - running max) a page at a time."""
+    pools the plain version rounds exp(s - running max) a page at a time.
+    The cluster's cases: 65 pages a row (s8320: a row at 8000 spans more
+    pages than the 8 blocks share evenly), a window whose span starts
+    mid-page, and 160 pages (s20480: more scores than a block keeps, so the
+    later pages' scores are recomputed).  With G = 16 two clusters share a
+    (row, kv head) and only query group 0's writes the pool: the pools must
+    hold the one rounded row the plain version writes."""
     b, hq, hkv, lp, ps = 4, 32, 4, 16, 128
     if case == "ps64_window_softcap":
         lp, ps = 32, 64
+    if case == "s8320":
+        lp = 65
+    if case == "s20480":
+        lp = 160
     d = 128 if case == "d128" else 64
     if case == "g4":
         hq = 16
@@ -446,16 +457,20 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
         hq = 64
     pos_vals = {"page_edge": [127, 128, 255, lp * ps],
                 "start": [0, 1, 2, lp * ps],
-                "long": [lp * ps - 1, 1500, 2000, 3]}.get(case, [0, 300, 1000, lp * ps])
+                "long": [lp * ps - 1, 1500, 2000, 3],
+                "s8320": [8000, 4100, 0, lp * ps],
+                "window_mid": [1000, 777, 2047, lp * ps],
+                "s20480": [20000, 10000, 3, lp * ps]}.get(case, [0, 300, 1000, lp * ps])
     positions = torch.tensor(pos_vals, dtype=torch.int32, device=dev)[:, None]
     q = _randn((b, 1, hq, d), 30, dev, qdtype)
     kn = _randn((b, 1, hkv, d), 31, dev, qdtype)
     vn = _randn((b, 1, hkv, d), 32, dev, qdtype)
     k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 33)
     k2, v2 = k_pool.clone(), v_pool.clone()
+    window = {"window": 300, "ps64_window_softcap": 300, "window_mid": 333}.get(case, 0)
     kw = dict(page_size=ps, scale=d ** -0.5,
               softcap=30.0 if case in ("softcap", "ps64_window_softcap") else 0.0,
-              window=300 if case in ("window", "ps64_window_softcap") else 0)
+              window=window)
     before = ta.paged_attn_decode_update.launches
     got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, positions, **kw)
     want = ta.paged_attn_decode_update_plain(q, kn, vn, k2, v2, table, positions, **kw)
@@ -493,6 +508,14 @@ K7_CASES = {
     "ragged_t37": (37, 4, 64, 2176, [0, 700, 1500, 2048], 0, 0.0, False, torch.float32),
     "window_sinks_chunk": (128, 8, 64, 2176, [0, 256, 1300, 2048], 100, 0.0, True,
                            torch.float32),
+    # the cluster's cases: 65 chunks a row (more than 8 blocks share evenly),
+    # R = 32 (T = 4, G = 8: four clusters a kv head), a window whose span
+    # starts mid-chunk, 157 chunks (more scores than a block keeps: the later
+    # chunks' scores are recomputed)
+    "s8320": (1, 8, 64, 8320, [8000, 4100, 0, 8320], 0, 0.0, False, torch.float32),
+    "r32": (4, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.float32),
+    "window_mid": (1, 8, 64, 2176, [1000, 777, 2047, 2048], 333, 0.0, False, torch.float32),
+    "s20000_sinks": (1, 8, 64, 20000, [19000, 9000, 5, 20000], 0, 0.0, True, torch.float32),
 }
 
 
@@ -598,6 +621,64 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
     assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+def _decode_call(kernel, kv, b, dev):
+    """A 4-row decode call of K7's split form (S 2176, int8 or bf16 K/V) or
+    K9 (65 pages of 128, f32 or bf16 pools) with a trash row, as `fn(rows)`:
+    the output of the call restricted to those batch rows, on fresh copies
+    of the cache."""
+    if kernel == "k7":
+        s, hkv, hq, d = 2176, 4, 32, 64
+        pos = torch.tensor([255, 2047, 0, 2048], dtype=torch.int32, device=dev)[:, None]
+        q = _randn((b, 1, hq, d), 60, dev)
+        if kv == "int8":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(61)
+            k = torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device=dev,
+                              dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device=dev,
+                              dtype=torch.int8)
+            ks = _randn((b, hkv, s, 1), 62, dev).abs() * 0.01 + 1e-3
+            vs = _randn((b, hkv, s, 1), 63, dev).abs() * 0.01 + 1e-3
+        else:
+            k = _randn((b, hkv, s, d), 64, dev, torch.bfloat16)
+            v = _randn((b, hkv, s, d), 65, dev, torch.bfloat16)
+            ks = vs = None
+
+        def fn(rows):
+            sel = (lambda x: None if x is None else x[rows].contiguous())
+            return ta.flash_attention_blockwise(q[rows].contiguous(), sel(k), sel(v),
+                                                pos[rows].contiguous(), scale=d ** -0.5,
+                                                ks=sel(ks), vs=sel(vs))
+        return fn, [0, 1, 2]
+    hq, hkv, d, lp, ps = 32, 4, 64, 65, 128
+    pdtype = torch.float32 if kv == "f32" else torch.bfloat16
+    pos = torch.tensor([8000, 300, 0, lp * ps], dtype=torch.int32, device=dev)[:, None]
+    q = _randn((b, 1, hq, d), 66, dev)
+    kn, vn = _randn((b, 1, hkv, d), 67, dev), _randn((b, 1, hkv, d), 68, dev)
+    k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 69)
+
+    def fn(rows):
+        return ta.paged_attn_decode_update(q[rows].contiguous(), kn[rows].contiguous(),
+                                           vn[rows].contiguous(), k_pool.clone(),
+                                           v_pool.clone(), table[rows].contiguous(),
+                                           pos[rows].contiguous(), page_size=ps,
+                                           scale=d ** -0.5)
+    return fn, [0, 1, 2]
+
+
+@pytest.mark.parametrize("kernel,kv", [("k7", "int8"), ("k7", "bf16"), ("k9", "f32"),
+                                       ("k9", "bf16")])
+def test_decode_rows_do_not_depend_on_the_batch(dev, kernel, kv):
+    """Each live row of a 4-row decode call with a trash row is bit-identical
+    to the same row run alone (B = 1): the cluster deals a row's chunks by a
+    rule that reads only its own span and S."""
+    fn, live = _decode_call(kernel, kv, 4, dev)
+    together = fn(list(range(4)))
+    for r in live:
+        alone = fn([r])
+        assert torch.equal(together[r:r + 1], alone), f"row {r}"
 
 
 # the legacy nibble formats through K1, K3, K12 and K11: odd N (a block's

@@ -18,7 +18,7 @@
 // MHA model at B = 1 gives the H100 only 16 such pairs, and a block per pair
 // walking 2048 slots is latency-bound (K9's first design, 8.70 ms a serve
 // decode step).  So the slots are cut into splits of 128 that run in
-// parallel: K9's three-launch split step (decode_split.cuh), with a
+// parallel: the three-launch split step of decode_split.cuh, with a
 // contiguous addressor and the clamped insert, keeping the plain version's
 // rounding points.
 

@@ -1,27 +1,16 @@
-// The split decode step shared by K9 (paged_decode.cu, a page pool read
-// through a page table) and K8 (attn_decode_update.cu, a contiguous
-// [B, Hkv, S, D] cache): insert each row's new K/V, then attend over the
-// slots that row sees, with the slots cut into splits of `ps` (the page size
-// for K9) that run in parallel (flash-decoding).  The two differ only in
-// where split j of (row b, kv head h) lives, which the KV addressor answers
-// (`split_base`), and in where a row's new K/V goes:
-//   * PagedAddr (K9): at pos, for rows with pos < S (the horizon); a row at
-//     or past the horizon (the engine's trash rows) writes nothing;
-//   * ContigAddr (K8): at min(pos, S - 1), as zllm's dynamic_update_slice
-//     clamps, so a trash row (pos == S) writes slot S - 1 and attends all S.
+// K8's split decode step (attn_decode_update.cu, a contiguous [B, Hkv, S, D]
+// cache): insert each row's new K/V, then attend over the slots that row
+// sees, with the slots cut into splits of `ps` that run in parallel
+// (flash-decoding).  A row's new K/V goes at min(pos, S - 1), as zllm's
+// dynamic_update_slice clamps, so a trash row (pos == S) writes slot S - 1
+// and attends all S.
 //
 // q[B, 1, Hq, D] (roped, not rounded to the cache dtype) and the new rows
 // k/v_new[B, 1, Hkv, D] (roped K); the new rows are cast to the cache dtype.
 // GQA attention over slots <= pos (and > pos - window), logit softcap, f32
 // scores and softmax; the output is in q's dtype.  The probabilities are
-// cast to the cache dtype before P.V (f32 accumulate) where the reference
-// kernel casts them, which the addressor's `kPageRound` says:
-//   * false (K8, zllm's `_attn_decode_kernel`): normalized, then cast;
-//   * true (K9, zllm's `_paged_decode_kernel`, an online softmax a page a
-//     grid step): exp(s - M_j) cast, M_j the running max after page j (the
-//     max of the split maxima of the row's pages 0..j), and the sum of the
-//     pages' P.V, each times exp(M_j - M), divided once by the f32
-//     denominator sum(exp(s - M)) at the end, M the row's max.
+// normalized, then cast to the cache dtype before P.V (f32 accumulate), as
+// zllm's `_attn_decode_kernel` does.
 //
 // Bound on the H100: the bytes of the K/V slots each row sees, 2 * Hkv *
 // (visible slots) * D * sizeof(cache) a row, over 3.35 TB/s; the work is a
@@ -32,19 +21,15 @@
 //      row and the split's per-head max and sum of exponentials to a stats
 //      scratch;
 //   2. P.V, same grid: each split's block combines the splits' stats into
-//      the row's max and denominator (kPageRound: the running max after its
-//      own split), forms the probabilities rounded to the cache dtype, and
-//      sums P.V over its split's V rows (staged through shared memory) into
-//      a per-split partial;
-//   3. the partials of a row's splits are summed in split order
-//      (kPageRound: each rescaled to the row's max, then divided by the
-//      denominator).
+//      the row's max and denominator, forms the probabilities rounded to the
+//      cache dtype, and sums P.V over its split's V rows (staged through
+//      shared memory) into a per-split partial;
+//   3. the partials of a row's splits are summed in split order.
 // The insert: the blocks of the split that holds the insert slot dot it from
 // their shared copy of the new K row (rounded to the cache dtype), and the
 // chunk-0 block writes the row in launch 1; launch 2 reads V from the cache.
 // No block writes any other slot, and no other block reads the insert slot
-// in launch 1 (K9's other rows read only full prefix pages, never an insert
-// page).  Query groups wider than 8 run as chunks of 8 on more blocks.
+// in launch 1.  Query groups wider than 8 run as chunks of 8 on more blocks.
 
 #pragma once
 
@@ -159,22 +144,9 @@ struct Args {
   int window;
 };
 
-// K9's page pools [Hkv, n_rows, D]: split j of row b is page table[b, j]
-struct PagedAddr {
-  const int* table;
-  int TW, n_rows;
-  static constexpr bool kClampInsert = false;
-  static constexpr bool kPageRound = true;
-  __device__ size_t split_base(int b, int h, int j, int ps, int D) const {
-    return ((size_t)h * n_rows + (size_t)__ldg(table + (size_t)b * TW + j) * ps) * D;
-  }
-};
-
 // K8's contiguous caches [B, Hkv, S, D]: split j is slots j*ps .. j*ps+ps-1
 struct ContigAddr {
   int Hkv, S;
-  static constexpr bool kClampInsert = true;
-  static constexpr bool kPageRound = false;
   __device__ size_t split_base(int b, int h, int j, int ps, int D) const {
     return (((size_t)b * Hkv + h) * S + (size_t)j * ps) * D;
   }
@@ -196,8 +168,8 @@ __global__ void __launch_bounds__(kThreads) split_scores(const TQ* __restrict__ 
   const int tid = threadIdx.x, g0 = c * MAXG, Gc = min(MAXG, G - g0);
   const int head0 = h * G + g0, S = a.S, NP = a.NP;
   const int pos = a.pos[b];
-  const int pw = Addr::kClampInsert ? min(pos, S - 1) : pos;  // the insert slot
-  const bool ins_here = pw < S && pw / a.ps == j;
+  const int pw = min(pos, S - 1);  // the insert slot
+  const bool ins_here = pw / a.ps == j;
   const size_t base = addr.split_base(b, h, j, a.ps, D);
   if (ins_here) {  // this block's head row of the insert split
     for (int i = tid; i < D; i += kThreads) {
@@ -284,15 +256,12 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
   if (s0 > s1) return;
   if (tid < Gc) {  // the row's max and denominator from every visible split's stats
     const float* st = a.stats + (size_t)(b * a.Hq + head0 + tid) * NP * 2;
-    const int j0 = sp.lo / a.ps, j1 = Addr::kPageRound ? j : sp.hi / a.ps;
+    const int j0 = sp.lo / a.ps, j1 = sp.hi / a.ps;
     float m = -INFINITY;
     for (int jj = j0; jj <= j1; ++jj) m = fmaxf(m, st[2 * jj]);
-    float l = 1.f;  // kPageRound: divided once, in launch 3
-    if constexpr (!Addr::kPageRound) {
-      l = 0.f;
-      for (int jj = j0; jj <= j1; ++jj)
-        if (st[2 * jj + 1] > 0.f) l += st[2 * jj + 1] * expf(st[2 * jj] - m);
-    }
+    float l = 0.f;
+    for (int jj = j0; jj <= j1; ++jj)
+      if (st[2 * jj + 1] > 0.f) l += st[2 * jj + 1] * expf(st[2 * jj] - m);
     m_row[tid] = m;
     l_row[tid] = l;
   }
@@ -310,8 +279,7 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
       const float l = l_row[g];
       float p = 0.f;
       if (i < n && l > 0.f) {
-        p = expf(srow[(size_t)g * S + t0 + i] - m_row[g]);
-        if constexpr (!Addr::kPageRound) p /= l;
+        p = expf(srow[(size_t)g * S + t0 + i] - m_row[g]) / l;
         p = to_f(from_f<TP>(p));
       }
       psh[e] = p;
@@ -352,29 +320,15 @@ __global__ void __launch_bounds__(kThreads) split_pv(const TP* __restrict__ v_ca
   }
 }
 
-// launch 3: grid (Hq, B), D threads: out = the sum of the visible splits'
-// P.V (kPageRound: split j's times exp(M_j - M), then over the denominator)
-template <typename TQ, int D, bool kPageRound>
+// launch 3: grid (Hq, B), D threads: out = the sum of the visible splits' P.V
+template <typename TQ, int D>
 __global__ void __launch_bounds__(D) split_sum(TQ* __restrict__ out, const Args a) {
   const int head = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const Span sp(a.pos[b], a.S, a.window);
   const int j0 = sp.lo / a.ps, j1 = sp.hi / a.ps;
   const float* p = a.part + (size_t)(b * a.Hq + head) * a.NP * D + d;
   float o = 0.f;
-  if constexpr (kPageRound) {
-    const float* st = a.stats + (size_t)(b * a.Hq + head) * a.NP * 2;
-    float m = -INFINITY;
-    for (int jj = j0; jj <= j1; ++jj) m = fmaxf(m, st[2 * jj]);
-    float l = 0.f, mj = -INFINITY;
-    for (int jj = j0; jj <= j1; ++jj) {
-      mj = fmaxf(mj, st[2 * jj]);
-      l += st[2 * jj + 1] * expf(st[2 * jj] - m);
-      o += p[(size_t)jj * D] * expf(mj - m);
-    }
-    o = l > 0.f ? o / l : 0.f;
-  } else {
-    for (int jj = j0; jj <= j1; ++jj) o += p[(size_t)jj * D];
-  }
+  for (int jj = j0; jj <= j1; ++jj) o += p[(size_t)jj * D];
   out[((size_t)b * a.Hq + head) * D + d] = from_f<TQ>(o);
 }
 
@@ -389,7 +343,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
       static_cast<TP*>(k_cache), static_cast<TP*>(v_cache), a, addr);                         \
   split_pv<TP, DD, Addr><<<grid, kThreads, 0, stream>>>(static_cast<const TP*>(v_cache), a,   \
                                                         addr);                                \
-  split_sum<TQ, DD, Addr::kPageRound><<<dim3(a.Hq, B), DD, 0, stream>>>(static_cast<TQ*>(out), a)
+  split_sum<TQ, DD><<<dim3(a.Hq, B), DD, 0, stream>>>(static_cast<TQ*>(out), a)
   if (D == 64) {
     ZT_LAUNCH(64);
   } else if (D == 128) {

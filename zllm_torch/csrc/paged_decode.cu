@@ -18,30 +18,85 @@
 // Bound on the H100: the bytes of the pages it must read, 2 * Hkv *
 // (visible slots) * D * sizeof(pool) a row, over 3.35 TB/s; the work is a
 // few FLOPs a byte.  Design: where the TPU kernel walks one page a grid
-// step, here every (logical page, kv head, slot) is a block, so a row's
-// pages are read in parallel (flash-decoding), in three launches: the
-// split decode step of decode_split.cuh with a page-table addressor (a
-// split is a page, `kPageRound`), which K8 shares with a contiguous one.
-// Launch 2 rounds a page's probabilities at the running max after that
-// page (the prefix max of the split maxima) and launch 3 rescales each
-// page's P.V to the row's max, so the splits still run in parallel.  Other
-// slots read only full prefix pages, which are never an insert page.
+// step, here the pages of a (row, kv head, group of 8 query heads) are
+// dealt to the 8 blocks of one thread-block cluster (decode_cluster.cuh,
+// a page-table addressor, a chunk = a page of ps <= 128 slots), in one
+// launch: each block keeps its pages' scores in shared memory, reads the
+// prefix maxima (the running max after each of its pages) from its peers'
+// page maxima over distributed shared memory, rounds exp(s - M_j) to the
+// pool dtype, rescales each page's P.V to the row's max, and block 0 sums
+// the blocks' partials and divides once.  The insert slot's K and V rows
+// come from k/v_new (rounded), never from the pool.
 
-#include "decode_split.cuh"
+#include "decode_cluster.cuh"
+
+namespace {
+
+// pools [Hkv, n_rows, D]: chunk j of (b, h) is page table[b, j]; the
+// insert slot's row is written from k/v_new
+template <typename TQ, typename TP>
+struct PagedKV {
+  const TP* k;
+  const TP* v;
+  TP* k_pool;  // the same pools, written at the insert slot
+  TP* v_pool;
+  const TQ* k_new;  // [B, Hkv, D]
+  const TQ* v_new;
+  const int* table;
+  int TW, n_rows;
+  static constexpr bool kScaled = false;
+  static constexpr bool kRound = true;  // exp(s - M_j) rounded to the pool dtype
+  static constexpr bool kInsert = true;
+  __device__ __forceinline__ size_t base(int b, int h, int j, int cs) const {
+    return (size_t)h * n_rows + (size_t)__ldg(table + (size_t)b * TW + j) * cs;
+  }
+};
+
+template <typename TQ, typename TP>
+int launch(int D, const void* k_new, const void* v_new, void* k_pool, void* v_pool,
+           const int* table, int TW, int n_rows, const zt_dc::Params& p, int B,
+           cudaStream_t stream) {
+  const PagedKV<TQ, TP> kv{static_cast<const TP*>(k_pool), static_cast<const TP*>(v_pool),
+                           static_cast<TP*>(k_pool), static_cast<TP*>(v_pool),
+                           static_cast<const TQ*>(k_new), static_cast<const TQ*>(v_new),
+                           table, TW, n_rows};
+  if (D == 64) return zt_dc::launch<TQ, TP, 64>(p, kv, B, stream);
+  if (D == 128) return zt_dc::launch<TQ, TP, 128>(p, kv, B, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k_new, v_new share one; the
 // pools another).  Pools [Hkv, n_rows, D]; table int32 [B, TW]; pos int32
-// [B]; out [B, Hq, D]; scratch f32 [B, Hq, S + NP * (D + 2)] with
-// NP = TW - 1 and S = NP * ps.
+// [B]; out [B, Hq, D]; 1 <= ps <= 128; the horizon S = (TW - 1) * ps.
 extern "C" int zt_paged_attn_decode_update(const void* q, const void* k_new, const void* v_new,
                                            int q_dtype, void* k_pool, void* v_pool, int p_dtype,
-                                           const int* table, const int* pos, void* out,
-                                           float* scratch, int B, int Hq, int Hkv, int D,
-                                           int n_rows, int TW, int ps, float scale,
-                                           float softcap, int window, void* stream) {
-  if (TW < 2 || ps <= 0) return (int)cudaErrorInvalidValue;
-  const zt_split::PagedAddr addr{table, TW, n_rows};
-  return zt_split::dispatch(q, k_new, v_new, q_dtype, k_pool, v_pool, p_dtype, pos, out, scratch,
-                            B, Hq, Hkv, D, (TW - 1) * ps, ps, scale, softcap, window, addr,
-                            stream);
+                                           const int* table, const int* pos, void* out, int B,
+                                           int Hq, int Hkv, int D, int n_rows, int TW, int ps,
+                                           float scale, float softcap, int window,
+                                           void* stream) {
+  if (TW < 2 || ps <= 0 || ps > zt_dc::CH || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  zt_dc::Params p{};
+  p.q = q;
+  p.out = out;
+  p.pos = pos;
+  p.sinks = nullptr;
+  p.T = 1;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.S = (TW - 1) * ps;
+  p.cs = ps;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ZT_ARGS D, k_new, v_new, k_pool, v_pool, table, TW, n_rows, p, B, st
+  if (q_dtype == 0 && p_dtype == 0) return launch<float, float>(ZT_ARGS);
+  if (q_dtype == 0 && p_dtype == 1) return launch<float, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 1 && p_dtype == 0) return launch<__nv_bfloat16, float>(ZT_ARGS);
+  if (q_dtype == 1 && p_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+#undef ZT_ARGS
+  return (int)cudaErrorInvalidValue;
 }

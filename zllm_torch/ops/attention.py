@@ -27,20 +27,23 @@ PyTorch version beside it.
   * `paged_attn_decode_update` replaces
     `zllm/ops/attention.py::_paged_decode_kernel` (via
     `paged_attn_decode_update`): T=1, insert the new K/V row into its page in
-    place, attend over the page table.  Source: `zllm_torch/csrc/paged_decode.cu`.
+    place, attend over the page table.  Source: `zllm_torch/csrc/paged_decode.cu`
+    (one thread-block-cluster launch of `csrc/decode_cluster.cuh`, shared
+    with K7's split form).
   * `attn_decode_update` replaces `zllm/ops/attention.py::_attn_decode_kernel`
     (via `attn_decode_update`): T=1, insert the roped new K/V row into the
     contiguous cache in place at min(pos, S-1), attend.  Source:
-    `zllm_torch/csrc/attn_decode_update.cu` (K9's split step,
-    `csrc/decode_split.cuh`, behind a contiguous addressor).
+    `zllm_torch/csrc/attn_decode_update.cu` (the three-launch split step
+    `csrc/decode_split.cuh`).
   * `flash_attention_blockwise` replaces
     `zllm/ops/attention.py::_attnb_kernel` (via `flash_attention_blockwise`):
     multi-token GQA attention with an online softmax over KV blocks, causal
     from positions[:, 0], window, softcap, sinks; K/V in bf16, or int8
     codes (`QuantKV`, the q8 KV cache) whose per-vector scales multiply the
     scores (K) and the probabilities (V).  The probabilities stay f32.
-    Source: `zllm_torch/csrc/attn_blockwise.cu` (more than 32 query rows a
-    kv head: the tensor-core loop `csrc/attn_mma.cuh`, shared with K10).
+    Source: `zllm_torch/csrc/attn_blockwise.cu` (up to 32 query rows a kv
+    head: one cluster launch of `csrc/decode_cluster.cuh`, shared with K9;
+    more: the tensor-core loop `csrc/attn_mma.cuh`, shared with K10).
 
 The paged pools are token-major, [Hkv, P * ps, D] (zllm's are token-minor;
 see `runtime/paged.py`).  The TPU tiling gates of `zllm` (`use_decode_qkv`,
@@ -370,6 +373,13 @@ paged_attention.mma_launches = 0  # of them, launches of the tensor-core loop (b
 # K9: paged decode step (insert + attend)
 # ---------------------------------------------------------------------------
 
+# K9 and K7's split form run as one thread-block-cluster launch
+# (csrc/decode_cluster.cuh): a cluster of DECODE_CLUSTER blocks a (row, kv
+# head, group of 8 query rows), chunks of at most DECODE_CLUSTER_CHUNK slots
+# (K9: a page)
+DECODE_CLUSTER = 8
+DECODE_CLUSTER_CHUNK = 128
+
 def paged_attn_decode_update_plain(q, k_new, v_new, k_pool, v_pool, table, positions, *,
                                    page_size: int, scale: float, softcap: float = 0.0,
                                    window: int = 0) -> torch.Tensor:
@@ -403,7 +413,7 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
     [B, 1, Hkv, D] roped, one dtype; pools [Hkv, P * ps, D] updated in place;
     table int32 [B, LP + 1]; positions int32 [B, 1] (rows at or past the
     horizon LP * ps insert nothing).  Returns att [B, 1, Hq, D] in q's
-    dtype."""
+    dtype.  On the card: one cluster launch, pages of at most 128 slots."""
     _check_paged(q, k_pool, v_pool, table, page_size)
     b, _, hq, d = q.shape
     hkv = k_pool.shape[0]
@@ -416,6 +426,9 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _paged_cuda_checks(q, k_pool, v_pool, table, page_size, 1)
+    if page_size > DECODE_CLUSTER_CHUNK:
+        raise ValueError(f"page_size {page_size}: the kernel takes pages of at most "
+                         f"{DECODE_CLUSTER_CHUNK} slots")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError("q, k_new and v_new must share one dtype")
     pos = positions.reshape(b).contiguous()
@@ -423,19 +436,14 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
         raise ValueError("positions must be int32")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     cuda.require_cuda(q, k_new, v_new, k_pool, v_pool, table, pos, aligned=(k_pool, v_pool))
-    n_pages = table.shape[1] - 1
     out = torch.empty_like(q)
-    # per (slot, q head): the scores of every slot, then each page's softmax
-    # stats (2) and P.V partial (D)
-    scratch = torch.empty((b, hq, n_pages * (page_size + d + 2)), dtype=torch.float32,
-                          device=q.device)
     fn = cuda.bind("paged_decode", "zt_paged_attn_decode_update",
-                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                    _F, _I, _P])
+                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                    _I, _P])
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cuda.DTYPE_CODE[q.dtype],
              k_pool.data_ptr(), v_pool.data_ptr(), cuda.DTYPE_CODE[k_pool.dtype],
-             table.data_ptr(), pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, hq, hkv,
-             d, k_pool.shape[1], table.shape[1], page_size, float(scale), float(softcap),
+             table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, hq, hkv, d,
+             k_pool.shape[1], table.shape[1], page_size, float(scale), float(softcap),
              int(window), cuda.stream())
     cuda.check(err, "paged_attn_decode_update")
     paged_attn_decode_update.launches += 1
@@ -552,10 +560,10 @@ class QuantKV(NamedTuple):
         return self.q.to(dtype) * self.s.to(dtype)
 
 
-# a decode-shaped call (T * G query rows of a kv head at most this) splits
-# the slots over blocks (csrc/attn_blockwise.cu); more rows take the tile loop
+# a decode-shaped call (T * G query rows of a kv head at most this) deals
+# the slots to the blocks of a cluster (csrc/decode_cluster.cuh); more rows
+# take the tensor-core loop (csrc/attn_mma.cuh)
 BLOCKWISE_SPLIT_ROWS = 32
-BLOCKWISE_SPLIT = 128  # slots a block of the split path takes
 KV_CODE = {torch.bfloat16: 1, torch.int8: 2}  # the K/V the kernel takes
 
 
@@ -638,24 +646,16 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda.require_cuda(q, k, v, pos0, *scales, *([sinks] if sinks is not None else []),
                       aligned=(k, v))
     out = torch.empty_like(q)
-    rows = t * (hq // hkv)
-    args = (q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(), KV_CODE[k.dtype],
-            cuda.ptr(ks), cuda.ptr(vs), pos0.data_ptr(), cuda.ptr(sinks), out.data_ptr())
-    shape = (b, t, hq, hkv, s, d, float(scale), float(softcap), int(window), cuda.stream())
-    mma = rows > BLOCKWISE_SPLIT_ROWS
-    if mma:  # the multi-row form: the tensor-core loop
-        fn = cuda.bind("attn_blockwise", "zt_attn_blockwise_mma",
-                       [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                        _I, _P])
-        err = fn(*args, *shape)
-    else:  # the split form; per split: each row's (max, sum, P.V)
-        n_split = -(-s // BLOCKWISE_SPLIT)
-        scratch = torch.empty((b * hkv * n_split * rows * (d + 2),), dtype=torch.float32,
-                              device=q.device)
-        fn = cuda.bind("attn_blockwise", "zt_attn_blockwise",
-                       [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _F, _I, _P])
-        err = fn(*args, scratch.data_ptr(), *shape)
+    # more than 32 rows a kv head: the multi-row form (the tensor-core loop);
+    # else the split form (one cluster launch); one signature
+    mma = t * (hq // hkv) > BLOCKWISE_SPLIT_ROWS
+    fn = cuda.bind("attn_blockwise", "zt_attn_blockwise_mma" if mma else "zt_attn_blockwise",
+                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                    _P])
+    err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
+             KV_CODE[k.dtype], cuda.ptr(ks), cuda.ptr(vs), pos0.data_ptr(), cuda.ptr(sinks),
+             out.data_ptr(), b, t, hq, hkv, s, d, float(scale), float(softcap), int(window),
+             cuda.stream())
     cuda.check(err, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1
     flash_attention_blockwise.mma_launches += mma
