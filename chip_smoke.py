@@ -8,10 +8,11 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      and print the `-Xptxas -v` registers and spill bytes of the tensor-core
      attention loops' instantiations (csrc/attn_mma.cuh; K6's two-pass form
      in csrc/flash_attn.cu) and of the sliced GEMM loop
-     (csrc/gemm_slice.cuh) under K3's and K5's decoders, and of the
-     one-launch cluster decode step (csrc/decode_cluster.cuh) under K7's
-     and K9's addressors; a spill fails, and so does a build that lacks
-     one of their instantiations;
+     (csrc/gemm_slice.cuh) under K3's and K5's decoders, of K1
+     (csrc/q4k_matvec.cu), and of the one-launch cluster decode step
+     (csrc/decode_cluster.cuh) under K7's, K8's and K9's addressors, with
+     cudaOccupancyMaxActiveClusters of each K8 instantiation; a spill
+     fails, and so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -35,7 +36,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      set to 0 just before and read just after (a chunk, a T > 1 step over
      the contiguous cache, also attends column 0 through the decode step's
      kernel, K2 or K8, and its K6 launches must all take the tensor-core
-     form, `mma_launches`):
+     form, `mma_launches`), then one decode step's `forward` at the last
+     position captured in a CUDA graph and replayed (`step_graph_ms`: the
+     device time of the step's real interleaving of kernels and torch ops):
        - Q4_K everywhere: 89 K1 + 22 K2 launches per decode step, 89 K3 +
          22 K6 + 22 K2 per chunk;
        - Q4_K_M (zllm_torch.quantize from an F16 file: attn_v, the first 11
@@ -88,7 +91,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      at S = 8320 with a row at 8000 (65 chunks over the cluster's 8 blocks),
      and their CUDA launches per call counted by torch.profiler (1 each:
      one thread-block cluster); K8 at the OLMo-2 decode step and
-     at a TinyLlama-geometry contiguous engine step (G = 8, a trash row);
+     at a TinyLlama-geometry contiguous engine step (G = 8, a trash row),
+     once each at S = 2000 and S = 8320 (a trash row), its launches per
+     call counted the same way (1), and `step_graph` beside the sum of the
+     step's kernel times; K1 by weight role;
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
      Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
@@ -397,8 +403,10 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     """Load the TinyLlama-geometry file (`name` "olmo2": OLMo-2-0425-1B
     geometry), warm up, then one generate with the launch counters set to 0
     just before and read just after; `want(cfg, n_steps, n_chunks)` gives
-    the expected counts.  Returns the model, the counts, the generator and
-    the prompt's and generated tokens."""
+    the expected counts; then the last decode step's device time from a
+    CUDA graph (`step_graph_ms`).  Returns the model, the counts, the
+    generator, the prompt's and generated tokens and the step's ms."""
+    from zllm_torch.models.llama import forward
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
     from zllm_torch.testing import OLMO2_1B_SHAPE, TINYLLAMA_SHAPE
@@ -427,6 +435,16 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     expected = want(cfg, n_steps, n_chunks)
     last_logits = gen._decode_one(res.tokens[-1], PROMPT_TOKENS + n_steps).float()
     torch.cuda.synchronize()
+    # the same step's forward captured in a CUDA graph: its device time with
+    # the kernels and torch ops interleaved as the step runs them
+    tok_t = torch.tensor([[res.tokens[-1]]], dtype=torch.int32, device="cuda")
+    pos_t = torch.tensor([[PROMPT_TOKENS + n_steps]], dtype=torch.int32, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            forward(model.params, cfg, tok_t, pos_t, gen.kv, logits_for="last")
+
+    step_ms = cuda_ms(step, 20)
     label = "OLMo-2-0425-1B geometry" if name == "olmo2" else "tinyllama-geometry"
     emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
           "shape": shape, "dtype": "bfloat16", "prompt_tokens": PROMPT_TOKENS,
@@ -435,7 +453,7 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
           "launches": counts, "launches_expected": expected,
-          "flash_attention_mma_launches": k6_mma, "card": card})
+          "flash_attention_mma_launches": k6_mma, "step_graph_ms": step_ms, "card": card})
     if n_steps != NEW_TOKENS - 1:
         fail(f"{ftype}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
@@ -445,7 +463,7 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
              "tensor-core form")
     if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
         fail(f"{ftype}: main-path logits are not finite or have the wrong shape")
-    return model, counts, gen, ids, res.tokens
+    return model, counts, gen, ids, res.tokens, step_ms
 
 
 def decode_steps(torch, gen, kernels: dict, ids: list, tokens: list, env: str = ""):
@@ -822,19 +840,45 @@ def main():
     if spills:
         fail(f"the sliced GEMM loop spills: {spills}")
     cluster_build = ptxas_entries({lib: reports.get(lib, "") for lib in
-                                   ("attn_blockwise", "paged_decode")}, "decode_cluster_kernel")
+                                   ("attn_blockwise", "paged_decode", "attn_decode_update")},
+                                  "decode_cluster_kernel")
     emit({"phase": "build_decode_cluster", "instantiations": cluster_build,
           "note": "registers and spills of the one-launch cluster decode step "
                   "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
-                  "K/V int8/bf16 x D 64/128) and K9 (paged_decode.cu: q f32/bf16 x pools "
+                  "K/V int8/bf16 x D 64/128), K9 (paged_decode.cu: q f32/bf16 x pools "
+                  "f32/bf16 x D 64/128) and K8 (attn_decode_update.cu: q f32/bf16 x caches "
                   "f32/bf16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
     spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the cluster decode step spills: {spills}")
-    for lib in ("attn_blockwise", "paged_decode"):
+    for lib in ("attn_blockwise", "paged_decode", "attn_decode_update"):
         inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
         if lib in reports and len(inst) != 8:
             fail(f"{lib}: {len(inst)} cluster decode instantiations built, not 8")
+    # K8's clusters the card holds at once, each instantiation at its main
+    # path's shape (D 128: the OLMo-2 step's 16 clusters; D 64: the
+    # TinyLlama engine step's 16), beside the clusters a call launches
+    k8_occupancy = {}
+    for qn, qd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for cn, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for d, b_, hq_, hkv_, s_ in ((128, 1, 16, 16, MAX_LEN), (64, 4, 32, 4, MAX_LEN + 128)):
+                k8_occupancy[f"q {qn} cache {cn} D {d}"] = dict(
+                    max_active_clusters=att.attn_decode_update_clusters(qd, cd, b_, hq_, hkv_,
+                                                                        d, s_),
+                    clusters_a_call=b_ * hkv_ * -(-hq_ // hkv_ // 8))
+    emit({"phase": "build_k8_clusters", "k8": k8_occupancy,
+          "note": "cudaOccupancyMaxActiveClusters of K8's instantiations (attn_decode_update.cu "
+                  "on decode_cluster.cuh, 8 blocks a cluster) at S 2048 (D 128) / 2176 (D 64)"})
+    k1_build = ptxas_entries({"q4k_matvec": reports.get("q4k_matvec", "")}, "q4k_matvec_kernel")
+    emit({"phase": "build_q4k_matvec", "instantiations": k1_build,
+          "note": "registers and spills of K1 (csrc/q4k_matvec.cu: Q4_K/Q4_0/Q4_1 x prologue "
+                  "q/norm/glu x f32/bf16 x; 512 threads, at most 64 registers for two blocks an "
+                  "SM)" if k1_build else "not built in this run (cached)"})
+    spills = [e for e in k1_build if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"K1 spills: {spills}")
+    if "q4k_matvec" in reports and len(k1_build) != 18:
+        fail(f"q4k_matvec: {len(k1_build)} K1 instantiations built, not 18")
     for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
                           ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
@@ -890,10 +934,10 @@ def main():
                     q4k_gemm=k1 * n_chunks, dequant_gemm=k4 * n_chunks,
                     flash_attention=L * n_chunks)
 
-    model, counts_q4k, *_ = main_path(torch, "Q4_K", kernels, want_q4k, card)
+    model, counts_q4k, *_, step_q4k = main_path(torch, "Q4_K", kernels, want_q4k, card)
     model_m, counts_q4km, *_ = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
-    model_o, counts_olmo2, gen_o, ids_o, toks_o = main_path(torch, "Q4_K", kernels, want_olmo2,
-                                                            card, name="olmo2")
+    model_o, counts_olmo2, gen_o, ids_o, toks_o, step_o = main_path(
+        torch, "Q4_K", kernels, want_olmo2, card, name="olmo2")
     L_o = model_o.cfg.n_layers
     counts_hbm = switch_phase(
         torch, gen_o, kernels, ids_o, toks_o, card, phase="olmo2_hbm",
@@ -908,8 +952,8 @@ def main():
     # under ZLLM_QMM_DUALDOT=1 (the 22 wo matvecs, fuse "q"); OLMo-2
     # geometry in Q4_1 (the factory), K1, then K11 for its 64 fuse-"q"
     # matvecs, then K12 for all 65
-    model_40, counts_q40, gen_40, ids_40, toks_40 = main_path(torch, "Q4_0", kernels, want_q4k,
-                                                              card)
+    model_40, counts_q40, gen_40, ids_40, toks_40, _ = main_path(torch, "Q4_0", kernels,
+                                                                 want_q4k, card)
     L_t = model_40.cfg.n_layers
     counts_q40_dd = switch_phase(
         torch, gen_40, kernels, ids_40, toks_40, card, phase="q4_0_dualdot",
@@ -918,8 +962,8 @@ def main():
                       attn_decode_qkv=L_t * SWITCH_STEPS),
         k1_logits=decode_steps(torch, gen_40, kernels, ids_40, toks_40))
     del gen_40
-    model_o1, counts_o1, gen_o1, ids_o1, toks_o1 = main_path(torch, "Q4_1", kernels, want_olmo2,
-                                                             card, name="olmo2")
+    model_o1, counts_o1, gen_o1, ids_o1, toks_o1, _ = main_path(torch, "Q4_1", kernels,
+                                                                want_olmo2, card, name="olmo2")
     label_o1 = "OLMo-2-0425-1B geometry Q4_1 (random weights, seed 0)"
     k1_o1 = decode_steps(torch, gen_o1, kernels, ids_o1, toks_o1)
     counts_o1_dd = switch_phase(
@@ -961,7 +1005,12 @@ def main():
 
     lines = []
 
-    # K1: one Q4_K decode step's 89 matvecs; and the 99 of a Q4_K_M step
+    def by_role(n_calls):  # the four matmuls of each layer, then the head
+        return {role: list(range(i, n_calls - 1, 4))
+                for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))} | {
+                    "head": [n_calls - 1]}
+
+    # K1: one Q4_K decode step's 89 matvecs (by role); and the 99 of a Q4_K_M step
     d_model, n_ff = cfg.n_embd, cfg.n_ff
     layers_m, head_m = model_m.params["layers"], model_m.params["output"]
 
@@ -997,7 +1046,8 @@ def main():
                       replaces="zllm/ops/qmatmul.py:683", launches=counts_q4k["q4k_matvec"],
                       **matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, calls, n_real,
                                      GGUF_BYTES_PER_WEIGHT["Q4_K"], cfg.norm_eps,
-                                     check=(0, 1, 2, 3, len(calls) - 1)),
+                                     check=(0, 1, 2, 3, len(calls) - 1),
+                                     groups=by_role(len(calls))),
                       tolerance=1e-6, launches_by_path=by_path("q4k_matvec"),
                       unit="one Q4_K decode step (89 launches)",
                       shapes="22 x [wqkv norm 2048->2560, wo q 2048->2048, gate|up norm "
@@ -1052,11 +1102,6 @@ def main():
                       shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] f32, cache [1,{hkv},{MAX_LEN},{hd}] "
                              f"bf16, pos {pos_v}", launches_per_step=per_layer))
     del kcs, vcs
-
-    def by_role(n_calls):  # the four matmuls of each layer, then the head
-        return {role: list(range(i, n_calls - 1, 4))
-                for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))} | {
-                    "head": [n_calls - 1]}
 
     # K3: one Q4_K prefill chunk's 89 GEMMs at M = 256; and the 99 of Q4_K_M
     m_rows = CHUNK
@@ -1472,6 +1517,38 @@ def main():
     k8_o = k8_case(cfg_o.n_layers, 1, cfg_o.n_heads, cfg_o.n_kv_heads, cfg_o.head_dim, MAX_LEN,
                    [pos_v])
     k8_t = k8_case(per_layer, 4, hq, hkv, hd, MAX_LEN + 128, [255, 0, 300, MAX_LEN])
+
+    # K8 once at S = 2000 (not a multiple of the 128-slot chunk; a row at
+    # its last slot) and once at S = 8320 (65 chunks over the cluster's 8
+    # blocks, a trash row): output and caches against the plain version
+    def k8_check(b, hq_, hkv_, d, s, pos_vals):
+        pos8 = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")[:, None]
+        q8_, kn8, vn8 = randn(b, 1, hq_, d), randn(b, 1, hkv_, d), randn(b, 1, hkv_, d)
+        ka = randn(b, hkv_, s, d, dtype=torch.bfloat16)
+        va = randn(b, hkv_, s, d, dtype=torch.bfloat16)
+        kb, vb = ka.clone(), va.clone()
+        a = att.attn_decode_update(q8_, kn8, vn8, ka, va, pos8, scale=d ** -0.5)
+        b_ = att.attn_decode_update_plain(q8_, kn8, vn8, kb, vb, pos8, scale=d ** -0.5)
+        return dict(nmse=nmse(a.float(), b_.float()), tolerance=1e-6,
+                    caches_equal=bool(torch.equal(ka, kb) and torch.equal(va, vb)),
+                    shapes=f"q [{b},1,{hq_},{d}] f32, cache [{b},{hkv_},{s},{d}] bf16, "
+                           f"pos {pos_vals}")
+
+    k8_long = {"s2000": k8_check(1, cfg_o.n_heads, cfg_o.n_kv_heads, cfg_o.head_dim, 2000,
+                                 [1999]),
+               "s8320": k8_check(4, hq, hkv, hd, 8320, [8000, 4100, 0, 8320])}
+    bad = {k: r for k, r in k8_long.items() if not (r["nmse"] <= 1e-6 and r["caches_equal"])}
+    if bad:
+        fail(f"K8 disagrees with its plain version: {bad}")
+    q8c, kn8c = randn(1, 1, cfg_o.n_heads, cfg_o.head_dim), randn(1, 1, cfg_o.n_kv_heads,
+                                                                  cfg_o.head_dim)
+    kc8c = randn(1, cfg_o.n_kv_heads, MAX_LEN, cfg_o.head_dim, dtype=torch.bfloat16)
+    vc8c = kc8c.clone()
+    pos8c = torch.tensor([[pos_v]], dtype=torch.int32, device="cuda")
+    k8_calls = cuda_launches(lambda: att.attn_decode_update(
+        q8c, kn8c, kn8c, kc8c, vc8c, pos8c, scale=cfg_o.head_dim ** -0.5))
+    if k8_calls not in (None, 1):
+        fail(f"K8 launched {k8_calls} CUDA kernels a call, not one cluster launch")
     lines.append(dict(name="attn_decode_update", route="cuda",
                       source="zllm_torch/csrc/attn_decode_update.cu",
                       replaces="zllm/ops/attention.py:499",
@@ -1480,7 +1557,11 @@ def main():
                               "(attention only: no one call inserts and attends)",
                       launches_by_path=by_path("attn_decode_update"),
                       unit=f"one OLMo-2 decode step ({cfg_o.n_layers} launches)",
-                      launches_per_step=cfg_o.n_layers, tinyllama_engine_step=k8_t))
+                      launches_per_step=cfg_o.n_layers, tinyllama_engine_step=k8_t,
+                      cuda_launches_per_call=k8_calls if k8_calls is not None else "not measured",
+                      cluster_blocks=att.DECODE_CLUSTER, long_checks=k8_long,
+                      max_active_clusters=k8_occupancy,
+                      form="one thread-block-cluster launch (csrc/decode_cluster.cuh)"))
     bad_k8 = [] if k8_t["nmse"] <= k8_t["tolerance"] else ["tinyllama_engine_step"]
 
     # K12 over one OLMo-2 decode step's 65 Q4_K matvecs (the layers' four
@@ -1724,6 +1805,20 @@ def main():
                                bound_ms=gm_b[0], bound_by=gm_b[1])}
     emit(q8)
     bad_q8 = [k for k in ("int8_matvec", "dequant_gemm") if not q8[k]["nmse"] <= 1e-6]
+
+    # a decode step's device time in a CUDA graph beside the sum of its
+    # kernels' graph times (the rest: the torch ops, and the gaps between)
+    by_name = {ln["name"]: ln for ln in lines}
+    k1_q4k = by_name["q4k_matvec"]["ms"]
+    emit({"phase": "step_graph", "card": card,
+          "tinyllama_q4k": dict(step_graph_ms=step_q4k, k1_ms=k1_q4k,
+                                k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                kernels_ms=k1_q4k + by_name["attn_decode_qkv"]["ms"]),
+          "olmo2_q4k": dict(step_graph_ms=step_o, k1_ms=k1_o["ms"], k8_ms=k8_o["ms"],
+                            kernels_ms=k1_o["ms"] + k8_o["ms"]),
+          "note": "one B = 1 decode step's forward at the last decode position, captured once "
+                  "and replayed; kernels_ms sums the step's K1 and K2 (or K8) graph times "
+                  "from the kernel phase"})
 
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})

@@ -577,7 +577,9 @@ def test_k12_matches_k1(dev, k, n, fuse, xdtype):
 
 # K8: (B, G, D, S, positions, window, softcap); S = 2048 with pos 331 is the
 # OLMo-2 decode step, S = 2176 the engine's contiguous stripe (max_len 2048
-# + chunk 128, a trash row at 2048), pos == S a trash row past the stripe
+# + chunk 128, a trash row at 2048), pos == S a trash row past the stripe;
+# S = 8320 spans more chunks (65) than the cluster's 8 blocks share evenly,
+# S = 20000 more than a block keeps the scores of (its rest recomputed)
 K8_CASES = {
     "olmo2": (1, 1, 128, 2048, [331], 0, 0.0),
     "engine_g8": (4, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0),
@@ -590,6 +592,10 @@ K8_CASES = {
     "softcap": (1, 4, 128, 256, [200], 0, 30.0),
     "g16_ragged": (2, 16, 64, 300, [299, 5], 0, 0.0),
     "s200": (1, 1, 64, 200, [150], 0, 0.0),
+    "s2000": (1, 1, 128, 2000, [1999], 0, 0.0),
+    "s8320": (4, 1, 128, 8320, [8000, 4100, 0, 8320], 0, 0.0),
+    "s20000": (1, 4, 64, 20000, [19990], 0, 0.0),
+    "window_mid_chunk": (2, 4, 64, 1024, [700, 1024], 300, 0.0),
 }
 
 
@@ -624,10 +630,25 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
 
 
 def _decode_call(kernel, kv, b, dev):
-    """A 4-row decode call of K7's split form (S 2176, int8 or bf16 K/V) or
-    K9 (65 pages of 128, f32 or bf16 pools) with a trash row, as `fn(rows)`:
-    the output of the call restricted to those batch rows, on fresh copies
-    of the cache."""
+    """A 4-row decode call of K7's split form (S 2176, int8 or bf16 K/V), K8
+    (S 8320, f32 or bf16 caches) or K9 (65 pages of 128, f32 or bf16 pools)
+    with a trash row, as `fn(rows)`: the output of the call restricted to
+    those batch rows, on fresh copies of the cache; and the rows to
+    compare."""
+    if kernel == "k8":
+        s, hkv, hq, d = 8320, 4, 32, 64
+        cdtype = torch.float32 if kv == "f32" else torch.bfloat16
+        pos = torch.tensor([8000, 300, 0, s], dtype=torch.int32, device=dev)[:, None]
+        q = _randn((b, 1, hq, d), 70, dev)
+        kn, vn = _randn((b, 1, hkv, d), 71, dev), _randn((b, 1, hkv, d), 72, dev)
+        kc, vc = _randn((b, hkv, s, d), 73, dev, cdtype), _randn((b, hkv, s, d), 74, dev, cdtype)
+
+        def fn(rows):
+            return ta.attn_decode_update(q[rows].contiguous(), kn[rows].contiguous(),
+                                         vn[rows].contiguous(), kc[rows].clone(),
+                                         vc[rows].clone(), pos[rows].contiguous(),
+                                         scale=d ** -0.5)
+        return fn, [0, 1, 2, 3]
     if kernel == "k7":
         s, hkv, hq, d = 2176, 4, 32, 64
         pos = torch.tensor([255, 2047, 0, 2048], dtype=torch.int32, device=dev)[:, None]
@@ -669,16 +690,61 @@ def _decode_call(kernel, kv, b, dev):
 
 
 @pytest.mark.parametrize("kernel,kv", [("k7", "int8"), ("k7", "bf16"), ("k9", "f32"),
-                                       ("k9", "bf16")])
+                                       ("k9", "bf16"), ("k8", "f32"), ("k8", "bf16")])
 def test_decode_rows_do_not_depend_on_the_batch(dev, kernel, kv):
-    """Each live row of a 4-row decode call with a trash row is bit-identical
-    to the same row run alone (B = 1): the cluster deals a row's chunks by a
-    rule that reads only its own span and S."""
+    """Each live row of a 4-row decode call with a trash row (K8: every row,
+    its trash row attending all S slots) is bit-identical to the same row
+    run alone (B = 1): the cluster deals a row's chunks by a rule that reads
+    only its own span and S."""
     fn, live = _decode_call(kernel, kv, 4, dev)
     together = fn(list(range(4)))
     for r in live:
         alone = fn([r])
         assert torch.equal(together[r:r + 1], alone), f"row {r}"
+
+
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q4_0], ids=lambda t: t.name)
+def test_k1_chain_in_a_graph(dev, fmt):
+    """K1 launches with programmatic dependent launch: each may start while
+    its predecessor drains, and only its weight loads may come before
+    griddepcontrol.wait.  The chain norm -> gate|up (K1), glu -> down (K1),
+    a torch add, norm -> wqkv (K1) at TinyLlama widths, captured once in a
+    CUDA graph and replayed 50 times with its input rewritten in place
+    between replays, must give each time the bits of the same chain run
+    eagerly (a read of x or a write of y before the wait would race)."""
+    d, ff, n_qkv = 2048, 5632, 2560
+    w_gu, w_down = _qweight(2 * ff, d, 1, dev, fmt), _qweight(d, ff, 2, dev, fmt)
+    w_qkv = _qweight(n_qkv, d, 3, dev, fmt)
+    norm_ffn = _randn((d,), 4, dev, scale=0.1) + 1.0
+    norm_att = _randn((d,), 5, dev, scale=0.1) + 1.0
+    x = _randn((1, d), 6, dev, scale=3.0)
+
+    def chain():  # each K1's output
+        gu = tq.q4k_matvec(x, w_gu, "norm", norm_ffn, 1e-5)
+        down = tq.q4k_matvec(gu, w_down, "glu", None, 1e-5)
+        return gu, down, tq.q4k_matvec(x + down, w_qkv, "norm", norm_att, 1e-5)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chain()
+    for i in range(50):
+        x.copy_(_randn((1, d), 100 + i, dev, scale=3.0))
+        graph.replay()
+        got = [t.clone() for t in outs]
+        want = chain()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), f"replay {i}"
+        if i == 0:  # each stage against its plain version on the same input
+            gu, down, qkv = want
+            assert _nmse(gu, tq.q4k_matvec_plain(x, w_gu, "norm", norm_ffn, 1e-5)) < 1e-6
+            assert _nmse(down, tq.q4k_matvec_plain(gu, w_down, "glu", None, 1e-5)) < 1e-6
+            assert _nmse(qkv, tq.q4k_matvec_plain(x + down, w_qkv, "norm", norm_att,
+                                                  1e-5)) < 1e-6
 
 
 # the legacy nibble formats through K1, K3, K12 and K11: odd N (a block's

@@ -1,17 +1,21 @@
-"""The plain versions that K9 and K7's split form are held to on the card,
-against zllm's Pallas kernels run in interpret mode, at spans longer than
-the 8 blocks of a cluster: K9 (`paged_attn_decode_update_plain`) at pages
-of 16 slots, rows spanning 20+ pages, and K7 (`flash_attention_blockwise_plain`)
-at T = 1 over int8 codes with zllm's `block_s` = 16, a row spanning 20+
-blocks.  Inputs are made with numpy from a seed.
+"""The plain versions that K9, K7's split form and K8 are held to on the
+card, against zllm's Pallas kernels run in interpret mode, at spans longer
+than the 8 blocks of a cluster: K9 (`paged_attn_decode_update_plain`) at
+pages of 16 slots, rows spanning 20+ pages, K7
+(`flash_attention_blockwise_plain`) at T = 1 over int8 codes with zllm's
+`block_s` = 16, a row spanning 20+ blocks, and K8
+(`attn_decode_update_plain`) at S = 2304, 18 of the kernel's 128-slot
+chunks.  Inputs are made with numpy from a seed.
 
 Tolerances are those of the short-span tests: K9 f32 pools atol = rtol =
 1e-4 on att (tests/test_torch_paged_attention.py: another sum order, an
 online softmax against one normalization), bf16 pools nmse <= 1e-8 (both
 round exp(s - running max) a page at a time, so only f32 sum order and an
-ulp of exp remain); K7 atol = rtol = 5e-5 (tests/test_torch_blockwise.py).
-Trash rows (position >= horizon) are not compared: their output is never
-read."""
+ulp of exp remain); K7 atol = rtol = 5e-5 (tests/test_torch_blockwise.py);
+K8 those of tests/test_torch_attn_decode_update.py (f32 cache max |diff|
+<= 1e-5, bf16 cache nmse <= 1e-5, the caches bit-equal).  K9's trash rows
+(position >= horizon) are not compared: their output is never read; K8's
+trash row (pos == S) writes slot S - 1 and attends all S, and is compared."""
 
 import numpy as np
 import pytest
@@ -135,3 +139,43 @@ def test_k7_plain_matches_zllm_long(variant):
     assert ta.flash_attention_blockwise.launches == before  # CPU tensors: the plain version
     assert tuple(got.shape) == q.shape and got.dtype == torch.float32
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=5e-5, atol=5e-5)
+
+
+# K8 at S = 2304 (18 chunks of 128): rows at 2200, 1100, 0 and the trash row
+S8 = 2304
+POS8 = [2200, 1100, 0, S8]
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["causal", "window_softcap"])
+def test_k8_plain_matches_zllm_long(variant, cache):
+    """GQA 8/2 heads of 64, f32 q; the window (700 slots) starts mid-chunk
+    for every row but position 0."""
+    import jax.numpy as jnp
+
+    from zllm.ops.attention import attn_decode_update as zllm_k8
+    from zllm_torch.ops import attention as ta
+
+    rng = np.random.default_rng(83)
+    b = len(POS8)
+    q = rng.standard_normal((b, 1, HQ, D)).astype(np.float32)
+    kn, vn = (rng.standard_normal((b, 1, HKV, D)).astype(np.float32) for _ in range(2))
+    kc, vc = (rng.standard_normal((b, HKV, S8, D)).astype(np.float32) for _ in range(2))
+    positions = np.asarray([[p] for p in POS8], np.int32)
+    kw = dict(scale=SCALE, softcap=30.0 if "softcap" in variant else 0.0,
+              window=700 if "window" in variant else 0)
+    jc, tc = getattr(jnp, cache), getattr(torch, cache)
+    want, zk, zv = zllm_k8(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kc, jc),
+                           jnp.asarray(vc, jc), jnp.asarray(positions), interpret=True, **kw)
+    tk, tv = torch.from_numpy(kc).to(tc), torch.from_numpy(vc).to(tc)
+    before = ta.attn_decode_update.launches
+    got = ta.attn_decode_update(torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn),
+                                tk, tv, torch.from_numpy(positions), **kw)
+    assert ta.attn_decode_update.launches == before  # CPU tensors: the plain version
+    assert tuple(got.shape) == q.shape and got.dtype == torch.float32
+    if cache == "float32":
+        assert np.abs(to_np(got) - np.asarray(want)).max() <= 1e-5
+    else:
+        assert _nmse(to_np(got), np.asarray(want)) <= 1e-5
+    for mine, theirs in ((tk, zk), (tv, zv)):
+        np.testing.assert_array_equal(to_np(mine.float()), np.asarray(theirs.astype(jnp.float32)))

@@ -91,7 +91,7 @@ struct ContigKV {
   const float* vs;
   int Hkv, S;
   static constexpr bool kScaled = kScaled_;
-  static constexpr bool kRound = false;   // f32 probabilities, never rounded
+  static constexpr int kRound = zt_dc::kRoundNone;  // f32 probabilities, never rounded
   static constexpr bool kInsert = false;
   __device__ __forceinline__ size_t base(int b, int h, int j, int cs) const {
     return ((size_t)b * Hkv + h) * S + (size_t)j * cs;

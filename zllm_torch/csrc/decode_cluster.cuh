@@ -1,18 +1,25 @@
 // The one-launch decode step shared by K7's split form (attn_blockwise.cu,
-// a contiguous cache of bf16 K/V or int8 codes with f32 scales) and K9
-// (paged_decode.cu, page pools read through a page table, with the insert
-// of the new K/V row): flash-decoding as ONE thread-block-cluster launch.
+// a contiguous cache of bf16 K/V or int8 codes with f32 scales), K8
+// (attn_decode_update.cu, a contiguous bf16/f32 cache with the insert of
+// the new K/V row) and K9 (paged_decode.cu, page pools read through a page
+// table, with the insert): flash-decoding as ONE thread-block-cluster
+// launch.
 //
 // Queries: R = T * G rows of one (row b, kv head h), row r = t * G + g at
-// position pos[b] + t (K9: T = 1), taken 8 at a time (RM), each group of 8
-// its own cluster.  Slots <= the row's position (and > position - window)
-// are seen; scores are f32 (q . k) * scale (times K's scale for int8 K),
-// logit softcap.  The two users differ in where chunk j of (b, h) lives (the
-// addressor's `base`) and in the softmax's rounding point (`kRound`):
-//   * K7 (kRound false, zllm's `_attnb_kernel`): p = exp(s - M) unrounded,
+// position pos[b] + t (K8, K9: T = 1), taken 8 at a time (RM), each group
+// of 8 its own cluster.  Slots <= the row's position (and > position -
+// window) are seen; scores are f32 (q . k) * scale (times K's scale for
+// int8 K), logit softcap.  The users differ in where chunk j of (b, h)
+// lives (the addressor's `base`), in the insert slot (`insert_slot`) and
+// in the softmax's rounding point (`kRound`):
+//   * K7 (kRoundNone, zllm's `_attnb_kernel`): p = exp(s - M) unrounded,
 //     M the row's max, times V's scale for int8 V; out = (sum p.V) / l,
 //     l = sum exp(s - M), with the sink logit in M and l when given;
-//   * K9 (kRound true, zllm's `_paged_decode_kernel`, an online softmax a
+//   * K8 (kRoundNorm, zllm's `_attn_decode_kernel`): p = exp(s - M) / l
+//     (IEEE division) rounded to the cache dtype, l the row's f32
+//     denominator, which every block reads from its peers' chunk
+//     statistics in one order (so all hold the same bits); out = sum p.V;
+//   * K9 (kRoundPage, zllm's `_paged_decode_kernel`, an online softmax a
 //     page a grid step): p = exp(s - M_j) rounded to the pool dtype, M_j the
 //     running max after page j (the max of the chunk maxima of the row's
 //     chunks up to j), each chunk's P.V rescaled by exp(M_j - M) (folded
@@ -57,17 +64,19 @@
 //     keeps its own accumulator so the MMA chains stay short.
 //   * cluster.sync(), then every block reads the chunk statistics of its
 //     peers through distributed shared memory (map_shared_rank): the row's
-//     max M (K9: also the prefix maxima M_j of its own chunks; block 0 also
-//     the denominator l).
+//     max M (K9: also the prefix maxima M_j of its own chunks; block 0, and
+//     for K8 every block, also the denominator l).
 //   * Phase 2: probabilities in place of the scores, then P.V, in f32: bf16
 //     and int8 V on the tensor cores as (P.V)^T = V^T P^T (D as M, the 8
-//     rows as N, a warp's 16 slots as K, p in three bf16 parts; slots
-//     outside the staged rows read as 0), f32 V on the CUDA cores; summed
-//     per warp in chunk order, then over the warps in order.
+//     rows as N, a warp's 16 slots as K, p in three bf16 parts, K8's
+//     rounded p in one; slots outside the staged rows read as 0), f32 V on
+//     the CUDA cores; summed per warp in chunk order, then over the warps
+//     in order.
 //   * cluster.sync(), then block 0 sums the blocks' partials over DSMEM in
 //     block order (= chunk order, the runs being contiguous), adds the sinks
-//     (K7), divides by l and writes the output; a last cluster.sync() keeps
-//     every peer's shared memory alive until block 0 has read it.
+//     (K7), divides by l (K7, K9) and writes the output; a last
+//     cluster.sync() keeps every peer's shared memory alive until block 0
+//     has read it.
 //   * A span longer than the scores' room (more than kKeepBytes of scores
 //     a block, > 16384 slots at chunks of 128) keeps the scores of a
 //     block's first `mkeep` chunks and recomputes the rest in phase 2 from
@@ -76,13 +85,15 @@
 // Where trouble lies:
 //   * No early return: a block without a chunk (a short row's idle blocks,
 //     rows past R) still reaches every cluster.sync(), or the launch hangs.
-//   * K9's insert in one launch: no block may use the insert slot's row
-//     from the pool (its cp.async copy brings the stale row); the block that
-//     owns the insert chunk overwrites that row of its staged K and V with
-//     k_new / v_new rounded to the pool dtype.  Only the clusters of query
-//     group 0 write the pool (G > 8 runs more groups), and a row at or past
-//     the horizon (the engine's trash rows) writes nothing and attends every
-//     page.  No other row reads an insert page (prefix pages are full).
+//   * The insert in one launch (K8, K9): no block may use the insert slot's
+//     row from the cache (its cp.async copy brings the stale row); the block
+//     that owns the insert chunk overwrites that row of its staged K and V
+//     with k_new / v_new rounded to the cache dtype.  Only the clusters of
+//     query group 0 write the cache (G > 8 runs more groups).  The slot is
+//     the addressor's: K9's row at or past the horizon (the engine's trash
+//     rows) writes nothing and attends every page; K8's slot is
+//     min(pos, S - 1), so its trash row (pos == S) writes slot S - 1 and
+//     attends all S.  No other row reads an insert page or chunk.
 //   * Dynamic shared memory above 48 KB needs cudaFuncSetAttribute once an
 //     instantiation, outside graph capture; the launch is checked with
 //     cudaGetLastError(), since a refused cluster launch never runs.
@@ -90,8 +101,8 @@
 //     compiled as written, the card gave wrong scores whenever S was not a
 //     multiple of 128 (same data, same memory; PERF.md §7).
 //   * Registers: `-Xptxas -v` must show no spill in any instantiation (q
-//     f32/bf16 x K/V int8/bf16 or pools f32/bf16 x D 64/128); chip_smoke.py
-//     fails on one.
+//     f32/bf16 x K/V int8/bf16, caches f32/bf16 or pools f32/bf16 x D
+//     64/128); chip_smoke.py fails on one.
 
 #pragma once
 
@@ -119,6 +130,10 @@ constexpr int kKeepBytes = 64 * 1024;       // room for kept scores a block
 constexpr int kRingBytes = 96 * 1024;       // room for the K/V ring a block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -INFINITY;
+
+// where the softmax rounds, an addressor's kRound: K7 never, K9 exp(s - M_j)
+// to the pool dtype a page, K8 the normalized p to the cache dtype
+enum Round { kRoundNone = 0, kRoundPage = 1, kRoundNorm = 2 };
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -184,13 +199,16 @@ size_t smem_bytes(int mmax, int n_slots) {
 }
 
 // two blocks an SM where the registers allow it (bf16 / int8 K/V at D 64, the
-// serve shapes: a cluster's blocks then fit a GPC in one wave); one for f32
-// pools and D 128, whose accumulators need more than 128 registers a thread
-template <typename TKV, int D>
-constexpr int kMinBlocks = sizeof(TKV) <= 2 && D == 64 ? 2 : 1;
+// serve shapes: a cluster's blocks then fit a GPC in one wave; K8's bf16
+// cache at D 128 too, its p one bf16 part: an OLMo-2 step's 16 clusters in
+// one wave); one for f32 pools and the other D 128 forms, whose
+// accumulators need more than 128 registers a thread
+template <typename TKV, int D, int ROUND>
+constexpr int kMinBlocks = sizeof(TKV) <= 2 && (D == 64 || ROUND == kRoundNorm) ? 2 : 1;
 
 template <typename TQ, typename TKV, int D, typename KV>
-__global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlocks<TKV, D>)
+__global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
+                                                             kMinBlocks<TKV, D, KV::kRound>)
     decode_cluster_kernel(const Params p, const KV kv) {
   using RG = Ring<TKV, D>;
   constexpr int RS = RG::RS, NBUF = RG::N;
@@ -238,8 +256,9 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
   const int nb_used = per > 0 ? (n + per - 1) / per : 0;
   const int kept = min(m, p.mkeep);
   const int n_items = m + kept + 2 * (m - kept);  // K of every chunk, then V (K again if not kept)
-  // K9: the insert slot (rows before the horizon) and its chunk
-  const int pw = KV::kInsert && p0 < p.S ? p0 : -1;
+  // K8, K9: the insert slot (-1: none) and its chunk
+  int pw = -1;
+  if constexpr (KV::kInsert) pw = kv.insert_slot(p0, p.S);
   const int jw = pw >= 0 ? pw / cs : -1;
 
   if constexpr (KV::kInsert) {  // the pool write: query group 0's owner of the insert chunk
@@ -313,7 +332,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
     issue(next + NBUF - 1);
     return (next++) % NBUF;
   };
-  // K9: the insert slot's staged row from k_new / v_new, rounded to the pool dtype
+  // K8, K9: the insert slot's staged row from k_new / v_new, rounded to the cache dtype
   auto patch = [&](int buf, int i, bool is_v) {
     if constexpr (KV::kInsert) {
       if (j0 + my0 + i == jw) {  // uniform over the block
@@ -489,7 +508,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
   }
   cluster.sync();
 
-  // ---- the row's max (K9: own prefix maxima; block 0: the denominator) ----
+  // ---- the row's max (K9: own prefix maxima; block 0, K8 every block: l) --
   for (int r = warp; r < RM; r += kWarps) {
     float M = kNeg, carry = kNeg;
     float2 first = make_float2(kNeg, 0.f);  // this lane's chunk of the first 32
@@ -498,7 +517,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
       float2 s2 = make_float2(kNeg, 0.f);
       if (k < n) s2 = cluster.map_shared_rank(st, k / per)[(k % per) * RM + r];
       if (k0 == 0) first = s2;
-      if constexpr (KV::kRound) {
+      if constexpr (KV::kRound == kRoundPage) {
         float pre = s2.x;  // inclusive prefix max over the chunks
         for (int o = 1; o < 32; o <<= 1) {
           const float y = __shfl_up_sync(kFull, pre, o);
@@ -511,7 +530,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
       M = fmaxf(M, warp_max(s2.x));
     }
     float l = 0.f;
-    if (rank == 0) {
+    if (rank == 0 || KV::kRound == kRoundNorm) {
       for (int k0 = 0; k0 < n; k0 += 32) {
         const int k = k0 + lane;
         float2 s2 = first;
@@ -535,13 +554,20 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
     for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
   // tensor cores (bf16 V, int8 codes): (P.V)^T = V^T P^T with D as M (tiles of
   // 16), the 8 rows as N and a warp's 32 slots of the chunk as K; p split
-  // into three bf16 parts, V exact in bf16
+  // into NP bf16 parts (K8: p is rounded to the bf16 cache, one exact part;
+  // three otherwise), V exact in bf16
   constexpr int MT = D / 16;
-  float tacc[kMma ? MT : 1][4], tacc2[kMma ? MT : 1][4];  // p's hi part; its mid and lo parts
+  constexpr int NP = KV::kRound == kRoundNorm ? 1 : 3;
+  float tacc[kMma ? MT : 1][4];                    // p's hi part
+  float tacc2[kMma && NP > 1 ? MT : 1][4];         // its mid and lo parts
 #pragma unroll
   for (int mt = 0; mt < (kMma ? MT : 1); ++mt)
 #pragma unroll
-    for (int e4 = 0; e4 < 4; ++e4) tacc[mt][e4] = tacc2[mt][e4] = 0.f;
+    for (int e4 = 0; e4 < 4; ++e4) tacc[mt][e4] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < (kMma && NP > 1 ? MT : 1); ++mt)
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) tacc2[mt][e4] = 0.f;
   // V[s][d], V[s + 1][d] of a staged chunk as a bf16 pair; a slot outside the
   // staged rows [a, z] is 0 (its bytes were never loaded)
   auto vpair = [&](const unsigned char* vbase, int s, int d, bool ok0, bool ok1) -> uint32_t {
@@ -574,9 +600,11 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
       for (int r = 0; r < RM; ++r) {
         float pr = 0.f;
         if (x[r] > kNeg) {
-          if constexpr (KV::kRound) {  // the page's P.V rescaled to the row's max
+          if constexpr (KV::kRound == kRoundPage) {  // the page's P.V rescaled to the row's max
             const float mr = mj[i * RM + r];
             pr = to_f(from_f<TKV>(expf(x[r] - mr))) * expf(mr - row_m[r]);
+          } else if constexpr (KV::kRound == kRoundNorm) {
+            pr = to_f(from_f<TKV>(__fdiv_rn(expf(x[r] - row_m[r]), row_l[r])));
           } else {
             pr = expf(x[r] - row_m[r]);
             if constexpr (KV::kScaled) pr *= vsc;
@@ -599,8 +627,8 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int s = s0 + 8 * hf;
-          zt_mma::split_pair<3>(sc[s * RM + row], sc[(s + 1) * RM + row], pb[0][hf], pb[1][hf],
-                                pb[2][hf]);
+          zt_mma::split_pair<NP>(sc[s * RM + row], sc[(s + 1) * RM + row], pb[0][hf],
+                                 pb[1][hf], pb[2][hf]);
         }
         const bool k00 = s0 >= a && s0 <= z, k01 = s0 + 1 >= a && s0 + 1 <= z;
         const bool k10 = s0 + 8 >= a && s0 + 8 <= z, k11 = s0 + 9 >= a && s0 + 9 <= z;
@@ -613,8 +641,10 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
           av[2] = vpair(vbase, s0 + 8, dd, k10, k11);
           av[3] = vpair(vbase, s0 + 8, dd + 8, k10, k11);
           mma_bf16(tacc[mt], av, pb[0]);
-          mma_bf16(tacc2[mt], av, pb[1]);
-          mma_bf16(tacc2[mt], av, pb[2]);
+          if constexpr (NP > 1) {
+            mma_bf16(tacc2[mt], av, pb[1]);
+            mma_bf16(tacc2[mt], av, pb[2]);
+          }
         }
       }
     } else {  // f32 V
@@ -639,10 +669,13 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int dd = mt * 16 + lane / 4;
-      wp[(warp * RM + row) * D + dd] = tacc[mt][0] + tacc2[mt][0];
-      wp[(warp * RM + row + 1) * D + dd] = tacc[mt][1] + tacc2[mt][1];
-      wp[(warp * RM + row) * D + dd + 8] = tacc[mt][2] + tacc2[mt][2];
-      wp[(warp * RM + row + 1) * D + dd + 8] = tacc[mt][3] + tacc2[mt][3];
+      float o[4];
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) o[e4] = NP > 1 ? tacc[mt][e4] + tacc2[mt][e4] : tacc[mt][e4];
+      wp[(warp * RM + row) * D + dd] = o[0];
+      wp[(warp * RM + row + 1) * D + dd] = o[1];
+      wp[(warp * RM + row) * D + dd + 8] = o[2];
+      wp[(warp * RM + row + 1) * D + dd + 8] = o[3];
     }
   } else {
 #pragma unroll
@@ -678,34 +711,63 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads, kMinBlock
         o *= w;
         l = l * w + expf(sk - mf);
       }
+      if constexpr (KV::kRound != kRoundNorm) o = l > 0.f ? o / l : 0.f;
       static_cast<TQ*>(p.out)[(((size_t)b * p.T + r / G) * p.Hq + h * G + g) * D + e % D] =
-          from_f<TQ>(l > 0.f ? o / l : 0.f);
+          from_f<TQ>(o);
     }
   }
   cluster.sync();  // the peers' shared memory lives until block 0 has read it
 }
 
-// one launch; returns a CUDA error code (0 on success)
+// p's chunk room (mmax, mkeep) for its S, the launch's shared memory in
+// *shmem, and the kernel's shared-memory attribute (set once an
+// instantiation, not inside graph captures); returns a CUDA error code
 template <typename TQ, typename TKV, int D, typename KV>
-int launch(Params p, const KV& kv, int B, cudaStream_t stream) {
+int prepare(Params& p, size_t* shmem) {
   const int nchunks = (p.S + p.cs - 1) / p.cs;  // the widest span
   p.mmax = (nchunks + NB - 1) / NB;
   const int slot_bytes = (int)sizeof(float) * CH * RM;
   p.mkeep = p.mmax * slot_bytes <= kKeepBytes ? p.mmax : kKeepBytes / slot_bytes - 1;
   const int n_slots = p.mkeep < p.mmax ? p.mkeep + 1 : p.mmax;
-  const size_t shmem = smem_bytes<TKV, D, KV::kScaled>(p.mmax, n_slots);
-  if (shmem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = decode_cluster_kernel<TQ, TKV, D, KV>;
-  static bool attr_set = false;  // once per instantiation, not inside graph captures
+  *shmem = smem_bytes<TKV, D, KV::kScaled>(p.mmax, n_slots);
+  if (*shmem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    const cudaError_t err = cudaFuncSetAttribute(decode_cluster_kernel<TQ, TKV, D, KV>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const int GC = (p.T * (p.Hq / p.Hkv) + RM - 1) / RM;
-  kern<<<dim3(NB, p.Hkv * GC, B), kThreads, shmem, stream>>>(p, kv);
+  return 0;
+}
+
+inline dim3 grid(const Params& p, int B) {
+  return dim3(NB, p.Hkv * ((p.T * (p.Hq / p.Hkv) + RM - 1) / RM), B);
+}
+
+// one launch; returns a CUDA error code (0 on success)
+template <typename TQ, typename TKV, int D, typename KV>
+int launch(Params p, const KV& kv, int B, cudaStream_t stream) {
+  size_t shmem = 0;
+  const int err = prepare<TQ, TKV, D, KV>(p, &shmem);
+  if (err != 0) return err;
+  decode_cluster_kernel<TQ, TKV, D, KV><<<grid(p, B), kThreads, shmem, stream>>>(p, kv);
   return (int)cudaGetLastError();
+}
+
+// the clusters of this launch's shape that the card holds at once
+// (cudaOccupancyMaxActiveClusters) in *n; returns a CUDA error code
+template <typename TQ, typename TKV, int D, typename KV>
+int max_active_clusters(Params p, int B, int* n) {
+  size_t shmem = 0;
+  const int err = prepare<TQ, TKV, D, KV>(p, &shmem);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid(p, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = shmem;
+  return (int)cudaOccupancyMaxActiveClusters(n, decode_cluster_kernel<TQ, TKV, D, KV>, &cfg);
 }
 
 }  // namespace zt_dc

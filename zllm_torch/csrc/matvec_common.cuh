@@ -8,7 +8,8 @@
 // group: dx = max(max|v| / 127, 1e-12), q = clip(rint(v / dx), -127, 127),
 // with IEEE division, as the Pallas kernel rounds (the library is built
 // without fast math).  Every block quantizes the whole row into its shared
-// memory; GROUP/4 lanes take a group, four elements a lane.
+// memory; GROUP/4 lanes take a group, four elements a lane; the blocks
+// are 256 threads (K4, K11, K12) or 512 (K1).
 
 #pragma once
 
@@ -46,6 +47,43 @@ struct QuantRow {
   static size_t bytes(int K) { return (size_t)K + (size_t)(K / GROUP) * 8; }
 };
 
+// The f32 value prologue(x)[k] ("norm": r is the row's rsqrt(mean square + eps))
+template <typename TX, int MODE>
+__device__ __forceinline__ float prologue_value(const TX* __restrict__ x,
+                                                const float* __restrict__ aux, int K, int k,
+                                                float r) {
+  if (MODE == kNorm) return to_f(x[k]) * aux[k] * r;
+  if (MODE == kGlu) {
+    const float gg = to_f(x[k]);
+    const float u = to_f(x[K + k]);
+    return gg * (1.f / (1.f + expf(-gg))) * u;
+  }
+  return to_f(x[k]);
+}
+
+// One GROUP-wide group quantized by its GROUP/4 lanes (adjacent, all of the
+// warp's lanes in step), four values v a lane: the lane's int8 codes, and
+// the group's dx and code sum in every one of its lanes.
+template <int GROUP>
+__device__ __forceinline__ void quantize_group(const float (&v)[4], char4& codes, float& dx,
+                                               int& sx) {
+  constexpr int kLanes = GROUP / 4;
+  float am = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) am = fmaxf(am, __shfl_xor_sync(kFull, am, o));
+  dx = fmaxf(am / 127.f, 1e-12f);
+  int q[4];
+  sx = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = (int)fminf(fmaxf(rintf(v[i] / dx), -127.f), 127.f);
+    sx += q[i];
+  }
+  codes = make_char4(q[0], q[1], q[2], q[3]);
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) sx += __shfl_xor_sync(kFull, sx, o);
+}
+
 // All THREADS threads of the block call this together.  K / GROUP must be a
 // multiple of 32 * 4 / GROUP groups (K % 256 == 0 covers GROUP 16 and 32),
 // so that every lane of a warp takes part in each round's shuffles.  Ends
@@ -55,24 +93,29 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
                                              const float* __restrict__ aux, int K, float eps,
                                              QuantRow<GROUP> row) {
   constexpr int kLanes = GROUP / 4;  // lanes per group
-  constexpr int kWarps = THREADS / 32;
-  __shared__ float red[kWarps];
+  // the mean square is summed as 256 threads sum it, whatever THREADS is,
+  // so that every caller gives a row the same bits
+  constexpr int kSum = 256;
+  static_assert(THREADS % kSum == 0, "THREADS: a multiple of 256");
+  __shared__ float red[kSum / 32];
   __shared__ float rscale;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float r = 1.f;
   if (MODE == kNorm) {
-    float s = 0.f;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = to_f(x[k]);
-      s += v * v;
+    if (tid < kSum) {
+      float s = 0.f;
+      for (int k = tid; k < K; k += kSum) {
+        const float v = to_f(x[k]);
+        s += v * v;
+      }
+      s = warp_sum(s);
+      if (lane == 0) red[warp] = s;
     }
-    s = warp_sum(s);
-    if (lane == 0) red[warp] = s;
     __syncthreads();
     if (tid == 0) {
       float t = 0.f;
-      for (int w = 0; w < kWarps; ++w) t += red[w];
+      for (int w = 0; w < kSum / 32; ++w) t += red[w];
       rscale = rsqrtf(t / (float)K + eps);
     }
     __syncthreads();
@@ -85,31 +128,12 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
     const int k0 = g * GROUP + sub * 4;
     float v[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + i;
-      if (MODE == kNorm) {
-        v[i] = to_f(x[k]) * aux[k] * r;
-      } else if (MODE == kGlu) {
-        const float gg = to_f(x[k]);
-        const float u = to_f(x[K + k]);
-        v[i] = gg * (1.f / (1.f + expf(-gg))) * u;
-      } else {
-        v[i] = to_f(x[k]);
-      }
-    }
-    float am = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
-#pragma unroll
-    for (int o = 1; o < kLanes; o <<= 1) am = fmaxf(am, __shfl_xor_sync(kFull, am, o));
-    const float dx = fmaxf(am / 127.f, 1e-12f);
-    int q[4], sx = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      q[i] = (int)fminf(fmaxf(rintf(v[i] / dx), -127.f), 127.f);
-      sx += q[i];
-    }
-    *reinterpret_cast<char4*>(row.xq + k0) = make_char4(q[0], q[1], q[2], q[3]);
-#pragma unroll
-    for (int o = 1; o < kLanes; o <<= 1) sx += __shfl_xor_sync(kFull, sx, o);
+    for (int i = 0; i < 4; ++i) v[i] = prologue_value<TX, MODE>(x, aux, K, k0 + i, r);
+    char4 codes;
+    float dx;
+    int sx;
+    quantize_group<GROUP>(v, codes, dx, sx);
+    *reinterpret_cast<char4*>(row.xq + k0) = codes;
     if (sub == 0) {
       row.dx[g] = dx;
       row.sx[g] = sx;

@@ -45,11 +45,14 @@ struct PagedKV {
   const int* table;
   int TW, n_rows;
   static constexpr bool kScaled = false;
-  static constexpr bool kRound = true;  // exp(s - M_j) rounded to the pool dtype
+  static constexpr int kRound = zt_dc::kRoundPage;  // exp(s - M_j) rounded to the pool dtype
   static constexpr bool kInsert = true;
   __device__ __forceinline__ size_t base(int b, int h, int j, int cs) const {
     return (size_t)h * n_rows + (size_t)__ldg(table + (size_t)b * TW + j) * cs;
   }
+  // a row before the horizon S inserts at its position; the engine's trash
+  // rows (at or past it) write nothing
+  __device__ __forceinline__ int insert_slot(int p0, int S) const { return p0 < S ? p0 : -1; }
 };
 
 template <typename TQ, typename TP>

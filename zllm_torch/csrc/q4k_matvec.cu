@@ -16,102 +16,253 @@
 //
 // Bound on the H100: the weight bytes, read once (Q4_K 4.5 bits a weight,
 // this layout with sc/mn unpacked to bytes 4.625; Q4_0 4.5; Q4_1 5); the
-// arithmetic is 2*K*N int8 ops, ~1000x under the int8 peak.  Design: each
-// block quantizes the activation row once into shared memory (int8 codes,
-// f32 dx, int32 sums per group; eight lanes a group), then each warp
-// streams whole output columns: a column's packed nibbles are contiguous
-// along K in every format (zllm_torch/quant/repack.py), so two lanes read
-// one 64-element chunk as two 16-byte loads.  A warp issues all loads of
-// a column (packed bytes and scales, up to 4 chunk rounds, in registers)
-// before it uses any, and issues its first column's loads before the
-// activation prologue, so HBM latency overlaps the quantization.  The low
-// nibbles of four bytes are four codes of group 2c and the high nibbles
-// four codes of group 2c+1, each against four int8 activations in one
-// __dp4a.  A lane-pair shuffle joins the two halves of a chunk into exact
-// integer group dots, and each lane applies its group's scales.  Only the
-// scale fetch and the epilogue depend on the format (template FMT).
+// arithmetic is 2*K*N int8 ops, ~1000x under the int8 peak.  At 1B scale
+// a launch moves 2-19 MB (0.7-5.6 us of bytes), so what paces a decode
+// step's 65-99 launches is each launch's fixed part.  The earlier form
+// (8 warps a block, up to 4 blocks an SM, one column in flight a warp)
+// took 8.5 us a launch on the H100, of which 1.1 the graph's launch,
+// 1.4-6.5 the activation prologue (norm 2.5, glu 6.5: every block on an
+// SM redid it) and a serial trip to HBM a column
+// (python -m zllm_torch.k1_ablation, PERF.md §6).
+//
+// Design.  Each block quantizes the activation row into shared memory
+// (int8 codes, f32 dx, int32 sums per group; eight lanes a group), then
+// each warp streams whole output columns: a column's packed nibbles are
+// contiguous along K in every format (zllm_torch/quant/repack.py), so two
+// lanes read one 64-element chunk as two 16-byte loads.  The low nibbles
+// of four bytes are four codes of group 2c and the high nibbles four codes
+// of group 2c+1, each against four int8 activations in one __dp4a.  A
+// lane-pair shuffle joins the two halves of a chunk into exact integer
+// group dots, and each lane applies its group's scales.  Only the scale
+// fetch and the epilogue depend on the format (template FMT).
+//   * One wave of 16-warp blocks, at most two an SM (a warp walks cpw =
+//     ceil(N / (2 * SMs * 16)) columns): the prologue is done by at most
+//     two blocks an SM, where the earlier form had up to eight (one block
+//     an SM, leaving room for the next launch's, took 0.63 ms a step
+//     against 0.50: too few loads in flight for gate|up and the head).
+//   * "glu" (ffn_down, K 5632): the blocks of a thread-block cluster of 4
+//     (2 where K / 32 is not a multiple of 16) share the prologue: each
+//     quantizes a quarter of the groups and stores them into every peer's
+//     row over distributed shared memory (done by each block alone, the
+//     glu prologue took 5.1 us of an 8.2 us launch; shared, 2.5 of 7.4).
+//   * Cross-column prefetch: a warp's columns are cut into units of 32
+//     chunks (a whole K = 2048 column), held in two register sets; the next
+//     unit's loads are in flight while the current one's dots run.
+//   * Programmatic dependent launch: the entry launches with programmatic
+//     stream serialization.  Before griddepcontrol.wait a block issues only
+//     loads of what no kernel writes -- its warps' first two units of
+//     packed nibbles and scale planes, and an L2 prefetch of the RMS weight
+//     (`aux`) for "norm" -- so a launch that follows K1 has its weights in
+//     flight while its predecessor drains.  A block calls
+//     griddepcontrol.launch_dependents at its start, so the next launch's
+//     blocks take the room beside this one's as early as they can (after
+//     the last weight loads, the step took 0.63-0.65 ms).
+//   * Each lane adds the same group terms in the same order as before (chunk
+//     c = c_base + 16 * it + lane / 2, group 2c + lane % 2, then warp_sum),
+//     and every group is quantized as before (quantize_group; the mean
+//     square in one order for any block size), so the output is
+//     bit-identical to the earlier form's, to K12's and to K11's.
+//   * Tried and dropped: loading a thread's next prologue group before
+//     reducing the current one (no change: taking out the sigmoid or the
+//     divisions moved the prologue, prefetching its loads did not).
+//
+// Where trouble lies:
+//   * Nothing before griddepcontrol.wait may read what an earlier kernel
+//     writes or write anything: x is the previous K1's output in "glu"
+//     (gate|up -> down) or a torch op's, and y comes from the caching
+//     allocator, whose block a draining predecessor may still read.  The
+//     x reads (the prologue), the dots and every y store follow the wait.
+//   * A predecessor that never triggers (K2, a torch op) triggers at its
+//     end: the launch is then as safe as a plain one, and gains only the
+//     prefetch.
+//   * Under CUDA-graph capture the attribute becomes a programmatic edge; a
+//     launch the runtime refuses returns its error, which the wrapper
+//     raises.
+//   * Co-residency: a launch is one wave of at most two blocks an SM, so
+//     none of its blocks queues behind a successor that started early; a
+//     successor's blocks take only the room this launch leaves.
+//   * The cluster's DSMEM stores wait until every peer runs (the cluster
+//     barrier's arrive at the block's start, its wait before the first
+//     store), and no block reads its row before the closing cluster.sync().
+//   * Registers: __launch_bounds__(512, 2) holds a thread to 64; the two
+//     sets cost what the earlier form's four rounds of one column cost.
+//     `-Xptxas -v` must show no spill (chip_smoke.py's build report fails
+//     on one).
+
+#include <cooperative_groups.h>
 
 #include "matvec_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace zt;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = 2;           // chunk rounds (16 chunks each) a register set holds
+constexpr int kUnit = 16 * kRounds;  // chunks a unit: a K = 2048 column
 
-constexpr int kRounds = 4;  // chunk rounds (16 chunks each) held in registers
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
 
-// At least four blocks an SM (at most 64 registers a thread): left free,
-// nvcc gives the Q4_K form 104 registers, two blocks an SM, and a decode
-// step's matvecs then take 13-16 % longer on the H100.
+// The glu row quantized by the blocks of a thread-block cluster together
+// (a launch without clusters: by the block alone).  Block `rank` of n takes
+// groups [rank * G / n, (rank + 1) * G / n) -- G / n a multiple of 4, so a
+// warp's lanes take whole groups in step -- and stores each group's codes,
+// dx and code sum into every block's shared row.  The caller arrived on the
+// cluster barrier at its start; the wait here makes sure every peer runs
+// (its shared memory exists) before the first store to it, and the closing
+// cluster.sync() that every store has landed before any block reads.
+template <typename TX>
+__device__ __forceinline__ void quantize_glu_cluster(const TX* __restrict__ x, int K,
+                                                     const QuantRow<32>& row) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int G = K / 32, g1 = (rank + 1) * G / n;
+  const int sub = threadIdx.x & 7;
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  for (int g = rank * G / n + threadIdx.x / 8; g < g1; g += kThreads / 8) {
+    const int k0 = g * 32 + sub * 4;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = prologue_value<TX, kGlu>(x, nullptr, K, k0 + i, 1.f);
+    char4 codes;
+    float dx;
+    int sx;
+    quantize_group<32>(v, codes, dx, sx);
+    for (int r = 0; r < n; ++r) {
+      *reinterpret_cast<char4*>(cluster.map_shared_rank(row.xq, r) + k0) = codes;
+      if (sub == 0) {
+        cluster.map_shared_rank(row.dx, r)[g] = dx;
+        cluster.map_shared_rank(row.sx, r)[g] = sx;
+      }
+    }
+  }
+  cluster.sync();
+}
+
+// blocks a cluster for a glu row of K: 4 where a quarter of its groups is a
+// multiple of 4 (K % 512 == 0), else 2
+inline int glu_cluster(int K) { return (K / 32) % 16 == 0 ? 4 : 2; }
+
 template <typename TX, int MODE, int FMT>
-__global__ void __launch_bounds__(kThreads, 4) q4k_matvec_kernel(
+__global__ void __launch_bounds__(kThreads, 2) q4k_matvec_kernel(
     const TX* __restrict__ x, const float* __restrict__ aux, const NibblePlanes w,
     float* __restrict__ y, int K, int N, int cols_per_warp, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const QuantRow<32> row(smem, K);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nchunk = K / 64;
-  const int part = lane & 1;
-
-  // the first column's weights are in flight while the activations are
-  // prepared
-  ColRegs<FMT, kRounds> cr;
+  const int nchunk = K / 64, part = lane & 1;
+  const int upc = (nchunk + kUnit - 1) / kUnit;  // units a column
+  // this warp's columns n0 + j * kWarps (j < cpw, < N), unit u = (column
+  // u / upc, chunks from (u % upc) * kUnit)
   const int n0 = blockIdx.x * cols_per_warp * kWarps + warp;
-  if (n0 < N) fetch_col(cr, w, n0, K, 0, lane);
-  quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
+  const int ncols = n0 < N ? min(cols_per_warp, (N - 1 - n0) / kWarps + 1) : 0;
+  const int nu = ncols * upc;
+  auto fetch = [&](ColRegs<FMT, kRounds>& cr, int u) {
+    if (u < nu) fetch_col(cr, w, n0 + (u / upc) * kWarps, K, (u % upc) * kUnit, lane);
+  };
 
-  for (int j = 0; j < cols_per_warp; ++j) {
-    const int n = (blockIdx.x * cols_per_warp + j) * kWarps + warp;
-    if (n >= N) break;
-    float acc = 0.f;
-    for (int c_base = 0; c_base < nchunk; c_base += 16 * kRounds) {
-      if (j > 0 || c_base > 0) fetch_col(cr, w, n, K, c_base, lane);
+  // before the wait: weights and the norm weight only
+  ColRegs<FMT, kRounds> ca, cb;
+  fetch(ca, 0);
+  fetch(cb, 1);
+  if (MODE == kNorm) {
+    for (int k = threadIdx.x * 32; k < K; k += kThreads * 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(aux + k));
+  }
+  launch_dependents();
+  if (MODE == kGlu) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  grid_wait();
+  if constexpr (MODE == kGlu) {
+    quantize_glu_cluster<TX>(x, K, row);
+  } else {
+    quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
+  }
+
+  float acc = 0.f;
+  auto dots = [&](const ColRegs<FMT, kRounds>& cr, int u) {
+    if (u >= nu) return;  // uniform across the warp
+    const int c_base = (u % upc) * kUnit;
 #pragma unroll
-      for (int it = 0; it < kRounds; ++it) {
-        if (c_base + it * 16 >= nchunk) break;  // uniform across the warp
-        const int c = c_base + it * 16 + (lane >> 1);
-        int plo = 0, phi = 0;
-        if (c < nchunk) {
-          const uint4 wv = cr.wv[it];
-          const int4 xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
-          const int4 xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
-          plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
-          phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
-          plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
-          phi = __dp4a((int)((wv.y >> 4) & 0x0F0F0F0Fu), xh.y, phi);
-          plo = __dp4a((int)(wv.z & 0x0F0F0F0Fu), xl.z, plo);
-          phi = __dp4a((int)((wv.z >> 4) & 0x0F0F0F0Fu), xh.z, phi);
-          plo = __dp4a((int)(wv.w & 0x0F0F0F0Fu), xl.w, plo);
-          phi = __dp4a((int)((wv.w >> 4) & 0x0F0F0F0Fu), xh.w, phi);
-        }
-        plo += __shfl_xor_sync(kFull, plo, 1);
-        phi += __shfl_xor_sync(kFull, phi, 1);
-        if (c < nchunk) {
-          // even lane takes group 2c (low nibbles), odd lane group 2c+1
-          const int g = 2 * c + part;
-          acc += group_term(cr.s[it], part ? phi : plo, row.sx[g], row.dx[g]);
-        }
+    for (int it = 0; it < kRounds; ++it) {
+      if (c_base + it * 16 >= nchunk) break;  // uniform across the warp
+      const int c = c_base + it * 16 + (lane >> 1);
+      int plo = 0, phi = 0;
+      if (c < nchunk) {
+        const uint4 wv = cr.wv[it];
+        const int4 xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
+        const int4 xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
+        plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
+        phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
+        plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
+        phi = __dp4a((int)((wv.y >> 4) & 0x0F0F0F0Fu), xh.y, phi);
+        plo = __dp4a((int)(wv.z & 0x0F0F0F0Fu), xl.z, plo);
+        phi = __dp4a((int)((wv.z >> 4) & 0x0F0F0F0Fu), xh.z, phi);
+        plo = __dp4a((int)(wv.w & 0x0F0F0F0Fu), xl.w, plo);
+        phi = __dp4a((int)((wv.w >> 4) & 0x0F0F0F0Fu), xh.w, phi);
+      }
+      plo += __shfl_xor_sync(kFull, plo, 1);
+      phi += __shfl_xor_sync(kFull, phi, 1);
+      if (c < nchunk) {
+        // even lane takes group 2c (low nibbles), odd lane group 2c+1
+        const int g = 2 * c + part;
+        acc += group_term(cr.s[it], part ? phi : plo, row.sx[g], row.dx[g]);
       }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) y[n] = acc;
+    if (u % upc == upc - 1) {  // the column's last unit
+      acc = warp_sum(acc);
+      if (lane == 0) y[n0 + (u / upc) * kWarps] = acc;
+      acc = 0.f;
+    }
+  };
+  for (int u = 0; u < nu; u += 2) {
+    dots(ca, u);
+    fetch(ca, u + 2);
+    dots(cb, u + 1);
+    fetch(cb, u + 3);
   }
 }
 
 template <typename TX, int MODE, int FMT>
 int launch(const void* x, const float* aux, const NibblePlanes& w, float* y, int K, int N,
            float eps, cudaStream_t stream) {
-  // more columns per warp when N is wide, so a block's prologue is shared
-  // by more columns while the grid still covers every SM twice
-  int cpw = N / (kWarps * 2 * 132);
-  cpw = cpw < 1 ? 1 : (cpw > 4 ? 4 : cpw);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // one wave of at most two blocks an SM
+  const int cpw = (N + 2 * sms * kWarps - 1) / (2 * sms * kWarps);
   const int per_block = kWarps * cpw;
-  const dim3 grid((N + per_block - 1) / per_block);
-  q4k_matvec_kernel<TX, MODE, FMT><<<grid, kThreads, QuantRow<32>::bytes(K), stream>>>(
-      static_cast<const TX*>(x), aux, w, y, K, N, cpw, eps);
-  return (int)cudaGetLastError();
+  // glu: clusters of cl blocks share the prologue (a multiple of cl blocks,
+  // the last ones perhaps without a column)
+  const int cl = MODE == kGlu ? glu_cluster(K) : 1;
+  const int blocks = (N + per_block - 1) / per_block;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + cl - 1) / cl * cl);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = QuantRow<32>::bytes(K);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int na = 0;
+  if (cl > 1) {
+    attr[na].id = cudaLaunchAttributeClusterDimension;
+    attr[na].val.clusterDim.x = cl;
+    attr[na].val.clusterDim.y = 1;
+    attr[na].val.clusterDim.z = 1;
+    ++na;
+  }
+  attr[na].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[na].val.programmaticStreamSerializationAllowed = 1;
+  ++na;
+  cfg.attrs = attr;
+  cfg.numAttrs = na;
+  err = cudaLaunchKernelEx(&cfg, q4k_matvec_kernel<TX, MODE, FMT>, static_cast<const TX*>(x), aux,
+                           w, y, K, N, cpw, eps);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename TX, int FMT>

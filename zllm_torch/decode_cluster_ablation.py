@@ -3,7 +3,10 @@
 shapes: K7's split form over the q8 cache (int8 codes, f32 scales) and over
 bf16 K/V, and K9 over bf16 pools, 22 layers each, 4 rows at positions 255,
 0, 300 and the trash row 2048 (K7: S 2176; K9: 16 pages of 128, scrambled),
-32/4 heads of 64, f32 q, random data from a seed.
+32/4 heads of 64, f32 q, random data from a seed; and K8 at its two
+chip_smoke.py shapes: an OLMo-2 decode step (16 layers, B 1, 16/16 heads of
+128, a bf16 cache of 2048 slots, pos 331) and a TinyLlama-geometry
+contiguous engine step (22 layers, the rows above, S 2176, bf16 cache).
 
     python -m zllm_torch.decode_cluster_ablation
 builds the header as it is and again with one part taken out of its source
@@ -41,9 +44,8 @@ VARIANTS = {
                  "const int m = 0 * max(0, min(per, n - my0));"),
     "no_score_mma": ("for (int pt = 0; pt < NQ; ++pt) mma_bf16(cp[pt], a, qb[ks][pt]);",
                      "for (int pt = 0; pt < 0; ++pt) mma_bf16(cp[pt], a, qb[ks][pt]);"),
-    "no_pv_mma": ("          mma_bf16(tacc[mt], av, pb[0]);\n          mma_bf16(tacc2[mt], av, pb[1]);\n"
-                  "          mma_bf16(tacc2[mt], av, pb[2]);",
-                  "          if (0) mma_bf16(tacc[mt], av, pb[0]);"),
+    "no_pv_mma": ("          mma_bf16(tacc[mt], av, pb[0]);\n          if constexpr (NP > 1) {",
+                  "          if (0) mma_bf16(tacc[mt], av, pb[0]);\n          if constexpr (0) {"),
 }
 
 PHASES = ("prologue", "phase1", "barrier1", "exchange", "phase2", "reduce", "barrier2", "end")
@@ -95,7 +97,7 @@ def use_build(name: str, src: str):
     cuda.CSRC, cuda.CACHE = tree, OUT / name / "kernels"
     cuda._LIBS.clear()
     cuda._FNS.clear()
-    cuda.build(["attn_blockwise", "paged_decode"])
+    cuda.build(["attn_blockwise", "paged_decode", "attn_decode_update"])
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -145,13 +147,21 @@ def inputs(layers: int = 22):
     table = torch.zeros((b, lp + 1), dtype=torch.int32)
     table[:, :lp] = perm.reshape(b, lp).to(torch.int32)
     kn = randn(b, 1, hkv, d)
-    return q, pos, int8, bf16, pools, table.to("cuda"), kn, ps
+    # K8: (q, k/v_new, positions, caches of each layer)
+    k8 = {"olmo2": (randn(1, 1, 16, 128), randn(1, 1, 16, 128),
+                    torch.tensor([[331]], dtype=torch.int32, device="cuda"),
+                    [(randn(1, 16, 2048, 128, dtype=torch.bfloat16),
+                      randn(1, 16, 2048, 128, dtype=torch.bfloat16)) for _ in range(16)]),
+          "engine": (q, kn, pos, [(randn(b, hkv, s, d, dtype=torch.bfloat16),
+                                   randn(b, hkv, s, d, dtype=torch.bfloat16))
+                                  for _ in range(layers)])}
+    return q, pos, int8, bf16, pools, table.to("cuda"), kn, ps, k8
 
 
 def main(argv):
     if not torch.cuda.is_available():
         sys.exit("decode_cluster_ablation: needs a CUDA GPU")
-    q, pos, int8, bf16, pools, table, kn, ps = inputs()
+    q, pos, int8, bf16, pools, table, kn, ps, k8_inputs = inputs()
     src = (CSRC / HEADER).read_text()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -167,6 +177,15 @@ def main(argv):
     def k9():
         for kp, vp in pools:
             att.paged_attn_decode_update(q, kn, kn, kp, vp, table, pos, page_size=ps, scale=0.125)
+
+    def k8(shape):
+        q8, kn8, pos8, caches = k8_inputs[shape]
+        scale = q8.shape[-1] ** -0.5
+
+        def go():
+            for kc, vc in caches:
+                att.attn_decode_update(q8, kn8, kn8, kc, vc, pos8, scale=scale)
+        return go
 
     if "--timeline" in argv:
         use_build("timeline", timeline_source(src))
@@ -193,7 +212,9 @@ def main(argv):
         print(json.dumps({"variant": name, "card": card,
                           "k7_int8_step_ms": graph_ms(k7(int8)),
                           "k7_bf16_step_ms": graph_ms(k7(bf16)),
-                          "k9_step_ms": graph_ms(k9)}), flush=True)
+                          "k9_step_ms": graph_ms(k9),
+                          "k8_olmo2_step_ms": graph_ms(k8("olmo2")),
+                          "k8_engine_step_ms": graph_ms(k8("engine"))}), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,8 +33,9 @@ PyTorch version beside it.
   * `attn_decode_update` replaces `zllm/ops/attention.py::_attn_decode_kernel`
     (via `attn_decode_update`): T=1, insert the roped new K/V row into the
     contiguous cache in place at min(pos, S-1), attend.  Source:
-    `zllm_torch/csrc/attn_decode_update.cu` (the three-launch split step
-    `csrc/decode_split.cuh`).
+    `zllm_torch/csrc/attn_decode_update.cu` (one thread-block-cluster launch
+    of `csrc/decode_cluster.cuh`, shared with K7's split form and K9; p
+    normalized, then rounded to the cache dtype).
   * `flash_attention_blockwise` replaces
     `zllm/ops/attention.py::_attnb_kernel` (via `flash_attention_blockwise`):
     multi-token GQA attention with an online softmax over KV blocks, causal
@@ -373,7 +374,7 @@ paged_attention.mma_launches = 0  # of them, launches of the tensor-core loop (b
 # K9: paged decode step (insert + attend)
 # ---------------------------------------------------------------------------
 
-# K9 and K7's split form run as one thread-block-cluster launch
+# K9, K8 and K7's split form run as one thread-block-cluster launch
 # (csrc/decode_cluster.cuh): a cluster of DECODE_CLUSTER blocks a (row, kv
 # head, group of 8 query rows), chunks of at most DECODE_CLUSTER_CHUNK slots
 # (K9: a page)
@@ -457,9 +458,6 @@ paged_attn_decode_update.launches = 0
 # K8: contiguous decode step (insert + attend)
 # ---------------------------------------------------------------------------
 
-DECODE_SPLIT = 128  # slots a block of K8's split step takes
-
-
 def attn_decode_update_plain(q, k_new, v_new, kc, vc, positions, *, scale: float,
                              softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Plain version of K8 (zllm `_attn_decode_kernel` math).  Writes the
@@ -521,24 +519,32 @@ def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
         raise ValueError("positions must be int32")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     cuda.require_cuda(q, k_new, v_new, kc, vc, pos, aligned=(kc, vc))
-    n_split = -(-s // DECODE_SPLIT)
     out = torch.empty_like(q)
-    # per (row, q head): the scores of every slot, then each split's softmax
-    # stats (2) and P.V partial (D)
-    scratch = torch.empty((b, hq, s + n_split * (d + 2)), dtype=torch.float32, device=q.device)
     fn = cuda.bind("attn_decode_update", "zt_attn_decode_update",
-                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                    _P])
+                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P])
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cuda.DTYPE_CODE[q.dtype],
              kc.data_ptr(), vc.data_ptr(), cuda.DTYPE_CODE[kc.dtype], pos.data_ptr(),
-             out.data_ptr(), scratch.data_ptr(), b, hq, hkv, d, s, DECODE_SPLIT, float(scale),
-             float(softcap), int(window), cuda.stream())
+             out.data_ptr(), b, hq, hkv, d, s, float(scale), float(softcap), int(window),
+             cuda.stream())
     cuda.check(err, "attn_decode_update")
     attn_decode_update.launches += 1
     return out
 
 
 attn_decode_update.launches = 0
+
+
+def attn_decode_update_clusters(q_dtype, cache_dtype, b: int, hq: int, hkv: int, d: int,
+                                s: int) -> int:
+    """The clusters of one K8 call's shape that the card holds at once
+    (`cudaOccupancyMaxActiveClusters` for its instantiation); a call
+    launches hkv * ceil(hq / hkv / 8) * b of them."""
+    n = ctypes.c_int(0)
+    fn = cuda.bind("attn_decode_update", "zt_attn_decode_update_clusters",
+                   [_I, _I, _I, _I, _I, _I, _I, _P])
+    cuda.check(fn(cuda.DTYPE_CODE[q_dtype], cuda.DTYPE_CODE[cache_dtype], b, hq, hkv, d, s,
+                  ctypes.addressof(n)), "attn_decode_update_clusters")
+    return n.value
 
 
 # ---------------------------------------------------------------------------

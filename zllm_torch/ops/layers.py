@@ -47,7 +47,9 @@ def _rope_freqs(p: RopeParams, device=None) -> tuple[torch.Tensor, float]:
     """Per-pair inverse frequencies [dim/2] (f32) and magnitude scale."""
     half = p.dim // 2
     exponents = torch.arange(half, dtype=torch.float32, device=device) * (2.0 / p.dim)
-    inv_freq = 1.0 / torch.pow(torch.tensor(p.base, dtype=torch.float32, device=device), exponents)
+    # torch.full, not torch.tensor: no host copy, so a CUDA graph can capture a step
+    base = torch.full((), p.base, dtype=torch.float32, device=device)
+    inv_freq = 1.0 / torch.pow(base, exponents)
     mscale = 1.0
     if p.scaling == "linear":
         inv_freq = inv_freq / p.scale_factor

@@ -157,18 +157,28 @@ def _check_cuda_x(x, fuse, aux):
         raise ValueError("norm weight must be float32")
 
 
-def _nibble_matvec(name: str, x, w: NibbleWeight, fuse, aux, eps) -> torch.Tensor:
-    """Launch K1 or K12 (C entry point zt_<name>) after the common checks."""
+# the C entry points zt_q4k_matvec (K1) and zt_q4k_matvec_hbm (K12)
+NIBBLE_MATVEC_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+
+
+def nibble_matvec_call(fn, x, w: NibbleWeight, fuse, aux, eps) -> tuple[int, torch.Tensor]:
+    """One call of a K1/K12 entry point `fn` on checked inputs: (CUDA
+    error code, y [1, N] f32)."""
     k, n = w.shape
-    _check_cuda_x(x, fuse, aux)
-    _check_qweight(w, x.device)
-    cuda.require_cuda(x, *([aux] if fuse == "norm" else []))
     y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    fn = cuda.bind(name, f"zt_{name}", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _F, _P])
     err = fn(NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype],
              cuda.ptr(aux) if fuse == "norm" else None, *_plane_ptrs(w, 5), y.data_ptr(), k, n,
              FUSE_CODE[fuse], float(eps), cuda.stream())
+    return err, y
+
+
+def _nibble_matvec(name: str, x, w: NibbleWeight, fuse, aux, eps) -> torch.Tensor:
+    """Launch K1 or K12 (C entry point zt_<name>) after the common checks."""
+    _check_cuda_x(x, fuse, aux)
+    _check_qweight(w, x.device)
+    cuda.require_cuda(x, *([aux] if fuse == "norm" else []))
+    err, y = nibble_matvec_call(cuda.bind(name, f"zt_{name}", NIBBLE_MATVEC_ARGTYPES), x, w,
+                                fuse, aux, eps)
     cuda.check(err, name)
     return y
 
