@@ -11,8 +11,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      (csrc/gemm_slice.cuh) under K3's and K5's decoders, of K1
      (csrc/q4k_matvec.cu), and of the one-launch cluster decode step
      (csrc/decode_cluster.cuh) under K7's, K8's and K9's addressors, with
-     cudaOccupancyMaxActiveClusters of each K8 instantiation; a spill
-     fails, and so does a build that lacks one of their instantiations;
+     cudaOccupancyMaxActiveClusters of each K8 instantiation, and of K4
+     (csrc/int8_matvec.cu) and K2 (csrc/attn_decode.cu); a spill fails, and
+     so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -89,12 +90,19 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      scrambled page table; K7 at the q8 serving path's decode and mixed
      steps, over int8 and over bf16 K/V; K9 and K7's split form also once
      at S = 8320 with a row at 8000 (65 chunks over the cluster's 8 blocks),
+     K9 beside SDPA on its pages gathered outside the timing; K2 at the
+     decode step and at a TinyLlama contiguous engine step (B 4, S 2176, a
+     trash row), each beside SDPA on the already-inserted cache (q roped
+     outside the timing), its CUDA launches per call counted (1); K4's
+     outputs on the phase's seeded inputs hashed (`output_digest`, equal on
+     two trees when their outputs are bit-equal);
      and their CUDA launches per call counted by torch.profiler (1 each:
      one thread-block cluster); K8 at the OLMo-2 decode step and
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row),
      once each at S = 2000 and S = 8320 (a trash row), its launches per
      call counted the same way (1), and `step_graph` beside the sum of the
-     step's kernel times; K1 by weight role;
+     step's kernel times (TinyLlama Q4_K: K1 + K2; Q4_K_M: K1 + K4 + K2;
+     OLMo-2: K1 + K8); K1 by weight role;
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
      Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
@@ -109,6 +117,7 @@ Built kernels and the GGUF files are cached under .cache/ in the checkout.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -801,6 +810,8 @@ def main():
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    import torch.nn.functional as F
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     CACHE.mkdir(parents=True, exist_ok=True)
@@ -809,7 +820,7 @@ def main():
     from zllm_torch.ops import attention as att
     from zllm_torch.ops import cuda
     from zllm_torch.ops import qmatmul as qmm
-    from zllm_torch.ops.layers import rope_table
+    from zllm_torch.ops.layers import rope_apply_table, rope_table
     from zllm_torch.quant import blocks as qb
     from zllm_torch.quant.repack import repack
 
@@ -879,6 +890,20 @@ def main():
         fail(f"K1 spills: {spills}")
     if "q4k_matvec" in reports and len(k1_build) != 18:
         fail(f"q4k_matvec: {len(k1_build)} K1 instantiations built, not 18")
+    k4k2_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
+                  for lib, entry in (("int8_matvec", "int8_matvec_kernel"),
+                                     ("attn_decode", "attn_decode_qkv_kernel"))}
+    emit({"phase": "build_k4_k2", "instantiations": k4k2_build,
+          "note": "registers and spills of K4 (csrc/int8_matvec.cu: Q6_K/Q8_0 x prologue "
+                  "q/norm/glu x f32/bf16) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
+                  "f32/bf16 x D 64/128)" if any(k4k2_build.values())
+                  else "not built in this run (cached)"})
+    spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"K4 or K2 spills: {spills}")
+    for lib, n_inst in (("int8_matvec", 12), ("attn_decode", 8)):
+        if lib in reports and len(k4k2_build[lib]) != n_inst:
+            fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
     for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
                           ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
@@ -935,7 +960,7 @@ def main():
                     flash_attention=L * n_chunks)
 
     model, counts_q4k, *_, step_q4k = main_path(torch, "Q4_K", kernels, want_q4k, card)
-    model_m, counts_q4km, *_ = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
+    model_m, counts_q4km, *_, step_m = main_path(torch, "Q4_K_M", kernels, want_q4km, card)
     model_o, counts_olmo2, gen_o, ids_o, toks_o, step_o = main_path(
         torch, "Q4_K", kernels, want_olmo2, card, name="olmo2")
     L_o = model_o.cfg.n_layers
@@ -1090,18 +1115,76 @@ def main():
         for kc, vc in zip(kcs, vcs):
             att.attn_decode_qkv_plain(qkv3, kc, vc, pos, rope, scale=scale, eps=cfg.norm_eps)
 
+    # the yardstick: SDPA on the caches the kernel already inserted into, q
+    # roped and rounded outside the timing (attention only: no one call
+    # splits, ropes, inserts and attends)
+    def sdpa_on_caches(qkv3_, rope_, kcs_, vcs_, pos_vals):
+        qr = rope_apply_table(qkv3_[:, :hq].float(), rope_).to(torch.bfloat16)[:, :, None]
+        s_ = kcs_[0].shape[2]
+        mask = (torch.arange(s_, device="cuda")[None, :]
+                <= torch.tensor(pos_vals, device="cuda")[:, None]).reshape(-1, 1, 1, s_)
+
+        def lib():
+            for kc_, vc_ in zip(kcs_, vcs_):
+                F.scaled_dot_product_attention(qr, kc_, vc_, attn_mask=mask, scale=scale,
+                                               enable_gqa=True)
+        return lib
+
     nbytes = per_layer * (2 * hkv * (pos_v + 1) * hd * 2 + qkv3.numel() * 4 + hq * hd * 4)
     ops = per_layer * 4 * hq * (pos_v + 1) * hd
     bms, bby = bound_ms(nbytes, ops, "bf16")
-    lines.append(dict(name="attn_decode_qkv", route="cuda", source="zllm_torch/csrc/attn_decode.cu",
-                      replaces="zllm/ops/attention.py:970", launches=counts_q4k["attn_decode_qkv"],
-                      max_abs_err=k2_abs, ms=cuda_ms(k2, 20), plain_ms=cuda_ms(k2_plain, 5),
-                      bound_ms=bms, bound_by=bby, library_ms=None, nmse=k2_err, tolerance=1e-5,
-                      launches_by_path=by_path("attn_decode_qkv"),
-                      unit="one decode step (22 launches)",
-                      shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] f32, cache [1,{hkv},{MAX_LEN},{hd}] "
-                             f"bf16, pos {pos_v}", launches_per_step=per_layer))
+    k2_lib = sdpa_on_caches(qkv3, rope, kcs, vcs, [pos_v])
+    k2_calls = cuda_launches(lambda: att.attn_decode_qkv(qkv3, kcs[0], vcs[0], pos, rope,
+                                                         scale=scale, eps=cfg.norm_eps))
+    if k2_calls not in (None, 1):
+        fail(f"K2 launched {k2_calls} CUDA kernels a call, not one")
+    k2_line = dict(name="attn_decode_qkv", route="cuda", source="zllm_torch/csrc/attn_decode.cu",
+                   replaces="zllm/ops/attention.py:970", launches=counts_q4k["attn_decode_qkv"],
+                   max_abs_err=k2_abs, ms=cuda_ms(k2, 20), plain_ms=cuda_ms(k2_plain, 5),
+                   bound_ms=bms, bound_by=bby, library_ms=cuda_ms(k2_lib, 20),
+                   library="scaled_dot_product_attention on the already-inserted cache, q roped "
+                           "outside the timing (attention only)",
+                   nmse=k2_err, tolerance=1e-5, launches_by_path=by_path("attn_decode_qkv"),
+                   unit="one decode step (22 launches)",
+                   shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] f32, cache [1,{hkv},{MAX_LEN},{hd}] "
+                          f"bf16, pos {pos_v}", launches_per_step=per_layer,
+                   cuda_launches_per_call=k2_calls if k2_calls is not None else "not measured")
+    lines.append(k2_line)
     del kcs, vcs
+
+    # K2 at a TinyLlama contiguous engine decode step: 4 rows at 255, 0, 300
+    # and a trash row at the stripe's end (S = max_len 2048 + chunk 128),
+    # each layer its own caches; output and caches against the plain version
+    s2e, pos2e = MAX_LEN + 128, [255, 0, 300, MAX_LEN + 128]
+    qkv3e = randn(4, hq + 2 * hkv, hd)
+    pose = torch.tensor(pos2e, dtype=torch.int32, device="cuda")
+    ropee = rope_table(pose, cfg.rope, hd)
+    kcse = [randn(4, hkv, s2e, hd, dtype=torch.bfloat16) for _ in layers]
+    vcse = [randn(4, hkv, s2e, hd, dtype=torch.bfloat16) for _ in layers]
+    ka, va, kp, vp = kcse[0].clone(), vcse[0].clone(), kcse[0].clone(), vcse[0].clone()
+    a = att.attn_decode_qkv(qkv3e, ka, va, pose, ropee, scale=scale, eps=cfg.norm_eps)
+    b = att.attn_decode_qkv_plain(qkv3e, kp, vp, pose, ropee, scale=scale, eps=cfg.norm_eps)
+    if not (torch.equal(va, vp) and nmse(ka.float(), kp.float()) <= 1e-9):
+        fail("K2's engine-step caches differ from its plain version's")
+
+    def k2e(fn):
+        def go():
+            for kc_, vc_ in zip(kcse, vcse):
+                fn(qkv3e, kc_, vc_, pose, ropee, scale=scale, eps=cfg.norm_eps)
+        return go
+
+    seen = sum(min(p_ + 1, s2e) for p_ in pos2e)
+    nbytes = per_layer * (2 * hkv * seen * hd * 2 + qkv3e.numel() * 4 + 4 * hq * hd * 4)
+    bms, bby = bound_ms(nbytes, per_layer * 4 * hq * seen * hd, "bf16")
+    k2_line["tinyllama_engine_step"] = dict(
+        ms=cuda_ms(k2e(att.attn_decode_qkv), 20),
+        plain_ms=cuda_ms(k2e(att.attn_decode_qkv_plain), 2),
+        library_ms=cuda_ms(sdpa_on_caches(qkv3e, ropee, kcse, vcse, pos2e), 20), bound_ms=bms,
+        bound_by=bby, nmse=nmse(a.float(), b.float()),
+        max_abs_err=float((a.float() - b.float()).abs().max()), tolerance=1e-5,
+        shapes=f"qkv3 [4,{hq + 2 * hkv},{hd}] f32, cache [4,{hkv},{s2e},{hd}] bf16, pos {pos2e}, "
+               f"{per_layer} layers")
+    del kcse, vcse
 
     # K3: one Q4_K prefill chunk's 89 GEMMs at M = 256; and the 99 of Q4_K_M
     m_rows = CHUNK
@@ -1141,7 +1224,6 @@ def main():
     # second, base 256, 22 layers), an OLMo-2 one (16 layers, 16/16 heads of
     # 128) and a contiguous serve mixed step (chunk 128, rows from 0, 256,
     # 300 and an idle row at 2048, S = 2048 + 128)
-    import torch.nn.functional as F
 
     def k6_case(n_layers: int, t: int, hq_: int, hkv_: int, d: int, s: int, starts: list,
                 qdtype=torch.float32):
@@ -1280,6 +1362,19 @@ def main():
     if k9_calls not in (None, 1):
         fail(f"K9 launched {k9_calls} CUDA kernels a call, not one cluster launch")
 
+    # the yardstick: SDPA on the K/V pages gathered (after one K9 call's
+    # insert) outside the timing, q rounded to bf16 (attention only)
+    kg9 = [gathered(kp_) for kp_ in kpools]
+    vg9 = [gathered(vp_) for vp_ in vpools]
+    q9b = q9.to(torch.bfloat16).transpose(1, 2)
+    mask9 = (torch.arange(horizon, device="cuda")[None, :] <= pos9).reshape(n_slots, 1, 1,
+                                                                             horizon)
+
+    def k9_lib():
+        for k_, v_ in zip(kg9, vg9):
+            F.scaled_dot_product_attention(q9b, k_, v_, attn_mask=mask9, scale=scale,
+                                           enable_gqa=True)
+
     read9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist())  # visible slots
     nbytes = per_layer * (2 * hkv * read9 * hd * 2 + (q9.numel() + 2 * kn9.numel()) * 4
                           + q9.numel() * 4 + 2 * int(live.sum()) * hkv * hd * 2)
@@ -1289,8 +1384,10 @@ def main():
                       source="zllm_torch/csrc/paged_decode.cu", replaces="zllm/ops/attention.py:665",
                       launches=counts_serve["paged_attn_decode_update"], max_abs_err=k9_abs,
                       ms=cuda_ms(k9, 20), plain_ms=cuda_ms(k9_plain, 2), bound_ms=bms,
-                      bound_by=bby, library_ms=None,
-                      library="none (no one call inserts and attends through a page table)",
+                      bound_by=bby, library_ms=cuda_ms(k9_lib, 20),
+                      library="scaled_dot_product_attention on K/V pages gathered outside the "
+                              "timing (attention only: no one call inserts and attends through "
+                              "a page table)",
                       nmse=k9_err, tolerance=1e-6,
                       launches_by_path=by_path("paged_attn_decode_update"),
                       unit="one serve decode step (22 launches)",
@@ -1300,6 +1397,7 @@ def main():
                       cuda_launches_per_call=k9_calls if k9_calls is not None else "not measured",
                       cluster_blocks=att.DECODE_CLUSTER, s8320_check=k9_long,
                       form="one thread-block-cluster launch (csrc/decode_cluster.cuh)"))
+    del kg9, vg9
 
     # K10: one mixed step's attention, chunk 128: rows from 0, from 256 (a
     # page edge), from 300 (mid-page, across a page) and a trash row
@@ -1695,7 +1793,13 @@ def main():
     groups = {"wv": [i for i, c in enumerate(calls4) if c[2] == "q"],
               "ffn_down": [i for i, c in enumerate(calls4) if c[2] == "glu"],
               "head": [len(calls4) - 1]}
+    # a digest of K4's outputs on these seeded inputs: equal digests on two
+    # trees mean bit-equal outputs
+    k4_digest = hashlib.sha256()
+    for x, w, fuse, aux in calls4:
+        k4_digest.update(qmm.int8_matvec(x, w, fuse, aux, cfg.norm_eps).cpu().numpy().tobytes())
     lines.append(dict(name="int8_matvec", route="cuda", source="zllm_torch/csrc/int8_matvec.cu",
+                      output_digest=k4_digest.hexdigest()[:16],
                       replaces="zllm/ops/qmatmul.py:501", launches=counts_q4km["int8_matvec"],
                       **matvec_phase(torch, qmm.int8_matvec, qmm.int8_matvec_plain, calls4, n_real,
                                      GGUF_BYTES_PER_WEIGHT["Q6_K"], cfg.norm_eps,
@@ -1814,15 +1918,22 @@ def main():
           "tinyllama_q4k": dict(step_graph_ms=step_q4k, k1_ms=k1_q4k,
                                 k2_ms=by_name["attn_decode_qkv"]["ms"],
                                 kernels_ms=k1_q4k + by_name["attn_decode_qkv"]["ms"]),
+          "tinyllama_q4km": dict(step_graph_ms=step_m, k1_ms=q4km_k1["ms"],
+                                 k4_ms=by_name["int8_matvec"]["ms"],
+                                 k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                 kernels_ms=q4km_k1["ms"] + by_name["int8_matvec"]["ms"]
+                                 + by_name["attn_decode_qkv"]["ms"]),
           "olmo2_q4k": dict(step_graph_ms=step_o, k1_ms=k1_o["ms"], k8_ms=k8_o["ms"],
                             kernels_ms=k1_o["ms"] + k8_o["ms"]),
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
-                  "and replayed; kernels_ms sums the step's K1 and K2 (or K8) graph times "
-                  "from the kernel phase"})
+                  "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M: K1, K4 and K2; "
+                  "OLMo-2: K1 and K8) graph times from the kernel phase"})
 
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
+    if not by_name["attn_decode_qkv"]["tinyllama_engine_step"]["nmse"] <= 1e-5:
+        bad.append("attn_decode_qkv tinyllama_engine_step")
     if bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
              f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "

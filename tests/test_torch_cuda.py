@@ -747,6 +747,154 @@ def test_k1_chain_in_a_graph(dev, fmt):
                                                   1e-5)) < 1e-6
 
 
+def _replays_equal_eager(chain, rewrite, caches=(), n=50):
+    """`chain()` (returning its kernels' outputs) captured once in a CUDA
+    graph and replayed n times, `rewrite(i)` giving its inputs (and the
+    caches it updates) fresh values in place before each replay: each
+    replay's outputs and caches must equal, bit for bit, those of the same
+    chain run eagerly on the same inputs.  Returns the last eager outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chain()
+    for i in range(n):
+        rewrite(i)
+        graph.replay()
+        got = [t.clone() for t in (*outs, *caches)]
+        rewrite(i)
+        want = [*chain(), *caches]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), f"replay {i}"
+    return want
+
+
+def test_k2_chain_in_a_graph(dev):
+    """K2 launches with programmatic dependent launch between two K1: before
+    griddepcontrol.wait it stages only cache slots other than its insert
+    slot, and the K1 on wo after it has only its weights in flight before
+    its own wait.  The chain norm -> wqkv (K1) -> K2 -> wo (K1) at TinyLlama
+    widths (bf16 cache of 2048 slots, pos 331), replayed from a CUDA graph
+    with the input row and the cache rewritten between replays, gives each
+    time the eager chain's bits, outputs and cache."""
+    d, hq, hkv, hd, s = 2048, 32, 4, 64, 2048
+    w_qkv, w_o = _qweight((hq + 2 * hkv) * hd, d, 1, dev), _qweight(d, d, 2, dev)
+    norm = _randn((d,), 3, dev, scale=0.1) + 1.0
+    x = _randn((1, d), 4, dev, scale=3.0)
+    kc, vc = (torch.empty((1, hkv, s, hd), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    pos = torch.tensor([331], dtype=torch.int32, device=dev)
+    rt = tl.rope_table(pos, tl.RopeParams(dim=hd, style="neox"), hd)
+
+    def chain():
+        qkv = tq.q4k_matvec(x, w_qkv, "norm", norm, 1e-5)
+        att = ta.attn_decode_qkv(qkv.reshape(1, hq + 2 * hkv, hd), kc, vc, pos, rt,
+                                 scale=hd ** -0.5)
+        return qkv, att, tq.q4k_matvec(att.reshape(1, -1), w_o, "q", None, 1e-5)
+
+    def rewrite(i):
+        x.copy_(_randn((1, d), 100 + i, dev, scale=3.0))
+        kc.copy_(_randn(kc.shape, 300 + i, dev, torch.bfloat16))
+        vc.copy_(_randn(vc.shape, 500 + i, dev, torch.bfloat16))
+
+    qkv, att, out = _replays_equal_eager(chain, rewrite, (kc, vc))[:3]
+    rewrite(49)
+    k2, v2 = kc.clone(), vc.clone()
+    want = ta.attn_decode_qkv_plain(qkv.reshape(1, hq + 2 * hkv, hd), k2, v2, pos, rt,
+                                    scale=hd ** -0.5)
+    assert _nmse(att.float(), want.float()) < 1e-5
+    assert _nmse(out, tq.q4k_matvec_plain(att.reshape(1, -1), w_o, "q", None, 1e-5)) < 1e-6
+
+
+@pytest.mark.parametrize("pair", ["wk_wv", "gate_up_down"])
+def test_k4_chain_in_a_graph(dev, pair):
+    """K4 launches with programmatic dependent launch after a K1, as in a
+    Q4_K_M step: K1 (q 2048->2048) -> K4 (Q6_K q 2048->256) on its output,
+    and gate|up (K1 norm 2048->11264) -> down (K4 Q6_K glu 5632->2048).
+    Replayed from a CUDA graph with the input rewritten between replays,
+    each replay gives the eager chain's bits (a read of x or a write of y
+    before griddepcontrol.wait would race)."""
+    d, ff = 2048, 5632
+    if pair == "wk_wv":
+        w1, w4 = _qweight(d, d, 1, dev), _int_weight(GGMLType.Q6_K, 256, d, 2, dev)
+        fuse1, aux1, fuse4 = "q", None, "q"
+    else:
+        w1, w4 = _qweight(2 * ff, d, 3, dev), _int_weight(GGMLType.Q6_K, d, ff, 4, dev)
+        fuse1, aux1, fuse4 = "norm", _randn((d,), 5, dev, scale=0.1) + 1.0, "glu"
+    x = _randn((1, d), 6, dev, torch.bfloat16, scale=3.0)
+
+    def chain():
+        y1 = tq.q4k_matvec(x, w1, fuse1, aux1, 1e-5)
+        return y1, tq.int8_matvec(y1, w4, fuse4, None, 1e-5)
+
+    def rewrite(i):
+        x.copy_(_randn((1, d), 100 + i, dev, torch.bfloat16, scale=3.0))
+
+    y1, y4 = _replays_equal_eager(chain, rewrite)
+    assert _nmse(y4, tq.int8_matvec_plain(y1, w4, fuse4, None, 1e-5)) < 1e-6
+
+
+K2_POS = [255, 0, 2176, 1500]  # live, position 0, a trash row, a span of several chunks
+
+
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+def test_k2_rows_do_not_depend_on_the_batch(dev, cdtype):
+    """K2 at B = 1..4 (an engine stripe of 2176 slots, mixed positions and a
+    trash row): every row's output and cache rows are bit-identical to the
+    same row run alone, since a row's chunks are cut by a rule that reads
+    only its position and S; and the 4-row call agrees with the plain
+    version."""
+    s, hq, hkv, d = 2176, 32, 4, 64
+    qkv3 = _randn((4, hq + 2 * hkv, d), 80, dev)
+    kc, vc = _randn((4, hkv, s, d), 81, dev, cdtype), _randn((4, hkv, s, d), 82, dev, cdtype)
+    pos = torch.tensor(K2_POS, dtype=torch.int32, device=dev)
+    rt = tl.rope_table(pos, tl.RopeParams(dim=d, style="neox"), d)
+
+    def run(rows):
+        k, v = kc[rows].clone(), vc[rows].clone()
+        sub = tl.RopeTable(rt.cos[rows].contiguous(), rt.sin[rows].contiguous(), rt.neox)
+        out = ta.attn_decode_qkv(qkv3[rows].contiguous(), k, v, pos[rows].contiguous(), sub,
+                                 scale=d ** -0.5)
+        return out, k, v
+
+    alone = [run([r]) for r in range(4)]
+    for nb in (1, 2, 3, 4):
+        together = run(list(range(nb)))
+        for r in range(nb):
+            assert all(torch.equal(t[r:r + 1], a) for t, a in zip(together, alone[r])), \
+                f"B {nb} row {r}"
+    k2, v2 = kc.clone(), vc.clone()
+    want = ta.attn_decode_qkv_plain(qkv3, k2, v2, pos, rt, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert _nmse(together[0].float(), want.float()) < 1e-5
+    assert torch.equal(together[2], v2) and _nmse(together[1].float(), k2.float()) < 1e-9
+
+
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(32, 4), (32, 2)], ids=["g8", "g16"])
+def test_k2_long_span(dev, hq, hkv, d, cdtype):
+    """K2 at S 8320: rows at 8000 and 4100 (spans of many chunks, finished
+    by the last of their blocks), 0 and a trash row, against the plain
+    version; G = 16 runs two query groups a kv head."""
+    s = 8320
+    pos = torch.tensor([8000, 4100, 0, s], dtype=torch.int32, device=dev)
+    qkv3 = _randn((4, hq + 2 * hkv, d), 90, dev)
+    kc, vc = _randn((4, hkv, s, d), 91, dev, cdtype), _randn((4, hkv, s, d), 92, dev, cdtype)
+    rt = tl.rope_table(pos, tl.RopeParams(dim=d, style="neox"), d)
+    k2, v2 = kc.clone(), vc.clone()
+    got = ta.attn_decode_qkv(qkv3, kc, vc, pos, rt, scale=d ** -0.5)
+    want = ta.attn_decode_qkv_plain(qkv3, k2, v2, pos, rt, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _nmse(got.float(), want.float()) < 1e-5
+    assert torch.equal(vc, v2) and _nmse(kc.float(), k2.float()) < 1e-9
+    again = ta.attn_decode_qkv(qkv3, kc, vc, pos, rt, scale=d ** -0.5)
+    assert torch.equal(again, got)  # the counters were left zero
+
+
 # the legacy nibble formats through K1, K3, K12 and K11: odd N (a block's
 # last warps without a column), K = 2304 (nine 256-chunks), wide N (the
 # OLMo-2 head)

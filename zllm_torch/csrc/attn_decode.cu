@@ -5,37 +5,106 @@
 // q / new k / new v, optional per-head RMS norms of q and k, rope (here a
 // per-row cos/sin table; it computes what the Pallas kernel's [D, D]
 // rotation matmul computes), write the new K/V row into the cache in place
-// at row min(pos, S-1), then GQA attention over slots <= pos (and
+// at row pw = min(pos, S-1), then GQA attention over slots <= pos (and
 // > pos - window) with optional logit softcap.
 //
 // Rounding points kept from the Pallas kernel: the roped q and the new
-// K/V rows are cast to the cache dtype; scores and softmax are f32; the
-// normalized probabilities are cast to the cache dtype before P.V, which
-// accumulates in f32.
+// K/V rows are cast to the cache dtype (rope's products and sums rounded
+// separately, so the k row has apply_rope's bits); scores are f32; p =
+// exp(s - M) / l (IEEE division) is cast to the cache dtype before P.V,
+// with M and l over the row's whole visible span; P.V accumulates in f32.
 //
 // Bound on the H100: the cache bytes it must read, 2 * Hkv * (pos+1) * D *
-// sizeof(cache) per row, over 3.35 TB/s; the work is a few FLOPs a byte.
-// Design: one block per (query head, batch row), so a TinyLlama layer
-// spreads over 32 blocks; each block reads only the first pos+1 cache rows
-// of its kv head (the blocks of one group share them through L2).  Three
-// sweeps over the visible slots: scores (thread per slot, its K row read
-// as 16-byte loads all issued before the dot, kept in a global f32 scratch
-// row) with the block max; the softmax denominator; then probabilities in
-// tiles of the block width, each thread summing one output dim over its
-// share of the tile with eight V loads in flight.  The head dim is a
-// template parameter (64 or 128) so these loops unroll.  The new row is
-// read from shared memory, never from the cache, so the one block of a
-// group that writes it races with no reader.
+// sizeof(cache) per row, over 3.35 TB/s (a TinyLlama layer at pos 331:
+// 85 KB, 0.03 us); the work is a few FLOPs a byte.  So what paces it is
+// latency: the earlier form (a block a query head, three sweeps over a
+// global f32 scratch row, eight block barriers, no programmatic launch)
+// took 9.9 us a launch (python -m zllm_torch.k1_ablation --kernel k2,
+// PERF.md §6).
+//
+// Design.  Grid (splits, Hkv * ceil(G / 8), B): a block serves one (row b,
+// kv head h, group of up to 8 query heads of its GQA group) and one chunk
+// of the row's visible span [lo, hi]: the span is cut from lo into chunks
+// of CH slots (512 for a bf16 cache at D 64; 64 KB of K a chunk), so the
+// split reads only the row's position, the window and S -- never B or
+// another row -- and a row's bits are the same alone and in any batch.
+//   * Loads: each block stages its chunk's K and V rows in shared memory by
+//     16-byte cp.async, issued at its start; every K/V byte is read once a
+//     query group.  q and the new rows come from the projection row.
+//   * Programmatic dependent launch: the launch sets programmatic stream
+//     serialization, and a block calls launch_dependents at its start, so
+//     the K1 after it (wo) has its weights in flight while K2 runs.  Before
+//     griddepcontrol.wait a block reads only its row's position and the
+//     cache slots s != pw of its own row and layer, which nothing but this
+//     launch writes within a step: so the staged chunk is in flight while
+//     the K1 before it (wqkv) drains.  After the wait: the projection row,
+//     the norms, rope, the insert, the dots and every store.
+//   * Scores: a bf16 cache on the tensor cores, mma.sync m16n8k16 with the
+//     chunk's slots as M (a warp a tile of 16), the (up to) 8 query rows as
+//     N and D as K: q, rounded to bf16, is one exact part; an f32 cache on
+//     the CUDA cores, a thread a slot.  Kept in shared memory.
+//   * Each chunk's per-row max m (the warps' maxima, taken with the scores)
+//     and sum l of e = exp(s - m) (each thread one row's share, then the
+//     warps' sums in warp order); the row's M = max m_j and l = sum_j l_j
+//     exp(m_j - M) in chunk order (one chunk: m and l, and e stays in
+//     place of the scores); p = e / l is rounded as P.V's fragments are
+//     built.
+//   * P.V: p written over the scores, then (P.V)^T = V^T P^T on the tensor
+//     cores (D as M, the rows as N, 16 slots as K; p one exact bf16 part)
+//     or on the CUDA cores (f32), summed per warp in chunk order, then over
+//     the warps in order.
+//   * A span of more than one chunk (the engine's trash row at S 2176, a
+//     long context): every block writes its chunk's scores and statistics
+//     to a global scratch, then takes a ticket on the (row, head, group)'s
+//     counter; the last block to arrive resets the counter, reads every
+//     chunk's statistics, and runs P.V over every chunk in chunk order
+//     (its own from shared memory, the others' V and scores reloaded), so
+//     the output does not depend on which block is last.  A span of one
+//     chunk (a live row at pos < 512) touches no scratch and no counter.
+//
+// Where trouble lies:
+//   * The insert in one launch: only the (chunk 0, query group 0) block
+//     writes the cache row pw; no block reads it from the cache -- the
+//     block whose chunk holds pw puts k_new / v_new (rounded) in its staged
+//     rows instead, and the last block does the same for reloaded chunks.
+//   * Nothing before the wait but the position and the cache slots != pw:
+//     the projection row is the previous kernel's output (K1's y, or a
+//     torch op's), and out comes from the caching allocator.  The position
+//     is written by the host or a torch op before the step, never by a
+//     kernel that triggers early.
+//   * The counters are zero between launches (the last block resets its
+//     own); they and the scratch are touched only after the wait, so two
+//     K2 launches in a row never share them at once.
+//   * hi = min(pos, S - 1) passes through an opaque register, as in
+//     decode_cluster.cuh (the card gave wrong scores there without one).
+//   * Dynamic shared memory above 48 KB needs cudaFuncSetAttribute once an
+//     instantiation, outside graph capture (the wrapper's first call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "matvec_common.cuh"
+#include "mma_ptx.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using zt::cp_async16;
+using zt::cp_async_commit;
+using zt::cp_async_wait_all;
+using zt::grid_wait;
+using zt::launch_dependents;
+using zt::ldmatrix_x4;
+using zt::ldmatrix_x4_trans;
+using zt::mma_bf16;
+using zt::pack_bf16;
+
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int RM = 8;  // query rows a block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNeg = -INFINITY;
+constexpr int kMaxSmem = 232448;  // an H100 block's shared memory
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -44,226 +113,501 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
-
-// q (f32, shared) . one cache row, the row read as 16-byte loads first
-template <int D>
-__device__ __forceinline__ float dot_row(const float* q, const float* row) {
-  float4 buf[D / 4];
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) buf[i] = reinterpret_cast<const float4*>(row)[i];
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    acc += q[4 * i] * buf[i].x;
-    acc += q[4 * i + 1] * buf[i].y;
-    acc += q[4 * i + 2] * buf[i].z;
-    acc += q[4 * i + 3] * buf[i].w;
-  }
-  return acc;
+// v rounded to the cache dtype, as f32
+template <typename TC> __device__ __forceinline__ float round_c(float v) {
+  return to_f(from_f<TC>(v));
 }
-template <int D>
-__device__ __forceinline__ float dot_row(const float* q, const __nv_bfloat16* row) {
-  uint4 buf[D / 8];
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// slots a chunk: 64 KB of K rows
+template <typename TC, int D>
+constexpr int kChunk = 65536 / (D * (int)sizeof(TC));
+
+// a staged K/V row: padded by 16 bytes (no bank conflicts in the fragment reads)
+template <typename TC, int D>
+constexpr int kRowBytes = D * (int)sizeof(TC) + 16;
+
+struct Params {
+  const void* qkv3;     // [B, Hq + 2 Hkv, D]
+  void* kc;             // [B, Hkv, S, D]
+  void* vc;
+  const int* pos;       // [B]
+  const float* cosb;    // [B, R/2]
+  const float* sinb;
+  const float* qw;      // [D] or null (no q/k norm)
+  const float* kw;
+  void* out;            // [B, Hq, D] in qkv3's dtype
+  float* gsc;           // [B, Y, RM, S] scores of multi-chunk rows
+  float2* gst;          // [B, Y, splits, RM] their chunks' (max, sum of exp)
+  int* counters;        // [B, Y], zero between launches
+  int Hq, Hkv, S, R, neox, splits, window;
+  float scale, softcap, eps;
+};
+
+// shared memory of one launch, in bytes (the kernel's carve-up, in order)
+template <typename TC, int D>
+constexpr size_t smem_bytes() {
+  return (size_t)2 * kChunk<TC, D> * kRowBytes<TC, D>        // K, V of the own chunk
+         + sizeof(float) * 2 * (size_t)kChunk<TC, D> * RM   // scores: own, reloaded
+         + sizeof(float) * (size_t)(RM + 2) * D             // q (roped, rounded), k_new, v_new
+         + sizeof(float) * (size_t)(RM + 2) * D             // the raw rows
+         + sizeof(float) * 4 * RM                           // chunk m, l; row M, l
+         + sizeof(float) * 2 * (size_t)kWarps * RM;         // the warps' maxima, sums
+}
+
+template <typename TQ, typename TC, int D>
+__global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params p) {
+  constexpr int CH = kChunk<TC, D>, RS = kRowBytes<TC, D>;
+  constexpr int VPR = D * (int)sizeof(TC) / 16;  // 16-byte pieces a row
+  constexpr bool kMma = sizeof(TC) == 2;
+  constexpr int KS = D / 16, MT = D / 16, DPL = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* kb = smem;                                   // [CH][RS]
+  unsigned char* vb = kb + (size_t)CH * RS;                   // [CH][RS]
+  float* sc = reinterpret_cast<float*>(vb + (size_t)CH * RS);  // [CH][RM]
+  float* sc2 = sc + CH * RM;                                  // [CH][RM]
+  float* qs = sc2 + CH * RM;                                  // [RM][D], then k_new, v_new
+  float* knew = qs + RM * D;
+  float* vnew = knew + D;
+  float* raw = vnew + D;                                      // [RM + 2][D]
+  float* cm = raw + (RM + 2) * D;                             // [RM] own chunk's max
+  float* cl = cm + RM;                                        // [RM] its sum of exp
+  float* row_m = cl + RM;
+  float* row_l = row_m + RM;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.Hq / p.Hkv, GC = (G + RM - 1) / RM;
+  const int j = blockIdx.x, y = blockIdx.y, h = y / GC, c = y % GC, b = blockIdx.z;
+  const int r0 = c * RM, nr = min(RM, G - r0);
+  const int S = p.S, pos = p.pos[b];
+  const int pw = min(pos, S - 1);
+  int hi = min(pos, S - 1);
+  asm volatile("" : "+r"(hi));
+  const int lo = p.window > 0 ? max(pos - p.window + 1, 0) : 0;
+  const int nsp = hi >= lo ? (hi - lo) / CH + 1 : 1;  // chunks of the span (an empty span: one)
+  launch_dependents();
+  if (j >= nsp) return;
+  const int c0 = lo + j * CH, n_c = max(0, min(CH, hi + 1 - c0));
+  const size_t head = ((size_t)b * p.Hkv + h) * S;  // the (row, head)'s first cache row
+  const TC* kc = static_cast<const TC*>(p.kc) + head * D;
+  const TC* vc = static_cast<const TC*>(p.vc) + head * D;
+
+  // rows [a0, a0 + n) of the cache into a staged buffer, slot pw left out
+  auto stage = [&](unsigned char* dst, const TC* src, int a0, int n) {
+    for (int e = tid; e < n * VPR; e += kThreads) {
+      const int rr = e / VPR, v16 = e % VPR;
+      if (a0 + rr != pw)
+        cp_async16(dst + rr * RS + v16 * 16,
+                   reinterpret_cast<const unsigned char*>(src + (size_t)(a0 + rr) * D) + v16 * 16,
+                   16);
+    }
+  };
+  // rows [n, the next multiple of 16) of a staged buffer to zero: the P.V
+  // fragments read whole 16-slot tiles, and 0 * a stale NaN is NaN
+  auto zero_tail = [&](unsigned char* dst, int n) {
+    const int n16 = (n + 15) / 16 * 16;
+    for (int e = tid; e < (n16 - n) * (RS / 4); e += kThreads)
+      reinterpret_cast<uint32_t*>(dst + (size_t)n * RS)[e] = 0u;
+  };
+  // before the wait: the own chunk's K and V rows
+  stage(kb, kc, c0, n_c);
+  stage(vb, vc, c0, n_c);
+  cp_async_commit();
+  grid_wait();
+
+  // ---- split, norms, rope, the insert
+  // the projection row and the rope table are loaded together, one trip:
+  // element e = tid + k * kThreads of [q rows | k_new | v_new]
+  constexpr int NE = (RM + 2) * D, KE = (NE + kThreads - 1) / kThreads;
+  const TQ* row = static_cast<const TQ*>(p.qkv3) + (size_t)b * (p.Hq + 2 * p.Hkv) * D;
+  const float* cosr = p.cosb + (size_t)b * (p.R / 2);
+  const float* sinr = p.sinb + (size_t)b * (p.R / 2);
+  const int hr = p.R / 2;
+  float cv[KE], sv[KE];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) buf[i] = reinterpret_cast<const uint4*>(row)[i];
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&buf[i]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      acc += q[8 * i + 2 * j] * f.x;
-      acc += q[8 * i + 2 * j + 1] * f.y;
+  for (int k = 0; k < KE; ++k) {
+    const int e = tid + k * kThreads, i = e / D, d = e % D;
+    if (e < NE) {
+      float v = 0.f;
+      if (i < nr) v = to_f(row[(size_t)(h * G + r0 + i) * D + d]);
+      if (i == RM) v = to_f(row[(size_t)(p.Hq + h) * D + d]);
+      if (i == RM + 1) v = to_f(row[(size_t)(p.Hq + p.Hkv + h) * D + d]);
+      raw[e] = v;
+      if (i <= RM && d < p.R) {
+        const int jj = p.neox ? (d < hr ? d : d - hr) : (d >> 1);
+        cv[k] = cosr[jj];
+        sv[k] = sinr[jj];
+      }
     }
   }
-  return acc;
-}
-
-// block-wide reduction; every thread gets the result
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  for (int o = 16; o; o >>= 1) {
-    const float w = __shfl_xor_sync(kFull, v, o);
-    v = MAX ? fmaxf(v, w) : v + w;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int i = 1; i < kWarps; ++i) t = MAX ? fmaxf(t, red[i]) : t + red[i];
-  return t;
-}
-
-// rope one head row: x (f32, shared) -> out (f32, shared).  Products and
-// the sum are rounded separately (no FMA contraction), as the reference's
-// x1*cos - x2*sin is.
-__device__ void rope_row(const float* x, float* out, const float* cosr, const float* sinr,
-                         int D, int R, int neox) {
-  const int hr = R / 2;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    float o = x[i];
-    if (i < R) {
-      const int j = neox ? (i < hr ? i : i - hr) : (i >> 1);
-      const bool first = neox ? i < hr : (i & 1) == 0;
-      const int partner = neox ? (first ? i + hr : i - hr) : (first ? i + 1 : i - 1);
-      const float a = __fmul_rn(x[i], cosr[j]);
-      const float b = __fmul_rn(x[partner], sinr[j]);
-      o = first ? __fsub_rn(a, b) : __fadd_rn(a, b);
+  if (p.qw != nullptr) {  // per-head RMS before rope: (x * rsqrt(ms)) * w, a warp a head
+    for (int i = warp; i <= RM; i += kWarps) {
+      if (i < nr || i == RM) {
+        float* x = raw + i * D;
+        float s = 0.f;
+        for (int d = lane; d < D; d += 32) s += x[d] * x[d];
+        const float rs = rsqrtf(warp_sum(s) / (float)D + p.eps);
+        const float* w = i == RM ? p.kw : p.qw;
+        for (int d = lane; d < D; d += 32) x[d] = x[d] * rs * w[d];
+      }
     }
-    out[i] = o;
+    __syncthreads();
+  }
+  // rope (products and the sum rounded separately, no FMA contraction, as
+  // the reference's x1*cos - x2*sin is), then the cache dtype; the new k and
+  // v rows also go to the cache (one block of the (row, head)) and to the
+  // staged row of slot pw (the block whose chunk holds it)
+  TC* kw_ = static_cast<TC*>(p.kc) + (head + pw) * D;
+  TC* vw_ = static_cast<TC*>(p.vc) + (head + pw) * D;
+  const bool own_pw = pw >= c0 && pw < c0 + n_c;
+#pragma unroll
+  for (int k = 0; k < KE; ++k) {
+    const int e = tid + k * kThreads, i = e / D, d = e % D;
+    if (e < NE) {
+      const float* x = raw + i * D;
+      float o = x[d];
+      if (i <= RM && d < p.R) {
+        const bool first = p.neox ? d < hr : (d & 1) == 0;
+        const int partner = p.neox ? (first ? d + hr : d - hr) : (first ? d + 1 : d - 1);
+        const float a = __fmul_rn(x[d], cv[k]);
+        const float bb = __fmul_rn(x[partner], sv[k]);
+        o = first ? __fsub_rn(a, bb) : __fadd_rn(a, bb);
+      }
+      const TC oc = from_f<TC>(o);
+      qs[e] = to_f(oc);  // qs, knew, vnew are one array
+      if (i >= RM) {
+        if (j == 0 && c == 0) (i == RM ? kw_ : vw_)[d] = oc;
+        if (own_pw) reinterpret_cast<TC*>((i == RM ? kb : vb) + (pw - c0) * RS)[d] = oc;
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- scores of the own chunk, and each warp's max of them a row
+  float* wmax = row_l + RM;          // [kWarps][RM]
+  float* wsum = wmax + kWarps * RM;  // [kWarps][RM]
+  if constexpr (kMma) {
+    uint32_t qb[KS][2];  // q as mma B fragments: row lane / 4, one exact bf16 part
+    const float* qn = qs + (lane / 4) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) qb[ks][hf] = pack_bf16(qn[ks * 16 + hf * 8],
+                                                           qn[ks * 16 + hf * 8 + 1]);
+    float mx[2] = {kNeg, kNeg};  // rows (lane % 4) * 2 and + 1
+    for (int t = warp; t < (n_c + 15) / 16; t += kWarps) {
+      const int sl = 16 * t + lane / 4;  // this lane's slots: sl and sl + 8
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      // the A fragments by ldmatrix: lane l gives row 16 t + l % 8 (+8 for
+      // matrices 1, 3) at column 16 ks (+8 for matrices 2, 3)
+      const unsigned char* ka =
+          kb + (16 * t + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 16;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ka + ks * 32);
+        mma_bf16(acc, a, qb[ks]);
+      }
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int slot = sl + (e4 >> 1) * 8, r = (lane % 4) * 2 + (e4 & 1);
+        float x = acc[e4] * p.scale;
+        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+        x = slot < n_c && r < nr ? x : kNeg;
+        sc[slot * RM + r] = x;
+        mx[e4 & 1] = fmaxf(mx[e4 & 1], x);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      mx[0] = fmaxf(mx[0], __shfl_xor_sync(kFull, mx[0], o));
+      mx[1] = fmaxf(mx[1], __shfl_xor_sync(kFull, mx[1], o));
+    }
+    if (lane < 4) {
+      wmax[warp * RM + lane * 2] = mx[0];
+      wmax[warp * RM + lane * 2 + 1] = mx[1];
+    }
+  } else {  // f32 cache: a thread a slot (CH <= kThreads)
+    const int slot = tid;
+    float acc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) acc[r] = 0.f;
+    if (slot < n_c) {
+      const float4* kr = reinterpret_cast<const float4*>(kb + slot * RS);
+#pragma unroll 4
+      for (int c4 = 0; c4 < D / 4; ++c4) {
+        const float4 k4 = kr[c4];
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const float4 q4 = reinterpret_cast<const float4*>(qs + r * D)[c4];
+          float a = acc[r];
+          a += q4.x * k4.x;
+          a += q4.y * k4.y;
+          a += q4.z * k4.z;
+          a += q4.w * k4.w;
+          acc[r] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      float x = acc[r] * p.scale;
+      if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+      x = slot < n_c && r < nr ? x : kNeg;
+      if (slot < CH) sc[slot * RM + r] = x;
+      x = warp_max(x);
+      if (lane == 0) wmax[warp * RM + r] = x;
+    }
+  }
+  __syncthreads();
+
+  // ---- the own chunk's statistics: its max m a row (the warps' maxima),
+  // e = exp(s - m) and their sum l; a thread keeps one row, r = tid % RM
+  {
+    const int r = tid % RM;
+    float m = kNeg;
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w * RM + r]);
+    float l = 0.f;
+    for (int e = tid; e < n_c * RM; e += kThreads) {
+      const float x = sc[e];
+      const float ev = x > kNeg ? expf(x - m) : 0.f;
+      l += ev;
+      if (nsp == 1) sc[e] = ev;  // one chunk: m is the row's max
+    }
+    if constexpr (kMma) zero_tail(vb, n_c);
+    l += __shfl_xor_sync(kFull, l, 8);
+    l += __shfl_xor_sync(kFull, l, 16);
+    if (lane < RM) wsum[warp * RM + lane] = l;
+    if (warp == 0 && lane < RM) cm[lane] = m;
+  }
+  __syncthreads();
+  // the chunk's sum of exp for row r: the warps' sums in warp order
+  auto chunk_l = [&](int r) -> float {
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) l += wsum[w * RM + r];
+    return l;
+  };
+  const size_t gy = (size_t)b * gridDim.y + y;  // this (row, head, group)
+  if (nsp > 1) {  // publish the chunk's scores, then the last block of the row goes on
+    if (tid < RM) cl[tid] = chunk_l(tid);
+    __syncthreads();
+    float* g = p.gsc + gy * RM * S;
+    for (int e = tid; e < n_c * RM; e += kThreads) {
+      const int r = e / n_c, s2 = e % n_c;
+      g[(size_t)r * S + c0 + s2] = sc[s2 * RM + r];
+    }
+    if (tid < RM) p.gst[(gy * p.splits + j) * RM + tid] = make_float2(cm[tid], cl[tid]);
+    __threadfence();
+    __syncthreads();
+    __shared__ int last;
+    if (tid == 0) {
+      last = atomicAdd(p.counters + gy, 1) == nsp - 1;
+      if (last) p.counters[gy] = 0;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid < RM) {  // the row's max and denominator, in chunk order
+      const int r = tid;
+      float M = kNeg;
+      for (int i = 0; i < nsp; ++i)
+        M = fmaxf(M, i == j ? cm[r] : __ldcg(&p.gst[(gy * p.splits + i) * RM + r]).x);
+      float l = 0.f;
+      for (int i = 0; i < nsp; ++i) {
+        const float2 st = i == j ? make_float2(cm[r], cl[r])
+                                 : __ldcg(&p.gst[(gy * p.splits + i) * RM + r]);
+        if (st.x > kNeg) l += st.y * expf(st.x - M);
+      }
+      row_m[r] = M;
+      row_l[r] = l;
+    }
+    __syncthreads();
+  }
+  // row r's denominator: one chunk, its own l (its max is the row's, so the
+  // chunk-order sum above would give these bits); more, the combined one
+  auto row_den = [&](int r) -> float { return nsp > 1 ? row_l[r] : chunk_l(r); };
+
+  // ---- phase 2: P.V chunk by chunk in order, p = exp(s - M) / l rounded to
+  // the cache dtype as the fragments are built (one chunk: e is in place)
+  float tacc[kMma ? MT : 1][4];  // tensor cores: (P.V)^T fragments of this warp's slots
+  float acc[kMma ? 1 : RM][DPL];  // CUDA cores: a lane D / 32 columns of the rows
+#pragma unroll
+  for (int mt = 0; mt < (kMma ? MT : 1); ++mt)
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) tacc[mt][e4] = 0.f;
+#pragma unroll
+  for (int r = 0; r < (kMma ? 1 : RM); ++r)
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
+  auto prob = [&](float ev, float l) -> float {
+    return ev > 0.f ? round_c<TC>(__fdiv_rn(ev, l)) : 0.f;
+  };
+  for (int i = 0; i < nsp; ++i) {
+    const int ci = lo + i * CH, ni = max(0, min(CH, hi + 1 - ci));
+    float* s_i = sc;
+    const unsigned char* v_i = vb;
+    if (i != j) {  // another block's chunk: its V rows and scores back into shared memory
+      stage(kb, vc, ci, ni);
+      cp_async_commit();
+      if (pw >= ci && pw < ci + ni) {
+        TC* r = reinterpret_cast<TC*>(kb + (pw - ci) * RS);
+        for (int d = tid; d < D; d += kThreads) r[d] = from_f<TC>(vnew[d]);
+      }
+      if constexpr (kMma) zero_tail(kb, ni);
+      const float* g = p.gsc + gy * RM * S;
+      for (int e = tid; e < ni * RM; e += kThreads) {
+        const int r = e / ni, s2 = e % ni;
+        sc2[s2 * RM + r] = __ldcg(&g[(size_t)r * S + ci + s2]);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      s_i = sc2;
+      v_i = kb;
+    }
+    if (nsp > 1) {  // e = exp(s - M) in place, M the row's max
+      for (int e = tid; e < ni * RM; e += kThreads) {
+        const float x = s_i[e];
+        s_i[e] = x > kNeg ? expf(x - row_m[e % RM]) : 0.f;
+      }
+      __syncthreads();
+    }
+    if constexpr (kMma) {
+      const int rq = lane / 4;
+      const float lq = row_den(rq);
+      for (int t = warp; t < (ni + 15) / 16; t += kWarps) {
+        const int s0 = 16 * t + (lane % 4) * 2;  // k pairs s0, s0 + 1 and s0 + 8, s0 + 9
+        const bool ok[4] = {s0 < ni, s0 + 1 < ni, s0 + 8 < ni, s0 + 9 < ni};
+        uint32_t pb[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          pb[hf] = pack_bf16(ok[2 * hf] ? prob(s_i[(s0 + 8 * hf) * RM + rq], lq) : 0.f,
+                             ok[2 * hf + 1] ? prob(s_i[(s0 + 8 * hf + 1) * RM + rq], lq) : 0.f);
+        // (V^T) fragments by ldmatrix.trans: lane l gives V row 16 t + l % 8
+        // (+8 for matrices 2, 3) at column 16 mt (+8 for matrices 1, 3)
+        const unsigned char* va =
+            v_i + (16 * t + (lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 16;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t av[4];
+          ldmatrix_x4_trans(av, va + mt * 32);
+          mma_bf16(tacc[mt], av, pb);
+        }
+      }
+    } else {  // f32 V
+      float lrow[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) lrow[r] = row_den(r);
+      for (int t = warp; t < ni; t += kWarps) {
+        const float* v = reinterpret_cast<const float*>(v_i + t * RS) + lane * DPL;
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const float pr = prob(s_i[t * RM + r], lrow[r]);
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) acc[r][d] += pr * v[d];
+        }
+      }
+    }
+    __syncthreads();  // the buffers are free for the next chunk
+  }
+
+  // ---- the warps' partials, summed in warp order, then the output
+  float* wp = reinterpret_cast<float*>(kb);  // [kWarps][RM][D]
+  if constexpr (kMma) {
+    const int rq = (lane % 4) * 2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int dd = mt * 16 + lane / 4;
+      wp[(warp * RM + rq) * D + dd] = tacc[mt][0];
+      wp[(warp * RM + rq + 1) * D + dd] = tacc[mt][1];
+      wp[(warp * RM + rq) * D + dd + 8] = tacc[mt][2];
+      wp[(warp * RM + rq + 1) * D + dd + 8] = tacc[mt][3];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) wp[(warp * RM + r) * D + lane * DPL + d] = acc[r][d];
+  }
+  __syncthreads();
+  TQ* out = static_cast<TQ*>(p.out) + ((size_t)b * p.Hq + h * G + r0) * D;
+  for (int e = tid; e < nr * D; e += kThreads) {
+    float o = wp[e];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) o += wp[w * RM * D + e];
+    out[e] = from_f<TQ>(o);
   }
 }
 
 template <typename TQ, typename TC, int D>
-__global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(
-    const TQ* __restrict__ qkv3, TC* __restrict__ kc, TC* __restrict__ vc,
-    const int* __restrict__ pos_in, const float* __restrict__ cosb,
-    const float* __restrict__ sinb, const float* __restrict__ qw, const float* __restrict__ kw,
-    TQ* __restrict__ out, float* __restrict__ scores, int Hq, int Hkv, int S, int R,
-    int neox, float scale, float softcap, int window, float eps) {
-  __shared__ float raw[3][D];   // q, k, v as loaded (then normed)
-  __shared__ float cur[3][D];   // roped and rounded to the cache dtype
-  __shared__ float part[kThreads];  // P.V partial sums
-  __shared__ float psh[kThreads];   // probabilities of the current tile
-  __shared__ float red[kWarps];
-  const int hqi = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int G = Hq / Hkv, h = hqi / G, HH = Hq + 2 * Hkv;
-  const int pos = pos_in[b];
-  const int pw = pos < S - 1 ? pos : S - 1;
-  const TQ* row = qkv3 + (size_t)b * HH * D;
-  const float* cosr = cosb + (size_t)b * (R / 2);
-  const float* sinr = sinb + (size_t)b * (R / 2);
-
-  for (int i = tid; i < D; i += kThreads) {
-    raw[0][i] = to_f(row[(size_t)hqi * D + i]);
-    raw[1][i] = to_f(row[(size_t)(Hq + h) * D + i]);
-    raw[2][i] = to_f(row[(size_t)(Hq + Hkv + h) * D + i]);
+int launch(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t shmem = smem_bytes<TC, D>();
+  static_assert(shmem <= (size_t)kMaxSmem, "K2's shared memory");
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_decode_qkv_kernel<TQ, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
   }
-  __syncthreads();
-  if (qw != nullptr) {  // per-head RMS before rope: (x * rsqrt(ms)) * w
-    for (int which = 0; which < 2; ++which) {
-      float s = 0.f;
-      for (int i = tid; i < D; i += kThreads) s += raw[which][i] * raw[which][i];
-      const float rs = rsqrtf(block_reduce<false>(s, red) / (float)D + eps);
-      const float* w = which == 0 ? qw : kw;
-      for (int i = tid; i < D; i += kThreads) raw[which][i] = raw[which][i] * rs * w[i];
-      __syncthreads();
-    }
-  }
-  rope_row(raw[0], cur[0], cosr, sinr, D, R, neox);
-  rope_row(raw[1], cur[1], cosr, sinr, D, R, neox);
-  for (int i = tid; i < D; i += kThreads) {
-    cur[0][i] = to_f(from_f<TC>(cur[0][i]));
-    cur[1][i] = to_f(from_f<TC>(cur[1][i]));
-    cur[2][i] = to_f(from_f<TC>(raw[2][i]));
-  }
-  __syncthreads();
-
-  const size_t head_off = ((size_t)b * Hkv + h) * S * D;
-  TC* kh = kc + head_off;
-  TC* vh = vc + head_off;
-  if (hqi % G == 0) {  // one block of the group writes the new row
-    for (int i = tid; i < D; i += kThreads) {
-      kh[(size_t)pw * D + i] = from_f<TC>(cur[1][i]);
-      vh[(size_t)pw * D + i] = from_f<TC>(cur[2][i]);
-    }
-  }
-
-  const int hi = pos < S - 1 ? pos : S - 1;
-  int lo = window > 0 ? pos - window + 1 : 0;
-  lo = lo < 0 ? 0 : lo;
-  float* srow = scores + ((size_t)b * Hq + hqi) * S;
-
-  // sweep 1: scores and their max
-  float mx = -INFINITY;
-  for (int s = lo + tid; s <= hi; s += kThreads) {
-    float acc = 0.f;
-    if (s == pw) {
-#pragma unroll
-      for (int i = 0; i < D; ++i) acc += cur[0][i] * cur[1][i];
-    } else {
-      acc = dot_row<D>(cur[0], kh + (size_t)s * D);
-    }
-    acc *= scale;
-    if (softcap > 0.f) acc = tanhf(acc / softcap) * softcap;
-    srow[s] = acc;
-    mx = fmaxf(mx, acc);
-  }
-  mx = block_reduce<true>(mx, red);
-
-  // sweep 2: softmax denominator
-  float l = 0.f;
-  for (int s = lo + tid; s <= hi; s += kThreads) l += expf(srow[s] - mx);
-  l = block_reduce<false>(l, red);
-
-  // sweep 3: P.V, the probabilities rounded to the cache dtype
-  constexpr int nparts = kThreads / D;
-  const int dd = tid % D, pp = tid / D;
-  float acc = 0.f;
-  for (int t0 = lo; t0 <= hi; t0 += kThreads) {
-    const int s = t0 + tid;
-    psh[tid] = s <= hi ? to_f(from_f<TC>(expf(srow[s] - mx) / l)) : 0.f;
-    __syncthreads();
-    const int n = hi - t0 + 1 < kThreads ? hi - t0 + 1 : kThreads;
-#pragma unroll 8
-    for (int j = pp; j < n; j += nparts) {
-      const int sj = t0 + j;
-      const float vv = sj == pw ? cur[2][dd] : to_f(vh[(size_t)sj * D + dd]);
-      acc += psh[j] * vv;
-    }
-    __syncthreads();
-  }
-  part[tid] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float o = 0.f;
-#pragma unroll
-    for (int p = 0; p < nparts; ++p) o += part[p * D + tid];
-    out[((size_t)b * Hq + hqi) * D + tid] = from_f<TQ>(o);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, p.Hkv * ((p.Hq / p.Hkv + RM - 1) / RM), B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, attn_decode_qkv_kernel<TQ, TC, D>, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC>
-int launch(const void* qkv3, void* kc, void* vc, const int* pos, const float* cosb,
-           const float* sinb, const float* qw, const float* kw, void* out, float* scores,
-           int B, int Hq, int Hkv, int S, int D, int R, int neox, float scale, float softcap,
-           int window, float eps, cudaStream_t stream) {
-  const dim3 grid(Hq, B);
-#define ZT_LAUNCH(DD)                                                                      \
-  attn_decode_qkv_kernel<TQ, TC, DD><<<grid, kThreads, 0, stream>>>(                       \
-      static_cast<const TQ*>(qkv3), static_cast<TC*>(kc), static_cast<TC*>(vc), pos, cosb, \
-      sinb, qw, kw, static_cast<TQ*>(out), scores, Hq, Hkv, S, R, neox, scale, softcap,     \
-      window, eps)
-  if (D == 64) {
-    ZT_LAUNCH(64);
-  } else if (D == 128) {
-    ZT_LAUNCH(128);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef ZT_LAUNCH
-  return (int)cudaGetLastError();
+int launch_d(const Params& p, int B, int D, cudaStream_t s) {
+  if (D == 64) return launch<TQ, TC, 64>(p, B, s);
+  if (D == 128) return launch<TQ, TC, 128>(p, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// slots a chunk for a cache dtype (0 = float32, 1 = bfloat16) and head dim:
+// the wrapper sizes the grid (ceil(S / chunk) splits) and the scratch
+extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
+  if (D != 64 && D != 128) return 0;
+  return c_dtype == 1 ? 65536 / (D * 2) : 65536 / (D * 4);
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.  qw/kw may be null (no q/k norm).
+// gsc [B, Hkv * ceil(G / 8), 8, S] f32 and gst [B, Hkv * ceil(G / 8),
+// splits, 8] float2 are scratch (touched only by rows of more than one
+// chunk); counters [B, Hkv * ceil(G / 8)] int32 must be zero and are left
+// zero.
 extern "C" int zt_attn_decode_qkv(const void* qkv3, int q_dtype, void* kc, void* vc,
                                   int c_dtype, const int* pos, const float* cosb,
                                   const float* sinb, const float* qw, const float* kw,
-                                  void* out, float* scores, int B, int Hq, int Hkv, int S,
-                                  int D, int R, int neox, float scale, float softcap,
-                                  int window, float eps, void* stream) {
+                                  void* out, float* gsc, void* gst, int* counters, int B,
+                                  int Hq, int Hkv, int S, int D, int R, int neox, float scale,
+                                  float softcap, int window, float eps, void* stream) {
   if ((D != 64 && D != 128) || R > D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const int chunk = zt_attn_decode_chunk(c_dtype, D);
+  Params p{qkv3, kc, vc, pos, cosb, sinb, qw, kw, out, gsc, static_cast<float2*>(gst), counters,
+           Hq, Hkv, S, R, neox, (S + chunk - 1) / chunk, window, scale, softcap, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ZT_ARGS qkv3, kc, vc, pos, cosb, sinb, qw, kw, out, scores, B, Hq, Hkv, S, D, R, neox, \
-                scale, softcap, window, eps, s
-  if (q_dtype == 0 && c_dtype == 0) return launch<float, float>(ZT_ARGS);
-  if (q_dtype == 0 && c_dtype == 1) return launch<float, __nv_bfloat16>(ZT_ARGS);
-  if (q_dtype == 1 && c_dtype == 0) return launch<__nv_bfloat16, float>(ZT_ARGS);
-  if (q_dtype == 1 && c_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
-#undef ZT_ARGS
+  if (q_dtype == 0 && c_dtype == 0) return launch_d<float, float>(p, B, D, s);
+  if (q_dtype == 0 && c_dtype == 1) return launch_d<float, __nv_bfloat16>(p, B, D, s);
+  if (q_dtype == 1 && c_dtype == 0) return launch_d<__nv_bfloat16, float>(p, B, D, s);
+  if (q_dtype == 1 && c_dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(p, B, D, s);
   return (int)cudaErrorInvalidValue;
 }

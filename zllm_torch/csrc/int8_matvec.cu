@@ -14,9 +14,17 @@
 // Bound on the H100: the weight bytes, read once (Q6_K: 210 bytes per 256
 // weights in the GGUF, 224 in this layout, whose scale plane a is fp16 per
 // 16-group; Q8_0: 34 per 32); 2*K*N int8 operations are ~1000x under the
-// int8 peak.  Design, as K1's: every block quantizes the activation row
-// into shared memory, then each warp streams whole output columns, the
-// column's planes contiguous along K (Q6KWeight / Q80Weight layouts,
+// int8 peak.  A Q4_K_M step's 34 launches move 0.2-2.3 MB each (0.07-0.7
+// us of bytes), so what paces them is each launch's fixed part: the earlier
+// form (8-warp blocks, up to four an SM each redoing the prologue, a plain
+// <<<>>> launch, a column's loads issued only after the previous column's
+// dots) took 7.3 us a launch (python -m zllm_torch.k1_ablation --kernel k4,
+// PERF.md §6).
+//
+// Design: K1's (q4k_matvec.cu), with its launch machinery from
+// matvec_common.cuh.  Every block quantizes the activation row into shared
+// memory, then each warp streams whole output columns, the column's planes
+// contiguous along K (Q6KWeight / Q80Weight layouts,
 // zllm_torch/quant/repack.py).  A lane takes one 32-element slot a round,
 // so a warp reads 1024 weights of a column per round with 16-byte loads:
 //   Q6_K slot c (superblock c/8, half h, quarter t): 16 ql bytes whose low
@@ -27,9 +35,34 @@
 // Q6_K's unsigned codes q = ql | qh << 4 (0..63) go into __dp4a as they
 // are and the bias comes off the integer dot: sum (q - 32) x = sum q x -
 // 32 sum x, with sum x the group's code sum from the prologue; a 16-group
-// dot is at most 16 * 63 * 127 < 2^24, so both are exact.  A warp issues
-// all loads of up to kRounds rounds of a column before it uses any, and
-// its first column's loads before the prologue.
+// dot is at most 16 * 63 * 127 < 2^24, so both are exact.
+//   * One wave of 16-warp blocks, at most two an SM (cpw columns a warp);
+//     a narrow N (wv, 256 columns) is spread over the SMs a few warps'
+//     columns a block, the block's other warps only helping the prologue
+//     (packed sixteen columns a block, wv ran on 16 SMs).
+//   * "glu" (ffn_down, K 5632): the blocks of a thread-block cluster of 4
+//     share the prologue over distributed shared memory
+//     (quantize_glu_cluster, 16-groups for Q6_K).
+//   * Cross-column prefetch: a warp's columns are cut into units of one
+//     round (32 slots), held in two register sets; the next unit's loads
+//     are in flight while the current one's dots run (two rounds a set took
+//     0.163 ms a step against 0.176, but spilled under the 64 registers of
+//     two blocks an SM).
+//   * Programmatic dependent launch (launch_matvec): before
+//     griddepcontrol.wait a block issues only loads of what no kernel
+//     writes -- its warps' first two units of weight planes, and an L2
+//     prefetch of the RMS weight for "norm" -- so a K4 that follows a K1
+//     (wk -> wv, gate|up -> down) has its weights in flight while its
+//     predecessor drains; launch_dependents at the block's start.
+//   * Each lane adds the same slot terms in the same order as the earlier
+//     form (slot c = lane + 32 i, i rising, then warp_sum), and the row is
+//     quantized as before, so the output is bit-identical to it.
+//
+// Where trouble lies: as K1's (q4k_matvec.cu) -- nothing before the wait
+// reads x or writes y; a predecessor that never triggers (a torch op, K2)
+// makes the launch as safe as a plain one; `-Xptxas -v` must show no spill
+// under __launch_bounds__(512, 2) (chip_smoke.py's build report fails on
+// one).
 
 #include "matvec_common.cuh"
 
@@ -37,9 +70,8 @@ namespace {
 
 using namespace zt;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;  // slot rounds (32 slots each) held in registers
 
 __device__ __forceinline__ uint4 ld16(const uint8_t* p) {
   return *reinterpret_cast<const uint4*>(p);
@@ -118,58 +150,82 @@ struct Q80 {
 };
 
 template <typename TX, int MODE, class F>
-__global__ void __launch_bounds__(kThreads) int8_matvec_kernel(
+__global__ void __launch_bounds__(kThreads, 2) int8_matvec_kernel(
     const TX* __restrict__ x, const float* __restrict__ aux, const F f,
-    float* __restrict__ y, int K, int N, int cols_per_warp, float eps) {
+    float* __restrict__ y, int K, int N, int cols_per_warp, int wpb, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const QuantRow<F::kGroup> row(smem, K);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nslot = K / 32;
-  typename F::Slot sl[kRounds];
-
-  auto fetch = [&](int n, int base) {
-#pragma unroll
-    for (int it = 0; it < kRounds; ++it) {
-      const int c = base + it * 32 + lane;
-      if (c < nslot) f.fetch(sl[it], (size_t)n, K, c);
-    }
+  const int upc = (nslot + 31) / 32;  // units (rounds of 32 slots) a column
+  // this warp's columns n0 + j * wpb (j < cpw, < N; warps >= wpb none),
+  // unit u = (column u / upc, slots from (u % upc) * 32)
+  const int n0 = blockIdx.x * cols_per_warp * wpb + warp;
+  const int ncols = warp < wpb && n0 < N ? min(cols_per_warp, (N - 1 - n0) / wpb + 1) : 0;
+  const int nu = ncols * upc;
+  auto fetch = [&](typename F::Slot& sl, int u) {
+    const int c = (u % upc) * 32 + lane;
+    if (u < nu && c < nslot) f.fetch(sl, (size_t)(n0 + (u / upc) * wpb), K, c);
   };
 
-  // the first column's weights are in flight while the activations are
-  // prepared
-  const int n0 = blockIdx.x * cols_per_warp * kWarps + warp;
-  if (n0 < N) fetch(n0, 0);
-  quantize_row<TX, MODE, F::kGroup, kThreads>(x, aux, K, eps, row);
-
-  for (int j = 0; j < cols_per_warp; ++j) {
-    const int n = (blockIdx.x * cols_per_warp + j) * kWarps + warp;
-    if (n >= N) break;
-    float acc = 0.f;
-    for (int base = 0; base < nslot; base += 32 * kRounds) {
-      if (j > 0 || base > 0) fetch(n, base);
-#pragma unroll
-      for (int it = 0; it < kRounds; ++it) {
-        const int c = base + it * 32 + lane;
-        if (c < nslot) acc += f.dot(sl[it], c, row);
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) y[n] = acc;
+  // before the wait: weights and the norm weight only
+  typename F::Slot ca, cb;
+  fetch(ca, 0);
+  fetch(cb, 1);
+  if (MODE == kNorm) {
+    for (int k = threadIdx.x * 32; k < K; k += kThreads * 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(aux + k));
   }
+  launch_dependents();
+  if (MODE == kGlu) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  grid_wait();
+  if constexpr (MODE == kGlu) {
+    quantize_glu_cluster<TX, F::kGroup, kThreads>(x, K, row);
+  } else {
+    quantize_row<TX, MODE, F::kGroup, kThreads>(x, aux, K, eps, row);
+  }
+
+  float acc = 0.f;
+  auto dots = [&](const typename F::Slot& sl, int u) {
+    if (u >= nu) return;  // uniform across the warp
+    const int c = (u % upc) * 32 + lane;
+    if (c < nslot) acc += f.dot(sl, c, row);
+    if (u % upc == upc - 1) {  // the column's last unit
+      acc = warp_sum(acc);
+      if (lane == 0) y[n0 + (u / upc) * wpb] = acc;
+      acc = 0.f;
+    }
+  };
+  for (int u = 0; u < nu; u += 2) {
+    dots(ca, u);
+    fetch(ca, u + 2);
+    dots(cb, u + 1);
+    fetch(cb, u + 3);
+  }
+}
+
+// warps of a block that take columns: as many as spread the columns over
+// every SM, at most all of them (N >= 16 * cpw * SMs)
+inline int spread_warps(int N, int cpw, int sms, int warps) {
+  const int w = (N + cpw * sms - 1) / (cpw * sms);
+  return w < 1 ? 1 : (w > warps ? warps : w);
 }
 
 template <typename TX, int MODE, class F>
 int launch(const void* x, const float* aux, const F& f, float* y, int K, int N, float eps,
            cudaStream_t stream) {
-  // more columns per warp when N is wide, so a block's prologue is shared
-  // by more columns while the grid still covers every SM twice (as K1)
-  int cpw = N / (kWarps * 2 * 132);
-  cpw = cpw < 1 ? 1 : (cpw > 4 ? 4 : cpw);
-  const int per_block = kWarps * cpw;
-  const dim3 grid((N + per_block - 1) / per_block);
-  int8_matvec_kernel<TX, MODE, F><<<grid, kThreads, QuantRow<F::kGroup>::bytes(K), stream>>>(
-      static_cast<const TX*>(x), aux, f, y, K, N, cpw, eps);
-  return (int)cudaGetLastError();
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  // one wave of at most two blocks an SM
+  const int cpw = wave_cols(N, sms, kWarps);
+  const int wpb = spread_warps(N, cpw, sms, kWarps);
+  // glu: clusters of cl blocks share the prologue (a multiple of cl blocks,
+  // the last ones perhaps without a column)
+  const int cl = MODE == kGlu ? glu_cluster<F::kGroup>(K) : 1;
+  return launch_matvec(int8_matvec_kernel<TX, MODE, F>, (N + cpw * wpb - 1) / (cpw * wpb),
+                       kThreads, QuantRow<F::kGroup>::bytes(K), cl, stream,
+                       static_cast<const TX*>(x), aux, f, y, K, N, cpw, wpb, eps);
 }
 
 template <typename TX, class F>

@@ -1,6 +1,8 @@
 // The activation prologue shared by the decode matvecs K1 (q4k_matvec.cu),
 // K12 (q4k_matvec_hbm.cu), K4 (int8_matvec.cu) and K11's quantize launch
-// (w4a8dd_matvec.cu), and the nibble formats' scales and epilogue (below):
+// (w4a8dd_matvec.cu), the launch machinery of K1 and K4 (programmatic
+// dependent launch, the glu prologue shared by a thread-block cluster, one
+// wave of blocks), and the nibble formats' scales and epilogue (below):
 // the counterpart of zllm/ops/qmatmul.py::
 // _prologue_quant.  prologue(x) is "q" (x as is), "norm" (rms_norm(x) * w,
 // the full-row mean square reduced first) or "glu" (silu(g) * u over the
@@ -8,8 +10,9 @@
 // group: dx = max(max|v| / 127, 1e-12), q = clip(rint(v / dx), -127, 127),
 // with IEEE division, as the Pallas kernel rounds (the library is built
 // without fast math).  Every block quantizes the whole row into its shared
-// memory; GROUP/4 lanes take a group, four elements a lane; the blocks
-// are 256 threads (K4, K11, K12) or 512 (K1).
+// memory (for "glu" in K1 and K4: the blocks of a cluster share the work);
+// GROUP/4 lanes take a group, four elements a lane; the blocks are 256
+// threads (K11, K12) or 512 (K1, K4).
 
 #pragma once
 
@@ -17,6 +20,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 namespace zt {
 
@@ -140,6 +145,107 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The launch machinery of K1 and K4: programmatic dependent launch (PDL),
+// the glu prologue split over a thread-block cluster, one wave of blocks.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// The glu row quantized by the blocks of a thread-block cluster together
+// (a launch without clusters: by the block alone).  Block `rank` of n takes
+// groups [rank * G / n, (rank + 1) * G / n) -- G / n a multiple of the
+// 128 / GROUP groups a warp quantizes at once, so a warp's lanes take whole
+// groups in step -- and stores each group's codes, dx and code sum into
+// every block's shared row.  The caller arrived on the cluster barrier at
+// its start; the wait here makes sure every peer runs (its shared memory
+// exists) before the first store to it, and the closing cluster.sync()
+// that every store has landed before any block reads.
+template <typename TX, int GROUP, int THREADS>
+__device__ __forceinline__ void quantize_glu_cluster(const TX* __restrict__ x, int K,
+                                                     const QuantRow<GROUP>& row) {
+  namespace cg = cooperative_groups;
+  constexpr int kLanes = GROUP / 4;  // lanes per group
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int G = K / GROUP, g1 = (rank + 1) * G / n;
+  const int sub = threadIdx.x & (kLanes - 1);
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  for (int g = rank * G / n + threadIdx.x / kLanes; g < g1; g += THREADS / kLanes) {
+    const int k0 = g * GROUP + sub * 4;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = prologue_value<TX, kGlu>(x, nullptr, K, k0 + i, 1.f);
+    char4 codes;
+    float dx;
+    int sx;
+    quantize_group<GROUP>(v, codes, dx, sx);
+    for (int r = 0; r < n; ++r) {
+      *reinterpret_cast<char4*>(cluster.map_shared_rank(row.xq, r) + k0) = codes;
+      if (sub == 0) {
+        cluster.map_shared_rank(row.dx, r)[g] = dx;
+        cluster.map_shared_rank(row.sx, r)[g] = sx;
+      }
+    }
+  }
+  cluster.sync();
+}
+
+// blocks a cluster for a glu row of K: 4 where a quarter of its K / GROUP
+// groups is a multiple of the 128 / GROUP a warp takes at once, else 2 (K
+// % 256 == 0 makes half of them one); for both GROUP 16 and 32 the rule is
+// K % 512 == 0
+template <int GROUP>
+inline int glu_cluster(int K) {
+  return (K / GROUP) % (4 * (128 / GROUP)) == 0 ? 4 : 2;
+}
+
+// the card's SM count in *sms; a CUDA error code
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// columns a warp for one wave of at most two blocks an SM of `warps` warps
+inline int wave_cols(int N, int sms, int warps) {
+  return (N + 2 * sms * warps - 1) / (2 * sms * warps);
+}
+
+// The launch of a decode matvec: `blocks` blocks (rounded up to a multiple
+// of the cluster) of `threads`, `smem` bytes of dynamic shared memory, a
+// cluster of `cluster` blocks where it is > 1, and programmatic stream
+// serialization, through cudaLaunchKernelEx; a CUDA error code.
+template <typename... KArgs, typename... Args>
+int launch_matvec(void (*kernel)(KArgs...), int blocks, int threads, size_t smem, int cluster,
+                  cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((blocks + cluster - 1) / cluster * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int na = 0;
+  if (cluster > 1) {
+    attr[na].id = cudaLaunchAttributeClusterDimension;
+    attr[na].val.clusterDim.x = cluster;
+    attr[na].val.clusterDim.y = 1;
+    attr[na].val.clusterDim.z = 1;
+    ++na;
+  }
+  attr[na].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[na].val.programmaticStreamSerializationAllowed = 1;
+  ++na;
+  cfg.attrs = attr;
+  cfg.numAttrs = na;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

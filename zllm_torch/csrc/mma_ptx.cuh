@@ -1,7 +1,8 @@
 // PTX wrappers shared by the tensor-core loops (gemm_slice.cuh for K3 and
-// K5, attn_mma.cuh for K7 and K10): warp-level mma.sync m16n8k16 (bf16 x
-// bf16 -> f32), ldmatrix, cp.async 16-byte copies with their commit and
-// wait, and the round-to-nearest-even bf16 pair packing.
+// K5, attn_mma.cuh for K7 and K10, attn_decode.cu for K2): warp-level
+// mma.sync m16n8k16 (bf16 x bf16 -> f32), ldmatrix (and transposed),
+// cp.async 16-byte copies with their commit and wait, and the
+// round-to-nearest-even bf16 pair packing.
 
 #pragma once
 
@@ -17,6 +18,16 @@ namespace zt {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_row) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// the same, transposed: lane l gives the row address of matrix l/8 of the
+// stored (transposed) matrix
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a)
                : "memory");

@@ -48,7 +48,9 @@
 //   * Cross-column prefetch: a warp's columns are cut into units of 32
 //     chunks (a whole K = 2048 column), held in two register sets; the next
 //     unit's loads are in flight while the current one's dots run.
-//   * Programmatic dependent launch: the entry launches with programmatic
+//   * Programmatic dependent launch (the machinery of matvec_common.cuh,
+//     shared with K4: launch_matvec, grid_wait, launch_dependents,
+//     quantize_glu_cluster): the entry launches with programmatic
 //     stream serialization.  Before griddepcontrol.wait a block issues only
 //     loads of what no kernel writes -- its warps' first two units of
 //     packed nibbles and scale planes, and an L2 prefetch of the RMS weight
@@ -89,64 +91,16 @@
 //     `-Xptxas -v` must show no spill (chip_smoke.py's build report fails
 //     on one).
 
-#include <cooperative_groups.h>
-
 #include "matvec_common.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace zt;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRounds = 2;           // chunk rounds (16 chunks each) a register set holds
 constexpr int kUnit = 16 * kRounds;  // chunks a unit: a K = 2048 column
-
-__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
-// The glu row quantized by the blocks of a thread-block cluster together
-// (a launch without clusters: by the block alone).  Block `rank` of n takes
-// groups [rank * G / n, (rank + 1) * G / n) -- G / n a multiple of 4, so a
-// warp's lanes take whole groups in step -- and stores each group's codes,
-// dx and code sum into every block's shared row.  The caller arrived on the
-// cluster barrier at its start; the wait here makes sure every peer runs
-// (its shared memory exists) before the first store to it, and the closing
-// cluster.sync() that every store has landed before any block reads.
-template <typename TX>
-__device__ __forceinline__ void quantize_glu_cluster(const TX* __restrict__ x, int K,
-                                                     const QuantRow<32>& row) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int G = K / 32, g1 = (rank + 1) * G / n;
-  const int sub = threadIdx.x & 7;
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-  for (int g = rank * G / n + threadIdx.x / 8; g < g1; g += kThreads / 8) {
-    const int k0 = g * 32 + sub * 4;
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = prologue_value<TX, kGlu>(x, nullptr, K, k0 + i, 1.f);
-    char4 codes;
-    float dx;
-    int sx;
-    quantize_group<32>(v, codes, dx, sx);
-    for (int r = 0; r < n; ++r) {
-      *reinterpret_cast<char4*>(cluster.map_shared_rank(row.xq, r) + k0) = codes;
-      if (sub == 0) {
-        cluster.map_shared_rank(row.dx, r)[g] = dx;
-        cluster.map_shared_rank(row.sx, r)[g] = sx;
-      }
-    }
-  }
-  cluster.sync();
-}
-
-// blocks a cluster for a glu row of K: 4 where a quarter of its groups is a
-// multiple of 4 (K % 512 == 0), else 2
-inline int glu_cluster(int K) { return (K / 32) % 16 == 0 ? 4 : 2; }
 
 template <typename TX, int MODE, int FMT>
 __global__ void __launch_bounds__(kThreads, 2) q4k_matvec_kernel(
@@ -178,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, 2) q4k_matvec_kernel(
   if (MODE == kGlu) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   grid_wait();
   if constexpr (MODE == kGlu) {
-    quantize_glu_cluster<TX>(x, K, row);
+    quantize_glu_cluster<TX, 32, kThreads>(x, K, row);
   } else {
     quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
   }
@@ -230,39 +184,18 @@ __global__ void __launch_bounds__(kThreads, 2) q4k_matvec_kernel(
 template <typename TX, int MODE, int FMT>
 int launch(const void* x, const float* aux, const NibblePlanes& w, float* y, int K, int N,
            float eps, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
   // one wave of at most two blocks an SM
-  const int cpw = (N + 2 * sms * kWarps - 1) / (2 * sms * kWarps);
+  const int cpw = wave_cols(N, sms, kWarps);
   const int per_block = kWarps * cpw;
   // glu: clusters of cl blocks share the prologue (a multiple of cl blocks,
   // the last ones perhaps without a column)
-  const int cl = MODE == kGlu ? glu_cluster(K) : 1;
-  const int blocks = (N + per_block - 1) / per_block;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((blocks + cl - 1) / cl * cl);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = QuantRow<32>::bytes(K);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
-  int na = 0;
-  if (cl > 1) {
-    attr[na].id = cudaLaunchAttributeClusterDimension;
-    attr[na].val.clusterDim.x = cl;
-    attr[na].val.clusterDim.y = 1;
-    attr[na].val.clusterDim.z = 1;
-    ++na;
-  }
-  attr[na].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[na].val.programmaticStreamSerializationAllowed = 1;
-  ++na;
-  cfg.attrs = attr;
-  cfg.numAttrs = na;
-  err = cudaLaunchKernelEx(&cfg, q4k_matvec_kernel<TX, MODE, FMT>, static_cast<const TX*>(x), aux,
-                           w, y, K, N, cpw, eps);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  const int cl = MODE == kGlu ? glu_cluster<32>(K) : 1;
+  return launch_matvec(q4k_matvec_kernel<TX, MODE, FMT>, (N + per_block - 1) / per_block,
+                       kThreads, QuantRow<32>::bytes(K), cl, stream, static_cast<const TX*>(x),
+                       aux, w, y, K, N, cpw, eps);
 }
 
 template <typename TX, int FMT>

@@ -1,9 +1,12 @@
-"""What each part of K1, the decode matvec of the nibble formats
-(`csrc/q4k_matvec.cu`), costs on the card: the source built as it is and
-again with one part taken out, each build timed on the 89 matvecs of a
-TinyLlama-geometry Q4_K decode step (22 x [wqkv norm 2048->2560, wo q
-2048->2048, gate|up norm 2048->11264, down glu 5632->2048] + the head norm
-2048->32768), random weight bytes from a seed, f32 activations:
+"""What each part of a decode kernel costs on the card: the source built as
+it is and again with one part taken out, each build timed by CUDA-graph
+replay.  Three kernels (`--kernel`, K1 by default):
+
+k1, the decode matvec of the nibble formats (`csrc/q4k_matvec.cu`), on the
+89 matvecs of a TinyLlama-geometry Q4_K decode step (22 x [wqkv norm
+2048->2560, wo q 2048->2048, gate|up norm 2048->11264, down glu
+5632->2048] + the head norm 2048->32768), random weight bytes from a seed,
+f32 activations:
   no_columns:  no output column, so a launch keeps only its fixed part
                (the launch itself and the activation prologue);
   no_prologue: the activations taken as already quantized (no
@@ -19,21 +22,49 @@ TinyLlama-geometry Q4_K decode step (22 x [wqkv norm 2048->2560, wo q
                a cluster of blocks;
   glu_no_exp:  the glu prologue without its sigmoid (silu(g) * u as g * u);
   no_div:      the prologue's quantization multiplying by dx, not dividing.
-A variant whose anchor text the source lacks (an older K1) is reported as
-such.  The variants compute wrong values; only their times mean anything.
+
+k4, the decode matvec of Q6_K and Q8_0 (`csrc/int8_matvec.cu`), on the 34
+Q6_K matvecs of a TinyLlama-geometry Q4_K_M decode step (22 x wv q
+2048->256 with a bf16 row, 11 x down glu 5632->2048 with an f32 row, the
+head norm 2048->32768 with a bf16 row), random weight bytes from a seed:
+  no_columns, no_prologue, bare: as for k1;
+  serial, no_pdl, trigger_late, one_block, no_cluster: as for k1 (the
+               rebuilt form only);
+  packed:      narrow N packed sixteen columns a block (wv: 16 blocks),
+               not spread over the SMs a few columns a block.
+
+k2, the decode attention block (`csrc/attn_decode.cu`), on the 22 launches
+of a TinyLlama decode step (B 1, 32/4 heads of 64, f32 qkv row, bf16
+caches of 2048 slots, position 331) and of a TinyLlama contiguous engine
+step (B 4, a stripe of 2176 slots, positions 255, 0, 300 and a trash row
+at 2176), each layer its own cache:
+  launch:      the kernel returns at once (the launch alone);
+  insert:      it returns after the split, norms, rope and cache insert;
+  scores:      ... and after the scores;
+  softmax:     ... and after the softmax statistics;
+  no_pdl:      (the rebuilt form only) launched without programmatic
+               stream serialization;
+  no_pv:       (the rebuilt form only) no P.V (the output from zeros);
+  no_out:      (the rebuilt form only) no output store;
+  warps8:      (the rebuilt form only) blocks of 8 warps, not 16.
+
+A variant whose anchor text the source lacks (an older form) is reported
+as such.  The variants compute wrong values; only their times mean anything.
 
 Run on a CUDA host from the root of a checkout:
-    python -m zllm_torch.k1_ablation
+    python -m zllm_torch.k1_ablation [--kernel k1|k4|k2]
 Prints one JSON line per build, the unchanged one first and last: the
-graph-replay device ms of the 89-launch step, of each role's launches
-alone (22 each, the head 1), and the registers of the build's K1
+graph-replay device ms of the whole set of launches, of each role's
+launches alone (k1: 22 each, the head 1; k4: wv 22, down 11, head 1; k2:
+the step and the engine step), and the registers of the build's kernel
 instantiations (`-Xptxas -v`).
-    python -m zllm_torch.k1_ablation --step
+    python -m zllm_torch.k1_ablation [--kernel k1|k2] --step
 times instead a whole decode step with the builds that compute right
-values (as it is, no_pdl, no_cluster, serial, one_block): a TinyLlama
-Q4_K model (random weights, seed 0) prefilled with 300 tokens, one B = 1
-step's forward at position 331 captured in a CUDA graph and replayed, so
-K1 runs beside K2 and the torch ops as a real step interleaves them."""
+values (k1: as it is, no_pdl, no_cluster, serial, one_block; k2: as it
+is, no_pdl): a TinyLlama Q4_K model (random weights, seed 0) prefilled
+with 300 tokens, one B = 1 step's forward at position 331 captured in a
+CUDA graph and replayed, so the kernel runs beside the others and the
+torch ops as a real step interleaves them."""
 
 from __future__ import annotations
 
@@ -42,58 +73,140 @@ import json
 import re
 import subprocess
 import sys
+from typing import NamedTuple
 
 import torch
 
+from .ops import attention as att
 from .ops import cuda
 from .ops import qmatmul as qmm
-from .quant.repack import Q4KWeight
+from .quant.repack import Q4KWeight, Q6KWeight
 
 OUT = cuda.CACHE.parent / "k1_ablation"
-SOURCE = "q4k_matvec.cu"
 
-# variant -> alternatives, each a list of (text, replacement) applied to
-# q4k_matvec.cu, or (file, text, replacement) to another source; the first
-# alternative whose texts all occur is taken (the later ones fit K1's
-# earlier form: 8 warps, one column in flight)
-NO_COLUMNS = [[("const int nu = ncols * upc;", "const int nu = 0 * ncols * upc;")],
-              [("  if (n0 < N) fetch_col(cr, w, n0, K, 0, lane);",
-                "  if (0) fetch_col(cr, w, n0, K, 0, lane);"),
-               ("for (int j = 0; j < cols_per_warp; ++j) {", "for (int j = 0; j < 0; ++j) {")]]
-NO_PROLOGUE = [[("    quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);\n", ""),
-                ("    quantize_glu_cluster<TX>(x, K, row);\n",
-                 '    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");\n')],
-               [("  quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);\n", "")]]
-VARIANTS = {
-    "no_columns": NO_COLUMNS,
-    "no_prologue": NO_PROLOGUE,
-    "bare": [a + b for a in NO_COLUMNS for b in NO_PROLOGUE],
-    "serial": [[("  fetch(cb, 1);\n", ""),
-                ("    dots(ca, u);\n    fetch(ca, u + 2);\n    dots(cb, u + 1);\n"
-                 "    fetch(cb, u + 3);\n",
-                 "    if (u > 0) fetch(ca, u);\n    dots(ca, u);\n    fetch(cb, u + 1);\n"
-                 "    dots(cb, u + 1);\n")]],
-    "no_pdl": [[("attr[na].val.programmaticStreamSerializationAllowed = 1;",
-                 "attr[na].val.programmaticStreamSerializationAllowed = 0;")]],
-    "no_cluster": [[("  const int cl = MODE == kGlu ? glu_cluster(K) : 1;",
-                     "  const int cl = 1;")]],
-    "one_block": [[("  const int cpw = (N + 2 * sms * kWarps - 1) / (2 * sms * kWarps);",
-                    "  const int cpw = (N + sms * kWarps - 1) / (sms * kWarps);")]],
-    "glu_no_exp": [[("matvec_common.cuh", "return gg * (1.f / (1.f + expf(-gg))) * u;",
-                     "return gg * u;")]],
-    "no_div": [[("matvec_common.cuh", "rintf(v[i] / dx)", "rintf(v[i] * dx)")]],
-    "trigger_late": [[("  launch_dependents();\n  if (MODE == kGlu)", "  if (MODE == kGlu)"),
-                      ("    fetch(cb, u + 3);\n  }\n", "    fetch(cb, u + 3);\n  }\n  launch_dependents();\n")]],
+
+class Kernel(NamedTuple):
+    lib: str      # library name in ops/cuda.py's SOURCES
+    symbol: str   # its C entry point
+    entry: str    # the __global__ name -Xptxas reports
+    variants: dict
+    step_variants: tuple
+
+
+# variant -> alternatives, each a list of (text, replacement) applied to the
+# kernel's source, or (file, text, replacement) to another source; the first
+# alternative whose texts all occur is taken (the later ones fit an earlier
+# form of the kernel)
+K1_NO_COLUMNS = [[("const int nu = ncols * upc;", "const int nu = 0 * ncols * upc;")],
+                 [("  if (n0 < N) fetch_col(cr, w, n0, K, 0, lane);",
+                   "  if (0) fetch_col(cr, w, n0, K, 0, lane);"),
+                  ("for (int j = 0; j < cols_per_warp; ++j) {", "for (int j = 0; j < 0; ++j) {")]]
+K1_NO_PROLOGUE = [[("    quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);\n", ""),
+                   ("    quantize_glu_cluster<TX, 32, kThreads>(x, K, row);\n",
+                    '    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");\n')],
+                  [("    quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);\n", ""),
+                   ("    quantize_glu_cluster<TX>(x, K, row);\n",
+                    '    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");\n')],
+                  [("  quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);\n", "")]]
+# the launch machinery lives in matvec_common.cuh, shared by K1 and K4
+COMMON = "matvec_common.cuh"
+NO_PDL = [[(COMMON, "attr[na].val.programmaticStreamSerializationAllowed = 1;",
+            "attr[na].val.programmaticStreamSerializationAllowed = 0;")],
+          [("attr[na].val.programmaticStreamSerializationAllowed = 1;",
+            "attr[na].val.programmaticStreamSerializationAllowed = 0;")]]
+NO_CLUSTER = [[("  const int cl = MODE == kGlu ? glu_cluster<32>(K) : 1;", "  const int cl = 1;")],
+              [("  const int cl = MODE == kGlu ? glu_cluster(K) : 1;", "  const int cl = 1;")]]
+ONE_BLOCK = [[(COMMON, "  return (N + 2 * sms * warps - 1) / (2 * sms * warps);",
+               "  return (N + sms * warps - 1) / (sms * warps);")],
+             [("  const int cpw = (N + 2 * sms * kWarps - 1) / (2 * sms * kWarps);",
+               "  const int cpw = (N + sms * kWarps - 1) / (sms * kWarps);")]]
+TRIGGER_LATE = [("  launch_dependents();\n  if (MODE == kGlu)", "  if (MODE == kGlu)"),
+                ("    fetch(cb, u + 3);\n  }\n", "    fetch(cb, u + 3);\n  }\n  launch_dependents();\n")]
+SERIAL = [("  fetch(cb, 1);\n", ""),
+          ("    dots(ca, u);\n    fetch(ca, u + 2);\n    dots(cb, u + 1);\n"
+           "    fetch(cb, u + 3);\n",
+           "    if (u > 0) fetch(ca, u);\n    dots(ca, u);\n    fetch(cb, u + 1);\n"
+           "    dots(cb, u + 1);\n")]
+K1_VARIANTS = {
+    "no_columns": K1_NO_COLUMNS,
+    "no_prologue": K1_NO_PROLOGUE,
+    "bare": [a + b for a in K1_NO_COLUMNS[:1] for b in K1_NO_PROLOGUE[:2]]
+            + [K1_NO_COLUMNS[1] + K1_NO_PROLOGUE[2]],
+    "serial": [SERIAL],
+    "no_pdl": NO_PDL,
+    "no_cluster": NO_CLUSTER,
+    "one_block": ONE_BLOCK,
+    "glu_no_exp": [[(COMMON, "return gg * (1.f / (1.f + expf(-gg))) * u;", "return gg * u;")]],
+    "no_div": [[(COMMON, "rintf(v[i] / dx)", "rintf(v[i] * dx)")]],
+    "trigger_late": [TRIGGER_LATE],
 }
-ROLES = ("wqkv", "wo", "gate_up", "down")
-STEP_VARIANTS = ("no_pdl", "no_cluster", "serial", "one_block")
+
+K4_NO_COLUMNS = [[("const int nu = ncols * upc;", "const int nu = 0 * ncols * upc;")],
+                 [("  if (n0 < N) fetch(n0, 0);", "  if (0) fetch(n0, 0);"),
+                  ("for (int j = 0; j < cols_per_warp; ++j) {", "for (int j = 0; j < 0; ++j) {")]]
+K4_NO_PROLOGUE = [[("    quantize_row<TX, MODE, F::kGroup, kThreads>(x, aux, K, eps, row);\n", ""),
+                   ("    quantize_glu_cluster<TX, F::kGroup, kThreads>(x, K, row);\n",
+                    '    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");\n')],
+                  [("  quantize_row<TX, MODE, F::kGroup, kThreads>(x, aux, K, eps, row);\n", "")]]
+K4_VARIANTS = {
+    "no_columns": K4_NO_COLUMNS,
+    "no_prologue": K4_NO_PROLOGUE,
+    "bare": [K4_NO_COLUMNS[0] + K4_NO_PROLOGUE[0], K4_NO_COLUMNS[1] + K4_NO_PROLOGUE[1]],
+    "serial": [SERIAL],
+    "no_pdl": NO_PDL[:1],
+    "no_cluster": [[("  const int cl = MODE == kGlu ? glu_cluster<F::kGroup>(K) : 1;",
+                     "  const int cl = 1;")]],
+    "one_block": ONE_BLOCK[:1],
+    "trigger_late": [TRIGGER_LATE],
+    "packed": [[("  const int wpb = spread_warps(N, cpw, sms, kWarps);",
+                 "  const int wpb = kWarps;")]],
+}
+
+# K2: the rebuilt form's anchors first, then the earlier form's (one block a
+# query head)
+K2_RET = "  if (Hq > 0) return;\n"
+K2_VARIANTS = {
+    "launch": [[("  launch_dependents();\n", "  launch_dependents();\n  if (p.Hq > 0) return;\n")],
+               [("  const int hqi = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;\n",
+                 "  const int hqi = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;\n" + K2_RET)]],
+    "insert": [[("  // ---- scores of the own chunk",
+                 "  if (p.Hq > 0) return;\n  // ---- scores of the own chunk")],
+               [("  const int hi = pos < S - 1 ? pos : S - 1;\n",
+                 K2_RET + "  const int hi = pos < S - 1 ? pos : S - 1;\n")]],
+    "scores": [[("  // ---- the own chunk's statistics",
+                 "  if (p.Hq > 0) { if (tid == 0 && sc[0] == 12345.f) p.counters[0] = 1; return; }\n"
+                 "  // ---- the own chunk's statistics")],
+               [("  mx = block_reduce<true>(mx, red);\n",
+                 "  mx = block_reduce<true>(mx, red);\n" + K2_RET)]],
+    "softmax": [[("  // ---- phase 2:",
+                  "  if (p.Hq > 0) { if (tid < RM && wsum[tid] == 12345.f) p.counters[0] = 1; "
+                  "return; }\n  // ---- phase 2:")],
+                [("  l = block_reduce<false>(l, red);\n",
+                  "  l = block_reduce<false>(l, red);\n  if (Hq > 0) { if (tid == 0) srow[0] = l; "
+                  "return; }\n")]],
+    "no_pdl": [[("attr[0].val.programmaticStreamSerializationAllowed = 1;",
+                 "attr[0].val.programmaticStreamSerializationAllowed = 0;")]],
+    "no_pv": [[("  for (int i = 0; i < nsp; ++i) {\n    const int ci",
+                "  for (int i = 0; i < 0 * nsp; ++i) {\n    const int ci")]],
+    "no_out": [[("    out[e] = from_f<TQ>(o);", "    if (o == 12345.f) out[e] = from_f<TQ>(o);")]],
+    "warps8": [[("constexpr int kThreads = 512;", "constexpr int kThreads = 256;")]],
+}
+
+KERNELS = {
+    "k1": Kernel("q4k_matvec", "zt_q4k_matvec", "q4k_matvec_kernel", K1_VARIANTS,
+                 ("no_pdl", "no_cluster", "serial", "one_block")),
+    "k4": Kernel("int8_matvec", "zt_int8_matvec", "int8_matvec_kernel", K4_VARIANTS, ()),
+    "k2": Kernel("attn_decode", "zt_attn_decode_qkv", "attn_decode_qkv_kernel", K2_VARIANTS,
+                 ("no_pdl",)),
+}
 
 
-def variant_sources(name: str) -> dict[str, str] | None:
+def variant_sources(kern: Kernel, name: str) -> dict[str, str] | None:
     """{file: text} of the sources variant `name` changes, or None if no
     alternative fits them."""
-    for alt in VARIANTS[name]:
-        edits = [e if len(e) == 3 else (SOURCE, *e) for e in alt]
+    source = cuda.SOURCES[kern.lib]
+    for alt in kern.variants[name]:
+        edits = [e if len(e) == 3 else (source, *e) for e in alt]
         texts = {f: (cuda.CSRC / f).read_text() for f, _, _ in edits}
         if all(texts[f].count(old) == 1 for f, old, _ in edits):
             for f, old, new in edits:
@@ -102,32 +215,33 @@ def variant_sources(name: str) -> dict[str, str] | None:
     return None
 
 
-def registers(log: str) -> list[int]:
-    """The register counts `-Xptxas -v` reports for the K1 entry points."""
-    out, in_k1 = [], False
+def registers(log: str, entry: str) -> list[int]:
+    """The register counts `-Xptxas -v` reports for the kernel's entry points."""
+    out, inside = [], False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            in_k1 = "q4k_matvec_kernel" in m.group(1)
+            inside = entry in m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and in_k1:
+        if m and inside:
             out.append(int(m.group(1)))
     return out
 
 
-def build() -> dict[str, tuple]:
-    """Each applicable variant's zt_q4k_matvec, built in parallel:
+def build(kern: Kernel, argtypes) -> dict[str, tuple]:
+    """Each applicable variant's entry point, built in parallel:
     {name: (fn, registers)}."""
     procs = {}
-    for name in ("as_is", *VARIANTS):
-        texts = {} if name == "as_is" else variant_sources(name)
+    source = cuda.SOURCES[kern.lib]
+    for name in ("as_is", *kern.variants):
+        texts = {} if name == "as_is" else variant_sources(kern, name)
         if texts is None:
             continue
-        d = OUT / name
+        d = OUT / kern.lib / name
         d.mkdir(parents=True, exist_ok=True)
         for f in cuda.CSRC.glob("*.cu*"):
             (d / f.name).write_text(texts.get(f.name) or f.read_text())
-        cmd = [cuda.nvcc(), *cuda.NVCC_FLAGS, "-o", str(d / "k1.so"), str(d / SOURCE)]
+        cmd = [cuda.nvcc(), *cuda.NVCC_FLAGS, "-o", str(d / "k.so"), str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     fns = {}
@@ -135,10 +249,10 @@ def build() -> dict[str, tuple]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        fn = ctypes.CDLL(str(OUT / name / "k1.so")).zt_q4k_matvec
-        fn.argtypes = qmm.NIBBLE_MATVEC_ARGTYPES
+        fn = getattr(ctypes.CDLL(str(OUT / kern.lib / name / "k.so")), kern.symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[name] = (fn, registers(log))
+        fns[name] = (fn, registers(log, kern.entry))
     return fns
 
 
@@ -164,8 +278,7 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def step_calls(g: torch.Generator):
-    """The step's 89 calls [(x, w, fuse, aux)] in launch order."""
+def _weights(g: torch.Generator):
     def u8(n, cols, hi=256):
         return torch.randint(0, hi, (n, cols), dtype=torch.uint8, device="cuda", generator=g)
 
@@ -176,9 +289,19 @@ def step_calls(g: torch.Generator):
         return Q4KWeight((k, n), qs=u8(n, k // 2), sc=u8(n, k // 32, 64), mn=u8(n, k // 32, 64),
                          d=half(n, k // 256), dmin=half(n, k // 256))
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, device="cuda", generator=g) * scale
+    def q6k(k, n):
+        return Q6KWeight((k, n), ql=u8(n, k // 2), qh=u8(n, k // 4), a=half(n, k // 16))
 
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
+
+    return q4k, q6k, randn
+
+
+def k1_calls(g: torch.Generator):
+    """The Q4_K step's 89 calls [(x, w, fuse, aux)] in launch order, and
+    their roles."""
+    q4k, _, randn = _weights(g)
     x_res, x_att, x_gup = randn(1, 2048, scale=3.0), randn(1, 2048), randn(1, 2 * 5632)
     calls = []
     for _ in range(22):
@@ -187,12 +310,96 @@ def step_calls(g: torch.Generator):
                   (x_res, q4k(2048, 11264), "norm", randn(2048).abs() + 0.5),
                   (x_gup, q4k(5632, 2048), "glu", None)]
     calls.append((x_res, q4k(2048, 32768), "norm", randn(2048).abs() + 0.5))
-    return calls
+    roles = {role: list(range(i, len(calls) - 1, 4))
+             for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))}
+    roles["head"] = [len(calls) - 1]
+    return calls, roles
 
 
-def step_graph(fns: dict, card: str):
-    """The decode step's graph-replay ms with each right-valued build's K1
-    (see the module note)."""
+def k4_calls(g: torch.Generator):
+    """The Q4_K_M step's 34 Q6_K calls [(x, w, fuse, aux)] in launch order
+    (wv a layer, down in the first 11, then the head), and their roles."""
+    _, q6k, randn = _weights(g)
+    x_h = randn(1, 2048, dtype=torch.bfloat16)
+    x_gup, x_res = randn(1, 2 * 5632), randn(1, 2048, scale=3.0, dtype=torch.bfloat16)
+    calls = []
+    for il in range(22):
+        calls.append((x_h, q6k(2048, 256), "q", None))
+        if il < 11:
+            calls.append((x_gup, q6k(5632, 2048), "glu", None))
+    calls.append((x_res, q6k(2048, 32768), "norm", randn(2048).abs() + 0.5))
+    roles = {"wv": [i for i, c in enumerate(calls) if c[2] == "q"],
+             "down": [i for i, c in enumerate(calls) if c[2] == "glu"],
+             "head": [len(calls) - 1]}
+    return calls, roles
+
+
+def k2_calls(g: torch.Generator):
+    """The 22 attention blocks of a TinyLlama decode step (B 1, pos 331,
+    S 2048) and of a contiguous engine step (B 4, S 2176, a trash row),
+    each layer its own caches: [(qkv3, kc, vc, pos, rope)], and the roles."""
+    from .ops.layers import RopeParams, rope_table
+
+    _, _, randn = _weights(g)
+    calls, roles = [], {"step": [], "engine": []}
+    for role, pos_vals, s in (("step", [331], 2048), ("engine", [255, 0, 300, 2176], 2176)):
+        b = len(pos_vals)
+        pos = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")
+        rope = rope_table(pos, RopeParams(dim=64, style="neox"), 64)
+        qkv3 = randn(b, 40, 64)
+        for _ in range(22):
+            roles[role].append(len(calls))
+            calls.append((qkv3, randn(b, 4, s, 64, dtype=torch.bfloat16),
+                          randn(b, 4, s, 64, dtype=torch.bfloat16), pos, rope))
+    return calls, roles
+
+
+def _swap(kern: Kernel, fn):
+    """Route the wrapper's launches to `fn` (a variant's entry point)."""
+    cuda._FNS[(kern.lib, kern.symbol)] = fn
+
+
+def _setup(name: str):
+    """(kernel, its calls, their roles, a runner (fn, indices) -> closure,
+    the entry point's argtypes), the real library bound once."""
+    kern = KERNELS[name]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    if name == "k1":
+        calls, roles = k1_calls(g)
+
+        def runner(fn, idx):
+            def go():
+                for i in idx:
+                    cuda.check(qmm.nibble_matvec_call(fn, *calls[i], 1e-5)[0], "k1_ablation")
+            return go
+        return kern, calls, roles, runner, qmm.NIBBLE_MATVEC_ARGTYPES
+    if name == "k4":
+        calls, roles = k4_calls(g)
+
+        def one(i):
+            qmm.int8_matvec(*calls[i], 1e-5)
+    else:
+        calls, roles = k2_calls(g)
+
+        def one(i):
+            qkv3, kc, vc, pos, rope = calls[i]
+            att.attn_decode_qkv(qkv3, kc, vc, pos, rope, scale=0.125, eps=1e-5)
+    one(0)  # builds and binds the real library: its argtypes are the entry point's
+    argtypes = cuda._FNS[(kern.lib, kern.symbol)].argtypes
+
+    def runner(fn, idx):
+        def go():
+            _swap(kern, fn)
+            for i in idx:
+                one(i)
+        return go
+    return kern, calls, roles, runner, argtypes
+
+
+def step_graph(kern: Kernel, fns: dict, card: str):
+    """The decode step's graph-replay ms with each right-valued build of the
+    kernel (see the module note)."""
     import numpy as np
 
     from .gguf.constants import GGMLType
@@ -215,43 +422,37 @@ def step_graph(fns: dict, card: str):
         with torch.inference_mode():
             forward(model.params, model.cfg, tok, pos, gen.kv, logits_for="last")
 
-    for name in ("as_is", *[v for v in STEP_VARIANTS if v in fns], "as_is"):
-        cuda._FNS[("q4k_matvec", "zt_q4k_matvec")] = fns[name][0]
-        print(json.dumps({"variant": name, "card": card,
+    for name in ("as_is", *[v for v in kern.step_variants if v in fns], "as_is"):
+        _swap(kern, fns[name][0])
+        print(json.dumps({"kernel": kern.lib, "variant": name, "card": card,
                           "step_graph_ms": graph_ms(step)}), flush=True)
 
 
 def main(argv):
     if not torch.cuda.is_available():
         sys.exit("k1_ablation: needs a CUDA GPU")
+    which = argv[argv.index("--kernel") + 1] if "--kernel" in argv else "k1"
+    if which not in KERNELS:
+        sys.exit(f"k1_ablation: --kernel takes {sorted(KERNELS)}, not {which}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
             else torch.cuda.get_device_name(0))
-    fns = build()
+    kern, calls, roles, runner, argtypes = _setup(which)
+    fns = build(kern, argtypes)
     if "--step" in argv:
-        return step_graph(fns, card)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(0)
-    calls = step_calls(g)
-    roles = {role: list(range(i, len(calls) - 1, 4)) for i, role in enumerate(ROLES)}
-    roles["head"] = [len(calls) - 1]
-
-    def run(fn, idx):
-        def go():
-            for i in idx:
-                cuda.check(qmm.nibble_matvec_call(fn, *calls[i], 1e-5)[0], "k1_ablation")
-        return go
-
-    missing = [name for name in VARIANTS if name not in fns]
-    for name in ("as_is", *[v for v in VARIANTS if v in fns], "as_is"):
+        if not kern.step_variants:
+            sys.exit(f"k1_ablation: --step times k1 or k2, not {which}")
+        return step_graph(kern, fns, card)
+    missing = [name for name in kern.variants if name not in fns]
+    for name in ("as_is", *[v for v in kern.variants if v in fns], "as_is"):
         fn, regs = fns[name]
-        step = graph_ms(run(fn, range(len(calls))))
-        print(json.dumps({"variant": name, "card": card, "step_ms": step,
-                          "us_per_launch": step * 1e3 / len(calls),
-                          "ms_by_role": {r: graph_ms(run(fn, idx)) for r, idx in roles.items()},
-                          "registers": regs,
-                          "not_in_this_source": missing}), flush=True)
+        total = graph_ms(runner(fn, range(len(calls))))
+        print(json.dumps({"kernel": kern.lib, "variant": name, "card": card, "step_ms": total,
+                          "us_per_launch": total * 1e3 / len(calls),
+                          "ms_by_role": {r: graph_ms(runner(fn, idx)) for r, idx in roles.items()},
+                          "registers": regs, "not_in_this_source": missing}), flush=True)
+    _swap(kern, fns["as_is"][0])
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ PyTorch version beside it.
     (via `attn_decode_qkv`): split the fused [B, Hq+2Hkv, D] projection row,
     optional per-head RMS q/k norms, rope, write the new K/V row into the
     cache in place, GQA attention with causal/window mask and softcap.
-    Source: `zllm_torch/csrc/attn_decode.cu`.
+    Source: `zllm_torch/csrc/attn_decode.cu` (a block a (row, kv head,
+    8 query heads) and chunk of the span, scores and P.V on mma.sync,
+    programmatic dependent launch; a span of several chunks finished by
+    the last of its blocks).
   * `flash_attention` replaces `zllm/ops/attention.py::_attn_kernel` (via
     `flash_attention`): multi-token GQA attention, causal from a base
     position, window, softcap, sinks in the denominator; the probabilities
@@ -117,6 +120,37 @@ def attn_decode_qkv_plain(qkv3, kc, vc, positions, rope: RopeTable, qw=None, kw=
     return out.reshape(b, 1, hq, d).to(qkv3.dtype)
 
 
+_K2_CHUNK: dict[tuple[int, int], int] = {}
+_K2_COUNTERS: dict[torch.device, torch.Tensor] = {}
+_K2_RETIRED: list[torch.Tensor] = []
+
+
+def _k2_chunk(c_code: int, d: int) -> int:
+    """Slots a K2 chunk for a cache dtype code and head dim (the kernel's
+    own rule, asked once)."""
+    key = (c_code, d)
+    if key not in _K2_CHUNK:
+        fn = cuda.bind("attn_decode", "zt_attn_decode_chunk", [_I, _I])
+        _K2_CHUNK[key] = fn(c_code, d)
+    return _K2_CHUNK[key]
+
+
+def _k2_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """K2's per-(row, head group) tickets: zero, and left zero by every
+    launch, so one buffer a device serves every call (grown outside graph
+    capture, the old one kept alive for the graphs that captured it; a
+    capture that needs more gets its own zeroed buffer)."""
+    buf = _K2_COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        fresh = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        if torch.cuda.is_current_stream_capturing():
+            return fresh
+        if buf is not None:
+            _K2_RETIRED.append(buf)
+        _K2_COUNTERS[dev] = buf = fresh
+    return buf
+
+
 def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     positions: torch.Tensor, rope: RopeTable,
                     qw: torch.Tensor | None = None, kw: torch.Tensor | None = None, *,
@@ -150,15 +184,22 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError("rope table and q/k norm weights must be float32")
     cuda.require_cuda(qkv3, kc, vc, pos, *extra, aligned=(kc, vc))
     out = torch.empty((b, 1, hq, d), dtype=qkv3.dtype, device=qkv3.device)
-    scratch = torch.empty((b, hq, s), dtype=torch.float32, device=qkv3.device)
+    c_code = cuda.DTYPE_CODE[kc.dtype]
+    chunk = _k2_chunk(c_code, d)
+    splits, groups = -(-s // chunk), hkv * -(-(hq // hkv) // 8)
+    gsc = gst = None
+    if splits > 1:  # rows whose span is more than one chunk
+        gsc = torch.empty((b, groups, 8, s), dtype=torch.float32, device=qkv3.device)
+        gst = torch.empty((b, groups, splits, 8, 2), dtype=torch.float32, device=qkv3.device)
     fn = cuda.bind("attn_decode", "zt_attn_decode_qkv",
-                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _P])
     err = fn(qkv3.data_ptr(), cuda.DTYPE_CODE[qkv3.dtype], kc.data_ptr(), vc.data_ptr(),
-             cuda.DTYPE_CODE[kc.dtype], pos.data_ptr(), rope.cos.data_ptr(),
-             rope.sin.data_ptr(), cuda.ptr(qw), cuda.ptr(kw), out.data_ptr(),
-             scratch.data_ptr(), b, hq, hkv, s, d, rope.rot_dims, int(rope.neox),
-             float(scale), float(softcap), int(window), float(eps), cuda.stream())
+             c_code, pos.data_ptr(), rope.cos.data_ptr(), rope.sin.data_ptr(), cuda.ptr(qw),
+             cuda.ptr(kw), out.data_ptr(), cuda.ptr(gsc), cuda.ptr(gst),
+             _k2_counters(qkv3.device, b * groups).data_ptr(), b, hq, hkv, s, d,
+             rope.rot_dims, int(rope.neox), float(scale), float(softcap), int(window),
+             float(eps), cuda.stream())
     cuda.check(err, "attn_decode_qkv")
     attn_decode_qkv.launches += 1
     return out
