@@ -12,8 +12,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      (csrc/q4k_matvec.cu), and of the one-launch cluster decode step
      (csrc/decode_cluster.cuh) under K7's, K8's and K9's addressors, with
      cudaOccupancyMaxActiveClusters of each K8 instantiation, and of K4
-     (csrc/int8_matvec.cu) and K2 (csrc/attn_decode.cu); a spill fails, and
-     so does a build that lacks one of their instantiations;
+     (csrc/int8_matvec.cu) and K2 (csrc/attn_decode.cu), and of K12
+     (csrc/q4k_matvec_hbm.cu, with its ring's stages a warp and a block's
+     shared-memory bytes) and K11 (csrc/w4a8dd_matvec.cu); a spill fails,
+     and so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
      `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
@@ -107,7 +109,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
      Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
      over the Q4_0 step's 22 wo matvecs and the Q4_1 step's 64 fuse-"q"
-     ones, beside K1 on the same calls.
+     ones, beside K1 on the same calls; K12's and K11's CUDA launches per
+     call counted by torch.profiler (1 each).
 
 Prints one JSON line per phase result, then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
@@ -904,6 +907,25 @@ def main():
     for lib, n_inst in (("int8_matvec", 12), ("attn_decode", 8)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
+    k12k11_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
+                    for lib, entry in (("q4k_matvec_hbm", "q4k_matvec_hbm_kernel"),
+                                       ("w4a8dd_matvec", "w4a8dd_kernel"))}
+    # K12's ring: stages a warp and a block's shared memory at the paths' K
+    k12_layout = {k: dict(zip(("stages", "smem_bytes"), qmm.q4k_matvec_hbm_layout(k)))
+                  for k in (2048, 5632, 8192)}
+    emit({"phase": "build_k12_k11", "instantiations": k12k11_build, "k12_ring": k12_layout,
+          "note": "registers and spills of K12 (csrc/q4k_matvec_hbm.cu: Q4_K/Q4_0/Q4_1 x "
+                  "prologue q/norm/glu x f32/bf16; bulk-copy rings of `stages` slots a warp) "
+                  "and K11 (csrc/w4a8dd_matvec.cu: Q4_0/Q4_1 x f32/bf16, the quantize fused); "
+                  "k12_ring: stages a warp and a block's dynamic shared memory by K"
+                  if any(k12k11_build.values()) else "not built in this run (cached)"})
+    spills = [e for v in k12k11_build.values() for e in v
+              if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"K12 or K11 spills: {spills}")
+    for lib, n_inst in (("q4k_matvec_hbm", 18), ("w4a8dd_matvec", 4)):
+        if lib in reports and len(k12k11_build[lib]) != n_inst:
+            fail(f"{lib}: {len(k12k11_build[lib])} instantiations built, not {n_inst}")
     for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
                           ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
@@ -1688,10 +1710,15 @@ def main():
                   for (x, w, fuse, aux), eps_ in
                   [(calls_o[i], cfg_o.norm_eps) for i in check_o]
                   + [(calls[i], cfg.norm_eps) for i in (0, 1, 2, 3, len(calls) - 1)])
+    k12_calls = cuda_launches(lambda: qmm.q4k_matvec_hbm(*calls_o[0], cfg_o.norm_eps))
+    if k12_calls not in (None, 1):
+        fail(f"K12 launched {k12_calls} CUDA kernels a call, not one")
     lines.append(dict(name="q4k_matvec_hbm", route="cuda", source="zllm_torch/csrc/q4k_matvec_hbm.cu",
                       replaces="zllm/ops/qmatmul.py:1170", launches=counts_hbm["q4k_matvec_hbm"],
                       **k12_o, tolerance=1e-6, bitwise_equal_k1=bitwise,
                       launches_by_path=by_path("q4k_matvec_hbm"),
+                      cuda_launches_per_call=k12_calls if k12_calls is not None
+                      else "not measured", ring=k12_layout,
                       unit=f"one OLMo-2 decode step ({len(calls_o)} launches)",
                       shapes="16 x [wqkv 2048->6144, wo 2048->2048, gate|up 2048->16384, down "
                              "8192->2048] (fuse q) + head norm 2048->100352",
@@ -1762,6 +1789,9 @@ def main():
                                                                  ("K11", k11_same)) if not same]
 
     k11_t = legacy_lines["q4_0"]["k11"]
+    k11_calls = cuda_launches(lambda: qmm.w4a8dd_matvec(x_att, model_40.params["layers"][0]["wo"]))
+    if k11_calls not in (None, 1):
+        fail(f"K11 launched {k11_calls} CUDA kernels a call, not one")
     lines.append(dict(name="w4a8dd_matvec", route="cuda", source="zllm_torch/csrc/w4a8dd_matvec.cu",
                       replaces="zllm/ops/qmatmul.py:902",
                       launches=counts_q40_dd["w4a8dd_matvec"],
@@ -1769,8 +1799,9 @@ def main():
                                                "library_ms", "nmse", "max_abs_err",
                                                "k1_same_calls_ms", "bitwise_equal_k1")},
                       tolerance=1e-6, launches_by_path=by_path("w4a8dd_matvec"),
-                      unit=f"one TinyLlama Q4_0 decode step's {k11_t['launches']} wo matvecs "
-                           "(each a quantize launch and a dot launch)",
+                      cuda_launches_per_call=k11_calls if k11_calls is not None
+                      else "not measured",
+                      unit=f"one TinyLlama Q4_0 decode step's {k11_t['launches']} wo matvecs",
                       shapes="22 x wo 2048->2048 Q4_0, x f32",
                       olmo2_q4_1_step=dict(legacy_lines["olmo2_q4_1"]["k11"],
                                            shapes="16 x [wqkv 2048->6144, wo 2048->2048, "

@@ -16,9 +16,10 @@ an ulp), K9/K10 < 1e-6, K7 and K8 < 1e-6 (1e-5
 with a bf16 q, whose output rounds to bf16), and K12 equal to K1's kernel
 bit for bit (each lane does K1's arithmetic in K1's order) and < 1e-6
 against the plain version; K1/K3/K12 hold the same tolerances in their
-Q4_0/Q4_1 forms, K11 < 1e-6 (exact integer dots, f32 sum order), and K11's
-quantize launch is bit-equal to `quantize_groups` (rintf and torch.round
-both round half to even).
+Q4_0/Q4_1 forms, K11 < 1e-6 (exact integer dots, f32 sum order) against
+its plain version and equal to K1's kernel bit for bit (K1's lane order
+and epilogue), and `quantize_acts` is bit-equal to `quantize_groups`
+(rintf and torch.round both round half to even).
 """
 
 import numpy as np
@@ -559,11 +560,14 @@ def test_k7_matches_plain(dev, case, kv):
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
 @pytest.mark.parametrize("k,n", [(256, 40), (2304, 72), (2048, 6144), (8192, 2048),
-                                 (2048, 16384)])
+                                 (2048, 16384), (5632, 2048), (768, 72), (1280, 2100)])
 def test_k12_matches_k1(dev, k, n, fuse, xdtype):
-    """K = 2304 gives an odd number of super-blocks a column (the block's
-    d/dmin runs start mid-word); N = 40 and 72 leave a block's last warps
-    without a column."""
+    """K = 2304 gives an odd number of super-blocks a column (the d/dmin
+    runs start mid-word) and a last stage of 4 chunks; K = 5632 d/dmin runs
+    of 44 bytes a column; K = 768 and 1280 sc/mn runs whose stages a bulk
+    copy cannot take (K % 512 != 0), 1280 with a last stage of 4 chunks;
+    N = 40 and 72 are smaller than one block's columns (its last warps
+    without a column), N = 2100 not a multiple of them."""
     w = _qweight(n, k, k + n, dev)
     x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
     aux = _randn((k,), 2, dev, scale=0.1) + 1.0 if fuse == "norm" else None
@@ -836,6 +840,62 @@ def test_k4_chain_in_a_graph(dev, pair):
     assert _nmse(y4, tq.int8_matvec_plain(y1, w4, fuse4, None, 1e-5)) < 1e-6
 
 
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q4_1], ids=lambda t: t.name)
+def test_k12_chain_in_a_graph(dev, fmt, xdtype):
+    """K12 launches with programmatic dependent launch and issues the bulk
+    copies of its first weight stages before griddepcontrol.wait.  The
+    chain norm -> gate|up, glu -> down, a torch add, norm -> wqkv (K12 each)
+    at TinyLlama widths, captured in a CUDA graph and replayed with the
+    input rewritten in place between replays, gives each time the eager
+    chain's bits, and those are K1's."""
+    d, ff, n_qkv = 2048, 5632, 2560
+    w_gu, w_down = _qweight(2 * ff, d, 1, dev, fmt), _qweight(d, ff, 2, dev, fmt)
+    w_qkv = _qweight(n_qkv, d, 3, dev, fmt)
+    norm_ffn = _randn((d,), 4, dev, scale=0.1) + 1.0
+    norm_att = _randn((d,), 5, dev, scale=0.1) + 1.0
+    x = _randn((1, d), 6, dev, xdtype, scale=3.0)
+
+    def chain(mv=tq.q4k_matvec_hbm):
+        gu = mv(x, w_gu, "norm", norm_ffn, 1e-5)
+        down = mv(gu, w_down, "glu", None, 1e-5)
+        return gu, down, mv(x + down, w_qkv, "norm", norm_att, 1e-5)
+
+    def rewrite(i):
+        x.copy_(_randn((1, d), 100 + i, dev, xdtype, scale=3.0))
+
+    got = _replays_equal_eager(chain, rewrite)
+    want = chain(tq.q4k_matvec)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_0, GGMLType.Q4_1], ids=lambda t: t.name)
+def test_k11_chain_in_a_graph(dev, fmt):
+    """K11 quantizes its row inside its one launch, after
+    griddepcontrol.wait: K1 (wqkv, norm 2048->2560) -> K11 on its first
+    2048 outputs (wo 2048->2048) -> K11 on K11's output, replayed from a
+    CUDA graph with the input rewritten between replays, gives each time
+    the eager chain's bits, and K11's are K1's."""
+    d = 2048
+    w_qkv, w_o, w_2 = (_qweight(n, d, s, dev, fmt) for n, s in ((2560, 1), (d, 2), (d, 3)))
+    norm = _randn((d,), 4, dev, scale=0.1) + 1.0
+    x = _randn((1, d), 5, dev, torch.bfloat16, scale=3.0)
+
+    def chain(mv=tq.w4a8dd_matvec):
+        qkv = tq.q4k_matvec(x, w_qkv, "norm", norm, 1e-5)
+        o = mv(qkv[:, :d].contiguous(), w_o)
+        return qkv, o, mv(o, w_2)
+
+    def rewrite(i):
+        x.copy_(_randn((1, d), 100 + i, dev, torch.bfloat16, scale=3.0))
+
+    got = _replays_equal_eager(chain, rewrite)
+    want = chain(tq.q4k_matvec)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 K2_POS = [255, 0, 2176, 1500]  # live, position 0, a trash row, a span of several chunks
 
 
@@ -899,7 +959,8 @@ def test_k2_long_span(dev, hq, hkv, d, cdtype):
 # last warps without a column), K = 2304 (nine 256-chunks), wide N (the
 # OLMo-2 head)
 LEGACY = [GGMLType.Q4_0, GGMLType.Q4_1]
-LEGACY_KN = [(256, 40), (2304, 72), (2048, 6144), (8192, 2048), (2048, 100352)]
+LEGACY_KN = [(256, 40), (2304, 72), (2048, 6144), (8192, 2048), (2048, 100352), (768, 72),
+             (1280, 2100), (5632, 2048)]
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -939,7 +1000,7 @@ def test_k11_matches_plain(dev, k, n, fmt, xdtype):
     assert tq.w4a8dd_matvec.launches == before + 1 and got.shape == (1, n)
     want = tq.w4a8dd_matvec_plain(*tq.quantize_acts_plain(x), w)
     assert _nmse(got, want) < 1e-6
-    assert _nmse(got, tq.q4k_matvec(x, w)) < 1e-6
+    assert torch.equal(got, tq.q4k_matvec(x, w))  # K1's lane order and epilogue
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

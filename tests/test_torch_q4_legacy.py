@@ -250,10 +250,53 @@ def test_k11_wrapper_checks(weights):
         tq.w4a8dd_matvec(torch.ones(1, K + 1), w)
     with pytest.raises(ValueError, match="no kernel"):
         tq.quantize_acts(x.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        tq.w4a8dd_matvec(x.to("meta"), w)
     w4k = repack(tqb.quantize(np.ones((N, K), np.float32), GGMLType.Q4_K), (N, K),
                  GGMLType.Q4_K, "cpu")
     with pytest.raises(NotImplementedError, match="K11"):
         tq.w4a8dd_matvec(x, w4k)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k11_is_one_launch_a_call(weights, monkeypatch, xdtype):
+    """The wrapper's card path, with the device checks and the library
+    stubbed: each call binds the one entry point zt_w4a8dd_matvec and calls
+    it once, on the raw row (its pointer and dtype code), the weight's
+    planes, y, K and N; `quantize_acts` is not called, and `.launches`
+    counts one a call."""
+    from zllm_torch.ops import cuda
+
+    _, _, w = weights
+    seen = []
+
+    def fake_bind(lib, symbol, argtypes):
+        def fn(*args):
+            seen.append((lib, symbol, list(argtypes), args))
+            return 0
+        return fn
+
+    def no_quantize(*_):
+        raise AssertionError("K11 quantizes inside its own launch")
+
+    monkeypatch.setattr(tq, "_check_cuda_x", lambda *a: None)
+    monkeypatch.setattr(tq, "_check_qweight", lambda *a: None)
+    monkeypatch.setattr(tq, "quantize_acts", no_quantize)
+    monkeypatch.setattr(cuda, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda, "bind", fake_bind)
+    monkeypatch.setattr(cuda, "stream", lambda: 7)
+    x = torch.ones(1, K, dtype=xdtype).to("meta")
+    before = tq.w4a8dd_matvec.launches
+    for _ in range(2):
+        y = tq.w4a8dd_matvec(x, w)
+        assert tuple(y.shape) == (1, N) and y.dtype == torch.float32
+    assert tq.w4a8dd_matvec.launches == before + 2
+    assert len(seen) == 2
+    lib, symbol, argtypes, args = seen[0]
+    assert (lib, symbol, argtypes) == ("w4a8dd_matvec", "zt_w4a8dd_matvec", tq.W4A8DD_ARGTYPES)
+    planes = [p.data_ptr() for p in w.planes().values()]
+    assert args == (tq.NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[xdtype],
+                    *planes, *[None] * (3 - len(planes)), 0, K, N, 7)
 
 
 # ---------------------------------------------------------------------------

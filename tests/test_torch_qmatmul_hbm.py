@@ -134,3 +134,57 @@ def test_k12_wrapper_checks(weights):
         tq.q4k_matvec_hbm(x, w, fuse="norm")  # no norm weight
     with pytest.raises(ValueError, match="no kernel"):
         tq.q4k_matvec_hbm(x.to("meta"), w)
+
+
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+def test_k12_card_path_is_one_launch(weights, monkeypatch, fuse):
+    """The wrapper's card path, with the device checks and the library
+    stubbed: each call binds zt_q4k_matvec_hbm (K1's C arguments) and calls
+    it once, with the prologue's code and the norm weight only for "norm";
+    `.launches` counts one a call."""
+    from zllm_torch.ops import cuda
+
+    _, w = weights
+    seen = []
+
+    def fake_bind(lib, symbol, argtypes):
+        def fn(*args):
+            seen.append((lib, symbol, list(argtypes), args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(tq, "_check_cuda_x", lambda *a: None)
+    monkeypatch.setattr(tq, "_check_qweight", lambda *a: None)
+    monkeypatch.setattr(cuda, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda, "bind", fake_bind)
+    monkeypatch.setattr(cuda, "stream", lambda: 7)
+    x = torch.ones(1, 2 * K if fuse == "glu" else K).to("meta")
+    aux = torch.ones(K) if fuse == "norm" else None
+    before = tq.q4k_matvec_hbm.launches
+    y = tq.q4k_matvec_hbm(x, w, fuse, aux, 1e-5)
+    assert tuple(y.shape) == (1, N) and tq.q4k_matvec_hbm.launches == before + 1
+    (lib, symbol, argtypes, args), = seen
+    assert (lib, symbol, argtypes) == ("q4k_matvec_hbm", "zt_q4k_matvec_hbm",
+                                       tq.NIBBLE_MATVEC_ARGTYPES)
+    assert args[0] == tq.NIBBLE_FMT_CODE[GGMLType.Q4_K] and args[2] == 0
+    assert args[3] == (aux.data_ptr() if fuse == "norm" else None)
+    assert args[4:9] == tuple(p.data_ptr() for p in w.planes().values())
+    assert args[10:] == (K, N, tq.FUSE_CODE[fuse], 1e-5, 7)
+
+
+@pytest.mark.parametrize("k", [2048, 5632, 8192])
+def test_k12_layout_query(monkeypatch, k):
+    """`q4k_matvec_hbm_layout` passes K to the library's layout query and
+    returns the two numbers it writes back."""
+    from zllm_torch.ops import cuda
+
+    def fake_bind(lib, symbol, argtypes):
+        assert (lib, symbol) == ("q4k_matvec_hbm", "zt_q4k_matvec_hbm_layout")
+
+        def fn(k_, stages, smem):
+            stages._obj.value, smem._obj.value = 2, k_ + k_ // 4 + 7
+            return 0
+        return fn
+
+    monkeypatch.setattr(cuda, "bind", fake_bind)
+    assert tq.q4k_matvec_hbm_layout(k) == (2, k + k // 4 + 7)

@@ -1,8 +1,8 @@
 // The activation prologue shared by the decode matvecs K1 (q4k_matvec.cu),
-// K12 (q4k_matvec_hbm.cu), K4 (int8_matvec.cu) and K11's quantize launch
-// (w4a8dd_matvec.cu), the launch machinery of K1 and K4 (programmatic
-// dependent launch, the glu prologue shared by a thread-block cluster, one
-// wave of blocks), and the nibble formats' scales and epilogue (below):
+// K12 (q4k_matvec_hbm.cu), K4 (int8_matvec.cu) and K11 (w4a8dd_matvec.cu),
+// their launch machinery (programmatic dependent launch, the glu prologue
+// shared by a thread-block cluster, one wave of blocks), and the nibble
+// formats' scales and epilogue (below):
 // the counterpart of zllm/ops/qmatmul.py::
 // _prologue_quant.  prologue(x) is "q" (x as is), "norm" (rms_norm(x) * w,
 // the full-row mean square reduced first) or "glu" (silu(g) * u over the
@@ -11,8 +11,8 @@
 // with IEEE division, as the Pallas kernel rounds (the library is built
 // without fast math).  Every block quantizes the whole row into its shared
 // memory (for "glu" in K1 and K4: the blocks of a cluster share the work);
-// GROUP/4 lanes take a group, four elements a lane; the blocks are 256
-// threads (K11, K12) or 512 (K1, K4).
+// GROUP/4 lanes take a group, four elements a lane; the blocks are 512
+// threads (K11's one-block quantize_acts op: 256).
 
 #pragma once
 
@@ -148,8 +148,9 @@ __device__ __forceinline__ void quantize_row(const TX* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The launch machinery of K1 and K4: programmatic dependent launch (PDL),
-// the glu prologue split over a thread-block cluster, one wave of blocks.
+// The launch machinery of K1, K4, K11 and K12: programmatic dependent
+// launch (PDL), the glu prologue split over a thread-block cluster, one
+// wave of blocks.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }

@@ -1,37 +1,90 @@
 // K12: decode matvec (M = 1) of the nibble formats Q4_K, Q4_0 and Q4_1 on
-// the int8 path, with the weight planes brought global -> shared through an
-// explicit multi-stage pipeline.
+// the int8 path, with the packed weight nibbles streamed global -> shared by
+// the Tensor Memory Accelerator's bulk copies into a ring of stages a warp.
 //
 // Replaces zllm/ops/qmatmul.py::_w4a8np_hbm_kernel (launched by
 // _qmm_w4a8np_hbm_call when ZLLM_QMM_HBM=1): K1's maths (q4k_matvec.cu),
 // y[n] = sum_g of zllm's per-group epilogue over the int8-quantized
 // activation row (GroupScale, matvec_common.cuh), with K1's prologues ("q",
-// "norm", "glu").  The TPU kernel keeps the weight planes in HBM and
-// double-buffers its own DMAs of the next K-step's tiles while the current
-// one computes, the per-256 super planes fetched once per N tile.
+// "norm", "glu").  The TPU kernel keeps the weight planes in HBM (memory
+// space ANY) and runs its own double-buffered chain of
+// pltpu.make_async_copy with DMA semaphores; on Hopper that is a bulk copy
+// (cp.async.bulk) completed on an mbarrier in shared memory.
 //
-// Bound on the H100: the weight bytes, read once (as K1's).  Design: where
-// K1 loads each column's packed nibbles and scales straight into
-// registers, here a block owns NB = 8 * cpw columns (a warp takes columns
-// warp, warp + 8, ...) and walks K in stages of 1024 weights: each stage is
-// the block's qs (512 bytes a column) and per-group scale planes for that
-// K-step (Q4_K sc and mn, 32 bytes each; Q4_0 d, 64 bytes; Q4_1 a and b, 64
-// bytes each), copied by all threads with cp.async (16- and 8-byte copies,
-// one commit group a stage) into a ring of kStages shared buffers, so
-// kStages - 1 K-steps are in flight while one computes.  For Q4_K the
-// block's d / dmin runs (contiguous over its columns: K/256 halves a
-// column) come with the first stage's group, once per block, as the TPU
-// kernel fetches its super planes once per N tile; they are copied in
-// 4-byte words from the word holding the first half (the run need not be
-// 4-byte aligned), the last word cut to the plane's end.  The first stages
-// are issued before the activation prologue, so HBM latency overlaps the
-// quantization.  A lane computes exactly what it computes in K1 (chunk
-// c = 16 * stage + lane / 2, its group 2c + lane % 2, the same epilogue,
-// accumulated in the same order, then the same warp sum), so the result is
-// K1's bit for bit in every format.
-// At the decode shapes (K of at most eight stages, so the ring rarely
-// refills) it runs slower than K1: a stage waits on the whole block's
-// copies, where K1's warps each run on as their own loads land (PERF.md).
+// Bound on the H100: the weight bytes, read once (as K1's: Q4_K 4.625 bits
+// a weight in this layout, Q4_0 4.5, Q4_1 5); the arithmetic is 2*K*N int8
+// ops, ~1000x under the int8 peak.
+//
+// Design.  K1's launch machinery (matvec_common.cuh: launch_matvec with
+// programmatic dependent launch, one wave of 16-warp blocks at most two an
+// SM, the glu prologue shared by a thread-block cluster through
+// quantize_glu_cluster) and K1's lane layout; only the weight fetch
+// differs.  Each warp streams its columns (n0 + j * 16, as K1) stage by
+// stage, a stage being one column's 32 chunks of 64 weights (2048
+// weights), through its own ring of kStages = 2 slots in shared memory:
+//   * a stage's packed nibbles are one 1024-byte bulk copy (a column's
+//     nibbles are contiguous along K; a last stage of fewer chunks, a
+//     multiple of 4, is a shorter one), issued by lane 0 and completed on
+//     the slot's mbarrier, armed by mbarrier.arrive.expect_tx;
+//   * the stage's scales (Q4_K sc, mn, d, dmin; Q4_0 d; Q4_1 a, b) are
+//     loaded by each lane into registers as K1 loads them (GroupScale::load),
+//     a register set a slot, issued with the slot's copy.  Copied through
+//     the slots instead (one bulk copy a plane and stage, 16-64 bytes; the
+//     Q4_K d / dmin runs, 2-byte aligned, by cp.async words tracked on the
+//     same barrier), the scales cost 0.04-0.06 ms an OLMo-2 step (NVIDIA
+//     H100 80GB HBM3, 700.00 W): small bulk copies are paid by the copy,
+//     not by the byte;
+//   * after a stage's dots a __syncwarp frees its slot and the warp refills
+//     it with the stage kStages ahead (across column boundaries), so a warp
+//     never waits on another warp: no block-wide barrier in the K loop (the
+//     earlier form waited on the whole block's cp.async groups at every
+//     stage);
+//   * before griddepcontrol.wait a warp initializes its barriers and issues
+//     only its first kStages stages (weights: no kernel writes them) and,
+//     for "norm", an L2 prefetch of the RMS weight; the x reads (the
+//     prologue), the dots and every y store follow the wait.  A block calls
+//     griddepcontrol.launch_dependents before its prologue, as K1;
+//   * a lane computes exactly what it computes in K1 (chunk c = 32 * stage +
+//     16 * it + lane / 2 -- K1's unit is a stage --, its group 2c + lane % 2,
+//     group_term, accumulated round by round, then warp_sum), on the row
+//     K1's prologue quantizes, so the result is K1's bit for bit in every
+//     format, prologue and x dtype.
+// Shared memory a block: the quantized row (K + K / 4 bytes), 16 x 2
+// mbarriers and 16 x 2 slots of 1024 bytes: 43 KB at K = 8192.
+//
+// By part (python -m zllm_torch.k1_ablation --kernel k12, NVIDIA H100 80GB
+// HBM3, 700.00 W; PERF.md §6): the earlier form took 0.703 ms an
+// OLMo-2 Q4_K step (K1 0.457), 0.30 of it before its first dot; the first
+// TMA form (16-chunk stages, 4 a warp, scales copied) 0.736, 32-chunk
+// stages 0.54, 3 stages 0.52, the scales in registers at 2 stages 0.48
+// (K1 0.46 in the same run).  A producer warp filling the other 15 warps'
+// rings through "empty" barriers took 2.8 ms (it serializes the warps'
+// refills); 4 or 6 stages, 16- or 64-chunk stages, copies issued by five
+// lanes at once and the largest shared-memory carveout were no faster.
+//
+// Where trouble lies:
+//   * Barrier setup: lane 0 initializes the warp's barriers, then
+//     fence.mbarrier_init and a __syncwarp, all before the first copy; a
+//     slot's phase parity is (unit / kStages) & 1.
+//   * A slot is read by the warp's generic loads and then rewritten by a
+//     bulk copy (the async proxy): the refill follows a __syncwarp and a
+//     fence.proxy.async by the issuing lane.
+//   * The scale register sets are indexed by slot: the consume loop is
+//     unrolled kStages times so each index is a constant (no local memory;
+//     -Xptxas -v must show no spill, chip_smoke.py's build report fails on
+//     one).
+//   * A warp without a column (n >= N) issues no copy and waits on no
+//     barrier; it still takes part in the prologue's block and cluster
+//     barriers, so every block of a glu cluster reaches them.
+//   * Alignment: a bulk copy needs 16-byte aligned ends and a multiple of
+//     16 bytes; a column's nibbles start at n * K / 2 and a stage at 1024 t,
+//     and a stage holds a multiple of 4 chunks (128 bytes), so every K %
+//     256 == 0 that K1 takes works (the wrapper checks the planes' 16-byte
+//     alignment).
+//   * Under CUDA-graph capture the PDL attribute becomes a programmatic
+//     edge (tests/test_torch_cuda.py::test_k12_chain_in_a_graph).
+//   * Dynamic shared memory above 48 KB (K above 12 K) needs the function
+//     attribute, set before such a launch.
 
 #include "matvec_common.cuh"
 
@@ -39,214 +92,179 @@ namespace {
 
 using namespace zt;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 4;
-constexpr int kChunks = 16;             // 64-weight chunks a stage holds per column
-constexpr int kQsBytes = kChunks * 32;  // packed nibbles a column a stage
+constexpr int kStages = 2;              // ring slots a warp
+constexpr int kChunks = 32;             // 64-weight chunks a stage holds (a K = 2048 column)
+constexpr int kRounds = kChunks / 16;   // rounds of 16 chunks (a lane pair each) a stage
+constexpr int kQsBytes = kChunks * 32;  // packed nibbles a column a stage: a slot
 
-// a stage's per-group scale planes: how many, and their bytes a column
-// (2 * kChunks groups; Q4_K one byte a group, Q4_0/Q4_1 one fp16)
-template <int FMT>
-struct StagePlanes {
-  static constexpr int kCount = FMT == kQ40 ? 1 : 2;
-  static constexpr int kBytes = FMT == kQ4K ? 2 * kChunks : 4 * kChunks;
-  static constexpr int kCol = kQsBytes + kCount * kBytes;  // a column's stage bytes
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-// a 4-byte copy of which only the first src_bytes are read (the rest zeroed)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// the dynamic shared memory of a block: the quantized row (QuantRow<32>),
+// the barriers, the rings
+__host__ __device__ constexpr size_t row_bytes(int K) { return (size_t)K + (size_t)(K / 32) * 8; }
+__host__ __device__ constexpr size_t smem_bytes(int K) {
+  return row_bytes(K) + (size_t)kWarps * kStages * 8 + (size_t)kWarps * kStages * kQsBytes;
 }
 
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
-// the dynamic shared memory of a block: the quantized row, the stage ring,
-// then (Q4_K) the d and dmin runs (NB * K/256 halves each, plus one word of
-// slack for the alignment shift)
-template <int FMT>
-struct Layout {
-  size_t row, stages, dbuf, total;
-  __host__ __device__ Layout(int K, int NB) {
-    row = 0;
-    stages = align16((size_t)K + (size_t)(K / 32) * 8);  // QuantRow<32>::bytes(K)
-    dbuf = stages + (size_t)kStages * NB * StagePlanes<FMT>::kCol;
-    total = dbuf + (FMT == kQ4K ? 2 * dbytes(K, NB) : 0);
-  }
-  __host__ __device__ static size_t dbytes(int K, int NB) {
-    return align16((size_t)NB * (K / 256) * 2 + 4);
-  }
-};
-
-// copy the fp16 plane run [e0, e1) (in halves) into dst, in 4-byte words
-// from the word holding e0: dst[e0 % 2 + i] is then entry e0 + i
-__device__ __forceinline__ void copy_run(unsigned char* dst, const __half* plane, size_t e0,
-                                         size_t e1, size_t plane_halves) {
-  const size_t w0 = (2 * e0) & ~(size_t)3;  // byte offset of the first word
-  const size_t end = 2 * e1, plane_bytes = 2 * plane_halves;
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(plane);
-  for (size_t off = w0 + 4 * threadIdx.x; off < end; off += 4 * kThreads) {
-    const size_t left = plane_bytes - off;
-    cp_async4(dst + (off - w0), src + off, left < 4 ? (int)left : 4);
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// global -> shared bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned), completed on the barrier's transaction count
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 template <typename TX, int MODE, int FMT>
-__global__ void __launch_bounds__(kThreads) q4k_matvec_hbm_kernel(
+__global__ void __launch_bounds__(kThreads, 2) q4k_matvec_hbm_kernel(
     const TX* __restrict__ x, const float* __restrict__ aux, const NibblePlanes w,
-    float* __restrict__ y, int K, int N, int cpw, float eps) {
-  using SP = StagePlanes<FMT>;
+    float* __restrict__ y, int K, int N, int cols_per_warp, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int NB = kWarps * cpw;
-  const int nchunk = K / 64, G = K / 32, KS = K / 256;
-  const int n_stages = (nchunk + kChunks - 1) / kChunks;
-  const Layout<FMT> lay(K, NB);
-  const QuantRow<32> row(smem + lay.row, K);
-  unsigned char* stages = smem + lay.stages;
-  const size_t dbytes = Layout<FMT>::dbytes(K, NB);
-  unsigned char* dsm = smem + lay.dbuf;
-  unsigned char* dmsm = dsm + dbytes;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, part = lane & 1;
-  const int n0 = blockIdx.x * NB;
-  const int n_cols = min(NB, N - n0);  // the block's columns that exist
-  // a group's bytes in a scale plane: Q4_K one, Q4_0/Q4_1 one fp16
-  constexpr int kGroupBytes = FMT == kQ4K ? 1 : 2;
-  const unsigned char* planes[2] = {static_cast<const unsigned char*>(w.s0),
-                                    static_cast<const unsigned char*>(w.s1)};
+  const QuantRow<32> row(smem, K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nchunk = K / 64, part = lane & 1;
+  const int upc = (nchunk + kChunks - 1) / kChunks;  // units (stages) a column
+  // this warp's columns n0 + j * kWarps (j < cpw, < N); unit u = (column
+  // u / upc, stage u % upc), in slot u % kStages of the warp's ring
+  const int n0 = blockIdx.x * cols_per_warp * kWarps + warp;
+  const int ncols = n0 < N ? min(cols_per_warp, (N - 1 - n0) / kWarps + 1) : 0;
+  const int nu = ncols * upc;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + row_bytes(K)) + warp * kStages;
+  unsigned char* ring =
+      smem + row_bytes(K) + kWarps * kStages * 8 + (size_t)warp * kStages * kQsBytes;
+  // slot si's unit's scales, loaded with its copy
+  GroupScale<FMT> scales[kStages][kRounds];
 
-  auto issue = [&](int t) {
-    unsigned char* st = stages + (size_t)(t % kStages) * NB * SP::kCol;
+  // unit u into slot si: lane 0's bulk copy of the nibbles, every lane's
+  // scale loads (the whole warp calls this)
+  auto fill = [&](int si, int u) {
+    const uint32_t bar = smem_u32(bars + si);
+    const int n = n0 + (u / upc) * kWarps, t = u % upc;
     const int cr = min(kChunks, nchunk - t * kChunks);  // chunks this stage, a multiple of 4
-    const int qp = cr * 2;                              // 16-byte pieces a column
-    for (int i = threadIdx.x; i < n_cols * qp; i += kThreads) {
-      const int ci = i / qp, p = i % qp;
-      cp_async16(st + ci * kQsBytes + p * 16,
-                 w.qs + (size_t)(n0 + ci) * (K / 2) + (size_t)t * kQsBytes + p * 16);
+    if (lane == 0) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive_expect_tx(bar, cr * 32);
+      bulk_g2s(smem_u32(ring + si * kQsBytes),
+               w.qs + (size_t)n * (K / 2) + (size_t)t * kQsBytes, cr * 32, bar);
     }
-    const int sp = cr * kGroupBytes / 4;  // 8-byte pieces a column, of each scale plane
-    for (int i = threadIdx.x; i < n_cols * sp; i += kThreads) {
-      const int ci = i / sp, p = i % sp;
-      const size_t off = ((size_t)(n0 + ci) * G + (size_t)t * 2 * kChunks) * kGroupBytes + p * 8;
 #pragma unroll
-      for (int m = 0; m < SP::kCount; ++m)
-        cp_async8(st + NB * (kQsBytes + m * SP::kBytes) + ci * SP::kBytes + p * 8,
-                  planes[m] + off);
-    }
-    if (FMT == kQ4K && t == 0) {  // the block's super-block scales, once
-      const size_t e0 = (size_t)n0 * KS, e1 = (size_t)(n0 + n_cols) * KS;
-      copy_run(dsm, static_cast<const __half*>(w.s2), e0, e1, (size_t)N * KS);
-      copy_run(dmsm, static_cast<const __half*>(w.s3), e0, e1, (size_t)N * KS);
+    for (int it = 0; it < kRounds; ++it) {
+      const int c = t * kChunks + it * 16 + (lane >> 1);
+      if (c < nchunk) scales[si][it].load(w, (size_t)n, 2 * c + part, K);
     }
   };
 
-  // the first K-steps are in flight while the activations are prepared
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_stages) issue(t);
-    cp_commit();
+  // before the wait: the barriers, the first stages' weights and the norm
+  // weight only
+  if (lane == 0) {
+    for (int si = 0; si < kStages; ++si) mbar_init(smem_u32(bars + si), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
-
-  const int shift = (int)((size_t)n0 * KS % 2);  // d/dmin runs start this many halves in
-  const __half* dh = reinterpret_cast<const __half*>(dsm) + shift;
-  const __half* dmh = reinterpret_cast<const __half*>(dmsm) + shift;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = 0; t < n_stages; ++t) {
-    cp_wait<kStages - 2>();  // this thread's copies of stage t have landed
-    __syncthreads();         // everyone's have, and stage t - 1's slot is free
-    if (t + kStages - 1 < n_stages) issue(t + kStages - 1);
-    cp_commit();
-
-    const unsigned char* st = stages + (size_t)(t % kStages) * NB * SP::kCol;
-    const unsigned char* sp0 = st + NB * kQsBytes;
-    const unsigned char* sp1 = sp0 + NB * SP::kBytes;
-    const int c = t * kChunks + (lane >> 1);
-    int4 xl = make_int4(0, 0, 0, 0), xh = xl;
-    if (c < nchunk) {
-      xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
-      xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
-    }
+  __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j >= cpw) break;
-      const int ci = j * kWarps + warp;
-      if (ci >= n_cols) break;  // uniform across the warp
-      int plo = 0, phi = 0;
-      if (c < nchunk) {
-        const uint4 wv = *reinterpret_cast<const uint4*>(st + ci * kQsBytes + lane * 16);
-        plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
-        phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
-        plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
-        phi = __dp4a((int)((wv.y >> 4) & 0x0F0F0F0Fu), xh.y, phi);
-        plo = __dp4a((int)(wv.z & 0x0F0F0F0Fu), xl.z, plo);
-        phi = __dp4a((int)((wv.z >> 4) & 0x0F0F0F0Fu), xh.z, phi);
-        plo = __dp4a((int)(wv.w & 0x0F0F0F0Fu), xl.w, plo);
-        phi = __dp4a((int)((wv.w >> 4) & 0x0F0F0F0Fu), xh.w, phi);
-      }
-      plo += __shfl_xor_sync(kFull, plo, 1);
-      phi += __shfl_xor_sync(kFull, phi, 1);
-      if (c < nchunk) {
-        // even lane takes group 2c (low nibbles), odd lane group 2c+1; the
-        // group's place in the stage is the lane
-        const int g = 2 * c + part;
-        GroupScale<FMT> s;
-        if constexpr (FMT == kQ4K) {
-          s.sc = sp0[ci * SP::kBytes + lane];
-          s.mn = sp1[ci * SP::kBytes + lane];
-          s.d = dh[ci * KS + (g >> 3)];
-          s.dmin = dmh[ci * KS + (g >> 3)];
-        } else if constexpr (FMT == kQ40) {
-          s.d = reinterpret_cast<const __half*>(sp0 + ci * SP::kBytes)[lane];
-        } else {
-          s.a = reinterpret_cast<const __half*>(sp0 + ci * SP::kBytes)[lane];
-          s.b = reinterpret_cast<const __half*>(sp1 + ci * SP::kBytes)[lane];
+  for (int si = 0; si < kStages; ++si)
+    if (si < nu) fill(si, si);
+  if (MODE == kNorm) {
+    for (int k = threadIdx.x * 32; k < K; k += kThreads * 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(aux + k));
+  }
+  launch_dependents();
+  if (MODE == kGlu) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  grid_wait();
+  if constexpr (MODE == kGlu) {
+    quantize_glu_cluster<TX, 32, kThreads>(x, K, row);
+  } else {
+    quantize_row<TX, MODE, 32, kThreads>(x, aux, K, eps, row);
+  }
+
+  float acc = 0.f;
+  for (int u0 = 0; u0 < nu; u0 += kStages) {
+#pragma unroll
+    for (int si = 0; si < kStages; ++si) {
+      const int u = u0 + si;
+      if (u >= nu) break;  // uniform across the warp
+      const unsigned char* slot = ring + si * kQsBytes;
+      mbar_wait(smem_u32(bars + si), (u / kStages) & 1);
+      const int t = u % upc;
+#pragma unroll
+      for (int it = 0; it < kRounds; ++it) {
+        if (t * kChunks + it * 16 >= nchunk) break;  // uniform across the warp
+        const int c = t * kChunks + it * 16 + (lane >> 1);
+        int plo = 0, phi = 0;
+        if (c < nchunk) {
+          const uint4 wv = *reinterpret_cast<const uint4*>(slot + it * 512 + lane * 16);
+          const int4 xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
+          const int4 xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
+          plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
+          phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
+          plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
+          phi = __dp4a((int)((wv.y >> 4) & 0x0F0F0F0Fu), xh.y, phi);
+          plo = __dp4a((int)(wv.z & 0x0F0F0F0Fu), xl.z, plo);
+          phi = __dp4a((int)((wv.z >> 4) & 0x0F0F0F0Fu), xh.z, phi);
+          plo = __dp4a((int)(wv.w & 0x0F0F0F0Fu), xl.w, plo);
+          phi = __dp4a((int)((wv.w >> 4) & 0x0F0F0F0Fu), xh.w, phi);
         }
-        acc[j] += group_term(s, part ? phi : plo, row.sx[g], row.dx[g]);
+        plo += __shfl_xor_sync(kFull, plo, 1);
+        phi += __shfl_xor_sync(kFull, phi, 1);
+        if (c < nchunk) {
+          // even lane takes group 2c (low nibbles), odd lane group 2c+1
+          const int g = 2 * c + part;
+          acc += group_term(scales[si][it], part ? phi : plo, row.sx[g], row.dx[g]);
+        }
       }
+      if (t == upc - 1) {  // the column's last stage
+        acc = warp_sum(acc);
+        if (lane == 0) y[n0 + (u / upc) * kWarps] = acc;
+        acc = 0.f;
+      }
+      __syncwarp();  // every lane is done with the slot
+      if (u + kStages < nu) fill(si, u + kStages);
     }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= cpw) break;
-    const int ci = j * kWarps + warp;
-    if (ci >= n_cols) break;
-    const float v = warp_sum(acc[j]);
-    if (lane == 0) y[n0 + ci] = v;
   }
 }
 
 template <typename TX, int MODE, int FMT>
 int launch(const void* x, const float* aux, const NibblePlanes& w, float* y, int K, int N,
            float eps, cudaStream_t stream) {
-  // K1's choice of columns per warp, so the blocks cover the same columns
-  int cpw = N / (kWarps * 2 * 132);
-  cpw = cpw < 1 ? 1 : (cpw > 4 ? 4 : cpw);
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  // one wave of at most two blocks an SM, K1's columns per warp
+  const int cpw = wave_cols(N, sms, kWarps);
   const int per_block = kWarps * cpw;
-  const size_t bytes = Layout<FMT>(K, per_block).total;
+  const int cl = MODE == kGlu ? glu_cluster<32>(K) : 1;
+  const size_t bytes = smem_bytes(K);
   auto kern = q4k_matvec_hbm_kernel<TX, MODE, FMT>;
   if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+    err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != 0) return err;
   }
-  const dim3 grid((N + per_block - 1) / per_block);
-  kern<<<grid, kThreads, bytes, stream>>>(static_cast<const TX*>(x), aux, w, y, K, N, cpw, eps);
-  return (int)cudaGetLastError();
+  return launch_matvec(kern, (N + per_block - 1) / per_block, kThreads, bytes, cl, stream,
+                       static_cast<const TX*>(x), aux, w, y, K, N, cpw, eps);
 }
 
 template <typename TX, int FMT>
@@ -286,4 +304,12 @@ extern "C" int zt_q4k_matvec_hbm(int fmt, const void* x, int x_dtype, const floa
   if (x_dtype == 0) return launch_fmt<float>(fmt, mode, x, aux, w, y, K, N, eps, s);
   if (x_dtype == 1) return launch_fmt<__nv_bfloat16>(fmt, mode, x, aux, w, y, K, N, eps, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The ring's depth (stages a warp) and a block's dynamic shared memory in
+// bytes at K (the same for the three formats and prologues); 0.
+extern "C" int zt_q4k_matvec_hbm_layout(int K, int* stages, long long* smem) {
+  *stages = kStages;
+  *smem = (long long)smem_bytes(K);
+  return 0;
 }

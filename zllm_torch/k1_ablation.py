@@ -48,15 +48,52 @@ at 2176), each layer its own cache:
   no_out:      (the rebuilt form only) no output store;
   warps8:      (the rebuilt form only) blocks of 8 warps, not 16.
 
+k12, the decode matvec of the nibble formats under ZLLM_QMM_HBM=1
+(`csrc/q4k_matvec_hbm.cu`), on the 89 matvecs of the TinyLlama Q4_K step
+above, the 65 of an OLMo-2-0425-1B Q4_K decode step (16 x [wqkv
+2048->6144, wo 2048->2048, gate|up 2048->16384, down 8192->2048] with
+fuse q, the head norm 2048->100352) and the same 65 in Q4_1, random weight
+bytes from a seed, f32 activations:
+  no_columns, no_prologue, bare: as for k1 (both forms: the earlier one's
+               block-wide cp.async ring, the rebuilt one's bulk-copy
+               rings);
+  no_pdl, one_block, no_cluster, trigger_late: as for k1 (the rebuilt
+               form only);
+  stages3, stages4: (the rebuilt form only) a ring of 3 or 4 slots a warp,
+               not 2;
+  chunks16, chunks64: (the rebuilt form only) stages of 16 or 64 chunks
+               of 64 weights, not 32;
+  no_scales:   (the rebuilt form only) no scale loads (the cost of the
+               scales, which come into registers as in K1);
+  no_proxy_fence: (the rebuilt form only) a slot refilled without the
+               fence.proxy.async before its bulk copy.
+
+k11, the dual-view decode matvec of Q4_0 and Q4_1 under
+ZLLM_QMM_DUALDOT=1 (`csrc/w4a8dd_matvec.cu`), on the 64 fuse-q matvecs of
+the OLMo-2 Q4_1 step above and the 22 wo matvecs (2048->2048) of a
+TinyLlama Q4_0 step, f32 activations:
+  no_columns:  as for k1;
+  no_prologue: the earlier two-launch form: its quantize launch returns at
+               once and the dot copies no row in; the rebuilt form: no
+               `quantize_row`;
+  bare:        both;
+  no_pdl, serial, one_block: as for k1 (the rebuilt form only).
+  Besides the builds, `zt_quantize_acts` (the one-block quantize) timed
+  alone on the calls' rows, and in the two-launch form the dot launch
+  alone on rows quantized beforehand (`apart`).
+For k12 and k11 a last line times K1 (`csrc/q4k_matvec.cu`, as built
+for the package) on the same calls (`k1_same_calls`).
+
 A variant whose anchor text the source lacks (an older form) is reported
 as such.  The variants compute wrong values; only their times mean anything.
 
 Run on a CUDA host from the root of a checkout:
-    python -m zllm_torch.k1_ablation [--kernel k1|k4|k2]
+    python -m zllm_torch.k1_ablation [--kernel k1|k4|k2|k12|k11]
 Prints one JSON line per build, the unchanged one first and last: the
 graph-replay device ms of the whole set of launches, of each role's
 launches alone (k1: 22 each, the head 1; k4: wv 22, down 11, head 1; k2:
-the step and the engine step), and the registers of the build's kernel
+the step and the engine step; k12: each step, and the Q4_K steps by
+role; k11: the two sets), and the registers of the build's kernel
 instantiations (`-Xptxas -v`).
     python -m zllm_torch.k1_ablation [--kernel k1|k2] --step
 times instead a whole decode step with the builds that compute right
@@ -80,7 +117,7 @@ import torch
 from .ops import attention as att
 from .ops import cuda
 from .ops import qmatmul as qmm
-from .quant.repack import Q4KWeight, Q6KWeight
+from .quant.repack import Q4KWeight, Q6KWeight, Q40Weight, Q41Weight
 
 OUT = cuda.CACHE.parent / "k1_ablation"
 
@@ -192,12 +229,75 @@ K2_VARIANTS = {
     "warps8": [[("constexpr int kThreads = 512;", "constexpr int kThreads = 256;")]],
 }
 
+# K12: the rebuilt form's anchors first (its prologue's are K1's), then the
+# earlier form's, whose block owned n_cols columns and quantized with
+# quantize_row alone
+K12_NO_COLUMNS = [[("  const int nu = ncols * upc;\n  uint64_t",
+                    "  const int nu = 0 * ncols * upc;\n  uint64_t")],
+                  [("const int n_cols = min(NB, N - n0);",
+                    "const int n_cols = 0 * min(NB, N - n0);")]]
+
+
+def _rebuilt(anchor: str) -> tuple[str, str]:
+    """A no-op edit that holds a variant to the sources whose kernel file
+    contains `anchor` (the rebuilt forms)."""
+    return (anchor, anchor)
+
+
+K12_NO_PROLOGUE = [K1_NO_PROLOGUE[0], K1_NO_PROLOGUE[2]]
+K12_STAGES = "constexpr int kStages = 2;              // ring slots a warp"
+K12_CHUNKS = "constexpr int kChunks = 32;             // 64-weight chunks a stage holds"
+K12_VARIANTS = {
+    "no_columns": K12_NO_COLUMNS,
+    "no_prologue": K12_NO_PROLOGUE,
+    "bare": [K12_NO_COLUMNS[0] + K12_NO_PROLOGUE[0], K12_NO_COLUMNS[1] + K12_NO_PROLOGUE[1]],
+    "no_pdl": [NO_PDL[0] + [_rebuilt("launch_matvec(kern")]],
+    "one_block": [ONE_BLOCK[0] + [_rebuilt("wave_cols(N, sms, kWarps)")]],
+    "no_cluster": NO_CLUSTER[:1],
+    "trigger_late": [[("  launch_dependents();\n  if (MODE == kGlu)", "  if (MODE == kGlu)"),
+                      ("      if (u + kStages < nu) fill(si, u + kStages);\n    }\n  }\n",
+                       "      if (u + kStages < nu) fill(si, u + kStages);\n    }\n  }\n"
+                       "  launch_dependents();\n")]],
+    **{f"stages{n}": [[(K12_STAGES, K12_STAGES.replace("= 2;", f"= {n};"))]] for n in (3, 4)},
+    **{f"chunks{n}": [[(K12_CHUNKS, K12_CHUNKS.replace("= 32;", f"= {n};"))]] for n in (16, 64)},
+    "no_scales": [[("      if (c < nchunk) scales[si][it].load(w, (size_t)n, 2 * c + part, K);",
+                    "")]],
+    "no_proxy_fence": [[('      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");\n',
+                         "")]],
+}
+
+# K11: the earlier two-launch form's anchors first (its quantize kernel
+# has the rebuilt form's quantize_row line), then the rebuilt form's
+K11_COPY_IN = ("  for (int i = threadIdx.x; i < K / 16; i += kThreads)\n"
+               "    reinterpret_cast<int4*>(sxq)[i] = reinterpret_cast<const int4*>(xq)[i];\n"
+               "  for (int g = threadIdx.x; g < K / 32; g += kThreads) {\n"
+               "    sdx[g] = dx[g];\n    se[g] = e[g];\n  }\n")
+K11_NO_QUANT_LAUNCH = ("  if (K % 256 != 0) return (int)cudaErrorInvalidValue;\n"
+                       "  cudaStream_t s = static_cast<cudaStream_t>(stream);\n"
+                       "  const size_t bytes = QuantRow<32>::bytes(K);")
+K11_NO_PROLOGUE = [[(K11_COPY_IN, ""),
+                    (K11_NO_QUANT_LAUNCH, K11_NO_QUANT_LAUNCH.replace("K % 256 != 0", "K > 0")
+                     .replace("(int)cudaErrorInvalidValue", "0"))],
+                   [("  quantize_row<TX, kQ, 32, kThreads>(x, nullptr, K, 0.f, row);\n", "")]]
+K11_NO_COLUMNS = [K1_NO_COLUMNS[1], K1_NO_COLUMNS[0]]
+K11_VARIANTS = {
+    "no_columns": K11_NO_COLUMNS,
+    "no_prologue": K11_NO_PROLOGUE,
+    "bare": [K11_NO_COLUMNS[0] + K11_NO_PROLOGUE[0], K11_NO_COLUMNS[1] + K11_NO_PROLOGUE[1]],
+    "no_pdl": [NO_PDL[0] + [_rebuilt("launch_matvec(w4a8dd_kernel")]],
+    "serial": [SERIAL],
+    "one_block": [ONE_BLOCK[0] + [_rebuilt("wave_cols(N, sms, kWarps)")]],
+}
+
 KERNELS = {
     "k1": Kernel("q4k_matvec", "zt_q4k_matvec", "q4k_matvec_kernel", K1_VARIANTS,
                  ("no_pdl", "no_cluster", "serial", "one_block")),
     "k4": Kernel("int8_matvec", "zt_int8_matvec", "int8_matvec_kernel", K4_VARIANTS, ()),
     "k2": Kernel("attn_decode", "zt_attn_decode_qkv", "attn_decode_qkv_kernel", K2_VARIANTS,
                  ("no_pdl",)),
+    "k12": Kernel("q4k_matvec_hbm", "zt_q4k_matvec_hbm", "q4k_matvec_hbm_kernel", K12_VARIANTS,
+                  ()),
+    "k11": Kernel("w4a8dd_matvec", "zt_w4a8dd_matvec", "w4a8dd_kernel", K11_VARIANTS, ()),
 }
 
 
@@ -230,7 +330,7 @@ def registers(log: str, entry: str) -> list[int]:
 
 def build(kern: Kernel, argtypes) -> dict[str, tuple]:
     """Each applicable variant's entry point, built in parallel:
-    {name: (fn, registers)}."""
+    {name: (fn, registers, library)}."""
     procs = {}
     source = cuda.SOURCES[kern.lib]
     for name in ("as_is", *kern.variants):
@@ -249,10 +349,11 @@ def build(kern: Kernel, argtypes) -> dict[str, tuple]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        fn = getattr(ctypes.CDLL(str(OUT / kern.lib / name / "k.so")), kern.symbol)
+        lib = ctypes.CDLL(str(OUT / kern.lib / name / "k.so"))
+        fn = getattr(lib, kern.symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[name] = (fn, registers(log, kern.entry))
+        fns[name] = (fn, registers(log, kern.entry), lib)
     return fns
 
 
@@ -296,6 +397,67 @@ def _weights(g: torch.Generator):
         return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
 
     return q4k, q6k, randn
+
+
+def _legacy_weights(g: torch.Generator):
+    """Random Q4_0 and Q4_1 weights (k, n) -> weight."""
+    def u8(n, cols):
+        return torch.randint(0, 256, (n, cols), dtype=torch.uint8, device="cuda", generator=g)
+
+    def half(n, cols):
+        return (torch.randn(n, cols, device="cuda", generator=g) * 0.001).half()
+
+    return (lambda k, n: Q40Weight((k, n), qs=u8(n, k // 2), d=half(n, k // 32)),
+            lambda k, n: Q41Weight((k, n), qs=u8(n, k // 2), a=half(n, k // 32),
+                                   b=half(n, k // 32)))
+
+
+def olmo2_calls(mk, randn):
+    """An OLMo-2-0425-1B decode step's 65 matvecs [(x, w, fuse, aux)] with
+    weights from `mk(k, n)`: 16 x [wqkv, wo, gate|up, down] (fuse q on the
+    raw stream, as its layers take them), then the head with the final
+    norm."""
+    x_o, x_ff = randn(1, 2048, scale=3.0), randn(1, 8192)
+    calls = []
+    for _ in range(16):
+        calls += [(x_o, mk(2048, 6144), "q", None), (x_o, mk(2048, 2048), "q", None),
+                  (x_o, mk(2048, 16384), "q", None), (x_ff, mk(8192, 2048), "q", None)]
+    calls.append((x_o, mk(2048, 100352), "norm", randn(2048).abs() + 0.5))
+    return calls
+
+
+def k12_calls(g: torch.Generator):
+    """K12's calls: the TinyLlama Q4_K step's 89, the OLMo-2 Q4_K step's 65,
+    the OLMo-2 Q4_1 step's 65; roles: each step, and the two Q4_K steps by
+    weight role."""
+    q4k, _, randn = _weights(g)
+    _, q41 = _legacy_weights(g)
+    tiny, _ = k1_calls(g)
+    o4k, o41 = olmo2_calls(q4k, randn), olmo2_calls(q41, randn)
+    calls = tiny + o4k + o41
+    a, b = len(tiny), len(tiny) + len(o4k)
+    roles = {"tinyllama_q4k": list(range(a)), "olmo2_q4k": list(range(a, b)),
+             "olmo2_q4_1": list(range(b, len(calls)))}
+    for i, role in enumerate(("wqkv", "wo", "gate_up", "down")):
+        roles[f"olmo2_q4k_{role}"] = list(range(a + i, b - 1, 4))
+    roles["olmo2_q4k_head"] = [b - 1]
+    for i, role in enumerate(("wqkv", "wo", "gate_up", "down")):
+        roles[f"tinyllama_{role}"] = list(range(i, a - 1, 4))
+    roles["tinyllama_head"] = [a - 1]
+    return calls, roles
+
+
+def k11_calls(g: torch.Generator):
+    """K11's calls [(x, w)]: the OLMo-2 Q4_1 step's 64 fuse-q matvecs, then
+    the 22 wo matvecs (2048->2048) of a TinyLlama Q4_0 step; and the two
+    sets as roles."""
+    _, _, randn = _weights(g)
+    q40, q41 = _legacy_weights(g)
+    calls = [(x, w) for x, w, fuse, _ in olmo2_calls(q41, randn) if fuse == "q"]
+    n_o = len(calls)
+    x_att = randn(1, 2048)
+    calls += [(x_att, q40(2048, 2048)) for _ in range(22)]
+    return calls, {"olmo2_q4_1": list(range(n_o)), "q4_0_wo": list(range(n_o, len(calls)))}
 
 
 def k1_calls(g: torch.Generator):
@@ -354,8 +516,17 @@ def k2_calls(g: torch.Generator):
     return calls, roles
 
 
-def _swap(kern: Kernel, fn):
-    """Route the wrapper's launches to `fn` (a variant's entry point)."""
+def _swap(kern: Kernel, build_):
+    """Route the wrapper's launches to a variant's build `(fn, registers,
+    library)`: its entry point, and every other entry point of the kernel's
+    library the wrapper has bound (K11's earlier form: its quantize
+    launch)."""
+    fn, _, lib = build_
+    for (name, symbol), real in list(cuda._FNS.items()):
+        if name == kern.lib and symbol != kern.symbol:
+            other = getattr(lib, symbol)
+            other.argtypes, other.restype = real.argtypes, real.restype
+            cuda._FNS[(name, symbol)] = other
     cuda._FNS[(kern.lib, kern.symbol)] = fn
 
 
@@ -368,10 +539,11 @@ def _setup(name: str):
     if name == "k1":
         calls, roles = k1_calls(g)
 
-        def runner(fn, idx):
+        def runner(build_, idx):
             def go():
                 for i in idx:
-                    cuda.check(qmm.nibble_matvec_call(fn, *calls[i], 1e-5)[0], "k1_ablation")
+                    cuda.check(qmm.nibble_matvec_call(build_[0], *calls[i], 1e-5)[0],
+                               "k1_ablation")
             return go
         return kern, calls, roles, runner, qmm.NIBBLE_MATVEC_ARGTYPES
     if name == "k4":
@@ -379,6 +551,16 @@ def _setup(name: str):
 
         def one(i):
             qmm.int8_matvec(*calls[i], 1e-5)
+    elif name == "k12":
+        calls, roles = k12_calls(g)
+
+        def one(i):
+            qmm.q4k_matvec_hbm(*calls[i], 1e-5)
+    elif name == "k11":
+        calls, roles = k11_calls(g)
+
+        def one(i):
+            qmm.w4a8dd_matvec(*calls[i])
     else:
         calls, roles = k2_calls(g)
 
@@ -388,9 +570,9 @@ def _setup(name: str):
     one(0)  # builds and binds the real library: its argtypes are the entry point's
     argtypes = cuda._FNS[(kern.lib, kern.symbol)].argtypes
 
-    def runner(fn, idx):
+    def runner(build_, idx):
         def go():
-            _swap(kern, fn)
+            _swap(kern, build_)
             for i in idx:
                 one(i)
         return go
@@ -423,7 +605,7 @@ def step_graph(kern: Kernel, fns: dict, card: str):
             forward(model.params, model.cfg, tok, pos, gen.kv, logits_for="last")
 
     for name in ("as_is", *[v for v in kern.step_variants if v in fns], "as_is"):
-        _swap(kern, fns[name][0])
+        _swap(kern, fns[name])
         print(json.dumps({"kernel": kern.lib, "variant": name, "card": card,
                           "step_graph_ms": graph_ms(step)}), flush=True)
 
@@ -446,13 +628,60 @@ def main(argv):
         return step_graph(kern, fns, card)
     missing = [name for name in kern.variants if name not in fns]
     for name in ("as_is", *[v for v in kern.variants if v in fns], "as_is"):
-        fn, regs = fns[name]
-        total = graph_ms(runner(fn, range(len(calls))))
+        regs = fns[name][1]
+        total = graph_ms(runner(fns[name], range(len(calls))))
         print(json.dumps({"kernel": kern.lib, "variant": name, "card": card, "step_ms": total,
                           "us_per_launch": total * 1e3 / len(calls),
-                          "ms_by_role": {r: graph_ms(runner(fn, idx)) for r, idx in roles.items()},
+                          "ms_by_role": {r: graph_ms(runner(fns[name], idx))
+                                         for r, idx in roles.items()},
                           "registers": regs, "not_in_this_source": missing}), flush=True)
-    _swap(kern, fns["as_is"][0])
+    _swap(kern, fns["as_is"])
+    if which == "k11":
+        print(json.dumps({"kernel": kern.lib, "variant": "apart", "card": card,
+                          **k11_apart(calls, roles)}), flush=True)
+    if which in ("k12", "k11"):
+        def k1(idx):
+            def go():
+                for i in idx:
+                    x, w, *rest = calls[i]
+                    qmm.q4k_matvec(x, w, *rest, *([1e-5] if rest else []))
+            return go
+        print(json.dumps({"kernel": "q4k_matvec", "variant": "k1_same_calls", "card": card,
+                          "step_ms": graph_ms(k1(range(len(calls)))),
+                          "ms_by_role": {r: graph_ms(k1(idx)) for r, idx in roles.items()}}),
+              flush=True)
+
+
+# the earlier K11 dot's C arguments: fmt, xq, dx, e, qs, s0, s1, y, K, N, stream
+TWO_LAUNCH_DOT_ARGS = 11
+
+
+def k11_apart(calls, roles) -> dict:
+    """K11's quantize (`zt_quantize_acts`, one block) timed alone on each
+    call's row and, where the library's dot takes a row quantized
+    beforehand (the earlier two-launch form), the dot alone: graph ms by
+    role."""
+    xs = [x for x, _ in calls]
+    out = {"quantize_launch_ms_by_role": {
+        r: graph_ms(lambda idx=idx: [qmm.quantize_acts(xs[i]) for i in idx])
+        for r, idx in roles.items()}}
+    dot = cuda._FNS[("w4a8dd_matvec", "zt_w4a8dd_matvec")]
+    if len(dot.argtypes) != TWO_LAUNCH_DOT_ARGS:
+        out["dot_launch_ms_by_role"] = "one launch a call: no dot launch of its own"
+        return out
+    rows = [qmm.quantize_acts(x) for x in xs]
+    ys = [torch.empty((1, w.shape[1]), dtype=torch.float32, device="cuda") for _, w in calls]
+
+    def dots(idx):
+        for i in idx:
+            (xq, dx, e), (_, w) = rows[i], calls[i]
+            k, n = w.shape
+            cuda.check(dot(qmm.NIBBLE_FMT_CODE[w.fmt], xq.data_ptr(), dx.data_ptr(),
+                           e.data_ptr(), *qmm._plane_ptrs(w, 3), ys[i].data_ptr(), k, n,
+                           cuda.stream()), "k11 dot")
+    out["dot_launch_ms_by_role"] = {r: graph_ms(lambda idx=idx: dots(idx))
+                                    for r, idx in roles.items()}
+    return out
 
 
 if __name__ == "__main__":

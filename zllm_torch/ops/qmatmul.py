@@ -14,16 +14,17 @@ K4/K5.
     `zllm_torch/csrc/q4k_matvec.cu`.
   * `q4k_matvec_hbm` (K12) replaces `zllm/ops/qmatmul.py::_w4a8np_hbm_kernel`
     (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`):
-    K1's maths and prologues, the weight planes brought into shared memory
-    through a multi-stage cp.async pipeline, bit-identical to K1.  Its plain
-    version is K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
+    K1's maths, prologues and launch machinery, the packed nibbles streamed
+    into a ring of shared-memory stages a warp by bulk copies completed on
+    mbarriers (the scales loaded as K1 loads them), bit-identical to K1.
+    Its plain version is K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
   * `w4a8dd_matvec` (K11) replaces `zllm/ops/qmatmul.py::_w4a8dd_kernel`
     (via `_qmm_w4a8dd_call`, under `ZLLM_QMM_DUALDOT=1`) for Q4_0 and Q4_1:
-    the activation row is quantized once, outside the dot kernel
-    (`quantize_acts`: int8 codes, dx and e = dx*sum(xq) per 32-group, as
-    zllm's `_quant_acts`), then each packed byte is dotted whole through
-    two signed views; epilogue Q4_0 `(pi - 8*s)*d*dx`, Q4_1 `pi*a*dx - b*e`.
-    Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
+    one launch a call, each block quantizing the activation row (int8
+    codes, dx and e = dx*sum(xq) per 32-group, as zllm's `_quant_acts`),
+    then each packed byte dotted whole through two signed views; epilogue
+    Q4_0 `(pi - 8*s)*d*dx`, Q4_1 `pi*a*dx - b*e`.  `quantize_acts` is that
+    quantize as an op of its own.  Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
     `_qmm_w4a8_call`) for Q6_K and Q8_0: the same prologues, with int8
     groups of the format's width (16 for Q6_K, 32 for Q8_0), integer group
@@ -203,7 +204,7 @@ q4k_matvec.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K12: decode matvec with the weight planes pipelined through shared memory
+# K12: decode matvec with the packed nibbles streamed through shared memory
 # ---------------------------------------------------------------------------
 
 q4k_matvec_hbm_plain = q4k_matvec_plain
@@ -212,8 +213,8 @@ q4k_matvec_hbm_plain = q4k_matvec_plain
 def q4k_matvec_hbm(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
                    aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
     """K1's function (y[1, N] f32; x, w and fuse as for `q4k_matvec`)
-    through K12, whose weight fetch is a multi-stage pipeline into shared
-    memory."""
+    through K12, whose nibble fetch is a ring of bulk-copied stages in
+    shared memory."""
     _require_nibble(w)
     _check_matvec_args(x, w.shape[0], fuse, aux)
     if x.device.type == "cpu":
@@ -226,8 +227,20 @@ def q4k_matvec_hbm(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
 q4k_matvec_hbm.launches = 0
 
 
+def q4k_matvec_hbm_layout(k: int) -> tuple[int, int]:
+    """(stages a warp's ring holds, dynamic shared memory of a block in
+    bytes) of a K12 launch with K = k, as the kernel library reports them
+    (builds it on first use)."""
+    stages, smem = ctypes.c_int(), ctypes.c_longlong()
+    fn = cuda.bind("q4k_matvec_hbm", "zt_q4k_matvec_hbm_layout",
+                   [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)])
+    cuda.check(fn(k, ctypes.byref(stages), ctypes.byref(smem)), "q4k_matvec_hbm_layout")
+    return stages.value, smem.value
+
+
 # ---------------------------------------------------------------------------
-# K11: decode matvec on activations quantized beforehand (dual-dot bytes)
+# K11: dual-view decode matvec (each packed byte dotted whole), the
+# activation quantize in the same launch
 # ---------------------------------------------------------------------------
 
 def quantize_acts_plain(x: torch.Tensor):
@@ -239,8 +252,9 @@ def quantize_acts_plain(x: torch.Tensor):
 
 def quantize_acts(x: torch.Tensor):
     """(xq, dx, e) of `quantize_acts_plain`; on a CUDA tensor one launch of
-    the quantize kernel in `csrc/w4a8dd_matvec.cu`, bit-equal to the plain
-    version."""
+    the quantize kernel in `csrc/w4a8dd_matvec.cu` (one block), bit-equal to
+    the plain version.  K11 quantizes inside its own launch and does not
+    call this."""
     k = x.numel()
     if k % 256 or (x.dim() == 2 and x.shape[0] != 1):
         raise ValueError(f"quantize_acts wants one row of K % 256 == 0, got {tuple(x.shape)}")
@@ -268,21 +282,25 @@ def w4a8dd_matvec_plain(xq: torch.Tensor, dx: torch.Tensor, e: torch.Tensor,
     return _nibble_epilogue(pi, w, dx, xg.sum(dim=-1), e).sum(dim=-1).reshape(1, n)
 
 
+# the C entry point zt_w4a8dd_matvec: fmt, x, x_dtype, qs, s0, s1, y, K, N, stream
+W4A8DD_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _I, _I, _P]
+
+
 def w4a8dd_matvec(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
     """y[1, N] f32 = x @ dequant(w) for a Q4_0 or Q4_1 weight: x [1, K]
-    quantized by `quantize_acts`, then K11's dot (no prologue: zllm's norm
-    and glu prologues never reach K11)."""
+    quantized as `quantize_acts` does, then K11's dual-view dot, in one
+    launch (no prologue: zllm's norm and glu prologues never reach K11)."""
     _require_nibble(w, DUALDOT_FMTS, "K11")
     k, n = w.shape
     _check_matvec_args(x, k, "q", None)
     if x.device.type == "cpu":
         return w4a8dd_matvec_plain(*quantize_acts_plain(x), w)
+    _check_cuda_x(x, "q", None)
     _check_qweight(w, x.device)
-    xq, dx, e = quantize_acts(x)
+    cuda.require_cuda(x)
     y = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    fn = cuda.bind("w4a8dd_matvec", "zt_w4a8dd_matvec", [_I, _P, _P, _P, _P, _P, _P, _P,
-                                                         _I, _I, _P])
-    err = fn(NIBBLE_FMT_CODE[w.fmt], xq.data_ptr(), dx.data_ptr(), e.data_ptr(),
+    fn = cuda.bind("w4a8dd_matvec", "zt_w4a8dd_matvec", W4A8DD_ARGTYPES)
+    err = fn(NIBBLE_FMT_CODE[w.fmt], x.data_ptr(), cuda.DTYPE_CODE[x.dtype],
              *_plane_ptrs(w, 3), y.data_ptr(), k, n, cuda.stream())
     cuda.check(err, "w4a8dd_matvec")
     w4a8dd_matvec.launches += 1
