@@ -21,11 +21,19 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
      (kernels) and on the CPU (their plain versions), logits compared step
      by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
-     launched); and the 2-layer Q4_K_M files served by the
+     launched); 2-layer Qwen3 (per-head q/k norms, 4 / 2 heads of 128),
+     Qwen2 (q/k/v biases, 6 / 1 heads of 128) and Llama-3 (rope_freqs.weight,
+     llama3 rope scaling, a llama-bpe vocab) Q4_K files with byte-level BPE
+     vocabs, the same way, K1 and K2 launched; the BPE tokenizer's ids of a
+     pinned text for the gpt-2, llama-bpe and qwen2 pretokenizers on this
+     host (which may lack `regex`) against the ids the CPU tests hold equal
+     to zllm's (`tokenizer_roundtrip`); and the 2-layer Q4_K_M files served by the
      continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
      the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
      contiguous), the OLMo-2 one in f32 contiguous and f32 paged, and the
-     Q4_0 llama paged: three prompts, one across a page, then a re-send
+     Q4_0 llama paged, and the Qwen2 one paged and q8 (G 6, head_dim 128;
+     a last wave with a non-ASCII chatml prompt, its streamed text printed
+     and equal on both sides): three prompts, one across a page, then a re-send
      sharing its first 130 tokens; tokens, reuse and step counters must be
      identical, and each run on the GPU must launch its attention kernels
      and no other (llama: paged K9/K10, contiguous K2/K6, q8 K7 alone;
@@ -61,7 +69,18 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      OLMo-2 geometry in Q4_1 (the factory), the same generate (65 K1 + 16
      K8 a step, 65 K3 + 16 K6 + 16 K8 a chunk), then `olmo2_q4_1_dualdot` (64 K11
      + 1 K1 + 16 K8 a step) and `olmo2_q4_1_hbm` (65 K12 + 16 K8 a step,
-     logits equal to the K1 run's); and the serving path: that Q4_K_M model behind zllm_torch.server's
+     logits equal to the K1 run's); the Qwen slice at full width and depth,
+     byte-level BPE vocab of 151936 (pre qwen2), tied bf16 head (a dense
+     torch.matmul, as zllm has it): Qwen3-1.7B geometry (28 layers, n_embd
+     2048, 16 / 8 heads of 128, n_ff 6144) in Q4_K, 112 K1 + 28 K2 a step
+     (K2 with the per-head q/k norms), 112 K3 + 28 K6 + 28 K2 a chunk; and
+     Qwen2.5-1.5B geometry (n_embd 1536, 12 / 2 heads of 128, n_ff 8960,
+     q/k/v biases) in Q4_K_M by `python -m zllm_torch.quantize` from its F16
+     file, 126 K1 + 42 K4 + 28 K2 a step, 126 K3 + 42 K5 + 28 K6 + 28 K2 a
+     chunk; each then timed by kernel at its own shapes (`qwen_step`: K1,
+     K4, K2, the head's matmul and its share of `step_graph_ms`, K3 and K5
+     over a chunk, each checked against its plain version); and the
+     serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
      chat, a re-send sharing two pages, then the four bodies one at a time
@@ -86,8 +105,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      and step), and K3's and K5's rows at M = 4 against the same rows of an
      M = 512 call on every Q4_K and Q6_K weight of the Q4_K_M model and on
      a Q4_0 and a Q4_1 weight, bit for bit (a difference fails); K6 at a
-     TinyLlama and an OLMo-2 prefill chunk and a `serve_contig` mixed
-     step; K9/K10 at
+     TinyLlama, an OLMo-2, a Qwen3 and a Qwen2.5 prefill chunk and a
+     `serve_contig` mixed step; K9/K10 at
      the serving path's shapes with a
      scrambled page table; K7 at the q8 serving path's decode and mixed
      steps, over int8 and over bf16 K/V; K9 and K7's split form also once
@@ -104,7 +123,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      once each at S = 2000 and S = 8320 (a trash row), its launches per
      call counted the same way (1), and `step_graph` beside the sum of the
      step's kernel times (TinyLlama Q4_K: K1 + K2; Q4_K_M: K1 + K4 + K2;
-     OLMo-2: K1 + K8); K1 by weight role;
+     OLMo-2: K1 + K8; Qwen3 and Qwen2.5: K1 (+ K4) + K2 + the head's
+     matmul); K1 by weight role;
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
      Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
@@ -112,7 +132,14 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      ones, beside K1 on the same calls; K12's and K11's CUDA launches per
      call counted by torch.profiler (1 each).
 
-Prints one JSON line per phase result, then the `kernels` line, then the
+The main paths' requantized files (TinyLlama Q4_K_M and Q4_0, Qwen2.5
+Q4_K_M) are made by child processes (`chip_smoke.py --make-gguf NAME
+FTYPE...`) started before the build, so the numpy quantizer's minute runs
+beside it.  Each main path also prints its decode step run eagerly, by
+CUDA kernel name (`step_profile`, torch.profiler).
+
+Prints one JSON line per phase result (with the run's seconds so far,
+`elapsed_s`), then the `kernels` line, then the
 card's name and power limit from nvidia-smi, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Built kernels and the GGUF files are cached under .cache/ in the checkout.
@@ -149,6 +176,18 @@ MAX_LEN = 2048
 CHUNK = 256
 SMALL = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512)
 SMALL_OLMO2 = dict(SMALL, arch="olmo2", n_kv_heads=4, norm_eps=1e-6, rope_base=500000.0)
+# the Qwen slice's 2-layer files: a byte-level BPE vocab of 4096 (3000
+# merges); qwen3 per-head q/k norms (4 / 2 heads of 128), qwen2 q/k/v
+# biases (6 / 1 heads of 128: G 6), both tied; a Llama-3 file with
+# rope_freqs.weight, llama3 rope scaling and a llama-bpe vocab
+SMALL_BPE = dict(SMALL, vocab_size=4096, with_tokenizer=True, tokenizer="bpe", pre="qwen2")
+SMALL_QWEN3 = dict(SMALL_BPE, arch="qwen3", head_dim=128, tied=True, norm_eps=1e-6,
+                   rope_base=1e6)
+SMALL_QWEN2 = dict(SMALL_BPE, arch="qwen2", n_heads=6, n_kv_heads=1, head_dim=128, tied=True,
+                   norm_eps=1e-6, rope_base=1e6)
+SMALL_LLAMA3 = dict(SMALL_BPE, rope_freqs=True, pre="llama-bpe", rope_base=500000.0)
+SMALL_SHAPES = {"small": SMALL, "small_olmo2": SMALL_OLMO2, "small_qwen3": SMALL_QWEN3,
+                "small_qwen2": SMALL_QWEN2, "small_llama3": SMALL_LLAMA3}
 SWITCH_STEPS = 8  # decode steps of the phases under ZLLM_QMM_HBM / ZLLM_QMM_DUALDOT
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
@@ -162,7 +201,13 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict):
+    """Print a result line; a phase's line gets the run's seconds so far."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -253,6 +298,39 @@ def cuda_launches(fn) -> int | None:
     return n or None
 
 
+def step_profile(torch, fn, top: int = 10) -> dict:
+    """One eager call of fn() by CUDA kernel (torch.profiler over a second
+    call): the kernels' count and summed device ms, and the `top` kernel
+    names by device time, each with its count and ms; {} where the profiler
+    records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+    except RuntimeError as err:
+        print(f"chip_smoke: torch.profiler unavailable: {err}", file=sys.stderr, flush=True)
+        return {}
+    rows: dict[str, list] = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        row = rows.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us() / 1e3
+    if not rows:
+        return {}
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
+    return {"kernels": sum(r[0] for r in rows.values()),
+            "device_ms": sum(r[1] for r in rows.values()),
+            "top": [dict(name=n, count=c, ms=ms) for n, (c, ms) in ranked[:top]]}
+
+
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
@@ -332,21 +410,53 @@ def gemm_phase(torch, fn, plain, calls, n_real, bpw: float, check=(), groups=Non
 
 
 def prompt_ids(tok, n: int) -> list[int]:
-    text = ("The quick brown fox jumps over the lazy dog while the chip counts every "
-            "byte it reads. ") * 8
-    ids = tok.encode(text, add_special=True, parse_special=True)[:n]
-    if len(ids) != n:
-        fail(f"prompt tokenized to {len(ids)} ids, wanted {n}")
-    return ids
+    """The first n ids of a sentence repeated (8 times for a byte-level SPM
+    vocab; as often as a BPE vocab's merges need)."""
+    line = ("The quick brown fox jumps over the lazy dog while the chip counts every "
+            "byte it reads. ")
+    for reps in (8, 32, 128):
+        ids = tok.encode(line * reps, add_special=True, parse_special=True)[:n]
+        if len(ids) == n:
+            return ids
+    fail(f"prompt tokenized to {len(ids)} ids, wanted {n}")
 
 
 # presets made as users make them: `python -m zllm_torch.quantize` on an
 # F16 file of the same model (kept in the cache for the next preset)
 REQUANTIZED = ("Q4_K_M", "Q4_0")
+# the main paths' requantized files (the numpy quantizer takes 30-70 s a
+# file): one child process a model makes them while the kernels build
+# (`prepare_requantized`), and gguf_file waits for its file's child
+PREQUANTIZE = {"tinyllama": ("Q4_K_M", "Q4_0"), "qwen25": ("Q4_K_M",)}
+_CHILDREN: dict[Path, subprocess.Popen] = {}
+
+
+def prepare_requantized():
+    """Start a child (`chip_smoke.py --make-gguf NAME FTYPE...`) for each
+    model of PREQUANTIZE whose files are not cached yet."""
+    import atexit
+
+    for name, ftypes in PREQUANTIZE.items():
+        paths = [CACHE / f"{name}_{f.lower()}.gguf" for f in ftypes]
+        if all(p.exists() for p in paths):
+            continue
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--make-gguf",
+                                  name, *ftypes], cwd=REPO, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True)
+        _CHILDREN.update(dict.fromkeys(paths, child))
+    atexit.register(lambda: [c.kill() for c in _CHILDREN.values() if c.poll() is None])
+
+
+def _write_atomic(path: Path, write):
+    """write(tmp) and then rename it to path, so a reader never sees a
+    file half written."""
+    tmp = path.with_name(path.name + ".tmp")
+    write(tmp)
+    os.replace(tmp, path)
 
 
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
-    """A random-weight llama or OLMo-2 GGUF (`shape` may name the arch) in
+    """A random-weight llama, OLMo-2 or Qwen GGUF (`shape` may name the arch) in
     `ftype` (cached): the REQUANTIZED presets made by `python -m
     zllm_torch.quantize` from the model's F16 file, any other type written
     directly by the factory.  Returns (path, seconds to make it)."""
@@ -354,20 +464,31 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     from zllm_torch.testing import make_llama_gguf
 
     path = CACHE / f"{name}_{ftype.lower()}.gguf"
+    shape = dict(shape, with_tokenizer=True)
     t0 = time.perf_counter()
+    child = _CHILDREN.pop(path, None)
+    if child is not None:
+        if not hasattr(child, "err"):  # its first file: wait for it, read its errors
+            child.err = child.communicate(timeout=900)[1]
+        if child.returncode != 0:
+            fail(f"making {path.name} failed: {child.err[-2000:]}")
     if not path.exists():
         if ftype in REQUANTIZED:
             src = CACHE / f"{name}_f16.gguf"
             if not src.exists():
-                make_llama_gguf(str(src), **shape, gtype=GGMLType.F16, seed=0,
-                                with_tokenizer=True)
-            q = subprocess.run([sys.executable, "-m", "zllm_torch.quantize", str(src), str(path),
-                                ftype], cwd=REPO, capture_output=True, text=True, timeout=600)
-            if q.returncode != 0:
-                fail(f"zllm_torch.quantize {ftype} failed: {q.stderr[-2000:]}")
+                _write_atomic(src, lambda p: make_llama_gguf(str(p), **shape,
+                                                             gtype=GGMLType.F16, seed=0))
+
+            def quantize(p):
+                q = subprocess.run([sys.executable, "-m", "zllm_torch.quantize", str(src), str(p),
+                                    ftype], cwd=REPO, capture_output=True, text=True, timeout=600)
+                if q.returncode != 0:
+                    fail(f"zllm_torch.quantize {ftype} failed: {q.stderr[-2000:]}")
+
+            _write_atomic(path, quantize)
         else:
-            make_llama_gguf(str(path), **shape, gtype=GGMLType[ftype], seed=0,
-                            with_tokenizer=True)
+            _write_atomic(path, lambda p: make_llama_gguf(str(p), **shape,
+                                                          gtype=GGMLType[ftype], seed=0))
     return path, time.perf_counter() - t0
 
 
@@ -411,19 +532,30 @@ def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMAL
         fail(f"small-model GPU run did not launch {must}: {res}")
 
 
+def main_shapes() -> dict:
+    """Each main path's model: its factory shape and its label."""
+    from zllm_torch import testing as zt
+
+    return {"tinyllama": (zt.TINYLLAMA_SHAPE, "tinyllama-geometry"),
+            "olmo2": (zt.OLMO2_1B_SHAPE, "OLMo-2-0425-1B geometry"),
+            "qwen3": (zt.QWEN3_1_7B_SHAPE, "Qwen3-1.7B geometry"),
+            "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry")}
+
+
 def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama"):
-    """Load the TinyLlama-geometry file (`name` "olmo2": OLMo-2-0425-1B
-    geometry), warm up, then one generate with the launch counters set to 0
-    just before and read just after; `want(cfg, n_steps, n_chunks)` gives
-    the expected counts; then the last decode step's device time from a
-    CUDA graph (`step_graph_ms`).  Returns the model, the counts, the
-    generator, the prompt's and generated tokens and the step's ms."""
+    """Load the `name` model of main_shapes() (TinyLlama, OLMo-2-0425-1B,
+    Qwen3-1.7B or Qwen2.5-1.5B geometry), warm up, then one generate with
+    the launch counters set to 0 just before and read just after;
+    `want(cfg, n_steps, n_chunks)` gives the expected counts; then the last
+    decode step's device time from a CUDA graph (`step_graph_ms`) and, run
+    eagerly, its CUDA kernels by name (`step_profile`).  Returns
+    the model, the counts, the generator, the prompt's and generated tokens
+    and the step's ms."""
     from zllm_torch.models.llama import forward
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
-    from zllm_torch.testing import OLMO2_1B_SHAPE, TINYLLAMA_SHAPE
 
-    shape = dict(OLMO2_1B_SHAPE if name == "olmo2" else TINYLLAMA_SHAPE)
+    shape, label = main_shapes()[name]
     path, t_gguf = gguf_file(name, shape, ftype)
     t0 = time.perf_counter()
     model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
@@ -457,7 +589,7 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
             forward(model.params, cfg, tok_t, pos_t, gen.kv, logits_for="last")
 
     step_ms = cuda_ms(step, 20)
-    label = "OLMo-2-0425-1B geometry" if name == "olmo2" else "tinyllama-geometry"
+    profile_ = step_profile(torch, step)
     emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
           "shape": shape, "dtype": "bfloat16", "prompt_tokens": PROMPT_TOKENS,
           "prefill_chunks": n_chunks, "new_tokens": len(res.tokens),
@@ -465,7 +597,8 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
           "launches": counts, "launches_expected": expected,
-          "flash_attention_mma_launches": k6_mma, "step_graph_ms": step_ms, "card": card})
+          "flash_attention_mma_launches": k6_mma, "step_graph_ms": step_ms,
+          "step_profile": profile_, "card": card})
     if n_steps != NEW_TOKENS - 1:
         fail(f"{ftype}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
@@ -540,7 +673,15 @@ SMALL_ENGINE_LAYOUTS = {
                     ("paged_attention", "paged_attn_decode_update")),
     "q4_0_paged": ("small", "Q4_0", dict(kv_dtype="f32"),
                    ("paged_attention", "paged_attn_decode_update")),
+    # Qwen2 (G 6, head_dim 128, q/k/v biases; wv Q6_K, so no wqkv)
+    "qwen2_paged": ("small_qwen2", "Q4_K_M", dict(kv_dtype="f32"),
+                    ("paged_attention", "paged_attn_decode_update")),
+    "qwen2_q8": ("small_qwen2", "Q4_K_M", dict(kv_dtype="q8"), ("flash_attention_blockwise",)),
 }
+# the chat prompt a BPE-vocab engine check sends in a wave of its own after
+# the others, and whose streamed text (the IncrementalDecoder's pieces) it
+# prints
+CHAT_PROMPT = "<|im_start|>user\nGrüße aus 東京 — ¿qué tal? 😀<|im_end|>\n<|im_start|>assistant\n"
 
 
 # a sampled logits row of the small engine, GPU against CPU, while both
@@ -571,8 +712,11 @@ def small_engine_check(torch, kernels: dict, layout: str):
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
 
+    from zllm_torch.tokenizer import IncrementalDecoder
+
     name, ftype, kw, must = SMALL_ENGINE_LAYOUTS[layout]
-    path, _ = gguf_file(name, SMALL_OLMO2 if name == "small_olmo2" else SMALL, ftype)
+    shape = SMALL_SHAPES[name]
+    path, _ = gguf_file(name, shape, ftype)
     rng = random.Random(0)
 
     def ids(n):
@@ -580,12 +724,20 @@ def small_engine_check(torch, kernels: dict, layout: str):
 
     p_long = ids(140)  # crosses the first 128-token page
     waves = [[ids(40), p_long, ids(25)], [p_long[:130] + [7]]]
+    bpe = shape.get("tokenizer") == "bpe"
+    streamed = {}
     must_not = [n for n in ATTENTION_KERNELS if n not in must]
     kw = dict(kw, kv_dtype=torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"])
     runs, logits = {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.float32)
         eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, **kw)
+        if bpe and dev == "cuda":  # a non-ASCII chat prompt, last
+            chat = m.tokenizer.encode(CHAT_PROMPT, add_special=True, parse_special=True)
+            if m.tokenizer.decode(chat) != CHAT_PROMPT.replace("<|im_start|>", "").replace(
+                    "<|im_end|>", ""):
+                fail(f"small engine ({layout}): the chat prompt does not decode to its text")
+            waves.append([chat])
 
         def record(lg, cols, slots, _real=eng._sample_and_emit, _rec=logits[dev]):
             rows = lg.float().cpu()
@@ -605,6 +757,9 @@ def small_engine_check(torch, kernels: dict, layout: str):
                 wait_done(reqs)
                 got += [(tuple(r.prompt_tokens), r.out_tokens, r.finish_reason, r.n_prompt_reused,
                          r.error) for r in reqs]
+            if bpe:  # the chat request, streamed as the server streams it
+                dec = IncrementalDecoder(m.tokenizer)
+                streamed[dev] = [dec.push(t) for t in reqs[-1].out_tokens] + [dec.flush()]
         finally:
             eng.stop()
         if dev == "cuda":
@@ -639,26 +794,29 @@ def small_engine_check(torch, kernels: dict, layout: str):
     # kernel, K2 (llama) or K8 (OLMo-2), as a decode step does
     want = {}
     if kw.get("kv_layout") == "contiguous":
-        n_l = (SMALL_OLMO2 if name == "small_olmo2" else SMALL)["n_layers"]
+        n_l = shape["n_layers"]
         dec, pre = g_cnt["decode_steps_total"], g_cnt["prefill_steps_total"]
         t1 = "attn_decode_update" if name == "small_olmo2" else "attn_decode_qkv"
         want = {t1: n_l * (dec + pre), "flash_attention": n_l * pre}
     res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": ftype,
-           "shape": SMALL_OLMO2 if name == "small_olmo2" else SMALL, "dtype": "float32",
+           "shape": shape, "dtype": "float32",
            "kv": str(kw["kv_dtype"]), "n_slots": 2, "max_len": 256, "chunk": 16,
            "tokens_equal": g_got == c_got, "requests": per_req, "logits_nmse_tolerance": ENGINE_NMSE,
            "tie_gap_limit": TIE_GAP if layout in TIE_LAYOUTS else 0.0,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
            "n_prompt_reused": [r[3] for r in g_got], "gpu_launches": g_k,
-           "gpu_launches_expected": want}
+           "gpu_launches_expected": want, "chat_prompt": CHAT_PROMPT if bpe else "",
+           "chat_streamed_pieces": streamed.get("cuda", [])}
     emit(res)
     if any(r[4] for r in g_got + c_got):
         fail(f"engine errors: {[r[4] for r in g_got + c_got]}")
+    if streamed.get("cuda") != streamed.get("cpu"):
+        bad.append(f"streamed chat text {streamed}")
     if bad or [r[2:] for r in g_got] != [r[2:] for r in c_got] or g_cnt != c_cnt:
         fail(f"GPU engine disagrees with the CPU engine ({layout}): {bad}; {g_got} / {c_got}, "
              f"{g_cnt} / {c_cnt}")
     # the re-send reuses 128 (a whole page) or, contiguous, its 130 tokens
-    if g_got[-1][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not) \
+    if g_got[3][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not) \
             or any(g_k[n] != c for n, c in want.items()):
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
@@ -800,6 +958,153 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     return dict(counts, mma_launches=mma)
 
 
+def qwen_step_phase(torch, name: str, model, step_ms: float, card: str) -> dict:
+    """A Qwen main path's kernels at its own shapes (random inputs, seed 0),
+    each beside its bound: one B = 1 decode step's matvecs through K1 (and
+    K4: the Q4_K_M file's wv and first half of ffn_down), its attention
+    blocks through K2 (Qwen3's with the per-head q/k norms) at the last
+    decode position, the tied bf16 head as the step runs it (`linear` on
+    an f32 row: the weight cast to f32, then the product; beside it the
+    product in bf16; its share of `step_graph_ms`), and one 256-row
+    chunk's GEMMs through K3 (and K5);
+    K1, K4, K3 and K5 checked against their plain versions on one call of
+    each (fuse, K), K2 on the first layer.  Returns the phase's line."""
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.ops.layers import rope_table
+    from zllm_torch.ops.linear import linear
+
+    cfg, layers = model.cfg, model.params["layers"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def randn(*shape_, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape_, generator=g, device="cuda") * scale).to(dtype)
+
+    def n_real(w):
+        return w.shape[1]
+
+    def first_of_each(calls, key):  # one call of each kind, for the plain check
+        seen = {}
+        for i, c in enumerate(calls):
+            seen.setdefault(key(c), i)
+        return tuple(seen.values())
+
+    d, ff, eps = cfg.n_embd, cfg.n_ff, cfg.norm_eps
+    x_res, x_att, x_gup = randn(1, d, scale=3.0), randn(1, cfg.q_dim), randn(1, 2 * ff)
+    x_h = randn(1, d, dtype=torch.bfloat16)  # a normed row in the model dtype
+    mv = {GGMLType.Q4_K: [], GGMLType.Q6_K: []}
+    m_rows = CHUNK
+    xs = {k: randn(m_rows, k) for k in {d, ff, cfg.q_dim}}
+    xh = randn(m_rows, d, dtype=torch.bfloat16)
+    gm = {GGMLType.Q4_K: [], GGMLType.Q6_K: []}
+    for layer in layers:
+        qkv = ([(x_res, layer["wqkv"], "norm", layer["attn_norm"])] if "wqkv" in layer
+               else [(x_h, layer[k], "q", None) for k in ("wq", "wk", "wv")])
+        for c in qkv + [(x_att, layer["wo"], "q", None),
+                        (x_res, layer["ffn_gateup"], "norm", layer["ffn_norm"]),
+                        (x_gup, layer["ffn_down"], "glu", None)]:
+            mv[c[1].fmt].append(c)
+        rows = ([(xh, layer["wqkv"])] if "wqkv" in layer
+                else [(xh, layer[k]) for k in ("wq", "wk", "wv")])
+        for x, w in rows + [(xs[cfg.q_dim], layer["wo"]), (xh, layer["ffn_gateup"]),
+                            (xs[ff], layer["ffn_down"])]:
+            gm[w.fmt].append((x, w))
+    out = {"phase": "qwen_step", "model": name, "card": card, "step_graph_ms": step_ms}
+    for fmt, fn, plain, gfn, gplain, key in (
+            (GGMLType.Q4_K, qmm.q4k_matvec, qmm.q4k_matvec_plain, qmm.q4k_gemm,
+             qmm.q4k_gemm_plain, "k1"),
+            (GGMLType.Q6_K, qmm.int8_matvec, qmm.int8_matvec_plain, qmm.dequant_gemm,
+             qmm.dequant_gemm_plain, "k4")):
+        if not mv[fmt]:
+            continue
+        bpw = GGUF_BYTES_PER_WEIGHT[fmt.name]
+        out[key] = dict(matvec_phase(torch, fn, plain, mv[fmt], n_real, bpw, eps,
+                                     check=first_of_each(mv[fmt], lambda c: (c[2], c[1].shape[0]))),
+                        launches=len(mv[fmt]), tolerance=1e-6,
+                        k_widths=sorted({c[1].shape[0] for c in mv[fmt]}))
+        out["k3" if key == "k1" else "k5"] = dict(
+            gemm_phase(torch, gfn, gplain, gm[fmt], n_real, bpw,
+                       check=first_of_each(gm[fmt], lambda c: c[1].shape)),
+            launches=len(gm[fmt]), m=m_rows, tolerance=1e-6)
+
+    # K2: the step's attention blocks over bf16 caches at the last position
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos_v = PROMPT_TOKENS + NEW_TOKENS - 1
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    rope = rope_table(pos, cfg.rope, hd)
+    qkv3 = randn(1, hq + 2 * hkv, hd)
+    caches = [(randn(1, hkv, MAX_LEN, hd, dtype=torch.bfloat16),
+               randn(1, hkv, MAX_LEN, hd, dtype=torch.bfloat16)) for _ in layers]
+    norms = [(layer.get("attn_q_norm"), layer.get("attn_k_norm")) for layer in layers]
+    scale = 1.0 / hd ** 0.5
+    k2a, k2b = (tuple(t.clone() for t in caches[0]) for _ in range(2))
+    a = att.attn_decode_qkv(qkv3, *k2a, pos, rope, *norms[0], scale=scale, eps=eps)
+    b = att.attn_decode_qkv_plain(qkv3, *k2b, pos, rope, *norms[0], scale=scale, eps=eps)
+    if not (torch.equal(k2a[1], k2b[1]) and nmse(k2a[0].float(), k2b[0].float()) <= 1e-9):
+        fail(f"{name}: K2's new cache row differs from its plain version's")
+
+    def k2(fn):
+        def go():
+            for (kc, vc), (qw, kw) in zip(caches, norms):
+                fn(qkv3, kc, vc, pos, rope, qw, kw, scale=scale, eps=eps)
+        return go
+
+    L = len(layers)
+    nbytes = L * (2 * hkv * (pos_v + 1) * hd * 2 + qkv3.numel() * 4 + hq * hd * 4)
+    bms, bby = bound_ms(nbytes, L * 4 * hq * (pos_v + 1) * hd, "bf16")
+    out["k2"] = dict(ms=cuda_ms(k2(att.attn_decode_qkv), 20),
+                     plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 2), bound_ms=bms,
+                     bound_by=bby, nmse=nmse(a.float(), b.float()),
+                     max_abs_err=float((a.float() - b.float()).abs().max()), tolerance=1e-5,
+                     launches=L, qk_norms=norms[0][0] is not None,
+                     shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] f32, cache [1,{hkv},{MAX_LEN},{hd}] "
+                            f"bf16, pos {pos_v}, G {hq // hkv}")
+    del caches
+    # the tied head: a dense bf16 [n_embd, vocab] weight, as zllm has it,
+    # given the f32 row the step gives it (the kernels return f32, so the
+    # residual stream is f32): `linear` casts the weight to f32 first, as
+    # zllm's `w.astype(x.dtype)` does; `bf16_ms` the product in bf16
+    head = model.params["output"]
+    xh32 = randn(1, d)
+    xb = xh32.to(torch.bfloat16)
+    hbytes = head.numel() * head.element_size()
+    out["head"] = dict(ms=cuda_ms(lambda: linear(xh32, head), 20),
+                       bf16_ms=cuda_ms(lambda: torch.matmul(xb, head), 20),
+                       bound_ms=hbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                       bytes=hbytes, shape=list(head.shape), dtype=str(head.dtype)[6:])
+    out["head"]["share_of_step"] = out["head"]["ms"] / step_ms
+    emit(out)
+    bad = [k for k in ("k1", "k4", "k2", "k3", "k5") if k in out
+           and not out[k]["nmse"] <= out[k]["tolerance"]]
+    if bad:
+        fail(f"{name}: kernels disagree with their plain versions at the model's shapes: {bad}")
+    return out
+
+
+def tokenizer_roundtrip(card: str):
+    """The BPE pretokenizers and merges on this host (which may lack
+    `regex`): the pinned text's ids for each pre, beside the ids the CPU
+    tests hold equal to zllm's."""
+    import importlib.util
+
+    from zllm_torch.testing import BPE_ROUNDTRIP_IDS, BPE_ROUNDTRIP_TEXT, synthetic_bpe_vocab
+    from zllm_torch.tokenizer import Tokenizer
+
+    ids, same = {}, {}
+    for pre, pinned in BPE_ROUNDTRIP_IDS.items():
+        tok = Tokenizer(synthetic_bpe_vocab(pre, 4096))
+        ids[pre] = tok.encode(BPE_ROUNDTRIP_TEXT, add_special=True, parse_special=True)
+        same[pre] = ids[pre] == pinned and tok.decode(ids[pre]) == BPE_ROUNDTRIP_TEXT.replace(
+            "<|im_start|>", "")
+    emit({"phase": "tokenizer_roundtrip", "text": BPE_ROUNDTRIP_TEXT,
+          "regex_importable": importlib.util.find_spec("regex") is not None, "ids": ids,
+          "pinned_ids": BPE_ROUNDTRIP_IDS, "equal": same, "card": card})
+    if not all(same.values()):
+        fail(f"BPE ids differ from the pinned ones: {same}")
+
+
 def main():
     if not (REPO / "zllm_torch" / "csrc").is_dir():
         fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")
@@ -818,6 +1123,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     CACHE.mkdir(parents=True, exist_ok=True)
+    prepare_requantized()
 
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.ops import attention as att
@@ -951,6 +1257,13 @@ def main():
         small_model_check(torch, "Q4_0", env=env, kernels=kernels, must=must)
         small_model_check(torch, "Q4_1", "small_olmo2", SMALL_OLMO2, env=env, kernels=kernels,
                           must=must)
+    # the Qwen slice's 2-layer files: the decode steps through K1 and K2
+    # (qwen3: K2 with the per-head q/k norms; qwen2: the fused norm->wqkv
+    # matvec, then its biases)
+    for name in ("small_qwen3", "small_qwen2", "small_llama3"):
+        small_model_check(torch, "Q4_K", name, SMALL_SHAPES[name], kernels=kernels,
+                          must=("q4k_matvec", "attn_decode_qkv"))
+    tokenizer_roundtrip(card)
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
 
@@ -1027,14 +1340,44 @@ def main():
         k1_logits=k1_o1)
     del gen_o1
 
+    # the Qwen slice at full width and depth: Qwen3-1.7B in Q4_K (per-head
+    # q/k norms inside K2), Qwen2.5-1.5B in Q4_K_M by zllm_torch.quantize
+    # (q/k/v biases; wq / wk Q4_K and wv Q6_K, so no wqkv; ffn_down K 8960);
+    # both tie their head, a dense bf16 matmul outside the kernels
+    def want_qwen3(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # wqkv, wo, gate|up, down a layer; no K1 for the head
+        return dict({name: 0 for name in kernels}, q4k_matvec=4 * L * n_steps,
+                    attn_decode_qkv=L * (n_steps + n_chunks), q4k_gemm=4 * L * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    def want_qwen25(cfg, n_steps, n_chunks):
+        # Q4_K: wq, wk, wo, gate|up a layer + ffn_down of the last L/2;
+        # Q6_K: wv a layer + ffn_down of the first L/2
+        L, low = cfg.n_layers, cfg.n_layers // 2
+        k1, k4 = 4 * L + (L - low), L + low
+        return dict({name: 0 for name in kernels}, q4k_matvec=k1 * n_steps,
+                    int8_matvec=k4 * n_steps, attn_decode_qkv=L * (n_steps + n_chunks),
+                    q4k_gemm=k1 * n_chunks, dequant_gemm=k4 * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    model_q3, counts_q3, gen_q3, *_, step_q3 = main_path(torch, "Q4_K", kernels, want_qwen3,
+                                                         card, name="qwen3")
+    del gen_q3
+    qwen3_step = qwen_step_phase(torch, "Qwen3-1.7B geometry Q4_K", model_q3, step_q3, card)
+    model_q25, counts_q25, gen_q25, *_, step_q25 = main_path(torch, "Q4_K_M", kernels,
+                                                             want_qwen25, card, name="qwen25")
+    del gen_q25
+    qwen25_step = qwen_step_phase(torch, "Qwen2.5-1.5B geometry Q4_K_M", model_q25, step_q25,
+                                  card)
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
-             "olmo2_q4_1_hbm": counts_o1_hbm, "serve": counts_serve, "serve_q8": counts_q8,
-             "serve_contig": counts_contig}
+             "olmo2_q4_1_hbm": counts_o1_hbm, "qwen3": counts_q3, "qwen25": counts_q25,
+             "serve": counts_serve, "serve_q8": counts_q8, "serve_contig": counts_contig}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -1297,7 +1640,10 @@ def main():
           "olmo2_chunk": k6_case(cfg_o.n_layers, CHUNK, cfg_o.n_heads, cfg_o.n_kv_heads,
                                  cfg_o.head_dim, MAX_LEN, [CHUNK]),
           "serve_contig_mixed_step": k6_case(per_layer, 128, hq, hkv, hd, MAX_LEN + 128,
-                                             [0, 256, 300, MAX_LEN])}
+                                             [0, 256, 300, MAX_LEN]),
+          **{f"{label}_chunk": k6_case(m_.cfg.n_layers, CHUNK, m_.cfg.n_heads, m_.cfg.n_kv_heads,
+                                       m_.cfg.head_dim, MAX_LEN, [CHUNK])
+             for label, m_ in (("qwen3", model_q3), ("qwen25", model_q25))}}
     head6 = k6["tinyllama_chunk"]
     lines.append(dict(name="flash_attention", route="cuda", source="zllm_torch/csrc/flash_attn.cu",
                       replaces="zllm/ops/attention.py:33", launches=counts_q4k["flash_attention"],
@@ -1311,7 +1657,8 @@ def main():
                       unit="one TinyLlama prefill chunk (22 launches)",
                       launches_per_chunk=per_layer, olmo2_chunk=k6["olmo2_chunk"],
                       bf16_q_chunk=k6["tinyllama_chunk_bf16_q"],
-                      serve_contig_mixed_step=k6["serve_contig_mixed_step"]))
+                      serve_contig_mixed_step=k6["serve_contig_mixed_step"],
+                      qwen3_chunk=k6["qwen3_chunk"], qwen25_chunk=k6["qwen25_chunk"]))
     bad_k6 = [name for name, r in k6.items() if not r["nmse"] <= r["tolerance"]]
 
     # K9 / K10 at the serving path's shapes: 4 slots, 16 logical pages of
@@ -1956,9 +2303,16 @@ def main():
                                  + by_name["attn_decode_qkv"]["ms"]),
           "olmo2_q4k": dict(step_graph_ms=step_o, k1_ms=k1_o["ms"], k8_ms=k8_o["ms"],
                             kernels_ms=k1_o["ms"] + k8_o["ms"]),
+          **{label: dict(step_graph_ms=st["step_graph_ms"], k1_ms=st["k1"]["ms"],
+                         k4_ms=st["k4"]["ms"] if "k4" in st else 0.0, k2_ms=st["k2"]["ms"],
+                         head_ms=st["head"]["ms"],
+                         kernels_ms=st["k1"]["ms"] + (st["k4"]["ms"] if "k4" in st else 0.0)
+                         + st["k2"]["ms"] + st["head"]["ms"])
+             for label, st in (("qwen3_q4k", qwen3_step), ("qwen25_q4km", qwen25_step))},
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
                   "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M: K1, K4 and K2; "
-                  "OLMo-2: K1 and K8) graph times from the kernel phase"})
+                  "OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul) graph "
+                  "times from the kernel phases"})
 
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
@@ -1978,4 +2332,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--make-gguf"]:  # a child of prepare_requantized
+        sys.path.insert(0, str(REPO))
+        for ftype_ in sys.argv[3:]:
+            gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
+    else:
+        main()

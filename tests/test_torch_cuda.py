@@ -66,7 +66,7 @@ def _randn(shape, seed, dev, dtype=torch.float32, scale=1.0):
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
-@pytest.mark.parametrize("k,n", [(256, 40), (2048, 2560), (5632, 2048)])
+@pytest.mark.parametrize("k,n", [(256, 40), (2048, 2560), (5632, 2048), (8960, 1536)])
 def test_k1_matches_plain(dev, k, n, fuse, xdtype):
     w = _qweight(n, k, k + n, dev)
     x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
@@ -89,7 +89,8 @@ K3_CASES = [(1, 256, 64, 0), (7, 512, 200, 0), (64, 2048, 2560, 0), (256, 5632, 
             (17, 768, 256, 0), (37, 5632, 2048, 0), (128, 5632, 2048, 0),
             (256, 2048, 11264, 0), (256, 8192, 2048, 0), (300, 2048, 32000, 32768),
             (512, 768, 384, 0), (512, 2048, 256, 0), (512, 2048, 2560, 0),
-            (3, 1024, 202, 0)]  # M*N not a multiple of 4, split slices
+            (3, 1024, 202, 0),  # M*N not a multiple of 4, split slices
+            (4, 8960, 1536, 0), (256, 8960, 1536, 0)]  # Qwen2.5-1.5B's ffn_down
 
 
 def _k3_case(dev, m, k, n, n_pad, xdtype, fmt):
@@ -136,7 +137,7 @@ def _int_weight(fmt, n: int, k: int, seed: int, dev, n_pad: int = 0):
 @pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
 @pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("k,n,n_pad", [(256, 128, 0), (2048, 256, 0), (5632, 2048, 0),
-                                       (2048, 32000, 32768)])
+                                       (2048, 32000, 32768), (8960, 1536, 0)])
 def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
     w = _int_weight(fmt, n, k, k + n, dev, n_pad)
     x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
@@ -160,7 +161,8 @@ def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
                                          (16, 2048, 256, 0), (17, 768, 256, 0),
                                          (128, 5632, 2048, 0), (256, 2048, 256, 0),
                                          (512, 768, 384, 0), (512, 2048, 256, 0),
-                                         (37, 5632, 2048, 0), (300, 2048, 32000, 32768)])
+                                         (37, 5632, 2048, 0), (300, 2048, 32000, 32768),
+                                         (4, 8960, 1536, 0), (256, 8960, 1536, 0)])
 def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
     x = _randn((m, k), 3, dev, xdtype)
@@ -244,11 +246,15 @@ def test_k4_k5_q6k_random_blocks(dev):
 
 @pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
 @pytest.mark.parametrize("case", ["plain", "qknorm", "softcap", "window", "b2", "d128",
-                                  "norm_style", "partial", "trash", "pos0", "bf16q"])
+                                  "norm_style", "partial", "trash", "pos0", "bf16q", "qwen3",
+                                  "g6_d128"])
 def test_k2_matches_plain(dev, case, cdtype):
+    """`qwen3`: Qwen3-1.7B's block (16 / 8 heads of 128, per-head q/k
+    norms, neox rope); `g6_d128`: Qwen2.5-1.5B's (12 / 2 heads of 128: a
+    group of 6 leaves 2 of a block's 8 query rows idle)."""
     b = 2 if case == "b2" else 1
-    d = 128 if case == "d128" else 64
-    hq, hkv, s = 32, 4, 512
+    d = 128 if case in ("d128", "qwen3", "g6_d128") else 64
+    hq, hkv, s = {"qwen3": (16, 8), "g6_d128": (12, 2)}.get(case, (32, 4)) + (512,)
     style = "norm" if case in ("norm_style", "partial") else "neox"
     rope = tl.RopeParams(dim=32 if case == "partial" else d, style=style)
     pos_vals = {"trash": [s], "pos0": [0], "b2": [5, 400]}.get(case, [331])
@@ -256,8 +262,8 @@ def test_k2_matches_plain(dev, case, cdtype):
     qkv3 = _randn((b, hq + 2 * hkv, d), 4, dev, qdtype)
     kc = _randn((b, hkv, s, d), 5, dev, cdtype)
     vc = _randn((b, hkv, s, d), 6, dev, cdtype)
-    qw = _randn((d,), 7, dev) if case == "qknorm" else None
-    kw = _randn((d,), 8, dev) if case == "qknorm" else None
+    qw = _randn((d,), 7, dev) if case in ("qknorm", "qwen3") else None
+    kw = _randn((d,), 8, dev) if case in ("qknorm", "qwen3") else None
     pos = torch.tensor(pos_vals, dtype=torch.int32, device=dev)
     rt = tl.rope_table(pos, rope, d)
     kw_args = dict(scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
@@ -291,19 +297,20 @@ def test_k2_rope_equals_apply_rope(dev, style, cdtype):
     assert torch.equal(kc[rows, :, pos.long()], want[:, 0])
 
 
-K6_SHAPES = {"tinyllama": (32, 4, 64), "olmo2": (16, 16, 128)}  # Hq, Hkv, D
+K6_SHAPES = {"tinyllama": (32, 4, 64), "olmo2": (16, 16, 128),  # Hq, Hkv, D
+             "qwen25": (12, 2, 128), "qwen3": (16, 8, 128)}
 
 
 @pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
 @pytest.mark.parametrize("case", ["plain", "sinks", "softcap", "window", "base0", "b2",
-                                  "d128", "ragged", "bf16q", "olmo2"])
+                                  "d128", "ragged", "bf16q", "olmo2", "qwen25", "qwen3"])
 def test_k6_matches_plain(dev, case, kvdtype):
     b = 2 if case == "b2" else 1
     d = 128 if case == "d128" else 64
     t = 37 if case == "ragged" else 256
     hq, hkv, s = 32, 4, 1024
-    if case == "olmo2":  # OLMo-2-0425-1B: G = 1, D = 128
-        hq, hkv, d = K6_SHAPES["olmo2"]
+    if case in ("olmo2", "qwen25", "qwen3"):  # OLMo-2-0425-1B: G = 1; Qwen2.5: G = 6
+        hq, hkv, d = K6_SHAPES[case]
     base = 0 if case == "base0" else 256
     qdtype = torch.bfloat16 if case == "bf16q" else torch.float32
     q = _randn((b, t, hq, d), 9, dev, qdtype)
@@ -385,7 +392,7 @@ def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["chunk", "t1", "window", "softcap", "d128", "ragged",
                                   "g1", "trash_row", "ps64", "ps256", "g16", "idle_first",
-                                  "gen_row"])
+                                  "gen_row", "g6_d128"])
 def test_k10_matches_plain(dev, case, qdtype, pdtype):
     """Horizon 1024 slots (ps 64, 128 or 256); bf16 pools take the
     tensor-core loop, f32 pools the tile loop.  `idle_first`: the engine's
@@ -394,9 +401,11 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
     b, hq, hkv = 3, 32, 4
     ps = {"ps64": 64, "ps256": 256}.get(case, 128)
     lp = 1024 // ps
-    d = 128 if case == "d128" else 64
+    d = 128 if case in ("d128", "g6_d128") else 64
     if case == "g1":
         hq = hkv
+    if case == "g6_d128":  # Qwen2.5-1.5B: 12 / 2 heads of 128
+        hq, hkv = 12, 2
     if case == "g16":
         hq = 16 * hkv
     t = {"t1": 1, "ragged": 37}.get(case, 128)
@@ -433,7 +442,7 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
                          ids=["f32-f32", "f32-bf16", "bf16-bf16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
                                   "g4", "g16", "long", "ps64_window_softcap", "s8320",
-                                  "window_mid", "s20480"])
+                                  "window_mid", "s20480", "g6_d128"])
 def test_k9_matches_plain(dev, case, qdtype, pdtype):
     """Positions include a page edge, 0, a mid-page one and a trash row; the
     pools must come out bit-identical outside the trash page 0.  With bf16
@@ -451,9 +460,11 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
         lp = 65
     if case == "s20480":
         lp = 160
-    d = 128 if case == "d128" else 64
+    d = 128 if case in ("d128", "g6_d128") else 64
     if case == "g4":
         hq = 16
+    if case == "g6_d128":  # Qwen2.5-1.5B: 12 / 2 heads of 128
+        hq, hkv = 12, 2
     if case == "g16":  # a group wider than a block's 8 query rows: two chunks
         hq = 64
     pos_vals = {"page_edge": [127, 128, 255, lp * ps],

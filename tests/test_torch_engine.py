@@ -206,7 +206,9 @@ def test_unported_options_raise(gguf, kw):
 
 
 def test_sliding_window_model_is_refused(gguf, tmp_path):
-    """A llama file with attention.sliding_window: zllm runs it with SWA, so
+    """A llama file with attention.sliding_window: zllm reads the window
+    (its forward applies none on the llama block, swa_pattern 1, while its
+    engine builds a KVCacheSWA), and the released model would window, so
     the port refuses it rather than attend the full context."""
     import jax.numpy as jnp
 

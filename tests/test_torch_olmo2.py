@@ -210,10 +210,10 @@ class _Meta:
 
 
 @pytest.mark.parametrize("arch,extra", [
-    ("olmo2", {}), ("qwen3", {}), ("hunyuan-dense", {}), ("chameleon", {}),
+    ("olmo2", {}), ("qwen3moe", {}), ("hunyuan-dense", {}), ("chameleon", {}),
     ("olmo2", {"attention.sliding_window": 4096}), ("olmo2", {"expert_count": 8}),
     ("olmo2", {"rope.scaling.type": "longrope", "rope.scaling.factor": 4.0}),
-], ids=["olmo2", "qwen3", "hunyuan", "chameleon", "olmo2_swa", "olmo2_moe", "olmo2_longrope"])
+], ids=["olmo2", "qwen3moe", "hunyuan", "chameleon", "olmo2_swa", "olmo2_moe", "olmo2_longrope"])
 def test_config_refuses_what_the_port_does_not_run(arch, extra):
     """OLMo-2 loads; the other q/k-norm families and OLMo-2 files with a
     sliding window, experts or longrope are refused, not run as another

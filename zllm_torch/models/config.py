@@ -1,7 +1,7 @@
 """Model hyper-parameters resolved from GGUF metadata: the fields the
 llama path reads (counterpart of `zllm/models/config.py::ModelConfig`,
-whose `from_gguf` resolves the same keys the same way for plain llama and
-OLMo-2)."""
+whose `from_gguf` resolves the same keys the same way for plain llama,
+OLMo-2, Qwen2 and Qwen3)."""
 
 from __future__ import annotations
 
@@ -12,13 +12,15 @@ from ..ops.layers import RopeParams
 
 _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 
-# architectures whose graph is the llama block this port runs: plain llama,
-# and OLMo-2 (no pre-norms; whole-projection q/k RMS norms; RMS post-norms
-# on the attention and FFN outputs)
-SUPPORTED_ARCHES = ("llama", "olmo2")
+# architectures whose graph is the llama block this port runs: plain llama
+# (Llama-3 files too: rope_freqs.weight is loaded and not read, as zllm
+# does), OLMo-2 (no pre-norms; whole-projection q/k RMS norms; RMS
+# post-norms on the attention and FFN outputs), Qwen2 (q/k/v biases) and
+# Qwen3 (per-head q/k RMS norms)
+SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3")
 # architectures whose GGUFs carry half-split rope natively (zllm's
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
-NEOX_ROPE_ARCHES = ("olmo2",)
+NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3")
 
 # `{arch}.*` keys zllm's from_gguf reads for any architecture and its llama
 # forward applies, none of which the port's forward does: the key -> a test
@@ -75,6 +77,8 @@ class ModelConfig:
     final_logit_softcap: float = 0.0
     logit_scale: float = 1.0
     attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    # the arch's q/k/v projections carry biases (zllm: qwen2)
+    qkv_bias: bool = False
     # True once loader.rope_to_neox has permuted wq/wk into the half-split
     # rope basis
     neox_permuted: bool = False
@@ -127,10 +131,11 @@ class ModelConfig:
         if scaling == "longrope" or int(kv("expert_count", 0)) > 0:
             raise NotImplementedError("longrope and MoE llama are not in zllm_torch yet")
         if int(kv("attention.sliding_window", 0) or 0) > 0:
-            # zllm reads the window for llama files too; attending the full
-            # context instead would be another model
+            # zllm's forward windows no layer of these arches (swa_pattern 1),
+            # but the released model a file with a window comes from attends
+            # through it: refused rather than run without it
             raise NotImplementedError("sliding-window attention is not in zllm_torch yet "
-                                      "(ROADMAP queue 1 item 3: KVCacheSWA)")
+                                      "(ROADMAP queue 1 item 8: KVCacheSWA)")
         return cls(
             arch=arch,
             n_layers=int(kv("block_count")),
@@ -149,6 +154,7 @@ class ModelConfig:
             final_logit_softcap=float(kv("final_logit_softcapping", 0.0)),
             logit_scale=float(kv("logit_scale", 1.0)),
             attn_scale=float(kv("attention.scale", 0.0)),
+            qkv_bias=arch == "qwen2",
         )
 
     def with_(self, **kw) -> "ModelConfig":

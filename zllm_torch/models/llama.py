@@ -1,11 +1,17 @@
-"""Llama and OLMo-2 forward pass (plain PyTorch around the port's kernels).
+"""Llama, Qwen2, Qwen3 and OLMo-2 forward pass (plain PyTorch around the
+port's kernels).
 
 The counterpart of `zllm/models/llama.py::forward` / `layer_forward` for
 the plain llama block: RMS norm -> fused wqkv (or wq, wk, wv apart when
 their formats differ, as in Q4_K_M files) -> rope -> GQA attention with
 KV-cache insert -> wo -> RMS norm -> fused gate|up -> SwiGLU -> down, both
-residual; final norm and output head.  The decode fast paths sit where
-`zllm` has them:
+residual; final norm and output head.  Llama, Llama-3, Qwen2 and Qwen3
+files run this block (`layer_forward`); Qwen2 adds its q/k/v biases to
+the projection rows (`_projections`, and after the fused norm->wqkv
+matvec) before anything reads them; Qwen3 gives q and k a per-head RMS
+norm over head_dim before rope: inside K2 (its `qw`/`kw`) where K2 takes
+the step, as an `rms_norm` on every other path.  The decode fast paths sit
+where `zllm` has them:
 
   * T=1, B=1: the attention RMS norm is fused into the wqkv matvec
     (fuse="norm"; unfused projections take the plain norm), the FFN norm
@@ -144,11 +150,13 @@ def _split_heads(qkv: torch.Tensor, cfg):
 
 
 def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
-    """The q|k|v rows of h: the fused wqkv, or wq, wk, wv apart when their
-    formats differ (loader._fusable), side by side as the fused layout."""
+    """The q|k|v rows of h, biases added (Qwen2): the fused wqkv, or wq,
+    wk, wv apart when their formats differ (loader._fusable), side by side
+    as the fused layout."""
     if "wqkv" in layer:
-        return linear(h, layer["wqkv"])
-    return torch.cat([linear(h, layer[key]) for key in ("wq", "wk", "wv")], dim=-1)
+        return linear(h, layer["wqkv"], layer.get("bqkv"))
+    return torch.cat([linear(h, layer[w], layer.get(b))
+                      for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], dim=-1)
 
 
 def _ffn_core(layer: dict, h: torch.Tensor) -> torch.Tensor:
@@ -188,6 +196,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if "wqkv" in layer and t == 1 and b == 1:  # decode: norm fused into the qkv matvec
         qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
                                 layer["wqkv"])
+        if qkv is not None and "bqkv" in layer:
+            qkv = qkv + layer["bqkv"].to(qkv.dtype)
     if qkv is None:
         qkv = _projections(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     qkv = qkv.reshape(b, t, -1)
@@ -195,23 +205,32 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if isinstance(kv, KVCache) and rope is None:
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
 
-    def k2(row):  # the whole decode attention block in one kernel: split, rope,
-        # in-place cache insert at min(pos, S-1), attention
+    # Qwen3's per-head q/k norms (the loader holds them to head_dim)
+    qw, kw = layer.get("attn_q_norm"), layer.get("attn_k_norm")
+
+    def k2(row):  # the whole decode attention block in one kernel: split,
+        # per-head q/k norms, rope, in-place cache insert at min(pos, S-1),
+        # attention
         return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
-                               kv.v[il], positions[:, 0].contiguous(), rope, scale=scale,
-                               softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+                               kv.v[il], positions[:, 0].contiguous(), rope, qw, kw,
+                               scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
 
     if isinstance(kv, KVCache) and t == 1:
         att = k2(qkv)
     else:
         q, k, v = _split_heads(qkv, cfg)
+        if qw is not None:
+            q = rms_norm(q, qw, cfg.norm_eps)
+            k = rms_norm(k, kw, cfg.norm_eps)
         q = apply_rope(q, positions, cfg.rope)
         k = apply_rope(k, positions, cfg.rope)
         att = _attend(q, k, v, kv, il, positions, cfg, scale)
         if isinstance(kv, KVCache):
             # column 0 once more through K2, as a decode step: it re-inserts
             # every row's slot pos0 with its own rope, whose bits equal
-            # apply_rope's (one f32 product and one sum a pair, no FMA)
+            # apply_rope's (one f32 product and one sum a pair, no FMA);
+            # Qwen3's per-head norm there sums its mean in f32 where
+            # rms_norm sums in f64, so that k may move by an f32 rounding
             att = _one_token_rows(att, positions, k2(qkv[:, :1]))
     x = x + linear(att.reshape(b, t, -1), layer["wo"])
 

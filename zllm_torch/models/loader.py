@@ -2,15 +2,19 @@
 
 Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s
 (quantized on the device, consumed by the port's kernels); the token embedding is dequantized
-to a dense tensor of the model dtype, norm weights to f32.  A llama layer
-has the pre-norms attn_norm and ffn_norm; an OLMo-2 layer has none, but
-attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over the whole
-projection) and the post-norms attn_post_norm and ffn_post_norm.  At load,
-as `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
-into half-split ("neox") rope by permuting the wq/wk columns, wq|wk|wv and
-gate|up are fused along N where the weights share one format (in a Q4_K_M
-file wq/wk are Q4_K and wv Q6_K, so they stay apart), and the output head
-is zero-padded to a multiple of 1024.
+to a dense tensor of the model dtype, norm weights and biases to f32.  A
+llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
+the q/k/v biases bq, bk, bv; a Qwen3 layer adds attn_q_norm and
+attn_k_norm of length head_dim (one RMS a head); an OLMo-2 layer has no
+pre-norms, but attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over
+the whole projection) and the post-norms attn_post_norm and ffn_post_norm.
+A Llama-3 file's rope_freqs.weight is kept as `rope_freqs` and not read:
+zllm takes llama3 rope scaling from the metadata alone.  At load, as
+`zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
+into half-split ("neox") rope by permuting the wq/wk columns (and bq/bk),
+wq|wk|wv (with bq|bk|bv) and gate|up are fused along N where the weights
+share one format (in a Q4_K_M file wq/wk are Q4_K and wv Q6_K, so they
+stay apart), and the output head is zero-padded to a multiple of 1024.
 
 `params_from_jax` carries `zllm`'s loaded parameters (handed over as numpy
 arrays) into this layout, so a test can run both packages on the very
@@ -28,14 +32,18 @@ from ..quant.repack import WEIGHT_CLASSES, Q6KWeight, QWeight, concat_n, from_pl
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
-# GGUF tensor suffix -> params key, per layer (the llama and OLMo-2 blocks;
-# llama.cpp writes OLMo-2's post-norms as post_attention_norm / post_ffw_norm)
+# GGUF tensor suffix -> params key, per layer (the llama, Qwen2/3 and
+# OLMo-2 blocks; llama.cpp writes OLMo-2's post-norms as
+# post_attention_norm / post_ffw_norm)
 _LAYER_MAP = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_output.weight": "wo",
+    "attn_q.bias": "bq",
+    "attn_k.bias": "bk",
+    "attn_v.bias": "bv",
     "attn_q_norm.weight": "attn_q_norm",
     "attn_k_norm.weight": "attn_k_norm",
     "attn_post_norm.weight": "attn_post_norm",
@@ -47,10 +55,16 @@ _LAYER_MAP = {
     "ffn_post_norm.weight": "ffn_post_norm",
     "post_ffw_norm.weight": "ffn_post_norm",
 }
-# each architecture's norm vectors: a layer holds exactly these
+# each architecture's norm vectors: a layer holds exactly these (Qwen3's
+# q/k norms are one a head, OLMo-2's one over the whole projection: told
+# apart by their length, as zllm tells them)
 ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
+              "qwen2": {"attn_norm", "ffn_norm"},
+              "qwen3": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"},
               "olmo2": {"attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_post_norm"}}
-_VECTOR_KEYS = {"out_norm"} | set().union(*ARCH_NORMS.values())
+_BIAS_KEYS = ("bq", "bk", "bv")
+_VECTOR_KEYS = ({"out_norm", "rope_freqs", "bqkv", *_BIAS_KEYS}
+                | set().union(*ARCH_NORMS.values()))
 
 
 def resolve_device(device) -> torch.device:
@@ -92,6 +106,8 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             params["out_norm"] = _load_dense(f, name, torch.float32, device)
         elif name == "output.weight":
             params["output"] = _load_matmul(f, name, dtype, device)
+        elif name == "rope_freqs.weight":  # loaded and not read, as zllm does
+            params["rope_freqs"] = _load_dense(f, name, torch.float32, device)
         elif name.startswith("blk.") and name.split(".", 2)[2] in _LAYER_MAP:
             _, il, suffix = name.split(".", 2)
             key = _LAYER_MAP[suffix]
@@ -102,11 +118,20 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             params["layers"][int(il)][key] = val
         else:
             raise NotImplementedError(f"tensor {name} is not part of the {cfg.arch} block")
+    qk_norm_len = {"qwen3": (cfg.head_dim, cfg.head_dim), "olmo2": (cfg.q_dim, cfg.kv_dim)}
     for il, layer in enumerate(params["layers"]):
-        norms = {key for key in layer if key in _VECTOR_KEYS}
+        norms = {key for key in layer if key in _VECTOR_KEYS and key not in _BIAS_KEYS}
         if norms != ARCH_NORMS[cfg.arch]:
             raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the norms "
                                       f"{sorted(norms)}, not {sorted(ARCH_NORMS[cfg.arch])}")
+        if cfg.arch in qk_norm_len:
+            got = (layer["attn_q_norm"].shape[0], layer["attn_k_norm"].shape[0])
+            if got != qk_norm_len[cfg.arch]:
+                raise NotImplementedError(f"layer {il} of a {cfg.arch} file has q/k norms of "
+                                          f"length {got}, not {qk_norm_len[cfg.arch]}")
+        biases = [key for key in _BIAS_KEYS if key in layer]
+        if biases and len(biases) != len(_BIAS_KEYS):
+            raise NotImplementedError(f"layer {il} has the biases {biases}, not bq, bk and bv")
     if "output" not in params:  # tied embedding
         params["output"] = params["tok_emb"].float().t().contiguous().to(dtype)
     return params
@@ -140,6 +165,10 @@ def rope_to_neox(params: dict, cfg: ModelConfig) -> tuple[dict, ModelConfig]:
         for key in ("wq", "wk"):
             layer[key] = _permute_cols(layer[key], neox_head_perm(layer[key].shape[1],
                                                                   cfg.head_dim))
+        for key in ("bq", "bk"):
+            if key in layer:
+                layer[key] = _permute_cols(layer[key][None], neox_head_perm(
+                    layer[key].shape[0], cfg.head_dim))[0]
     return params, cfg.with_(rope=rope._replace(style="neox"), neox_permuted=True)
 
 
@@ -157,12 +186,15 @@ def _cat(ws):
 
 
 def fuse_projections(params: dict) -> dict:
-    """wq|wk|wv -> wqkv and ffn_gate|ffn_up -> ffn_gateup along N."""
+    """wq|wk|wv -> wqkv (bq|bk|bv -> bqkv with it) and ffn_gate|ffn_up ->
+    ffn_gateup along N."""
     for layer in params["layers"]:
         ws = [layer["wq"], layer["wk"], layer["wv"]]
         if _fusable(ws):
             layer["wqkv"] = _cat(ws)
             del layer["wq"], layer["wk"], layer["wv"]
+            if "bq" in layer:
+                layer["bqkv"] = torch.cat([layer.pop(key) for key in _BIAS_KEYS])
         ws = [layer["ffn_gate"], layer["ffn_up"]]
         if _fusable(ws):
             layer["ffn_gateup"] = _cat(ws)

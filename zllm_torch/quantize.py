@@ -10,6 +10,9 @@ bytes as `tools/quantize.py`.  Every preset can name its types, but a type
 the port has no encoder for (`quant/blocks.py`: F16, Q4_0, Q4_1, Q8_0,
 Q4_K, Q6_K) raises NotImplementedError before anything is written.
 
+Vectors (norms, Qwen2's q/k/v biases, rope_freqs) stay F32; a file with a
+tied head has no output.weight to re-type.
+
 Usage: python -m zllm_torch.quantize IN.gguf OUT.gguf Q4_K_M
 """
 

@@ -3,19 +3,175 @@
 Builds random llama-family GGUF files with the port's writer and encoders
 so the whole stack (reader -> QWeight -> kernels -> runtime) can be
 exercised without model downloads.  For the same arguments it writes the
-same bytes as `zllm.testing.make_llama_gguf`; `arch="olmo2"` writes an
-OLMo-2 file instead (llama.cpp's tensor names: no attn_norm / ffn_norm,
-attn_q_norm [q_dim], attn_k_norm [kv_dim], post_attention_norm and
-post_ffw_norm), which zllm's loader reads.
+same bytes as `zllm.testing.make_llama_gguf`; the options zllm's factory
+lacks write what llama.cpp's converter writes for those models, which
+zllm's loader reads:
+  * `arch="olmo2"`: no attn_norm / ffn_norm, attn_q_norm [q_dim],
+    attn_k_norm [kv_dim], post_attention_norm and post_ffw_norm;
+  * `arch="qwen2"`: attn_q.bias, attn_k.bias, attn_v.bias;
+  * `arch="qwen3"`: attn_q_norm and attn_k_norm of length head_dim;
+  * `head_dim` (q_dim may differ from n_embd), `tied=True` (no
+    output.weight), `rope_freqs=True` (Llama-3.1's rope_freqs.weight and
+    its llama3 rope-scaling metadata);
+  * `tokenizer="bpe"` with `with_tokenizer=True`: a byte-level BPE
+    ("gpt2") vocab for tokenizer.ggml.pre `pre`: the 256 byte tokens,
+    merges learned from a fixed text (`bpe_vocab`), the specials
+    <|endoftext|>, <|im_start|>, <|im_end|> (CONTROL; bos, eos), and
+    [PAD<i>] tokens (UNUSED) up to vocab_size.
 """
 
 from __future__ import annotations
+
+import functools
+import heapq
+import math
+from collections import Counter, defaultdict
 
 import numpy as np
 
 from .gguf.constants import GGMLType
 from .gguf.writer import GGUFWriter
 from .quant import blocks as qb
+from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
+from .tokenizer.vocab import Vocab
+
+ARCHES = ("llama", "olmo2", "qwen2", "qwen3")
+BPE_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+BPE_MERGES = 3000
+# the text the synthetic BPE merges are learned from: prose, code, digits,
+# whitespace runs and non-ASCII, so that merges cross every class
+_BPE_TEXT = """\
+The quick brown fox jumps over the lazy dog while the chip counts every byte it reads.
+It's what they'll say: we're here, you've seen it, I'm sure he'd know. THEY'LL SAY IT'S TRUE.
+In 2024 the model served 1234567 requests at 89.5 ms each; 3.14159 and 2.71828 are constants.
+def forward(params, tokens, positions):
+    x = params["tok_emb"][tokens]
+    for layer in params["layers"]:
+        x = layer_forward(layer, x, positions)  # one block
+    return rms_norm(x) @ params["output"]
+\tTabs\tand  double  spaces,\r\nWindows line breaks\r\n\n\nand trailing whitespace   
+Ça coûte 15 € — naïve café, déjà vu, Straße, Ελληνικά, русский текст, العربية, עברית.
+中文文本：模型在芯片上运行。日本語のテキスト、한국어 텍스트。 Emoji: 🚀🔥😀👍 ok!
+<html><body class="main">Hello, world!</body></html> {"key": [1, 2, 3], "ok": true}
+"""
+
+
+@functools.lru_cache(maxsize=8)
+def bpe_vocab(pre: str, n_merges: int) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(tokens, merges) of a byte-level BPE vocab: the 256 GPT-2 byte
+    tokens, then one token a merge, the merges learned on `_BPE_TEXT` and
+    words drawn from it by a numpy generator of seed 0 (pretokenized with
+    `pre`'s pretokenizer): the most frequent adjacent pair first, the
+    smallest pair of equal counts first, until `n_merges` or no pair is
+    left."""
+    rng = np.random.default_rng(0)
+    base = _BPE_TEXT.split()
+    heads, cuts, tails = (rng.integers(0, hi, 4000) for hi in (len(base), 6, len(base)))
+    drawn = [base[i][: 1 + j] + base[k] for i, j, k in zip(heads, cuts, tails)]
+    text = _BPE_TEXT + " ".join(drawn)
+    enc = _byte_encoder()
+    counts = Counter("".join(enc[b] for b in frag.encode("utf-8"))
+                     for frag in pretokenize(text, PRETOKENIZERS[pre]))
+    words = [list(w) for w in counts]
+    freq = [counts[w] for w in counts]
+    pairs: Counter = Counter()
+    where: dict = defaultdict(set)
+    for wi, w in enumerate(words):
+        for pair in zip(w, w[1:]):
+            pairs[pair] += freq[wi]
+            where[pair].add(wi)
+    heap = [(-c, pair) for pair, c in pairs.items()]
+    heapq.heapify(heap)
+    tokens = {enc[b]: None for b in range(256)}  # insertion-ordered
+    merges = []
+    while heap and len(merges) < n_merges:
+        neg, pair = heapq.heappop(heap)
+        if pairs.get(pair, 0) != -neg:
+            continue  # a stale count
+        merged = pair[0] + pair[1]
+        merges.append(f"{pair[0]} {pair[1]}")
+        tokens.setdefault(merged)
+        touched = Counter()
+        for wi in sorted(where.pop(pair)):
+            w, out, i = words[wi], [], 0
+            for old in zip(w, w[1:]):
+                pairs[old] -= freq[wi]
+                touched[old] += 1
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == pair:
+                    out.append(merged)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            words[wi] = out
+            for new in zip(out, out[1:]):
+                pairs[new] += freq[wi]
+                where[new].add(wi)
+                touched[new] += 1
+        for p in touched:
+            if pairs[p] > 0 and p != pair:
+                heapq.heappush(heap, (-pairs[p], p))
+        pairs.pop(pair, None)
+    return tuple(tokens), tuple(merges)
+
+
+# Llama-3.1's rope scaling (HF rope_scaling, rope_type "llama3"), written as
+# {arch}.rope.scaling.* metadata
+LLAMA31_ROPE_SCALING = dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                            original_context_length=8192)
+
+
+def synthetic_bpe_vocab(pre: str, vocab_size: int, add_bos: bool = False) -> Vocab:
+    """The factory's BPE vocab: `bpe_vocab(pre, ...)` (as many merges as
+    `vocab_size` leaves room for, at most BPE_MERGES), the specials
+    (bos <|endoftext|>, eos <|im_end|>, CONTROL) and [PAD<id>] tokens
+    (UNUSED, as llama.cpp's converter pads) up to `vocab_size`."""
+    toks, merges = bpe_vocab(pre, min(BPE_MERGES, vocab_size - 256 - len(BPE_SPECIALS)))
+    first = len(toks)
+    n_pad = vocab_size - first - len(BPE_SPECIALS)
+    if n_pad < 0:
+        raise ValueError(f"vocab_size {vocab_size} is too small for a BPE vocab")
+    return Vocab(model="gpt2", pre=pre,
+                 tokens=[*toks, *BPE_SPECIALS, *(f"[PAD{first + 3 + i}]" for i in range(n_pad))],
+                 scores=[0.0] * vocab_size, types=[1] * first + [3] * 3 + [5] * n_pad,
+                 merges=list(merges), bos_id=first, eos_id=first + 2, pad_id=first,
+                 add_bos=add_bos, add_space_prefix=False)
+
+
+# a text and its ids in `synthetic_bpe_vocab(pre, 4096)` (encode with
+# add_special and parse_special): tests/test_torch_bpe.py holds them equal
+# to zllm's, chip_smoke.py encodes the text again on a host without `regex`
+BPE_ROUNDTRIP_TEXT = "Grüße aus 東京 — it's 2024!\r\n\tDON'T stop 😀👍🏽  12345678 <|im_start|>ok"
+BPE_ROUNDTRIP_IDS = {
+    "qwen2": [71, 114, 195, 188, 195, 159, 101, 606, 117, 115, 32, 230, 157, 177, 228, 186, 172,
+              536, 376, 406, 32, 50, 48, 50, 52, 33, 13, 10, 9, 68, 79, 78, 936, 280, 116, 111,
+              112, 32, 416, 299, 145, 141, 266, 143, 189, 32, 32, 49, 50, 51, 52, 53, 54, 55, 56,
+              32, 3257, 264],
+    "llama-bpe": [71, 114, 195, 188, 195, 159, 101, 619, 117, 115, 32, 230, 157, 177, 228, 186,
+                  172, 548, 377, 411, 32, 425, 52, 33, 13, 10, 9, 68, 79, 78, 950, 280, 116, 111,
+                  112, 32, 422, 299, 145, 141, 266, 143, 189, 32, 32, 399, 517, 55, 56, 32, 3257,
+                  264],
+    "gpt-2": [71, 114, 195, 188, 195, 159, 101, 615, 117, 115, 32, 230, 157, 177, 228, 186, 172,
+              546, 380, 413, 735, 33, 13, 10, 9, 68, 79, 78, 39, 84, 280, 116, 111, 112, 32, 424,
+              300, 145, 141, 266, 143, 189, 32, 1358, 56, 32, 3257, 264],
+}
+
+
+def _llama3_rope_factors(head_dim: int, base: float) -> np.ndarray:
+    """rope_freqs.weight as llama.cpp's converter writes it for Llama-3.1."""
+    factor, low, high, orig_ctx = LLAMA31_ROPE_SCALING.values()
+    out = []
+    for i in range(0, head_dim, 2):
+        wavelen = 2 * math.pi * base ** (i / head_dim)
+        if wavelen < orig_ctx / high:
+            out.append(1.0)
+        elif wavelen > orig_ctx / low:
+            out.append(factor)
+        else:
+            smooth = (orig_ctx / wavelen - low) / (high - low)
+            out.append(1.0 / ((1 - smooth) / factor + smooth))
+    return np.asarray(out, dtype=np.float32)
 
 
 def make_llama_gguf(
@@ -36,12 +192,17 @@ def make_llama_gguf(
     with_tokenizer: bool = False,
     arch: str = "llama",
     norm_eps: float = 1e-5,
+    head_dim: int | None = None,
+    tied: bool = False,
+    rope_freqs: bool = False,
+    tokenizer: str = "spm",
+    pre: str = "qwen2",
 ) -> str:
-    if arch not in ("llama", "olmo2"):
-        raise ValueError(f"arch {arch!r}: the factory writes llama or olmo2")
+    if arch not in ARCHES:
+        raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
     olmo2 = arch == "olmo2"
     rng = np.random.default_rng(seed)
-    head_dim = n_embd // n_heads
+    head_dim = head_dim or n_embd // n_heads
     q_dim = n_heads * head_dim
     kv_dim = n_kv_heads * head_dim
 
@@ -64,7 +225,21 @@ def make_llama_gguf(
         w.add(f"{arch}.expert_count", n_experts)
         w.add(f"{arch}.expert_used_count", n_experts_used)
         w.add(f"{arch}.expert_feed_forward_length", n_ff)
-    if with_tokenizer:
+    if rope_freqs:
+        for key, val in LLAMA31_ROPE_SCALING.items():
+            w.add(f"{arch}.rope.scaling.{key}", val)
+    if with_tokenizer and tokenizer == "bpe":  # Llama-3 adds bos, Qwen does not
+        v = synthetic_bpe_vocab(pre, vocab_size, add_bos=arch == "llama")
+        w.add("tokenizer.ggml.model", v.model)
+        w.add("tokenizer.ggml.pre", v.pre)
+        w.add("tokenizer.ggml.tokens", v.tokens)
+        w.add("tokenizer.ggml.token_type", v.types)
+        w.add("tokenizer.ggml.merges", v.merges)
+        w.add("tokenizer.ggml.bos_token_id", v.bos_id)
+        w.add("tokenizer.ggml.eos_token_id", v.eos_id)
+        w.add("tokenizer.ggml.padding_token_id", v.pad_id)
+        w.add("tokenizer.ggml.add_bos_token", v.add_bos)
+    elif with_tokenizer:
         # byte-level SPM vocab (vocab_size >= 259): unk/bos/eos + 256 bytes
         assert vocab_size >= 259, "with_tokenizer needs vocab_size >= 259"
         tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
@@ -108,6 +283,8 @@ def make_llama_gguf(
             w.add_tensor(name, qb.quantize(x, t), logical_shape=x.shape, gtype=t)
 
     emit("token_embd.weight", (vocab_size, n_embd))
+    if rope_freqs:
+        w.add_tensor("rope_freqs.weight", _llama3_rope_factors(head_dim, rope_base))
     for il in range(n_layers):
         o = f"blk.{il}."
         if not olmo2:
@@ -115,6 +292,13 @@ def make_llama_gguf(
         emit(o + "attn_q.weight", (q_dim, n_embd))
         emit(o + "attn_k.weight", (kv_dim, n_embd))
         emit(o + "attn_v.weight", (kv_dim, n_embd))
+        if arch == "qwen2":
+            emit(o + "attn_q.bias", (q_dim,), 0.5, force_f32=True)
+            emit(o + "attn_k.bias", (kv_dim,), 0.5, force_f32=True)
+            emit(o + "attn_v.bias", (kv_dim,), 0.5, force_f32=True)
+        if arch == "qwen3":
+            emit(o + "attn_q_norm.weight", (head_dim,), 1.0, force_f32=True)
+            emit(o + "attn_k_norm.weight", (head_dim,), 1.0, force_f32=True)
         emit(o + "attn_output.weight", (n_embd, q_dim))
         if olmo2:
             emit(o + "attn_q_norm.weight", (q_dim,), 1.0, force_f32=True)
@@ -147,7 +331,8 @@ def make_llama_gguf(
         if olmo2:
             emit(o + "post_ffw_norm.weight", (n_embd,), 1.0, force_f32=True)
     emit("output_norm.weight", (n_embd,), 1.0, force_f32=True)
-    emit("output.weight", (vocab_size, n_embd))
+    if not tied:
+        emit("output.weight", (vocab_size, n_embd))
     w.write()
     return path
 
@@ -164,4 +349,22 @@ TINYLLAMA_SHAPE = dict(
 OLMO2_1B_SHAPE = dict(
     arch="olmo2", n_layers=16, n_embd=2048, n_heads=16, n_kv_heads=16, n_ff=8192,
     vocab_size=100352, rope_base=500000.0, norm_eps=1e-6,
+)
+
+# Qwen3-1.7B (huggingface.co/Qwen/Qwen3-1.7B config.json): 28 layers, 2048
+# emb, 16 heads / 8 kv of 128, ff 6144, vocab 151936, rope theta 1e6,
+# rms_norm_eps 1e-6, tied embeddings, a byte-level BPE vocab (pre "qwen2")
+QWEN3_1_7B_SHAPE = dict(
+    arch="qwen3", n_layers=28, n_embd=2048, n_heads=16, n_kv_heads=8, head_dim=128, n_ff=6144,
+    vocab_size=151936, rope_base=1e6, norm_eps=1e-6, ctx_len=40960, tied=True,
+    tokenizer="bpe", pre="qwen2",
+)
+
+# Qwen2.5-1.5B (huggingface.co/Qwen/Qwen2.5-1.5B config.json): 28 layers,
+# 1536 emb, 12 heads / 2 kv of 128, ff 8960, vocab 151936, rope theta 1e6,
+# rms_norm_eps 1e-6, q/k/v biases, tied embeddings, BPE vocab (pre "qwen2")
+QWEN25_1_5B_SHAPE = dict(
+    arch="qwen2", n_layers=28, n_embd=1536, n_heads=12, n_kv_heads=2, head_dim=128, n_ff=8960,
+    vocab_size=151936, rope_base=1e6, norm_eps=1e-6, ctx_len=32768, tied=True,
+    tokenizer="bpe", pre="qwen2",
 )

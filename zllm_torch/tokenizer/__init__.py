@@ -1,11 +1,13 @@
 """Tokenizers with special-token partitioning; the engine-facing facade is
-`Tokenizer`.  A copy of `zllm.tokenizer` holding the SPM ("llama") model
-and `IncrementalDecoder`; BPE, WPM, UGM, RWKV and PLaMo2 are not ported
-yet and raise NotImplementedError."""
+`Tokenizer`.  A copy of `zllm.tokenizer` holding the SPM ("llama") and
+byte-level BPE ("gpt2", the gpt-2, llama3 and qwen2 pretokenizers) models
+and `IncrementalDecoder`; WPM, UGM, RWKV and PLaMo2 are not ported yet and
+raise NotImplementedError."""
 
 from __future__ import annotations
 
 from ..gguf.reader import GGUFFile
+from .bpe import BpeTokenizer
 from .spm import SpmTokenizer
 from .vocab import TokenType, Vocab
 
@@ -20,6 +22,8 @@ class Tokenizer:
         self.vocab = vocab
         if vocab.model == "llama":
             self.inner = SpmTokenizer(vocab)
+        elif vocab.model == "gpt2":
+            self.inner = BpeTokenizer(vocab)
         else:
             raise NotImplementedError(f"tokenizer model {vocab.model!r} not in zllm_torch yet")
         self._specials = vocab.special_tokens()
