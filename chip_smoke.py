@@ -16,8 +16,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      (csrc/q4k_matvec_hbm.cu, with its ring's stages a warp and a block's
      shared-memory bytes) and K11 (csrc/w4a8dd_matvec.cu); a spill fails,
      and so does a build that lacks one of their instantiations;
-  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M and Q4_0 (both
-     `python -m zllm_torch.quantize` from an F16 file) and Q8_0, and 2-layer
+  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M, Q4_0 and Q5_K_M
+     (`python -m zllm_torch.quantize` from an F16 file), Q5_0, Q5_1 and
+     Q8_0, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
      (kernels) and on the CPU (their plain versions), logits compared step
      by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
@@ -30,9 +31,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      to zllm's (`tokenizer_roundtrip`); and the 2-layer Q4_K_M files served by the
      continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
      the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
-     contiguous), the OLMo-2 one in f32 contiguous and f32 paged, and the
-     Q4_0 llama paged, and the Qwen2 one paged and q8 (G 6, head_dim 128;
-     a last wave with a non-ASCII chatml prompt, its streamed text printed
+     contiguous), the OLMo-2 one in f32 contiguous and f32 paged, the Q4_0
+     and Q5_K_M llamas paged, and the Qwen2 one paged and q8 (G 6, head_dim
+     128; a last wave with a non-ASCII chatml prompt, its streamed text printed
      and equal on both sides): three prompts, one across a page, then a re-send
      sharing its first 130 tokens; tokens, reuse and step counters must be
      identical, and each run on the GPU must launch its attention kernels
@@ -78,8 +79,16 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      q/k/v biases) in Q4_K_M by `python -m zllm_torch.quantize` from its F16
      file, 126 K1 + 42 K4 + 28 K2 a step, 126 K3 + 42 K5 + 28 K6 + 28 K2 a
      chunk; each then timed by kernel at its own shapes (`qwen_step`: K1,
-     K4, K2, the head's matmul and its share of `step_graph_ms`, K3 and K5
-     over a chunk, each checked against its plain version); and the
+     K4, K2 beside SDPA, the head's matmul and its share of `step_graph_ms`,
+     K3 and K5 over a chunk, each checked against its plain version); the
+     Q5 slice at TinyLlama geometry: Q5_K_M (`python -m zllm_torch.quantize`
+     from the F16 file: wq, wk, wo, gate|up, down Q5_K, wv and the head
+     Q6_K), 110 K1 + 23 K4 + 22 K2 a step, 110 K3 + 23 K5 + 22 K6 + 22 K2 a
+     chunk, and Q5_0 and Q5_1 (the factory: every matmul, the head too),
+     89 K1 + 22 K2 a step, 89 K3 + 22 K6 + 22 K2 a chunk, each then 8 steps
+     fed the same tokens under ZLLM_QMM_HBM=1 and under ZLLM_QMM_DUALDOT=1
+     (`q5_k_m_hbm`, `q5_0_dualdot`, ...): K1 again, no K12 or K11, logits
+     equal to the K1 run's; and the
      serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
@@ -122,21 +131,29 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      at a TinyLlama-geometry contiguous engine step (G = 8, a trash row),
      once each at S = 2000 and S = 8320 (a trash row), its launches per
      call counted the same way (1), and `step_graph` beside the sum of the
-     step's kernel times (TinyLlama Q4_K: K1 + K2; Q4_K_M: K1 + K4 + K2;
-     OLMo-2: K1 + K8; Qwen3 and Qwen2.5: K1 (+ K4) + K2 + the head's
-     matmul); K1 by weight role;
+     step's kernel times (TinyLlama Q4_K: K1 + K2; Q4_K_M and Q5_K_M: K1 +
+     K4 + K2; Q5_0, Q5_1: K1 + K2; OLMo-2: K1 + K8; Qwen3 and Qwen2.5: K1
+     (+ K4) + K2 + the head's matmul); K1 by weight role;
      K12 over the OLMo-2 step's 65 and the TinyLlama Q4_K step's 89
      matvecs, beside K1 on the same calls; K1, K3 and K12 in their Q4_0 and
      Q4_1 forms at the Q4_0 TinyLlama and Q4_1 OLMo-2 steps and chunks; K11
      over the Q4_0 step's 22 wo matvecs and the Q4_1 step's 64 fuse-"q"
      ones, beside K1 on the same calls; K12's and K11's CUDA launches per
-     call counted by torch.profiler (1 each).
+     call counted by torch.profiler (1 each); K1 and K3 in their Q5 forms
+     over the Q5_K_M, Q5_0 and Q5_1 steps and chunks (by weight role; K3
+     also at M = 4 on the Q5_K_M weights, and their rows at M = 4 against
+     an M = 512 call's, bit for bit), each against its plain version (nmse
+     <= 1e-6), beside `torch.matmul` on the bf16-dequantized weights; and
+     digests of K1's and K3's outputs in the Q4_K, Q4_0 and Q4_1 forms on
+     seeded random GGUF bytes (`q4_digests`; `python3 chip_smoke.py
+     --digest` prints them alone, so that two trees' can be compared).
 
-The main paths' requantized files (TinyLlama Q4_K_M and Q4_0, Qwen2.5
-Q4_K_M) are made by child processes (`chip_smoke.py --make-gguf NAME
-FTYPE...`) started before the build, so the numpy quantizer's minute runs
-beside it.  Each main path also prints its decode step run eagerly, by
-CUDA kernel name (`step_profile`, torch.profiler).
+The main paths' requantized files (TinyLlama Q4_K_M, Q4_0 and Q5_K_M,
+Qwen2.5 Q4_K_M) and the TinyLlama Q5_0 and Q5_1 factory files are made by
+child processes (`chip_smoke.py --make-gguf NAME FTYPE...`) started before
+the build, so the numpy quantizer's minutes run beside it.  Each main
+path also prints its decode step run eagerly, by CUDA kernel name
+(`step_profile`, torch.profiler).
 
 Prints one JSON line per phase result (with the run's seconds so far,
 `elapsed_s`), then the `kernels` line, then the
@@ -165,10 +182,11 @@ CACHE = REPO / ".cache" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # GGUF bytes per weight: a Q4_K super-block holds 256 weights in 144 bytes,
-# a Q6_K one in 210; a block of 32 weights is 34 bytes in Q8_0, 18 in Q4_0
-# and 20 in Q4_1
-GGUF_BYTES_PER_WEIGHT = {"Q4_K": 144 / 256, "Q6_K": 210 / 256, "Q8_0": 34 / 32,
-                         "Q4_0": 18 / 32, "Q4_1": 20 / 32}
+# a Q5_K one in 176, a Q6_K one in 210; a block of 32 weights is 34 bytes in
+# Q8_0, 18 in Q4_0, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1
+GGUF_BYTES_PER_WEIGHT = {"Q4_K": 144 / 256, "Q5_K": 176 / 256, "Q6_K": 210 / 256,
+                         "Q8_0": 34 / 32, "Q4_0": 18 / 32, "Q4_1": 20 / 32, "Q5_0": 22 / 32,
+                         "Q5_1": 24 / 32}
 
 PROMPT_TOKENS = 300
 NEW_TOKENS = 32
@@ -423,20 +441,23 @@ def prompt_ids(tok, n: int) -> list[int]:
 
 # presets made as users make them: `python -m zllm_torch.quantize` on an
 # F16 file of the same model (kept in the cache for the next preset)
-REQUANTIZED = ("Q4_K_M", "Q4_0")
+REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M")
 # the main paths' requantized files (the numpy quantizer takes 30-70 s a
-# file): one child process a model makes them while the kernels build
-# (`prepare_requantized`), and gguf_file waits for its file's child
-PREQUANTIZE = {"tinyllama": ("Q4_K_M", "Q4_0"), "qwen25": ("Q4_K_M",)}
+# file) and the TinyLlama Q5_0 and Q5_1 factory files: one child process a
+# group makes them while the kernels build (`prepare_requantized`; a
+# model's requantized files in one group, since they share its F16 file),
+# and gguf_file waits for its file's child
+PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M",)),
+               ("tinyllama", ("Q5_0", "Q5_1")))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
 def prepare_requantized():
     """Start a child (`chip_smoke.py --make-gguf NAME FTYPE...`) for each
-    model of PREQUANTIZE whose files are not cached yet."""
+    group of PREQUANTIZE whose files are not cached yet."""
     import atexit
 
-    for name, ftypes in PREQUANTIZE.items():
+    for name, ftypes in PREQUANTIZE:
         paths = [CACHE / f"{name}_{f.lower()}.gguf" for f in ftypes]
         if all(p.exists() for p in paths):
             continue
@@ -673,6 +694,9 @@ SMALL_ENGINE_LAYOUTS = {
                     ("paged_attention", "paged_attn_decode_update")),
     "q4_0_paged": ("small", "Q4_0", dict(kv_dtype="f32"),
                    ("paged_attention", "paged_attn_decode_update")),
+    # Q5_K_M: wq, wk, wo, gate|up, down Q5_K (K1, K3), wv and the head Q6_K
+    "q5_k_m_paged": ("small", "Q5_K_M", dict(kv_dtype="f32"),
+                     ("paged_attention", "paged_attn_decode_update")),
     # Qwen2 (G 6, head_dim 128, q/k/v biases; wv Q6_K, so no wqkv)
     "qwen2_paged": ("small_qwen2", "Q4_K_M", dict(kv_dtype="f32"),
                     ("paged_attention", "paged_attn_decode_update")),
@@ -698,9 +722,9 @@ TIE_GAP = 1e-2
 
 def small_engine_check(torch, kernels: dict, layout: str):
     """The continuous-batching Engine on the GPU (kernels) and on the CPU
-    (plain versions): a 2-layer Q4_K_M or Q4_0 file (llama or OLMo-2) in
-    f32, 2 slots, max_len 256, chunk 16, greedy, in one configuration of
-    SMALL_ENGINE_LAYOUTS.  Each wave is submitted from the engine thread
+    (plain versions): a 2-layer Q4_K_M, Q4_0 or Q5_K_M file (llama or
+    OLMo-2) in f32, 2 slots, max_len 256, chunk 16, greedy, in one
+    configuration of SMALL_ENGINE_LAYOUTS.  Each wave is submitted from the engine thread
     between two steps, so both engines admit it at the same step.  Counters,
     finish reasons and reuse must be equal, and every sampled logits row
     made from the same tokens on both sides within ENGINE_NMSE of the CPU's.
@@ -963,16 +987,18 @@ def qwen_step_phase(torch, name: str, model, step_ms: float, card: str) -> dict:
     each beside its bound: one B = 1 decode step's matvecs through K1 (and
     K4: the Q4_K_M file's wv and first half of ffn_down), its attention
     blocks through K2 (Qwen3's with the per-head q/k norms) at the last
-    decode position, the tied bf16 head as the step runs it (`linear` on
-    an f32 row: the weight cast to f32, then the product; beside it the
-    product in bf16; its share of `step_graph_ms`), and one 256-row
-    chunk's GEMMs through K3 (and K5);
+    decode position beside SDPA on the same caches, the tied bf16 head as
+    the step runs it (`linear` on an f32 row: the weight cast to f32, then
+    the product; beside it the product in bf16; its share of
+    `step_graph_ms`), and one 256-row chunk's GEMMs through K3 (and K5);
     K1, K4, K3 and K5 checked against their plain versions on one call of
     each (fuse, K), K2 on the first layer.  Returns the phase's line."""
+    import torch.nn.functional as F
+
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.ops import attention as att
     from zllm_torch.ops import qmatmul as qmm
-    from zllm_torch.ops.layers import rope_table
+    from zllm_torch.ops.layers import rope_apply_table, rope_table
     from zllm_torch.ops.linear import linear
 
     cfg, layers = model.cfg, model.params["layers"]
@@ -1051,12 +1077,24 @@ def qwen_step_phase(torch, name: str, model, step_ms: float, card: str) -> dict:
                 fn(qkv3, kc, vc, pos, rope, qw, kw, scale=scale, eps=eps)
         return go
 
+    # the yardstick: SDPA on the caches, q roped and rounded outside the
+    # timing (attention only: no per-head norms, no insert)
+    qr = rope_apply_table(qkv3[:, :hq].float(), rope).to(torch.bfloat16)[:, :, None]
+    mask = (torch.arange(MAX_LEN, device="cuda") <= pos_v).reshape(1, 1, 1, MAX_LEN)
+
+    def sdpa():
+        for kc, vc in caches:
+            F.scaled_dot_product_attention(qr, kc, vc, attn_mask=mask, scale=scale,
+                                           enable_gqa=True)
+
     L = len(layers)
     nbytes = L * (2 * hkv * (pos_v + 1) * hd * 2 + qkv3.numel() * 4 + hq * hd * 4)
     bms, bby = bound_ms(nbytes, L * 4 * hq * (pos_v + 1) * hd, "bf16")
     out["k2"] = dict(ms=cuda_ms(k2(att.attn_decode_qkv), 20),
                      plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 2), bound_ms=bms,
-                     bound_by=bby, nmse=nmse(a.float(), b.float()),
+                     bound_by=bby, library_ms=cuda_ms(sdpa, 20),
+                     library="scaled_dot_product_attention on the caches, q roped outside the "
+                             "timing (attention only)", nmse=nmse(a.float(), b.float()),
                      max_abs_err=float((a.float() - b.float()).abs().max()), tolerance=1e-5,
                      launches=L, qk_norms=norms[0][0] is not None,
                      shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] f32, cache [1,{hkv},{MAX_LEN},{hd}] "
@@ -1103,6 +1141,54 @@ def tokenizer_roundtrip(card: str):
           "pinned_ids": BPE_ROUNDTRIP_IDS, "equal": same, "card": card})
     if not all(same.values()):
         fail(f"BPE ids differ from the pinned ones: {same}")
+
+
+# the 4-bit nibble formats' GGUF blocks: (weights a block, block bytes,
+# offsets of the fp16 scales)
+Q4_BLOCKS = {"Q4_K": (256, 144, (0, 2)), "Q4_0": (32, 18, (0,)), "Q4_1": (32, 20, (0, 2))}
+
+
+def q4_digests(torch) -> dict:
+    """Digests of K1's and K3's outputs in their Q4_K, Q4_0 and Q4_1 forms:
+    weights of random GGUF bytes (every code and scale bit; fp16 scales in
+    [0.002, 0.02)) at a TinyLlama layer's shapes (wqkv norm 2048->2560, wo
+    q 2048->2048, gate|up norm 2048->11264, down glu 5632->2048), K1 on an
+    f32 and a bf16 row, K3 at M = 4 and 256, all from seed 0.  Equal
+    digests on two trees mean bit-equal outputs."""
+    import numpy as np
+
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.quant.repack import repack
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def randn(*shape_, scale=1.0):
+        return torch.randn(*shape_, generator=g, device="cuda") * scale
+
+    rng = np.random.default_rng(0)
+    aux = randn(2048, scale=0.1) + 1.0
+    rows = {"norm": randn(1, 2048, scale=3.0), "q": randn(1, 2048), "glu": randn(1, 2 * 5632)}
+    xm = {2048: randn(256, 2048), 5632: randn(256, 5632)}
+    out = {}
+    for fmt, (per, size, scales) in Q4_BLOCKS.items():
+        h1, h3 = hashlib.sha256(), hashlib.sha256()
+        for k, n, fuse in ((2048, 2560, "norm"), (2048, 2048, "q"), (2048, 11264, "norm"),
+                           (5632, 2048, "glu")):
+            raw = rng.integers(0, 256, size=(n * k // per, size), dtype=np.uint8)
+            for off in scales:
+                vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
+                raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+            w = repack(raw.reshape(n, -1), (n, k), GGMLType[fmt], "cuda")
+            for xdtype in (torch.float32, torch.bfloat16):
+                y = qmm.q4k_matvec(rows[fuse].to(xdtype), w, fuse, aux if fuse == "norm" else None,
+                                   1e-5)
+                h1.update(y.cpu().numpy().tobytes())
+            for m in (4, 256):
+                h3.update(qmm.q4k_gemm(xm[k][:m], w).cpu().numpy().tobytes())
+        out[fmt] = {"q4k_matvec": h1.hexdigest()[:16], "q4k_gemm": h3.hexdigest()[:16]}
+    return out
 
 
 def main():
@@ -1153,7 +1239,8 @@ def main():
     slice_build = ptxas_entries(reports, "zt_slice")
     emit({"phase": "build_gemm_slice", "instantiations": slice_build,
           "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
-                  "(q4k_gemm.cu: NibbleSlice for Q4_K, Q4_0, Q4_1) and K5 (dequant_gemm.cu: "
+                  "(q4k_gemm.cu: NibbleSlice for Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 "
+                  "(dequant_gemm.cu: "
                   "Q6KSlice, Q80Slice), RowForm and TileForm per decoder, and its round and "
                   "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
@@ -1191,14 +1278,14 @@ def main():
                   "on decode_cluster.cuh, 8 blocks a cluster) at S 2048 (D 128) / 2176 (D 64)"})
     k1_build = ptxas_entries({"q4k_matvec": reports.get("q4k_matvec", "")}, "q4k_matvec_kernel")
     emit({"phase": "build_q4k_matvec", "instantiations": k1_build,
-          "note": "registers and spills of K1 (csrc/q4k_matvec.cu: Q4_K/Q4_0/Q4_1 x prologue "
-                  "q/norm/glu x f32/bf16 x; 512 threads, at most 64 registers for two blocks an "
-                  "SM)" if k1_build else "not built in this run (cached)"})
+          "note": "registers and spills of K1 (csrc/q4k_matvec.cu: Q4_K/Q4_0/Q4_1/Q5_0/Q5_1/"
+                  "Q5_K x prologue q/norm/glu x f32/bf16; 512 threads, at most 64 registers for "
+                  "two blocks an SM)" if k1_build else "not built in this run (cached)"})
     spills = [e for e in k1_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K1 spills: {spills}")
-    if "q4k_matvec" in reports and len(k1_build) != 18:
-        fail(f"q4k_matvec: {len(k1_build)} K1 instantiations built, not 18")
+    if "q4k_matvec" in reports and len(k1_build) != 36:
+        fail(f"q4k_matvec: {len(k1_build)} K1 instantiations built, not 36")
     k4k2_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
                   for lib, entry in (("int8_matvec", "int8_matvec_kernel"),
                                      ("attn_decode", "attn_decode_qkv_kernel"))}
@@ -1236,7 +1323,7 @@ def main():
                           ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
                  if any(d in e["name"] for d in decoders)]
-        if lib in reports and len(loops) != 2 * (3 if lib == "q4k_gemm" else 2):
+        if lib in reports and len(loops) != 2 * (6 if lib == "q4k_gemm" else 2):
             fail(f"{lib}: {len(loops)} sliced-loop instantiations built, not one a form and format")
 
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
@@ -1250,6 +1337,8 @@ def main():
 
     for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
         small_model_check(torch, ftype)
+    for ftype in ("Q5_0", "Q5_1", "Q5_K_M"):  # K1 and K3 in their Q5 forms
+        small_model_check(torch, ftype, kernels=kernels, must=("q4k_matvec", "q4k_gemm"))
     for ftype in ("Q4_K", "Q4_K_M"):
         small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
     dualdot = {"ZLLM_QMM_DUALDOT": "1"}
@@ -1370,6 +1459,34 @@ def main():
     qwen25_step = qwen_step_phase(torch, "Qwen2.5-1.5B geometry Q4_K_M", model_q25, step_q25,
                                   card)
 
+    # the Q5 slice at TinyLlama geometry: Q5_K_M (zllm_torch.quantize from
+    # the F16 file: wq, wk, wo, gate|up, down Q5_K on K1/K3; wv and the head
+    # Q6_K on K4/K5), then Q5_0 and Q5_1 (the factory: every matmul, the
+    # head too); each then fed the same tokens under ZLLM_QMM_HBM=1 and
+    # ZLLM_QMM_DUALDOT=1, which leave a 5-bit weight on K1
+    def want_q5km(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # K1: wq, wk, wo, gate|up, down a layer; K4: wv a layer + the head
+        return dict({name: 0 for name in kernels}, q4k_matvec=5 * L * n_steps,
+                    int8_matvec=(L + 1) * n_steps, attn_decode_qkv=L * (n_steps + n_chunks),
+                    q4k_gemm=5 * L * n_chunks, dequant_gemm=(L + 1) * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    q5_models, q5_steps, q5_counts = {}, {}, {}
+    for ftype, want in (("Q5_K_M", want_q5km), ("Q5_0", want_q4k), ("Q5_1", want_q4k)):
+        model_5, counts_5, gen_5, ids_5, toks_5, step_5 = main_path(torch, ftype, kernels, want,
+                                                                    card)
+        q5_models[ftype], q5_steps[ftype], q5_counts[ftype] = model_5, step_5, counts_5
+        k1_logits = decode_steps(torch, gen_5, kernels, ids_5, toks_5)
+        per_step = want(model_5.cfg, 1, 0)  # one decode step's launches
+        for env, tag in (("ZLLM_QMM_HBM", "hbm"), ("ZLLM_QMM_DUALDOT", "dualdot")):
+            phase = f"{ftype.lower()}_{tag}"
+            q5_counts[phase] = switch_phase(
+                torch, gen_5, kernels, ids_5, toks_5, card, phase=phase,
+                model=f"tinyllama-geometry {ftype} (random weights, seed 0)", env=env,
+                expected={k: v * SWITCH_STEPS for k, v in per_step.items() if v},
+                k1_logits=k1_logits)
+        del gen_5
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
@@ -1377,7 +1494,8 @@ def main():
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
              "olmo2_q4_1_hbm": counts_o1_hbm, "qwen3": counts_q3, "qwen25": counts_q25,
-             "serve": counts_serve, "serve_q8": counts_q8, "serve_contig": counts_contig}
+             **q5_counts, "serve": counts_serve, "serve_q8": counts_q8,
+             "serve_contig": counts_contig}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -1407,7 +1525,7 @@ def main():
     # the function's own columns: a TinyLlama head is padded to 32768 for
     # the layout, but only the vocabulary's columns count toward the bound
     real_cols = {id(m_.params["output"]): m_.cfg.vocab_size
-                 for m_ in (model, model_m, model_40, model_o, model_o1)}
+                 for m_ in (model, model_m, model_40, model_o, model_o1, *q5_models.values())}
 
     def n_real(w):
         return real_cols.get(id(w), w.shape[1])
@@ -2158,6 +2276,80 @@ def main():
         by_name[name]["q4_0_tinyllama"] = legacy_lines["q4_0"][key]
         by_name[name]["q4_1_olmo2"] = legacy_lines["olmo2_q4_1"][key]
 
+    # K1 and K3 in their Q5 forms, by weight role: the Q5_K_M step's 110
+    # Q5_K matvecs (wq and wk take the bf16 normed row, as in the step) and
+    # its chunk's 110 GEMMs, K3 also at the engine's M = 4; the Q5_0 and
+    # Q5_1 steps' 89 matvecs and chunks' 89 GEMMs
+    def q5_calls(model_5):
+        mcalls, gcalls_, roles = [], [], {}
+        for layer in model_5.params["layers"]:
+            if "wqkv" in layer:  # Q5_0, Q5_1: wq|wk|wv fused
+                qkv = [("wqkv", (x_res, layer["wqkv"], "norm", layer["attn_norm"]),
+                        xs[d_model])]
+            else:  # Q5_K_M: wv Q6_K, so wq and wk on their own after the norm
+                qkv = [(r, (x_h, layer[r], "q", None), xh_m) for r in ("wq", "wk")]
+            for role, c, xg in qkv + [
+                    ("wo", (x_att, layer["wo"], "q", None), xs[d_model]),
+                    ("gate_up", (x_res, layer["ffn_gateup"], "norm", layer["ffn_norm"]),
+                     xh_m if "wq" in layer else xs[d_model]),
+                    ("down", (x_gup, layer["ffn_down"], "glu", None), xs[n_ff])]:
+                roles.setdefault(role, []).append(len(mcalls))
+                mcalls.append(c)
+                gcalls_.append((xg, c[1]))
+        head_5 = model_5.params["output"]
+        if head_5.fmt == mcalls[0][1].fmt:
+            roles["head"] = [len(mcalls)]
+            mcalls.append((x_res, head_5, "norm", model_5.params["out_norm"]))
+            gcalls_.append((xs[d_model], head_5))
+        return mcalls, gcalls_, roles
+
+    q5_lines, bad_q5 = {}, []
+    for ftype, fmt in (("Q5_K_M", "Q5_K"), ("Q5_0", "Q5_0"), ("Q5_1", "Q5_1")):
+        mcalls, gcalls_, roles = q5_calls(q5_models[ftype])
+        bpw = GGUF_BYTES_PER_WEIGHT[fmt]
+        check = (0, 1, 2, 3, 4, len(mcalls) - 1)
+        k1 = matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, mcalls, n_real, bpw,
+                          cfg.norm_eps, check=check, groups=roles)
+        k3 = gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, gcalls_, n_real, bpw,
+                        check=check, groups=roles)
+        q5_lines[ftype] = dict(k1=dict(k1, launches=len(mcalls), fmt=fmt, tolerance=1e-6),
+                               k3=dict(k3, launches=len(gcalls_), m=m_rows, fmt=fmt,
+                                       tolerance=1e-6))
+        if ftype == "Q5_K_M":  # the engine's decode M = 4 (one row per slot)
+            g4 = [(x[:4], w) for x, w in gcalls_]
+            q5_lines[ftype]["k3_m4"] = dict(
+                gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4, n_real, bpw,
+                           check=(0, len(g4) - 1), groups=roles),
+                launches=len(g4), m=4, fmt=fmt, tolerance=1e-6)
+            # and K4 on the step's 23 Q6_K matvecs: wv a layer, the head
+            model_5 = q5_models[ftype]
+            calls6 = [(x_h, layer["wv"], "q", None) for layer in model_5.params["layers"]]
+            calls6.append((x_res, model_5.params["output"], "norm", model_5.params["out_norm"]))
+            q5_lines[ftype]["k4"] = dict(
+                matvec_phase(torch, qmm.int8_matvec, qmm.int8_matvec_plain, calls6, n_real,
+                             GGUF_BYTES_PER_WEIGHT["Q6_K"], cfg.norm_eps,
+                             check=(0, len(calls6) - 1)),
+                launches=len(calls6), fmt="Q6_K", tolerance=1e-6)
+        bad_q5 += [f"{ftype} {key}" for key, r in q5_lines[ftype].items()
+                   if not r["nmse"] <= r["tolerance"]]
+    emit({"phase": "kernel_q5", "card": card,
+          "shapes": "TinyLlama geometry: Q5_K_M 22 x [wq, wk q 2048->2048/256 (bf16 x), wo q "
+                    "2048->2048, gate|up norm 2048->11264, down glu 5632->2048]; Q5_0 and Q5_1 "
+                    "22 x [wqkv norm 2048->2560, wo, gate|up, down] + head norm 2048->32000 "
+                    "(launched padded to 32768); K3 the same weights at M = 256 (and 4)",
+          **q5_lines})
+    for name, key in (("q4k_matvec", "k1"), ("q4k_gemm", "k3")):
+        for ftype, ln in q5_lines.items():
+            by_name[name][f"{ftype.lower()}_tinyllama"] = ln[key]
+    by_name["q4k_gemm"]["q5_k_m_tinyllama_m4"] = q5_lines["Q5_K_M"]["k3_m4"]
+
+    # K1's and K3's Q4 forms keep their bits: digests of their outputs on
+    # seeded inputs, to be compared with another tree's (`--digest`)
+    digests = q4_digests(torch)
+    emit({"phase": "q4_digests", "tree": str(REPO), **digests})
+    for name in ("q4k_matvec", "q4k_gemm"):
+        by_name[name]["q4_output_digest"] = {fmt: d[name] for fmt, d in digests.items()}
+
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
     # the bf16 residual
@@ -2216,6 +2408,7 @@ def main():
     g4_k3 = [(rows4(x), w) for x, w in gcalls_m]
     g4_k5 = [(rows4(x), w) for x, w in gcalls5]
     by_name = {ln["name"]: ln for ln in lines}  # now with K4 and K5
+    by_name["int8_matvec"]["q5_k_m_tinyllama"] = q5_lines["Q5_K_M"]["k4"]
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
                    GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1), groups=roles_m),
@@ -2231,7 +2424,8 @@ def main():
     # K3's and K5's rows do not depend on M: the engine's 4-row decode step
     # (row form) and its 512-row mixed step (tile form) give a generating
     # row the same bits, on every Q4_K (K3) and Q6_K (K5) weight of the
-    # Q4_K_M model, and on a Q4_0 (gate|up) and a Q4_1 (OLMo-2 ffn_down) one
+    # Q4_K_M model and every Q5_K weight of the Q5_K_M one, and on a Q4_0
+    # and a Q5_0 (gate|up) and a Q4_1 (OLMo-2) and a Q5_1 (ffn_down) one
     x512 = {k: randn(512, k) for k in (d_model, n_ff, cfg_o.n_ff)}
     xh512 = randn(512, d_model, dtype=torch.bfloat16)
 
@@ -2246,11 +2440,17 @@ def main():
 
     w40 = model_40.params["layers"][0]["ffn_gateup"]
     w41 = model_o1.params["layers"][0]["ffn_down"]
+    w50 = q5_models["Q5_0"].params["layers"][0]["ffn_gateup"]
+    w51 = q5_models["Q5_1"].params["layers"][0]["ffn_down"]
     rows = {"dequant_gemm": {"Q4_K_M Q6_K": rows_same(qmm.dequant_gemm, gcalls5)},
             "q4k_gemm": {"Q4_K_M Q4_K": rows_same(qmm.q4k_gemm, gcalls_m),
                          "Q4_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w40)]),
                          "Q4_1 OLMo-2 ffn_down": rows_same(qmm.q4k_gemm,
-                                                           [(x512[cfg_o.n_ff], w41)])}}
+                                                           [(x512[cfg_o.n_ff], w41)]),
+                         "Q5_K_M Q5_K": rows_same(qmm.q4k_gemm,
+                                                  q5_calls(q5_models["Q5_K_M"])[1]),
+                         "Q5_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w50)]),
+                         "Q5_1 ffn_down": rows_same(qmm.q4k_gemm, [(x512[n_ff], w51)])}}
     bad_rows = []
     for name, sets in rows.items():
         by_name[name]["rows_m4_equal_m512"] = {
@@ -2303,6 +2503,19 @@ def main():
                                  + by_name["attn_decode_qkv"]["ms"]),
           "olmo2_q4k": dict(step_graph_ms=step_o, k1_ms=k1_o["ms"], k8_ms=k8_o["ms"],
                             kernels_ms=k1_o["ms"] + k8_o["ms"]),
+          "tinyllama_q5km": dict(step_graph_ms=q5_steps["Q5_K_M"],
+                                 k1_ms=q5_lines["Q5_K_M"]["k1"]["ms"],
+                                 k4_ms=q5_lines["Q5_K_M"]["k4"]["ms"],
+                                 k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                 kernels_ms=q5_lines["Q5_K_M"]["k1"]["ms"]
+                                 + q5_lines["Q5_K_M"]["k4"]["ms"]
+                                 + by_name["attn_decode_qkv"]["ms"]),
+          **{f"tinyllama_{ft.lower()}": dict(step_graph_ms=q5_steps[ft],
+                                             k1_ms=q5_lines[ft]["k1"]["ms"],
+                                             k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                             kernels_ms=q5_lines[ft]["k1"]["ms"]
+                                             + by_name["attn_decode_qkv"]["ms"])
+             for ft in ("Q5_0", "Q5_1")},
           **{label: dict(step_graph_ms=st["step_graph_ms"], k1_ms=st["k1"]["ms"],
                          k4_ms=st["k4"]["ms"] if "k4" in st else 0.0, k2_ms=st["k2"]["ms"],
                          head_ms=st["head"]["ms"],
@@ -2310,19 +2523,19 @@ def main():
                          + st["k2"]["ms"] + st["head"]["ms"])
              for label, st in (("qwen3_q4k", qwen3_step), ("qwen25_q4km", qwen25_step))},
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
-                  "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M: K1, K4 and K2; "
-                  "OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul) graph "
-                  "times from the kernel phases"})
+                  "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M, Q5_K_M: K1, K4 "
+                  "and K2; OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul) "
+                  "graph times from the kernel phases"})
 
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
     if not by_name["attn_decode_qkv"]["tinyllama_engine_step"]["nmse"] <= 1e-5:
         bad.append("attn_decode_qkv tinyllama_engine_step")
-    if bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy:
+    if bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy or bad_q5:
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
              f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "
-             f"{bad_legacy})")
+             f"{bad_legacy}, Q5: {bad_q5})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})
@@ -2336,5 +2549,14 @@ if __name__ == "__main__":
         sys.path.insert(0, str(REPO))
         for ftype_ in sys.argv[3:]:
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
+    elif sys.argv[1:2] == ["--digest"]:  # K1's and K3's Q4 digests alone
+        if not (REPO / "zllm_torch" / "csrc").is_dir():
+            fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")
+        sys.path.insert(0, str(REPO))
+        import torch
+
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is False: the digests need a CUDA GPU")
+        emit({"phase": "q4_digests", "tree": str(REPO), **q4_digests(torch)})
     else:
         main()

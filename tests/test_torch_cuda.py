@@ -19,8 +19,13 @@ against the plain version; K1/K3/K12 hold the same tolerances in their
 Q4_0/Q4_1 forms, K11 < 1e-6 (exact integer dots, f32 sum order) against
 its plain version and equal to K1's kernel bit for bit (K1's lane order
 and epilogue), and `quantize_acts` is bit-equal to `quantize_groups`
-(rintf and torch.round both round half to even).
+(rintf and torch.round both round half to even); K1 and K3 hold the same
+tolerances in their Q5_0/Q5_1/Q5_K forms (the fifth bits from the qh
+plane), and 2-layer Q5 files run on the card within nmse 1e-3 of the CPU
+(f32 model and caches).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -49,12 +54,17 @@ def _nmse(a, b) -> float:
     return float(((a - b) ** 2).mean() / ((b ** 2).mean() + 1e-30))
 
 
-def _qweight(n: int, k: int, seed: int, dev, fmt=GGMLType.Q4_K, n_pad: int = 0):
-    """A random weight of a nibble format (Q4_K, Q4_0, Q4_1); `n_pad` > n
-    zero-pads it as the loader pads the head."""
+@functools.lru_cache(maxsize=16)
+def _qweight_raw(n: int, k: int, seed: int, fmt) -> np.ndarray:
+    """The GGUF rows of `_qweight`'s weight (quantized once a module)."""
     rng = np.random.default_rng(seed)
-    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
-    w = repack(raw, (n, k), fmt, dev)
+    return qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
+
+
+def _qweight(n: int, k: int, seed: int, dev, fmt=GGMLType.Q4_K, n_pad: int = 0):
+    """A random weight of a nibble format (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1,
+    Q5_K); `n_pad` > n zero-pads it as the loader pads the head."""
+    w = repack(_qweight_raw(n, k, seed, fmt), (n, k), fmt, dev)
     return pad_n(w, n_pad) if n_pad else w
 
 
@@ -176,17 +186,18 @@ def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
         assert not got[:, n:].any()
 
 
-SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *INT_FMTS]
+Q5_FMTS = [GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K]
+SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *Q5_FMTS, *INT_FMTS]
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fmt", SLICE_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
 def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
-    """K3 (Q4_K, Q4_0, Q4_1) and K5 (Q6_K, Q8_0) sum every row slice by
-    slice in zllm's order, so its bits do not depend on M or on the form
-    (row form M <= 16, tile form above, the slices split over blocks or
-    not), and repeated calls agree."""
+    """K3 (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 (Q6_K, Q8_0) sum every
+    row slice by slice in zllm's order, so its bits do not depend on M or
+    on the form (row form M <= 16, tile form above, the slices split over
+    blocks or not), and repeated calls agree."""
     w = (_int_weight(fmt, n, k, k + n, dev) if fmt in INT_FMTS
          else _qweight(n, k, k + n, dev, fmt))
     x = _randn((512, k), 6, dev, xdtype)
@@ -201,22 +212,27 @@ def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
 
 # GGUF block bytes of the nibble formats: (block bytes, offsets of the fp16
 # scales) -- Q4_K d, dmin then 12 scale bytes and 128 of codes; Q4_0 d then
-# 16 of codes; Q4_1 d, m then 16 of codes
+# 16 of codes; Q4_1 d, m then 16 of codes; Q5_0 d, 4 bytes of fifth bits,
+# 16 of codes; Q5_1 d, m, 4 + 16; Q5_K d, dmin, 12 scale bytes, 32 of fifth
+# bits and 128 of codes
 NIBBLE_BLOCKS = {GGMLType.Q4_K: (144, (0, 2)), GGMLType.Q4_0: (18, (0,)),
-                 GGMLType.Q4_1: (20, (0, 2))}
+                 GGMLType.Q4_1: (20, (0, 2)), GGMLType.Q5_0: (22, (0,)),
+                 GGMLType.Q5_1: (24, (0, 2)), GGMLType.Q5_K: (176, (0, 2))}
 
 
 @pytest.mark.parametrize("m,n", [(4, 200), (32, 256), (256, 4096)])
 @pytest.mark.parametrize("fmt", list(NIBBLE_BLOCKS), ids=lambda t: t.name)
 def test_k3_random_blocks(dev, fmt, m, n):
-    """Random bytes in every code and 6-bit scale position (Q4_K's 12
-    packed scale bytes too), fp16 scales drawn from a finite range, held
-    column by column: a nibble, slot or scale-word slip shows in the columns
-    it hits.  M = 4 and 32 run the row form, 256 x 4096 the tile form."""
+    """Random bytes in every code, fifth-bit and 6-bit scale position (the K
+    formats' 12 packed scale bytes too), fp16 scales drawn from a finite
+    range, held column by column: a nibble, fifth-bit, slot or scale-word
+    slip shows in the columns it hits.  M = 4 and 32 run the row form, 256 x
+    4096 the tile form."""
     k = 2048
     size, scales = NIBBLE_BLOCKS[fmt]
     rng = np.random.default_rng(9 + size)
-    raw = rng.integers(0, 256, size=(n * k // (256 if size == 144 else 32), size), dtype=np.uint8)
+    per_block = 256 if fmt in (GGMLType.Q4_K, GGMLType.Q5_K) else 32
+    raw = rng.integers(0, 256, size=(n * k // per_block, size), dtype=np.uint8)
     for off in scales:
         vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
         raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
@@ -718,7 +734,8 @@ def test_decode_rows_do_not_depend_on_the_batch(dev, kernel, kv):
         assert torch.equal(together[r:r + 1], alone), f"row {r}"
 
 
-@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q4_0], ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q5_0, GGMLType.Q5_K],
+                         ids=lambda t: t.name)
 def test_k1_chain_in_a_graph(dev, fmt):
     """K1 launches with programmatic dependent launch: each may start while
     its predecessor drains, and only its weight loads may come before
@@ -1087,3 +1104,121 @@ def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
         a, b = together[tuple(p)], alone[tuple(p)]
         assert len(a) == len(b) == 12
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# K1 and K3 in their Q5 forms: odd N (a block's last warps without a
+# column), K = 2304 (nine 256-chunks), the models' shapes (TinyLlama's
+# wqkv, gate|up, down, the head; Qwen2.5's K 8960)
+Q5_KN = [(256, 40), (2304, 72), (2048, 2560), (2048, 11264), (5632, 2048), (8960, 1536),
+         (768, 72)]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+@pytest.mark.parametrize("fmt", Q5_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n", Q5_KN)
+def test_k1_q5_matches_plain(dev, k, n, fmt, fuse, xdtype):
+    w = _qweight(n, k, k + n, dev, fmt)
+    x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
+    aux = _randn((k,), 2, dev, scale=0.1) + 1.0 if fuse == "norm" else None
+    before = tq.q4k_matvec.launches
+    got = tq.q4k_matvec(x, w, fuse, aux, 1e-5)
+    torch.cuda.synchronize()
+    assert tq.q4k_matvec.launches == before + 1
+    assert _nmse(got, tq.q4k_matvec_plain(x, w, fuse, aux, 1e-5)) < 1e-6
+
+
+@pytest.mark.parametrize("fmt", Q5_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("n", [40, 2048])
+def test_k1_q5_random_blocks(dev, fmt, n):
+    """K1 on random GGUF bytes (every nibble, fifth-bit and scale position),
+    held column by column: a fifth bit taken from the wrong word or bit
+    shows in the columns it hits.  The group dots are exact integers, so
+    only the f32 sum order differs."""
+    k = 2048
+    size, scales = NIBBLE_BLOCKS[fmt]
+    rng = np.random.default_rng(3 + size)
+    per_block = 256 if fmt == GGMLType.Q5_K else 32
+    raw = rng.integers(0, 256, size=(n * k // per_block, size), dtype=np.uint8)
+    for off in scales:
+        vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
+        raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+    w = repack(raw.reshape(n, -1), (n, k), fmt, dev)
+    x = _randn((1, k), 4, dev)
+    got, want = tq.q4k_matvec(x, w), tq.q4k_matvec_plain(x, w)
+    col_err = (got - want).abs()[0] / (want.abs().max() + 1e-30)
+    assert float(col_err.max()) < 1e-5
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", Q5_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("m,k,n,n_pad", [
+    (4, 2048, 2560, 0), (4, 2048, 11264, 0), (4, 5632, 2048, 0), (4, 2048, 32000, 32768),
+    (4, 8960, 1536, 0), (256, 2048, 2560, 0), (256, 2048, 11264, 0), (256, 5632, 2048, 0),
+    (256, 2048, 256, 0), (256, 2048, 32000, 32768), (256, 8960, 1536, 0), (7, 512, 200, 0),
+    (37, 5632, 2048, 0), (512, 2048, 2048, 0), (3, 1024, 202, 0)])
+def test_k3_q5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
+    _k3_case(dev, m, k, n, n_pad, xdtype, fmt)
+
+
+@pytest.mark.parametrize("switch", ["ZLLM_QMM_HBM", "ZLLM_QMM_DUALDOT"])
+@pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
+@pytest.mark.parametrize("fmt", Q5_FMTS, ids=lambda t: t.name)
+def test_switches_keep_q5_on_k1(dev, fmt, fuse, switch, monkeypatch):
+    """Under ZLLM_QMM_HBM=1 or ZLLM_QMM_DUALDOT=1 a Q5 matvec launches K1
+    (zllm sends no weight with a qh plane to K12 or K11), with K1's bits;
+    K12 and K11 refuse the weight."""
+    monkeypatch.setenv(switch, "1")
+    k, n = 2048, 2560
+    w = _qweight(n, k, 7, dev, fmt)
+    x = _randn((1, 2 * k if fuse == "glu" else k), 8, dev, scale=2.0)
+    aux = _randn((k,), 9, dev, scale=0.1) + 1.0 if fuse == "norm" else None
+    kernels = (tq.q4k_matvec, tq.q4k_matvec_hbm, tq.w4a8dd_matvec)
+    before = [f.launches for f in kernels]
+    got = tq.matvec(x, w, fuse, aux, 1e-5)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [1, 0, 0]
+    monkeypatch.delenv(switch)
+    assert torch.equal(got, tq.q4k_matvec(x, w, fuse, aux, 1e-5))
+    with pytest.raises(NotImplementedError, match="K12"):
+        tq.q4k_matvec_hbm(x, w, fuse, aux, 1e-5)
+    with pytest.raises(NotImplementedError, match="K11"):
+        tq.w4a8dd_matvec(x[:, :k], w)
+
+
+@pytest.mark.parametrize("ftype", ["Q5_0", "Q5_1", "Q5_K_M"])
+def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
+    """A 2-layer llama file (Q5_0 and Q5_1 from the factory, Q5_K_M by
+    `zllm_torch.quantize` from an F16 one) on the card (K1, K3, and K4/K5
+    for Q5_K_M's Q6_K wv and head) and on the CPU (plain versions), f32
+    model and caches, fed the same tokens: the prefill logits and 8 decode
+    steps' within nmse 1e-3 (chip_smoke.py's small-model tolerance: an f32
+    sum order can move an int8 activation code or a bf16 operand, which
+    the random weights carry to ~1e-4), and K1 and K3 launched."""
+    from zllm_torch.models.loader import Model
+    from zllm_torch.quantize import quantize_file
+    from zllm_torch.runtime.generate import Generator
+    from zllm_torch.testing import make_llama_gguf
+
+    shape = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512,
+                 seed=0)
+    path = str(tmp_path / "m.gguf")
+    if ftype == "Q5_K_M":
+        src = make_llama_gguf(str(tmp_path / "f16.gguf"), gtype=GGMLType.F16, **shape)
+        quantize_file(src, path, ftype, quiet=True)
+    else:
+        make_llama_gguf(path, gtype=GGMLType[ftype], **shape)
+    gens = {d: Generator(Model.load(path, device=d, dtype=torch.float32), max_len=128,
+                         prefill_chunk=16, kv_dtype=torch.float32) for d in ("cuda", "cpu")}
+    prompt = [1] + list(range(40, 59))
+    before = (tq.q4k_matvec.launches, tq.q4k_gemm.launches)
+    rows = {d: [g.prefill(prompt).float().cpu()] for d, g in gens.items()}
+    tok = int(torch.argmax(rows["cpu"][0]))
+    for i in range(8):
+        for d, g in gens.items():
+            rows[d].append(g._decode_one(tok, len(prompt) + i).float().cpu())
+        tok = int(torch.argmax(rows["cpu"][-1]))
+    torch.cuda.synchronize()
+    assert tq.q4k_matvec.launches > before[0] and tq.q4k_gemm.launches > before[1]
+    for step, (a, b) in enumerate(zip(rows["cuda"], rows["cpu"])):
+        assert bool(torch.isfinite(a).all()) and _nmse(a, b) < 1e-3, step

@@ -56,10 +56,11 @@ def test_make_llama_gguf_byte_identical(tmp_path, with_tokenizer):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
-@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q4_1], ids=lambda t: t.name)
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1],
+                         ids=lambda t: t.name)
 def test_make_llama_gguf_q4_legacy_byte_identical(tmp_path, gtype):
-    """gtype Q4_0/Q4_1 (the port's legacy-nibble encoders) writes zllm's
-    bytes."""
+    """gtype Q4_0/Q4_1/Q5_0/Q5_1 (the port's 32-block encoders) writes
+    zllm's bytes."""
     a, b = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
     kw = dict(SMALL_LLAMA, gtype=gtype, seed=6, with_tokenizer=True)
     zmake(a, **kw)
@@ -165,6 +166,6 @@ def test_q4_legacy_decode_random_blocks_bit_exact(fmt, row):
 def test_unsupported_format_raises():
     x = RNG.standard_normal((2, 256)).astype(np.float32)
     with pytest.raises(NotImplementedError):
-        qb.quantize(x, GGMLType.Q5_K)
+        qb.quantize(x, GGMLType.Q2_K)
     with pytest.raises(NotImplementedError):
-        qb.dequantize(zqb.quantize(x, GGMLType.Q5_K), GGMLType.Q5_K)
+        qb.dequantize(zqb.quantize(x, GGMLType.Q2_K), GGMLType.Q2_K)

@@ -175,12 +175,12 @@ def test_unported_shapes_and_formats_raise(weights):
     with pytest.raises(NotImplementedError):
         tq.q4k_gemm(torch.zeros(2, 256), w)  # and Q8_0 to K5
 
-    class Q5KWeight(Q80Weight):
-        fmt = GGMLType.Q5_K
+    class Q2KWeight(Q80Weight):
+        fmt = GGMLType.Q2_K
 
-    w5 = Q5KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+    w2 = Q2KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
                    d=torch.zeros(128, 8, dtype=torch.float16))
     with pytest.raises(NotImplementedError):
-        linear(torch.zeros(1, 256), w5)
+        linear(torch.zeros(1, 256), w2)
     with pytest.raises(NotImplementedError):
-        linear(torch.zeros(4, 256), w5)
+        linear(torch.zeros(4, 256), w2)

@@ -111,13 +111,13 @@ def test_int8_formats_keep_k4_under_the_switch(fmt, monkeypatch):
 def test_other_formats_raise_under_the_switch(monkeypatch):
     from zllm_torch.quant.repack import Q80Weight
 
-    class Q5KWeight(Q80Weight):
-        fmt = GGMLType.Q5_K
+    class Q2KWeight(Q80Weight):
+        fmt = GGMLType.Q2_K
 
     monkeypatch.setenv("ZLLM_QMM_HBM", "1")
-    w = Q5KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+    w = Q2KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
                   d=torch.zeros(128, 8, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="not Q5_K"):
+    with pytest.raises(NotImplementedError, match="not Q2_K"):
         tq.matvec(torch.zeros(1, 256), w)
 
 

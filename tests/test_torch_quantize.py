@@ -1,7 +1,7 @@
 """`zllm_torch.quantize` against `tools/quantize.py`: the same per-tensor
 type choice for every preset and byte-identical output files for the
 presets whose encoders the port has (Q4_K_M, Q4_K_S, Q6_K, Q8_0, Q4_0,
-Q4_1), from one F16 synthetic model."""
+Q4_1, Q5_0, Q5_1, Q5_K_S, Q5_K_M), from one F16 synthetic model."""
 
 import os
 
@@ -19,7 +19,8 @@ def f16_gguf(tmp_path_factory):
     return f16_llama_gguf(str(tmp_path_factory.mktemp("q") / "f16.gguf"), seed=2)
 
 
-@pytest.mark.parametrize("ftype", ["Q4_K_M", "Q4_K_S", "Q6_K", "Q8_0", "Q4_0", "Q4_1"])
+@pytest.mark.parametrize("ftype", ["Q4_K_M", "Q4_K_S", "Q6_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0",
+                                   "Q5_1", "Q5_K_S", "Q5_K_M"])
 def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
     from tools.quantize import quantize_file
 
@@ -32,7 +33,13 @@ def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
         assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
         assert types["blk.0.ffn_down.weight"] == ("F16", "Q6_K")
         assert types["blk.1.ffn_down.weight"] == ("F16", "Q4_K")
-    if ftype in ("Q4_0", "Q4_1"):  # the embedding is bumped to Q4_K, the rest keeps the preset
+    if ftype == "Q5_K_M":  # attn_v and the head Q6_K, no ffn_down bump
+        assert types["output.weight"] == ("F16", "Q6_K")
+        assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
+        assert types["blk.0.ffn_down.weight"] == ("F16", "Q5_K")
+        assert types["blk.1.attn_q.weight"] == ("F16", "Q5_K")
+    if ftype in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
+        # the embedding is bumped to Q4_K, the rest keeps the preset
         assert types["token_embd.weight"] == ("F16", "Q4_K")
         assert {t for name, (_, t) in types.items() if name != "token_embd.weight"
                 and not name.endswith("norm.weight")} == {ftype}
@@ -85,9 +92,9 @@ def test_pick_type_matches_every_preset():
 
 
 def test_unported_encoder_raises_before_writing(f16_gguf, tmp_path):
-    out = str(tmp_path / "q5.gguf")
-    with pytest.raises(NotImplementedError, match="Q5_K"):
-        tq.quantize_file(f16_gguf, out, "Q5_K_M", quiet=True)
+    out = str(tmp_path / "q3.gguf")
+    with pytest.raises(NotImplementedError, match="Q3_K"):
+        tq.quantize_file(f16_gguf, out, "Q3_K_M", quiet=True)
     assert not os.path.exists(out)
 
 

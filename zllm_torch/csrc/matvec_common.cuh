@@ -251,19 +251,39 @@ int launch_matvec(void (*kernel)(KArgs...), int blocks, int threads, size_t smem
 
 // ---------------------------------------------------------------------------
 // The nibble formats of K1, K11, K12 (and K3's decoders, q4k_gemm.cu): one code
-// plane qs [N, K/2] (byte 32c + i holds codes 64c + i and 64c + 32 + i,
-// zllm_torch/quant/repack.py) and per-format scale planes, passed as s0..s3:
+// plane qs [N, K/2] (byte 32c + i holds the low four bits of codes 64c + i
+// and 64c + 32 + i, zllm_torch/quant/repack.py) and per-format planes,
+// passed as s0..s3:
 //   Q4_K: s0 = sc, s1 = mn (uint8 [N, K/32]), s2 = d, s3 = dmin (fp16 [N, K/256])
 //   Q4_0: s0 = d (fp16 [N, K/32])
 //   Q4_1: s0 = a, s1 = b (fp16 [N, K/32]; b = -m)
+//   Q5_0: s0 = d (fp16 [N, K/32]), s3 = qh
+//   Q5_1: s0 = a, s1 = b (fp16 [N, K/32]; b = -m), s3 = qh
+//   Q5_K: s0 = a, s1 = b (fp16 [N, K/32]; fp16(d * sc), fp16(dmin * mn)), s3 = qh
+// qh (uint8 [N, K/8], the 5-bit formats' fifth bits; K1 and K3 only): its
+// u32 word 2c + p holds in bit j the fifth bit of code 64c + 16p + j and in
+// bit 16 + j that of code 64c + 32 + 16p + j (j < 16): the bits of the
+// bytes [16p, 16p + 16) of chunk c's 32 qs bytes, low nibbles then high.
 // GroupScale<FMT> holds one 32-group's scales in registers and applies
 // zllm's f32 epilogue to the group's exact integer dot pi (sx: the group's
 // activation code sum, e = dx * sx):
-//   Q4_K, Q4_1: pi * a * dx - b * e
-//   Q4_0:       (pi - 8 * sx) * d * dx, the -8 applied to the integers
+//   Q4_K, Q4_1, Q5_1, Q5_K: pi * a * dx - b * e
+//   Q4_0: (pi - 8 * sx) * d * dx, Q5_0: (pi - 16 * sx) * d * dx, the
+//   offset applied to the integers
 // ---------------------------------------------------------------------------
 
-enum NibbleFmt { kQ4K = 0, kQ40 = 1, kQ41 = 2 };
+enum NibbleFmt { kQ4K = 0, kQ40 = 1, kQ41 = 2, kQ50 = 3, kQ51 = 4, kQ5K = 5 };
+
+// the 5-bit formats, whose codes take their fifth bit from the qh plane
+template <int FMT>
+constexpr bool kHasQh = FMT == kQ50 || FMT == kQ51 || FMT == kQ5K;
+
+// bits 4j .. 4j + 3 of h, as bit 4 of the four bytes of a word: the fifth
+// bits of the four codes whose low nibbles a __dp4a word holds (bit 4j + e
+// -> bit 8e + 4; the four shifted copies of the multiply do not overlap)
+__device__ __forceinline__ uint32_t fifth_bits4(uint32_t h, int j) {
+  return (((h >> (4 * j)) & 0xFu) * 0x02040810u) & 0x10101010u;
+}
 
 struct NibblePlanes {
   const uint8_t* qs;
@@ -317,6 +337,23 @@ struct GroupScale<kQ41> {
   }
 };
 
+// Q5_1 and Q5_K: Q4_1's planes and arithmetic over 5-bit codes
+template <>
+struct GroupScale<kQ51> : GroupScale<kQ41> {};
+template <>
+struct GroupScale<kQ5K> : GroupScale<kQ41> {};
+
+template <>
+struct GroupScale<kQ50> {
+  __half d;
+  __device__ __forceinline__ void load(const NibblePlanes& p, size_t n, int g, int K) {
+    d = static_cast<const __half*>(p.s0)[n * (K / 32) + g];
+  }
+  __device__ __forceinline__ float term_e(int pi, int sx, float dx, float) const {
+    return (float)(pi - 16 * sx) * __half2float(d) * dx;
+  }
+};
+
 // the epilogue with e computed from the code sum, as K1 and K12 take it
 template <int FMT>
 __device__ __forceinline__ float group_term(const GroupScale<FMT>& s, int pi, int sx, float dx) {
@@ -325,12 +362,14 @@ __device__ __forceinline__ float group_term(const GroupScale<FMT>& s, int pi, in
 
 // one column's nibble-weight data for up to ROUNDS rounds of 16 chunks, in
 // the registers of the lane pair that takes chunk c_base + 16 * round +
-// lane / 2: lane % 2 holds bytes [16 * (lane % 2), +16) of the chunk's 32
-// and the scales of its group 2c + lane % 2 (K1 and K11)
+// lane / 2: lane % 2 holds bytes [16 * (lane % 2), +16) of the chunk's 32,
+// the scales of its group 2c + lane % 2 and, in a 5-bit format, the qh
+// word 2c + lane % 2 (K1 and K11)
 template <int FMT, int ROUNDS>
 struct ColRegs {
   uint4 wv[ROUNDS];
   GroupScale<FMT> s[ROUNDS];
+  uint32_t qh[kHasQh<FMT> ? ROUNDS : 1];  // unused in the 4-bit formats
 };
 
 template <int FMT, int ROUNDS>
@@ -344,6 +383,8 @@ __device__ __forceinline__ void fetch_col(ColRegs<FMT, ROUNDS>& cr, const Nibble
       cr.wv[it] =
           *reinterpret_cast<const uint4*>(w.qs + (size_t)n * (K / 2) + c * 32 + part * 16);
       cr.s[it].load(w, (size_t)n, 2 * c + part, K);
+      if constexpr (kHasQh<FMT>)
+        cr.qh[it] = static_cast<const uint32_t*>(w.s3)[(size_t)n * (K / 32) + 2 * c + part];
     }
   }
 }

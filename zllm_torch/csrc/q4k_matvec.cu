@@ -1,21 +1,25 @@
-// K1: decode matvec (M = 1) of the nibble formats Q4_K, Q4_0 and Q4_1 on
-// the int8 path.
+// K1: decode matvec (M = 1) of the nibble formats Q4_K, Q4_0, Q4_1, Q5_0,
+// Q5_1 and Q5_K on the int8 path.
 //
 // Replaces zllm/ops/qmatmul.py::_w4a8np_kernel (launched by
 // _qmm_w4a8np_call): y[n] = sum_k prologue(x)[k] * W[k, n], with the
 // activation row quantized to int8 per 32-group and the weight codes kept
-// as 4-bit integers, so each group's dot is an exact integer; each group
-// then takes zllm's f32 epilogue (GroupScale in matvec_common.cuh):
+// as 4- or 5-bit integers, so each group's dot is an exact integer (|pi| <=
+// 32 * 31 * 127); each group then takes zllm's f32 epilogue (GroupScale in
+// matvec_common.cuh):
 //   Q4_K: pi_g * a_g * dx_g - b_g * (dx_g * sum(xq_g)),
 //         a_g = f32(d) * sc_g, b_g = f32(dmin) * mn_g   (exact two-level)
-//   Q4_1: the same with a = d and b = -m of the group (fp16 planes)
+//   Q4_1, Q5_1: the same with a = d and b = -m of the group (fp16 planes)
+//   Q5_K: the same with zllm's fp16-rounded a = d * sc and b = dmin * mn
 //   Q4_0: (pi_g - 8 * sum(xq_g)) * d_g * dx_g, the -8 applied in integers
+//   Q5_0: (pi_g - 16 * sum(xq_g)) * d_g * dx_g
 // Prologues: "q" (x as is), "norm" (rms_norm(x) * w, the full-row mean
 // square reduced first), "glu" (silu(g) * u over the fused gate|up row),
 // shared with K4 in matvec_common.cuh.
 //
 // Bound on the H100: the weight bytes, read once (Q4_K 4.5 bits a weight,
-// this layout with sc/mn unpacked to bytes 4.625; Q4_0 4.5; Q4_1 5); the
+// this layout with sc/mn unpacked to bytes 4.625; Q4_0 4.5; Q4_1 5; Q5_0
+// 5.5; Q5_1 6; Q5_K 5.5, this layout with its fp16 a and b 6); the
 // arithmetic is 2*K*N int8 ops, ~1000x under the int8 peak.  At 1B scale
 // a launch moves 2-19 MB (0.7-5.6 us of bytes), so what paces a decode
 // step's 65-99 launches is each launch's fixed part.  The earlier form
@@ -34,7 +38,14 @@
 // of group 2c+1, each against four int8 activations in one __dp4a.  A
 // lane-pair shuffle joins the two halves of a chunk into exact integer
 // group dots, and each lane applies its group's scales.  Only the scale
-// fetch and the epilogue depend on the format (template FMT).
+// fetch and the epilogue depend on the format (template FMT), and in the
+// 5-bit formats the fifth bits: a lane loads the one u32 of the qh plane
+// that covers its 16 bytes (bits 0-15 the low nibbles' codes, 16-31 the
+// high nibbles'), beside its 16 bytes and before the wait, and ORs four of
+// its bits into bit 4 of the four code bytes of each __dp4a word
+// (fifth_bits4: a multiply and a mask, no table); codes 0..31 stay positive
+// int8.  The 4-bit forms compile without that code (if constexpr) and keep
+// their bits.
 //   * One wave of 16-warp blocks, at most two an SM (a warp walks cpw =
 //     ceil(N / (2 * SMs * 16)) columns): the prologue is done by at most
 //     two blocks an SM, where the earlier form had up to eight (one block
@@ -87,7 +98,8 @@
 //     barrier's arrive at the block's start, its wait before the first
 //     store), and no block reads its row before the closing cluster.sync().
 //   * Registers: __launch_bounds__(512, 2) holds a thread to 64; the two
-//     sets cost what the earlier form's four rounds of one column cost.
+//     sets cost what the earlier form's four rounds of one column cost (a
+//     5-bit form holds one more u32 a round, four a thread).
 //     `-Xptxas -v` must show no spill (chip_smoke.py's build report fails
 //     on one).
 
@@ -150,14 +162,26 @@ __global__ void __launch_bounds__(kThreads, 2) q4k_matvec_kernel(
         const uint4 wv = cr.wv[it];
         const int4 xl = *reinterpret_cast<const int4*>(row.xq + c * 64 + part * 16);
         const int4 xh = *reinterpret_cast<const int4*>(row.xq + c * 64 + 32 + part * 16);
-        plo = __dp4a((int)(wv.x & 0x0F0F0F0Fu), xl.x, plo);
-        phi = __dp4a((int)((wv.x >> 4) & 0x0F0F0F0Fu), xh.x, phi);
-        plo = __dp4a((int)(wv.y & 0x0F0F0F0Fu), xl.y, plo);
-        phi = __dp4a((int)((wv.y >> 4) & 0x0F0F0F0Fu), xh.y, phi);
-        plo = __dp4a((int)(wv.z & 0x0F0F0F0Fu), xl.z, plo);
-        phi = __dp4a((int)((wv.z >> 4) & 0x0F0F0F0Fu), xh.z, phi);
-        plo = __dp4a((int)(wv.w & 0x0F0F0F0Fu), xl.w, plo);
-        phi = __dp4a((int)((wv.w >> 4) & 0x0F0F0F0Fu), xh.w, phi);
+        // the code bytes of word j of the low (high) nibbles: qh bits 4j..
+        // (16 + 4j..)
+        auto lo = [&](uint32_t v, int j) {
+          uint32_t q = v & 0x0F0F0F0Fu;
+          if constexpr (kHasQh<FMT>) q |= fifth_bits4(cr.qh[it], j);
+          return (int)q;
+        };
+        auto hi = [&](uint32_t v, int j) {
+          uint32_t q = (v >> 4) & 0x0F0F0F0Fu;
+          if constexpr (kHasQh<FMT>) q |= fifth_bits4(cr.qh[it], 4 + j);
+          return (int)q;
+        };
+        plo = __dp4a(lo(wv.x, 0), xl.x, plo);
+        phi = __dp4a(hi(wv.x, 0), xh.x, phi);
+        plo = __dp4a(lo(wv.y, 1), xl.y, plo);
+        phi = __dp4a(hi(wv.y, 1), xh.y, phi);
+        plo = __dp4a(lo(wv.z, 2), xl.z, plo);
+        phi = __dp4a(hi(wv.z, 2), xh.z, phi);
+        plo = __dp4a(lo(wv.w, 3), xl.w, plo);
+        phi = __dp4a(hi(wv.w, 3), xh.w, phi);
       }
       plo += __shfl_xor_sync(kFull, plo, 1);
       phi += __shfl_xor_sync(kFull, phi, 1);
@@ -216,13 +240,17 @@ int launch_fmt(int fmt, int mode, const void* x, const float* aux, const NibbleP
     case kQ4K: return launch_mode<TX, kQ4K>(mode, x, aux, w, y, K, N, eps, s);
     case kQ40: return launch_mode<TX, kQ40>(mode, x, aux, w, y, K, N, eps, s);
     case kQ41: return launch_mode<TX, kQ41>(mode, x, aux, w, y, K, N, eps, s);
+    case kQ50: return launch_mode<TX, kQ50>(mode, x, aux, w, y, K, N, eps, s);
+    case kQ51: return launch_mode<TX, kQ51>(mode, x, aux, w, y, K, N, eps, s);
+    case kQ5K: return launch_mode<TX, kQ5K>(mode, x, aux, w, y, K, N, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// fmt: 0 = Q4_K, 1 = Q4_0, 2 = Q4_1 (scale planes s0..s3 as NibblePlanes in
+// fmt: 0 = Q4_K, 1 = Q4_0, 2 = Q4_1, 3 = Q5_0, 4 = Q5_1, 5 = Q5_K (scale
+// planes s0..s3, and the 5-bit formats' qh as s3, as NibblePlanes in
 // matvec_common.cuh).  x_dtype: 0 = float32, 1 = bfloat16.  mode: 0 = q,
 // 1 = norm, 2 = glu.
 extern "C" int zt_q4k_matvec(int fmt, const void* x, int x_dtype, const float* aux,

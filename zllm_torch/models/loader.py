@@ -1,8 +1,9 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
-Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 matmul weights become `QWeight`s
-(quantized on the device, consumed by the port's kernels); the token embedding is dequantized
-to a dense tensor of the model dtype, norm weights and biases to f32.  A
+Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and Q8_0 matmul weights become
+`QWeight`s (quantized on the device, consumed by the port's kernels); the
+token embedding is dequantized to a dense tensor of the model dtype, norm
+weights and biases to f32.  A
 llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
 the q/k/v biases bq, bk, bv; a Qwen3 layer adds attn_q_norm and
 attn_k_norm of length head_dim (one RMS a head); an OLMo-2 layer has no
@@ -13,8 +14,9 @@ zllm takes llama3 rope scaling from the metadata alone.  At load, as
 `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
 into half-split ("neox") rope by permuting the wq/wk columns (and bq/bk),
 wq|wk|wv (with bq|bk|bv) and gate|up are fused along N where the weights
-share one format (in a Q4_K_M file wq/wk are Q4_K and wv Q6_K, so they
-stay apart), and the output head is zero-padded to a multiple of 1024.
+share one format (in a Q4_K_M or Q5_K_M file wq/wk are Q4_K or Q5_K and
+wv Q6_K, so they stay apart), and the output head is zero-padded to a
+multiple of 1024.
 
 `params_from_jax` carries `zllm`'s loaded parameters (handed over as numpy
 arrays) into this layout, so a test can run both packages on the very
@@ -28,7 +30,8 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, read_gguf
-from ..quant.repack import WEIGHT_CLASSES, Q6KWeight, QWeight, concat_n, from_planes, pad_n, repack
+from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat_n, from_planes,
+                            pad_n, repack)
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
@@ -84,8 +87,8 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
 
 
 def _load_matmul(f: GGUFFile, name: str, dtype, device):
-    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_0, Q4_1, Q4_K, Q6_K,
-    Q8_0) or dense [K, N] (F32, F16)."""
+    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_0, Q4_1, Q4_K, Q5_0,
+    Q5_1, Q5_K, Q6_K, Q8_0) or dense [K, N] (F32, F16)."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
@@ -300,6 +303,20 @@ def _legacy_nibble_from_jax(desc: dict) -> dict[str, np.ndarray]:
             **{name: _f16_nk(desc["planes"][name], k // 32) for name in scales}}
 
 
+def _q5_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's Q5_0 (qs, qh, a = d), Q5_1 and Q5_K (qs, qh, a, b) planes: the
+    low nibbles in qs as for Q4_K, the fifth bits a plane qh [K/8, N] (bit i
+    of byte r holds k = 8r + i), the scales fp16 [K/32, N] per 32-group."""
+    k, n = desc["shape"]
+    p = desc["planes"]
+    bits = np.unpackbits(np.asarray(p["qh"]).astype(np.uint8)[:, None, :], axis=1,
+                         bitorder="little").reshape(k, n)
+    planes = Q5Weight.pack_codes(_nibble_codes_from_jax(desc) | (np.ascontiguousarray(bits.T) << 4))
+    if GGMLType(desc["fmt"]) == GGMLType.Q5_0:
+        return {**planes, "d": _f16_nk(p["a"], k // 32)}
+    return {**planes, "a": _f16_nk(p["a"], k // 32), "b": _f16_nk(p["b"], k // 32)}
+
+
 def _q6k_from_jax(desc: dict) -> dict[str, np.ndarray]:
     """zllm's Q6_K planes: ql split-half fold nibbles [K/2, N], qh
     split-quarter fold crumbs [K/4, N], a fp16 bits [K/16, N]."""
@@ -318,8 +335,9 @@ def _q80_from_jax(desc: dict) -> dict[str, np.ndarray]:
 
 
 _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_jax,
-             GGMLType.Q4_1: _legacy_nibble_from_jax, GGMLType.Q6_K: _q6k_from_jax,
-             GGMLType.Q8_0: _q80_from_jax}
+             GGMLType.Q4_1: _legacy_nibble_from_jax, GGMLType.Q5_0: _q5_from_jax,
+             GGMLType.Q5_1: _q5_from_jax, GGMLType.Q5_K: _q5_from_jax,
+             GGMLType.Q6_K: _q6k_from_jax, GGMLType.Q8_0: _q80_from_jax}
 
 
 def _leaf_from_jax(key: str, val, *, dtype, device):
@@ -337,7 +355,8 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
 
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
-    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 carry across."""
+    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and
+    Q8_0 carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

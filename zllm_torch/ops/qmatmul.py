@@ -1,22 +1,24 @@
 """Quantized matmuls on `QWeight`s: the decode matvecs (K1, K12, K11, K4)
 and the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its
 plain PyTorch version beside it.  `matvec` and `gemm` dispatch on the
-weight's format: the nibble formats Q4_K, Q4_0 and Q4_1 to K1/K3 (K12 or
-K11 instead of K1 under the switches `matvec` names), Q6_K and Q8_0 to
-K4/K5.
+weight's format: the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K
+to K1/K3 (K12 or K11 instead of K1 under the switches `matvec` names, for
+the formats those take), Q6_K and Q8_0 to K4/K5.
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
-    `_qmm_w4a8np_call`) for the three nibble formats: M=1, activations
+    `_qmm_w4a8np_call`) for the six nibble formats: M=1, activations
     quantized to int8 per 32-group after an optional RMS-norm
-    (`fuse="norm"`) or SwiGLU (`fuse="glu"`) prologue, integer group dots,
-    then zllm's epilogue in f32: Q4_K and Q4_1 `pi*a*dx - b*(dx*sum(xq))`,
-    Q4_0 `(pi - 8*sum(xq))*d*dx` (the -8 in integers).  Source:
+    (`fuse="norm"`) or SwiGLU (`fuse="glu"`) prologue, integer group dots
+    against the 4- or 5-bit codes, then zllm's epilogue in f32: Q4_K, Q4_1,
+    Q5_1 and Q5_K `pi*a*dx - b*(dx*sum(xq))`, Q4_0 `(pi - 8*sum(xq))*d*dx`
+    and Q5_0 `(pi - 16*sum(xq))*d*dx` (the offset in integers).  Source:
     `zllm_torch/csrc/q4k_matvec.cu`.
   * `q4k_matvec_hbm` (K12) replaces `zllm/ops/qmatmul.py::_w4a8np_hbm_kernel`
-    (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`):
-    K1's maths, prologues and launch machinery, the packed nibbles streamed
-    into a ring of shared-memory stages a warp by bulk copies completed on
-    mbarriers (the scales loaded as K1 loads them), bit-identical to K1.
+    (via `_qmm_w4a8np_hbm_call`, which zllm takes when `ZLLM_QMM_HBM=1`)
+    for Q4_K, Q4_0 and Q4_1 (zllm's refuses a 5-bit weight): K1's maths,
+    prologues and launch machinery, the packed nibbles streamed into a ring
+    of shared-memory stages a warp by bulk copies completed on mbarriers
+    (the scales loaded as K1 loads them), bit-identical to K1.
     Its plain version is K1's.  Source: `zllm_torch/csrc/q4k_matvec_hbm.cu`.
   * `w4a8dd_matvec` (K11) replaces `zllm/ops/qmatmul.py::_w4a8dd_kernel`
     (via `_qmm_w4a8dd_call`, under `ZLLM_QMM_DUALDOT=1`) for Q4_0 and Q4_1:
@@ -31,10 +33,10 @@ K4/K5.
     dots against the signed codes, then `pi*a*dx` in f32 (no min term).
     Source: `zllm_torch/csrc/int8_matvec.cu`.
   * `q4k_gemm` (K3) replaces `zllm/ops/qmatmul.py::_qmm_np_kernel` (via
-    `_qmm_np_call`) for the nibble formats and `dequant_gemm` (K5) replaces
-    `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x dequant(W)
-    with x and the dequantized weight both rounded to bf16 in the kernel
-    and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
+    `_qmm_np_call`) for the six nibble formats and `dequant_gemm` (K5)
+    replaces `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x
+    dequant(W) with x and the dequantized weight both rounded to bf16 in
+    the kernel and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
     and `dequant_gemm.cu`, a weight decoder per format on one loop, the
     sliced loop `gemm_slice.cuh`: zllm's k-slice sum order (`_qmm_kernel`'s;
     zllm's K3 moves its own k-step with M), so a row's bits do not depend
@@ -95,9 +97,9 @@ def quantize_groups(xf: torch.Tensor, group: int = 32):
 
 def _nibble_epilogue(pi, w: NibbleWeight, dx, sx, e=None):
     """zllm's per-group f32 epilogue of the nibble formats over exact
-    integer group dots `pi` [N, G] (f32): Q4_0 (pi - 8*sx)*d*dx, the offset
-    applied to the integers; Q4_K and Q4_1 pi*a*dx - b*e, e = dx*sx unless
-    given."""
+    integer group dots `pi` [N, G] (f32): Q4_0 (pi - 8*sx)*d*dx and Q5_0
+    (pi - 16*sx)*d*dx, the offset applied to the integers; Q4_K, Q4_1, Q5_1
+    and Q5_K pi*a*dx - b*e, e = dx*sx unless given."""
     if w.OFFSET:
         pi = pi - w.OFFSET * sx
     a, b = w.group_scales()
@@ -112,7 +114,7 @@ def q4k_matvec_plain(x, w: NibbleWeight, fuse="q", aux=None, eps=0.0) -> torch.T
     k, n = w.shape
     xq, dx, sx = quantize_groups(_prologue(x, k, fuse, aux, eps))
     codes = w.codes().float().reshape(n, k // 32, 32)
-    # |partial sums| <= 32*15*127 < 2^24: the f32 group dots are exact integers
+    # |partial sums| <= 32*31*127 < 2^24: the f32 group dots are exact integers
     pi = (codes * xq[None]).sum(dim=-1)  # [N, G]
     return _nibble_epilogue(pi, w, dx, sx).sum(dim=-1).reshape(1, n)
 
@@ -127,13 +129,16 @@ def _check_qweight(w: QWeight, dev):
         raise ValueError(f"K={w.shape[0]} is not a multiple of 256")
 
 
-# the nibble formats K1, K3 and K12 take (the `fmt` argument of their C
-# entry points) and those K11 takes
-NIBBLE_FMT_CODE = {GGMLType.Q4_K: 0, GGMLType.Q4_0: 1, GGMLType.Q4_1: 2}
+# the nibble formats K1 and K3 take (the `fmt` argument of their C entry
+# points, and of K12's and K11's), those K12 takes and those K11 takes:
+# zllm sends no 5-bit weight to either of those two
+NIBBLE_FMT_CODE = {GGMLType.Q4_K: 0, GGMLType.Q4_0: 1, GGMLType.Q4_1: 2, GGMLType.Q5_0: 3,
+                   GGMLType.Q5_1: 4, GGMLType.Q5_K: 5}
+HBM_FMTS = (GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1)
 DUALDOT_FMTS = (GGMLType.Q4_0, GGMLType.Q4_1)
 
 
-def _require_nibble(w: QWeight, formats=NIBBLE_FMT_CODE, what="K1/K3/K12"):
+def _require_nibble(w: QWeight, formats=NIBBLE_FMT_CODE, what="K1/K3"):
     if w.fmt not in formats:
         raise NotImplementedError(f"{what} take {', '.join(f.name for f in formats)}, "
                                   f"not {w.fmt.name}")
@@ -186,8 +191,8 @@ def _nibble_matvec(name: str, x, w: NibbleWeight, fuse, aux, eps) -> torch.Tenso
 
 def q4k_matvec(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
                aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
-    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q4_K, Q4_0
-    or Q4_1.
+    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q4_K, Q4_0,
+    Q4_1, Q5_0, Q5_1 or Q5_K.
 
     fuse="q": x [1, K];  "norm": x is the raw residual [1, K], aux the RMS
     weight [K];  "glu": x is the fused gate|up row [1, 2K]."""
@@ -214,8 +219,8 @@ def q4k_matvec_hbm(x: torch.Tensor, w: NibbleWeight, fuse: str = "q",
                    aux: torch.Tensor | None = None, eps: float = 0.0) -> torch.Tensor:
     """K1's function (y[1, N] f32; x, w and fuse as for `q4k_matvec`)
     through K12, whose nibble fetch is a ring of bulk-copied stages in
-    shared memory."""
-    _require_nibble(w)
+    shared memory; w Q4_K, Q4_0 or Q4_1."""
+    _require_nibble(w, HBM_FMTS, "K12")
     _check_matvec_args(x, w.shape[0], fuse, aux)
     if x.device.type == "cpu":
         return q4k_matvec_hbm_plain(x, w, fuse, aux, eps)
@@ -328,10 +333,14 @@ def int8_matvec_plain(x, w: QWeight, fuse="q", aux=None, eps=0.0) -> torch.Tenso
 
 
 def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
-    """The weight's plane pointers in PLANES order, padded with None to the
-    `count` a C entry point takes: K4/K5 three (Q6_K ql, qh, a; Q8_0 qs,
-    d); K1/K3/K12 five (qs, then Q4_K sc, mn, d, dmin; Q4_0 d; Q4_1 a, b)."""
-    ptrs = [p.data_ptr() for p in w.planes().values()]
+    """The weight's plane pointers, padded with None to the `count` a C
+    entry point takes: K4/K5 three in PLANES order (Q6_K ql, qh, a; Q8_0
+    qs, d); K1/K3/K12/K11 five, `NibbleWeight.kernel_planes` (qs, then Q4_K
+    sc, mn, d, dmin; Q4_0 d; Q4_1 a, b; Q5_0 d and Q5_1/Q5_K a, b, each
+    with qh last)."""
+    planes = (w.kernel_planes() if isinstance(w, NibbleWeight)
+              else list(w.planes().values()))
+    ptrs = [cuda.ptr(p) for p in planes]
     return ptrs + [None] * (count - len(ptrs))
 
 
@@ -507,10 +516,10 @@ def _slice_gemm(name: str, fmt_code: int, x: torch.Tensor, w: QWeight, n_planes:
 
 
 def q4k_gemm(x: torch.Tensor, w: NibbleWeight) -> torch.Tensor:
-    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K, Q4_0
-    or Q4_1), summed in `dequant_gemm_plain`'s slice order, on K5's loop
-    and with its extra launches (see `dequant_gemm`); a call counts as one
-    launch."""
+    """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q4_K, Q4_0,
+    Q4_1, Q5_0, Q5_1 or Q5_K), summed in `dequant_gemm_plain`'s slice
+    order, on K5's loop and with its extra launches (see `dequant_gemm`); a
+    call counts as one launch."""
     _require_nibble(w)
     k, n = w.shape
     _check_gemm_x(x, k)
@@ -551,12 +560,14 @@ dequant_gemm.launches = 0
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
     """The decode matvec for w's format.  Q6_K/Q8_0 -> K4.  The nibble
-    formats Q4_K, Q4_0 and Q4_1 -> K1 by default, and under two switches,
-    read from the environment at each dispatch (as zllm reads them at each
-    trace):
-      * ZLLM_QMM_HBM=1: K12 for every prologue;
+    formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K -> K1 by default, and
+    under two switches, read from the environment at each dispatch (as zllm
+    reads them at each trace):
+      * ZLLM_QMM_HBM=1: K12 for every prologue of a Q4_K/Q4_0/Q4_1 weight
+        (zllm's `_hbm_np_ok` refuses a weight with a qh plane);
       * ZLLM_QMM_DUALDOT=1: K11 for the fuse="q" matvecs of Q4_0/Q4_1
         weights; "norm" and "glu" stay on K1, as in zllm.
+    A 5-bit weight stays on K1 under both.
     With both set K12 wins.  zllm takes K11 only for a weight its loader
     left out of the npack layout (ZLLM_NPACK=0, or N % 256 != 0), K12 only
     for an npack one, so the two never meet on one weight there; the port
@@ -564,7 +575,7 @@ def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | Non
     on the route (K12 is K1 bit for bit; K11 differs from K1 in the f32 sum
     order only)."""
     if w.fmt in NIBBLE_FMT_CODE:
-        if os.environ.get("ZLLM_QMM_HBM", "0") == "1":
+        if w.fmt in HBM_FMTS and os.environ.get("ZLLM_QMM_HBM", "0") == "1":
             return q4k_matvec_hbm(x, w, fuse, aux, eps)
         if (fuse == "q" and w.fmt in DUALDOT_FMTS
                 and os.environ.get("ZLLM_QMM_DUALDOT", "0") == "1"):
@@ -574,7 +585,8 @@ def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | Non
 
 
 def gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """The prefill GEMM for w's format: Q4_K/Q4_0/Q4_1 -> K3, Q6_K/Q8_0 -> K5."""
+    """The prefill GEMM for w's format: the six nibble formats -> K3,
+    Q6_K/Q8_0 -> K5."""
     if w.fmt in NIBBLE_FMT_CODE:
         return q4k_gemm(x, w)
     return dequant_gemm(x, w)

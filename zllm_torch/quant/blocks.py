@@ -2,7 +2,8 @@
 llama path needs.
 
 A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_0, Q4_1,
-Q4_K, Q6_K and Q8_0 decoders and encoders (layouts: reference ggml/src/ggml-common.h;
+Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 decoders and encoders (layouts:
+reference ggml/src/ggml-common.h;
 reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
 identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
 `zllm_torch.quantize` write the same files.
@@ -154,6 +155,44 @@ def _enc_q4_1(x):
     return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(mn), _nib_pack(q, 16)], axis=1)
 
 
+def _qh_bits32(qh_bytes: np.ndarray) -> np.ndarray:
+    """Q5_0/Q5_1: the 32 high bits of a block from its 4 bytes (bit j ->
+    code j) -> uint8[N, 32]."""
+    return np.unpackbits(qh_bytes.reshape(qh_bytes.shape[0], 4), axis=-1, bitorder="little")
+
+
+def _qh_pack32(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little")
+
+
+def _dec_q5_0(b):
+    d, qh, qs = b[:, :2], b[:, 2:6], b[:, 6:]
+    q = (_nib_lo_hi(qs, 16) | (_qh_bits32(qh) << np.uint8(4))).astype(np.int8) - np.int8(16)
+    return _f16(d) * q.astype(np.float32)
+
+
+def _enc_q5_0(x):
+    d = _signed_absmax(x) / -16.0
+    q = np.trunc(x * _safe_inv(d) + 16.5).clip(0, 31).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _qh_pack32(q >> 4), _nib_pack(q & np.uint8(0x0F), 16)],
+                          axis=1)
+
+
+def _dec_q5_1(b):
+    d, m, qh, qs = b[:, :2], b[:, 2:4], b[:, 4:8], b[:, 8:]
+    q = (_nib_lo_hi(qs, 16) | (_qh_bits32(qh) << np.uint8(4))).astype(np.float32)
+    return _f16(d) * q + _f16(m)
+
+
+def _enc_q5_1(x):
+    mx = x.max(axis=-1, keepdims=True)
+    mn = x.min(axis=-1, keepdims=True)
+    d = (mx - mn) / 31.0
+    q = np.trunc((x - mn) * _safe_inv(d) + 0.5).clip(0, 31).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(mn), _qh_pack32(q >> 4),
+                           _nib_pack(q & np.uint8(0x0F), 16)], axis=1)
+
+
 def _dec_q4_k(b):
     n = b.shape[0]
     d, dmin, sb, qs = b[:, :2], b[:, 2:4], b[:, 4:16], b[:, 16:]
@@ -165,7 +204,8 @@ def _dec_q4_k(b):
 
 
 def _kscale_search(x: np.ndarray, qmax: int) -> tuple[np.ndarray, ...]:
-    """Two-level (scale, min) search: 8 groups of 32 per superblock."""
+    """Two-level (scale, min) search shared by Q4_K/Q5_K: 8 groups of 32
+    per superblock."""
     n = x.shape[0]
     g = x.reshape(n, 8, 32)
     m_f = np.maximum(0.0, -g.min(axis=-1))  # [N,8]
@@ -185,6 +225,23 @@ def _enc_q4_k(x):
     return np.concatenate(
         [_to_f16_bytes(d), _to_f16_bytes(dmin), _pack_kscales(sc, mn), _nib_pack(q, 32)], axis=1
     )
+
+
+def _dec_q5_k(b):
+    n = b.shape[0]
+    d, dmin, sb, qh, qs = b[:, :2], b[:, 2:4], b[:, 4:16], b[:, 16:48], b[:, 48:]
+    sc, mn = unpack_kscales(sb)
+    dl = _f16(d) * sc.astype(np.float32)
+    ml = _f16(dmin) * mn.astype(np.float32)
+    hi = _bits_unpack(qh, 1, 32)  # code 32j + l from bit j of byte l
+    q = (_nib_lo_hi(qs, 32) | (hi << np.uint8(4))).reshape(n, 8, 32)
+    return (dl[:, :, None] * q.astype(np.float32) - ml[:, :, None]).reshape(n, QK_K)
+
+
+def _enc_q5_k(x):
+    d, dmin, sc, mn, q = _kscale_search(x, 31)
+    return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(dmin), _pack_kscales(sc, mn),
+                           _bits_pack(q >> 4, 1, 32), _nib_pack(q & np.uint8(0x0F), 32)], axis=1)
 
 
 def _dec_q6_k(b):
@@ -221,16 +278,22 @@ _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _dec_f16,
     GGMLType.Q4_0: _dec_q4_0,
     GGMLType.Q4_1: _dec_q4_1,
+    GGMLType.Q5_0: _dec_q5_0,
+    GGMLType.Q5_1: _dec_q5_1,
     GGMLType.Q8_0: _dec_q8_0,
     GGMLType.Q4_K: _dec_q4_k,
+    GGMLType.Q5_K: _dec_q5_k,
     GGMLType.Q6_K: _dec_q6_k,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _enc_f16,
     GGMLType.Q4_0: _enc_q4_0,
     GGMLType.Q4_1: _enc_q4_1,
+    GGMLType.Q5_0: _enc_q5_0,
+    GGMLType.Q5_1: _enc_q5_1,
     GGMLType.Q8_0: _enc_q8_0,
     GGMLType.Q4_K: _enc_q4_k,
+    GGMLType.Q5_K: _enc_q5_k,
     GGMLType.Q6_K: _enc_q6_k,
 }
 

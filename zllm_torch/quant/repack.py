@@ -1,5 +1,5 @@
 """GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_0, Q4_1,
-Q4_K, Q6_K, Q8_0).
+Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0).
 
 `zllm.quant.repack` cuts each weight into planes shaped for the TPU's
 (8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for the
@@ -9,7 +9,8 @@ per output column, as the GGUF file has it, so that one warp streams one
 column's bytes along K with 16-byte loads.  The logical weight is y = x @ W
 with W[K, N] (GGUF stores W^T as [N, K]).
 
-The nibble formats (`NibbleWeight`: Q4_K, Q4_0, Q4_1) share one code plane:
+The nibble formats (`NibbleWeight`: Q4_K, Q4_0, Q4_1, and the 5-bit Q5_0,
+Q5_1, Q5_K) share one code plane, of the codes' low four bits:
   * qs   uint8 [N, K/2]:  qs[n, 32c + i] = code[n, 64c + i]
                           | code[n, 64c + 32 + i] << 4   (ggml's Q4_K nibble
                           order inside each 64-element chunk c, so the low
@@ -108,17 +109,23 @@ class QWeight:
 
 
 class NibbleWeight(QWeight):
-    """A 4-bit format in the shared `qs` layout above (K1, K3, K11, K12 take
-    all of them): codes 0..15, OFFSET subtracted from the integer codes
-    first, then per-32-group w = (code - OFFSET) * a - b."""
+    """A 4- or 5-bit format in the shared `qs` layout above (K1 and K3 take
+    all of them, K12 and K11 the 4-bit ones): codes 0..15 (0..31), OFFSET
+    subtracted from the integer codes first, then per-32-group w = (code -
+    OFFSET) * a - b."""
 
     OFFSET: ClassVar[int] = 0
 
     def codes(self) -> torch.Tensor:
-        """uint8 [N, K] codes 0..15 in natural k order."""
+        """uint8 [N, K] codes in natural k order."""
         k, n = self.shape
         b = self.qs.reshape(n, k // 64, 1, 32)
         return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
+
+    def kernel_planes(self) -> list[torch.Tensor | None]:
+        """The planes the nibble kernels' C entry points take as qs, s0, s1,
+        ...: qs, then the scale planes in PLANES order."""
+        return list(self.planes().values())
 
     def group_scales(self) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Per-32-group f32 (a, b) [N, K/32]; b is None for a format without
@@ -223,6 +230,124 @@ class Q41Weight(NibbleWeight):
                 "b": -m}  # negating an fp16 is exact
 
 
+class Q5Weight(NibbleWeight):
+    """A 5-bit nibble format: the qs plane of the low four bits and the qh
+    plane of the fifth, in the order above."""
+
+    def codes(self) -> torch.Tensor:
+        """uint8 [N, K] codes 0..31 in natural k order."""
+        k, n = self.shape
+        bits = (self.qh.reshape(n, k // 64, 2, 2, 2, 1) >> torch.arange(
+            8, dtype=torch.uint8, device=self.qh.device)) & 1  # [n, c, p, h, t, i]
+        return super().codes() | (bits.transpose(2, 3).reshape(n, k) << 4)
+
+    def kernel_planes(self) -> list[torch.Tensor | None]:
+        """qs, the scale planes as s0 (and s1), and qh as s3 (K1 and K3)."""
+        planes = [p for name, p in self.planes().items() if name != "qh"]
+        return planes + [None] * (4 - len(planes)) + [self.qh]
+
+    @staticmethod
+    def pack_high(bits: np.ndarray) -> np.ndarray:
+        """uint8 [N, K] fifth bits (0/1) in natural k order -> qh [N, K/8]."""
+        n, k = bits.shape
+        b = bits.astype(np.uint8).reshape(n, k // 64, 2, 2, 2, 8).transpose(0, 1, 3, 2, 4, 5)
+        return np.packbits(b, axis=-1, bitorder="little").reshape(n, k // 8)
+
+    @staticmethod
+    def pack_codes(codes: np.ndarray) -> dict[str, np.ndarray]:
+        """uint8 [N, K] codes 0..31 in natural k order -> the qs/qh planes."""
+        n, k = codes.shape
+        c = codes.astype(np.uint8).reshape(n, k // 64, 2, 32) & 0xF
+        return {"qs": (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2),
+                "qh": Q5Weight.pack_high(codes >> 4)}
+
+    @staticmethod
+    def legacy_planes(b: np.ndarray, n: int, k: int, qh_at: int) -> dict[str, np.ndarray]:
+        """The qs and qh planes of Q5_0/Q5_1 blocks [N * K/32, bytes], whose
+        4 high-bit bytes start at byte `qh_at` and the 16 nibble bytes
+        follow them."""
+        return {"qs": NibbleWeight.pair_legacy(np.ascontiguousarray(b[:, qh_at + 4:]), n, k),
+                "qh": Q5Weight.pack_high(qb._qh_bits32(
+                    np.ascontiguousarray(b[:, qh_at:qh_at + 4])).reshape(n, k))}
+
+
+@dataclass
+class Q50Weight(Q5Weight):
+    """A Q5_0 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    qh: torch.Tensor
+    d: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q5_0
+    OFFSET: ClassVar[int] = 16
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "qh": (torch.uint8, 8),
+                              "d": (torch.float16, 32)}
+
+    def group_scales(self) -> tuple[torch.Tensor, None]:
+        return self.d.float(), None
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        return {**Q5Weight.legacy_planes(b, n, k, 2),
+                "d": np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // 32)}
+
+
+@dataclass
+class Q51Weight(Q5Weight):
+    """A Q5_1 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    qh: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q5_1
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "qh": (torch.uint8, 8),
+                              "a": (torch.float16, 32), "b": (torch.float16, 32)}
+
+    def group_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.a.float(), self.b.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        m = np.ascontiguousarray(b[:, 2:4]).view("<f2").reshape(n, k // 32)
+        return {**Q5Weight.legacy_planes(b, n, k, 4),
+                "a": np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // 32),
+                "b": -m}  # negating an fp16 is exact
+
+
+@dataclass
+class Q5KWeight(Q5Weight):
+    """A Q5_K weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    qh: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q5_K
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "qh": (torch.uint8, 8),
+                              "a": (torch.float16, 32), "b": (torch.float16, 32)}
+
+    def group_scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.a.float(), self.b.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        sc, mn = qb.unpack_kscales(b[:, 4:16])
+        d = np.ascontiguousarray(b[:, 0:2]).view("<f2").astype(np.float32)
+        dmin = np.ascontiguousarray(b[:, 2:4]).view("<f2").astype(np.float32)
+        return {
+            "qs": np.ascontiguousarray(b[:, 48:]).reshape(n, k // 2),
+            "qh": Q5Weight.pack_high(qb._bits_unpack(np.ascontiguousarray(b[:, 16:48]), 1, 32)
+                                     .reshape(n, k)),
+            # as zllm's repack rounds them: fp16(f32(d) * sc), fp16(f32(dmin) * mn)
+            "a": (d * sc).astype("<f2").reshape(n, k // 32),
+            "b": (dmin * mn).astype("<f2").reshape(n, k // 32),
+        }
+
+
 class _IntWeight(QWeight):
     """A format whose weight is a signed integer code times one scale per
     GROUP-wide group (no min term): w = int_codes * group_scale."""
@@ -319,14 +444,15 @@ class Q80Weight(_IntWeight):
 
 
 WEIGHT_CLASSES: dict[GGMLType, type[QWeight]] = {
-    cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q6KWeight, Q80Weight)}
+    cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q50Weight, Q51Weight, Q5KWeight,
+                             Q6KWeight, Q80Weight)}
 
 
 def _weight_class(fmt) -> type[QWeight]:
     cls = WEIGHT_CLASSES.get(GGMLType(fmt))
     if cls is None:
-        raise NotImplementedError(f"zllm_torch keeps Q4_0, Q4_1, Q4_K, Q6_K and Q8_0 quantized, "
-                                  f"not {GGMLType(fmt).name}")
+        raise NotImplementedError(f"zllm_torch keeps Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and "
+                                  f"Q8_0 quantized, not {GGMLType(fmt).name}")
     return cls
 
 
