@@ -16,9 +16,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      (csrc/q4k_matvec_hbm.cu, with its ring's stages a warp and a block's
      shared-memory bytes) and K11 (csrc/w4a8dd_matvec.cu); a spill fails,
      and so does a build that lacks one of their instantiations;
-  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M, Q4_0 and Q5_K_M
-     (`python -m zllm_torch.quantize` from an F16 file), Q5_0, Q5_1 and
-     Q8_0, and 2-layer
+  2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M, Q4_0, Q5_K_M,
+     Q3_K_M and IQ4_XS (`python -m zllm_torch.quantize` from an F16 file),
+     Q5_0, Q5_1, Q8_0, Q2_K, IQ4_NL and MXFP4, and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
      (kernels) and on the CPU (their plain versions), logits compared step
      by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
@@ -32,8 +32,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
      the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
      contiguous), the OLMo-2 one in f32 contiguous and f32 paged, the Q4_0
-     and Q5_K_M llamas paged, and the Qwen2 one paged and q8 (G 6, head_dim
-     128; a last wave with a non-ASCII chatml prompt, its streamed text printed
+     and Q5_K_M llamas paged, the Q3_K_M llama paged with 4 slots (K5's
+     Q3_K form at the engine's decode M = 4), and the Qwen2 one paged and
+     q8 (G 6, head_dim 128; a last wave with a non-ASCII chatml prompt, its streamed text printed
      and equal on both sides): three prompts, one across a page, then a re-send
      sharing its first 130 tokens; tokens, reuse and step counters must be
      identical, and each run on the GPU must launch its attention kernels
@@ -88,7 +89,14 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      89 K1 + 22 K2 a step, 89 K3 + 22 K6 + 22 K2 a chunk, each then 8 steps
      fed the same tokens under ZLLM_QMM_HBM=1 and under ZLLM_QMM_DUALDOT=1
      (`q5_k_m_hbm`, `q5_0_dualdot`, ...): K1 again, no K12 or K11, logits
-     equal to the K1 run's; and the
+     equal to the K1 run's; the low-bit slice at TinyLlama geometry:
+     Q3_K_M (`python -m zllm_torch.quantize` from the F16 file: wq, wk, wo,
+     gate|up, down Q3_K on K4/K5, wv Q5_K on K1/K3, the head Q6_K), 111 K4
+     + 22 K1 + 22 K2 a step, 111 K5 + 22 K3 + 22 K6 + 22 K2 a chunk;
+     IQ4_XS (the same way: every matmul IQ4_XS but the Q6_K head, so
+     wq|wk|wv fuse), 89 K4 + 22 K2 a step, 89 K5 + 22 K6 + 22 K2 a chunk;
+     and Q2_K, IQ4_NL and MXFP4 from the factory (every matmul, the head
+     too), the same counts as IQ4_XS; and the
      serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
@@ -143,17 +151,24 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      over the Q5_K_M, Q5_0 and Q5_1 steps and chunks (by weight role; K3
      also at M = 4 on the Q5_K_M weights, and their rows at M = 4 against
      an M = 512 call's, bit for bit), each against its plain version (nmse
-     <= 1e-6), beside `torch.matmul` on the bf16-dequantized weights; and
-     digests of K1's and K3's outputs in the Q4_K, Q4_0 and Q4_1 forms on
-     seeded random GGUF bytes (`q4_digests`; `python3 chip_smoke.py
+     <= 1e-6), beside `torch.matmul` on the bf16-dequantized weights; K4
+     and K5 in their Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 forms over the
+     low-bit steps and chunks by weight role (`kernel_lowbit`; K5 also at M
+     = 4 on the Q3_K_M weights, and its rows at M = 4 against an M = 512
+     call's on every Q3_K and IQ4_XS weight, bit for bit), bounded by each
+     weight's GGUF bytes (the layout's bytes a weight beside them); and
+     digests of K1's and K3's outputs in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1
+     and Q5_K forms and of K4's and K5's in the Q6_K and Q8_0 forms on
+     seeded random GGUF bytes (`form_digests`; `python3 chip_smoke.py
      --digest` prints them alone, so that two trees' can be compared).
 
-The main paths' requantized files (TinyLlama Q4_K_M, Q4_0 and Q5_K_M,
-Qwen2.5 Q4_K_M) and the TinyLlama Q5_0 and Q5_1 factory files are made by
-child processes (`chip_smoke.py --make-gguf NAME FTYPE...`) started before
-the build, so the numpy quantizer's minutes run beside it.  Each main
-path also prints its decode step run eagerly, by CUDA kernel name
-(`step_profile`, torch.profiler).
+The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
+Q3_K_M and IQ4_XS, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
+IQ4_NL and MXFP4 factory files are made by child processes
+(`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
+the numpy quantizer's minutes run beside it.  Each main path also prints
+its decode step run eagerly, by CUDA kernel name (`step_profile`,
+torch.profiler).
 
 Prints one JSON line per phase result (with the run's seconds so far,
 `elapsed_s`), then the `kernels` line, then the
@@ -181,12 +196,14 @@ CACHE = REPO / ".cache" / "chip_smoke"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
-# GGUF bytes per weight: a Q4_K super-block holds 256 weights in 144 bytes,
-# a Q5_K one in 176, a Q6_K one in 210; a block of 32 weights is 34 bytes in
-# Q8_0, 18 in Q4_0, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1
-GGUF_BYTES_PER_WEIGHT = {"Q4_K": 144 / 256, "Q5_K": 176 / 256, "Q6_K": 210 / 256,
-                         "Q8_0": 34 / 32, "Q4_0": 18 / 32, "Q4_1": 20 / 32, "Q5_0": 22 / 32,
-                         "Q5_1": 24 / 32}
+# GGUF bytes per weight: a super-block holds 256 weights in 84 bytes in
+# Q2_K, 110 in Q3_K, 136 in IQ4_XS, 144 in Q4_K, 176 in Q5_K and 210 in
+# Q6_K; a block of 32 weights is 34 bytes in Q8_0, 18 in Q4_0 and IQ4_NL,
+# 17 in MXFP4, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1
+GGUF_BYTES_PER_WEIGHT = {"Q2_K": 84 / 256, "Q3_K": 110 / 256, "IQ4_XS": 136 / 256,
+                         "Q4_K": 144 / 256, "Q5_K": 176 / 256, "Q6_K": 210 / 256,
+                         "Q8_0": 34 / 32, "Q4_0": 18 / 32, "IQ4_NL": 18 / 32, "MXFP4": 17 / 32,
+                         "Q4_1": 20 / 32, "Q5_0": 22 / 32, "Q5_1": 24 / 32}
 
 PROMPT_TOKENS = 300
 NEW_TOKENS = 32
@@ -207,6 +224,9 @@ SMALL_LLAMA3 = dict(SMALL_BPE, rope_freqs=True, pre="llama-bpe", rope_base=50000
 SMALL_SHAPES = {"small": SMALL, "small_olmo2": SMALL_OLMO2, "small_qwen3": SMALL_QWEN3,
                 "small_qwen2": SMALL_QWEN2, "small_llama3": SMALL_LLAMA3}
 SWITCH_STEPS = 8  # decode steps of the phases under ZLLM_QMM_HBM / ZLLM_QMM_DUALDOT
+# the low-bit slice's files: Q3_K_M and IQ4_XS requantized, the others from
+# the factory (every matmul in the type)
+LOWBIT_FTYPES = ("Q3_K_M", "IQ4_XS", "Q2_K", "IQ4_NL", "MXFP4")
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -337,7 +357,8 @@ def step_profile(torch, fn, top: int = 10) -> dict:
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        name = (e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                .split("<")[0].split("(")[0])
         row = rows.setdefault(name, [0, 0.0])
         row[0] += 1
         row[1] += e.time_range.elapsed_us() / 1e3
@@ -355,20 +376,27 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def matvec_phase(torch, fn, plain, calls, n_real, bpw: float, eps: float, check=(),
+def gguf_bytes(w, bpw: float | None) -> float:
+    """The GGUF bytes a weight of `w` takes: `bpw`, or by w's format when
+    None (a step whose weights are in more than one format)."""
+    return GGUF_BYTES_PER_WEIGHT[w.fmt.name] if bpw is None else bpw
+
+
+def matvec_phase(torch, fn, plain, calls, n_real, bpw: float | None, eps: float, check=(),
                  groups=None) -> dict:
     """One decode step's matvecs `calls` [(x, w, fuse, aux)] through the
     kernel wrapper `fn`: device ms (and ms per group of call indices), the
-    bound (`bpw` GGUF bytes a weight over each weight's `n_real(w)` columns,
-    activations and outputs), and for `check` indices given: agreement with
-    `plain` there, the plain version's ms and the cuBLAS bf16 matmul on the
-    dequantized weights (`library_ms`)."""
+    bound (`gguf_bytes(w, bpw)` a weight over each weight's `n_real(w)`
+    columns, activations and outputs), and for `check` indices given:
+    agreement with `plain` there, the plain version's ms and the cuBLAS bf16
+    matmul on the dequantized weights (`library_ms`)."""
     def run(f, sub):
         for x, w, fuse, aux in sub:
             f(x, w, fuse, aux, eps)
 
-    nbytes = sum(w.shape[0] * n_real(w) * bpw + x.numel() * x.element_size() + 4 * n_real(w)
-                 + (4 * w.shape[0] if fuse == "norm" else 0) for x, w, fuse, _ in calls)
+    nbytes = sum(w.shape[0] * n_real(w) * gguf_bytes(w, bpw) + x.numel() * x.element_size()
+                 + 4 * n_real(w) + (4 * w.shape[0] if fuse == "norm" else 0)
+                 for x, w, fuse, _ in calls)
     ops = sum(2 * w.shape[0] * n_real(w) for _, w, _, _ in calls)
     bms, bby = bound_ms(nbytes, ops, "int8")
     out = dict(ms=cuda_ms(lambda: run(fn, calls), 20), bound_ms=bms, bound_by=bby)
@@ -393,7 +421,8 @@ def matvec_phase(torch, fn, plain, calls, n_real, bpw: float, eps: float, check=
     return out
 
 
-def gemm_phase(torch, fn, plain, calls, n_real, bpw: float, check=(), groups=None) -> dict:
+def gemm_phase(torch, fn, plain, calls, n_real, bpw: float | None, check=(),
+               groups=None) -> dict:
     """One prefill chunk's GEMMs `calls` [(x, w)], as matvec_phase; the
     bound is the larger of the bytes and 2*M*K*N bf16 operations."""
     def run(f, sub):
@@ -401,8 +430,8 @@ def gemm_phase(torch, fn, plain, calls, n_real, bpw: float, check=(), groups=Non
             f(x, w)
 
     m = calls[0][0].shape[0]
-    nbytes = sum(w.shape[0] * n_real(w) * bpw + x.numel() * x.element_size() + 4 * m * n_real(w)
-                 for x, w in calls)
+    nbytes = sum(w.shape[0] * n_real(w) * gguf_bytes(w, bpw) + x.numel() * x.element_size()
+                 + 4 * m * n_real(w) for x, w in calls)
     ops = sum(2 * m * w.shape[0] * n_real(w) for _, w in calls)
     bms, bby = bound_ms(nbytes, ops, "bf16")
     out = dict(ms=cuda_ms(lambda: run(fn, calls), 5), bound_ms=bms, bound_by=bby)
@@ -441,14 +470,16 @@ def prompt_ids(tok, n: int) -> list[int]:
 
 # presets made as users make them: `python -m zllm_torch.quantize` on an
 # F16 file of the same model (kept in the cache for the next preset)
-REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M")
+REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS")
 # the main paths' requantized files (the numpy quantizer takes 30-70 s a
-# file) and the TinyLlama Q5_0 and Q5_1 factory files: one child process a
-# group makes them while the kernels build (`prepare_requantized`; a
-# model's requantized files in one group, since they share its F16 file),
-# and gguf_file waits for its file's child
+# file, IQ4_XS's 2-3 minutes) and the TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL
+# and MXFP4 factory files: one child process a group makes them while the
+# kernels build (`prepare_requantized`; children that share a model's F16
+# file may both write it: each writes its own temporary and renames it
+# into place, the same bytes), and gguf_file waits for its file's child
 PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M",)),
-               ("tinyllama", ("Q5_0", "Q5_1")))
+               ("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
+               ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
@@ -470,8 +501,8 @@ def prepare_requantized():
 
 def _write_atomic(path: Path, write):
     """write(tmp) and then rename it to path, so a reader never sees a
-    file half written."""
-    tmp = path.with_name(path.name + ".tmp")
+    file half written (tmp is this process's own)."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     write(tmp)
     os.replace(tmp, path)
 
@@ -544,7 +575,7 @@ def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMAL
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b)) for a, b in zip(steps, cpu_logits))
     tol = 1e-3
     res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": shape, "env": env or {},
-           "logits_nmse_max": max(errs), "tolerance": tol, "argmax_agree": f"{agree}/{len(errs)}",
+           "logits_nmse_max": max(errs), "logits_nmse_by_step": errs, "tolerance": tol, "argmax_agree": f"{agree}/{len(errs)}",
            "finite": all(bool(torch.isfinite(a).all()) for a in steps), "gpu_launches": launched}
     emit(res)
     if not res["finite"] or max(errs) > tol:
@@ -697,6 +728,10 @@ SMALL_ENGINE_LAYOUTS = {
     # Q5_K_M: wq, wk, wo, gate|up, down Q5_K (K1, K3), wv and the head Q6_K
     "q5_k_m_paged": ("small", "Q5_K_M", dict(kv_dtype="f32"),
                      ("paged_attention", "paged_attn_decode_update")),
+    # Q3_K_M: wq, wk, wo, gate|up, down Q3_K (K4, K5), wv Q5_K (K1, K3), the
+    # head Q6_K; 4 slots, so a decode step's GEMMs run K5 at M = 4
+    "q3_k_m_paged": ("small", "Q3_K_M", dict(kv_dtype="f32", n_slots=4),
+                     ("paged_attention", "paged_attn_decode_update", "dequant_gemm")),
     # Qwen2 (G 6, head_dim 128, q/k/v biases; wv Q6_K, so no wqkv)
     "qwen2_paged": ("small_qwen2", "Q4_K_M", dict(kv_dtype="f32"),
                     ("paged_attention", "paged_attn_decode_update")),
@@ -722,12 +757,13 @@ TIE_GAP = 1e-2
 
 def small_engine_check(torch, kernels: dict, layout: str):
     """The continuous-batching Engine on the GPU (kernels) and on the CPU
-    (plain versions): a 2-layer Q4_K_M, Q4_0 or Q5_K_M file (llama or
-    OLMo-2) in f32, 2 slots, max_len 256, chunk 16, greedy, in one
-    configuration of SMALL_ENGINE_LAYOUTS.  Each wave is submitted from the engine thread
-    between two steps, so both engines admit it at the same step.  Counters,
-    finish reasons and reuse must be equal, and every sampled logits row
-    made from the same tokens on both sides within ENGINE_NMSE of the CPU's.
+    (plain versions): a 2-layer Q4_K_M, Q4_0, Q5_K_M or Q3_K_M file (llama
+    or OLMo-2) in f32, 2 slots (or the layout's n_slots), max_len 256, chunk
+    16, greedy, in one configuration of SMALL_ENGINE_LAYOUTS.  Each wave is
+    submitted from the engine thread between two steps, so both engines
+    admit it at the same step.  Counters, finish reasons and reuse must be
+    equal, and every sampled logits row made from the same tokens on both
+    sides within ENGINE_NMSE of the CPU's.
     Tokens must be identical, except in a layout of TIE_LAYOUTS, where a
     request's tokens may part at one sampled step after its first: there
     the GPU must take the CPU's second token, and the CPU's top-two gap be
@@ -751,11 +787,12 @@ def small_engine_check(torch, kernels: dict, layout: str):
     bpe = shape.get("tokenizer") == "bpe"
     streamed = {}
     must_not = [n for n in ATTENTION_KERNELS if n not in must]
-    kw = dict(kw, kv_dtype=torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"])
+    kw = dict(dict(n_slots=2), **kw)
+    kw["kv_dtype"] = torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"]
     runs, logits = {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.float32)
-        eng = Engine(m, n_slots=2, max_len=256, prefill_chunk=16, **kw)
+        eng = Engine(m, max_len=256, prefill_chunk=16, **kw)
         if bpe and dev == "cuda":  # a non-ASCII chat prompt, last
             chat = m.tokenizer.encode(CHAT_PROMPT, add_special=True, parse_special=True)
             if m.tokenizer.decode(chat) != CHAT_PROMPT.replace("<|im_start|>", "").replace(
@@ -824,7 +861,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
         want = {t1: n_l * (dec + pre), "flash_attention": n_l * pre}
     res = {"phase": "small_engine_gpu_vs_cpu", "layout": layout, "ftype": ftype,
            "shape": shape, "dtype": "float32",
-           "kv": str(kw["kv_dtype"]), "n_slots": 2, "max_len": 256, "chunk": 16,
+           "kv": str(kw["kv_dtype"]), "n_slots": kw["n_slots"], "max_len": 256, "chunk": 16,
            "tokens_equal": g_got == c_got, "requests": per_req, "logits_nmse_tolerance": ENGINE_NMSE,
            "tie_gap_limit": TIE_GAP if layout in TIE_LAYOUTS else 0.0,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
@@ -1143,18 +1180,24 @@ def tokenizer_roundtrip(card: str):
         fail(f"BPE ids differ from the pinned ones: {same}")
 
 
-# the 4-bit nibble formats' GGUF blocks: (weights a block, block bytes,
-# offsets of the fp16 scales)
-Q4_BLOCKS = {"Q4_K": (256, 144, (0, 2)), "Q4_0": (32, 18, (0,)), "Q4_1": (32, 20, (0, 2))}
+# the GGUF blocks of the formats whose kernel forms predate the low-bit
+# slice: (weights a block, block bytes, offsets of the fp16 scales); the
+# nibble formats go to K1/K3, Q6_K and Q8_0 to K4/K5
+DIGEST_BLOCKS = {"Q4_K": (256, 144, (0, 2)), "Q4_0": (32, 18, (0,)), "Q4_1": (32, 20, (0, 2)),
+                 "Q5_0": (32, 22, (0,)), "Q5_1": (32, 24, (0, 2)), "Q5_K": (256, 176, (0, 2)),
+                 "Q6_K": (256, 210, (208,)), "Q8_0": (32, 34, (0,))}
 
 
-def q4_digests(torch) -> dict:
-    """Digests of K1's and K3's outputs in their Q4_K, Q4_0 and Q4_1 forms:
-    weights of random GGUF bytes (every code and scale bit; fp16 scales in
-    [0.002, 0.02)) at a TinyLlama layer's shapes (wqkv norm 2048->2560, wo
-    q 2048->2048, gate|up norm 2048->11264, down glu 5632->2048), K1 on an
-    f32 and a bf16 row, K3 at M = 4 and 256, all from seed 0.  Equal
-    digests on two trees mean bit-equal outputs."""
+def form_digests(torch) -> dict:
+    """Digests of the outputs of the kernel forms that predate the low-bit
+    slice: K1 and K3 in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K forms, K4
+    and K5 in the Q6_K and Q8_0 forms, on weights of random GGUF bytes
+    (every code and scale bit; fp16 scales in [0.002, 0.02)) at a TinyLlama
+    layer's shapes (wqkv norm 2048->2560, wo q 2048->2048, gate|up norm
+    2048->11264, down glu 5632->2048), the matvec on an f32 and a bf16 row,
+    the GEMM at M = 4 and 256, all from seed 0 (the Q4 forms' first, with
+    the random stream of the earlier `q4_digests`).  Equal digests on two
+    trees mean bit-equal outputs."""
     import numpy as np
 
     from zllm_torch.gguf.constants import GGMLType
@@ -1172,7 +1215,10 @@ def q4_digests(torch) -> dict:
     rows = {"norm": randn(1, 2048, scale=3.0), "q": randn(1, 2048), "glu": randn(1, 2 * 5632)}
     xm = {2048: randn(256, 2048), 5632: randn(256, 5632)}
     out = {}
-    for fmt, (per, size, scales) in Q4_BLOCKS.items():
+    for fmt, (per, size, scales) in DIGEST_BLOCKS.items():
+        nibble = GGMLType[fmt] in qmm.NIBBLE_FMT_CODE
+        mv, gm = (qmm.q4k_matvec, qmm.q4k_gemm) if nibble else (qmm.int8_matvec,
+                                                                qmm.dequant_gemm)
         h1, h3 = hashlib.sha256(), hashlib.sha256()
         for k, n, fuse in ((2048, 2560, "norm"), (2048, 2048, "q"), (2048, 11264, "norm"),
                            (5632, 2048, "glu")):
@@ -1182,12 +1228,11 @@ def q4_digests(torch) -> dict:
                 raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
             w = repack(raw.reshape(n, -1), (n, k), GGMLType[fmt], "cuda")
             for xdtype in (torch.float32, torch.bfloat16):
-                y = qmm.q4k_matvec(rows[fuse].to(xdtype), w, fuse, aux if fuse == "norm" else None,
-                                   1e-5)
+                y = mv(rows[fuse].to(xdtype), w, fuse, aux if fuse == "norm" else None, 1e-5)
                 h1.update(y.cpu().numpy().tobytes())
             for m in (4, 256):
-                h3.update(qmm.q4k_gemm(xm[k][:m], w).cpu().numpy().tobytes())
-        out[fmt] = {"q4k_matvec": h1.hexdigest()[:16], "q4k_gemm": h3.hexdigest()[:16]}
+                h3.update(gm(xm[k][:m], w).cpu().numpy().tobytes())
+        out[fmt] = {mv.__name__: h1.hexdigest()[:16], gm.__name__: h3.hexdigest()[:16]}
     return out
 
 
@@ -1241,7 +1286,8 @@ def main():
           "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
                   "(q4k_gemm.cu: NibbleSlice for Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 "
                   "(dequant_gemm.cu: "
-                  "Q6KSlice, Q80Slice), RowForm and TileForm per decoder, and its round and "
+                  "Q6KSlice, Q80Slice, CrumbSlice for Q2_K / Q3_K, TableSlice for IQ4_NL and "
+                  "IQ4_XS / MXFP4), RowForm and TileForm per decoder, and its round and "
                   "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
@@ -1290,14 +1336,15 @@ def main():
                   for lib, entry in (("int8_matvec", "int8_matvec_kernel"),
                                      ("attn_decode", "attn_decode_qkv_kernel"))}
     emit({"phase": "build_k4_k2", "instantiations": k4k2_build,
-          "note": "registers and spills of K4 (csrc/int8_matvec.cu: Q6_K/Q8_0 x prologue "
-                  "q/norm/glu x f32/bf16) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
+          "note": "registers and spills of K4 (csrc/int8_matvec.cu: Q6_K/Q8_0/Q2_K/Q3_K/"
+                  "IQ4/MXFP4 x prologue q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one "
+                  "decoder) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
                   "f32/bf16 x D 64/128)" if any(k4k2_build.values())
                   else "not built in this run (cached)"})
     spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K4 or K2 spills: {spills}")
-    for lib, n_inst in (("int8_matvec", 12), ("attn_decode", 8)):
+    for lib, n_inst in (("int8_matvec", 36), ("attn_decode", 8)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
     k12k11_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
@@ -1319,12 +1366,16 @@ def main():
     for lib, n_inst in (("q4k_matvec_hbm", 18), ("w4a8dd_matvec", 4)):
         if lib in reports and len(k12k11_build[lib]) != n_inst:
             fail(f"{lib}: {len(k12k11_build[lib])} instantiations built, not {n_inst}")
-    for lib, decoders in (("q4k_gemm", ("NibbleSlice",)),
-                          ("dequant_gemm", ("Q6KSlice", "Q80Slice"))):
+    # one sliced-loop instantiation a form and decoder: K3's six nibble
+    # formats, K5's Q6_K, Q8_0, Q2_K, Q3_K, IQ4 (IQ4_NL and IQ4_XS) and MXFP4
+    for lib, decoders, n_dec in (("q4k_gemm", ("NibbleSlice",), 6),
+                                 ("dequant_gemm", ("Q6KSlice", "Q80Slice", "CrumbSlice",
+                                                   "TableSlice"), 6)):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
                  if any(d in e["name"] for d in decoders)]
-        if lib in reports and len(loops) != 2 * (6 if lib == "q4k_gemm" else 2):
-            fail(f"{lib}: {len(loops)} sliced-loop instantiations built, not one a form and format")
+        if lib in reports and len(loops) != 2 * n_dec:
+            fail(f"{lib}: {len(loops)} sliced-loop instantiations built, not one a form and "
+                 "decoder")
 
     kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
                "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
@@ -1339,6 +1390,8 @@ def main():
         small_model_check(torch, ftype)
     for ftype in ("Q5_0", "Q5_1", "Q5_K_M"):  # K1 and K3 in their Q5 forms
         small_model_check(torch, ftype, kernels=kernels, must=("q4k_matvec", "q4k_gemm"))
+    for ftype in LOWBIT_FTYPES:  # K4 and K5 in their low-bit forms
+        small_model_check(torch, ftype, kernels=kernels, must=("int8_matvec", "dequant_gemm"))
     for ftype in ("Q4_K", "Q4_K_M"):
         small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
     dualdot = {"ZLLM_QMM_DUALDOT": "1"}
@@ -1487,6 +1540,32 @@ def main():
                 k1_logits=k1_logits)
         del gen_5
 
+    # the low-bit slice at TinyLlama geometry: Q3_K_M (zllm_torch.quantize
+    # from the F16 file: wq, wk, wo, gate|up, down Q3_K on K4/K5; wv Q5_K on
+    # K1/K3; the head Q6_K on K4/K5), IQ4_XS (the same way: every matmul
+    # IQ4_XS but the Q6_K head, so wq|wk|wv fuse), and Q2_K, IQ4_NL and
+    # MXFP4 from the factory (every matmul in the type, the head too)
+    def want_q3km(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # K4: wq, wk, wo, gate|up, down a layer + the head; K1: wv
+        return dict({name: 0 for name in kernels}, int8_matvec=(5 * L + 1) * n_steps,
+                    q4k_matvec=L * n_steps, attn_decode_qkv=L * (n_steps + n_chunks),
+                    dequant_gemm=(5 * L + 1) * n_chunks, q4k_gemm=L * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    def want_k4_only(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # K4: wqkv, wo, gate|up, down a layer + the head
+        return dict({name: 0 for name in kernels}, int8_matvec=(4 * L + 1) * n_steps,
+                    attn_decode_qkv=L * (n_steps + n_chunks),
+                    dequant_gemm=(4 * L + 1) * n_chunks, flash_attention=L * n_chunks)
+
+    lowbit_models, lowbit_steps, lowbit_counts = {}, {}, {}
+    for ftype in LOWBIT_FTYPES:
+        model_lb, counts_lb, gen_lb, *_, step_lb = main_path(
+            torch, ftype, kernels, want_q3km if ftype == "Q3_K_M" else want_k4_only, card)
+        lowbit_models[ftype], lowbit_steps[ftype], lowbit_counts[ftype] = (model_lb, step_lb,
+                                                                            counts_lb)
+        del gen_lb
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
@@ -1494,7 +1573,8 @@ def main():
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
              "olmo2_q4_1_hbm": counts_o1_hbm, "qwen3": counts_q3, "qwen25": counts_q25,
-             **q5_counts, "serve": counts_serve, "serve_q8": counts_q8,
+             **q5_counts, **{ft.lower(): c for ft, c in lowbit_counts.items()},
+             "serve": counts_serve, "serve_q8": counts_q8,
              "serve_contig": counts_contig}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
@@ -1525,7 +1605,8 @@ def main():
     # the function's own columns: a TinyLlama head is padded to 32768 for
     # the layout, but only the vocabulary's columns count toward the bound
     real_cols = {id(m_.params["output"]): m_.cfg.vocab_size
-                 for m_ in (model, model_m, model_40, model_o, model_o1, *q5_models.values())}
+                 for m_ in (model, model_m, model_40, model_o, model_o1, *q5_models.values(),
+                            *lowbit_models.values())}
 
     def n_real(w):
         return real_cols.get(id(w), w.shape[1])
@@ -2276,17 +2357,25 @@ def main():
         by_name[name]["q4_0_tinyllama"] = legacy_lines["q4_0"][key]
         by_name[name]["q4_1_olmo2"] = legacy_lines["olmo2_q4_1"][key]
 
-    # K1 and K3 in their Q5 forms, by weight role: the Q5_K_M step's 110
-    # Q5_K matvecs (wq and wk take the bf16 normed row, as in the step) and
-    # its chunk's 110 GEMMs, K3 also at the engine's M = 4; the Q5_0 and
-    # Q5_1 steps' 89 matvecs and chunks' 89 GEMMs
-    def q5_calls(model_5):
+    # the matmul kernels by weight role on a TinyLlama step's and chunk's
+    # weights of one format: K1 and K3 on the Q5_K_M step's 110 Q5_K
+    # matvecs and the Q5_0 and Q5_1 steps' 89; K4 and K5 on the Q3_K_M
+    # step's 110 Q3_K matvecs and its Q6_K head, and the IQ4_XS, Q2_K,
+    # IQ4_NL and MXFP4 steps' 89
+    def role_calls(model_, all_heads: bool):
+        """The step's matvec calls [(x, w, fuse, aux)] on `model_`'s matmul
+        weights, its chunk's GEMM calls [(x, w)] and the call indices of each
+        weight role.  A fused file's wqkv takes the raw residual with "norm";
+        a split file's wq and wk the bf16 normed row, as in the step (its wv
+        is in another format, on another kernel).  The head joins as "head"
+        when it is in the matmuls' format, and with `all_heads` also when it
+        is not, as "head FMT"."""
         mcalls, gcalls_, roles = [], [], {}
-        for layer in model_5.params["layers"]:
-            if "wqkv" in layer:  # Q5_0, Q5_1: wq|wk|wv fused
+        for layer in model_.params["layers"]:
+            if "wqkv" in layer:
                 qkv = [("wqkv", (x_res, layer["wqkv"], "norm", layer["attn_norm"]),
                         xs[d_model])]
-            else:  # Q5_K_M: wv Q6_K, so wq and wk on their own after the norm
+            else:
                 qkv = [(r, (x_h, layer[r], "q", None), xh_m) for r in ("wq", "wk")]
             for role, c, xg in qkv + [
                     ("wo", (x_att, layer["wo"], "q", None), xs[d_model]),
@@ -2296,42 +2385,61 @@ def main():
                 roles.setdefault(role, []).append(len(mcalls))
                 mcalls.append(c)
                 gcalls_.append((xg, c[1]))
-        head_5 = model_5.params["output"]
-        if head_5.fmt == mcalls[0][1].fmt:
-            roles["head"] = [len(mcalls)]
-            mcalls.append((x_res, head_5, "norm", model_5.params["out_norm"]))
-            gcalls_.append((xs[d_model], head_5))
+        head_ = model_.params["output"]
+        same = head_.fmt == mcalls[0][1].fmt
+        if same or all_heads:
+            roles["head" if same else f"head {head_.fmt.name}"] = [len(mcalls)]
+            mcalls.append((x_res, head_, "norm", model_.params["out_norm"]))
+            gcalls_.append((xs[d_model], head_))
         return mcalls, gcalls_, roles
 
-    q5_lines, bad_q5 = {}, []
-    for ftype, fmt in (("Q5_K_M", "Q5_K"), ("Q5_0", "Q5_0"), ("Q5_1", "Q5_1")):
-        mcalls, gcalls_, roles = q5_calls(q5_models[ftype])
-        bpw = GGUF_BYTES_PER_WEIGHT[fmt]
-        check = (0, 1, 2, 3, 4, len(mcalls) - 1)
-        k1 = matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, mcalls, n_real, bpw,
-                          cfg.norm_eps, check=check, groups=roles)
-        k3 = gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, gcalls_, n_real, bpw,
-                        check=check, groups=roles)
-        q5_lines[ftype] = dict(k1=dict(k1, launches=len(mcalls), fmt=fmt, tolerance=1e-6),
-                               k3=dict(k3, launches=len(gcalls_), m=m_rows, fmt=fmt,
-                                       tolerance=1e-6))
-        if ftype == "Q5_K_M":  # the engine's decode M = 4 (one row per slot)
+    def role_lines(model_, kernels, keys, all_heads: bool, m4: bool) -> dict:
+        """The matvec and GEMM of `kernels` ((wrapper, plain) each, named by
+        `keys`) on role_calls(model_, all_heads), by weight role: bounded by
+        each weight's GGUF bytes (the layout's bytes a weight beside them),
+        held against the plain versions on the first five calls, each role's
+        first and the last; with `m4` the GEMM also at the engine's decode
+        M = 4 (one row per slot)."""
+        mcalls, gcalls_, roles = role_calls(model_, all_heads)
+        (mv, mv_plain), (gm, gm_plain) = kernels
+        check = tuple(sorted({*range(5), *(idx[0] for idx in roles.values()), len(mcalls) - 1}))
+        fmt = mcalls[0][1].fmt.name
+        nw = sum(w.shape[0] * n_real(w) for _, w, _, _ in mcalls)
+        layout = sum(w.nbytes * n_real(w) / w.shape[1] for _, w, _, _ in mcalls) / nw
+        out = {keys[0]: dict(matvec_phase(torch, mv, mv_plain, mcalls, n_real, None, cfg.norm_eps,
+                                          check=check, groups=roles),
+                             launches=len(mcalls), fmt=fmt, layout_bytes_per_weight=layout,
+                             tolerance=1e-6),
+               keys[1]: dict(gemm_phase(torch, gm, gm_plain, gcalls_, n_real, None, check=check,
+                                        groups=roles),
+                             launches=len(gcalls_), m=m_rows, fmt=fmt,
+                             layout_bytes_per_weight=layout, tolerance=1e-6)}
+        if m4:
             g4 = [(x[:4], w) for x, w in gcalls_]
-            q5_lines[ftype]["k3_m4"] = dict(
-                gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4, n_real, bpw,
-                           check=(0, len(g4) - 1), groups=roles),
+            out[keys[1] + "_m4"] = dict(
+                gemm_phase(torch, gm, gm_plain, g4, n_real, None, check=(0, len(g4) - 1),
+                           groups=roles),
                 launches=len(g4), m=4, fmt=fmt, tolerance=1e-6)
-            # and K4 on the step's 23 Q6_K matvecs: wv a layer, the head
-            model_5 = q5_models[ftype]
-            calls6 = [(x_h, layer["wv"], "q", None) for layer in model_5.params["layers"]]
-            calls6.append((x_res, model_5.params["output"], "norm", model_5.params["out_norm"]))
-            q5_lines[ftype]["k4"] = dict(
-                matvec_phase(torch, qmm.int8_matvec, qmm.int8_matvec_plain, calls6, n_real,
-                             GGUF_BYTES_PER_WEIGHT["Q6_K"], cfg.norm_eps,
-                             check=(0, len(calls6) - 1)),
-                launches=len(calls6), fmt="Q6_K", tolerance=1e-6)
-        bad_q5 += [f"{ftype} {key}" for key, r in q5_lines[ftype].items()
-                   if not r["nmse"] <= r["tolerance"]]
+        return out
+
+    def failed(lines_):
+        return [f"{ft} {key}" for ft, ln in lines_.items() for key, r in ln.items()
+                if not r["nmse"] <= r["tolerance"]]
+
+    k1_k3 = ((qmm.q4k_matvec, qmm.q4k_matvec_plain), (qmm.q4k_gemm, qmm.q4k_gemm_plain))
+    k4_k5 = ((qmm.int8_matvec, qmm.int8_matvec_plain),
+             (qmm.dequant_gemm, qmm.dequant_gemm_plain))
+    q5_lines = {ft: role_lines(q5_models[ft], k1_k3, ("k1", "k3"), all_heads=False,
+                               m4=ft == "Q5_K_M") for ft in ("Q5_K_M", "Q5_0", "Q5_1")}
+    # and K4 on the Q5_K_M step's 23 Q6_K matvecs: wv a layer, the head
+    model_5 = q5_models["Q5_K_M"]
+    calls6 = [(x_h, layer["wv"], "q", None) for layer in model_5.params["layers"]]
+    calls6.append((x_res, model_5.params["output"], "norm", model_5.params["out_norm"]))
+    q5_lines["Q5_K_M"]["k4"] = dict(
+        matvec_phase(torch, qmm.int8_matvec, qmm.int8_matvec_plain, calls6, n_real,
+                     GGUF_BYTES_PER_WEIGHT["Q6_K"], cfg.norm_eps, check=(0, len(calls6) - 1)),
+        launches=len(calls6), fmt="Q6_K", tolerance=1e-6)
+    bad_q5 = failed(q5_lines)
     emit({"phase": "kernel_q5", "card": card,
           "shapes": "TinyLlama geometry: Q5_K_M 22 x [wq, wk q 2048->2048/256 (bf16 x), wo q "
                     "2048->2048, gate|up norm 2048->11264, down glu 5632->2048]; Q5_0 and Q5_1 "
@@ -2343,12 +2451,33 @@ def main():
             by_name[name][f"{ftype.lower()}_tinyllama"] = ln[key]
     by_name["q4k_gemm"]["q5_k_m_tinyllama_m4"] = q5_lines["Q5_K_M"]["k3_m4"]
 
-    # K1's and K3's Q4 forms keep their bits: digests of their outputs on
+    lowbit_lines = {ft: role_lines(lowbit_models[ft], k4_k5, ("k4", "k5"), all_heads=True,
+                                   m4=ft == "Q3_K_M") for ft in LOWBIT_FTYPES}
+    # and K1 on the Q3_K_M step's 22 Q5_K wv matvecs (the bf16 normed row)
+    wv_calls = [(x_h, layer["wv"], "q", None)
+                for layer in lowbit_models["Q3_K_M"].params["layers"]]
+    lowbit_lines["Q3_K_M"]["k1_wv"] = dict(
+        matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, wv_calls, n_real,
+                     GGUF_BYTES_PER_WEIGHT["Q5_K"], cfg.norm_eps, check=(0,)),
+        launches=len(wv_calls), fmt="Q5_K", tolerance=1e-6)
+    bad_lowbit = failed(lowbit_lines)
+    emit({"phase": "kernel_lowbit", "card": card,
+          "shapes": "TinyLlama geometry: Q3_K_M 22 x [wq, wk q 2048->2048/256 (bf16 x), wo q "
+                    "2048->2048, gate|up norm 2048->11264, down glu 5632->2048] Q3_K + head "
+                    "norm 2048->32000 Q6_K; IQ4_XS 22 x [wqkv norm 2048->2560, wo, gate|up, "
+                    "down] IQ4_XS + head Q6_K; Q2_K, IQ4_NL, MXFP4 the same with the head in "
+                    "the type (launched padded to 32768); K5 the same weights at M = 256 (and "
+                    "4); bounds by each weight's GGUF bytes, the layout's beside them "
+                    "(layout_bytes_per_weight)",
+          **lowbit_lines})
+    lowbit_k4 = {f"{ft.lower()}_tinyllama": ln["k4"] for ft, ln in lowbit_lines.items()}
+    lowbit_k5 = {f"{ft.lower()}_tinyllama": ln["k5"] for ft, ln in lowbit_lines.items()}
+    lowbit_k5["q3_k_m_tinyllama_m4"] = lowbit_lines["Q3_K_M"]["k5_m4"]
+
+    # the earlier kernel forms keep their bits: digests of their outputs on
     # seeded inputs, to be compared with another tree's (`--digest`)
-    digests = q4_digests(torch)
-    emit({"phase": "q4_digests", "tree": str(REPO), **digests})
-    for name in ("q4k_matvec", "q4k_gemm"):
-        by_name[name]["q4_output_digest"] = {fmt: d[name] for fmt, d in digests.items()}
+    digests = form_digests(torch)
+    emit({"phase": "form_digests", "tree": str(REPO), **digests})
 
     # K4: one Q4_K_M decode step's 34 Q6_K matvecs, in the model's dtypes:
     # wv takes the bf16 normed row, ffn_down the f32 gate|up row, the head
@@ -2409,6 +2538,8 @@ def main():
     g4_k5 = [(rows4(x), w) for x, w in gcalls5]
     by_name = {ln["name"]: ln for ln in lines}  # now with K4 and K5
     by_name["int8_matvec"]["q5_k_m_tinyllama"] = q5_lines["Q5_K_M"]["k4"]
+    by_name["int8_matvec"].update(lowbit_k4)
+    by_name["dequant_gemm"].update(lowbit_k5)
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
                    GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1), groups=roles_m),
@@ -2424,8 +2555,10 @@ def main():
     # K3's and K5's rows do not depend on M: the engine's 4-row decode step
     # (row form) and its 512-row mixed step (tile form) give a generating
     # row the same bits, on every Q4_K (K3) and Q6_K (K5) weight of the
-    # Q4_K_M model and every Q5_K weight of the Q5_K_M one, and on a Q4_0
-    # and a Q5_0 (gate|up) and a Q4_1 (OLMo-2) and a Q5_1 (ffn_down) one
+    # Q4_K_M model and every Q5_K weight of the Q5_K_M one, every Q3_K (K5)
+    # weight of the Q3_K_M one and IQ4_XS weight of the IQ4_XS one, and on a
+    # Q4_0 and a Q5_0 (gate|up) and a Q4_1 (OLMo-2) and a Q5_1 (ffn_down)
+    # one, and a Q2_K, an IQ4_NL and an MXFP4 gate|up
     x512 = {k: randn(512, k) for k in (d_model, n_ff, cfg_o.n_ff)}
     xh512 = randn(512, d_model, dtype=torch.bfloat16)
 
@@ -2442,13 +2575,22 @@ def main():
     w41 = model_o1.params["layers"][0]["ffn_down"]
     w50 = q5_models["Q5_0"].params["layers"][0]["ffn_gateup"]
     w51 = q5_models["Q5_1"].params["layers"][0]["ffn_down"]
-    rows = {"dequant_gemm": {"Q4_K_M Q6_K": rows_same(qmm.dequant_gemm, gcalls5)},
+    rows = {"dequant_gemm": {"Q4_K_M Q6_K": rows_same(qmm.dequant_gemm, gcalls5),
+                             **{f"{ft} {fmt}": rows_same(qmm.dequant_gemm, [
+                                 c for c in role_calls(lowbit_models[ft], True)[1]
+                                 if c[1].fmt.name == fmt])
+                                for ft, fmt in (("Q3_K_M", "Q3_K"), ("IQ4_XS", "IQ4_XS"))},
+                             **{f"{ft} gate|up": rows_same(qmm.dequant_gemm, [
+                                 (x512[d_model],
+                                  lowbit_models[ft].params["layers"][0]["ffn_gateup"])])
+                                for ft in ("Q2_K", "IQ4_NL", "MXFP4")}},
             "q4k_gemm": {"Q4_K_M Q4_K": rows_same(qmm.q4k_gemm, gcalls_m),
                          "Q4_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w40)]),
                          "Q4_1 OLMo-2 ffn_down": rows_same(qmm.q4k_gemm,
                                                            [(x512[cfg_o.n_ff], w41)]),
                          "Q5_K_M Q5_K": rows_same(qmm.q4k_gemm,
-                                                  q5_calls(q5_models["Q5_K_M"])[1]),
+                                                  role_calls(q5_models["Q5_K_M"],
+                                                             False)[1]),
                          "Q5_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w50)]),
                          "Q5_1 ffn_down": rows_same(qmm.q4k_gemm, [(x512[n_ff], w51)])}}
     bad_rows = []
@@ -2516,6 +2658,19 @@ def main():
                                              kernels_ms=q5_lines[ft]["k1"]["ms"]
                                              + by_name["attn_decode_qkv"]["ms"])
              for ft in ("Q5_0", "Q5_1")},
+          "tinyllama_q3km": dict(step_graph_ms=lowbit_steps["Q3_K_M"],
+                                 k4_ms=lowbit_lines["Q3_K_M"]["k4"]["ms"],
+                                 k1_ms=lowbit_lines["Q3_K_M"]["k1_wv"]["ms"],
+                                 k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                 kernels_ms=lowbit_lines["Q3_K_M"]["k4"]["ms"]
+                                 + lowbit_lines["Q3_K_M"]["k1_wv"]["ms"]
+                                 + by_name["attn_decode_qkv"]["ms"]),
+          **{f"tinyllama_{ft.lower()}": dict(step_graph_ms=lowbit_steps[ft],
+                                             k4_ms=lowbit_lines[ft]["k4"]["ms"],
+                                             k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                             kernels_ms=lowbit_lines[ft]["k4"]["ms"]
+                                             + by_name["attn_decode_qkv"]["ms"])
+             for ft in LOWBIT_FTYPES if ft != "Q3_K_M"},
           **{label: dict(step_graph_ms=st["step_graph_ms"], k1_ms=st["k1"]["ms"],
                          k4_ms=st["k4"]["ms"] if "k4" in st else 0.0, k2_ms=st["k2"]["ms"],
                          head_ms=st["head"]["ms"],
@@ -2524,7 +2679,8 @@ def main():
              for label, st in (("qwen3_q4k", qwen3_step), ("qwen25_q4km", qwen25_step))},
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
                   "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M, Q5_K_M: K1, K4 "
-                  "and K2; OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul) "
+                  "and K2; OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul; "
+                  "Q3_K_M: K4, K1 and K2; IQ4_XS, Q2_K, IQ4_NL, MXFP4: K4 and K2) "
                   "graph times from the kernel phases"})
 
     for line in lines:
@@ -2532,13 +2688,21 @@ def main():
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
     if not by_name["attn_decode_qkv"]["tinyllama_engine_step"]["nmse"] <= 1e-5:
         bad.append("attn_decode_qkv tinyllama_engine_step")
-    if bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy or bad_q5:
+    if (bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy or bad_q5
+            or bad_lowbit):
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
              f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "
-             f"{bad_legacy}, Q5: {bad_q5})")
+             f"{bad_legacy}, Q5: {bad_q5}, low-bit: {bad_lowbit})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: ln[k] for k in keys} for ln in lines]})
+    # the weight formats each matmul kernel takes (its forms)
+    forms = {name: [f.name for f in fmts] for name, fmts in (
+        ("q4k_matvec", qmm.NIBBLE_FMT_CODE), ("q4k_gemm", qmm.NIBBLE_FMT_CODE),
+        ("int8_matvec", qmm.INT8_FMT_CODE), ("dequant_gemm", qmm.INT8_FMT_CODE),
+        ("q4k_matvec_hbm", qmm.HBM_FMTS), ("w4a8dd_matvec", qmm.DUALDOT_FMTS))}
+    emit({"kernels": [dict({k: ln[k] for k in keys},
+                           **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))
+                      for ln in lines]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -2549,7 +2713,7 @@ if __name__ == "__main__":
         sys.path.insert(0, str(REPO))
         for ftype_ in sys.argv[3:]:
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
-    elif sys.argv[1:2] == ["--digest"]:  # K1's and K3's Q4 digests alone
+    elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone
         if not (REPO / "zllm_torch" / "csrc").is_dir():
             fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")
         sys.path.insert(0, str(REPO))
@@ -2557,6 +2721,6 @@ if __name__ == "__main__":
 
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: the digests need a CUDA GPU")
-        emit({"phase": "q4_digests", "tree": str(REPO), **q4_digests(torch)})
+        emit({"phase": "form_digests", "tree": str(REPO), **form_digests(torch)})
     else:
         main()

@@ -22,7 +22,10 @@ and epilogue), and `quantize_acts` is bit-equal to `quantize_groups`
 (rintf and torch.round both round half to even); K1 and K3 hold the same
 tolerances in their Q5_0/Q5_1/Q5_K forms (the fifth bits from the qh
 plane), and 2-layer Q5 files run on the card within nmse 1e-3 of the CPU
-(f32 model and caches).
+(f32 model and caches); K4 and K5 hold theirs in the Q2_K, Q3_K, IQ4_NL,
+IQ4_XS and MXFP4 forms (table lookups by byte permutes, MXFP4's E8M0
+scale from its bits), and 2-layer files in those formats run on the card
+within nmse 1e-3 of the CPU.
 """
 
 import functools
@@ -56,7 +59,8 @@ def _nmse(a, b) -> float:
 
 @functools.lru_cache(maxsize=16)
 def _qweight_raw(n: int, k: int, seed: int, fmt) -> np.ndarray:
-    """The GGUF rows of `_qweight`'s weight (quantized once a module)."""
+    """The GGUF rows of `_qweight`'s and `_int_weight`'s weights (quantized
+    once a module)."""
     rng = np.random.default_rng(seed)
     return qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
 
@@ -132,22 +136,22 @@ def test_k3_refuses_odd_n(dev):
 
 
 INT_FMTS = [GGMLType.Q6_K, GGMLType.Q8_0]
+LOWBIT_FMTS = [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4]
+K5_FMTS = [*INT_FMTS, *LOWBIT_FMTS]
 
 
 def _int_weight(fmt, n: int, k: int, seed: int, dev, n_pad: int = 0):
-    """A random Q6_K/Q8_0 weight; `n_pad` > n zero-pads it as the loader
-    pads the head."""
-    rng = np.random.default_rng(seed)
-    raw = qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
-    w = repack(raw, (n, k), fmt, dev)
+    """A random weight of a K4/K5 format (Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
+    IQ4_XS, MXFP4); `n_pad` > n zero-pads it as the loader pads the head."""
+    w = repack(_qweight_raw(n, k, seed, fmt), (n, k), fmt, dev)
     return pad_n(w, n_pad) if n_pad else w
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
-@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
-@pytest.mark.parametrize("k,n,n_pad", [(256, 128, 0), (2048, 256, 0), (5632, 2048, 0),
-                                       (2048, 32000, 32768), (8960, 1536, 0)])
+@pytest.mark.parametrize("fmt", K5_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("k,n,n_pad", [(256, 128, 0), (2048, 256, 0), (2048, 2048, 0),
+                                       (5632, 2048, 0), (2048, 32000, 32768), (8960, 1536, 0)])
 def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
     w = _int_weight(fmt, n, k, k + n, dev, n_pad)
     x = _randn((1, 2 * k if fuse == "glu" else k), 1, dev, xdtype, scale=2.0)
@@ -161,18 +165,22 @@ def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
         assert not got[:, n:].any()
 
 
+K5_CASES = [(1, 256, 128, 0), (7, 512, 384, 0), (64, 2048, 256, 0), (256, 5632, 2048, 0),
+            (256, 2048, 32000, 32768), (4, 768, 384, 0), (4, 2048, 256, 0), (4, 5632, 2048, 0),
+            (4, 2048, 32000, 32768), (16, 2048, 256, 0), (17, 768, 256, 0), (128, 5632, 2048, 0),
+            (256, 2048, 256, 0), (512, 768, 384, 0), (512, 2048, 256, 0), (37, 5632, 2048, 0),
+            (300, 2048, 32000, 32768), (4, 8960, 1536, 0), (256, 8960, 1536, 0)]
+# the low-bit formats on nine of them (their numpy encoders are slower)
+LOWBIT_K5_CASES = [(1, 256, 128, 0), (4, 2048, 256, 0), (4, 5632, 2048, 0), (7, 512, 384, 0),
+                   (64, 2048, 256, 0), (256, 5632, 2048, 0), (256, 2048, 32000, 32768),
+                   (37, 5632, 2048, 0), (512, 768, 384, 0)]
+
+
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("fmt", INT_FMTS, ids=lambda t: t.name)
-@pytest.mark.parametrize("m,k,n,n_pad", [(1, 256, 128, 0), (7, 512, 384, 0),
-                                         (64, 2048, 256, 0), (256, 5632, 2048, 0),
-                                         (256, 2048, 32000, 32768),
-                                         (4, 768, 384, 0), (4, 2048, 256, 0),
-                                         (4, 5632, 2048, 0), (4, 2048, 32000, 32768),
-                                         (16, 2048, 256, 0), (17, 768, 256, 0),
-                                         (128, 5632, 2048, 0), (256, 2048, 256, 0),
-                                         (512, 768, 384, 0), (512, 2048, 256, 0),
-                                         (37, 5632, 2048, 0), (300, 2048, 32000, 32768),
-                                         (4, 8960, 1536, 0), (256, 8960, 1536, 0)])
+@pytest.mark.parametrize("m,k,n,n_pad,fmt",
+                         [(*c, f) for f in INT_FMTS for c in K5_CASES]
+                         + [(*c, f) for f in LOWBIT_FMTS for c in LOWBIT_K5_CASES],
+                         ids=lambda v: v.name if isinstance(v, GGMLType) else None)
 def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
     x = _randn((m, k), 3, dev, xdtype)
@@ -187,18 +195,19 @@ def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
 
 
 Q5_FMTS = [GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K]
-SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *Q5_FMTS, *INT_FMTS]
+SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *Q5_FMTS, *K5_FMTS]
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fmt", SLICE_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
 def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
-    """K3 (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 (Q6_K, Q8_0) sum every
-    row slice by slice in zllm's order, so its bits do not depend on M or
-    on the form (row form M <= 16, tile form above, the slices split over
-    blocks or not), and repeated calls agree."""
-    w = (_int_weight(fmt, n, k, k + n, dev) if fmt in INT_FMTS
+    """K3 (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 (Q6_K, Q8_0, Q2_K,
+    Q3_K, IQ4_NL, IQ4_XS, MXFP4) sum every row slice by slice in zllm's
+    order, so its bits do not depend on M or on the form (row form M <= 16,
+    tile form above, the slices split over blocks or not), and repeated
+    calls agree."""
+    w = (_int_weight(fmt, n, k, k + n, dev) if fmt in K5_FMTS
          else _qweight(n, k, k + n, dev, fmt))
     x = _randn((512, k), 6, dev, xdtype)
     full = tq.gemm(x, w)
@@ -1186,15 +1195,22 @@ def test_switches_keep_q5_on_k1(dev, fmt, fuse, switch, monkeypatch):
         tq.w4a8dd_matvec(x[:, :k], w)
 
 
-@pytest.mark.parametrize("ftype", ["Q5_0", "Q5_1", "Q5_K_M"])
+REQUANTIZED = ("Q5_K_M", "Q3_K_M", "IQ4_XS")
+
+
+@pytest.mark.parametrize("ftype", ["Q5_0", "Q5_1", "Q5_K_M",
+                                   "Q2_K", "Q3_K_M", "IQ4_NL", "IQ4_XS", "MXFP4"])
 def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
-    """A 2-layer llama file (Q5_0 and Q5_1 from the factory, Q5_K_M by
-    `zllm_torch.quantize` from an F16 one) on the card (K1, K3, and K4/K5
-    for Q5_K_M's Q6_K wv and head) and on the CPU (plain versions), f32
-    model and caches, fed the same tokens: the prefill logits and 8 decode
-    steps' within nmse 1e-3 (chip_smoke.py's small-model tolerance: an f32
-    sum order can move an int8 activation code or a bf16 operand, which
-    the random weights carry to ~1e-4), and K1 and K3 launched."""
+    """A 2-layer llama file (Q5_0, Q5_1, Q2_K, IQ4_NL and MXFP4 from the
+    factory: every matmul in the type; Q5_K_M, Q3_K_M and IQ4_XS by
+    `zllm_torch.quantize` from an F16 one) on the card and on the CPU
+    (plain versions), f32 model and caches, fed the same tokens: the
+    prefill logits and 8 decode steps' within nmse 1e-3 (chip_smoke.py's
+    small-model tolerance: an f32 sum order can move an int8 activation
+    code or a bf16 operand, which the random weights carry to ~1e-4), and
+    the matmul kernels of its matmul type launched: K1 and K3 for the Q5
+    files (K4/K5 for Q5_K_M's Q6_K wv and head), K4 and K5 for the low-bit
+    ones (K1/K3 for Q3_K_M's Q5_K wv)."""
     from zllm_torch.models.loader import Model
     from zllm_torch.quantize import quantize_file
     from zllm_torch.runtime.generate import Generator
@@ -1203,7 +1219,7 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     shape = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512,
                  seed=0)
     path = str(tmp_path / "m.gguf")
-    if ftype == "Q5_K_M":
+    if ftype in REQUANTIZED:
         src = make_llama_gguf(str(tmp_path / "f16.gguf"), gtype=GGMLType.F16, **shape)
         quantize_file(src, path, ftype, quiet=True)
     else:
@@ -1211,7 +1227,9 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     gens = {d: Generator(Model.load(path, device=d, dtype=torch.float32), max_len=128,
                          prefill_chunk=16, kv_dtype=torch.float32) for d in ("cuda", "cpu")}
     prompt = [1] + list(range(40, 59))
-    before = (tq.q4k_matvec.launches, tq.q4k_gemm.launches)
+    kernels = ((tq.q4k_matvec, tq.q4k_gemm) if ftype.startswith("Q5")
+               else (tq.int8_matvec, tq.dequant_gemm))
+    before = [f.launches for f in kernels]
     rows = {d: [g.prefill(prompt).float().cpu()] for d, g in gens.items()}
     tok = int(torch.argmax(rows["cpu"][0]))
     for i in range(8):
@@ -1219,6 +1237,92 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
             rows[d].append(g._decode_one(tok, len(prompt) + i).float().cpu())
         tok = int(torch.argmax(rows["cpu"][-1]))
     torch.cuda.synchronize()
-    assert tq.q4k_matvec.launches > before[0] and tq.q4k_gemm.launches > before[1]
+    assert all(f.launches > n for f, n in zip(kernels, before))
     for step, (a, b) in enumerate(zip(rows["cuda"], rows["cpu"])):
         assert bool(torch.isfinite(a).all()) and _nmse(a, b) < 1e-3, step
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5 in their Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 forms
+# ---------------------------------------------------------------------------
+
+# GGUF block bytes and the offsets of the fp16 scales (Q2_K d, dmin; Q3_K
+# d; IQ4_NL, IQ4_XS d); MXFP4's exponent byte at 0
+LOWBIT_BLOCKS = {GGMLType.Q2_K: (84, (80, 82), 256), GGMLType.Q3_K: (110, (108,), 256),
+                 GGMLType.IQ4_NL: (18, (0,), 32), GGMLType.IQ4_XS: (136, (0,), 256),
+                 GGMLType.MXFP4: (17, (), 32)}
+
+
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS, ids=lambda t: t.name)
+def test_k4_k5_lowbit_random_blocks(dev, fmt):
+    """Random bytes in every code, third-bit, index and scale position, fp16
+    scales drawn from a finite range, MXFP4 exponents around 2^0 (K4 also
+    with exponents 0 and 1, the subnormal scales), held column by column: a
+    crumb, bit, table or slot slip shows in the columns it hits.  K5 at M =
+    4 (row form) and 256 (tile form)."""
+    n, k = 256, 2048
+    size, scales, per = LOWBIT_BLOCKS[fmt]
+    rng = np.random.default_rng(size)
+    raw = rng.integers(0, 256, size=(n * k // per, size), dtype=np.uint8)
+    for off in scales:
+        vals = rng.uniform(-0.02, 0.02, size=raw.shape[0]).astype(np.float16)
+        raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+    if fmt == GGMLType.MXFP4:
+        raw[:, 0] = rng.integers(115, 135, size=raw.shape[0])
+    w = repack(raw.reshape(n, -1), (n, k), fmt, dev)
+    for m in (4, 256):
+        xm = _randn((m, k), 5, dev)
+        got, want = tq.dequant_gemm(xm, w), tq.dequant_gemm_plain(xm, w)
+        col_err = ((got - want) ** 2).sum(0) / ((want ** 2).sum(0) + 1e-30)
+        assert float(col_err.max()) < 1e-6, m
+    if fmt == GGMLType.MXFP4:
+        raw[::3, 0] = rng.integers(0, 2, size=raw[::3].shape[0])
+        w = repack(raw.reshape(n, -1), (n, k), fmt, dev)
+    x = _randn((1, k), 4, dev)
+    got, want = tq.int8_matvec(x, w), tq.int8_matvec_plain(x, w)
+    # exact integer dots: only the f32 sum order differs in any column
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("switch", ["ZLLM_QMM_HBM", "ZLLM_QMM_DUALDOT"])
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS, ids=lambda t: t.name)
+def test_switches_keep_lowbit_on_k4(dev, fmt, switch, monkeypatch):
+    """Under ZLLM_QMM_HBM=1 or ZLLM_QMM_DUALDOT=1 a matvec of the five
+    formats launches K4, with K4's bits."""
+    monkeypatch.setenv(switch, "1")
+    k, n = 2048, 2560
+    w = _int_weight(fmt, n, k, 7, dev)
+    x = _randn((1, k), 8, dev, scale=2.0)
+    kernels = (tq.int8_matvec, tq.q4k_matvec, tq.q4k_matvec_hbm, tq.w4a8dd_matvec)
+    before = [f.launches for f in kernels]
+    got = tq.matvec(x, w)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [1, 0, 0, 0]
+    monkeypatch.delenv(switch)
+    assert torch.equal(got, tq.int8_matvec(x, w))
+
+
+def test_k4_lowbit_chain_in_a_graph(dev):
+    """K4 after K4 and K1 after K4, with programmatic dependent launch, as a
+    Q3_K_M step runs them: gate|up (K4 Q3_K norm 2048->11264) -> down (K4
+    Q3_K glu 5632->2048) -> K1 (Q5_K q 2048->256) on its output.  Replayed
+    from a CUDA graph with the input rewritten between replays, each replay
+    gives the eager chain's bits."""
+    d, ff = 2048, 5632
+    w_gu = _int_weight(GGMLType.Q3_K, 2 * ff, d, 1, dev)
+    w_dn = _int_weight(GGMLType.Q3_K, d, ff, 2, dev)
+    w_v = _qweight(256, d, 3, dev, GGMLType.Q5_K)
+    aux = _randn((d,), 5, dev, scale=0.1) + 1.0
+    x = _randn((1, d), 6, dev, torch.bfloat16, scale=3.0)
+
+    def chain():
+        gu = tq.int8_matvec(x, w_gu, "norm", aux, 1e-5)
+        dn = tq.int8_matvec(gu, w_dn, "glu", None, 1e-5)
+        return gu, dn, tq.q4k_matvec(dn, w_v, "q", None, 1e-5)
+
+    def rewrite(i):
+        x.copy_(_randn((1, d), 100 + i, dev, torch.bfloat16, scale=3.0))
+
+    gu, dn, v = _replays_equal_eager(chain, rewrite)
+    assert _nmse(dn, tq.int8_matvec_plain(gu, w_dn, "glu", None, 1e-5)) < 1e-6
+    assert _nmse(v, tq.q4k_matvec_plain(dn, w_v, "q", None, 1e-5)) < 1e-6

@@ -166,6 +166,6 @@ def test_q4_legacy_decode_random_blocks_bit_exact(fmt, row):
 def test_unsupported_format_raises():
     x = RNG.standard_normal((2, 256)).astype(np.float32)
     with pytest.raises(NotImplementedError):
-        qb.quantize(x, GGMLType.Q2_K)
+        qb.quantize(x, GGMLType.TQ2_0)
     with pytest.raises(NotImplementedError):
-        qb.dequantize(zqb.quantize(x, GGMLType.Q2_K), GGMLType.Q2_K)
+        qb.dequantize(zqb.quantize(x, GGMLType.TQ2_0), GGMLType.TQ2_0)

@@ -162,7 +162,8 @@ def test_k4_k5_cpu_wrappers_take_the_plain_path(int_weights):
 
 def test_unported_shapes_and_formats_raise(weights):
     """K4/K5 take what zllm's Pallas path takes (K % 256, N % 128) and only
-    Q6_K/Q8_0; the linear dispatch raises for a weight it has no kernel for."""
+    their formats; the linear dispatch raises for a weight it has no kernel
+    for (TQ2_0, not ported)."""
     from zllm_torch.ops.linear import linear
     from zllm_torch.quant.repack import Q80Weight
 
@@ -175,11 +176,11 @@ def test_unported_shapes_and_formats_raise(weights):
     with pytest.raises(NotImplementedError):
         tq.q4k_gemm(torch.zeros(2, 256), w)  # and Q8_0 to K5
 
-    class Q2KWeight(Q80Weight):
-        fmt = GGMLType.Q2_K
+    class TQ20Weight(Q80Weight):
+        fmt = GGMLType.TQ2_0
 
-    w2 = Q2KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
-                   d=torch.zeros(128, 8, dtype=torch.float16))
+    w2 = TQ20Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+                    d=torch.zeros(128, 8, dtype=torch.float16))
     with pytest.raises(NotImplementedError):
         linear(torch.zeros(1, 256), w2)
     with pytest.raises(NotImplementedError):

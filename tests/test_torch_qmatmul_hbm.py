@@ -109,16 +109,22 @@ def test_int8_formats_keep_k4_under_the_switch(fmt, monkeypatch):
 
 
 def test_other_formats_raise_under_the_switch(monkeypatch):
-    from zllm_torch.quant.repack import Q80Weight
+    """A format no kernel takes (TQ2_0) raises under the switch; K12 itself
+    refuses a Q2_K weight (it takes Q4_K, Q4_0 and Q4_1 only; `matvec`
+    sends Q2_K to K4)."""
+    from zllm_torch.quant.repack import Q80Weight, repack
 
-    class Q2KWeight(Q80Weight):
-        fmt = GGMLType.Q2_K
+    class TQ20Weight(Q80Weight):
+        fmt = GGMLType.TQ2_0
 
     monkeypatch.setenv("ZLLM_QMM_HBM", "1")
-    w = Q2KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
-                  d=torch.zeros(128, 8, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="not Q2_K"):
+    w = TQ20Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+                   d=torch.zeros(128, 8, dtype=torch.float16))
+    with pytest.raises(NotImplementedError, match="not TQ2_0"):
         tq.matvec(torch.zeros(1, 256), w)
+    _, raw = quant_qtensor(GGMLType.Q2_K, 128, 256, seed=3)
+    with pytest.raises(NotImplementedError, match="not Q2_K"):
+        tq.q4k_matvec_hbm(torch.zeros(1, 256), repack(raw, (128, 256), GGMLType.Q2_K, "cpu"))
 
 
 def test_k12_wrapper_checks(weights):

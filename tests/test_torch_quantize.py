@@ -1,7 +1,8 @@
 """`zllm_torch.quantize` against `tools/quantize.py`: the same per-tensor
 type choice for every preset and byte-identical output files for the
 presets whose encoders the port has (Q4_K_M, Q4_K_S, Q6_K, Q8_0, Q4_0,
-Q4_1, Q5_0, Q5_1, Q5_K_S, Q5_K_M), from one F16 synthetic model."""
+Q4_1, Q5_0, Q5_1, Q5_K_S, Q5_K_M, Q2_K, Q3_K_M, IQ4_NL, IQ4_XS, MXFP4),
+from one F16 synthetic model."""
 
 import os
 
@@ -20,7 +21,8 @@ def f16_gguf(tmp_path_factory):
 
 
 @pytest.mark.parametrize("ftype", ["Q4_K_M", "Q4_K_S", "Q6_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0",
-                                   "Q5_1", "Q5_K_S", "Q5_K_M"])
+                                   "Q5_1", "Q5_K_S", "Q5_K_M", "Q2_K", "Q3_K_M", "IQ4_NL",
+                                   "IQ4_XS", "MXFP4"])
 def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
     from tools.quantize import quantize_file
 
@@ -38,6 +40,10 @@ def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
         assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
         assert types["blk.0.ffn_down.weight"] == ("F16", "Q5_K")
         assert types["blk.1.attn_q.weight"] == ("F16", "Q5_K")
+    if ftype == "Q3_K_M":  # attn_v Q5_K, the head Q6_K
+        assert types["blk.0.attn_v.weight"] == ("F16", "Q5_K")
+        assert types["blk.1.ffn_down.weight"] == ("F16", "Q3_K")
+        assert types["output.weight"] == ("F16", "Q6_K")
     if ftype in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
         # the embedding is bumped to Q4_K, the rest keeps the preset
         assert types["token_embd.weight"] == ("F16", "Q4_K")
@@ -92,9 +98,9 @@ def test_pick_type_matches_every_preset():
 
 
 def test_unported_encoder_raises_before_writing(f16_gguf, tmp_path):
-    out = str(tmp_path / "q3.gguf")
-    with pytest.raises(NotImplementedError, match="Q3_K"):
-        tq.quantize_file(f16_gguf, out, "Q3_K_M", quiet=True)
+    out = str(tmp_path / "tq2.gguf")
+    with pytest.raises(NotImplementedError, match="TQ2_0"):
+        tq.quantize_file(f16_gguf, out, "TQ2_0", quiet=True)
     assert not os.path.exists(out)
 
 

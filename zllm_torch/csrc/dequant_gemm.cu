@@ -1,21 +1,26 @@
-// K5: dequant GEMM for the formats without a nibble-pair layout, Q6_K and
-// Q8_0: y[M, N] (f32) = bf16(x)[M, K] @ bf16(dequant(W)).
+// K5: dequant GEMM for the formats without a nibble-pair layout of K3's,
+// Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4: y[M, N] (f32) =
+// bf16(x)[M, K] @ bf16(dequant(W)).
 //
 // Replaces zllm/ops/qmatmul.py::_qmm_kernel (launched by _qmm_call from
-// qmatmul), instantiated for these two of its formats: the weight is
+// qmatmul), instantiated for these seven of its formats: the weight is
 // dequantized in f32 as _dequant_tile does (Q6_K: ((ql | qh << 4) - 32) *
-// f32(a); Q8_0: qs * f32(d)) and rounded to bf16 (round to nearest even);
-// x (f32 or bf16) is rounded to bf16 in the kernel; the products are
-// summed in f32 in zllm's order, one partial per 512-wide (or 256-wide)
-// k-slice added in slice order.
+// f32(a); Q8_0: qs * f32(d); Q2_K: crumb * f32(a) - f32(b); Q3_K: ((crumb
+// | bit << 2) - 4) * f32(a); IQ4_NL, IQ4_XS: IQ4NL_VALUES[index] * f32(d
+// or a); MXFP4: MXFP4_VALUES[index] * 2^(e - 128), the e2m1 value doubled
+// times the halved E8M0 scale, which is _dequant_tile's sign * mag * d;
+// every product is exact in f32, so a contraction of q * a - b into one
+// FMA rounds as zllm's two operations do) and rounded to bf16 (round to
+// nearest even); x (f32 or bf16) is rounded to bf16 in the kernel; the
+// products are summed in f32 in zllm's order, one partial per 512-wide (or
+// 256-wide) k-slice added in slice order.
 //
 // Bound on the H100: at the engine's decode M = 4 the weight bytes over
 // 3.35 TB/s; at prefill shapes (M = 256 rows a chunk) the 2*M*K*N bf16
 // FLOPs over the 989 TFLOP/s tensor-core peak.  Design: the sliced loop of
 // gemm_slice.cuh (a split-K row form for M <= 16, a 128-row tile form
 // above; K3 runs the same loop), with a decoder per format; a thread copies
-// and decodes 16 consecutive k of one column in each 64-wide step (its
-// units 2q and 2q + 1 of the step's weight row):
+// and decodes 16 k of one column in each 64-wide step:
 //   Q6_K step c (128-wide chunk c/2, half c%2), quarter q: the 16 ql bytes
 //     16q.. of the chunk, whose low (even half) or high (odd half) nibbles
 //     hold the codes, the 16 qh bytes 16(q%2).. whose crumb 2(c%2) + q/2
@@ -24,14 +29,27 @@
 //     them from the even half's ring stage: it fetches only its scales.
 //   Q8_0 step c, quarter q: 16 int8 codes and the pair of scales holding
 //     group 2c + q/2.
+//   Q2_K, Q3_K step c, quarter q: 16-group 4c + q, k 16q..16q+15 of the
+//     step: its 4 crumb bytes, the 4-byte word of Q3_K's third bits (or
+//     of Q2_K's fp16 mins) holding it, in one 16-byte ring piece, and the
+//     pair of scales holding it.
+//   IQ4_NL, IQ4_XS, MXFP4 step c, quarter q: K3's order (byte 32c + i
+//     holds the indexes of k 64c + i and 64c + 32 + i): the 8 bytes 32c +
+//     8q.., k 8q.. (low nibbles, group 2c) and 32 + 8q.. (high, group 2c +
+//     1) of the step, their indexes turned into the table's int8 values by
+//     byte permutes (lut16, lowbit.cuh), and the word holding the two
+//     groups' scales (two fp16, or MXFP4's two exponent bytes).
 
 #include "gemm_slice.cuh"
+#include "lowbit.cuh"
+#include "matvec_common.cuh"
 
 namespace {
 
 using zt::pack_bf16;
 using zt_slice::cp_async16;
 using zt_slice::cp_async4;
+using zt_slice::cp_async8;
 
 __device__ __forceinline__ float half_of(uint32_t word, int i) {
   return __half2float(__ushort_as_half(static_cast<unsigned short>(word >> (16 * i))));
@@ -112,9 +130,104 @@ struct Q80Slice {
   }
 };
 
+// four codes (the bytes of b, unsigned) times a, less c, as two bf16 pairs
+// (the byte-to-float permute of scale4)
+__device__ __forceinline__ uint2 affine4(uint32_t b, float a, float c) {
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = (__int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 | e)) - 8388608.f) * a - c;
+  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// Q2_K (crumb * a - b) and Q3_K ((crumb | bit << 2) - 4) * a): thread q of
+// a column decodes 16-group g = 4c + q of step c, k 16q..16q+15 (units 2q,
+// 2q + 1); the crumb word of the group at ring bytes 0-3, the word of
+// Q3_K's third bits or Q2_K's mins holding it at bytes 4-7, the scale
+// pair holding it in `word`
+template <bool kQ3>
+struct CrumbSlice {
+  const uint8_t* qs;  // [N, K/4]
+  const uint8_t* qh;  // Q3_K: [N, K/8]
+  const __half* a;    // [N, K/16]
+  const __half* b;    // Q2_K: [N, K/16]
+  int K;
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
+  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    const int g = 4 * c + q;
+    unsigned char* pc = reinterpret_cast<unsigned char*>(p);
+    cp_async4(pc, qs + col * (K / 4) + 4 * g);
+    if constexpr (kQ3)  // groups g & ~1 and g | 1: two bytes each
+      cp_async4(pc + 4, qh + col * (K / 8) + 4 * (g >> 1));
+    else
+      cp_async4(pc + 4, b + col * (K / 16) + (g & ~1));
+    cp_async4(word, a + col * (K / 16) + (g & ~1));
+  }
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
+                                          size_t, int, int q, uint4 (&v)[2]) const {
+    const uint4 r = p[0];
+    const float sc = half_of(word, q & 1);
+    uint2 o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // elements 4i..4i+3 of the group
+      uint32_t codes = (r.x >> (2 * i)) & 0x03030303u;
+      if constexpr (kQ3) {
+        codes |= zt::fifth_bits4(r.y >> (16 * (q & 1)), i) >> 2;  // the third bits at bit 2
+        o[i] = scale4(codes, 4, sc, false);
+      } else {
+        o[i] = affine4(codes, sc, half_of(r.y, q & 1));
+      }
+    }
+    v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
+    v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
+  }
+};
+
+// IQ4_NL, IQ4_XS (fp16 scales) and MXFP4 (E8M0 exponent bytes): K3's
+// NibbleSlice order, the indexes looked up in TABLE
+template <class TABLE, bool kE8M0>
+struct TableSlice {
+  const uint8_t* qs;  // [N, K/2]
+  const void* sc;     // fp16 [N, K/32], or MXFP4's uint8 exponents [N, K/32]
+  int K;
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  // v[0] (low nibbles) is k 8q.. of the step, v[1] (high) k 32 + 8q..
+  __device__ __forceinline__ static int slot(int q, int i) { return q + 4 * i; }
+  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    cp_async8(p, qs + col * (K / 2) + 32 * c + 8 * q);
+    if constexpr (kE8M0)  // bytes 2c, 2c + 1 of the column's row
+      cp_async4(word, static_cast<const uint8_t*>(sc) + col * (K / 32) + (2 * c & ~3));
+    else  // halves 2c, 2c + 1
+      cp_async4(word, static_cast<const __half*>(sc) + col * (K / 32) + 2 * c);
+  }
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
+                                          size_t, int c, int, uint4 (&v)[2]) const {
+    float alo, ahi;
+    if constexpr (kE8M0) {
+      const int sh = 8 * (2 * c & 3);
+      alo = zt::e8m0_half((word >> sh) & 0xFFu);
+      ahi = zt::e8m0_half((word >> (sh + 8)) & 0xFFu);
+    } else {
+      alo = half_of(word, 0);
+      ahi = half_of(word, 1);
+    }
+    const uint4 b = p[0];
+    const uint2 t0 = zt::lut16<TABLE>(b.x), t1 = zt::lut16<TABLE>(b.y);  // .x low, .y high
+    const uint2 l0 = scale4(t0.x, 0, alo, true), l1 = scale4(t1.x, 0, alo, true),
+                h0 = scale4(t0.y, 0, ahi, true), h1 = scale4(t1.y, 0, ahi, true);
+    v[0] = make_uint4(l0.x, l0.y, l1.x, l1.y);
+    v[1] = make_uint4(h0.x, h0.y, h1.x, h1.y);
+  }
+};
+
 }  // namespace
 
-// fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d).
+// fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d),
+// 2 = Q2_K (qs, a, b), 3 = Q3_K (qs, qh, a), 4 = IQ4_NL (qs, d), 5 = IQ4_XS
+// (qs, a), 6 = MXFP4 (qs, e).
 // xdtype, xb, tk, form, spb and ws as for zt_slice::launch_slice_gemm: an
 // f32 x adds a launch that rounds it into xb, a call with spb < K / tk one
 // that reduces the slice partials in order.
@@ -130,6 +243,28 @@ extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, void* xb, con
   if (fmt == 1) {
     const Q80Slice w{static_cast<const int8_t*>(p0), static_cast<const __half*>(p1), K};
     return zt_slice::launch_slice_gemm(x, xdtype, xb, w, y, ws, M, K, N, tk, form, spb, s);
+  }
+  const auto* qs = static_cast<const uint8_t*>(p0);
+  switch (fmt) {
+    case 2:
+      return zt_slice::launch_slice_gemm(
+          x, xdtype, xb,
+          CrumbSlice<false>{qs, nullptr, static_cast<const __half*>(p1),
+                            static_cast<const __half*>(p2), K},
+          y, ws, M, K, N, tk, form, spb, s);
+    case 3:
+      return zt_slice::launch_slice_gemm(
+          x, xdtype, xb,
+          CrumbSlice<true>{qs, static_cast<const uint8_t*>(p1), static_cast<const __half*>(p2),
+                           nullptr, K},
+          y, ws, M, K, N, tk, form, spb, s);
+    case 4:
+    case 5:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, TableSlice<zt::IQ4Table, false>{qs, p1, K},
+                                         y, ws, M, K, N, tk, form, spb, s);
+    case 6:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, TableSlice<zt::MXFP4Table, true>{qs, p1, K},
+                                         y, ws, M, K, N, tk, form, spb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

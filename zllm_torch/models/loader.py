@@ -1,9 +1,10 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
-Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and Q8_0 matmul weights become
-`QWeight`s (quantized on the device, consumed by the port's kernels); the
-token embedding is dequantized to a dense tensor of the model dtype, norm
-weights and biases to f32.  A
+Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
+IQ4_XS and MXFP4 matmul weights become `QWeight`s (quantized on the
+device, consumed by the port's kernels); the token embedding is
+dequantized to a dense tensor of the model dtype, norm weights and biases
+to f32.  A
 llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
 the q/k/v biases bq, bk, bv; a Qwen3 layer adds attn_q_norm and
 attn_k_norm of length head_dim (one RMS a head); an OLMo-2 layer has no
@@ -30,8 +31,8 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, read_gguf
-from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat_n, from_planes,
-                            pad_n, repack)
+from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat_n,
+                            from_planes, pack_crumbs, pad_n, repack)
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
@@ -87,8 +88,8 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
 
 
 def _load_matmul(f: GGUFFile, name: str, dtype, device):
-    """2-D weight: GGUF [N, K] row-major -> QWeight (Q4_0, Q4_1, Q4_K, Q5_0,
-    Q5_1, Q5_K, Q6_K, Q8_0) or dense [K, N] (F32, F16)."""
+    """2-D weight: GGUF [N, K] row-major -> QWeight (a format of
+    WEIGHT_CLASSES) or dense [K, N] (F32, F16)."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
@@ -334,10 +335,41 @@ def _q80_from_jax(desc: dict) -> dict[str, np.ndarray]:
             "d": _f16_nk(p["d"], k // 32)}
 
 
+def _k_quant_low_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's Q2_K (qs, a, b) and Q3_K (qs, qh, a) planes: the 2-bit codes
+    split-quarter fold crumbs [K/4, N], Q3_K's third bits a plane [K/8, N]
+    (bit i of byte r holds k = 8r + i, the port's order transposed), the
+    scales fp16 [K/16, N] per 16-group."""
+    k, n = desc["shape"]
+    p, fold = desc["planes"], int(desc["fold"])
+    out = {"qs": pack_crumbs(np.ascontiguousarray(_unfold(p["qs"], fold, 2).T)),
+           "a": _f16_nk(p["a"], k // 16)}
+    if GGMLType(desc["fmt"]) == GGMLType.Q3_K:
+        return {**out, "qh": np.ascontiguousarray(np.asarray(p["qh"]).astype(np.uint8).T)}
+    return {**out, "b": _f16_nk(p["b"], k // 16)}
+
+
+def _table_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's IQ4_NL (qs, d), IQ4_XS (qs, a) and MXFP4 (qs, e) planes: the
+    4-bit indexes as the nibble formats' qs, the scale [K/32, N] per
+    32-group (MXFP4's e the uint8 exponent)."""
+    k, _ = desc["shape"]
+    fmt, p = GGMLType(desc["fmt"]), desc["planes"]
+    qs = _pack_nibbles(_nibble_codes_from_jax(desc))
+    if fmt == GGMLType.MXFP4:
+        e = np.asarray(p["e"]).astype(np.uint8)[:k // 32]
+        return {"qs": qs, "e": np.ascontiguousarray(e.T)}
+    name = "d" if fmt == GGMLType.IQ4_NL else "a"
+    return {"qs": qs, name: _f16_nk(p[name], k // 32)}
+
+
 _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_jax,
              GGMLType.Q4_1: _legacy_nibble_from_jax, GGMLType.Q5_0: _q5_from_jax,
              GGMLType.Q5_1: _q5_from_jax, GGMLType.Q5_K: _q5_from_jax,
-             GGMLType.Q6_K: _q6k_from_jax, GGMLType.Q8_0: _q80_from_jax}
+             GGMLType.Q6_K: _q6k_from_jax, GGMLType.Q8_0: _q80_from_jax,
+             GGMLType.Q2_K: _k_quant_low_from_jax, GGMLType.Q3_K: _k_quant_low_from_jax,
+             GGMLType.IQ4_NL: _table_from_jax, GGMLType.IQ4_XS: _table_from_jax,
+             GGMLType.MXFP4: _table_from_jax}
 
 
 def _leaf_from_jax(key: str, val, *, dtype, device):
@@ -355,8 +387,8 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
 
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
-    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and
-    Q8_0 carry across."""
+    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K,
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

@@ -1,9 +1,10 @@
 """Linear-layer dispatch: dense tensors or quantized `QWeight`s.
 
 A `QWeight` goes to its format's decode matvec kernel for one row (K1 for
-the nibble formats Q4_K, Q4_0 and Q4_1, or K12 / K11 under the switches
-`ops/qmatmul.py::matvec` names; K4 for Q6_K and Q8_0) and to its prefill
-GEMM kernel for more (K3, K5); all return f32, as `zllm`'s kernels do.  The fused decode hooks put
+the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K, or K12 / K11
+under the switches `ops/qmatmul.py::matvec` names; K4 for Q6_K, Q8_0,
+Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4) and to its prefill GEMM kernel for
+more (K3, K5); all return f32, as `zllm`'s kernels do.  The fused decode hooks put
 the RMS norm or the SwiGLU gating into the matvec's prologue (counterpart
 of `zllm/ops/linear.py`'s fused_norm_linear / fused_glu_linear, without
 the global hook registry: the port always has its kernels).  A format the

@@ -3,7 +3,8 @@ and the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its
 plain PyTorch version beside it.  `matvec` and `gemm` dispatch on the
 weight's format: the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K
 to K1/K3 (K12 or K11 instead of K1 under the switches `matvec` names, for
-the formats those take), Q6_K and Q8_0 to K4/K5.
+the formats those take), Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4
+to K4/K5.
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
     `_qmm_w4a8np_call`) for the six nibble formats: M=1, activations
@@ -28,13 +29,15 @@ the formats those take), Q6_K and Q8_0 to K4/K5.
     Q4_0 `(pi - 8*s)*d*dx`, Q4_1 `pi*a*dx - b*e`.  `quantize_acts` is that
     quantize as an op of its own.  Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
-    `_qmm_w4a8_call`) for Q6_K and Q8_0: the same prologues, with int8
-    groups of the format's width (16 for Q6_K, 32 for Q8_0), integer group
-    dots against the signed codes, then `pi*a*dx` in f32 (no min term).
-    Source: `zllm_torch/csrc/int8_matvec.cu`.
+    `_qmm_w4a8_call`) for Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and
+    MXFP4: the same prologues, with int8 groups of the format's width (16
+    for Q6_K, Q2_K and Q3_K, 32 for the others), integer group dots against
+    the integer codes (`_int_qtile`'s: Q2_K's unsigned, IQ4's and MXFP4's
+    table values), then `pi*a*dx` in f32, less `b*(dx*sum(xq))` for Q2_K's
+    min.  Source: `zllm_torch/csrc/int8_matvec.cu`.
   * `q4k_gemm` (K3) replaces `zllm/ops/qmatmul.py::_qmm_np_kernel` (via
     `_qmm_np_call`) for the six nibble formats and `dequant_gemm` (K5)
-    replaces `_qmm_kernel` (via `_qmm_call`) for Q6_K and Q8_0: [M, K] x
+    replaces `_qmm_kernel` (via `_qmm_call`) for K4's seven: [M, K] x
     dequant(W) with x and the dequantized weight both rounded to bf16 in
     the kernel and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
     and `dequant_gemm.cu`, a weight decoder per format on one loop, the
@@ -57,7 +60,7 @@ import os
 import torch
 
 from ..gguf.constants import GGMLType
-from ..quant.repack import NibbleWeight, QWeight
+from ..quant.repack import IntWeight, NibbleWeight, QWeight
 from . import cuda
 
 FUSE_CODE = {"q": 0, "norm": 1, "glu": 2}
@@ -316,26 +319,34 @@ w4a8dd_matvec.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: decode matvec for Q6_K and Q8_0
+# K4: decode matvec for the integer-code formats
 # ---------------------------------------------------------------------------
 
-INT8_FMT_CODE = {GGMLType.Q6_K: 0, GGMLType.Q8_0: 1}
+# the formats K4 and K5 take (the `fmt` argument of their C entry points)
+INT8_FMT_CODE = {GGMLType.Q6_K: 0, GGMLType.Q8_0: 1, GGMLType.Q2_K: 2, GGMLType.Q3_K: 3,
+                 GGMLType.IQ4_NL: 4, GGMLType.IQ4_XS: 5, GGMLType.MXFP4: 6}
 
 
-def int8_matvec_plain(x, w: QWeight, fuse="q", aux=None, eps=0.0) -> torch.Tensor:
-    """Plain version of K4: y [1, N] f32."""
+def int8_matvec_plain(x, w: IntWeight, fuse="q", aux=None, eps=0.0) -> torch.Tensor:
+    """Plain version of K4: y [1, N] f32, zllm's per-group epilogue
+    pi*a*dx, less b*(dx*sx) where the format has a min (Q2_K)."""
     k, n = w.shape
-    xq, dx, _ = quantize_groups(_prologue(x, k, fuse, aux, eps), w.GROUP)
+    xq, dx, sx = quantize_groups(_prologue(x, k, fuse, aux, eps), w.GROUP)
     codes = w.int_codes().float().reshape(n, k // w.GROUP, w.GROUP)
     # |partial sums| <= 32*128*127 < 2^24: the f32 group dots are exact integers
     pi = (codes * xq[None]).sum(dim=-1)  # [N, G]
-    return (pi * w.group_scale() * dx).sum(dim=-1).reshape(1, n)
+    c = pi * w.group_scale() * dx
+    b = w.group_min()
+    if b is not None:
+        c = c - b * (dx * sx)
+    return c.sum(dim=-1).reshape(1, n)
 
 
 def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
     """The weight's plane pointers, padded with None to the `count` a C
     entry point takes: K4/K5 three in PLANES order (Q6_K ql, qh, a; Q8_0
-    qs, d); K1/K3/K12/K11 five, `NibbleWeight.kernel_planes` (qs, then Q4_K
+    qs, d; Q2_K qs, a, b; Q3_K qs, qh, a; IQ4_NL qs, d; IQ4_XS qs, a;
+    MXFP4 qs, e); K1/K3/K12/K11 five, `NibbleWeight.kernel_planes` (qs, then Q4_K
     sc, mn, d, dmin; Q4_0 d; Q4_1 a, b; Q5_0 d and Q5_1/Q5_K a, b, each
     with qh last)."""
     planes = (w.kernel_planes() if isinstance(w, NibbleWeight)
@@ -346,7 +357,8 @@ def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
 
 def _check_int8_shape(w: QWeight):
     if w.fmt not in INT8_FMT_CODE:
-        raise NotImplementedError(f"K4/K5 take Q6_K and Q8_0, not {w.fmt.name}")
+        raise NotImplementedError(f"K4/K5 take {', '.join(f.name for f in INT8_FMT_CODE)}, "
+                                  f"not {w.fmt.name}")
     k, n = w.shape
     if k % 256 or n % 128:
         raise ValueError(f"K4/K5 take K % 256 == 0 and N % 128 == 0, not (K, N) = {w.shape}")
@@ -354,8 +366,9 @@ def _check_int8_shape(w: QWeight):
 
 def int8_matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
                 eps: float = 0.0) -> torch.Tensor:
-    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q6_K or
-    Q8_0; x and fuse as for `q4k_matvec`."""
+    """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q6_K,
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS or MXFP4; x and fuse as for
+    `q4k_matvec`."""
     _check_int8_shape(w)
     k, n = w.shape
     _check_matvec_args(x, k, fuse, aux)
@@ -535,7 +548,8 @@ q4k_gemm.launches = 0
 
 def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q6_K,
-    Q8_0), summed in `dequant_gemm_plain`'s slice order.  Besides the loop,
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS or MXFP4), summed in
+    `dequant_gemm_plain`'s slice order.  Besides the loop,
     an f32 x takes a launch that rounds it to bf16 (into a workspace), and
     a call whose slices are split over blocks one that reduces the slice
     partials (kept in a second workspace) in order; a call counts as one
@@ -559,7 +573,8 @@ dequant_gemm.launches = 0
 
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
-    """The decode matvec for w's format.  Q6_K/Q8_0 -> K4.  The nibble
+    """The decode matvec for w's format.  Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
+    IQ4_XS, MXFP4 -> K4 (the switches do not move them).  The nibble
     formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K -> K1 by default, and
     under two switches, read from the environment at each dispatch (as zllm
     reads them at each trace):
@@ -585,8 +600,8 @@ def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | Non
 
 
 def gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """The prefill GEMM for w's format: the six nibble formats -> K3,
-    Q6_K/Q8_0 -> K5."""
+    """The prefill GEMM for w's format: the six nibble formats -> K3, K4's
+    seven -> K5."""
     if w.fmt in NIBBLE_FMT_CODE:
         return q4k_gemm(x, w)
     return dequant_gemm(x, w)

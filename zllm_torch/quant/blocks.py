@@ -2,7 +2,8 @@
 llama path needs.
 
 A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_0, Q4_1,
-Q5_0, Q5_1, Q4_K, Q5_K, Q6_K and Q8_0 decoders and encoders (layouts:
+Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS and MXFP4
+decoders and encoders, without the importance-weighted ones (layouts:
 reference ggml/src/ggml-common.h;
 reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
 identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
@@ -21,8 +22,8 @@ import numpy as np
 
 from ..gguf.constants import GGML_BLOCK_SIZES, QK_K, GGMLType
 
-__all__ = ["GGML_BLOCK_SIZES", "dequantize", "quantize", "supported_decode", "supported_encode",
-           "unpack_kscales"]
+__all__ = ["GGML_BLOCK_SIZES", "IQ4NL_VALUES", "MXFP4_VALUES", "dequantize", "e8m0_half_to_f32",
+           "quantize", "supported_decode", "supported_encode", "unpack_kscales"]
 
 
 def _f16(b: np.ndarray) -> np.ndarray:
@@ -193,6 +194,104 @@ def _enc_q5_1(x):
                            _nib_pack(q & np.uint8(0x0F), 16)], axis=1)
 
 
+# MXFP4 (OCP microscaling e2m1 with a shared E8M0 scale): the e2m1
+# magnitudes doubled to integers; index = the 4-bit code (bit 3 = sign)
+MXFP4_VALUES = np.array([0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12], dtype=np.int8)
+
+
+def e8m0_half_to_f32(e: np.ndarray) -> np.ndarray:
+    """2**(e-127)/2 as float32 bits, denormal-safe (ggml_e8m0_to_fp32_half)."""
+    e = e.astype(np.uint32)
+    bits = np.where(e < 2, np.uint32(0x00200000) << e, (e - 1) << np.uint32(23))
+    return bits.view(np.float32)
+
+
+def _dec_mxfp4(b):
+    e, qs = b[:, :1], b[:, 1:]
+    d = e8m0_half_to_f32(e)
+    idx = _nib_lo_hi(qs, 16)
+    return d * MXFP4_VALUES[idx].astype(np.float32)
+
+
+def _enc_mxfp4(x):
+    amax = np.abs(x).max(axis=-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        e = np.where(amax > 0, np.floor(np.log2(amax)) - 2 + 127, 0).astype(np.uint8)
+    d = e8m0_half_to_f32(e)
+    err = np.abs(d[:, :, None] * MXFP4_VALUES.astype(np.float32)[None, None, :] - x[:, :, None])
+    idx = err.argmin(axis=-1).astype(np.uint8)
+    return np.concatenate([e, _nib_pack(idx, 16)], axis=1)
+
+
+def _dec_q2_k(b):
+    n = b.shape[0]
+    scales, qs, d, dmin = b[:, :16], b[:, 16:80], b[:, 80:82], b[:, 82:84]
+    dl = _f16(d) * (scales & 0x0F).astype(np.float32)  # [N,16]
+    ml = _f16(dmin) * (scales >> 4).astype(np.float32)
+    q = np.concatenate(
+        [_bits_unpack(qs[:, c * 32 : (c + 1) * 32], 2, 32) for c in range(2)], axis=1
+    ).reshape(n, 16, 16)
+    return (dl[:, :, None] * q.astype(np.float32) - ml[:, :, None]).reshape(n, QK_K)
+
+
+def _enc_q2_k(x):
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    m_f = np.maximum(0.0, -g.min(axis=-1))  # [N,16]
+    s_f = np.maximum(0.0, (g.max(axis=-1) + m_f)) / 3.0
+    d = s_f.max(axis=-1, keepdims=True) / 15.0
+    dmin = m_f.max(axis=-1, keepdims=True) / 15.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(0, 15).astype(np.uint8)
+    mn = _round_away(m_f * _safe_inv(dmin)).clip(0, 15).astype(np.uint8)
+    dl = d * sc.astype(np.float32)
+    ml = dmin * mn.astype(np.float32)
+    q = _round_away((g + ml[:, :, None]) * _safe_inv(dl)[:, :, None]).clip(0, 3)
+    q = q.reshape(n, QK_K).astype(np.uint8)
+    qs = np.concatenate([_bits_pack(q[:, c * 128 : (c + 1) * 128], 2, 32) for c in range(2)],
+                        axis=1)
+    scales = sc | (mn << np.uint8(4))
+    return np.concatenate([scales, qs, _to_f16_bytes(d), _to_f16_bytes(dmin)], axis=1)
+
+
+def q3k_scales(sb: np.ndarray) -> np.ndarray:
+    """Q3_K's 12 scale bytes -> int8 [N, 16], the 6-bit scales less 32
+    (low nibbles in bytes 0-7, the top 2 bits in bytes 8-11)."""
+    lo = np.concatenate([sb[:, :8] & 0x0F, sb[:, :8] >> 4], axis=1)  # [N,16]
+    hi = _bits_unpack(sb[:, 8:12], 2, 4)  # [N,16] order 4s+i
+    return (lo | (hi << np.uint8(4))).astype(np.int8) - np.int8(32)
+
+
+def _dec_q3_k(b):
+    n = b.shape[0]
+    hmask, qs, sb, d = b[:, :32], b[:, 32:96], b[:, 96:108], b[:, 108:110]
+    dl = _f16(d) * q3k_scales(sb).astype(np.float32)  # [N,16]
+    ql = np.concatenate(
+        [_bits_unpack(qs[:, c * 32 : (c + 1) * 32], 2, 32) for c in range(2)], axis=1
+    ).astype(np.int8)
+    hb = _bits_unpack(hmask, 1, 32)  # element (32b + j) from byte j bit b
+    q = ql - np.where(hb == 0, np.int8(4), np.int8(0))
+    return (dl[:, :, None] * q.reshape(n, 16, 16).astype(np.float32)).reshape(n, QK_K)
+
+
+def _enc_q3_k(x):
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    s_f = _signed_absmax(g.reshape(-1, 16)).reshape(n, 16) / -4.0
+    d = np.abs(s_f).max(axis=-1, keepdims=True) / 31.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(-32, 31).astype(np.int8)
+    dl = d * sc.astype(np.float32)
+    q = _round_away(g * _safe_inv(dl)[:, :, None]).clip(-4, 3).astype(np.int8).reshape(n, QK_K)
+    hbit = (q >= 0).astype(np.uint8)  # 1 -> no -4 offset
+    ql = np.where(q >= 0, q, q + 4).astype(np.uint8)
+    qs = np.concatenate([_bits_pack(ql[:, c * 128 : (c + 1) * 128], 2, 32) for c in range(2)],
+                        axis=1)
+    hmask = _bits_pack(hbit, 1, 32)
+    s6 = (sc.astype(np.int16) + 32).astype(np.uint8)
+    lo_bytes = (s6[:, :8] & 0x0F) | ((s6[:, 8:] & 0x0F) << 4)
+    hi_bytes = _bits_pack(s6 >> 4, 2, 4)
+    return np.concatenate([hmask, qs, lo_bytes, hi_bytes, _to_f16_bytes(d)], axis=1)
+
+
 def _dec_q4_k(b):
     n = b.shape[0]
     d, dmin, sb, qs = b[:, :2], b[:, 2:4], b[:, 4:16], b[:, 16:]
@@ -273,6 +372,69 @@ def _enc_q6_k(x):
     return np.concatenate([ql, qh, sc.view(np.uint8), _to_f16_bytes(d)], axis=1)
 
 
+# IQ4 (non-linear 4-bit codebook)
+IQ4NL_VALUES = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113], dtype=np.int8
+)
+
+
+def _iq4_nearest(scaled: np.ndarray) -> np.ndarray:
+    """Nearest IQ4 codebook index for already-scaled values."""
+    err = np.abs(scaled[..., None] - IQ4NL_VALUES.astype(np.float32))
+    return err.argmin(axis=-1).astype(np.uint8)
+
+
+def _dec_iq4_nl(b):
+    d, qs = b[:, :2], b[:, 2:]
+    idx = _nib_lo_hi(qs, 16)
+    return _f16(d) * IQ4NL_VALUES[idx].astype(np.float32)
+
+
+def _enc_iq4_nl(x):
+    d = _signed_absmax(x) / -127.0
+    idx = _iq4_nearest(x * _safe_inv(d))
+    return np.concatenate([_to_f16_bytes(d), _nib_pack(idx, 16)], axis=1)
+
+
+def iq4xs_scales(sh: np.ndarray, sl: np.ndarray) -> np.ndarray:
+    """IQ4_XS's scale bytes (2 of high bits, 4 of low nibbles) -> int8
+    [N, 8], the 6-bit scales less 32."""
+    n = sl.shape[0]
+    lo = _nib_lo_hi(sl, 1).reshape(n, 8)  # byte i -> groups 2i, 2i+1
+    # group g's top 2 bits live at bit 2g of the little-endian u16
+    sh16 = np.ascontiguousarray(sh).view("<u2").astype(np.uint32)
+    hi = np.stack([(sh16[:, 0] >> (2 * g)) & 3 for g in range(8)], axis=1).astype(np.uint8)
+    return (lo | (hi << np.uint8(4))).astype(np.int8) - np.int8(32)
+
+
+def _dec_iq4_xs(b):
+    n = b.shape[0]
+    d, sh, sl, qs = b[:, :2], b[:, 2:4], b[:, 4:8], b[:, 8:]
+    dl = _f16(d) * iq4xs_scales(sh, sl).astype(np.float32)  # [N,8]
+    idx = _nib_lo_hi(qs, 16).reshape(n, 8, 32)
+    q = IQ4NL_VALUES[idx].astype(np.float32)
+    return (dl[:, :, None] * q).reshape(n, QK_K)
+
+
+def _enc_iq4_xs(x):
+    n = x.shape[0]
+    g = x.reshape(n, 8, 32)
+    s_f = _signed_absmax(g.reshape(-1, 32)).reshape(n, 8) / -127.0
+    d = np.abs(s_f).max(axis=-1, keepdims=True) / 31.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(-32, 31).astype(np.int8)
+    dl = d * sc.astype(np.float32)
+    idx = _iq4_nearest(g * _safe_inv(dl)[:, :, None]).reshape(n, QK_K)
+    s6 = (sc.astype(np.int16) + 32).astype(np.uint8)
+    sl = (s6[:, 0::2] & 0x0F) | ((s6[:, 1::2] & 0x0F) << 4)
+    sh16 = np.zeros((n,), dtype=np.uint16)
+    for gi in range(8):
+        sh16 |= ((s6[:, gi] >> 4).astype(np.uint16)) << (2 * gi)
+    return np.concatenate(
+        [_to_f16_bytes(d), sh16.astype("<u2").view(np.uint8).reshape(n, 2), sl, _nib_pack(idx, 16)],
+        axis=1,
+    )
+
+
 _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F32: _dec_f32,
     GGMLType.F16: _dec_f16,
@@ -281,9 +443,14 @@ _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.Q5_0: _dec_q5_0,
     GGMLType.Q5_1: _dec_q5_1,
     GGMLType.Q8_0: _dec_q8_0,
+    GGMLType.MXFP4: _dec_mxfp4,
+    GGMLType.Q2_K: _dec_q2_k,
+    GGMLType.Q3_K: _dec_q3_k,
     GGMLType.Q4_K: _dec_q4_k,
     GGMLType.Q5_K: _dec_q5_k,
     GGMLType.Q6_K: _dec_q6_k,
+    GGMLType.IQ4_NL: _dec_iq4_nl,
+    GGMLType.IQ4_XS: _dec_iq4_xs,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _enc_f16,
@@ -292,9 +459,14 @@ _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.Q5_0: _enc_q5_0,
     GGMLType.Q5_1: _enc_q5_1,
     GGMLType.Q8_0: _enc_q8_0,
+    GGMLType.MXFP4: _enc_mxfp4,
+    GGMLType.Q2_K: _enc_q2_k,
+    GGMLType.Q3_K: _enc_q3_k,
     GGMLType.Q4_K: _enc_q4_k,
     GGMLType.Q5_K: _enc_q5_k,
     GGMLType.Q6_K: _enc_q6_k,
+    GGMLType.IQ4_NL: _enc_iq4_nl,
+    GGMLType.IQ4_XS: _enc_iq4_xs,
 }
 
 

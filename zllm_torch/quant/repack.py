@@ -1,5 +1,5 @@
 """GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_0, Q4_1,
-Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0).
+Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4).
 
 `zllm.quant.repack` cuts each weight into planes shaped for the TPU's
 (8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for the
@@ -44,6 +44,32 @@ Q6_K (`Q6KWeight`), each 256-element superblock in ggml's bit order:
 Q8_0 (`Q80Weight`):
   * qs int8 [N, K]:     the codes
   * d  fp16 [N, K/32]:  the scale of each 32-group;  w = qs * d
+
+Q2_K and Q3_K (`Q2KWeight`, `Q3KWeight`), 16-groups of 2-bit codes (Q3_K
+adds a third bit), in an order of the port's own:
+  * qs uint8 [N, K/4]:  16-group g in bytes 4g..4g+3, its element e in byte
+                        4g + e % 4, bits 2(e // 4): the u32 word of a group,
+                        shifted by 2i and masked with 0x03030303, holds its
+                        elements 4i..4i+3 in its four bytes
+  * qh uint8 [N, K/8]:  (Q3_K) the third bits in natural k order (bit j of
+                        byte r is element 8r + j): the hmask bit, 1 where
+                        ggml adds no -4
+  * Q2_K: a = fp16(f32(d) * sc), b = fp16(f32(dmin) * mn) fp16 [N, K/16],
+    w = code * a - b (code 0..3);  Q3_K: a = fp16(f32(d) * (sc - 32)) fp16
+    [N, K/16], w = ((crumb | bit << 2) - 4) * a.
+IQ4_NL, IQ4_XS and MXFP4 (`IQ4NLWeight`, `IQ4XSWeight`, `MXFP4Weight`),
+32-groups of 4-bit indexes into a 16-entry table of int8 values
+(IQ4NL_VALUES; MXFP4_VALUES, the e2m1 values doubled):
+  * qs uint8 [N, K/2]:  the indexes in the nibble formats' shared order
+  * IQ4_NL: d fp16 [N, K/32];  IQ4_XS: a = fp16(f32(d) * (sc - 32)) fp16
+    [N, K/32];  MXFP4: e uint8 [N, K/32], the E8M0 exponent, scale
+    2^(e - 128) (subnormal for e < 2);  w = table[index] * scale.
+The products that `zllm`'s repack rounds to fp16 (Q2_K's, Q3_K's, IQ4_XS's
+a and b, as Q6_K's and Q5_K's) are rounded here too, so every value is
+`zllm`'s: ggml's own decoders use the unrounded ones.  The rounded planes
+are what `params_from_jax` receives from `zllm`, whose d and 6-bit scales
+are gone by then, so the port keeps them rather than the GGUF's smaller
+scale bytes.
 
 Every plane has one row per column, so `permute_n`, `concat_n` and `pad_n`
 work on rows alike for every format; a padded column is all zeros and
@@ -108,6 +134,35 @@ class QWeight:
         return self._replace(self.shape[1], lambda p: p.index_select(0, idx).contiguous())
 
 
+def nibble_codes(qs: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The shared qs plane [N, K/2] -> uint8 [N, K] 4-bit codes in natural
+    k order."""
+    b = qs.reshape(n, k // 64, 1, 32)
+    return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
+
+
+def crumb_codes(qs: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The crumb plane [N, K/4] (order above) -> uint8 [N, K] 2-bit codes
+    in natural k order."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=qs.device).reshape(1, 1, 4, 1)
+    return ((qs.reshape(n, k // 16, 1, 4) >> shifts) & 3).reshape(n, k)
+
+
+def pack_crumbs(codes: np.ndarray) -> np.ndarray:
+    """uint8 [N, K] 2-bit codes in natural k order -> the crumb plane."""
+    n, k = codes.shape
+    c = codes.astype(np.uint8).reshape(n, k // 16, 4, 4)
+    return (c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)).reshape(
+        n, k // 4)
+
+
+def _f16_scaled(d: np.ndarray, sc: np.ndarray, per: int) -> np.ndarray:
+    """fp16(f32(d) * sc): a superblock scale d [N, S] (fp16) times the
+    integer scales sc [N, S * per] of its groups, rounded to fp16 as
+    `zllm`'s repack rounds it (the product itself is exact in f32)."""
+    return (d.astype(np.float32).repeat(per, axis=1) * sc).astype("<f2")
+
+
 class NibbleWeight(QWeight):
     """A 4- or 5-bit format in the shared `qs` layout above (K1 and K3 take
     all of them, K12 and K11 the 4-bit ones): codes 0..15 (0..31), OFFSET
@@ -118,9 +173,7 @@ class NibbleWeight(QWeight):
 
     def codes(self) -> torch.Tensor:
         """uint8 [N, K] codes in natural k order."""
-        k, n = self.shape
-        b = self.qs.reshape(n, k // 64, 1, 32)
-        return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
+        return nibble_codes(self.qs, *self.shape)
 
     def kernel_planes(self) -> list[torch.Tensor | None]:
         """The planes the nibble kernels' C entry points take as qs, s0, s1,
@@ -336,40 +389,49 @@ class Q5KWeight(Q5Weight):
     @staticmethod
     def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
         sc, mn = qb.unpack_kscales(b[:, 4:16])
-        d = np.ascontiguousarray(b[:, 0:2]).view("<f2").astype(np.float32)
-        dmin = np.ascontiguousarray(b[:, 2:4]).view("<f2").astype(np.float32)
+        d = np.ascontiguousarray(b[:, 0:2]).view("<f2").reshape(n, k // QK_K)
+        dmin = np.ascontiguousarray(b[:, 2:4]).view("<f2").reshape(n, k // QK_K)
         return {
             "qs": np.ascontiguousarray(b[:, 48:]).reshape(n, k // 2),
             "qh": Q5Weight.pack_high(qb._bits_unpack(np.ascontiguousarray(b[:, 16:48]), 1, 32)
                                      .reshape(n, k)),
-            # as zllm's repack rounds them: fp16(f32(d) * sc), fp16(f32(dmin) * mn)
-            "a": (d * sc).astype("<f2").reshape(n, k // 32),
-            "b": (dmin * mn).astype("<f2").reshape(n, k // 32),
+            "a": _f16_scaled(d, sc.reshape(n, k // 32), 8),
+            "b": _f16_scaled(dmin, mn.reshape(n, k // 32), 8),
         }
 
 
-class _IntWeight(QWeight):
-    """A format whose weight is a signed integer code times one scale per
-    GROUP-wide group (no min term): w = int_codes * group_scale."""
+class IntWeight(QWeight):
+    """A format whose weight is an integer code times one scale per
+    GROUP-wide group, less a min per group where the format has one (Q2_K
+    alone): w = int_codes * group_scale - group_min.  K4 and K5 take
+    them."""
 
     GROUP: ClassVar[int]
 
     def int_codes(self) -> torch.Tensor:
-        """int16 [N, K] signed codes in natural k order."""
+        """int16 [N, K] codes in natural k order."""
         raise NotImplementedError
 
     def group_scale(self) -> torch.Tensor:
         """f32 [N, K/GROUP]."""
         raise NotImplementedError
 
+    def group_min(self) -> torch.Tensor | None:
+        """f32 [N, K/GROUP], or None for a format without a min term."""
+        return None
+
     def dequant_nk(self) -> torch.Tensor:
         k, n = self.shape
         q = self.int_codes().float().reshape(n, k // self.GROUP, self.GROUP)
-        return (q * self.group_scale()[..., None]).reshape(n, k)
+        w = q * self.group_scale()[..., None]
+        b = self.group_min()
+        if b is not None:
+            w = w - b[..., None]
+        return w.reshape(n, k)
 
 
 @dataclass
-class Q6KWeight(_IntWeight):
+class Q6KWeight(IntWeight):
     """A Q6_K weight in the layout above."""
 
     shape: tuple[int, int]
@@ -403,8 +465,7 @@ class Q6KWeight(_IntWeight):
         return {
             "ql": np.ascontiguousarray(b[:, :128]).reshape(n, k // 2),
             "qh": np.ascontiguousarray(b[:, 128:192]).reshape(n, k // 4),
-            # as zllm's repack rounds it: fp16(f32(d) * sc)
-            "a": (d.astype(np.float32).repeat(16, axis=1) * sc).astype("<f2"),
+            "a": _f16_scaled(d, sc, 16),
         }
 
     @staticmethod
@@ -419,7 +480,7 @@ class Q6KWeight(_IntWeight):
 
 
 @dataclass
-class Q80Weight(_IntWeight):
+class Q80Weight(IntWeight):
     """A Q8_0 weight in the layout above."""
 
     shape: tuple[int, int]
@@ -443,16 +504,184 @@ class Q80Weight(_IntWeight):
         }
 
 
+def _crumbs_gguf(qs: np.ndarray, n: int, k: int) -> np.ndarray:
+    """Q2_K/Q3_K blocks' 64 code bytes [N * K/256, 64] (ggml's order: in
+    half h, byte j holds element 128h + 32i + j in crumb i) -> uint8 [N, K]
+    codes in natural k order."""
+    return np.concatenate([qb._bits_unpack(np.ascontiguousarray(qs[:, 32 * h:32 * (h + 1)]),
+                                           2, 32) for h in range(2)], axis=1).reshape(n, k)
+
+
+@dataclass
+class Q2KWeight(IntWeight):
+    """A Q2_K weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q2_K
+    GROUP: ClassVar[int] = 16
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 4), "a": (torch.float16, 16),
+                              "b": (torch.float16, 16)}
+
+    def int_codes(self) -> torch.Tensor:
+        return crumb_codes(self.qs, *self.shape).to(torch.int16)
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    def group_min(self) -> torch.Tensor:
+        return self.b.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        sc = np.ascontiguousarray(b[:, :16])
+        d = np.ascontiguousarray(b[:, 80:82]).view("<f2").reshape(n, k // QK_K)
+        dmin = np.ascontiguousarray(b[:, 82:84]).view("<f2").reshape(n, k // QK_K)
+        return {"qs": pack_crumbs(_crumbs_gguf(b[:, 16:80], n, k)),
+                "a": _f16_scaled(d, (sc & 0x0F).reshape(n, k // 16), 16),
+                "b": _f16_scaled(dmin, (sc >> 4).reshape(n, k // 16), 16)}
+
+
+@dataclass
+class Q3KWeight(IntWeight):
+    """A Q3_K weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    qh: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.Q3_K
+    GROUP: ClassVar[int] = 16
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 4), "qh": (torch.uint8, 8),
+                              "a": (torch.float16, 16)}
+
+    def high_bits(self) -> torch.Tensor:
+        """uint8 [N, K] the third bits (the hmask) in natural k order."""
+        k, n = self.shape
+        shifts = torch.arange(8, dtype=torch.uint8, device=self.qh.device)
+        return ((self.qh[..., None] >> shifts) & 1).reshape(n, k)
+
+    def int_codes(self) -> torch.Tensor:
+        lo = crumb_codes(self.qs, *self.shape)
+        return (lo | (self.high_bits() << 2)).to(torch.int16) - 4
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    @staticmethod
+    def pack_high(bits: np.ndarray) -> np.ndarray:
+        """uint8 [N, K] bits in natural k order -> the qh plane [N, K/8]."""
+        n, k = bits.shape
+        return np.packbits(bits.astype(np.uint8).reshape(n, k // 8, 8), axis=-1,
+                           bitorder="little").reshape(n, k // 8)
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        d = np.ascontiguousarray(b[:, 108:110]).view("<f2").reshape(n, k // QK_K)
+        sc = qb.q3k_scales(np.ascontiguousarray(b[:, 96:108])).reshape(n, k // 16)
+        hb = qb._bits_unpack(np.ascontiguousarray(b[:, :32]), 1, 32).reshape(n, k)
+        return {"qs": pack_crumbs(_crumbs_gguf(b[:, 32:96], n, k)),
+                "qh": Q3KWeight.pack_high(hb), "a": _f16_scaled(d, sc, 16)}
+
+
+class _TableWeight(IntWeight):
+    """A 4-bit index into TABLE (16 int8 values) a weight, in the nibble
+    formats' qs order, and one scale a 32-group."""
+
+    GROUP: ClassVar[int] = 32
+    TABLE: ClassVar[np.ndarray]
+
+    def int_codes(self) -> torch.Tensor:
+        # a chain of selects with the values as scalars (zllm's `_iq4_lut`):
+        # no host table to copy, so a CUDA graph can capture it
+        idx = nibble_codes(self.qs, *self.shape)
+        out = torch.full(idx.shape, int(self.TABLE[0]), dtype=torch.int16, device=idx.device)
+        for i in range(1, 16):
+            out = torch.where(idx == i, int(self.TABLE[i]), out)
+        return out
+
+
+@dataclass
+class IQ4NLWeight(_TableWeight):
+    """An IQ4_NL weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    d: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ4_NL
+    TABLE: ClassVar[np.ndarray] = qb.IQ4NL_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "d": (torch.float16, 32)}
+
+    def group_scale(self) -> torch.Tensor:
+        return self.d.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        return {"qs": NibbleWeight.pair_legacy(np.ascontiguousarray(b[:, 2:]), n, k),
+                "d": np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // 32)}
+
+
+@dataclass
+class IQ4XSWeight(_TableWeight):
+    """An IQ4_XS weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ4_XS
+    TABLE: ClassVar[np.ndarray] = qb.IQ4NL_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 32)}
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        d = np.ascontiguousarray(b[:, :2]).view("<f2").reshape(n, k // QK_K)
+        sc = qb.iq4xs_scales(b[:, 2:4], np.ascontiguousarray(b[:, 4:8])).reshape(n, k // 32)
+        # each superblock's 8 groups of 16 bytes pair codes j and j + 16, as
+        # a Q4_0 block does
+        qs = np.ascontiguousarray(b[:, 8:]).reshape(n, k // 2)
+        return {"qs": NibbleWeight.pair_legacy(qs, n, k), "a": _f16_scaled(d, sc, 8)}
+
+
+@dataclass
+class MXFP4Weight(_TableWeight):
+    """An MXFP4 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    e: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.MXFP4
+    TABLE: ClassVar[np.ndarray] = qb.MXFP4_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "e": (torch.uint8, 32)}
+
+    def group_scale(self) -> torch.Tensor:
+        """2^(e - 128) from its bits, subnormal for e < 2 (zllm's
+        `_dq_mxfp4` and `e8m0_half_to_f32`)."""
+        e = self.e.to(torch.int32)
+        bits = torch.where(e < 2, 0x00200000 << e, (e - 1) << 23)
+        return bits.view(torch.float32)
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        return {"qs": NibbleWeight.pair_legacy(np.ascontiguousarray(b[:, 1:]), n, k),
+                "e": np.ascontiguousarray(b[:, :1]).reshape(n, k // 32)}
+
+
 WEIGHT_CLASSES: dict[GGMLType, type[QWeight]] = {
     cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q50Weight, Q51Weight, Q5KWeight,
-                             Q6KWeight, Q80Weight)}
+                             Q6KWeight, Q80Weight, Q2KWeight, Q3KWeight, IQ4NLWeight, IQ4XSWeight,
+                             MXFP4Weight)}
 
 
 def _weight_class(fmt) -> type[QWeight]:
     cls = WEIGHT_CLASSES.get(GGMLType(fmt))
     if cls is None:
-        raise NotImplementedError(f"zllm_torch keeps Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K and "
-                                  f"Q8_0 quantized, not {GGMLType(fmt).name}")
+        raise NotImplementedError(f"zllm_torch keeps {', '.join(f.name for f in WEIGHT_CLASSES)} "
+                                  f"quantized, not {GGMLType(fmt).name}")
     return cls
 
 

@@ -8,8 +8,8 @@ embedding, the output head, attn_v and part of ffn_down get bumped types),
 quantizes and writes a new GGUF.  Given the same input it writes the same
 bytes as `tools/quantize.py`.  Every preset can name its types, but a type
 the port has no encoder for (`quant/blocks.py`: F16, Q4_0, Q4_1, Q5_0,
-Q5_1, Q8_0, Q4_K, Q5_K, Q6_K) raises NotImplementedError before anything
-is written.
+Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS, MXFP4) raises
+NotImplementedError before anything is written.
 
 Vectors (norms, Qwen2's q/k/v biases, rope_freqs) stay F32; a file with a
 tied head has no output.weight to re-type.
