@@ -18,7 +18,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      and so does a build that lacks one of their instantiations;
   2. small-model checks: 2-layer llamas in Q4_K, Q4_K_M, Q4_0, Q5_K_M,
      Q3_K_M and IQ4_XS (`python -m zllm_torch.quantize` from an F16 file),
-     Q5_0, Q5_1, Q8_0, Q2_K, IQ4_NL and MXFP4, and 2-layer
+     Q5_0, Q5_1, Q8_0, Q2_K, IQ4_NL and MXFP4, the IQ grid presets
+     IQ3_XXS, IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS, IQ2_S and IQ3_S (the
+     factory's `ftype=`: random code bytes, wv Q4_K, the head Q5_K; K4 and
+     K5 launched, IQ1_M's matvecs on K5), and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
      (kernels) and on the CPU (their plain versions), logits compared step
      by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
@@ -32,8 +35,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
      the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
      contiguous), the OLMo-2 one in f32 contiguous and f32 paged, the Q4_0
-     and Q5_K_M llamas paged, the Q3_K_M llama paged with 4 slots (K5's
-     Q3_K form at the engine's decode M = 4), and the Qwen2 one paged and
+     and Q5_K_M llamas paged, the Q3_K_M and the IQ3_XXS llamas paged
+     with 4 slots (K5's Q3_K and IQ3_XXS forms at the engine's decode M =
+     4), and the Qwen2 one paged and
      q8 (G 6, head_dim 128; a last wave with a non-ASCII chatml prompt, its streamed text printed
      and equal on both sides): three prompts, one across a page, then a re-send
      sharing its first 130 tokens; tokens, reuse and step counters must be
@@ -96,7 +100,13 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      IQ4_XS (the same way: every matmul IQ4_XS but the Q6_K head, so
      wq|wk|wv fuse), 89 K4 + 22 K2 a step, 89 K5 + 22 K6 + 22 K2 a chunk;
      and Q2_K, IQ4_NL and MXFP4 from the factory (every matmul, the head
-     too), the same counts as IQ4_XS; and the
+     too), the same counts as IQ4_XS; the IQ grid slice at TinyLlama
+     geometry, the factory's presets (wq, wk, wo, gate|up, down in the
+     type, wv Q4_K, the head Q5_K): IQ3_XXS and IQ1_S, 110 K4 + 23 K1 + 22
+     K2 a step, 110 K5 + 23 K3 + 22 K6 + 22 K2 a chunk; IQ1_M, a generate
+     of IQ_SHORT_TOKENS, 110 K5 (at M = 1) + 23 K1 + 22 K2 a step and no
+     K4; IQ2_XXS, IQ2_XS, IQ2_S and IQ3_S, the short generate with
+     IQ3_XXS's counts; and the
      serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
@@ -156,15 +166,21 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      low-bit steps and chunks by weight role (`kernel_lowbit`; K5 also at M
      = 4 on the Q3_K_M weights, and its rows at M = 4 against an M = 512
      call's on every Q3_K and IQ4_XS weight, bit for bit), bounded by each
-     weight's GGUF bytes (the layout's bytes a weight beside them); and
+     weight's GGUF bytes (the layout's bytes a weight beside them); K4 and
+     K5 in the IQ grid forms the same way over the seven IQ steps and
+     chunks (`kernel_iq`: IQ1_M's step on K5 at M = 1, K5 at M = 4 on the
+     IQ3_XXS weights, K1 on each step's wv and head; rows at M = 4 against
+     an M = 512 call's on every IQ3_XXS, IQ1_S and IQ1_M weight and a
+     gate|up of the other four); and
      digests of K1's and K3's outputs in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1
-     and Q5_K forms and of K4's and K5's in the Q6_K and Q8_0 forms on
+     and Q5_K forms and of K4's and K5's in the Q6_K, Q8_0, Q2_K, Q3_K,
+     IQ4_NL, IQ4_XS and MXFP4 forms on
      seeded random GGUF bytes (`form_digests`; `python3 chip_smoke.py
      --digest` prints them alone, so that two trees' can be compared).
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M and IQ4_XS, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
-IQ4_NL and MXFP4 factory files are made by child processes
+IQ4_NL, MXFP4 and IQ grid factory files are made by child processes
 (`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
 the numpy quantizer's minutes run beside it.  Each main path also prints
 its decode step run eagerly, by CUDA kernel name (`step_profile`,
@@ -199,11 +215,16 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # GGUF bytes per weight: a super-block holds 256 weights in 84 bytes in
 # Q2_K, 110 in Q3_K, 136 in IQ4_XS, 144 in Q4_K, 176 in Q5_K and 210 in
 # Q6_K; a block of 32 weights is 34 bytes in Q8_0, 18 in Q4_0 and IQ4_NL,
-# 17 in MXFP4, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1
+# 17 in MXFP4, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1; the IQ grid formats'
+# super-blocks are 66 bytes in IQ2_XXS, 74 in IQ2_XS, 82 in IQ2_S, 98 in
+# IQ3_XXS, 110 in IQ3_S, 50 in IQ1_S and 56 in IQ1_M
 GGUF_BYTES_PER_WEIGHT = {"Q2_K": 84 / 256, "Q3_K": 110 / 256, "IQ4_XS": 136 / 256,
                          "Q4_K": 144 / 256, "Q5_K": 176 / 256, "Q6_K": 210 / 256,
                          "Q8_0": 34 / 32, "Q4_0": 18 / 32, "IQ4_NL": 18 / 32, "MXFP4": 17 / 32,
-                         "Q4_1": 20 / 32, "Q5_0": 22 / 32, "Q5_1": 24 / 32}
+                         "Q4_1": 20 / 32, "Q5_0": 22 / 32, "Q5_1": 24 / 32,
+                         "IQ2_XXS": 66 / 256, "IQ2_XS": 74 / 256, "IQ2_S": 82 / 256,
+                         "IQ3_XXS": 98 / 256, "IQ3_S": 110 / 256, "IQ1_S": 50 / 256,
+                         "IQ1_M": 56 / 256}
 
 PROMPT_TOKENS = 300
 NEW_TOKENS = 32
@@ -227,6 +248,11 @@ SWITCH_STEPS = 8  # decode steps of the phases under ZLLM_QMM_HBM / ZLLM_QMM_DUA
 # the low-bit slice's files: Q3_K_M and IQ4_XS requantized, the others from
 # the factory (every matmul in the type)
 LOWBIT_FTYPES = ("Q3_K_M", "IQ4_XS", "Q2_K", "IQ4_NL", "MXFP4")
+# the IQ grid slice's files: the factory's `ftype=` presets (random code
+# bytes in the IQ tensors; wv Q4_K, the head Q5_K); the first two run the
+# full generate, the others a short one (IQ_SHORT_TOKENS)
+IQ_FTYPES = ("IQ3_XXS", "IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_S")
+IQ_SHORT_TOKENS = 8
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -479,7 +505,8 @@ REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS")
 # into place, the same bytes), and gguf_file waits for its file's child
 PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M",)),
                ("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
-               ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")))
+               ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")),
+               ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
@@ -510,8 +537,9 @@ def _write_atomic(path: Path, write):
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     """A random-weight llama, OLMo-2 or Qwen GGUF (`shape` may name the arch) in
     `ftype` (cached): the REQUANTIZED presets made by `python -m
-    zllm_torch.quantize` from the model's F16 file, any other type written
-    directly by the factory.  Returns (path, seconds to make it)."""
+    zllm_torch.quantize` from the model's F16 file, the IQ_FTYPES presets
+    by the factory's `ftype=`, any other type written directly by the
+    factory.  Returns (path, seconds to make it)."""
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.testing import make_llama_gguf
 
@@ -538,6 +566,8 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
                     fail(f"zllm_torch.quantize {ftype} failed: {q.stderr[-2000:]}")
 
             _write_atomic(path, quantize)
+        elif ftype in IQ_FTYPES:
+            _write_atomic(path, lambda p: make_llama_gguf(str(p), **shape, ftype=ftype, seed=0))
         else:
             _write_atomic(path, lambda p: make_llama_gguf(str(p), **shape,
                                                           gtype=GGMLType[ftype], seed=0))
@@ -594,10 +624,12 @@ def main_shapes() -> dict:
             "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry")}
 
 
-def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama"):
+def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama",
+              new_tokens: int = NEW_TOKENS):
     """Load the `name` model of main_shapes() (TinyLlama, OLMo-2-0425-1B,
-    Qwen3-1.7B or Qwen2.5-1.5B geometry), warm up, then one generate with
-    the launch counters set to 0 just before and read just after;
+    Qwen3-1.7B or Qwen2.5-1.5B geometry), warm up, then one generate of
+    `new_tokens` with the launch counters set to 0 just before and read
+    just after;
     `want(cfg, n_steps, n_chunks)` gives the expected counts; then the last
     decode step's device time from a CUDA graph (`step_graph_ms`) and, run
     eagerly, its CUDA kernels by name (`step_profile`).  Returns
@@ -623,7 +655,7 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
         fn.launches = 0
     k6 = kernels["flash_attention"]
     k6.mma_launches = 0
-    res = gen.generate(ids, max_new=NEW_TOKENS)
+    res = gen.generate(ids, max_new=new_tokens)
     counts = {name: fn.launches for name, fn in kernels.items()}
     k6_mma = k6.mma_launches
     n_chunks = -(-PROMPT_TOKENS // CHUNK)
@@ -651,7 +683,7 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
           "launches": counts, "launches_expected": expected,
           "flash_attention_mma_launches": k6_mma, "step_graph_ms": step_ms,
           "step_profile": profile_, "card": card})
-    if n_steps != NEW_TOKENS - 1:
+    if n_steps != new_tokens - 1:
         fail(f"{ftype}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
         fail(f"{ftype}: kernel launch counts {counts} != expected {expected}")
@@ -732,6 +764,10 @@ SMALL_ENGINE_LAYOUTS = {
     # head Q6_K; 4 slots, so a decode step's GEMMs run K5 at M = 4
     "q3_k_m_paged": ("small", "Q3_K_M", dict(kv_dtype="f32", n_slots=4),
                      ("paged_attention", "paged_attn_decode_update", "dequant_gemm")),
+    # IQ3_XXS (the factory's preset): wq, wk, wo, gate|up, down IQ3_XXS (K4,
+    # K5), wv Q4_K and the head Q5_K (K1, K3); 4 slots: K5 at M = 4
+    "iq3_xxs_paged": ("small", "IQ3_XXS", dict(kv_dtype="f32", n_slots=4),
+                      ("paged_attention", "paged_attn_decode_update", "dequant_gemm")),
     # Qwen2 (G 6, head_dim 128, q/k/v biases; wv Q6_K, so no wqkv)
     "qwen2_paged": ("small_qwen2", "Q4_K_M", dict(kv_dtype="f32"),
                     ("paged_attention", "paged_attn_decode_update")),
@@ -1180,18 +1216,23 @@ def tokenizer_roundtrip(card: str):
         fail(f"BPE ids differ from the pinned ones: {same}")
 
 
-# the GGUF blocks of the formats whose kernel forms predate the low-bit
+# the GGUF blocks of the formats whose kernel forms predate the IQ grid
 # slice: (weights a block, block bytes, offsets of the fp16 scales); the
-# nibble formats go to K1/K3, Q6_K and Q8_0 to K4/K5
+# nibble formats go to K1/K3, the others to K4/K5 (MXFP4: its exponent byte
+# at 0, drawn from [115, 135))
 DIGEST_BLOCKS = {"Q4_K": (256, 144, (0, 2)), "Q4_0": (32, 18, (0,)), "Q4_1": (32, 20, (0, 2)),
                  "Q5_0": (32, 22, (0,)), "Q5_1": (32, 24, (0, 2)), "Q5_K": (256, 176, (0, 2)),
-                 "Q6_K": (256, 210, (208,)), "Q8_0": (32, 34, (0,))}
+                 "Q6_K": (256, 210, (208,)), "Q8_0": (32, 34, (0,)),
+                 "Q2_K": (256, 84, (80, 82)), "Q3_K": (256, 110, (108,)),
+                 "IQ4_NL": (32, 18, (0,)), "IQ4_XS": (256, 136, (0,)), "MXFP4": (32, 17, ())}
 
 
 def form_digests(torch) -> dict:
-    """Digests of the outputs of the kernel forms that predate the low-bit
+    """Digests of the outputs of the kernel forms that predate the IQ grid
     slice: K1 and K3 in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K forms, K4
-    and K5 in the Q6_K and Q8_0 forms, on weights of random GGUF bytes
+    and K5 in the Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 forms
+    (the low-bit ones after the others, so that those keep the digests
+    they had before the low-bit ones were added), on weights of random GGUF bytes
     (every code and scale bit; fp16 scales in [0.002, 0.02)) at a TinyLlama
     layer's shapes (wqkv norm 2048->2560, wo q 2048->2048, gate|up norm
     2048->11264, down glu 5632->2048), the matvec on an f32 and a bf16 row,
@@ -1226,6 +1267,8 @@ def form_digests(torch) -> dict:
             for off in scales:
                 vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
                 raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+            if fmt == "MXFP4":
+                raw[:, 0] = rng.integers(115, 135, size=raw.shape[0])
             w = repack(raw.reshape(n, -1), (n, k), GGMLType[fmt], "cuda")
             for xdtype in (torch.float32, torch.bfloat16):
                 y = mv(rows[fuse].to(xdtype), w, fuse, aux if fuse == "norm" else None, 1e-5)
@@ -1287,7 +1330,8 @@ def main():
                   "(q4k_gemm.cu: NibbleSlice for Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 "
                   "(dequant_gemm.cu: "
                   "Q6KSlice, Q80Slice, CrumbSlice for Q2_K / Q3_K, TableSlice for IQ4_NL and "
-                  "IQ4_XS / MXFP4), RowForm and TileForm per decoder, and its round and "
+                  "IQ4_XS / MXFP4 / IQ2_XXS / IQ2_XS and IQ2_S / IQ3_XXS / IQ3_S, IQ1CrumbSlice "
+                  "for IQ1_S / IQ1_M), RowForm and TileForm per decoder, and its round and "
                   "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
@@ -1337,14 +1381,15 @@ def main():
                                      ("attn_decode", "attn_decode_qkv_kernel"))}
     emit({"phase": "build_k4_k2", "instantiations": k4k2_build,
           "note": "registers and spills of K4 (csrc/int8_matvec.cu: Q6_K/Q8_0/Q2_K/Q3_K/"
-                  "IQ4/MXFP4 x prologue q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one "
-                  "decoder) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
+                  "IQ4/MXFP4/IQ2 (32-groups)/IQ2 (16-groups)/IQ3_XXS/IQ3_S/IQ1_S x prologue "
+                  "q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one decoder, IQ2_XS and "
+                  "IQ2_S another) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
                   "f32/bf16 x D 64/128)" if any(k4k2_build.values())
                   else "not built in this run (cached)"})
     spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K4 or K2 spills: {spills}")
-    for lib, n_inst in (("int8_matvec", 36), ("attn_decode", 8)):
+    for lib, n_inst in (("int8_matvec", 66), ("attn_decode", 8)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
     k12k11_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
@@ -1367,10 +1412,12 @@ def main():
         if lib in reports and len(k12k11_build[lib]) != n_inst:
             fail(f"{lib}: {len(k12k11_build[lib])} instantiations built, not {n_inst}")
     # one sliced-loop instantiation a form and decoder: K3's six nibble
-    # formats, K5's Q6_K, Q8_0, Q2_K, Q3_K, IQ4 (IQ4_NL and IQ4_XS) and MXFP4
+    # formats, K5's Q6_K, Q8_0, Q2_K, Q3_K, IQ4 (IQ4_NL and IQ4_XS), MXFP4,
+    # IQ2 (32-groups), IQ2 (16-groups: IQ2_XS and IQ2_S), IQ3_XXS, IQ3_S,
+    # IQ1_S and IQ1_M (IQ1CrumbSlice)
     for lib, decoders, n_dec in (("q4k_gemm", ("NibbleSlice",), 6),
                                  ("dequant_gemm", ("Q6KSlice", "Q80Slice", "CrumbSlice",
-                                                   "TableSlice"), 6)):
+                                                   "TableSlice"), 12)):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
                  if any(d in e["name"] for d in decoders)]
         if lib in reports and len(loops) != 2 * n_dec:
@@ -1392,6 +1439,10 @@ def main():
         small_model_check(torch, ftype, kernels=kernels, must=("q4k_matvec", "q4k_gemm"))
     for ftype in LOWBIT_FTYPES:  # K4 and K5 in their low-bit forms
         small_model_check(torch, ftype, kernels=kernels, must=("int8_matvec", "dequant_gemm"))
+    for ftype in IQ_FTYPES:  # K4 and K5 in the IQ grid forms; IQ1_M's matvecs on K5
+        small_model_check(torch, ftype, kernels=kernels,
+                          must=("dequant_gemm",) if ftype == "IQ1_M"
+                          else ("int8_matvec", "dequant_gemm"))
     for ftype in ("Q4_K", "Q4_K_M"):
         small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
     dualdot = {"ZLLM_QMM_DUALDOT": "1"}
@@ -1566,6 +1617,31 @@ def main():
                                                                             counts_lb)
         del gen_lb
 
+    # the IQ grid slice at TinyLlama geometry (the factory's presets: wq, wk,
+    # wo, gate|up, down in the type on K4/K5, wv Q4_K and the head Q5_K on
+    # K1/K3, so wq, wk and wv stay apart): IQ3_XXS and IQ1_S the full
+    # generate, IQ1_M (its matvecs on K5 at M = 1, as zllm runs them) and
+    # IQ2_XXS, IQ2_XS, IQ2_S, IQ3_S a short one
+    def want_iq(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # K4: wq, wk, wo, gate|up, down a layer; K1: wv a layer + the head
+        return dict({name: 0 for name in kernels}, int8_matvec=5 * L * n_steps,
+                    q4k_matvec=(L + 1) * n_steps, attn_decode_qkv=L * (n_steps + n_chunks),
+                    dequant_gemm=5 * L * n_chunks, q4k_gemm=(L + 1) * n_chunks,
+                    flash_attention=L * n_chunks)
+
+    def want_iq1m(cfg, n_steps, n_chunks):
+        L = cfg.n_layers  # K5 at M = 1 in K4's place
+        return dict(want_iq(cfg, n_steps, n_chunks), int8_matvec=0,
+                    dequant_gemm=5 * L * (n_steps + n_chunks))
+
+    iq_models, iq_steps, iq_counts = {}, {}, {}
+    for ftype in IQ_FTYPES:
+        model_iq, counts_iq, gen_iq, *_, step_iq = main_path(
+            torch, ftype, kernels, want_iq1m if ftype == "IQ1_M" else want_iq, card,
+            new_tokens=NEW_TOKENS if ftype in ("IQ3_XXS", "IQ1_S") else IQ_SHORT_TOKENS)
+        iq_models[ftype], iq_steps[ftype], iq_counts[ftype] = model_iq, step_iq, counts_iq
+        del gen_iq
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
@@ -1574,6 +1650,7 @@ def main():
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
              "olmo2_q4_1_hbm": counts_o1_hbm, "qwen3": counts_q3, "qwen25": counts_q25,
              **q5_counts, **{ft.lower(): c for ft, c in lowbit_counts.items()},
+             **{ft.lower(): c for ft, c in iq_counts.items()},
              "serve": counts_serve, "serve_q8": counts_q8,
              "serve_contig": counts_contig}
 
@@ -1606,7 +1683,7 @@ def main():
     # the layout, but only the vocabulary's columns count toward the bound
     real_cols = {id(m_.params["output"]): m_.cfg.vocab_size
                  for m_ in (model, model_m, model_40, model_o, model_o1, *q5_models.values(),
-                            *lowbit_models.values())}
+                            *lowbit_models.values(), *iq_models.values())}
 
     def n_real(w):
         return real_cols.get(id(w), w.shape[1])
@@ -2393,22 +2470,28 @@ def main():
             gcalls_.append((xs[d_model], head_))
         return mcalls, gcalls_, roles
 
-    def role_lines(model_, kernels, keys, all_heads: bool, m4: bool) -> dict:
+    def role_lines(model_, kernels, keys, all_heads: bool, m4: bool, m1: bool = False) -> dict:
         """The matvec and GEMM of `kernels` ((wrapper, plain) each, named by
         `keys`) on role_calls(model_, all_heads), by weight role: bounded by
         each weight's GGUF bytes (the layout's bytes a weight beside them),
         held against the plain versions on the first five calls, each role's
         first and the last; with `m4` the GEMM also at the engine's decode
-        M = 4 (one row per slot)."""
+        M = 4 (one row per slot); with `m1` the step's matvecs are the GEMM
+        at M = 1 (IQ1_M's, which K4 does not take)."""
         mcalls, gcalls_, roles = role_calls(model_, all_heads)
         (mv, mv_plain), (gm, gm_plain) = kernels
         check = tuple(sorted({*range(5), *(idx[0] for idx in roles.values()), len(mcalls) - 1}))
         fmt = mcalls[0][1].fmt.name
         nw = sum(w.shape[0] * n_real(w) for _, w, _, _ in mcalls)
         layout = sum(w.nbytes * n_real(w) / w.shape[1] for _, w, _, _ in mcalls) / nw
-        out = {keys[0]: dict(matvec_phase(torch, mv, mv_plain, mcalls, n_real, None, cfg.norm_eps,
-                                          check=check, groups=roles),
-                             launches=len(mcalls), fmt=fmt, layout_bytes_per_weight=layout,
+        if m1:
+            g1 = [(x[:1], w) for x, w in gcalls_]
+            step = dict(gemm_phase(torch, gm, gm_plain, g1, n_real, None, check=check,
+                                   groups=roles), m=1)
+        else:
+            step = matvec_phase(torch, mv, mv_plain, mcalls, n_real, None, cfg.norm_eps,
+                                check=check, groups=roles)
+        out = {keys[0]: dict(step, launches=len(mcalls), fmt=fmt, layout_bytes_per_weight=layout,
                              tolerance=1e-6),
                keys[1]: dict(gemm_phase(torch, gm, gm_plain, gcalls_, n_real, None, check=check,
                                         groups=roles),
@@ -2473,6 +2556,35 @@ def main():
     lowbit_k4 = {f"{ft.lower()}_tinyllama": ln["k4"] for ft, ln in lowbit_lines.items()}
     lowbit_k5 = {f"{ft.lower()}_tinyllama": ln["k5"] for ft, ln in lowbit_lines.items()}
     lowbit_k5["q3_k_m_tinyllama_m4"] = lowbit_lines["Q3_K_M"]["k5_m4"]
+
+    # the IQ grid forms by weight role: K4 on each IQ step's 110 matvecs
+    # (IQ1_M: K5 at M = 1 in its place), K5 on the chunk's GEMMs (and at M
+    # = 4 on the IQ3_XXS weights); K1 on each step's 23 wv (Q4_K) and head
+    # (Q5_K) matvecs, for `step_graph`
+    iq_lines = {ft: role_lines(iq_models[ft], k4_k5,
+                               ("k5_m1" if ft == "IQ1_M" else "k4", "k5"), all_heads=False,
+                               m4=ft == "IQ3_XXS", m1=ft == "IQ1_M") for ft in IQ_FTYPES}
+    for ft, m_ in iq_models.items():
+        k1_calls = [(x_h, layer["wv"], "q", None) for layer in m_.params["layers"]]
+        k1_calls.append((x_res, m_.params["output"], "norm", m_.params["out_norm"]))
+        iq_lines[ft]["k1_wv_head"] = dict(
+            matvec_phase(torch, qmm.q4k_matvec, qmm.q4k_matvec_plain, k1_calls, n_real, None,
+                         cfg.norm_eps, check=(0, len(k1_calls) - 1)),
+            launches=len(k1_calls), fmt="Q4_K wv, Q5_K head", tolerance=1e-6)
+    bad_iq = failed(iq_lines)
+    emit({"phase": "kernel_iq", "card": card,
+          "shapes": "TinyLlama geometry, each preset from the factory: 22 x [wq, wk q "
+                    "2048->2048/256 (bf16 x), wo q 2048->2048, gate|up norm 2048->11264, down "
+                    "glu 5632->2048] in the type (IQ1_M: K5 at M = 1 on the same weights, "
+                    "bf16 / f32 rows as the step's); K5 the same weights at M = 256 (IQ3_XXS "
+                    "also 4); k1_wv_head: 22 x wv q 2048->256 Q4_K + head norm 2048->32000 "
+                    "Q5_K (launched padded to 32768); bounds by each weight's GGUF bytes, the "
+                    "layout's beside them (layout_bytes_per_weight)",
+          **iq_lines})
+    iq_k4 = {f"{ft.lower()}_tinyllama": ln["k4"] for ft, ln in iq_lines.items() if "k4" in ln}
+    iq_k5 = {f"{ft.lower()}_tinyllama": ln["k5"] for ft, ln in iq_lines.items()}
+    iq_k5["iq3_xxs_tinyllama_m4"] = iq_lines["IQ3_XXS"]["k5_m4"]
+    iq_k5["iq1_m_tinyllama_m1_step"] = iq_lines["IQ1_M"]["k5_m1"]
 
     # the earlier kernel forms keep their bits: digests of their outputs on
     # seeded inputs, to be compared with another tree's (`--digest`)
@@ -2540,6 +2652,8 @@ def main():
     by_name["int8_matvec"]["q5_k_m_tinyllama"] = q5_lines["Q5_K_M"]["k4"]
     by_name["int8_matvec"].update(lowbit_k4)
     by_name["dequant_gemm"].update(lowbit_k5)
+    by_name["int8_matvec"].update(iq_k4)
+    by_name["dequant_gemm"].update(iq_k5)
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
                    GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1), groups=roles_m),
@@ -2583,7 +2697,13 @@ def main():
                              **{f"{ft} gate|up": rows_same(qmm.dequant_gemm, [
                                  (x512[d_model],
                                   lowbit_models[ft].params["layers"][0]["ffn_gateup"])])
-                                for ft in ("Q2_K", "IQ4_NL", "MXFP4")}},
+                                for ft in ("Q2_K", "IQ4_NL", "MXFP4")},
+                             **{f"{ft} {ft}": rows_same(qmm.dequant_gemm,
+                                                        role_calls(iq_models[ft], False)[1])
+                                for ft in ("IQ3_XXS", "IQ1_S", "IQ1_M")},
+                             **{f"{ft} gate|up": rows_same(qmm.dequant_gemm, [
+                                 (x512[d_model], iq_models[ft].params["layers"][0]["ffn_gateup"])])
+                                for ft in IQ_FTYPES[3:]}},
             "q4k_gemm": {"Q4_K_M Q4_K": rows_same(qmm.q4k_gemm, gcalls_m),
                          "Q4_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w40)]),
                          "Q4_1 OLMo-2 ffn_down": rows_same(qmm.q4k_gemm,
@@ -2671,6 +2791,14 @@ def main():
                                              kernels_ms=lowbit_lines[ft]["k4"]["ms"]
                                              + by_name["attn_decode_qkv"]["ms"])
              for ft in LOWBIT_FTYPES if ft != "Q3_K_M"},
+          **{f"tinyllama_{ft.lower()}": dict(
+              step_graph_ms=iq_steps[ft], k1_ms=iq_lines[ft]["k1_wv_head"]["ms"],
+              k2_ms=by_name["attn_decode_qkv"]["ms"],
+              **({"k5_m1_ms": iq_lines[ft]["k5_m1"]["ms"]} if ft == "IQ1_M"
+                 else {"k4_ms": iq_lines[ft]["k4"]["ms"]}),
+              kernels_ms=iq_lines[ft]["k5_m1" if ft == "IQ1_M" else "k4"]["ms"]
+              + iq_lines[ft]["k1_wv_head"]["ms"] + by_name["attn_decode_qkv"]["ms"])
+             for ft in IQ_FTYPES},
           **{label: dict(step_graph_ms=st["step_graph_ms"], k1_ms=st["k1"]["ms"],
                          k4_ms=st["k4"]["ms"] if "k4" in st else 0.0, k2_ms=st["k2"]["ms"],
                          head_ms=st["head"]["ms"],
@@ -2680,7 +2808,8 @@ def main():
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
                   "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M, Q5_K_M: K1, K4 "
                   "and K2; OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul; "
-                  "Q3_K_M: K4, K1 and K2; IQ4_XS, Q2_K, IQ4_NL, MXFP4: K4 and K2) "
+                  "Q3_K_M: K4, K1 and K2; IQ4_XS, Q2_K, IQ4_NL, MXFP4: K4 and K2; the IQ grid "
+                  "presets: K4 (IQ1_M: K5 at M = 1), K1 for wv and the head, and K2) "
                   "graph times from the kernel phases"})
 
     for line in lines:
@@ -2689,16 +2818,16 @@ def main():
     if not by_name["attn_decode_qkv"]["tinyllama_engine_step"]["nmse"] <= 1e-5:
         bad.append("attn_decode_qkv tinyllama_engine_step")
     if (bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy or bad_q5
-            or bad_lowbit):
+            or bad_lowbit or bad_iq):
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
              f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "
-             f"{bad_legacy}, Q5: {bad_q5}, low-bit: {bad_lowbit})")
+             f"{bad_legacy}, Q5: {bad_q5}, low-bit: {bad_lowbit}, IQ: {bad_iq})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the weight formats each matmul kernel takes (its forms)
     forms = {name: [f.name for f in fmts] for name, fmts in (
         ("q4k_matvec", qmm.NIBBLE_FMT_CODE), ("q4k_gemm", qmm.NIBBLE_FMT_CODE),
-        ("int8_matvec", qmm.INT8_FMT_CODE), ("dequant_gemm", qmm.INT8_FMT_CODE),
+        ("int8_matvec", qmm.K4_FMTS), ("dequant_gemm", qmm.INT8_FMT_CODE),
         ("q4k_matvec_hbm", qmm.HBM_FMTS), ("w4a8dd_matvec", qmm.DUALDOT_FMTS))}
     emit({"kernels": [dict({k: ln[k] for k in keys},
                            **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))

@@ -24,8 +24,10 @@ tolerances in their Q5_0/Q5_1/Q5_K forms (the fifth bits from the qh
 plane), and 2-layer Q5 files run on the card within nmse 1e-3 of the CPU
 (f32 model and caches); K4 and K5 hold theirs in the Q2_K, Q3_K, IQ4_NL,
 IQ4_XS and MXFP4 forms (table lookups by byte permutes, MXFP4's E8M0
-scale from its bits), and 2-layer files in those formats run on the card
-within nmse 1e-3 of the CPU.
+scale from its bits) and in the IQ grid forms (IQ2_XXS, IQ2_XS, IQ2_S,
+IQ3_XXS, IQ3_S and IQ1_S on both, IQ1_M on K5 alone; weights of random
+code bytes), and 2-layer files in those formats run on the card within
+nmse 1e-3 of the CPU.
 """
 
 import functools
@@ -40,6 +42,7 @@ from zllm_torch.ops import layers as tl
 from zllm_torch.ops import qmatmul as tq
 from zllm_torch.quant import blocks as qb
 from zllm_torch.quant.repack import pad_n, repack
+from zllm_torch.testing import IQ_GRID_TYPES, random_iq_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -60,8 +63,11 @@ def _nmse(a, b) -> float:
 @functools.lru_cache(maxsize=16)
 def _qweight_raw(n: int, k: int, seed: int, fmt) -> np.ndarray:
     """The GGUF rows of `_qweight`'s and `_int_weight`'s weights (quantized
-    once a module)."""
+    once a module; an IQ grid format, which the port cannot encode, as
+    random code bytes of that RMS)."""
     rng = np.random.default_rng(seed)
+    if fmt in IQ_GRID_TYPES:
+        return random_iq_blocks(fmt, n * k // 256, rng, 0.05).reshape(n, -1)
     return qb.quantize(rng.standard_normal((n, k)).astype(np.float32) * 0.05, fmt)
 
 
@@ -137,19 +143,22 @@ def test_k3_refuses_odd_n(dev):
 
 INT_FMTS = [GGMLType.Q6_K, GGMLType.Q8_0]
 LOWBIT_FMTS = [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4]
-K5_FMTS = [*INT_FMTS, *LOWBIT_FMTS]
+IQ_FMTS = list(IQ_GRID_TYPES)  # IQ1_M (last) on K5 alone
+K5_FMTS = [*INT_FMTS, *LOWBIT_FMTS, *IQ_FMTS]
+K4_FMTS = [f for f in K5_FMTS if f != GGMLType.IQ1_M]
 
 
 def _int_weight(fmt, n: int, k: int, seed: int, dev, n_pad: int = 0):
     """A random weight of a K4/K5 format (Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-    IQ4_XS, MXFP4); `n_pad` > n zero-pads it as the loader pads the head."""
+    IQ4_XS, MXFP4, the IQ grid formats); `n_pad` > n zero-pads it as the
+    loader pads the head."""
     w = repack(_qweight_raw(n, k, seed, fmt), (n, k), fmt, dev)
     return pad_n(w, n_pad) if n_pad else w
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fuse", ["q", "norm", "glu"])
-@pytest.mark.parametrize("fmt", K5_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", K4_FMTS, ids=lambda t: t.name)
 @pytest.mark.parametrize("k,n,n_pad", [(256, 128, 0), (2048, 256, 0), (2048, 2048, 0),
                                        (5632, 2048, 0), (2048, 32000, 32768), (8960, 1536, 0)])
 def test_k4_matches_plain(dev, k, n, n_pad, fmt, fuse, xdtype):
@@ -179,7 +188,7 @@ LOWBIT_K5_CASES = [(1, 256, 128, 0), (4, 2048, 256, 0), (4, 5632, 2048, 0), (7, 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m,k,n,n_pad,fmt",
                          [(*c, f) for f in INT_FMTS for c in K5_CASES]
-                         + [(*c, f) for f in LOWBIT_FMTS for c in LOWBIT_K5_CASES],
+                         + [(*c, f) for f in LOWBIT_FMTS + IQ_FMTS for c in LOWBIT_K5_CASES],
                          ids=lambda v: v.name if isinstance(v, GGMLType) else None)
 def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
@@ -203,7 +212,8 @@ SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *Q5_FMTS, *K5_FMTS]
 @pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
 def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
     """K3 (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 (Q6_K, Q8_0, Q2_K,
-    Q3_K, IQ4_NL, IQ4_XS, MXFP4) sum every row slice by slice in zllm's
+    Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats) sum every row slice
+    by slice in zllm's
     order, so its bits do not depend on M or on the form (row form M <= 16,
     tile form above, the slices split over blocks or not), and repeated
     calls agree."""
@@ -1199,18 +1209,20 @@ REQUANTIZED = ("Q5_K_M", "Q3_K_M", "IQ4_XS")
 
 
 @pytest.mark.parametrize("ftype", ["Q5_0", "Q5_1", "Q5_K_M",
-                                   "Q2_K", "Q3_K_M", "IQ4_NL", "IQ4_XS", "MXFP4"])
+                                   "Q2_K", "Q3_K_M", "IQ4_NL", "IQ4_XS", "MXFP4",
+                                   *(t.name for t in IQ_GRID_TYPES)])
 def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     """A 2-layer llama file (Q5_0, Q5_1, Q2_K, IQ4_NL and MXFP4 from the
     factory: every matmul in the type; Q5_K_M, Q3_K_M and IQ4_XS by
-    `zllm_torch.quantize` from an F16 one) on the card and on the CPU
+    `zllm_torch.quantize` from an F16 one; the IQ grid presets from the
+    factory's `ftype=`: wv Q4_K, the head Q5_K) on the card and on the CPU
     (plain versions), f32 model and caches, fed the same tokens: the
     prefill logits and 8 decode steps' within nmse 1e-3 (chip_smoke.py's
     small-model tolerance: an f32 sum order can move an int8 activation
     code or a bf16 operand, which the random weights carry to ~1e-4), and
     the matmul kernels of its matmul type launched: K1 and K3 for the Q5
     files (K4/K5 for Q5_K_M's Q6_K wv and head), K4 and K5 for the low-bit
-    ones (K1/K3 for Q3_K_M's Q5_K wv)."""
+    ones (K1/K3 for Q3_K_M's Q5_K wv), K5 and not K4 for IQ1_M."""
     from zllm_torch.models.loader import Model
     from zllm_torch.quantize import quantize_file
     from zllm_torch.runtime.generate import Generator
@@ -1222,13 +1234,17 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     if ftype in REQUANTIZED:
         src = make_llama_gguf(str(tmp_path / "f16.gguf"), gtype=GGMLType.F16, **shape)
         quantize_file(src, path, ftype, quiet=True)
+    elif GGMLType[ftype] in IQ_GRID_TYPES:
+        make_llama_gguf(path, ftype=ftype, **shape)
     else:
         make_llama_gguf(path, gtype=GGMLType[ftype], **shape)
     gens = {d: Generator(Model.load(path, device=d, dtype=torch.float32), max_len=128,
                          prefill_chunk=16, kv_dtype=torch.float32) for d in ("cuda", "cpu")}
     prompt = [1] + list(range(40, 59))
     kernels = ((tq.q4k_matvec, tq.q4k_gemm) if ftype.startswith("Q5")
+               else (tq.dequant_gemm,) if ftype == "IQ1_M"
                else (tq.int8_matvec, tq.dequant_gemm))
+    k4_before = tq.int8_matvec.launches
     before = [f.launches for f in kernels]
     rows = {d: [g.prefill(prompt).float().cpu()] for d, g in gens.items()}
     tok = int(torch.argmax(rows["cpu"][0]))
@@ -1238,6 +1254,8 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
         tok = int(torch.argmax(rows["cpu"][-1]))
     torch.cuda.synchronize()
     assert all(f.launches > n for f, n in zip(kernels, before))
+    if ftype == "IQ1_M":
+        assert tq.int8_matvec.launches == k4_before
     for step, (a, b) in enumerate(zip(rows["cuda"], rows["cpu"])):
         assert bool(torch.isfinite(a).all()) and _nmse(a, b) < 1e-3, step
 
@@ -1285,10 +1303,11 @@ def test_k4_k5_lowbit_random_blocks(dev, fmt):
 
 
 @pytest.mark.parametrize("switch", ["ZLLM_QMM_HBM", "ZLLM_QMM_DUALDOT"])
-@pytest.mark.parametrize("fmt", LOWBIT_FMTS, ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS + IQ_FMTS[:-1], ids=lambda t: t.name)
 def test_switches_keep_lowbit_on_k4(dev, fmt, switch, monkeypatch):
     """Under ZLLM_QMM_HBM=1 or ZLLM_QMM_DUALDOT=1 a matvec of the five
-    formats launches K4, with K4's bits."""
+    formats, or of the six IQ grid formats K4 takes, launches K4, with
+    K4's bits."""
     monkeypatch.setenv(switch, "1")
     k, n = 2048, 2560
     w = _int_weight(fmt, n, k, 7, dev)

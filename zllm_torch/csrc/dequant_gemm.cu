@@ -1,14 +1,18 @@
 // K5: dequant GEMM for the formats without a nibble-pair layout of K3's,
-// Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4: y[M, N] (f32) =
+// Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and the IQ grid formats as
+// the port's loader folds them (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
+// IQ1_S, IQ1_M: value indexes, zllm_torch/quant/repack.py): y[M, N] (f32) =
 // bf16(x)[M, K] @ bf16(dequant(W)).
 //
 // Replaces zllm/ops/qmatmul.py::_qmm_kernel (launched by _qmm_call from
-// qmatmul), instantiated for these seven of its formats: the weight is
+// qmatmul), instantiated for these fourteen of its formats: the weight is
 // dequantized in f32 as _dequant_tile does (Q6_K: ((ql | qh << 4) - 32) *
 // f32(a); Q8_0: qs * f32(d); Q2_K: crumb * f32(a) - f32(b); Q3_K: ((crumb
 // | bit << 2) - 4) * f32(a); IQ4_NL, IQ4_XS: IQ4NL_VALUES[index] * f32(d
 // or a); MXFP4: MXFP4_VALUES[index] * 2^(e - 128), the e2m1 value doubled
 // times the halved E8M0 scale, which is _dequant_tile's sign * mag * d;
+// IQ2_*, IQ3_XXS, IQ3_S: the table value of the index * f32(a); IQ1_S,
+// IQ1_M: (crumb - 1) * f32(a) - f32(b);
 // every product is exact in f32, so a contraction of q * a - b into one
 // FMA rounds as zllm's two operations do) and rounded to bf16 (round to
 // nearest even); x (f32 or bf16) is rounded to bf16 in the kernel; the
@@ -33,12 +37,18 @@
 //     step: its 4 crumb bytes, the 4-byte word of Q3_K's third bits (or
 //     of Q2_K's fp16 mins) holding it, in one 16-byte ring piece, and the
 //     pair of scales holding it.
-//   IQ4_NL, IQ4_XS, MXFP4 step c, quarter q: K3's order (byte 32c + i
-//     holds the indexes of k 64c + i and 64c + 32 + i): the 8 bytes 32c +
-//     8q.., k 8q.. (low nibbles, group 2c) and 32 + 8q.. (high, group 2c +
-//     1) of the step, their indexes turned into the table's int8 values by
-//     byte permutes (lut16, lowbit.cuh), and the word holding the two
-//     groups' scales (two fp16, or MXFP4's two exponent bytes).
+//   IQ4_NL, IQ4_XS, MXFP4 and the IQ2 / IQ3 forms step c, quarter q: K3's
+//     order (byte 32c + i holds the indexes of k 64c + i and 64c + 32 + i):
+//     the 8 bytes 32c + 8q.., k 8q.. (low nibbles, group 2c) and 32 + 8q..
+//     (high, group 2c + 1) of the step, their indexes turned into the
+//     table's int8 values by byte permutes (lut16, lowbit.cuh), and the
+//     word holding the two groups' scales (two fp16, or MXFP4's two
+//     exponent bytes); IQ2_XS and IQ2_S (16-groups: the low nibbles'
+//     4c + q/2, the high ones' 4c + 2 + q/2) copy the step's four fp16
+//     scales into the ring piece's second 8 bytes instead.
+//   IQ1_S, IQ1_M step c, quarter q: Q2_K's 16-group 4c + q: its 4 crumb
+//     bytes, the min pair holding it (IQ1_S: per 32-group) or its two
+//     8-groups' mins (IQ1_M), and the scale pair holding it.
 
 #include "gemm_slice.cuh"
 #include "lowbit.cuh"
@@ -130,13 +140,14 @@ struct Q80Slice {
   }
 };
 
-// four codes (the bytes of b, unsigned) times a, less c, as two bf16 pairs
-// (the byte-to-float permute of scale4)
-__device__ __forceinline__ uint2 affine4(uint32_t b, float a, float c) {
+// four codes (the bytes of b, unsigned) less bias, times a, less c, as two
+// bf16 pairs (the byte-to-float permute of scale4)
+__device__ __forceinline__ uint2 affine4(uint32_t b, int bias, float a, float c) {
+  const float off = 8388608.f + (float)bias;
   float f[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    f[e] = (__int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 | e)) - 8388608.f) * a - c;
+    f[e] = (__int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 | e)) - off) * a - c;
   return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
 }
 
@@ -177,7 +188,7 @@ struct CrumbSlice {
         codes |= zt::fifth_bits4(r.y >> (16 * (q & 1)), i) >> 2;  // the third bits at bit 2
         o[i] = scale4(codes, 4, sc, false);
       } else {
-        o[i] = affine4(codes, sc, half_of(r.y, q & 1));
+        o[i] = affine4(codes, 0, sc, half_of(r.y, q & 1));
       }
     }
     v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
@@ -185,28 +196,35 @@ struct CrumbSlice {
   }
 };
 
-// IQ4_NL, IQ4_XS (fp16 scales) and MXFP4 (E8M0 exponent bytes): K3's
-// NibbleSlice order, the indexes looked up in TABLE
-template <class TABLE, bool kE8M0>
+// IQ4_NL, IQ4_XS, the IQ2 / IQ3 forms (fp16 scales) and MXFP4 (E8M0
+// exponent bytes): K3's NibbleSlice order, the indexes looked up in TABLE;
+// kG = 16 (IQ2_XS, IQ2_S): a scale a 16-group
+template <class TABLE, bool kE8M0, int kG = 32>
 struct TableSlice {
   const uint8_t* qs;  // [N, K/2]
-  const void* sc;     // fp16 [N, K/32], or MXFP4's uint8 exponents [N, K/32]
+  const void* sc;     // fp16 [N, K/kG], or MXFP4's uint8 exponents [N, K/32]
   int K;
-  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used (kG = 16: all)
   // v[0] (low nibbles) is k 8q.. of the step, v[1] (high) k 32 + 8q..
   __device__ __forceinline__ static int slot(int q, int i) { return q + 4 * i; }
   __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
                                         int q) const {
     cp_async8(p, qs + col * (K / 2) + 32 * c + 8 * q);
-    if constexpr (kE8M0)  // bytes 2c, 2c + 1 of the column's row
+    if constexpr (kG == 16)  // halves 4c..4c+3, behind the codes
+      cp_async8(reinterpret_cast<unsigned char*>(p) + 8,
+                static_cast<const __half*>(sc) + col * (K / 16) + 4 * c);
+    else if constexpr (kE8M0)  // bytes 2c, 2c + 1 of the column's row
       cp_async4(word, static_cast<const uint8_t*>(sc) + col * (K / 32) + (2 * c & ~3));
     else  // halves 2c, 2c + 1
       cp_async4(word, static_cast<const __half*>(sc) + col * (K / 32) + 2 * c);
   }
   __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
-                                          size_t, int c, int, uint4 (&v)[2]) const {
+                                          size_t, int c, int q, uint4 (&v)[2]) const {
     float alo, ahi;
-    if constexpr (kE8M0) {
+    if constexpr (kG == 16) {  // 16-groups 4c + q/2 (low nibbles), 4c + 2 + q/2 (high)
+      alo = half_of(p[0].z, q >> 1);
+      ahi = half_of(p[0].w, q >> 1);
+    } else if constexpr (kE8M0) {
       const int sh = 8 * (2 * c & 3);
       alo = zt::e8m0_half((word >> sh) & 0xFFu);
       ahi = zt::e8m0_half((word >> (sh + 8)) & 0xFFu);
@@ -223,11 +241,52 @@ struct TableSlice {
   }
 };
 
+// IQ1_S (a, b per 32-group) and IQ1_M (a per 16-group, b per 8-group):
+// Q2_K's crumbs, (crumb - 1) * a - b; thread q of a column decodes 16-group
+// g = 4c + q as CrumbSlice does, its crumb word at ring bytes 0-3, the word
+// of mins holding it at bytes 4-7 (IQ1_M: its two 8-groups' mins), the
+// scale pair holding it in `word`
+template <bool kM>
+struct IQ1CrumbSlice {
+  const uint8_t* qs;  // [N, K/4]
+  const __half* a;    // [N, K/32] (IQ1_M: [N, K/16])
+  const __half* b;    // [N, K/32] (IQ1_M: [N, K/8])
+  int K;
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
+  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    const int g = 4 * c + q;
+    unsigned char* pc = reinterpret_cast<unsigned char*>(p);
+    cp_async4(pc, qs + col * (K / 4) + 4 * g);
+    if constexpr (kM) {
+      cp_async4(pc + 4, b + col * (K / 8) + 2 * g);
+      cp_async4(word, a + col * (K / 16) + (g & ~1));
+    } else {  // 32-groups 2c, 2c + 1
+      cp_async4(pc + 4, b + col * (K / 32) + 2 * c);
+      cp_async4(word, a + col * (K / 32) + 2 * c);
+    }
+  }
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
+                                          size_t, int, int q, uint4 (&v)[2]) const {
+    const uint4 r = p[0];
+    const int h = kM ? (q & 1) : (q >> 1);
+    const float sc = half_of(word, h);
+    uint2 o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // elements 4i..4i+3 of the group
+      o[i] = affine4((r.x >> (2 * i)) & 0x03030303u, 1, sc, half_of(r.y, kM ? i >> 1 : h));
+    v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
+    v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
+  }
+};
+
 }  // namespace
 
 // fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d),
 // 2 = Q2_K (qs, a, b), 3 = Q3_K (qs, qh, a), 4 = IQ4_NL (qs, d), 5 = IQ4_XS
-// (qs, a), 6 = MXFP4 (qs, e).
+// (qs, a), 6 = MXFP4 (qs, e), 7 = IQ2_XXS, 8 = IQ2_XS, 9 = IQ2_S, 10 =
+// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S, 13 = IQ1_M (qs, a, b).
 // xdtype, xb, tk, form, spb and ws as for zt_slice::launch_slice_gemm: an
 // f32 x adds a launch that rounds it into xb, a call with spb < K / tk one
 // that reduces the slice partials in order.
@@ -265,6 +324,31 @@ extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, void* xb, con
     case 6:
       return zt_slice::launch_slice_gemm(x, xdtype, xb, TableSlice<zt::MXFP4Table, true>{qs, p1, K},
                                          y, ws, M, K, N, tk, form, spb, s);
+    case 7:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, TableSlice<zt::IQ2Table, false>{qs, p1, K},
+                                         y, ws, M, K, N, tk, form, spb, s);
+    case 8:
+    case 9:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb,
+                                         TableSlice<zt::IQ2Table, false, 16>{qs, p1, K}, y, ws, M,
+                                         K, N, tk, form, spb, s);
+    case 10:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb,
+                                         TableSlice<zt::IQ3XXSTable, false>{qs, p1, K}, y, ws, M,
+                                         K, N, tk, form, spb, s);
+    case 11:
+      return zt_slice::launch_slice_gemm(x, xdtype, xb, TableSlice<zt::IQ3STable, false>{qs, p1, K},
+                                         y, ws, M, K, N, tk, form, spb, s);
+    case 12:
+    case 13: {
+      const auto* a = static_cast<const __half*>(p1);
+      const auto* b = static_cast<const __half*>(p2);
+      return fmt == 12
+                 ? zt_slice::launch_slice_gemm(x, xdtype, xb, IQ1CrumbSlice<false>{qs, a, b, K}, y,
+                                               ws, M, K, N, tk, form, spb, s)
+                 : zt_slice::launch_slice_gemm(x, xdtype, xb, IQ1CrumbSlice<true>{qs, a, b, K}, y,
+                                               ws, M, K, N, tk, form, spb, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,25 +1,32 @@
 // K4: decode matvec (M = 1) on the int8 path for the formats whose weight
 // is an integer code times one scale a group: Q6_K (16-groups), Q8_0
 // (32-groups), Q2_K and Q3_K (16-groups), IQ4_NL, IQ4_XS and MXFP4
-// (32-groups).
+// (32-groups), and the IQ grid formats as the port's loader folds them
+// (value indexes, zllm_torch/quant/repack.py): IQ2_XXS (32-groups), IQ2_XS
+// and IQ2_S (16-groups), IQ3_XXS, IQ3_S and IQ1_S (32-groups).
 //
 // Replaces zllm/ops/qmatmul.py::_w4a8_kernel (launched by _qmm_w4a8_call
 // from qmatmul_w4a8, qmatvec_norm and qmatvec_glu), instantiated for these
-// seven of its _INT_FMT formats: y[n] = sum_g pi_g * a_g * dx_g (- b_g *
-// e_g, Q2_K's min term, e_g = dx_g * sx_g), where the activation row is
+// thirteen of its _INT_FMT formats: y[n] = sum_g pi_g * a_g * dx_g (- b_g *
+// e_g, Q2_K's and IQ1_S's min term, e_g = dx_g * sx_g), where the activation row is
 // quantized to int8 per group (the prologue of matvec_common.cuh, shared
 // with K1: group 16 or 32 as the format's) and pi_g is the exact integer
 // dot of the group's int8 activations with the weight's codes (_int_qtile):
 //   Q6_K: (ql | qh << 4) - 32 in -32..31;  Q8_0: the stored int8;
 //   Q2_K: the crumb 0..3;  Q3_K: (crumb | bit << 2) - 4 in -4..3;
 //   IQ4_NL, IQ4_XS: IQ4NL_VALUES[index];  MXFP4: MXFP4_VALUES[index];
-// a_g the group scale (Q6_K, Q2_K, Q3_K, IQ4_XS: the fp16 plane a; Q8_0,
-// IQ4_NL: d; MXFP4: 2^(e - 128) from the E8M0 byte), b_g Q2_K's fp16 min.
+//   IQ2_*: IQ2_VALUES[index];  IQ3_XXS: IQ3XXS_VALUES[index];  IQ3_S: the
+//   odd value of its index;  IQ1_S: crumb - 1 in -1..1;
+// a_g the group scale (Q6_K, Q2_K, Q3_K, IQ4_XS and the IQ grid formats:
+// the fp16 plane a; Q8_0, IQ4_NL: d; MXFP4: 2^(e - 128) from the E8M0
+// byte), b_g Q2_K's and IQ1_S's fp16 min.
 //
 // Bound on the H100: the weight bytes, read once (Q6_K: 210 bytes per 256
 // weights in the GGUF, 224 in this layout, whose scale plane a is fp16 per
 // 16-group; Q8_0: 34 per 32; Q2_K and Q3_K 128 per 256 in this layout,
-// IQ4_NL and IQ4_XS 144, MXFP4 136); 2*K*N int8 operations are ~1000x under the
+// IQ4_NL and IQ4_XS 144, MXFP4 136, the IQ2 and IQ3 forms 128 + 2 * 256 /
+// group, IQ1_S 96; the GGUF's IQ grid blocks are 50-110 bytes per 256,
+// zllm's value-index layout 1.5-2.9x that); 2*K*N int8 operations are ~1000x under the
 // int8 peak.  A Q4_K_M step's 34 launches move 0.2-2.3 MB each (0.07-0.7
 // us of bytes), so what paces them is each launch's fixed part: the earlier
 // form (8-warp blocks, up to four an SM each redoing the prologue, a plain
@@ -44,13 +51,18 @@
 //     bytes), Q3_K's 8 bytes of third bits (two a group, moved to bit 2 of
 //     each code byte by one multiply and mask), the four groups' fp16
 //     scales (and Q2_K's mins) as 8 bytes each; four __dp4a a group;
-//   IQ4_NL, IQ4_XS, MXFP4 slot c: the 32 qs bytes of chunk c, whose low
-//     nibbles index group 2c's codes and high nibbles group 2c + 1's, each
-//     word's eight indexes turned into int8 table values by byte permutes
-//     (lut16, lowbit.cuh); eight __dp4a a group.
+//   IQ4_NL, IQ4_XS, MXFP4 and the IQ2 / IQ3 forms slot c: the 32 qs bytes
+//     of chunk c, whose low nibbles index group 2c's codes and high nibbles
+//     group 2c + 1's, each word's eight indexes turned into int8 table
+//     values by byte permutes (lut16, lowbit.cuh); eight __dp4a a group
+//     (IQ2_XS and IQ2_S: the same bytes are four 16-groups, 4c + h and 4c
+//     + 2 + h from the words of half h, four __dp4a and a scale each);
+//   IQ1_S slot c: Q2_K's 16 crumb bytes of 16-groups 4c..4c+3, i.e. the
+//     32-groups 2c and 2c + 1, and their two scales and two mins.
 // Unsigned codes go into __dp4a as they are and a bias comes off the
 // integer dot: sum (q - 32) x = sum q x - 32 sum x (Q6_K), - 4 sum x
-// (Q3_K), with sum x the group's code sum from the prologue; every group
+// (Q3_K), - sum x (IQ1_S), with sum x the group's code sum from the
+// prologue; every group
 // dot is at most 32 * 127 * 127 < 2^24, so all are exact.
 //   * One wave of 16-warp blocks, at most two an SM (cpw columns a warp);
 //     a narrow N (wv, 256 columns) is spread over the SMs a few warps'
@@ -221,30 +233,60 @@ struct Crumb {
   }
 };
 
-// IQ4_NL (d), IQ4_XS (a) and MXFP4 (e): 4-bit indexes into TABLE in the
-// nibble formats' order; slot c is the 32-groups 2c (low nibbles) and
-// 2c + 1 (high)
-template <class TABLE, bool kE8M0>
+// IQ4_NL (d), IQ4_XS (a), MXFP4 (e) and the IQ2 / IQ3 forms (a): 4-bit
+// indexes into TABLE in the nibble formats' order; slot c is the 32-groups
+// 2c (low nibbles) and 2c + 1 (high), or with kG = 16 (IQ2_XS, IQ2_S) the
+// 16-groups 4c, 4c + 1 (low nibbles of the two halves) and 4c + 2, 4c + 3
+// (high), four fp16 scales
+template <class TABLE, bool kE8M0, int kG = 32>
 struct Table4 {
-  static constexpr int kGroup = 32, kSlot = 64;
+  static constexpr int kGroup = kG, kSlot = 64;
   const uint8_t* qs;  // [N, K/2]
-  const void* sc;     // fp16 [N, K/32], or MXFP4's uint8 exponents [N, K/32]
+  const void* sc;     // fp16 [N, K/kG], or MXFP4's uint8 exponents [N, K/32]
   struct Slot {
     uint4 q0, q1;
     uint32_t s;  // the two groups' scales: two fp16, or two exponent bytes
+    uint32_t s2;  // kG = 16: the scales of 4c + 2, 4c + 3
   };
   __device__ __forceinline__ void fetch(Slot& s, size_t n, int K, int c) const {
     const uint8_t* p = qs + n * (K / 2) + c * 32;
     s.q0 = ld16(p);
     s.q1 = ld16(p + 16);
-    if constexpr (kE8M0)
+    if constexpr (kG == 16) {
+      const uint2 v = *reinterpret_cast<const uint2*>(static_cast<const __half*>(sc) +
+                                                      n * (K / 16) + 4 * c);
+      s.s = v.x;
+      s.s2 = v.y;
+    } else if constexpr (kE8M0) {
       s.s = *(static_cast<const uint16_t*>(sc) + (n * (K / 32) + 2 * c) / 2);
-    else
+    } else {
       s.s = *reinterpret_cast<const uint32_t*>(static_cast<const __half*>(sc) + n * (K / 32) +
                                                2 * c);
+    }
   }
-  __device__ __forceinline__ float dot(const Slot& s, int c, const QuantRow<32>& row) const {
+  __device__ __forceinline__ float dot(const Slot& s, int c, const QuantRow<kG>& row) const {
     const uint32_t w[8] = {s.q0.x, s.q0.y, s.q0.z, s.q0.w, s.q1.x, s.q1.y, s.q1.z, s.q1.w};
+    if constexpr (kG == 16) {
+      int p[4] = {0, 0, 0, 0};  // 16-groups 4c + j
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int4 xl = *reinterpret_cast<const int4*>(row.xq + (4 * c + h) * 16);
+        const int4 xh = *reinterpret_cast<const int4*>(row.xq + (4 * c + 2 + h) * 16);
+        const int xlw[4] = {xl.x, xl.y, xl.z, xl.w};
+        const int xhw[4] = {xh.x, xh.y, xh.z, xh.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint2 v = lut16<TABLE>(w[4 * h + i]);
+          p[h] = __dp4a((int)v.x, xlw[i], p[h]);
+          p[2 + h] = __dp4a((int)v.y, xhw[i], p[2 + h]);
+        }
+      }
+      float t = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        t += (float)p[j] * half_of(j < 2 ? s.s : s.s2, j & 1) * row.dx[4 * c + j];
+      return t;
+    }
     const int g = 2 * c;
     int plo = 0, phi = 0;
 #pragma unroll
@@ -269,6 +311,45 @@ struct Table4 {
       ahi = half_of(s.s, 1);
     }
     return (float)plo * alo * row.dx[g] + (float)phi * ahi * row.dx[g + 1];
+  }
+};
+
+// IQ1_S: Q2_K's crumb order, the crumbs the grid value + 1, one scale and
+// one min a 32-group; slot c is the 16-groups 4c..4c+3 (the 32-groups 2c,
+// 2c + 1)
+struct CrumbIQ1S {
+  static constexpr int kGroup = 32, kSlot = 64;
+  const uint8_t* qs;  // [N, K/4]
+  const __half* a;    // [N, K/32]
+  const __half* b;    // [N, K/32]
+  struct Slot {
+    uint4 q;
+    uint32_t a, b;  // the two groups' scales and mins
+  };
+  __device__ __forceinline__ void fetch(Slot& s, size_t n, int K, int c) const {
+    s.q = ld16(qs + n * (K / 4) + c * 16);
+    s.a = *reinterpret_cast<const uint32_t*>(a + n * (K / 32) + 2 * c);
+    s.b = *reinterpret_cast<const uint32_t*>(b + n * (K / 32) + 2 * c);
+  }
+  __device__ __forceinline__ float dot(const Slot& s, int c, const QuantRow<32>& row) const {
+    const uint32_t qw[4] = {s.q.x, s.q.y, s.q.z, s.q.w};
+    float t = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int p = 0;
+#pragma unroll
+      for (int j = 2 * h; j < 2 * h + 2; ++j) {  // the two 16-groups of 32-group 2c + h
+        const int4 x = *reinterpret_cast<const int4*>(row.xq + (4 * c + j) * 16);
+        const int xw[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p = __dp4a((int)((qw[j] >> (2 * i)) & 0x03030303u), xw[i], p);
+      }
+      const int g = 2 * c + h;
+      const float dx = row.dx[g];
+      t += (float)(p - row.sx[g]) * half_of(s.a, h) * dx -
+           half_of(s.b, h) * (dx * (float)row.sx[g]);
+    }
+    return t;
   }
 };
 
@@ -374,7 +455,8 @@ int launch_dtype(int x_dtype, int mode, const void* x, const float* aux, const F
 
 // fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d),
 // 2 = Q2_K (qs, a, b), 3 = Q3_K (qs, qh, a), 4 = IQ4_NL (qs, d), 5 = IQ4_XS
-// (qs, a), 6 = MXFP4 (qs, e).
+// (qs, a), 6 = MXFP4 (qs, e), 7 = IQ2_XXS, 8 = IQ2_XS, 9 = IQ2_S, 10 =
+// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S (qs, a, b).
 // x_dtype: 0 = float32, 1 = bfloat16.  mode: 0 = q, 1 = norm, 2 = glu.
 extern "C" int zt_int8_matvec(int fmt, const void* x, int x_dtype, const float* aux,
                               const void* p0, const void* p1, const void* p2, float* y, int K,
@@ -409,6 +491,24 @@ extern "C" int zt_int8_matvec(int fmt, const void* x, int x_dtype, const float* 
     case 6:
       return launch_dtype(x_dtype, mode, x, aux, Table4<MXFP4Table, true>{qs, p1}, y, K, N, eps,
                           s);
+    case 7:
+      return launch_dtype(x_dtype, mode, x, aux, Table4<IQ2Table, false>{qs, p1}, y, K, N, eps,
+                          s);
+    case 8:
+    case 9:
+      return launch_dtype(x_dtype, mode, x, aux, Table4<IQ2Table, false, 16>{qs, p1}, y, K, N,
+                          eps, s);
+    case 10:
+      return launch_dtype(x_dtype, mode, x, aux, Table4<IQ3XXSTable, false>{qs, p1}, y, K, N,
+                          eps, s);
+    case 11:
+      return launch_dtype(x_dtype, mode, x, aux, Table4<IQ3STable, false>{qs, p1}, y, K, N, eps,
+                          s);
+    case 12:
+      return launch_dtype(x_dtype, mode, x, aux,
+                          CrumbIQ1S{qs, static_cast<const __half*>(p1),
+                                    static_cast<const __half*>(p2)},
+                          y, K, N, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Decoding helpers of the low-bit formats K4 (int8_matvec.cu) and K5
 // (dequant_gemm.cu) take besides Q6_K and Q8_0: the 16-entry int8 tables
 // of IQ4_NL / IQ4_XS (IQ4NL_VALUES) and MXFP4 (the e2m1 values doubled,
-// MXFP4_VALUES; zllm_torch/quant/blocks.py), looked up four bytes at a time
-// by byte permutes instead of a chain of selects, and MXFP4's E8M0 scale.
+// MXFP4_VALUES; zllm_torch/quant/blocks.py), and of the IQ grid formats'
+// value indexes (IQ2_VALUES, IQ3XXS_VALUES, IQ3S_VALUES;
+// zllm_torch/quant/repack.py), looked up four bytes at a time by byte
+// permutes instead of a chain of selects, and MXFP4's E8M0 scale.
 
 #pragma once
 
@@ -27,6 +29,29 @@ struct MXFP4Table {
   static constexpr uint32_t t1 = pack_i8(4, 6, 8, 12);
   static constexpr uint32_t t2 = pack_i8(0, -1, -2, -3);
   static constexpr uint32_t t3 = pack_i8(-4, -6, -8, -12);
+};
+
+// IQ2_XXS / IQ2_XS / IQ2_S: magnitude index | sign << 2 (indexes 8..15
+// never occur)
+struct IQ2Table {
+  static constexpr uint32_t t0 = pack_i8(8, 25, 43, 0);
+  static constexpr uint32_t t1 = pack_i8(-8, -25, -43, 0);
+  static constexpr uint32_t t2 = 0;
+  static constexpr uint32_t t3 = 0;
+};
+// IQ3_XXS: magnitude index | sign << 3
+struct IQ3XXSTable {
+  static constexpr uint32_t t0 = pack_i8(4, 12, 20, 28);
+  static constexpr uint32_t t1 = pack_i8(36, 44, 52, 62);
+  static constexpr uint32_t t2 = pack_i8(-4, -12, -20, -28);
+  static constexpr uint32_t t3 = pack_i8(-36, -44, -52, -62);
+};
+// IQ3_S: the odd values (2i + 1 for i < 8, then negated)
+struct IQ3STable {
+  static constexpr uint32_t t0 = pack_i8(1, 3, 5, 7);
+  static constexpr uint32_t t1 = pack_i8(9, 11, 13, 15);
+  static constexpr uint32_t t2 = pack_i8(-1, -3, -5, -7);
+  static constexpr uint32_t t3 = pack_i8(-9, -11, -13, -15);
 };
 
 // The table values of the eight 4-bit indexes of w (nibble 2b: the low

@@ -1,8 +1,10 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
 Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-IQ4_XS and MXFP4 matmul weights become `QWeight`s (quantized on the
-device, consumed by the port's kernels); the token embedding is
+IQ4_XS, MXFP4 and the IQ grid formats' (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS,
+IQ3_S, IQ1_S, IQ1_M; their grids folded into value indexes on the
+device) matmul weights become `QWeight`s (quantized on the device,
+consumed by the port's kernels); the token embedding is
 dequantized to a dense tensor of the model dtype, norm weights and biases
 to f32.  A
 llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
@@ -32,7 +34,7 @@ import torch
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, read_gguf
 from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat_n,
-                            from_planes, pack_crumbs, pad_n, repack)
+                            from_planes, pack_crumbs, pack_nibbles, pad_n, repack)
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
@@ -271,13 +273,6 @@ def _nibble_codes_from_jax(desc: dict) -> np.ndarray:
     return np.ascontiguousarray(codes.T)
 
 
-def _pack_nibbles(codes: np.ndarray) -> np.ndarray:
-    """uint8 codes [N, K] -> the nibble formats' qs plane [N, K/2]."""
-    n, k = codes.shape
-    c = codes.reshape(n, k // 64, 2, 32)
-    return (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).astype(np.uint8).reshape(n, k // 2)
-
-
 def _q4k_from_jax(desc: dict) -> dict[str, np.ndarray]:
     """The "diet" Q4_K planes: qs (see _nibble_codes_from_jax), sm u16
     [K/32, N] = sc | mn<<6, sd/sb fp16 bits [K/256 rounded up to 8 rows, N]."""
@@ -287,7 +282,7 @@ def _q4k_from_jax(desc: dict) -> dict[str, np.ndarray]:
         raise NotImplementedError("only the exact two-level ('diet') Q4_K planes carry across")
     sm = np.asarray(p["sm"]).astype(np.uint16)
     return {
-        "qs": _pack_nibbles(_nibble_codes_from_jax(desc)),
+        "qs": pack_nibbles(_nibble_codes_from_jax(desc)),
         "sc": np.ascontiguousarray((sm & 63).T).astype(np.uint8),
         "mn": np.ascontiguousarray((sm >> 6).T).astype(np.uint8),
         "d": _f16_nk(p["sd"], k // 256),
@@ -300,7 +295,7 @@ def _legacy_nibble_from_jax(desc: dict) -> dict[str, np.ndarray]:
     scales fp16 [K/32, N] per 32-group."""
     k, _ = desc["shape"]
     scales = ("d",) if GGMLType(desc["fmt"]) == GGMLType.Q4_0 else ("a", "b")
-    return {"qs": _pack_nibbles(_nibble_codes_from_jax(desc)),
+    return {"qs": pack_nibbles(_nibble_codes_from_jax(desc)),
             **{name: _f16_nk(desc["planes"][name], k // 32) for name in scales}}
 
 
@@ -355,12 +350,26 @@ def _table_from_jax(desc: dict) -> dict[str, np.ndarray]:
     32-group (MXFP4's e the uint8 exponent)."""
     k, _ = desc["shape"]
     fmt, p = GGMLType(desc["fmt"]), desc["planes"]
-    qs = _pack_nibbles(_nibble_codes_from_jax(desc))
+    qs = pack_nibbles(_nibble_codes_from_jax(desc))
     if fmt == GGMLType.MXFP4:
         e = np.asarray(p["e"]).astype(np.uint8)[:k // 32]
         return {"qs": qs, "e": np.ascontiguousarray(e.T)}
     name = "d" if fmt == GGMLType.IQ4_NL else "a"
     return {"qs": qs, name: _f16_nk(p[name], k // 32)}
+
+
+def _iq_from_jax(desc: dict) -> dict[str, np.ndarray]:
+    """zllm's IQ grid planes: IQ2_* and IQ3_* value indexes as the nibble
+    formats' qs and a, IQ1_S and IQ1_M crumbs (split-quarter fold [K/4, N])
+    and a, b; each fp16 plane [K/group, N] at the weight class's group."""
+    k, n = desc["shape"]
+    p, cls = desc["planes"], WEIGHT_CLASSES[GGMLType(desc["fmt"])]
+    if "b" in cls.PLANES:
+        out = {"qs": pack_crumbs(np.ascontiguousarray(_unfold(p["qs"], int(desc["fold"]), 2).T))}
+    else:
+        out = {"qs": pack_nibbles(_nibble_codes_from_jax(desc))}
+    return {**out, **{name: _f16_nk(p[name], k // kdiv) for name, (_, kdiv) in cls.PLANES.items()
+                      if name != "qs"}}
 
 
 _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_jax,
@@ -369,7 +378,10 @@ _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_ja
              GGMLType.Q6_K: _q6k_from_jax, GGMLType.Q8_0: _q80_from_jax,
              GGMLType.Q2_K: _k_quant_low_from_jax, GGMLType.Q3_K: _k_quant_low_from_jax,
              GGMLType.IQ4_NL: _table_from_jax, GGMLType.IQ4_XS: _table_from_jax,
-             GGMLType.MXFP4: _table_from_jax}
+             GGMLType.MXFP4: _table_from_jax,
+             **{fmt: _iq_from_jax for fmt in (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S,
+                                             GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S,
+                                             GGMLType.IQ1_M)}}
 
 
 def _leaf_from_jax(key: str, val, *, dtype, device):
@@ -388,7 +400,8 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
     "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K,
-    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 carry across."""
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and the IQ grid formats IQ2_XXS,
+    IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

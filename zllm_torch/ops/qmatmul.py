@@ -3,8 +3,9 @@ and the prefill GEMMs (K3, K5), each a hand-written CUDA kernel with its
 plain PyTorch version beside it.  `matvec` and `gemm` dispatch on the
 weight's format: the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K
 to K1/K3 (K12 or K11 instead of K1 under the switches `matvec` names, for
-the formats those take), Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4
-to K4/K5.
+the formats those take), Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and
+the IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S and IQ1_S to
+K4/K5, and IQ1_M to K5 alone (its matvec too, as zllm runs it).
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
     `_qmm_w4a8np_call`) for the six nibble formats: M=1, activations
@@ -29,15 +30,18 @@ to K4/K5.
     Q4_0 `(pi - 8*s)*d*dx`, Q4_1 `pi*a*dx - b*e`.  `quantize_acts` is that
     quantize as an op of its own.  Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
-    `_qmm_w4a8_call`) for Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and
-    MXFP4: the same prologues, with int8 groups of the format's width (16
-    for Q6_K, Q2_K and Q3_K, 32 for the others), integer group dots against
-    the integer codes (`_int_qtile`'s: Q2_K's unsigned, IQ4's and MXFP4's
-    table values), then `pi*a*dx` in f32, less `b*(dx*sum(xq))` for Q2_K's
-    min.  Source: `zllm_torch/csrc/int8_matvec.cu`.
+    `_qmm_w4a8_call`) for Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4,
+    IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S and IQ1_S: the same prologues,
+    with int8 groups of the format's width (16 for Q6_K, Q2_K, Q3_K, IQ2_XS
+    and IQ2_S, 32 for the others), integer group dots against the integer
+    codes (`_int_qtile`'s: Q2_K's unsigned, IQ4's, MXFP4's and the IQ grid
+    formats' table values, IQ1_S's crumb - 1), then `pi*a*dx` in f32, less
+    `b*(dx*sum(xq))` for Q2_K's and IQ1_S's min.  Source:
+    `zllm_torch/csrc/int8_matvec.cu`.
   * `q4k_gemm` (K3) replaces `zllm/ops/qmatmul.py::_qmm_np_kernel` (via
     `_qmm_np_call`) for the six nibble formats and `dequant_gemm` (K5)
-    replaces `_qmm_kernel` (via `_qmm_call`) for K4's seven: [M, K] x
+    replaces `_qmm_kernel` (via `_qmm_call`) for K4's thirteen and IQ1_M
+    (at any M, M = 1 included): [M, K] x
     dequant(W) with x and the dequantized weight both rounded to bf16 in
     the kernel and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
     and `dequant_gemm.cu`, a weight decoder per format on one loop, the
@@ -322,14 +326,21 @@ w4a8dd_matvec.launches = 0
 # K4: decode matvec for the integer-code formats
 # ---------------------------------------------------------------------------
 
-# the formats K4 and K5 take (the `fmt` argument of their C entry points)
+# the formats K5 takes, and K4 all but K5_ONLY (the `fmt` argument of
+# their C entry points); zllm's `_INT_FMT` leaves IQ1_M out (its a and b
+# have two group widths), so its matvec runs on K5
 INT8_FMT_CODE = {GGMLType.Q6_K: 0, GGMLType.Q8_0: 1, GGMLType.Q2_K: 2, GGMLType.Q3_K: 3,
-                 GGMLType.IQ4_NL: 4, GGMLType.IQ4_XS: 5, GGMLType.MXFP4: 6}
+                 GGMLType.IQ4_NL: 4, GGMLType.IQ4_XS: 5, GGMLType.MXFP4: 6,
+                 GGMLType.IQ2_XXS: 7, GGMLType.IQ2_XS: 8, GGMLType.IQ2_S: 9,
+                 GGMLType.IQ3_XXS: 10, GGMLType.IQ3_S: 11, GGMLType.IQ1_S: 12,
+                 GGMLType.IQ1_M: 13}
+K5_ONLY = (GGMLType.IQ1_M,)
+K4_FMTS = tuple(f for f in INT8_FMT_CODE if f not in K5_ONLY)
 
 
 def int8_matvec_plain(x, w: IntWeight, fuse="q", aux=None, eps=0.0) -> torch.Tensor:
     """Plain version of K4: y [1, N] f32, zllm's per-group epilogue
-    pi*a*dx, less b*(dx*sx) where the format has a min (Q2_K)."""
+    pi*a*dx, less b*(dx*sx) where the format has a min (Q2_K, IQ1_S)."""
     k, n = w.shape
     xq, dx, sx = quantize_groups(_prologue(x, k, fuse, aux, eps), w.GROUP)
     codes = w.int_codes().float().reshape(n, k // w.GROUP, w.GROUP)
@@ -346,7 +357,8 @@ def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
     """The weight's plane pointers, padded with None to the `count` a C
     entry point takes: K4/K5 three in PLANES order (Q6_K ql, qh, a; Q8_0
     qs, d; Q2_K qs, a, b; Q3_K qs, qh, a; IQ4_NL qs, d; IQ4_XS qs, a;
-    MXFP4 qs, e); K1/K3/K12/K11 five, `NibbleWeight.kernel_planes` (qs, then Q4_K
+    MXFP4 qs, e; IQ2_*, IQ3_* qs, a; IQ1_S, IQ1_M qs, a, b); K1/K3/K12/K11
+    five, `NibbleWeight.kernel_planes` (qs, then Q4_K
     sc, mn, d, dmin; Q4_0 d; Q4_1 a, b; Q5_0 d and Q5_1/Q5_K a, b, each
     with qh last)."""
     planes = (w.kernel_planes() if isinstance(w, NibbleWeight)
@@ -355,9 +367,9 @@ def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
     return ptrs + [None] * (count - len(ptrs))
 
 
-def _check_int8_shape(w: QWeight):
-    if w.fmt not in INT8_FMT_CODE:
-        raise NotImplementedError(f"K4/K5 take {', '.join(f.name for f in INT8_FMT_CODE)}, "
+def _check_int8_shape(w: QWeight, formats=INT8_FMT_CODE, what="K5"):
+    if w.fmt not in formats:
+        raise NotImplementedError(f"{what} takes {', '.join(f.name for f in formats)}, "
                                   f"not {w.fmt.name}")
     k, n = w.shape
     if k % 256 or n % 128:
@@ -367,9 +379,9 @@ def _check_int8_shape(w: QWeight):
 def int8_matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
                 eps: float = 0.0) -> torch.Tensor:
     """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q6_K,
-    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS or MXFP4; x and fuse as for
-    `q4k_matvec`."""
-    _check_int8_shape(w)
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, IQ2_XXS, IQ2_XS, IQ2_S,
+    IQ3_XXS, IQ3_S or IQ1_S; x and fuse as for `q4k_matvec`."""
+    _check_int8_shape(w, K4_FMTS, "K4")
     k, n = w.shape
     _check_matvec_args(x, k, fuse, aux)
     if x.device.type == "cpu":
@@ -548,7 +560,8 @@ q4k_gemm.launches = 0
 
 def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q6_K,
-    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS or MXFP4), summed in
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, IQ2_XXS, IQ2_XS, IQ2_S,
+    IQ3_XXS, IQ3_S, IQ1_S or IQ1_M), summed in
     `dequant_gemm_plain`'s slice order.  Besides the loop,
     an f32 x takes a launch that rounds it to bf16 (into a workspace), and
     a call whose slices are split over blocks one that reduces the slice
@@ -574,7 +587,10 @@ dequant_gemm.launches = 0
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
     """The decode matvec for w's format.  Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-    IQ4_XS, MXFP4 -> K4 (the switches do not move them).  The nibble
+    IQ4_XS, MXFP4 and the IQ grid formats -> K4 (the switches do not move
+    them), but IQ1_M, which K4 does not take, -> K5 at M = 1 with fuse="q"
+    alone (`fuses` is False for it: the caller norms and gates first, as
+    zllm's unfused route does).  The nibble
     formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K -> K1 by default, and
     under two switches, read from the environment at each dispatch (as zllm
     reads them at each trace):
@@ -596,12 +612,21 @@ def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | Non
                 and os.environ.get("ZLLM_QMM_DUALDOT", "0") == "1"):
             return w4a8dd_matvec(x, w)
         return q4k_matvec(x, w, fuse, aux, eps)
+    if w.fmt in K5_ONLY:
+        if fuse != "q":
+            raise NotImplementedError(f"{w.fmt.name} has no fused {fuse!r} matvec")
+        return dequant_gemm(x.reshape(1, -1), w)
     return int8_matvec(x, w, fuse, aux, eps)
 
 
+def fuses(w: QWeight) -> bool:
+    """Whether `matvec` takes w with the "norm" and "glu" prologues."""
+    return w.fmt not in K5_ONLY
+
+
 def gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
-    """The prefill GEMM for w's format: the six nibble formats -> K3, K4's
-    seven -> K5."""
+    """The prefill GEMM for w's format: the six nibble formats -> K3, the
+    others (`INT8_FMT_CODE`) -> K5."""
     if w.fmt in NIBBLE_FMT_CODE:
         return q4k_gemm(x, w)
     return dequant_gemm(x, w)

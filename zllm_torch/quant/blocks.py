@@ -3,7 +3,10 @@ llama path needs.
 
 A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_0, Q4_1,
 Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS and MXFP4
-decoders and encoders, without the importance-weighted ones (layouts:
+decoders and encoders, without the importance-weighted ones, and the
+decoders of the IQ grid formats (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
+IQ1_S, IQ1_M; their grids, format constants, in `iq_grids.npz` beside
+this file), whose encoders the port does not have (layouts:
 reference ggml/src/ggml-common.h;
 reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
 identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
@@ -16,6 +19,8 @@ tensors with arbitrary leading shape.
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -435,6 +440,139 @@ def _enc_iq4_xs(x):
     )
 
 
+# IQ grid formats (decode only).  Each 8 (IQ3: 4) weights are one row of a
+# grid of non-negative magnitudes (IQ1: of {-1, 0, 1}), picked by an index,
+# times a sign, times a group scale.
+
+# 7-bit sign codes: bit i = sign of element i, top bit = parity (format
+# constant ksigns_iq2xs from ggml-common.h)
+_KSIGNS = np.array([i | (128 if bin(i).count("1") % 2 else 0) for i in range(128)], dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def iq_grids() -> dict[str, np.ndarray]:
+    """The seven grids (ggml-common.h iq2xxs_grid ... iq1m grid), f32:
+    iq2_xxs [256, 8], iq2_xs [512, 8], iq2_s [1024, 8], iq3_xxs [256, 4],
+    iq3_s [512, 4], iq1_s and iq1_m [2048, 8]."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iq_grids.npz")
+    with np.load(path) as z:
+        return {name: z[name] for name in z.files}
+
+
+def _sign_bits(codes: np.ndarray) -> np.ndarray:
+    """7-bit sign codes [...] -> +-1 f32 [..., 8]."""
+    return _raw_sign_bits(_KSIGNS[codes & 0x7F])
+
+
+def _raw_sign_bits(bytes_: np.ndarray) -> np.ndarray:
+    """Sign bytes [...] (bit i set: element i negative) -> +-1 f32 [..., 8]."""
+    bits = (bytes_[..., None] >> np.arange(8, dtype=np.uint8)) & 1
+    return np.where(bits == 0, np.float32(1), np.float32(-1))
+
+
+def _u32(b: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(b).view("<u4")
+
+
+def _dec_iq2_xxs(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    u32 = _u32(b[:, 2:]).reshape(n, 8, 2)
+    codes = np.ascontiguousarray(u32[:, :, 0]).view(np.uint8).reshape(n, 8, 4)  # grid rows
+    aux = u32[:, :, 1]
+    db = d * (0.5 + (aux >> 28).astype(np.float32)) * 0.25  # [n, 8]
+    signs = _sign_bits((aux[:, :, None] >> np.array([0, 7, 14, 21], np.uint32)).astype(np.uint8))
+    grid = iq_grids()["iq2_xxs_grid"][codes]  # [n, 8, 4, 8]
+    return (db[:, :, None, None] * grid * signs).reshape(n, QK_K)
+
+
+def _dec_iq2_xs(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    qs = np.ascontiguousarray(b[:, 2:66]).view("<u2").reshape(n, 32)
+    sl = b[:, 66:74]
+    sc = np.stack([sl & 0x0F, sl >> 4], axis=-1).reshape(n, 16)
+    db = (d * (0.5 + sc.astype(np.float32)) * 0.25).repeat(2, axis=1)  # [n, 32]
+    signs = _sign_bits((qs >> 9).astype(np.uint8))
+    grid = iq_grids()["iq2_xs_grid"][qs & 511]  # [n, 32, 8]
+    return (db[:, :, None] * grid * signs).reshape(n, QK_K)
+
+
+def _dec_iq2_s(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    qs, sbytes, qh, sl = b[:, 2:34], b[:, 34:66], b[:, 66:74], b[:, 74:82]
+    sc = np.stack([sl & 0x0F, sl >> 4], axis=-1).reshape(n, 16)
+    db = (d * (0.5 + sc.astype(np.float32)) * 0.25).repeat(2, axis=1)  # [n, 32]
+    hi = ((qh[:, :, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3).reshape(n, 32)
+    idx = qs.astype(np.uint16) | (hi.astype(np.uint16) << 8)
+    signs = _raw_sign_bits(sbytes).reshape(n, 32, 8)
+    grid = iq_grids()["iq2_s_grid"][idx]
+    return (db[:, :, None] * grid * signs).reshape(n, QK_K)
+
+
+def _dec_iq3_xxs(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    qs = b[:, 2:66]  # 64 grid rows of 4 values
+    aux = _u32(b[:, 66:98]).reshape(n, 8)
+    db = d * (0.5 + (aux >> 28).astype(np.float32)) * 0.5  # [n, 8]
+    signs = _sign_bits(
+        (aux[:, :, None] >> np.array([0, 7, 14, 21], np.uint32)).astype(np.uint8)
+    ).reshape(n, 32, 8)
+    grid = iq_grids()["iq3_xxs_grid"][qs].reshape(n, 32, 8)
+    return (db.repeat(4, axis=1)[:, :, None] * grid * signs).reshape(n, QK_K)
+
+
+def _dec_iq3_s(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    qs, qh, sbytes, sl = b[:, 2:66], b[:, 66:74], b[:, 74:106], b[:, 106:110]
+    sc = np.stack([sl & 0x0F, sl >> 4], axis=-1).reshape(n, 8)
+    db = (d * (1 + 2 * sc.astype(np.float32))).repeat(8, axis=1)  # [n, 64]
+    hi = ((qh[:, :, None] >> np.arange(8, dtype=np.uint8)) & 1).reshape(n, 64)
+    idx = qs.astype(np.uint16) | (hi.astype(np.uint16) << 8)
+    signs = _raw_sign_bits(sbytes).reshape(n, 64, 4)
+    grid = iq_grids()["iq3_s_grid"][idx].reshape(n, 64, 4)
+    return (db[:, :, None] * grid * signs).reshape(n, QK_K)
+
+
+def _dec_iq1_s(b):
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    qs = b[:, 2:34]  # 32 grid rows' low bytes
+    qh = np.ascontiguousarray(b[:, 34:50]).view("<u2").reshape(n, 8)  # 4 rows each
+    dl = (d * (2 * ((qh >> 12) & 7) + 1).astype(np.float32)).repeat(4, axis=1)  # [n, 32]
+    delta = np.where((qh & 0x8000) == 0, np.float32(0.125), np.float32(-0.125)).repeat(4, axis=1)
+    hi = ((qh[:, :, None] >> np.array([0, 3, 6, 9], np.uint16)) & 7).reshape(n, 32)
+    idx = qs.astype(np.uint16) | (hi << 8)
+    grid = iq_grids()["iq1_s_grid"][idx]  # [n, 32, 8]
+    return (dl[:, :, None] * (grid + delta[:, :, None])).reshape(n, QK_K)
+
+
+def iq1m_d(sraw: np.ndarray) -> np.ndarray:
+    """IQ1_M's superblock scale: the fp16 whose four nibbles are the top
+    nibbles of the four u16 scale words sraw [N, 4] (word i's bits 12-15 ->
+    bits 4i..4i+3) -> f32 [N]."""
+    d16 = (sraw & np.uint16(0xF000)) >> np.array([12, 8, 4, 0], np.uint16)
+    return (d16[:, 0] | d16[:, 1] | d16[:, 2] | d16[:, 3]).astype("<u2").view("<f2").astype(
+        np.float32)
+
+
+def _dec_iq1_m(b):
+    n = b.shape[0]
+    qs, qh = b[:, :32], b[:, 32:48]  # qh: 16 bytes, a nibble a grid row
+    sraw = np.ascontiguousarray(b[:, 48:56]).view("<u2").reshape(n, 4)
+    d = iq1m_d(sraw)
+    sc = ((sraw[:, :, None] >> np.array([0, 3, 6, 9], np.uint16)) & 7).reshape(n, 16)
+    dl = (d[:, None] * (2 * sc.astype(np.float32) + 1)).repeat(2, axis=1)  # [n, 32]
+    hi = np.stack([qh & 0x0F, qh >> 4], axis=-1).reshape(n, 32)
+    idx = qs.astype(np.uint16) | ((hi.astype(np.uint16) & 7) << 8)
+    delta = np.where((hi & 0x08) == 0, np.float32(0.125), np.float32(-0.125))
+    grid = iq_grids()["iq1_m_grid"][idx]
+    return (dl[:, :, None] * (grid + delta[:, :, None])).reshape(n, QK_K)
+
+
 _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F32: _dec_f32,
     GGMLType.F16: _dec_f16,
@@ -451,6 +589,13 @@ _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.Q6_K: _dec_q6_k,
     GGMLType.IQ4_NL: _dec_iq4_nl,
     GGMLType.IQ4_XS: _dec_iq4_xs,
+    GGMLType.IQ2_XXS: _dec_iq2_xxs,
+    GGMLType.IQ2_XS: _dec_iq2_xs,
+    GGMLType.IQ2_S: _dec_iq2_s,
+    GGMLType.IQ3_XXS: _dec_iq3_xxs,
+    GGMLType.IQ3_S: _dec_iq3_s,
+    GGMLType.IQ1_S: _dec_iq1_s,
+    GGMLType.IQ1_M: _dec_iq1_m,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _enc_f16,

@@ -1,5 +1,6 @@
 """GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_0, Q4_1,
-Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4).
+Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, and
+the IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M).
 
 `zllm.quant.repack` cuts each weight into planes shaped for the TPU's
 (8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for the
@@ -64,8 +65,30 @@ IQ4_NL, IQ4_XS and MXFP4 (`IQ4NLWeight`, `IQ4XSWeight`, `MXFP4Weight`),
   * IQ4_NL: d fp16 [N, K/32];  IQ4_XS: a = fp16(f32(d) * (sc - 32)) fp16
     [N, K/32];  MXFP4: e uint8 [N, K/32], the E8M0 exponent, scale
     2^(e - 128) (subnormal for e < 2);  w = table[index] * scale.
+The IQ grid formats (`IQ2XXSWeight` ... `IQ1MWeight`): every grid value
+times its sign falls in a small set, so at load each weight's grid row and
+sign are folded into a per-weight value index, as `zllm`'s repack folds
+them (`zllm/quant/repack.py::_rp_iq2_xxs` ...), with the group's scale
+product rounded to fp16:
+  * IQ2_XXS, IQ2_XS, IQ2_S: a 4-bit index into IQ2_VALUES (8, 25, 43, 0,
+    -8, -25, -43, 0: magnitude index | sign << 2) in the qs order of the
+    nibble formats; a = fp16(f32(d) * (0.5 + sc) * 0.25) fp16 [N, K/32]
+    (IQ2_XXS) or [N, K/16] (IQ2_XS, IQ2_S);
+  * IQ3_XXS: an index into IQ3XXS_VALUES (4, 12, ..., 52, 62, then their
+    negatives), a = fp16(f32(d) * (0.5 + sc) * 0.5) [N, K/32];
+  * IQ3_S: an index into IQ3S_VALUES (the odd values 1..15, then their
+    negatives), a = fp16(f32(d) * (1 + 2 sc)) [N, K/32];
+  * IQ1_S: the grid value + 1 (0..2) in the crumb plane of Q2_K, a =
+    fp16(dl), b = fp16(-dl * delta) [N, K/32], dl = f32(d) * (2 sc + 1),
+    delta +-1/8;  w = (crumb - 1) * a - b;
+  * IQ1_M: the same crumbs, d from the top nibbles of its four scale
+    words, a = fp16(dl) [N, K/16] and b = fp16(-dl * delta) [N, K/8] (its
+    delta is one an 8-group).
+The fold runs in torch on the target device, a chunk of superblocks at a
+time.
 The products that `zllm`'s repack rounds to fp16 (Q2_K's, Q3_K's, IQ4_XS's
-a and b, as Q6_K's and Q5_K's) are rounded here too, so every value is
+and the IQ grid formats' a and b, as Q6_K's and Q5_K's) are rounded here
+too, so every value is
 `zllm`'s: ggml's own decoders use the unrounded ones.  The rounded planes
 are what `params_from_jax` receives from `zllm`, whose d and 6-bit scales
 are gone by then, so the port keeps them rather than the GGUF's smaller
@@ -78,6 +101,7 @@ dequantizes to zero.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import ClassVar
 
@@ -148,12 +172,21 @@ def crumb_codes(qs: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return ((qs.reshape(n, k // 16, 1, 4) >> shifts) & 3).reshape(n, k)
 
 
-def pack_crumbs(codes: np.ndarray) -> np.ndarray:
-    """uint8 [N, K] 2-bit codes in natural k order -> the crumb plane."""
+def pack_crumbs(codes):
+    """uint8 [N, K] 2-bit codes in natural k order (numpy or torch) -> the
+    crumb plane."""
     n, k = codes.shape
-    c = codes.astype(np.uint8).reshape(n, k // 16, 4, 4)
+    c = codes.reshape(n, k // 16, 4, 4)
     return (c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)).reshape(
         n, k // 4)
+
+
+def pack_nibbles(codes):
+    """uint8 [N, K] 4-bit codes in natural k order (numpy or torch) -> the
+    nibble formats' qs plane [N, K/2]."""
+    n, k = codes.shape
+    c = codes.reshape(n, k // 64, 2, 32)
+    return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2)
 
 
 def _f16_scaled(d: np.ndarray, sc: np.ndarray, per: int) -> np.ndarray:
@@ -671,10 +704,301 @@ class MXFP4Weight(_TableWeight):
                 "e": np.ascontiguousarray(b[:, :1]).reshape(n, k // 32)}
 
 
+# the IQ grid formats' value tables (index -> int8 value; zllm's
+# IQ2_VALUES, IQ3XXS_VALUES and the IQ3_S decode (2 (i & 7) + 1) (1 - 2 (i >> 3)))
+IQ2_MAGS = np.array([8, 25, 43], dtype=np.int8)
+IQ2_VALUES = np.array([8, 25, 43, 0, -8, -25, -43, 0] + [0] * 8, dtype=np.int8)
+IQ3XXS_MAGS = np.array([4, 12, 20, 28, 36, 44, 52, 62], dtype=np.int8)
+IQ3XXS_VALUES = np.concatenate([IQ3XXS_MAGS, -IQ3XXS_MAGS]).astype(np.int8)
+IQ3S_VALUES = np.array([(2 * (i & 7) + 1) * (1 - 2 * (i >> 3)) for i in range(16)], dtype=np.int8)
+
+_FOLD_BLOCKS = 1 << 15  # superblocks folded at once (8 M weights)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_codes(name: str, device: str) -> torch.Tensor:
+    """A grid's rows as value indexes without the sign, uint8 [rows, 8 or
+    4] on `device`: the magnitude's index (IQ2, IQ3_XXS), (|v| - 1) / 2
+    (IQ3_S), or v + 1 (IQ1)."""
+    g = qb.iq_grids()[name]
+    if name.startswith("iq2"):
+        codes = np.searchsorted(IQ2_MAGS.astype(np.float32), g)
+    elif name == "iq3_xxs_grid":
+        codes = np.searchsorted(IQ3XXS_MAGS.astype(np.float32), g)
+    elif name == "iq3_s_grid":
+        codes = (g - 1) / 2
+    else:
+        codes = g + 1
+    return torch.from_numpy(codes.astype(np.uint8)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _ksigns(device: str) -> torch.Tensor:
+    return torch.from_numpy(qb._KSIGNS).to(device)
+
+
+def _bits8(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [...] -> its 8 bits, uint8 [..., 8] (bit i at i)."""
+    return (b[..., None] >> torch.arange(8, dtype=torch.uint8, device=b.device)) & 1
+
+
+def _ksign_bits(codes: torch.Tensor) -> torch.Tensor:
+    """7-bit sign codes (int) [...] -> the 8 sign bits, uint8 [..., 8]."""
+    return _bits8(_ksigns(str(codes.device))[(codes & 127).long()])
+
+
+def _shifts(x: torch.Tensor, shifts) -> torch.Tensor:
+    """int32 [..., m] -> [..., m, len(shifts)]: x >> each shift."""
+    return x[..., None] >> torch.tensor(shifts, dtype=torch.int32, device=x.device)
+
+
+def _f16_f32(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [nb, 2] fp16 bytes -> f32 [nb, 1]."""
+    return b.contiguous().view(torch.float16).float()
+
+
+def _u16(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [nb, 2m] -> the m little-endian u16 words, int32 [nb, m]."""
+    return b.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def _fold_iq2_xxs(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    aux = b[:, 2:].contiguous().view(torch.int32).reshape(nb, 8, 2)[:, :, 1]
+    rows = b[:, 2:].reshape(nb, 8, 8)[:, :, :4]  # the grid rows' bytes
+    db = d * (0.5 + ((aux >> 28) & 15).float()) * 0.25  # [nb, 8]
+    neg = _ksign_bits(_shifts(aux, (0, 7, 14, 21)))  # [nb, 8, 4, 8]
+    codes = _grid_codes("iq2_xxs_grid", str(b.device))[rows.long()] | (neg << 2)
+    return codes.reshape(nb, QK_K), (db,)
+
+
+def _fold_iq2_xs(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    qs = _u16(b[:, 2:66])  # [nb, 32]: grid row 9 bits, sign code 7
+    sl = b[:, 66:74]
+    sc = torch.stack([sl & 15, sl >> 4], dim=-1).reshape(nb, 16)
+    db = d * (0.5 + sc.float()) * 0.25  # [nb, 16]
+    codes = (_grid_codes("iq2_xs_grid", str(b.device))[(qs & 511).long()]
+             | (_ksign_bits(qs >> 9) << 2))
+    return codes.reshape(nb, QK_K), (db,)
+
+
+def _fold_iq2_s(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    qs, sbytes, qh, sl = b[:, 2:34], b[:, 34:66], b[:, 66:74], b[:, 74:82]
+    sc = torch.stack([sl & 15, sl >> 4], dim=-1).reshape(nb, 16)
+    db = d * (0.5 + sc.float()) * 0.25  # [nb, 16]
+    hi = (_shifts(qh.to(torch.int32), (0, 2, 4, 6)) & 3).reshape(nb, 32)
+    idx = qs.to(torch.int32) | (hi << 8)
+    codes = _grid_codes("iq2_s_grid", str(b.device))[idx.long()] | (_bits8(sbytes) << 2)
+    return codes.reshape(nb, QK_K), (db,)
+
+
+def _fold_iq3_xxs(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    aux = b[:, 66:98].contiguous().view(torch.int32)  # [nb, 8]
+    db = d * (0.5 + ((aux >> 28) & 15).float()) * 0.5  # [nb, 8]
+    neg = _ksign_bits(_shifts(aux, (0, 7, 14, 21))).reshape(nb, QK_K)
+    codes = _grid_codes("iq3_xxs_grid", str(b.device))[b[:, 2:66].long()].reshape(nb, QK_K)
+    return codes | (neg << 3), (db,)
+
+
+def _fold_iq3_s(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    qs, qh, sbytes, sl = b[:, 2:66], b[:, 66:74], b[:, 74:106], b[:, 106:110]
+    sc = torch.stack([sl & 15, sl >> 4], dim=-1).reshape(nb, 8)
+    db = d * (1 + 2 * sc.float())  # [nb, 8]
+    hi = _bits8(qh).reshape(nb, 64).to(torch.int32)
+    idx = qs.to(torch.int32) | (hi << 8)
+    codes = _grid_codes("iq3_s_grid", str(b.device))[idx.long()].reshape(nb, QK_K)
+    return codes | (_bits8(sbytes).reshape(nb, QK_K) << 3), (db,)
+
+
+def _fold_iq1_s(b):
+    nb = b.shape[0]
+    d = _f16_f32(b[:, :2])
+    qh = _u16(b[:, 34:50])  # [nb, 8]: 4 grid rows' high bits, scale, delta sign
+    dl = d * (2 * ((qh >> 12) & 7) + 1).float()  # [nb, 8]
+    delta = torch.where((qh & 0x8000) == 0, 0.125, -0.125)
+    idx = b[:, 2:34].to(torch.int32) | ((_shifts(qh, (0, 3, 6, 9)) & 7).reshape(nb, 32) << 8)
+    codes = _grid_codes("iq1_s_grid", str(b.device))[idx.long()]
+    return codes.reshape(nb, QK_K), (dl, -dl * delta)
+
+
+def _fold_iq1_m(b):
+    nb = b.shape[0]
+    qh = b[:, 32:48]
+    sraw = _u16(b[:, 48:56])  # [nb, 4]
+    d16 = ((sraw & 0xF000) >> torch.tensor([12, 8, 4, 0], dtype=torch.int32,
+                                           device=b.device)).sum(dim=1, keepdim=True)
+    d = torch.where(d16 >= 32768, d16 - 65536, d16).to(torch.int16).view(torch.float16).float()
+    sc = (_shifts(sraw, (0, 3, 6, 9)) & 7).reshape(nb, 16)
+    dl = d * (2 * sc + 1).float()  # [nb, 16]
+    hi = torch.stack([qh & 15, qh >> 4], dim=-1).reshape(nb, 32)
+    idx = b[:, :32].to(torch.int32) | ((hi & 7).to(torch.int32) << 8)
+    delta = torch.where((hi & 8) == 0, 0.125, -0.125)  # [nb, 32], one an 8-group
+    codes = _grid_codes("iq1_m_grid", str(b.device))[idx.long()]
+    return codes.reshape(nb, QK_K), (dl, -dl.repeat_interleave(2, dim=1) * delta)
+
+
+class IQWeight(IntWeight):
+    """An IQ grid format: the GGUF's grid rows and signs folded at load into
+    per-weight value indexes (the layout above), on the target device.
+    `fold(b)` takes the blocks (uint8 tensor [nb, block bytes]) to (codes
+    uint8 [nb, 256], (scale planes f32 [nb, groups], ...)); `planes_from`
+    lays them out."""
+
+    fold: ClassVar
+
+    @classmethod
+    def from_blocks(cls, b: torch.Tensor, n: int, k: int) -> dict[str, torch.Tensor]:
+        parts = [cls.fold(b[i:i + _FOLD_BLOCKS]) for i in range(0, b.shape[0], _FOLD_BLOCKS)]
+        codes = torch.cat([c for c, _ in parts]).reshape(n, k)
+        scales = [torch.cat([s[j] for _, s in parts]).to(torch.float16).reshape(n, -1)
+                  for j in range(len(parts[0][1]))]
+        return cls.planes_from(codes, scales)
+
+
+class _IQTableWeight(_TableWeight, IQWeight):
+    """IQ2_*, IQ3_*: 4-bit indexes into TABLE in the nibble formats' qs order,
+    one fp16 scale a GROUP-wide group."""
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    @staticmethod
+    def planes_from(codes, scales):
+        return {"qs": pack_nibbles(codes), "a": scales[0]}
+
+
+@dataclass
+class IQ2XXSWeight(_IQTableWeight):
+    """An IQ2_XXS weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ2_XXS
+    TABLE: ClassVar[np.ndarray] = IQ2_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 32)}
+    fold = staticmethod(_fold_iq2_xxs)
+
+
+@dataclass
+class IQ2XSWeight(_IQTableWeight):
+    """An IQ2_XS weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ2_XS
+    GROUP: ClassVar[int] = 16
+    TABLE: ClassVar[np.ndarray] = IQ2_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 16)}
+    fold = staticmethod(_fold_iq2_xs)
+
+
+@dataclass
+class IQ2SWeight(_IQTableWeight):
+    """An IQ2_S weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ2_S
+    GROUP: ClassVar[int] = 16
+    TABLE: ClassVar[np.ndarray] = IQ2_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 16)}
+    fold = staticmethod(_fold_iq2_s)
+
+
+@dataclass
+class IQ3XXSWeight(_IQTableWeight):
+    """An IQ3_XXS weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ3_XXS
+    TABLE: ClassVar[np.ndarray] = IQ3XXS_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 32)}
+    fold = staticmethod(_fold_iq3_xxs)
+
+
+@dataclass
+class IQ3SWeight(_IQTableWeight):
+    """An IQ3_S weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ3_S
+    TABLE: ClassVar[np.ndarray] = IQ3S_VALUES
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 2), "a": (torch.float16, 32)}
+    fold = staticmethod(_fold_iq3_s)
+
+
+@dataclass
+class IQ1SWeight(IQWeight):
+    """An IQ1_S weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ1_S
+    GROUP: ClassVar[int] = 32
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 4), "a": (torch.float16, 32),
+                              "b": (torch.float16, 32)}
+    fold = staticmethod(_fold_iq1_s)
+
+    def int_codes(self) -> torch.Tensor:
+        return crumb_codes(self.qs, *self.shape).to(torch.int16) - 1
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    def group_min(self) -> torch.Tensor:
+        return self.b.float()
+
+    @staticmethod
+    def planes_from(codes, scales):
+        return {"qs": pack_crumbs(codes), "a": scales[0], "b": scales[1]}
+
+
+@dataclass
+class IQ1MWeight(IQ1SWeight):
+    """An IQ1_M weight in the layout above: a a 16-group, b an 8-group (K5
+    alone takes it, as in zllm)."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.IQ1_M
+    GROUP: ClassVar[int] = 16
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 4), "a": (torch.float16, 16),
+                              "b": (torch.float16, 8)}
+    fold = staticmethod(_fold_iq1_m)
+
+    def dequant_nk(self) -> torch.Tensor:
+        """w = (crumb - 1) * a - b, a per 16-group and b per 8-group."""
+        k, n = self.shape
+        q = self.int_codes().float().reshape(n, k // 8, 8)
+        a = self.a.float().repeat_interleave(2, dim=1)
+        return (q * a[..., None] - self.b.float()[..., None]).reshape(n, k)
+
+
 WEIGHT_CLASSES: dict[GGMLType, type[QWeight]] = {
     cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q50Weight, Q51Weight, Q5KWeight,
                              Q6KWeight, Q80Weight, Q2KWeight, Q3KWeight, IQ4NLWeight, IQ4XSWeight,
-                             MXFP4Weight)}
+                             MXFP4Weight, IQ2XXSWeight, IQ2XSWeight, IQ2SWeight, IQ3XXSWeight,
+                             IQ3SWeight, IQ1SWeight, IQ1MWeight)}
 
 
 def _weight_class(fmt) -> type[QWeight]:
@@ -686,11 +1010,13 @@ def _weight_class(fmt) -> type[QWeight]:
 
 
 def from_planes(planes: dict[str, np.ndarray], shape: tuple[int, int], fmt, device) -> QWeight:
-    """numpy planes -> the format's QWeight on `device` (fp16 planes as
-    torch.float16)."""
+    """numpy (or torch) planes -> the format's QWeight on `device` (fp16
+    planes as torch.float16)."""
     cls = _weight_class(fmt)
 
     def t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device).contiguous()
         x = np.ascontiguousarray(x)
         if x.dtype == np.dtype("<f2"):
             x = x.astype(np.float16)
@@ -709,7 +1035,11 @@ def repack(raw: np.ndarray, gguf_shape: tuple[int, int], fmt: GGMLType, device) 
     if k % QK_K:
         raise ValueError(f"{cls.fmt.name} row of {k} is not a multiple of {QK_K}")
     b = np.ascontiguousarray(raw).reshape(-1, GGML_BLOCK_SIZES[cls.fmt][1])
-    return from_planes(cls.from_gguf(b, n, k), (k, n), cls.fmt, device)
+    if issubclass(cls, IQWeight):  # folded in torch on the device
+        planes = cls.from_blocks(torch.from_numpy(b.copy()).to(device), n, k)
+    else:
+        planes = cls.from_gguf(b, n, k)
+    return from_planes(planes, (k, n), cls.fmt, device)
 
 
 def concat_n(qws: list[QWeight]) -> QWeight:

@@ -13,6 +13,12 @@ zllm's loader reads:
   * `head_dim` (q_dim may differ from n_embd), `tied=True` (no
     output.weight), `rope_freqs=True` (Llama-3.1's rope_freqs.weight and
     its llama3 rope-scaling metadata);
+  * `ftype=` a preset of `zllm_torch.quantize.FTYPES`: each tensor in the
+    type `pick_type` gives its role (the embedding, attn_v and the head
+    bumped as llama-quantize bumps them); a type the port has an encoder
+    for is encoded as `gtype` is, and an IQ grid type (IQ2_XXS, IQ2_XS,
+    IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M), which has none, is written as
+    random code bytes (`random_iq_blocks`) scaled to the factory's RMS;
   * `tokenizer="bpe"` with `with_tokenizer=True`: a byte-level BPE
     ("gpt2") vocab for tokenizer.ggml.pre `pre`: the 256 byte tokens,
     merges learned from a fixed text (`bpe_vocab`), the specials
@@ -32,6 +38,7 @@ import numpy as np
 from .gguf.constants import GGMLType
 from .gguf.writer import GGUFWriter
 from .quant import blocks as qb
+from .quantize import FTYPES, pick_type
 from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
 from .tokenizer.vocab import Vocab
 
@@ -174,6 +181,42 @@ def _llama3_rope_factors(head_dim: int, base: float) -> np.ndarray:
     return np.asarray(out, dtype=np.float32)
 
 
+# the IQ grid formats: no encoder in the port, so a file of one is written
+# with random code bytes
+IQ_GRID_TYPES = (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ3_XXS,
+                 GGMLType.IQ3_S, GGMLType.IQ1_S, GGMLType.IQ1_M)
+
+
+def _set_iq_d(blocks: np.ndarray, gtype: GGMLType, d: float):
+    """Write the superblock scale d of every block (in place): the fp16 at
+    bytes 0-1, or IQ1_M's, spread over the top nibbles of its four scale
+    words (bytes 48-55)."""
+    bits = np.array([d], dtype=np.float16).view(np.uint16)[0]
+    if gtype == GGMLType.IQ1_M:
+        words = blocks[:, 48:56].copy().view("<u2")
+        for i in range(4):
+            words[:, i] = (words[:, i] & 0x0FFF) | (((int(bits) >> (4 * i)) & 0xF) << 12)
+        blocks[:, 48:56] = words.view(np.uint8)
+    else:
+        blocks[:, 0:2] = np.array([d], dtype=np.float16).view(np.uint8)
+
+
+def random_iq_blocks(gtype: GGMLType, n_blocks: int, rng: np.random.Generator,
+                     rms: float = 0.02) -> np.ndarray:
+    """`n_blocks` GGUF blocks of an IQ grid format (uint8 [n_blocks, block
+    bytes]): every byte from `rng`, then one fp16 d in every block, chosen
+    so that the decoded weights' RMS is about `rms` (measured on the first
+    256 blocks decoded with d = 1).  Every grid row, sign and group scale
+    is a valid value, so a random block is a valid one."""
+    size = qb.GGML_BLOCK_SIZES[gtype][1]
+    blocks = np.frombuffer(rng.bytes(n_blocks * size), dtype=np.uint8).reshape(n_blocks,
+                                                                                 size).copy()
+    _set_iq_d(blocks, gtype, 1.0)
+    unit = float(np.sqrt(np.mean(qb.dequantize(blocks[:256], gtype) ** 2)))
+    _set_iq_d(blocks, gtype, rms / unit)
+    return blocks
+
+
 def make_llama_gguf(
     path: str,
     *,
@@ -197,6 +240,7 @@ def make_llama_gguf(
     rope_freqs: bool = False,
     tokenizer: str = "spm",
     pre: str = "qwen2",
+    ftype: str | None = None,
 ) -> str:
     if arch not in ARCHES:
         raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
@@ -258,9 +302,16 @@ def make_llama_gguf(
 
     def emit(name: str, shape, scale=0.02, force_f32=False):
         t = GGMLType.F32 if force_f32 else gtype
+        if ftype is not None and not force_f32:
+            il = int(name.split(".")[1]) if name.startswith("blk.") else 0
+            t = pick_type(name, shape, il, n_layers, FTYPES[ftype])
         blk, _ = qb.GGML_BLOCK_SIZES[t]
         if shape[-1] % blk != 0:
             t = GGMLType.F32
+        if t in IQ_GRID_TYPES:
+            raw = random_iq_blocks(t, math.prod(shape) // blk, rng, scale)
+            w.add_tensor(name, raw.reshape(shape[0], -1), logical_shape=shape, gtype=t)
+            return
         # this image's numpy RNG runs at only ~2M elem/s, so big tensors are
         # synthesized by quantizing one random row-block and tiling the
         # encoded bytes — valid blocks, near-free, fine for perf/shape work
