@@ -175,8 +175,25 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      digests of K1's and K3's outputs in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1
      and Q5_K forms and of K4's and K5's in the Q6_K, Q8_0, Q2_K, Q3_K,
      IQ4_NL, IQ4_XS and MXFP4 forms on
-     seeded random GGUF bytes (`form_digests`; `python3 chip_smoke.py
-     --digest` prints them alone, so that two trees' can be compared).
+     seeded random GGUF bytes, and of the attention kernels' f32 and bf16
+     forms (K2, K6, K8, K9, K10; caches and pools after the insert too) and
+     K7's int8 and bf16 ones (`form_digests`; `python3 chip_smoke.py
+     --digest` prints them alone, so that two trees' can be compared);
+  5. the f16 KV cache (llama.cpp's default -ctk/-ctv f16): the build of the
+     f16 forms of K10 (attn_mma.cuh), K6, K9 (decode_cluster.cuh) and K2
+     (`build_f16`: registers and spills, 20 instantiations); 2-layer llama
+     and Qwen3 files through Generator(kv_dtype=float16) GPU-vs-CPU; 4-slot
+     paged and contiguous f16 engines GPU-vs-CPU (`f16_paged`,
+     `f16_contiguous`); an OLMo-2 contiguous f16 engine and K8 on an f16
+     cache refused with NotImplementedError (`f16_refusals`); the
+     TinyLlama Q4_K_M generate over an f16 cache (`main_path`, kv_dtype
+     float16: the bf16 path's counts, every K2 and K6 launch in its f16
+     form, `f16_launches`); `serve_f16` and `serve_contig_f16`, the same
+     server over f16 pages (K9/K10) and an f16 stripe (K2/K6); and
+     `kernel_f16`: each f16 form against its plain version (f32 and bf16 q,
+     nmse <= 1e-6), timed beside its bound, plain version and SDPA on the
+     same f16 K/V, at the bf16 rows' shapes, and K9/K10 at Qwen2.5's G 6,
+     d 128 in bf16 and f16.
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M and IQ4_XS, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -575,23 +592,27 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
 
 
 def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMALL,
-                      env: dict | None = None, kernels: dict | None = None, must=()):
+                      env: dict | None = None, kernels: dict | None = None, must=(),
+                      kv_dtype=None):
     """Kernels on the GPU vs plain versions on the CPU, same model, same
     tokens fed to both (teacher forcing), logits compared each step; `env`
     set on both sides, and each kernel named in `must` launched on the
-    GPU."""
+    GPU (over a `kv_dtype` cache, bf16 by default: with float16, every
+    launch of them in its f16 form)."""
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.generate import Generator
 
     path, _ = gguf_file(name, shape, ftype)
+    kv_dtype = kv_dtype or torch.bfloat16
     runs = {}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
-        gen = Generator(m, max_len=256, prefill_chunk=16)
+        gen = Generator(m, max_len=256, prefill_chunk=16, kv_dtype=kv_dtype)
         runs[dev] = (m, gen)
     ids = prompt_ids(runs["cpu"][0].tokenizer, 40)
     cpu_gen, gpu_gen = runs["cpu"][1], runs["cuda"][1]
     before = {n: kernels[n].launches for n in must}
+    before16 = {n: getattr(kernels[n], "f16_launches", 0) for n in must}
     with mock.patch.dict(os.environ, env or {}):
         cpu_logits = [cpu_gen.prefill(ids).float()]
         steps = [gpu_gen.prefill(ids).float().cpu()]
@@ -601,10 +622,12 @@ def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMAL
             steps.append(gpu_gen._decode_one(tok, len(ids) + i).float().cpu())
             tok = int(torch.argmax(cpu_logits[-1]))
     launched = {n: kernels[n].launches - before[n] for n in must}
+    launched16 = {n: getattr(kernels[n], "f16_launches", 0) - before16[n] for n in must}
     errs = [nmse(a, b) for a, b in zip(steps, cpu_logits)]
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b)) for a, b in zip(steps, cpu_logits))
     tol = 1e-3
     res = {"phase": "small_model_gpu_vs_cpu", "ftype": ftype, "shape": shape, "env": env or {},
+           "kv_dtype": str(kv_dtype)[6:], "gpu_f16_launches": launched16,
            "logits_nmse_max": max(errs), "logits_nmse_by_step": errs, "tolerance": tol, "argmax_agree": f"{agree}/{len(errs)}",
            "finite": all(bool(torch.isfinite(a).all()) for a in steps), "gpu_launches": launched}
     emit(res)
@@ -612,6 +635,8 @@ def small_model_check(torch, ftype: str, name: str = "small", shape: dict = SMAL
         fail(f"small-model GPU logits disagree with the CPU plain path: {res}")
     if not all(launched.values()):
         fail(f"small-model GPU run did not launch {must}: {res}")
+    if kv_dtype == torch.float16 and launched16 != launched:
+        fail(f"small-model GPU run over an f16 cache launched a form other than f16: {res}")
 
 
 def main_shapes() -> dict:
@@ -624,12 +649,26 @@ def main_shapes() -> dict:
             "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry")}
 
 
+def f16_counts(kernels: dict, zero: bool = False) -> dict:
+    """The f16-form launch counters of the kernels that have one (K2, K6,
+    K9, K10), set to 0 first when `zero`."""
+    out = {}
+    for name, fn in kernels.items():
+        if hasattr(fn, "f16_launches"):
+            if zero:
+                fn.f16_launches = 0
+            out[name] = fn.f16_launches
+    return out
+
+
 def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama",
-              new_tokens: int = NEW_TOKENS):
+              new_tokens: int = NEW_TOKENS, kv_dtype=None, model=None):
     """Load the `name` model of main_shapes() (TinyLlama, OLMo-2-0425-1B,
-    Qwen3-1.7B or Qwen2.5-1.5B geometry), warm up, then one generate of
+    Qwen3-1.7B or Qwen2.5-1.5B geometry; or take `model`, already loaded
+    from that file), warm up, then one generate of
     `new_tokens` with the launch counters set to 0 just before and read
-    just after;
+    just after, over a `kv_dtype` cache (bf16 by default; float16 for the
+    f16 path, whose K2 and K6 launches must all take their f16 forms);
     `want(cfg, n_steps, n_chunks)` gives the expected counts; then the last
     decode step's device time from a CUDA graph (`step_graph_ms`) and, run
     eagerly, its CUDA kernels by name (`step_profile`).  Returns
@@ -640,13 +679,16 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     from zllm_torch.runtime.generate import Generator
 
     shape, label = main_shapes()[name]
-    path, t_gguf = gguf_file(name, shape, ftype)
-    t0 = time.perf_counter()
-    model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    t_load = time.perf_counter() - t0
+    kv_dtype = kv_dtype or torch.bfloat16
+    t_gguf = t_load = 0.0
+    if model is None:
+        path, t_gguf = gguf_file(name, shape, ftype)
+        t0 = time.perf_counter()
+        model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
     cfg = model.cfg
-    gen = Generator(model, max_len=MAX_LEN, prefill_chunk=CHUNK)
+    gen = Generator(model, max_len=MAX_LEN, prefill_chunk=CHUNK, kv_dtype=kv_dtype)
     ids = prompt_ids(model.tokenizer, PROMPT_TOKENS)
 
     gen.generate(ids[:CHUNK + 8], max_new=4)  # warm-up: both chunk shapes, decode
@@ -655,9 +697,12 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
         fn.launches = 0
     k6 = kernels["flash_attention"]
     k6.mma_launches = 0
+    f16_counts(kernels, zero=True)
     res = gen.generate(ids, max_new=new_tokens)
     counts = {name: fn.launches for name, fn in kernels.items()}
     k6_mma = k6.mma_launches
+    f16 = f16_counts(kernels)
+    f16_expected = {n: counts[n] if kv_dtype == torch.float16 else 0 for n in f16}
     n_chunks = -(-PROMPT_TOKENS // CHUNK)
     n_steps = len(res.tokens) - 1
     expected = want(cfg, n_steps, n_chunks)
@@ -675,21 +720,25 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     step_ms = cuda_ms(step, 20)
     profile_ = step_profile(torch, step)
     emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
-          "shape": shape, "dtype": "bfloat16", "prompt_tokens": PROMPT_TOKENS,
+          "shape": shape, "dtype": "bfloat16", "kv_dtype": str(kv_dtype)[6:],
+          "prompt_tokens": PROMPT_TOKENS,
           "prefill_chunks": n_chunks, "new_tokens": len(res.tokens),
           "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
           "launches": counts, "launches_expected": expected,
-          "flash_attention_mma_launches": k6_mma, "step_graph_ms": step_ms,
+          "flash_attention_mma_launches": k6_mma, "f16_launches": f16,
+          "f16_launches_expected": f16_expected, "step_graph_ms": step_ms,
           "step_profile": profile_, "card": card})
     if n_steps != new_tokens - 1:
         fail(f"{ftype}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
         fail(f"{ftype}: kernel launch counts {counts} != expected {expected}")
-    if k6_mma != counts["flash_attention"]:  # the Generator's bf16 cache
+    if k6_mma != counts["flash_attention"]:  # the Generator's bf16 or f16 cache
         fail(f"{ftype}: {k6_mma} of {counts['flash_attention']} K6 launches took the "
              "tensor-core form")
+    if f16 != f16_expected:
+        fail(f"{ftype} ({kv_dtype} KV): f16-form launches {f16} != expected {f16_expected}")
     if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
         fail(f"{ftype}: main-path logits are not finite or have the wrong shape")
     return model, counts, gen, ids, res.tokens, step_ms
@@ -772,6 +821,12 @@ SMALL_ENGINE_LAYOUTS = {
     "qwen2_paged": ("small_qwen2", "Q4_K_M", dict(kv_dtype="f32"),
                     ("paged_attention", "paged_attn_decode_update")),
     "qwen2_q8": ("small_qwen2", "Q4_K_M", dict(kv_dtype="q8"), ("flash_attention_blockwise",)),
+    # the f16 cache (`--kv-type f16`), 4 slots: K9/K10 and K2/K6 in their f16
+    # forms, every launch of them
+    "f16_paged": ("small", "Q4_K_M", dict(kv_dtype="f16", n_slots=4),
+                  ("paged_attention", "paged_attn_decode_update")),
+    "f16_contiguous": ("small", "Q4_K_M", dict(kv_dtype="f16", kv_layout="contiguous",
+                                               n_slots=4), ("attn_decode_qkv", "flash_attention")),
 }
 # the chat prompt a BPE-vocab engine check sends in a wave of its own after
 # the others, and whose streamed text (the IncrementalDecoder's pieces) it
@@ -824,7 +879,8 @@ def small_engine_check(torch, kernels: dict, layout: str):
     streamed = {}
     must_not = [n for n in ATTENTION_KERNELS if n not in must]
     kw = dict(dict(n_slots=2), **kw)
-    kw["kv_dtype"] = torch.float32 if kw["kv_dtype"] == "f32" else kw["kv_dtype"]
+    kw["kv_dtype"] = {"f32": torch.float32, "f16": torch.float16}.get(kw["kv_dtype"],
+                                                                      kw["kv_dtype"])
     runs, logits = {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         m = Model.load(str(path), device=dev, dtype=torch.float32)
@@ -845,6 +901,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
 
         eng._sample_and_emit = record
         before = {name: fn.launches for name, fn in kernels.items()}
+        before16 = f16_counts(kernels)
         eng.start()
         try:
             got = []
@@ -862,8 +919,10 @@ def small_engine_check(torch, kernels: dict, layout: str):
         if dev == "cuda":
             torch.cuda.synchronize()
         runs[dev] = (got, {k: eng.metrics[k] for k in ENGINE_COUNTERS},
-                     {name: fn.launches - before[name] for name, fn in kernels.items()})
-    (g_got, g_cnt, g_k), (c_got, c_cnt, _) = runs["cuda"], runs["cpu"]
+                     {name: fn.launches - before[name] for name, fn in kernels.items()},
+                     {name: n - before16[name] for name, n in f16_counts(kernels).items()})
+    (g_got, g_cnt, g_k, g_16), (c_got, c_cnt, *_) = runs["cuda"], runs["cpu"]
+    want16 = {n: g_k[n] if kw["kv_dtype"] == torch.float16 else 0 for n in g_16}
     per_req, bad = [], []
     for (prompt, g_toks, *_), (_, c_toks, *_) in zip(g_got, c_got):
         g_rows, c_rows = logits["cuda"][prompt], logits["cpu"][prompt]
@@ -902,7 +961,8 @@ def small_engine_check(torch, kernels: dict, layout: str):
            "tie_gap_limit": TIE_GAP if layout in TIE_LAYOUTS else 0.0,
            "counters_equal": g_cnt == c_cnt, "counters": g_cnt,
            "n_prompt_reused": [r[3] for r in g_got], "gpu_launches": g_k,
-           "gpu_launches_expected": want, "chat_prompt": CHAT_PROMPT if bpe else "",
+           "gpu_launches_expected": want, "gpu_f16_launches": g_16,
+           "gpu_f16_launches_expected": want16, "chat_prompt": CHAT_PROMPT if bpe else "",
            "chat_streamed_pieces": streamed.get("cuda", [])}
     emit(res)
     if any(r[4] for r in g_got + c_got):
@@ -914,7 +974,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
              f"{g_cnt} / {c_cnt}")
     # the re-send reuses 128 (a whole page) or, contiguous, its 130 tokens
     if g_got[3][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not) \
-            or any(g_k[n] != c for n, c in want.items()):
+            or any(g_k[n] != c for n, c in want.items()) or g_16 != want16:
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
 
@@ -922,7 +982,9 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
                 kv_layout: str = "auto") -> dict:
     """The serving main path: ZllmServer (defaults; `kv_dtype="q8"` for the
     q8 KV cache, whose auto layout is the contiguous one; `kv_layout=
-    "contiguous"` for the bf16 contiguous stripe) over the TinyLlama-geometry
+    "contiguous"` for the bf16 contiguous stripe; `kv_dtype=torch.float16`
+    for the f16 cache on either layout, `--kv-type f16`, whose K9/K10 or
+    K2/K6 launches must all take their f16 forms) over the TinyLlama-geometry
     Q4_K_M model on a local port.  Warm up, set the launch counts to 0, then
     the traffic; the counts must match the engine's own step counters
     exactly.  Returns the counts."""
@@ -930,8 +992,9 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     from zllm_torch.server.http import ZllmServer
 
     q8 = kv_dtype == "q8"
+    f16 = kv_dtype == torch.float16
     contig = kv_layout == "contiguous" and not q8
-    phase = "serve_q8" if q8 else "serve_contig" if contig else "serve"
+    phase = ("serve_q8" if q8 else "serve_contig" if contig else "serve") + ("_f16" if f16 else "")
     # the mixed steps' attention must take the tensor-core loop (bf16 pools;
     # int8 codes at 1024 query rows a kv head; K6's bf16 form over the
     # contiguous stripe), counted apart on its wrapper
@@ -959,6 +1022,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         for fn in kernels.values():
             fn.launches = 0
         mma_fn.mma_launches = 0
+        f16_counts(kernels, zero=True)
         m0 = dict(eng.metrics)
         ttft0 = (eng.hist_ttft.total, eng.hist_ttft.n)
 
@@ -992,6 +1056,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in kernels.items()}
         mma = mma_fn.mma_launches
+        f16_got = f16_counts(kernels)
         m1 = dict(eng.metrics)
     finally:
         srv.shutdown()
@@ -1017,15 +1082,17 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     kv_bytes = sum(x.numel() * x.element_size()
                    for name in (("k", "v", "ks", "vs") if q8 else ("k", "v"))
                    for x in getattr(kv, name))
-    layout = {"kv_layout": "paged", "kv_dtype": "bfloat16", "page_size": eng.alloc.ps} if (
+    kv_name = "float16" if f16 else "bfloat16"
+    layout = {"kv_layout": "paged", "kv_dtype": kv_name, "page_size": eng.alloc.ps} if (
         eng.paged) else {"kv_layout": "contiguous", "kv_slots": kv.max_len, "kv_dtype":
-                         "q8 (int8 codes + f32 scales)" if q8 else "bfloat16"}
+                         "q8 (int8 codes + f32 scales)" if q8 else kv_name}
     bf16_bytes = 2 * L * eng.n_slots * model.cfg.n_kv_heads * (
         eng.max_len if eng.paged else kv.max_len) * model.cfg.head_dim * 2
     finishes = [r["choices"][0]["finish_reason"] for r in
                 (*results.values(), resend, *sequential.values())] + [chat_finish]
     same = all(results[n]["choices"][0]["text"] == sequential[n]["choices"][0]["text"]
                for n in SERVE_PROMPT_BYTES)
+    f16_want = {n: counts[n] if f16 else 0 for n in f16_got}
     emit({"phase": phase,
           "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
           "dtype": "bfloat16", **layout, "n_slots": eng.n_slots,
@@ -1037,7 +1104,8 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
           "ttft_mean_s": ttft_mean, "ttft_n": ttft_n, "prefix_reused_after_resend": reused,
           "concurrent_equals_sequential": same, "finish_reasons": finishes,
           "engine_counters": steps, "launches": counts, "launches_expected": expected,
-          "mma_launches": mma, "mma_launches_expected": L * pre, "card": card})
+          "mma_launches": mma, "mma_launches_expected": L * pre, "f16_launches": f16_got,
+          "f16_launches_expected": f16_want, "card": card})
     if steps["engine_errors_total"] or m1["engine_errors_total"] or "error" in finishes \
             or "" in finishes:
         fail(f"{phase}: engine errors {steps['engine_errors_total']}, finishes {finishes}")
@@ -1052,6 +1120,8 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         fail(f"{phase}: kernel launch counts {counts} != expected {expected}")
     if mma != L * pre:
         fail(f"{phase}: {mma} of the {L * pre} mixed-step attentions took the tensor-core loop")
+    if f16_got != f16_want:
+        fail(f"{phase}: f16-form launches {f16_got} != expected {f16_want}")
     return dict(counts, mma_launches=mma)
 
 
@@ -1220,6 +1290,414 @@ def tokenizer_roundtrip(card: str):
 # slice: (weights a block, block bytes, offsets of the fp16 scales); the
 # nibble formats go to K1/K3, the others to K4/K5 (MXFP4: its exponent byte
 # at 0, drawn from [115, 135))
+def _paged_table(torch, n_slots: int, lp: int, seed: int):
+    """A page table [n_slots, lp + 1] of scrambled pages 1 .. n_slots * lp
+    (physical != logical), the last column pinned to the trash page 0."""
+    perm = torch.randperm(n_slots * lp, generator=torch.Generator().manual_seed(seed)) + 1
+    table = torch.zeros((n_slots, lp + 1), dtype=torch.int32)
+    table[:, :lp] = perm.reshape(n_slots, lp).to(torch.int32)
+    return table.to("cuda")
+
+
+def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -> dict:
+    """The f16 forms of K2, K6, K9 and K10 against their plain versions on
+    the card, at the shapes of their bf16 rows in the `kernel` lines
+    (TinyLlama geometry `cfg`): K2 at a decode step (22 layers, pos 331),
+    at a contiguous engine step (B 4, S 2176, a trash row) and in the
+    per-head q/k-norm form at Qwen3-1.7B's heads (`cfg_q3`: 28 layers, 16 /
+    8 of 128); K6 at a prefill chunk (the second, from 256); K9 at a serve
+    decode step and K10 at a serve mixed step (4 slots, 16 pages of 128, a
+    scrambled table, rows at 255, 0, 300 and a trash row; chunk 128 from 0,
+    256, 300); and K9 and K10 at Qwen2.5-1.5B's heads (`cfg_q25`: 28
+    layers, 12 / 2 of 128) in bf16 and in f16.  Each: device ms from
+    CUDA-graph replay over the step's layers, the plain version's, SDPA's
+    on the same f16 K/V (q cast to f16, roped outside the timing for K2),
+    the bound (the bf16 rows' bytes and operations: an f16 element is two
+    bytes too), and nmse and max |error| against the plain version with an
+    f32 q (the paths' dtype) and with a bf16 q; the caches or pools after
+    the insert against the plain version's.  `step_ms`: the f16 and bf16
+    Q4_K_M decode steps' `step_graph_ms`.  Returns the phase's line."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import rope_apply_table, rope_table
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def randn(*shape_, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape_, generator=g, device="cuda") * scale).to(dtype)
+
+    def agree(a, b):
+        a, b = a.float(), b.float()
+        return dict(nmse=nmse(a, b), max_abs_err=float((a - b).abs().max()))
+
+    def k2_case(n_layers, b, hq, hkv, d, s, pos_vals, rope_p, eps, norms=False, cdtype=f16):
+        qkv3 = randn(b, hq + 2 * hkv, d)
+        kcs = [randn(b, hkv, s, d, dtype=cdtype) for _ in range(n_layers)]
+        vcs = [randn(b, hkv, s, d, dtype=cdtype) for _ in range(n_layers)]
+        pos = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")
+        rope = rope_table(pos, rope_p, d)
+        qw, kw = (randn(d, scale=0.1) + 1.0, randn(d, scale=0.1) + 1.0) if norms else (None, None)
+        kw_ = dict(scale=d ** -0.5, eps=eps)
+        chk = {}
+        for qn, qd in (("f32_q", torch.float32), ("bf16_q", bf16)):
+            ka, va, kb, vb = (x.clone() for x in (kcs[0], vcs[0], kcs[0], vcs[0]))
+            a = att.attn_decode_qkv(qkv3.to(qd), ka, va, pos, rope, qw, kw, **kw_)
+            b_ = att.attn_decode_qkv_plain(qkv3.to(qd), kb, vb, pos, rope, qw, kw, **kw_)
+            chk[qn] = dict(agree(a, b_), v_cache_equal=bool(torch.equal(va, vb)),
+                           k_cache_nmse=nmse(ka.float(), kb.float()))
+
+        def run(fn):
+            def go():
+                for kc, vc in zip(kcs, vcs):
+                    fn(qkv3, kc, vc, pos, rope, qw, kw, **kw_)
+            return go
+
+        qr = rope_apply_table(qkv3[:, :hq].float(), rope).to(cdtype)[:, :, None]
+        mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None]).reshape(-1, 1, 1, s)
+
+        def lib():
+            for kc, vc in zip(kcs, vcs):
+                F.scaled_dot_product_attention(qr, kc, vc, attn_mask=mask, scale=d ** -0.5,
+                                               enable_gqa=True)
+
+        seen = sum(min(p_ + 1, s) for p_ in pos_vals)
+        nbytes = n_layers * (2 * hkv * seen * d * 2 + qkv3.numel() * 4 + b * hq * d * 4)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq * seen * d, "bf16")
+        return dict(ms=cuda_ms(run(att.attn_decode_qkv), 20),
+                    plain_ms=cuda_ms(run(att.attn_decode_qkv_plain), 2),
+                    library_ms=cuda_ms(lib, 20), bound_ms=bms, bound_by=bby, **chk["f32_q"],
+                    bf16_q=chk["bf16_q"], launches=n_layers,
+                    shapes=f"qkv3 [{b},{hq + 2 * hkv},{d}] f32, cache [{b},{hkv},{s},{d}] "
+                           f"{str(cdtype)[6:]}, pos {pos_vals}{', q/k norms' if norms else ''}, "
+                           f"{n_layers} layers")
+
+    def k6_case(n_layers, t, hq, hkv, d, s, starts, cdtype=f16):
+        b = len(starts)
+        pos = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+               + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+        q = randn(b, t, hq, d)
+        kvs = [(randn(b, hkv, s, d, dtype=cdtype), randn(b, hkv, s, d, dtype=cdtype))
+               for _ in range(n_layers)]
+        kw_ = dict(scale=d ** -0.5)
+        chk = {qn: agree(att.flash_attention(q.to(qd), *kvs[0], pos, **kw_),
+                         att.flash_attention_plain(q.to(qd), *kvs[0], pos, **kw_))
+               for qn, qd in (("f32_q", torch.float32), ("bf16_q", bf16))}
+
+        def run(fn):
+            def go():
+                for k_, v_ in kvs:
+                    fn(q, k_, v_, pos, **kw_)
+            return go
+
+        qh = q.to(cdtype).transpose(1, 2)
+        mask = (torch.arange(s, device="cuda")[None, None, :] <= pos[:, :, None]).reshape(
+            b, 1, t, s)
+
+        def lib():
+            for k_, v_ in kvs:
+                F.scaled_dot_product_attention(qh, k_, v_, attn_mask=mask, enable_gqa=True, **kw_)
+
+        seen = sum(min(p_ + t - 1, s - 1) + 1 for p_ in starts)
+        pairs = sum(min(p_ + i, s - 1) + 1 for p_ in starts for i in range(t))
+        nbytes = n_layers * (2 * q.numel() * 4 + 2 * hkv * seen * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq * d * pairs, "bf16")
+        return dict(ms=cuda_ms(run(att.flash_attention), 10),
+                    plain_ms=cuda_ms(run(att.flash_attention_plain), 2),
+                    library_ms=cuda_ms(lib, 10), bound_ms=bms, bound_by=bby, **chk["f32_q"],
+                    bf16_q=chk["bf16_q"], launches=n_layers,
+                    shapes=f"q [{b},{t},{hq},{d}] f32 from {starts}, k/v [{b},{hkv},{s},{d}] "
+                           f"{str(cdtype)[6:]}, {n_layers} layers")
+
+    # the serving path's pages: 4 slots, 16 logical pages of 128, a scrambled table
+    n_slots, ps, lp = 4, 128, MAX_LEN // 128
+    horizon = lp * ps
+    table = _paged_table(torch, n_slots, lp, 2)
+    rows = (table[:, :lp].long()[:, torch.arange(horizon, device="cuda") // ps] * ps
+            + torch.arange(horizon, device="cuda") % ps).reshape(-1)
+
+    def gathered(pool, hkv, d):  # [B, Hkv, S, D] through the table (outside any timing)
+        return pool[:, rows].reshape(hkv, n_slots, horizon, d).transpose(0, 1)
+
+    def k9_case(n_layers, hq, hkv, d, cdtype=f16):
+        pools = [(randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cdtype),
+                  randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cdtype)) for _ in range(n_layers)]
+        pos = torch.tensor([[255], [0], [300], [horizon]], dtype=torch.int32, device="cuda")
+        q, kn, vn = randn(n_slots, 1, hq, d), randn(n_slots, 1, hkv, d), randn(n_slots, 1, hkv, d)
+        kw_ = dict(page_size=ps, scale=d ** -0.5)
+        live = pos[:, 0] < horizon
+        chk = {}
+        for qn, qd in (("f32_q", torch.float32), ("bf16_q", bf16)):
+            ka, va, kb, vb = (x.clone() for x in (*pools[0], *pools[0]))
+            a = att.paged_attn_decode_update(q.to(qd), kn.to(qd), vn.to(qd), ka, va, table, pos,
+                                             **kw_)
+            b_ = att.paged_attn_decode_update_plain(q.to(qd), kn.to(qd), vn.to(qd), kb, vb,
+                                                    table, pos, **kw_)
+            chk[qn] = dict(agree(a[live], b_[live]),
+                           pools_equal=bool(torch.equal(ka, kb) and torch.equal(va, vb)))
+
+        def run(fn):
+            def go():
+                for kp_, vp_ in pools:
+                    fn(q, kn, vn, kp_, vp_, table, pos, **kw_)
+            return go
+
+        kg = [(gathered(kp_, hkv, d), gathered(vp_, hkv, d)) for kp_, vp_ in pools]
+        qh = q.to(cdtype).transpose(1, 2)
+        mask = (torch.arange(horizon, device="cuda")[None, :] <= pos).reshape(n_slots, 1, 1,
+                                                                                horizon)
+
+        def lib():
+            for k_, v_ in kg:
+                F.scaled_dot_product_attention(qh, k_, v_, attn_mask=mask, scale=d ** -0.5,
+                                               enable_gqa=True)
+
+        read = sum(min(int(p_), horizon - 1) + 1 for p_ in pos[:, 0].tolist())
+        nbytes = n_layers * (2 * hkv * read * d * 2 + (q.numel() + 2 * kn.numel()) * 4
+                             + q.numel() * 4 + 2 * int(live.sum()) * hkv * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq * read * d, "bf16")
+        out = dict(ms=cuda_ms(run(att.paged_attn_decode_update), 20),
+                   plain_ms=cuda_ms(run(att.paged_attn_decode_update_plain), 2),
+                   library_ms=cuda_ms(lib, 20), bound_ms=bms, bound_by=bby, **chk["f32_q"],
+                   bf16_q=chk["bf16_q"], launches=n_layers,
+                   shapes=f"q [{n_slots},1,{hq},{d}] f32, pools [{hkv},{(n_slots * lp + 1) * ps},"
+                          f"{d}] {str(cdtype)[6:]}, table scrambled, pos "
+                          f"{pos[:, 0].tolist()}, {n_layers} layers")
+        del kg
+        return out
+
+    def k10_case(n_layers, hq, hkv, d, cdtype=f16):
+        pools = [(randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cdtype),
+                  randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cdtype)) for _ in range(n_layers)]
+        t = 128
+        pos = (torch.tensor([0, 256, 300, horizon], dtype=torch.int32, device="cuda")[:, None]
+               + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+        q = randn(n_slots, t, hq, d)
+        kw_ = dict(page_size=ps, scale=d ** -0.5)
+        live = pos[:, 0] < horizon
+        chk = {qn: agree(att.paged_attention(q.to(qd), *pools[0], table, pos, **kw_)[live],
+                         att.paged_attention_plain(q.to(qd), *pools[0], table, pos, **kw_)[live])
+               for qn, qd in (("f32_q", torch.float32), ("bf16_q", bf16))}
+
+        def run(fn):
+            def go():
+                for kp_, vp_ in pools:
+                    fn(q, kp_, vp_, table, pos, **kw_)
+            return go
+
+        kg = [(gathered(kp_, hkv, d), gathered(vp_, hkv, d)) for kp_, vp_ in pools]
+        qh = q.to(cdtype).transpose(1, 2)
+        mask = (torch.arange(horizon, device="cuda")[None, None, :] <= pos[:, :, None]).reshape(
+            n_slots, 1, t, horizon)
+
+        def lib():
+            for k_, v_ in kg:
+                F.scaled_dot_product_attention(qh, k_, v_, attn_mask=mask, scale=d ** -0.5,
+                                               enable_gqa=True)
+
+        reads = sum(min(int(p_) + t - 1, horizon - 1) + 1 for p_ in pos[:, 0].tolist())
+        pairs = sum(min(int(p_) + i, horizon - 1) + 1 for p_ in pos[:, 0].tolist()
+                    for i in range(t))
+        nbytes = n_layers * (2 * q.numel() * 4 + 2 * hkv * reads * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq * pairs * d, "bf16")
+        out = dict(ms=cuda_ms(run(att.paged_attention), 10),
+                   plain_ms=cuda_ms(run(att.paged_attention_plain), 2),
+                   library_ms=cuda_ms(lib, 10), bound_ms=bms, bound_by=bby, **chk["f32_q"],
+                   bf16_q=chk["bf16_q"], launches=n_layers,
+                   shapes=f"q [{n_slots},{t},{hq},{d}] f32 from {pos[:, 0].tolist()}, pools "
+                          f"[{hkv},{(n_slots * lp + 1) * ps},{d}] {str(cdtype)[6:]}, table "
+                          f"scrambled, {n_layers} layers")
+        del kg
+        return out
+
+    L, hq, hkv, d = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos_step = PROMPT_TOKENS + NEW_TOKENS - 1
+    q25 = (cfg_q25.n_layers, cfg_q25.n_heads, cfg_q25.n_kv_heads, cfg_q25.head_dim)
+    before16 = f16_counts({n: getattr(att, n) for n in (
+        "attn_decode_qkv", "flash_attention", "paged_attn_decode_update", "paged_attention")})
+    forms = {
+        "attn_decode_qkv": {
+            "tinyllama_step": k2_case(L, 1, hq, hkv, d, MAX_LEN, [pos_step], cfg.rope,
+                                      cfg.norm_eps),
+            "tinyllama_engine_step": k2_case(L, 4, hq, hkv, d, MAX_LEN + 128,
+                                             [255, 0, 300, MAX_LEN + 128], cfg.rope, cfg.norm_eps),
+            "qwen3_qk_norm_step": k2_case(cfg_q3.n_layers, 1, cfg_q3.n_heads, cfg_q3.n_kv_heads,
+                                          cfg_q3.head_dim, MAX_LEN, [pos_step], cfg_q3.rope,
+                                          cfg_q3.norm_eps, norms=True)},
+        "flash_attention": {"tinyllama_chunk": k6_case(L, CHUNK, hq, hkv, d, MAX_LEN, [CHUNK])},
+        "paged_attn_decode_update": {
+            "serve_decode_step": k9_case(L, hq, hkv, d),
+            "qwen25_g6_d128_bf16": k9_case(*q25, cdtype=bf16),
+            "qwen25_g6_d128_f16": k9_case(*q25)},
+        "paged_attention": {
+            "serve_mixed_step": k10_case(L, hq, hkv, d),
+            "qwen25_g6_d128_bf16": k10_case(*q25, cdtype=bf16),
+            "qwen25_g6_d128_f16": k10_case(*q25)}}
+    after16 = f16_counts({n: getattr(att, n) for n in before16})
+    tol = 1e-6
+    bad = [f"{name} {case} {qn}" for name, cases in forms.items() for case, r in cases.items()
+           for qn, x in (("f32_q", r), ("bf16_q", r["bf16_q"])) if not x["nmse"] <= tol]
+    bad += [f"{name} {case}: cache or pools differ" for name, cases in forms.items()
+            for case, r in cases.items()
+            for x in (r, r["bf16_q"]) if not x.get("v_cache_equal", True)
+            or not x.get("pools_equal", True) or not x.get("k_cache_nmse", 0.0) <= 1e-9]
+    line = {"phase": "kernel_f16", "card": card, "tolerance": tol,
+            "step_graph_ms": step_ms, "f16_form_launches": {
+                n: after16[n] - before16[n] for n in after16}, **forms,
+            "note": "device ms a step's layers from CUDA-graph replay; bound: the bf16 rows' bytes "
+                    "(two bytes an f16 K/V element) and operations over the bf16 tensor-core "
+                    "peak; library: scaled_dot_product_attention on the same f16 K/V, q cast to "
+                    "f16; the G 6, d 128 rows (Qwen2.5-1.5B's heads) in bf16 and f16"}
+    emit(line)
+    if bad:
+        fail(f"f16 forms disagree with their plain versions: {bad}")
+    return line
+
+
+def f16_refusals(torch, card: str):
+    """What has no f16 form yet raises a typed NotImplementedError on the
+    card and runs nothing: an OLMo-2 engine over a contiguous f16 cache
+    (its decode kernel is K8) and K8 itself on an f16 cache."""
+    from zllm_torch.models.loader import Model
+    from zllm_torch.ops import attention as att
+    from zllm_torch.server.engine import Engine
+
+    path, _ = gguf_file("small_olmo2", SMALL_OLMO2, "Q4_K_M")
+    m = Model.load(str(path), device="cuda", dtype=torch.float32)
+    got = {}
+    try:
+        Engine(m, n_slots=2, max_len=256, prefill_chunk=16, kv_dtype=torch.float16,
+               kv_layout="contiguous")
+        got["olmo2_contiguous_f16_engine"] = "served"
+    except NotImplementedError as err:
+        got["olmo2_contiguous_f16_engine"] = f"NotImplementedError: {err}"
+    q = torch.randn(1, 1, 16, 128, device="cuda")
+    kn, vn = torch.randn(1, 1, 16, 128, device="cuda"), torch.randn(1, 1, 16, 128, device="cuda")
+    kc = torch.zeros(1, 16, 256, 128, dtype=torch.float16, device="cuda")
+    vc = torch.zeros_like(kc)
+    before = att.attn_decode_update.launches
+    try:
+        att.attn_decode_update(q, kn, vn, kc, vc, torch.tensor([[5]], dtype=torch.int32,
+                                                                device="cuda"), scale=0.09)
+        got["k8_f16_cache"] = "launched"
+    except NotImplementedError as err:
+        got["k8_f16_cache"] = f"NotImplementedError: {err}"
+    torch.cuda.synchronize()
+    untouched = att.attn_decode_update.launches == before and not bool(kc.any() or vc.any())
+    emit({"phase": "f16_refusals", **got, "k8_cache_untouched": untouched, "card": card})
+    if not all(v.startswith("NotImplementedError") for v in got.values()) or not untouched:
+        fail(f"an f16 form that is not ported ran or fell back: {got}, untouched {untouched}")
+
+
+def attention_digests(torch) -> dict:
+    """Digests of the outputs (and the caches or pools after an insert) of
+    the attention kernels' bf16 and f32 forms, and K7's bf16 and int8 ones,
+    on seeded inputs at their main paths' shapes: K2 at an engine step (B 4,
+    S 2176: a multi-chunk row, position 0, a trash row) with f32 and bf16
+    q, and at Qwen3's q/k-norm form (d 128); K6 at a mixed step (T 128,
+    rows from 0, 256, 300, 2048) and at an OLMo-2 chunk (d 128); K8 at an
+    engine step and at OLMo-2's (d 128); K9 at a serve decode step and K10
+    at a serve mixed step (4 slots, 16 pages of 128, a scrambled table), at
+    d 64 and at G 6, d 128; K7 at the q8 decode and mixed steps, int8
+    codes with f32 scales and bf16 K/V.  Each form's caches are f32 and
+    bf16 (K7: int8 and bf16).  Equal digests on two trees mean bit-equal
+    outputs."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import RopeParams, rope_table
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape_, dtype=f32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def h(*xs) -> str:
+        d = hashlib.sha256()
+        for x in xs:
+            d.update(x.float().cpu().numpy().tobytes())
+        return d.hexdigest()[:16]
+
+    s2 = MAX_LEN + 128
+    out = {}
+    for cname, cd in (("f32", f32), ("bf16", bf16)):
+        # K2
+        res = []
+        for b, hq, hkv, d, pos_vals, norms in ((4, 32, 4, 64, [1500, 0, s2, 255], False),
+                                                 (1, 16, 8, 128, [331], True)):
+            pos = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")
+            rope = rope_table(pos, RopeParams(dim=d, style="neox"), d)
+            qkv3 = randn(b, hq + 2 * hkv, d)
+            qw, kw = (randn(d), randn(d)) if norms else (None, None)
+            for qd in (f32, bf16):
+                kc, vc = randn(b, hkv, s2, d, dtype=cd), randn(b, hkv, s2, d, dtype=cd)
+                o = att.attn_decode_qkv(qkv3.to(qd), kc, vc, pos, rope, qw, kw, scale=d ** -0.5)
+                res.append(h(o, kc, vc))
+        out[f"attn_decode_qkv {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
+        # K6
+        res = []
+        for b, t, hq, hkv, d, starts in ((4, 128, 32, 4, 64, [0, 256, 300, MAX_LEN]),
+                                         (1, CHUNK, 16, 16, 128, [CHUNK])):
+            pos = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+                   + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+            k, v = randn(b, hkv, s2, d, dtype=cd), randn(b, hkv, s2, d, dtype=cd)
+            for qd in (f32, bf16):
+                res.append(h(att.flash_attention(randn(b, t, hq, d, dtype=qd), k, v, pos,
+                                                 scale=d ** -0.5)))
+        out[f"flash_attention {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
+        # K8
+        res = []
+        for b, hq, hkv, d, pos_vals in ((4, 32, 4, 64, [255, 0, 300, s2]),
+                                        (1, 16, 16, 128, [331])):
+            pos = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")[:, None]
+            for qd in (f32, bf16):
+                q, kn, vn = (randn(b, 1, n_, d, dtype=qd) for n_ in (hq, hkv, hkv))
+                kc, vc = randn(b, hkv, s2, d, dtype=cd), randn(b, hkv, s2, d, dtype=cd)
+                o = att.attn_decode_update(q, kn, vn, kc, vc, pos, scale=d ** -0.5)
+                res.append(h(o, kc, vc))
+        out[f"attn_decode_update {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
+        # K9 and K10
+        n_slots, ps, lp = 4, 128, MAX_LEN // 128
+        table = _paged_table(torch, n_slots, lp, 2)
+        r9, r10 = [], []
+        for hq, hkv, d in ((32, 4, 64), (12, 2, 128)):
+            kp = randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cd)
+            vp = randn(hkv, (n_slots * lp + 1) * ps, d, dtype=cd)
+            pos9 = torch.tensor([[255], [0], [300], [lp * ps]], dtype=torch.int32, device="cuda")
+            pos10 = (torch.tensor([0, 256, 300, lp * ps], dtype=torch.int32,
+                                  device="cuda")[:, None]
+                     + torch.arange(128, dtype=torch.int32, device="cuda")[None])
+            for qd in (f32, bf16):
+                r10.append(h(att.paged_attention(randn(n_slots, 128, hq, d, dtype=qd), kp, vp,
+                                                 table, pos10, page_size=ps, scale=d ** -0.5)))
+                q, kn, vn = (randn(n_slots, 1, n_, d, dtype=qd) for n_ in (hq, hkv, hkv))
+                o = att.paged_attn_decode_update(q, kn, vn, kp, vp, table, pos9, page_size=ps,
+                                                 scale=d ** -0.5)
+                r9.append(h(o, kp, vp))
+        out[f"paged_attn_decode_update {cname}"] = hashlib.sha256(
+            "".join(r9).encode()).hexdigest()[:16]
+        out[f"paged_attention {cname}"] = hashlib.sha256("".join(r10).encode()).hexdigest()[:16]
+    # K7: int8 codes with f32 scales, and bf16 K/V; the q8 decode and mixed steps
+    for kname in ("int8", "bf16"):
+        res = []
+        for t, starts in ((1, [255, 0, 300, MAX_LEN]), (128, [0, 256, 300, MAX_LEN])):
+            pos = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+                   + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+            if kname == "int8":
+                k = (randn(4, 4, s2, 64) * 40).clamp(-127, 127).to(torch.int8)
+                v = (randn(4, 4, s2, 64) * 40).clamp(-127, 127).to(torch.int8)
+                ks, vs = randn(4, 4, s2, 1).abs() * 0.01, randn(4, 4, s2, 1).abs() * 0.01
+            else:
+                k, v, ks, vs = randn(4, 4, s2, 64, dtype=bf16), randn(4, 4, s2, 64, dtype=bf16), \
+                    None, None
+            for qd in (f32, bf16):
+                res.append(h(att.flash_attention_blockwise(randn(4, t, 32, 64, dtype=qd), k, v,
+                                                           pos, scale=0.125, ks=ks, vs=vs)))
+        out[f"flash_attention_blockwise {kname}"] = hashlib.sha256(
+            "".join(res).encode()).hexdigest()[:16]
+    return out
+
+
 DIGEST_BLOCKS = {"Q4_K": (256, 144, (0, 2)), "Q4_0": (32, 18, (0,)), "Q4_1": (32, 20, (0, 2)),
                  "Q5_0": (32, 22, (0,)), "Q5_1": (32, 24, (0, 2)), "Q5_K": (256, 176, (0, 2)),
                  "Q6_K": (256, 210, (208,)), "Q8_0": (32, 34, (0,)),
@@ -1231,6 +1709,8 @@ def form_digests(torch) -> dict:
     """Digests of the outputs of the kernel forms that predate the IQ grid
     slice: K1 and K3 in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K forms, K4
     and K5 in the Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS and MXFP4 forms
+    (and, under "attention", the attention kernels' forms that predate the
+    f16 KV slice: `attention_digests`, its own random stream)
     (the low-bit ones after the others, so that those keep the digests
     they had before the low-bit ones were added), on weights of random GGUF bytes
     (every code and scale bit; fp16 scales in [0.002, 0.02)) at a TinyLlama
@@ -1276,6 +1756,7 @@ def form_digests(torch) -> dict:
             for m in (4, 256):
                 h3.update(gm(xm[k][:m], w).cpu().numpy().tobytes())
         out[fmt] = {mv.__name__: h1.hexdigest()[:16], gm.__name__: h3.hexdigest()[:16]}
+    out["attention"] = attention_digests(torch)
     return out
 
 
@@ -1317,13 +1798,14 @@ def main():
     k6_build = ptxas_entries({"flash_attn": reports.get("flash_attn", "")}, "flash_mma_kernel")
     emit({"phase": "build_attn_mma", "instantiations": mma_build + k6_build,
           "note": "registers and spills of the tensor-core attention loops: attn_mma.cuh (K7 "
-                  "multi-row, K10 bf16) and K6's two-pass form (flash_attn.cu, bf16 K/V; "
-                  "q f32/bf16 x D 64/128)" if mma_build else "not built in this run (cached)"})
+                  "multi-row, K10 bf16 and f16) and K6's two-pass form (flash_attn.cu, bf16 and "
+                  "f16 K/V; q f32/bf16 x D 64/128)" if mma_build else "not built in this run "
+                  "(cached)"})
     spills = [e for e in mma_build + k6_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the tensor-core attention loop spills: {spills}")
-    if "flash_attn" in reports and len(k6_build) != 4:
-        fail(f"flash_attn: {len(k6_build)} tensor-core instantiations built, not 4")
+    if "flash_attn" in reports and len(k6_build) != 8:
+        fail(f"flash_attn: {len(k6_build)} tensor-core instantiations built, not 8")
     slice_build = ptxas_entries(reports, "zt_slice")
     emit({"phase": "build_gemm_slice", "instantiations": slice_build,
           "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
@@ -1343,15 +1825,15 @@ def main():
           "note": "registers and spills of the one-launch cluster decode step "
                   "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
                   "K/V int8/bf16 x D 64/128), K9 (paged_decode.cu: q f32/bf16 x pools "
-                  "f32/bf16 x D 64/128) and K8 (attn_decode_update.cu: q f32/bf16 x caches "
+                  "f32/bf16/f16 x D 64/128) and K8 (attn_decode_update.cu: q f32/bf16 x caches "
                   "f32/bf16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
     spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the cluster decode step spills: {spills}")
-    for lib in ("attn_blockwise", "paged_decode", "attn_decode_update"):
+    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 12), ("attn_decode_update", 8)):
         inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
-        if lib in reports and len(inst) != 8:
-            fail(f"{lib}: {len(inst)} cluster decode instantiations built, not 8")
+        if lib in reports and len(inst) != n_inst:
+            fail(f"{lib}: {len(inst)} cluster decode instantiations built, not {n_inst}")
     # K8's clusters the card holds at once, each instantiation at its main
     # path's shape (D 128: the OLMo-2 step's 16 clusters; D 64: the
     # TinyLlama engine step's 16), beside the clusters a call launches
@@ -1384,14 +1866,34 @@ def main():
                   "IQ4/MXFP4/IQ2 (32-groups)/IQ2 (16-groups)/IQ3_XXS/IQ3_S/IQ1_S x prologue "
                   "q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one decoder, IQ2_XS and "
                   "IQ2_S another) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
-                  "f32/bf16 x D 64/128)" if any(k4k2_build.values())
+                  "f32/bf16/f16 x D 64/128)" if any(k4k2_build.values())
                   else "not built in this run (cached)"})
     spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K4 or K2 spills: {spills}")
-    for lib, n_inst in (("int8_matvec", 66), ("attn_decode", 8)):
+    for lib, n_inst in (("int8_matvec", 66), ("attn_decode", 12)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
+    # the f16 forms (an __half K/V type): K10's tensor-core loop (q f32/bf16 x D
+    # 64/128 x chunks of 64/128), K6's two passes, K9's cluster step and K2
+    # (q f32/bf16 x D 64/128 each)
+    f16_build = {lib: [e for e in ptxas_entries({lib: reports.get(lib, "")}, entry)
+                       if "__half" in e["name"]]
+                 for lib, entry in (("paged_attn", "attn_mma_kernel"),
+                                    ("flash_attn", "flash_mma_kernel"),
+                                    ("paged_decode", "decode_cluster_kernel"),
+                                    ("attn_decode", "attn_decode_qkv_kernel"))}
+    emit({"phase": "build_f16", "instantiations": f16_build,
+          "note": "registers and spills of the f16 KV forms: K10 (attn_mma.cuh), K6 "
+                  "(flash_attn.cu), K9 (decode_cluster.cuh) and K2 (attn_decode.cu)"
+                  if any(f16_build.values()) else "not built in this run (cached)"})
+    for lib, n_inst in (("paged_attn", 8), ("flash_attn", 4), ("paged_decode", 4),
+                        ("attn_decode", 4)):
+        if lib in reports and len(f16_build[lib]) != n_inst:
+            fail(f"{lib}: {len(f16_build[lib])} f16 instantiations built, not {n_inst}")
+    spills = [e for v in f16_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        fail(f"an f16 form spills: {spills}")
     k12k11_build = {lib: ptxas_entries({lib: reports.get(lib, "")}, entry)
                     for lib, entry in (("q4k_matvec_hbm", "q4k_matvec_hbm_kernel"),
                                        ("w4a8dd_matvec", "w4a8dd_kernel"))}
@@ -1456,9 +1958,15 @@ def main():
     for name in ("small_qwen3", "small_qwen2", "small_llama3"):
         small_model_check(torch, "Q4_K", name, SMALL_SHAPES[name], kernels=kernels,
                           must=("q4k_matvec", "attn_decode_qkv"))
+    # the f16 KV cache: 2-layer llama and Qwen3 (K2's q/k-norm form at d
+    # 128) files through the Generator, K2 and K6 in their f16 forms
+    for name in ("small", "small_qwen3"):
+        small_model_check(torch, "Q4_K", name, SMALL_SHAPES[name], kernels=kernels,
+                          must=("attn_decode_qkv", "flash_attention"), kv_dtype=torch.float16)
     tokenizer_roundtrip(card)
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
+    f16_refusals(torch, card)
 
     # ---- main paths at TinyLlama geometry -------------------------------
     # every T > 1 step over the contiguous cache (a prefill chunk here)
@@ -1645,6 +2153,15 @@ def main():
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
+    # the f16 KV cache (`--kv-type f16`): the Q4_K_M model's generate over an
+    # f16 cache (K2 and K6 in their f16 forms, the bf16 path's counts), then
+    # the server on the paged (K9/K10) and contiguous (K2/K6) layouts
+    _, counts_q4km16, gen_16, *_, step_m16 = main_path(torch, "Q4_K_M", kernels, want_q4km, card,
+                                                       kv_dtype=torch.float16, model=model_m)
+    del gen_16
+    counts_serve16 = serve_phase(torch, model_m, kernels, card, kv_dtype=torch.float16)
+    counts_contig16 = serve_phase(torch, model_m, kernels, card, kv_dtype=torch.float16,
+                                  kv_layout="contiguous")
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -1652,7 +2169,8 @@ def main():
              **q5_counts, **{ft.lower(): c for ft, c in lowbit_counts.items()},
              **{ft.lower(): c for ft, c in iq_counts.items()},
              "serve": counts_serve, "serve_q8": counts_q8,
-             "serve_contig": counts_contig}
+             "serve_contig": counts_contig, "Q4_K_M_f16": counts_q4km16,
+             "serve_f16": counts_serve16, "serve_contig_f16": counts_contig16}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -1927,8 +2445,8 @@ def main():
                       **{k: head6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "nmse", "max_abs_err", "tolerance",
                                                "shapes")},
-                      library="scaled_dot_product_attention", form="bf16 K/V: two passes on "
-                      "the tensor cores; f32 K/V: the tile loop attn_tile.cuh",
+                      library="scaled_dot_product_attention", form="bf16 or f16 K/V: two passes "
+                      "on the tensor cores; f32 K/V: the tile loop attn_tile.cuh",
                       launches_by_path=by_path("flash_attention"),
                       unit="one TinyLlama prefill chunk (22 launches)",
                       launches_per_chunk=per_layer, olmo2_chunk=k6["olmo2_chunk"],
@@ -1942,10 +2460,7 @@ def main():
     # (physical != logical), bf16 pools, f32 q/k/v (the GEMMs' output dtype)
     n_slots, ps, lp = 4, 128, MAX_LEN // 128
     n_pages = n_slots * lp + 1
-    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(2)) + 1
-    table = torch.zeros((n_slots, lp + 1), dtype=torch.int32)
-    table[:, :lp] = perm.reshape(n_slots, lp).to(torch.int32)
-    table = table.to("cuda")
+    table = _paged_table(torch, n_slots, lp, 2)
     pool_shape = (hkv, n_pages * ps, hd)
     kpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in layers]
     vpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in layers]
@@ -1984,10 +2499,7 @@ def main():
     # than the cluster's 8 blocks share evenly
     lp_l = 65
     n_pages_l = n_slots * lp_l + 1
-    perm_l = torch.randperm(n_pages_l - 1, generator=torch.Generator().manual_seed(3)) + 1
-    table_l = torch.zeros((n_slots, lp_l + 1), dtype=torch.int32)
-    table_l[:, :lp_l] = perm_l.reshape(n_slots, lp_l).to(torch.int32)
-    table_l = table_l.to("cuda")
+    table_l = _paged_table(torch, n_slots, lp_l, 3)
     pos9_l = torch.tensor([[8000], [4100], [0], [lp_l * ps]], dtype=torch.int32, device="cuda")
     kl = randn(hkv, n_pages_l * ps, hd, dtype=torch.bfloat16)
     vl = randn(hkv, n_pages_l * ps, hd, dtype=torch.bfloat16)
@@ -2095,6 +2607,11 @@ def main():
                              f"pools [{hkv},{n_pages * ps},{hd}] bf16, table scrambled",
                       launches_per_step=per_layer))
     del kpools, vpools, kg, vg
+
+    # the f16 forms of K2, K6, K9 and K10 at the same shapes (and K9/K10 at
+    # Qwen2.5's G 6, d 128 in bf16 and f16)
+    kernel_f16_phase(torch, F, cfg, model_q3.cfg, model_q25.cfg, card,
+                     {"tinyllama_q4km_f16_kv": step_m16, "tinyllama_q4km_bf16_kv": step_m})
 
     # K7 at the q8 serving path's shapes: 4 slots, S = 2176 (max_len 2048 +
     # chunk 128), f32 q (the GEMMs' output dtype), one step's 22 layers, each
@@ -2829,6 +3346,11 @@ def main():
         ("q4k_matvec", qmm.NIBBLE_FMT_CODE), ("q4k_gemm", qmm.NIBBLE_FMT_CODE),
         ("int8_matvec", qmm.K4_FMTS), ("dequant_gemm", qmm.INT8_FMT_CODE),
         ("q4k_matvec_hbm", qmm.HBM_FMTS), ("w4a8dd_matvec", qmm.DUALDOT_FMTS))}
+    # the attention kernels' forms: the K/V (cache or pool) dtypes each takes
+    forms.update({name: ["float32", "bfloat16", "float16"] for name in (
+        "attn_decode_qkv", "flash_attention", "paged_attn_decode_update", "paged_attention")})
+    forms.update(attn_decode_update=["float32", "bfloat16"],
+                 flash_attention_blockwise=["bfloat16", "int8"])
     emit({"kernels": [dict({k: ln[k] for k in keys},
                            **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))
                       for ln in lines]})
@@ -2850,6 +3372,9 @@ if __name__ == "__main__":
 
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: the digests need a CUDA GPU")
+        from zllm_torch.ops import cuda as cuda_build
+
+        cuda_build.build()  # every kernel at once, not one at a time at first use
         emit({"phase": "form_digests", "tree": str(REPO), **form_digests(torch)})
     else:
         main()

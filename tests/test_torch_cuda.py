@@ -279,7 +279,8 @@ def test_k4_k5_q6k_random_blocks(dev):
     assert float(col_err.max()) < 1e-6
 
 
-@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32c", "bf16c", "f16c"])
 @pytest.mark.parametrize("case", ["plain", "qknorm", "softcap", "window", "b2", "d128",
                                   "norm_style", "partial", "trash", "pos0", "bf16q", "qwen3",
                                   "g6_d128"])
@@ -304,16 +305,19 @@ def test_k2_matches_plain(dev, case, cdtype):
     kw_args = dict(scale=d ** -0.5, softcap=30.0 if case == "softcap" else 0.0,
                    window=48 if case == "window" else 0, eps=1e-5)
     k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before_f16 = ta.attn_decode_qkv.f16_launches
     got = ta.attn_decode_qkv(qkv3, k1, v1, pos, rt, qw, kw, **kw_args)
     want = ta.attn_decode_qkv_plain(qkv3, k2, v2, pos, rt, qw, kw, **kw_args)
     torch.cuda.synchronize()
+    assert ta.attn_decode_qkv.f16_launches == before_f16 + (cdtype == torch.float16)
     assert got.dtype == qdtype and got.shape == (b, 1, hq, d)
     assert _nmse(got.float(), want.float()) < 1e-5
     assert torch.equal(v1, v2)
     assert _nmse(k1.float(), k2.float()) < 1e-9
 
 
-@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32c", "bf16c", "f16c"])
 @pytest.mark.parametrize("style", ["norm", "neox"])
 def test_k2_rope_equals_apply_rope(dev, style, cdtype):
     """K2's in-kernel rope of the new k row gives apply_rope's bits (cast to
@@ -336,7 +340,8 @@ K6_SHAPES = {"tinyllama": (32, 4, 64), "olmo2": (16, 16, 128),  # Hq, Hkv, D
              "qwen25": (12, 2, 128), "qwen3": (16, 8, 128)}
 
 
-@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32kv", "bf16kv", "f16kv"])
 @pytest.mark.parametrize("case", ["plain", "sinks", "softcap", "window", "base0", "b2",
                                   "d128", "ragged", "bf16q", "olmo2", "qwen25", "qwen3"])
 def test_k6_matches_plain(dev, case, kvdtype):
@@ -371,7 +376,8 @@ def _k6_inputs(dev, shape, b, t, s, qdtype, kvdtype, seed):
             _randn((b, hkv, s, d), seed + 2, dev, kvdtype), d ** -0.5)
 
 
-@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32kv", "bf16kv", "f16kv"])
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
 @pytest.mark.parametrize("shape", list(K6_SHAPES))
 @pytest.mark.parametrize("window", [0, 100])
@@ -395,18 +401,21 @@ def test_k6_rows_do_not_depend_on_t_or_b(dev, window, shape, qdtype, kvdtype):
         assert torch.equal(one[0], full[r])
 
 
-@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16], ids=["f32kv", "bf16kv"])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32kv", "bf16kv", "f16kv"])
 def test_k6_counts_tensor_core_launches(dev, kvdtype):
-    """bf16 K/V take the tensor-core form and count in `.mma_launches`; f32
-    K/V take the tile loop and do not."""
+    """bf16 and f16 K/V take the tensor-core form and count in
+    `.mma_launches`; f32 K/V take the tile loop and do not."""
     q, k, v, scale = _k6_inputs(dev, "tinyllama", 1, 64, 512, torch.float32, kvdtype, 30)
     pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
-    before = (ta.flash_attention.launches, ta.flash_attention.mma_launches)
+    before = (ta.flash_attention.launches, ta.flash_attention.mma_launches,
+              ta.flash_attention.f16_launches)
     ta.flash_attention(q, k, v, pos, scale=scale)
     torch.cuda.synchronize()
-    mma = int(kvdtype == torch.bfloat16)
-    assert (ta.flash_attention.launches, ta.flash_attention.mma_launches) == (
-        before[0] + 1, before[1] + mma)
+    mma = int(kvdtype != torch.float32)
+    assert (ta.flash_attention.launches, ta.flash_attention.mma_launches,
+            ta.flash_attention.f16_launches) == (before[0] + 1, before[1] + mma,
+                                                  before[2] + (kvdtype == torch.float16))
 
 
 def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
@@ -423,13 +432,15 @@ def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
 
 @pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
                                            (torch.float32, torch.bfloat16),
-                                           (torch.bfloat16, torch.bfloat16)],
-                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float16),
+                                           (torch.bfloat16, torch.float16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
 @pytest.mark.parametrize("case", ["chunk", "t1", "window", "softcap", "d128", "ragged",
                                   "g1", "trash_row", "ps64", "ps256", "g16", "idle_first",
                                   "gen_row", "g6_d128"])
 def test_k10_matches_plain(dev, case, qdtype, pdtype):
-    """Horizon 1024 slots (ps 64, 128 or 256); bf16 pools take the
+    """Horizon 1024 slots (ps 64, 128 or 256); bf16 and f16 pools take the
     tensor-core loop, f32 pools the tile loop.  `idle_first`: the engine's
     idle row (pos0 = horizon) is row 0; `gen_row`: a mixed step's generating
     row, its one real token in column 0 and trash positions after it."""
@@ -458,11 +469,13 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
               window=200 if case == "window" else 0)
     before = ta.paged_attention.launches
     before_mma = ta.paged_attention.mma_launches
+    before_f16 = ta.paged_attention.f16_launches
     got = ta.paged_attention(q, k_pool, v_pool, table, positions, **kw)
     want = ta.paged_attention_plain(q, k_pool, v_pool, table, positions, **kw)
     torch.cuda.synchronize()
     assert ta.paged_attention.launches == before + 1
-    assert ta.paged_attention.mma_launches == before_mma + (pdtype == torch.bfloat16)
+    assert ta.paged_attention.f16_launches == before_f16 + (pdtype == torch.float16)
+    assert ta.paged_attention.mma_launches == before_mma + (pdtype != torch.float32)
     assert got.dtype == qdtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     live = (starts < lp * ps).cpu()
@@ -473,8 +486,10 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
 
 @pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
                                            (torch.float32, torch.bfloat16),
-                                           (torch.bfloat16, torch.bfloat16)],
-                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float16),
+                                           (torch.bfloat16, torch.float16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
                                   "g4", "g16", "long", "ps64_window_softcap", "s8320",
                                   "window_mid", "s20480", "g6_d128"])
@@ -519,10 +534,12 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
               softcap=30.0 if case in ("softcap", "ps64_window_softcap") else 0.0,
               window=window)
     before = ta.paged_attn_decode_update.launches
+    before_f16 = ta.paged_attn_decode_update.f16_launches
     got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, positions, **kw)
     want = ta.paged_attn_decode_update_plain(q, kn, vn, k2, v2, table, positions, **kw)
     torch.cuda.synchronize()
     assert ta.paged_attn_decode_update.launches == before + 1
+    assert ta.paged_attn_decode_update.f16_launches == before_f16 + (pdtype == torch.float16)
     assert got.dtype == qdtype and got.shape == q.shape
     live = positions[:, 0] < lp * ps
     assert _nmse(got[live].float(), want[live].float()) < 1e-6
@@ -677,6 +694,26 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
     assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
+def test_k8_refuses_an_f16_cache(dev, qdtype):
+    """K8 has no f16 form yet: an f16 cache on the card raises a typed
+    NotImplementedError before any launch, and the cache is untouched (no
+    plain version runs in its place)."""
+    b, hq, hkv, d, s = 1, 16, 16, 128, 256
+    q = _randn((b, 1, hq, d), 60, dev, qdtype)
+    kn, vn = _randn((b, 1, hkv, d), 61, dev, qdtype), _randn((b, 1, hkv, d), 62, dev, qdtype)
+    kc = _randn((b, hkv, s, d), 63, dev, torch.float16)
+    vc = _randn((b, hkv, s, d), 64, dev, torch.float16)
+    k0, v0 = kc.clone(), vc.clone()
+    before = ta.attn_decode_update.launches
+    pos = torch.tensor([[100]], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        ta.attn_decode_update(q, kn, vn, kc, vc, pos, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert ta.attn_decode_update.launches == before
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
 
 
 def _decode_call(kernel, kv, b, dev):
@@ -946,7 +983,8 @@ def test_k11_chain_in_a_graph(dev, fmt):
 K2_POS = [255, 0, 2176, 1500]  # live, position 0, a trash row, a span of several chunks
 
 
-@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32c", "bf16c", "f16c"])
 def test_k2_rows_do_not_depend_on_the_batch(dev, cdtype):
     """K2 at B = 1..4 (an engine stripe of 2176 slots, mixed positions and a
     trash row): every row's output and cache rows are bit-identical to the
@@ -979,7 +1017,8 @@ def test_k2_rows_do_not_depend_on_the_batch(dev, cdtype):
     assert torch.equal(together[2], v2) and _nmse(together[1].float(), k2.float()) < 1e-9
 
 
-@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16], ids=["f32c", "bf16c"])
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32c", "bf16c", "f16c"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hq,hkv", [(32, 4), (32, 2)], ids=["g8", "g16"])
 def test_k2_long_span(dev, hq, hkv, d, cdtype):
@@ -1067,14 +1106,16 @@ def test_k11_quantize_bit_equal(dev, k, xdtype):
     assert got[0].dtype == torch.int8 and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("kv", ["paged_bf16", "q8", "contiguous_bf16", "olmo2_contiguous_bf16"])
+@pytest.mark.parametrize("kv", ["paged_bf16", "q8", "contiguous_bf16", "olmo2_contiguous_bf16",
+                                "paged_f16", "contiguous_f16"])
 def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     """Greedy requests served together (a generating row riding the mixed
     steps of another request's prefill) and one at a time give the same
     logits rows and tokens, bit for bit: K3/K5 rows do not depend on M, and
     a mixed step attends a one-token row through the T=1 kernel (K9; K7's
     split form with the q8 cache; over a contiguous bf16 cache K2 for llama,
-    K8 for OLMo-2), as a decode step does.  The fourth prompt extends the
+    K8 for OLMo-2; the f16 caches through K9/K10 and K2/K6 in their f16
+    forms), as a decode step does.  The fourth prompt extends the
     first's first 50 tokens: alone, the contiguous and q8 layouts reuse
     them and prefill its last token as a chunk of one, which keeps the
     multi-row kernel's bits as inside its longer chunk served together."""
@@ -1089,7 +1130,8 @@ def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
                            **(olmo2 if kv.startswith("olmo2") else {}))
     model = Model.load(path, device="cuda", dtype=torch.bfloat16)
     layout = dict(kv_dtype="q8") if kv == "q8" else dict(
-        kv_dtype=torch.bfloat16, kv_layout="contiguous" if "contiguous" in kv else "paged")
+        kv_dtype=torch.float16 if kv.endswith("_f16") else torch.bfloat16,
+        kv_layout="contiguous" if "contiguous" in kv else "paged")
     rng = np.random.default_rng(3)
     prompts = [[1] + [int(t) for t in rng.integers(3, 512, n - 1)] for n in (70, 40, 9)]
     prompts.append(prompts[0][:50] + [7])

@@ -39,10 +39,12 @@
 //     launch writes within a step: so the staged chunk is in flight while
 //     the K1 before it (wqkv) drains.  After the wait: the projection row,
 //     the norms, rope, the insert, the dots and every store.
-//   * Scores: a bf16 cache on the tensor cores, mma.sync m16n8k16 with the
-//     chunk's slots as M (a warp a tile of 16), the (up to) 8 query rows as
-//     N and D as K: q, rounded to bf16, is one exact part; an f32 cache on
-//     the CUDA cores, a thread a slot.  Kept in shared memory.
+//   * Scores: a bf16 or f16 cache on the tensor cores, mma.sync m16n8k16
+//     (bf16 x bf16 or f16 x f16, the same rate) with the chunk's slots as M
+//     (a warp a tile of 16), the (up to) 8 query rows as N and D as K: q,
+//     rounded to the cache dtype as zllm rounds it, is one exact part (an
+//     f16 q overflows where zllm's does); an f32 cache on the CUDA cores, a
+//     thread a slot.  Kept in shared memory.
 //   * Each chunk's per-row max m (the warps' maxima, taken with the scores)
 //     and sum l of e = exp(s - m) (each thread one row's share, then the
 //     warps' sums in warp order); the row's M = max m_j and l = sum_j l_j
@@ -50,9 +52,9 @@
 //     place of the scores); p = e / l is rounded as P.V's fragments are
 //     built.
 //   * P.V: p written over the scores, then (P.V)^T = V^T P^T on the tensor
-//     cores (D as M, the rows as N, 16 slots as K; p one exact bf16 part)
-//     or on the CUDA cores (f32), summed per warp in chunk order, then over
-//     the warps in order.
+//     cores (D as M, the rows as N, 16 slots as K; p one exact part of the
+//     cache dtype, f16 subnormals kept) or on the CUDA cores (f32), summed
+//     per warp in chunk order, then over the warps in order.
 //   * A span of more than one chunk (the engine's trash row at S 2176, a
 //     long context): every block writes its chunk's scores and statistics
 //     to a global scratch, then takes a ticket on the (row, head, group)'s
@@ -81,6 +83,7 @@
 //     instantiation, outside graph capture (the wrapper's first call).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,8 +99,7 @@ using zt::grid_wait;
 using zt::launch_dependents;
 using zt::ldmatrix_x4;
 using zt::ldmatrix_x4_trans;
-using zt::mma_bf16;
-using zt::pack_bf16;
+using zt::Tc;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -108,11 +110,13 @@ constexpr int kMaxSmem = 232448;  // an H100 block's shared memory
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 // v rounded to the cache dtype, as f32
 template <typename TC> __device__ __forceinline__ float round_c(float v) {
   return to_f(from_f<TC>(v));
@@ -297,13 +301,13 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
   float* wmax = row_l + RM;          // [kWarps][RM]
   float* wsum = wmax + kWarps * RM;  // [kWarps][RM]
   if constexpr (kMma) {
-    uint32_t qb[KS][2];  // q as mma B fragments: row lane / 4, one exact bf16 part
+    uint32_t qb[KS][2];  // q as mma B fragments: row lane / 4, one exact part of TC
     const float* qn = qs + (lane / 4) * D + (lane % 4) * 2;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) qb[ks][hf] = pack_bf16(qn[ks * 16 + hf * 8],
-                                                           qn[ks * 16 + hf * 8 + 1]);
+      for (int hf = 0; hf < 2; ++hf) qb[ks][hf] = Tc<TC>::pack(qn[ks * 16 + hf * 8],
+                                                              qn[ks * 16 + hf * 8 + 1]);
     float mx[2] = {kNeg, kNeg};  // rows (lane % 4) * 2 and + 1
     for (int t = warp; t < (n_c + 15) / 16; t += kWarps) {
       const int sl = 16 * t + lane / 4;  // this lane's slots: sl and sl + 8
@@ -316,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t a[4];
         ldmatrix_x4(a, ka + ks * 32);
-        mma_bf16(acc, a, qb[ks]);
+        Tc<TC>::mma(acc, a, qb[ks]);
       }
 #pragma unroll
       for (int e4 = 0; e4 < 4; ++e4) {
@@ -490,8 +494,8 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
         uint32_t pb[2];
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
-          pb[hf] = pack_bf16(ok[2 * hf] ? prob(s_i[(s0 + 8 * hf) * RM + rq], lq) : 0.f,
-                             ok[2 * hf + 1] ? prob(s_i[(s0 + 8 * hf + 1) * RM + rq], lq) : 0.f);
+          pb[hf] = Tc<TC>::pack(ok[2 * hf] ? prob(s_i[(s0 + 8 * hf) * RM + rq], lq) : 0.f,
+                                ok[2 * hf + 1] ? prob(s_i[(s0 + 8 * hf + 1) * RM + rq], lq) : 0.f);
         // (V^T) fragments by ldmatrix.trans: lane l gives V row 16 t + l % 8
         // (+8 for matrices 2, 3) at column 16 mt (+8 for matrices 1, 3)
         const unsigned char* va =
@@ -500,7 +504,7 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
         for (int mt = 0; mt < MT; ++mt) {
           uint32_t av[4];
           ldmatrix_x4_trans(av, va + mt * 32);
-          mma_bf16(tacc[mt], av, pb);
+          Tc<TC>::mma(tacc[mt], av, pb);
         }
       }
     } else {  // f32 V
@@ -582,14 +586,22 @@ int launch_d(const Params& p, int B, int D, cudaStream_t s) {
 
 }  // namespace
 
-// slots a chunk for a cache dtype (0 = float32, 1 = bfloat16) and head dim:
-// the wrapper sizes the grid (ceil(S / chunk) splits) and the scratch
-extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
-  if (D != 64 && D != 128) return 0;
-  return c_dtype == 1 ? 65536 / (D * 2) : 65536 / (D * 4);
+// a cache element's bytes by dtype code (0 = float32, 1 = bfloat16, 3 =
+// float16); 0 for a code the kernel does not take
+static int cache_bytes(int c_dtype) {
+  return c_dtype == 0 ? 4 : (c_dtype == 1 || c_dtype == 3) ? 2 : 0;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  qw/kw may be null (no q/k norm).
+// slots a chunk for a cache dtype code and head dim (kChunk: 64 KB of K
+// rows); 0 for a shape or code the kernel does not take.  The wrapper sizes
+// the grid (ceil(S / chunk) splits) and the scratch.
+extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
+  if ((D != 64 && D != 128) || cache_bytes(c_dtype) == 0) return 0;
+  return 65536 / (D * cache_bytes(c_dtype));
+}
+
+// dtype codes: q 0 = float32 or 1 = bfloat16; the caches 0, 1 or 3 =
+// float16.  qw/kw may be null (no q/k norm).
 // gsc [B, Hkv * ceil(G / 8), 8, S] f32 and gst [B, Hkv * ceil(G / 8),
 // splits, 8] float2 are scratch (touched only by rows of more than one
 // chunk); counters [B, Hkv * ceil(G / 8)] int32 must be zero and are left
@@ -600,8 +612,8 @@ extern "C" int zt_attn_decode_qkv(const void* qkv3, int q_dtype, void* kc, void*
                                   void* out, float* gsc, void* gst, int* counters, int B,
                                   int Hq, int Hkv, int S, int D, int R, int neox, float scale,
                                   float softcap, int window, float eps, void* stream) {
-  if ((D != 64 && D != 128) || R > D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int chunk = zt_attn_decode_chunk(c_dtype, D);
+  if (chunk == 0 || R > D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   Params p{qkv3, kc, vc, pos, cosb, sinb, qw, kw, out, gsc, static_cast<float2*>(gst), counters,
            Hq, Hkv, S, R, neox, (S + chunk - 1) / chunk, window, scale, softcap, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -609,5 +621,7 @@ extern "C" int zt_attn_decode_qkv(const void* qkv3, int q_dtype, void* kc, void*
   if (q_dtype == 0 && c_dtype == 1) return launch_d<float, __nv_bfloat16>(p, B, D, s);
   if (q_dtype == 1 && c_dtype == 0) return launch_d<__nv_bfloat16, float>(p, B, D, s);
   if (q_dtype == 1 && c_dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(p, B, D, s);
+  if (q_dtype == 0 && c_dtype == 3) return launch_d<float, __half>(p, B, D, s);
+  if (q_dtype == 1 && c_dtype == 3) return launch_d<__nv_bfloat16, __half>(p, B, D, s);
   return (int)cudaErrorInvalidValue;
 }

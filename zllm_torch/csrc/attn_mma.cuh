@@ -1,5 +1,5 @@
-// The one-pass multi-token attention loop on the bf16 tensor cores, shared
-// by K10 (paged_attn.cu, bf16 pools read through a page table) and K7's
+// The one-pass multi-token attention loop on the tensor cores, shared by
+// K10 (paged_attn.cu, bf16 or f16 pools read through a page table) and K7's
 // multi-row form (attn_blockwise.cu, bf16 K/V or int8 codes with f32
 // scales, T * G > 32 query rows a kv head).  They differ in where a chunk of
 // K/V rows lives, which the KV addressor answers as attn_tile.cuh's do:
@@ -19,7 +19,7 @@
 // P.V, acc / l at the end).  Two forms, by kPage:
 //   * K10 (kPage, zllm `_paged_attn_kernel`): the running max advances once
 //     a page of ps slots (ps a multiple of CH); p = exp(s - m) is rounded to
-//     bf16 (the pool dtype) before P.V, l sums the unrounded p.  A page of
+//     the pool dtype (bf16 or f16) before P.V, l sums the unrounded p.  A page of
 //     CH slots is scored once, its scores held in registers; a larger page
 //     is walked twice, once for its max, once for P.V.  The rounding points
 //     are the plain version's (`ops/attention.py::paged_online_plain`).
@@ -36,6 +36,19 @@
 // (16 bits) are not enough: with them the server's greedy tokens parted
 // between a mixed step (this loop) and a decode step (K7's split form,
 // f32 on the CUDA cores).  A bf16 q is one part.
+//
+// f16 pools (K10's f16 form) run the same loop on f16 x f16 mma.sync (the
+// bf16 rate): K and V are exact in f16, and so is p, rounded to f16 as zllm
+// rounds it (one part).  q cannot be split as above: f16's 5-bit exponent
+// overflows above 65504, and the mid and lo parts of a small element fall
+// below f16's normal range.  Of the two designs that keep the f32 scores
+// (each q row scaled by a power of two before an f16 split, or K taken as
+// two bf16 parts against q's bf16 split, twice the score MMAs), this loop
+// takes the first: `zt::f16_row_exp` brings each query row's largest |q|
+// into [2^14, 2^15), the row is split into three f16 parts (f32 q) or one
+// (bf16 q: exact in f16 once normal), and the row's 2^-e joins the score's
+// scale on the f32 accumulator, exactly.  It costs one more pass over the
+// block's q rows and two barriers a block, no MMA.
 //
 // Bound on the H100: 4 * Hq * D FLOPs per visible (query, slot) pair over
 // the 989 TFLOP/s bf16 peak, or the bytes of the slots each row sees plus
@@ -63,6 +76,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "attn_tile.cuh"
 #include "mma_ptx.cuh"
 
@@ -72,8 +87,7 @@ using zt::cp_async16;
 using zt::cp_async_commit;
 using zt::cp_async_wait_all;
 using zt::ldmatrix_x4;
-using zt::mma_bf16;
-using zt::pack_bf16;
+using zt::Tc;
 
 constexpr int kRowWarps = 2;   // row groups of 16 query rows a block
 constexpr int kSlotWarps = 2;  // warps a row group, each a share of every chunk's slots
@@ -97,6 +111,12 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_
 
 template <typename T> struct IsF32 { static constexpr bool value = false; };
 template <> struct IsF32<float> { static constexpr bool value = true; };
+template <typename T> struct IsF16 { static constexpr bool value = false; };
+template <> struct IsF16<__half> { static constexpr bool value = true; };
+// the tensor cores' operand type for K/V of type TKV: f16 for f16 K/V, bf16
+// for bf16 K/V and int8 codes (exact in bf16)
+template <typename TKV>
+using TcOf = typename std::conditional<IsF16<TKV>::value, __half, __nv_bfloat16>::type;
 
 struct Params {
   const void* q;
@@ -122,19 +142,20 @@ struct Layout {
   static constexpr size_t bytes = q_bytes + 2 * stage_bytes + work_bytes;
 };
 
-// (a, b) as N packed bf16 pairs whose sum is (a, b): hi, then (N = 3) mid
-// and lo of the remainders, each subtraction exact in f32
-template <int N>
+// (a, b) as N packed pairs of T (bf16 or f16) whose sum is (a, b): hi,
+// then (N = 3) mid and lo of the remainders, each subtraction exact in f32
+// (for f16, where the values are in f16's range: see zt::f16_row_exp)
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& mid,
                                            uint32_t& lo) {
-  hi = pack_bf16(a, b);
+  hi = Tc<T>::pack(a, b);
   if constexpr (N > 1) {
-    const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+    const float2 h = Tc<T>::unpack(hi);
     a -= h.x;
     b -= h.y;
-    mid = pack_bf16(a, b);
-    const float2 m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&mid));
-    lo = pack_bf16(a - m.x, b - m.y);
+    mid = Tc<T>::pack(a, b);
+    const float2 m = Tc<T>::unpack(mid);
+    lo = Tc<T>::pack(a - m.x, b - m.y);
   }
 }
 
@@ -182,36 +203,64 @@ __device__ __forceinline__ void order_block(const Params& a, int nrb, int& rb, i
 }
 
 // Query rows r0 .. r0 + QB - 1 of (row b, kv head h) -> shared qs
-// [NQ][QB][QS], as NQ bf16 parts (zeros past the R = T * G rows).
-template <typename TQ, int D, int NQ, int QS>
-__device__ __forceinline__ void stage_q(const Params& a, int b, int h, int r0,
-                                        __nv_bfloat16* qs) {
+// [NQ][QB][QS], as NQ parts of the tensor-core type TT (zeros past the R =
+// T * G rows).  For f16 (TT = __half) each row is first scaled by its 2^e
+// (zt::f16_row_exp; `amax` [QB] scratch), and `unscale` [QB] gets 2^-e;
+// the f16 form ends with a barrier, so the caller may read `unscale`.
+template <typename TQ, typename TT, int D, int NQ, int QS>
+__device__ __forceinline__ void stage_q(const Params& a, int b, int h, int r0, TT* qs,
+                                        unsigned* amax, float* unscale) {
   const TQ* q = static_cast<const TQ*>(a.q);
   const int G = a.Hq / a.Hkv, R = a.T * G;
-  for (int e = threadIdx.x; e < QB * D / 4; e += kThreads) {
+  constexpr bool kF16 = IsF16<TT>::value;
+  auto load = [&](int e, float (&x)[4]) {
     const int rr = e / (D / 4), dd = (e % (D / 4)) * 4, r = r0 + rr;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (r < R) {
       const TQ* src = q + (((size_t)b * a.T + r / G) * a.Hq + h * G + r % G) * D + dd;
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[i] = zt_attn::to_f(src[i]);
     }
+  };
+  if constexpr (kF16) {  // each row's largest |q| (non-negative floats order as their bits)
+    for (int r = threadIdx.x; r < QB; r += kThreads) amax[r] = 0u;
+    __syncthreads();
+    for (int e = threadIdx.x; e < QB * D / 4; e += kThreads) {
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      load(e, x);
+      const float m = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+      atomicMax(amax + e / (D / 4), __float_as_uint(m));
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < QB; r += kThreads)
+      unscale[r] = zt::pow2(-zt::f16_row_exp(__uint_as_float(amax[r])));
+  }
+  for (int e = threadIdx.x; e < QB * D / 4; e += kThreads) {
+    const int rr = e / (D / 4), dd = (e % (D / 4)) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    load(e, x);
+    if constexpr (kF16) {
+      const float up = zt::pow2(zt::f16_row_exp(__uint_as_float(amax[rr])));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] *= up;
+    }
     uint32_t pk[3][2];
-    split_pair<NQ>(x[0], x[1], pk[0][0], pk[1][0], pk[2][0]);
-    split_pair<NQ>(x[2], x[3], pk[0][1], pk[1][1], pk[2][1]);
+    split_pair<NQ, TT>(x[0], x[1], pk[0][0], pk[1][0], pk[2][0]);
+    split_pair<NQ, TT>(x[2], x[3], pk[0][1], pk[1][1], pk[2][1]);
 #pragma unroll
     for (int part = 0; part < NQ; ++part)
       *reinterpret_cast<uint2*>(qs + (part * QB + rr) * QS + dd) =
           make_uint2(pk[part][0], pk[part][1]);
   }
+  if constexpr (kF16) __syncthreads();  // unscale
 }
 
 // A warp's scores of NT * 8 slots of a chunk: s[n] (zeroed here) the 16x8
 // accumulator of the rows wr0 .. wr0 + 15 and the K rows 8n .. 8n + 7 of
-// kb (row stride QS), over the NQ parts of q in shared qs.
-template <int NQ, int NT, int D, int QS>
-__device__ __forceinline__ void chunk_scores(float (&s)[NT][4], const __nv_bfloat16* qs,
-                                             const __nv_bfloat16* kb, int wr0, int lane) {
+// kb (row stride QS), over the NQ parts of q in shared qs; TT the
+// tensor-core type (bf16, or f16 for f16 K)
+template <int NQ, int NT, int D, int QS, typename TT = __nv_bfloat16>
+__device__ __forceinline__ void chunk_scores(float (&s)[NT][4], const TT* qs, const TT* kb,
+                                             int wr0, int lane) {
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -231,8 +280,8 @@ __device__ __forceinline__ void chunk_scores(float (&s)[NT][4], const __nv_bfloa
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
       for (int part = 0; part < NQ; ++part) {
-        mma_bf16(s[2 * np], aq[part], b0);
-        mma_bf16(s[2 * np + 1], aq[part], b1);
+        Tc<TT>::mma(s[2 * np], aq[part], b0);
+        Tc<TT>::mma(s[2 * np + 1], aq[part], b1);
       }
     }
   }
@@ -276,12 +325,19 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
   static_assert(HC % 16 == 0 && D % 16 == 0, "shapes");
   static_assert((size_t)(kSlotWarps - 1) * QB * (D + 1) * 4 <= 2 * L::stage_bytes, "combine");
   static_assert(!(kPage && KV::kScales), "K10 takes no scales");
+  // f16 K/V: K10's form (K7's would need its unrounded p scaled before an
+  // f16 split, as decode_cluster.cuh does)
+  static_assert(kPage || !IsF16<TKV>::value, "f16 K/V in K10 only");
+  using TT = TcOf<TKV>;  // the tensor cores' operand type
+  constexpr bool kF16 = IsF16<TT>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [NQ][QB][QS]
+  TT* qs = reinterpret_cast<TT*>(smem);  // [NQ][QB][QS]
   unsigned char* stages = smem + L::q_bytes;
   __nv_bfloat16* work = reinterpret_cast<__nv_bfloat16*>(stages + 2 * L::stage_bytes);
   __shared__ int b_sel;
   __shared__ float xm[kSlotWarps][QB];  // each share's row maxima of a chunk
+  __shared__ unsigned q_amax[kF16 ? QB : 1];   // f16: each q row's largest |q|,
+  __shared__ float q_unscale[kF16 ? QB : 1];   // and its 2^-e
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -293,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
   const int r0 = rb * QB, r_end = min(r0 + QB, R);
   __syncthreads();  // b_sel
   const int b = b_sel;
-  stage_q<TQ, D, L::NQ, QS>(a, b, h, r0, qs);
+  stage_q<TQ, TT, D, L::NQ, QS>(a, b, h, r0, qs, q_amax, q_unscale);
   const int p0 = a.pos0[b];
 
   // the block's band of slots, walked in visits of CH slots: a page of ps
@@ -349,6 +405,13 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
   }
   const bool rows_full = r0 + wr0 + 15 < R;
   const int wqp_lo = p0 + (r0 + wr0) / G, wqp_hi = p0 + min(r0 + wr0 + 15, R - 1) / G;
+  // f16: the scale of each of this thread's two rows, with the row's 2^-e
+  // (exact: a power of two)
+  float rsc[2] = {a.scale, a.scale};
+  if constexpr (kF16) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) rsc[i] = a.scale * q_unscale[wr0 + gid + 8 * i];
+  }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, pm[2] = {kNegInf, kNegInf};
   float o[ND][4];
 #pragma unroll
@@ -364,8 +427,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
     const int w = v % vpp, phase = two ? w / nc : 1;
     const int s0 = (pg_lo + v / vpp) * ps + (two ? w % nc : 0) * CH;
     const unsigned char* sb = stages + (v & 1) * L::stage_bytes;
-    const __nv_bfloat16* kb;
-    const __nv_bfloat16* vb;
+    const TT* kb;
+    const TT* vb;
     const float* ksc = nullptr;
     const float* vsc = nullptr;
     if constexpr (KV::kScales) {
@@ -390,14 +453,14 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
       kb = work + so * QS;
       vb = work + (CH + so) * QS;
     } else {
-      kb = reinterpret_cast<const __nv_bfloat16*>(sb) + so * RS;
-      vb = reinterpret_cast<const __nv_bfloat16*>(sb) + (CH + so) * RS;
+      kb = reinterpret_cast<const TT*>(sb) + so * RS;
+      vb = reinterpret_cast<const TT*>(sb) + (CH + so) * RS;
     }
 
     // scores of this warp's half: s[n] the 16x8 accumulator of slots
     // s0 + so + 8n .. +7
     float s[NT][4];
-    chunk_scores<L::NQ, NT, D, QS>(s, qs, kb, wr0, lane);
+    chunk_scores<L::NQ, NT, D, QS, TT>(s, qs, kb, wr0, lane);
     // scale, K scale, softcap, mask (only where some slot of the half is
     // outside some row's band); the half's row max
     const int c0 = s0 + so;
@@ -407,7 +470,12 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * a.scale;
+        float x;
+        if constexpr (kF16) {
+          x = s[n][e] * rsc[e >> 1];
+        } else {
+          x = s[n][e] * a.scale;
+        }
         if constexpr (KV::kScales) x *= ksc[n * 8 + tig * 2 + (e & 1)];
         s[n][e] = x;
       }
@@ -473,8 +541,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
       }
       // P.V: the probabilities of 16 slots are the A fragment of a k-step:
       // a0 (row gid, k 0-7), a1 (row gid+8, k 0-7), a2 (row gid, k 8-15),
-      // a3 (row gid+8, k 8-15); K10 one part (the rounded p), K7 three
-      // (p * vs unrounded)
+      // a3 (row gid+8, k 8-15); K10 one part (p rounded to the pool
+      // dtype, bf16 or f16), K7 three (p * vs unrounded)
       constexpr int NP = kPage ? 1 : 3;
 #pragma unroll
       for (int k2 = 0; k2 < HC / 16; ++k2) {
@@ -491,8 +559,9 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
             x[2] *= v0;
             x[3] *= v1;
           }
-          split_pair<NP>(x[0], x[1], ap[0][hf * 2], ap[1][hf * 2], ap[2][hf * 2]);
-          split_pair<NP>(x[2], x[3], ap[0][hf * 2 + 1], ap[1][hf * 2 + 1], ap[2][hf * 2 + 1]);
+          split_pair<NP, TT>(x[0], x[1], ap[0][hf * 2], ap[1][hf * 2], ap[2][hf * 2]);
+          split_pair<NP, TT>(x[2], x[3], ap[0][hf * 2 + 1], ap[1][hf * 2 + 1],
+                             ap[2][hf * 2 + 1]);
         }
 #pragma unroll
         for (int dn = 0; dn < D / 16; ++dn) {
@@ -502,8 +571,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
           const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
           for (int part = 0; part < NP; ++part) {
-            mma_bf16(o[2 * dn], ap[part], b0);
-            mma_bf16(o[2 * dn + 1], ap[part], b1);
+            Tc<TT>::mma(o[2 * dn], ap[part], b0);
+            Tc<TT>::mma(o[2 * dn + 1], ap[part], b1);
           }
         }
       }

@@ -30,6 +30,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,12 +40,14 @@ constexpr int QR = 32, KT = 64, kThreads = 128;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 
 template <int D>
 constexpr size_t smem_bytes() {

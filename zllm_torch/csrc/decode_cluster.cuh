@@ -1,9 +1,9 @@
 // The one-launch decode step shared by K7's split form (attn_blockwise.cu,
 // a contiguous cache of bf16 K/V or int8 codes with f32 scales), K8
 // (attn_decode_update.cu, a contiguous bf16/f32 cache with the insert of
-// the new K/V row) and K9 (paged_decode.cu, page pools read through a page
-// table, with the insert): flash-decoding as ONE thread-block-cluster
-// launch.
+// the new K/V row) and K9 (paged_decode.cu, f32, bf16 or f16 page pools
+// read through a page table, with the insert): flash-decoding as ONE
+// thread-block-cluster launch.
 //
 // Queries: R = T * G rows of one (row b, kv head h), row r = t * G + g at
 // position pos[b] + t (K8, K9: T = 1), taken 8 at a time (RM), each group
@@ -72,6 +72,15 @@
 //     rounded p in one; slots outside the staged rows read as 0), f32 V on
 //     the CUDA cores; summed per warp in chunk order, then over the warps
 //     in order.
+//   * f16 pools (K9's f16 form, `--kv-type f16`): both phases on f16 x f16
+//     mma.sync (the bf16 rate), K and V exact in f16.  An f32 or bf16 q
+//     would overflow or lose its small parts in an f16 split, so each query
+//     row is first scaled by the power of two that brings its largest |q|
+//     into [2^14, 2^15) (zt::f16_row_exp; three f16 parts, or one for a
+//     bf16 q), and its 2^-e joins the score's scale, exactly.  K9's p =
+//     round_f16(exp(s - M_j)) * exp(M_j - M) is at most 1 and is not one
+//     f16 value: it is scaled by 2^15 before its three-part f16 split (so
+//     its small parts stay normal) and P.V by 2^-15 after, exactly.
 //   * cluster.sync(), then block 0 sums the blocks' partials over DSMEM in
 //     block order (= chunk order, the runs being contiguous), adds the sinks
 //     (K7), divides by l (K7, K9) and writes the output; a last
@@ -95,13 +104,14 @@
 //     min(pos, S - 1), so its trash row (pos == S) writes slot S - 1 and
 //     attends all S.  No other row reads an insert page or chunk.
 //   * Dynamic shared memory above 48 KB needs cudaFuncSetAttribute once an
-//     instantiation, outside graph capture; the launch is checked with
+//     instantiation, outside graph capture (to the block's whole 227 KB, so
+//     the kernel may declare no static shared memory); the launch is checked with
 //     cudaGetLastError(), since a refused cluster launch never runs.
 //   * hi = min(last position, S - 1) passes through an opaque register:
 //     compiled as written, the card gave wrong scores whenever S was not a
 //     multiple of 128 (same data, same memory; PERF.md §7).
 //   * Registers: `-Xptxas -v` must show no spill in any instantiation (q
-//     f32/bf16 x K/V int8/bf16, caches f32/bf16 or pools f32/bf16 x D
+//     f32/bf16 x K/V int8/bf16, caches f32/bf16 or pools f32/bf16/f16 x D
 //     64/128); chip_smoke.py fails on one.
 
 #pragma once
@@ -115,8 +125,7 @@ namespace zt_dc {
 namespace cg = cooperative_groups;
 using zt::cp_async16;
 using zt::cp_async_commit;
-using zt::mma_bf16;
-using zt::pack_bf16;
+using zt::Tc;
 using zt_attn::from_f;
 using zt_attn::to_f;
 
@@ -130,6 +139,7 @@ constexpr int kKeepBytes = 64 * 1024;       // room for kept scores a block
 constexpr int kRingBytes = 96 * 1024;       // room for the K/V ring a block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -INFINITY;
+constexpr int kPUpExp = 15;  // f16 P.V: p (at most 1) times 2^15 before its f16 split
 
 // where the softmax rounds, an addressor's kRound: K7 never, K9 exp(s - M_j)
 // to the pool dtype a page, K8 the normalized p to the cache dtype
@@ -195,7 +205,8 @@ size_t smem_bytes(int mmax, int n_slots) {
          + sizeof(float) * (size_t)mmax * RM                // prefix max (K9)
          + sizeof(float) * 2 * RM                           // row max, denominator
          + sizeof(float) * (size_t)RM * D                   // the block's P.V partial
-         + sizeof(size_t) * (size_t)mmax;                   // own chunks' first rows
+         + sizeof(size_t) * (size_t)mmax                    // own chunks' first rows
+         + (zt_mma::IsF16<TKV>::value ? sizeof(int) * RM : 0);  // f16: each q row's 2^e
 }
 
 // two blocks an SM where the registers allow it (bf16 / int8 K/V at D 64, the
@@ -225,6 +236,12 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   float* row_l = row_m + RM;                                        // [RM]
   float* part = row_l + RM;                                         // [RM][D]
   size_t* bases = reinterpret_cast<size_t*>(part + RM * D);        // [mmax]
+  constexpr bool kF16 = zt_mma::IsF16<TKV>::value;
+  using TT = zt_mma::TcOf<TKV>;  // the tensor cores' operand type (bf16 for int8 codes)
+  // f16: each query row's 2^e (zt::f16_row_exp) [RM]; dynamic, as all of
+  // this kernel's shared memory: the attribute asks for the block's whole
+  // 227 KB, which leaves no room for static arrays
+  int* q_exp = reinterpret_cast<int*>(bases + p.mmax);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -354,16 +371,26 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   constexpr int NQ = sizeof(TQ) == 4 ? 3 : 1;
   constexpr int KS = D / 16;
   uint32_t qb[kMma ? KS : 1][NQ][2];
+  // f16: the score scale of this lane's accumulator rows (lane % 4) * 2 and
+  // + 1, with their rows' 2^-e (set once q_exp is)
+  float qrs[2] = {p.scale, p.scale};
   auto build_qb = [&]() {
     if constexpr (kMma) {
       const float* qn = qsh + (lane / 4) * D + (lane % 4) * 2;
+      float up = 1.f;
+      if constexpr (kF16) up = zt::pow2(q_exp[lane / 4]);
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           uint32_t part3[3];
-          zt_mma::split_pair<NQ>(qn[ks * 16 + hf * 8], qn[ks * 16 + hf * 8 + 1], part3[0],
-                                 part3[1], part3[2]);
+          if constexpr (kF16) {
+            zt_mma::split_pair<NQ, TT>(qn[ks * 16 + hf * 8] * up, qn[ks * 16 + hf * 8 + 1] * up,
+                                       part3[0], part3[1], part3[2]);
+          } else {
+            zt_mma::split_pair<NQ>(qn[ks * 16 + hf * 8], qn[ks * 16 + hf * 8 + 1], part3[0],
+                                   part3[1], part3[2]);
+          }
 #pragma unroll
           for (int pt = 0; pt < NQ; ++pt) qb[ks][pt][hf] = part3[pt];
         }
@@ -394,7 +421,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
           }
         }
 #pragma unroll
-        for (int pt = 0; pt < NQ; ++pt) mma_bf16(cp[pt], a, qb[ks][pt]);
+        for (int pt = 0; pt < NQ; ++pt) Tc<TT>::mma(cp[pt], a, qb[ks][pt]);
       }
       float c[4];  // hi + (mid + lo)
 #pragma unroll
@@ -411,7 +438,12 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
         const int s = j * cs + slot, qp = p0 + (r0 + r) / G;
         const bool ok = slot < cs && s >= lo && s <= hi && r < nr && s <= qp &&
                         (p.window <= 0 || s > qp - p.window);
-        float x = c[e4] * p.scale;
+        float x;
+        if constexpr (kF16) {
+          x = c[e4] * qrs[e4 & 1];
+        } else {
+          x = c[e4] * p.scale;
+        }
         if constexpr (KV::kScaled) x *= ok ? rsc[buf * CH + slot] : 1.f;
         if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
         sc[slot * RM + r] = ok ? x : kNeg;
@@ -495,6 +527,17 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   for (int k = 0; k < QPT; ++k) qsh[tid + k * kThreads] = qv[k];
   if constexpr (kMma) {
     __syncthreads();
+    if constexpr (kF16) {  // each query row's 2^e, a warp a row
+      for (int r = warp; r < RM; r += kWarps) {
+        float mx = 0.f;
+        for (int d = lane; d < D; d += 32) mx = fmaxf(mx, fabsf(qsh[r * D + d]));
+        mx = warp_max(mx);
+        if (lane == 0) q_exp[r] = zt::f16_row_exp(mx);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) qrs[i] = p.scale * zt::pow2(-q_exp[(lane % 4) * 2 + i]);
+    }
     build_qb();
   }
 
@@ -552,10 +595,11 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   for (int r = 0; r < RM; ++r)
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
-  // tensor cores (bf16 V, int8 codes): (P.V)^T = V^T P^T with D as M (tiles of
-  // 16), the 8 rows as N and a warp's 32 slots of the chunk as K; p split
-  // into NP bf16 parts (K8: p is rounded to the bf16 cache, one exact part;
-  // three otherwise), V exact in bf16
+  // tensor cores (bf16 or f16 V, int8 codes): (P.V)^T = V^T P^T with D as M
+  // (tiles of 16), the 8 rows as N and a warp's 32 slots of the chunk as K;
+  // p split into NP parts of the operand type (K8: p is rounded to the
+  // cache dtype, one exact part; three otherwise, f16's after p * 2^15), V
+  // exact
   constexpr int MT = D / 16;
   constexpr int NP = KV::kRound == kRoundNorm ? 1 : 3;
   float tacc[kMma ? MT : 1][4];                    // p's hi part
@@ -627,8 +671,14 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int s = s0 + 8 * hf;
-          zt_mma::split_pair<NP>(sc[s * RM + row], sc[(s + 1) * RM + row], pb[0][hf],
-                                 pb[1][hf], pb[2][hf]);
+          if constexpr (kF16 && NP > 1) {
+            const float up = zt::pow2(kPUpExp);
+            zt_mma::split_pair<NP, TT>(sc[s * RM + row] * up, sc[(s + 1) * RM + row] * up,
+                                       pb[0][hf], pb[1][hf], pb[2][hf]);
+          } else {
+            zt_mma::split_pair<NP, TT>(sc[s * RM + row], sc[(s + 1) * RM + row], pb[0][hf],
+                                       pb[1][hf], pb[2][hf]);
+          }
         }
         const bool k00 = s0 >= a && s0 <= z, k01 = s0 + 1 >= a && s0 + 1 <= z;
         const bool k10 = s0 + 8 >= a && s0 + 8 <= z, k11 = s0 + 9 >= a && s0 + 9 <= z;
@@ -640,10 +690,10 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
           av[1] = vpair(vbase, s0, dd + 8, k00, k01);
           av[2] = vpair(vbase, s0 + 8, dd, k10, k11);
           av[3] = vpair(vbase, s0 + 8, dd + 8, k10, k11);
-          mma_bf16(tacc[mt], av, pb[0]);
+          Tc<TT>::mma(tacc[mt], av, pb[0]);
           if constexpr (NP > 1) {
-            mma_bf16(tacc2[mt], av, pb[1]);
-            mma_bf16(tacc2[mt], av, pb[2]);
+            Tc<TT>::mma(tacc2[mt], av, pb[1]);
+            Tc<TT>::mma(tacc2[mt], av, pb[2]);
           }
         }
       }
@@ -672,6 +722,10 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
       float o[4];
 #pragma unroll
       for (int e4 = 0; e4 < 4; ++e4) o[e4] = NP > 1 ? tacc[mt][e4] + tacc2[mt][e4] : tacc[mt][e4];
+      if constexpr (kF16 && NP > 1) {
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) o[e4] *= zt::pow2(-kPUpExp);
+      }
       wp[(warp * RM + row) * D + dd] = o[0];
       wp[(warp * RM + row + 1) * D + dd] = o[1];
       wp[(warp * RM + row) * D + dd + 8] = o[2];

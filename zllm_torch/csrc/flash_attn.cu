@@ -40,6 +40,15 @@
 //    first visible slot a warp's junk sum of exp(0) is wiped by the alpha
 //    = exp(NEG_INF - m) = 0 of the first visible chunk or of the merge).
 //    Blocks are ordered so that the rows with the most slots start first.
+//  * f16 K/V (zt_flash_attention_mma too; the f16 KV cache, the Generator's
+//    and the engine's with kv_dtype float16): the same two passes on f16 x
+//    f16 mma.sync, the bf16 rate.  K and V are exact in f16, and so is p,
+//    rounded to f16 after the IEEE division (one part).  q is split as
+//    attn_mma.cuh's f16 form splits it: each query row scaled by the power
+//    of two that brings its largest |q| into [2^14, 2^15)
+//    (zt::f16_row_exp), then three f16 parts (f32 q) or one (bf16 q), the
+//    row's 2^-e folded into the score's scale on the f32 accumulator, so
+//    the scores keep f32 precision without f16 overflow or subnormal parts.
 //  * f32 K/V (zt_flash_attention): the CUDA-core tile loop of attn_tile.cuh
 //    (shared with K10's f32 pools), since bf16 tensor-core operands would
 //    round K/V; the probabilities are rounded to f32, the identity.
@@ -79,28 +88,32 @@ int launch_tile(int D, const void* q, const void* k, const void* v, const int* p
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core form (bf16 K/V) ---------------------------------------
+// ---- the tensor-core form (bf16 or f16 K/V) --------------------------------
 
 using zt_mma::kNegInf;
 using zt_mma::kSlotWarps;
 using zt_mma::QB;
 constexpr int kCh = 128;  // slots a chunk
 
-template <typename TQ, int D>
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(zt_mma::kThreads, 2)
-    flash_mma_kernel(const ContigKV<bf16> kv, const zt_mma::Params a) {
+    flash_mma_kernel(const ContigKV<TKV> kv, const zt_mma::Params a) {
   using namespace zt;
-  using L = zt_mma::Layout<TQ, bf16, D, kCh, false>;
+  using L = zt_mma::Layout<TQ, TKV, D, kCh, false>;
+  using TT = TKV;  // the tensor cores' operand type: the K/V dtype
+  constexpr bool kF16 = zt_mma::IsF16<TKV>::value;
   constexpr int QS = L::QS, RS = L::RS, ND = D / 8, kThreads = zt_mma::kThreads;
   static_assert(RS == QS, "chunk_scores reads K rows at q's stride");
   constexpr int HC = kCh / kSlotWarps, NT = HC / 8;  // a warp's slots of a chunk, n-tiles of 8
   static_assert(HC % 16 == 0 && D % 16 == 0, "shapes");
   static_assert((size_t)(kSlotWarps - 1) * QB * (D + 1) * 4 <= 2 * L::stage_bytes, "combine");
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [NQ][QB][QS]
+  TT* qs = reinterpret_cast<TT*>(smem);  // [NQ][QB][QS]
   unsigned char* stages = smem + L::q_bytes;
   __shared__ int b_sel;
   __shared__ float stat[kSlotWarps][QB][2];  // each warp's pass-1 (max, sum) of a row
+  __shared__ unsigned q_amax[kF16 ? QB : 1];   // f16: each q row's largest |q|,
+  __shared__ float q_unscale[kF16 ? QB : 1];   // and its 2^-e
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -112,7 +125,7 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
   const int r0 = rb * QB, r_end = min(r0 + QB, R);
   __syncthreads();  // b_sel
   const int b = b_sel;
-  zt_mma::stage_q<TQ, D, L::NQ, QS>(a, b, h, r0, qs);
+  zt_mma::stage_q<TQ, TT, D, L::NQ, QS>(a, b, h, r0, qs, q_amax, q_unscale);
   const int p0 = a.pos0[b];
 
   // the block's band of slots in chunks of kCh at absolute slot indices,
@@ -127,10 +140,10 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
   auto issue = [&](int v) {
     const bool pv = v >= nc;
     const int s0 = (c_lo + (pv ? v - nc : v)) * kCh;
-    bf16* kt = reinterpret_cast<bf16*>(stages + (v & 1) * L::stage_bytes);
-    bf16* vt = kt + kCh * RS;
-    const bf16* kg = kv.k_rows(b, h, s0);
-    const bf16* vg = kv.v_rows(b, h, s0);
+    TKV* kt = reinterpret_cast<TKV*>(stages + (v & 1) * L::stage_bytes);
+    TKV* vt = kt + kCh * RS;
+    const TKV* kg = kv.k_rows(b, h, s0);
+    const TKV* vg = kv.v_rows(b, h, s0);
     constexpr int kRowP = D / 8;  // 16-byte pieces a row
     for (int p = tid; p < kCh * kRowP; p += kThreads) {
       const int j = p / kRowP, c = (p % kRowP) * 8;
@@ -155,6 +168,12 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
   }
   const bool rows_full = r0 + wr0 + 15 < R;
   const int wqp_lo = p0 + (r0 + wr0) / G, wqp_hi = p0 + min(r0 + wr0 + 15, R - 1) / G;
+  // f16: the scale of each of this thread's two rows, with the row's 2^-e
+  float rsc[2] = {a.scale, a.scale};
+  if constexpr (kF16) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) rsc[i] = a.scale * q_unscale[wr0 + gid + 8 * i];
+  }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[ND][4];
 #pragma unroll
@@ -169,21 +188,28 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
     if (v + 1 < nv) issue(v + 1);  // in flight while chunk v computes
     const bool pv = v >= nc;
     const int s0 = (c_lo + (pv ? v - nc : v)) * kCh;
-    const bf16* kb = reinterpret_cast<const bf16*>(stages + (v & 1) * L::stage_bytes) + so * RS;
-    const bf16* vb = kb + kCh * RS;
+    const TT* kb = reinterpret_cast<const TT*>(stages + (v & 1) * L::stage_bytes) + so * RS;
+    const TT* vb = kb + kCh * RS;
 
     // scores of this warp's half, one code path for both passes: s[n] the
     // 16x8 accumulator of slots s0 + so + 8n .. +7; scale, softcap, mask
     // (only where some slot of the half is outside some row's band)
     float s[NT][4];
-    zt_mma::chunk_scores<L::NQ, NT, D, QS>(s, qs, kb, wr0, lane);
+    zt_mma::chunk_scores<L::NQ, NT, D, QS, TT>(s, qs, kb, wr0, lane);
     const int c0 = s0 + so;
     const bool full = rows_full && c0 + HC <= a.S && c0 + HC - 1 <= wqp_lo &&
                       (a.window <= 0 || c0 > wqp_hi - a.window);
+    if constexpr (kF16) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
+        for (int e = 0; e < 4; ++e) s[n][e] *= rsc[e >> 1];
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
+    }
     zt_mma::cap_and_mask<NT>(s, a, full, c0, tig, rv, qp);
 
     if (!pv) {  // pass 1: this warp's online row max and sum
@@ -240,7 +266,7 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
         l[i] = ll;
       }
     }
-    // pass 2: p = exp(s - m) / l rounded to bf16 is the A fragment of a
+    // pass 2: p = exp(s - m) / l rounded to the K/V dtype is the A fragment of a
     // k-step: a0 (row gid, k 0-7), a1 (row gid+8, k 0-7), a2 (row gid, k
     // 8-15), a3 (row gid+8, k 8-15)
 #pragma unroll
@@ -252,8 +278,8 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           p[e] = __fdiv_rn(expf(s[2 * k2 + hf][e] - m[e >> 1]), l[e >> 1]);
-        ap[hf * 2] = pack_bf16(p[0], p[1]);
-        ap[hf * 2 + 1] = pack_bf16(p[2], p[3]);
+        ap[hf * 2] = Tc<TT>::pack(p[0], p[1]);
+        ap[hf * 2 + 1] = Tc<TT>::pack(p[2], p[3]);
       }
 #pragma unroll
       for (int dn = 0; dn < D / 16; ++dn) {
@@ -261,8 +287,8 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
         zt_mma::ldmatrix_x4_trans(r, vb + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
                                          dn * 16 + (lane >> 4) * 8);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(o[2 * dn], ap, b0);
-        mma_bf16(o[2 * dn + 1], ap, b1);
+        Tc<TT>::mma(o[2 * dn], ap, b0);
+        Tc<TT>::mma(o[2 * dn + 1], ap, b1);
       }
     }
   }
@@ -305,10 +331,10 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
 }
 
 // One launch: grid (B * Hkv * ceil(T * G / QB)), kThreads threads.
-template <typename TQ, int D>
-int launch_mma_d(const ContigKV<bf16>& kv, const zt_mma::Params& a, cudaStream_t stream) {
-  constexpr size_t shmem = zt_mma::Layout<TQ, bf16, D, kCh, false>::bytes;
-  auto kern = flash_mma_kernel<TQ, D>;
+template <typename TQ, typename TKV, int D>
+int launch_mma_d(const ContigKV<TKV>& kv, const zt_mma::Params& a, cudaStream_t stream) {
+  constexpr size_t shmem = zt_mma::Layout<TQ, TKV, D, kCh, false>::bytes;
+  auto kern = flash_mma_kernel<TQ, TKV, D>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {
     const cudaError_t err =
@@ -321,27 +347,32 @@ int launch_mma_d(const ContigKV<bf16>& kv, const zt_mma::Params& a, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
-int launch_mma(int D, const ContigKV<bf16>& kv, const zt_mma::Params& a, cudaStream_t s) {
-  if (D == 64) return launch_mma_d<TQ, 64>(kv, a, s);
-  if (D == 128) return launch_mma_d<TQ, 128>(kv, a, s);
+template <typename TQ, typename TKV>
+int launch_mma(int D, const void* k, const void* v, int Hkv, int S, const zt_mma::Params& a,
+               cudaStream_t s) {
+  const ContigKV<TKV> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), Hkv, S, D};
+  if (D == 64) return launch_mma_d<TQ, TKV, 64>(kv, a, s);
+  if (D == 128) return launch_mma_d<TQ, TKV, 128>(kv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The tensor-core form: bf16 K/V only (kv_dtype must be 1), q 0 = float32
-// or 1 = bfloat16; shapes as zt_flash_attention.
+// The tensor-core form: bf16 (kv_dtype 1) or f16 (kv_dtype 3) K/V, q 0 =
+// float32 or 1 = bfloat16; shapes as zt_flash_attention.
 extern "C" int zt_flash_attention_mma(const void* q, int q_dtype, const void* k, const void* v,
                                       int kv_dtype, const int* pos0, const float* sinks,
                                       void* out, int B, int T, int Hq, int Hkv, int S, int D,
                                       float scale, float softcap, int window, void* stream) {
-  if (Hq % Hkv != 0 || T <= 0 || S <= 0 || kv_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (Hq % Hkv != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ContigKV<bf16> kv{static_cast<const bf16*>(k), static_cast<const bf16*>(v), Hkv, S, D};
   const zt_mma::Params a{q, out, pos0, sinks, B, T, Hq, Hkv, S, kCh, scale, softcap, window};
-  if (q_dtype == 0) return launch_mma<float>(D, kv, a, s);
-  if (q_dtype == 1) return launch_mma<bf16>(D, kv, a, s);
+#define ZT_ARGS D, k, v, Hkv, S, a, s
+  if (q_dtype == 0 && kv_dtype == 1) return launch_mma<float, bf16>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_mma<bf16, bf16>(ZT_ARGS);
+  if (q_dtype == 0 && kv_dtype == 3) return launch_mma<float, __half>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 3) return launch_mma<bf16, __half>(ZT_ARGS);
+#undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,8 +13,10 @@
 // kernel streams one page per grid step through its scalar-prefetched
 // table and keeps an online softmax whose max advances once a page, with
 // exp(s - max) rounded to the pool dtype before P.V.  Here, for bf16
-// pools (the serving path's), the one-pass tensor-core loop of
-// attn_mma.cuh (shared with K7's multi-row form) does the same: chunks of
+// pools (the serving path's) and f16 pools (`--kv-type f16`: f16 x f16
+// mma.sync, q's rows scaled by a power of two before their f16 split, see
+// attn_mma.cuh), the one-pass tensor-core loop of attn_mma.cuh (shared
+// with K7's multi-row form) does the same: chunks of
 // 128 slots (64 when ps is not a multiple of 128) never straddle a page, so
 // one table read a chunk gives its base row and its rows are contiguous; a
 // page of one chunk is scored once, a larger one walked twice (its max,
@@ -71,40 +73,44 @@ int launch_d(int D, const void* q, const void* k, const void* v, const int* tabl
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TQ, int D, int CH>
-int launch_mma_d(const PagedKV<__nv_bfloat16>& kv, const zt_mma::Params& a, cudaStream_t s) {
-  return zt_mma::launch_mma<TQ, __nv_bfloat16, D, CH, true>(kv, a, s);
+template <typename TQ, typename TP, int D, int CH>
+int launch_mma_d(const PagedKV<TP>& kv, const zt_mma::Params& a, cudaStream_t s) {
+  return zt_mma::launch_mma<TQ, TP, D, CH, true>(kv, a, s);
 }
 
-template <typename TQ>
-int launch_mma_q(int D, const PagedKV<__nv_bfloat16>& kv, const zt_mma::Params& a,
-                 cudaStream_t s) {
+template <typename TQ, typename TP>
+int launch_mma_q(int D, const void* k_pool, const void* v_pool, const int* table, int TW,
+                 int n_rows, const zt_mma::Params& a, cudaStream_t s) {
+  const PagedKV<TP> kv{static_cast<const TP*>(k_pool), static_cast<const TP*>(v_pool), table, TW,
+                       a.ps, D, (size_t)n_rows * D};
   const bool ch128 = a.ps % 128 == 0;
-  if (D == 64) return ch128 ? launch_mma_d<TQ, 64, 128>(kv, a, s) : launch_mma_d<TQ, 64, 64>(kv, a, s);
+  if (D == 64)
+    return ch128 ? launch_mma_d<TQ, TP, 64, 128>(kv, a, s) : launch_mma_d<TQ, TP, 64, 64>(kv, a, s);
   if (D == 128)
-    return ch128 ? launch_mma_d<TQ, 128, 128>(kv, a, s) : launch_mma_d<TQ, 128, 64>(kv, a, s);
+    return ch128 ? launch_mma_d<TQ, TP, 128, 128>(kv, a, s)
+                 : launch_mma_d<TQ, TP, 128, 64>(kv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The tensor-core loop (attn_mma.cuh): bf16 pools only (kv_dtype must be
-// 1), q 0 = float32 or 1 = bfloat16; shapes as zt_paged_attention.
+// The tensor-core loop (attn_mma.cuh): bf16 (kv_dtype 1) or f16 (kv_dtype
+// 3) pools, q 0 = float32 or 1 = bfloat16; shapes as zt_paged_attention.
 extern "C" int zt_paged_attention_mma(const void* q, int q_dtype, const void* k_pool,
                                       const void* v_pool, int kv_dtype, const int* table,
                                       const int* pos0, void* out, int B, int T, int Hq, int Hkv,
                                       int D, int n_rows, int TW, int ps, float scale,
                                       float softcap, int window, void* stream) {
-  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % 64 != 0 || kv_dtype != 1)
-    return (int)cudaErrorInvalidValue;
+  if (Hq % Hkv != 0 || T <= 0 || TW < 2 || ps % 64 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PagedKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k_pool),
-                                  static_cast<const __nv_bfloat16*>(v_pool), table, TW, ps, D,
-                                  (size_t)n_rows * D};
   const zt_mma::Params a{q, out, pos0, nullptr, B, T, Hq, Hkv, (TW - 1) * ps, ps,
                          scale, softcap, window};
-  if (q_dtype == 0) return launch_mma_q<float>(D, kv, a, s);
-  if (q_dtype == 1) return launch_mma_q<__nv_bfloat16>(D, kv, a, s);
+#define ZT_ARGS D, k_pool, v_pool, table, TW, n_rows, a, s
+  if (q_dtype == 0 && kv_dtype == 1) return launch_mma_q<float, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_mma_q<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0 && kv_dtype == 3) return launch_mma_q<float, __half>(ZT_ARGS);
+  if (q_dtype == 1 && kv_dtype == 3) return launch_mma_q<__nv_bfloat16, __half>(ZT_ARGS);
+#undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

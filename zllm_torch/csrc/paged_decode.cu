@@ -7,7 +7,7 @@
 // [Hkv, P * ps, D] (token-major: slot s of row b is pool row
 // table[b, s / ps] * ps + s % ps); table int32 [B, LP + 1]; pos int32 [B].
 // A row with pos < LP * ps (the horizon) writes its new K/V, cast to the
-// pool dtype, at its position; a row at or past the horizon (the engine's
+// pool dtype (f32, bf16 or f16), at its position; a row at or past the horizon (the engine's
 // trash rows) writes nothing.  Then GQA attention over slots <= pos (and
 // > pos - window), logit softcap, f32 scores, and zllm's page-by-page
 // online softmax: exp(s - running max after the page) cast to the pool
@@ -70,8 +70,8 @@ int launch(int D, const void* k_new, const void* v_new, void* k_pool, void* v_po
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k_new, v_new share one; the
-// pools another).  Pools [Hkv, n_rows, D]; table int32 [B, TW]; pos int32
+// dtype codes: 0 = float32, 1 = bfloat16, 3 = float16 (q, k_new, v_new
+// share one, f32 or bf16; the pools another, f32, bf16 or f16).  Pools [Hkv, n_rows, D]; table int32 [B, TW]; pos int32
 // [B]; out [B, Hq, D]; 1 <= ps <= 128; the horizon S = (TW - 1) * ps.
 extern "C" int zt_paged_attn_decode_update(const void* q, const void* k_new, const void* v_new,
                                            int q_dtype, void* k_pool, void* v_pool, int p_dtype,
@@ -100,6 +100,8 @@ extern "C" int zt_paged_attn_decode_update(const void* q, const void* k_new, con
   if (q_dtype == 0 && p_dtype == 1) return launch<float, __nv_bfloat16>(ZT_ARGS);
   if (q_dtype == 1 && p_dtype == 0) return launch<__nv_bfloat16, float>(ZT_ARGS);
   if (q_dtype == 1 && p_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0 && p_dtype == 3) return launch<float, __half>(ZT_ARGS);
+  if (q_dtype == 1 && p_dtype == 3) return launch<__nv_bfloat16, __half>(ZT_ARGS);
 #undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }

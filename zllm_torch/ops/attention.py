@@ -16,15 +16,15 @@ PyTorch version beside it.
     `flash_attention`): multi-token GQA attention, causal from a base
     position, window, softcap, sinks in the denominator; the probabilities
     normalized, then rounded to V's dtype.  Source:
-    `zllm_torch/csrc/flash_attn.cu` (bf16 K/V: two passes on the tensor
-    cores, the row's max and sum, then P.V; f32 K/V: the tile loop
+    `zllm_torch/csrc/flash_attn.cu` (bf16 or f16 K/V: two passes on the
+    tensor cores, the row's max and sum, then P.V; f32 K/V: the tile loop
     `csrc/attn_tile.cuh`, shared with K10's f32 pools).
   * `paged_attention` replaces `zllm/ops/attention.py::_paged_attn_kernel`
     (via `paged_attention`): multi-token attention with K/V read from a
     paged pool through the page table; causal from positions[:, 0], window,
     softcap; zllm's page-by-page online softmax, exp(s - running max)
     rounded to the pool dtype.  Source: `zllm_torch/csrc/paged_attn.cu`
-    (bf16 pools: the tensor-core loop `csrc/attn_mma.cuh`, shared with K7;
+    (bf16 or f16 pools: the tensor-core loop `csrc/attn_mma.cuh`, shared with K7;
     f32 pools: the tile loop `csrc/attn_tile.cuh`, shared with K6's f32
     form; a page-table addressor for either).
   * `paged_attn_decode_update` replaces
@@ -56,7 +56,16 @@ over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
 `.launches`; K6, K7 and K10 also count in `.mma_launches` those of their
-tensor-core form.
+tensor-core form, and K2, K6, K9 and K10 in `.f16_launches` those of their
+f16 form (an f16 cache or pool).
+
+KV caches and pools may be float32, bfloat16 or float16 (the f16 KV cache,
+llama.cpp's default `-ctk/-ctv f16`); q, the new K/V rows and the outputs
+are float32 or bfloat16.  On the card K2, K6, K9 and K10 have f16 forms
+(f16 x f16 mma.sync; an f32 or bf16 q is scaled a row at a time by a
+power of two before its f16 split, see `csrc/attn_mma.cuh`); K8 has none
+yet and raises NotImplementedError on an f16 cache, K7 takes bf16 or int8
+K/V.
 """
 
 from __future__ import annotations
@@ -70,6 +79,9 @@ from . import cuda
 from .layers import RopeTable, rope_apply_table
 
 NEG_INF = -2.4e38  # sub-f32-max filler for masked logits (as zllm's kernels)
+
+# the K/V dtypes of K6's and K10's tensor-core forms (f32 K/V: the tile loop)
+MMA_KV = (torch.bfloat16, torch.float16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -131,7 +143,10 @@ def _k2_chunk(c_code: int, d: int) -> int:
     key = (c_code, d)
     if key not in _K2_CHUNK:
         fn = cuda.bind("attn_decode", "zt_attn_decode_chunk", [_I, _I])
-        _K2_CHUNK[key] = fn(c_code, d)
+        chunk = fn(c_code, d)
+        if chunk <= 0:
+            raise ValueError(f"K2 takes no cache dtype code {c_code} at head_dim {d}")
+        _K2_CHUNK[key] = chunk
     return _K2_CHUNK[key]
 
 
@@ -172,7 +187,7 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                                      softcap=softcap, window=window, eps=eps)
     if qkv3.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv3.device}")
-    if qkv3.dtype not in cuda.DTYPE_CODE or kc.dtype not in cuda.DTYPE_CODE or vc.dtype != kc.dtype:
+    if qkv3.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.DTYPE_CODE or vc.dtype != kc.dtype:
         raise ValueError(f"dtypes {qkv3.dtype} / {kc.dtype} / {vc.dtype}")
     if d not in (64, 128) or rope.rot_dims > d:
         raise ValueError(f"head_dim {d} (rope dims {rope.rot_dims}) not supported")
@@ -202,10 +217,12 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
              float(eps), cuda.stream())
     cuda.check(err, "attn_decode_qkv")
     attn_decode_qkv.launches += 1
+    attn_decode_qkv.f16_launches += kc.dtype == torch.float16
     return out
 
 
 attn_decode_qkv.launches = 0
+attn_decode_qkv.f16_launches = 0  # of them, launches of the f16 form (an f16 cache)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +274,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
                                      window=window, sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in cuda.DTYPE_CODE or k.dtype not in cuda.DTYPE_CODE or v.dtype != k.dtype:
+    if q.dtype not in cuda.ACT_DTYPES or k.dtype not in cuda.DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}")
     if d not in (64, 128):
         raise ValueError(f"head_dim {d} not supported")
@@ -268,7 +285,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
         raise ValueError("sinks must be float32 [Hq]")
     cuda.require_cuda(q, k, v, pos0, *([sinks] if sinks is not None else []), aligned=(k, v))
     out = torch.empty_like(q)
-    mma = k.dtype == torch.bfloat16  # the tensor-core form; f32 K/V the tile loop
+    mma = k.dtype in MMA_KV  # the tensor-core form (bf16 or f16); f32 K/V the tile loop
     fn = cuda.bind("flash_attn", "zt_flash_attention_mma" if mma else "zt_flash_attention",
                    [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
     err = fn(q.data_ptr(), cuda.DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
@@ -277,11 +294,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
     cuda.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.mma_launches += mma
+    flash_attention.f16_launches += k.dtype == torch.float16
     return out
 
 
 flash_attention.launches = 0
-flash_attention.mma_launches = 0  # of them, launches of the tensor-core form (bf16 K/V)
+flash_attention.mma_launches = 0  # of them, launches of the tensor-core form (bf16/f16 K/V)
+flash_attention.f16_launches = 0  # of them, launches of the f16 form (f16 K/V)
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +318,7 @@ def _check_paged(q, k_pool, v_pool, table, page_size: int):
 
 
 def _paged_cuda_checks(q, k_pool, v_pool, table, page_size: int, tile: int):
-    if q.dtype not in cuda.DTYPE_CODE or k_pool.dtype not in cuda.DTYPE_CODE \
+    if q.dtype not in cuda.ACT_DTYPES or k_pool.dtype not in cuda.DTYPE_CODE \
             or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
     if q.shape[3] not in (64, 128):
@@ -393,7 +412,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     cuda.require_cuda(q, k_pool, v_pool, table, pos0, aligned=(k_pool, v_pool))
     b, t, hq, d = q.shape
     out = torch.empty_like(q)
-    mma = k_pool.dtype == torch.bfloat16  # the tensor-core loop; f32 pools the tile loop
+    mma = k_pool.dtype in MMA_KV  # the tensor-core loop (bf16 or f16); f32 pools the tile loop
     fn = cuda.bind("paged_attn", "zt_paged_attention_mma" if mma else "zt_paged_attention",
                    [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                     _P])
@@ -404,11 +423,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     cuda.check(err, "paged_attention")
     paged_attention.launches += 1
     paged_attention.mma_launches += mma
+    paged_attention.f16_launches += k_pool.dtype == torch.float16
     return out
 
 
 paged_attention.launches = 0
-paged_attention.mma_launches = 0  # of them, launches of the tensor-core loop (bf16 pools)
+paged_attention.mma_launches = 0  # of them, launches of the tensor-core loop (bf16/f16 pools)
+paged_attention.f16_launches = 0  # of them, launches of the f16 form (f16 pools)
 
 
 # ---------------------------------------------------------------------------
@@ -489,10 +510,12 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
              int(window), cuda.stream())
     cuda.check(err, "paged_attn_decode_update")
     paged_attn_decode_update.launches += 1
+    paged_attn_decode_update.f16_launches += k_pool.dtype == torch.float16
     return out
 
 
 paged_attn_decode_update.launches = 0
+paged_attn_decode_update.f16_launches = 0  # of them, launches of the f16 form (f16 pools)
 
 
 # ---------------------------------------------------------------------------
@@ -551,7 +574,10 @@ def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
                                         softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in cuda.DTYPE_CODE or kc.dtype not in cuda.DTYPE_CODE:
+    if kc.dtype == torch.float16:
+        raise NotImplementedError("K8's f16-cache form (attn_decode_update over an f16 "
+                                  "contiguous cache) is not ported yet (ROADMAP queue 2)")
+    if q.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.ACT_DTYPES:
         raise ValueError(f"dtypes q {q.dtype}, cache {kc.dtype}: the kernel takes f32/bf16")
     if d not in (64, 128):
         raise ValueError(f"head_dim {d} not supported")
@@ -676,7 +702,7 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                window=window, sinks=sinks, ks=ks, vs=vs)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in cuda.DTYPE_CODE or k.dtype not in KV_CODE or v.dtype != k.dtype:
+    if q.dtype not in cuda.ACT_DTYPES or k.dtype not in KV_CODE or v.dtype != k.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the kernel takes f32/bf16 q "
                          "and bf16 or int8 K/V")
     if d not in (64, 128):

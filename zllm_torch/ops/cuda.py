@@ -48,7 +48,12 @@ SOURCES = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry points.  2 is taken: K7 reads it as int8 K/V
+# (ops/attention.py KV_CODE), so float16 is 3 in every table.  A kernel
+# sizes its bytes by the element, never by the code.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
+# what activations and queries may be (float16 is a KV cache dtype only)
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}

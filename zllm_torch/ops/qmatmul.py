@@ -164,7 +164,7 @@ def _check_matvec_args(x, k, fuse, aux):
 def _check_cuda_x(x, fuse, aux):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype not in cuda.DTYPE_CODE:
+    if x.dtype not in cuda.ACT_DTYPES:
         raise ValueError(f"activation dtype {x.dtype}")
     if fuse == "norm" and aux.dtype != torch.float32:
         raise ValueError("norm weight must be float32")
@@ -437,7 +437,7 @@ def _check_gemm_x(x: torch.Tensor, k: int):
 def _gemm_cuda_x(x: torch.Tensor, w: QWeight):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype not in cuda.DTYPE_CODE:
+    if x.dtype not in cuda.ACT_DTYPES:
         raise ValueError(f"activation dtype {x.dtype}")
     _check_qweight(w, x.device)
     cuda.require_cuda(x, aligned=(x,))

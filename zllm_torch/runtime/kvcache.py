@@ -5,7 +5,8 @@ Slot index == absolute token position.  The counterparts of
 immutable and the cache is threaded through the forward pass, here the
 tensors are written in place (the decode kernel K2 writes its row itself).
 
-  * `KVCache`: bf16 or f32 K/V.
+  * `KVCache`: bf16, f16 or f32 K/V (f16: llama.cpp's default cache
+    type; on the card K2 and K6 take it in their f16 forms, K8 not yet).
   * `KVCacheQ8`: int8 codes with one f32 scale per [D] vector (llama.cpp's
     `-ctk/-ctv q8_0`), half the bytes a token of bf16.  Quantizing and
     inserting are plain PyTorch on the device, as they are XLA in zllm;

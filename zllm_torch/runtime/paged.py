@@ -1,7 +1,8 @@
 """Paged KV cache with per-slot page tables (counterpart of
 `zllm/runtime/paged.py`).
 
-  * one physical page pool per layer, shared by every slot.  The pool is
+  * one physical page pool per layer, shared by every slot, in bf16, f16
+    or f32 (K9 and K10 take each on the card).  The pool is
     token-major, [Hkv, P * page_size, D]: a token's D values are contiguous
     for 16-byte loads on the card (zllm keeps the token-minor
     [Hkv, D, P * ps] its TPU wants; `PagedKVCache.from_jax` transposes);

@@ -5,10 +5,13 @@ Usage: python -m zllm_torch.server MODEL.gguf [--host 127.0.0.1 --port 8080
        --slots 4 --ctx 2048 --kv-type bf16 --kv-layout auto --jinja
        --device cuda]
 
-Runs on the GPU unless --device cpu is given.  `--kv-type q8` serves from
-the int8 KV cache (llama.cpp's -ctk/-ctv q8_0), which takes the contiguous
-layout.  It offers only what the port serves: no router, speculative or
-lookahead decoding, f16 KV, multi-device serving or media.
+Runs on the GPU unless --device cpu is given.  `--kv-type f16` serves from
+an f16 KV cache (llama.cpp's default -ctk/-ctv f16; paged by default, or
+contiguous), `--kv-type q8` from the int8 KV cache (llama.cpp's -ctk/-ctv
+q8_0), which takes the contiguous layout.  It offers only what the port
+serves: no router, speculative or lookahead decoding, multi-device serving
+or media; an OLMo-2 model with f16 KV on the contiguous layout is refused
+(its decode kernel's f16 form is not ported yet).
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import argparse
 import sys
 
 import torch
+
+# --kv-type -> the engine's kv_dtype (zllm's tools/server.py maps the same)
+KV_TYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32, "q8": "q8"}
 
 
 def main(argv=None):
@@ -27,9 +33,9 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4, help="concurrent sequences")
     ap.add_argument("--ctx", type=int, default=2048,
                     help="context per slot (paged: rounded up to 128)")
-    ap.add_argument("--kv-type", default="bf16", choices=["bf16", "f32", "q8"],
-                    help="KV cache element type (q8 = int8-quantized cache, llama.cpp's "
-                         "-ctk/-ctv q8_0)")
+    ap.add_argument("--kv-type", default="bf16", choices=list(KV_TYPES),
+                    help="KV cache element type (f16 = llama.cpp's default -ctk/-ctv f16; q8 = "
+                         "int8-quantized cache, llama.cpp's -ctk/-ctv q8_0)")
     ap.add_argument("--kv-layout", default="auto", choices=["auto", "paged", "contiguous"],
                     help="KV cache layout: paged = shared page pool + cross-slot prefix "
                          "sharing (auto: paged, contiguous for q8)")
@@ -48,8 +54,7 @@ def main(argv=None):
         ap.error(f"{args.model} has no tokenizer")
     srv = ZllmServer(m, n_slots=args.slots, max_len=args.ctx, host=args.host, port=args.port,
                      jinja=args.jinja, kv_layout=args.kv_layout,
-                     kv_dtype={"bf16": torch.bfloat16, "f32": torch.float32,
-                               "q8": "q8"}[args.kv_type])
+                     kv_dtype=KV_TYPES[args.kv_type])
     print(f"listening on http://{args.host}:{args.port}", file=sys.stderr)
     try:
         srv.serve_forever()
