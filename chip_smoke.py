@@ -21,7 +21,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      Q5_0, Q5_1, Q8_0, Q2_K, IQ4_NL and MXFP4, the IQ grid presets
      IQ3_XXS, IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS, IQ2_S and IQ3_S (the
      factory's `ftype=`: random code bytes, wv Q4_K, the head Q5_K; K4 and
-     K5 launched, IQ1_M's matvecs on K5), and 2-layer
+     K5 launched, IQ1_M's matvecs on K5), TQ2_0 and TQ1_0 (`python -m
+     zllm_torch.quantize`: K4 and K5 in their TQ forms) and BF16 (dense
+     weights, K2 and K6 alone), and 2-layer
      OLMo-2 files in Q4_K, Q4_K_M and Q4_1, each generated on the GPU
      (kernels) and on the CPU (their plain versions), logits compared step
      by step, the Q4_0 and Q4_1 ones once more with ZLLM_QMM_DUALDOT=1 (K11
@@ -35,9 +37,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      continuous-batching Engine (f32, 2 slots) on the GPU and on the CPU:
      the llama in three KV layouts, f32 paged, f32 contiguous and q8 (int8,
      contiguous), the OLMo-2 one in f32 contiguous and f32 paged, the Q4_0
-     and Q5_K_M llamas paged, the Q3_K_M and the IQ3_XXS llamas paged
-     with 4 slots (K5's Q3_K and IQ3_XXS forms at the engine's decode M =
-     4), and the Qwen2 one paged and
+     and Q5_K_M llamas paged, the Q3_K_M, IQ3_XXS and TQ2_0 llamas paged
+     with 4 slots (K5's Q3_K, IQ3_XXS and TQ2_0 forms at the engine's
+     decode M = 4), and the Qwen2 one paged and
      q8 (G 6, head_dim 128; a last wave with a non-ASCII chatml prompt, its streamed text printed
      and equal on both sides): three prompts, one across a page, then a re-send
      sharing its first 130 tokens; tokens, reuse and step counters must be
@@ -106,7 +108,15 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      K2 a step, 110 K5 + 23 K3 + 22 K6 + 22 K2 a chunk; IQ1_M, a generate
      of IQ_SHORT_TOKENS, 110 K5 (at M = 1) + 23 K1 + 22 K2 a step and no
      K4; IQ2_XXS, IQ2_XS, IQ2_S and IQ3_S, the short generate with
-     IQ3_XXS's counts; and the
+     IQ3_XXS's counts; the ternary slice at TinyLlama geometry by `python
+     -m zllm_torch.quantize` from the F16 file (every matmul in the type,
+     the head Q6_K, the embedding Q4_K): TQ2_0 the full generate, TQ1_0 the
+     short one, IQ4_XS's counts (89 K4 + 22 K2 a step, 89 K5 + 22 K6 + 22
+     K2 a chunk); a BF16 file (every matmul and the embedding BF16, dense:
+     torch.matmul), the short generate, 22 K2 a step and 22 K6 + 22 K2 a
+     chunk and no matmul kernel; the OLMo-2 Q4_K model's generate over a
+     contiguous f16 cache (the bf16 path's counts, every K8 and K6 launch in
+     its f16 form); and the
      serving path: that Q4_K_M model behind zllm_torch.server's
      ZllmServer with its defaults (4 slots, max_len 2048, paged KV, chunk
      128) on a local port: four concurrent greedy completions, a streaming
@@ -171,32 +181,42 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      chunks (`kernel_iq`: IQ1_M's step on K5 at M = 1, K5 at M = 4 on the
      IQ3_XXS weights, K1 on each step's wv and head; rows at M = 4 against
      an M = 512 call's on every IQ3_XXS, IQ1_S and IQ1_M weight and a
-     gate|up of the other four); and
+     gate|up of the other four); K4 and K5 in their TQ forms over the TQ2_0
+     and TQ1_0 steps and chunks the same way (`kernel_tq`: the Q6_K head on
+     K4 beside them, K5 at M = 4 on the TQ2_0 weights, rows at M = 4 against
+     an M = 512 call's on every TQ weight); and
      digests of K1's and K3's outputs in the Q4_K, Q4_0, Q4_1, Q5_0, Q5_1
      and Q5_K forms and of K4's and K5's in the Q6_K, Q8_0, Q2_K, Q3_K,
      IQ4_NL, IQ4_XS and MXFP4 forms on
      seeded random GGUF bytes, and of the attention kernels' f32 and bf16
      forms (K2, K6, K8, K9, K10; caches and pools after the insert too) and
-     K7's int8 and bf16 ones (`form_digests`; `python3 chip_smoke.py
-     --digest` prints them alone, so that two trees' can be compared);
+     K7's int8 and bf16 ones, then of the attention kernels' f16 forms, and
+     of K4's and K5's IQ grid and TQ forms, each on a stream of its own
+     ("absent" in a tree without the form) (`form_digests`; `python3
+     chip_smoke.py --digest` prints them alone, so that two trees' can be
+     compared);
   5. the f16 KV cache (llama.cpp's default -ctk/-ctv f16): the build of the
-     f16 forms of K10 (attn_mma.cuh), K6, K9 (decode_cluster.cuh) and K2
-     (`build_f16`: registers and spills, 20 instantiations); 2-layer llama
-     and Qwen3 files through Generator(kv_dtype=float16) GPU-vs-CPU; 4-slot
-     paged and contiguous f16 engines GPU-vs-CPU (`f16_paged`,
-     `f16_contiguous`); an OLMo-2 contiguous f16 engine and K8 on an f16
-     cache refused with NotImplementedError (`f16_refusals`); the
+     f16 forms of K10 (attn_mma.cuh), K6, K9 and K8 (decode_cluster.cuh)
+     and K2 (`build_f16`: registers and spills, 24 instantiations); 2-layer
+     llama, Qwen3 and OLMo-2 files through Generator(kv_dtype=float16)
+     GPU-vs-CPU (OLMo-2: K8 and K6 in their f16 forms); 4-slot paged and
+     contiguous f16 engines and a 4-slot OLMo-2 contiguous f16 engine
+     GPU-vs-CPU (`f16_paged`, `f16_contiguous`, `olmo2_contiguous_f16`);
+     K8's f16 form against its plain version at OLMo-2's heads with f32 and
+     bf16 q, a trash row and f16 subnormal probabilities
+     (`olmo2_contiguous_f16`); the
      TinyLlama Q4_K_M generate over an f16 cache (`main_path`, kv_dtype
      float16: the bf16 path's counts, every K2 and K6 launch in its f16
      form, `f16_launches`); `serve_f16` and `serve_contig_f16`, the same
      server over f16 pages (K9/K10) and an f16 stripe (K2/K6); and
      `kernel_f16`: each f16 form against its plain version (f32 and bf16 q,
      nmse <= 1e-6), timed beside its bound, plain version and SDPA on the
-     same f16 K/V, at the bf16 rows' shapes, and K9/K10 at Qwen2.5's G 6,
-     d 128 in bf16 and f16.
+     same f16 K/V, at the bf16 rows' shapes (K8 at the OLMo-2 step, with
+     its bf16 form in the same call, and at a TinyLlama engine step), and
+     K9/K10 at Qwen2.5's G 6, d 128 in bf16 and f16.
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
-Q3_K_M and IQ4_XS, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
+Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
 IQ4_NL, MXFP4 and IQ grid factory files are made by child processes
 (`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
 the numpy quantizer's minutes run beside it.  Each main path also prints
@@ -234,14 +254,16 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # Q6_K; a block of 32 weights is 34 bytes in Q8_0, 18 in Q4_0 and IQ4_NL,
 # 17 in MXFP4, 20 in Q4_1, 22 in Q5_0 and 24 in Q5_1; the IQ grid formats'
 # super-blocks are 66 bytes in IQ2_XXS, 74 in IQ2_XS, 82 in IQ2_S, 98 in
-# IQ3_XXS, 110 in IQ3_S, 50 in IQ1_S and 56 in IQ1_M
+# IQ3_XXS, 110 in IQ3_S, 50 in IQ1_S and 56 in IQ1_M; the ternary ones 54
+# in TQ1_0 and 66 in TQ2_0; a BF16 weight is two bytes
 GGUF_BYTES_PER_WEIGHT = {"Q2_K": 84 / 256, "Q3_K": 110 / 256, "IQ4_XS": 136 / 256,
                          "Q4_K": 144 / 256, "Q5_K": 176 / 256, "Q6_K": 210 / 256,
                          "Q8_0": 34 / 32, "Q4_0": 18 / 32, "IQ4_NL": 18 / 32, "MXFP4": 17 / 32,
                          "Q4_1": 20 / 32, "Q5_0": 22 / 32, "Q5_1": 24 / 32,
                          "IQ2_XXS": 66 / 256, "IQ2_XS": 74 / 256, "IQ2_S": 82 / 256,
                          "IQ3_XXS": 98 / 256, "IQ3_S": 110 / 256, "IQ1_S": 50 / 256,
-                         "IQ1_M": 56 / 256}
+                         "IQ1_M": 56 / 256, "TQ1_0": 54 / 256, "TQ2_0": 66 / 256,
+                         "BF16": 2.0}
 
 PROMPT_TOKENS = 300
 NEW_TOKENS = 32
@@ -270,6 +292,9 @@ LOWBIT_FTYPES = ("Q3_K_M", "IQ4_XS", "Q2_K", "IQ4_NL", "MXFP4")
 # full generate, the others a short one (IQ_SHORT_TOKENS)
 IQ_FTYPES = ("IQ3_XXS", "IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_S")
 IQ_SHORT_TOKENS = 8
+# the ternary slice's files, by `python -m zllm_torch.quantize` (the head
+# Q6_K, the embedding Q4_K): TQ2_0 the full generate, TQ1_0 a short one
+TQ_FTYPES = ("TQ2_0", "TQ1_0")
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -513,17 +538,18 @@ def prompt_ids(tok, n: int) -> list[int]:
 
 # presets made as users make them: `python -m zllm_torch.quantize` on an
 # F16 file of the same model (kept in the cache for the next preset)
-REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS")
+REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS", *TQ_FTYPES, "BF16")
 # the main paths' requantized files (the numpy quantizer takes 30-70 s a
-# file, IQ4_XS's 2-3 minutes) and the TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL
-# and MXFP4 factory files: one child process a group makes them while the
-# kernels build (`prepare_requantized`; children that share a model's F16
+# file, IQ4_XS's 2-3 minutes; TQ2_0, TQ1_0 and BF16 among them) and the
+# TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL and MXFP4 factory files: one child
+# process a group makes them while the kernels build (`prepare_requantized`; children that share a model's F16
 # file may both write it: each writes its own temporary and renames it
 # into place, the same bytes), and gguf_file waits for its file's child
 PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M",)),
                ("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
                ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")),
-               ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]))
+               ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]),
+               ("tinyllama", ("TQ2_0", "BF16")), ("tinyllama", ("TQ1_0",)))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
@@ -827,6 +853,15 @@ SMALL_ENGINE_LAYOUTS = {
                   ("paged_attention", "paged_attn_decode_update")),
     "f16_contiguous": ("small", "Q4_K_M", dict(kv_dtype="f16", kv_layout="contiguous",
                                                n_slots=4), ("attn_decode_qkv", "flash_attention")),
+    # OLMo-2 over the contiguous f16 cache, 4 slots: K8 and K6 in their f16
+    # forms, every launch of them
+    "olmo2_contiguous_f16": ("small_olmo2", "Q4_K_M", dict(kv_dtype="f16", kv_layout="contiguous",
+                                                           n_slots=4),
+                             ("attn_decode_update", "flash_attention")),
+    # TQ2_0 (zllm_torch.quantize: every matmul TQ2_0, the head Q6_K), 4
+    # slots: a decode step's GEMMs run K5's TQ form at M = 4
+    "tq2_0_paged": ("small", "TQ2_0", dict(kv_dtype="f32", n_slots=4),
+                    ("paged_attention", "paged_attn_decode_update", "dequant_gemm")),
 }
 # the chat prompt a BPE-vocab engine check sends in a wave of its own after
 # the others, and whose streamed text (the IncrementalDecoder's pieces) it
@@ -1299,10 +1334,13 @@ def _paged_table(torch, n_slots: int, lp: int, seed: int):
     return table.to("cuda")
 
 
-def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -> dict:
-    """The f16 forms of K2, K6, K9 and K10 against their plain versions on
-    the card, at the shapes of their bf16 rows in the `kernel` lines
-    (TinyLlama geometry `cfg`): K2 at a decode step (22 layers, pos 331),
+def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, cfg_o, card: str, step_ms: dict) -> dict:
+    """The f16 forms of K2, K6, K8, K9 and K10 against their plain versions
+    on the card, at the shapes of their bf16 rows in the `kernel` lines
+    (TinyLlama geometry `cfg`): K8 at an OLMo-2-0425-1B decode step
+    (`cfg_o`: 16 layers, 16 / 16 heads of 128, pos 331) and at a TinyLlama
+    contiguous engine step (B 4, S 2176, G 8, a trash row at 2048); K2 at a
+    decode step (22 layers, pos 331),
     at a contiguous engine step (B 4, S 2176, a trash row) and in the
     per-head q/k-norm form at Qwen3-1.7B's heads (`cfg_q3`: 28 layers, 16 /
     8 of 128); K6 at a prefill chunk (the second, from 256); K9 at a serve
@@ -1316,7 +1354,8 @@ def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -
     bytes too), and nmse and max |error| against the plain version with an
     f32 q (the paths' dtype) and with a bf16 q; the caches or pools after
     the insert against the plain version's.  `step_ms`: the f16 and bf16
-    Q4_K_M decode steps' `step_graph_ms`.  Returns the phase's line."""
+    Q4_K_M decode steps' `step_graph_ms` (and the OLMo-2 Q4_K ones).  Returns
+    the phase's line."""
     from zllm_torch.ops import attention as att
     from zllm_torch.ops.layers import rope_apply_table, rope_table
 
@@ -1370,6 +1409,45 @@ def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -
                     bf16_q=chk["bf16_q"], launches=n_layers,
                     shapes=f"qkv3 [{b},{hq + 2 * hkv},{d}] f32, cache [{b},{hkv},{s},{d}] "
                            f"{str(cdtype)[6:]}, pos {pos_vals}{', q/k norms' if norms else ''}, "
+                           f"{n_layers} layers")
+
+    def k8_case(n_layers, b, hq, hkv, d, s, pos_vals, cdtype=f16):
+        pos = torch.tensor(pos_vals, dtype=torch.int32, device="cuda")[:, None]
+        q, kn, vn = randn(b, 1, hq, d), randn(b, 1, hkv, d), randn(b, 1, hkv, d)
+        kcs = [randn(b, hkv, s, d, dtype=cdtype) for _ in range(n_layers)]
+        vcs = [randn(b, hkv, s, d, dtype=cdtype) for _ in range(n_layers)]
+        kw_ = dict(scale=d ** -0.5)
+        chk = {}
+        for qn, qd in (("f32_q", torch.float32), ("bf16_q", bf16)):
+            ka, va, kb, vb = (x.clone() for x in (kcs[0], vcs[0], kcs[0], vcs[0]))
+            a = att.attn_decode_update(q.to(qd), kn.to(qd), vn.to(qd), ka, va, pos, **kw_)
+            b_ = att.attn_decode_update_plain(q.to(qd), kn.to(qd), vn.to(qd), kb, vb, pos, **kw_)
+            chk[qn] = dict(agree(a, b_),
+                           caches_equal=bool(torch.equal(ka, kb) and torch.equal(va, vb)))
+
+        def run(fn):
+            def go():
+                for kc, vc in zip(kcs, vcs):
+                    fn(q, kn, vn, kc, vc, pos, **kw_)
+            return go
+
+        qh = q.to(cdtype).transpose(1, 2)
+        mask = (torch.arange(s, device="cuda")[None, :] <= pos).reshape(b, 1, 1, s)
+
+        def lib():  # SDPA on the caches the kernel already inserted into
+            for kc, vc in zip(kcs, vcs):
+                F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask, enable_gqa=True, **kw_)
+
+        seen = sum(min(p_ + 1, s) for p_ in pos_vals)
+        nbytes = n_layers * (2 * hkv * seen * d * 2 + (q.numel() + 2 * kn.numel()) * 4
+                             + q.numel() * 4 + 2 * b * hkv * d * 2)
+        bms, bby = bound_ms(nbytes, n_layers * 4 * hq * seen * d, "bf16")
+        return dict(ms=cuda_ms(run(att.attn_decode_update), 20),
+                    plain_ms=cuda_ms(run(att.attn_decode_update_plain), 2),
+                    library_ms=cuda_ms(lib, 20), bound_ms=bms, bound_by=bby, **chk["f32_q"],
+                    bf16_q=chk["bf16_q"], launches=n_layers,
+                    shapes=f"q [{b},1,{hq},{d}] f32, k/v_new [{b},1,{hkv},{d}] f32, cache "
+                           f"[{b},{hkv},{s},{d}] {str(cdtype)[6:]}, pos {pos_vals}, "
                            f"{n_layers} layers")
 
     def k6_case(n_layers, t, hq, hkv, d, s, starts, cdtype=f16):
@@ -1514,8 +1592,16 @@ def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -
     pos_step = PROMPT_TOKENS + NEW_TOKENS - 1
     q25 = (cfg_q25.n_layers, cfg_q25.n_heads, cfg_q25.n_kv_heads, cfg_q25.head_dim)
     before16 = f16_counts({n: getattr(att, n) for n in (
-        "attn_decode_qkv", "flash_attention", "paged_attn_decode_update", "paged_attention")})
+        "attn_decode_qkv", "attn_decode_update", "flash_attention", "paged_attn_decode_update",
+        "paged_attention")})
     forms = {
+        "attn_decode_update": {
+            "olmo2_step": k8_case(cfg_o.n_layers, 1, cfg_o.n_heads, cfg_o.n_kv_heads,
+                                  cfg_o.head_dim, MAX_LEN, [pos_step]),
+            "olmo2_step_bf16": k8_case(cfg_o.n_layers, 1, cfg_o.n_heads, cfg_o.n_kv_heads,
+                                       cfg_o.head_dim, MAX_LEN, [pos_step], cdtype=bf16),
+            "tinyllama_engine_step": k8_case(L, 4, hq, hkv, d, MAX_LEN + 128,
+                                             [255, 0, 300, MAX_LEN])},
         "attn_decode_qkv": {
             "tinyllama_step": k2_case(L, 1, hq, hkv, d, MAX_LEN, [pos_step], cfg.rope,
                                       cfg.norm_eps),
@@ -1540,88 +1626,87 @@ def kernel_f16_phase(torch, F, cfg, cfg_q3, cfg_q25, card: str, step_ms: dict) -
     bad += [f"{name} {case}: cache or pools differ" for name, cases in forms.items()
             for case, r in cases.items()
             for x in (r, r["bf16_q"]) if not x.get("v_cache_equal", True)
-            or not x.get("pools_equal", True) or not x.get("k_cache_nmse", 0.0) <= 1e-9]
+            or not x.get("pools_equal", True) or not x.get("k_cache_nmse", 0.0) <= 1e-9
+            or not x.get("caches_equal", True)]
     line = {"phase": "kernel_f16", "card": card, "tolerance": tol,
             "step_graph_ms": step_ms, "f16_form_launches": {
                 n: after16[n] - before16[n] for n in after16}, **forms,
             "note": "device ms a step's layers from CUDA-graph replay; bound: the bf16 rows' bytes "
                     "(two bytes an f16 K/V element) and operations over the bf16 tensor-core "
                     "peak; library: scaled_dot_product_attention on the same f16 K/V, q cast to "
-                    "f16; the G 6, d 128 rows (Qwen2.5-1.5B's heads) in bf16 and f16"}
+                    "f16; the G 6, d 128 rows (Qwen2.5-1.5B's heads) in bf16 and f16; K8's "
+                    "olmo2_step_bf16 the same step over a bf16 cache, in this call"}
     emit(line)
     if bad:
         fail(f"f16 forms disagree with their plain versions: {bad}")
     return line
 
 
-def f16_refusals(torch, card: str):
-    """What has no f16 form yet raises a typed NotImplementedError on the
-    card and runs nothing: an OLMo-2 engine over a contiguous f16 cache
-    (its decode kernel is K8) and K8 itself on an f16 cache."""
-    from zllm_torch.models.loader import Model
+def olmo2_f16_parity(torch, card: str):
+    """K8's f16 form against its plain version at an OLMo-2-0425-1B decode
+    step's heads (16 / 16 of 128, S 2048) over an f16 cache: rows at 331 and
+    1999 and a trash row at S (it writes slot S - 1 and attends all S), f32
+    and bf16 q, and q scaled so that the scores span more than 17 nats (f16
+    subnormal probabilities); output within nmse 1e-6 (1e-5 for a bf16 q,
+    whose output rounds to bf16), the caches after the insert equal, every
+    launch counted in `.f16_launches`.  The OLMo-2 engine over a contiguous
+    f16 cache is held against the CPU by small_engine_check's
+    `olmo2_contiguous_f16` layout."""
     from zllm_torch.ops import attention as att
-    from zllm_torch.server.engine import Engine
 
-    path, _ = gguf_file("small_olmo2", SMALL_OLMO2, "Q4_K_M")
-    m = Model.load(str(path), device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+
+    def randn(*shape_, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape_, generator=g, device="cuda") * scale).to(dtype)
+
+    b, hq, hkv, d, s = 3, 16, 16, 128, MAX_LEN
+    pos = torch.tensor([[331], [1999], [s]], dtype=torch.int32, device="cuda")
     got = {}
-    try:
-        Engine(m, n_slots=2, max_len=256, prefill_chunk=16, kv_dtype=torch.float16,
-               kv_layout="contiguous")
-        got["olmo2_contiguous_f16_engine"] = "served"
-    except NotImplementedError as err:
-        got["olmo2_contiguous_f16_engine"] = f"NotImplementedError: {err}"
-    q = torch.randn(1, 1, 16, 128, device="cuda")
-    kn, vn = torch.randn(1, 1, 16, 128, device="cuda"), torch.randn(1, 1, 16, 128, device="cuda")
-    kc = torch.zeros(1, 16, 256, 128, dtype=torch.float16, device="cuda")
-    vc = torch.zeros_like(kc)
-    before = att.attn_decode_update.launches
-    try:
-        att.attn_decode_update(q, kn, vn, kc, vc, torch.tensor([[5]], dtype=torch.int32,
-                                                                device="cuda"), scale=0.09)
-        got["k8_f16_cache"] = "launched"
-    except NotImplementedError as err:
-        got["k8_f16_cache"] = f"NotImplementedError: {err}"
-    torch.cuda.synchronize()
-    untouched = att.attn_decode_update.launches == before and not bool(kc.any() or vc.any())
-    emit({"phase": "f16_refusals", **got, "k8_cache_untouched": untouched, "card": card})
-    if not all(v.startswith("NotImplementedError") for v in got.values()) or not untouched:
-        fail(f"an f16 form that is not ported ran or fell back: {got}, untouched {untouched}")
+    before = att.attn_decode_update.launches, att.attn_decode_update.f16_launches
+    for case, amp in (("normal", 1.0), ("wide", 6.0)):
+        for qn, qd in (("f32_q", torch.float32), ("bf16_q", torch.bfloat16)):
+            q = randn(b, 1, hq, d, dtype=qd, scale=amp)
+            kn, vn = randn(b, 1, hkv, d, dtype=qd), randn(b, 1, hkv, d, dtype=qd)
+            ka, va = randn(b, hkv, s, d, dtype=torch.float16), randn(b, hkv, s, d,
+                                                                     dtype=torch.float16)
+            kb, vb = ka.clone(), va.clone()
+            o = att.attn_decode_update(q, kn, vn, ka, va, pos, scale=d ** -0.5)
+            w = att.attn_decode_update_plain(q, kn, vn, kb, vb, pos, scale=d ** -0.5)
+            torch.cuda.synchronize()
+            p_ = torch.softmax(torch.einsum("hd,hsd->hs", q[0, 0].float(), kb[0, :, :332].float())
+                               * d ** -0.5, dim=-1).to(torch.float16).float()
+            got[f"{case} {qn}"] = dict(
+                nmse=nmse(o.float(), w.float()),
+                max_abs_err=float((o.float() - w.float()).abs().max()),
+                tolerance=1e-6 if qd == torch.float32 else 1e-5,
+                caches_equal=bool(torch.equal(ka, kb) and torch.equal(va, vb)),
+                subnormal_probabilities=int(((p_ > 0) & (p_ < 2.0 ** -14)).sum()))
+    launched = (att.attn_decode_update.launches - before[0],
+                att.attn_decode_update.f16_launches - before[1])
+    emit({"phase": "olmo2_contiguous_f16", "card": card, "k8_f16_vs_plain": got,
+          "k8_launches": launched[0], "k8_f16_launches": launched[1],
+          "shapes": f"q [{b},1,{hq},{d}], cache [{b},{hkv},{s},{d}] f16, pos "
+                    f"{pos[:, 0].tolist()}"})
+    bad = {k: r for k, r in got.items() if not (r["nmse"] <= r["tolerance"] and r["caches_equal"])}
+    if bad or launched != (4, 4) or not got["wide f32_q"]["subnormal_probabilities"]:
+        fail(f"K8's f16 form disagrees with its plain version: {bad}, launches {launched}")
 
 
-def attention_digests(torch) -> dict:
-    """Digests of the outputs (and the caches or pools after an insert) of
-    the attention kernels' bf16 and f32 forms, and K7's bf16 and int8 ones,
-    on seeded inputs at their main paths' shapes: K2 at an engine step (B 4,
-    S 2176: a multi-chunk row, position 0, a trash row) with f32 and bf16
-    q, and at Qwen3's q/k-norm form (d 128); K6 at a mixed step (T 128,
-    rows from 0, 256, 300, 2048) and at an OLMo-2 chunk (d 128); K8 at an
-    engine step and at OLMo-2's (d 128); K9 at a serve decode step and K10
-    at a serve mixed step (4 slots, 16 pages of 128, a scrambled table), at
-    d 64 and at G 6, d 128; K7 at the q8 decode and mixed steps, int8
-    codes with f32 scales and bf16 K/V.  Each form's caches are f32 and
-    bf16 (K7: int8 and bf16).  Equal digests on two trees mean bit-equal
-    outputs."""
+ATTENTION_DIGEST_PARTS = ("attn_decode_qkv", "flash_attention", "attn_decode_update", "paged")
+
+
+def _attention_parts(torch, randn, h, cname: str, cd, parts=ATTENTION_DIGEST_PARTS) -> dict:
+    """Digests of K2, K6, K8 and K9/K10 ("paged") over caches or pools of
+    dtype `cd`, in that order, each on inputs drawn from `randn` (see
+    attention_digests)."""
     from zllm_torch.ops import attention as att
     from zllm_torch.ops.layers import RopeParams, rope_table
 
-    g = torch.Generator(device="cuda")
-    g.manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
-
-    def randn(*shape_, dtype=f32):
-        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
-
-    def h(*xs) -> str:
-        d = hashlib.sha256()
-        for x in xs:
-            d.update(x.float().cpu().numpy().tobytes())
-        return d.hexdigest()[:16]
-
     s2 = MAX_LEN + 128
     out = {}
-    for cname, cd in (("f32", f32), ("bf16", bf16)):
-        # K2
+    if "attn_decode_qkv" in parts:
         res = []
         for b, hq, hkv, d, pos_vals, norms in ((4, 32, 4, 64, [1500, 0, s2, 255], False),
                                                  (1, 16, 8, 128, [331], True)):
@@ -1634,7 +1719,7 @@ def attention_digests(torch) -> dict:
                 o = att.attn_decode_qkv(qkv3.to(qd), kc, vc, pos, rope, qw, kw, scale=d ** -0.5)
                 res.append(h(o, kc, vc))
         out[f"attn_decode_qkv {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
-        # K6
+    if "flash_attention" in parts:
         res = []
         for b, t, hq, hkv, d, starts in ((4, 128, 32, 4, 64, [0, 256, 300, MAX_LEN]),
                                          (1, CHUNK, 16, 16, 128, [CHUNK])):
@@ -1645,7 +1730,7 @@ def attention_digests(torch) -> dict:
                 res.append(h(att.flash_attention(randn(b, t, hq, d, dtype=qd), k, v, pos,
                                                  scale=d ** -0.5)))
         out[f"flash_attention {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
-        # K8
+    if "attn_decode_update" in parts:
         res = []
         for b, hq, hkv, d, pos_vals in ((4, 32, 4, 64, [255, 0, 300, s2]),
                                         (1, 16, 16, 128, [331])):
@@ -1656,7 +1741,7 @@ def attention_digests(torch) -> dict:
                 o = att.attn_decode_update(q, kn, vn, kc, vc, pos, scale=d ** -0.5)
                 res.append(h(o, kc, vc))
         out[f"attn_decode_update {cname}"] = hashlib.sha256("".join(res).encode()).hexdigest()[:16]
-        # K9 and K10
+    if "paged" in parts:
         n_slots, ps, lp = 4, 128, MAX_LEN // 128
         table = _paged_table(torch, n_slots, lp, 2)
         r9, r10 = [], []
@@ -1677,6 +1762,47 @@ def attention_digests(torch) -> dict:
         out[f"paged_attn_decode_update {cname}"] = hashlib.sha256(
             "".join(r9).encode()).hexdigest()[:16]
         out[f"paged_attention {cname}"] = hashlib.sha256("".join(r10).encode()).hexdigest()[:16]
+    return out
+
+
+def _digest_tools(torch, seed: int):
+    """A seeded normal draw on the card and a digest of tensors' f32 bytes."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def h(*xs) -> str:
+        d = hashlib.sha256()
+        for x in xs:
+            d.update(x.float().cpu().numpy().tobytes())
+        return d.hexdigest()[:16]
+
+    return randn, h
+
+
+def attention_digests(torch) -> dict:
+    """Digests of the outputs (and the caches or pools after an insert) of
+    the attention kernels' bf16 and f32 forms, and K7's bf16 and int8 ones,
+    on seeded inputs at their main paths' shapes: K2 at an engine step (B 4,
+    S 2176: a multi-chunk row, position 0, a trash row) with f32 and bf16
+    q, and at Qwen3's q/k-norm form (d 128); K6 at a mixed step (T 128,
+    rows from 0, 256, 300, 2048) and at an OLMo-2 chunk (d 128); K8 at an
+    engine step and at OLMo-2's (d 128); K9 at a serve decode step and K10
+    at a serve mixed step (4 slots, 16 pages of 128, a scrambled table), at
+    d 64 and at G 6, d 128; K7 at the q8 decode and mixed steps, int8
+    codes with f32 scales and bf16 K/V.  Each form's caches are f32 and
+    bf16 (K7: int8 and bf16).  Equal digests on two trees mean bit-equal
+    outputs."""
+    from zllm_torch.ops import attention as att
+
+    randn, h = _digest_tools(torch, 1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    s2 = MAX_LEN + 128
+    out = {}
+    for cname, cd in (("f32", f32), ("bf16", bf16)):
+        out.update(_attention_parts(torch, randn, h, cname, cd))
     # K7: int8 codes with f32 scales, and bf16 K/V; the q8 decode and mixed steps
     for kname in ("int8", "bf16"):
         res = []
@@ -1695,6 +1821,22 @@ def attention_digests(torch) -> dict:
                                                            pos, scale=0.125, ks=ks, vs=vs)))
         out[f"flash_attention_blockwise {kname}"] = hashlib.sha256(
             "".join(res).encode()).hexdigest()[:16]
+    return out
+
+
+def f16_attention_digests(torch) -> dict:
+    """The same digests of the attention kernels' f16 forms (f16 caches and
+    pools: K2, K6, K9 and K10 since the f16 KV slice, K8 since the next),
+    each kernel on a stream of its own, so that a tree without one form
+    ("absent": the wrapper raises NotImplementedError) keeps the others'
+    digests."""
+    out = {}
+    for i, part in enumerate(ATTENTION_DIGEST_PARTS):
+        randn, h = _digest_tools(torch, 100 + i)
+        try:
+            out.update(_attention_parts(torch, randn, h, "f16", torch.float16, (part,)))
+        except NotImplementedError as err:
+            out[f"{part} f16"] = f"absent ({err})"[:80]
     return out
 
 
@@ -1717,13 +1859,14 @@ def form_digests(torch) -> dict:
     layer's shapes (wqkv norm 2048->2560, wo q 2048->2048, gate|up norm
     2048->11264, down glu 5632->2048), the matvec on an f32 and a bf16 row,
     the GEMM at M = 4 and 256, all from seed 0 (the Q4 forms' first, with
-    the random stream of the earlier `q4_digests`).  Equal digests on two
-    trees mean bit-equal outputs."""
+    the random stream of the earlier `q4_digests`); then the attention
+    kernels' f16 forms (`f16_attention_digests`) and K4's and K5's IQ grid
+    and TQ forms (`later_form_digests`), each on a stream of its own.
+    Equal digests on two trees mean bit-equal outputs."""
     import numpy as np
 
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.ops import qmatmul as qmm
-    from zllm_torch.quant.repack import repack
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
@@ -1732,31 +1875,110 @@ def form_digests(torch) -> dict:
         return torch.randn(*shape_, generator=g, device="cuda") * scale
 
     rng = np.random.default_rng(0)
-    aux = randn(2048, scale=0.1) + 1.0
-    rows = {"norm": randn(1, 2048, scale=3.0), "q": randn(1, 2048), "glu": randn(1, 2 * 5632)}
-    xm = {2048: randn(256, 2048), 5632: randn(256, 5632)}
+    inputs = _digest_inputs(randn)
     out = {}
     for fmt, (per, size, scales) in DIGEST_BLOCKS.items():
         nibble = GGMLType[fmt] in qmm.NIBBLE_FMT_CODE
         mv, gm = (qmm.q4k_matvec, qmm.q4k_gemm) if nibble else (qmm.int8_matvec,
                                                                 qmm.dequant_gemm)
-        h1, h3 = hashlib.sha256(), hashlib.sha256()
-        for k, n, fuse in ((2048, 2560, "norm"), (2048, 2048, "q"), (2048, 11264, "norm"),
-                           (5632, 2048, "glu")):
+
+        def gguf_rows(k, n):
             raw = rng.integers(0, 256, size=(n * k // per, size), dtype=np.uint8)
             for off in scales:
                 vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
                 raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
             if fmt == "MXFP4":
                 raw[:, 0] = rng.integers(115, 135, size=raw.shape[0])
-            w = repack(raw.reshape(n, -1), (n, k), GGMLType[fmt], "cuda")
+            return raw
+
+        out[fmt] = _weight_digests(torch, GGMLType[fmt], gguf_rows, mv, gm, *inputs)
+    out["attention"] = attention_digests(torch)
+    out["attention_f16"] = f16_attention_digests(torch)
+    out.update(later_form_digests(torch))
+    return out
+
+
+# a TinyLlama layer's matmuls (K, N, the matvec's prologue)
+DIGEST_SHAPES = ((2048, 2560, "norm"), (2048, 2048, "q"), (2048, 11264, "norm"),
+                 (5632, 2048, "glu"))
+
+
+def _digest_inputs(randn):
+    """The digests' RMS-norm weight, matvec rows by prologue and GEMM rows
+    by K, drawn from `randn` in this order."""
+    aux = randn(2048, scale=0.1) + 1.0
+    rows = {"norm": randn(1, 2048, scale=3.0), "q": randn(1, 2048), "glu": randn(1, 2 * 5632)}
+    return aux, rows, {2048: randn(256, 2048), 5632: randn(256, 5632)}
+
+
+def _weight_digests(torch, gtype, gguf_rows, mv, gm, aux, rows, xm) -> dict:
+    """Digests of the matvec `mv` (None: the format has none) on an f32 and
+    a bf16 row and of the GEMM `gm` at M = 4 and 256, on weights of the
+    GGUF rows `gguf_rows(k, n)` gives at each of DIGEST_SHAPES."""
+    from zllm_torch.quant.repack import repack
+
+    h1, h3 = hashlib.sha256(), hashlib.sha256()
+    for k, n, fuse in DIGEST_SHAPES:
+        w = repack(gguf_rows(k, n).reshape(n, -1), (n, k), gtype, "cuda")
+        if mv is not None:
             for xdtype in (torch.float32, torch.bfloat16):
                 y = mv(rows[fuse].to(xdtype), w, fuse, aux if fuse == "norm" else None, 1e-5)
                 h1.update(y.cpu().numpy().tobytes())
-            for m in (4, 256):
-                h3.update(gm(xm[k][:m], w).cpu().numpy().tobytes())
-        out[fmt] = {mv.__name__: h1.hexdigest()[:16], gm.__name__: h3.hexdigest()[:16]}
-    out["attention"] = attention_digests(torch)
+        for m in (4, 256):
+            h3.update(gm(xm[k][:m], w).cpu().numpy().tobytes())
+    out = {gm.__name__: h3.hexdigest()[:16]}
+    if mv is not None:
+        out[mv.__name__] = h1.hexdigest()[:16]
+    return out
+
+
+# the matmul forms added since the digests above: K4's and K5's IQ grid
+# forms (IQ1_M on K5 alone) and their ternary ones; TQ GGUF blocks and the
+# offset of their fp16 d
+LATER_DIGEST_FMTS = ("IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S", "IQ1_M",
+                     "TQ1_0", "TQ2_0")
+TQ_DIGEST_BLOCKS = {"TQ1_0": (54, 52), "TQ2_0": (66, 64)}
+
+
+def later_form_digests(torch) -> dict:
+    """Digests of K4's and K5's IQ grid and TQ forms, as form_digests takes
+    the others' (the same layer shapes, rows and M), each format on a
+    stream of its own (so that a tree lacking one form, "absent", keeps the
+    others' digests): IQ weights of random code bytes at an RMS of 0.02
+    (`random_iq_blocks`), TQ ones of random code bytes with d in [0.002,
+    0.02); IQ1_M's matvec is K5's, so it has the GEMM digest alone."""
+    import numpy as np
+
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.testing import random_iq_blocks
+
+    out = {}
+    for i, fmt in enumerate(LATER_DIGEST_FMTS):
+        gtype = GGMLType[fmt]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(200 + i)
+
+        def randn(*shape_, scale=1.0):
+            return torch.randn(*shape_, generator=g, device="cuda") * scale
+
+        rng = np.random.default_rng(200 + i)
+
+        def gguf_rows(k, n):
+            if fmt not in TQ_DIGEST_BLOCKS:
+                return random_iq_blocks(gtype, n * k // 256, rng)
+            size, off = TQ_DIGEST_BLOCKS[fmt]
+            raw = rng.integers(0, 256, size=(n * k // 256, size), dtype=np.uint8)
+            vals = rng.uniform(0.002, 0.02, size=raw.shape[0]).astype(np.float16)
+            raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+            return raw
+
+        mv = qmm.int8_matvec if gtype in qmm.K4_FMTS else None
+        try:
+            out[fmt] = _weight_digests(torch, gtype, gguf_rows, mv, qmm.dequant_gemm,
+                                       *_digest_inputs(randn))
+        except NotImplementedError as err:
+            out[fmt] = f"absent ({err})"[:80]
     return out
 
 
@@ -1813,7 +2035,8 @@ def main():
                   "(dequant_gemm.cu: "
                   "Q6KSlice, Q80Slice, CrumbSlice for Q2_K / Q3_K, TableSlice for IQ4_NL and "
                   "IQ4_XS / MXFP4 / IQ2_XXS / IQ2_XS and IQ2_S / IQ3_XXS / IQ3_S, IQ1CrumbSlice "
-                  "for IQ1_S / IQ1_M), RowForm and TileForm per decoder, and its round and "
+                  "for IQ1_S / IQ1_M, TernarySlice for TQ1_0 / TQ2_0), RowForm and TileForm per "
+                  "decoder, and its round and "
                   "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
@@ -1826,11 +2049,11 @@ def main():
                   "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
                   "K/V int8/bf16 x D 64/128), K9 (paged_decode.cu: q f32/bf16 x pools "
                   "f32/bf16/f16 x D 64/128) and K8 (attn_decode_update.cu: q f32/bf16 x caches "
-                  "f32/bf16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
+                  "f32/bf16/f16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
     spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the cluster decode step spills: {spills}")
-    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 12), ("attn_decode_update", 8)):
+    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 12), ("attn_decode_update", 12)):
         inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
         if lib in reports and len(inst) != n_inst:
             fail(f"{lib}: {len(inst)} cluster decode instantiations built, not {n_inst}")
@@ -1839,7 +2062,7 @@ def main():
     # TinyLlama engine step's 16), beside the clusters a call launches
     k8_occupancy = {}
     for qn, qd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for cn, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for cn, cd in (("f32", torch.float32), ("bf16", torch.bfloat16), ("f16", torch.float16)):
             for d, b_, hq_, hkv_, s_ in ((128, 1, 16, 16, MAX_LEN), (64, 4, 32, 4, MAX_LEN + 128)):
                 k8_occupancy[f"q {qn} cache {cn} D {d}"] = dict(
                     max_active_clusters=att.attn_decode_update_clusters(qd, cd, b_, hq_, hkv_,
@@ -1863,32 +2086,34 @@ def main():
                                      ("attn_decode", "attn_decode_qkv_kernel"))}
     emit({"phase": "build_k4_k2", "instantiations": k4k2_build,
           "note": "registers and spills of K4 (csrc/int8_matvec.cu: Q6_K/Q8_0/Q2_K/Q3_K/"
-                  "IQ4/MXFP4/IQ2 (32-groups)/IQ2 (16-groups)/IQ3_XXS/IQ3_S/IQ1_S x prologue "
+                  "IQ4/MXFP4/IQ2 (32-groups)/IQ2 (16-groups)/IQ3_XXS/IQ3_S/IQ1_S/TQ x prologue "
                   "q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one decoder, IQ2_XS and "
-                  "IQ2_S another) and K2 (csrc/attn_decode.cu: q f32/bf16 x cache "
+                  "IQ2_S another, TQ1_0 and TQ2_0 a third) and K2 (csrc/attn_decode.cu: q "
+                  "f32/bf16 x cache "
                   "f32/bf16/f16 x D 64/128)" if any(k4k2_build.values())
                   else "not built in this run (cached)"})
     spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K4 or K2 spills: {spills}")
-    for lib, n_inst in (("int8_matvec", 66), ("attn_decode", 12)):
+    for lib, n_inst in (("int8_matvec", 72), ("attn_decode", 12)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
     # the f16 forms (an __half K/V type): K10's tensor-core loop (q f32/bf16 x D
-    # 64/128 x chunks of 64/128), K6's two passes, K9's cluster step and K2
-    # (q f32/bf16 x D 64/128 each)
+    # 64/128 x chunks of 64/128), K6's two passes, K9's and K8's cluster step
+    # and K2 (q f32/bf16 x D 64/128 each)
     f16_build = {lib: [e for e in ptxas_entries({lib: reports.get(lib, "")}, entry)
                        if "__half" in e["name"]]
                  for lib, entry in (("paged_attn", "attn_mma_kernel"),
                                     ("flash_attn", "flash_mma_kernel"),
                                     ("paged_decode", "decode_cluster_kernel"),
+                                    ("attn_decode_update", "decode_cluster_kernel"),
                                     ("attn_decode", "attn_decode_qkv_kernel"))}
     emit({"phase": "build_f16", "instantiations": f16_build,
           "note": "registers and spills of the f16 KV forms: K10 (attn_mma.cuh), K6 "
-                  "(flash_attn.cu), K9 (decode_cluster.cuh) and K2 (attn_decode.cu)"
+                  "(flash_attn.cu), K9 and K8 (decode_cluster.cuh) and K2 (attn_decode.cu)"
                   if any(f16_build.values()) else "not built in this run (cached)"})
     for lib, n_inst in (("paged_attn", 8), ("flash_attn", 4), ("paged_decode", 4),
-                        ("attn_decode", 4)):
+                        ("attn_decode_update", 4), ("attn_decode", 4)):
         if lib in reports and len(f16_build[lib]) != n_inst:
             fail(f"{lib}: {len(f16_build[lib])} f16 instantiations built, not {n_inst}")
     spills = [e for v in f16_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
@@ -1916,10 +2141,10 @@ def main():
     # one sliced-loop instantiation a form and decoder: K3's six nibble
     # formats, K5's Q6_K, Q8_0, Q2_K, Q3_K, IQ4 (IQ4_NL and IQ4_XS), MXFP4,
     # IQ2 (32-groups), IQ2 (16-groups: IQ2_XS and IQ2_S), IQ3_XXS, IQ3_S,
-    # IQ1_S and IQ1_M (IQ1CrumbSlice)
+    # IQ1_S and IQ1_M (IQ1CrumbSlice), TQ1_0 and TQ2_0 (TernarySlice)
     for lib, decoders, n_dec in (("q4k_gemm", ("NibbleSlice",), 6),
                                  ("dequant_gemm", ("Q6KSlice", "Q80Slice", "CrumbSlice",
-                                                   "TableSlice"), 12)):
+                                                   "TableSlice", "TernarySlice"), 13)):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
                  if any(d in e["name"] for d in decoders)]
         if lib in reports and len(loops) != 2 * n_dec:
@@ -1945,6 +2170,10 @@ def main():
         small_model_check(torch, ftype, kernels=kernels,
                           must=("dequant_gemm",) if ftype == "IQ1_M"
                           else ("int8_matvec", "dequant_gemm"))
+    for ftype in TQ_FTYPES:  # K4 and K5 in their TQ forms (the head Q6_K)
+        small_model_check(torch, ftype, kernels=kernels, must=("int8_matvec", "dequant_gemm"))
+    # BF16: every matmul a dense bf16 matrix (torch.matmul), K2 and K6 alone
+    small_model_check(torch, "BF16", kernels=kernels, must=("attn_decode_qkv", "flash_attention"))
     for ftype in ("Q4_K", "Q4_K_M"):
         small_model_check(torch, ftype, "small_olmo2", SMALL_OLMO2)
     dualdot = {"ZLLM_QMM_DUALDOT": "1"}
@@ -1963,10 +2192,13 @@ def main():
     for name in ("small", "small_qwen3"):
         small_model_check(torch, "Q4_K", name, SMALL_SHAPES[name], kernels=kernels,
                           must=("attn_decode_qkv", "flash_attention"), kv_dtype=torch.float16)
+    # and a 2-layer OLMo-2 file: K8 and K6 in their f16 forms
+    small_model_check(torch, "Q4_K", "small_olmo2", SMALL_OLMO2, kernels=kernels,
+                      must=("attn_decode_update", "flash_attention"), kv_dtype=torch.float16)
     tokenizer_roundtrip(card)
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
-    f16_refusals(torch, card)
+    olmo2_f16_parity(torch, card)
 
     # ---- main paths at TinyLlama geometry -------------------------------
     # every T > 1 step over the contiguous cache (a prefill chunk here)
@@ -2150,6 +2382,38 @@ def main():
         iq_models[ftype], iq_steps[ftype], iq_counts[ftype] = model_iq, step_iq, counts_iq
         del gen_iq
 
+    # the ternary slice at TinyLlama geometry (zllm_torch.quantize from the
+    # F16 file: every matmul in the type, so wq|wk|wv and gate|up fuse; the
+    # head Q6_K, the embedding Q4_K): IQ4_XS's counts, K4 and K5 in their TQ
+    # forms (and K4's Q6_K form for the head); TQ2_0 the full generate, TQ1_0
+    # a short one
+    tq_models, tq_steps, tq_counts = {}, {}, {}
+    for ftype in TQ_FTYPES:
+        model_tq, counts_tq, gen_tq, *_, step_tq = main_path(
+            torch, ftype, kernels, want_k4_only, card,
+            new_tokens=NEW_TOKENS if ftype == "TQ2_0" else IQ_SHORT_TOKENS)
+        tq_models[ftype], tq_steps[ftype], tq_counts[ftype] = model_tq, step_tq, counts_tq
+        del gen_tq
+
+    # a BF16 file at TinyLlama geometry (zllm_torch.quantize: every matmul
+    # and the embedding BF16): dense bf16 weights multiplied by torch.matmul
+    # (cast to the activations' dtype, as zllm casts them), no matmul kernel;
+    # K2 and K6 carry its attention; a short generate
+    def want_dense(cfg, n_steps, n_chunks):
+        L = cfg.n_layers
+        return dict({name: 0 for name in kernels}, attn_decode_qkv=L * (n_steps + n_chunks),
+                    flash_attention=L * n_chunks)
+
+    model_bf16, counts_bf16, gen_bf16, *_, step_bf16 = main_path(
+        torch, "BF16", kernels, want_dense, card, new_tokens=IQ_SHORT_TOKENS)
+    del gen_bf16
+    # the OLMo-2 Q4_K model over a contiguous f16 cache: the bf16 path's
+    # counts, every K8 and K6 launch in its f16 form
+    _, counts_o16, gen_o16, *_, step_o16 = main_path(torch, "Q4_K", kernels, want_olmo2, card,
+                                                     name="olmo2", kv_dtype=torch.float16,
+                                                     model=model_o)
+    del gen_o16
+
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
     counts_contig = serve_phase(torch, model_m, kernels, card, kv_layout="contiguous")
@@ -2170,7 +2434,9 @@ def main():
              **{ft.lower(): c for ft, c in iq_counts.items()},
              "serve": counts_serve, "serve_q8": counts_q8,
              "serve_contig": counts_contig, "Q4_K_M_f16": counts_q4km16,
-             "serve_f16": counts_serve16, "serve_contig_f16": counts_contig16}
+             "serve_f16": counts_serve16, "serve_contig_f16": counts_contig16,
+             **{ft.lower(): c for ft, c in tq_counts.items()}, "bf16": counts_bf16,
+             "olmo2_f16": counts_o16}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -2201,7 +2467,7 @@ def main():
     # the layout, but only the vocabulary's columns count toward the bound
     real_cols = {id(m_.params["output"]): m_.cfg.vocab_size
                  for m_ in (model, model_m, model_40, model_o, model_o1, *q5_models.values(),
-                            *lowbit_models.values(), *iq_models.values())}
+                            *lowbit_models.values(), *iq_models.values(), *tq_models.values())}
 
     def n_real(w):
         return real_cols.get(id(w), w.shape[1])
@@ -2610,8 +2876,10 @@ def main():
 
     # the f16 forms of K2, K6, K9 and K10 at the same shapes (and K9/K10 at
     # Qwen2.5's G 6, d 128 in bf16 and f16)
-    kernel_f16_phase(torch, F, cfg, model_q3.cfg, model_q25.cfg, card,
-                     {"tinyllama_q4km_f16_kv": step_m16, "tinyllama_q4km_bf16_kv": step_m})
+    line_f16 = kernel_f16_phase(torch, F, cfg, model_q3.cfg, model_q25.cfg, cfg_o, card,
+                                {"tinyllama_q4km_f16_kv": step_m16,
+                                 "tinyllama_q4km_bf16_kv": step_m, "olmo2_q4k_f16_kv": step_o16,
+                                 "olmo2_q4k_bf16_kv": step_o})
 
     # K7 at the q8 serving path's shapes: 4 slots, S = 2176 (max_len 2048 +
     # chunk 128), f32 q (the GEMMs' output dtype), one step's 22 layers, each
@@ -2821,7 +3089,10 @@ def main():
                       cuda_launches_per_call=k8_calls if k8_calls is not None else "not measured",
                       cluster_blocks=att.DECODE_CLUSTER, long_checks=k8_long,
                       max_active_clusters=k8_occupancy,
-                      form="one thread-block-cluster launch (csrc/decode_cluster.cuh)"))
+                      form="one thread-block-cluster launch (csrc/decode_cluster.cuh)",
+                      f16_olmo2_step=line_f16["attn_decode_update"]["olmo2_step"],
+                      f16_tinyllama_engine_step=line_f16["attn_decode_update"][
+                          "tinyllama_engine_step"]))
     bad_k8 = [] if k8_t["nmse"] <= k8_t["tolerance"] else ["tinyllama_engine_step"]
 
     # K12 over one OLMo-2 decode step's 65 Q4_K matvecs (the layers' four
@@ -3103,6 +3374,24 @@ def main():
     iq_k5["iq3_xxs_tinyllama_m4"] = iq_lines["IQ3_XXS"]["k5_m4"]
     iq_k5["iq1_m_tinyllama_m1_step"] = iq_lines["IQ1_M"]["k5_m1"]
 
+    # the ternary forms by weight role: K4 on each TQ step's 88 matvecs and
+    # its Q6_K head ("head Q6_K"), K5 on the chunk's GEMMs (and at M = 4 on
+    # the TQ2_0 weights); bounded by each weight's GGUF bytes (54 and 66 per
+    # 256, the head's 210), the layout's 80 per 256 beside them
+    tq_lines = {ft: role_lines(tq_models[ft], k4_k5, ("k4", "k5"), all_heads=True,
+                               m4=ft == "TQ2_0") for ft in TQ_FTYPES}
+    bad_tq = failed(tq_lines)
+    emit({"phase": "kernel_tq", "card": card,
+          "shapes": "TinyLlama geometry, each file by zllm_torch.quantize: 22 x [wqkv norm "
+                    "2048->2560, wo q 2048->2048, gate|up norm 2048->11264, down glu "
+                    "5632->2048] in the type + head norm 2048->32000 Q6_K (launched padded to "
+                    "32768); K5 the same weights at M = 256 (TQ2_0 also 4); bounds by each "
+                    "weight's GGUF bytes, the layout's beside them (layout_bytes_per_weight)",
+          **tq_lines})
+    tq_k4 = {f"{ft.lower()}_tinyllama": ln["k4"] for ft, ln in tq_lines.items()}
+    tq_k5 = {f"{ft.lower()}_tinyllama": ln["k5"] for ft, ln in tq_lines.items()}
+    tq_k5["tq2_0_tinyllama_m4"] = tq_lines["TQ2_0"]["k5_m4"]
+
     # the earlier kernel forms keep their bits: digests of their outputs on
     # seeded inputs, to be compared with another tree's (`--digest`)
     digests = form_digests(torch)
@@ -3171,6 +3460,8 @@ def main():
     by_name["dequant_gemm"].update(lowbit_k5)
     by_name["int8_matvec"].update(iq_k4)
     by_name["dequant_gemm"].update(iq_k5)
+    by_name["int8_matvec"].update(tq_k4)
+    by_name["dequant_gemm"].update(tq_k5)
     by_name["q4k_gemm"]["serve_decode_step_m4"] = dict(
         gemm_phase(torch, qmm.q4k_gemm, qmm.q4k_gemm_plain, g4_k3, n_real,
                    GGUF_BYTES_PER_WEIGHT["Q4_K"], check=(0, len(g4_k3) - 1), groups=roles_m),
@@ -3220,7 +3511,10 @@ def main():
                                 for ft in ("IQ3_XXS", "IQ1_S", "IQ1_M")},
                              **{f"{ft} gate|up": rows_same(qmm.dequant_gemm, [
                                  (x512[d_model], iq_models[ft].params["layers"][0]["ffn_gateup"])])
-                                for ft in IQ_FTYPES[3:]}},
+                                for ft in IQ_FTYPES[3:]},
+                             **{f"{ft} {ft}": rows_same(qmm.dequant_gemm,
+                                                        role_calls(tq_models[ft], False)[1])
+                                for ft in TQ_FTYPES}},
             "q4k_gemm": {"Q4_K_M Q4_K": rows_same(qmm.q4k_gemm, gcalls_m),
                          "Q4_0 gate|up": rows_same(qmm.q4k_gemm, [(x512[d_model], w40)]),
                          "Q4_1 OLMo-2 ffn_down": rows_same(qmm.q4k_gemm,
@@ -3282,6 +3576,18 @@ def main():
                                  + by_name["attn_decode_qkv"]["ms"]),
           "olmo2_q4k": dict(step_graph_ms=step_o, k1_ms=k1_o["ms"], k8_ms=k8_o["ms"],
                             kernels_ms=k1_o["ms"] + k8_o["ms"]),
+          "olmo2_q4k_f16_kv": dict(
+              step_graph_ms=step_o16, k1_ms=k1_o["ms"],
+              k8_ms=line_f16["attn_decode_update"]["olmo2_step"]["ms"],
+              kernels_ms=k1_o["ms"] + line_f16["attn_decode_update"]["olmo2_step"]["ms"]),
+          **{f"tinyllama_{ft.lower()}": dict(step_graph_ms=tq_steps[ft],
+                                             k4_ms=tq_lines[ft]["k4"]["ms"],
+                                             k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                             kernels_ms=tq_lines[ft]["k4"]["ms"]
+                                             + by_name["attn_decode_qkv"]["ms"])
+             for ft in TQ_FTYPES},
+          "tinyllama_bf16": dict(step_graph_ms=step_bf16, k2_ms=by_name["attn_decode_qkv"]["ms"],
+                                 kernels_ms=by_name["attn_decode_qkv"]["ms"]),
           "tinyllama_q5km": dict(step_graph_ms=q5_steps["Q5_K_M"],
                                  k1_ms=q5_lines["Q5_K_M"]["k1"]["ms"],
                                  k4_ms=q5_lines["Q5_K_M"]["k4"]["ms"],
@@ -3325,9 +3631,10 @@ def main():
           "note": "one B = 1 decode step's forward at the last decode position, captured once "
                   "and replayed; kernels_ms sums the step's K1 and K2 (Q4_K_M, Q5_K_M: K1, K4 "
                   "and K2; OLMo-2: K1 and K8; Qwen: K1, K4, K2 and the tied head's matmul; "
-                  "Q3_K_M: K4, K1 and K2; IQ4_XS, Q2_K, IQ4_NL, MXFP4: K4 and K2; the IQ grid "
-                  "presets: K4 (IQ1_M: K5 at M = 1), K1 for wv and the head, and K2) "
-                  "graph times from the kernel phases"})
+                  "Q3_K_M: K4, K1 and K2; IQ4_XS, Q2_K, IQ4_NL, MXFP4, TQ2_0, TQ1_0: K4 and "
+                  "K2; the IQ grid presets: K4 (IQ1_M: K5 at M = 1), K1 for wv and the head, "
+                  "and K2; BF16: K2 alone, its matmuls torch's; OLMo-2 over an f16 cache: K1 "
+                  "and K8's f16 form) graph times from the kernel phases"})
 
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
@@ -3335,10 +3642,10 @@ def main():
     if not by_name["attn_decode_qkv"]["tinyllama_engine_step"]["nmse"] <= 1e-5:
         bad.append("attn_decode_qkv tinyllama_engine_step")
     if (bad or bad_q8 or bad_m4 or bad_k6 or bad_k7 or bad_k8 or bad_legacy or bad_q5
-            or bad_lowbit or bad_iq):
+            or bad_lowbit or bad_iq or bad_tq):
         fail(f"kernels disagree with their plain versions: {bad} (Q8_0: {bad_q8}, "
              f"M=4: {bad_m4}, K6: {bad_k6}, K7: {bad_k7}, K8: {bad_k8}, Q4_0/Q4_1: "
-             f"{bad_legacy}, Q5: {bad_q5}, low-bit: {bad_lowbit}, IQ: {bad_iq})")
+             f"{bad_legacy}, Q5: {bad_q5}, low-bit: {bad_lowbit}, IQ: {bad_iq}, TQ: {bad_tq})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the weight formats each matmul kernel takes (its forms)
@@ -3349,7 +3656,7 @@ def main():
     # the attention kernels' forms: the K/V (cache or pool) dtypes each takes
     forms.update({name: ["float32", "bfloat16", "float16"] for name in (
         "attn_decode_qkv", "flash_attention", "paged_attn_decode_update", "paged_attention")})
-    forms.update(attn_decode_update=["float32", "bfloat16"],
+    forms.update(attn_decode_update=["float32", "bfloat16", "float16"],
                  flash_attention_blockwise=["bfloat16", "int8"])
     emit({"kernels": [dict({k: ln[k] for k in keys},
                            **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))

@@ -4,13 +4,17 @@
 Cases: a mid-cache position, the 256-slot block edge (255), the start (0),
 two rows at different positions, a sliding window, a trash row (pos == S:
 it writes slot S-1 and attends all S slots) and a logit softcap; over
-groups G = 1 (MHA) and 4, head dims 64 and 128, S = 256 and 512, and f32
-and bf16 caches.  q is f32, as the forward hands it over (the matvecs
-return f32), except in one case with a bf16 q.  Tolerances: with an f32
-cache only the f32 sum order differs, so max |diff| <= 1e-5; with a bf16
-cache both sides round the new rows and the probabilities to bf16 at the
-same points, and an f32 sum-order difference may move one probability by
-a bf16 ulp, so nmse <= 1e-5.  The updated caches are bit-identical."""
+groups G = 1 (MHA) and 4, head dims 64 and 128, S = 256 and 512, and f32,
+bf16 and f16 caches (the f16 KV cache).  q is f32, as the forward hands it
+over (the matvecs return f32), except in two cases with a bf16 q (bf16
+and f16 caches).  Tolerances: with an f32 cache only the f32 sum order
+differs, so max |diff| <= 1e-5; with a bf16 or f16 cache both sides round
+the new rows and the probabilities to the cache dtype at the same points
+(f16's subnormal probabilities kept on both), and an f32 sum-order
+difference may move one probability by an ulp of that dtype, so nmse <=
+1e-5.  The updated caches are bit-identical.  S stays a multiple of 256
+as in the other K8 tests, though zllm's K8, unlike its K2, was found to
+insert at the right slot for S 384 too."""
 
 import numpy as np
 import pytest
@@ -74,7 +78,7 @@ def _check(got, want, caches, zcaches, cdtype):
         np.testing.assert_array_equal(to_np(a), to_np(b))
 
 
-@pytest.mark.parametrize("cdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cdtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_k8_plain_matches_pallas(case, cdtype):
     got, want, caches, zcaches = _run_both(case, cdtype)
@@ -85,6 +89,15 @@ def test_k8_plain_matches_pallas(case, cdtype):
 def test_k8_bf16_q_matches_pallas(case):
     """A bf16 q is taken as it is (zllm's kernel reads it into f32)."""
     got, want, caches, zcaches = _run_both(case, "bfloat16", "bfloat16")
+    assert nmse(to_np(got), to_np(want)) <= 1e-4  # the outputs themselves round to bf16
+    for a, b in zip(caches, zcaches):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+
+
+@pytest.mark.parametrize("case", ["mid", "trash_row"])
+def test_k8_bf16_q_f16_cache_matches_pallas(case):
+    """A bf16 q over an f16 cache (the f16 form's one-part q)."""
+    got, want, caches, zcaches = _run_both(case, "float16", "bfloat16")
     assert nmse(to_np(got), to_np(want)) <= 1e-4  # the outputs themselves round to bf16
     for a, b in zip(caches, zcaches):
         np.testing.assert_array_equal(to_np(a), to_np(b))

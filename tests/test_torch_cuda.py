@@ -26,8 +26,9 @@ plane), and 2-layer Q5 files run on the card within nmse 1e-3 of the CPU
 IQ4_XS and MXFP4 forms (table lookups by byte permutes, MXFP4's E8M0
 scale from its bits) and in the IQ grid forms (IQ2_XXS, IQ2_XS, IQ2_S,
 IQ3_XXS, IQ3_S and IQ1_S on both, IQ1_M on K5 alone; weights of random
-code bytes), and 2-layer files in those formats run on the card within
-nmse 1e-3 of the CPU.
+code bytes) and the ternary TQ1_0 and TQ2_0 forms, and 2-layer files in
+those formats (and a BF16 one, dense) run on the card within nmse 1e-3 of
+the CPU; K8 holds its tolerance over f16 caches too (its f16 form).
 """
 
 import functools
@@ -144,14 +145,15 @@ def test_k3_refuses_odd_n(dev):
 INT_FMTS = [GGMLType.Q6_K, GGMLType.Q8_0]
 LOWBIT_FMTS = [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4]
 IQ_FMTS = list(IQ_GRID_TYPES)  # IQ1_M (last) on K5 alone
-K5_FMTS = [*INT_FMTS, *LOWBIT_FMTS, *IQ_FMTS]
+TQ_FMTS = [GGMLType.TQ1_0, GGMLType.TQ2_0]
+K5_FMTS = [*INT_FMTS, *LOWBIT_FMTS, *IQ_FMTS, *TQ_FMTS]
 K4_FMTS = [f for f in K5_FMTS if f != GGMLType.IQ1_M]
 
 
 def _int_weight(fmt, n: int, k: int, seed: int, dev, n_pad: int = 0):
     """A random weight of a K4/K5 format (Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-    IQ4_XS, MXFP4, the IQ grid formats); `n_pad` > n zero-pads it as the
-    loader pads the head."""
+    IQ4_XS, MXFP4, the IQ grid formats, TQ1_0, TQ2_0); `n_pad` > n
+    zero-pads it as the loader pads the head."""
     w = repack(_qweight_raw(n, k, seed, fmt), (n, k), fmt, dev)
     return pad_n(w, n_pad) if n_pad else w
 
@@ -188,7 +190,8 @@ LOWBIT_K5_CASES = [(1, 256, 128, 0), (4, 2048, 256, 0), (4, 5632, 2048, 0), (7, 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m,k,n,n_pad,fmt",
                          [(*c, f) for f in INT_FMTS for c in K5_CASES]
-                         + [(*c, f) for f in LOWBIT_FMTS + IQ_FMTS for c in LOWBIT_K5_CASES],
+                         + [(*c, f) for f in LOWBIT_FMTS + IQ_FMTS + TQ_FMTS
+                            for c in LOWBIT_K5_CASES],
                          ids=lambda v: v.name if isinstance(v, GGMLType) else None)
 def test_k5_matches_plain(dev, m, k, n, n_pad, fmt, xdtype):
     w = _int_weight(fmt, n, k, m + k + n, dev, n_pad)
@@ -212,7 +215,7 @@ SLICE_FMTS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, *Q5_FMTS, *K5_FMTS]
 @pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (768, 384)])
 def test_k3_k5_rows_do_not_depend_on_m(dev, k, n, fmt, xdtype):
     """K3 (Q4_K, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K) and K5 (Q6_K, Q8_0, Q2_K,
-    Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats) sum every row slice
+    Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats, TQ1_0, TQ2_0) sum every row slice
     by slice in zllm's
     order, so its bits do not depend on M or on the form (row form M <= 16,
     tile form above, the slices split over blocks or not), and repeated
@@ -668,12 +671,16 @@ K8_CASES = {
 
 @pytest.mark.parametrize("qdtype,cdtype", [(torch.float32, torch.float32),
                                            (torch.float32, torch.bfloat16),
-                                           (torch.bfloat16, torch.bfloat16)],
-                         ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float16),
+                                           (torch.bfloat16, torch.float16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
 @pytest.mark.parametrize("case", list(K8_CASES))
 def test_k8_matches_plain(dev, case, qdtype, cdtype):
     """The caches must come out bit-identical to the plain version's: one
-    row written per batch row, at min(pos, S - 1)."""
+    row written per batch row, at min(pos, S - 1) (trash rows: engine_g8's
+    2048 in a stripe of 2176, trash_row's and s8320's pos == S).  An f16
+    cache runs the f16 form, counted in `.f16_launches`."""
     b, g, d, s, pos_vals, window, softcap = K8_CASES[case]
     hkv = 2 if g >= 8 else 4
     hq = g * hkv
@@ -685,11 +692,12 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
     vc = _randn((b, hkv, s, d), 54, dev, cdtype)
     k2, v2 = kc.clone(), vc.clone()
     kw = dict(scale=d ** -0.5, softcap=softcap, window=window)
-    before = ta.attn_decode_update.launches
+    before = ta.attn_decode_update.launches, ta.attn_decode_update.f16_launches
     got = ta.attn_decode_update(q, kn, vn, kc, vc, positions, **kw)
     want = ta.attn_decode_update_plain(q, kn, vn, k2, v2, positions, **kw)
     torch.cuda.synchronize()
-    assert ta.attn_decode_update.launches == before + 1
+    assert (ta.attn_decode_update.launches, ta.attn_decode_update.f16_launches) == (
+        before[0] + 1, before[1] + (cdtype == torch.float16))
     assert got.dtype == qdtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
@@ -697,23 +705,26 @@ def test_k8_matches_plain(dev, case, qdtype, cdtype):
 
 
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
-def test_k8_refuses_an_f16_cache(dev, qdtype):
-    """K8 has no f16 form yet: an f16 cache on the card raises a typed
-    NotImplementedError before any launch, and the cache is untouched (no
-    plain version runs in its place)."""
-    b, hq, hkv, d, s = 1, 16, 16, 128, 256
-    q = _randn((b, 1, hq, d), 60, dev, qdtype)
+def test_k8_f16_keeps_subnormal_probabilities(dev, qdtype):
+    """The OLMo-2 step's shape over an f16 cache, q scaled so that the
+    scores span more than 17 nats: many normalized probabilities fall
+    under 2^-14 (f16 subnormals); the kernel keeps them as the plain
+    version's f16 rounding does (nmse as test_k8_matches_plain's)."""
+    b, hq, hkv, d, s = 1, 16, 16, 128, 2048
+    q = _randn((b, 1, hq, d), 60, dev, qdtype, scale=6.0)
     kn, vn = _randn((b, 1, hkv, d), 61, dev, qdtype), _randn((b, 1, hkv, d), 62, dev, qdtype)
     kc = _randn((b, hkv, s, d), 63, dev, torch.float16)
     vc = _randn((b, hkv, s, d), 64, dev, torch.float16)
-    k0, v0 = kc.clone(), vc.clone()
-    before = ta.attn_decode_update.launches
-    pos = torch.tensor([[100]], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        ta.attn_decode_update(q, kn, vn, kc, vc, pos, scale=d ** -0.5)
+    k2, v2 = kc.clone(), vc.clone()
+    pos = torch.tensor([[1500]], dtype=torch.int32, device=dev)
+    got = ta.attn_decode_update(q, kn, vn, kc, vc, pos, scale=d ** -0.5)
+    want = ta.attn_decode_update_plain(q, kn, vn, k2, v2, pos, scale=d ** -0.5)
     torch.cuda.synchronize()
-    assert ta.attn_decode_update.launches == before
-    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+    scores = torch.einsum("hd,hsd->hs", q[0, 0].float(), kc[0, :, :1501].float()) * d ** -0.5
+    p = torch.softmax(scores, dim=-1).to(torch.float16)
+    assert bool(((p > 0) & (p.float() < 2.0 ** -14)).any())
+    assert _nmse(got.float(), want.float()) < (1e-6 if qdtype == torch.float32 else 1e-5)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
 
 
 def _decode_call(kernel, kv, b, dev):
@@ -1107,15 +1118,15 @@ def test_k11_quantize_bit_equal(dev, k, xdtype):
 
 
 @pytest.mark.parametrize("kv", ["paged_bf16", "q8", "contiguous_bf16", "olmo2_contiguous_bf16",
-                                "paged_f16", "contiguous_f16"])
+                                "paged_f16", "contiguous_f16", "olmo2_contiguous_f16"])
 def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     """Greedy requests served together (a generating row riding the mixed
     steps of another request's prefill) and one at a time give the same
     logits rows and tokens, bit for bit: K3/K5 rows do not depend on M, and
     a mixed step attends a one-token row through the T=1 kernel (K9; K7's
     split form with the q8 cache; over a contiguous bf16 cache K2 for llama,
-    K8 for OLMo-2; the f16 caches through K9/K10 and K2/K6 in their f16
-    forms), as a decode step does.  The fourth prompt extends the
+    K8 for OLMo-2; the f16 caches through K9/K10, K2/K6 and K8/K6 in their
+    f16 forms), as a decode step does.  The fourth prompt extends the
     first's first 50 tokens: alone, the contiguous and q8 layouts reuse
     them and prefill its last token as a chunk of one, which keeps the
     multi-row kernel's bits as inside its longer chunk served together."""
@@ -1247,12 +1258,12 @@ def test_switches_keep_q5_on_k1(dev, fmt, fuse, switch, monkeypatch):
         tq.w4a8dd_matvec(x[:, :k], w)
 
 
-REQUANTIZED = ("Q5_K_M", "Q3_K_M", "IQ4_XS")
+REQUANTIZED = ("Q5_K_M", "Q3_K_M", "IQ4_XS", "TQ2_0", "TQ1_0")
 
 
 @pytest.mark.parametrize("ftype", ["Q5_0", "Q5_1", "Q5_K_M",
                                    "Q2_K", "Q3_K_M", "IQ4_NL", "IQ4_XS", "MXFP4",
-                                   *(t.name for t in IQ_GRID_TYPES)])
+                                   *(t.name for t in IQ_GRID_TYPES), "TQ2_0", "TQ1_0", "BF16"])
 def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     """A 2-layer llama file (Q5_0, Q5_1, Q2_K, IQ4_NL and MXFP4 from the
     factory: every matmul in the type; Q5_K_M, Q3_K_M and IQ4_XS by
@@ -1264,7 +1275,10 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     code or a bf16 operand, which the random weights carry to ~1e-4), and
     the matmul kernels of its matmul type launched: K1 and K3 for the Q5
     files (K4/K5 for Q5_K_M's Q6_K wv and head), K4 and K5 for the low-bit
-    ones (K1/K3 for Q3_K_M's Q5_K wv), K5 and not K4 for IQ1_M."""
+    ones (K1/K3 for Q3_K_M's Q5_K wv), K5 and not K4 for IQ1_M; TQ2_0 and
+    TQ1_0 by `zllm_torch.quantize` (the head Q6_K, the embedding Q4_K) on
+    K4 and K5; BF16 from the factory, every matmul dense (`torch.matmul`),
+    no K4 or K5."""
     from zllm_torch.models.loader import Model
     from zllm_torch.quantize import quantize_file
     from zllm_torch.runtime.generate import Generator
@@ -1285,6 +1299,7 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
     prompt = [1] + list(range(40, 59))
     kernels = ((tq.q4k_matvec, tq.q4k_gemm) if ftype.startswith("Q5")
                else (tq.dequant_gemm,) if ftype == "IQ1_M"
+               else () if ftype == "BF16"
                else (tq.int8_matvec, tq.dequant_gemm))
     k4_before = tq.int8_matvec.launches
     before = [f.launches for f in kernels]
@@ -1296,7 +1311,7 @@ def test_q5_model_gpu_matches_cpu(dev, ftype, tmp_path):
         tok = int(torch.argmax(rows["cpu"][-1]))
     torch.cuda.synchronize()
     assert all(f.launches > n for f, n in zip(kernels, before))
-    if ftype == "IQ1_M":
+    if ftype in ("IQ1_M", "BF16"):
         assert tq.int8_matvec.launches == k4_before
     for step, (a, b) in enumerate(zip(rows["cuda"], rows["cpu"])):
         assert bool(torch.isfinite(a).all()) and _nmse(a, b) < 1e-3, step
@@ -1344,12 +1359,39 @@ def test_k4_k5_lowbit_random_blocks(dev, fmt):
     assert float((got - want).abs().max() / want.abs().max()) < 1e-5
 
 
+@pytest.mark.parametrize("fmt", TQ_FMTS, ids=lambda t: t.name)
+def test_k4_k5_tq_random_blocks(dev, fmt):
+    """Random bytes in every code byte (TQ1_0: any base-3 byte; TQ2_0: the
+    crumb 3 too, the value 2, which no encoder writes), d finite, held
+    column by column: a crumb or slot slip shows in the columns it hits.
+    K5 at M = 4 (row form) and 256 (tile form), their rows equal bit for
+    bit; K4 at M = 1."""
+    n, k = 256, 2048
+    size, off = {GGMLType.TQ1_0: (54, 52), GGMLType.TQ2_0: (66, 64)}[fmt]
+    rng = np.random.default_rng(size)
+    raw = rng.integers(0, 256, size=(n * k // 256, size), dtype=np.uint8)
+    vals = rng.uniform(-0.02, 0.02, size=raw.shape[0]).astype(np.float16)
+    raw[:, off:off + 2] = vals.view(np.uint8).reshape(-1, 2)
+    w = repack(raw.reshape(n, -1), (n, k), fmt, dev)
+    xm = _randn((256, k), 5, dev)
+    full = tq.dequant_gemm(xm, w)
+    for m in (4, 256):
+        got, want = tq.dequant_gemm(xm[:m], w), tq.dequant_gemm_plain(xm[:m], w)
+        col_err = ((got - want) ** 2).sum(0) / ((want ** 2).sum(0) + 1e-30)
+        assert float(col_err.max()) < 1e-6, m
+        assert torch.equal(got, full[:m])
+    x = _randn((1, k), 4, dev)
+    got, want = tq.int8_matvec(x, w), tq.int8_matvec_plain(x, w)
+    # exact integer dots: only the f32 sum order differs in any column
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
 @pytest.mark.parametrize("switch", ["ZLLM_QMM_HBM", "ZLLM_QMM_DUALDOT"])
-@pytest.mark.parametrize("fmt", LOWBIT_FMTS + IQ_FMTS[:-1], ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS + IQ_FMTS[:-1] + TQ_FMTS, ids=lambda t: t.name)
 def test_switches_keep_lowbit_on_k4(dev, fmt, switch, monkeypatch):
     """Under ZLLM_QMM_HBM=1 or ZLLM_QMM_DUALDOT=1 a matvec of the five
-    formats, or of the six IQ grid formats K4 takes, launches K4, with
-    K4's bits."""
+    formats, of the six IQ grid formats K4 takes, or of TQ1_0 and TQ2_0,
+    launches K4, with K4's bits."""
     monkeypatch.setenv(switch, "1")
     k, n = 2048, 2560
     w = _int_weight(fmt, n, k, 7, dev)

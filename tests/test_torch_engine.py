@@ -192,24 +192,14 @@ def test_engine_counts_no_kernel_launch_on_cpu(gguf, kw):
     assert [k.launches for k in kernels] == before
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16, kv_layout="contiguous"),
-                                dict(speculative=True), dict(lookahead=True), dict(tp=2),
+@pytest.mark.parametrize("kw", [dict(speculative=True), dict(lookahead=True), dict(tp=2),
                                 dict(dp=2), dict(pp=2), dict(coordinated=True)],
-                         ids=["f16", "speculative", "lookahead", "tp", "dp", "pp", "coordinated"])
-def test_unported_options_raise(gguf, tmp_path, kw):
-    """The f16 case: f16 KV is served on both layouts, but an OLMo-2 model
-    over the contiguous f16 cache would decode through K8, whose f16 form
-    is not ported, so that engine is refused."""
+                         ids=["speculative", "lookahead", "tp", "dp", "pp", "coordinated"])
+def test_unported_options_raise(gguf, kw):
     from zllm_torch.models.loader import Model
-    from zllm_torch.gguf.constants import GGMLType as TGGMLType
     from zllm_torch.server.engine import Engine
-    from zllm_torch.testing import make_llama_gguf
 
-    path = gguf
-    if kw.get("kv_dtype") == torch.float16:
-        path = make_llama_gguf(str(tmp_path / "olmo2.gguf"), arch="olmo2",
-                               **dict(SMALL_LLAMA, n_kv_heads=4, gtype=TGGMLType.F32))
-    m = Model.load(path, device="cpu", dtype=torch.float32)
+    m = Model.load(gguf, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         Engine(m, n_slots=1, max_len=128, **kw)
 

@@ -1,7 +1,8 @@
-"""The f16 KV cache: the plain versions of K2, K6, K9 and K10 with f16
+"""The f16 KV cache: the plain versions of K2, K6, K8, K9 and K10 with f16
 K/V against zllm's Pallas kernels run with interpret=True on the same
-inputs, the f16 slice (Generator) and the f16 engines (paged and
-contiguous) against zllm's, and the server's `--kv-type f16`, on the CPU.
+inputs, the f16 slices (Generator: llama, and OLMo-2, whose decode steps
+take K8) and the f16 engines (paged and contiguous; OLMo-2 contiguous)
+against zllm's, and the server's `--kv-type f16`, on the CPU.
 
 Each kernel case runs with an f32 and a bf16 q (the kernels' two query
 dtypes), at head_dim 64 and 128, and in a "wide" variant whose scores span
@@ -17,7 +18,9 @@ equal zllm's bit for bit, but K2's roped k row, which may sit one f16 ulp
 away (zllm ropes by a [D, D] rotation matmul, the port by a cos/sin
 table).  The slice: nmse <= 1e-3 a step (measured <= 2.2e-4: the W4A8
 path's per-32 int8 activation rounding sets the floor, as for bf16) and
-equal greedy tokens.  The engines: equal tokens, reuse and counters."""
+equal greedy tokens; the OLMo-2 slice the same bound (zllm's CPU path
+does not round its probabilities to f16, the port's K8 does, as zllm's
+Pallas K8 does).  The engines: equal tokens, reuse and counters."""
 
 import numpy as np
 import pytest
@@ -153,6 +156,39 @@ def test_k6_plain_f16_cache_matches_pallas(qname, d, wide):
         assert _span(to_np(tq)[0], to_np(tk)[0], SCALE) > 17
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["normal", "wide"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("qname", list(QDTYPES))
+def test_k8_plain_f16_cache_matches_pallas(qname, d, wide):
+    """K8 over an f16 cache (rows at 37 and 300, GQA 4; a window and a
+    trash row, pos == S, in the wide case): the unrounded q, the new rows
+    inserted in f16 at min(pos, S - 1), p normalized, then rounded to f16;
+    the caches after it equal zllm's bit for bit."""
+    import jax.numpy as jnp
+
+    from zllm.ops.attention import attn_decode_update as zk8
+
+    b, hq, hkv, s = 2, 8, 2, 512
+    rng = np.random.default_rng(40 + d + 2 * wide + (qname == "q_bf16"))
+    tq, zq = _q(rng, (b, 1, hq, d), qname, 6.0 if wide else 1.0)
+    tkn, zkn = _q(rng, (b, 1, hkv, d), qname, 1.0)
+    tvn, zvn = _q(rng, (b, 1, hkv, d), qname, 1.0)
+    tk, zk = _f16(rng, (b, hkv, s, d))
+    tv, zv = _f16(rng, (b, hkv, s, d))
+    pos = np.array([[37], [s if wide else 300]], np.int32)
+    window = 200 if wide else 0
+    want, kz, vz = zk8(zq, zkn, zvn, zk, zv, jnp.asarray(pos), scale=SCALE, window=window,
+                       interpret=True)
+    got = ta.attn_decode_update(tq, tkn, tvn, tk, tv, torch.from_numpy(pos), scale=SCALE,
+                                window=window)
+    assert got.dtype == tq.dtype and got.shape == (b, 1, hq, d)
+    assert nmse(to_np(got), to_np(want)) <= TOL
+    np.testing.assert_array_equal(tk.numpy().view(np.uint16), np.asarray(kz).view(np.uint16))
+    np.testing.assert_array_equal(tv.numpy().view(np.uint16), np.asarray(vz).view(np.uint16))
+    if wide:
+        assert _span(to_np(tq)[1, 0], to_np(tk)[1], SCALE) > 17
+
+
 def _pools_f16(rng, b, d, lp, ps):
     """f16 pools in zllm's layout [Hkv, D, P * ps] and the port's, and a
     scrambled table [b, lp + 1] (the last column the trash pin)."""
@@ -257,6 +293,85 @@ def test_f16_slice_matches_zllm(gguf):
 
 
 @pytest.fixture(scope="module")
+def olmo2_ggufs(tmp_path_factory):
+    """2-layer OLMo-2 files (4 query heads over 2 kv heads), Q4_K and F32."""
+    from zllm_torch.gguf.constants import GGMLType as TGGMLType
+    from zllm_torch.testing import make_llama_gguf
+
+    folder = tmp_path_factory.mktemp("olmo2f16")
+    return {name: make_llama_gguf(str(folder / f"{name}.gguf"), arch="olmo2",
+                                  **dict(SMALL_LLAMA, gtype=gtype), norm_eps=1e-6,
+                                  rope_base=500000.0, with_tokenizer=True)
+            for name, gtype in (("Q4_K", TGGMLType.Q4_K), ("F32", TGGMLType.F32))}
+
+
+def test_olmo2_f16_slice_matches_zllm(olmo2_ggufs, monkeypatch):
+    """Generator(kv_dtype=float16) on an OLMo-2 file: every decode step and
+    column 0 of every chunk through K8's plain version over the f16 cache
+    (two layers a call), against zllm's Generator with an f16 cache."""
+    import jax.numpy as jnp
+
+    from zllm_torch.models import llama as tllama
+
+    calls = []
+    real = tllama.attn_decode_update
+
+    def spy(q, k_new, v_new, kc, vc, *a, **kw):
+        calls.append(kc.dtype)
+        return real(q, k_new, v_new, kc, vc, *a, **kw)
+
+    monkeypatch.setattr(tllama, "attn_decode_update", spy)  # the name the forward calls
+    zlog, ztoks = _zllm_run(olmo2_ggufs["Q4_K"], jnp.float16)
+    tlog, ttoks = _port_run(olmo2_ggufs["Q4_K"], torch.float16)
+    assert len(tlog) == len(zlog) == N_DECODE + 1
+    for step, (a, b) in enumerate(zip(tlog, zlog)):
+        assert a.shape == b.shape == (SMALL_LLAMA["vocab_size"],)
+        assert nmse(a, b) <= 1e-3, f"step {step}: nmse {nmse(a, b)}"
+    assert ttoks == ztoks
+    assert calls and set(calls) == {torch.float16}
+
+
+def test_olmo2_contiguous_f16_engine_matches_zllm(olmo2_ggufs):
+    """The OLMo-2 engine over the contiguous f16 cache (K8 at every decode
+    step and on column 0 of every mixed step; f32 weights, 2 slots, chunk
+    16) against zllm's Engine(kv_dtype=float16, kv_layout="contiguous")."""
+    import jax.numpy as jnp
+
+    from zllm.models.loader import Model as ZModel
+    from zllm.server.engine import Engine as ZEngine
+    from zllm.server.engine import Request as ZRequest
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.kvcache import KVCache
+    from zllm_torch.server.engine import Engine, Request
+
+    path = olmo2_ggufs["F32"]
+    out = {}
+    for side, make_engine, make_request in (
+            ("zllm", lambda: ZEngine(ZModel.load(path, dtype=jnp.float32), n_slots=2, max_len=128,
+                                     prefill_chunk=16, kv_dtype=jnp.float16,
+                                     kv_layout="contiguous"),
+             lambda **kw: ZRequest(temp=0.0, **kw)),
+            ("port", lambda: Engine(Model.load(path, device="cpu", dtype=torch.float32),
+                                    n_slots=2, max_len=128, prefill_chunk=16,
+                                    kv_dtype=torch.float16, kv_layout="contiguous"),
+             lambda **kw: Request(temp=0.0, **kw))):
+        eng = make_engine()
+        if side == "port":
+            assert not eng.paged and type(eng.kv) is KVCache and eng.kv.dtype == torch.float16
+        eng.start()
+        try:
+            out[side] = engine_script(eng, make_request, 128)
+        finally:
+            eng.stop()
+    for case, (zgot, zcount) in out["zllm"].items():
+        tgot, tcount = out["port"][case]
+        assert all(err == "" for *_, err in tgot), tgot
+        assert tgot == zgot, case
+        assert tcount == zcount, case
+    assert out["port"]["prefix_reuse"][1]["tokens_prefix_reused_total"] == 30
+
+
+@pytest.fixture(scope="module")
 def f32_gguf(tmp_path_factory):
     from zllm.testing import make_llama_gguf
 
@@ -320,3 +435,19 @@ def test_server_main_takes_kv_type_f16(gguf, monkeypatch):
     assert type(made[0].engine.kv) is PagedKVCache and made[0].engine.paged
     assert made[0].engine.kv.k[0].dtype == torch.float16
     assert type(made[1].engine.kv) is KVCache and made[1].engine.kv.dtype == torch.float16
+
+
+def test_server_main_serves_olmo2_over_a_contiguous_f16_cache(olmo2_ggufs, monkeypatch):
+    """`--kv-type f16 --kv-layout contiguous` with an OLMo-2 file: served
+    (K8's f16 form), no longer refused."""
+    from zllm_torch.runtime.kvcache import KVCache
+    from zllm_torch.server import __main__ as server_main
+    from zllm_torch.server.http import ZllmServer
+
+    made = []
+    monkeypatch.setattr(ZllmServer, "serve_forever", lambda self: made.append(self))
+    server_main.main([olmo2_ggufs["Q4_K"], "--kv-type", "f16", "--kv-layout", "contiguous",
+                      "--device", "cpu", "--port", "0"])
+    eng = made[0].engine
+    assert eng.model.cfg.arch == "olmo2" and type(eng.kv) is KVCache
+    assert eng.kv.dtype == torch.float16

@@ -164,8 +164,10 @@ def test_q4_legacy_decode_random_blocks_bit_exact(fmt, row):
 
 
 def test_unsupported_format_raises():
+    """Q8_K (llama.cpp's activation type): zllm encodes and decodes it, the
+    port neither."""
     x = RNG.standard_normal((2, 256)).astype(np.float32)
     with pytest.raises(NotImplementedError):
-        qb.quantize(x, GGMLType.TQ2_0)
+        qb.quantize(x, GGMLType.Q8_K)
     with pytest.raises(NotImplementedError):
-        qb.dequantize(zqb.quantize(x, GGMLType.TQ2_0), GGMLType.TQ2_0)
+        qb.dequantize(zqb.quantize(x, GGMLType.Q8_K), GGMLType.Q8_K)

@@ -163,7 +163,7 @@ def test_k4_k5_cpu_wrappers_take_the_plain_path(int_weights):
 def test_unported_shapes_and_formats_raise(weights):
     """K4/K5 take what zllm's Pallas path takes (K % 256, N % 128) and only
     their formats; the linear dispatch raises for a weight it has no kernel
-    for (TQ2_0, not ported)."""
+    for (Q8_K, which neither package repacks)."""
     from zllm_torch.ops.linear import linear
     from zllm_torch.quant.repack import Q80Weight
 
@@ -176,10 +176,10 @@ def test_unported_shapes_and_formats_raise(weights):
     with pytest.raises(NotImplementedError):
         tq.q4k_gemm(torch.zeros(2, 256), w)  # and Q8_0 to K5
 
-    class TQ20Weight(Q80Weight):
-        fmt = GGMLType.TQ2_0
+    class Q8KWeight(Q80Weight):
+        fmt = GGMLType.Q8_K
 
-    w2 = TQ20Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+    w2 = Q8KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
                     d=torch.zeros(128, 8, dtype=torch.float16))
     with pytest.raises(NotImplementedError):
         linear(torch.zeros(1, 256), w2)

@@ -109,18 +109,18 @@ def test_int8_formats_keep_k4_under_the_switch(fmt, monkeypatch):
 
 
 def test_other_formats_raise_under_the_switch(monkeypatch):
-    """A format no kernel takes (TQ2_0) raises under the switch; K12 itself
+    """A format no kernel takes (Q8_K) raises under the switch; K12 itself
     refuses a Q2_K weight (it takes Q4_K, Q4_0 and Q4_1 only; `matvec`
     sends Q2_K to K4)."""
     from zllm_torch.quant.repack import Q80Weight, repack
 
-    class TQ20Weight(Q80Weight):
-        fmt = GGMLType.TQ2_0
+    class Q8KWeight(Q80Weight):
+        fmt = GGMLType.Q8_K
 
     monkeypatch.setenv("ZLLM_QMM_HBM", "1")
-    w = TQ20Weight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
-                   d=torch.zeros(128, 8, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="not TQ2_0"):
+    w = Q8KWeight((256, 128), qs=torch.zeros(128, 256, dtype=torch.int8),
+                  d=torch.zeros(128, 8, dtype=torch.float16))
+    with pytest.raises(NotImplementedError, match="not Q8_K"):
         tq.matvec(torch.zeros(1, 256), w)
     _, raw = quant_qtensor(GGMLType.Q2_K, 128, 256, seed=3)
     with pytest.raises(NotImplementedError, match="not Q2_K"):

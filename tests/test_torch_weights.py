@@ -45,10 +45,11 @@ def test_concat_and_pad_n():
 
 
 def test_non_q4k_does_not_carry_across():
-    """A format the port does not keep quantized yet (TQ2_0) raises."""
+    """A format the port does not keep quantized (Q8_K, which zllm does not
+    repack either) raises."""
     qt, _ = q4k_qtensor(256, 256, seed=1)
     desc = qtensor_numpy(qt)
-    desc["fmt"] = int(GGMLType.TQ2_0)
+    desc["fmt"] = int(GGMLType.Q8_K)
     with pytest.raises(NotImplementedError):
         params_from_jax({"output": desc, "layers": []}, device="cpu")
 

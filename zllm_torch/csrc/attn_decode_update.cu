@@ -9,7 +9,8 @@
 // S - 1 and attends all S slots), then GQA attention (any group) over slots
 // <= pos (and > pos - window), logit softcap, f32 scores and softmax, the
 // probabilities normalized and then cast to the cache dtype before P.V
-// (f32 accumulate); the output in q's dtype.
+// (f32 accumulate); the output in q's dtype.  Caches f32, bf16 or f16 (the
+// f16 KV cache, `--kv-type f16`); q f32 or bf16.
 //
 // Bound on the H100: the bytes of the K/V slots each row sees, 2 * Hkv *
 // min(pos + 1, S) * D * sizeof(cache) a row, plus q and the output, over
@@ -34,6 +35,18 @@
 // ran as two waves; the bf16-cache forms run two blocks an SM (p is one
 // bf16 part, which frees the registers), 30 clusters at once
 // (zt_attn_decode_update_clusters reports it).
+//
+// The f16-cache form: the header's f16 pool form (K9's), on f16 x f16
+// mma.sync.  Phase 1: each query row scaled by the power of two that brings
+// its largest |q| into [2^14, 2^15) (zt::f16_row_exp), then split into three
+// f16 parts (one for a bf16 q), its 2^-e folded into the score's scale, all
+// exact; q itself is never rounded to f16, as zllm's kernel keeps it.
+// Phase 2: p = exp(s - M) / l is normalized in f32 and rounded to f16, as
+// the plain version rounds it, which makes it one exact f16 part (no 2^15
+// pre-scale, unlike K9's unnormalized p), subnormals under 2^-14 kept by
+// the round-to-nearest conversion and by the tensor cores.  The new row is
+// written in f16 at min(pos, S - 1).  The 2^e of each row lives in the
+// dynamic shared memory beside the rest, two blocks an SM as for bf16.
 
 #include "decode_cluster.cuh"
 
@@ -109,9 +122,9 @@ bool bad_shape(int Hq, int Hkv, int D, int S) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k_new, v_new share one; the
-// caches another).  Caches [B, Hkv, S, D]; pos int32 [B]; out [B, Hq, D]
-// in q's dtype.
+// dtype codes: 0 = float32, 1 = bfloat16, 3 = float16 (q, k_new, v_new
+// share one, f32 or bf16; the caches another, f32, bf16 or f16).  Caches
+// [B, Hkv, S, D]; pos int32 [B]; out [B, Hq, D] in q's dtype.
 extern "C" int zt_attn_decode_update(const void* q, const void* k_new, const void* v_new,
                                      int q_dtype, void* k_cache, void* v_cache, int c_dtype,
                                      const int* pos, void* out, int B, int Hq, int Hkv, int D,
@@ -125,6 +138,8 @@ extern "C" int zt_attn_decode_update(const void* q, const void* k_new, const voi
   if (q_dtype == 0 && c_dtype == 1) return launch<float, __nv_bfloat16>(ZT_ARGS);
   if (q_dtype == 1 && c_dtype == 0) return launch<__nv_bfloat16, float>(ZT_ARGS);
   if (q_dtype == 1 && c_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0 && c_dtype == 3) return launch<float, __half>(ZT_ARGS);
+  if (q_dtype == 1 && c_dtype == 3) return launch<__nv_bfloat16, __half>(ZT_ARGS);
 #undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -140,6 +155,8 @@ extern "C" int zt_attn_decode_update_clusters(int q_dtype, int c_dtype, int B, i
   if (q_dtype == 0 && c_dtype == 1) return clusters<float, __nv_bfloat16>(ZT_ARGS);
   if (q_dtype == 1 && c_dtype == 0) return clusters<__nv_bfloat16, float>(ZT_ARGS);
   if (q_dtype == 1 && c_dtype == 1) return clusters<__nv_bfloat16, __nv_bfloat16>(ZT_ARGS);
+  if (q_dtype == 0 && c_dtype == 3) return clusters<float, __half>(ZT_ARGS);
+  if (q_dtype == 1 && c_dtype == 3) return clusters<__nv_bfloat16, __half>(ZT_ARGS);
 #undef ZT_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // The one-launch decode step shared by K7's split form (attn_blockwise.cu,
 // a contiguous cache of bf16 K/V or int8 codes with f32 scales), K8
-// (attn_decode_update.cu, a contiguous bf16/f32 cache with the insert of
-// the new K/V row) and K9 (paged_decode.cu, f32, bf16 or f16 page pools
-// read through a page table, with the insert): flash-decoding as ONE
+// (attn_decode_update.cu, a contiguous f32, bf16 or f16 cache with the
+// insert of the new K/V row) and K9 (paged_decode.cu, f32, bf16 or f16 page
+// pools read through a page table, with the insert): flash-decoding as ONE
 // thread-block-cluster launch.
 //
 // Queries: R = T * G rows of one (row b, kv head h), row r = t * G + g at
@@ -72,15 +72,17 @@
 //     rounded p in one; slots outside the staged rows read as 0), f32 V on
 //     the CUDA cores; summed per warp in chunk order, then over the warps
 //     in order.
-//   * f16 pools (K9's f16 form, `--kv-type f16`): both phases on f16 x f16
-//     mma.sync (the bf16 rate), K and V exact in f16.  An f32 or bf16 q
-//     would overflow or lose its small parts in an f16 split, so each query
-//     row is first scaled by the power of two that brings its largest |q|
-//     into [2^14, 2^15) (zt::f16_row_exp; three f16 parts, or one for a
-//     bf16 q), and its 2^-e joins the score's scale, exactly.  K9's p =
+//   * f16 pools and caches (K9's and K8's f16 forms, `--kv-type f16`): both
+//     phases on f16 x f16 mma.sync (the bf16 rate), K and V exact in f16.
+//     An f32 or bf16 q would overflow or lose its small parts in an f16
+//     split, so each query row is first scaled by the power of two that
+//     brings its largest |q| into [2^14, 2^15) (zt::f16_row_exp; three f16
+//     parts, or one for a bf16 q), and its 2^-e joins the score's scale,
+//     exactly.  K9's p =
 //     round_f16(exp(s - M_j)) * exp(M_j - M) is at most 1 and is not one
 //     f16 value: it is scaled by 2^15 before its three-part f16 split (so
-//     its small parts stay normal) and P.V by 2^-15 after, exactly.
+//     its small parts stay normal) and P.V by 2^-15 after, exactly; K8's
+//     normalized p is rounded to f16 and so is one exact f16 part.
 //   * cluster.sync(), then block 0 sums the blocks' partials over DSMEM in
 //     block order (= chunk order, the runs being contiguous), adds the sinks
 //     (K7), divides by l (K7, K9) and writes the output; a last
@@ -110,9 +112,12 @@
 //   * hi = min(last position, S - 1) passes through an opaque register:
 //     compiled as written, the card gave wrong scores whenever S was not a
 //     multiple of 128 (same data, same memory; PERF.md §7).
-//   * Registers: `-Xptxas -v` must show no spill in any instantiation (q
-//     f32/bf16 x K/V int8/bf16, caches f32/bf16 or pools f32/bf16/f16 x D
-//     64/128); chip_smoke.py fails on one.
+//   * Registers: K8's f16 form keeps q's B fragments in shared memory (in
+//     registers, its f32-q D 128 form spilled under the 128 registers of two
+//     blocks an SM; K9's f16 form keeps them in registers, as before).
+//     `-Xptxas -v` must show no spill in any instantiation (q f32/bf16 x
+//     K/V int8/bf16, caches or pools f32/bf16/f16 x D 64/128);
+//     chip_smoke.py fails on one.
 
 #pragma once
 
@@ -194,7 +199,7 @@ struct Params {
 };
 
 // shared memory of one launch, in bytes (the kernel's carve-up, in order)
-template <typename TKV, int D, bool kScaled>
+template <typename TKV, int D, bool kScaled, int ROUND>
 size_t smem_bytes(int mmax, int n_slots) {
   using RG = Ring<TKV, D>;
   return sizeof(float) * (size_t)RM * D                     // q
@@ -206,7 +211,10 @@ size_t smem_bytes(int mmax, int n_slots) {
          + sizeof(float) * 2 * RM                           // row max, denominator
          + sizeof(float) * (size_t)RM * D                   // the block's P.V partial
          + sizeof(size_t) * (size_t)mmax                    // own chunks' first rows
-         + (zt_mma::IsF16<TKV>::value ? sizeof(int) * RM : 0);  // f16: each q row's 2^e
+         + (zt_mma::IsF16<TKV>::value ? sizeof(int) * RM : 0)   // f16: each q row's 2^e
+         + (zt_mma::IsF16<TKV>::value && ROUND == kRoundNorm    // K8's f16 form: q's fragments
+                ? sizeof(uint32_t) * D / 16 * 3 * 2 * 32
+                : 0);
 }
 
 // two blocks an SM where the registers allow it (bf16 / int8 K/V at D 64, the
@@ -242,6 +250,12 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   // this kernel's shared memory: the attribute asks for the block's whole
   // 227 KB, which leaves no room for static arrays
   int* q_exp = reinterpret_cast<int*>(bases + p.mmax);
+  // K8's f16 form: q's B fragments [D/16][NQ][2][32 lanes], built once by
+  // warp 0 and read by every warp, and each row's score scale read where it
+  // is used (in registers they spilled the f32-q D 128 form at two blocks an
+  // SM, 128 registers a thread; K9's f16 form keeps both in registers)
+  constexpr bool kQsm = kF16 && KV::kRound == kRoundNorm;
+  uint32_t* qbs = reinterpret_cast<uint32_t*>(q_exp + RM);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -370,12 +384,13 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   constexpr bool kMma = sizeof(TKV) <= 2;
   constexpr int NQ = sizeof(TQ) == 4 ? 3 : 1;
   constexpr int KS = D / 16;
-  uint32_t qb[kMma ? KS : 1][NQ][2];
-  // f16: the score scale of this lane's accumulator rows (lane % 4) * 2 and
-  // + 1, with their rows' 2^-e (set once q_exp is)
+  uint32_t qb[kMma && !kQsm ? KS : 1][NQ][2];
+  // f16 (K9): the score scale of this lane's accumulator rows (lane % 4) * 2
+  // and + 1, with their rows' 2^-e (set once q_exp is)
   float qrs[2] = {p.scale, p.scale};
   auto build_qb = [&]() {
     if constexpr (kMma) {
+      if (kQsm && warp != 0) return;  // K8's f16 fragments go to shared memory, once
       const float* qn = qsh + (lane / 4) * D + (lane % 4) * 2;
       float up = 1.f;
       if constexpr (kF16) up = zt::pow2(q_exp[lane / 4]);
@@ -392,7 +407,13 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
                                    part3[1], part3[2]);
           }
 #pragma unroll
-          for (int pt = 0; pt < NQ; ++pt) qb[ks][pt][hf] = part3[pt];
+          for (int pt = 0; pt < NQ; ++pt) {
+            if constexpr (kQsm) {
+              qbs[((ks * NQ + pt) * 2 + hf) * 32 + lane] = part3[pt];
+            } else {
+              qb[ks][pt][hf] = part3[pt];
+            }
+          }
         }
     }
   };
@@ -421,7 +442,15 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
           }
         }
 #pragma unroll
-        for (int pt = 0; pt < NQ; ++pt) Tc<TT>::mma(cp[pt], a, qb[ks][pt]);
+        for (int pt = 0; pt < NQ; ++pt) {
+          if constexpr (kQsm) {  // written by warp 0 before phase 1's first barrier
+            const uint32_t bq[2] = {qbs[((ks * NQ + pt) * 2) * 32 + lane],
+                                    qbs[((ks * NQ + pt) * 2 + 1) * 32 + lane]};
+            Tc<TT>::mma(cp[pt], a, bq);
+          } else {
+            Tc<TT>::mma(cp[pt], a, qb[ks][pt]);
+          }
+        }
       }
       float c[4];  // hi + (mid + lo)
 #pragma unroll
@@ -439,7 +468,9 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
         const bool ok = slot < cs && s >= lo && s <= hi && r < nr && s <= qp &&
                         (p.window <= 0 || s > qp - p.window);
         float x;
-        if constexpr (kF16) {
+        if constexpr (kQsm) {  // the row's 2^-e joins the scale (read here: no registers held)
+          x = c[e4] * (p.scale * zt::pow2(-q_exp[r]));
+        } else if constexpr (kF16) {
           x = c[e4] * qrs[e4 & 1];
         } else {
           x = c[e4] * p.scale;
@@ -783,7 +814,7 @@ int prepare(Params& p, size_t* shmem) {
   const int slot_bytes = (int)sizeof(float) * CH * RM;
   p.mkeep = p.mmax * slot_bytes <= kKeepBytes ? p.mmax : kKeepBytes / slot_bytes - 1;
   const int n_slots = p.mkeep < p.mmax ? p.mkeep + 1 : p.mmax;
-  *shmem = smem_bytes<TKV, D, KV::kScaled>(p.mmax, n_slots);
+  *shmem = smem_bytes<TKV, D, KV::kScaled, KV::kRound>(p.mmax, n_slots);
   if (*shmem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {

@@ -1,18 +1,19 @@
 // K5: dequant GEMM for the formats without a nibble-pair layout of K3's,
 // Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and the IQ grid formats as
 // the port's loader folds them (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
-// IQ1_S, IQ1_M: value indexes, zllm_torch/quant/repack.py): y[M, N] (f32) =
+// IQ1_S, IQ1_M: value indexes, zllm_torch/quant/repack.py) and the ternary
+// TQ1_0 and TQ2_0: y[M, N] (f32) =
 // bf16(x)[M, K] @ bf16(dequant(W)).
 //
 // Replaces zllm/ops/qmatmul.py::_qmm_kernel (launched by _qmm_call from
-// qmatmul), instantiated for these fourteen of its formats: the weight is
+// qmatmul), instantiated for these sixteen of its formats: the weight is
 // dequantized in f32 as _dequant_tile does (Q6_K: ((ql | qh << 4) - 32) *
 // f32(a); Q8_0: qs * f32(d); Q2_K: crumb * f32(a) - f32(b); Q3_K: ((crumb
 // | bit << 2) - 4) * f32(a); IQ4_NL, IQ4_XS: IQ4NL_VALUES[index] * f32(d
 // or a); MXFP4: MXFP4_VALUES[index] * 2^(e - 128), the e2m1 value doubled
 // times the halved E8M0 scale, which is _dequant_tile's sign * mag * d;
 // IQ2_*, IQ3_XXS, IQ3_S: the table value of the index * f32(a); IQ1_S,
-// IQ1_M: (crumb - 1) * f32(a) - f32(b);
+// IQ1_M: (crumb - 1) * f32(a) - f32(b); TQ1_0, TQ2_0: (crumb - 1) * f32(a);
 // every product is exact in f32, so a contraction of q * a - b into one
 // FMA rounds as zllm's two operations do) and rounded to bf16 (round to
 // nearest even); x (f32 or bf16) is rounded to bf16 in the kernel; the
@@ -49,6 +50,8 @@
 //   IQ1_S, IQ1_M step c, quarter q: Q2_K's 16-group 4c + q: its 4 crumb
 //     bytes, the min pair holding it (IQ1_S: per 32-group) or its two
 //     8-groups' mins (IQ1_M), and the scale pair holding it.
+//   TQ1_0, TQ2_0 step c, quarter q: the same 4 crumb bytes and the scale
+//     pair holding its 32-group, no min.
 
 #include "gemm_slice.cuh"
 #include "lowbit.cuh"
@@ -281,12 +284,41 @@ struct IQ1CrumbSlice {
   }
 };
 
+// TQ1_0, TQ2_0: IQ1_S's crumbs and 32-group scales without the min,
+// (crumb - 1) * a, exact in bf16 (a is fp16: 11 bits); thread q of a column
+// decodes 16-group g = 4c + q, its crumb word at ring bytes 0-3, the scale
+// pair of the 32-groups 2c, 2c + 1 in `word`
+struct TernarySlice {
+  const uint8_t* qs;  // [N, K/4]
+  const __half* a;    // [N, K/32]
+  int K;
+  static constexpr int kPieces = 1;  // 4 of its 16 bytes used
+  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
+  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
+                                        int q) const {
+    cp_async4(p, qs + col * (K / 4) + 4 * (4 * c + q));
+    cp_async4(word, a + col * (K / 32) + 2 * c);
+  }
+  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
+                                          size_t, int, int q, uint4 (&v)[2]) const {
+    const uint32_t r = p[0].x;
+    const float sc = half_of(word, q >> 1);
+    uint2 o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // elements 4i..4i+3 of the group
+      o[i] = scale4((r >> (2 * i)) & 0x03030303u, 1, sc, false);
+    v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
+    v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
+  }
+};
+
 }  // namespace
 
 // fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d),
 // 2 = Q2_K (qs, a, b), 3 = Q3_K (qs, qh, a), 4 = IQ4_NL (qs, d), 5 = IQ4_XS
 // (qs, a), 6 = MXFP4 (qs, e), 7 = IQ2_XXS, 8 = IQ2_XS, 9 = IQ2_S, 10 =
-// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S, 13 = IQ1_M (qs, a, b).
+// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S, 13 = IQ1_M (qs, a, b), 14 = TQ1_0,
+// 15 = TQ2_0 (qs, a).
 // xdtype, xb, tk, form, spb and ws as for zt_slice::launch_slice_gemm: an
 // f32 x adds a launch that rounds it into xb, a call with spb < K / tk one
 // that reduces the slice partials in order.
@@ -349,6 +381,11 @@ extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, void* xb, con
                  : zt_slice::launch_slice_gemm(x, xdtype, xb, IQ1CrumbSlice<true>{qs, a, b, K}, y,
                                                ws, M, K, N, tk, form, spb, s);
     }
+    case 14:
+    case 15:
+      return zt_slice::launch_slice_gemm(
+          x, xdtype, xb, TernarySlice{qs, static_cast<const __half*>(p1), K}, y, ws, M, K, N, tk,
+          form, spb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

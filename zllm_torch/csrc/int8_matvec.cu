@@ -3,11 +3,12 @@
 // (32-groups), Q2_K and Q3_K (16-groups), IQ4_NL, IQ4_XS and MXFP4
 // (32-groups), and the IQ grid formats as the port's loader folds them
 // (value indexes, zllm_torch/quant/repack.py): IQ2_XXS (32-groups), IQ2_XS
-// and IQ2_S (16-groups), IQ3_XXS, IQ3_S and IQ1_S (32-groups).
+// and IQ2_S (16-groups), IQ3_XXS, IQ3_S and IQ1_S (32-groups), and the
+// ternary TQ1_0 and TQ2_0 (32-groups, one form).
 //
 // Replaces zllm/ops/qmatmul.py::_w4a8_kernel (launched by _qmm_w4a8_call
 // from qmatmul_w4a8, qmatvec_norm and qmatvec_glu), instantiated for these
-// thirteen of its _INT_FMT formats: y[n] = sum_g pi_g * a_g * dx_g (- b_g *
+// fifteen of its _INT_FMT formats: y[n] = sum_g pi_g * a_g * dx_g (- b_g *
 // e_g, Q2_K's and IQ1_S's min term, e_g = dx_g * sx_g), where the activation row is
 // quantized to int8 per group (the prologue of matvec_common.cuh, shared
 // with K1: group 16 or 32 as the format's) and pi_g is the exact integer
@@ -16,19 +17,20 @@
 //   Q2_K: the crumb 0..3;  Q3_K: (crumb | bit << 2) - 4 in -4..3;
 //   IQ4_NL, IQ4_XS: IQ4NL_VALUES[index];  MXFP4: MXFP4_VALUES[index];
 //   IQ2_*: IQ2_VALUES[index];  IQ3_XXS: IQ3XXS_VALUES[index];  IQ3_S: the
-//   odd value of its index;  IQ1_S: crumb - 1 in -1..1;
-// a_g the group scale (Q6_K, Q2_K, Q3_K, IQ4_XS and the IQ grid formats:
-// the fp16 plane a; Q8_0, IQ4_NL: d; MXFP4: 2^(e - 128) from the E8M0
-// byte), b_g Q2_K's and IQ1_S's fp16 min.
+//   odd value of its index;  IQ1_S, TQ1_0, TQ2_0: crumb - 1 in -1..1;
+// a_g the group scale (Q6_K, Q2_K, Q3_K, IQ4_XS, the IQ grid formats, TQ1_0
+// and TQ2_0: the fp16 plane a; Q8_0, IQ4_NL: d; MXFP4: 2^(e - 128) from the
+// E8M0 byte), b_g Q2_K's and IQ1_S's fp16 min.
 //
 // Bound on the H100: the weight bytes, read once (Q6_K: 210 bytes per 256
 // weights in the GGUF, 224 in this layout, whose scale plane a is fp16 per
 // 16-group; Q8_0: 34 per 32; Q2_K and Q3_K 128 per 256 in this layout,
 // IQ4_NL and IQ4_XS 144, MXFP4 136, the IQ2 and IQ3 forms 128 + 2 * 256 /
-// group, IQ1_S 96; the GGUF's IQ grid blocks are 50-110 bytes per 256,
-// zllm's value-index layout 1.5-2.9x that); 2*K*N int8 operations are ~1000x under the
-// int8 peak.  A Q4_K_M step's 34 launches move 0.2-2.3 MB each (0.07-0.7
-// us of bytes), so what paces them is each launch's fixed part: the earlier
+// group, IQ1_S 96, TQ1_0 and TQ2_0 80 (the GGUF's 54 and 66); the GGUF's
+// IQ grid blocks are 50-110 bytes per 256, zllm's value-index layout
+// 1.5-2.9x that); 2*K*N int8 operations are ~1000x under the int8 peak.
+// A Q4_K_M step's 34 launches move 0.2-2.3 MB each (0.07-0.7 us of
+// bytes), so what paces them is each launch's fixed part: the earlier
 // form (8-warp blocks, up to four an SM each redoing the prologue, a plain
 // <<<>>> launch, a column's loads issued only after the previous column's
 // dots) took 7.3 us a launch (python -m zllm_torch.k1_ablation --kernel k4,
@@ -58,11 +60,12 @@
 //     (IQ2_XS and IQ2_S: the same bytes are four 16-groups, 4c + h and 4c
 //     + 2 + h from the words of half h, four __dp4a and a scale each);
 //   IQ1_S slot c: Q2_K's 16 crumb bytes of 16-groups 4c..4c+3, i.e. the
-//     32-groups 2c and 2c + 1, and their two scales and two mins.
+//     32-groups 2c and 2c + 1, and their two scales and two mins; TQ1_0
+//     and TQ2_0 the same without the mins (Crumb32<false>).
 // Unsigned codes go into __dp4a as they are and a bias comes off the
 // integer dot: sum (q - 32) x = sum q x - 32 sum x (Q6_K), - 4 sum x
-// (Q3_K), - sum x (IQ1_S), with sum x the group's code sum from the
-// prologue; every group
+// (Q3_K), - sum x (IQ1_S, TQ1_0, TQ2_0), with sum x the group's code sum
+// from the prologue; every group
 // dot is at most 32 * 127 * 127 < 2^24, so all are exact.
 //   * One wave of 16-warp blocks, at most two an SM (cpw columns a warp);
 //     a narrow N (wv, 256 columns) is spread over the SMs a few warps'
@@ -314,14 +317,15 @@ struct Table4 {
   }
 };
 
-// IQ1_S: Q2_K's crumb order, the crumbs the grid value + 1, one scale and
-// one min a 32-group; slot c is the 16-groups 4c..4c+3 (the 32-groups 2c,
-// 2c + 1)
-struct CrumbIQ1S {
+// IQ1_S (kMin) and TQ1_0, TQ2_0: Q2_K's crumb order, the crumbs the value
+// + 1 (IQ1_S: the grid value), one scale a 32-group and, for IQ1_S, one min;
+// slot c is the 16-groups 4c..4c+3 (the 32-groups 2c, 2c + 1)
+template <bool kMin>
+struct Crumb32 {
   static constexpr int kGroup = 32, kSlot = 64;
   const uint8_t* qs;  // [N, K/4]
   const __half* a;    // [N, K/32]
-  const __half* b;    // [N, K/32]
+  const __half* b;    // IQ1_S: [N, K/32]
   struct Slot {
     uint4 q;
     uint32_t a, b;  // the two groups' scales and mins
@@ -329,7 +333,7 @@ struct CrumbIQ1S {
   __device__ __forceinline__ void fetch(Slot& s, size_t n, int K, int c) const {
     s.q = ld16(qs + n * (K / 4) + c * 16);
     s.a = *reinterpret_cast<const uint32_t*>(a + n * (K / 32) + 2 * c);
-    s.b = *reinterpret_cast<const uint32_t*>(b + n * (K / 32) + 2 * c);
+    if constexpr (kMin) s.b = *reinterpret_cast<const uint32_t*>(b + n * (K / 32) + 2 * c);
   }
   __device__ __forceinline__ float dot(const Slot& s, int c, const QuantRow<32>& row) const {
     const uint32_t qw[4] = {s.q.x, s.q.y, s.q.z, s.q.w};
@@ -346,8 +350,12 @@ struct CrumbIQ1S {
       }
       const int g = 2 * c + h;
       const float dx = row.dx[g];
-      t += (float)(p - row.sx[g]) * half_of(s.a, h) * dx -
-           half_of(s.b, h) * (dx * (float)row.sx[g]);
+      if constexpr (kMin) {
+        t += (float)(p - row.sx[g]) * half_of(s.a, h) * dx -
+             half_of(s.b, h) * (dx * (float)row.sx[g]);
+      } else {
+        t += (float)(p - row.sx[g]) * half_of(s.a, h) * dx;
+      }
     }
     return t;
   }
@@ -456,7 +464,8 @@ int launch_dtype(int x_dtype, int mode, const void* x, const float* aux, const F
 // fmt: 0 = Q6_K (p0 = ql, p1 = qh, p2 = a), 1 = Q8_0 (p0 = qs, p1 = d),
 // 2 = Q2_K (qs, a, b), 3 = Q3_K (qs, qh, a), 4 = IQ4_NL (qs, d), 5 = IQ4_XS
 // (qs, a), 6 = MXFP4 (qs, e), 7 = IQ2_XXS, 8 = IQ2_XS, 9 = IQ2_S, 10 =
-// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S (qs, a, b).
+// IQ3_XXS, 11 = IQ3_S (qs, a), 12 = IQ1_S (qs, a, b), 14 = TQ1_0, 15 = TQ2_0
+// (qs, a).
 // x_dtype: 0 = float32, 1 = bfloat16.  mode: 0 = q, 1 = norm, 2 = glu.
 extern "C" int zt_int8_matvec(int fmt, const void* x, int x_dtype, const float* aux,
                               const void* p0, const void* p1, const void* p2, float* y, int K,
@@ -506,9 +515,14 @@ extern "C" int zt_int8_matvec(int fmt, const void* x, int x_dtype, const float* 
                           s);
     case 12:
       return launch_dtype(x_dtype, mode, x, aux,
-                          CrumbIQ1S{qs, static_cast<const __half*>(p1),
-                                    static_cast<const __half*>(p2)},
+                          Crumb32<true>{qs, static_cast<const __half*>(p1),
+                                        static_cast<const __half*>(p2)},
                           y, K, N, eps, s);
+    case 14:
+    case 15:
+      return launch_dtype(x_dtype, mode, x, aux,
+                          Crumb32<false>{qs, static_cast<const __half*>(p1), nullptr}, y, K, N,
+                          eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -34,7 +34,7 @@ generating token (one trash position repeated after column 0: the
 engine's generating rows, which ride its mixed steps in column 0; the
 engine pads a prompt run with distinct trash positions) takes its
 attention from the T=1 kernel as well, K9 (with the q8 cache, K7's split
-form; over a contiguous bf16/f32 cache K2, run on column 0 of the raw
+form; over a contiguous bf16/f16/f32 cache K2, run on column 0 of the raw
 projection rows after K6), so that it gets the bits a decode step would
 give it: the multi-row kernels (K10, K7's tensor-core form, K6) agree
 with the T=1 ones only to f32 rounding, and a request's greedy tokens
@@ -50,7 +50,7 @@ then one RMS norm over the whole q projection and one over k (not per
 head, so K2 cannot take the step), neox rope, attention, wo, an RMS
 post-norm on the attention output; the FFN reads the raw stream (gate|up,
 SwiGLU, down) and its output gets the second RMS post-norm.  Attention by
-cache: a contiguous bf16/f32 `KVCache` at T=1 goes to K8
+cache: a contiguous bf16/f16/f32 `KVCache` at T=1 goes to K8
 (`attn_decode_update`: insert the roped row and attend in one call), at
 T>1 to the insert and K6, then K8 on column 0 for the one-token rows; the
 paged cache to K9/K10 and the q8 cache to K7, as for llama.  zllm's TPU

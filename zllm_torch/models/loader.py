@@ -1,12 +1,13 @@
 """GGUF -> parameters on one device (counterpart of `zllm/models/loader.py`).
 
 Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-IQ4_XS, MXFP4 and the IQ grid formats' (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS,
+IQ4_XS, MXFP4, the IQ grid formats' (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS,
 IQ3_S, IQ1_S, IQ1_M; their grids folded into value indexes on the
-device) matmul weights become `QWeight`s (quantized on the device,
-consumed by the port's kernels); the token embedding is
-dequantized to a dense tensor of the model dtype, norm weights and biases
-to f32.  A
+device) and the ternary TQ1_0's and TQ2_0's matmul weights become
+`QWeight`s (quantized on the device, consumed by the port's kernels); an
+F32, F16 or BF16 matmul weight is loaded dense [K, N] in the model dtype,
+as zllm loads it; the token embedding is dequantized to a dense tensor of
+the model dtype, norm weights and biases to f32.  A
 llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
 the q/k/v biases bq, bk, bv; a Qwen3 layer adds attn_q_norm and
 attn_k_norm of length head_dim (one RMS a head); an OLMo-2 layer has no
@@ -91,13 +92,13 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
 
 def _load_matmul(f: GGUFFile, name: str, dtype, device):
     """2-D weight: GGUF [N, K] row-major -> QWeight (a format of
-    WEIGHT_CLASSES) or dense [K, N] (F32, F16)."""
+    WEIGHT_CLASSES) or dense [K, N] in the model dtype (F32, F16, BF16)."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
     if meta.gtype in WEIGHT_CLASSES:
         return repack(f.tensor_bytes(name), meta.shape, meta.gtype, device)
-    if meta.gtype not in (GGMLType.F32, GGMLType.F16):
+    if meta.gtype not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
         raise NotImplementedError(f"{name}: {meta.gtype.name} weights are not in zllm_torch yet")
     x = np.ascontiguousarray(f.tensor_f32(name).T)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
@@ -359,12 +360,13 @@ def _table_from_jax(desc: dict) -> dict[str, np.ndarray]:
 
 
 def _iq_from_jax(desc: dict) -> dict[str, np.ndarray]:
-    """zllm's IQ grid planes: IQ2_* and IQ3_* value indexes as the nibble
-    formats' qs and a, IQ1_S and IQ1_M crumbs (split-quarter fold [K/4, N])
-    and a, b; each fp16 plane [K/group, N] at the weight class's group."""
+    """zllm's IQ grid and ternary planes: IQ2_* and IQ3_* value indexes as
+    the nibble formats' qs and a, IQ1_S and IQ1_M crumbs (split-quarter fold
+    [K/4, N]) and a, b, TQ1_0 and TQ2_0 crumbs and a; each fp16 plane
+    [K/group, N] at the weight class's group."""
     k, n = desc["shape"]
     p, cls = desc["planes"], WEIGHT_CLASSES[GGMLType(desc["fmt"])]
-    if "b" in cls.PLANES:
+    if cls.PLANES["qs"][1] == 4:
         out = {"qs": pack_crumbs(np.ascontiguousarray(_unfold(p["qs"], int(desc["fold"]), 2).T))}
     else:
         out = {"qs": pack_nibbles(_nibble_codes_from_jax(desc))}
@@ -381,7 +383,7 @@ _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_ja
              GGMLType.MXFP4: _table_from_jax,
              **{fmt: _iq_from_jax for fmt in (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S,
                                              GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S,
-                                             GGMLType.IQ1_M)}}
+                                             GGMLType.IQ1_M, GGMLType.TQ1_0, GGMLType.TQ2_0)}}
 
 
 def _leaf_from_jax(key: str, val, *, dtype, device):
@@ -400,8 +402,9 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
     "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K,
-    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and the IQ grid formats IQ2_XXS,
-    IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M carry across."""
+    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats IQ2_XXS,
+    IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M, and TQ1_0 and TQ2_0
+    carry across."""
     dev = resolve_device(device)
     out = {key: _leaf_from_jax(key, val, dtype=dtype, device=dev)
            for key, val in jparams.items() if key != "layers"}

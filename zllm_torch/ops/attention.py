@@ -56,16 +56,15 @@ over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
 `.launches`; K6, K7 and K10 also count in `.mma_launches` those of their
-tensor-core form, and K2, K6, K9 and K10 in `.f16_launches` those of their
-f16 form (an f16 cache or pool).
+tensor-core form, and K2, K6, K8, K9 and K10 in `.f16_launches` those of
+their f16 form (an f16 cache or pool).
 
 KV caches and pools may be float32, bfloat16 or float16 (the f16 KV cache,
 llama.cpp's default `-ctk/-ctv f16`); q, the new K/V rows and the outputs
-are float32 or bfloat16.  On the card K2, K6, K9 and K10 have f16 forms
-(f16 x f16 mma.sync; an f32 or bf16 q is scaled a row at a time by a
-power of two before its f16 split, see `csrc/attn_mma.cuh`); K8 has none
-yet and raises NotImplementedError on an f16 cache, K7 takes bf16 or int8
-K/V.
+are float32 or bfloat16.  On the card K2, K6, K8, K9 and K10 have f16
+forms (f16 x f16 mma.sync; an f32 or bf16 q is scaled a row at a time by
+a power of two before its f16 split, see `csrc/attn_mma.cuh`); K7 takes
+bf16 or int8 K/V.
 """
 
 from __future__ import annotations
@@ -574,11 +573,9 @@ def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
                                         softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if kc.dtype == torch.float16:
-        raise NotImplementedError("K8's f16-cache form (attn_decode_update over an f16 "
-                                  "contiguous cache) is not ported yet (ROADMAP queue 2)")
-    if q.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.ACT_DTYPES:
-        raise ValueError(f"dtypes q {q.dtype}, cache {kc.dtype}: the kernel takes f32/bf16")
+    if q.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.DTYPE_CODE:
+        raise ValueError(f"dtypes q {q.dtype}, cache {kc.dtype}: the kernel takes an f32/bf16 q "
+                         "and an f32/bf16/f16 cache")
     if d not in (64, 128):
         raise ValueError(f"head_dim {d} not supported")
     pos = positions.reshape(b).contiguous()
@@ -595,10 +592,12 @@ def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
              cuda.stream())
     cuda.check(err, "attn_decode_update")
     attn_decode_update.launches += 1
+    attn_decode_update.f16_launches += kc.dtype == torch.float16
     return out
 
 
 attn_decode_update.launches = 0
+attn_decode_update.f16_launches = 0  # of them, launches of the f16 form (an f16 cache)
 
 
 def attn_decode_update_clusters(q_dtype, cache_dtype, b: int, hq: int, hkv: int, d: int,

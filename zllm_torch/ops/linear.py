@@ -3,15 +3,17 @@
 A `QWeight` goes to its format's decode matvec kernel for one row (K1 for
 the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K, or K12 / K11
 under the switches `ops/qmatmul.py::matvec` names; K4 for Q6_K, Q8_0,
-Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and the IQ grid formats but IQ1_M,
-whose matvec is K5's) and to its prefill GEMM kernel for more (K3, K5);
+Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, TQ1_0, TQ2_0 and the IQ grid formats
+but IQ1_M, whose matvec is K5's) and to its prefill GEMM kernel for more (K3, K5);
 all return f32, as `zllm`'s kernels do.  The fused decode hooks put the
 RMS norm or the SwiGLU gating into the matvec's prologue (counterpart of
 `zllm/ops/linear.py`'s fused_norm_linear / fused_glu_linear, without the
 global hook registry: the port always has its kernels); for an IQ1_M
 weight they decline, and the caller norms or gates first, as zllm's
-hooks decline a format outside `_INT_FMT`.  A format the
-port has no kernel for raises NotImplementedError."""
+hooks decline a format outside `_INT_FMT`.  A dense weight (F32, F16,
+BF16) is cast to x's dtype and multiplied by `torch.matmul`, as zllm's
+`w.astype(x.dtype)` product outside any Pallas kernel.  A format the port
+has no kernel for raises NotImplementedError."""
 
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ plain PyTorch version beside it.  `matvec` and `gemm` dispatch on the
 weight's format: the nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K
 to K1/K3 (K12 or K11 instead of K1 under the switches `matvec` names, for
 the formats those take), Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4 and
-the IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S and IQ1_S to
-K4/K5, and IQ1_M to K5 alone (its matvec too, as zllm runs it).
+the IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S and IQ1_S, and
+the ternary TQ1_0 and TQ2_0 to K4/K5, and IQ1_M to K5 alone (its matvec
+too, as zllm runs it).
 
   * `q4k_matvec` (K1) replaces `zllm/ops/qmatmul.py::_w4a8np_kernel` (via
     `_qmm_w4a8np_call`) for the six nibble formats: M=1, activations
@@ -31,16 +32,18 @@ K4/K5, and IQ1_M to K5 alone (its matvec too, as zllm runs it).
     quantize as an op of its own.  Source: `zllm_torch/csrc/w4a8dd_matvec.cu`.
   * `int8_matvec` (K4) replaces `zllm/ops/qmatmul.py::_w4a8_kernel` (via
     `_qmm_w4a8_call`) for Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4,
-    IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S and IQ1_S: the same prologues,
+    IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, TQ1_0 and TQ2_0: the
+    same prologues,
     with int8 groups of the format's width (16 for Q6_K, Q2_K, Q3_K, IQ2_XS
     and IQ2_S, 32 for the others), integer group dots against the integer
     codes (`_int_qtile`'s: Q2_K's unsigned, IQ4's, MXFP4's and the IQ grid
-    formats' table values, IQ1_S's crumb - 1), then `pi*a*dx` in f32, less
+    formats' table values, IQ1_S's, TQ1_0's and TQ2_0's crumb - 1), then
+    `pi*a*dx` in f32, less
     `b*(dx*sum(xq))` for Q2_K's and IQ1_S's min.  Source:
     `zllm_torch/csrc/int8_matvec.cu`.
   * `q4k_gemm` (K3) replaces `zllm/ops/qmatmul.py::_qmm_np_kernel` (via
     `_qmm_np_call`) for the six nibble formats and `dequant_gemm` (K5)
-    replaces `_qmm_kernel` (via `_qmm_call`) for K4's thirteen and IQ1_M
+    replaces `_qmm_kernel` (via `_qmm_call`) for K4's fifteen and IQ1_M
     (at any M, M = 1 included): [M, K] x
     dequant(W) with x and the dequantized weight both rounded to bf16 in
     the kernel and products accumulated in f32.  Sources: `zllm_torch/csrc/q4k_gemm.cu`
@@ -333,7 +336,7 @@ INT8_FMT_CODE = {GGMLType.Q6_K: 0, GGMLType.Q8_0: 1, GGMLType.Q2_K: 2, GGMLType.
                  GGMLType.IQ4_NL: 4, GGMLType.IQ4_XS: 5, GGMLType.MXFP4: 6,
                  GGMLType.IQ2_XXS: 7, GGMLType.IQ2_XS: 8, GGMLType.IQ2_S: 9,
                  GGMLType.IQ3_XXS: 10, GGMLType.IQ3_S: 11, GGMLType.IQ1_S: 12,
-                 GGMLType.IQ1_M: 13}
+                 GGMLType.IQ1_M: 13, GGMLType.TQ1_0: 14, GGMLType.TQ2_0: 15}
 K5_ONLY = (GGMLType.IQ1_M,)
 K4_FMTS = tuple(f for f in INT8_FMT_CODE if f not in K5_ONLY)
 
@@ -357,7 +360,8 @@ def _plane_ptrs(w: QWeight, count: int) -> list[int | None]:
     """The weight's plane pointers, padded with None to the `count` a C
     entry point takes: K4/K5 three in PLANES order (Q6_K ql, qh, a; Q8_0
     qs, d; Q2_K qs, a, b; Q3_K qs, qh, a; IQ4_NL qs, d; IQ4_XS qs, a;
-    MXFP4 qs, e; IQ2_*, IQ3_* qs, a; IQ1_S, IQ1_M qs, a, b); K1/K3/K12/K11
+    MXFP4 qs, e; IQ2_*, IQ3_* qs, a; IQ1_S, IQ1_M qs, a, b; TQ1_0, TQ2_0
+    qs, a); K1/K3/K12/K11
     five, `NibbleWeight.kernel_planes` (qs, then Q4_K
     sc, mn, d, dmin; Q4_0 d; Q4_1 a, b; Q5_0 d and Q5_1/Q5_K a, b, each
     with qh last)."""
@@ -380,7 +384,8 @@ def int8_matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor 
                 eps: float = 0.0) -> torch.Tensor:
     """y[1, N] f32 = prologue(x) @ dequant(w) on the int8 path, w Q6_K,
     Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, IQ2_XXS, IQ2_XS, IQ2_S,
-    IQ3_XXS, IQ3_S or IQ1_S; x and fuse as for `q4k_matvec`."""
+    IQ3_XXS, IQ3_S, IQ1_S, TQ1_0 or TQ2_0; x and fuse as for
+    `q4k_matvec`."""
     _check_int8_shape(w, K4_FMTS, "K4")
     k, n = w.shape
     _check_matvec_args(x, k, fuse, aux)
@@ -561,7 +566,7 @@ q4k_gemm.launches = 0
 def dequant_gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     """y[M, N] f32 = x[M, K] @ dequant(w), through bf16 operands (Q6_K,
     Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, IQ2_XXS, IQ2_XS, IQ2_S,
-    IQ3_XXS, IQ3_S, IQ1_S or IQ1_M), summed in
+    IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, TQ1_0 or TQ2_0), summed in
     `dequant_gemm_plain`'s slice order.  Besides the loop,
     an f32 x takes a launch that rounds it to bf16 (into a workspace), and
     a call whose slices are split over blocks one that reduces the slice
@@ -587,13 +592,13 @@ dequant_gemm.launches = 0
 def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | None = None,
            eps: float = 0.0) -> torch.Tensor:
     """The decode matvec for w's format.  Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL,
-    IQ4_XS, MXFP4 and the IQ grid formats -> K4 (the switches do not move
-    them), but IQ1_M, which K4 does not take, -> K5 at M = 1 with fuse="q"
-    alone (`fuses` is False for it: the caller norms and gates first, as
-    zllm's unfused route does).  The nibble
-    formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1 and Q5_K -> K1 by default, and
-    under two switches, read from the environment at each dispatch (as zllm
-    reads them at each trace):
+    IQ4_XS, MXFP4, the IQ grid formats, TQ1_0 and TQ2_0 -> K4 (the
+    switches do not move them: zllm's `_hbm_np_ok` refuses TQ too), but
+    IQ1_M, which K4 does not take, -> K5 at M = 1 with fuse="q" alone
+    (`fuses` is False for it: the caller norms and gates first, as zllm's
+    unfused route does).  The nibble formats Q4_K, Q4_0, Q4_1, Q5_0, Q5_1
+    and Q5_K -> K1 by default, and under two switches, read from the
+    environment at each dispatch (as zllm reads them at each trace):
       * ZLLM_QMM_HBM=1: K12 for every prologue of a Q4_K/Q4_0/Q4_1 weight
         (zllm's `_hbm_np_ok` refuses a weight with a qh plane);
       * ZLLM_QMM_DUALDOT=1: K11 for the fuse="q" matvecs of Q4_0/Q4_1

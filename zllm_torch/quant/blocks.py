@@ -1,14 +1,15 @@
 """Blockwise quantization codecs (numpy, host-side): the subset the port's
 llama path needs.
 
-A copy of `zllm.quant.blocks` restricted to F32/F16 and the Q4_0, Q4_1,
-Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS and MXFP4
-decoders and encoders, without the importance-weighted ones, and the
-decoders of the IQ grid formats (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
-IQ1_S, IQ1_M; their grids, format constants, in `iq_grids.npz` beside
-this file), whose encoders the port does not have (layouts:
-reference ggml/src/ggml-common.h;
-reference kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
+A copy of `zllm.quant.blocks` restricted to F32/F16/BF16 and the Q4_0,
+Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS,
+MXFP4, TQ1_0 and TQ2_0 decoders and encoders, without the
+importance-weighted ones (TQ1_0's weighted scale search included), the
+F64 and I8-I64 decoders, and the decoders of the IQ grid formats
+(IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M; their grids,
+format constants, in `iq_grids.npz` beside this file), whose encoders the
+port does not have (layouts: reference ggml/src/ggml-common.h; reference
+kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
 identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
 `zllm_torch.quantize` write the same files.
 
@@ -122,6 +123,27 @@ def _dec_f16(b):
 
 def _enc_f16(x):
     return _to_f16_bytes(x)
+
+
+def _dec_f64(b):
+    return b.view("<f8").astype(np.float32)
+
+
+def _dec_bf16(b):
+    return (b.view("<u2").astype(np.uint32) << 16).view(np.float32)
+
+
+def _enc_bf16(x):
+    u = x.astype(np.float32).view(np.uint32)
+    # quiet NaNs, then round-to-nearest-even into the top 16 bits
+    u = np.where((u & 0x7FFFFFFF) > 0x7F800000,
+                 (u & np.uint32(0xFFFF0000)) | np.uint32(0x00400000), u)
+    u = ((u.astype(np.uint64) + (0x7FFF + ((u >> 16) & 1))) >> 16).astype(np.uint16)
+    return u.view(np.uint8)
+
+
+def _dec_int(dt: str) -> Callable[[np.ndarray], np.ndarray]:
+    return lambda b: b.view(dt).astype(np.float32)
 
 
 def _dec_q8_0(b):
@@ -573,9 +595,76 @@ def _dec_iq1_m(b):
     return (dl[:, :, None] * (grid + delta[:, :, None])).reshape(n, QK_K)
 
 
+def tq1_0_codes(qs: np.ndarray, qh: np.ndarray) -> np.ndarray:
+    """TQ1_0's base-3 bytes (qs [N, 48], qh [N, 4]) -> uint8 [N, 256]
+    codes 0..2 (the value plus 1) in element order.  Digit j of a byte is
+    ((byte * 3^j mod 256) * 3) >> 8: the products stay uint8, wrapping
+    as ggml's do."""
+    n = qs.shape[0]
+    m5 = np.array([1, 3, 9, 27, 81], dtype=np.uint8).reshape(1, 1, 5, 1)
+    q0 = (qs[:, :32].reshape(n, 1, 1, 32) * m5).reshape(n, 160)
+    q1 = (qs[:, 32:48].reshape(n, 1, 1, 16) * m5).reshape(n, 80)
+    m4 = np.array([1, 3, 9, 27], dtype=np.uint8).reshape(1, 1, 4, 1)
+    q2 = (qh.reshape(n, 1, 1, 4) * m4).reshape(n, 16)
+    q = np.concatenate([q0, q1, q2], axis=1)
+    return ((q.astype(np.uint16) * 3) >> 8).astype(np.uint8)
+
+
+def tq2_0_codes(qs: np.ndarray) -> np.ndarray:
+    """TQ2_0's 64 crumb bytes [N, 64] -> uint8 [N, 256] codes 0..2 in
+    element order (byte j of half c holds element 128c + 32i + j in crumb
+    i)."""
+    return np.concatenate([_bits_unpack(qs[:, c * 32:(c + 1) * 32], 2, 32) for c in range(2)],
+                          axis=1)
+
+
+def _dec_tq1_0(b):
+    q = tq1_0_codes(b[:, :48], b[:, 48:52]).astype(np.int8) - np.int8(1)
+    return _f16(b[:, 52:54]) * q.astype(np.float32)
+
+
+def _dec_tq2_0(b):
+    q = tq2_0_codes(b[:, :64]).astype(np.int8) - np.int8(1)
+    return _f16(b[:, 64:66]) * q.astype(np.float32)
+
+
+def _enc_tq2_0(x):
+    d = np.abs(x).max(axis=-1, keepdims=True)
+    q = (_round_away(x * _safe_inv(d)).astype(np.int8) + 1).astype(np.uint8)
+    qs = np.concatenate([_bits_pack(q[:, c * 128:(c + 1) * 128], 2, 32) for c in range(2)], axis=1)
+    return np.concatenate([qs, _to_f16_bytes(d)], axis=1)
+
+
+def _enc_tq1_0(x):
+    n = x.shape[0]
+    d = np.abs(x).max(axis=-1, keepdims=True)
+    t = (_round_away(x * _safe_inv(d)).clip(-1, 1) + 1).astype(np.uint32)  # 0..2
+    # fixed-point base-3 packing: byte = ceil(v * 256 / 3^k), whose digit j
+    # tq1_0_codes recovers
+
+    def pack(digits, k):  # digits [n, m, k], the most significant first
+        p3 = 3 ** np.arange(k - 1, -1, -1, dtype=np.uint32)
+        v = (digits * p3).sum(-1)
+        return ((v * 256 + (3 ** k - 1)) // (3 ** k)).astype(np.uint8)
+
+    # elements 0..159: byte i's digit j is element j*32 + i (5 digits);
+    # 160..239: 16 bytes of 5 digits; 240..255: 4 bytes of 4 digits
+    d0 = t[:, :160].reshape(n, 5, 32).transpose(0, 2, 1)
+    d1 = t[:, 160:240].reshape(n, 5, 16).transpose(0, 2, 1)
+    d2 = t[:, 240:256].reshape(n, 4, 4).transpose(0, 2, 1)
+    qs = np.concatenate([pack(d0, 5), pack(d1, 5)], axis=1)  # [n, 48]
+    return np.concatenate([qs, pack(d2, 4), _to_f16_bytes(d)], axis=1)
+
+
 _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F32: _dec_f32,
     GGMLType.F16: _dec_f16,
+    GGMLType.BF16: _dec_bf16,
+    GGMLType.F64: _dec_f64,
+    GGMLType.I8: _dec_int("<i1"),
+    GGMLType.I16: _dec_int("<i2"),
+    GGMLType.I32: _dec_int("<i4"),
+    GGMLType.I64: _dec_int("<i8"),
     GGMLType.Q4_0: _dec_q4_0,
     GGMLType.Q4_1: _dec_q4_1,
     GGMLType.Q5_0: _dec_q5_0,
@@ -596,9 +685,12 @@ _DECODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.IQ3_S: _dec_iq3_s,
     GGMLType.IQ1_S: _dec_iq1_s,
     GGMLType.IQ1_M: _dec_iq1_m,
+    GGMLType.TQ1_0: _dec_tq1_0,
+    GGMLType.TQ2_0: _dec_tq2_0,
 }
 _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.F16: _enc_f16,
+    GGMLType.BF16: _enc_bf16,
     GGMLType.Q4_0: _enc_q4_0,
     GGMLType.Q4_1: _enc_q4_1,
     GGMLType.Q5_0: _enc_q5_0,
@@ -612,6 +704,8 @@ _ENCODERS: dict[GGMLType, Callable[[np.ndarray], np.ndarray]] = {
     GGMLType.Q6_K: _enc_q6_k,
     GGMLType.IQ4_NL: _enc_iq4_nl,
     GGMLType.IQ4_XS: _enc_iq4_xs,
+    GGMLType.TQ1_0: _enc_tq1_0,
+    GGMLType.TQ2_0: _enc_tq2_0,
 }
 
 

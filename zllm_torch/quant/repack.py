@@ -1,6 +1,7 @@
 """GGUF blocks -> `QWeight`, the port's Hopper weight layouts (Q4_0, Q4_1,
-Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, and
-the IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M).
+Q4_K, Q5_0, Q5_1, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, the
+IQ grid formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, and
+the ternary TQ1_0 and TQ2_0).
 
 `zllm.quant.repack` cuts each weight into planes shaped for the TPU's
 (8, 128) tiles: N on lanes, nibbles and crumbs folded along K, and for the
@@ -86,6 +87,11 @@ product rounded to fp16:
     delta is one an 8-group).
 The fold runs in torch on the target device, a chunk of superblocks at a
 time.
+TQ1_0 and TQ2_0 (`TQ10Weight`, `TQ20Weight`), ternary weights in {-1, 0,
+1} times a per-256 fp16 d: the code (value + 1, 0..2) in the crumb plane
+of Q2_K, and a = d repeated for each 32-group, fp16 [N, K/32] (exact: no
+rounding), as `zllm/quant/repack.py::_rp_ternary` holds them;  w = (crumb -
+1) * a.  TQ1_0's base-3 bytes and TQ2_0's crumbs are decoded at load.
 The products that `zllm`'s repack rounds to fp16 (Q2_K's, Q3_K's, IQ4_XS's
 and the IQ grid formats' a and b, as Q6_K's and Q5_K's) are rounded here
 too, so every value is
@@ -994,11 +1000,64 @@ class IQ1MWeight(IQ1SWeight):
         return (q * a[..., None] - self.b.float()[..., None]).reshape(n, k)
 
 
+class TernaryWeight(IntWeight):
+    """TQ1_0, TQ2_0: crumb codes 0..2 (the value + 1) in the crumb plane,
+    one fp16 scale a 32-group, the superblock's d repeated (K4 and K5 take
+    both through one form)."""
+
+    GROUP: ClassVar[int] = 32
+    PLANES: ClassVar[dict] = {"qs": (torch.uint8, 4), "a": (torch.float16, 32)}
+
+    def int_codes(self) -> torch.Tensor:
+        return crumb_codes(self.qs, *self.shape).to(torch.int16) - 1
+
+    def group_scale(self) -> torch.Tensor:
+        return self.a.float()
+
+    @staticmethod
+    def from_codes(codes: np.ndarray, d: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        """codes uint8 [N * K/256, 256] and d fp16 [N * K/256, 1] -> the planes."""
+        return {"qs": pack_crumbs(codes.reshape(n, k)),
+                "a": np.ascontiguousarray(np.repeat(d.reshape(n, k // QK_K), 8, axis=1))}
+
+
+@dataclass
+class TQ10Weight(TernaryWeight):
+    """A TQ1_0 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.TQ1_0
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        codes = qb.tq1_0_codes(np.ascontiguousarray(b[:, :48]), np.ascontiguousarray(b[:, 48:52]))
+        return TernaryWeight.from_codes(codes, np.ascontiguousarray(b[:, 52:54]).view("<f2"),
+                                         n, k)
+
+
+@dataclass
+class TQ20Weight(TernaryWeight):
+    """A TQ2_0 weight in the layout above."""
+
+    shape: tuple[int, int]
+    qs: torch.Tensor
+    a: torch.Tensor
+    fmt: ClassVar[GGMLType] = GGMLType.TQ2_0
+
+    @staticmethod
+    def from_gguf(b: np.ndarray, n: int, k: int) -> dict[str, np.ndarray]:
+        codes = qb.tq2_0_codes(np.ascontiguousarray(b[:, :64]))
+        return TernaryWeight.from_codes(codes, np.ascontiguousarray(b[:, 64:66]).view("<f2"),
+                                         n, k)
+
+
 WEIGHT_CLASSES: dict[GGMLType, type[QWeight]] = {
     cls.fmt: cls for cls in (Q4KWeight, Q40Weight, Q41Weight, Q50Weight, Q51Weight, Q5KWeight,
                              Q6KWeight, Q80Weight, Q2KWeight, Q3KWeight, IQ4NLWeight, IQ4XSWeight,
                              MXFP4Weight, IQ2XXSWeight, IQ2XSWeight, IQ2SWeight, IQ3XXSWeight,
-                             IQ3SWeight, IQ1SWeight, IQ1MWeight)}
+                             IQ3SWeight, IQ1SWeight, IQ1MWeight, TQ10Weight, TQ20Weight)}
 
 
 def _weight_class(fmt) -> type[QWeight]:

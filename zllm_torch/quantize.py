@@ -7,9 +7,11 @@ llama_tensor_get_type, simplified as `tools/quantize.py` has them: the
 embedding, the output head, attn_v and part of ffn_down get bumped types),
 quantizes and writes a new GGUF.  Given the same input it writes the same
 bytes as `tools/quantize.py`.  Every preset can name its types, but a type
-the port has no encoder for (`quant/blocks.py`: F16, Q4_0, Q4_1, Q5_0,
-Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS, MXFP4) raises
-NotImplementedError before anything is written.
+the port has no encoder for (`quant/blocks.py` has F16, BF16, Q4_0,
+Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS,
+MXFP4, TQ1_0 and TQ2_0; the IQ grid presets need the others) raises
+NotImplementedError before anything is written.  TQ1_0 is encoded
+unweighted (no importance matrix here).
 
 Vectors (norms, Qwen2's q/k/v biases, rope_freqs) stay F32; a file with a
 tied head has no output.weight to re-type.

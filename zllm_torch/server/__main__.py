@@ -10,8 +10,7 @@ an f16 KV cache (llama.cpp's default -ctk/-ctv f16; paged by default, or
 contiguous), `--kv-type q8` from the int8 KV cache (llama.cpp's -ctk/-ctv
 q8_0), which takes the contiguous layout.  It offers only what the port
 serves: no router, speculative or lookahead decoding, multi-device serving
-or media; an OLMo-2 model with f16 KV on the contiguous layout is refused
-(its decode kernel's f16 form is not ported yet).
+or media.
 """
 
 from __future__ import annotations

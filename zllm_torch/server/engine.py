@@ -5,7 +5,7 @@
     tables (`runtime/paged.py`; K9 decode, K10 mixed steps);
   * contiguous: one [n_slots, Hkv, max_len + prefill_chunk, D] stripe per
     layer, slot index == position (`runtime/kvcache.py`): bf16/f16/f32 K/V
-    (K2 decode, K6 mixed steps; OLMo-2: K8 decode, not yet in f16), or the
+    (K2 decode, K6 mixed steps; OLMo-2: K8 decode), or the
     int8 q8 cache, `kv_dtype="q8"`, which always takes this layout (K7 at
     every step).
 `kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0", as in zllm.
@@ -40,9 +40,8 @@ a CPU model's the plain versions.  Invalid settings raise ValueError: an
 unknown `kv_dtype` string and q8 with the paged layout, as zllm's do, a
 torch dtype other than bf16, f16 or f32, and an unknown layout (which
 zllm serves as contiguous).  What this engine does not port raises
-NotImplementedError naming its ROADMAP item: f16 KV over the contiguous
-layout for OLMo-2, speculative and lookahead decoding, tp/dp/pp/mesh and
-coordinated serving, media.  Recurrent, hybrid, MLA and
+NotImplementedError naming its ROADMAP item: speculative and lookahead
+decoding, tp/dp/pp/mesh and coordinated serving, media.  Recurrent, hybrid, MLA and
 SWA models do not load in zllm_torch at all (`models/config.py`).
 """
 
@@ -194,12 +193,6 @@ class Engine:
         elif kv_dtype not in (None, torch.bfloat16, torch.float16, torch.float32):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (bfloat16, float16, float32 "
                              "or 'q8')")
-        elif (kv_dtype == torch.float16 and kv_layout == "contiguous"
-              and model.cfg.arch == "olmo2"):
-            # OLMo-2's T=1 kernel over the contiguous cache is K8, whose f16
-            # form is not ported yet
-            raise _not_ported("kv_dtype=float16 with kv_layout='contiguous' for OLMo-2 (K8's f16 "
-                              "form)")
         if speculative or draft_model is not None:
             raise _not_ported("speculative decoding")
         if lookahead:
