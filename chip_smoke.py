@@ -208,7 +208,14 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      TinyLlama Q4_K_M generate over an f16 cache (`main_path`, kv_dtype
      float16: the bf16 path's counts, every K2 and K6 launch in its f16
      form, `f16_launches`); `serve_f16` and `serve_contig_f16`, the same
-     server over f16 pages (K9/K10) and an f16 stripe (K2/K6); and
+     server over f16 pages (K9/K10) and an f16 stripe (K2/K6);
+     `serve_contig_f16_olmo2`, the same server and traffic over the
+     full-width OLMo-2 Q4_K model on an f16 stripe (4 slots, S 2176: per
+     engine step 65 K3, and 16 K8 a decode step or 16 K6 + 16 K8 a mixed
+     step, every K8 and K6 launch in its f16 form); `serve_tq2_0`, the
+     TinyLlama TQ2_0 model behind the default server (paged: per engine
+     step 89 K5, K5's TQ form at M = 4 and its Q6_K form for the head, and
+     K9/K10 as in `serve`); and
      `kernel_f16`: each f16 form against its plain version (f32 and bf16 q,
      nmse <= 1e-6), timed beside its bound, plain version and SDPA on the
      same f16 K/V, at the bf16 rows' shapes (K8 at the OLMo-2 step, with
@@ -220,8 +227,10 @@ Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q
 IQ4_NL, MXFP4 and IQ grid factory files are made by child processes
 (`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
 the numpy quantizer's minutes run beside it.  Each main path also prints
-its decode step run eagerly, by CUDA kernel name (`step_profile`,
-torch.profiler).
+its decode step run eagerly, by CUDA kernel name and summed by kind
+(the port's, PyTorch's own, cuBLAS's; `step_profile`, torch.profiler).
+A BF16 step hands K2 a bf16 q: `kernel` K2's `bf16_q` times that form at
+the main path's shapes for its `step_graph` row.
 
 Prints one JSON line per phase result (with the run's seconds so far,
 `elapsed_s`), then the `kernels` line, then the
@@ -404,11 +413,18 @@ def cuda_launches(fn) -> int | None:
     return n or None
 
 
+# step_profile's kinds of CUDA kernel by name: PyTorch's own (elementwise,
+# reductions, copies), cuBLAS's products; every other one is the port's
+TORCH_KERNELS = ("at::", "elementwise_kernel_with_index")
+LIBRARY_KERNELS = ("nvjet", "cublas", "cutlass", "sm90_xmma", "sm80_xmma", "ampere_")
+
+
 def step_profile(torch, fn, top: int = 10) -> dict:
     """One eager call of fn() by CUDA kernel (torch.profiler over a second
-    call): the kernels' count and summed device ms, and the `top` kernel
-    names by device time, each with its count and ms; {} where the profiler
-    records no device activity."""
+    call): the kernels' count and summed device ms, the same by kind
+    (`torch`, `library`, `port`: TORCH_KERNELS, LIBRARY_KERNELS), and the
+    `top` kernel names by device time, each with its count and ms; {} where
+    the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -433,8 +449,16 @@ def step_profile(torch, fn, top: int = 10) -> dict:
     if not rows:
         return {}
     ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
+    kinds: dict[str, list] = {}
+    for name, (c, ms) in rows.items():
+        kind = ("torch" if name.startswith(TORCH_KERNELS) else
+                "library" if name.startswith(LIBRARY_KERNELS) else "port")
+        row = kinds.setdefault(kind, [0, 0.0])
+        row[0] += c
+        row[1] += ms
     return {"kernels": sum(r[0] for r in rows.values()),
             "device_ms": sum(r[1] for r in rows.values()),
+            "by_kind": {k: dict(count=c, ms=ms) for k, (c, ms) in sorted(kinds.items())},
             "top": [dict(name=n, count=c, ms=ms) for n, (c, ms) in ranked[:top]]}
 
 
@@ -1014,15 +1038,18 @@ def small_engine_check(torch, kernels: dict, layout: str):
 
 
 def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
-                kv_layout: str = "auto") -> dict:
+                kv_layout: str = "auto", label: str = "tinyllama-geometry Q4_K_M",
+                gemms: dict | None = None, tag: str = "") -> dict:
     """The serving main path: ZllmServer (defaults; `kv_dtype="q8"` for the
     q8 KV cache, whose auto layout is the contiguous one; `kv_layout=
     "contiguous"` for the bf16 contiguous stripe; `kv_dtype=torch.float16`
     for the f16 cache on either layout, `--kv-type f16`, whose K9/K10 or
-    K2/K6 launches must all take their f16 forms) over the TinyLlama-geometry
-    Q4_K_M model on a local port.  Warm up, set the launch counts to 0, then
-    the traffic; the counts must match the engine's own step counters
-    exactly.  Returns the counts."""
+    K2/K6 (OLMo-2: K8/K6) launches must all take their f16 forms) over
+    `model` (the TinyLlama-geometry Q4_K_M one unless `label` names
+    another) on a local port.  `gemms`: the GEMM launches of one engine
+    step by kernel (by default Q4_K_M's); `tag` names the phase apart.
+    Warm up, set the launch counts to 0, then the traffic; the counts must
+    match the engine's own step counters exactly.  Returns the counts."""
     from zllm_torch.ops import attention as att
     from zllm_torch.server.http import ZllmServer
 
@@ -1030,6 +1057,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     f16 = kv_dtype == torch.float16
     contig = kv_layout == "contiguous" and not q8
     phase = ("serve_q8" if q8 else "serve_contig" if contig else "serve") + ("_f16" if f16 else "")
+    phase += f"_{tag}" if tag else ""
     # the mixed steps' attention must take the tensor-core loop (bf16 pools;
     # int8 codes at 1024 query rows a kv head; K6's bf16 form over the
     # contiguous stripe), counted apart on its wrapper
@@ -1101,15 +1129,17 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     L = model.cfg.n_layers
     low = L // 2
     expected = {name: 0 for name in kernels}
-    expected.update(q4k_gemm=(4 * L + (L - low)) * (dec + pre),
-                    dequant_gemm=(L + low + 1) * (dec + pre))
+    if gemms is None:  # Q4_K_M: Q4_K but wv and the first L/2 ffn_down, and the Q6_K head
+        gemms = {"q4k_gemm": 4 * L + (L - low), "dequant_gemm": L + low + 1}
+    expected.update({name: n * (dec + pre) for name, n in gemms.items()})
     # a mixed step attends column 0 (a generating row's token) once more
     # through the T=1 kernel, as a decode step does (models/llama.py:
     # `_attend`; over the contiguous stripe K2 in `layer_forward`)
     if q8:
         expected.update(flash_attention_blockwise=L * (dec + 2 * pre))
-    elif contig:
-        expected.update(attn_decode_qkv=L * (dec + pre), flash_attention=L * pre)
+    elif contig:  # the T=1 kernel: K8 for OLMo-2, K2 otherwise
+        t1 = "attn_decode_update" if model.cfg.arch == "olmo2" else "attn_decode_qkv"
+        expected.update({t1: L * (dec + pre), "flash_attention": L * pre})
     else:
         expected.update(paged_attn_decode_update=L * (dec + pre), paged_attention=L * pre)
     # the cache's bytes against a bf16 contiguous cache of the same slots
@@ -1129,7 +1159,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
                for n in SERVE_PROMPT_BYTES)
     f16_want = {n: counts[n] if f16 else 0 for n in f16_got}
     emit({"phase": phase,
-          "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+          "model": f"{label} (random weights, seed 0)",
           "dtype": "bfloat16", **layout, "n_slots": eng.n_slots,
           "max_len": eng.max_len, "chunk": eng.prefill_chunk, "kv_bytes": kv_bytes,
           "kv_bytes_bf16_contiguous": bf16_bytes, "kv_bytes_ratio": kv_bytes / bf16_bytes,
@@ -2035,7 +2065,7 @@ def main():
                   "(dequant_gemm.cu: "
                   "Q6KSlice, Q80Slice, CrumbSlice for Q2_K / Q3_K, TableSlice for IQ4_NL and "
                   "IQ4_XS / MXFP4 / IQ2_XXS / IQ2_XS and IQ2_S / IQ3_XXS / IQ3_S, IQ1CrumbSlice "
-                  "for IQ1_S / IQ1_M, TernarySlice for TQ1_0 / TQ2_0), RowForm and TileForm per "
+                  "for IQ1_S / IQ1_M and, without the min, TQ1_0 / TQ2_0), RowForm and TileForm per "
                   "decoder, and its round and "
                   "reduction kernels" if slice_build else "not built in this run (cached)"})
     spills = [e for e in slice_build if e["spill_stores"] or e["spill_loads"]]
@@ -2141,10 +2171,11 @@ def main():
     # one sliced-loop instantiation a form and decoder: K3's six nibble
     # formats, K5's Q6_K, Q8_0, Q2_K, Q3_K, IQ4 (IQ4_NL and IQ4_XS), MXFP4,
     # IQ2 (32-groups), IQ2 (16-groups: IQ2_XS and IQ2_S), IQ3_XXS, IQ3_S,
-    # IQ1_S and IQ1_M (IQ1CrumbSlice), TQ1_0 and TQ2_0 (TernarySlice)
+    # IQ1_S, IQ1_M and TQ1_0 / TQ2_0 (IQ1CrumbSlice, the last without its
+    # min; "CrumbSlice" matches it too)
     for lib, decoders, n_dec in (("q4k_gemm", ("NibbleSlice",), 6),
                                  ("dequant_gemm", ("Q6KSlice", "Q80Slice", "CrumbSlice",
-                                                   "TableSlice", "TernarySlice"), 13)):
+                                                   "TableSlice"), 13)):
         loops = [e for e in ptxas_entries({lib: reports.get(lib, "")}, "slice_gemm_kernel")
                  if any(d in e["name"] for d in decoders)]
         if lib in reports and len(loops) != 2 * n_dec:
@@ -2426,6 +2457,18 @@ def main():
     counts_serve16 = serve_phase(torch, model_m, kernels, card, kv_dtype=torch.float16)
     counts_contig16 = serve_phase(torch, model_m, kernels, card, kv_dtype=torch.float16,
                                   kv_layout="contiguous")
+    # the OLMo-2 Q4_K model behind the server over a contiguous f16 cache
+    # (`--kv-type f16 --kv-layout contiguous`, 4 slots, S 2176): K8 in its f16
+    # form at head_dim 128 with the idle slots' trash rows, K6 in its f16
+    # form, K3 at M <= 4 for every matmul and the head
+    counts_serve_o16 = serve_phase(torch, model_o, kernels, card, kv_dtype=torch.float16,
+                                   kv_layout="contiguous", label="OLMo-2-0425-1B geometry Q4_K",
+                                   gemms={"q4k_gemm": 4 * L_o + 1}, tag="olmo2")
+    # the TQ2_0 model behind the server (paged, 4 slots): K5's TQ form at M
+    # = 4 for wqkv, wo, gate|up and down, and its Q6_K form for the head
+    counts_serve_tq = serve_phase(torch, tq_models["TQ2_0"], kernels, card,
+                                  label="tinyllama-geometry TQ2_0",
+                                  gemms={"dequant_gemm": 4 * L_t + 1}, tag="tq2_0")
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -2436,7 +2479,8 @@ def main():
              "serve_contig": counts_contig, "Q4_K_M_f16": counts_q4km16,
              "serve_f16": counts_serve16, "serve_contig_f16": counts_contig16,
              **{ft.lower(): c for ft, c in tq_counts.items()}, "bf16": counts_bf16,
-             "olmo2_f16": counts_o16}
+             "olmo2_f16": counts_o16, "serve_contig_f16_olmo2": counts_serve_o16,
+             "serve_tq2_0": counts_serve_tq}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -2575,6 +2619,24 @@ def main():
                           f"bf16, pos {pos_v}", launches_per_step=per_layer,
                    cuda_launches_per_call=k2_calls if k2_calls is not None else "not measured")
     lines.append(k2_line)
+    # a BF16 file's step hands K2 a bf16 qkv (its dense products stay in
+    # bf16): the same 22 launches on qkv3 rounded to bf16, held against the
+    # plain version, timed for that path's `step_graph` row
+    qkv3b = qkv3.to(torch.bfloat16)
+    kk, vk, kp, vp = kcs[0].clone(), vcs[0].clone(), kcs[0].clone(), vcs[0].clone()
+    a = att.attn_decode_qkv(qkv3b, kk, vk, pos, rope, scale=scale, eps=cfg.norm_eps)
+    b = att.attn_decode_qkv_plain(qkv3b, kp, vp, pos, rope, scale=scale, eps=cfg.norm_eps)
+
+    def k2_bf16q():
+        for kc, vc in zip(kcs, vcs):
+            att.attn_decode_qkv(qkv3b, kc, vc, pos, rope, scale=scale, eps=cfg.norm_eps)
+
+    k2_line["bf16_q"] = dict(ms=cuda_ms(k2_bf16q, 20), nmse=nmse(a.float(), b.float()),
+                             max_abs_err=float((a.float() - b.float()).abs().max()),
+                             tolerance=1e-5, launches=counts_bf16["attn_decode_qkv"],
+                             shapes=f"qkv3 [1,{hq + 2 * hkv},{hd}] bf16, the caches above")
+    if not k2_line["bf16_q"]["nmse"] <= 1e-5 or not torch.equal(vk, vp):
+        fail(f"K2 with a bf16 q differs from its plain version: {k2_line['bf16_q']}")
     del kcs, vcs
 
     # K2 at a TinyLlama contiguous engine decode step: 4 rows at 255, 0, 300
@@ -3586,8 +3648,9 @@ def main():
                                              kernels_ms=tq_lines[ft]["k4"]["ms"]
                                              + by_name["attn_decode_qkv"]["ms"])
              for ft in TQ_FTYPES},
-          "tinyllama_bf16": dict(step_graph_ms=step_bf16, k2_ms=by_name["attn_decode_qkv"]["ms"],
-                                 kernels_ms=by_name["attn_decode_qkv"]["ms"]),
+          "tinyllama_bf16": dict(step_graph_ms=step_bf16,
+                                 k2_ms=by_name["attn_decode_qkv"]["bf16_q"]["ms"],
+                                 kernels_ms=by_name["attn_decode_qkv"]["bf16_q"]["ms"]),
           "tinyllama_q5km": dict(step_graph_ms=q5_steps["Q5_K_M"],
                                  k1_ms=q5_lines["Q5_K_M"]["k1"]["ms"],
                                  k4_ms=q5_lines["Q5_K_M"]["k4"]["ms"],

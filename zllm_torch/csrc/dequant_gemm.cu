@@ -245,17 +245,19 @@ struct TableSlice {
 };
 
 // IQ1_S (a, b per 32-group) and IQ1_M (a per 16-group, b per 8-group):
-// Q2_K's crumbs, (crumb - 1) * a - b; thread q of a column decodes 16-group
-// g = 4c + q as CrumbSlice does, its crumb word at ring bytes 0-3, the word
-// of mins holding it at bytes 4-7 (IQ1_M: its two 8-groups' mins), the
-// scale pair holding it in `word`
-template <bool kM>
+// Q2_K's crumbs, (crumb - 1) * a - b; kMin false, TQ1_0 and TQ2_0: IQ1_S's
+// crumbs and 32-group scales without the min, (crumb - 1) * a, exact in
+// bf16 (a is fp16: 11 bits).  Thread q of a column decodes 16-group g = 4c
+// + q as CrumbSlice does, its crumb word at ring bytes 0-3, the word of
+// mins holding it at bytes 4-7 (IQ1_M: its two 8-groups' mins), the scale
+// pair holding it in `word`
+template <bool kM, bool kMin = true>
 struct IQ1CrumbSlice {
   const uint8_t* qs;  // [N, K/4]
   const __half* a;    // [N, K/32] (IQ1_M: [N, K/16])
-  const __half* b;    // [N, K/32] (IQ1_M: [N, K/8])
+  const __half* b;    // [N, K/32] (IQ1_M: [N, K/8]; kMin false: unused)
   int K;
-  static constexpr int kPieces = 1;  // 8 of its 16 bytes used
+  static constexpr int kPieces = 1;  // 8 of its 16 bytes used (kMin false: 4)
   __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
   __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
                                         int q) const {
@@ -266,7 +268,7 @@ struct IQ1CrumbSlice {
       cp_async4(pc + 4, b + col * (K / 8) + 2 * g);
       cp_async4(word, a + col * (K / 16) + (g & ~1));
     } else {  // 32-groups 2c, 2c + 1
-      cp_async4(pc + 4, b + col * (K / 32) + 2 * c);
+      if constexpr (kMin) cp_async4(pc + 4, b + col * (K / 32) + 2 * c);
       cp_async4(word, a + col * (K / 32) + 2 * c);
     }
   }
@@ -277,36 +279,13 @@ struct IQ1CrumbSlice {
     const float sc = half_of(word, h);
     uint2 o[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)  // elements 4i..4i+3 of the group
-      o[i] = affine4((r.x >> (2 * i)) & 0x03030303u, 1, sc, half_of(r.y, kM ? i >> 1 : h));
-    v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
-    v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
-  }
-};
-
-// TQ1_0, TQ2_0: IQ1_S's crumbs and 32-group scales without the min,
-// (crumb - 1) * a, exact in bf16 (a is fp16: 11 bits); thread q of a column
-// decodes 16-group g = 4c + q, its crumb word at ring bytes 0-3, the scale
-// pair of the 32-groups 2c, 2c + 1 in `word`
-struct TernarySlice {
-  const uint8_t* qs;  // [N, K/4]
-  const __half* a;    // [N, K/32]
-  int K;
-  static constexpr int kPieces = 1;  // 4 of its 16 bytes used
-  __device__ __forceinline__ static int slot(int q, int i) { return 2 * q + i; }
-  __device__ __forceinline__ void fetch(uint4* p, int, uint32_t* word, size_t col, int c,
-                                        int q) const {
-    cp_async4(p, qs + col * (K / 4) + 4 * (4 * c + q));
-    cp_async4(word, a + col * (K / 32) + 2 * c);
-  }
-  __device__ __forceinline__ void dequant(const uint4* p, const uint4*, int, uint32_t word,
-                                          size_t, int, int q, uint4 (&v)[2]) const {
-    const uint32_t r = p[0].x;
-    const float sc = half_of(word, q >> 1);
-    uint2 o[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)  // elements 4i..4i+3 of the group
-      o[i] = scale4((r >> (2 * i)) & 0x03030303u, 1, sc, false);
+    for (int i = 0; i < 4; ++i) {  // elements 4i..4i+3 of the group
+      const uint32_t codes = (r.x >> (2 * i)) & 0x03030303u;
+      if constexpr (kMin)
+        o[i] = affine4(codes, 1, sc, half_of(r.y, kM ? i >> 1 : h));
+      else
+        o[i] = scale4(codes, 1, sc, false);
+    }
     v[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
     v[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
   }
@@ -384,8 +363,8 @@ extern "C" int zt_dequant_gemm(int fmt, const void* x, int xdtype, void* xb, con
     case 14:
     case 15:
       return zt_slice::launch_slice_gemm(
-          x, xdtype, xb, TernarySlice{qs, static_cast<const __half*>(p1), K}, y, ws, M, K, N, tk,
-          form, spb, s);
+          x, xdtype, xb, IQ1CrumbSlice<false, false>{qs, static_cast<const __half*>(p1), nullptr, K},
+          y, ws, M, K, N, tk, form, spb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,20 @@ values; only their times mean anything.
     python -m zllm_torch.decode_cluster_ablation --timeline
 builds a copy that stamps %globaltimer at each phase and prints, for one
 eager K7 call (int8, then bf16), the ns from each block's start to the end
-of each phase for the trash row's cluster (kv head 0)."""
+of each phase for the trash row's cluster (kv head 0).
+
+    python -m zllm_torch.decode_cluster_ablation --against OTHER/zllm_torch/csrc
+builds K9 (`paged_decode.cu`) from this checkout's sources and from
+another checkout's (say the parent commit, unpacked with `git archive`)
+and times K9's f16 form (f32 q, f16 pools; the serve step above at head_dim
+64, and 16 layers of 16/16 heads of 128) and its bf16 form (the control:
+the same work in both trees) in the order this, other, other, this, ROUNDS
+times: one JSON line a run, then each tree's per-run ms and their spread.
+
+    python -m zllm_torch.decode_cluster_ablation --k9-shared-q
+the same, `other` a copy of this checkout's sources whose K9 f16 form
+keeps q's fragments in shared memory as K8's f16 form does (K9_SHARED_Q),
+where the header keeps them in registers."""
 
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import json
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -42,11 +56,17 @@ HEADER = "decode_cluster.cuh"
 VARIANTS = {
     "no_chunk": ("const int m = max(0, min(per, n - my0));",
                  "const int m = 0 * max(0, min(per, n - my0));"),
-    "no_score_mma": ("for (int pt = 0; pt < NQ; ++pt) mma_bf16(cp[pt], a, qb[ks][pt]);",
-                     "for (int pt = 0; pt < 0; ++pt) mma_bf16(cp[pt], a, qb[ks][pt]);"),
-    "no_pv_mma": ("          mma_bf16(tacc[mt], av, pb[0]);\n          if constexpr (NP > 1) {",
-                  "          if (0) mma_bf16(tacc[mt], av, pb[0]);\n          if constexpr (0) {"),
+    "no_score_mma": ("            Tc<TT>::mma(cp[pt], a, qb[ks][pt]);",
+                     "            if (0) Tc<TT>::mma(cp[pt], a, qb[ks][pt]);"),
+    "no_pv_mma": ("          Tc<TT>::mma(tacc[mt], av, pb[0]);\n          if constexpr (NP > 1) {",
+                  "          if (0) Tc<TT>::mma(tacc[mt], av, pb[0]);\n          if constexpr (0) {"),
 }
+ROUNDS = 3  # of this, other, other, this in --against
+# the header with K9's f16 form on K8's shared-memory q fragments
+K9_SHARED_Q = (("constexpr bool kQsm = kF16 && KV::kRound == kRoundNorm;",
+                "constexpr bool kQsm = kF16;"),
+               ("+ (zt_mma::IsF16<TKV>::value && ROUND == kRoundNorm",
+                "+ (zt_mma::IsF16<TKV>::value"))
 
 PHASES = ("prologue", "phase1", "barrier1", "exchange", "phase2", "reduce", "barrier2", "end")
 
@@ -98,6 +118,74 @@ def use_build(name: str, src: str):
     cuda._LIBS.clear()
     cuda._FNS.clear()
     cuda.build(["attn_blockwise", "paged_decode", "attn_decode_update"])
+
+
+def use_tree(name: str, csrc: Path):
+    """Point ops/cuda.py at the sources in `csrc`, K9 built into a cache of
+    its own (once: a later call loads the built library again)."""
+    cuda.CSRC, cuda.CACHE = csrc, OUT / name / "kernels"
+    cuda._LIBS.clear()
+    cuda._FNS.clear()
+    cuda.build(["paged_decode"])
+
+
+def k9_f16_inputs():
+    """K9's serve-step inputs over f16 pools: (q, k/v_new, positions, table,
+    pools of each layer, page size) at head_dim 64 (22 layers, 32/4 heads)
+    and 128 (16 layers, 16/16 heads), 4 rows at 255, 0, 300 and the trash
+    row 2048, 16 pages of 128 a row, scrambled; random data from a seed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    b, ps, lp = 4, 128, 16
+    n_pages = b * lp + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(2)) + 1
+    table = torch.zeros((b, lp + 1), dtype=torch.int32)
+    table[:, :lp] = perm.reshape(b, lp).to(torch.int32)
+    pos = torch.tensor([[255], [0], [300], [2048]], dtype=torch.int32, device="cuda")
+    out = {}
+    for d, hq, hkv, layers in ((64, 32, 4, 22), (128, 16, 16, 16)):
+        def randn(*shape, dtype=torch.float32):
+            return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+        pools = [(randn(hkv, n_pages * ps, d, dtype=torch.float16),
+                  randn(hkv, n_pages * ps, d, dtype=torch.float16)) for _ in range(layers)]
+        out[d] = (randn(b, 1, hq, d), randn(b, 1, hkv, d), pos, table.to("cuda"), pools, ps)
+    return out
+
+
+def against(other: Path, card: str, bf16_step):
+    """K9's f16 form built from this checkout's sources and from `other`'s,
+    timed in the order this, other, other, this, ROUNDS times (see the
+    module's docstring); `bf16_step` times K9's bf16 form, the control."""
+    inputs = k9_f16_inputs()
+
+    def k9_f16(d):
+        q, kn, pos, table, pools, ps = inputs[d]
+
+        def go():
+            for kp, vp in pools:
+                att.paged_attn_decode_update(q, kn, kn, kp, vp, table, pos, page_size=ps,
+                                             scale=d ** -0.5)
+        return go
+
+    trees = {"this": CSRC, "other": other}
+    runs = {name: [] for name in trees}
+    for name in ("this", "other", "other", "this") * ROUNDS:
+        use_tree(name, trees[name])
+        run = {"k9_f16_d64_step_ms": graph_ms(k9_f16(64)),
+               "k9_f16_d128_step_ms": graph_ms(k9_f16(128)),
+               "k9_bf16_step_ms": graph_ms(bf16_step)}
+        runs[name].append(run)
+        print(json.dumps({"tree": name, "csrc": str(trees[name]), "card": card, **run}),
+              flush=True)
+    summary = {}
+    for key in runs["this"][0]:
+        per = {name: [r[key] for r in rs] for name, rs in runs.items()}
+        summary[key] = {**per, "this_over_other": min(per["this"]) / min(per["other"]),
+                        "spread_this": max(per["this"]) / min(per["this"]) - 1,
+                        "spread_other": max(per["other"]) / min(per["other"]) - 1}
+    print(json.dumps({"against": str(other), "card": card, "rounds": ROUNDS, **summary}),
+          flush=True)
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -187,6 +275,20 @@ def main(argv):
                 att.attn_decode_update(q8, kn8, kn8, kc, vc, pos8, scale=scale)
         return go
 
+    if "--against" in argv:
+        against(Path(argv[argv.index("--against") + 1]).resolve(), card, k9)
+        return
+    if "--k9-shared-q" in argv:
+        text = src
+        for old, new in K9_SHARED_Q:
+            assert text.count(old) == 1, old
+            text = text.replace(old, new)
+        tree = OUT / "k9_shared_q" / "csrc"
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(CSRC, tree)
+        (tree / HEADER).write_text(text)
+        against(tree, card, k9)
+        return
     if "--timeline" in argv:
         use_build("timeline", timeline_source(src))
         for name, kvs in (("int8", int8), ("bf16", bf16)):
