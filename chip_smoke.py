@@ -220,11 +220,30 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      nmse <= 1e-6), timed beside its bound, plain version and SDPA on the
      same f16 K/V, at the bf16 rows' shapes (K8 at the OLMo-2 step, with
      its bf16 form in the same call, and at a TinyLlama engine step), and
-     K9/K10 at Qwen2.5's G 6, d 128 in bf16 and f16.
+     K9/K10 at Qwen2.5's G 6, d 128 in bf16 and f16;
+  6. the importance matrix (`imatrix`): `zllm_torch.imatrix`'s collection
+     over the TinyLlama-geometry Q8_0 file (full width and depth, bf16) on
+     a corpus of 8 chunks of 512 tokens from its byte-level vocab, two
+     chunks a forward with no cache: 89 K5 (Q8_0, M = 1024) + 22 K6 a
+     forward and nothing else, the counters set to 0 just before and read
+     just after (K6 in its f32 tile form: with no cache K/V stay f32); the
+     first forward's chunks once more through K5's and K6's plain versions
+     on the card (each tensor's sums within IMATRIX_PLAIN_NMSE);
+     `kernel_imatrix`: K5 over a forward's 89 GEMMs by weight role and K6
+     over its 22 attentions (the forward's own calls, recorded) against
+     their plain versions, timed beside bound and library; `quantize_imatrix`: the
+     TinyLlama F16 file to IQ2_XXS by `zllm_torch.quantize`'s
+     quantize_file with that imatrix, the grid fit on the card (seconds),
+     each of the seven IQ types' encode of blk.0.ffn_gate (5632 x 2048) on
+     the card (seconds, weighted error against the unweighted encode's,
+     its first IQ_FIT_ROWS rows against the CPU fit's: the share of equal
+     256-blocks, at least IQ_FIT_MIN_SHARE), then the written file's
+     8-token generate (`main_path`: 110 K4 + 23 K1 + 22 K2 a step, 110 K5
+     + 23 K3 + 22 K6 + 22 K2 a chunk, as the factory's IQ2_XXS file).
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
-IQ4_NL, MXFP4 and IQ grid factory files are made by child processes
+IQ4_NL, MXFP4, Q8_0 and IQ grid factory files are made by child processes
 (`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
 the numpy quantizer's minutes run beside it.  Each main path also prints
 its decode step run eagerly, by CUDA kernel name and summed by kind
@@ -565,7 +584,9 @@ def prompt_ids(tok, n: int) -> list[int]:
 REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS", *TQ_FTYPES, "BF16")
 # the main paths' requantized files (the numpy quantizer takes 30-70 s a
 # file, IQ4_XS's 2-3 minutes; TQ2_0, TQ1_0 and BF16 among them) and the
-# TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL and MXFP4 factory files: one child
+# TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL, MXFP4 and Q8_0 (the imatrix slice's,
+# after TQ1_0 in its child: with a child of its own, the first Q4_K_M path
+# waited ≈ 55 s longer for its file in one run) factory files: one child
 # process a group makes them while the kernels build (`prepare_requantized`; children that share a model's F16
 # file may both write it: each writes its own temporary and renames it
 # into place, the same bytes), and gguf_file waits for its file's child
@@ -573,7 +594,7 @@ PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M"
                ("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
                ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")),
                ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]),
-               ("tinyllama", ("TQ2_0", "BF16")), ("tinyllama", ("TQ1_0",)))
+               ("tinyllama", ("TQ2_0", "BF16")), ("tinyllama", ("TQ1_0", "Q8_0")))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
@@ -601,6 +622,18 @@ def _write_atomic(path: Path, write):
     os.replace(tmp, path)
 
 
+def f16_file(name: str, shape: dict) -> Path:
+    """The model's F16 file (cached), the requantized presets' source."""
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.testing import make_llama_gguf
+
+    src = CACHE / f"{name}_f16.gguf"
+    if not src.exists():
+        _write_atomic(src, lambda p: make_llama_gguf(str(p), **dict(shape, with_tokenizer=True),
+                                                     gtype=GGMLType.F16, seed=0))
+    return src
+
+
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     """A random-weight llama, OLMo-2 or Qwen GGUF (`shape` may name the arch) in
     `ftype` (cached): the REQUANTIZED presets made by `python -m
@@ -621,10 +654,7 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
             fail(f"making {path.name} failed: {child.err[-2000:]}")
     if not path.exists():
         if ftype in REQUANTIZED:
-            src = CACHE / f"{name}_f16.gguf"
-            if not src.exists():
-                _write_atomic(src, lambda p: make_llama_gguf(str(p), **shape,
-                                                             gtype=GGMLType.F16, seed=0))
+            src = f16_file(name, shape)
 
             def quantize(p):
                 q = subprocess.run([sys.executable, "-m", "zllm_torch.quantize", str(src), str(p),
@@ -1327,6 +1357,264 @@ def qwen_step_phase(torch, name: str, model, step_ms: float, card: str) -> dict:
     if bad:
         fail(f"{name}: kernels disagree with their plain versions at the model's shapes: {bad}")
     return out
+
+
+# the importance-matrix slice: `zllm_torch.imatrix`'s collection over the
+# TinyLlama Q8_0 file (IMATRIX_CHUNKS chunks of IMATRIX_CTX tokens,
+# IMATRIX_BATCH a forward: K5 at M = 1024 and K6 with no cache), then
+# `zllm_torch.quantize --imatrix` of the TinyLlama F16 file to IQ2_XXS
+# with the grid fit on the card, and that file's generate
+IMATRIX_CTX, IMATRIX_CHUNKS, IMATRIX_BATCH = 512, 8, 2
+# the plain versions' collection over the first forward's chunks (full
+# depth), each tensor's sums held to the nmse the GPU-vs-CPU logits rows
+# are held to (the stream's bf16 and f32-to-bf16 roundings carry an f32
+# sum-order difference on through the layers)
+IMATRIX_PLAIN_CHUNKS, IMATRIX_PLAIN_NMSE = 2, 1e-4
+# the card's grid fit against the CPU's on the first rows of a full-width
+# matrix: the share of equal 256-blocks it must reach (the products' sum
+# order may part a near-tie)
+IQ_FIT_ROWS, IQ_FIT_MIN_SHARE = 64, 0.99
+
+
+def imatrix_corpus(tok, n: int) -> list[int]:
+    """The first n ids of a text of words drawn from a seeded generator
+    (the byte-level vocab: about a token a byte)."""
+    words = ("the model reads every weight once while the card counts bytes and a quiet "
+             "river runs past seven old mills under grey autumn skies").split()
+    rng = random.Random(0)
+    ids = tok.encode(" ".join(rng.choice(words) for _ in range(2 * n)), add_special=True)
+    if len(ids) < n:
+        fail(f"the imatrix corpus tokenized to {len(ids)} ids, wanted {n}")
+    return ids[:n]
+
+
+def imatrix_phase(torch, kernels: dict, card: str):
+    """Collect the importance matrix of the TinyLlama Q8_0 model on the card
+    (`collect_imatrix`, `write_imatrix`: what `python -m zllm_torch.imatrix`
+    runs), the launch counters set to 0 just before and read just after;
+    then the first forward's chunks once more through the plain versions
+    of K5 and K6 on the card.  Returns the model, the corpus's ids, the
+    imatrix file, the counts and the collection's seconds."""
+    import numpy as np
+
+    from zllm_torch import imatrix as ti
+    from zllm_torch.models import llama
+    from zllm_torch.models.loader import Model
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops import qmatmul as qmm
+
+    shape, label = main_shapes()["tinyllama"]
+    path, t_gguf = gguf_file("tinyllama", shape, "Q8_0")
+    t0 = time.perf_counter()
+    model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    ids = imatrix_corpus(model.tokenizer, IMATRIX_CHUNKS * IMATRIX_CTX)
+    ti.collect_imatrix(model, ids[:IMATRIX_CTX], IMATRIX_CTX, 1)  # warm-up
+    k6 = kernels["flash_attention"]
+    for fn in kernels.values():
+        fn.launches = 0
+    k6.mma_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums, counts = ti.collect_imatrix(model, ids, IMATRIX_CTX, IMATRIX_BATCH)
+    t_collect = time.perf_counter() - t0
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    k6_mma = k6.mma_launches  # 0: with no cache K/V stay f32 (K5's output), the tile form
+    im_path = CACHE / "tinyllama_q8_0.imatrix.gguf"
+    ti.write_imatrix(str(im_path), str(path), sums, counts, n_ctx=IMATRIX_CTX)
+    L = model.cfg.n_layers
+    forwards = -(-IMATRIX_CHUNKS // IMATRIX_BATCH)
+    expected = dict({name: 0 for name in kernels}, dequant_gemm=(4 * L + 1) * forwards,
+                    flash_attention=L * forwards)
+
+    # the plain versions on the card: the first forward's chunks, full depth
+    first = ids[:IMATRIX_PLAIN_CHUNKS * IMATRIX_CTX]
+    with torch.inference_mode():
+        kern, _ = ti.collect_imatrix(model, first, IMATRIX_CTX, IMATRIX_BATCH)
+        t0 = time.perf_counter()
+        with mock.patch.object(qmm, "dequant_gemm", qmm.dequant_gemm_plain), \
+                mock.patch.object(llama, "flash_attention", att.flash_attention_plain):
+            plain, _ = ti.collect_imatrix(model, first, IMATRIX_CTX, IMATRIX_BATCH)
+        t_plain = time.perf_counter() - t0
+    errs = {name: nmse(torch.from_numpy(kern[name]), torch.from_numpy(plain[name]))
+            for name in plain}
+    worst = max(errs, key=errs.get)
+    col_rel = max(float(np.max(np.abs(kern[n] - plain[n]) / np.maximum(plain[n], 1e-30)))
+                  for n in plain)
+    back = ti.read_imatrix(str(im_path))
+    res = {"phase": "imatrix", "model": f"{label} Q8_0 (random weights, seed 0)",
+           "shape": shape, "dtype": "bfloat16", "chunks": IMATRIX_CHUNKS, "ctx": IMATRIX_CTX,
+           "batch": IMATRIX_BATCH, "forwards": forwards, "tensors": len(sums),
+           "gguf_build_s": t_gguf, "load_s": t_load, "collect_s": t_collect,
+           "tokens_per_s": IMATRIX_CHUNKS * IMATRIX_CTX / t_collect,
+           "launches": launched, "launches_expected": expected,
+           "flash_attention_mma_launches": k6_mma,
+           "plain_chunks": IMATRIX_PLAIN_CHUNKS, "plain_s": t_plain,
+           "plain_nmse_max": errs[worst], "plain_worst_tensor": worst,
+           "plain_column_max_rel_diff": col_rel, "plain_nmse_tolerance": IMATRIX_PLAIN_NMSE,
+           "card": card}
+    emit(res)
+    if launched != expected:
+        fail(f"imatrix: kernel launch counts {launched} != expected {expected}")
+    if set(sums) != set(back) or len(sums) != 5 * L + 1:
+        fail(f"imatrix: {len(sums)} tensors collected, {len(back)} read back, want {5 * L + 1}")
+    if not all(np.all(np.isfinite(v)) and np.all(v > 0) for v in back.values()):
+        fail("imatrix: a read-back mean square is not finite and positive")
+    if not errs[worst] <= IMATRIX_PLAIN_NMSE:
+        fail(f"imatrix: sums differ from the plain versions' by nmse {errs[worst]} ({worst})")
+    return model, ids, im_path, launched, t_collect
+
+
+def kernel_imatrix(torch, model, ids: list, card: str) -> dict:
+    """K5 over the 89 Q8_0 GEMMs of an imatrix forward (M = batch x ctx; x
+    bf16 in layer 0's first, f32 after the first residual) by weight role
+    and K6 over its 22 attentions (f32 q and K/V: no cache, so the tile
+    form), the very calls a forward makes (recorded, then replayed), each
+    against its plain version, timed beside its bound and the library
+    call."""
+    import torch.nn.functional as F
+
+    from zllm_torch import imatrix as ti
+    from zllm_torch.models import llama
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops import qmatmul as qmm
+
+    cfg = model.cfg
+    calls, acalls = [], []
+    real_g, real_a = qmm.gemm, att.flash_attention
+
+    def spy_g(x, w):  # every matmul of the forward is a Q8_0 GEMM: K5
+        calls.append((x, w))
+        return real_g(x, w)
+
+    def spy_a(q, k, v, positions, **kw):
+        acalls.append((q, k, v, positions, kw))
+        return real_a(q, k, v, positions, **kw)
+
+    with mock.patch.object(qmm, "gemm", spy_g), \
+            mock.patch.object(llama, "flash_attention", spy_a):
+        ti.collect_imatrix(model, ids[:IMATRIX_BATCH * IMATRIX_CTX], IMATRIX_CTX, IMATRIX_BATCH)
+    roles = {role: list(range(i, len(calls) - 1, 4))
+             for i, role in enumerate(("wqkv", "wo", "gate_up", "down"))}
+    roles["head"] = [len(calls) - 1]
+    n_real = {id(model.params["output"]): cfg.vocab_size}
+    k5 = gemm_phase(torch, qmm.dequant_gemm, qmm.dequant_gemm_plain, calls,
+                    lambda w: n_real.get(id(w), w.shape[1]), GGUF_BYTES_PER_WEIGHT["Q8_0"],
+                    check=(0, 1, 2, 3, 4, len(calls) - 1), groups=roles)
+    q, k, v, pos, kw = acalls[0]
+    a, p = att.flash_attention(q, k, v, pos, **kw), att.flash_attention_plain(q, k, v, pos, **kw)
+
+    def run(fn):
+        def go():
+            for q_, k_, v_, pos_, kw_ in acalls:
+                fn(q_, k_, v_, pos_, **kw_)
+        return go
+
+    def lib():
+        for q_, k_, v_, _, kw_ in acalls:
+            F.scaled_dot_product_attention(q_.transpose(1, 2), k_, v_, is_causal=True,
+                                           enable_gqa=True, scale=kw_["scale"])
+
+    b, t, hq, d = q.shape
+    pairs = b * t * (t + 1) // 2  # causal, S = T from position 0
+    bms, bby = bound_ms(len(acalls) * (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                        len(acalls) * 4 * hq * d * pairs, "bf16")
+    k6 = dict(ms=cuda_ms(run(att.flash_attention), 10),
+              plain_ms=cuda_ms(run(att.flash_attention_plain), 2), library_ms=cuda_ms(lib, 10),
+              bound_ms=bms, bound_by=bby, nmse=nmse(a, p), tolerance=1e-5,
+              max_abs_err=float((a - p).abs().max()), launches=len(acalls),
+              shapes=f"q {list(q.shape)} {str(q.dtype)[6:]}, k/v {list(k.shape)} "
+                     f"{str(k.dtype)[6:]} (no cache), {len(acalls)} layers")
+    res = {"phase": "kernel_imatrix", "card": card,
+           "dequant_gemm": dict(k5, tolerance=1e-6, launches=len(calls),
+                                x_dtypes=sorted({str(x.dtype)[6:] for x, _ in calls}),
+                                shapes=f"M = {calls[0][0].shape[0]}, the TinyLlama Q8_0 weights"),
+           "flash_attention": k6,
+           "note": "one imatrix forward's own K5 GEMMs (Q8_0, by weight role) and K6 "
+                   "attentions, recorded and replayed; bound: weight and activation bytes over "
+                   "3.35 TB/s or 2*M*K*N (K6: 4*Hq*D a causal pair) over 989 TFLOP/s; "
+                   "library: torch.matmul on the bf16-dequantized weights, "
+                   "scaled_dot_product_attention (is_causal, the same f32 q/k/v)"}
+    emit(res)
+    if not (k5["nmse"] <= 1e-6 and k6["nmse"] <= 1e-5):
+        fail(f"kernel_imatrix: K5 nmse {k5['nmse']}, K6 nmse {k6['nmse']}")
+    return res
+
+
+def quantize_imatrix_phase(torch, kernels: dict, card: str, im_path: Path, want) -> dict:
+    """`zllm_torch.quantize --imatrix` of the TinyLlama F16 file to IQ2_XXS
+    with the grid fit on the card; each IQ type's encode of one full-width
+    matrix (blk.0.ffn_gate) on the card, timed, its weighted error against
+    the unweighted encode's, and its first rows against the CPU fit's; then
+    the written file's generate (main_path, `want` its counts)."""
+    import numpy as np
+
+    from zllm_torch import quantize as tq
+    from zllm_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
+    from zllm_torch.gguf.reader import read_gguf
+    from zllm_torch.imatrix import read_imatrix
+    from zllm_torch.models.loader import Model
+    from zllm_torch.quant import blocks as qb
+
+    shape, label = main_shapes()["tinyllama"]
+    src = f16_file("tinyllama", shape)
+    imatrix = read_imatrix(str(im_path))
+    dst = CACHE / "tinyllama_iq2_xxs_imatrix.gguf"
+    t0 = time.perf_counter()
+    stats = tq.quantize_file(str(src), str(dst), "IQ2_XXS", imatrix, quiet=True, device="cuda")
+    t_quant = time.perf_counter() - t0
+    fmts = {}
+    for _, t_, _ in stats.values():
+        fmts[t_] = fmts.get(t_, 0) + 1
+    weighted = sorted(n for n in stats if n in imatrix)
+    name = "blk.0.ffn_gate.weight"
+    with read_gguf(str(src)) as f:
+        x = f.tensor_f32(name)
+    w = imatrix[name]
+    per_type = {}
+    for ftype in IQ_FTYPES:
+        t = GGMLType[ftype]
+        t0 = time.perf_counter()
+        raw = qb.quantize(x, t, weights=w, device="cuda")
+        secs = time.perf_counter() - t0
+        plain = qb.quantize(x, t, device="cuda")
+        cpu = qb.quantize(x[:IQ_FIT_ROWS], t, weights=w, device="cpu")
+        bsz = GGML_BLOCK_SIZES[t][1]
+        share = float((raw[:IQ_FIT_ROWS].reshape(-1, bsz) == cpu.reshape(-1, bsz)).all(1).mean())
+
+        def werr(r):
+            dec = qb.dequantize(r, t).reshape(x.shape).astype(np.float64)
+            return float((w * (dec - x) ** 2).sum())
+
+        t0 = time.perf_counter()  # the host's share of quantize_file: decode, statistics
+        tq._weighted_rmse(qb.dequantize(raw, t).reshape(x.shape), x, w)
+        stats_s = time.perf_counter() - t0
+        per_type[ftype] = dict(card_s=secs, stats_s=stats_s, weighted_err=werr(raw),
+                               unweighted_err=werr(plain), cpu_rows=IQ_FIT_ROWS,
+                               equal_block_share=share)
+        per_type[ftype]["ratio"] = per_type[ftype]["weighted_err"] / per_type[ftype][
+            "unweighted_err"]
+    res = {"phase": "quantize_imatrix", "model": f"{label} F16 (random weights, seed 0)",
+           "ftype": "IQ2_XXS", "imatrix_tensors": len(imatrix), "quantize_s": t_quant,
+           "types": fmts, "weighted_tensors": len(weighted),
+           "weighted_rmse_mean": float(np.mean([stats[n][2] for n in weighted])),
+           "matrix": f"{name} {tuple(x.shape)}", "per_type": per_type,
+           "min_equal_block_share": IQ_FIT_MIN_SHARE, "card": card}
+    emit(res)
+    bad = {k: v for k, v in per_type.items()
+           if not (v["equal_block_share"] >= IQ_FIT_MIN_SHARE and v["ratio"] <= 1.001)}
+    if bad:
+        fail(f"quantize_imatrix: the card's fit parts from the CPU's or the imatrix does not "
+             f"lower the weighted error: {bad}")
+    L = shape["n_layers"]  # IQ2_XXS: q, k, o, gate, up, down; weighted: the four tapped
+    if fmts.get("IQ2_XXS") != 6 * L or len(weighted) != 4 * L:
+        fail(f"quantize_imatrix: types {fmts}, {len(weighted)} weighted tensors")
+    model = Model.load(str(dst), device="cuda", dtype=torch.bfloat16)
+    _, counts, gen, *_ = main_path(torch, "IQ2_XXS (imatrix)", kernels, want, card,
+                                   new_tokens=IQ_SHORT_TOKENS, model=model)
+    del gen
+    return dict(counts=counts, quantize_s=t_quant, per_type=per_type)
 
 
 def tokenizer_roundtrip(card: str):
@@ -2444,6 +2732,17 @@ def main():
                                                      name="olmo2", kv_dtype=torch.float16,
                                                      model=model_o)
     del gen_o16
+    # the importance-matrix slice: the collection over the TinyLlama Q8_0
+    # file (K5 at M = 1024, K6 with no cache), K5 and K6 at its shapes, the
+    # F16 file requantized to IQ2_XXS with that imatrix (the grid fit on the
+    # card) and the written file's generate (IQ2_XXS's counts)
+    t_im = time.perf_counter()
+    model_q8, ids_q8, im_path, counts_imatrix, t_collect = imatrix_phase(torch, kernels, card)
+    k_imatrix = kernel_imatrix(torch, model_q8, ids_q8, card)
+    del model_q8
+    quant_im = quantize_imatrix_phase(torch, kernels, card, im_path, want_iq)
+    emit({"phase": "imatrix_slice", "seconds": time.perf_counter() - t_im,
+          "collect_s": t_collect, "quantize_s": quant_im["quantize_s"], "card": card})
 
     counts_serve = serve_phase(torch, model_m, kernels, card)
     counts_q8 = serve_phase(torch, model_m, kernels, card, kv_dtype="q8")
@@ -2480,7 +2779,8 @@ def main():
              "serve_f16": counts_serve16, "serve_contig_f16": counts_contig16,
              **{ft.lower(): c for ft, c in tq_counts.items()}, "bf16": counts_bf16,
              "olmo2_f16": counts_o16, "serve_contig_f16_olmo2": counts_serve_o16,
-             "serve_tq2_0": counts_serve_tq}
+             "serve_tq2_0": counts_serve_tq, "imatrix": counts_imatrix,
+             "iq2_xxs_imatrix": quant_im["counts"]}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -3626,6 +3926,8 @@ def main():
     # a decode step's device time in a CUDA graph beside the sum of its
     # kernels' graph times (the rest: the torch ops, and the gaps between)
     by_name = {ln["name"]: ln for ln in lines}
+    for name in ("dequant_gemm", "flash_attention"):  # an imatrix forward's (kernel_imatrix)
+        by_name[name]["imatrix_forward"] = k_imatrix[name]
     k1_q4k = by_name["q4k_matvec"]["ms"]
     emit({"phase": "step_graph", "card": card,
           "tinyllama_q4k": dict(step_graph_ms=step_q4k, k1_ms=k1_q4k,

@@ -29,6 +29,10 @@ IQ3_XXS, IQ3_S and IQ1_S on both, IQ1_M on K5 alone; weights of random
 code bytes) and the ternary TQ1_0 and TQ2_0 forms, and 2-layer files in
 those formats (and a BF16 one, dense) run on the card within nmse 1e-3 of
 the CPU; K8 holds its tolerance over f16 caches too (its f16 form).
+The IQ grid fit on the card (`quant/iq_encode.py`) keeps at least 99 % of
+the CPU fit's 256-blocks and its weighted error within 0.1 %, and the
+imatrix collection on the card (K5, K6) keeps each tensor's sums within
+nmse 1e-6 of the plain versions' (f32 model).
 """
 
 import functools
@@ -1429,3 +1433,53 @@ def test_k4_lowbit_chain_in_a_graph(dev):
     gu, dn, v = _replays_equal_eager(chain, rewrite)
     assert _nmse(dn, tq.int8_matvec_plain(gu, w_dn, "glu", None, 1e-5)) < 1e-6
     assert _nmse(v, tq.q4k_matvec_plain(dn, w_v, "q", None, 1e-5)) < 1e-6
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "imatrix"])
+@pytest.mark.parametrize("fmt", IQ_GRID_TYPES, ids=lambda t: t.name)
+def test_iq_fit_card_matches_cpu(dev, fmt, weighted):
+    """The IQ grid fit on the card against the CPU fit (zllm's bytes there)
+    on a 64 x 2048 matrix: at least 99 % of the 256-blocks equal (the
+    products' sum order may part a near-tie of two grid rows) and the
+    weighted error within 0.1 % of the CPU's."""
+    r = np.random.default_rng(11)
+    x = (r.standard_normal((64, 2048)) * (1 + 2 * r.random((64, 2048)))).astype(np.float32)
+    w = (0.05 + r.random(2048) ** 2 * 10).astype(np.float32) if weighted else None
+    card = qb.quantize(x, fmt, weights=w, device="cuda")
+    cpu = qb.quantize(x, fmt, weights=w, device="cpu")
+    bsz = qb.GGML_BLOCK_SIZES[fmt][1]
+    assert (card.reshape(-1, bsz) == cpu.reshape(-1, bsz)).all(1).mean() >= 0.99
+    wt = np.ones(2048, np.float32) if w is None else w
+
+    def err(raw):
+        return float((wt * (qb.dequantize(raw, fmt) - x).astype(np.float64) ** 2).sum())
+
+    assert abs(err(card) - err(cpu)) <= 1e-3 * err(cpu)
+
+
+def test_imatrix_card_matches_plain(dev, tmp_path, monkeypatch):
+    """`collect_imatrix` on the card (K5 for the Q8_0 GEMMs, K6) against the
+    same collection through their plain versions on the card, a 2-layer
+    Q8_0 model in f32, 4 chunks of 64 at batch 2: each tensor's sums
+    within nmse 1e-6 (K5 rounds its f32 x to bf16, so an f32 sum-order
+    difference upstream may move one such rounding), counts equal, and
+    the kernels launched."""
+    from zllm_torch import imatrix as ti
+    from zllm_torch.models import llama
+    from zllm_torch.models.loader import Model
+    from zllm_torch.testing import make_llama_gguf
+
+    path = make_llama_gguf(str(tmp_path / "m.gguf"), n_layers=2, n_embd=256, n_heads=4,
+                           n_kv_heads=2, n_ff=512, vocab_size=512, gtype=GGMLType.Q8_0, seed=3)
+    m = Model.load(path, device="cuda", dtype=torch.float32)
+    ids = np.random.default_rng(3).integers(3, 512, 4 * 64).tolist()
+    before = (tq.dequant_gemm.launches, ta.flash_attention.launches)
+    sums, counts = ti.collect_imatrix(m, ids, n_ctx=64, batch=2)
+    assert (tq.dequant_gemm.launches - before[0], ta.flash_attention.launches - before[1]) == (
+        2 * (4 * 2 + 1), 2 * 2)
+    monkeypatch.setattr(tq, "dequant_gemm", tq.dequant_gemm_plain)
+    monkeypatch.setattr(llama, "flash_attention", ta.flash_attention_plain)
+    psums, pcounts = ti.collect_imatrix(m, ids, n_ctx=64, batch=2)
+    assert counts == pcounts and set(sums) == set(psums)
+    for name in sums:
+        assert _nmse(torch.from_numpy(sums[name]), torch.from_numpy(psums[name])) <= 1e-6, name

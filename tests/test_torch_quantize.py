@@ -1,8 +1,10 @@
 """`zllm_torch.quantize` against `tools/quantize.py`: the same per-tensor
-type choice for every preset and byte-identical output files for the
-presets whose encoders the port has (Q4_K_M, Q4_K_S, Q6_K, Q8_0, Q4_0,
-Q4_1, Q5_0, Q5_1, Q5_K_S, Q5_K_M, Q2_K, Q3_K_M, IQ4_NL, IQ4_XS, MXFP4),
-from one F16 synthetic model."""
+type choice for every preset and byte-identical output files (Q4_K_M,
+Q4_K_S, Q6_K, Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q5_K_S, Q5_K_M, Q2_K, Q3_K_M,
+IQ4_NL, IQ4_XS, MXFP4, and IQ2_XXS with the grid fit on the CPU), from
+one F16 synthetic model; a preset naming a type without an encoder
+raises before writing.  The imatrix-weighted presets:
+tests/test_torch_imatrix.py."""
 
 import os
 
@@ -31,23 +33,23 @@ def test_quantize_file_byte_identical(f16_gguf, tmp_path, ftype):
     types = tq.quantize_file(f16_gguf, got, ftype, quiet=True)
     assert open(got, "rb").read() == open(want, "rb").read()
     if ftype == "Q4_K_M":
-        assert types["output.weight"] == ("F16", "Q6_K")
-        assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
-        assert types["blk.0.ffn_down.weight"] == ("F16", "Q6_K")
-        assert types["blk.1.ffn_down.weight"] == ("F16", "Q4_K")
+        assert types["output.weight"][:2] == ("F16", "Q6_K")
+        assert types["blk.0.attn_v.weight"][:2] == ("F16", "Q6_K")
+        assert types["blk.0.ffn_down.weight"][:2] == ("F16", "Q6_K")
+        assert types["blk.1.ffn_down.weight"][:2] == ("F16", "Q4_K")
     if ftype == "Q5_K_M":  # attn_v and the head Q6_K, no ffn_down bump
-        assert types["output.weight"] == ("F16", "Q6_K")
-        assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
-        assert types["blk.0.ffn_down.weight"] == ("F16", "Q5_K")
-        assert types["blk.1.attn_q.weight"] == ("F16", "Q5_K")
+        assert types["output.weight"][:2] == ("F16", "Q6_K")
+        assert types["blk.0.attn_v.weight"][:2] == ("F16", "Q6_K")
+        assert types["blk.0.ffn_down.weight"][:2] == ("F16", "Q5_K")
+        assert types["blk.1.attn_q.weight"][:2] == ("F16", "Q5_K")
     if ftype == "Q3_K_M":  # attn_v Q5_K, the head Q6_K
-        assert types["blk.0.attn_v.weight"] == ("F16", "Q5_K")
-        assert types["blk.1.ffn_down.weight"] == ("F16", "Q3_K")
-        assert types["output.weight"] == ("F16", "Q6_K")
+        assert types["blk.0.attn_v.weight"][:2] == ("F16", "Q5_K")
+        assert types["blk.1.ffn_down.weight"][:2] == ("F16", "Q3_K")
+        assert types["output.weight"][:2] == ("F16", "Q6_K")
     if ftype in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
         # the embedding is bumped to Q4_K, the rest keeps the preset
-        assert types["token_embd.weight"] == ("F16", "Q4_K")
-        assert {t for name, (_, t) in types.items() if name != "token_embd.weight"
+        assert types["token_embd.weight"][:2] == ("F16", "Q4_K")
+        assert {t for name, (_, t, _) in types.items() if name != "token_embd.weight"
                 and not name.endswith("norm.weight")} == {ftype}
 
 
@@ -65,10 +67,10 @@ def test_olmo2_q4km_byte_identical(tmp_path):
     quantize_file(src, want, "Q4_K_M", quiet=True)
     types = tq.quantize_file(src, got, "Q4_K_M", quiet=True)
     assert open(got, "rb").read() == open(want, "rb").read()
-    assert types["blk.0.attn_q_norm.weight"] == ("F32", "F32")
-    assert types["blk.1.post_ffw_norm.weight"] == ("F32", "F32")
-    assert types["blk.0.attn_v.weight"] == ("F16", "Q6_K")
-    assert types["blk.0.attn_q.weight"] == ("F16", "Q4_K")
+    assert types["blk.0.attn_q_norm.weight"][:2] == ("F32", "F32")
+    assert types["blk.1.post_ffw_norm.weight"][:2] == ("F32", "F32")
+    assert types["blk.0.attn_v.weight"][:2] == ("F16", "Q6_K")
+    assert types["blk.0.attn_q.weight"][:2] == ("F16", "Q4_K")
 
 
 def test_cli_writes_the_same_file(f16_gguf, tmp_path):
@@ -97,12 +99,26 @@ def test_pick_type_matches_every_preset():
                 assert tq.pick_type(name, shape, il, 5, tq.FTYPES[ftype]) == want, (ftype, name)
 
 
-def test_unported_encoder_raises_before_writing(f16_gguf, tmp_path):
-    """IQ2_XXS: zllm encodes it, the port has no IQ grid encoder yet."""
-    out = str(tmp_path / "iq2.gguf")
-    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
-        tq.quantize_file(f16_gguf, out, "IQ2_XXS", quiet=True)
+def test_unported_encoder_raises_before_writing(f16_gguf, tmp_path, monkeypatch):
+    """A preset naming a type the port has no encoder for (Q8_1, which
+    zllm encodes) raises before anything is written."""
+    monkeypatch.setitem(tq.FTYPES, "Q8_1", dict(default=GGMLType.Q8_1))
+    out = str(tmp_path / "q8_1.gguf")
+    with pytest.raises(NotImplementedError, match="Q8_1"):
+        tq.quantize_file(f16_gguf, out, "Q8_1", quiet=True)
     assert not os.path.exists(out)
+
+
+def test_iq2_xxs_writes_zllms_bytes(f16_gguf, tmp_path):
+    """IQ2_XXS, the grid fit on the CPU: the same file as tools/quantize.py."""
+    from tools.quantize import quantize_file
+
+    want, got = str(tmp_path / "z.gguf"), str(tmp_path / "t.gguf")
+    zstats = quantize_file(f16_gguf, want, "IQ2_XXS", quiet=True)
+    tq.main([f16_gguf, got, "IQ2_XXS", "--device", "cpu"])
+    assert open(got, "rb").read() == open(want, "rb").read()
+    assert tq.quantize_file(f16_gguf, str(tmp_path / "t2.gguf"), "IQ2_XXS", quiet=True,
+                            device="cpu") == zstats
 
 
 def test_q4km_tensor_types_round_trip(f16_gguf, tmp_path):

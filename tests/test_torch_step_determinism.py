@@ -111,7 +111,7 @@ def _llama_attention(monkeypatch):
     the block's output on x = 0 is its attention [B, T, Hq * D]."""
     monkeypatch.setattr(llama, "_projections", lambda layer, h: layer["qkv"])
     monkeypatch.setattr(llama, "linear", lambda h, w: h)
-    monkeypatch.setattr(llama, "_ffn_core", lambda layer, h: torch.zeros_like(h))
+    monkeypatch.setattr(llama, "_ffn_core", lambda layer, h, *taps: torch.zeros_like(h))
 
     def run(q, k, v, kv, positions):
         b, t = q.shape[:2]

@@ -356,7 +356,7 @@ def files(tmp_path_factory):
         types = quantize_file(src, out[ftype], ftype, quiet=True)
         zquantize_file(src, str(folder / f"{ftype}.zllm.gguf"), ftype, quiet=True)
         if ftype == "BF16":
-            assert {t for _, t in types.values()} == {"BF16", "F32"}
+            assert {t for _, t, _ in types.values()} == {"BF16", "F32"}
         else:
             assert types["output.weight"][1] == "Q6_K"
             assert types["token_embd.weight"][1] == "Q4_K"

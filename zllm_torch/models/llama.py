@@ -57,6 +57,10 @@ paged cache to K9/K10 and the q8 cache to K7, as for llama.  zllm's TPU
 gate for its K8 (`use_decode_fused`: G % 8 == 0 or G == Hq) is not
 carried over: OLMo-2-1B (G = 1) fails it, so zllm on a TPU takes its
 unfused path there, while the port sends every such step to K8.
+
+`forward(..., taps=)` records each matmul's input under zllm's names for
+the importance matrix (`zllm_torch/imatrix.py`); the fused decode paths
+are off then, as in zllm.
 """
 
 from __future__ import annotations
@@ -159,47 +163,68 @@ def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
                       for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], dim=-1)
 
 
-def _ffn_core(layer: dict, h: torch.Tensor) -> torch.Tensor:
+def _ffn_core(layer: dict, h: torch.Tensor, taps: dict | None = None,
+              tapname: str = "") -> torch.Tensor:
+    if taps is not None:
+        taps[f"{tapname}.ffn_gate.weight"] = h
     gup = linear(h, layer["ffn_gateup"])
     half = gup.shape[-1] // 2
-    return linear(swiglu(gup[..., :half], gup[..., half:]), layer["ffn_down"])
+    gu = swiglu(gup[..., :half], gup[..., half:])
+    if taps is not None:
+        taps[f"{tapname}.ffn_down.weight"] = gu
+    return linear(gu, layer["ffn_down"])
 
 
 def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
-                 il: int) -> torch.Tensor:
+                 il: int, taps: dict | None = None) -> torch.Tensor:
     """One OLMo-2 block (zllm's layer_forward without attn_norm / ffn_norm,
     with the whole-projection q/k norms and the post-norms)."""
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
+    tapname = f"blk.{il}"
+    if taps is not None:  # the projections read the raw stream
+        taps[f"{tapname}.attn_q.weight"] = x
     q, k, v = _split_heads(_projections(layer, x).reshape(b, t, -1), cfg)
     q = rms_norm(q.reshape(b, t, -1), layer["attn_q_norm"], cfg.norm_eps).reshape(q.shape)
     k = rms_norm(k.reshape(b, t, -1), layer["attn_k_norm"], cfg.norm_eps).reshape(k.shape)
     q = apply_rope(q, positions, cfg.rope)
     k = apply_rope(k, positions, cfg.rope)
-    att = linear(_attend(q, k, v, kv, il, positions, cfg, scale).reshape(b, t, -1), layer["wo"])
-    x = x + rms_norm(att, layer["attn_post_norm"], cfg.norm_eps)
-    return x + rms_norm(_ffn_core(layer, x), layer["ffn_post_norm"], cfg.norm_eps)
+    att = _attend(q, k, v, kv, il, positions, cfg, scale).reshape(b, t, -1)
+    if taps is not None:
+        taps[f"{tapname}.attn_output.weight"] = att
+    x = x + rms_norm(linear(att, layer["wo"]), layer["attn_post_norm"], cfg.norm_eps)
+    x = x + rms_norm(_ffn_core(layer, x, taps, tapname), layer["ffn_post_norm"], cfg.norm_eps)
+    if taps is not None:
+        taps[f"{tapname}.l_out"] = x
+    return x
 
 
 def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   kv: KVCache | KVCacheQ8 | PagedKVCache | None, il: int,
-                  rope=None) -> torch.Tensor:
+                  rope=None, taps: dict | None = None) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
     `rope` is K2's cos/sin table at positions[:, 0] over a contiguous
-    cache (built once per step)."""
+    cache (built once per step).  `taps` (see `forward`) takes the
+    block's matmul inputs and output; it turns the fused decode paths
+    off."""
     if cfg.arch == "olmo2":
-        return _olmo2_layer(layer, cfg, x, positions, kv, il)
+        return _olmo2_layer(layer, cfg, x, positions, kv, il, taps)
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
+    tapname = f"blk.{il}"
+    fused = t == 1 and b == 1 and taps is None
 
     qkv = None
-    if "wqkv" in layer and t == 1 and b == 1:  # decode: norm fused into the qkv matvec
+    if "wqkv" in layer and fused:  # decode: norm fused into the qkv matvec
         qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
                                 layer["wqkv"])
         if qkv is not None and "bqkv" in layer:
             qkv = qkv + layer["bqkv"].to(qkv.dtype)
     if qkv is None:
-        qkv = _projections(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        if taps is not None:
+            taps[f"{tapname}.attn_q.weight"] = h
+        qkv = _projections(layer, h)
     qkv = qkv.reshape(b, t, -1)
 
     if isinstance(kv, KVCache) and rope is None:
@@ -232,10 +257,13 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             # Qwen3's per-head norm there sums its mean in f32 where
             # rms_norm sums in f64, so that k may move by an f32 rounding
             att = _one_token_rows(att, positions, k2(qkv[:, :1]))
-    x = x + linear(att.reshape(b, t, -1), layer["wo"])
+    att = att.reshape(b, t, -1)
+    if taps is not None:
+        taps[f"{tapname}.attn_output.weight"] = att
+    x = x + linear(att, layer["wo"])
 
     ff = None
-    if t == 1 and b == 1:  # decode: norm -> gate|up and swiglu -> down fused
+    if fused:  # decode: norm -> gate|up and swiglu -> down fused
         gup = fused_norm_linear(x.reshape(1, -1), layer["ffn_norm"], cfg.norm_eps,
                                 layer["ffn_gateup"])
         if gup is not None:
@@ -246,34 +274,48 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                             layer["ffn_down"])
             ff = ff.reshape(b, t, -1)
     if ff is None:
-        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps))
-    return x + ff
+        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname)
+    x = x + ff
+    if taps is not None:
+        taps[f"{tapname}.l_out"] = x
+    return x
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
             kv: KVCache | KVCacheQ8 | PagedKVCache | None = None, *,
-            logits_for: str = "all") -> torch.Tensor:
+            logits_for: str = "all", taps: dict | None = None) -> torch.Tensor:
     """tokens/positions [B, T] int32 -> logits [B, T or 1, vocab] f32.
     The cache is updated in place, each row at its own positions, so the
     rows may sit anywhere (the serving engine's slots, trash rows
     included): a contiguous cache writes row b's run from positions[b, 0]
     (clamped to end at its last slot), a paged one each token at its own
-    position."""
+    position.
+
+    `taps`, when given a dict, receives each matmul's input activation
+    [B, T, K] keyed by the GGUF tensor it feeds, as zllm's forward
+    records them for the importance matrix: blk.N.attn_q.weight (the
+    normed input of the q/k/v projections; OLMo-2's raw stream),
+    blk.N.attn_output.weight (the attention output before wo),
+    blk.N.ffn_gate.weight (the FFN's input), blk.N.ffn_down.weight (the
+    SwiGLU output), blk.N.l_out (the block's output) and hidden (the
+    final normed stream); with taps the fused decode paths are off."""
     x = params["tok_emb"][tokens.long()]
     rope = None
     if isinstance(kv, KVCache) and cfg.arch != "olmo2":  # K2's table, once a step
         rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
     for il, layer in enumerate(params["layers"]):
-        x = layer_forward(layer, cfg, x, positions, kv, il, rope)
+        x = layer_forward(layer, cfg, x, positions, kv, il, rope, taps)
 
     logits = None
-    if logits_for == "last" and x.shape[0] == 1:  # final norm fused into the head
+    if logits_for == "last" and x.shape[0] == 1 and taps is None:  # norm fused into the head
         logits = fused_norm_linear(x[:, -1].reshape(1, -1), params["out_norm"], cfg.norm_eps,
                                    params["output"])
         if logits is not None:
             logits = logits.reshape(1, 1, -1).float()
     if logits is None:
         x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+        if taps is not None:
+            taps["hidden"] = x
         if logits_for == "last":
             x = x[:, -1:, :]
         logits = linear(x, params["output"]).float()

@@ -3,15 +3,18 @@ llama path needs.
 
 A copy of `zllm.quant.blocks` restricted to F32/F16/BF16 and the Q4_0,
 Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS,
-MXFP4, TQ1_0 and TQ2_0 decoders and encoders, without the
-importance-weighted ones (TQ1_0's weighted scale search included), the
-F64 and I8-I64 decoders, and the decoders of the IQ grid formats
-(IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M; their grids,
-format constants, in `iq_grids.npz` beside this file), whose encoders the
-port does not have (layouts: reference ggml/src/ggml-common.h; reference
-kernels: ggml/src/ggml-quants.c).  The encoders' bytes are
-identical to `zllm`'s, so `zllm_torch.testing.make_llama_gguf` and
-`zllm_torch.quantize` write the same files.
+MXFP4, TQ1_0 and TQ2_0 decoders and encoders, with zllm's
+importance-weighted encoders (the K and legacy formats' weighted
+least-squares scale searches, TQ1_0's weighted scale search), and the
+IQ grid formats (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M;
+their grids, format constants, in `iq_grids.npz` beside this file):
+decoded here, encoded by the grid fit of `iq_encode.py`, which runs on a
+torch device (layouts: reference ggml/src/ggml-common.h; reference
+kernels: ggml/src/ggml-quants.c).  Without the F64 and I8-I64 decoders.
+The encoders' bytes are identical to `zllm`'s (the grid fit's up to the
+near-ties its f32 products may order otherwise), so
+`zllm_torch.testing.make_llama_gguf` and `zllm_torch.quantize` write the
+same files.
 
 All functions operate on `blocks: uint8[N, type_size] -> f32[N, block_size]`
 (decode) and the reverse (encode).  Use `dequantize`/`quantize` for whole
@@ -635,9 +638,19 @@ def _enc_tq2_0(x):
     return np.concatenate([qs, _to_f16_bytes(d)], axis=1)
 
 
-def _enc_tq1_0(x):
+def _enc_tq1_0(x, w=None):
     n = x.shape[0]
     d = np.abs(x).max(axis=-1, keepdims=True)
+    if w is not None:
+        # weighted least-squares ternary scale (zllm's: the reference's
+        # quantize_tq1_0 ignores quant_weights)
+        wg = _wg(w, x.shape)
+        for _ in range(3):
+            q = _round_away(x * _safe_inv(d)).clip(-1, 1)
+            num = (wg * x * q).sum(-1, keepdims=True)
+            den = (wg * q * q).sum(-1, keepdims=True)
+            d = np.where(den > 1e-12, num / np.maximum(den, 1e-12), d)
+        d = np.abs(d)
     t = (_round_away(x * _safe_inv(d)).clip(-1, 1) + 1).astype(np.uint32)  # 0..2
     # fixed-point base-3 packing: byte = ceil(v * 256 / 3^k), whose digit j
     # tq1_0_codes recovers
@@ -714,7 +727,7 @@ def supported_decode() -> set[GGMLType]:
 
 
 def supported_encode() -> set[GGMLType]:
-    return set(_ENCODERS)
+    return set(_ENCODERS) | _GRID_TYPES
 
 
 def dequantize(data: np.ndarray, gtype: GGMLType) -> np.ndarray:
@@ -731,16 +744,209 @@ def dequantize(data: np.ndarray, gtype: GGMLType) -> np.ndarray:
     return np.ascontiguousarray(out, dtype=np.float32).reshape(*lead, -1)
 
 
-def quantize(data: np.ndarray, gtype: GGMLType) -> np.ndarray:
-    """f32[..., n] -> uint8[..., row_bytes]."""
+def quantize(data: np.ndarray, gtype: GGMLType, weights: np.ndarray | None = None,
+             device="cuda") -> np.ndarray:
+    """f32[..., n] -> uint8[..., row_bytes].
+
+    `weights` (importance-matrix column weights, broadcast against `data`:
+    one per input column, or one per element) steers the scale search of
+    the formats that take them (the K and legacy formats, TQ1_0 and the IQ
+    grid formats) and is ignored by the others, as zllm routes them.  The
+    IQ grid formats' fit runs on `device` (`iq_encode.py`: cuda unless the
+    caller passes cpu; it raises without a card); every other format is
+    encoded here on the host and never touches the device."""
     gtype = GGMLType(gtype)
     blk, bsz = GGML_BLOCK_SIZES[gtype]
     data = np.ascontiguousarray(data, dtype=np.float32)
     if data.shape[-1] % blk != 0:
         raise ValueError(f"last dim {data.shape[-1]} not divisible by {gtype.name} block {blk}")
-    if gtype not in _ENCODERS:
+    if gtype not in supported_encode():
         raise NotImplementedError(f"no encoder for {gtype.name} in zllm_torch")
     lead = data.shape[:-1]
     blocks = data.reshape(-1, blk)
-    out = _ENCODERS[gtype](blocks)
+    if gtype in _GRID_TYPES:
+        from .iq_encode import encode
+
+        out = encode(blocks, gtype, weights, device, data.shape)
+    elif weights is not None and gtype in _WEIGHTED_ENCODERS:
+        wcols = np.broadcast_to(np.asarray(weights, np.float32), data.shape).reshape(-1, blk)
+        out = _WEIGHTED_ENCODERS[gtype](blocks, wcols)
+    else:
+        out = _ENCODERS[gtype](blocks)
     return np.ascontiguousarray(out, dtype=np.uint8).reshape(*lead, -1)
+
+
+# -- importance-weighted encoders (zllm's; reference: quantize_<type>
+# quant_weights paths in ggml-quants.c) ---------------------------------------
+
+def _wls_affine(g: np.ndarray, wg: np.ndarray, qmax: int, iters: int = 4):
+    """Weighted alternating least-squares for x ~= a*q - b per group (the
+    reference's make_qkx2_quants/make_qkx3_quants imatrix search): fix the
+    integer codes, refit (scale, min) by weighted LS, re-round, iterate.
+    g/wg: [..., group]; returns (a, b) over the leading dims."""
+    m_f = np.maximum(0.0, -g.min(axis=-1))
+    s_f = np.maximum(0.0, g.max(axis=-1) + m_f) / qmax
+    a, b = s_f, m_f
+    for _ in range(iters):
+        q = _round_away((g + b[..., None]) * _safe_inv(a)[..., None]).clip(0, qmax)
+        sw = wg.sum(-1)
+        swq = (wg * q).sum(-1)
+        swq2 = (wg * q * q).sum(-1)
+        swx = (wg * g).sum(-1)
+        swxq = (wg * g * q).sum(-1)
+        det = swq2 * sw - swq * swq
+        safe = np.where(det > 1e-12, det, 1)
+        new_a = np.where(det > 1e-12, (swxq * sw - swx * swq) / safe, a)
+        new_b = np.where(det > 1e-12, -(swx * swq2 - swxq * swq) / safe, b)
+        ok = (new_a > 0) & (new_b >= 0)
+        a = np.where(ok, new_a, a)
+        b = np.where(ok, new_b, b)
+    return a, b
+
+
+def _wls_sym(g: np.ndarray, wg: np.ndarray, qmin: int, qmax: int, iters: int = 4):
+    """Weighted LS for symmetric x ~= d*q (reference make_qx_quants with
+    quant_weights).  g/wg: [..., group]; returns d."""
+    d = _signed_absmax(g.reshape(-1, g.shape[-1])).reshape(g.shape[:-1]) / qmin
+    for _ in range(iters):
+        q = _round_away(g * _safe_inv(d)[..., None]).clip(qmin, qmax)
+        num = (wg * g * q).sum(-1)
+        den = (wg * q * q).sum(-1)
+        d = np.where(den > 1e-12, num / np.where(den > 1e-12, den, 1), d)
+    return d
+
+
+def _wg(w: np.ndarray, shape) -> np.ndarray:
+    return np.maximum(w.reshape(shape), 1e-12)
+
+
+def _kpack_affine(x, a, b, qmax):
+    """Two-level 6-bit scale/min quantization + requantize (Q4_K/Q5_K)."""
+    n = x.shape[0]
+    g = x.reshape(n, 8, 32)
+    d = a.max(axis=-1, keepdims=True) / 63.0
+    dmin = b.max(axis=-1, keepdims=True) / 63.0
+    sc = _round_away(a * _safe_inv(d)).clip(0, 63).astype(np.uint8)
+    mn = _round_away(b * _safe_inv(dmin)).clip(0, 63).astype(np.uint8)
+    dl = d * sc.astype(np.float32)
+    ml = dmin * mn.astype(np.float32)
+    q = _round_away((g + ml[:, :, None]) * _safe_inv(dl)[:, :, None]).clip(0, qmax)
+    return d, dmin, sc, mn, q.reshape(n, QK_K).astype(np.uint8)
+
+
+def _enc_q4_k_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    a, b = _wls_affine(x.reshape(n, 8, 32), _wg(w, (n, 8, 32)), 15)
+    d, dmin, sc, mn, q = _kpack_affine(x, a, b, 15)
+    return np.concatenate(
+        [_to_f16_bytes(d), _to_f16_bytes(dmin), _pack_kscales(sc, mn), _nib_pack(q, 32)], axis=1
+    )
+
+
+def _enc_q5_k_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    a, b = _wls_affine(x.reshape(n, 8, 32), _wg(w, (n, 8, 32)), 31)
+    d, dmin, sc, mn, q = _kpack_affine(x, a, b, 31)
+    qs = _nib_pack(q & np.uint8(0x0F), 32)
+    qh = _bits_pack(q >> 4, 1, 32)
+    return np.concatenate(
+        [_to_f16_bytes(d), _to_f16_bytes(dmin), _pack_kscales(sc, mn), qh, qs], axis=1
+    )
+
+
+def _enc_q2_k_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    a, b = _wls_affine(g, _wg(w, (n, 16, 16)), 3)
+    d = a.max(axis=-1, keepdims=True) / 15.0
+    dmin = b.max(axis=-1, keepdims=True) / 15.0
+    sc = _round_away(a * _safe_inv(d)).clip(0, 15).astype(np.uint8)
+    mn = _round_away(b * _safe_inv(dmin)).clip(0, 15).astype(np.uint8)
+    dl = d * sc.astype(np.float32)
+    ml = dmin * mn.astype(np.float32)
+    q = _round_away((g + ml[:, :, None]) * _safe_inv(dl)[:, :, None]).clip(0, 3)
+    q = q.reshape(n, QK_K).astype(np.uint8)
+    qs = np.concatenate([_bits_pack(q[:, c * 128:(c + 1) * 128], 2, 32) for c in range(2)], axis=1)
+    return np.concatenate([sc | (mn << np.uint8(4)), qs, _to_f16_bytes(d), _to_f16_bytes(dmin)],
+                          axis=1)
+
+
+def _enc_q6_k_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    s_f = _wls_sym(g, _wg(w, (n, 16, 16)), -32, 31)
+    d = np.abs(s_f).max(axis=-1, keepdims=True) / 127.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(-128, 127).astype(np.int8)
+    dl = d * sc.astype(np.float32)
+    q = _round_away(g * _safe_inv(dl)[:, :, None]).clip(-32, 31).astype(np.int8)
+    qb = (q.reshape(n, QK_K).astype(np.int16) + 32).astype(np.uint8)
+    ql = np.concatenate([_nib_pack(qb[:, c * 128:(c + 1) * 128] & 0x0F, 64) for c in range(2)],
+                        axis=1)
+    qh = np.concatenate([_bits_pack(qb[:, c * 128:(c + 1) * 128] >> 4, 2, 32) for c in range(2)],
+                        axis=1)
+    return np.concatenate([ql, qh, sc.view(np.uint8), _to_f16_bytes(d)], axis=1)
+
+
+def _enc_q3_k_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    g = x.reshape(n, 16, 16)
+    s_f = _wls_sym(g, _wg(w, (n, 16, 16)), -4, 3)
+    d = np.abs(s_f).max(axis=-1, keepdims=True) / 31.0
+    sc = _round_away(s_f * _safe_inv(d)).clip(-32, 31).astype(np.int8)
+    dl = d * sc.astype(np.float32)
+    q = _round_away(g * _safe_inv(dl)[:, :, None]).clip(-4, 3).astype(np.int8).reshape(n, QK_K)
+    hbit = (q >= 0).astype(np.uint8)
+    ql = np.where(q >= 0, q, q + 4).astype(np.uint8)
+    qs = np.concatenate([_bits_pack(ql[:, c * 128:(c + 1) * 128], 2, 32) for c in range(2)],
+                        axis=1)
+    hmask = _bits_pack(hbit, 1, 32)
+    s6 = (sc.astype(np.int16) + 32).astype(np.uint8)
+    lo_bytes = (s6[:, :8] & 0x0F) | ((s6[:, 8:] & 0x0F) << 4)
+    hi_bytes = _bits_pack(s6 >> 4, 2, 4)
+    return np.concatenate([hmask, qs, lo_bytes, hi_bytes, _to_f16_bytes(d)], axis=1)
+
+
+def _enc_q4_0_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    d = _wls_sym(x, _wg(w, x.shape), -8, 7)[:, None]
+    q = (_round_away(x * _safe_inv(d)).clip(-8, 7) + 8).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _nib_pack(q, 16)], axis=1)
+
+
+def _enc_q5_0_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    d = _wls_sym(x, _wg(w, x.shape), -16, 15)[:, None]
+    q = (_round_away(x * _safe_inv(d)).clip(-16, 15) + 16).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _qh_pack32(q >> 4), _nib_pack(q & np.uint8(0x0F), 16)],
+                          axis=1)
+
+
+def _enc_q4_1_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    a, b = _wls_affine(x, _wg(w, x.shape), 15)
+    d, mn = a[:, None], -b[:, None]
+    q = _round_away((x - mn) * _safe_inv(d)).clip(0, 15).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(mn), _nib_pack(q, 16)], axis=1)
+
+
+def _enc_q5_1_weighted(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    a, b = _wls_affine(x, _wg(w, x.shape), 31)
+    d, mn = a[:, None], -b[:, None]
+    q = _round_away((x - mn) * _safe_inv(d)).clip(0, 31).astype(np.uint8)
+    return np.concatenate([_to_f16_bytes(d), _to_f16_bytes(mn), _qh_pack32(q >> 4),
+                           _nib_pack(q & np.uint8(0x0F), 16)], axis=1)
+
+
+_WEIGHTED_ENCODERS: dict[GGMLType, Callable[[np.ndarray, np.ndarray], np.ndarray]] = {
+    GGMLType.Q4_K: _enc_q4_k_weighted,
+    GGMLType.Q5_K: _enc_q5_k_weighted,
+    GGMLType.Q2_K: _enc_q2_k_weighted,
+    GGMLType.Q3_K: _enc_q3_k_weighted,
+    GGMLType.Q6_K: _enc_q6_k_weighted,
+    GGMLType.Q4_0: _enc_q4_0_weighted,
+    GGMLType.Q5_0: _enc_q5_0_weighted,
+    GGMLType.Q4_1: _enc_q4_1_weighted,
+    GGMLType.Q5_1: _enc_q5_1_weighted,
+    GGMLType.TQ1_0: _enc_tq1_0,
+}
+# the IQ grid formats, encoded weighted or not by iq_encode.encode on a
+# torch device
+_GRID_TYPES = frozenset({GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ3_XXS,
+                         GGMLType.IQ3_S, GGMLType.IQ1_S, GGMLType.IQ1_M})

@@ -1,22 +1,29 @@
-"""Model (re)quantization: the counterpart of `tools/quantize.py`, without
-the importance matrix.
+"""Model (re)quantization: the counterpart of `tools/quantize.py`.
 
 Streams the tensors of a source GGUF, picks a target type per tensor with
 llama-quantize's role-aware rules (reference: src/llama-quant.cpp
 llama_tensor_get_type, simplified as `tools/quantize.py` has them: the
 embedding, the output head, attn_v and part of ffn_down get bumped types),
 quantizes and writes a new GGUF.  Given the same input it writes the same
-bytes as `tools/quantize.py`.  Every preset can name its types, but a type
-the port has no encoder for (`quant/blocks.py` has F16, BF16, Q4_0,
-Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS,
-MXFP4, TQ1_0 and TQ2_0; the IQ grid presets need the others) raises
-NotImplementedError before anything is written.  TQ1_0 is encoded
-unweighted (no importance matrix here).
+bytes as `tools/quantize.py` (the IQ grid presets up to the near-ties
+`quant/iq_encode.py` describes), every preset's.
+
+`--imatrix FILE` (from `python -m zllm_torch.imatrix`, zllm's
+`tools/imatrix.py` or llama-imatrix's GGUF form) hands each tensor its
+importance weights by name, as `tools/quantize.py` does: the K and legacy
+formats, TQ1_0 and the IQ grid formats weight their scale search by
+them; a tensor the file does not name (zllm taps no attn_k, attn_v or
+ffn_up input) is quantized unweighted.  The IQ grid formats' fit runs on
+`--device` (cuda unless cpu is asked for; it raises without a card);
+every other format is encoded on the host and never touches the device.
+A preset naming a type with no encoder raises NotImplementedError before
+anything is written.
 
 Vectors (norms, Qwen2's q/k/v biases, rope_freqs) stay F32; a file with a
 tied head has no output.weight to re-type.
 
 Usage: python -m zllm_torch.quantize IN.gguf OUT.gguf Q4_K_M
+           [--imatrix FILE] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -90,9 +97,15 @@ def pick_type(name: str, shape, il: int, n_layers: int, preset: dict) -> GGMLTyp
     return t
 
 
-def quantize_file(src: str, dst: str, ftype: str, quiet: bool = False) -> dict:
-    """Quantize GGUF src -> dst with the ftype preset's role-aware types;
-    returns {name: (source type, target type)}."""
+def quantize_file(src: str, dst: str, ftype: str, imatrix: dict | None = None,
+                  quiet: bool = False, device="cuda") -> dict:
+    """Quantize GGUF src -> dst with the ftype preset's role-aware types,
+    each tensor weighted by `imatrix.get(name)` ({tensor name: f32[K]});
+    the IQ grid fit runs on `device`.  Returns per-tensor stats, zllm's:
+    {name: (source type, target type, weighted_rmse)}, the imatrix-weighted
+    RMS reconstruction error of each re-quantized tensor (plain RMS
+    without weights; 0.0 for a tensor kept or written F32)."""
+    imatrix = imatrix or {}
     preset = FTYPES[ftype]
     with read_gguf(src) as f:
         n_layers = int(f.kv(f"{f.architecture}.block_count", 0))
@@ -110,20 +123,39 @@ def quantize_file(src: str, dst: str, ftype: str, quiet: bool = False) -> dict:
         for key, val in f.metadata.items():
             if key != "general.file_type":
                 w.add(key, val)
+        stats = {}
         for name, meta in f.tensors.items():
             target = plan[name]
+            rmse = 0.0
             if target == meta.gtype:
                 w.add_tensor(name, np.asarray(f.tensor_bytes(name)), logical_shape=meta.shape,
                              gtype=meta.gtype)
             elif target == GGMLType.F32:
                 w.add_tensor(name, f.tensor_f32(name))
             else:
-                w.add_tensor(name, qb.quantize(f.tensor_f32(name), target),
-                             logical_shape=meta.shape, gtype=target)
+                x = f.tensor_f32(name)
+                wt = imatrix.get(name)
+                raw = qb.quantize(x, target, weights=wt, device=device)
+                w.add_tensor(name, raw, logical_shape=meta.shape, gtype=target)
+                rmse = _weighted_rmse(qb.dequantize(raw, target).reshape(x.shape), x, wt)
+            stats[name] = (meta.gtype.name, target.name, rmse)
             if not quiet:
                 print(f"{name}: {meta.gtype.name} -> {target.name}", file=sys.stderr)
         w.write()
-        return {name: (f.tensors[name].gtype.name, t.name) for name, t in plan.items()}
+        return stats
+
+
+def _weighted_rmse(dec: np.ndarray, x: np.ndarray, wt) -> float:
+    """RMS of dec - x, each column's square weighted by wt / mean(wt)
+    (zllm's statistic, in float64: its operations in its order, in place)."""
+    err2 = dec.astype(np.float64)
+    err2 -= x
+    err2 *= err2
+    if wt is not None:
+        wrow = np.asarray(wt, np.float64)
+        err2 *= wrow
+        err2 /= max(float(wrow.mean()), 1e-30)
+    return float(np.sqrt(err2.mean()))
 
 
 def main(argv=None):
@@ -131,8 +163,18 @@ def main(argv=None):
     ap.add_argument("src")
     ap.add_argument("dst")
     ap.add_argument("ftype", choices=sorted(FTYPES))
+    ap.add_argument("--imatrix", default=None,
+                    help="importance matrix GGUF (python -m zllm_torch.imatrix)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the IQ grid formats' fit runs")
     args = ap.parse_args(argv)
-    quantize_file(args.src, args.dst, args.ftype)
+    imatrix = {}
+    if args.imatrix:
+        from .imatrix import read_imatrix
+
+        imatrix = read_imatrix(args.imatrix)
+        print(f"imatrix: {len(imatrix)} tensors", file=sys.stderr)
+    quantize_file(args.src, args.dst, args.ftype, imatrix, device=args.device)
 
 
 if __name__ == "__main__":
