@@ -239,7 +239,31 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      its first IQ_FIT_ROWS rows against the CPU fit's: the share of equal
      256-blocks, at least IQ_FIT_MIN_SHARE), then the written file's
      8-token generate (`main_path`: 110 K4 + 23 K1 + 22 K2 a step, 110 K5
-     + 23 K3 + 22 K6 + 22 K2 a chunk, as the factory's IQ2_XXS file).
+     + 23 K3 + 22 K6 + 22 K2 a chunk, as the factory's IQ2_XXS file);
+  7. slot state, the API surface, the router, the prompt cache and the
+     engine's switches over the TinyLlama Q4_K_M model, every launch of
+     each window held to its engines' step counters: `slots_paged_bf16`,
+     `slots_contiguous_bf16`, `slots_paged_f16` and `slots_q8` (a 641-id
+     prompt P, greedy, 32 tokens gives R in slot 0; /slots save, erase,
+     unrelated requests until every saved position of slot 0 is rewritten,
+     restore into slot 1 with the file's tokens; P again must reuse the
+     restored 640 ids and, bf16 and f16, give R; a save of the restored
+     slot holds the first file's k/v arrays bit for bit; q8: the card's
+     requantized codes and scales equal a CPU restore of the file, bit for
+     bit); `messages_infill_tools` (/v1/messages greedy text equal to
+     /v1/chat/completions content, count_tokens equal to prompt_tokens,
+     /infill over grafted FIM ids, a forced tool call streamed and not
+     streamed giving one parsed call valid under its schema); `router`
+     (`server/router.py` over the TinyLlama Q4_K_M and OLMo-2 Q4_K files,
+     models_max 1, requests alternating so each loads the other out:
+     torch.cuda.memory_allocated after every eviction at most its value
+     before the first load plus the resident model's parameter and KV
+     bytes, within ROUTER_SLACK; replicas 2 alternating); `prompt_cache`
+     (`python -m zllm_torch.cli -f P --prompt-cache F` twice, the second
+     reusing all of P but its last token and printing the first's text);
+     `switches` (Engine(prefix_reuse=False) reusing nothing under
+     shared-prefix traffic; Engine(context_shift=False) finishing at
+     max_len with "length", no shift).
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -1067,6 +1091,31 @@ def small_engine_check(torch, kernels: dict, layout: str):
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
 
 
+def serve_expected(kernels: dict, cfg, steps: dict, q8: bool = False, contig: bool = False,
+                   gemms: dict | None = None) -> dict:
+    """The kernel launches an engine's steps (`steps`: its counter deltas)
+    make: `gemms` a step by kernel (by default the TinyLlama Q4_K_M
+    model's), and the layout's attention."""
+    dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
+    L = cfg.n_layers
+    low = L // 2
+    expected = {name: 0 for name in kernels}
+    if gemms is None:  # Q4_K_M: Q4_K but wv and the first L/2 ffn_down, and the Q6_K head
+        gemms = {"q4k_gemm": 4 * L + (L - low), "dequant_gemm": L + low + 1}
+    expected.update({name: n * (dec + pre) for name, n in gemms.items()})
+    # a mixed step attends column 0 (a generating row's token) once more
+    # through the T=1 kernel, as a decode step does (models/llama.py:
+    # `_attend`; over the contiguous stripe K2 in `layer_forward`)
+    if q8:
+        expected.update(flash_attention_blockwise=L * (dec + 2 * pre))
+    elif contig:  # the T=1 kernel: K8 for OLMo-2, K2 otherwise
+        t1 = "attn_decode_update" if cfg.arch == "olmo2" else "attn_decode_qkv"
+        expected.update({t1: L * (dec + pre), "flash_attention": L * pre})
+    else:
+        expected.update(paged_attn_decode_update=L * (dec + pre), paged_attention=L * pre)
+    return expected
+
+
 def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
                 kv_layout: str = "auto", label: str = "tinyllama-geometry Q4_K_M",
                 gemms: dict | None = None, tag: str = "") -> dict:
@@ -1100,11 +1149,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
             "byte it reads. ") * 8
 
     def post(path, body):
-        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
-                                     data=json.dumps(body).encode(),
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as r:
-            return r.read().decode()
+        return http_post(srv.port, path, body)
 
     def completion(n_bytes, tail=""):
         return {"prompt": text[:n_bytes] + tail, "max_tokens": SERVE_NEW_TOKENS,
@@ -1157,26 +1202,10 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
     dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
     L = model.cfg.n_layers
-    low = L // 2
-    expected = {name: 0 for name in kernels}
-    if gemms is None:  # Q4_K_M: Q4_K but wv and the first L/2 ffn_down, and the Q6_K head
-        gemms = {"q4k_gemm": 4 * L + (L - low), "dequant_gemm": L + low + 1}
-    expected.update({name: n * (dec + pre) for name, n in gemms.items()})
-    # a mixed step attends column 0 (a generating row's token) once more
-    # through the T=1 kernel, as a decode step does (models/llama.py:
-    # `_attend`; over the contiguous stripe K2 in `layer_forward`)
-    if q8:
-        expected.update(flash_attention_blockwise=L * (dec + 2 * pre))
-    elif contig:  # the T=1 kernel: K8 for OLMo-2, K2 otherwise
-        t1 = "attn_decode_update" if model.cfg.arch == "olmo2" else "attn_decode_qkv"
-        expected.update({t1: L * (dec + pre), "flash_attention": L * pre})
-    else:
-        expected.update(paged_attn_decode_update=L * (dec + pre), paged_attention=L * pre)
+    expected = serve_expected(kernels, model.cfg, steps, q8, contig, gemms)
     # the cache's bytes against a bf16 contiguous cache of the same slots
     kv = eng.kv
-    kv_bytes = sum(x.numel() * x.element_size()
-                   for name in (("k", "v", "ks", "vs") if q8 else ("k", "v"))
-                   for x in getattr(kv, name))
+    kv_bytes = kv_bytes_of(eng)
     kv_name = "float16" if f16 else "bfloat16"
     layout = {"kv_layout": "paged", "kv_dtype": kv_name, "page_size": eng.alloc.ps} if (
         eng.paged) else {"kv_layout": "contiguous", "kv_slots": kv.max_len, "kv_dtype":
@@ -1218,6 +1247,498 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     if f16_got != f16_want:
         fail(f"{phase}: f16-form launches {f16_got} != expected {f16_want}")
     return dict(counts, mma_launches=mma)
+
+
+def http_post(port: int, path: str, body: dict, timeout: float = 600) -> str:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def letters(seed: int, n: int) -> str:
+    """n seeded lowercase letters: n ids on the byte-level vocab (no
+    spaces, which take three)."""
+    r = random.Random(seed)
+    return "".join(r.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(n))
+
+
+def zero_counts(kernels: dict, mma_fns=()):
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in mma_fns:
+        fn.mma_launches = 0
+    f16_counts(kernels, zero=True)
+
+
+def engine_counts_check(torch, phase: str, kernels: dict, expected: dict, f16: bool,
+                        mma_fn=None, mma_want: int | None = None) -> dict:
+    """Read the launch counts after a window, hold them to `expected` (and
+    the f16 forms' and the tensor-core loop's counts), fail otherwise.
+    Returns the counts."""
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    got16 = f16_counts(kernels)
+    want16 = {n: counts[n] if f16 else 0 for n in got16}
+    if counts != expected:
+        fail(f"{phase}: kernel launch counts {counts} != expected {expected}")
+    if got16 != want16:
+        fail(f"{phase}: f16-form launches {got16} != expected {want16}")
+    if mma_fn is not None and mma_fn.mma_launches != mma_want:
+        fail(f"{phase}: {mma_fn.mma_launches} of the {mma_want} mixed-step attentions took the "
+             "tensor-core loop")
+    return counts
+
+
+# the slot phases: a prompt of 5 x 128 + 1 ids, so its last token rides
+# alone at column 0 of its last chunk both in the uninterrupted run and
+# after a restore of its first 640 (the same kernel, the same bits)
+SLOT_PROMPT_IDS = 641
+SLOT_NEW_TOKENS = 32
+SLOT_CASES = {  # phase -> ZllmServer keywords (4 slots, max_len 2048, chunk 128)
+    "slots_paged_bf16": {},
+    "slots_contiguous_bf16": {"kv_layout": "contiguous"},
+    "slots_paged_f16": {"kv_dtype": "f16"},
+    "slots_q8": {"kv_dtype": "q8"},
+}
+
+
+def slots_phase(torch, model, kernels: dict, card: str, phase: str) -> dict:
+    """/slots save and restore at full width: the prompt P (641 ids),
+    greedy, 32 tokens, gives the reference text R in slot 0; slot 0 is
+    saved and erased; unrelated requests run in slot 0 until every saved
+    position past the first is rewritten (the last layer's K differs
+    there); the file restores into slot 1 with the tokens it holds; P again
+    reuses the restored 640 and must give R (bf16, f16; q8: printed).
+    Right after the restore, a save of slot 1 must hold the first file's
+    k/v arrays bit for bit (bf16, f16); q8: the requantized codes and
+    scales on the card must equal a CPU restore of the same file.  Every
+    launch of the window is held to the engine's step counters."""
+    import numpy as np
+
+    from zllm_torch.ops import attention as att
+    from zllm_torch.runtime import state
+    from zllm_torch.runtime.kvcache import KVCacheQ8
+    from zllm_torch.server.http import ZllmServer
+
+    kw = dict(SLOT_CASES[phase])
+    q8 = kw.get("kv_dtype") == "q8"
+    f16 = kw.get("kv_dtype") == "f16"
+    if f16:
+        kw["kv_dtype"] = torch.float16
+    contig = kw.get("kv_layout") == "contiguous"
+    folder = CACHE / "slots"
+    folder.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    srv = ZllmServer(model, port=0, slot_save_path=str(folder), **kw)
+    srv.start_background()
+    eng = srv.engine
+    cfg = model.cfg
+    L = cfg.n_layers
+    mma_fn = (att.flash_attention_blockwise if q8 else att.flash_attention if contig
+              else att.paged_attention)
+    text = letters(1, SLOT_PROMPT_IDS - 1)
+    ids = model.tokenizer.encode(text, add_special=True, parse_special=True)
+    if len(ids) != SLOT_PROMPT_IDS:
+        fail(f"{phase}: the prompt tokenized to {len(ids)} ids, not {SLOT_PROMPT_IDS}")
+    body = {"prompt": text, "max_tokens": SLOT_NEW_TOKENS, "temperature": 0}
+
+    def post(path, b):
+        return json.loads(http_post(srv.port, path, b))
+
+    def last_k_rows(slot, n, table_row=None):
+        """The last layer's stored K of a slot's positions [0, n), [Hkv, n, D]."""
+        k = eng.kv.k[L - 1]
+        if eng.paged:
+            pos = torch.arange(n, device=k.device)
+            tbl = torch.as_tensor(np.asarray(table_row), device=k.device).long()
+            return k[:, tbl[pos // eng.alloc.ps] * eng.alloc.ps + pos % eng.alloc.ps].clone()
+        return k[slot, :, :n].clone()
+
+    try:
+        zero_counts(kernels, (mma_fn,))
+        m0 = dict(eng.metrics)
+        ref = post("/v1/completions", body)
+        tokens = eng.run_in_loop(lambda: list(eng.slots[0].cache_tokens))
+        if tokens[:SLOT_PROMPT_IDS] != ids:
+            fail(f"{phase}: the prompt was not served from slot 0")
+        save = post("/slots/0?action=save", {"filename": f"{phase}.bin"})
+        n_past = save["n_past"]
+        table0 = eng.alloc.table[0].copy() if eng.paged else None
+        saved = last_k_rows(0, n_past, table0)
+        post("/slots/0?action=erase", {})
+        rounds = 0
+        while True:  # unrelated traffic over slot 0's saved positions
+            rounds += 1
+            # an upper-case first letter: every position past the first
+            # differs from P's (paged: the second request meets P's pages)
+            post("/v1/completions", {"prompt": "Z" + letters(100 + rounds, 719),
+                                     "max_tokens": 8, "temperature": 0})
+            now = last_k_rows(0, n_past, table0)
+            rewritten = (now != saved).flatten(start_dim=2).any(dim=2).any(dim=0)[1:]
+            if bool(rewritten.all()):
+                break
+            if rounds == 4:
+                fail(f"{phase}: {int((~rewritten).sum())} saved positions of slot 0 not "
+                     "rewritten after 4 unrelated requests")
+        restore = post("/slots/1?action=restore", {"filename": f"{phase}.bin", "tokens": tokens})
+        if restore != {"id": 1, "n_past": n_past}:
+            fail(f"{phase}: restore answered {restore}")
+        first = np.load(folder / f"{phase}.bin")
+        check = {}
+        if q8:  # the card's requantized slot against the CPU's restore of the file
+            cpu = KVCacheQ8.create(L, 1, n_past, cfg.n_kv_heads, cfg.head_dim, device="cpu")
+            state.seq_load_file(str(folder / f"{phase}.bin"), model, cpu, 0)
+            pairs = [(getattr(eng.kv, name)[il][1, :, :n_past].cpu(), getattr(cpu, name)[il][0])
+                     for name in ("k", "v", "ks", "vs") for il in range(L)]
+            check["q8_codes_scales_equal_cpu"] = all(torch.equal(a, b) for a, b in pairs)
+            check["q8_codes_differing"] = sum(int((a != b).sum()) for a, b in pairs)
+        else:  # a save of the restored slot: the first file's arrays, bit for bit
+            post("/slots/1?action=save", {"filename": f"{phase}_again.bin"})
+            again = np.load(folder / f"{phase}_again.bin")
+            check["file_arrays_equal"] = all(
+                first[n].dtype == again[n].dtype
+                and np.array_equal(first[n].view(np.uint16), again[n].view(np.uint16))
+                for n in ("k", "v"))
+        reused0 = eng.metrics["tokens_prefix_reused_total"]
+        out = post("/v1/completions", body)
+        reused = eng.metrics["tokens_prefix_reused_total"] - reused0
+        m1 = dict(eng.metrics)
+    finally:
+        srv.shutdown()
+    steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
+    counts = engine_counts_check(torch, phase, kernels, serve_expected(kernels, cfg, steps, q8,
+                                                                       contig),
+                                 f16, mma_fn, L * steps["prefill_steps_total"])
+    got, want = out["choices"][0]["text"], ref["choices"][0]["text"]
+    agree = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    res = {"phase": phase, "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+           "kv_layout": "paged" if eng.paged else "contiguous",
+           "kv_dtype": "q8" if q8 else "float16" if f16 else "bfloat16",
+           "prompt_ids": SLOT_PROMPT_IDS, "new_tokens": SLOT_NEW_TOKENS, "n_past": n_past,
+           "file_bytes": os.path.getsize(folder / f"{phase}.bin"),
+           "unrelated_requests": rounds, "restored_into": 1, "prefix_reused": reused,
+           "text_equal": got == want, "chars_agreeing": agree, "text_chars": len(want),
+           **check, "engine_counters": steps, "launches": counts,
+           "mma_launches": mma_fn.mma_launches, "seconds": time.perf_counter() - t0,
+           "card": card}
+    emit(res)
+    if steps["engine_errors_total"] or out["choices"][0]["finish_reason"] != "length":
+        fail(f"{phase}: {res}")
+    if reused != SLOT_PROMPT_IDS - 1:
+        fail(f"{phase}: P again reused {reused} tokens, not the restored {SLOT_PROMPT_IDS - 1}")
+    if not all(check.values() if not q8 else [check["q8_codes_scales_equal_cpu"]]):
+        fail(f"{phase}: the restored state differs: {check}")
+    if not q8 and got != want:
+        fail(f"{phase}: the continuation after the restore differs from the uninterrupted run: "
+             f"{got!r} / {want!r}")
+    return dict(counts, mma_launches=mma_fn.mma_launches)
+
+
+TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Get the weather",
+    # enum-bounded so even a random-weights model must finish its call
+    "parameters": {"type": "object", "properties": {"city": {"enum": ["Oslo", "Bergen"]}},
+                   "required": ["city"]}}}]
+
+
+def messages_infill_tools_phase(torch, model, kernels: dict, card: str) -> dict:
+    """The Q4_K_M model behind ZllmServer (paged bf16): /v1/messages greedy
+    text equal to /v1/chat/completions content for the same messages,
+    count_tokens equal to usage.prompt_tokens; /infill over FIM ids grafted
+    on byte tokens (as tests/test_server.py does) stopping with >= 1 token;
+    a forced tool call streamed and not streamed giving the same parsed
+    call, valid under the tool's schema.  Every slot is erased before each
+    request, so each prompt is computed whole; the launches are held to the
+    engine's step counters."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.server.http import ZllmServer
+
+    t0 = time.perf_counter()
+    srv = ZllmServer(model, port=0)
+    srv.start_background()
+    eng = srv.engine
+    vocab = model.tokenizer.vocab
+    msgs = [{"role": "user", "content": "Tell me what the chip reads first."}]
+    tool_body = {"messages": [{"role": "user", "content": "weather in Oslo?"}], "tools": TOOLS,
+                 "tool_choice": "required", "max_tokens": 160, "temperature": 0}
+
+    def post(path, b, raw=False):
+        for i in range(eng.n_slots):
+            http_post(srv.port, f"/slots/{i}?action=erase", {})
+        out = http_post(srv.port, path, b)
+        return out if raw else json.loads(out)
+
+    old = (vocab.fim_pre_id, vocab.fim_suf_id, vocab.fim_mid_id)
+    try:
+        zero_counts(kernels, (att.paged_attention,))
+        m0 = dict(eng.metrics)
+        anth = post("/v1/messages", {"messages": msgs, "max_tokens": 24, "temperature": 0})
+        chat = post("/v1/chat/completions", {"messages": msgs, "max_tokens": 24,
+                                             "temperature": 0})
+        count = post("/v1/messages/count_tokens", {"messages": msgs})["input_tokens"]
+        vocab.fim_pre_id, vocab.fim_suf_id, vocab.fim_mid_id = 10, 11, 12
+        infill = post("/infill", {"input_prefix": "def add(a, b):\n    ",
+                                  "input_suffix": "\n    return c\n", "max_tokens": 16,
+                                  "temperature": 0})
+        vocab.fim_pre_id, vocab.fim_suf_id, vocab.fim_mid_id = old
+        plain = post("/v1/chat/completions", tool_body)
+        events = [json.loads(ln[6:]) for ln in post("/v1/chat/completions",
+                                                    dict(tool_body, stream=True),
+                                                    raw=True).splitlines()
+                  if ln.startswith("data: ") and ln != "data: [DONE]"]
+        m1 = dict(eng.metrics)
+    finally:
+        vocab.fim_pre_id, vocab.fim_suf_id, vocab.fim_mid_id = old
+        srv.shutdown()
+    steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
+    counts = engine_counts_check(torch, "messages_infill_tools", kernels,
+                                 serve_expected(kernels, model.cfg, steps), False,
+                                 att.paged_attention,
+                                 model.cfg.n_layers * steps["prefill_steps_total"])
+
+    def parsed(calls):
+        return [(c["function"]["name"], json.loads(c["function"]["arguments"])) for c in calls]
+
+    streamed = [c for e in events for c in (e["choices"][0]["delta"] or {}).get("tool_calls", [])]
+    finish_s = [e["choices"][0]["finish_reason"] for e in events if e["choices"][0]["finish_reason"]]
+    plain_calls = parsed(plain["choices"][0]["message"].get("tool_calls") or [])
+    res = {"phase": "messages_infill_tools",
+           "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+           "kv_layout": "paged", "messages_text": anth["content"][0]["text"],
+           "messages_equal_chat": anth["content"][0]["text"]
+           == chat["choices"][0]["message"]["content"],
+           "messages_stop_reason": anth["stop_reason"], "count_tokens": count,
+           "chat_prompt_tokens": chat["usage"]["prompt_tokens"],
+           "infill": infill, "tool_call": plain_calls, "tool_call_streamed": parsed(streamed),
+           "tool_finish": [plain["choices"][0]["finish_reason"]] + finish_s,
+           "tool_prompt_tokens": plain["usage"]["prompt_tokens"], "engine_counters": steps,
+           "launches": counts, "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    if steps["engine_errors_total"]:
+        fail(f"messages_infill_tools: engine errors {steps}")
+    if not res["messages_equal_chat"] or count != res["chat_prompt_tokens"] \
+            or anth["usage"]["input_tokens"] != count:
+        fail(f"messages_infill_tools: /v1/messages differs from the chat route: {res}")
+    if infill["tokens_predicted"] < 1 or infill["stop_type"] not in ("stop", "length"):
+        fail(f"messages_infill_tools: /infill {infill}")
+    if not plain_calls or plain_calls != res["tool_call_streamed"] \
+            or res["tool_finish"] != ["tool_calls", "tool_calls"] \
+            or any(name != "get_weather" or set(args) != {"city"}
+                   or args["city"] not in ("Oslo", "Bergen") for name, args in plain_calls):
+        fail(f"messages_infill_tools: the forced tool call: {res}")
+    return counts
+
+
+def model_bytes(torch, model) -> int:
+    """A loaded model's parameter bytes on its device."""
+    from zllm_torch.quant.repack import QWeight
+
+    def leaf(v):
+        if isinstance(v, QWeight):
+            return v.nbytes
+        return v.numel() * v.element_size() if isinstance(v, torch.Tensor) else 0
+
+    params = model.params
+    return sum(leaf(v) for k, v in params.items() if k != "layers") + sum(
+        leaf(v) for layer in params["layers"] for v in layer.values())
+
+
+def kv_bytes_of(engine) -> int:
+    kv = engine.kv
+    return sum(x.numel() * x.element_size() for name in ("k", "v", "ks", "vs")
+               for x in getattr(kv, name, []))
+
+
+ROUTER_MODELS = {"tinyllama_q4_k_m.gguf": ("tinyllama", "Q4_K_M"),
+                 "olmo2_q4_k.gguf": ("olmo2", "Q4_K")}
+ROUTER_SLACK = 0.05
+
+
+def router_phase(torch, kernels: dict, card: str) -> dict:
+    """`python -m zllm_torch.server --models-dir`'s router at full width:
+    the TinyLlama Q4_K_M and OLMo-2 Q4_K files, models_max 1, requests
+    alternating between them so that each loads the other out.  After
+    every eviction torch.cuda.memory_allocated must be at most its value
+    before the first load plus the resident model's bytes (parameters and
+    KV), within ROUTER_SLACK; after the last unload, back to that value
+    within ROUTER_SLACK of the larger model's bytes.  Then replicas 2 on one model: two engines over
+    one loaded copy, requests alternating.  Launches held to the engines'
+    counters."""
+    import gc
+
+    from zllm_torch.server.router import RouterServer
+
+    t0 = time.perf_counter()
+    folder = CACHE / "router_models"
+    folder.mkdir(exist_ok=True)
+    for name, (model, ftype) in ROUTER_MODELS.items():
+        link = folder / name
+        if not link.exists():
+            link.symlink_to(gguf_file(model, main_shapes()[model][0], ftype)[0])
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    zero_counts(kernels)
+    expected = {name: 0 for name in kernels}
+
+    def tally(inst, m0s):
+        """Add the launches of inst's engines since m0s to `expected`."""
+        cfg = inst.servers[0].model.cfg
+        gemms = {"q4k_gemm": 4 * cfg.n_layers + 1} if cfg.arch == "olmo2" else None
+        for s, m0 in zip(inst.servers, m0s):
+            steps = {k: s.engine.metrics[k] - m0[k] for k in ENGINE_COUNTERS}
+            for k, n in serve_expected(kernels, cfg, steps, gemms=gemms).items():
+                expected[k] += n
+
+    order = ["tinyllama_q4_k_m.gguf", "olmo2_q4_k.gguf", "tinyllama_q4_k_m.gguf",
+             "olmo2_q4_k.gguf"]
+    loads, texts = [], {}
+    r = RouterServer(str(folder), port=0, models_max=1, n_slots=2, max_len=2048)
+    r.start_background()
+    try:
+        listed = [m["id"] for m in json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{r.port}/v1/models", timeout=60).read())["data"]]
+        for i, name in enumerate(order):
+            t_req = time.perf_counter()
+            out = json.loads(http_post(r.port, "/v1/completions", {
+                "model": name, "prompt": letters(200 + i % 2, 100), "max_tokens": 8,
+                "temperature": 0}))
+            inst = r.instances[name]
+            if list(r.instances) != [name]:
+                fail(f"router: {list(r.instances)} loaded after a request to {name}")
+            tally(inst, [dict.fromkeys(ENGINE_COUNTERS, 0)] * len(inst.servers))
+            gc.collect()
+            torch.cuda.synchronize()
+            resident = model_bytes(torch, inst.servers[0].model) + sum(kv_bytes_of(s.engine)
+                                                                for s in inst.servers)
+            alloc = torch.cuda.memory_allocated()
+            loads.append({"model": name, "evicted": order[i - 1] if i else None,
+                          "allocated_over_base": alloc - base, "resident_bytes": resident,
+                          "ratio": (alloc - base) / resident,
+                          "request_s": time.perf_counter() - t_req})
+            texts.setdefault(name, []).append(out["choices"][0]["text"])
+        r.unload(order[-1])
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated() - base
+    finally:
+        r.shutdown()
+    # replicas 2 on one model, round robin
+    rr = RouterServer(str(folder), port=0, models_max=1, n_slots=2, max_len=2048, replicas=2)
+    rr.start_background()
+    try:
+        inst = rr.load("tinyllama_q4_k_m.gguf")
+        ports = [inst.pick().port for _ in range(4)]
+        for i in range(4):
+            http_post(rr.port, "/v1/completions", {"model": "tinyllama_q4_k_m.gguf",
+                                                   "prompt": letters(300 + i, 60),
+                                                   "max_tokens": 4, "temperature": 0})
+        per_engine = [s.engine.metrics["requests_total"] for s in inst.servers]
+        tally(inst, [dict.fromkeys(ENGINE_COUNTERS, 0)] * 2)
+    finally:
+        rr.shutdown()
+    counts = engine_counts_check(torch, "router", kernels, expected, False)
+    res = {"phase": "router", "models": listed, "models_max": 1, "loads": loads,
+           "allocated_over_base_after_last_unload": after, "slack": ROUTER_SLACK,
+           "same_text_on_reload": {n: len(set(t)) == 1 for n, t in texts.items()},
+           "replicas": 2, "replica_ports": ports, "requests_per_replica": per_engine,
+           "launches": counts, "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    if listed != sorted(ROUTER_MODELS):
+        fail(f"router: lists {listed}")
+    # the first load may also leave one-time allocations (it is not
+    # after an eviction); every later one must fit the resident model
+    if any(ld["ratio"] > 1 + ROUTER_SLACK for ld in loads[1:]) or after > ROUTER_SLACK * max(
+            ld["resident_bytes"] for ld in loads):
+        fail(f"router: the card's memory did not come back after an eviction: {res}")
+    if len(set(ports)) != 2 or per_engine != [2, 2]:
+        fail(f"router: replicas did not alternate: {res}")
+    return counts
+
+
+PROMPT_CACHE_IDS = 257  # one 256-token chunk, then the last token alone at column 0
+
+
+def prompt_cache_phase(card: str) -> dict:
+    """`python -m zllm_torch.cli MODEL -f P --prompt-cache F` twice on the
+    card (the TinyLlama Q4_K_M file, 16 greedy tokens): the second run
+    must report the reused prefix (all but the prompt's last token) and
+    print the first run's text."""
+    import re
+
+    path, _ = gguf_file("tinyllama", main_shapes()["tinyllama"][0], "Q4_K_M")
+    prompt = CACHE / "prompt_cache.txt"
+    prompt.write_text(letters(7, PROMPT_CACHE_IDS - 1), encoding="utf-8")
+    session = CACHE / "prompt_cache.session"
+    session.unlink(missing_ok=True)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "zllm_torch.cli", str(path), "-f", str(prompt),
+                              "-n", "16", "--greedy", "--prompt-cache", str(session)],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            fail(f"prompt_cache: zllm_torch.cli failed: {out.stderr[-2000:]}")
+        got = re.search(r"\[prompt cache: reused (\d+) tokens\]", out.stderr)
+        runs.append({"stdout": out.stdout, "reused": int(got.group(1)) if got else 0,
+                     "stats": out.stderr.strip().splitlines()[-1],
+                     "seconds": time.perf_counter() - t0})
+    res = {"phase": "prompt_cache", "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+           "prompt_ids": PROMPT_CACHE_IDS, "session_bytes": os.path.getsize(session),
+           "runs": runs, "same_text": runs[0]["stdout"] == runs[1]["stdout"], "card": card}
+    emit(res)
+    if runs[0]["reused"] or runs[1]["reused"] != PROMPT_CACHE_IDS - 1 or not res["same_text"]:
+        fail(f"prompt_cache: {res}")
+    return res
+
+
+def switches_phase(torch, model, kernels: dict, card: str) -> dict:
+    """The engine's switches at full width (paged bf16, 4 slots):
+    prefix_reuse=False under shared-prefix traffic reuses nothing;
+    context_shift=False finishes a request at max_len with "length" and
+    no shift.  Launches held to the counters."""
+    from zllm_torch.server.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    expected = {name: 0 for name in kernels}
+    prefix = model.tokenizer.encode(letters(11, 300), add_special=True)
+    out = {}
+    for switch, kw, waves in (
+            ("prefix_reuse", dict(prefix_reuse=False),
+             [[prefix + [100]], [prefix + [101], prefix + [102]]]),
+            ("context_shift", dict(context_shift=False, max_len=256), [[prefix[:200]]])):
+        eng = Engine(model, **kw)
+        eng.start()
+        try:
+            got = []
+            for wave in waves:
+                reqs = eng.run_in_loop(lambda wave=wave: [eng.submit(Request(
+                    prompt_tokens=p, max_new=100 if switch == "context_shift" else 8, temp=0.0))
+                    for p in wave])
+                wait_done(reqs)
+                got += [(len(q.out_tokens), q.finish_reason, q.n_prompt_reused, q.error)
+                        for q in reqs]
+        finally:
+            eng.stop()
+        steps = {k: eng.metrics[k] for k in ENGINE_COUNTERS}
+        for k, n in serve_expected(kernels, model.cfg, steps).items():
+            expected[k] += n
+        out[switch] = {"requests": got, "engine_counters": steps, "max_len": eng.max_len}
+    counts = engine_counts_check(torch, "switches", kernels, expected, False)
+    res = {"phase": "switches", "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+           **out, "launches": counts, "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    pr, cs = out["prefix_reuse"], out["context_shift"]
+    if pr["engine_counters"]["tokens_prefix_reused_total"] or any(g[2] for g in pr["requests"]):
+        fail(f"switches: prefix_reuse=False reused a prefix: {res}")
+    if cs["engine_counters"]["context_shifts_total"] or cs["requests"][0][:2] != (256 - 200,
+                                                                                  "length"):
+        fail(f"switches: context_shift=False did not finish at max_len: {res}")
+    if any(g[3] for g in pr["requests"] + cs["requests"]):
+        fail(f"switches: engine errors {res}")
+    return counts
 
 
 def qwen_step_phase(torch, name: str, model, step_ms: float, card: str) -> dict:
@@ -2300,7 +2821,24 @@ def later_form_digests(torch) -> dict:
     return out
 
 
-def main():
+def kernel_wrappers() -> dict:
+    """The twelve kernels' wrappers, by name; each counts its launches."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops import qmatmul as qmm
+
+    return {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
+            "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
+            "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention,
+            "paged_attn_decode_update": att.paged_attn_decode_update,
+            "paged_attention": att.paged_attention,
+            "flash_attention_blockwise": att.flash_attention_blockwise,
+            "attn_decode_update": att.attn_decode_update,
+            "q4k_matvec_hbm": qmm.q4k_matvec_hbm, "w4a8dd_matvec": qmm.w4a8dd_matvec}
+
+
+def setup_card():
+    """Import torch from beside the checkout and read the card; fails with
+    no checkout beside the script or no CUDA card.  Returns (torch, card)."""
     if not (REPO / "zllm_torch" / "csrc").is_dir():
         fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")
     sys.path.insert(0, str(REPO))
@@ -2312,12 +2850,41 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    import torch.nn.functional as F
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     CACHE.mkdir(parents=True, exist_ok=True)
+    return torch, smi.stdout.strip().splitlines()[0]
+
+
+def api_phases():
+    """`python3 chip_smoke.py --api`: group 7 alone (slot state, the API
+    surface, the router, the prompt cache, the switches) after building
+    the kernels, on the TinyLlama Q4_K_M model."""
+    torch, card = setup_card()
+    from zllm_torch.models.loader import Model
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports)})
+    kernels = kernel_wrappers()
+    path, made_s = gguf_file("tinyllama", main_shapes()["tinyllama"][0], "Q4_K_M")
+    model_m = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    emit({"phase": "api_model", "file": path.name, "made_s": made_s})
+    for ph in SLOT_CASES:
+        slots_phase(torch, model_m, kernels, card, ph)
+    messages_infill_tools_phase(torch, model_m, kernels, card)
+    router_phase(torch, kernels, card)
+    prompt_cache_phase(card)
+    switches_phase(torch, model_m, kernels, card)
+    print(card, flush=True)
+
+
+def main():
+    torch, card = setup_card()
+    import torch.nn.functional as F
+
     prepare_requantized()
 
     from zllm_torch.gguf.constants import GGMLType
@@ -2470,14 +3037,7 @@ def main():
             fail(f"{lib}: {len(loops)} sliced-loop instantiations built, not one a form and "
                  "decoder")
 
-    kernels = {"q4k_matvec": qmm.q4k_matvec, "int8_matvec": qmm.int8_matvec,
-               "attn_decode_qkv": att.attn_decode_qkv, "q4k_gemm": qmm.q4k_gemm,
-               "dequant_gemm": qmm.dequant_gemm, "flash_attention": att.flash_attention,
-               "paged_attn_decode_update": att.paged_attn_decode_update,
-               "paged_attention": att.paged_attention,
-               "flash_attention_blockwise": att.flash_attention_blockwise,
-               "attn_decode_update": att.attn_decode_update,
-               "q4k_matvec_hbm": qmm.q4k_matvec_hbm, "w4a8dd_matvec": qmm.w4a8dd_matvec}
+    kernels = kernel_wrappers()
 
     for ftype in ("Q4_K", "Q4_K_M", "Q8_0"):
         small_model_check(torch, ftype)
@@ -2768,6 +3328,14 @@ def main():
     counts_serve_tq = serve_phase(torch, tq_models["TQ2_0"], kernels, card,
                                   label="tinyllama-geometry TQ2_0",
                                   gemms={"dequant_gemm": 4 * L_t + 1}, tag="tq2_0")
+    # slot state, the API surface, the router, the prompt cache and the
+    # engine's switches over the TinyLlama Q4_K_M model (the router also
+    # loads the OLMo-2 Q4_K file)
+    slot_counts = {ph: slots_phase(torch, model_m, kernels, card, ph) for ph in SLOT_CASES}
+    counts_mit = messages_infill_tools_phase(torch, model_m, kernels, card)
+    counts_router = router_phase(torch, kernels, card)
+    prompt_cache_phase(card)
+    counts_switches = switches_phase(torch, model_m, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -2780,7 +3348,9 @@ def main():
              **{ft.lower(): c for ft, c in tq_counts.items()}, "bf16": counts_bf16,
              "olmo2_f16": counts_o16, "serve_contig_f16_olmo2": counts_serve_o16,
              "serve_tq2_0": counts_serve_tq, "imatrix": counts_imatrix,
-             "iq2_xxs_imatrix": quant_im["counts"]}
+             "iq2_xxs_imatrix": quant_im["counts"], **slot_counts,
+             "messages_infill_tools": counts_mit, "router": counts_router,
+             "switches": counts_switches}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -4036,6 +4606,8 @@ if __name__ == "__main__":
         sys.path.insert(0, str(REPO))
         for ftype_ in sys.argv[3:]:
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
+    elif sys.argv[1:2] == ["--api"]:  # group 7 alone
+        api_phases()
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone
         if not (REPO / "zllm_torch" / "csrc").is_dir():
             fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")

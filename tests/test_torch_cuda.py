@@ -32,7 +32,9 @@ the CPU; K8 holds its tolerance over f16 caches too (its f16 form).
 The IQ grid fit on the card (`quant/iq_encode.py`) keeps at least 99 % of
 the CPU fit's 256-blocks and its weighted error within 0.1 %, and the
 imatrix collection on the card (K5, K6) keeps each tensor's sums within
-nmse 1e-6 of the plain versions' (f32 model).
+nmse 1e-6 of the plain versions' (f32 model).  The q8 cache's quantize on
+the card gives the CPU's codes and scales bit for bit, and so does a slot
+file requantized into a card cache.
 """
 
 import functools
@@ -1483,3 +1485,34 @@ def test_imatrix_card_matches_plain(dev, tmp_path, monkeypatch):
     assert counts == pcounts and set(sums) == set(psums)
     for name in sums:
         assert _nmse(torch.from_numpy(sums[name]), torch.from_numpy(psums[name])) <= 1e-6, name
+
+
+@pytest.mark.parametrize("src", ["bfloat16", "float32"])
+def test_q8_quant_and_slot_restore_match_the_cpu(dev, src, tmp_path):
+    """The q8 cache's quantize on the card, codes and scales bit for bit
+    the CPU's (max|x| / 127 a true division, as numpy's), and a slot file
+    requantized into a card cache as into a CPU one."""
+    import types
+
+    from zllm_torch.runtime import state
+    from zllm_torch.runtime.kvcache import KVCache, KVCacheQ8
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(4, 8, 512, 128, generator=g) * torch.rand(4, 8, 512, 1, generator=g) * 8)
+    x = x.to(getattr(torch, src))
+    qc, sc = KVCacheQ8._quant(x)
+    qg, sg = KVCacheQ8._quant(x.to(dev))
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+    model = types.SimpleNamespace(cfg=types.SimpleNamespace(arch="llama", n_layers=2,
+                                                            n_kv_heads=8, head_dim=128))
+    src_kv = KVCache(k=[x[:2].clone(), x[2:].clone()], v=[x[2:].clone(), x[:2].clone()])
+    path = str(tmp_path / "slot.bin")
+    state.seq_save_file(path, model, src_kv, 1, 500)
+    cpu = KVCacheQ8.create(2, 2, 512, 8, 128, device="cpu")
+    card = KVCacheQ8.create(2, 2, 512, 8, 128, device=dev)
+    state.seq_load_file(path, model, cpu, 0)
+    state.seq_load_file(path, model, card, 0)
+    for name in ("k", "v", "ks", "vs"):
+        for a, b in zip(getattr(card, name), getattr(cpu, name)):
+            assert torch.equal(a.cpu(), b)

@@ -192,15 +192,16 @@ def test_engine_counts_no_kernel_launch_on_cpu(gguf, kw):
     assert [k.launches for k in kernels] == before
 
 
-@pytest.mark.parametrize("kw", [dict(speculative=True), dict(lookahead=True), dict(tp=2),
-                                dict(dp=2), dict(pp=2), dict(coordinated=True)],
+@pytest.mark.parametrize("kw,item", [(dict(speculative=True), "5"), (dict(lookahead=True), "5"),
+                                     (dict(tp=2), "10"), (dict(dp=2), "10"), (dict(pp=2), "10"),
+                                     (dict(coordinated=True), "10")],
                          ids=["speculative", "lookahead", "tp", "dp", "pp", "coordinated"])
-def test_unported_options_raise(gguf, kw):
+def test_unported_options_raise(gguf, kw, item):
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine
 
     m = Model.load(gguf, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
         Engine(m, n_slots=1, max_len=128, **kw)
 
 
@@ -236,7 +237,81 @@ def test_media_and_oversized_prompts_are_refused(gguf):
 
     eng = Engine(Model.load(gguf, device="cpu", dtype=torch.float32), n_slots=1, max_len=100)
     assert eng.max_len == 128  # rounded up to whole pages
-    with pytest.raises(NotImplementedError, match="media"):
+    with pytest.raises(NotImplementedError, match=r"media.*ROADMAP queue 1 item 4\.8\)"):
         eng.submit(Request(prompt_tokens=[1, 2], media=[(0, np.zeros((1, 4)))]))
     with pytest.raises(ValueError, match="exceeds context"):
         eng.submit(Request(prompt_tokens=list(range(128))))
+
+
+# the engine's switches, on the paged and contiguous layouts: (layout,
+# switch) -> the engine keywords
+SWITCHES = {
+    (layout, switch): dict(kw, **({"kv_layout": "contiguous"} if layout == "contiguous" else {}))
+    for layout in ("paged", "contiguous")
+    for switch, kw in (("no_prefix_reuse", dict(prefix_reuse=False, max_len=256)),
+                       ("no_context_shift", dict(context_shift=False, max_len=128)))}
+
+
+@pytest.fixture(scope="module")
+def switch_runs(gguf):
+    """Each switch's script on zllm's engine and the port's: shared-prefix
+    traffic with prefix_reuse=False; a request running into max_len with
+    context_shift=False."""
+    import jax.numpy as jnp
+
+    from zllm.models.loader import Model as ZModel
+    from zllm.server.engine import Engine as ZEngine
+    from zllm.server.engine import Request as ZRequest
+    from zllm_torch.models.loader import Model
+    from zllm_torch.server.engine import Engine, Request
+
+    zm = ZModel.load(gguf, dtype=jnp.float32)
+    tm = Model.load(gguf, device="cpu", dtype=torch.float32)
+    sides = {"zllm": (lambda **kw: ZEngine(zm, kv_dtype=jnp.float32, **kw),
+                      lambda **kw: ZRequest(temp=0.0, **kw)),
+             "port": (lambda **kw: Engine(tm, kv_dtype=torch.float32, **kw),
+                      lambda **kw: Request(temp=0.0, **kw))}
+    out = {}
+    for side, (make_engine, make_request) in sides.items():
+        for (layout, switch), kw in SWITCHES.items():
+            eng = make_engine(n_slots=2, prefill_chunk=16, **kw)
+            eng.start()
+            try:
+                r = np.random.default_rng(3)
+                if switch == "no_prefix_reuse":
+                    prefix = _toks(r, 150)
+                    waves = [[dict(prompt_tokens=prefix + [7], max_new=4)],
+                             [dict(prompt_tokens=prefix + [9], max_new=4),
+                              dict(prompt_tokens=prefix + [11], max_new=4)]]
+                else:
+                    waves = [[dict(prompt_tokens=_toks(r, 90), max_new=80)]]
+                before = dict(eng.metrics)
+                got = []
+                for wave in waves:
+                    reqs = eng.run_in_loop(lambda wave=wave: [
+                        eng.submit(make_request(**w)) for w in wave])
+                    deadline = time.time() + 120
+                    while not all(q.done for q in reqs):
+                        assert time.time() < deadline, "engine timed out"
+                        time.sleep(0.005)
+                    got += [(list(q.out_tokens), q.finish_reason, q.n_prompt_reused, q.error)
+                            for q in reqs]
+                out[side, layout, switch] = (got, {k: eng.metrics[k] - before[k]
+                                                   for k in COUNTERS})
+            finally:
+                eng.stop()
+    return out
+
+
+@pytest.mark.parametrize("layout,switch", list(SWITCHES), ids=["-".join(k) for k in SWITCHES])
+def test_engine_switches_match_zllm(switch_runs, layout, switch):
+    zgot, zcount = switch_runs["zllm", layout, switch]
+    tgot, tcount = switch_runs["port", layout, switch]
+    assert all(err == "" for *_, err in tgot), tgot
+    assert tgot == zgot and tcount == zcount
+    if switch == "no_prefix_reuse":
+        assert tcount["tokens_prefix_reused_total"] == 0 and tcount["tokens_prefilled_total"] == 453
+        assert [g[2] for g in tgot] == [0, 0, 0]
+    else:  # finished at max_len, never shifted: prompt 90 + 38 tokens = 128
+        assert tcount["context_shifts_total"] == 0
+        assert tgot[0][1] == "length" and len(tgot[0][0]) == 128 - 90

@@ -1,7 +1,8 @@
 """The port's HTTP server (zllm_torch.server) on a tiny model, over real
-HTTP: the cases of tests/test_server.py that this slice serves, the routes
-it does not serve yet (501), the same greedy bodies giving the same text as
-zllm's server on the same file, and `python -m zllm_torch.server`.
+HTTP: the cases of tests/test_server.py that the port serves (among them
+/slots save/erase/restore, /infill, /v1/messages and tool calls), the
+routes it does not serve yet (501), the same greedy bodies giving the same
+text as zllm's server on the same file, and `python -m zllm_torch.server`.
 
 Both servers load one F32 llama file (n_embd 64, vocab 256) in f32 with the
 byte-level tokenizer tests/test_server.py attaches; each keeps its default
@@ -54,6 +55,28 @@ def served(gguf):
     m = Model.load(gguf, device="cpu", dtype=torch.float32)
     m.tokenizer = Tokenizer(_vocab(Vocab, TokenType))
     srv = ZllmServer(m, n_slots=2, max_len=256, port=0)
+    srv.start_background()
+    yield srv
+    srv.shutdown()
+
+
+@pytest.fixture(scope="module")
+def served_tools(served):
+    """The same model with the context a tool preamble needs (~800 byte
+    tokens on this vocab), one slot."""
+    from zllm_torch.server import ZllmServer
+
+    srv = ZllmServer(served.model, n_slots=1, max_len=1536, port=0)
+    srv.start_background()
+    yield srv
+    srv.shutdown()
+
+
+@pytest.fixture(scope="module")
+def zllm_served_tools(zllm_served):
+    from zllm.server import ZllmServer
+
+    srv = ZllmServer(zllm_served.model, n_slots=1, max_len=1536, port=0)
     srv.start_background()
     yield srv
     srv.shutdown()
@@ -216,19 +239,68 @@ def test_apply_template_endpoint(served):
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/v1/messages", {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 2}),
     ("/v1/embeddings", {"input": ["ab"]}),
     ("/rerank", {"query": "ab", "documents": ["ab"]}),
-    ("/infill", {"input_prefix": "a", "input_suffix": "b", "max_tokens": 2}),
-    ("/slots/0?action=save", {"filename": "s0.bin"}),
-    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
-                              "tools": [{"type": "function", "function": {"name": "f"}}]}),
-], ids=["messages", "embeddings", "rerank", "infill", "slots_save", "tools"])
+], ids=["embeddings", "rerank"])
 def test_unported_routes_answer_501(served, path, body):
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(served, path, body)
     assert ei.value.code == 501
-    assert "ROADMAP queue 1 item 8" in json.loads(ei.value.read())["error"]["message"]
+    assert "ROADMAP queue 1 item 4.6" in json.loads(ei.value.read())["error"]["message"]
+
+
+def test_infill_unsupported_when_no_fim_tokens(served):
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(served, "/infill", {"input_prefix": "a", "input_suffix": "b", "max_tokens": 2})
+    assert ei.value.code == 501
+
+
+class _FIM:
+    """FIM ids grafted onto byte tokens of each server's vocab for the
+    block, as tests/test_server.py::test_infill grafts them."""
+
+    def __init__(self, *servers):
+        self.vocabs = [s.model.tokenizer.vocab for s in servers]
+
+    def __enter__(self):
+        self.old = [(v.fim_pre_id, v.fim_suf_id, v.fim_mid_id, v.eot_id) for v in self.vocabs]
+        for v in self.vocabs:
+            v.fim_pre_id, v.fim_suf_id, v.fim_mid_id, v.eot_id = 10, 11, 12, 13
+
+    def __exit__(self, *exc):
+        for v, old in zip(self.vocabs, self.old):
+            v.fim_pre_id, v.fim_suf_id, v.fim_mid_id, v.eot_id = old
+
+
+def test_infill(served):
+    with _FIM(served):
+        out = _post(served, "/infill", {"input_prefix": "ab", "input_suffix": "cd",
+                                        "max_tokens": 4, "temperature": 0})
+    assert out["tokens_predicted"] >= 1 and out["stop_type"] in ("length", "stop")
+
+
+TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Get the weather",
+    # enum-bounded so even a random-weights model must finish its call
+    "parameters": {"type": "object", "properties": {"city": {"enum": ["Oslo", "Bergen"]}},
+                   "required": ["city"]}}}]
+MESSAGES = {"system": "be terse", "max_tokens": 6, "temperature": 0,
+            "messages": [{"role": "user", "content": [{"type": "text", "text": "hello"},
+                                                      {"type": "text", "text": " there"}]}]}
+
+
+def _view(path: str, out: dict) -> dict:
+    """What two servers' replies must share: the first choice and usage
+    with the tool calls' ids (request ids) dropped; a message without its
+    id; /infill whole."""
+    if path == "/v1/messages":
+        return {k: v for k, v in out.items() if k != "id"}
+    if path == "/infill":
+        return out
+    choice = json.loads(json.dumps(out["choices"][0]))
+    for call in (choice.get("message") or {}).get("tool_calls") or []:
+        call.pop("id")
+    return {"choice": choice, "usage": out["usage"]}
 
 
 @pytest.mark.parametrize("path,body", [
@@ -237,11 +309,146 @@ def test_unported_routes_answer_501(served, path, body):
                          "repeat_penalty": 1.3}),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
                               "max_tokens": 6, "temperature": 0}),
-], ids=["completion", "penalties", "chat"])
-def test_same_greedy_text_as_zllm(served, zllm_served, path, body):
-    got, want = _post(served, path, body), _post(zllm_served, path, body)
-    assert got["choices"][0] == want["choices"][0]
-    assert got["usage"] == want["usage"]
+    ("/v1/messages", MESSAGES),
+    ("/infill", {"input_prefix": "ab", "input_suffix": "cd", "max_tokens": 6,
+                 "temperature": 0}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "weather in Oslo?"}],
+                              "tools": TOOLS, "tool_choice": "required", "max_tokens": 160,
+                              "temperature": 0}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "weather?"}],
+                              "tools": TOOLS, "max_tokens": 12, "temperature": 0}),
+], ids=["completion", "penalties", "chat", "messages", "infill",
+        "tool_call_forced", "tools_auto"])
+def test_same_greedy_text_as_zllm(served, zllm_served, request, path, body):
+    if "tools" in body:  # the tool preamble needs the larger context
+        served = request.getfixturevalue("served_tools")
+        zllm_served = request.getfixturevalue("zllm_served_tools")
+    with _FIM(served, zllm_served):
+        got, want = _post(served, path, body), _post(zllm_served, path, body)
+    assert _view(path, got) == _view(path, want)
+    if body.get("tool_choice") == "required":
+        msg = got["choices"][0]["message"]
+        assert got["choices"][0]["finish_reason"] == "tool_calls"
+        assert msg["tool_calls"][0]["function"]["name"] == "get_weather"
+        assert json.loads(msg["tool_calls"][0]["function"]["arguments"])["city"] in (
+            "Oslo", "Bergen")
+
+
+def _sse_events(srv, path, body) -> list:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}{path}", data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read().decode().splitlines()
+
+
+def test_messages_streaming_as_zllm(served, zllm_served):
+    """The SSE events message_start ... message_stop, the same text deltas
+    and stop reason as zllm's, and the text of the non-streamed reply."""
+    def events(srv):
+        out = []
+        for ln in _sse_events(srv, "/v1/messages", MESSAGES):
+            if ln.startswith("data: "):
+                ev = json.loads(ln[6:])
+                ev.get("message", {}).pop("id", None)
+                out.append(ev)
+        return out
+
+    got, want = events(served), events(zllm_served)
+    assert got == want
+    assert [e["type"] for e in got][:2] == ["message_start", "content_block_start"]
+    assert [e["type"] for e in got][-3:] == ["content_block_stop", "message_delta",
+                                             "message_stop"]
+    text = "".join(e["delta"]["text"] for e in got if e["type"] == "content_block_delta")
+    assert text == _post(served, "/v1/messages", MESSAGES)["content"][0]["text"]
+
+
+def test_messages_stop_sequence_as_zllm(served, zllm_served):
+    """A stop sequence inside the greedy text: cut there, stop_reason
+    stop_sequence, as zllm answers."""
+    text = _post(served, "/v1/messages", dict(MESSAGES, max_tokens=8))["content"][0]["text"]
+    assert len(text) >= 3
+    body = dict(MESSAGES, max_tokens=8, stop_sequences=[text[1:3]])
+    got, want = _post(served, "/v1/messages", body), _post(zllm_served, "/v1/messages", body)
+    assert _view("/v1/messages", got) == _view("/v1/messages", want)
+    assert got["stop_reason"] == "stop_sequence" and got["content"][0]["text"] == text[:1]
+
+
+def test_count_tokens_equals_prompt_tokens(served, zllm_served):
+    body = {"messages": MESSAGES["messages"], "system": "be terse"}
+    n = _post(served, "/v1/messages/count_tokens", body)["input_tokens"]
+    assert n == _post(zllm_served, "/v1/messages/count_tokens", body)["input_tokens"]
+    assert n == _post(served, "/v1/messages", MESSAGES)["usage"]["input_tokens"]
+
+
+def test_tool_call_streamed_as_zllm(served_tools, zllm_served_tools):
+    """A forced tool call streamed: <tool_call> held back, one tool_calls
+    delta, finish_reason tool_calls; the same call as zllm's stream and as
+    the port's own non-streamed reply."""
+    body = {"messages": [{"role": "user", "content": "weather?"}], "tools": TOOLS,
+            "tool_choice": {"type": "function", "function": {"name": "get_weather"}},
+            "max_tokens": 160, "temperature": 0}
+
+    def streamed(srv):
+        deltas, finish = [], None
+        for ln in _sse_events(srv, "/v1/chat/completions", body):
+            if not ln.startswith("data: ") or ln == "data: [DONE]":
+                continue
+            c = json.loads(ln[6:])["choices"][0]
+            deltas.append(c["delta"])
+            finish = c["finish_reason"] or finish
+        calls = [call for d in deltas if d and "tool_calls" in d for call in d["tool_calls"]]
+        for call in calls:
+            call.pop("id")
+        content = "".join(d.get("content") or "" for d in deltas if d)
+        return calls, content, finish
+
+    calls, content, finish = streamed(served_tools)
+    assert (calls, content, finish) == streamed(zllm_served_tools)
+    assert finish == "tool_calls" and "<tool_call>" not in content
+    plain = _post(served_tools, "/v1/chat/completions", body)["choices"][0]["message"]
+    want = [dict(c, index=i) for i, c in enumerate(plain["tool_calls"])]
+    for call in want:
+        call.pop("id")
+    assert calls == want
+
+
+def test_slot_save_erase_restore_continue(served, tmp_path):
+    """A slot saved, erased and restored into the other slot with its
+    tokens: the same prompt again reuses the restored pages and continues
+    with the tokens of the uninterrupted run."""
+    from zllm_torch.server import ZllmServer
+
+    srv = ZllmServer(served.model, n_slots=2, max_len=256, port=0, slot_save_path=str(tmp_path))
+    srv.start_background()
+    try:
+        prompt = "thequickbrownfoxjumpsoverthelazydog" * 4  # 141 ids: a full page and more
+        body = {"prompt": prompt, "max_tokens": 10, "temperature": 0}
+        first = _post(srv, "/v1/completions", body)
+        tok = served.model.tokenizer
+        ids = tok.encode(prompt, add_special=True, parse_special=True)
+        out_ids = srv.engine.slots[0].cache_tokens[len(ids):]
+        info = _post(srv, "/slots/0?action=save", {"filename": "../s0.bin"})
+        assert info["n_past"] == len(ids) + 9 and (tmp_path / "s0.bin").exists()
+        assert info["filename"] == str(tmp_path / "s0.bin")  # the basename, under the path
+        assert _post(srv, "/slots/0?action=erase", {}) == {"id": 0}
+        # slot 0 takes unrelated traffic over its pages
+        _post(srv, "/v1/completions", {"prompt": "z" * 200, "max_tokens": 20, "temperature": 0})
+        got = _post(srv, "/slots/1?action=restore", {"filename": "s0.bin",
+                                                     "tokens": ids + out_ids})
+        assert got == {"id": 1, "n_past": info["n_past"]}
+        reused = srv.engine.metrics["tokens_prefix_reused_total"]
+        again = _post(srv, "/v1/completions", body)
+        assert srv.engine.metrics["tokens_prefix_reused_total"] - reused == 128  # a full page
+        assert again["choices"][0] == first["choices"][0]
+        for path, want in (("/slots/7?action=save", "invalid slot id"),
+                           ("/slots/x?action=save", "invalid slot id"),
+                           ("/slots/0?action=drop", "unknown action")):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                _post(srv, path, {})
+            assert ei.value.code == 400 and want in ei.value.read().decode()
+    finally:
+        srv.shutdown()
 
 
 def _free_port() -> int:

@@ -59,16 +59,17 @@ class Generator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def prefill(self, prompt_tokens: list[int]) -> torch.Tensor:
+    def prefill(self, prompt_tokens: list[int], start: int = 0) -> torch.Tensor:
         """Feed the prompt in fixed-size chunks; returns last-token logits.
         Each chunk is padded to `prefill_chunk` tokens; padded positions run
         past the prompt and clamp to max_len - 1 (their cache writes land
-        beyond the causal horizon of real queries)."""
+        beyond the causal horizon of real queries).  `start` skips the
+        tokens whose K/V is already cached (the CLI's prompt cache)."""
         toks = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(toks)
         logits = None
         t0 = time.perf_counter()
-        pos = 0
+        pos = start
         while pos < n:
             chunk = min(self.prefill_chunk, n - pos)
             padded = np.zeros(self.prefill_chunk, dtype=np.int32)
@@ -98,21 +99,41 @@ class Generator:
         return out
 
     def generate(self, prompt_tokens: list[int], max_new: int = 32, sampler=None,
-                 eos_id: int = -1) -> GenerateResult:
-        logits = self.prefill(prompt_tokens)
+                 eos_id: int = -1, start: int = 0, stop_strings: tuple = ()) -> GenerateResult:
+        """Prefill from `start`, then decode up to max_new tokens; stops
+        after eos_id, or once the decoded text holds a stop string, whose
+        text is then cut from `text` (zllm's rule)."""
+        logits = self.prefill(prompt_tokens, start=start)
         first = int(torch.argmax(logits)) if sampler is None else int(sampler(logits))
         t0 = time.perf_counter()
         toks = [first]
         pos = self._cur_pos
+        inc, text_acc, stop_at = None, "", -1
+        if stop_strings and self.model.tokenizer is not None:
+            from ..tokenizer import IncrementalDecoder
+
+            inc = IncrementalDecoder(self.model.tokenizer)
+            text_acc += inc.push(first)
         for _ in range(max_new - 1):
             if toks[-1] == eos_id:
                 break
+            if inc is not None:
+                hit = min((i for i in (text_acc.find(s) for s in stop_strings) if i >= 0),
+                          default=-1)
+                if hit >= 0:
+                    stop_at = hit
+                    break
             row = self._decode_one(toks[-1], pos)
             toks.append(int(torch.argmax(row)) if sampler is None else int(sampler(row)))
             pos += 1
+            if inc is not None:
+                text_acc += inc.push(toks[-1])
         self._sync()
         t_decode = time.perf_counter() - t0
         self._cur_pos = len(prompt_tokens) + len(toks) - 1
-        text = self.model.tokenizer.decode(toks) if self.model.tokenizer else ""
-        return GenerateResult(tokens=toks, text=text, n_prefill=len(prompt_tokens),
+        if stop_at >= 0:
+            text = text_acc[:stop_at]
+        else:
+            text = self.model.tokenizer.decode(toks) if self.model.tokenizer else ""
+        return GenerateResult(tokens=toks, text=text, n_prefill=len(prompt_tokens) - start,
                               t_prefill=self.t_prefill, t_decode=t_decode)

@@ -129,9 +129,12 @@ class KVCacheQ8:
     def _quant(x: torch.Tensor):
         """[..., D] -> int8 codes and f32 scales [..., 1]: s = max|x| / 127
         (at least 1e-12), codes round(x / s) half to even, clipped to ±127;
-        bit-exact with zllm's."""
+        bit-exact with zllm's.  127 is a 0-dim tensor on x's device: a
+        CUDA division by a Python scalar multiplies by its rounded
+        reciprocal instead."""
         xf = x.float()
-        s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        s = torch.clamp_min(amax / torch.full((), 127.0, device=x.device), 1e-12)
         return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
     def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor):

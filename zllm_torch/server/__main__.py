@@ -4,13 +4,17 @@
 Usage: python -m zllm_torch.server MODEL.gguf [--host 127.0.0.1 --port 8080
        --slots 4 --ctx 2048 --kv-type bf16 --kv-layout auto --jinja
        --device cuda]
+       python -m zllm_torch.server --models-dir DIR [--models-max 2
+       --replicas 1 --slots 4 --ctx 2048 --device cuda]   (router mode)
 
 Runs on the GPU unless --device cpu is given.  `--kv-type f16` serves from
 an f16 KV cache (llama.cpp's default -ctk/-ctv f16; paged by default, or
 contiguous), `--kv-type q8` from the int8 KV cache (llama.cpp's -ctk/-ctv
-q8_0), which takes the contiguous layout.  It offers only what the port
-serves: no router, speculative or lookahead decoding, multi-device serving
-or media.
+q8_0), which takes the contiguous layout.  Without a model and with
+--models-dir it runs the router (`server/router.py`): every GGUF in the
+directory, loaded on demand, at most --models-max at once, --replicas
+engines a model.  It offers only what the port serves: no speculative or
+lookahead decoding, multi-device serving or media.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ KV_TYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32, 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m zllm_torch.server")
-    ap.add_argument("model", help="GGUF file (plain llama: Q4_K, Q4_K_M, Q8_0, F16, F32)")
+    ap.add_argument("model", nargs="?", default="",
+                    help="GGUF file (llama, Qwen2/3, OLMo-2; omit with --models-dir)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--slots", type=int, default=4, help="concurrent sequences")
@@ -42,7 +47,29 @@ def main(argv=None):
                     help="render the GGUF's embedded jinja chat template")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: the kernels' plain versions)")
+    ap.add_argument("--models-dir", default="",
+                    help="router mode: serve every GGUF in this directory")
+    ap.add_argument("--models-max", type=int, default=2,
+                    help="router mode: models loaded at once (least recently used evicted)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="router mode: engines a model, round robin")
     args = ap.parse_args(argv)
+
+    if not args.model and args.models_dir:
+        from .router import RouterServer
+
+        r = RouterServer(args.models_dir, host=args.host, port=args.port,
+                         models_max=args.models_max, n_slots=args.slots, max_len=args.ctx,
+                         replicas=args.replicas, device=args.device)
+        print(f"router on http://{args.host}:{args.port} serving {r.available()}",
+              file=sys.stderr)
+        try:
+            r.serve_forever()
+        except KeyboardInterrupt:
+            r.shutdown()
+        return
+    if not args.model:
+        ap.error("MODEL.gguf or --models-dir required")
 
     from ..models.loader import Model
     from .http import ZllmServer

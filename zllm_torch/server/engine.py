@@ -18,15 +18,21 @@ One engine thread runs the steps:
     tells the two apart: `_mixed_step`); with no prompt pending the step
     is [n_slots, 1] (`_decode_step`).  Rows with nothing to do sit at position max_len,
     the trash page or the contiguous stripe's trash region [max_len, S);
-  * prompt-prefix reuse: paged, a request shares the full 128-token pages
-    of the longest common prefix with any slot's cache (even a busy
-    slot's: full pages are immutable); contiguous, it reuses the longest
-    common prefix of an idle slot's own cache, in place; either way it
-    prefills only the rest;
-  * context shift: a generating slot that reaches max_len drops the oldest
-    half of its window (keeping n_keep) and re-rotates K in place (q8:
-    dequantized, rotated, requantized), after a copy-on-write unshare of
-    pages it shares;
+  * prompt-prefix reuse (`prefix_reuse=True`): paged, a request shares
+    the full 128-token pages of the longest common prefix with any slot's
+    cache (even a busy slot's: full pages are immutable); contiguous, it
+    reuses the longest common prefix of an idle slot's own cache, in
+    place; either way it prefills only the rest;
+  * context shift (`context_shift="auto"` or True): a generating slot that
+    reaches max_len drops the oldest half of its window (keeping n_keep)
+    and re-rotates K in place (q8: dequantized, rotated, requantized),
+    after a copy-on-write unshare of pages it shares; with False it
+    finishes with "length" there instead;
+  * slot state (`save_slot`, `restore_slot`, `erase_slot`, on the engine
+    thread): a slot's K/V to a state file (`runtime/state.py`) and back
+    into any idle slot, whose next request reuses the restored prefix;
+    a paged restore first maps the slot a fresh row of its own, so it
+    never writes into pages another slot shares;
   * sampling is one batched chain over all slots with per-slot parameters
     and one torch.Generator per slot (`sampling/batched.py`); grammar
     masking stays on the host, applied by resampling the rows whose first
@@ -41,7 +47,8 @@ unknown `kv_dtype` string and q8 with the paged layout, as zllm's do, a
 torch dtype other than bf16, f16 or f32, and an unknown layout (which
 zllm serves as contiguous).  What this engine does not port raises
 NotImplementedError naming its ROADMAP item: speculative and lookahead
-decoding, tp/dp/pp/mesh and coordinated serving, media.  Recurrent, hybrid, MLA and
+decoding (queue 1 item 5), tp/dp/pp/mesh and coordinated serving (item
+10), media (item 4.8).  Recurrent, hybrid, MLA and
 SWA models do not load in zllm_torch at all (`models/config.py`).
 """
 
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 
 from ..models.llama import forward
+from ..runtime import state
 from ..runtime.kvcache import KVCache, KVCacheQ8, shift_context_row
 from ..runtime.paged import PageAllocator, PagedKVCache
 from ..sampling import batched
@@ -168,13 +176,15 @@ def _common_prefix(a: list[int], b: list[int]) -> int:
     return i
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in zllm_torch's engine yet (ROADMAP queue 1 item 8)")
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in zllm_torch's engine yet (ROADMAP queue 1 item {item})")
 
 
 class Engine:
     def __init__(self, model, n_slots: int = 4, max_len: int = 2048, prefill_chunk: int = 128,
-                 kv_dtype=None, speculative: bool = False, draft_model=None, kv_layout: str = "auto",
+                 kv_dtype=None, prefix_reuse: bool = True, context_shift="auto",
+                 speculative: bool = False, draft_model=None, kv_layout: str = "auto",
                  tp: int = 1, dp: int = 1, pp: int = 1, mesh=None, coordinated: bool = False,
                  lookahead: bool = False):
         if kv_layout not in ("auto", "paged", "contiguous"):
@@ -194,14 +204,16 @@ class Engine:
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (bfloat16, float16, float32 "
                              "or 'q8')")
         if speculative or draft_model is not None:
-            raise _not_ported("speculative decoding")
+            raise _not_ported("speculative decoding", "5")
         if lookahead:
-            raise _not_ported("lookahead decoding")
+            raise _not_ported("lookahead decoding", "5")
         if (tp or 1) * (dp or 1) * (pp or 1) > 1 or mesh is not None or coordinated:
-            raise _not_ported("multi-device serving (tp/dp/pp/mesh, coordinated)")
+            raise _not_ported("multi-device serving (tp/dp/pp/mesh, coordinated)", "10")
         self.model = model
         self.device = model.device
         self.n_slots = n_slots
+        self.prefix_reuse = prefix_reuse
+        self.context_shift = context_shift if context_shift != "auto" else True
         self.prefill_chunk = prefill_chunk
         cfg = model.cfg
 
@@ -273,7 +285,7 @@ class Engine:
         if len(req.prompt_tokens) >= self.max_len:
             raise ValueError(f"prompt ({len(req.prompt_tokens)}) exceeds context ({self.max_len})")
         if req.media:
-            raise _not_ported("media (multimodal requests)")
+            raise _not_ported("media (multimodal requests)", "4.8")
         self.metrics["requests_total"] += 1
         self.pending.put(req)
         self._wake.set()
@@ -301,6 +313,47 @@ class Engine:
         if "error" in box:
             raise box["error"]
         return box.get("result")
+
+    def save_slot(self, idx: int, path: str) -> dict:
+        """Write slot idx's K/V [0, pos) to a state file."""
+        def do():
+            s = self.slots[idx]
+            state.seq_save_file(path, self.model, self.kv, idx, s.pos)
+            return {"id": idx, "n_past": s.pos, "filename": path}
+
+        return self.run_in_loop(do)
+
+    def restore_slot(self, idx: int, path: str, tokens: list[int] | None = None) -> dict:
+        """Load a state file into idle slot idx; `tokens` (the ids whose K/V
+        the file holds) let the next request with that prefix reuse it."""
+        def do():
+            s = self.slots[idx]
+            if s.state != SlotState.IDLE:
+                raise ValueError(f"slot {idx} is busy")
+            if self.paged and not self.alloc.exclusively_owned(idx):
+                # the restore writes through the slot's table: give it pages
+                # no other slot maps (their old contents are gone)
+                self.alloc.assign_slot(idx, None, 0)
+                self.kv = self.kv.with_table(self.alloc.table)
+                s.pos, s.cache_tokens = 0, []
+            self.kv, n_past = state.seq_load_file(path, self.model, self.kv, idx)
+            s.pos = n_past
+            s.cache_tokens = list(tokens or [])[:n_past]
+            return {"id": idx, "n_past": n_past}
+
+        return self.run_in_loop(do)
+
+    def erase_slot(self, idx: int) -> dict:
+        """Forget idle slot idx's cached prefix."""
+        def do():
+            s = self.slots[idx]
+            if s.state != SlotState.IDLE:
+                raise ValueError(f"slot {idx} is busy")
+            s.pos = 0
+            s.cache_tokens = []
+            return {"id": idx}
+
+        return self.run_in_loop(do)
 
     def metrics_view(self) -> dict:
         return dict(self.metrics)
@@ -330,12 +383,13 @@ class Engine:
                 return
             # the idle slot with the longest reusable prefix
             best, best_n = idle[0], 0
-            for s in idle:
-                ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
-                if ncp > best_n:
-                    best, best_n = s, ncp
+            if self.prefix_reuse:
+                for s in idle:
+                    ncp = _common_prefix(s.cache_tokens, req.prompt_tokens)
+                    if ncp > best_n:
+                        best, best_n = s, ncp
             src_slot = best
-            if self.paged:
+            if self.paged and self.prefix_reuse:
                 # full prefix pages can be shared from ANY slot (even a busy
                 # one: full pages are immutable), so search all of them
                 for s in self.slots:
@@ -430,6 +484,9 @@ class Engine:
         for s in gen_slots:
             if s.pos + 1 >= self.max_len:
                 self._shift_slot(s)
+        gen_slots = [s for s in gen_slots if s.state == SlotState.GENERATING]
+        if not prompt_slots and not gen_slots:
+            return
 
         if prompt_slots:
             self._mixed_step(prompt_slots, gen_slots)
@@ -438,6 +495,9 @@ class Engine:
 
     def _shift_slot(self, slot: _Slot):
         """Discard the oldest half of the slot's window, keep n_keep."""
+        if not self.context_shift:
+            self._finish(slot, "length")
+            return
         if self.paged and not self.alloc.exclusively_owned(slot.idx):
             # the shift rewrites pages in place: copy-on-write unshare the
             # shared prefix pages first (fresh private pages + page copies)
@@ -616,4 +676,6 @@ class Engine:
         elif req.stop_strings and self._check_stop_strings(req):
             self._finish(slot, "stop")
         elif slot.generated >= req.max_new:
+            self._finish(slot, "length")
+        elif slot.pos + 1 >= self.max_len and not self.context_shift:
             self._finish(slot, "length")
