@@ -1178,6 +1178,8 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         window = time.perf_counter() - t0
         if any(t.is_alive() for t in threads) or len(results) != len(SERVE_PROMPT_BYTES):
             fail(f"{phase}: concurrent requests did not finish")
+        window_steps = sum(eng.metrics[k] - m0[k]
+                           for k in ("decode_steps_total", "prefill_steps_total"))
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results.values())
         ttft_n = eng.hist_ttft.n - ttft0[1]
         ttft_mean = (eng.hist_ttft.total - ttft0[0]) / max(ttft_n, 1)
@@ -1223,7 +1225,9 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
           "max_len": eng.max_len, "chunk": eng.prefill_chunk, "kv_bytes": kv_bytes,
           "kv_bytes_bf16_contiguous": bf16_bytes, "kv_bytes_ratio": kv_bytes / bf16_bytes,
           "prompt_bytes": list(SERVE_PROMPT_BYTES), "max_tokens": SERVE_NEW_TOKENS,
-          "concurrent_window_s": window, "generated_tokens": gen_tokens,
+          "concurrent_window_s": window, "window_steps": window_steps,
+          "window_ms_per_step": 1e3 * window / max(window_steps, 1),
+          "generated_tokens": gen_tokens,
           "generated_tok_s": gen_tokens / window, "requests_s": len(results) / window,
           "ttft_mean_s": ttft_mean, "ttft_n": ttft_n, "prefix_reused_after_resend": reused,
           "concurrent_equals_sequential": same, "finish_reasons": finishes,
@@ -1573,9 +1577,11 @@ def router_phase(torch, kernels: dict, card: str) -> dict:
     folder = CACHE / "router_models"
     folder.mkdir(exist_ok=True)
     for name, (model, ftype) in ROUTER_MODELS.items():
+        # made anew each run, relative, so it names this checkout's file
         link = folder / name
-        if not link.exists():
-            link.symlink_to(gguf_file(model, main_shapes()[model][0], ftype)[0])
+        link.unlink(missing_ok=True)
+        target = gguf_file(model, main_shapes()[model][0], ftype)[0]
+        link.symlink_to(os.path.relpath(target, folder))
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2878,6 +2884,66 @@ def api_phases():
     router_phase(torch, kernels, card)
     prompt_cache_phase(card)
     switches_phase(torch, model_m, kernels, card)
+    print(card, flush=True)
+
+
+def serve_q8_ab(n: int):
+    """`python3 chip_smoke.py --serve-q8 N`: the serve_q8 phase N times on
+    the TinyLlama Q4_K_M model, then the q8 cache's insert alone: one
+    decode step's 22 `KVCacheQ8.update` calls (B 4, T 1), host wall ms a
+    step with a synchronize, median of 300, for the quantize as it stands
+    and, alternated in the same process, with 127 as a 0-dim tensor made
+    every call and as a Python scalar (the two earlier forms).  A copy of
+    this script beside another tree's zllm_torch times that tree."""
+    import numpy as np
+
+    torch, card = setup_card()
+    from zllm_torch.models.loader import Model
+    from zllm_torch.ops import cuda
+    from zllm_torch.runtime import kvcache
+
+    cuda.build()
+    kernels = kernel_wrappers()
+    path, _ = gguf_file("tinyllama", main_shapes()["tinyllama"][0], "Q4_K_M")
+    model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    for _ in range(n):
+        serve_phase(torch, model, kernels, card, kv_dtype="q8")
+
+    cfg = model.cfg
+    kv = kvcache.KVCacheQ8.create(cfg.n_layers, 4, 2176, cfg.n_kv_heads, cfg.head_dim)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 1, cfg.n_kv_heads, cfg.head_dim, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    pos = torch.tensor([[100], [200], [300], [400]], dtype=torch.int32, device="cuda")
+
+    def quant_scalar(x):
+        xf = x.float()
+        s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-12)
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+    def quant_per_call(x):
+        xf = x.float()
+        s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True)
+                            / torch.full((), 127.0, device=x.device), 1e-12)
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+    forms = {"as_is": kvcache.KVCacheQ8._quant, "per_call_0dim": quant_per_call,
+             "python_scalar": quant_scalar}
+    times = {name: [] for name in forms}
+    for rep in range(320):
+        for name, fn in forms.items():
+            with mock.patch.object(kvcache.KVCacheQ8, "_quant", staticmethod(fn)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for il in range(cfg.n_layers):
+                    kv.update(il, x, x, pos)
+                torch.cuda.synchronize()
+                if rep >= 20:  # the first 20 warm up
+                    times[name].append(1e3 * (time.perf_counter() - t0))
+    emit({"phase": "q8_insert", "tree": str(REPO), "layers": cfg.n_layers,
+          "shape": list(x.shape), "reps": len(times["as_is"]),
+          "ms_median": {k: float(np.median(v)) for k, v in times.items()},
+          "ms_mean": {k: float(np.mean(v)) for k, v in times.items()}, "card": card})
     print(card, flush=True)
 
 
@@ -4608,6 +4674,8 @@ if __name__ == "__main__":
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
     elif sys.argv[1:2] == ["--api"]:  # group 7 alone
         api_phases()
+    elif sys.argv[1:2] == ["--serve-q8"]:  # serve_q8 and the q8 insert alone
+        serve_q8_ab(int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone
         if not (REPO / "zllm_torch" / "csrc").is_dir():
             fail("zllm_torch/ is not beside chip_smoke.py: run from the root of a checkout")

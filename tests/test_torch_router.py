@@ -97,6 +97,52 @@ def test_router_unknown_model(router):
     assert e.value.code == 404
 
 
+def test_router_evicts_no_model_with_a_request_in_flight(models_dir):
+    """models_max=1 and two clients at once, alternating between the two
+    models in opposite order: a load waits until the other model is idle,
+    so no model is evicted while a request to it is in flight and every
+    request is answered."""
+    import threading
+
+    from zllm_torch.server.router import RouterServer
+
+    r = RouterServer(str(models_dir), port=0, models_max=1, n_slots=1, max_len=256, device="cpu")
+    busy = []  # in_flight of each model as it is evicted
+    unload = r._unload
+
+    def checked_unload(name):
+        busy.append(r.instances[name].in_flight if name in r.instances else 0)
+        unload(name)
+
+    r._unload = checked_unload
+    r.start_background()
+    outs, errors = [], []
+
+    def client(order):
+        for _ in range(3):
+            for name in order:
+                try:
+                    outs.append(_post(r.port, "/v1/completions", {
+                        "model": name, "prompt": "ab", "max_tokens": 4, "temperature": 0}))
+                except Exception as e:  # a dropped connection or an error reply
+                    errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(order,))
+               for order in (("alpha.gguf", "beta.gguf"), ("beta.gguf", "alpha.gguf"))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        evictions = list(busy)
+    finally:
+        r.shutdown()
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and len(outs) == 12
+    assert all(o["choices"][0]["finish_reason"] in ("length", "stop") for o in outs)
+    assert len(evictions) >= 2 and not any(evictions)
+
+
 def test_router_needs_a_model_name_when_several_could_serve(router):
     router.unload("alpha.gguf")
     router.unload("beta.gguf")

@@ -31,6 +31,19 @@ import torch
 from ..ops.attention import QuantKV
 
 
+_Q8_DIVISOR: dict[torch.device, torch.Tensor] = {}  # 127 as a 0-dim f32 tensor a device
+
+
+def _q8_divisor(device: torch.device) -> torch.Tensor:
+    d = _Q8_DIVISOR.get(device)
+    if d is None:
+        d = torch.full((), 127.0, device=device)
+        # one made inside a CUDA-graph capture lives in the graph's pool
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _Q8_DIVISOR[device] = d
+    return d
+
+
 def _run_slots(positions: torch.Tensor, t: int, s: int):
     """Row and slot indices [B, 1], [B, T] of each row's run of t slots:
     it starts at clamp(positions[b, 0], 0, s - t), on the device (no host
@@ -129,12 +142,12 @@ class KVCacheQ8:
     def _quant(x: torch.Tensor):
         """[..., D] -> int8 codes and f32 scales [..., 1]: s = max|x| / 127
         (at least 1e-12), codes round(x / s) half to even, clipped to ±127;
-        bit-exact with zllm's.  127 is a 0-dim tensor on x's device: a
-        CUDA division by a Python scalar multiplies by its rounded
+        bit-exact with zllm's.  127 is a 0-dim tensor on x's device, made
+        once: a CUDA division by a Python scalar multiplies by its rounded
         reciprocal instead."""
         xf = x.float()
         amax = xf.abs().amax(dim=-1, keepdim=True)
-        s = torch.clamp_min(amax / torch.full((), 127.0, device=x.device), 1e-12)
+        s = torch.clamp_min(amax / _q8_divisor(x.device), 1e-12)
         return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
     def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor):

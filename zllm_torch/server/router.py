@@ -5,7 +5,8 @@ The router discovers GGUFs in a models directory, loads them on demand
 forwards each request to the model its body's "model" names, as a
 streamed loopback HTTP proxy.  A model runs `replicas` in-process
 `ZllmServer`s over one loaded copy, each with its own engine, KV cache and
-slots, picked round robin.
+slots, picked round robin.  A model with a request in flight is not
+evicted: a load that needs its room waits until it is idle.
 
 Models load as zllm's router loads them (f32 activations, `model_kwargs`
 passed on), on the card unless `device="cpu"`.  Eviction stops the
@@ -33,6 +34,7 @@ class ModelInstance:
         self.name = name
         self.servers = servers
         self.last_used = time.time()
+        self.in_flight = 0  # requests forwarded and not yet answered
         self._rr = 0
 
     def pick(self):
@@ -50,21 +52,20 @@ class ModelInstance:
 
 class RouterServer:
     def __init__(self, models_dir: str, host="127.0.0.1", port: int = 8080,
-                 models_max: int = 2, autoload: bool = True, n_slots: int = 2,
+                 models_max: int = 2, n_slots: int = 2,
                  max_len: int = 2048, model_kwargs: dict | None = None,
                  replicas: int = 1, device="cuda"):
         self.models_dir = models_dir
         self.host = host
         self.port = port
         self.models_max = models_max
-        self.autoload = autoload
         self.n_slots = n_slots
         self.max_len = max_len
         self.model_kwargs = model_kwargs or {}
         self.replicas = max(1, replicas)
         self.device = device
         self.instances: dict[str, ModelInstance] = {}
-        self._lock = threading.Lock()
+        self._cond = threading.Condition()  # guards instances and in_flight
         self.httpd: ThreadingHTTPServer | None = None
 
     # -- model management ---------------------------------------------------
@@ -72,32 +73,55 @@ class RouterServer:
         return [f for f in sorted(os.listdir(self.models_dir)) if f.endswith(".gguf")]
 
     def load(self, name: str) -> ModelInstance:
-        with self._lock:
+        with self._cond:
+            return self._load(name)
+
+    def acquire(self, name: str) -> tuple[ModelInstance, int]:
+        """Load `name` if needed and pick a replica's port; the instance is
+        not evicted until `release`."""
+        with self._cond:
+            inst = self._load(name)
+            inst.in_flight += 1
+            return inst, inst.pick().port
+
+    def release(self, inst: ModelInstance):
+        with self._cond:
+            inst.in_flight -= 1
+            self._cond.notify_all()
+
+    def _load(self, name: str) -> ModelInstance:
+        """Under the lock: the loaded instance, or a new one once there is
+        room, evicting the least recently used idle model."""
+        path = os.path.join(self.models_dir, os.path.basename(name))
+        while True:
             inst = self.instances.get(name)
             if inst is not None:
                 inst.last_used = time.time()
                 return inst
-            path = os.path.join(self.models_dir, os.path.basename(name))
             if not os.path.exists(path):
                 raise FileNotFoundError(name)
-            while self.models_max and len(self.instances) >= self.models_max:
-                victim = min(self.instances.values(), key=lambda i: i.last_used)
-                self._unload(victim.name)
+            if not self.models_max or len(self.instances) < self.models_max:
+                break
+            idle = [i for i in self.instances.values() if not i.in_flight]
+            if idle:
+                self._unload(min(idle, key=lambda i: i.last_used).name)
+            else:
+                self._cond.wait()
 
-            import torch
+        import torch
 
-            from ..models.loader import Model
-            from .http import ZllmServer
+        from ..models.loader import Model
+        from .http import ZllmServer
 
-            m = Model.load(path, device=self.device, dtype=torch.float32, **self.model_kwargs)
-            servers = []
-            for _ in range(self.replicas):
-                srv = ZllmServer(m, n_slots=self.n_slots, max_len=self.max_len, port=0)
-                srv.start_background()
-                servers.append(srv)
-            inst = ModelInstance(name, servers)
-            self.instances[name] = inst
-            return inst
+        m = Model.load(path, device=self.device, dtype=torch.float32, **self.model_kwargs)
+        servers = []
+        for _ in range(self.replicas):
+            srv = ZllmServer(m, n_slots=self.n_slots, max_len=self.max_len, port=0)
+            srv.start_background()
+            servers.append(srv)
+        inst = ModelInstance(name, servers)
+        self.instances[name] = inst
+        return inst
 
     def _unload(self, name: str):
         inst = self.instances.pop(name, None)
@@ -113,7 +137,9 @@ class RouterServer:
             torch.cuda.empty_cache()
 
     def unload(self, name: str):
-        with self._lock:
+        """Evict `name` once its requests in flight are answered."""
+        with self._cond:
+            self._cond.wait_for(lambda: not getattr(self.instances.get(name), "in_flight", 0))
             self._unload(name)
 
     # -- HTTP ---------------------------------------------------------------
@@ -177,16 +203,19 @@ class RouterServer:
                     else:
                         self._json(400, {"error": "request must name a model"})
                         return
-                if name not in router.instances and not router.autoload:
-                    self._json(400, {"error": f"model {name!r} not loaded (autoload off)"})
-                    return
                 try:
-                    port = router.load(name).pick().port
+                    inst, port = router.acquire(name)
                 except FileNotFoundError:
                     self._json(404, {"error": f"no such model {name!r}"})
                     return
+                try:
+                    self._forward(port, raw)
+                finally:
+                    router.release(inst)
 
-                # forward verbatim and stream the reply back
+            def _forward(self, port, raw):
+                """Send the body verbatim to the replica on `port` and stream
+                its reply back."""
                 freq = urllib.request.Request(f"http://127.0.0.1:{port}{self.path}", data=raw,
                                               headers={"Content-Type": "application/json"})
                 try:
@@ -215,6 +244,8 @@ class RouterServer:
                     self.send_header("Content-Length", str(len(data)))
                     self.end_headers()
                     self.wfile.write(data)
+                except urllib.error.URLError as e:  # the replica did not answer
+                    self._json(503, {"error": f"model server unavailable: {e.reason}"})
 
         httpd = ThreadingHTTPServer((self.host, self.port), Handler)
         self.port = httpd.server_address[1]
