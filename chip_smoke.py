@@ -263,7 +263,32 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      reusing all of P but its last token and printing the first's text);
      `switches` (Engine(prefix_reuse=False) reusing nothing under
      shared-prefix traffic; Engine(context_shift=False) finishing at
-     max_len with "length", no shift).
+     max_len with "length", no shift);
+  8. speculative decoding, lookahead and the whole-cache context shift
+     over the TinyLlama Q4_K_M model (`python3 chip_smoke.py --spec` runs
+     this group alone): a 4-slot contiguous bf16 engine (chunk 128,
+     max_len 1024, S 1152) serves four greedy requests with repetitive
+     prompts and a sampled one riding along, 48 tokens each: `spec_plain`
+     (the plain engine, each greedy token's logits row kept), `spec_ngram`
+     (n-gram speculation, n_draft 6: a verify step of 7 columns, K3/K5 at
+     M = 28 and K2 once a column a layer), `spec_draft_self` (the model
+     drafting for itself; each rejected draft's position and the plain
+     logits' top-2 gap) and `spec_draft_small` (a 2-layer Q4_K draft of
+     the same width and vocab from the factory): the greedy tokens must
+     equal the plain engine's; `lookahead` (la_w 4, la_n 3, la_g 4: 19
+     columns, K3/K5 at M = 76, the masked attention plain PyTorch): each
+     greedy request's first divergence from the plain tokens, if any, with
+     the plain row's top-2 gap and the masked column's max abs logit
+     difference, a gap above 4x that difference failing; every window's
+     launches held to the step counters and the wrapped step kinds (verify
+     steps, lookahead steps, flushes, draft forwards); `spec_kernels`: K3
+     and K5 at M = 28 and 76 against their plain versions and their rows
+     against an M = 4 call's, K6 with 7 query rows a slot over S = 1152, a
+     verify step's column logits against the decode steps' bit for bit,
+     the verify and decode steps' graph times and K2's 154 against 22
+     launches, `shift_context` on the card against the CPU's, and
+     SpeculativeDecoder and lookahead_generate at B = 1 against the
+     Generator (printed).
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -2827,6 +2852,560 @@ def later_form_digests(torch) -> dict:
     return out
 
 
+# group 8: speculative decoding, lookahead and the whole-cache context
+# shift on the TinyLlama Q4_K_M model (`python3 chip_smoke.py --spec` runs it
+# alone): a 4-slot contiguous bf16 engine, chunk 128, max_len 1024 (S 1152)
+SPEC_ENGINE = dict(n_slots=4, prefill_chunk=128, max_len=1024, kv_layout="contiguous")
+SPEC_NEW_TOKENS = 48
+SPEC_N_DRAFT = 6  # zllm's default: a verify step of 7 columns
+SPEC_OFFSETS = (0, 23, 41, 67)  # the greedy prompts: the sentence from these characters
+SPEC_DRAFT_LAYERS = 2  # the small draft: TinyLlama's width and vocab, 2 layers, Q4_K
+
+
+def spec_requests(tok) -> list[dict]:
+    """Four greedy requests with repetitive prompts (a sentence repeated,
+    each from another character, so no two share a prefix) and one sampled
+    request riding along."""
+    line = ("The quick brown fox jumps over the lazy dog while the chip counts every "
+            "byte it reads. ")
+    greedy = [tok.encode((line * 4)[o:o + 240], add_special=True)[:150] for o in SPEC_OFFSETS]
+    sampled = tok.encode(letters(21, 90), add_special=True)
+    return ([dict(prompt_tokens=p, max_new=SPEC_NEW_TOKENS, temp=0.0) for p in greedy]
+            + [dict(prompt_tokens=sampled, max_new=SPEC_NEW_TOKENS, temp=0.8, seed=5)])
+
+
+def gemm_counts(model) -> dict:
+    """K3 and K5 launches of one multi-row forward of `model`: each
+    quantized matmul weight and the head, by format."""
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.quant.repack import QWeight
+
+    ws = [w for layer in model.params["layers"] for k, w in layer.items()
+          if k in ("wqkv", "wq", "wk", "wv", "wo", "ffn_gateup", "ffn_down")]
+    ws.append(model.params["output"])
+    ws = [w for w in ws if isinstance(w, QWeight)]
+    k3 = sum(w.fmt in qmm.NIBBLE_FMT_CODE for w in ws)
+    return {"q4k_gemm": k3, "dequant_gemm": len(ws) - k3}
+
+
+def spec_expected(kernels: dict, model, steps: dict, calls: dict, draft=None) -> dict:
+    """The launches of a spec/lookahead engine window from its step
+    counters and its instrumented step kinds (`calls`): every step the
+    model's GEMMs; K2 a layer for each plain decode step and 1 + n_draft a
+    layer for each verify step (once a column); K6 + K2 (column 0) a layer
+    for each mixed step and each lookahead flush; none for a lookahead
+    step (its masked attention is plain PyTorch); the draft model's GEMMs
+    and attention for each of its catch-up (T = chunk) and chain (T = 1)
+    forwards."""
+    L = model.cfg.n_layers
+    dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
+    verify, la, flush = calls["verify"], calls["lookahead"], calls["flush"]
+    t = SPEC_N_DRAFT + 1
+    expected = {name: 0 for name in kernels}
+    for name, n in gemm_counts(model).items():
+        expected[name] += n * (dec + pre + flush)
+    expected["attn_decode_qkv"] = L * (dec - verify - la + pre + flush + t * verify)
+    expected["flash_attention"] = L * (pre + flush)
+    if draft is not None:
+        wide, one = calls["draft_wide"], calls["draft_one"]
+        for name, n in gemm_counts(draft).items():
+            expected[name] += n * (wide + one)
+        expected["attn_decode_qkv"] += draft.cfg.n_layers * (wide + one)
+        expected["flash_attention"] += draft.cfg.n_layers * wide
+    return expected
+
+
+def _la_columns(eng, mask, toks, arg, s: int, n_emitted: int) -> list[int]:
+    """The columns of a lookahead step whose argmax gave a greedy slot's
+    emitted tokens, found as `_lookahead_step` finds them: the last
+    pending column (a pending column attends its prefix, a pad only its
+    own slot), then the longest verified gram's columns."""
+    n, w, g = eng.la_n, eng.la_w, eng.la_g
+    lvls = n - 1
+    m = sum(int(mask[s, j].sum()) > 1 for j in range(n))
+    col_v0 = n + lvls * w
+    best: list[int] = []
+    cur0 = int(arg[s, m - 1])
+    for gi in range(g):
+        cur, cols = cur0, []
+        for tt in range(lvls):
+            c = col_v0 + gi * lvls + tt
+            if int(toks[s, c]) != cur:
+                break
+            cur = int(arg[s, c])
+            cols.append(c)
+        if len(cols) > len(best):
+            best = cols
+    return ([m - 1] + best)[:n_emitted]
+
+
+def spec_engine_run(torch, model, kernels: dict, reqs: list[dict], label: str,
+                    record: str = "", **kw) -> dict:
+    """A SPEC_ENGINE engine (`kw`: speculative, draft_model, lookahead)
+    serving `reqs`, submitted together after a warm-up, the launch counts
+    set to 0 just before and read just after; its verify steps, lookahead
+    steps, flushes and draft forwards counted by wrapping the engine's
+    methods.  `record` = "plain": each greedy token's logits row (its
+    sampled row); "lookahead": the row of the masked column that gave it;
+    "drafts": each draft proposal with the request's token count."""
+    from zllm_torch.server.engine import Engine, Request
+
+    eng = Engine(model, **SPEC_ENGINE, **kw)
+    calls = {k: 0 for k in ("verify", "lookahead", "flush", "draft_wide", "draft_one")}
+    rows: dict[str, dict[int, object]] = {}
+    proposals: list[tuple] = []
+    captured = {}
+
+    def wrap(name, before=None, after=None):
+        real = getattr(eng, name)
+
+        def fn(*a, **k):
+            ctx = before(*a, **k) if before else None
+            out = real(*a, **k)
+            if after:
+                after(ctx, out, *a, **k)
+            return out
+
+        setattr(eng, name, fn)
+
+    def count(key):
+        def before(*a, **k):
+            calls[key] += 1
+        return before
+
+    step_errors: list[str] = []
+    real_step = eng._step_once
+
+    def step_once():  # the engine turns a step's exception into request errors: keep its trace
+        try:
+            real_step()
+        except Exception:
+            import traceback
+
+            step_errors.append(traceback.format_exc()[-3000:])
+            raise
+
+    eng._step_once = step_once
+    wrap("_spec_decode_step", count("verify"))
+    wrap("_flush_la_extras", count("flush"))
+    wrap("_draft_argmax", lambda toks, pos: calls.__setitem__(
+        "draft_wide" if toks.shape[1] > 1 else "draft_one",
+        calls["draft_wide" if toks.shape[1] > 1 else "draft_one"] + 1))
+    if record == "plain":
+        def keep_rows(logits, cols, slots):  # before the rows are sampled and emitted
+            for s in slots:
+                if s.req.temp <= 0:
+                    rows.setdefault(s.req.rid, {})[len(s.req.out_tokens)] = (
+                        logits[s.idx, int(cols[s.idx])].float().cpu())
+
+        wrap("_sample_and_emit", keep_rows)
+    elif record == "drafts":
+        wrap("_draft_propose_all", after=lambda ctx, out, slots: proposals.extend(
+            (s.req.rid, len(s.req.out_tokens), list(out[s.idx])) for s in slots))
+
+    def la_before(gen_slots):
+        calls["lookahead"] += 1
+        return {s.idx: (s.req, len(s.req.out_tokens)) for s in gen_slots}
+
+    def la_after(ctx, out, gen_slots):
+        if record != "lookahead":
+            return
+        toks, mask, logits = captured.pop("step")
+        arg = logits.argmax(-1).cpu()
+        for idx, (req, n0) in ctx.items():
+            if req.temp > 0:
+                continue
+            emitted = len(req.out_tokens) - n0
+            for k, c in enumerate(_la_columns(eng, mask, toks, arg, idx, emitted)):
+                rows.setdefault(req.rid, {})[n0 + k] = logits[idx, c].float().cpu()
+
+    wrap("_lookahead_step", la_before, la_after)
+    if record == "lookahead":
+        def keep_step(ctx, out, toks, pos, logits_for, **k):
+            if "mask" in k:
+                captured["step"] = (toks, k["mask"], out)
+
+        wrap("_forward", after=keep_step)
+
+    eng.start()
+    try:
+        warm = eng.submit(Request(prompt_tokens=model.tokenizer.encode(letters(31, 40),
+                                                                      add_special=True),
+                                  max_new=8, temp=0.0))
+        wait_done([warm])
+        torch.cuda.synchronize()
+        zero_counts(kernels, (kernels["flash_attention"],))
+        for k in calls:
+            calls[k] = 0
+        rows.clear()
+        proposals.clear()
+        m0 = dict(eng.metrics)
+        t0 = time.perf_counter()
+        got = eng.run_in_loop(lambda: [eng.submit(Request(**r)) for r in reqs])
+        wait_done(got, 600)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        m1 = dict(eng.metrics)
+    finally:
+        eng.stop()
+    steps = {k: m1[k] - m0[k] for k in m1}
+    if steps["engine_errors_total"] or step_errors:
+        fail(f"{label}: {steps['engine_errors_total']} engine step errors: {step_errors}")
+    expected = spec_expected(kernels, model, steps, calls, kw.get("draft_model"))
+    counts = engine_counts_check(torch, label, kernels, expected, False,
+                                 kernels["flash_attention"], expected["flash_attention"])
+    gen_tokens = sum(len(q.out_tokens) for q in got)
+    return {"requests": got, "steps": steps, "calls": calls, "counts": counts,
+            "expected": expected, "window_s": window, "generated_tokens": gen_tokens,
+            "tok_s": gen_tokens / window, "rows": rows, "proposals": proposals,
+            "errors": [q.error for q in got if q.error]}
+
+
+def _top2_gap(row) -> float:
+    top = row.topk(2).values
+    return float(top[0] - top[1])
+
+
+def _spec_summary(run: dict, plain: dict, reqs: list[dict]) -> list[dict]:
+    """A spec or lookahead run against the plain engine's: each greedy
+    request's tokens equal or not, its first divergence."""
+    out = []
+    for q, p, r in zip(run["requests"], plain["requests"], reqs):
+        same = list(q.out_tokens) == list(p.out_tokens)
+        item = {"greedy": r["temp"] == 0, "tokens": len(q.out_tokens), "equal_plain": same}
+        if not same and r["temp"] == 0:
+            i = next((k for k, (a, b) in enumerate(zip(q.out_tokens, p.out_tokens)) if a != b),
+                     min(len(q.out_tokens), len(p.out_tokens)))
+            item["first_divergence"] = i
+        out.append(item)
+    return out
+
+
+def spec_phases_run(torch, model, kernels: dict, card: str) -> dict:
+    """Group 8's engine phases: plain, spec_ngram, spec_draft_self,
+    spec_draft_small, lookahead.  Returns the spec_ngram counts."""
+    from zllm_torch.models.loader import Model
+
+    reqs = spec_requests(model.tokenizer)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    plain = spec_engine_run(torch, model, kernels, reqs, "spec_plain", record="plain")
+    emit({"phase": "spec_plain", "model": "tinyllama-geometry Q4_K_M (random weights, seed 0)",
+          **{k: v for k, v in SPEC_ENGINE.items()}, "kv_dtype": "bfloat16",
+          "engine_counters": plain["steps"], "window_s": plain["window_s"],
+          "generated_tokens": plain["generated_tokens"], "tok_s": plain["tok_s"],
+          "launches": plain["counts"], "seconds": time.perf_counter() - t0, "card": card})
+    if plain["errors"]:
+        fail(f"spec_plain: engine errors {plain['errors']}")
+    greedy_idx = [i for i, r in enumerate(reqs) if r["temp"] == 0]
+    plain_rows = {plain["requests"][i].rid: plain["rows"].get(plain["requests"][i].rid, {})
+                  for i in greedy_idx}
+
+    def row_of(i, k):
+        return plain_rows[plain["requests"][i].rid].get(k)
+
+    out = {}
+    small_path, small_s = gguf_file("tinyllama_draft", dict(main_shapes()["tinyllama"][0],
+                                                            n_layers=SPEC_DRAFT_LAYERS), "Q4_K")
+    small = Model.load(str(small_path), device="cuda", dtype=torch.bfloat16)
+    for phase, kw in (("spec_ngram", dict(speculative=True)),
+                      ("spec_draft_self", dict(draft_model=model)),
+                      ("spec_draft_small", dict(draft_model=small))):
+        t0 = time.perf_counter()
+        run = spec_engine_run(torch, model, kernels, reqs, phase, n_draft=SPEC_N_DRAFT,
+                              record="drafts" if "draft" in phase else "", **kw)
+        summary = _spec_summary(run, plain, reqs)
+        drafted, accepted = run["steps"]["spec_drafted_total"], run["steps"]["spec_accepted_total"]
+        rejected = []
+        if phase == "spec_draft_self":  # where a self-draft is rejected: the plain top-2 gap
+            final = {q.rid: (i, list(q.out_tokens)) for i, q in enumerate(run["requests"])}
+            for rid, n0, d in run["proposals"]:
+                i, toks = final[rid]
+                a = 0
+                while a < len(d) and n0 + a < len(toks) and d[a] == toks[n0 + a]:
+                    a += 1
+                if a < len(d) and n0 + a < len(toks):
+                    row = row_of(i, n0 + a)
+                    rejected.append({"request": i, "token_index": n0 + a,
+                                     "position": len(reqs[i]["prompt_tokens"]) + n0 + a,
+                                     "plain_top2_gap": None if row is None else _top2_gap(row)})
+        res = {"phase": phase, "n_draft": SPEC_N_DRAFT, "drafted": drafted,
+               "accepted": accepted, "accepted_over_drafted": accepted / max(drafted, 1),
+               "requests": summary, "engine_counters": {k: run["steps"][k] for k in (
+                   "decode_steps_total", "prefill_steps_total", "spec_drafted_total",
+                   "spec_accepted_total", "tokens_generated_total")},
+               "verify_steps": run["calls"]["verify"], "draft_forwards": {
+                   "catch_up": run["calls"]["draft_wide"], "chain": run["calls"]["draft_one"]},
+               "window_s": run["window_s"], "tok_s": run["tok_s"], "plain_tok_s": plain["tok_s"],
+               "speedup_over_plain": run["tok_s"] / plain["tok_s"],
+               "launches": run["counts"], "launches_expected": run["expected"],
+               "seconds": time.perf_counter() - t0, "card": card}
+        if phase == "spec_draft_small":
+            res["draft"] = {"file": small_path.name, "layers": SPEC_DRAFT_LAYERS, "made_s": small_s}
+        if phase == "spec_draft_self":
+            res["rejected"] = rejected
+        emit(res)
+        if run["errors"]:
+            fail(f"{phase}: engine errors {run['errors']}")
+        bad = [i for i, s in enumerate(summary) if s["greedy"] and not s["equal_plain"]]
+        if bad:
+            fail(f"{phase}: greedy tokens differ from the plain engine's: {summary}")
+        if not drafted or not run["calls"]["verify"]:
+            fail(f"{phase}: nothing was drafted")
+        out[phase] = run["counts"]
+    del small
+
+    t0 = time.perf_counter()
+    run = spec_engine_run(torch, model, kernels, reqs, "lookahead", record="lookahead",
+                          lookahead=True)
+    summary = _spec_summary(run, plain, reqs)
+    far = []
+    for i, s in zip(range(len(reqs)), summary):
+        if "first_divergence" not in s:
+            continue
+        k = s["first_divergence"]
+        prow, lrow = row_of(i, k), run["rows"].get(run["requests"][i].rid, {}).get(k)
+        if prow is None or lrow is None:
+            s["diagnosis"] = "no logits row recorded"
+            far.append(i)
+            continue
+        gap, diff = _top2_gap(prow), float((lrow - prow).abs().max())
+        s.update(plain_top2_gap=gap, masked_column_max_abs_diff=diff,
+                 near_tie=gap <= 4 * diff)
+        if gap > 4 * diff:
+            far.append(i)
+    res = {"phase": "lookahead", "la_w": 4, "la_n": 3, "la_g": 4,
+           "step_columns": 3 + (4 + 4) * 2, "requests": summary,
+           "lookahead_steps": run["steps"]["lookahead_steps_total"],
+           "lookahead_accepted_total": run["steps"]["lookahead_accepted_total"],
+           "flushes": run["calls"]["flush"], "engine_counters": {k: run["steps"][k] for k in (
+               "decode_steps_total", "prefill_steps_total", "tokens_generated_total")},
+           "window_s": run["window_s"], "tok_s": run["tok_s"], "plain_tok_s": plain["tok_s"],
+           "speedup_over_plain": run["tok_s"] / plain["tok_s"],
+           "launches": run["counts"], "launches_expected": run["expected"],
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    if run["errors"]:
+        fail(f"lookahead: engine errors {run['errors']}")
+    if far:
+        fail(f"lookahead: greedy tokens diverge from the plain engine's away from a near tie "
+             f"(top-2 gap above 4x the masked column's difference): {summary}")
+    if not run["steps"]["lookahead_steps_total"]:
+        fail("lookahead: no lookahead step ran")
+    out["lookahead"] = run["counts"]
+    return out
+
+
+def spec_kernels_phase(torch, model, kernels: dict, card: str) -> dict:
+    """Group 8's kernel checks at the verify shapes: K3 and K5 at M = 28
+    (4 slots x 7 columns) and 76 (4 x 19, a lookahead step) against their
+    plain versions (nmse <= 1e-6) and their first 4 rows against an M = 4
+    call's, bit for bit; K6 with 7 query rows a slot over S = 1152 (nmse <=
+    1e-5); a verify step's column-j logits against the decode step's at
+    that position, bit for bit; the verify step and the decode step
+    captured in CUDA graphs, and the verify step's 7 K2 launches a layer
+    against the decode step's one; `shift_context` on the card against the
+    CPU's; SpeculativeDecoder and lookahead_generate at B = 1 against the
+    Generator's tokens (printed, not required: the B = 1 decode step runs
+    the matvec kernels, the verify step the GEMMs)."""
+    from zllm_torch.lookahead import lookahead_generate
+    from zllm_torch.models.llama import forward
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.ops.layers import RopeParams, rope_table
+    from zllm_torch.runtime.generate import Generator
+    from zllm_torch.runtime.kvcache import KVCache, shift_context
+    from zllm_torch.runtime.speculative import SpeculativeDecoder
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+    lay = model.params["layers"][0]
+    gemms = {}
+    for name, fn, plain_fn, w in (("q4k_gemm", qmm.q4k_gemm, qmm.q4k_gemm_plain,
+                                   lay["ffn_gateup"]),
+                                  ("dequant_gemm", qmm.dequant_gemm, qmm.dequant_gemm_plain,
+                                   lay["ffn_down"])):
+        k, n = w.shape
+        for m in (28, 76):
+            x = randn(m, k)
+            y, yp = fn(x, w), plain_fn(x, w)
+            bpw = GGUF_BYTES_PER_WEIGHT[w.fmt.name]
+            b = bound_ms(k * n * bpw + 2 * m * (k + n), 2 * m * k * n, "bf16")
+            wd = w.dequant(torch.bfloat16)
+            gemms[f"{name}_m{m}"] = dict(
+                fmt=w.fmt.name, k=k, n=n, nmse=nmse(y, yp), tolerance=1e-6,
+                max_abs_err=float((y.float() - yp.float()).abs().max()),
+                rows_m4_equal=bool(torch.equal(fn(x[:4].contiguous(), w), y[:4])),
+                ms=cuda_ms(lambda x=x, fn=fn: fn(x, w), 20),
+                plain_ms=cuda_ms(lambda x=x, plain_fn=plain_fn: plain_fn(x, w), 5),
+                library_ms=cuda_ms(lambda x=x: torch.matmul(x, wd), 20),
+                bound_ms=b[0], bound_by=b[1])
+    # K6: 7 query rows a slot over the engine's stripe
+    s_len, t = SPEC_ENGINE["max_len"] + SPEC_ENGINE["prefill_chunk"], SPEC_N_DRAFT + 1
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = randn(4, t, hq, d)
+    kc, vc = randn(4, hkv, s_len, d), randn(4, hkv, s_len, d)
+    pos = (torch.tensor([100, 400, 700, 1016], dtype=torch.int32, device="cuda")[:, None]
+           + torch.arange(t, dtype=torch.int32, device="cuda")[None])
+    scale = d ** -0.5
+    o6 = att.flash_attention(q, kc, vc, pos, scale=scale)
+    o6p = att.flash_attention_plain(q, kc, vc, pos, scale=scale)
+    # q and out once, the K/V each row sees once; 4 Hq D operations a
+    # (query, slot) pair
+    b6 = bound_ms(2 * 2 * q.numel() + 2 * 2 * hkv * d * int((pos[:, -1] + 1).sum()),
+                  4 * hq * d * int((pos + 1).sum()), "bf16")
+    k6 = dict(shape=f"B 4, T {t}, S {s_len}, Hq {hq}, Hkv {hkv}, d {d}", nmse=nmse(o6, o6p),
+              tolerance=1e-5, max_abs_err=float((o6.float() - o6p.float()).abs().max()),
+              ms=cuda_ms(lambda: att.flash_attention(q, kc, vc, pos, scale=scale), 20),
+              plain_ms=cuda_ms(lambda: att.flash_attention_plain(q, kc, vc, pos, scale=scale), 5),
+              bound_ms=b6[0], bound_by=b6[1])
+
+    # a verify step's columns against decode steps, the whole model
+    kv = KVCache.create(cfg.n_layers, 4, s_len, hkv, d, torch.bfloat16, "cuda")
+    r = np.random.default_rng(24)
+    prompt = torch.from_numpy(r.integers(3, 200, size=(4, 128)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        forward(model.params, cfg, prompt,
+                torch.arange(128, dtype=torch.int32, device="cuda")[None].repeat(4, 1), kv)
+    toks = torch.from_numpy(r.integers(3, 200, size=(4, t)).astype(np.int32)).cuda()
+    trash = SPEC_ENGINE["max_len"]
+    vpos = 128 + torch.arange(t, dtype=torch.int32, device="cuda")[None].repeat(4, 1)
+    vpos[3, 1:] = trash  # a row that decodes one token, no drafts
+
+    def clone(c):
+        return KVCache([x.clone() for x in c.k], [x.clone() for x in c.v])
+
+    kv_v, kv_d = clone(kv), clone(kv)
+    with torch.inference_mode():
+        lv = forward(model.params, cfg, toks, vpos, kv_v, verify=True)
+        same, total, worst = 0, 0, 0.0
+        for j in range(t):
+            ld = forward(model.params, cfg, toks[:, j:j + 1].contiguous(),
+                         vpos[:, j:j + 1].contiguous(), kv_d, logits_for="last")
+            for row in range(4 if j == 0 else 3):
+                total += 1
+                same += bool(torch.equal(lv[row, j], ld[row, 0]))
+                worst = max(worst, float((lv[row, j] - ld[row, 0]).abs().max()))
+        # the two steps' device time, captured in CUDA graphs
+        dtok, dpos = toks[:, :1].contiguous(), vpos[:, :1].contiguous()
+
+    def verify_step():
+        with torch.inference_mode():
+            forward(model.params, cfg, toks, vpos, kv_v, verify=True)
+
+    def decode_step():
+        with torch.inference_mode():
+            forward(model.params, cfg, dtok, dpos, kv_d, logits_for="last")
+
+    verify_ms, decode_ms = cuda_ms(verify_step, 10), cuda_ms(decode_step, 10)
+    # K2 alone: one decode step's 22 launches against a verify step's 154
+    qkv3 = randn(4, hq + 2 * hkv, d)
+    ropes = [rope_table(vpos[:, j].contiguous(), cfg.rope, d) for j in range(t)]
+    cols = [vpos[:, j].contiguous() for j in range(t)]
+
+    def k2(j):
+        return [att.attn_decode_qkv(qkv3, kv_v.k[il], kv_v.v[il], cols[j], ropes[j], scale=scale)
+                for il in range(cfg.n_layers)]
+
+    k2_decode_ms = cuda_ms(lambda: k2(0), 20)
+    k2_verify_ms = cuda_ms(lambda: [k2(j) for j in range(t)], 10)
+    verify = dict(columns=t, rows=4, logits_equal=f"{same}/{total}", max_abs_diff=worst,
+                  verify_step_graph_ms=verify_ms, decode_step_graph_ms=decode_ms,
+                  k2_decode_step_ms=k2_decode_ms, k2_verify_step_ms=k2_verify_ms,
+                  k2_launches=dict(decode=cfg.n_layers, verify=cfg.n_layers * t))
+
+    # shift_context on the card against the CPU's
+    shifts = {}
+    for dt in (torch.float32, torch.bfloat16):
+        base = KVCache([randn(4, hkv, s_len, d, dtype=dt) for _ in range(2)],
+                       [randn(4, hkv, s_len, d, dtype=dt) for _ in range(2)])
+        cpu = KVCache([x.cpu() for x in base.k], [x.cpu() for x in base.v])
+        rope = RopeParams(dim=d, base=10000.0, style="neox")
+        shift_context(base, rope, 4, (s_len - 4) // 2)  # the engine's n_discard
+        shift_context(cpu, rope, 4, (s_len - 4) // 2)
+        shifts[str(dt)[6:]] = dict(
+            k_nmse=max(nmse(a.cpu(), b) for a, b in zip(base.k, cpu.k)),
+            k_max_abs_diff=max(float((a.cpu().float() - b.float()).abs().max())
+                               for a, b in zip(base.k, cpu.k)),
+            v_equal=all(torch.equal(a.cpu(), b) for a, b in zip(base.v, cpu.v)),
+            tolerance=1e-12 if dt == torch.float32 else 1e-5)
+
+    # the single-sequence decoders at B = 1 against the Generator
+    ids = spec_requests(model.tokenizer)[0]["prompt_tokens"]
+    t1 = time.perf_counter()
+    want = Generator(model, max_len=1024, prefill_chunk=128).generate(ids, max_new=32).tokens
+    t_gen = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sd = SpeculativeDecoder(model, None, n_draft=SPEC_N_DRAFT, max_len=1024)
+    got_sd = sd.generate(ids, max_new=32)
+    t_sd = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    got_la, la_stats = lookahead_generate(model, ids, 32, w=4, n=3, g=4, max_len=1024)
+    t_la = time.perf_counter() - t1
+
+    def agree(a, b):
+        return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+    single = dict(prompt_tokens=len(ids), new_tokens=32, generator_s=t_gen,
+                  speculative_decoder=dict(equal=got_sd == want, agree_first=agree(got_sd, want),
+                                           drafted=sd.n_drafted, accepted=sd.n_accepted,
+                                           seconds=t_sd),
+                  lookahead_generate=dict(equal=got_la == want, agree_first=agree(got_la, want),
+                                          **la_stats, seconds=t_la),
+                  note="B = 1: plain decode on K1/K4, the verify step on K3/K5 (zllm's split); "
+                       "printed, not required")
+    res = {"phase": "spec_kernels", **gemms, "flash_attention_7_rows": k6,
+           "verify_columns": verify, "shift_context": shifts, "single_sequence": single,
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    bad = [k for k, v in gemms.items() if not v["nmse"] <= v["tolerance"] or not v["rows_m4_equal"]]
+    if not k6["nmse"] <= 1e-5:
+        bad.append("flash_attention_7_rows")
+    if same != total:
+        bad.append(f"verify columns {same}/{total} equal to the decode steps' logits")
+    bad += [f"shift_context {k}" for k, v in shifts.items()
+            if not (v["k_nmse"] <= v["tolerance"] and v["v_equal"])]
+    if bad:
+        fail(f"spec_kernels: {bad}")
+    return res
+
+
+def spec_group(torch, model, kernels: dict, card: str) -> dict:
+    """Group 8 on the loaded TinyLlama Q4_K_M model; returns the engine
+    phases' launch counts and the kernel phase's line."""
+    t0 = time.perf_counter()
+    counts = spec_phases_run(torch, model, kernels, card)
+    kern = spec_kernels_phase(torch, model, kernels, card)
+    emit({"phase": "spec_group", "seconds": time.perf_counter() - t0, "card": card})
+    return {"counts": counts, "kernels": kern}
+
+
+def spec_phases():
+    """`python3 chip_smoke.py --spec`: group 8 alone after building the
+    kernels, on the TinyLlama Q4_K_M model."""
+    torch, card = setup_card()
+    from zllm_torch.models.loader import Model
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports)})
+    kernels = kernel_wrappers()
+    path, made_s = gguf_file("tinyllama", main_shapes()["tinyllama"][0], "Q4_K_M")
+    model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    emit({"phase": "spec_model", "file": path.name, "made_s": made_s})
+    spec_group(torch, model, kernels, card)
+    print(card, flush=True)
+
+
 def kernel_wrappers() -> dict:
     """The twelve kernels' wrappers, by name; each counts its launches."""
     from zllm_torch.ops import attention as att
@@ -3402,6 +3981,8 @@ def main():
     counts_router = router_phase(torch, kernels, card)
     prompt_cache_phase(card)
     counts_switches = switches_phase(torch, model_m, kernels, card)
+    # group 8: speculative decoding, lookahead and the whole-cache shift
+    spec = spec_group(torch, model_m, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -3416,7 +3997,7 @@ def main():
              "serve_tq2_0": counts_serve_tq, "imatrix": counts_imatrix,
              "iq2_xxs_imatrix": quant_im["counts"], **slot_counts,
              "messages_infill_tools": counts_mit, "router": counts_router,
-             "switches": counts_switches}
+             "switches": counts_switches, **spec["counts"]}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -4674,6 +5255,8 @@ if __name__ == "__main__":
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
     elif sys.argv[1:2] == ["--api"]:  # group 7 alone
         api_phases()
+    elif sys.argv[1:2] == ["--spec"]:  # group 8 alone
+        spec_phases()
     elif sys.argv[1:2] == ["--serve-q8"]:  # serve_q8 and the q8 insert alone
         serve_q8_ab(int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone

@@ -34,7 +34,9 @@ the CPU fit's 256-blocks and its weighted error within 0.1 %, and the
 imatrix collection on the card (K5, K6) keeps each tensor's sums within
 nmse 1e-6 of the plain versions' (f32 model).  The q8 cache's quantize on
 the card gives the CPU's codes and scales bit for bit, and so does a slot
-file requantized into a card cache.
+file requantized into a card cache.  A speculative verify step's columns
+(the T=1 kernel once a column: K2, K8, K9, K7's split form) equal the
+decode steps at their positions bit for bit.
 """
 
 import functools
@@ -1516,3 +1518,23 @@ def test_q8_quant_and_slot_restore_match_the_cpu(dev, src, tmp_path):
     for name in ("k", "v", "ks", "vs"):
         for a, b in zip(getattr(card, name), getattr(cpu, name)):
             assert torch.equal(a.cpu(), b)
+
+
+VERIFY_CASES = [("contiguous", torch.bfloat16, "llama"), ("contiguous", torch.float16, "llama"),
+                ("contiguous", torch.float32, "llama"), ("contiguous", torch.bfloat16, "olmo2"),
+                ("contiguous", torch.float16, "olmo2"), ("paged", torch.bfloat16, "llama"),
+                ("paged", torch.float16, "llama"), ("q8", None, "llama")]
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16_q", "f32_q"])
+@pytest.mark.parametrize("kind,kv_dtype,arch", VERIFY_CASES,
+                         ids=[f"{c}_{str(d).split('.')[-1]}_{a}" for c, d, a in VERIFY_CASES])
+def test_verify_columns_get_decode_bits_on_card(dev, kind, kv_dtype, arch, act, monkeypatch):
+    """A speculative verify step (`forward(..., verify=True)`) runs the T=1
+    kernel once a column (K2, K8, K9, K7's split form): each column of a
+    speculating row equals the decode step at its position bit for bit,
+    and the committed slots hold what the decode steps write
+    (tests/test_torch_verify_step.py holds the same on the CPU)."""
+    from test_torch_verify_step import verify_matches_decode
+
+    verify_matches_decode(kind, kv_dtype, arch, dev, act, monkeypatch)

@@ -192,10 +192,9 @@ def test_engine_counts_no_kernel_launch_on_cpu(gguf, kw):
     assert [k.launches for k in kernels] == before
 
 
-@pytest.mark.parametrize("kw,item", [(dict(speculative=True), "5"), (dict(lookahead=True), "5"),
-                                     (dict(tp=2), "10"), (dict(dp=2), "10"), (dict(pp=2), "10"),
+@pytest.mark.parametrize("kw,item", [(dict(tp=2), "10"), (dict(dp=2), "10"), (dict(pp=2), "10"),
                                      (dict(coordinated=True), "10")],
-                         ids=["speculative", "lookahead", "tp", "dp", "pp", "coordinated"])
+                         ids=["tp", "dp", "pp", "coordinated"])
 def test_unported_options_raise(gguf, kw, item):
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine
@@ -203,6 +202,29 @@ def test_unported_options_raise(gguf, kw, item):
     m = Model.load(gguf, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
         Engine(m, n_slots=1, max_len=128, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(speculative=True), dict(kv_layout="paged"),
+                                dict(kv_dtype="q8"), dict(prefill_chunk=16)],
+                         ids=["speculative", "paged", "q8", "small_chunk"])
+def test_lookahead_rejects_bad_combos(gguf, kw):
+    """zllm's tests/test_lookahead_engine.py refusals (and a prefill_chunk
+    narrower than the default lookahead step, 3 + (4 + 4) * 2 = 19
+    columns): ValueError with zllm's message."""
+    import jax.numpy as jnp
+
+    from zllm.models.loader import Model as ZModel
+    from zllm.server.engine import Engine as ZEngine
+    from zllm_torch.models.loader import Model
+    from zllm_torch.server.engine import Engine
+
+    with pytest.raises(ValueError) as want:
+        ZEngine(ZModel.load(gguf, dtype=jnp.float32), n_slots=2, max_len=256, lookahead=True,
+                **kw)
+    with pytest.raises(ValueError) as got:
+        Engine(Model.load(gguf, device="cpu", dtype=torch.float32), n_slots=2, max_len=256,
+               lookahead=True, **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_sliding_window_model_is_refused(gguf, tmp_path):

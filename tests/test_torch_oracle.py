@@ -8,6 +8,14 @@ crosses between the frameworks as numpy arrays only.
 
 from __future__ import annotations
 
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
 import numpy as np
 import torch
 
@@ -101,3 +109,69 @@ def jax_params_numpy(params: dict) -> dict:
     out = {key: leaf(v) for key, v in params.items() if key != "layers"}
     out["layers"] = [{key: leaf(v) for key, v in layer.items()} for layer in params["layers"]]
     return out
+
+
+def run_waves(engine, make_request, waves, counters, timeout: float = 300.0):
+    """Start `engine`, run `waves` (lists of request keywords) in order,
+    each submitted from the engine thread between two steps so that two
+    engines admit it at the same step, then stop it.  Returns
+    ([(out_tokens, finish_reason, error)] of every request, {counter:
+    delta})."""
+    engine.start()
+    try:
+        before, got = dict(engine.metrics), []
+        for wave in waves:
+            reqs = engine.run_in_loop(lambda wave=wave: [engine.submit(make_request(**kw))
+                                                         for kw in wave])
+            deadline = time.time() + timeout
+            while not all(q.done for q in reqs):
+                assert time.time() < deadline, "engine timed out"
+                time.sleep(0.005)
+            got += [(list(q.out_tokens), q.finish_reason, q.error) for q in reqs]
+        return got, {k: engine.metrics[k] - before[k] for k in counters}
+    finally:
+        engine.stop()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, path: str, body: dict | None = None) -> str:
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read().decode()
+
+
+def serve_and_read_metrics(args: list[str], env: dict, prompt: str) -> dict:
+    """Start `python -m zllm_torch.server ARGS --device cpu`, send one
+    greedy completion, return its /metrics counters."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "zllm_torch.server", *args, "--device", "cpu",
+                             "--port", str(port), "--slots", "2", "--ctx", "256"], cwd=repo,
+                            env=dict(os.environ, PYTHONPATH=repo, **env),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 90
+        while True:
+            assert proc.poll() is None, proc.stderr.read().decode()
+            try:
+                if json.loads(_http(port, "/health"))["status"] == "ok":
+                    break
+            except OSError:
+                assert time.time() < deadline, "server did not come up"
+                time.sleep(0.2)
+        out = json.loads(_http(port, "/v1/completions",
+                               {"prompt": prompt, "max_tokens": 24, "temperature": 0}))
+        assert out["usage"]["completion_tokens"] >= 1
+        return {ln.split()[0][5:]: float(ln.split()[1])
+                for ln in _http(port, "/metrics").splitlines()
+                if ln.startswith("zllm_") and "{" not in ln and len(ln.split()) == 2}
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

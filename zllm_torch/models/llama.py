@@ -40,7 +40,12 @@ give it: the multi-row kernels (K10, K7's tensor-core form, K6) agree
 with the T=1 ones only to f32 rounding, and a request's greedy tokens
 must not depend on the steps it rides.  Every T>1 step runs the T=1
 kernel on column 0, the Generator's prefill chunks too (their rows hold
-many tokens and keep the multi-row kernel's output).  MoE, MLA, LoRA,
+many tokens and keep the multi-row kernel's output).  A speculative verify
+step (`forward(..., verify=True)`) holds up to 1 + n_draft decode tokens a
+row: it runs the T=1 kernel once a column instead (no multi-row kernel),
+so every verified column gets a decode step's bits.  Lookahead's block
+mask (`forward(..., mask=, kv_positions=)`) attends through the plain
+`attention_ref`, as zllm's XLA reference does.  MoE, MLA, LoRA,
 sliding window, ALiBi and sinks are not part of this block.
 
 OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
@@ -71,7 +76,7 @@ from ..ops.attention import (
     attn_decode_qkv, attn_decode_update, flash_attention, flash_attention_blockwise,
     paged_attention, paged_attn_decode_update,
 )
-from ..ops.layers import apply_rope, rms_norm, rope_table, swiglu
+from ..ops.layers import apply_rope, attention_ref, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
 from ..runtime.kvcache import KVCache, KVCacheQ8
 from ..runtime.paged import PagedKVCache
@@ -94,11 +99,25 @@ def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
     return out
 
 
-def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) -> torch.Tensor:
+def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
+            mask: torch.Tensor | None = None, kv_positions: torch.Tensor | None = None,
+            verify: bool = False) -> torch.Tensor:
     """Attention of roped q [B, T, Hq, D] and k/v [B, T, Hkv, D] with the
-    new rows inserted into `kv` (if any) at their positions."""
+    new rows inserted into `kv` (if any) at their positions (`kv_positions`
+    where given).  `mask` [B, T, S]: attention over the whole contiguous
+    cache under that mask (`attention_ref`), no kernel; `verify`: each
+    column through the T=1 kernel at its own position (see `forward`)."""
     b, t = q.shape[:2]
     softcap = cfg.attn_logit_softcap
+    if mask is not None:
+        if kv is None:
+            k_all, v_all = k.transpose(1, 2), v.transpose(1, 2)
+        elif isinstance(kv, KVCache):
+            kv.update(il, k, v, positions if kv_positions is None else kv_positions)
+            k_all, v_all = kv.layer(il)
+        else:
+            raise ValueError("an explicit attention mask needs a contiguous KVCache")
+        return attention_ref(q, k_all, v_all, mask, scale, logit_softcap=softcap)
     if isinstance(kv, PagedKVCache):
         def k9(q_, k_, v_, pos):  # insert into the page, attend
             return paged_attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], kv.table, pos,
@@ -107,6 +126,8 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) ->
 
         if t == 1:
             return k9(q, k, v, positions)
+        if verify:
+            return _per_column(k9, q, k, v, positions)
         kv.update(il, k, v, positions)  # scatter the rows into their pages, then K10
         out = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
                               page_size=kv.page_size, scale=scale, softcap=softcap)
@@ -121,6 +142,9 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) ->
             return flash_attention_blockwise(q_.contiguous(), kq.q, vq.q, pos.contiguous(),
                                              scale=scale, softcap=softcap, ks=kq.s, vs=vq.s)
 
+        if verify:  # every row is in the cache: each column reads its own prefix
+            return torch.cat([k7(q[:, j:j + 1], positions[:, j:j + 1]) for j in range(t)],
+                             dim=1)
         out = k7(q, positions)
         if t == 1:
             return out
@@ -132,6 +156,8 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) ->
 
         if t == 1:
             return k8(q, k, v, positions)
+        if verify:
+            return _per_column(k8, q, k, v, positions)
         kv.update(il, k, v, positions)
         k_all, v_all = kv.layer(il)
         out = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
@@ -144,6 +170,16 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float) ->
     return flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
                            v.transpose(1, 2).contiguous(), positions, scale=scale,
                            softcap=softcap)
+
+
+def _per_column(kernel, q, k, v, positions) -> torch.Tensor:
+    """A verify step's attention: `kernel` (K9 or K8: insert one row, then
+    attend) once a column, in column order, each at its own position, so
+    column j reads the slots columns 0..j wrote, as the decode step at
+    that position would."""
+    cols = [kernel(*(x[:, j:j + 1].contiguous() for x in (q, k, v, positions)))
+            for j in range(q.shape[1])]
+    return torch.cat(cols, dim=1)
 
 
 def _split_heads(qkv: torch.Tensor, cfg):
@@ -176,7 +212,7 @@ def _ffn_core(layer: dict, h: torch.Tensor, taps: dict | None = None,
 
 
 def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
-                 il: int, taps: dict | None = None) -> torch.Tensor:
+                 il: int, taps: dict | None = None, **attend) -> torch.Tensor:
     """One OLMo-2 block (zllm's layer_forward without attn_norm / ffn_norm,
     with the whole-projection q/k norms and the post-norms)."""
     b, t = x.shape[:2]
@@ -189,7 +225,7 @@ def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
     k = rms_norm(k.reshape(b, t, -1), layer["attn_k_norm"], cfg.norm_eps).reshape(k.shape)
     q = apply_rope(q, positions, cfg.rope)
     k = apply_rope(k, positions, cfg.rope)
-    att = _attend(q, k, v, kv, il, positions, cfg, scale).reshape(b, t, -1)
+    att = _attend(q, k, v, kv, il, positions, cfg, scale, **attend).reshape(b, t, -1)
     if taps is not None:
         taps[f"{tapname}.attn_output.weight"] = att
     x = x + rms_norm(linear(att, layer["wo"]), layer["attn_post_norm"], cfg.norm_eps)
@@ -201,14 +237,18 @@ def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
 
 def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   kv: KVCache | KVCacheQ8 | PagedKVCache | None, il: int,
-                  rope=None, taps: dict | None = None) -> torch.Tensor:
+                  rope=None, taps: dict | None = None, *, mask: torch.Tensor | None = None,
+                  kv_positions: torch.Tensor | None = None,
+                  verify: bool = False) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
     `rope` is K2's cos/sin table at positions[:, 0] over a contiguous
-    cache (built once per step).  `taps` (see `forward`) takes the
-    block's matmul inputs and output; it turns the fused decode paths
-    off."""
+    cache (built once per step), or with `verify` the list of one table a
+    column.  `taps` (see `forward`) takes the block's matmul inputs and
+    output; it turns the fused decode paths off; so do `mask` and
+    `kv_positions` (see `forward`)."""
+    attend = dict(mask=mask, kv_positions=kv_positions, verify=verify)
     if cfg.arch == "olmo2":
-        return _olmo2_layer(layer, cfg, x, positions, kv, il, taps)
+        return _olmo2_layer(layer, cfg, x, positions, kv, il, taps, **attend)
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
     tapname = f"blk.{il}"
@@ -227,21 +267,31 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         qkv = _projections(layer, h)
     qkv = qkv.reshape(b, t, -1)
 
-    if isinstance(kv, KVCache) and rope is None:
-        rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
+    k2_step = isinstance(kv, KVCache) and mask is None  # K2 takes the decode columns
+    if k2_step and rope is None:
+        rope = _k2_ropes(positions, cfg, verify)
 
     # Qwen3's per-head q/k norms (the loader holds them to head_dim)
     qw, kw = layer.get("attn_q_norm"), layer.get("attn_k_norm")
 
-    def k2(row):  # the whole decode attention block in one kernel: split,
-        # per-head q/k norms, rope, in-place cache insert at min(pos, S-1),
-        # attention
-        return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
-                               kv.v[il], positions[:, 0].contiguous(), rope, qw, kw,
-                               scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+    cols = positions.t().contiguous() if k2_step else None  # each column's positions [T, B]
 
-    if isinstance(kv, KVCache) and t == 1:
+    def k2(row, j=0):  # the whole decode attention block in one kernel: split,
+        # per-head q/k norms, rope, in-place cache insert at min(pos, S-1),
+        # attention; column j of the step
+        rt = rope[j] if verify else rope
+        return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
+                               kv.v[il], cols[j], rt, qw, kw, scale=scale,
+                               softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+
+    if k2_step and t == 1:
         att = k2(qkv)
+    elif k2_step and verify:
+        # a verify step: K2 once a column, in column order, each inserting
+        # its own row at its own position, so column j reads what the
+        # decode step at that position would read and gets its bits
+        rows = qkv.transpose(0, 1).contiguous()  # [T, B, Hq + 2 Hkv x D]: a column's rows
+        att = torch.cat([k2(rows[j], j) for j in range(t)], dim=1)
     else:
         q, k, v = _split_heads(qkv, cfg)
         if qw is not None:
@@ -249,8 +299,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             k = rms_norm(k, kw, cfg.norm_eps)
         q = apply_rope(q, positions, cfg.rope)
         k = apply_rope(k, positions, cfg.rope)
-        att = _attend(q, k, v, kv, il, positions, cfg, scale)
-        if isinstance(kv, KVCache):
+        att = _attend(q, k, v, kv, il, positions, cfg, scale, **attend)
+        if k2_step:
             # column 0 once more through K2, as a decode step: it re-inserts
             # every row's slot pos0 with its own rope, whose bits equal
             # apply_rope's (one f32 product and one sum a pair, no FMA);
@@ -281,9 +331,20 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x
 
 
+def _k2_ropes(positions: torch.Tensor, cfg, verify: bool):
+    """K2's rope: the table at positions[:, 0], or with `verify` one a
+    column."""
+    if verify:
+        return [rope_table(positions[:, j], cfg.rope, cfg.head_dim)
+                for j in range(positions.shape[1])]
+    return rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
+
+
 def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
             kv: KVCache | KVCacheQ8 | PagedKVCache | None = None, *,
-            logits_for: str = "all", taps: dict | None = None) -> torch.Tensor:
+            logits_for: str = "all", taps: dict | None = None,
+            mask: torch.Tensor | None = None, kv_positions: torch.Tensor | None = None,
+            verify: bool = False) -> torch.Tensor:
     """tokens/positions [B, T] int32 -> logits [B, T or 1, vocab] f32.
     The cache is updated in place, each row at its own positions, so the
     rows may sit anywhere (the serving engine's slots, trash rows
@@ -298,13 +359,35 @@ def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
     blk.N.attn_output.weight (the attention output before wo),
     blk.N.ffn_gate.weight (the FFN's input), blk.N.ffn_down.weight (the
     SwiGLU output), blk.N.l_out (the block's output) and hidden (the
-    final normed stream); with taps the fused decode paths are off."""
+    final normed stream); with taps the fused decode paths are off.
+
+    `mask` [B, T, S] bool (lookahead's block mask): every query attends
+    the slots its row marks, over the whole contiguous cache, through the
+    plain `attention_ref` (zllm's XLA reference there); the decode
+    kernels are off.  `kv_positions` [B, T]: the cache slots the rows are
+    stored in, apart from their rope positions (the contiguous run from
+    kv_positions[:, 0]).
+
+    `verify` (the serving engine's speculative verify step): every column
+    of every row is a decode step of its own, its token at positions[b, j]
+    (trash positions past the horizon in the unused columns).  Attention
+    runs the T=1 kernel once a column, in column order, each inserting its
+    own row at its position (K2 over a contiguous cache, K8 for OLMo-2, K9
+    paged; the q8 cache inserts the rows first, then K7's split form a
+    column), so a verified column gets exactly the attention the decode
+    step at that position would give; the matmuls at M >= 2 give each row
+    the same bits whatever M is (`ops/qmatmul.slice_plan`)."""
+    if verify and (kv is None or mask is not None):
+        raise ValueError("verify needs a KV cache and no mask")
+    if kv_positions is not None and mask is None:
+        raise ValueError("kv_positions goes with an explicit mask")
     x = params["tok_emb"][tokens.long()]
     rope = None
-    if isinstance(kv, KVCache) and cfg.arch != "olmo2":  # K2's table, once a step
-        rope = rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
+    if isinstance(kv, KVCache) and cfg.arch != "olmo2" and mask is None:  # K2's, once a step
+        rope = _k2_ropes(positions, cfg, verify)
     for il, layer in enumerate(params["layers"]):
-        x = layer_forward(layer, cfg, x, positions, kv, il, rope, taps)
+        x = layer_forward(layer, cfg, x, positions, kv, il, rope, taps, mask=mask,
+                          kv_positions=kv_positions, verify=verify)
 
     logits = None
     if logits_for == "last" and x.shape[0] == 1 and taps is None:  # norm fused into the head

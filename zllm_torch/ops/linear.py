@@ -28,6 +28,9 @@ def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None) -> torch.Tensor
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QWeight):
+        # the kernels read x row-major: a step's last column (logits_for=
+        # "last" at B > 1, T > 1) is a strided view
+        x2 = x2.contiguous()
         y2 = qmm.matvec(x2, w) if x2.shape[0] == 1 else qmm.gemm(x2, w)
     else:
         y2 = x2 @ w.to(x.dtype)

@@ -13,7 +13,8 @@ tensors are written in place (the decode kernel K2 writes its row itself).
     attention reads the codes and scales directly (K7,
     `ops/attention.flash_attention_blockwise`).
   * `shift_context_row`: the serving engine's per-row context shift over
-    all three layouts (contiguous, q8, paged).
+    all three layouts (contiguous, q8, paged); `shift_context`, the same
+    shift of every row of a `KVCache` at once.
 
 The engine's caches hold `max_len + prefill_chunk` slots: inactive rows sit
 at position max_len, and a run of T writes starting at or past S - T is
@@ -170,19 +171,43 @@ def _splice(a: torch.Tensor, mid: torch.Tensor, fill: torch.Tensor, n_keep: int,
     return torch.cat([a[:, :n_keep], mid, fill, a[:, hz:]], dim=1)
 
 
-def _shift_contiguous(kv: KVCache, rope_params, row: int, n_keep: int, n_discard: int, hz: int):
+def _shift_rows(k: torch.Tensor, v: torch.Tensor, rope_params, n_keep: int, n_discard: int,
+                hz: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows [H, S, D] of one layer's K and V (or [B, H, S, D], every row
+    at once), shifted: K re-rotated by -n_discard."""
     from ..ops.layers import apply_rope
 
+    batched = k.dim() == 4
+    if not batched:
+        k, v = k[None], v[None]
+    mk = k[:, :, n_keep + n_discard:hz].transpose(1, 2)  # [B, T, H, D]
+    delta = torch.full(mk.shape[:2], -n_discard, dtype=torch.int32, device=mk.device)
+    mk = apply_rope(mk, delta, rope_params).transpose(1, 2)
+    zk = torch.zeros_like(k[:, :, :n_discard])
+    nk = torch.cat([k[:, :, :n_keep], mk, zk, k[:, :, hz:]], dim=2)
+    nv = torch.cat([v[:, :, :n_keep], v[:, :, n_keep + n_discard:hz], zk, v[:, :, hz:]], dim=2)
+    return (nk, nv) if batched else (nk[0], nv[0])
+
+
+def _shift_contiguous(kv: KVCache, rope_params, row: int, n_keep: int, n_discard: int, hz: int):
     for il in range(kv.n_layers):
-        rk, rv = kv.k[il][row], kv.v[il][row]  # [H, S, D]
-        mk = rk[:, n_keep + n_discard:hz].transpose(0, 1)[None]  # [1, T, H, D]
-        delta = torch.full((1, mk.shape[1]), -n_discard, dtype=torch.int32, device=mk.device)
-        mk = apply_rope(mk, delta, rope_params)[0].transpose(0, 1)
-        zk = torch.zeros_like(rk[:, :n_discard])
-        nk = _splice(rk, mk, zk, n_keep, hz)
-        nv = _splice(rv, rv[:, n_keep + n_discard:hz], zk, n_keep, hz)
-        kv.k[il][row] = nk
-        kv.v[il][row] = nv
+        kv.k[il][row], kv.v[il][row] = _shift_rows(kv.k[il][row], kv.v[il][row], rope_params,
+                                                   n_keep, n_discard, hz)
+
+
+def shift_context(kv: KVCache, rope_params, n_keep: int, n_discard: int) -> KVCache:
+    """Context shift of every row at once (zllm's `shift_context`): drop
+    `n_discard` slots after the first `n_keep`, slide the rest down, zero
+    the freed tail and re-rotate the moved K by -n_discard positions, so
+    its rotary phase matches its new slot.  The caller moves its positions
+    back by n_discard.  In place; returns kv."""
+    if not isinstance(kv, KVCache):
+        raise TypeError(f"shift_context shifts a KVCache, not {type(kv).__name__}")
+    for il in range(kv.n_layers):
+        nk, nv = _shift_rows(kv.k[il], kv.v[il], rope_params, n_keep, n_discard, kv.max_len)
+        kv.k[il].copy_(nk)
+        kv.v[il].copy_(nv)
+    return kv
 
 
 def _shift_q8(kv: KVCacheQ8, rope_params, row: int, n_keep: int, n_discard: int, hz: int):

@@ -3,7 +3,7 @@
 
 Usage: python -m zllm_torch.server MODEL.gguf [--host 127.0.0.1 --port 8080
        --slots 4 --ctx 2048 --kv-type bf16 --kv-layout auto --jinja
-       --device cuda]
+       --spec --draft-max 6 --model-draft DRAFT.gguf --lookahead --device cuda]
        python -m zllm_torch.server --models-dir DIR [--models-max 2
        --replicas 1 --slots 4 --ctx 2048 --device cuda]   (router mode)
 
@@ -13,13 +13,19 @@ contiguous), `--kv-type q8` from the int8 KV cache (llama.cpp's -ctk/-ctv
 q8_0), which takes the contiguous layout.  Without a model and with
 --models-dir it runs the router (`server/router.py`): every GGUF in the
 directory, loaded on demand, at most --models-max at once, --replicas
-engines a model.  It offers only what the port serves: no speculative or
-lookahead decoding, multi-device serving or media.
+engines a model.  `--spec` speculates for greedy requests with n-gram
+prompt lookup, `--model-draft` with a draft model loaded on the same
+device (`--draft-max` tokens a step), `--lookahead` decodes them by
+Jacobi lookahead; each picks the contiguous layout under "auto".  The
+four fall back to zllm's environment variables ZLLM_ARG_SPEC=1,
+ZLLM_ARG_DRAFT_MAX, ZLLM_ARG_MODEL_DRAFT and ZLLM_ARG_LOOKAHEAD=1.  It
+offers only what the port serves: no multi-device serving or media.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -42,9 +48,20 @@ def main(argv=None):
                          "int8-quantized cache, llama.cpp's -ctk/-ctv q8_0)")
     ap.add_argument("--kv-layout", default="auto", choices=["auto", "paged", "contiguous"],
                     help="KV cache layout: paged = shared page pool + cross-slot prefix "
-                         "sharing (auto: paged, contiguous for q8)")
+                         "sharing (auto: paged; contiguous for q8, speculation and lookahead)")
     ap.add_argument("--jinja", action="store_true",
                     help="render the GGUF's embedded jinja chat template")
+    env = os.environ
+    ap.add_argument("--spec", action="store_true", default=env.get("ZLLM_ARG_SPEC", "") == "1",
+                    help="n-gram speculative decoding for greedy requests [ZLLM_ARG_SPEC=1]")
+    ap.add_argument("--draft-max", type=int, default=int(env.get("ZLLM_ARG_DRAFT_MAX", 6)),
+                    help="draft tokens per step [ZLLM_ARG_DRAFT_MAX]")
+    ap.add_argument("--model-draft", default=env.get("ZLLM_ARG_MODEL_DRAFT", ""),
+                    help="draft model GGUF for speculative decoding [ZLLM_ARG_MODEL_DRAFT]")
+    ap.add_argument("--lookahead", action="store_true",
+                    default=env.get("ZLLM_ARG_LOOKAHEAD", "") == "1",
+                    help="Jacobi lookahead decoding for greedy requests "
+                         "[ZLLM_ARG_LOOKAHEAD=1]")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: the kernels' plain versions)")
     ap.add_argument("--models-dir", default="",
@@ -78,9 +95,14 @@ def main(argv=None):
     m = Model.load(args.model, device=args.device, dtype=torch.bfloat16)
     if m.tokenizer is None:
         ap.error(f"{args.model} has no tokenizer")
+    draft = None
+    if args.model_draft:
+        print(f"loading draft {args.model_draft} ...", file=sys.stderr)
+        draft = Model.load(args.model_draft, device=args.device, dtype=torch.bfloat16)
     srv = ZllmServer(m, n_slots=args.slots, max_len=args.ctx, host=args.host, port=args.port,
-                     jinja=args.jinja, kv_layout=args.kv_layout,
-                     kv_dtype=KV_TYPES[args.kv_type])
+                     speculative=args.spec, n_draft=args.draft_max, kv_layout=args.kv_layout,
+                     draft_model=draft, jinja=args.jinja, kv_dtype=KV_TYPES[args.kv_type],
+                     lookahead=args.lookahead)
     print(f"listening on http://{args.host}:{args.port}", file=sys.stderr)
     try:
         srv.serve_forever()

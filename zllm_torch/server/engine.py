@@ -8,7 +8,8 @@
     (K2 decode, K6 mixed steps; OLMo-2: K8 decode), or the
     int8 q8 cache, `kv_dtype="q8"`, which always takes this layout (K7 at
     every step).
-`kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0", as in zllm.
+`kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0" or the engine
+speculates or looks ahead, as in zllm.
 
 One engine thread runs the steps:
   * prompt chunks and generating slots share one batch: every prompting
@@ -33,6 +34,23 @@ One engine thread runs the steps:
     into any idle slot, whose next request reuses the restored prefix;
     a paged restore first maps the slot a fresh row of its own, so it
     never writes into pages another slot shares;
+  * speculative decoding (`speculative=True`: n-gram prompt lookup;
+    `draft_model=`: a draft model's greedy proposals, its own contiguous
+    stripe of max_len + prefill_chunk slots): with no prompt pending and a
+    greedy, grammar-free slot, one [n_slots, 1 + n_draft] verify step
+    (`_spec_decode_step`) carries every slot's decode token in column 0
+    and a speculating slot's drafts after it; `forward(..., verify=True)`
+    gives each column the decode step's attention bits, so accepted
+    output equals plain greedy decode (with n_slots >= 2: a one-slot
+    engine's decode step runs the matvec kernels, K1/K4, whose int8
+    activations round apart from the verify step's GEMMs, as in zllm);
+  * lookahead decoding (`lookahead=True`, la_w / la_n / la_g): greedy
+    slots carry their pending tokens, a Jacobi window and verification
+    grams in one [n_slots, la_n + (la_w + la_g)(la_n - 1)] step under a
+    block mask (`_lookahead_step`; the plain `attention_ref`, so accepted
+    tokens equal plain greedy decode up to its f32 rounding on the card);
+    accepted tokens not yet in the cache are flushed by one plain step
+    before a prompt mixes in or a shift;
   * sampling is one batched chain over all slots with per-slot parameters
     and one torch.Generator per slot (`sampling/batched.py`); grammar
     masking stays on the host, applied by resampling the rows whose first
@@ -45,10 +63,11 @@ kernels (the layout's attention kernels, K3/K5 for the quantized matmuls),
 a CPU model's the plain versions.  Invalid settings raise ValueError: an
 unknown `kv_dtype` string and q8 with the paged layout, as zllm's do, a
 torch dtype other than bf16, f16 or f32, and an unknown layout (which
-zllm serves as contiguous).  What this engine does not port raises
-NotImplementedError naming its ROADMAP item: speculative and lookahead
-decoding (queue 1 item 5), tp/dp/pp/mesh and coordinated serving (item
-10), media (item 4.8).  Recurrent, hybrid, MLA and
+zllm serves as contiguous); lookahead with speculation, the paged layout,
+the q8 cache, multi-device serving or a prefill_chunk narrower than its
+step, as zllm's do; and a draft model on another device.  What this engine
+does not port raises NotImplementedError naming its ROADMAP item:
+tp/dp/pp/mesh and coordinated serving (item 10), media (item 4.8).  Recurrent, hybrid, MLA and
 SWA models do not load in zllm_torch at all (`models/config.py`).
 """
 
@@ -184,16 +203,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class Engine:
     def __init__(self, model, n_slots: int = 4, max_len: int = 2048, prefill_chunk: int = 128,
                  kv_dtype=None, prefix_reuse: bool = True, context_shift="auto",
-                 speculative: bool = False, draft_model=None, kv_layout: str = "auto",
-                 tp: int = 1, dp: int = 1, pp: int = 1, mesh=None, coordinated: bool = False,
-                 lookahead: bool = False):
+                 speculative: bool = False, n_draft: int = 6, kv_layout: str = "auto",
+                 draft_model=None, tp: int = 1, dp: int = 1, pp: int = 1, mesh=None,
+                 coordinated: bool = False, lookahead: bool = False, la_w: int = 4,
+                 la_n: int = 3, la_g: int = 4):
         if kv_layout not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} (auto, paged or contiguous)")
         # kv_dtype: a torch dtype, or the string "q8"/"q8_0" for the int8
-        # cache, which needs the contiguous layout ("auto" picks it)
+        # cache, which needs the contiguous layout ("auto" picks it, and so
+        # it does under speculation and lookahead, as zllm's does)
         quant = isinstance(kv_dtype, str)
         if kv_layout == "auto":
-            kv_layout = "contiguous" if quant else "paged"
+            kv_layout = ("contiguous" if quant or speculative or draft_model is not None
+                         or lookahead else "paged")
         if quant:
             if kv_dtype.lower() not in ("q8", "q8_0"):
                 raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'q8' or a torch dtype)")
@@ -203,12 +225,42 @@ class Engine:
         elif kv_dtype not in (None, torch.bfloat16, torch.float16, torch.float32):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (bfloat16, float16, float32 "
                              "or 'q8')")
-        if speculative or draft_model is not None:
-            raise _not_ported("speculative decoding", "5")
+        # draft-model speculation: a small model drafts the block the target
+        # verifies, so drafting implies speculation
+        if draft_model is not None:
+            speculative = True
+            if draft_model.device != model.device:
+                raise ValueError(f"the draft model is on {draft_model.device}, the model on "
+                                 f"{model.device}")
+        # lookahead: greedy slots carry a Jacobi window and verification
+        # grams as extra columns under a block mask, their K/V stored in the
+        # contiguous stripe's headroom past max_len
+        multi = (tp or 1) * (dp or 1) * (pp or 1) > 1 or mesh is not None or coordinated
         if lookahead:
-            raise _not_ported("lookahead decoding", "5")
-        if (tp or 1) * (dp or 1) * (pp or 1) > 1 or mesh is not None or coordinated:
+            if speculative:
+                raise ValueError("--lookahead and speculative decoding are exclusive")
+            if multi:
+                raise ValueError("lookahead serving is single-device only")
+            if kv_layout == "paged":
+                raise ValueError("lookahead requires the contiguous KV layout")
+            if quant:
+                raise ValueError("lookahead does not support the q8 KV cache")
+        self.la_n, self.la_w, self.la_g = int(la_n), int(la_w), int(la_g)
+        if lookahead and (self.la_n < 2 or self.la_w < 1 or self.la_g < 1):
+            raise ValueError("lookahead needs la_n >= 2, la_w >= 1, la_g >= 1")
+        if lookahead:
+            t_spec = self.la_n + (self.la_w + self.la_g) * (self.la_n - 1)
+            if t_spec > prefill_chunk:
+                raise ValueError(
+                    f"lookahead geometry needs {t_spec} spec slots > prefill_chunk "
+                    f"({prefill_chunk}) cache headroom")
+        if multi:
             raise _not_ported("multi-device serving (tp/dp/pp/mesh, coordinated)", "10")
+        self.lookahead = lookahead
+        self._la: dict[int, dict] = {}  # per-slot Jacobi window, gram pool, extras
+        self.speculative = speculative
+        self.draft = draft_model
+        self.n_draft = min(n_draft, prefill_chunk - 1)
         self.model = model
         self.device = model.device
         self.n_slots = n_slots
@@ -240,6 +292,13 @@ class Engine:
                 self.kv = KVCacheQ8.create(*shape, device=self.device)
             else:
                 self.kv = KVCache.create(*shape, kv_dtype or torch.bfloat16, self.device)
+        if self.draft is not None:
+            # the draft's own contiguous stripe, bf16 under a q8 cache
+            dcfg = self.draft.cfg
+            self.dkv = KVCache.create(dcfg.n_layers, n_slots, self.max_len + prefill_chunk,
+                                      dcfg.n_kv_heads, dcfg.head_dim,
+                                      kv_dtype or torch.bfloat16, self.device)
+            self._draft_seen = [0] * n_slots  # history positions fed to the draft
 
         # per-slot sampling parameters, generators and penalty windows
         self._params = batched.SlotParams(n_slots)
@@ -266,6 +325,10 @@ class Engine:
             "context_shifts_total": 0,
             "pages_cow_unshared_total": 0,
             "engine_errors_total": 0,
+            "spec_drafted_total": 0,
+            "spec_accepted_total": 0,
+            "lookahead_steps_total": 0,
+            "lookahead_accepted_total": 0,
         }
         self.hist_ttft = Histogram()  # time to first token (s)
         self.hist_per_token = Histogram((0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0))
@@ -414,6 +477,9 @@ class Engine:
                     self.alloc.assign_slot(slot.idx, None, 0)
                     self.kv = self.kv.with_table(self.alloc.table)
                 # n_reuse > 0 and the source is the slot itself: keep its mapping
+            if self.draft is not None:
+                self._draft_seen[slot.idx] = 0  # full catch-up on the first draft
+            self._la.pop(slot.idx, None)  # a fresh Jacobi window a request
             slot.req = req
             slot.state = SlotState.PROMPT
             slot.pos = n_reuse
@@ -481,6 +547,15 @@ class Engine:
             self._wake.clear()
             return
 
+        if self._la:
+            # accepted lookahead tokens not in the cache yet enter it before
+            # any step that is not a lookahead step (a prompt mixing in, a
+            # context shift) reads or moves the committed region
+            pend = [s for s in gen_slots if self._la.get(s.idx, {}).get("extra")]
+            if pend and (prompt_slots or any(
+                    s.pos + len(self._la[s.idx]["extra"]) + 1 >= self.max_len for s in pend)):
+                self._flush_la_extras(pend)
+
         for s in gen_slots:
             if s.pos + 1 >= self.max_len:
                 self._shift_slot(s)
@@ -490,6 +565,11 @@ class Engine:
 
         if prompt_slots:
             self._mixed_step(prompt_slots, gen_slots)
+        elif self.speculative and any(self._can_spec(s) for s in gen_slots):
+            self._spec_decode_step(gen_slots)
+        elif self.lookahead and any(self._can_la(s) or self._la.get(s.idx, {}).get("extra")
+                                    for s in gen_slots):
+            self._lookahead_step(gen_slots)
         else:
             self._decode_step(gen_slots)
 
@@ -514,11 +594,22 @@ class Engine:
                                     horizon=self.max_len)
         slot.pos -= n_discard
         slot.cache_tokens = slot.cache_tokens[:n_keep] + slot.cache_tokens[n_keep + n_discard:]
+        if self.draft is not None:
+            # the draft's stripe is not shifted: its slots past n_keep are
+            # fed again (zllm's catch-up would find no token to feed and
+            # fail the step)
+            self._draft_seen[slot.idx] = min(self._draft_seen[slot.idx], n_keep)
         self.metrics["context_shifts_total"] += 1
 
-    def _forward(self, toks: np.ndarray, pos: np.ndarray, logits_for: str) -> torch.Tensor:
-        return forward(self.model.params, self.model.cfg, torch.from_numpy(toks).to(self.device),
-                       torch.from_numpy(pos).to(self.device), self.kv, logits_for=logits_for)
+    def _forward(self, toks: np.ndarray, pos: np.ndarray, logits_for: str, model=None, kv=None,
+                 **kw) -> torch.Tensor:
+        model = model or self.model
+        dev = self.device
+        return forward(model.params, model.cfg, torch.from_numpy(toks).to(dev),
+                       torch.from_numpy(pos).to(dev), self.kv if kv is None else kv,
+                       logits_for=logits_for,
+                       **{k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+                          for k, v in kw.items()})
 
     def _mixed_step(self, prompt_slots, gen_slots):
         """One [n_slots, chunk] step: every PROMPT slot's next chunk rides
@@ -563,6 +654,311 @@ class Engine:
         sample_rows.extend(gen_slots)
         if sample_rows:
             self._sample_and_emit(logits, cols, sample_rows)
+
+    # -- speculative decoding (n-gram or draft model) ---------------------
+    def _can_spec(self, slot: _Slot) -> bool:
+        """Speculation keeps output exact only for greedy, grammar-free
+        slots with headroom before the context limit."""
+        req = slot.req
+        return (req is not None and req.temp <= 0 and req.grammar is None
+                and slot.pos + 2 + self.n_draft < self.max_len)
+
+    def _draft_argmax(self, toks: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        logits = self._forward(toks, pos, "all", model=self.draft, kv=self.dkv)
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def _draft_propose_all(self, slots) -> dict[int, list[int]]:
+        """Greedy draft-model proposals for every speculating slot.
+
+        Catch-up: the tokens the draft has not fed yet run through its
+        forward in prefill_chunk-wide rounds, every lagging slot a chunk a
+        round.  Proposal: n_draft - 1 lock-step [n_slots, 1] draft steps.
+        Rejected drafts' K/V are overwritten by the next catch-up."""
+        out: dict[int, list[int]] = {}
+        if not slots:
+            return out
+        width = self.prefill_chunk
+        first: dict[int, int] = {}
+        hists = {s.idx: s.cache_tokens + [s.last_token] for s in slots}
+        seen = {s.idx: self._draft_seen[s.idx] for s in slots}
+        while any(seen[s.idx] < len(hists[s.idx]) for s in slots):
+            toks = np.zeros((self.n_slots, width), dtype=np.int32)
+            pos = np.full((self.n_slots, width), self.max_len, dtype=np.int32)
+            ns = {}
+            for s in slots:
+                hist, sn = hists[s.idx], seen[s.idx]
+                n = min(width, len(hist) - sn)
+                if n <= 0:
+                    continue
+                ns[s.idx] = n
+                toks[s.idx, :n] = hist[sn:sn + n]
+                pos[s.idx, :n] = np.arange(sn, sn + n)
+            preds = self._draft_argmax(toks, pos)
+            for s in slots:
+                n = ns.get(s.idx, 0)
+                if n and seen[s.idx] + n == len(hists[s.idx]):
+                    first[s.idx] = int(preds[s.idx, n - 1])
+                seen[s.idx] += n
+        for s in slots:
+            self._draft_seen[s.idx] = len(hists[s.idx])
+            out[s.idx] = [first[s.idx]]
+        # chain the remaining drafts of every slot in lock-step
+        for _ in range(self.n_draft - 1):
+            toks = np.zeros((self.n_slots, 1), dtype=np.int32)
+            pos = np.full((self.n_slots, 1), self.max_len, dtype=np.int32)
+            for s in slots:
+                toks[s.idx, 0] = out[s.idx][-1]
+                pos[s.idx, 0] = self._draft_seen[s.idx] + len(out[s.idx]) - 1
+            preds = self._draft_argmax(toks, pos)
+            for s in slots:
+                out[s.idx].append(int(preds[s.idx, 0]))
+        return out
+
+    def _spec_decode_step(self, gen_slots):
+        """[n_slots, 1 + n_draft] verify step: column 0 is the decode token;
+        speculating slots carry drafts in columns 1.. whose logits verify
+        them in the same forward (`forward(..., verify=True)`: every column
+        gets the decode step's attention at its position, so accepted
+        output equals plain greedy decode).  Rejected drafts leave K/V past
+        pos, overwritten before anything attends them."""
+        from ..runtime.speculative import ngram_propose
+
+        t = self.n_draft + 1
+        toks = np.zeros((self.n_slots, t), dtype=np.int32)
+        pos = np.full((self.n_slots, t), self.max_len, dtype=np.int32)  # trash
+        drafts: dict[int, list[int]] = {}
+        proposals = (self._draft_propose_all([s for s in gen_slots if self._can_spec(s)])
+                     if self.draft is not None else None)
+        for s in gen_slots:
+            toks[s.idx, 0] = s.last_token
+            pos[s.idx, 0] = s.pos
+            if self._can_spec(s):
+                cap = min(self.n_draft, self.max_len - s.pos - 2)
+                if proposals is not None:
+                    d = proposals.get(s.idx, [])[:cap]
+                else:
+                    d = ngram_propose(s.cache_tokens + [s.last_token], cap)[:cap]
+                if d:
+                    toks[s.idx, 1:1 + len(d)] = d
+                    pos[s.idx, 1:1 + len(d)] = np.arange(s.pos + 1, s.pos + 1 + len(d))
+                    drafts[s.idx] = d
+                    self.metrics["spec_drafted_total"] += len(d)
+
+        logits = self._forward(toks, pos, "all", verify=True)
+        self.metrics["decode_steps_total"] += 1
+        for s in gen_slots:
+            s.cache_tokens.append(s.last_token)
+            s.pos += 1
+
+        spec_slots = [s for s in gen_slots if s.idx in drafts]
+        plain = [s for s in gen_slots if s.idx not in drafts]
+        if spec_slots:
+            idx = torch.tensor([s.idx for s in spec_slots], device=self.device)
+            rows = torch.argmax(logits[idx], dim=-1).cpu().numpy()  # [ns, t]
+            for s, preds in zip(spec_slots, rows):
+                d = drafts[s.idx]
+                accepted = 0
+                for i, di in enumerate(d):
+                    if int(preds[i]) != di:
+                        break
+                    accepted += 1
+                self.metrics["spec_accepted_total"] += accepted
+                # accepted drafts' K/V are in the cache already
+                for i in range(accepted):
+                    s.cache_tokens.append(d[i])
+                    s.pos += 1
+                    self._emit_token(s, d[i])
+                    if s.state == SlotState.IDLE:
+                        break
+                else:
+                    self._emit_token(s, int(preds[accepted]))
+        if plain:
+            self._sample_and_emit(logits, np.zeros((self.n_slots,), np.int64), plain)
+
+    # -- lookahead decoding -------------------------------------------------
+    def _la_width(self) -> int:
+        return self.la_n + (self.la_w + self.la_g) * (self.la_n - 1)
+
+    def _can_la(self, slot: _Slot) -> bool:
+        """Lookahead keeps output exact only for greedy, grammar-free slots;
+        the window and grams need the step's width of speculative cache
+        slots past the committed region."""
+        req = slot.req
+        if req is None or req.temp > 0 or req.grammar is not None:
+            return False
+        return (slot.pos + self._la_width() <= self.kv.max_len
+                and slot.pos + self.la_n + 1 < self.max_len)
+
+    def _la_init(self, slot: _Slot) -> dict:
+        """A slot's fresh Jacobi state: random window levels from the
+        request's seed as zllm draws them, and a gram pool seeded from the
+        prompt."""
+        lvls = self.la_n - 1
+        seed = (slot.req.seed if slot.req and slot.req.seed >= 0 else 0) ^ (slot.idx + 1)
+        rng = np.random.default_rng(seed & 0x7FFFFFFF)
+        window = rng.integers(1, self.model.cfg.vocab_size,
+                              size=(lvls, self.la_w)).astype(np.int64)
+        pool: dict[int, list] = {}
+        hist = slot.cache_tokens + [slot.last_token]
+        for i in range(max(0, len(hist) - lvls)):
+            gram = tuple(hist[i + 1:i + 1 + lvls])
+            if len(gram) == lvls:
+                lst = pool.setdefault(hist[i], [])
+                if gram not in lst:
+                    lst.insert(0, gram)
+                    del lst[self.la_g:]
+        la = {"window": window, "pool": pool, "extra": []}
+        self._la[slot.idx] = la
+        return la
+
+    def _flush_la_extras(self, slots):
+        """Put accepted lookahead tokens that were verified against
+        speculative slots, not stored in committed ones, into the cache by
+        one plain causal forward."""
+        width = self.la_n - 1
+        toks = np.zeros((self.n_slots, width), dtype=np.int32)
+        pos = np.full((self.n_slots, width), self.max_len, dtype=np.int32)  # trash
+        ext = {}
+        for s in slots:
+            v = list(self._la[s.idx]["extra"])
+            ext[s.idx] = v
+            toks[s.idx, :len(v)] = v
+            pos[s.idx, :len(v)] = np.arange(s.pos, s.pos + len(v))
+        self._forward(toks, pos, "last")
+        for s in slots:
+            v = ext[s.idx]
+            s.cache_tokens.extend(v)
+            s.pos += len(v)
+            self._la[s.idx]["extra"] = []
+
+    def _lookahead_step(self, gen_slots):
+        """One [n_slots, N + (W + G)(N - 1)] forward: each greedy slot's
+        pending tokens (stored at their committed slots), W Jacobi window
+        columns a level and G verification grams, kept apart by a block
+        mask; the speculative columns' K/V go to the headroom past the
+        pending ones and are overwritten by the next step.  The longest
+        gram chain matching the greedy argmax is accepted.  Other slots
+        ride in their pending columns and sample as usual."""
+        n, w, g = self.la_n, self.la_w, self.la_g
+        lvls = n - 1
+        t = self._la_width()
+        S = self.kv.max_len
+        ns = self.n_slots
+        toks = np.zeros((ns, t), dtype=np.int32)
+        pos = np.full((ns, t), S - 1, dtype=np.int32)  # trash for idle rows
+        slots_arr = np.full((ns, t), S - 1, dtype=np.int32)
+        mask = np.zeros((ns, t, S), dtype=bool)
+
+        la_slots = []
+        meta: dict[int, tuple] = {}
+        col_w0 = n
+        col_v0 = n + lvls * w
+        for s in gen_slots:
+            la = self._la.get(s.idx)
+            spec = self._can_la(s)
+            if spec and la is None:
+                la = self._la_init(s)
+            pending = (list(la["extra"]) if la else []) + [s.last_token]
+            m = len(pending)
+            p0 = s.pos
+            base = p0 + m
+            for j in range(n):
+                if j < m:
+                    toks[s.idx, j] = pending[j]
+                    pos[s.idx, j] = slots_arr[s.idx, j] = p0 + j
+                    mask[s.idx, j, :p0 + j + 1] = True
+                else:  # a pad column parks its K/V in a spec slot, attends itself
+                    pos[s.idx, j] = slots_arr[s.idx, j] = base + (j - m)
+                    mask[s.idx, j, base + (j - m)] = True
+            if not spec:
+                meta[s.idx] = (m, pending, [])
+                continue
+            la_slots.append(s)
+            spec0 = base + (n - m)
+            window = la["window"]
+            for j in range(lvls):
+                for i in range(w):
+                    c = col_w0 + j * w + i
+                    toks[s.idx, c] = window[j, i]
+                    pos[s.idx, c] = base + i + j
+                    slots_arr[s.idx, c] = spec0 + (c - n)
+                    mask[s.idx, c, :base] = True
+                    for j2 in range(j):  # its own column at lower levels
+                        mask[s.idx, c, spec0 + (col_w0 + j2 * w + i) - n] = True
+                    mask[s.idx, c, spec0 + (c - n)] = True
+            cands = list(la["pool"].get(pending[-1], []))[:g]
+            meta[s.idx] = (m, pending, cands)
+            for gi in range(g):
+                gram = cands[gi] if gi < len(cands) else (0,) * lvls
+                for tt in range(lvls):
+                    c = col_v0 + gi * lvls + tt
+                    toks[s.idx, c] = gram[tt]
+                    pos[s.idx, c] = base + tt
+                    slots_arr[s.idx, c] = spec0 + (c - n)
+                    mask[s.idx, c, :base] = True
+                    for t2 in range(tt):  # its gram's earlier tokens
+                        mask[s.idx, c, spec0 + (col_v0 + gi * lvls + t2) - n] = True
+                    mask[s.idx, c, spec0 + (c - n)] = True
+        mask[~mask.any(-1), S - 1] = True  # a query row with no slot attends one junk slot
+
+        logits = self._forward(toks, pos, "all", mask=mask, kv_positions=slots_arr)
+        self.metrics["decode_steps_total"] += 1
+        self.metrics["lookahead_steps_total"] += 1
+
+        for s in gen_slots:  # the pending tokens' K/V are in the cache now
+            m, pending = meta[s.idx][0], meta[s.idx][1]
+            s.cache_tokens.extend(pending)
+            s.pos += m
+            if self._la.get(s.idx):
+                self._la[s.idx]["extra"] = []
+
+        la_set = {s.idx for s in la_slots}
+        plain = [s for s in gen_slots if s.idx not in la_set]
+        if la_slots:
+            idx = torch.tensor([s.idx for s in la_slots], device=self.device)
+            args = torch.argmax(logits[idx], dim=-1).cpu().numpy()  # [n la slots, t]
+            for s, arg in zip(la_slots, args):
+                m, pending, cands = meta[s.idx]
+                la = self._la[s.idx]
+                x_next = int(arg[m - 1])
+                accepted = [x_next]
+                best, best_out = 0, []
+                for gi, gram in enumerate(cands):
+                    cur, outs = x_next, []
+                    for tt in range(lvls):
+                        if gram[tt] != cur:
+                            break
+                        cur = int(arg[col_v0 + gi * lvls + tt])
+                        outs.append(cur)
+                    if len(outs) > best:
+                        best, best_out = len(outs), outs
+                accepted += best_out
+                self.metrics["lookahead_accepted_total"] += best
+                # harvest the trajectory grams, then the Jacobi shift
+                window = la["window"]
+                new_last = arg[col_w0 + (lvls - 1) * w:col_w0 + lvls * w]
+                for i in range(w):
+                    gram2 = tuple(int(window[j, i]) for j in range(1, lvls)) + (
+                        int(new_last[i]),)
+                    lst = la["pool"].setdefault(int(window[0, i]), [])
+                    if gram2 not in lst:
+                        lst.insert(0, gram2)
+                        del lst[g:]
+                window[:-1] = window[1:]
+                window[-1] = new_last
+                emitted = []
+                for tok in accepted:
+                    self._emit_token(s, tok)
+                    emitted.append(tok)
+                    if s.state == SlotState.IDLE:
+                        break
+                if s.state != SlotState.IDLE:
+                    la["extra"] = emitted[:-1]
+        if plain:
+            cols = np.zeros((self.n_slots,), np.int64)
+            for s in plain:
+                cols[s.idx] = meta[s.idx][0] - 1
+            self._sample_and_emit(logits, cols, plain)
 
     def _decode_step(self, gen_slots):
         toks = np.zeros((self.n_slots, 1), dtype=np.int32)

@@ -42,12 +42,14 @@ def _sse(obj) -> bytes:
 
 class ZllmServer:
     def __init__(self, model, n_slots: int = 4, max_len: int = 2048, host="127.0.0.1",
-                 port=8080, slot_save_path: str = "", jinja: bool = False,
-                 kv_layout: str = "auto", kv_dtype=None):
+                 port=8080, slot_save_path: str = "", speculative: bool = False,
+                 n_draft: int = 6, kv_layout: str = "auto", draft_model=None,
+                 jinja: bool = False, kv_dtype=None, lookahead: bool = False):
         self.model = model
         self.jinja = jinja
-        self.engine = Engine(model, n_slots=n_slots, max_len=max_len, kv_layout=kv_layout,
-                             kv_dtype=kv_dtype)
+        self.engine = Engine(model, n_slots=n_slots, max_len=max_len,
+                             speculative=speculative, n_draft=n_draft, kv_layout=kv_layout,
+                             draft_model=draft_model, kv_dtype=kv_dtype, lookahead=lookahead)
         self.slot_save_path = slot_save_path
         self.host = host
         self.port = port
