@@ -288,13 +288,29 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      the verify and decode steps' graph times and K2's 154 against 22
      launches, `shift_context` on the card against the CPU's, and
      SpeculativeDecoder and lookahead_generate at B = 1 against the
-     Generator (printed).
+     Generator (printed);
+  9. the Gemma text families (`python3 chip_smoke.py --gemma` runs this
+     group alone), head_dim 256: `gemma_2layer` (2 layers at Gemma-2's and
+     Gemma-3's full widths, Q4_K, the card against the CPU's plain
+     forward from a child, `--gemma-cpu NAME`, started after the build;
+     prompts past the window, Gemma-2's set to 512), `main_path`
+     Gemma-2-2B Q4_K_M at full depth (a 4200-token prompt past its 4096
+     window, 26 K2 a step and 26 K6 a chunk) and Gemma-3-4B cut to 12
+     layers (a 1100-token prompt past its 1024 window), `serve_ring_gemma3`
+     (the Gemma-3 model behind ZllmServer at max_len 4096: the ring cache,
+     K2/K6 in its 2 full layers only, a 1501-id prompt besides),
+     `serve_gemma_2b` (Gemma-2B paged: K9/K10 at d 256, G 8), and
+     `kernel_gemma`: K2, K6, K9 and K10 in their d 256 forms at those
+     paths' shapes against their plain versions and SDPA, one line each
+     in the `kernels` line.
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
 IQ4_NL, MXFP4, Q8_0 and IQ grid factory files are made by child processes
-(`chip_smoke.py --make-gguf NAME FTYPE...`) started before the build, so
-the numpy quantizer's minutes run beside it.  Each main path also prints
+(`chip_smoke.py --make-gguf NAME FTYPE...`, niced), the first three
+started before the build, the rest and the Gemma files (the factory's
+Q4_K_M preset) after it, so the numpy quantizer's minutes run beside the
+card's phases.  Each main path also prints
 its decode step run eagerly, by CUDA kernel name and summed by kind
 (the port's, PyTorch's own, cuBLAS's; `step_profile`, torch.profiler).
 A BF16 step hands K2 a bf16 q: `kernel` K2's `bf16_q` times that form at
@@ -372,6 +388,20 @@ IQ_SHORT_TOKENS = 8
 # the ternary slice's files, by `python -m zllm_torch.quantize` (the head
 # Q6_K, the embedding Q4_K): TQ2_0 the full generate, TQ1_0 a short one
 TQ_FTYPES = ("TQ2_0", "TQ1_0")
+# group 9, the Gemma text families: Gemma-2-2B at full depth with a prompt
+# past its 4096 window, Gemma-3-4B cut to 12 of its 34 layers (two full
+# layers, 5 and 11) past its 1024 window and then on the ring at max_len
+# 4096, Gemma-2B behind the server (paged: K9/K10 at d 256); the files are
+# the factory's Q4_K_M preset, made by children while the kernels build
+GEMMA_MODELS = ("gemma2_2b", "gemma3_4b", "gemma_2b")
+GEMMA3_LAYERS = 12
+GEMMA2_PROMPT, GEMMA2_MAX_LEN = 4200, 4352
+GEMMA3_PROMPT, GEMMA3_MAX_LEN, GEMMA3_SERVE_MAX_LEN = 1100, 2048, 4096
+GEMMA3_LONG_BYTES = 1500  # the ring phase's prompt past the window (one id a byte)
+# the 2-layer GPU-vs-CPU checks at full width: Gemma-2's window set to 512
+# (its 4096 would take the CPU's plain forward minutes), Gemma-3's real 1024
+GEMMA2_CHECK_WINDOW = 512
+GEMMA_CHECK_STEPS = 8
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -636,23 +666,28 @@ REQUANTIZED = ("Q4_K_M", "Q4_0", "Q5_K_M", "Q3_K_M", "IQ4_XS", *TQ_FTYPES, "BF16
 # TinyLlama Q5_0, Q5_1, Q2_K, IQ4_NL, MXFP4 and Q8_0 (the imatrix slice's,
 # after TQ1_0 in its child: with a child of its own, the first Q4_K_M path
 # waited ≈ 55 s longer for its file in one run) factory files: one child
-# process a group makes them while the kernels build (`prepare_requantized`; children that share a model's F16
-# file may both write it: each writes its own temporary and renames it
-# into place, the same bytes), and gguf_file waits for its file's child
-PREQUANTIZE = (("tinyllama", ("Q4_K_M", "Q4_0", "Q5_K_M")), ("qwen25", ("Q4_K_M",)),
-               ("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
-               ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")),
-               ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]),
-               ("tinyllama", ("TQ2_0", "BF16")), ("tinyllama", ("TQ1_0", "Q8_0")))
+# process a group makes them (`prepare_requantized`; children that share a
+# model's F16 file wait for the one that writes it, `f16_file`), and
+# gguf_file waits for its file's child.  The files the first main paths
+# need (the TinyLlama Q4_K_M in a child of its own) start before the build
+PREQUANTIZE = (("tinyllama", ("Q4_K_M",)), ("tinyllama", ("Q4_0", "Q5_K_M")),
+               ("qwen25", ("Q4_K_M",)))
+# and the rest after it (ten children beside the nvccs took a 40 s build to
+# 95-120 s)
+PREQUANTIZE_LATE = (("tinyllama", ("Q5_0", "Q5_1")), ("tinyllama", ("Q3_K_M",)),
+                    ("tinyllama", ("IQ4_XS",)), ("tinyllama", ("Q2_K", "IQ4_NL", "MXFP4")),
+                    ("tinyllama", IQ_FTYPES[:3]), ("tinyllama", IQ_FTYPES[3:]),
+                    ("tinyllama", ("TQ2_0", "BF16")), ("tinyllama", ("TQ1_0", "Q8_0")))
 _CHILDREN: dict[Path, subprocess.Popen] = {}
 
 
-def prepare_requantized():
+def prepare_requantized(groups=PREQUANTIZE):
     """Start a child (`chip_smoke.py --make-gguf NAME FTYPE...`) for each
-    group of PREQUANTIZE whose files are not cached yet."""
+    group of `groups` whose files are not cached yet; a child nices itself,
+    so the kernels' `nvcc`s, which build meanwhile, keep the cores first."""
     import atexit
 
-    for name, ftypes in PREQUANTIZE:
+    for name, ftypes in groups:
         paths = [CACHE / f"{name}_{f.lower()}.gguf" for f in ftypes]
         if all(p.exists() for p in paths):
             continue
@@ -672,23 +707,41 @@ def _write_atomic(path: Path, write):
 
 
 def f16_file(name: str, shape: dict) -> Path:
-    """The model's F16 file (cached), the requantized presets' source."""
+    """The model's F16 file (cached), the requantized presets' source.  One
+    process writes it (the holder of its lock file); the others that need
+    it wait for it rather than write the same gigabytes beside it."""
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.testing import make_llama_gguf
 
     src = CACHE / f"{name}_f16.gguf"
-    if not src.exists():
-        _write_atomic(src, lambda p: make_llama_gguf(str(p), **dict(shape, with_tokenizer=True),
-                                                     gtype=GGMLType.F16, seed=0))
+    lock = src.with_name(src.name + ".lock")
+    deadline = time.time() + 900
+    while not src.exists():
+        try:
+            os.close(os.open(lock, os.O_CREAT | os.O_EXCL))
+        except FileExistsError:  # another process writes it
+            if time.time() > deadline:
+                fail(f"{src.name}: its writer held {lock.name} for 900 s")
+            time.sleep(0.5)
+            continue
+        try:
+            if not src.exists():
+                _write_atomic(src, lambda p: make_llama_gguf(
+                    str(p), **dict(shape, with_tokenizer=True), gtype=GGMLType.F16, seed=0))
+        finally:
+            lock.unlink()
     return src
 
 
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
-    """A random-weight llama, OLMo-2 or Qwen GGUF (`shape` may name the arch) in
-    `ftype` (cached): the REQUANTIZED presets made by `python -m
-    zllm_torch.quantize` from the model's F16 file, the IQ_FTYPES presets
-    by the factory's `ftype=`, any other type written directly by the
-    factory.  Returns (path, seconds to make it)."""
+    """A random-weight llama, OLMo-2, Qwen or Gemma GGUF (`shape` may name
+    the arch) in `ftype` (cached): the REQUANTIZED presets made by `python
+    -m zllm_torch.quantize` from the model's F16 file, the IQ_FTYPES
+    presets and a Gemma file's presets by the factory's `ftype=` (each
+    tensor in the type `pick_type` gives its role, as the quantizer's; a
+    2.6B model's F16 file and its numpy requantization would take minutes),
+    any other type written directly by the factory.  Returns (path,
+    seconds to make it)."""
     from zllm_torch.gguf.constants import GGMLType
     from zllm_torch.testing import make_llama_gguf
 
@@ -701,8 +754,10 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
             child.err = child.communicate(timeout=900)[1]
         if child.returncode != 0:
             fail(f"making {path.name} failed: {child.err[-2000:]}")
+    by_factory = ftype in IQ_FTYPES or (shape.get("arch", "").startswith("gemma")
+                                        and ftype in REQUANTIZED)
     if not path.exists():
-        if ftype in REQUANTIZED:
+        if ftype in REQUANTIZED and not by_factory:
             src = f16_file(name, shape)
 
             def quantize(p):
@@ -712,7 +767,7 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
                     fail(f"zllm_torch.quantize {ftype} failed: {q.stderr[-2000:]}")
 
             _write_atomic(path, quantize)
-        elif ftype in IQ_FTYPES:
+        elif by_factory:
             _write_atomic(path, lambda p: make_llama_gguf(str(p), **shape, ftype=ftype, seed=0))
         else:
             _write_atomic(path, lambda p: make_llama_gguf(str(p), **shape,
@@ -775,7 +830,17 @@ def main_shapes() -> dict:
     return {"tinyllama": (zt.TINYLLAMA_SHAPE, "tinyllama-geometry"),
             "olmo2": (zt.OLMO2_1B_SHAPE, "OLMo-2-0425-1B geometry"),
             "qwen3": (zt.QWEN3_1_7B_SHAPE, "Qwen3-1.7B geometry"),
-            "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry")}
+            "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry"),
+            "gemma2_2b": (zt.GEMMA2_2B_SHAPE, "Gemma-2-2B geometry"),
+            "gemma3_4b": (dict(zt.GEMMA3_4B_SHAPE, n_layers=GEMMA3_LAYERS),
+                          f"Gemma-3-4B geometry ({GEMMA3_LAYERS} of its 34 layers)"),
+            "gemma_2b": (zt.GEMMA_2B_SHAPE, "Gemma-2B geometry"),
+            "gemma2_2layer": (dict(zt.GEMMA2_2B_SHAPE, n_layers=2,
+                                   sliding_window=GEMMA2_CHECK_WINDOW),
+                              f"Gemma-2-2B width, 2 layers, window {GEMMA2_CHECK_WINDOW} "
+                              "(the model's 4096)"),
+            "gemma3_2layer": (dict(zt.GEMMA3_4B_SHAPE, n_layers=2),
+                              "Gemma-3-4B width, 2 layers (both windowed)")}
 
 
 def f16_counts(kernels: dict, zero: bool = False) -> dict:
@@ -791,7 +856,8 @@ def f16_counts(kernels: dict, zero: bool = False) -> dict:
 
 
 def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "tinyllama",
-              new_tokens: int = NEW_TOKENS, kv_dtype=None, model=None):
+              new_tokens: int = NEW_TOKENS, kv_dtype=None, model=None,
+              prompt_tokens: int = PROMPT_TOKENS, max_len: int = MAX_LEN):
     """Load the `name` model of main_shapes() (TinyLlama, OLMo-2-0425-1B,
     Qwen3-1.7B or Qwen2.5-1.5B geometry; or take `model`, already loaded
     from that file), warm up, then one generate of
@@ -800,7 +866,9 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     f16 path, whose K2 and K6 launches must all take their f16 forms);
     `want(cfg, n_steps, n_chunks)` gives the expected counts; then the last
     decode step's device time from a CUDA graph (`step_graph_ms`) and, run
-    eagerly, its CUDA kernels by name (`step_profile`).  Returns
+    eagerly, its CUDA kernels by name (`step_profile`); `prompt_tokens`
+    and the cache's `max_len` (Gemma's paths: prompts past the window).
+    Returns
     the model, the counts, the generator, the prompt's and generated tokens
     and the step's ms."""
     from zllm_torch.models.llama import forward
@@ -817,8 +885,8 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
     cfg = model.cfg
-    gen = Generator(model, max_len=MAX_LEN, prefill_chunk=CHUNK, kv_dtype=kv_dtype)
-    ids = prompt_ids(model.tokenizer, PROMPT_TOKENS)
+    gen = Generator(model, max_len=max_len, prefill_chunk=CHUNK, kv_dtype=kv_dtype)
+    ids = prompt_ids(model.tokenizer, prompt_tokens)
 
     gen.generate(ids[:CHUNK + 8], max_new=4)  # warm-up: both chunk shapes, decode
     gen.reset()
@@ -832,15 +900,15 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     k6_mma = k6.mma_launches
     f16 = f16_counts(kernels)
     f16_expected = {n: counts[n] if kv_dtype == torch.float16 else 0 for n in f16}
-    n_chunks = -(-PROMPT_TOKENS // CHUNK)
+    n_chunks = -(-prompt_tokens // CHUNK)
     n_steps = len(res.tokens) - 1
     expected = want(cfg, n_steps, n_chunks)
-    last_logits = gen._decode_one(res.tokens[-1], PROMPT_TOKENS + n_steps).float()
+    last_logits = gen._decode_one(res.tokens[-1], prompt_tokens + n_steps).float()
     torch.cuda.synchronize()
     # the same step's forward captured in a CUDA graph: its device time with
     # the kernels and torch ops interleaved as the step runs them
     tok_t = torch.tensor([[res.tokens[-1]]], dtype=torch.int32, device="cuda")
-    pos_t = torch.tensor([[PROMPT_TOKENS + n_steps]], dtype=torch.int32, device="cuda")
+    pos_t = torch.tensor([[prompt_tokens + n_steps]], dtype=torch.int32, device="cuda")
 
     def step():
         with torch.inference_mode():
@@ -850,9 +918,9 @@ def main_path(torch, ftype: str, kernels: dict, want, card: str, name: str = "ti
     profile_ = step_profile(torch, step)
     emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
           "shape": shape, "dtype": "bfloat16", "kv_dtype": str(kv_dtype)[6:],
-          "prompt_tokens": PROMPT_TOKENS,
+          "prompt_tokens": prompt_tokens, "max_len": max_len,
           "prefill_chunks": n_chunks, "new_tokens": len(res.tokens),
-          "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
+          "prefill_tok_s": prompt_tokens / res.t_prefill,
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
           "launches": counts, "launches_expected": expected,
@@ -1117,10 +1185,12 @@ def small_engine_check(torch, kernels: dict, layout: str):
 
 
 def serve_expected(kernels: dict, cfg, steps: dict, q8: bool = False, contig: bool = False,
-                   gemms: dict | None = None) -> dict:
+                   gemms: dict | None = None, att_layers: int | None = None) -> dict:
     """The kernel launches an engine's steps (`steps`: its counter deltas)
     make: `gemms` a step by kernel (by default the TinyLlama Q4_K_M
-    model's), and the layout's attention."""
+    model's), and the layout's attention in `att_layers` layers (all; the
+    ring cache's full layers: its windowed ones attend with plain torch
+    ops)."""
     dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
     L = cfg.n_layers
     low = L // 2
@@ -1128,6 +1198,7 @@ def serve_expected(kernels: dict, cfg, steps: dict, q8: bool = False, contig: bo
     if gemms is None:  # Q4_K_M: Q4_K but wv and the first L/2 ffn_down, and the Q6_K head
         gemms = {"q4k_gemm": 4 * L + (L - low), "dequant_gemm": L + low + 1}
     expected.update({name: n * (dec + pre) for name, n in gemms.items()})
+    L = L if att_layers is None else att_layers
     # a mixed step attends column 0 (a generating row's token) once more
     # through the T=1 kernel, as a decode step does (models/llama.py:
     # `_attend`; over the contiguous stripe K2 in `layer_forward`)
@@ -1143,7 +1214,8 @@ def serve_expected(kernels: dict, cfg, steps: dict, q8: bool = False, contig: bo
 
 def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
                 kv_layout: str = "auto", label: str = "tinyllama-geometry Q4_K_M",
-                gemms: dict | None = None, tag: str = "") -> dict:
+                gemms: dict | None = None, tag: str = "", server_kw: dict | None = None,
+                long_bytes: int = 0) -> dict:
     """The serving main path: ZllmServer (defaults; `kv_dtype="q8"` for the
     q8 KV cache, whose auto layout is the contiguous one; `kv_layout=
     "contiguous"` for the bf16 contiguous stripe; `kv_dtype=torch.float16`
@@ -1151,27 +1223,35 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     K2/K6 (OLMo-2: K8/K6) launches must all take their f16 forms) over
     `model` (the TinyLlama-geometry Q4_K_M one unless `label` names
     another) on a local port.  `gemms`: the GEMM launches of one engine
-    step by kernel (by default Q4_K_M's); `tag` names the phase apart.
-    Warm up, set the launch counts to 0, then the traffic; the counts must
-    match the engine's own step counters exactly.  Returns the counts."""
+    step by kernel (by default Q4_K_M's); `tag` names the phase apart;
+    `server_kw` more ZllmServer keywords; `long_bytes` one more completion
+    of that many bytes after the concurrent ones.  A windowed model's
+    "auto" engine serves from the ring cache (`serve_ring`): K2/K6 in its
+    full layers only.  Warm up, set the launch counts to 0, then the
+    traffic; the counts must match the engine's own step counters exactly.
+    Returns the counts."""
     from zllm_torch.ops import attention as att
+    from zllm_torch.runtime.kvcache import KVCacheSWA
     from zllm_torch.server.http import ZllmServer
 
     q8 = kv_dtype == "q8"
     f16 = kv_dtype == torch.float16
-    contig = kv_layout == "contiguous" and not q8
-    phase = ("serve_q8" if q8 else "serve_contig" if contig else "serve") + ("_f16" if f16 else "")
+    srv = ZllmServer(model, port=0, kv_dtype=kv_dtype, kv_layout=kv_layout, **(server_kw or {}))
+    srv.start_background()
+    eng = srv.engine
+    contig = not eng.paged and not q8
+    ring = isinstance(eng.kv, KVCacheSWA)
+    phase = ("serve_q8" if q8 else "serve_ring" if ring else "serve_contig" if contig
+             else "serve") + ("_f16" if f16 else "")
     phase += f"_{tag}" if tag else ""
     # the mixed steps' attention must take the tensor-core loop (bf16 pools;
     # int8 codes at 1024 query rows a kv head; K6's bf16 form over the
     # contiguous stripe), counted apart on its wrapper
     mma_fn = (att.flash_attention_blockwise if q8 else att.flash_attention if contig
               else att.paged_attention)
-    srv = ZllmServer(model, port=0, kv_dtype=kv_dtype, kv_layout=kv_layout)
-    srv.start_background()
-    eng = srv.engine
-    text = ("The quick brown fox jumps over the lazy dog while the chip counts every "
-            "byte it reads. ") * 8
+    line = ("The quick brown fox jumps over the lazy dog while the chip counts every "
+            "byte it reads. ")
+    text = line * 8
 
     def post(path, body):
         return http_post(srv.port, path, body)
@@ -1203,6 +1283,11 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         window = time.perf_counter() - t0
         if any(t.is_alive() for t in threads) or len(results) != len(SERVE_PROMPT_BYTES):
             fail(f"{phase}: concurrent requests did not finish")
+        long_out = None
+        if long_bytes:
+            long_out = json.loads(post("/v1/completions", {
+                "prompt": (line * (long_bytes // len(line) + 1))[:long_bytes],
+                "max_tokens": SERVE_NEW_TOKENS, "temperature": 0}))
         window_steps = sum(eng.metrics[k] - m0[k]
                            for k in ("decode_steps_total", "prefill_steps_total"))
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results.values())
@@ -1229,7 +1314,9 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
     dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
     L = model.cfg.n_layers
-    expected = serve_expected(kernels, model.cfg, steps, q8, contig, gemms)
+    if ring:  # the kernels attend in the full layers alone
+        L = sum(not w for w in eng.kv.swa_mask)
+    expected = serve_expected(kernels, model.cfg, steps, q8, contig, gemms, att_layers=L)
     # the cache's bytes against a bf16 contiguous cache of the same slots
     kv = eng.kv
     kv_bytes = kv_bytes_of(eng)
@@ -1237,10 +1324,14 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     layout = {"kv_layout": "paged", "kv_dtype": kv_name, "page_size": eng.alloc.ps} if (
         eng.paged) else {"kv_layout": "contiguous", "kv_slots": kv.max_len, "kv_dtype":
                          "q8 (int8 codes + f32 scales)" if q8 else kv_name}
-    bf16_bytes = 2 * L * eng.n_slots * model.cfg.n_kv_heads * (
+    if ring:
+        layout.update(kv_layout="ring (KVCacheSWA)", ring_slots=kv.ring,
+                      ring_layers=sum(kv.swa_mask), full_layers=L)
+    bf16_bytes = 2 * model.cfg.n_layers * eng.n_slots * model.cfg.n_kv_heads * (
         eng.max_len if eng.paged else kv.max_len) * model.cfg.head_dim * 2
     finishes = [r["choices"][0]["finish_reason"] for r in
-                (*results.values(), resend, *sequential.values())] + [chat_finish]
+                (*results.values(), resend, *sequential.values(),
+                 *([long_out] if long_out else []))] + [chat_finish]
     same = all(results[n]["choices"][0]["text"] == sequential[n]["choices"][0]["text"]
                for n in SERVE_PROMPT_BYTES)
     f16_want = {n: counts[n] if f16 else 0 for n in f16_got}
@@ -3406,6 +3497,419 @@ def spec_phases():
     print(card, flush=True)
 
 
+# ---- group 9: the Gemma text families ---------------------------------------
+
+def gemma_want(kernels: dict, model):
+    """`want(cfg, n_steps, n_chunks)` of a Gemma generate over the plain
+    stripe: each matmul weight once a decode step (K1 for the nibble
+    formats, K4 for the others: Gemma's FFN runs unfused, gate|up one
+    matvec) and once a chunk (K3, K5); the tied head is a dense matmul, no
+    kernel; every layer, windowed or not, K2 a step and a chunk (column 0)
+    and K6 a chunk."""
+    g = gemm_counts(model)
+
+    def want(cfg, n_steps, n_chunks):
+        L = cfg.n_layers
+        return dict({name: 0 for name in kernels}, q4k_matvec=g["q4k_gemm"] * n_steps,
+                    int8_matvec=g["dequant_gemm"] * n_steps, q4k_gemm=g["q4k_gemm"] * n_chunks,
+                    dequant_gemm=g["dequant_gemm"] * n_chunks,
+                    attn_decode_qkv=L * (n_steps + n_chunks), flash_attention=L * n_chunks)
+
+    return want
+
+
+# the 2-layer checks: model name -> prompt ids (past the check's window)
+GEMMA_CHECKS = {"gemma2_2layer": GEMMA2_CHECK_WINDOW + 88, "gemma3_2layer": 1024 + 88}
+_CPU_CHECKS: dict[str, subprocess.Popen] = {}
+
+
+def _gemma_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
+    """One side of a 2-layer check on `dev`: the prompt in 256-token chunks
+    (the last token's logits), then GEMMA_CHECK_STEPS decode steps, each
+    fed the argmax of the step before on this side (the CPU) or `forced`
+    (the card: the CPU's tokens).  Returns the ids, the fed tokens and the
+    logits."""
+    from zllm_torch.models.llama import forward
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.kvcache import KVCache
+
+    prompt_n = GEMMA_CHECKS[name]
+    path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K")
+    m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
+    cfg = m.cfg
+    ids = prompt_ids(m.tokenizer, prompt_n)
+    kv = KVCache.create(cfg.n_layers, 1, prompt_n + CHUNK, cfg.n_kv_heads, cfg.head_dim,
+                        torch.bfloat16, dev)
+
+    def run(toks, start):
+        tt = torch.tensor([toks], dtype=torch.int32, device=dev)
+        pp = torch.arange(start, start + len(toks), dtype=torch.int32, device=dev)[None]
+        with torch.inference_mode():
+            return forward(m.params, cfg, tt, pp, kv, logits_for="last")[0, -1].float().cpu()
+
+    for start in range(0, prompt_n, CHUNK):
+        last = run(ids[start:start + CHUNK], start)
+    logits, fed = [last], []
+    for i in range(GEMMA_CHECK_STEPS):
+        fed.append(int(torch.argmax(logits[-1])) if forced is None else forced[i])
+        logits.append(run([fed[-1]], prompt_n + i))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"ids": ids, "fed": fed, "logits": torch.stack(logits)}
+
+
+def start_gemma_children():
+    """After the build: the Gemma files' children and the 2-layer checks'
+    CPU side, all niced, so that they take the cores the card's phases
+    leave (group 9 comes last)."""
+    prepare_requantized([(name, ("Q4_K_M",)) for name in GEMMA_MODELS])
+    start_gemma_cpu_checks()
+
+
+def gemma_cpu_reference(name: str):
+    """`chip_smoke.py --gemma-cpu NAME` (a child, started after the build
+    so that it overlaps the card's earlier phases): the CPU's plain side of
+    a 2-layer check, saved for `gemma_2layer_check`."""
+    import torch
+
+    out = CACHE / f"{name}_cpu_reference.pt"
+    ref = _gemma_2layer_run(torch, name, "cpu")
+    _write_atomic(out, lambda p: torch.save(ref, str(p)))
+
+
+def start_gemma_cpu_checks():
+    """Start one child a 2-layer check (`--gemma-cpu NAME`; it nices itself)."""
+    import atexit
+
+    for name in GEMMA_CHECKS:
+        _CPU_CHECKS[name] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gemma-cpu", name], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
+
+
+def gemma_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
+    """2 layers at a Gemma geometry's full width, Q4_K (the factory), bf16
+    weights and KV: the card against the CPU's plain forward (its child's
+    saved logits), the same ids fed to both, a prompt past the window in
+    256-token chunks (the last token's logits), then GEMMA_CHECK_STEPS
+    decode steps teacher-forced by the CPU's argmax; logits within nmse
+    1e-3 each, K2 and K6 launched in their d 256 forms."""
+    shape, label = main_shapes()[name]
+    t0 = time.perf_counter()
+    child = _CPU_CHECKS.pop(name)
+    err = child.communicate(timeout=900)[1]
+    if child.returncode != 0:
+        fail(f"{name}: the CPU reference failed: {err[-2000:]}")
+    cpu = torch.load(str(CACHE / f"{name}_cpu_reference.pt"))
+    waited = time.perf_counter() - t0
+    before = {n: fn.launches for n, fn in kernels.items()}
+    gpu = _gemma_2layer_run(torch, name, "cuda", forced=cpu["fed"])
+    launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    if gpu["ids"] != cpu["ids"]:
+        fail(f"{name}: the card's prompt ids differ from the CPU's")
+    errs = [nmse(a, b) for a, b in zip(gpu["logits"], cpu["logits"])]
+    agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
+                for a, b in zip(gpu["logits"], cpu["logits"]))
+    res = {"phase": "gemma_2layer", "model": f"{label} Q4_K (random weights, seed 0)",
+           "window": shape["sliding_window"], "window_note": (
+               f"set to {GEMMA2_CHECK_WINDOW} for this check (the model's 4096)"
+               if shape["arch"] == "gemma2" else "the model's"),
+           "prompt_tokens": GEMMA_CHECKS[name], "decode_steps": GEMMA_CHECK_STEPS,
+           "logits_nmse_max": max(errs), "logits_nmse_by_step": errs, "tolerance": 1e-3,
+           "argmax_agree": f"{agree}/{len(errs)}",
+           "gpu_launches": {n: c for n, c in launched.items() if c},
+           "finite": bool(torch.isfinite(gpu["logits"]).all()),
+           "waited_for_cpu_s": waited, "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    if not res["finite"] or max(errs) > 1e-3:
+        fail(f"{name}: GPU logits disagree with the CPU plain forward: {res}")
+    if not (launched["attn_decode_qkv"] and launched["flash_attention"]):
+        fail(f"{name}: the card's run launched {res['gpu_launches']}, not K2 and K6")
+    return launched
+
+
+def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -> list[dict]:
+    """The d 256 forms at their paths' shapes, each against its plain
+    version and one SDPA call: K2 over a Gemma-2-2B step's 26 layers (B 1,
+    S 4352, every other layer windowed at 4096, the last decode position),
+    K6 over its last prefill chunk's (T 256 from 4096), K9 and K10 over the
+    Gemma-2B serve steps' 18 layers (4 slots, 16 pages of 128, 8 / 1 heads,
+    bf16 pools; K9 rows at 255, 0, 300 and a trash row; K10 a chunk of 128
+    from 0, 256, 300 and an idle row)."""
+    from zllm_torch.models.llama import _layer_rope, _layer_window
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import rope_table
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(25)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def by_path(name):
+        return {p: c.get(name, 0) for p, c in paths.items()}
+
+    def agree(a, b):
+        return nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())
+
+    lines = []
+    cfg = model2.cfg
+    L, hq, hkv, d = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = cfg.attn_scale
+    kcs, vcs = gen2.kv.k, gen2.kv.v  # the generate's caches, [1, Hkv, 4352, 256] bf16
+    s = kcs[0].shape[2]
+    windows = [_layer_window(cfg, il) for il in range(L)]
+
+    # K2: one decode step (its q/k/v rows random, the caches the generate's)
+    pos_v = GEMMA2_PROMPT + NEW_TOKENS - 1
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    ropes = {il: rope_table(pos, _layer_rope(cfg, il), d) for il in range(L)}
+    qkv3 = randn(1, hq + 2 * hkv, d)
+    kw2 = dict(scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+    a = att.attn_decode_qkv(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
+                            window=windows[0], **kw2)
+    b = att.attn_decode_qkv_plain(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
+                                  window=windows[0], **kw2)
+    e2, m2 = agree(a, b)
+
+    def k2(fn):
+        def go():
+            for il in range(L):
+                fn(qkv3, kcs[il], vcs[il], pos, ropes[il], window=windows[il], **kw2)
+        return go
+
+    def visible(p_, w):
+        return min(p_, s - 1) + 1 - (max(p_ - w + 1, 0) if w else 0)
+
+    q2b = qkv3[:, :hq, None].to(torch.bfloat16)  # [1, Hq, 1, D]
+    cols = torch.arange(s, device="cuda")
+    masks2 = [((cols <= pos_v) & ((cols > pos_v - w) if w else True)).reshape(1, 1, 1, s)
+              for w in windows]
+
+    def k2_lib():
+        for il in range(L):
+            F.scaled_dot_product_attention(q2b, kcs[il], vcs[il], attn_mask=masks2[il],
+                                           scale=scale, enable_gqa=True)
+
+    seen2 = sum(visible(pos_v, w) for w in windows)
+    b2 = bound_ms(2 * hkv * seen2 * d * 2 + L * (qkv3.numel() * 4 + hq * d * 4),
+                  4 * hq * d * seen2, "bf16")
+    lines.append(dict(
+        name="attn_decode_qkv_d256", route="cuda", source="zllm_torch/csrc/attn_decode.cu",
+        replaces="zllm/ops/attention.py:970", launches=sum(by_path("attn_decode_qkv").values()),
+        max_abs_err=m2, nmse=e2, tolerance=1e-5, ms=cuda_ms(k2(att.attn_decode_qkv), 20),
+        plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 3), bound_ms=b2[0], bound_by=b2[1],
+        library_ms=cuda_ms(k2_lib, 20), library="scaled_dot_product_attention (attention "
+        "alone, no softcap: SDPA has none)", launches_by_path=by_path("attn_decode_qkv"),
+        unit=f"one Gemma-2-2B decode step ({L} launches)",
+        shapes=f"qkv3 [1,{hq + 2 * hkv},{d}] f32, caches [1,{hkv},{s},{d}] bf16 at {pos_v}, "
+               f"windows {sorted(set(windows))}, softcap {cfg.attn_logit_softcap}"))
+
+    # K6: the generate's last prefill chunk (T 256 from 4096), its caches
+    t6, p6 = CHUNK, (GEMMA2_PROMPT // CHUNK) * CHUNK
+    pos6 = (p6 + torch.arange(t6, dtype=torch.int32, device="cuda"))[None]
+    q6 = randn(1, t6, hq, d)
+    kw6 = dict(scale=scale, softcap=cfg.attn_logit_softcap)
+    a = att.flash_attention(q6, kcs[0], vcs[0], pos6, window=windows[0], **kw6)
+    b = att.flash_attention_plain(q6, kcs[0], vcs[0], pos6, window=windows[0], **kw6)
+    e6, m6 = agree(a, b)
+
+    def k6(fn):
+        def go():
+            for il in range(L):
+                fn(q6, kcs[il], vcs[il], pos6, window=windows[il], **kw6)
+        return go
+
+    q6b = q6.to(torch.bfloat16).transpose(1, 2)
+    qp = pos6[0][:, None]
+    masks6 = [((cols[None] <= qp) & ((cols[None] > qp - w) if w else True)).reshape(1, 1, t6, s)
+              for w in windows]
+
+    def k6_lib():
+        for il in range(L):
+            F.scaled_dot_product_attention(q6b, kcs[il], vcs[il], attn_mask=masks6[il],
+                                           scale=scale, enable_gqa=True)
+
+    pairs = sum(visible(p6 + i, w) for w in windows for i in range(t6))
+    seen6 = sum(min(p6 + t6 - 1, s - 1) + 1 - (max(p6 - w + 1, 0) if w else 0) for w in windows)
+    b6 = bound_ms(L * 2 * q6.numel() * 4 + 2 * hkv * seen6 * d * 2, 4 * hq * d * pairs, "bf16")
+    lines.append(dict(
+        name="flash_attention_d256", route="cuda", source="zllm_torch/csrc/flash_attn.cu",
+        replaces="zllm/ops/attention.py:33", launches=sum(by_path("flash_attention").values()),
+        max_abs_err=m6, nmse=e6, tolerance=1e-5, ms=cuda_ms(k6(att.flash_attention), 10),
+        plain_ms=cuda_ms(k6(att.flash_attention_plain), 2), bound_ms=b6[0], bound_by=b6[1],
+        library_ms=cuda_ms(k6_lib, 10), library="scaled_dot_product_attention (no softcap)",
+        launches_by_path=by_path("flash_attention"),
+        unit=f"one Gemma-2-2B prefill chunk ({L} launches)",
+        shapes=f"q [1,{t6},{hq},{d}] f32 from {p6}, k/v [1,{hkv},{s},{d}] bf16, windows "
+               f"{sorted(set(windows))}"))
+
+    # K9 / K10 at the Gemma-2B serve steps' shapes
+    cfg1 = model1.cfg
+    L1, hq1, hkv1 = cfg1.n_layers, cfg1.n_heads, cfg1.n_kv_heads
+    scale1 = cfg1.attn_scale or d ** -0.5
+    n_slots, ps, lp = 4, 128, MAX_LEN // 128
+    horizon = lp * ps
+    table = _paged_table(torch, n_slots, lp, 25)
+    pool_shape = (hkv1, (n_slots * lp + 1) * ps, d)
+    kpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
+    vpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
+    hrange = torch.arange(horizon, device="cuda")
+    rows = (table[:, :lp].long()[:, hrange // ps] * ps + hrange % ps).reshape(-1)
+
+    def gathered(pool):
+        return pool[:, rows].reshape(hkv1, n_slots, horizon, d).transpose(0, 1).contiguous()
+
+    gk, gv = [gathered(p_) for p_ in kpools], [gathered(p_) for p_ in vpools]
+    pos9 = torch.tensor([[255], [0], [300], [horizon]], dtype=torch.int32, device="cuda")
+    live = pos9[:, 0] < horizon
+    q9, kn9, vn9 = randn(n_slots, 1, hq1, d), randn(n_slots, 1, hkv1, d), randn(n_slots, 1, hkv1, d)
+    kw9 = dict(page_size=ps, scale=scale1)
+    a = att.paged_attn_decode_update(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(), table,
+                                     pos9, **kw9)
+    b = att.paged_attn_decode_update_plain(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(),
+                                           table, pos9, **kw9)
+    e9, m9 = agree(a[live], b[live])
+
+    def k9(fn):
+        def go():
+            for il in range(L1):
+                fn(q9, kn9, vn9, kpools[il], vpools[il], table, pos9, **kw9)
+        return go
+
+    q9b = q9.to(torch.bfloat16).transpose(1, 2)
+    mask9 = (hrange[None] <= pos9).reshape(n_slots, 1, 1, horizon)
+
+    def k9_lib():
+        for il in range(L1):
+            F.scaled_dot_product_attention(q9b, gk[il], gv[il], attn_mask=mask9, scale=scale1,
+                                           enable_gqa=True)
+
+    seen9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist() if p_ < horizon)
+    b9 = bound_ms(L1 * (2 * hkv1 * seen9 * d * 2 + 2 * q9.numel() * 4 + 2 * kn9.numel() * 4),
+                  L1 * 4 * hq1 * d * seen9, "bf16")
+    lines.append(dict(
+        name="paged_attn_decode_update_d256", route="cuda",
+        source="zllm_torch/csrc/paged_decode.cu", replaces="zllm/ops/attention.py:665",
+        launches=sum(by_path("paged_attn_decode_update").values()), max_abs_err=m9, nmse=e9,
+        tolerance=1e-6, ms=cuda_ms(k9(att.paged_attn_decode_update), 20),
+        plain_ms=cuda_ms(k9(att.paged_attn_decode_update_plain), 2), bound_ms=b9[0],
+        bound_by=b9[1], library_ms=cuda_ms(k9_lib, 20),
+        library="scaled_dot_product_attention on the pages gathered outside the timing",
+        launches_by_path=by_path("paged_attn_decode_update"),
+        unit=f"one Gemma-2B serve decode step ({L1} launches)",
+        shapes=f"q [4,1,{hq1},{d}] f32, pools [{hkv1},{pool_shape[1]},{d}] bf16, rows at "
+               f"{pos9[:, 0].tolist()}"))
+
+    t10 = 128
+    starts = torch.tensor([0, 256, 300, horizon], dtype=torch.int32, device="cuda")
+    pos10 = starts[:, None] + torch.arange(t10, dtype=torch.int32, device="cuda")[None]
+    q10 = randn(n_slots, t10, hq1, d)
+    kw10 = dict(page_size=ps, scale=scale1)
+    live10 = starts < horizon
+    a = att.paged_attention(q10, kpools[0], vpools[0], table, pos10, **kw10)
+    b = att.paged_attention_plain(q10, kpools[0], vpools[0], table, pos10, **kw10)
+    e10, m10 = agree(a[live10], b[live10])
+
+    def k10(fn):
+        def go():
+            for il in range(L1):
+                fn(q10, kpools[il], vpools[il], table, pos10, **kw10)
+        return go
+
+    q10b = q10.to(torch.bfloat16).transpose(1, 2)
+    mask10 = (hrange[None, None] <= pos10[:, :, None]).reshape(n_slots, 1, t10, horizon)
+
+    def k10_lib():
+        for il in range(L1):
+            F.scaled_dot_product_attention(q10b, gk[il], gv[il], attn_mask=mask10, scale=scale1,
+                                           enable_gqa=True)
+
+    live_starts = [int(p_) for p_ in starts.tolist() if p_ < horizon]
+    pairs10 = sum(min(p_ + i, horizon - 1) + 1 for p_ in live_starts for i in range(t10))
+    seen10 = sum(min(p_ + t10 - 1, horizon - 1) + 1 for p_ in live_starts)
+    b10 = bound_ms(L1 * (2 * hkv1 * seen10 * d * 2 + 2 * q10.numel() * 4),
+                   L1 * 4 * hq1 * d * pairs10, "bf16")
+    lines.append(dict(
+        name="paged_attention_d256", route="cuda", source="zllm_torch/csrc/paged_attn.cu",
+        replaces="zllm/ops/attention.py:350", launches=sum(by_path("paged_attention").values()),
+        max_abs_err=m10, nmse=e10, tolerance=1e-6, ms=cuda_ms(k10(att.paged_attention), 10),
+        plain_ms=cuda_ms(k10(att.paged_attention_plain), 2), bound_ms=b10[0], bound_by=b10[1],
+        library_ms=cuda_ms(k10_lib, 10),
+        library="scaled_dot_product_attention on the pages gathered outside the timing",
+        launches_by_path=by_path("paged_attention"),
+        unit=f"one Gemma-2B serve mixed step ({L1} launches)",
+        shapes=f"q [4,{t10},{hq1},{d}] f32 from {starts.tolist()}, pools "
+               f"[{hkv1},{pool_shape[1]},{d}] bf16"))
+    for ln in lines:
+        emit({"phase": "kernel_gemma", "card": card, **ln})
+    bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
+    if bad:
+        fail(f"the d 256 forms disagree with their plain versions: {bad}")
+    return lines
+
+
+def gemma_group(torch, kernels: dict, card: str) -> dict:
+    """Group 9: the 2-layer GPU-vs-CPU checks, then Gemma-2-2B's generate
+    at full depth, Gemma-3-4B's (12 layers) and its ring serve, Gemma-2B
+    behind the server, and the d 256 forms' kernel lines.  Returns the
+    paths' launch counts and the kernel lines."""
+    import torch.nn.functional as F
+
+    from zllm_torch.models.loader import Model
+
+    t0 = time.perf_counter()
+    counts = {name: gemma_2layer_check(torch, kernels, card, name) for name in GEMMA_CHECKS}
+
+    def load(name):
+        path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K_M")
+        return Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+
+    m2 = load("gemma2_2b")
+    _, counts["gemma2_2b"], gen2, *_ = main_path(
+        torch, "Q4_K_M", kernels, gemma_want(kernels, m2), card, name="gemma2_2b", model=m2,
+        prompt_tokens=GEMMA2_PROMPT, max_len=GEMMA2_MAX_LEN)
+    m3 = load("gemma3_4b")
+    emit({"phase": "gemma3_depth", "layers": m3.cfg.n_layers, "of": 34,
+          "windowed": [il for il in range(m3.cfg.n_layers) if m3.cfg.is_swa_layer(il)],
+          "note": "Gemma-3-4B's geometry cut to 12 of its 34 layers: two full layers (5, 11)"})
+    _, counts["gemma3_4b"], gen3, *_ = main_path(
+        torch, "Q4_K_M", kernels, gemma_want(kernels, m3), card, name="gemma3_4b", model=m3,
+        prompt_tokens=GEMMA3_PROMPT, max_len=GEMMA3_MAX_LEN)
+    del gen3
+    counts["serve_ring_gemma3"] = serve_phase(
+        torch, m3, kernels, card, label=main_shapes()["gemma3_4b"][1] + " Q4_K_M",
+        gemms=gemm_counts(m3), tag="gemma3", server_kw={"max_len": GEMMA3_SERVE_MAX_LEN},
+        long_bytes=GEMMA3_LONG_BYTES)
+    del m3
+    m1 = load("gemma_2b")
+    counts["serve_gemma_2b"] = serve_phase(torch, m1, kernels, card,
+                                           label="Gemma-2B geometry Q4_K_M",
+                                           gemms=gemm_counts(m1), tag="gemma_2b")
+    lines = gemma_kernel_lines(torch, F, m2, gen2, m1, card, counts)
+    del m1, m2, gen2
+    torch.cuda.empty_cache()
+    emit({"phase": "gemma_group", "seconds": time.perf_counter() - t0, "card": card})
+    return {"counts": counts, "lines": lines}
+
+
+def gemma_phases():
+    """`python3 chip_smoke.py --gemma`: group 9 alone after building the
+    kernels (the Gemma files made by children meanwhile)."""
+    torch, card = setup_card()
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports)})
+    start_gemma_children()
+    kernels = kernel_wrappers()
+    gemma_group(torch, kernels, card)
+    print(card, flush=True)
+
+
 def kernel_wrappers() -> dict:
     """The twelve kernels' wrappers, by name; each counts its launches."""
     from zllm_torch.ops import attention as att
@@ -3546,18 +4050,20 @@ def main():
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "built": sorted(reports), "ptxas": ptxas})
+    prepare_requantized(PREQUANTIZE_LATE)
+    start_gemma_children()  # group 9's files and CPU references, while the card works
     mma_build = ptxas_entries(reports, "attn_mma_kernel")
     k6_build = ptxas_entries({"flash_attn": reports.get("flash_attn", "")}, "flash_mma_kernel")
     emit({"phase": "build_attn_mma", "instantiations": mma_build + k6_build,
           "note": "registers and spills of the tensor-core attention loops: attn_mma.cuh (K7 "
                   "multi-row, K10 bf16 and f16) and K6's two-pass form (flash_attn.cu, bf16 and "
-                  "f16 K/V; q f32/bf16 x D 64/128)" if mma_build else "not built in this run "
+                  "f16 K/V; q f32/bf16 x D 64/128/256)" if mma_build else "not built in this run "
                   "(cached)"})
     spills = [e for e in mma_build + k6_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the tensor-core attention loop spills: {spills}")
-    if "flash_attn" in reports and len(k6_build) != 8:
-        fail(f"flash_attn: {len(k6_build)} tensor-core instantiations built, not 8")
+    if "flash_attn" in reports and len(k6_build) != 12:
+        fail(f"flash_attn: {len(k6_build)} tensor-core instantiations built, not 12")
     slice_build = ptxas_entries(reports, "zt_slice")
     emit({"phase": "build_gemm_slice", "instantiations": slice_build,
           "note": "registers and spills of the sliced GEMM loop (csrc/gemm_slice.cuh) of K3 "
@@ -3578,12 +4084,13 @@ def main():
           "note": "registers and spills of the one-launch cluster decode step "
                   "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
                   "K/V int8/bf16 x D 64/128), K9 (paged_decode.cu: q f32/bf16 x pools "
-                  "f32/bf16/f16 x D 64/128) and K8 (attn_decode_update.cu: q f32/bf16 x caches "
+                  "f32/bf16/f16 x D 64/128, bf16/f16 at D 256) and K8 (attn_decode_update.cu: "
+                  "q f32/bf16 x caches "
                   "f32/bf16/f16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
     spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the cluster decode step spills: {spills}")
-    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 12), ("attn_decode_update", 12)):
+    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 16), ("attn_decode_update", 12)):
         inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
         if lib in reports and len(inst) != n_inst:
             fail(f"{lib}: {len(inst)} cluster decode instantiations built, not {n_inst}")
@@ -3620,17 +4127,17 @@ def main():
                   "q/norm/glu x f32/bf16; IQ4_NL and IQ4_XS share one decoder, IQ2_XS and "
                   "IQ2_S another, TQ1_0 and TQ2_0 a third) and K2 (csrc/attn_decode.cu: q "
                   "f32/bf16 x cache "
-                  "f32/bf16/f16 x D 64/128)" if any(k4k2_build.values())
+                  "f32/bf16/f16 x D 64/128/256)" if any(k4k2_build.values())
                   else "not built in this run (cached)"})
     spills = [e for v in k4k2_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"K4 or K2 spills: {spills}")
-    for lib, n_inst in (("int8_matvec", 72), ("attn_decode", 12)):
+    for lib, n_inst in (("int8_matvec", 72), ("attn_decode", 18)):
         if lib in reports and len(k4k2_build[lib]) != n_inst:
             fail(f"{lib}: {len(k4k2_build[lib])} instantiations built, not {n_inst}")
     # the f16 forms (an __half K/V type): K10's tensor-core loop (q f32/bf16 x D
-    # 64/128 x chunks of 64/128), K6's two passes, K9's and K8's cluster step
-    # and K2 (q f32/bf16 x D 64/128 each)
+    # 64/128 x chunks of 64/128, D 256 x chunks of 64), K6's two passes, K9's
+    # cluster step and K2 (q f32/bf16 x D 64/128/256 each), K8's (D 64/128)
     f16_build = {lib: [e for e in ptxas_entries({lib: reports.get(lib, "")}, entry)
                        if "__half" in e["name"]]
                  for lib, entry in (("paged_attn", "attn_mma_kernel"),
@@ -3642,8 +4149,8 @@ def main():
           "note": "registers and spills of the f16 KV forms: K10 (attn_mma.cuh), K6 "
                   "(flash_attn.cu), K9 and K8 (decode_cluster.cuh) and K2 (attn_decode.cu)"
                   if any(f16_build.values()) else "not built in this run (cached)"})
-    for lib, n_inst in (("paged_attn", 8), ("flash_attn", 4), ("paged_decode", 4),
-                        ("attn_decode_update", 4), ("attn_decode", 4)):
+    for lib, n_inst in (("paged_attn", 10), ("flash_attn", 6), ("paged_decode", 6),
+                        ("attn_decode_update", 4), ("attn_decode", 6)):
         if lib in reports and len(f16_build[lib]) != n_inst:
             fail(f"{lib}: {len(f16_build[lib])} f16 instantiations built, not {n_inst}")
     spills = [e for v in f16_build.values() for e in v if e["spill_stores"] or e["spill_loads"]]
@@ -3983,6 +4490,8 @@ def main():
     counts_switches = switches_phase(torch, model_m, kernels, card)
     # group 8: speculative decoding, lookahead and the whole-cache shift
     spec = spec_group(torch, model_m, kernels, card)
+    # group 9: the Gemma text families (head_dim 256, windows, the ring)
+    gemma = gemma_group(torch, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -3997,7 +4506,7 @@ def main():
              "serve_tq2_0": counts_serve_tq, "imatrix": counts_imatrix,
              "iq2_xxs_imatrix": quant_im["counts"], **slot_counts,
              "messages_infill_tools": counts_mit, "router": counts_router,
-             "switches": counts_switches, **spec["counts"]}
+             "switches": counts_switches, **spec["counts"], **gemma["counts"]}
 
     # ---- each kernel at the paths' shapes vs its plain version ----------
     cfg = model.cfg
@@ -5218,6 +5727,7 @@ def main():
                   "and K2; BF16: K2 alone, its matmuls torch's; OLMo-2 over an f16 cache: K1 "
                   "and K8's f16 form) graph times from the kernel phases"})
 
+    lines += gemma["lines"]  # the d 256 forms (group 9), each a line of its own
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
@@ -5250,6 +5760,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--make-gguf"]:  # a child of prepare_requantized
+        os.nice(10)  # the kernels' nvccs and the card's phases first
         sys.path.insert(0, str(REPO))
         for ftype_ in sys.argv[3:]:
             gguf_file(sys.argv[2], main_shapes()[sys.argv[2]][0], ftype_)
@@ -5257,6 +5768,12 @@ if __name__ == "__main__":
         api_phases()
     elif sys.argv[1:2] == ["--spec"]:  # group 8 alone
         spec_phases()
+    elif sys.argv[1:2] == ["--gemma"]:  # group 9 alone
+        gemma_phases()
+    elif sys.argv[1:2] == ["--gemma-cpu"]:  # a child of start_gemma_cpu_checks
+        os.nice(10)
+        sys.path.insert(0, str(REPO))
+        gemma_cpu_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--serve-q8"]:  # serve_q8 and the q8 insert alone
         serve_q8_ab(int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone

@@ -1,11 +1,13 @@
 """`ModelConfig.from_gguf` refuses the `{arch}.*` metadata zllm applies to a
-llama or OLMo-2 file and the port's forward does not: each of the eight
+llama or OLMo-2 file and the port's forward does not: each of the seven
 keys below at a value that changes zllm's model, and per-layer arrays of
 the head counts or the FFN width.  Each case writes a small F32 file with
 the port's factory, adds one key, and asserts both that zllm's config
 takes the value (so zllm would compute another model) and that the port
 raises a typed NotImplementedError naming the key, for the llama and the
-OLMo-2 architecture.  The same keys at their defaults still load."""
+OLMo-2 architecture.  The same keys at their defaults still load.
+`attention.query_pre_attn_scalar` (Gemma-2/3's) applies: the port's score
+scale and logits equal zllm's for it, on both architectures."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,6 @@ CHANGED = {
     "embedding_scale": (2.0, "emb_scale", 2.0),
     "residual_scale": (0.5, "residual_scale", 0.5),
     "attention.clamp_kqv": (0.01, "clamp_kqv", np.float32(0.01)),
-    "attention.query_pre_attn_scalar": (16, "attn_scale", 0.25),
     "attention.output_scale": (0.25, "attn_scale", 0.25),
     "use_parallel_residual": (True, "parallel_residual", "separate"),
     "swin_norm": (True, "swin_norm", True),
@@ -107,3 +108,26 @@ def test_output_scale_beside_attention_scale_loads(base_files, tmp_path):
     zcfg = _zllm_config(path)
     m = Model.load(path, device="cpu", dtype=torch.float32)
     assert m.cfg.attn_scale == zcfg.attn_scale == np.float32(0.125)
+
+
+@pytest.mark.parametrize("arch", ARCHES)
+def test_query_pre_attn_scalar_applies(base_files, tmp_path, arch):
+    """attention.query_pre_attn_scalar 16: the score scale 1/sqrt(16), and a
+    prefill's logits within nmse 1e-5 of zllm's forward."""
+    import jax.numpy as jnp
+
+    from zllm.models.llama import forward as zforward
+    from zllm.models.loader import Model as ZModel
+    from zllm_torch.models.llama import forward
+    from zllm_torch.models.loader import Model
+
+    path = _with_keys(base_files[arch], str(tmp_path / "q.gguf"),
+                      {"attention.query_pre_attn_scalar": 16})
+    zm = ZModel.load(path, dtype=jnp.float32)
+    m = Model.load(path, device="cpu", dtype=torch.float32)
+    assert m.cfg.attn_scale == zm.cfg.attn_scale == 0.25
+    toks = np.arange(3, 23, dtype=np.int32)[None]
+    pos = np.arange(20, dtype=np.int32)[None]
+    want = np.asarray(zforward(zm.params, zm.cfg, jnp.asarray(toks), jnp.asarray(pos), None)[0])
+    got = forward(m.params, m.cfg, torch.from_numpy(toks), torch.from_numpy(pos)).numpy()
+    assert np.mean((got - want) ** 2) <= 1e-5 * np.mean(want ** 2)

@@ -1538,3 +1538,214 @@ def test_verify_columns_get_decode_bits_on_card(dev, kind, kv_dtype, arch, act, 
     from test_torch_verify_step import verify_matches_decode
 
     verify_matches_decode(kind, kv_dtype, arch, dev, act, monkeypatch)
+
+
+# ---- head_dim 256 (the Gemma text families) and windows past the window ----
+# (Hq, Hkv) of Gemma-2-2B / Gemma-3-4B (2:1 GQA) and Gemma-2B (8:1 MQA)
+GEMMA_HEADS = {"g2": (8, 4), "g8": (8, 1)}
+KV3 = [torch.float32, torch.bfloat16, torch.float16]
+KV3_IDS = ["f32", "bf16", "f16"]
+
+
+@pytest.mark.parametrize("cdtype", KV3, ids=KV3_IDS)
+@pytest.mark.parametrize("case", ["gemma2", "gemma3", "gemma1", "trash", "bf16q", "long_span"])
+def test_k2_d256_matches_plain(dev, case, cdtype):
+    """K2's head_dim-256 form: Gemma-2's block (8 / 4 heads, softcap 50,
+    window 4096, scale 1/16) at 5000 past its window; Gemma-3's (per-head
+    q/k norms, window 1024) at 3000; Gemma-1's MQA (8 / 1); a trash row;
+    a bf16 q; a span of several chunks (window 0, pos 6000)."""
+    hq, hkv = GEMMA_HEADS["g8" if case == "gemma1" else "g2"]
+    d, s = 256, 8192 + 128
+    pos_vals = {"gemma2": [5000, 100], "gemma3": [3000, 1500], "trash": [s, 700],
+                "long_span": [6000, 8191]}.get(case, [4500, 2])
+    window = {"gemma2": 4096, "gemma3": 1024, "trash": 1024}.get(case, 0)
+    qdtype = torch.bfloat16 if case == "bf16q" else torch.float32
+    b = len(pos_vals)
+    qkv3 = _randn((b, hq + 2 * hkv, d), 40, dev, qdtype)
+    kc = _randn((b, hkv, s, d), 41, dev, cdtype)
+    vc = _randn((b, hkv, s, d), 42, dev, cdtype)
+    qw = _randn((d,), 43, dev) if case == "gemma3" else None
+    kw = _randn((d,), 44, dev) if case == "gemma3" else None
+    pos = torch.tensor(pos_vals, dtype=torch.int32, device=dev)
+    base = 1e4 if case != "gemma3" else 1e6
+    rope = tl.RopeParams(dim=d, base=base, style="neox")
+    rt = tl.rope_table(pos, rope, d)
+    kw_args = dict(scale=1 / 16, softcap=50.0 if case == "gemma2" else 0.0, window=window,
+                   eps=1e-6)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = ta.attn_decode_qkv.launches
+    got = ta.attn_decode_qkv(qkv3, k1, v1, pos, rt, qw, kw, **kw_args)
+    want = ta.attn_decode_qkv_plain(qkv3, k2, v2, pos, rt, qw, kw, **kw_args)
+    torch.cuda.synchronize()
+    assert ta.attn_decode_qkv.launches == before + 1
+    assert got.dtype == qdtype and got.shape == (b, 1, hq, d)
+    assert _nmse(got.float(), want.float()) < 1e-5
+    assert torch.equal(v1, v2) and _nmse(k1.float(), k2.float()) < 1e-9
+
+
+@pytest.mark.parametrize("kvdtype", KV3, ids=KV3_IDS)
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("case", ["gemma2", "gemma3", "gemma1", "ragged", "rows"])
+def test_k6_d256_matches_plain(dev, case, qdtype, kvdtype):
+    """K6's head_dim-256 form (64-slot chunks on the tensor cores, the tile
+    loop for f32 K/V): a 256-token chunk from 4352 under Gemma-2's window
+    4096 and softcap 50, from 1280 under Gemma-3's 1024, Gemma-1's MQA from
+    0; a ragged T 37; `rows`: a row of a T 44 call equals the T 128 call's
+    bit for bit."""
+    hq, hkv = GEMMA_HEADS["g8" if case == "gemma1" else "g2"]
+    d, s = 256, 4736
+    t = 37 if case == "ragged" else 256 if case != "rows" else 128
+    base = {"gemma2": 4352, "gemma3": 1280, "gemma1": 0, "ragged": 900}.get(case, 2000)
+    window = {"gemma2": 4096, "gemma3": 1024, "rows": 1024}.get(case, 0)
+    q = _randn((1, t, hq, d), 50, dev, qdtype)
+    k = _randn((1, hkv, s, d), 51, dev, kvdtype)
+    v = _randn((1, hkv, s, d), 52, dev, kvdtype)
+    positions = (base + torch.arange(t, device=dev, dtype=torch.int32))[None]
+    kw = dict(scale=1 / 16, softcap=50.0 if case == "gemma2" else 0.0, window=window)
+    before = (ta.flash_attention.launches, ta.flash_attention.mma_launches)
+    got = ta.flash_attention(q, k, v, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention.launches == before[0] + 1
+    assert ta.flash_attention.mma_launches == before[1] + (kvdtype != torch.float32)
+    if case == "rows":
+        short = ta.flash_attention(q[:, :44].contiguous(), k, v, positions[:, :44], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(short, got[:, :44])
+        return
+    want = ta.flash_attention_plain(q, k, v, positions, **kw)
+    assert got.dtype == qdtype and got.shape == q.shape
+    assert _nmse(got.float(), want.float()) < 1e-5
+
+
+@pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16"])
+@pytest.mark.parametrize("case", ["gemma1", "gemma2_window", "gemma3_window", "gen_row"])
+def test_k10_d256_matches_plain(dev, case, qdtype, pdtype):
+    """K10's head_dim-256 form (64-slot chunks of 128-slot pages; f32 pools
+    the tile loop): Gemma-1's MQA over 2048 slots, the Gemma-2/3 windows
+    with rows past them, a mixed step's generating row and an idle row."""
+    hq, hkv = GEMMA_HEADS["g8" if case == "gemma1" else "g2"]
+    b, d, ps, lp, t = 3, 256, 128, 16, 128
+    window = {"gemma2_window": 600, "gemma3_window": 1024}.get(case, 0)
+    q = _randn((b, t, hq, d), 60, dev, qdtype)
+    k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 61)
+    starts = torch.tensor([0, 1200, lp * ps], dtype=torch.int32, device=dev)
+    if case == "gen_row":
+        starts[1] = 1777
+    positions = starts[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None]
+    kw = dict(page_size=ps, scale=1 / 16, softcap=50.0 if case == "gemma2_window" else 0.0,
+              window=window)
+    before = ta.paged_attention.launches
+    got = ta.paged_attention(q, k_pool, v_pool, table, positions, **kw)
+    want = ta.paged_attention_plain(q, k_pool, v_pool, table, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.paged_attention.launches == before + 1
+    live = (starts < lp * ps).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert _nmse(got[live].float(), want[live].float()) < 1e-6
+
+
+@pytest.mark.parametrize("qdtype,pdtype", [(torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float16),
+                                           (torch.bfloat16, torch.float16)],
+                         ids=["f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
+@pytest.mark.parametrize("case", ["gemma1", "gemma2_window", "gemma3_window", "long"])
+def test_k9_d256_matches_plain(dev, case, qdtype, pdtype):
+    """K9's head_dim-256 form (q's fragments in shared memory): Gemma-1's
+    MQA, the Gemma-2/3 windows with rows past them (the window's first page
+    mid-span), 65 pages a row; the pools bit-identical outside the trash
+    page."""
+    hq, hkv = GEMMA_HEADS["g8" if case == "gemma1" else "g2"]
+    b, d, ps = 4, 256, 128
+    lp = 65 if case == "long" else 40
+    window = {"gemma2_window": 4096, "gemma3_window": 1024}.get(case, 0)
+    pos_vals = {"long": [8000, 4100, 0, lp * ps]}.get(case, [5000, 1100, 127, lp * ps])
+    positions = torch.tensor(pos_vals, dtype=torch.int32, device=dev)[:, None]
+    q = _randn((b, 1, hq, d), 70, dev, qdtype)
+    kn = _randn((b, 1, hkv, d), 71, dev, qdtype)
+    vn = _randn((b, 1, hkv, d), 72, dev, qdtype)
+    k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, 73)
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    kw = dict(page_size=ps, scale=1 / 16, softcap=50.0 if case == "gemma2_window" else 0.0,
+              window=window)
+    got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, positions, **kw)
+    want = ta.paged_attn_decode_update_plain(q, kn, vn, k2, v2, table, positions, **kw)
+    torch.cuda.synchronize()
+    live = positions[:, 0] < lp * ps
+    assert _nmse(got[live].float(), want[live].float()) < 1e-6
+    assert torch.equal(k_pool[:, ps:], k2[:, ps:]) and torch.equal(v_pool[:, ps:], v2[:, ps:])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kernel", ["k2", "k6", "k9", "k10"])
+def test_windowed_forms_past_the_window(dev, kernel, d):
+    """Each kernel's windowed form at d 64, 128 and 256, bf16 K/V, every
+    query past a window of 300 whose first slot lies mid-chunk, so the
+    chunks (pages) below pos - window are skipped."""
+    hq, hkv, w = 8, 2, 300
+    scale = d ** -0.5
+    if kernel == "k2":
+        s = 2176
+        pos = torch.tensor([1700, 2047], dtype=torch.int32, device=dev)
+        qkv3 = _randn((2, hq + 2 * hkv, d), 80, dev)
+        kc = _randn((2, hkv, s, d), 81, dev, torch.bfloat16)
+        vc = _randn((2, hkv, s, d), 82, dev, torch.bfloat16)
+        rt = tl.rope_table(pos, tl.RopeParams(dim=d, style="neox"), d)
+        k2c, v2c = kc.clone(), vc.clone()
+        got = ta.attn_decode_qkv(qkv3, kc, vc, pos, rt, scale=scale, window=w)
+        want = ta.attn_decode_qkv_plain(qkv3, k2c, v2c, pos, rt, scale=scale, window=w)
+        tol = 1e-5
+    elif kernel == "k6":
+        s, t = 2176, 128
+        q = _randn((2, t, hq, d), 83, dev)
+        k = _randn((2, hkv, s, d), 84, dev, torch.bfloat16)
+        v = _randn((2, hkv, s, d), 85, dev, torch.bfloat16)
+        pos = torch.tensor([[1000], [1900]], dtype=torch.int32, device=dev) + torch.arange(
+            t, dtype=torch.int32, device=dev)[None]
+        got = ta.flash_attention(q, k, v, pos, scale=scale, window=w)
+        want = ta.flash_attention_plain(q, k, v, pos, scale=scale, window=w)
+        tol = 1e-5
+    else:
+        b, lp, ps = 2, 16, 128
+        k_pool, v_pool, table = _paged_inputs(b, hkv, d, lp, ps, torch.bfloat16, dev, 86)
+        if kernel == "k9":
+            pos = torch.tensor([[1700], [2047]], dtype=torch.int32, device=dev)
+            q = _randn((b, 1, hq, d), 87, dev)
+            kn, vn = _randn((b, 1, hkv, d), 88, dev), _randn((b, 1, hkv, d), 89, dev)
+            kp2, vp2 = k_pool.clone(), v_pool.clone()
+            got = ta.paged_attn_decode_update(q, kn, vn, k_pool, v_pool, table, pos,
+                                              page_size=ps, scale=scale, window=w)
+            want = ta.paged_attn_decode_update_plain(q, kn, vn, kp2, vp2, table, pos,
+                                                     page_size=ps, scale=scale, window=w)
+        else:
+            t = 64
+            q = _randn((b, t, hq, d), 90, dev)
+            pos = torch.tensor([[1000], [1900]], dtype=torch.int32, device=dev) + torch.arange(
+                t, dtype=torch.int32, device=dev)[None]
+            got = ta.paged_attention(q, k_pool, v_pool, table, pos, page_size=ps, scale=scale,
+                                     window=w)
+            want = ta.paged_attention_plain(q, k_pool, v_pool, table, pos, page_size=ps,
+                                            scale=scale, window=w)
+        tol = 1e-6
+    torch.cuda.synchronize()
+    assert _nmse(got.float(), want.float()) < tol
+
+
+def test_k7_k8_refuse_d256_and_k9_f32_pools(dev):
+    """K7 and K8 have no head_dim-256 form (ROADMAP queue 2), nor K9 over
+    an f32 pool: each raises a ValueError, launching nothing."""
+    q = _randn((1, 1, 8, 256), 91, dev)
+    kc = _randn((1, 1, 512, 256), 92, dev, torch.bfloat16)
+    pos = torch.tensor([[10]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="K8"):
+        ta.attn_decode_update(q, q[:, :, :1], q[:, :, :1], kc, kc.clone(), pos, scale=0.0625)
+    with pytest.raises(ValueError, match="K7"):
+        ta.flash_attention_blockwise(q, kc, kc.clone(), pos, scale=0.0625)
+    k_pool, v_pool, table = _paged_inputs(1, 1, 256, 4, 128, torch.float32, dev, 93)
+    with pytest.raises(ValueError, match="f32 pool"):
+        ta.paged_attn_decode_update(q, q[:, :, :1], q[:, :, :1], k_pool, v_pool, table, pos,
+                                    page_size=128, scale=0.0625)

@@ -98,7 +98,7 @@ def test_make_olmo2_gguf_has_olmo2_tensors(tmp_path):
     m = Model.load(path, dtype=jnp.float32)
     assert m.cfg.arch == "olmo2" and "attn_norm" not in m.params["layers"][0]
     with pytest.raises(ValueError, match="the factory writes"):
-        make_llama_gguf(str(tmp_path / "g.gguf"), arch="gemma2")
+        make_llama_gguf(str(tmp_path / "g.gguf"), arch="phi3")
 
 
 def test_writer_rewrites_file_byte_identical(small_gguf, tmp_path):

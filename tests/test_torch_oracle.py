@@ -175,3 +175,44 @@ def serve_and_read_metrics(args: list[str], env: dict, prompt: str) -> dict:
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def gemma_hf_state(cfg: dict, seed: int) -> dict:
+    """A seeded HF-style Gemma-2/3 state dict (numpy f32) for `cfg`."""
+    rng = np.random.default_rng(seed)
+    e, v, f = cfg["hidden_size"], cfg["vocab_size"], cfg["intermediate_size"]
+    hq, hkv, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
+
+    def w(*shape, s=0.08):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    sd = {"model.embed_tokens.weight": w(v, e, s=0.3), "model.norm.weight": w(e, s=0.1)}
+    for il in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{il}."
+        sd.update({p + "input_layernorm.weight": w(e, s=0.1),
+                   p + "self_attn.q_proj.weight": w(hq * d, e),
+                   p + "self_attn.k_proj.weight": w(hkv * d, e),
+                   p + "self_attn.v_proj.weight": w(hkv * d, e),
+                   p + "self_attn.o_proj.weight": w(e, hq * d),
+                   p + "post_attention_layernorm.weight": w(e, s=0.1),
+                   p + "pre_feedforward_layernorm.weight": w(e, s=0.1),
+                   p + "post_feedforward_layernorm.weight": w(e, s=0.1),
+                   p + "mlp.gate_proj.weight": w(f, e),
+                   p + "mlp.up_proj.weight": w(f, e),
+                   p + "mlp.down_proj.weight": w(e, f)})
+        if "rope_local_base_freq" in cfg:  # gemma3: per-head q/k norms
+            sd[p + "self_attn.q_norm.weight"] = w(d, s=0.1)
+            sd[p + "self_attn.k_norm.weight"] = w(d, s=0.1)
+    return sd
+
+
+def gemma_tokenizer_kv(vocab: int) -> dict:
+    """A byte-level SPM vocab (the factory's) as GGUF keys."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tokens += [f"<extra{i}>" for i in range(vocab - len(tokens))]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.pre": "default",
+            "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.scores": [0.0] * vocab,
+            "tokenizer.ggml.token_type": [2, 3, 3] + [6] * 256 + [1] * (vocab - 259),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.unknown_token_id": 0, "tokenizer.ggml.add_bos_token": True,
+            "tokenizer.ggml.add_space_prefix": False}

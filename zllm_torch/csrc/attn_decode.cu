@@ -64,6 +64,12 @@
 //     the output does not depend on which block is last.  A span of one
 //     chunk (a live row at pos < 512) touches no scratch and no counter.
 //
+// Head dims 64, 128 and 256 (Gemma's).  At D 256 a chunk is 128 slots of a
+// bf16 or f16 cache (64 of an f32 one), 165 KB of shared memory (159 KB
+// f32); q's B fragments (32 registers) live only through the scores and
+// the P.V accumulators (64) only through phase 2, under the 128 a thread
+// of a 512-thread block.
+//
 // Where trouble lies:
 //   * The insert in one launch: only the (chunk 0, query group 0) block
 //     writes the cache row pw; no block reads it from the cache -- the
@@ -437,9 +443,14 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
     }
     __syncthreads();
   }
-  // row r's denominator: one chunk, its own l (its max is the row's, so the
-  // chunk-order sum above would give these bits); more, the combined one
-  auto row_den = [&](int r) -> float { return nsp > 1 ? row_l[r] : chunk_l(r); };
+  // row r's denominator in row_l: one chunk, its own l (its max is the
+  // row's, so the chunk-order sum above would give these bits); more, the
+  // combined one.  Read from shared memory where it is used (the f32 form's
+  // P.V at D 256 has no registers to spare for a copy)
+  if (nsp == 1) {
+    if (tid < RM) row_l[tid] = chunk_l(tid);
+    __syncthreads();
+  }
 
   // ---- phase 2: P.V chunk by chunk in order, p = exp(s - M) / l rounded to
   // the cache dtype as the fragments are built (one chunk: e is in place)
@@ -487,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
     }
     if constexpr (kMma) {
       const int rq = lane / 4;
-      const float lq = row_den(rq);
+      const float lq = row_l[rq];
       for (int t = warp; t < (ni + 15) / 16; t += kWarps) {
         const int s0 = 16 * t + (lane % 4) * 2;  // k pairs s0, s0 + 1 and s0 + 8, s0 + 9
         const bool ok[4] = {s0 < ni, s0 + 1 < ni, s0 + 8 < ni, s0 + 9 < ni};
@@ -508,14 +519,12 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
         }
       }
     } else {  // f32 V
-      float lrow[RM];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) lrow[r] = row_den(r);
+      const volatile float* den = row_l;  // loaded where used, never held (see above)
       for (int t = warp; t < ni; t += kWarps) {
         const float* v = reinterpret_cast<const float*>(v_i + t * RS) + lane * DPL;
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
-          const float pr = prob(s_i[t * RM + r], lrow[r]);
+          const float pr = prob(s_i[t * RM + r], den[r]);
 #pragma unroll
           for (int d = 0; d < DPL; ++d) acc[r][d] += pr * v[d];
         }
@@ -556,6 +565,9 @@ template <typename TQ, typename TC, int D>
 int launch(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t shmem = smem_bytes<TC, D>();
   static_assert(shmem <= (size_t)kMaxSmem, "K2's shared memory");
+  // the warps' P.V partials reuse the staged K and V rows
+  static_assert((size_t)kWarps * RM * D * 4 <= (size_t)2 * kChunk<TC, D> * kRowBytes<TC, D>,
+                "K2's partials");
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -581,6 +593,7 @@ template <typename TQ, typename TC>
 int launch_d(const Params& p, int B, int D, cudaStream_t s) {
   if (D == 64) return launch<TQ, TC, 64>(p, B, s);
   if (D == 128) return launch<TQ, TC, 128>(p, B, s);
+  if (D == 256) return launch<TQ, TC, 256>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -596,7 +609,7 @@ static int cache_bytes(int c_dtype) {
 // rows); 0 for a shape or code the kernel does not take.  The wrapper sizes
 // the grid (ceil(S / chunk) splits) and the scratch.
 extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
-  if ((D != 64 && D != 128) || cache_bytes(c_dtype) == 0) return 0;
+  if ((D != 64 && D != 128 && D != 256) || cache_bytes(c_dtype) == 0) return 0;
   return 65536 / (D * cache_bytes(c_dtype));
 }
 

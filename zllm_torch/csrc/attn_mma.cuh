@@ -641,6 +641,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
 template <typename TQ, typename TKV, int D, int CH, bool kPage, typename KV>
 int launch_mma(const KV& kv, const Params& a, cudaStream_t stream) {
   constexpr size_t shmem = Layout<TQ, TKV, D, CH, KV::kScales>::bytes;
+  static_assert(shmem + 1024 <= 232448, "the loop's shared memory");
   auto kern = attn_mma_kernel<TQ, TKV, D, CH, kPage, KV>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {

@@ -232,6 +232,7 @@ int launch_tiles(const void* q, const KV& kv, const int* pos0, const float* sink
                  int B, int T, int Hq, int Hkv, int S, float scale, float softcap, int window,
                  cudaStream_t stream) {
   constexpr size_t shmem = smem_bytes<D>();
+  static_assert(shmem <= 232448, "the tile loop's shared memory");
   auto kern = attn_tile_kernel<TQ, TKV, D, KV>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {

@@ -199,6 +199,13 @@ struct Params {
   int window;
 };
 
+// q's B fragments in shared memory, built once by warp 0 (else in each
+// warp's registers): K8's f16 form (in registers they spilled its f32-q D
+// 128 form at two blocks an SM) and every D 256 form (96 registers of an
+// f32 q's three parts, beside phase 2's 128 of P.V accumulators)
+template <typename TKV, int D, int ROUND>
+constexpr bool kQsmOf = (zt_mma::IsF16<TKV>::value && ROUND == kRoundNorm) || D > 128;
+
 // shared memory of one launch, in bytes (the kernel's carve-up, in order)
 template <typename TKV, int D, bool kScaled, int ROUND>
 size_t smem_bytes(int mmax, int n_slots) {
@@ -212,10 +219,10 @@ size_t smem_bytes(int mmax, int n_slots) {
          + sizeof(float) * 2 * RM                           // row max, denominator
          + sizeof(float) * (size_t)RM * D                   // the block's P.V partial
          + sizeof(size_t) * (size_t)mmax                    // own chunks' first rows
-         + (zt_mma::IsF16<TKV>::value ? sizeof(int) * RM : 0)   // f16: each q row's 2^e
-         + (zt_mma::IsF16<TKV>::value && ROUND == kRoundNorm    // K8's f16 form: q's fragments
-                ? sizeof(uint32_t) * D / 16 * 3 * 2 * 32
-                : 0);
+         + (zt_mma::IsF16<TKV>::value || kQsmOf<TKV, D, ROUND>  // f16: each q row's 2^e
+                ? sizeof(int) * RM
+                : 0)
+         + (kQsmOf<TKV, D, ROUND> ? sizeof(uint32_t) * D / 16 * 3 * 2 * 32 : 0);  // q's fragments
 }
 
 // two blocks an SM where the registers allow it (bf16 / int8 K/V at D 64, the
@@ -255,7 +262,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   // warp 0 and read by every warp, and each row's score scale read where it
   // is used (in registers they spilled the f32-q D 128 form at two blocks an
   // SM, 128 registers a thread; K9's f16 form keeps both in registers)
-  constexpr bool kQsm = kF16 && KV::kRound == kRoundNorm;
+  constexpr bool kQsm = kQsmOf<TKV, D, KV::kRound>;
   uint32_t* qbs = reinterpret_cast<uint32_t*>(q_exp + RM);
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -391,7 +398,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
   float qrs[2] = {p.scale, p.scale};
   auto build_qb = [&]() {
     if constexpr (kMma) {
-      if (kQsm && warp != 0) return;  // K8's f16 fragments go to shared memory, once
+      if (kQsm && warp != 0) return;  // fragments in shared memory: built once
       const float* qn = qsh + (lane / 4) * D + (lane % 4) * 2;
       float up = 1.f;
       if constexpr (kF16) up = zt::pow2(q_exp[lane / 4]);
@@ -469,7 +476,7 @@ __global__ void __cluster_dims__(NB, 1, 1) __launch_bounds__(kThreads,
         const bool ok = slot < cs && s >= lo && s <= hi && r < nr && s <= qp &&
                         (p.window <= 0 || s > qp - p.window);
         float x;
-        if constexpr (kQsm) {  // the row's 2^-e joins the scale (read here: no registers held)
+        if constexpr (kQsm && kF16) {  // the row's 2^-e joins the scale (read here: no registers held)
           x = c[e4] * (p.scale * zt::pow2(-q_exp[r]));
         } else if constexpr (kF16) {
           x = c[e4] * qrs[e4 & 1];

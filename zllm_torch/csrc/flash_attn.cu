@@ -52,6 +52,12 @@
 //  * f32 K/V (zt_flash_attention): the CUDA-core tile loop of attn_tile.cuh
 //    (shared with K10's f32 pools), since bf16 tensor-core operands would
 //    round K/V; the probabilities are rounded to f32, the identity.
+//
+// Head dims 64, 128 and 256 (Gemma's).  At D 256 the tensor-core form takes
+// chunks of 64 slots (two stages of 128 would need 264 KB of shared memory
+// with an f32 q's three parts; 64 take 182 KB, one block an SM), and its O
+// accumulators, 128 registers a thread, stay under the 255 of two blocks'
+// launch bound; the tile loop's f32 tiles take 169 KB.
 
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
@@ -85,6 +91,9 @@ int launch_tile(int D, const void* q, const void* k, const void* v, const int* p
   if (D == 128)
     return zt_attn::launch_tiles<TQ, float, 128>(q, kv, pos0, sinks, out, B, T, Hq, Hkv, S,
                                                  scale, softcap, window, s);
+  if (D == 256)
+    return zt_attn::launch_tiles<TQ, float, 256>(q, kv, pos0, sinks, out, B, T, Hq, Hkv, S,
+                                                 scale, softcap, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -93,12 +102,15 @@ int launch_tile(int D, const void* q, const void* k, const void* v, const int* p
 using zt_mma::kNegInf;
 using zt_mma::kSlotWarps;
 using zt_mma::QB;
-constexpr int kCh = 128;  // slots a chunk
+// slots a chunk: 128, 64 at D 256 (two stages of its rows fit a block)
+template <int D>
+constexpr int kChOf = D > 128 ? 64 : 128;
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(zt_mma::kThreads, 2)
     flash_mma_kernel(const ContigKV<TKV> kv, const zt_mma::Params a) {
   using namespace zt;
+  constexpr int kCh = kChOf<D>;
   using L = zt_mma::Layout<TQ, TKV, D, kCh, false>;
   using TT = TKV;  // the tensor cores' operand type: the K/V dtype
   constexpr bool kF16 = zt_mma::IsF16<TKV>::value;
@@ -333,7 +345,8 @@ __global__ void __launch_bounds__(zt_mma::kThreads, 2)
 // One launch: grid (B * Hkv * ceil(T * G / QB)), kThreads threads.
 template <typename TQ, typename TKV, int D>
 int launch_mma_d(const ContigKV<TKV>& kv, const zt_mma::Params& a, cudaStream_t stream) {
-  constexpr size_t shmem = zt_mma::Layout<TQ, TKV, D, kCh, false>::bytes;
+  constexpr size_t shmem = zt_mma::Layout<TQ, TKV, D, kChOf<D>, false>::bytes;
+  static_assert(shmem + 1024 <= 232448, "K6's shared memory");
   auto kern = flash_mma_kernel<TQ, TKV, D>;
   static bool attr_set = false;  // once per instantiation, not inside graph captures
   if (!attr_set) {
@@ -353,6 +366,7 @@ int launch_mma(int D, const void* k, const void* v, int Hkv, int S, const zt_mma
   const ContigKV<TKV> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), Hkv, S, D};
   if (D == 64) return launch_mma_d<TQ, TKV, 64>(kv, a, s);
   if (D == 128) return launch_mma_d<TQ, TKV, 128>(kv, a, s);
+  if (D == 256) return launch_mma_d<TQ, TKV, 256>(kv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -366,7 +380,8 @@ extern "C" int zt_flash_attention_mma(const void* q, int q_dtype, const void* k,
                                       float scale, float softcap, int window, void* stream) {
   if (Hq % Hkv != 0 || T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const zt_mma::Params a{q, out, pos0, sinks, B, T, Hq, Hkv, S, kCh, scale, softcap, window};
+  const zt_mma::Params a{q, out, pos0, sinks, B, T, Hq, Hkv, S, D > 128 ? 64 : 128, scale,
+                         softcap, window};
 #define ZT_ARGS D, k, v, Hkv, S, a, s
   if (q_dtype == 0 && kv_dtype == 1) return launch_mma<float, bf16>(ZT_ARGS);
   if (q_dtype == 1 && kv_dtype == 1) return launch_mma<bf16, bf16>(ZT_ARGS);

@@ -31,7 +31,10 @@
 // step (chunk 128, rows from 0, 256, 300 and a trash row) it is the bytes,
 // by a small margin.  A block of the bf16 loop takes 32 of the T * G query
 // rows of one (slot, kv head), so a chunk of 128 at G = 8 gives 32 x Hkv x
-// B blocks, the idle row's first.
+// B blocks, the idle row's first.  Head dims 64, 128 and 256 (Gemma's):
+// at D 256 the bf16/f16 loop always takes chunks of 64 slots (two stages of
+// 128 would not fit a block's shared memory with an f32 q's three parts),
+// and the f32 tile loop its 64-slot tiles as at the other widths.
 
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
@@ -70,6 +73,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, const int* tabl
   if (D == 128)
     return launch_tiles<TQ, float, 128>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
                                         softcap, window, s);
+  if (D == 256)
+    return launch_tiles<TQ, float, 256>(q, kv, pos0, nullptr, out, B, T, Hq, Hkv, S, scale,
+                                        softcap, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -89,6 +95,7 @@ int launch_mma_q(int D, const void* k_pool, const void* v_pool, const int* table
   if (D == 128)
     return ch128 ? launch_mma_d<TQ, TP, 128, 128>(kv, a, s)
                  : launch_mma_d<TQ, TP, 128, 64>(kv, a, s);
+  if (D == 256) return launch_mma_d<TQ, TP, 256, 64>(kv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,7 +26,10 @@
 // page maxima over distributed shared memory, rounds exp(s - M_j) to the
 // pool dtype, rescales each page's P.V to the row's max, and block 0 sums
 // the blocks' partials and divides once.  The insert slot's K and V rows
-// come from k/v_new (rounded), never from the pool.
+// come from k/v_new (rounded), never from the pool.  Head dims 64, 128 and
+// 256 (Gemma's); at D 256 bf16 and f16 pools only (an f32 pool's two
+// 128-slot chunks of 1 KB rows exceed a block's shared memory), q's
+// fragments in shared memory (decode_cluster.cuh's kQsmOf).
 
 #include "decode_cluster.cuh"
 
@@ -65,6 +68,9 @@ int launch(int D, const void* k_new, const void* v_new, void* k_pool, void* v_po
                            table, TW, n_rows};
   if (D == 64) return zt_dc::launch<TQ, TP, 64>(p, kv, B, stream);
   if (D == 128) return zt_dc::launch<TQ, TP, 128>(p, kv, B, stream);
+  if constexpr (sizeof(TP) == 2) {
+    if (D == 256) return zt_dc::launch<TQ, TP, 256>(p, kv, B, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,9 @@
 """Model hyper-parameters resolved from GGUF metadata: the fields the
 llama path reads (counterpart of `zllm/models/config.py::ModelConfig`,
 whose `from_gguf` resolves the same keys the same way for plain llama,
-OLMo-2, Qwen2 and Qwen3)."""
+OLMo-2, Qwen2, Qwen3 and the Gemma text families: gemma, gemma2 and
+gemma3, with their gelu, sliding windows, rope base of the windowed
+layers and `attention.query_pre_attn_scalar`)."""
 
 from __future__ import annotations
 
@@ -16,11 +18,17 @@ _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 # (Llama-3 files too: rope_freqs.weight is loaded and not read, as zllm
 # does), OLMo-2 (no pre-norms; whole-projection q/k RMS norms; RMS
 # post-norms on the attention and FFN outputs), Qwen2 (q/k/v biases) and
-# Qwen3 (per-head q/k RMS norms)
-SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3")
+# Qwen3 (per-head q/k RMS norms) and Gemma: the embedding scaled by
+# sqrt(n_embd), geglu, a tied head; gemma2 and gemma3 add the post-norms
+# (sandwich norms), a sliding window on all but every swa_pattern-th
+# layer, and gemma3 Qwen3's per-head q/k norms
+SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
 # architectures whose GGUFs carry half-split rope natively (zllm's
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
-NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3")
+NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
+# the period of the windowed layers (zllm's swa_pattern: layer il is
+# windowed unless (il + 1) % pattern == 0); 1, the other arches': none
+SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 
 # `{arch}.*` keys zllm's from_gguf reads for any architecture and its llama
 # forward applies, none of which the port's forward does: the key -> a test
@@ -29,7 +37,6 @@ _UNPORTED_OPTIONS = {
     "embedding_scale": lambda v: float(v) == 1.0,
     "residual_scale": lambda v: float(v) == 1.0,
     "attention.clamp_kqv": lambda v: not float(v or 0.0),
-    "attention.query_pre_attn_scalar": lambda v: not v,
     "use_parallel_residual": lambda v: not bool(v),
     "swin_norm": lambda v: not bool(v),
     "attention.max_alibi_bias": lambda v: not float(v or 0.0),
@@ -51,7 +58,8 @@ def _refuse_unported(kv):
     # zllm takes attention.output_scale as the score scale when neither
     # query_pre_attn_scalar nor attention.scale sets one
     out_scale = kv("attention.output_scale")
-    if float(out_scale or 0.0) and not float(kv("attention.scale", 0.0) or 0.0):
+    if (float(out_scale or 0.0) and not float(kv("attention.scale", 0.0) or 0.0)
+            and not kv("attention.query_pre_attn_scalar")):
         raise NotImplementedError(f"attention.output_scale={out_scale!r} is not in zllm_torch "
                                   f"yet ({_OPTIONS_ITEM})")
     for key in ("attention.head_count", "attention.head_count_kv", "feed_forward_length"):
@@ -76,7 +84,16 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     logit_scale: float = 1.0
-    attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim); 1/sqrt(query_pre_attn_scalar)
+    # the rope of the windowed layers (gemma3: rope.freq_base_swa, unscaled)
+    rope_swa: RopeParams | None = None
+    sliding_window: int = 0
+    swa_pattern: int = 1
+    # the gated FFN's activation: "silu" (SwiGLU) or "gelu" (Gemma's geglu)
+    act: str = "silu"
+    # the file has no output.weight: the head is the token embedding (set
+    # by the loader)
+    tie_embedding: bool = False
     # the arch's q/k/v projections carry biases (zllm: qwen2)
     qkv_bias: bool = False
     # True once loader.rope_to_neox has permuted wq/wk into the half-split
@@ -90,6 +107,19 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    def is_swa_layer(self, il: int) -> bool:
+        return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
+
+    def layer_window(self, il: int) -> int:
+        """Layer il's sliding window, 0 for none (what zllm's forward passes
+        every kernel of the layer)."""
+        return self.sliding_window if self.is_swa_layer(il) else 0
+
+    def layer_rope(self, il: int) -> RopeParams:
+        """Layer il's rope: `rope_swa` on a windowed layer when the file sets
+        one, else `rope`."""
+        return self.rope_swa if self.layer_window(il) and self.rope_swa is not None else self.rope
 
     @classmethod
     def from_gguf(cls, f: GGUFFile) -> "ModelConfig":
@@ -130,12 +160,21 @@ class ModelConfig:
         )
         if scaling == "longrope" or int(kv("expert_count", 0)) > 0:
             raise NotImplementedError("longrope and MoE llama are not in zllm_torch yet")
-        if int(kv("attention.sliding_window", 0) or 0) > 0:
+        window = int(kv("attention.sliding_window", 0) or 0)
+        swa_pattern = SWA_PATTERN.get(arch, 1)
+        if window > 0 and swa_pattern == 1:
             # zllm's forward windows no layer of these arches (swa_pattern 1),
             # but the released model a file with a window comes from attends
             # through it: refused rather than run without it
-            raise NotImplementedError("sliding-window attention is not in zllm_torch yet "
-                                      "(ROADMAP queue 1 item 8: KVCacheSWA)")
+            raise NotImplementedError(f"sliding-window attention on {arch} is not in zllm_torch "
+                                      "yet (ROADMAP queue 3: zllm windows no layer of it)")
+        rope_swa = None
+        fb_swa = kv("rope.freq_base_swa")
+        if fb_swa is not None and window > 0:
+            # the windowed layers: plain rope at their own base (the scaling
+            # applies to the full layers only)
+            rope_swa = rope._replace(base=float(fb_swa), scaling="none", scale_factor=1.0)
+        qpas = kv("attention.query_pre_attn_scalar")
         return cls(
             arch=arch,
             n_layers=int(kv("block_count")),
@@ -153,8 +192,13 @@ class ModelConfig:
             attn_logit_softcap=float(kv("attn_logit_softcapping", 0.0)),
             final_logit_softcap=float(kv("final_logit_softcapping", 0.0)),
             logit_scale=float(kv("logit_scale", 1.0)),
-            attn_scale=float(kv("attention.scale", 0.0)),
+            attn_scale=((1.0 / float(qpas) ** 0.5) if qpas else 0.0)
+            or float(kv("attention.scale", 0.0)),
             qkv_bias=arch == "qwen2",
+            rope_swa=rope_swa,
+            sliding_window=window,
+            swa_pattern=swa_pattern,
+            act="gelu" if arch.startswith("gemma") else "silu",
         )
 
     def with_(self, **kw) -> "ModelConfig":

@@ -1,5 +1,5 @@
-"""Llama, Qwen2, Qwen3 and OLMo-2 forward pass (plain PyTorch around the
-port's kernels).
+"""Llama, Qwen2, Qwen3, OLMo-2 and Gemma forward pass (plain PyTorch
+around the port's kernels).
 
 The counterpart of `zllm/models/llama.py::forward` / `layer_forward` for
 the plain llama block: RMS norm -> fused wqkv (or wq, wk, wv apart when
@@ -45,8 +45,23 @@ step (`forward(..., verify=True)`) holds up to 1 + n_draft decode tokens a
 row: it runs the T=1 kernel once a column instead (no multi-row kernel),
 so every verified column gets a decode step's bits.  Lookahead's block
 mask (`forward(..., mask=, kv_positions=)`) attends through the plain
-`attention_ref`, as zllm's XLA reference does.  MoE, MLA, LoRA,
-sliding window, ALiBi and sinks are not part of this block.
+`attention_ref`, as zllm's XLA reference does.  MoE, MLA, LoRA, ALiBi and
+sinks are not part of this block.
+
+Gemma (gemma, gemma2, gemma3) runs the llama block with zllm's changes:
+the embedding times sqrt(n_embd) rounded to the embedding's dtype; the
+gated FFN's geglu (its norm, gate|up and down unfused through `linear`:
+zllm fuses SwiGLU only); Gemma-2/3's post-norms on the attention and FFN
+outputs (sandwich norms); Gemma-3's per-head q/k norms (Qwen3's, in K2
+too); the final logit softcap.  A sliding window (`cfg.layer_window`:
+gemma2 every other layer, gemma3 five of six) goes into every attention
+kernel of its layer, and a windowed layer takes its own rope
+(`cfg.layer_rope`: gemma3's rope.freq_base_swa), in K2 from a table of its
+own kind (`_k2_ropes`).  Over the serving engine's ring cache
+(`runtime/kvcache.KVCacheSWA`) a windowed layer writes its ring and
+attends through `ring_mask` with the plain `attention_ref`, as zllm does
+(no kernel reads the ring), column 0 of a T>1 step once more at T=1 as
+on the other paths; its full layers are ordinary stripes (K2, K6).
 
 OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
 projections read the raw residual stream through `linear` (at T=1, B=1
@@ -76,10 +91,32 @@ from ..ops.attention import (
     attn_decode_qkv, attn_decode_update, flash_attention, flash_attention_blockwise,
     paged_attention, paged_attn_decode_update,
 )
-from ..ops.layers import apply_rope, attention_ref, rms_norm, rope_table, swiglu
+from ..ops.layers import apply_rope, attention_ref, geglu, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
-from ..runtime.kvcache import KVCache, KVCacheQ8
+from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, ring_mask
 from ..runtime.paged import PagedKVCache
+
+
+def _layer_window(cfg, il: int) -> int:
+    """Layer il's sliding window, 0 for none (a config without windows
+    has none)."""
+    return cfg.layer_window(il) if getattr(cfg, "sliding_window", 0) else 0
+
+
+def _layer_rope(cfg, il: int):
+    """Layer il's rope (`ModelConfig.layer_rope`; `cfg.rope` where no
+    windowed rope is set)."""
+    return cfg.layer_rope(il) if getattr(cfg, "rope_swa", None) is not None else cfg.rope
+
+
+def _ring(kv, il: int) -> int:
+    """Layer il's ring slots in a `KVCacheSWA` (its windowed layers), else 0."""
+    return kv.ring_size(il) if isinstance(kv, KVCacheSWA) else 0
+
+
+def _act(cfg):
+    """The gated FFN's activation: SwiGLU, or Gemma's geglu."""
+    return geglu if getattr(cfg, "act", "silu") == "gelu" else swiglu
 
 
 def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
@@ -101,12 +138,14 @@ def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
 
 def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
             mask: torch.Tensor | None = None, kv_positions: torch.Tensor | None = None,
-            verify: bool = False) -> torch.Tensor:
+            verify: bool = False, window: int = 0) -> torch.Tensor:
     """Attention of roped q [B, T, Hq, D] and k/v [B, T, Hkv, D] with the
     new rows inserted into `kv` (if any) at their positions (`kv_positions`
-    where given).  `mask` [B, T, S]: attention over the whole contiguous
-    cache under that mask (`attention_ref`), no kernel; `verify`: each
-    column through the T=1 kernel at its own position (see `forward`)."""
+    where given), over the slots > pos - `window` (0: all).  `mask` [B, T,
+    S]: attention over the whole contiguous cache under that mask
+    (`attention_ref`), no kernel; `verify`: each column through the T=1
+    kernel at its own position (see `forward`); a windowed layer of a
+    `KVCacheSWA`: its ring under `ring_mask` (`attention_ref`)."""
     b, t = q.shape[:2]
     softcap = cfg.attn_logit_softcap
     if mask is not None:
@@ -118,11 +157,22 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         else:
             raise ValueError("an explicit attention mask needs a contiguous KVCache")
         return attention_ref(q, k_all, v_all, mask, scale, logit_softcap=softcap)
+    ring = _ring(kv, il)
+    if ring:  # the ring's slots are not positions: its own mask, no kernel
+        kv.update(il, k, v, positions)
+        k_all, v_all = kv.layer(il)
+        rmask = ring_mask(positions, ring, k_all.shape[2], window)
+        out = attention_ref(q, k_all, v_all, rmask, scale, logit_softcap=softcap)
+        if t == 1 or verify:
+            return out
+        # column 0 once more at T = 1, as a decode step computes it
+        first = attention_ref(q[:, :1], k_all, v_all, rmask[:, :1], scale, logit_softcap=softcap)
+        return _one_token_rows(out, positions, first)
     if isinstance(kv, PagedKVCache):
         def k9(q_, k_, v_, pos):  # insert into the page, attend
             return paged_attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], kv.table, pos,
                                             page_size=kv.page_size, scale=scale,
-                                            softcap=softcap)
+                                            softcap=softcap, window=window)
 
         if t == 1:
             return k9(q, k, v, positions)
@@ -130,7 +180,8 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
             return _per_column(k9, q, k, v, positions)
         kv.update(il, k, v, positions)  # scatter the rows into their pages, then K10
         out = paged_attention(q.contiguous(), kv.k[il], kv.v[il], kv.table, positions,
-                              page_size=kv.page_size, scale=scale, softcap=softcap)
+                              page_size=kv.page_size, scale=scale, softcap=softcap,
+                              window=window)
         # column 0 once more through K9, which writes the rows kv.update wrote
         first = k9(*(x[:, :1].contiguous() for x in (q, k, v, positions)))
         return _one_token_rows(out, positions, first)
@@ -140,7 +191,8 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
 
         def k7(q_, pos):
             return flash_attention_blockwise(q_.contiguous(), kq.q, vq.q, pos.contiguous(),
-                                             scale=scale, softcap=softcap, ks=kq.s, vs=vq.s)
+                                             scale=scale, softcap=softcap, window=window,
+                                             ks=kq.s, vs=vq.s)
 
         if verify:  # every row is in the cache: each column reads its own prefix
             return torch.cat([k7(q[:, j:j + 1], positions[:, j:j + 1]) for j in range(t)],
@@ -152,7 +204,7 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
     if kv is not None:
         def k8(q_, k_, v_, pos):  # insert the row at min(pos, S-1), attend
             return attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], pos, scale=scale,
-                                      softcap=softcap)
+                                      softcap=softcap, window=window)
 
         if t == 1:
             return k8(q, k, v, positions)
@@ -161,7 +213,7 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         kv.update(il, k, v, positions)
         k_all, v_all = kv.layer(il)
         out = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
-                              positions, scale=scale, softcap=softcap)
+                              positions, scale=scale, softcap=softcap, window=window)
         if cfg.arch != "olmo2":  # llama's T=1 kernel is K2, which layer_forward runs
             return out
         # column 0 once more through K8, which writes the k/v kv.update wrote
@@ -169,7 +221,7 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         return _one_token_rows(out, positions, first)
     return flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
                            v.transpose(1, 2).contiguous(), positions, scale=scale,
-                           softcap=softcap)
+                           softcap=softcap, window=window)
 
 
 def _per_column(kernel, q, k, v, positions) -> torch.Tensor:
@@ -200,12 +252,12 @@ def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_core(layer: dict, h: torch.Tensor, taps: dict | None = None,
-              tapname: str = "") -> torch.Tensor:
+              tapname: str = "", act=swiglu) -> torch.Tensor:
     if taps is not None:
         taps[f"{tapname}.ffn_gate.weight"] = h
     gup = linear(h, layer["ffn_gateup"])
     half = gup.shape[-1] // 2
-    gu = swiglu(gup[..., :half], gup[..., half:])
+    gu = act(gup[..., :half], gup[..., half:])
     if taps is not None:
         taps[f"{tapname}.ffn_down.weight"] = gu
     return linear(gu, layer["ffn_down"])
@@ -241,12 +293,14 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   kv_positions: torch.Tensor | None = None,
                   verify: bool = False) -> torch.Tensor:
     """One transformer block; x [B, T, n_embd], positions [B, T] int32.
-    `rope` is K2's cos/sin table at positions[:, 0] over a contiguous
-    cache (built once per step), or with `verify` the list of one table a
-    column.  `taps` (see `forward`) takes the block's matmul inputs and
-    output; it turns the fused decode paths off; so do `mask` and
-    `kv_positions` (see `forward`)."""
-    attend = dict(mask=mask, kv_positions=kv_positions, verify=verify)
+    `rope` is K2's tables over a contiguous cache (`_k2_ropes`, built
+    once per step): by kind of rope, the cos/sin table at positions[:, 0],
+    or with `verify` the list of one table a column.  `taps` (see
+    `forward`) takes the block's matmul inputs and output; it turns the
+    fused decode paths off; so do `mask` and `kv_positions` (see
+    `forward`)."""
+    window = _layer_window(cfg, il)
+    attend = dict(mask=mask, kv_positions=kv_positions, verify=verify, window=window)
     if cfg.arch == "olmo2":
         return _olmo2_layer(layer, cfg, x, positions, kv, il, taps, **attend)
     b, t = x.shape[:2]
@@ -267,9 +321,11 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         qkv = _projections(layer, h)
     qkv = qkv.reshape(b, t, -1)
 
-    k2_step = isinstance(kv, KVCache) and mask is None  # K2 takes the decode columns
+    lrope = _layer_rope(cfg, il)
+    # K2 takes the decode columns (not a ring layer's: its slots are not positions)
+    k2_step = isinstance(kv, KVCache) and mask is None and not _ring(kv, il)
     if k2_step and rope is None:
-        rope = _k2_ropes(positions, cfg, verify)
+        rope = _k2_ropes(positions, cfg, verify, [lrope])
 
     # Qwen3's per-head q/k norms (the loader holds them to head_dim)
     qw, kw = layer.get("attn_q_norm"), layer.get("attn_k_norm")
@@ -279,10 +335,10 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     def k2(row, j=0):  # the whole decode attention block in one kernel: split,
         # per-head q/k norms, rope, in-place cache insert at min(pos, S-1),
         # attention; column j of the step
-        rt = rope[j] if verify else rope
+        rt = rope[lrope][j] if verify else rope[lrope]
         return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
                                kv.v[il], cols[j], rt, qw, kw, scale=scale,
-                               softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+                               softcap=cfg.attn_logit_softcap, window=window, eps=cfg.norm_eps)
 
     if k2_step and t == 1:
         att = k2(qkv)
@@ -297,8 +353,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         if qw is not None:
             q = rms_norm(q, qw, cfg.norm_eps)
             k = rms_norm(k, kw, cfg.norm_eps)
-        q = apply_rope(q, positions, cfg.rope)
-        k = apply_rope(k, positions, cfg.rope)
+        q = apply_rope(q, positions, lrope)
+        k = apply_rope(k, positions, lrope)
         att = _attend(q, k, v, kv, il, positions, cfg, scale, **attend)
         if k2_step:
             # column 0 once more through K2, as a decode step: it re-inserts
@@ -310,10 +366,14 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     att = att.reshape(b, t, -1)
     if taps is not None:
         taps[f"{tapname}.attn_output.weight"] = att
-    x = x + linear(att, layer["wo"])
+    o = linear(att, layer["wo"])
+    if "attn_post_norm" in layer:  # Gemma-2/3's sandwich norm
+        o = rms_norm(o, layer["attn_post_norm"], cfg.norm_eps)
+    x = x + o
 
+    act = _act(cfg)
     ff = None
-    if fused:  # decode: norm -> gate|up and swiglu -> down fused
+    if fused and act is swiglu:  # decode: norm -> gate|up and swiglu -> down fused
         gup = fused_norm_linear(x.reshape(1, -1), layer["ffn_norm"], cfg.norm_eps,
                                 layer["ffn_gateup"])
         if gup is not None:
@@ -324,20 +384,37 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                             layer["ffn_down"])
             ff = ff.reshape(b, t, -1)
     if ff is None:
-        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname)
+        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname, act)
+    if "ffn_post_norm" in layer:
+        ff = rms_norm(ff, layer["ffn_post_norm"], cfg.norm_eps)
     x = x + ff
     if taps is not None:
         taps[f"{tapname}.l_out"] = x
     return x
 
 
-def _k2_ropes(positions: torch.Tensor, cfg, verify: bool):
-    """K2's rope: the table at positions[:, 0], or with `verify` one a
-    column."""
-    if verify:
-        return [rope_table(positions[:, j], cfg.rope, cfg.head_dim)
-                for j in range(positions.shape[1])]
-    return rope_table(positions[:, 0], cfg.rope, cfg.head_dim)
+def _k2_ropes(positions: torch.Tensor, cfg, verify: bool, ropes) -> dict:
+    """K2's rope tables, one for each kind of rope in `ropes` (the layers'
+    `_layer_rope`s: Gemma-3's full and windowed layers rotate apart),
+    keyed by its RopeParams, so a layer reads its own kind's: the table at
+    positions[:, 0], or with `verify` one a column."""
+    def table(p):
+        if verify:
+            return [rope_table(positions[:, j], p, cfg.head_dim)
+                    for j in range(positions.shape[1])]
+        return rope_table(positions[:, 0], p, cfg.head_dim)
+
+    return {p: table(p) for p in dict.fromkeys(ropes)}
+
+
+def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding rows; Gemma's times sqrt(n_embd), the scale
+    rounded to the embedding's dtype first (zllm's `embed`: in bf16, 50.5
+    for Gemma-3-4B's sqrt(2560) = 50.596)."""
+    x = params["tok_emb"][tokens.long()]
+    if cfg.arch.startswith("gemma"):
+        x = x * torch.full((), cfg.n_embd ** 0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
@@ -381,10 +458,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
         raise ValueError("verify needs a KV cache and no mask")
     if kv_positions is not None and mask is None:
         raise ValueError("kv_positions goes with an explicit mask")
-    x = params["tok_emb"][tokens.long()]
+    x = embed(params, cfg, tokens)
     rope = None
     if isinstance(kv, KVCache) and cfg.arch != "olmo2" and mask is None:  # K2's, once a step
-        rope = _k2_ropes(positions, cfg, verify)
+        rope = _k2_ropes(positions, cfg, verify,
+                         [_layer_rope(cfg, il) for il in range(len(params["layers"]))])
     for il, layer in enumerate(params["layers"]):
         x = layer_forward(layer, cfg, x, positions, kv, il, rope, taps, mask=mask,
                           kv_positions=kv_positions, verify=verify)

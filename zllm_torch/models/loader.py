@@ -12,7 +12,10 @@ llama layer has the pre-norms attn_norm and ffn_norm; a Qwen2 layer adds
 the q/k/v biases bq, bk, bv; a Qwen3 layer adds attn_q_norm and
 attn_k_norm of length head_dim (one RMS a head); an OLMo-2 layer has no
 pre-norms, but attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over
-the whole projection) and the post-norms attn_post_norm and ffn_post_norm.
+the whole projection) and the post-norms attn_post_norm and ffn_post_norm;
+a Gemma layer has the pre-norms, a Gemma-2 or Gemma-3 one the post-norms
+beside them (sandwich norms), and Gemma-3's the per-head q/k norms of
+Qwen3; Gemma's head is tied to the embedding.
 A Llama-3 file's rope_freqs.weight is kept as `rope_freqs` and not read:
 zllm takes llama3 rope scaling from the metadata alone.  At load, as
 `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
@@ -39,9 +42,10 @@ from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
-# GGUF tensor suffix -> params key, per layer (the llama, Qwen2/3 and
-# OLMo-2 blocks; llama.cpp writes OLMo-2's post-norms as
-# post_attention_norm / post_ffw_norm)
+# GGUF tensor suffix -> params key, per layer (the llama, Qwen2/3, OLMo-2
+# and Gemma blocks; llama.cpp writes OLMo-2's and Gemma-2/3's post-norms as
+# post_attention_norm / post_ffw_norm, zllm's converter as attn_post_norm /
+# ffn_post_norm)
 _LAYER_MAP = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "wq",
@@ -68,7 +72,11 @@ _LAYER_MAP = {
 ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
               "qwen2": {"attn_norm", "ffn_norm"},
               "qwen3": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"},
-              "olmo2": {"attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_post_norm"}}
+              "olmo2": {"attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_post_norm"},
+              "gemma": {"attn_norm", "ffn_norm"},
+              "gemma2": {"attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm"},
+              "gemma3": {"attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm",
+                         "attn_q_norm", "attn_k_norm"}}
 _BIAS_KEYS = ("bq", "bk", "bv")
 _VECTOR_KEYS = ({"out_norm", "rope_freqs", "bqkv", *_BIAS_KEYS}
                 | set().union(*ARCH_NORMS.values()))
@@ -125,7 +133,8 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             params["layers"][int(il)][key] = val
         else:
             raise NotImplementedError(f"tensor {name} is not part of the {cfg.arch} block")
-    qk_norm_len = {"qwen3": (cfg.head_dim, cfg.head_dim), "olmo2": (cfg.q_dim, cfg.kv_dim)}
+    qk_norm_len = {"qwen3": (cfg.head_dim, cfg.head_dim), "gemma3": (cfg.head_dim, cfg.head_dim),
+                   "olmo2": (cfg.q_dim, cfg.kv_dim)}
     for il, layer in enumerate(params["layers"]):
         norms = {key for key in layer if key in _VECTOR_KEYS and key not in _BIAS_KEYS}
         if norms != ARCH_NORMS[cfg.arch]:
@@ -232,7 +241,7 @@ class Model:
     def load(cls, path: str, *, device="cuda", dtype=torch.bfloat16) -> "Model":
         dev = resolve_device(device)
         with read_gguf(path) as f:
-            cfg = ModelConfig.from_gguf(f)
+            cfg = ModelConfig.from_gguf(f).with_(tie_embedding="output.weight" not in f.tensors)
             tok = Tokenizer.from_gguf(f) if f.kv("tokenizer.ggml.tokens") is not None else None
             params = load_params(f, cfg, dtype=dtype, device=dev)
         params, cfg = rope_to_neox(params, cfg)

@@ -61,7 +61,11 @@ their f16 form (an f16 cache or pool).
 
 KV caches and pools may be float32, bfloat16 or float16 (the f16 KV cache,
 llama.cpp's default `-ctk/-ctv f16`); q, the new K/V rows and the outputs
-are float32 or bfloat16.  On the card K2, K6, K8, K9 and K10 have f16
+are float32 or bfloat16.  Head dims on the card: 64 and 128 everywhere;
+256 (Gemma's) in K2, K6 and K10, and in K9 over bf16 or f16 pools (an
+f32 pool's two 128-slot chunks of 1 KB rows exceed a block's shared
+memory); K7 and K8 raise a ValueError at 256 (ROADMAP queue 2: Gemma-1
+with the q8 cache reaches K7; no Gemma path reaches K8).  On the card K2, K6, K8, K9 and K10 have f16
 forms (f16 x f16 mma.sync; an f32 or bf16 q is scaled a row at a time by
 a power of two before its f16 split, see `csrc/attn_mma.cuh`); K7 takes
 bf16 or int8 K/V.
@@ -83,6 +87,9 @@ NEG_INF = -2.4e38  # sub-f32-max filler for masked logits (as zllm's kernels)
 MMA_KV = (torch.bfloat16, torch.float16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+HEAD_DIMS = (64, 128, 256)  # K2's, K6's, K9's and K10's forms on the card
+_NO_256 = "ROADMAP queue 2: no head_dim 256 form yet"
 
 
 def _head_rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -188,7 +195,7 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError(f"no kernel for device {qkv3.device}")
     if qkv3.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.DTYPE_CODE or vc.dtype != kc.dtype:
         raise ValueError(f"dtypes {qkv3.dtype} / {kc.dtype} / {vc.dtype}")
-    if d not in (64, 128) or rope.rot_dims > d:
+    if d not in HEAD_DIMS or rope.rot_dims > d:
         raise ValueError(f"head_dim {d} (rope dims {rope.rot_dims}) not supported")
     pos = positions.reshape(b)
     if pos.dtype != torch.int32:
@@ -275,7 +282,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in cuda.ACT_DTYPES or k.dtype not in cuda.DTYPE_CODE or v.dtype != k.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}")
-    if d not in (64, 128):
+    if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported")
     pos0 = positions[:, 0].contiguous()
     if pos0.dtype != torch.int32:
@@ -320,7 +327,7 @@ def _paged_cuda_checks(q, k_pool, v_pool, table, page_size: int, tile: int):
     if q.dtype not in cuda.ACT_DTYPES or k_pool.dtype not in cuda.DTYPE_CODE \
             or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
-    if q.shape[3] not in (64, 128):
+    if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[3]} not supported")
     if page_size % tile:
         raise ValueError(f"page_size {page_size} is not a multiple of {tile}")
@@ -488,6 +495,9 @@ def paged_attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _paged_cuda_checks(q, k_pool, v_pool, table, page_size, 1)
+    if d == 256 and k_pool.dtype == torch.float32:
+        raise ValueError("head_dim 256 over an f32 pool: the kernel's two chunks of 128 "
+                         "1 KB rows exceed a block's shared memory (bf16 or f16 pools)")
     if page_size > DECODE_CLUSTER_CHUNK:
         raise ValueError(f"page_size {page_size}: the kernel takes pages of at most "
                          f"{DECODE_CLUSTER_CHUNK} slots")
@@ -577,7 +587,7 @@ def attn_decode_update(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
         raise ValueError(f"dtypes q {q.dtype}, cache {kc.dtype}: the kernel takes an f32/bf16 q "
                          "and an f32/bf16/f16 cache")
     if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported")
+        raise ValueError(f"head_dim {d} not supported by K8 ({_NO_256})")
     pos = positions.reshape(b).contiguous()
     if pos.dtype != torch.int32:
         raise ValueError("positions must be int32")
@@ -705,7 +715,7 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the kernel takes f32/bf16 q "
                          "and bf16 or int8 K/V")
     if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported")
+        raise ValueError(f"head_dim {d} not supported by K7 ({_NO_256})")
     pos0 = positions[:, 0].contiguous()
     if pos0.dtype != torch.int32:
         raise ValueError("positions must be int32")

@@ -203,3 +203,9 @@ def causal_mask(positions: torch.Tensor, kv_len: int, window: int = 0) -> torch.
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Gemma's gated FFN: the tanh-approximate gelu of the f32 gate, rounded
+    to the gate's dtype, times up (zllm's `geglu`)."""
+    return F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up

@@ -12,6 +12,9 @@ tensors are written in place (the decode kernel K2 writes its row itself).
     inserting are plain PyTorch on the device, as they are XLA in zllm;
     attention reads the codes and scales directly (K7,
     `ops/attention.flash_attention_blockwise`).
+  * `KVCacheSWA`: a `KVCache` whose windowed layers keep a ring of slots
+    (zllm's pruned cache of sliding-window models, the reference's iswa
+    cache); `ring_mask` is what a query of such a layer attends.
   * `shift_context_row`: the serving engine's per-row context shift over
     all three layouts (contiguous, q8, paged); `shift_context`, the same
     shift of every row of a `KVCache` at once.
@@ -92,13 +95,81 @@ class KVCache:
         p .. p+T-1, p = clamp(positions[b, 0], 0, S - T).  Positions are
         consecutive per row except where the engine pads a row with trash
         positions after its real tokens; only positions[:, 0] is read."""
-        rows, idx = _run_slots(positions, k_new.shape[1], self.max_len)
+        rows, idx = _run_slots(positions, k_new.shape[1], self.k[il].shape[2])
         self.k[il][rows, :, idx] = k_new.to(self.dtype)
         self.v[il][rows, :, idx] = v_new.to(self.dtype)
 
     def layer(self, il: int) -> tuple[torch.Tensor, torch.Tensor]:
         """-> k, v as [B, Hkv, S, D]."""
         return self.k[il], self.v[il]
+
+
+@dataclass
+class KVCacheSWA(KVCache):
+    """The cache of a sliding-window model (zllm's `KVCacheSWA`): a full
+    layer is an ordinary stripe of horizon + chunk slots; a windowed layer
+    keeps `ring` = round_up(window + chunk, 128) slots (at most the
+    horizon), addressed as position % ring, plus `chunk` slots of trash
+    [ring, ring + chunk) that take the writes of rows at or past the
+    horizon (the engine's idle rows).  A Gemma-2 layer pair then holds
+    horizon + ring slots instead of 2 x horizon.
+
+    Contract (zllm's): a run of writes starts at a multiple of `chunk`
+    (the engine's prefill alignment) or is one generating token, so it
+    never wraps inside the ring; a generating row's trash columns land on
+    ring slots older than its window."""
+
+    swa_mask: tuple = ()  # per layer: windowed
+    ring: int = 0  # the windowed layers' ring slots
+    horizon: int = 0  # attendable positions (the engine's max_len)
+
+    @classmethod
+    def create_swa(cls, cfg, batch: int, max_len: int, chunk: int, dtype=torch.bfloat16,
+                   device="cuda") -> "KVCacheSWA":
+        ring = min((cfg.sliding_window + chunk + 127) // 128 * 128, max_len)
+        swa_mask = tuple(cfg.is_swa_layer(il) for il in range(cfg.n_layers))
+
+        def stripe(il):
+            s = ring + chunk if swa_mask[il] else max_len + chunk
+            return torch.zeros((batch, cfg.n_kv_heads, s, cfg.head_dim), dtype=dtype,
+                               device=device)
+
+        return cls(k=[stripe(il) for il in range(cfg.n_layers)],
+                   v=[stripe(il) for il in range(cfg.n_layers)], swa_mask=swa_mask, ring=ring,
+                   horizon=max_len)
+
+    @property
+    def max_len(self) -> int:
+        return max(x.shape[2] for x in self.k)
+
+    def _map_positions(self, il: int, positions: torch.Tensor) -> torch.Tensor:
+        """A windowed layer's slots of the rows' runs: position % ring for a
+        live run, ring + offset (the trash) for a row at the horizon."""
+        if not self.swa_mask[il]:
+            return positions
+        p0 = positions[:, :1]
+        return torch.where(p0 >= self.horizon, self.ring + (positions - p0),
+                           positions - p0 + p0 % self.ring)
+
+    def update(self, il: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor):
+        super().update(il, k_new, v_new, self._map_positions(il, positions))
+
+    def ring_size(self, il: int) -> int:
+        """Layer il's ring, 0 for a full layer."""
+        return self.ring if self.swa_mask[il] else 0
+
+
+def ring_mask(positions: torch.Tensor, ring: int, s_total: int, window: int) -> torch.Tensor:
+    """bool [B, T, S] of a ring layer (zllm's `ring_mask`): slot s holds
+    position a = p - ((p - s) mod ring); query p attends it iff 0 <= a <=
+    p, a > p - window, and s < ring (the trash never)."""
+    s_idx = torch.arange(s_total, device=positions.device)[None, None, :]
+    p = positions[:, :, None].long()
+    a = p - torch.remainder(p - s_idx, ring)
+    m = (a >= 0) & (a <= p) & (s_idx < ring)
+    if window > 0:
+        m = m & (a > p - window)
+    return m
 
 
 @dataclass

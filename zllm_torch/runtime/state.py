@@ -12,7 +12,11 @@ the model's arch / n_layers / n_kv_heads / head_dim, `n_past` and
     f32, `KVCacheQ8`, `PagedKVCache`) into any of them.
 
 bf16 arrays are stored as their uint16 bits, as zllm stores them, so a
-file written by either package loads in the other.  A q8 slot is saved
+file written by either package loads in the other.  The ring cache of a
+sliding-window model (`KVCacheSWA`) has no state file: its windowed layers
+hold the last ring of positions, not [:n_past], and zllm's functions fail
+on it (a ragged stack, or a constructor the ring's fields do not fit), so
+these raise ValueError for it.  A q8 slot is saved
 dequantized, as the bf16 product codes * scales, and requantized on
 restore (`KVCacheQ8._quant`), as zllm does.  Restores write in place.
 """
@@ -24,7 +28,7 @@ import json
 import numpy as np
 import torch
 
-from .kvcache import KVCache, KVCacheQ8
+from .kvcache import KVCache, KVCacheQ8, KVCacheSWA
 from .paged import PagedKVCache
 
 MAGIC = "ZLLMSESS"
@@ -82,9 +86,16 @@ def _device(kv) -> torch.device:
     return kv.k[0].device
 
 
+def _no_ring(kv):
+    if isinstance(kv, KVCacheSWA):
+        raise ValueError("the sliding-window ring cache has no state file (its windowed layers "
+                         "hold a ring of positions, not a prefix)")
+
+
 def save_session(path: str, model, kv: KVCache, tokens: list[int], n_past: int):
     """Whole-context session: the contiguous cache trimmed to n_past, and
     the token history.  Written to `path` exactly (no suffix added)."""
+    _no_ring(kv)
     k = np.stack([_to_np(x[:, :, :n_past]) for x in kv.k])
     v = np.stack([_to_np(x[:, :, :n_past]) for x in kv.v])
     meta = _meta(model, {"n_past": n_past, "kv_dtype": _NP_NAMES[kv.dtype]})
@@ -96,6 +107,7 @@ def save_session(path: str, model, kv: KVCache, tokens: list[int], n_past: int):
 def load_session(path: str, model, kv: KVCache):
     """Restore a session into `kv` (its rows [:n_past], in place).
     Returns (kv, tokens, n_past)."""
+    _no_ring(kv)
     data = np.load(path, allow_pickle=False)
     meta = json.loads(str(data["meta"]))
     n_past = _check(path, meta, model, kv, "session")
@@ -110,6 +122,7 @@ def load_session(path: str, model, kv: KVCache):
 
 def seq_get(model, kv, seq: int, n_past: int) -> dict:
     """One slot's state: meta and K/V [n_layers, Hkv, n_past, D] (numpy)."""
+    _no_ring(kv)
     if isinstance(kv, PagedKVCache):
         rows = [kv.gather_row(il, seq, n_past) for il in range(kv.n_layers)]
         k, v = [r[0] for r in rows], [r[1] for r in rows]
@@ -136,6 +149,7 @@ def seq_set(model, kv, seq: int, state: dict):
     """Install a slot state into slot `seq` of `kv`, in place: its
     positions [:n_past] (a paged slot through its page table as it
     stands).  Returns (kv, n_past)."""
+    _no_ring(kv)
     meta = state["meta"]
     n_past = _check("state", meta, model, kv, "state")
     dt = meta.get("kv_dtype", "")

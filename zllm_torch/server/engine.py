@@ -7,9 +7,16 @@
     layer, slot index == position (`runtime/kvcache.py`): bf16/f16/f32 K/V
     (K2 decode, K6 mixed steps; OLMo-2: K8 decode), or the
     int8 q8 cache, `kv_dtype="q8"`, which always takes this layout (K7 at
-    every step).
-`kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0" or the engine
-speculates or looks ahead, as in zllm.
+    every step).  A sliding-window model (Gemma-2/3) under
+    `context_shift="auto"` or False serves from the ring cache
+    `KVCacheSWA` instead, with no context shift, as zllm does: its full
+    layers are such stripes (K2, K6), its windowed layers rings of
+    round_up(window + chunk, 128) slots (the plain `attention_ref`); with
+    `context_shift=True`, the plain stripe, every kernel windowed.
+`kv_layout="auto"` is paged unless `kv_dtype` is "q8"/"q8_0", the model
+has a sliding window, or the engine speculates or looks ahead, as in
+zllm; an explicit "paged" stays paged for a windowed model (K9 and K10
+take each layer's window).
 
 One engine thread runs the steps:
   * prompt chunks and generating slots share one batch: every prompting
@@ -67,8 +74,10 @@ zllm serves as contiguous); lookahead with speculation, the paged layout,
 the q8 cache, multi-device serving or a prefill_chunk narrower than its
 step, as zllm's do; and a draft model on another device.  What this engine
 does not port raises NotImplementedError naming its ROADMAP item:
-tp/dp/pp/mesh and coordinated serving (item 10), media (item 4.8).  Recurrent, hybrid, MLA and
-SWA models do not load in zllm_torch at all (`models/config.py`).
+tp/dp/pp/mesh and coordinated serving (item 10), media (item 4.8).  A
+windowed model refuses the q8 cache and lookahead with zllm's messages.
+Recurrent, hybrid and MLA models do not load in zllm_torch at all
+(`models/config.py`).
 """
 
 from __future__ import annotations
@@ -85,7 +94,7 @@ import torch
 
 from ..models.llama import forward
 from ..runtime import state
-from ..runtime.kvcache import KVCache, KVCacheQ8, shift_context_row
+from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, shift_context_row
 from ..runtime.paged import PageAllocator, PagedKVCache
 from ..sampling import batched
 
@@ -213,14 +222,18 @@ class Engine:
         # cache, which needs the contiguous layout ("auto" picks it, and so
         # it does under speculation and lookahead, as zllm's does)
         quant = isinstance(kv_dtype, str)
+        windowed = model.cfg.sliding_window > 0
         if kv_layout == "auto":
-            kv_layout = ("contiguous" if quant or speculative or draft_model is not None
-                         or lookahead else "paged")
+            kv_layout = ("contiguous" if quant or windowed or speculative
+                         or draft_model is not None or lookahead else "paged")
         if quant:
             if kv_dtype.lower() not in ("q8", "q8_0"):
                 raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'q8' or a torch dtype)")
             if kv_layout == "paged":
                 raise ValueError("kv_dtype='q8' requires the contiguous KV layout")
+            if windowed:
+                raise ValueError("kv_dtype='q8' requires a standard-attention model "
+                                 "with the contiguous KV layout")
             kv_dtype = None
         elif kv_dtype not in (None, torch.bfloat16, torch.float16, torch.float32):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (bfloat16, float16, float32 "
@@ -245,6 +258,8 @@ class Engine:
                 raise ValueError("lookahead requires the contiguous KV layout")
             if quant:
                 raise ValueError("lookahead does not support the q8 KV cache")
+            if windowed:
+                raise ValueError("lookahead supports uniform standard attention only")
         self.la_n, self.la_w, self.la_g = int(la_n), int(la_w), int(la_g)
         if lookahead and (self.la_n < 2 or self.la_w < 1 or self.la_g < 1):
             raise ValueError("lookahead needs la_n >= 2, la_w >= 1, la_g >= 1")
@@ -288,7 +303,13 @@ class Engine:
             self.max_len = max_len
             shape = (cfg.n_layers, n_slots, max_len + prefill_chunk, cfg.n_kv_heads,
                      cfg.head_dim)
-            if quant:
+            if windowed and context_shift in ("auto", False):
+                # the ring cache: old context leaves the windowed layers'
+                # rings by itself, so no context shift (zllm's choice)
+                self.kv = KVCacheSWA.create_swa(cfg, n_slots, max_len, prefill_chunk,
+                                                kv_dtype or torch.bfloat16, self.device)
+                self.context_shift = False
+            elif quant:
                 self.kv = KVCacheQ8.create(*shape, device=self.device)
             else:
                 self.kv = KVCache.create(*shape, kv_dtype or torch.bfloat16, self.device)
@@ -463,6 +484,10 @@ class Engine:
                             best = s
             # keep >= 1 token to prefill so the step yields next-token logits
             n_reuse = min(best_n, len(req.prompt_tokens) - 1)
+            if isinstance(self.kv, KVCacheSWA):
+                # the ring's writes start at a multiple of the chunk (no wrap
+                # inside a run)
+                n_reuse -= n_reuse % self.prefill_chunk
             if self.paged:
                 n_reuse -= n_reuse % self.alloc.ps  # only FULL pages are shareable
             if n_reuse < 16:  # not worth the bookkeeping below this

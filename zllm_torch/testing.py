@@ -10,6 +10,13 @@ zllm's loader reads:
     attn_k_norm [kv_dim], post_attention_norm and post_ffw_norm;
   * `arch="qwen2"`: attn_q.bias, attn_k.bias, attn_v.bias;
   * `arch="qwen3"`: attn_q_norm and attn_k_norm of length head_dim;
+  * `arch="gemma"`, `"gemma2"`, `"gemma3"`: what zllm's `convert_hf_llama`
+    writes for Gemma-2 and Gemma-3: attn_norm and ffn_norm; Gemma-2/3 the
+    post-norms attn_post_norm and ffn_post_norm; Gemma-3 attn_q_norm and
+    attn_k_norm of length head_dim; no output.weight (the head is tied);
+    the keys `sliding_window`, `query_pre_attn_scalar`, `attn_softcap`,
+    `final_softcap` and `rope_base_swa` set when given, and `rope_scale`
+    as linear rope scaling (Gemma-3's full layers);
   * `head_dim` (q_dim may differ from n_embd), `tied=True` (no
     output.weight), `rope_freqs=True` (Llama-3.1's rope_freqs.weight and
     its llama3 rope-scaling metadata);
@@ -42,7 +49,7 @@ from .quantize import FTYPES, pick_type
 from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
 from .tokenizer.vocab import Vocab
 
-ARCHES = ("llama", "olmo2", "qwen2", "qwen3")
+ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
 BPE_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
 BPE_MERGES = 3000
 # the text the synthetic BPE merges are learned from: prose, code, digits,
@@ -241,10 +248,18 @@ def make_llama_gguf(
     tokenizer: str = "spm",
     pre: str = "qwen2",
     ftype: str | None = None,
+    sliding_window: int = 0,
+    query_pre_attn_scalar: float = 0.0,
+    attn_softcap: float = 0.0,
+    final_softcap: float = 0.0,
+    rope_base_swa: float | None = None,
+    rope_scale: float = 1.0,
 ) -> str:
     if arch not in ARCHES:
         raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
     olmo2 = arch == "olmo2"
+    gemma = arch.startswith("gemma")
+    tied = tied or gemma
     rng = np.random.default_rng(seed)
     head_dim = head_dim or n_embd // n_heads
     q_dim = n_heads * head_dim
@@ -272,6 +287,16 @@ def make_llama_gguf(
     if rope_freqs:
         for key, val in LLAMA31_ROPE_SCALING.items():
             w.add(f"{arch}.rope.scaling.{key}", val)
+    if rope_scale != 1.0:
+        w.add(f"{arch}.rope.scaling.type", "linear")
+        w.add(f"{arch}.rope.scaling.factor", float(rope_scale))
+    for key, val in (("attention.sliding_window", int(sliding_window)),
+                     ("attention.query_pre_attn_scalar", float(query_pre_attn_scalar)),
+                     ("attn_logit_softcapping", float(attn_softcap)),
+                     ("final_logit_softcapping", float(final_softcap)),
+                     ("rope.freq_base_swa", rope_base_swa)):
+        if val:
+            w.add(f"{arch}.{key}", val)
     if with_tokenizer and tokenizer == "bpe":  # Llama-3 adds bos, Qwen does not
         v = synthetic_bpe_vocab(pre, vocab_size, add_bos=arch == "llama")
         w.add("tokenizer.ggml.model", v.model)
@@ -347,7 +372,7 @@ def make_llama_gguf(
             emit(o + "attn_q.bias", (q_dim,), 0.5, force_f32=True)
             emit(o + "attn_k.bias", (kv_dim,), 0.5, force_f32=True)
             emit(o + "attn_v.bias", (kv_dim,), 0.5, force_f32=True)
-        if arch == "qwen3":
+        if arch in ("qwen3", "gemma3"):
             emit(o + "attn_q_norm.weight", (head_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (head_dim,), 1.0, force_f32=True)
         emit(o + "attn_output.weight", (n_embd, q_dim))
@@ -356,6 +381,8 @@ def make_llama_gguf(
             emit(o + "attn_k_norm.weight", (kv_dim,), 1.0, force_f32=True)
             emit(o + "post_attention_norm.weight", (n_embd,), 1.0, force_f32=True)
         else:
+            if arch in ("gemma2", "gemma3"):
+                emit(o + "attn_post_norm.weight", (n_embd,), 1.0, force_f32=True)
             emit(o + "ffn_norm.weight", (n_embd,), 1.0, force_f32=True)
         if n_experts:
             emit(o + "ffn_gate_inp.weight", (n_experts, n_embd), force_f32=True)
@@ -381,6 +408,8 @@ def make_llama_gguf(
             emit(o + "ffn_down.weight", (n_embd, n_ff))
         if olmo2:
             emit(o + "post_ffw_norm.weight", (n_embd,), 1.0, force_f32=True)
+        if arch in ("gemma2", "gemma3"):
+            emit(o + "ffn_post_norm.weight", (n_embd,), 1.0, force_f32=True)
     emit("output_norm.weight", (n_embd,), 1.0, force_f32=True)
     if not tied:
         emit("output.weight", (vocab_size, n_embd))
@@ -418,4 +447,33 @@ QWEN25_1_5B_SHAPE = dict(
     arch="qwen2", n_layers=28, n_embd=1536, n_heads=12, n_kv_heads=2, head_dim=128, n_ff=8960,
     vocab_size=151936, rope_base=1e6, norm_eps=1e-6, ctx_len=32768, tied=True,
     tokenizer="bpe", pre="qwen2",
+)
+
+# Gemma-2-2B (huggingface.co/google/gemma-2-2b config.json): 26 layers, 2304
+# emb, 8 heads / 4 kv of 256, ff 9216, vocab 256000, rms_norm_eps 1e-6, a
+# 4096-token window on every other layer (layer 0 first), attention and
+# final logit softcaps 50 and 30, query_pre_attn_scalar 256, tied head
+GEMMA2_2B_SHAPE = dict(
+    arch="gemma2", n_layers=26, n_embd=2304, n_heads=8, n_kv_heads=4, head_dim=256, n_ff=9216,
+    vocab_size=256000, norm_eps=1e-6, ctx_len=8192, sliding_window=4096,
+    query_pre_attn_scalar=256, attn_softcap=50.0, final_softcap=30.0,
+)
+
+# Gemma-3-4B's text stack (huggingface.co/google/gemma-3-4b-it config.json,
+# text_config): 34 layers, 2560 emb, 8 heads / 4 kv of 256, ff 10240, vocab
+# 262144, rms_norm_eps 1e-6, a 1024-token window on five layers of six,
+# rope theta 1e6 with linear x8 scaling on the full layers and 1e4 on the
+# windowed ones, per-head q/k norms, query_pre_attn_scalar 256, tied head
+GEMMA3_4B_SHAPE = dict(
+    arch="gemma3", n_layers=34, n_embd=2560, n_heads=8, n_kv_heads=4, head_dim=256, n_ff=10240,
+    vocab_size=262144, norm_eps=1e-6, ctx_len=131072, sliding_window=1024, rope_base=1e6,
+    rope_base_swa=10000.0, rope_scale=8.0, query_pre_attn_scalar=256,
+)
+
+# Gemma-2B (huggingface.co/google/gemma-2b config.json): 18 layers, 2048
+# emb, 8 heads / 1 kv of 256 (MQA), ff 16384, vocab 256000, rms_norm_eps
+# 1e-6, no window, tied head
+GEMMA_2B_SHAPE = dict(
+    arch="gemma", n_layers=18, n_embd=2048, n_heads=8, n_kv_heads=1, head_dim=256, n_ff=16384,
+    vocab_size=256000, norm_eps=1e-6, ctx_len=8192,
 )
