@@ -302,7 +302,25 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      `serve_gemma_2b` (Gemma-2B paged: K9/K10 at d 256, G 8), and
      `kernel_gemma`: K2, K6, K9 and K10 in their d 256 forms at those
      paths' shapes against their plain versions and SDPA, one line each
-     in the `kernels` line.
+     in the `kernels` line;
+ 10. mixture-of-experts models and K7 at head_dim 256 (`python3
+     chip_smoke.py --moe` runs this group alone): `main_path` Qwen3-30B-A3B
+     Q4_K_M at full width cut to 8 of 48 layers (the 300-token prompt in
+     chunks, 31 decode steps; each layer's expert K3/K5 launches twice the
+     experts it picked, from the recorded routing; the decode step
+     profiled eagerly and its per-layer host read of the picks timed
+     apart: no CUDA graph, which cannot hold that read), `serve_qwen3_30b_a3b`
+     (paged bf16, 4 slots, concurrent texts equal sequential),
+     `kernel_moe`: K3 and K5 over one decode step's and one chunk's
+     recorded expert calls against their plain versions, torch.matmul on
+     the dequantized experts and their bound; `serve_q8_gemma_2b` (Gemma-2B,
+     group 9's file, on the q8 cache: 18 K7 at d 256 a decode step, 36 a
+     mixed one) and K7's d 256 forms (int8 and bf16 K/V) at its shapes;
+     `moe_2layer`: Mixtral-8x7B and Qwen1.5-MoE-A2.7B at full width, 2
+     layers (Qwen1.5's 1408-wide down stacks F16: the dense-stack path),
+     the card against the CPU's plain forward from a child (`--moe-cpu
+     NAME`), each token whose picks differ reported with its k-th to
+     (k+1)-th probability gap.
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -402,6 +420,15 @@ GEMMA3_LONG_BYTES = 1500  # the ring phase's prompt past the window (one id a by
 # (its 4096 would take the CPU's plain forward minutes), Gemma-3's real 1024
 GEMMA2_CHECK_WINDOW = 512
 GEMMA_CHECK_STEPS = 8
+# group 10: Qwen3-30B-A3B's 48 layers cut to MOE_LAYERS; the 2-layer checks'
+# prompt (one chunk) and teacher-forced decode steps; a token whose picks
+# differ between the card and the CPU passes only below MOE_TIE_GAP between
+# the CPU's k-th and (k+1)-th router probabilities
+MOE_MAIN = "qwen3_30b_a3b"
+MOE_LAYERS = 8
+MOE_CHECKS = ("mixtral_2layer", "qwen15_moe_2layer")
+MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 64, 6
+MOE_TIE_GAP = 1e-2
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -737,7 +764,7 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
     """A random-weight llama, OLMo-2, Qwen or Gemma GGUF (`shape` may name
     the arch) in `ftype` (cached): the REQUANTIZED presets made by `python
     -m zllm_torch.quantize` from the model's F16 file, the IQ_FTYPES
-    presets and a Gemma file's presets by the factory's `ftype=` (each
+    presets and a Gemma or MoE file's presets by the factory's `ftype=` (each
     tensor in the type `pick_type` gives its role, as the quantizer's; a
     2.6B model's F16 file and its numpy requantization would take minutes),
     any other type written directly by the factory.  Returns (path,
@@ -754,8 +781,8 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
             child.err = child.communicate(timeout=900)[1]
         if child.returncode != 0:
             fail(f"making {path.name} failed: {child.err[-2000:]}")
-    by_factory = ftype in IQ_FTYPES or (shape.get("arch", "").startswith("gemma")
-                                        and ftype in REQUANTIZED)
+    by_factory = ftype in IQ_FTYPES or ((shape.get("arch", "").startswith("gemma")
+                                         or shape.get("n_experts", 0)) and ftype in REQUANTIZED)
     if not path.exists():
         if ftype in REQUANTIZED and not by_factory:
             src = f16_file(name, shape)
@@ -840,7 +867,13 @@ def main_shapes() -> dict:
                               f"Gemma-2-2B width, 2 layers, window {GEMMA2_CHECK_WINDOW} "
                               "(the model's 4096)"),
             "gemma3_2layer": (dict(zt.GEMMA3_4B_SHAPE, n_layers=2),
-                              "Gemma-3-4B width, 2 layers (both windowed)")}
+                              "Gemma-3-4B width, 2 layers (both windowed)"),
+            MOE_MAIN: (dict(zt.QWEN3_30B_A3B_SHAPE, n_layers=MOE_LAYERS),
+                       f"Qwen3-30B-A3B geometry ({MOE_LAYERS} of its 48 layers)"),
+            "mixtral_2layer": (dict(zt.MIXTRAL_8X7B_SHAPE, n_layers=2),
+                               "Mixtral-8x7B width, 2 layers"),
+            "qwen15_moe_2layer": (dict(zt.QWEN15_MOE_A27B_SHAPE, n_layers=2),
+                                  "Qwen1.5-MoE-A2.7B width, 2 layers")}
 
 
 def f16_counts(kernels: dict, zero: bool = False) -> dict:
@@ -1230,6 +1263,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     full layers only.  Warm up, set the launch counts to 0, then the
     traffic; the counts must match the engine's own step counters exactly.
     Returns the counts."""
+    from zllm_torch.models.llama import moe_ffn
     from zllm_torch.ops import attention as att
     from zllm_torch.runtime.kvcache import KVCacheSWA
     from zllm_torch.server.http import ZllmServer
@@ -1265,6 +1299,7 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         for fn in kernels.values():
             fn.launches = 0
         mma_fn.mma_launches = 0
+        moe_ffn.routing = [] if model.cfg.moe is not None else None
         f16_counts(kernels, zero=True)
         m0 = dict(eng.metrics)
         ttft0 = (eng.hist_ttft.total, eng.hist_ttft.n)
@@ -1308,15 +1343,26 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
         mma = mma_fn.mma_launches
         f16_got = f16_counts(kernels)
         m1 = dict(eng.metrics)
+        routing = moe_ffn.routing
     finally:
+        moe_ffn.routing = None
         srv.shutdown()
 
     steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
     dec, pre = steps["decode_steps_total"], steps["prefill_steps_total"]
+    ids_a, ids_b = (model.tokenizer.encode(completion(*c)["prompt"], add_special=True,
+                                           parse_special=True)
+                    for c in ((300,), (280, " and then it rests.")))
+    shared = next((i for i, (x, y) in enumerate(zip(ids_a, ids_b)) if x != y),
+                  min(len(ids_a), len(ids_b)))
+    reuse_need = min(256, shared // eng.alloc.ps * eng.alloc.ps) if eng.paged else 1
     L = model.cfg.n_layers
     if ring:  # the kernels attend in the full layers alone
         L = sum(not w for w in eng.kv.swa_mask)
     expected = serve_expected(kernels, model.cfg, steps, q8, contig, gemms, att_layers=L)
+    experts = expert_launches(routing or [])
+    for name, n in experts.items():  # each layer's experts, from the recorded routing
+        expected[name] += n
     # the cache's bytes against a bf16 contiguous cache of the same slots
     kv = eng.kv
     kv_bytes = kv_bytes_of(eng)
@@ -1346,8 +1392,10 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
           "generated_tokens": gen_tokens,
           "generated_tok_s": gen_tokens / window, "requests_s": len(results) / window,
           "ttft_mean_s": ttft_mean, "ttft_n": ttft_n, "prefix_reused_after_resend": reused,
+          "resend_shared_ids": shared, "prefix_reuse_expected_min": reuse_need,
           "concurrent_equals_sequential": same, "finish_reasons": finishes,
           "engine_counters": steps, "launches": counts, "launches_expected": expected,
+          **({"expert_launches": experts, "moe_calls": len(routing)} if routing else {}),
           "mma_launches": mma, "mma_launches_expected": L * pre, "f16_launches": f16_got,
           "f16_launches_expected": f16_want, "card": card})
     if steps["engine_errors_total"] or m1["engine_errors_total"] or "error" in finishes \
@@ -1356,10 +1404,11 @@ def serve_phase(torch, model, kernels: dict, card: str, kv_dtype=None,
     if not same:
         fail(f"{phase}: concurrent texts differ from the same bodies sent one at a time: "
              f"{[(results[n]['choices'][0]['text'], sequential[n]['choices'][0]['text']) for n in SERVE_PROMPT_BYTES]}")
-    # paged: the re-send shares two full pages; contiguous: an idle slot's
-    # own prefix
-    if reused < (256 if eng.paged else 1):
-        fail(f"{phase}: {reused} prompt tokens reused after the re-send")
+    # paged: the re-send shares two full pages (none where it shares fewer
+    # ids with the 300-byte prompt, as a BPE vocab's 58); contiguous: an idle
+    # slot's own prefix
+    if reused < reuse_need:
+        fail(f"{phase}: {reused} prompt tokens reused after the re-send, {reuse_need} expected")
     if counts != expected or not dec or not pre:
         fail(f"{phase}: kernel launch counts {counts} != expected {expected}")
     if mma != L * pre:
@@ -2967,12 +3016,16 @@ def spec_requests(tok) -> list[dict]:
 
 def gemm_counts(model) -> dict:
     """K3 and K5 launches of one multi-row forward of `model`: each
-    quantized matmul weight and the head, by format."""
+    quantized matmul weight and the head, by format (an MoE layer's router
+    and shared expert where quantized; its experts are counted from the
+    recorded routing, `expert_launches`)."""
     from zllm_torch.ops import qmatmul as qmm
     from zllm_torch.quant.repack import QWeight
 
     ws = [w for layer in model.params["layers"] for k, w in layer.items()
-          if k in ("wqkv", "wq", "wk", "wv", "wo", "ffn_gateup", "ffn_down")]
+          if k in ("wqkv", "wq", "wk", "wv", "wo", "ffn_gateup", "ffn_down", "ffn_gate_inp",
+                   "ffn_gateup_shexp", "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp",
+                   "ffn_gate_inp_shexp")]
     ws.append(model.params["output"])
     ws = [w for w in ws if isinstance(w, QWeight)]
     k3 = sum(w.fmt in qmm.NIBBLE_FMT_CODE for w in ws)
@@ -3910,6 +3963,498 @@ def gemma_phases():
     print(card, flush=True)
 
 
+# ---- group 10: mixture-of-experts models, K7 at head_dim 256 ----------------
+
+def expert_launches(routing) -> dict:
+    """The K3 and K5 launches the recorded routing implies (`moe_ffn.routing`
+    entries: layer, the experts used, ...): each quantized stack of the
+    layer (gate|up or gate and up, down) once an expert used, K3 for the
+    nibble formats, K5 for the others; a dense stack launches none."""
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.quant.repack import QWeightE
+
+    out = {"q4k_gemm": 0, "dequant_gemm": 0}
+    for layer, used, *_ in routing:
+        for key in ("ffn_gateup_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
+            w = layer.get(key)
+            if isinstance(w, QWeightE):
+                out["q4k_gemm" if w.fmt in qmm.NIBBLE_FMT_CODE else "dequant_gemm"] += len(used)
+    return out
+
+
+def moe_want(kernels: dict, model, n_steps: int, n_chunks: int, routing) -> dict:
+    """An MoE generate's launches over the plain stripe: each quantized
+    dense weight (attention, a quantized router or shared expert, the head)
+    once a decode step (K1 / K4) and once a chunk (K3 / K5), K2 a layer a
+    step and a chunk (column 0), K6 a layer a chunk, and the experts' K3 /
+    K5 from the routing recorded over the same window."""
+    g, L = gemm_counts(model), model.cfg.n_layers
+    ex = expert_launches(routing)
+    return dict({name: 0 for name in kernels}, q4k_matvec=g["q4k_gemm"] * n_steps,
+                int8_matvec=g["dequant_gemm"] * n_steps,
+                q4k_gemm=g["q4k_gemm"] * n_chunks + ex["q4k_gemm"],
+                dequant_gemm=g["dequant_gemm"] * n_chunks + ex["dequant_gemm"],
+                attn_decode_qkv=L * (n_steps + n_chunks), flash_attention=L * n_chunks)
+
+
+def _layer_of(model, layer) -> int:
+    return next(il for il, lay in enumerate(model.params["layers"]) if lay is layer)
+
+
+def _routing_rows(torch, model, routing) -> list[dict]:
+    """Each recorded moe_ffn call as (layer, picks [T, k], the k-th to
+    (k+1)-th router probability gap [T]) on the host."""
+    k = model.cfg.moe.n_experts_used
+    out = []
+    for layer, _, picks, probs in routing:
+        top = torch.topk(probs.float(), k + 1, dim=-1).values
+        out.append(dict(layer=_layer_of(model, layer), picks=picks.reshape(-1, k).tolist(),
+                        gap=(top[:, k - 1] - top[:, k]).cpu().tolist()))
+    return out
+
+
+def _moe_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
+    """One side of a 2-layer MoE check on `dev` (bf16 weights and KV): the
+    MOE_CHECK_PROMPT-token prompt as one chunk (the last token's logits),
+    then MOE_CHECK_STEPS decode steps fed this side's argmax (the CPU) or
+    `forced` (the card: the CPU's tokens).  Returns the ids, the fed tokens,
+    the logits and every moe_ffn call's picks and gaps."""
+    from zllm_torch.models.llama import forward, moe_ffn
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.kvcache import KVCache
+
+    path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K_M")
+    m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
+    cfg = m.cfg
+    ids = prompt_ids(m.tokenizer, MOE_CHECK_PROMPT)
+    kv = KVCache.create(cfg.n_layers, 1, MOE_CHECK_PROMPT + CHUNK, cfg.n_kv_heads, cfg.head_dim,
+                        torch.bfloat16, dev)
+
+    def run(toks, start):
+        tt = torch.tensor([toks], dtype=torch.int32, device=dev)
+        pp = torch.arange(start, start + len(toks), dtype=torch.int32, device=dev)[None]
+        with torch.inference_mode():
+            return forward(m.params, cfg, tt, pp, kv, logits_for="last")[0, -1].float().cpu()
+
+    moe_ffn.routing = []
+    try:
+        logits, fed = [run(ids, 0)], []
+        for i in range(MOE_CHECK_STEPS):
+            fed.append(int(torch.argmax(logits[-1])) if forced is None else forced[i])
+            logits.append(run([fed[-1]], MOE_CHECK_PROMPT + i))
+        routing = _routing_rows(torch, m, moe_ffn.routing)
+    finally:
+        moe_ffn.routing = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"ids": ids, "fed": fed, "logits": torch.stack(logits), "routing": routing}
+
+
+def moe_cpu_reference(name: str):
+    """`chip_smoke.py --moe-cpu NAME` (a child, niced, on two threads, so
+    that the card's host-paced phases keep the cores): the CPU's plain side
+    of a 2-layer MoE check, saved for `moe_2layer_check`; it makes the file
+    too."""
+    import torch
+
+    torch.set_num_threads(2)
+
+    out = CACHE / f"{name}_cpu_reference.pt"
+    ref = _moe_2layer_run(torch, name, "cpu")
+    _write_atomic(out, lambda p: torch.save(ref, str(p)))
+
+
+def start_moe_children():
+    """The Qwen3-30B-A3B file's child and the 2-layer checks' CPU sides
+    (each writes its file), all niced."""
+    import atexit
+
+    prepare_requantized([(MOE_MAIN, ("Q4_K_M",))])
+    for name in MOE_CHECKS:
+        _CPU_CHECKS[name] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--moe-cpu", name], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
+
+
+def moe_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
+    """2 layers at an MoE model's full width, Q4_K_M (the factory's), bf16:
+    the card against the CPU's plain forward (its child's saved logits and
+    routing), the CPU's tokens fed to both.  Every token whose picks differ
+    is reported with the CPU's k-th to (k+1)-th probability gap, which must
+    be below MOE_TIE_GAP; the logits of every step before the first such
+    token within nmse 1e-3; K3 launched for the experts."""
+    shape, label = main_shapes()[name]
+    t0 = time.perf_counter()
+    child = _CPU_CHECKS.pop(name)
+    err = child.communicate(timeout=1200)[1]
+    if child.returncode != 0:
+        fail(f"{name}: the CPU reference failed: {err[-2000:]}")
+    cpu = torch.load(str(CACHE / f"{name}_cpu_reference.pt"))
+    waited = time.perf_counter() - t0
+    before = {n: fn.launches for n, fn in kernels.items()}
+    gpu = _moe_2layer_run(torch, name, "cuda", forced=cpu["fed"])
+    launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    if gpu["ids"] != cpu["ids"] or len(gpu["routing"]) != len(cpu["routing"]):
+        fail(f"{name}: the card's ids or moe_ffn calls differ from the CPU's")
+    errs = [nmse(a, b) for a, b in zip(gpu["logits"], cpu["logits"])]
+    agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
+                for a, b in zip(gpu["logits"], cpu["logits"]))
+    n_layers = shape["n_layers"]
+    differ = []
+    for c, (g, r) in enumerate(zip(gpu["routing"], cpu["routing"])):
+        for t, (pg, pc) in enumerate(zip(g["picks"], r["picks"])):
+            if sorted(pg) != sorted(pc):
+                differ.append(dict(step=c // n_layers, layer=r["layer"], token=t, card=pg,
+                                   cpu=pc, cpu_gap=r["gap"][t]))
+    first = min([d["step"] for d in differ], default=len(errs))
+    res = {"phase": "moe_2layer", "model": f"{label} Q4_K_M (random weights, seed 0)",
+           "prompt_tokens": MOE_CHECK_PROMPT, "decode_steps": MOE_CHECK_STEPS,
+           "logits_nmse_by_step": errs, "logits_nmse_max_before_a_pick_differs":
+               max(errs[:first], default=0.0), "tolerance": 1e-3,
+           "argmax_agree": f"{agree}/{len(errs)}", "picks_differ": differ,
+           "tie_gap_bound": MOE_TIE_GAP, "gpu_launches": {n: c for n, c in launched.items() if c},
+           "finite": bool(torch.isfinite(gpu["logits"]).all()),
+           "waited_for_cpu_s": waited, "seconds": time.perf_counter() - t0, "card": card}
+    emit(res)
+    if not res["finite"] or res["logits_nmse_max_before_a_pick_differs"] > 1e-3:
+        fail(f"{name}: GPU logits disagree with the CPU plain forward: {res}")
+    if any(d["cpu_gap"] >= MOE_TIE_GAP for d in differ):
+        fail(f"{name}: the card picked other experts than the CPU where no tie explains it")
+    if not launched["q4k_gemm"]:
+        fail(f"{name}: the card's run launched no K3: {res['gpu_launches']}")
+    return launched
+
+
+def moe_main_path(torch, kernels: dict, card: str):
+    """Qwen3-30B-A3B (MOE_LAYERS layers) through the Generator: the prompt in
+    chunks, then NEW_TOKENS - 1 decode steps, the launch counts against the
+    routing recorded over the same window; one decode step profiled
+    eagerly (a CUDA graph cannot capture the per-layer host read of the
+    picks), its wall time, and the host read alone.  Returns the model,
+    the counts, the generator, the ids, the tokens and the expert launches
+    (`expert_launches`)."""
+    from zllm_torch.models.llama import forward, moe_ffn
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.generate import Generator
+
+    shape, label = main_shapes()[MOE_MAIN]
+    path, t_gguf = gguf_file(MOE_MAIN, shape, "Q4_K_M")
+    t0 = time.perf_counter()
+    model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    cfg = model.cfg
+    gen = Generator(model, max_len=MAX_LEN, prefill_chunk=CHUNK, kv_dtype=torch.bfloat16)
+    ids = prompt_ids(model.tokenizer, PROMPT_TOKENS)
+    gen.generate(ids[:CHUNK + 8], max_new=4)  # warm-up: both chunk shapes, decode
+    gen.reset()
+    for fn in kernels.values():
+        fn.launches = 0
+    moe_ffn.routing = []
+    try:
+        res = gen.generate(ids, max_new=NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        routing = moe_ffn.routing
+    finally:
+        moe_ffn.routing = None
+    n_chunks, n_steps = -(-PROMPT_TOKENS // CHUNK), len(res.tokens) - 1
+    expected = moe_want(kernels, model, n_steps, n_chunks, routing)
+    used = [len(u) for _, u, *_ in routing]
+    tok_t = torch.tensor([[res.tokens[-1]]], dtype=torch.int32, device="cuda")
+    pos_t = torch.tensor([[PROMPT_TOKENS + n_steps]], dtype=torch.int32, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            return forward(model.params, cfg, tok_t, pos_t, gen.kv, logits_for="last")
+
+    last_logits = step()[0, -1].float()
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    profile_ = step_profile(torch, step)
+    picks = torch.zeros((1, cfg.moe.n_experts_used), dtype=torch.int64, device="cuda")
+    reads = []
+    for _ in range(200):  # the host read alone, the card idle: its round trip
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        picks.cpu()
+        reads.append(1e3 * (time.perf_counter() - t1))
+    host_read_ms = sorted(reads)[len(reads) // 2]
+    emit({"phase": "main_path", "model": f"{label} Q4_K_M (random weights, seed 0)",
+          "shape": shape, "dtype": "bfloat16", "kv_dtype": "bfloat16",
+          "prompt_tokens": PROMPT_TOKENS, "max_len": MAX_LEN, "prefill_chunks": n_chunks,
+          "new_tokens": len(res.tokens), "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
+          "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
+          "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
+          "launches": counts, "launches_expected": expected,
+          "expert_launches": expert_launches(routing),
+          "experts_used_per_call": {"decode_step_mean": sum(used[-cfg.n_layers * n_steps:])
+                                    / (cfg.n_layers * n_steps), "chunks": used[:cfg.n_layers
+                                                                             * n_chunks]},
+          "step_graph_ms": "not measured: moe_ffn reads each layer's picks on the host, which "
+                           "a CUDA graph capture cannot hold",
+          "step_eager_wall_ms": sorted(walls)[len(walls) // 2], "step_profile": profile_,
+          "host_reads_per_step": cfg.n_layers, "host_read_ms": host_read_ms,
+          "host_reads_ms_per_step": cfg.n_layers * host_read_ms, "card": card})
+    if n_steps != NEW_TOKENS - 1:
+        fail(f"{MOE_MAIN}: generate stopped after {len(res.tokens)} tokens")
+    if counts != expected:
+        fail(f"{MOE_MAIN}: kernel launch counts {counts} != expected {expected}")
+    if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
+        fail(f"{MOE_MAIN}: logits are not finite or have the wrong shape")
+    return model, counts, gen, ids, res.tokens, expert_launches(routing)
+
+
+def moe_kernel_lines(torch, model, gen, ids: list, tokens: list, experts: dict,
+                     card: str) -> list[dict]:
+    """K3 and K5 over the expert calls of one decode step and of one chunk
+    of the Qwen3-30B-A3B model (recorded by wrapping moe_ffn's product),
+    each against its plain version, torch.matmul on the experts dequantized
+    to bf16 outside the timing, and its bound: the picked experts' GGUF
+    bytes (each read once) plus the rows in and out over 3.35 TB/s, or
+    2 * M * K * N over 989 TFLOP/s."""
+    from zllm_torch.models import llama
+    from zllm_torch.ops import qmatmul as qmm
+    from zllm_torch.quant.repack import QWeightE
+
+    calls = {"chunk": [], "decode_step": []}
+    real = llama._expert_mm
+    where = []
+
+    def spy(x, w, e):
+        if isinstance(w, QWeightE):
+            calls[where[-1]].append((x.contiguous().clone(), w.expert(e)))
+        return real(x, w, e)
+
+    with mock.patch.object(llama, "_expert_mm", spy):
+        gen.reset()
+        where.append("chunk")
+        gen.prefill(ids[:CHUNK])
+        where.append("decode_step")
+        gen._decode_one(tokens[0], CHUNK)
+    torch.cuda.synchronize()
+
+    def case(fn, plain, sub) -> dict:
+        outs = [fn(x, w) for x, w in sub]
+        ref = [plain(x, w) for x, w in sub]
+        a, b = torch.cat([o.reshape(-1) for o in outs]), torch.cat([r.reshape(-1) for r in ref])
+        # outside the timing: the experts dequantized, the rows in bf16
+        dense = {id(w): w.dequant(torch.bfloat16) for _, w in sub}
+        xb = [x.to(torch.bfloat16) for x, _ in sub]
+
+        def run(f):
+            def go():
+                for x, w in sub:
+                    f(x, w)
+            return go
+
+        def lib():
+            for x, (_, w) in zip(xb, sub):
+                torch.matmul(x, dense[id(w)])
+
+        wbytes = sum(w.shape[0] * w.shape[1] * GGUF_BYTES_PER_WEIGHT[w.fmt.name]
+                     for w in {id(w): w for _, w in sub}.values())
+        io = sum(x.numel() * x.element_size() + 4 * x.shape[0] * w.shape[1] for x, w in sub)
+        ops = sum(2 * x.shape[0] * w.shape[0] * w.shape[1] for x, w in sub)
+        bms, bby = bound_ms(wbytes + io, ops, "bf16")
+        rows = sorted({x.shape[0] for x, _ in sub})
+        out = dict(ms=cuda_ms(run(fn), 10), plain_ms=cuda_ms(run(plain), 1),
+                   library_ms=cuda_ms(lib, 10), bound_ms=bms, bound_by=bby, nmse=nmse(a, b),
+                   max_abs_err=float((a - b).abs().max()), tolerance=1e-6, calls=len(sub),
+                   experts=len(dense), rows_min=rows[0], rows_max=rows[-1])
+        del dense, xb
+        return out
+
+    lines = []
+    for name, fn, src, rep, fmts in (
+            ("q4k_gemm_experts", qmm.q4k_gemm, "zllm_torch/csrc/q4k_gemm.cu",
+             "zllm/ops/qmatmul.py:1402", qmm.NIBBLE_FMT_CODE),
+            ("dequant_gemm_experts", qmm.dequant_gemm, "zllm_torch/csrc/dequant_gemm.cu",
+             "zllm/ops/qmatmul.py:1542", qmm.INT8_FMT_CODE)):
+        by = {ph: [(x, w) for x, w in c if w.fmt in fmts] for ph, c in calls.items()}
+        step, chunk = case(fn, qmm.dequant_gemm_plain, by["decode_step"]), case(
+            fn, qmm.dequant_gemm_plain, by["chunk"])
+        lines.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=experts[fn.__name__],
+            **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "nmse", "max_abs_err", "tolerance")},
+            library="torch.matmul on the experts dequantized to bf16 outside the timing",
+            unit=f"one Qwen3-30B-A3B decode step's expert calls ({step['calls']})",
+            decode_step=step, chunk=chunk,
+            note="zllm runs its experts as XLA einsums (zllm/models/llama.py:159, moe_ffn); "
+                 "the port runs them on this kernel at every M; launches: the main path's "
+                 "expert launches"))
+    for ln in lines:
+        emit({"phase": "kernel_moe", "card": card, **ln})
+    bad = [f"{ln['name']} {ph}" for ln in lines for ph in ("decode_step", "chunk")
+           if not ln[ph]["nmse"] <= ln[ph]["tolerance"]]
+    if bad:
+        fail(f"the expert GEMMs disagree with their plain versions: {bad}")
+    return lines
+
+
+def k7_case(torch, F, randn, kvs: list, t7: int, starts: list, hq: int, scale: float) -> dict:
+    """K7 over one engine step's layers `kvs` (each layer's k, v [B, Hkv,
+    S, D] int8 codes with their f32 scales ks, vs [B, Hkv, S, 1], or bf16
+    K/V with None), T = t7 query rows a slot from `starts` (hq heads, f32
+    q), against its plain version and one SDPA call a layer on K/V
+    dequantized to bf16 outside the timing, with its bound: the slots each
+    row reads (its widest query's span) and the (query, slot) pairs the
+    causal mask lets through, each query its own span."""
+    from zllm_torch.ops import attention as att
+
+    n_slots, hkv, s7, hd = kvs[0][0].shape
+    per_layer, int8 = len(kvs), kvs[0][2] is not None
+    pos7 = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+            + torch.arange(t7, dtype=torch.int32, device="cuda")[None])
+    q7 = randn(n_slots, t7, hq, hd)
+    k_, v_, ks_, vs_ = kvs[0]
+    a = att.flash_attention_blockwise(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+    b = att.flash_attention_blockwise_plain(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+
+    def run(fn):
+        def go():
+            for k_, v_, ks_, vs_ in kvs:
+                fn(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+        return go
+
+    def bf16(x, sc):
+        return x if sc is None else (x.float() * sc).to(torch.bfloat16)
+
+    deq = [(bf16(k_, ks_), bf16(v_, vs_)) for k_, v_, ks_, vs_ in kvs]
+    q7b = q7.to(torch.bfloat16).transpose(1, 2)
+    mask7 = (torch.arange(s7, device="cuda")[None, None, :]
+             <= pos7[:, :, None]).reshape(n_slots, 1, t7, s7)
+
+    def lib():
+        for k_, v_ in deq:
+            F.scaled_dot_product_attention(q7b, k_, v_, attn_mask=mask7, scale=scale,
+                                           enable_gqa=True)
+
+    seen = sum(min(p_ + t7 - 1, s7 - 1) + 1 for p_ in starts)
+    pairs = sum(min(p_ + t, s7 - 1) + 1 for p_ in starts for t in range(t7))
+    slot_bytes = 2 * hkv * (hd + 4) if int8 else 2 * hkv * hd * 2
+    nbytes = per_layer * (seen * slot_bytes + 2 * q7.numel() * 4)
+    bms, bby = bound_ms(nbytes, per_layer * 4 * hq * hd * pairs, "bf16")
+    reps = 20 if t7 == 1 else 5
+    return dict(ms=cuda_ms(run(att.flash_attention_blockwise), reps),
+                plain_ms=cuda_ms(run(att.flash_attention_blockwise_plain), 2),
+                library_ms=cuda_ms(lib, reps), bound_ms=bms, bound_by=bby,
+                nmse=nmse(a, b), max_abs_err=float((a - b).abs().max()), tolerance=1e-6,
+                shapes=f"q [{n_slots},{t7},{hq},{hd}] f32 from {starts}, k/v "
+                       f"[{n_slots},{hkv},{s7},{hd}] " + (
+                           "int8 + f32 scales [.., 1]" if int8 else "bf16"))
+
+
+def k7_d256_line(torch, F, model, card: str, counts: dict) -> dict:
+    """K7's d 256 forms at the Gemma-2B q8 serve's shapes (4 slots, S 2176,
+    8 / 1 heads of 256, 18 layers): a decode step (rows at 255, 0, 300 and a
+    trash row at 2048) and a mixed step (a chunk of 128 from 0, 256, 300
+    and 2048), over int8 codes with f32 scales and over bf16 K/V
+    (`k7_case`)."""
+    cfg = model.cfg
+    L, hq, hkv, d, n_slots, s7 = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 4, \
+        MAX_LEN + 128
+    scale = cfg.attn_scale or d ** -0.5
+    g = torch.Generator(device="cuda")
+    g.manual_seed(26)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def codes():
+        return torch.randint(-127, 128, (n_slots, hkv, s7, d), generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    kvs = {"int8": [(codes(), codes(), randn(n_slots, hkv, s7, 1).abs() * 0.01 + 1e-3,
+                     randn(n_slots, hkv, s7, 1).abs() * 0.01 + 1e-3) for _ in range(L)],
+           "bf16": [(randn(n_slots, hkv, s7, d, dtype=torch.bfloat16),
+                     randn(n_slots, hkv, s7, d, dtype=torch.bfloat16), None, None)
+                    for _ in range(L)]}
+    dec, mix = [255, 0, 300, MAX_LEN], [0, 256, 300, MAX_LEN]
+    k7 = {f"{form}_{step}": k7_case(torch, F, randn, kvs[form], t7, starts, hq, scale)
+          for form in ("int8", "bf16") for step, t7, starts in (("decode", 1, dec),
+                                                                  ("mixed", 128, mix))}
+    del kvs
+    head = k7["int8_decode"]
+    line = dict(name="flash_attention_blockwise_d256", route="cuda",
+                source="zllm_torch/csrc/attn_blockwise.cu", replaces="zllm/ops/attention.py:165",
+                launches=counts["flash_attention_blockwise"], mma_launches=counts["mma_launches"],
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "nmse", "max_abs_err", "tolerance", "shapes")},
+                library="scaled_dot_product_attention on K/V dequantized to bf16 outside the "
+                        "timing",
+                unit=f"one Gemma-2B serve_q8 decode step ({L} launches), int8 K/V",
+                serve_q8_mixed_step=k7["int8_mixed"], bf16_decode_step=k7["bf16_decode"],
+                bf16_mixed_step=k7["bf16_mixed"], head_dim=d,
+                form="split (R <= 32): decode_cluster.cuh's D 256 instantiation; mixed: "
+                     "attn_mma.cuh in chunks of 64 slots")
+    emit({"phase": "kernel_moe", "card": card, **line})
+    bad = [k for k, r in k7.items() if not r["nmse"] <= r["tolerance"]]
+    if bad:
+        fail(f"K7's d 256 forms disagree with their plain versions: {bad}")
+    return line
+
+
+def moe_group(torch, kernels: dict, card: str) -> dict:
+    """Group 10: Qwen3-30B-A3B's generate and serve with the expert lines,
+    Gemma-2B on the q8 cache with K7's d 256 line, then the 2-layer
+    Mixtral and Qwen1.5-MoE checks against the CPU.  Returns the paths'
+    launch counts and the kernel lines."""
+    import torch.nn.functional as F
+
+    from zllm_torch.models.loader import Model
+
+    t0 = time.perf_counter()
+    model, counts_main, gen, ids, tokens, experts = moe_main_path(torch, kernels, card)
+    label = main_shapes()[MOE_MAIN][1] + " Q4_K_M"
+    counts = {MOE_MAIN: counts_main,
+              "serve_qwen3_30b_a3b": serve_phase(torch, model, kernels, card, label=label,
+                                                 gemms=gemm_counts(model), tag=MOE_MAIN)}
+    lines = moe_kernel_lines(torch, model, gen, ids, tokens, experts, card)
+    del model, gen
+    torch.cuda.empty_cache()
+    path, _ = gguf_file("gemma_2b", main_shapes()["gemma_2b"][0], "Q4_K_M")
+    m1 = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+    counts["serve_q8_gemma_2b"] = serve_phase(torch, m1, kernels, card, kv_dtype="q8",
+                                              label="Gemma-2B geometry Q4_K_M",
+                                              gemms=gemm_counts(m1), tag="gemma_2b")
+    lines.append(k7_d256_line(torch, F, m1, card, counts["serve_q8_gemma_2b"]))
+    del m1
+    torch.cuda.empty_cache()
+    for name in MOE_CHECKS:
+        counts[name] = moe_2layer_check(torch, kernels, card, name)
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_group", "seconds": time.perf_counter() - t0, "card": card})
+    return {"counts": counts, "lines": lines}
+
+
+def moe_phases():
+    """`python3 chip_smoke.py --moe`: group 10 alone after building the
+    kernels (its files and CPU references made by children meanwhile, and
+    Gemma-2B's)."""
+    torch, card = setup_card()
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports),
+          "attn_blockwise": ptxas_entries({"attn_blockwise": reports.get("attn_blockwise", "")},
+                                          "_kernel")})
+    start_moe_children()
+    prepare_requantized([("gemma_2b", ("Q4_K_M",))])
+    kernels = kernel_wrappers()
+    moe_group(torch, kernels, card)
+    print(card, flush=True)
+
+
 def kernel_wrappers() -> dict:
     """The twelve kernels' wrappers, by name; each counts its launches."""
     from zllm_torch.ops import attention as att
@@ -4083,14 +4628,14 @@ def main():
     emit({"phase": "build_decode_cluster", "instantiations": cluster_build,
           "note": "registers and spills of the one-launch cluster decode step "
                   "(csrc/decode_cluster.cuh): K7's split form (attn_blockwise.cu: q f32/bf16 x "
-                  "K/V int8/bf16 x D 64/128), K9 (paged_decode.cu: q f32/bf16 x pools "
+                  "K/V int8/bf16 x D 64/128/256), K9 (paged_decode.cu: q f32/bf16 x pools "
                   "f32/bf16/f16 x D 64/128, bf16/f16 at D 256) and K8 (attn_decode_update.cu: "
                   "q f32/bf16 x caches "
                   "f32/bf16/f16 x D 64/128)" if cluster_build else "not built in this run (cached)"})
     spills = [e for e in cluster_build if e["spill_stores"] or e["spill_loads"]]
     if spills:
         fail(f"the cluster decode step spills: {spills}")
-    for lib, n_inst in (("attn_blockwise", 8), ("paged_decode", 16), ("attn_decode_update", 12)):
+    for lib, n_inst in (("attn_blockwise", 12), ("paged_decode", 16), ("attn_decode_update", 12)):
         inst = ptxas_entries({lib: reports.get(lib, "")}, "decode_cluster_kernel")
         if lib in reports and len(inst) != n_inst:
             fail(f"{lib}: {len(inst)} cluster decode instantiations built, not {n_inst}")
@@ -4230,6 +4775,9 @@ def main():
     for layout in SMALL_ENGINE_LAYOUTS:
         small_engine_check(torch, kernels, layout)
     olmo2_f16_parity(torch, card)
+    # group 10's files and CPU references, after the small models' CPU-heavy
+    # checks (beside them, in one run, those took 14-17 s longer each)
+    start_moe_children()
 
     # ---- main paths at TinyLlama geometry -------------------------------
     # every T > 1 step over the contiguous cache (a prefill chunk here)
@@ -4492,6 +5040,7 @@ def main():
     spec = spec_group(torch, model_m, kernels, card)
     # group 9: the Gemma text families (head_dim 256, windows, the ring)
     gemma = gemma_group(torch, kernels, card)
+    moe = moe_group(torch, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -4990,50 +5539,6 @@ def main():
                      randn(n_slots, hkv, s7, hd, dtype=torch.bfloat16), None, None)
                     for _ in layers]}
 
-    def k7_case(t7: int, starts: list, form: str) -> dict:
-        kvs = kv7[form]
-        pos7 = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
-                + torch.arange(t7, dtype=torch.int32, device="cuda")[None])
-        q7 = randn(n_slots, t7, hq, hd)
-        k_, v_, ks_, vs_ = kvs[0]
-        a = att.flash_attention_blockwise(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
-        b = att.flash_attention_blockwise_plain(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
-
-        def run(fn):
-            def go():
-                for k_, v_, ks_, vs_ in kvs:
-                    fn(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
-            return go
-
-        def bf16(x, sc):
-            return x if sc is None else (x.float() * sc).to(torch.bfloat16)
-
-        deq = [(bf16(k_, ks_), bf16(v_, vs_)) for k_, v_, ks_, vs_ in kvs]  # outside the timing
-        q7b = q7.to(torch.bfloat16).transpose(1, 2)
-        mask7 = (torch.arange(s7, device="cuda")[None, None, :]
-                 <= pos7[:, :, None]).reshape(n_slots, 1, t7, s7)
-
-        def lib():
-            for k_, v_ in deq:
-                F.scaled_dot_product_attention(q7b, k_, v_, attn_mask=mask7, scale=scale,
-                                               enable_gqa=True)
-
-        # slots each row reads (its widest query's span) and the (query,
-        # slot) pairs the causal mask lets through, each query its own span
-        seen = sum(min(p_ + t7 - 1, s7 - 1) + 1 for p_ in starts)
-        pairs = sum(min(p_ + t, s7 - 1) + 1 for p_ in starts for t in range(t7))
-        slot_bytes = 2 * hkv * (hd + 4) if form == "int8" else 2 * hkv * hd * 2
-        nbytes = per_layer * (seen * slot_bytes + 2 * q7.numel() * 4)
-        bms, bby = bound_ms(nbytes, per_layer * 4 * hq * hd * pairs, "bf16")
-        reps = 20 if t7 == 1 else 5
-        return dict(ms=cuda_ms(run(att.flash_attention_blockwise), reps),
-                    plain_ms=cuda_ms(run(att.flash_attention_blockwise_plain), 2),
-                    library_ms=cuda_ms(lib, reps), bound_ms=bms, bound_by=bby,
-                    nmse=nmse(a, b), max_abs_err=float((a - b).abs().max()), tolerance=1e-6,
-                    shapes=f"q [{n_slots},{t7},{hq},{hd}] f32 from {starts}, k/v "
-                           f"[{n_slots},{hkv},{s7},{hd}] " + (
-                               "int8 + f32 scales [.., 1]" if form == "int8" else "bf16"))
-
     # one split-form call at S = 8320 (65 chunks a row), int8 K/V, a row at 8000
     s7l = 8320
     pos7_l = torch.tensor([[8000], [4100], [0], [s7l]], dtype=torch.int32, device="cuda")
@@ -5061,8 +5566,9 @@ def main():
         q7l, k_, v_, pos7_dec, scale=scale, ks=ks_, vs=vs_))
     if k7_calls not in (None, 1):
         fail(f"K7's split form launched {k7_calls} CUDA kernels a call, not one cluster launch")
-    k7 = {"int8_decode": k7_case(1, dec7, "int8"), "int8_mixed": k7_case(128, mix7, "int8"),
-          "bf16_decode": k7_case(1, dec7, "bf16"), "bf16_mixed": k7_case(128, mix7, "bf16")}
+    k7 = {f"{form}_{step}": k7_case(torch, F, randn, kv7[form], t7, starts, hq, scale)
+          for form in ("int8", "bf16") for step, t7, starts in (("decode", 1, dec7),
+                                                                  ("mixed", 128, mix7))}
     head7 = k7["int8_decode"]
     lines.append(dict(name="flash_attention_blockwise", route="cuda",
                       source="zllm_torch/csrc/attn_blockwise.cu",
@@ -5728,6 +6234,7 @@ def main():
                   "and K8's f16 form) graph times from the kernel phases"})
 
     lines += gemma["lines"]  # the d 256 forms (group 9), each a line of its own
+    lines += moe["lines"]  # the experts' K3 / K5 and K7's d 256 forms (group 10)
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
@@ -5749,7 +6256,9 @@ def main():
     forms.update({name: ["float32", "bfloat16", "float16"] for name in (
         "attn_decode_qkv", "flash_attention", "paged_attn_decode_update", "paged_attention")})
     forms.update(attn_decode_update=["float32", "bfloat16", "float16"],
-                 flash_attention_blockwise=["bfloat16", "int8"])
+                 flash_attention_blockwise=["bfloat16", "int8"],
+                 flash_attention_blockwise_d256=["bfloat16", "int8"],
+                 q4k_gemm_experts=forms["q4k_gemm"], dequant_gemm_experts=forms["dequant_gemm"])
     emit({"kernels": [dict({k: ln[k] for k in keys},
                            **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))
                       for ln in lines]})
@@ -5774,6 +6283,12 @@ if __name__ == "__main__":
         os.nice(10)
         sys.path.insert(0, str(REPO))
         gemma_cpu_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--moe"]:  # group 10 alone
+        moe_phases()
+    elif sys.argv[1:2] == ["--moe-cpu"]:  # a child of start_moe_children
+        os.nice(19)
+        sys.path.insert(0, str(REPO))
+        moe_cpu_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--serve-q8"]:  # serve_q8 and the q8 insert alone
         serve_q8_ab(int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone

@@ -591,6 +591,13 @@ K7_CASES = {
     "r32": (4, 8, 64, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.float32),
     "window_mid": (1, 8, 64, 2176, [1000, 777, 2047, 2048], 333, 0.0, False, torch.float32),
     "s20000_sinks": (1, 8, 64, 20000, [19000, 9000, 5, 20000], 0, 0.0, True, torch.float32),
+    # head_dim 256 (Gemma-1 on the q8 cache: G 8): the split form on
+    # decode_cluster.cuh's D 256 instantiation, the multi-row form on
+    # attn_mma.cuh's 64-slot chunks; S 2100 ends mid-chunk
+    "decode_g8_d256": (1, 8, 256, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.float32),
+    "bf16q_decode_d256": (1, 8, 256, 2176, [255, 0, 300, 2048], 0, 0.0, False, torch.bfloat16),
+    "chunk_g8_d256": (128, 8, 256, 2176, [0, 256, 300, 2048], 0, 0.0, False, torch.float32),
+    "chunk_d256_s2100": (128, 8, 256, 2100, [0, 256, 1900, 2100], 0, 0.0, True, torch.float32),
 }
 
 
@@ -1126,7 +1133,8 @@ def test_k11_quantize_bit_equal(dev, k, xdtype):
 
 
 @pytest.mark.parametrize("kv", ["paged_bf16", "q8", "contiguous_bf16", "olmo2_contiguous_bf16",
-                                "paged_f16", "contiguous_f16", "olmo2_contiguous_f16"])
+                                "paged_f16", "contiguous_f16", "olmo2_contiguous_f16",
+                                "moe_paged_bf16"])
 def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     """Greedy requests served together (a generating row riding the mixed
     steps of another request's prefill) and one at a time give the same
@@ -1137,7 +1145,10 @@ def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     f16 forms), as a decode step does.  The fourth prompt extends the
     first's first 50 tokens: alone, the contiguous and q8 layouts reuse
     them and prefill its last token as a chunk of one, which keeps the
-    multi-row kernel's bits as inside its longer chunk served together."""
+    multi-row kernel's bits as inside its longer chunk served together.
+    The MoE case (a qwen3moe file, 8 experts, top-2, Q4_K stacks): each
+    expert's rows through K3 at every M, the dense router in fixed blocks
+    of rows (`models/llama._rows_linear`)."""
     import time
 
     from zllm_torch.models.loader import Model
@@ -1145,8 +1156,10 @@ def test_engine_rows_do_not_depend_on_the_batch(dev, kv, tmp_path):
     from zllm_torch.testing import make_llama_gguf
 
     olmo2 = dict(arch="olmo2", n_kv_heads=4, norm_eps=1e-6, rope_base=500000.0)
+    moe = dict(arch="qwen3moe", n_ff=256, n_experts=8, n_experts_used=2, norm_eps=1e-6)
     path = make_llama_gguf(str(tmp_path / "m.gguf"), gtype=GGMLType.Q4_K, seed=0,
-                           **(olmo2 if kv.startswith("olmo2") else {}))
+                           **(olmo2 if kv.startswith("olmo2") else moe if kv.startswith("moe")
+                              else {}))
     model = Model.load(path, device="cuda", dtype=torch.bfloat16)
     layout = dict(kv_dtype="q8") if kv == "q8" else dict(
         kv_dtype=torch.float16 if kv.endswith("_f16") else torch.bfloat16,
@@ -1736,16 +1749,78 @@ def test_windowed_forms_past_the_window(dev, kernel, d):
 
 
 def test_k7_k8_refuse_d256_and_k9_f32_pools(dev):
-    """K7 and K8 have no head_dim-256 form (ROADMAP queue 2), nor K9 over
-    an f32 pool: each raises a ValueError, launching nothing."""
+    """K8 has no head_dim-256 form (ROADMAP queue 2), nor K9 over an f32
+    pool: each raises a ValueError, launching nothing; K7 takes head_dim
+    256 (the same call matches its plain version)."""
     q = _randn((1, 1, 8, 256), 91, dev)
     kc = _randn((1, 1, 512, 256), 92, dev, torch.bfloat16)
     pos = torch.tensor([[10]], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="K8"):
         ta.attn_decode_update(q, q[:, :, :1], q[:, :, :1], kc, kc.clone(), pos, scale=0.0625)
-    with pytest.raises(ValueError, match="K7"):
-        ta.flash_attention_blockwise(q, kc, kc.clone(), pos, scale=0.0625)
+    got = ta.flash_attention_blockwise(q, kc, kc.clone(), pos, scale=0.0625)
+    want = ta.flash_attention_blockwise_plain(q, kc, kc.clone(), pos, scale=0.0625)
+    torch.cuda.synchronize()
+    assert _nmse(got, want) < 1e-6
     k_pool, v_pool, table = _paged_inputs(1, 1, 256, 4, 128, torch.float32, dev, 93)
     with pytest.raises(ValueError, match="f32 pool"):
         ta.paged_attn_decode_update(q, q[:, :, :1], q[:, :, :1], k_pool, v_pool, table, pos,
                                     page_size=128, scale=0.0625)
+
+
+# ---- mixture-of-experts: the experts on K3 / K5 --------------------------------
+
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q6_K], ids=lambda f: f.name)
+def test_expert_rows_do_not_depend_on_m(dev, fmt):
+    """An expert of a stack (Qwen3-30B-A3B's gate shape, 768 x 2048, and
+    its down's, 2048 x 768) through K3 (Q4_K) or K5 (Q6_K): a row alone
+    (M = 1) and four rows equal the same rows of a 256-row call bit for
+    bit; the plain version within nmse 1e-6."""
+    from zllm_torch.quant.repack import repack_experts
+
+    for n, k in ((768, 2048), (2048, 768)):
+        rng = np.random.default_rng(n)
+        raw = qb.quantize(rng.standard_normal((4, n, k)).astype(np.float32) * 0.05, fmt)
+        w = repack_experts(raw, (4, n, k), fmt, dev).expert(2)
+        x = _randn((256, k), 7, dev, torch.bfloat16)
+        full = tq.gemm(x, w)
+        assert torch.equal(tq.gemm(x[:1], w)[0], full[0])
+        assert torch.equal(tq.gemm(x[37:41], w), full[37:41])
+        assert _nmse(full, tq.dequant_gemm_plain(x, w)) < 1e-6
+
+
+def test_moe_ffn_rows_and_launches(dev):
+    """moe_ffn on the card (a qwen3moe-shaped layer: 2048 wide, 16 experts
+    of 768, top-4, Q4_K gate|up and Q6_K down stacks, a bf16 router): a
+    token alone and inside a 256-token chunk gets the same output bits;
+    the expert launches are K3 and K5 once each a used expert, as the
+    recorded routing says."""
+    from types import SimpleNamespace
+
+    from zllm_torch.models.config import MoeConfig
+    from zllm_torch.models.llama import moe_ffn
+    from zllm_torch.quant.repack import concat_experts, repack_experts
+
+    e, d, f = 16, 2048, 768
+    rng = np.random.default_rng(8)
+
+    def stack(n, k, fmt):
+        raw = qb.quantize(rng.standard_normal((e, n, k)).astype(np.float32) * 0.05, fmt)
+        return repack_experts(raw, (e, n, k), fmt, dev)
+
+    lay = {"ffn_gate_inp": _randn((d, e), 10, dev, torch.bfloat16, scale=0.05),
+           "ffn_gateup_exps": concat_experts([stack(f, d, GGMLType.Q4_K),
+                                              stack(f, d, GGMLType.Q4_K)]),
+           "ffn_down_exps": stack(d, f, GGMLType.Q6_K)}
+    cfg = SimpleNamespace(moe=MoeConfig(n_experts=e, n_experts_used=4, n_ff_exp=f), act="silu")
+    h = _randn((1, 256, d), 9, dev, torch.bfloat16)
+    k3, k5 = tq.q4k_gemm.launches, tq.dequant_gemm.launches
+    moe_ffn.routing = []
+    try:
+        full = moe_ffn(lay, cfg, h)
+        torch.cuda.synchronize()
+        (_, used, *_), = moe_ffn.routing
+    finally:
+        moe_ffn.routing = None
+    assert tq.q4k_gemm.launches - k3 == len(used) and tq.dequant_gemm.launches - k5 == len(used)
+    assert torch.equal(moe_ffn(lay, cfg, h[:, :1])[0, 0], full[0, 0])
+    assert torch.equal(moe_ffn(lay, cfg, h[:, 100:104]), full[:, 100:104])

@@ -210,21 +210,32 @@ class _Meta:
 
 
 @pytest.mark.parametrize("arch,extra", [
-    ("olmo2", {}), ("qwen3moe", {}), ("hunyuan-dense", {}), ("chameleon", {}),
+    ("olmo2", {}),
+    ("qwen3moe", {"expert_count": 8, "expert_used_count": 2, "feed_forward_length": 512}),
+    ("hunyuan-dense", {}), ("chameleon", {}),
     ("olmo2", {"attention.sliding_window": 4096}), ("olmo2", {"expert_count": 8}),
     ("olmo2", {"rope.scaling.type": "longrope", "rope.scaling.factor": 4.0}),
 ], ids=["olmo2", "qwen3moe", "hunyuan", "chameleon", "olmo2_swa", "olmo2_moe", "olmo2_longrope"])
 def test_config_refuses_what_the_port_does_not_run(arch, extra):
-    """OLMo-2 loads; the other q/k-norm families and OLMo-2 files with a
-    sliding window, experts or longrope are refused, not run as another
-    model."""
+    """OLMo-2 loads, and so does a qwen3moe file (with zllm's MoeConfig);
+    the other q/k-norm families and OLMo-2 files with a sliding window,
+    experts (ROADMAP queue 1 item 8) or longrope are refused, not run as
+    another model."""
+    import dataclasses
+
+    from zllm.models.config import ModelConfig as ZConfig
     from zllm_torch.models.config import ModelConfig
 
     if arch == "olmo2" and not extra:
         cfg = ModelConfig.from_gguf(_Meta(arch))
         assert cfg.arch == "olmo2" and cfg.rope.style == "neox"
         return
-    with pytest.raises(NotImplementedError):
+    if arch == "qwen3moe":
+        cfg = ModelConfig.from_gguf(_Meta(arch, **extra))
+        assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(
+            ZConfig.from_gguf(_Meta(arch, **extra)).moe)
+        return
+    with pytest.raises(NotImplementedError, match="item 8" if "expert_count" in extra else ""):
         ModelConfig.from_gguf(_Meta(arch, **extra))
 
 

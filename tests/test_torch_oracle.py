@@ -99,11 +99,21 @@ def qtensor_numpy(qt) -> dict:
             "planes": {name: np.asarray(p) for name, p in qt.planes.items()}}
 
 
+def qtensore_numpy(qt) -> dict:
+    """zllm QTensorE (an expert stack) -> its description: shape (E, K, N),
+    planes with a leading E axis."""
+    return {"fmt": int(qt.fmt), "shape": tuple(qt.shape), "fold": qt.fold, "npack": False,
+            "planes": {name: np.asarray(p) for name, p in qt.planes.items()}}
+
+
 def jax_params_numpy(params: dict) -> dict:
-    """zllm's loaded params tree with numpy leaves (QTensors described)."""
-    from zllm.quant.repack import QTensor
+    """zllm's loaded params tree with numpy leaves (QTensors and QTensorEs
+    described)."""
+    from zllm.quant.repack import QTensor, QTensorE
 
     def leaf(v):
+        if isinstance(v, QTensorE):
+            return qtensore_numpy(v)
         return qtensor_numpy(v) if isinstance(v, QTensor) else to_np(v)
 
     out = {key: leaf(v) for key, v in params.items() if key != "layers"}

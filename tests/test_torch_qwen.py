@@ -309,9 +309,16 @@ def test_quantize_q4km_matches_zllm(files, tmp_path, name):
 
 @pytest.mark.parametrize("arch,extra", [
     ("qwen2", {"attention.sliding_window": 32768}), ("qwen3", {"expert_count": 8}),
-    ("qwen2moe", {}), ("qwen3", {"embedding_scale": 2.0}),
+    ("qwen2moe", {"expert_count": 60, "expert_used_count": 4, "expert_shared_count": 1,
+                  "expert_feed_forward_length": 1408}),
+    ("qwen3", {"embedding_scale": 2.0}),
 ], ids=["qwen2_swa", "qwen3_moe", "qwen2moe", "qwen3_emb_scale"])
 def test_config_refuses_what_the_port_does_not_run(arch, extra):
+    """A qwen2moe file loads with zllm's MoeConfig; experts on qwen3 (ROADMAP
+    queue 1 item 8), a window and an embedding scale are refused."""
+    import dataclasses
+
+    from zllm.models.config import ModelConfig as ZConfig
     from zllm_torch.models.config import ModelConfig
 
     class Meta:
@@ -323,7 +330,12 @@ def test_config_refuses_what_the_port_does_not_run(arch, extra):
         def kv(self, key, default=None):
             return self.metadata.get(key, default)
 
-    with pytest.raises(NotImplementedError):
+    if arch == "qwen2moe":
+        cfg = ModelConfig.from_gguf(Meta())
+        assert cfg.qkv_bias and dataclasses.asdict(cfg.moe) == dataclasses.asdict(
+            ZConfig.from_gguf(Meta()).moe)
+        return
+    with pytest.raises(NotImplementedError, match="item 8" if "expert_count" in extra else ""):
         ModelConfig.from_gguf(Meta())
 
 

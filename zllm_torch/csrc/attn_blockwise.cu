@@ -25,14 +25,18 @@
 //    row's max and denominator are read from the peers' chunk statistics
 //    over distributed shared memory, and block 0 sums the partials and
 //    adds the sinks.  The probabilities stay f32, so the split is exact up
-//    to f32 reassociation.
+//    to f32 reassociation.  At D 256 (Gemma-1's heads on the q8 cache) the
+//    same launch, q's fragments in shared memory as K9's D 256 form keeps
+//    them; an int8 chunk of 128 slots is half the bytes of a bf16 one, plus
+//    its scales.
 //  * multi-row, R > 32 (a mixed prefill step, R = 1024; its own entry,
 //    zt_attn_blockwise_mma): the one-pass tensor-core loop of attn_mma.cuh
 //    (shared with K10) behind a contiguous addressor, in chunks of 128
 //    slots: an f32 q split into three bf16 parts, int8 codes converted to
 //    bf16 in shared memory (exact), K's scale on the f32 score, the
 //    unrounded probability times V's scale split into three bf16 parts for
-//    three P.V products, the sinks joined at the end.
+//    three P.V products, the sinks joined at the end; at D 256 in chunks of
+//    64 slots (see launch_mma).
 
 #include "attn_mma.cuh"
 #include "decode_cluster.cuh"
@@ -63,20 +67,26 @@ struct BlockKV {
 constexpr int kChunk = 128;  // slots a chunk of the multi-row loop
 
 // int8 codes come with their scales (the entry checks), bf16 K/V without
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, int CH>
 int launch_mma_d(const void* k, const void* v, const float* ks, const float* vs,
                  const zt_mma::Params& p, cudaStream_t stream) {
   constexpr bool kScaled = sizeof(TKV) == 1;
   const BlockKV<TKV, kScaled> kv{static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks, vs,
                                  p.Hkv, p.S, D};
-  return zt_mma::launch_mma<TQ, TKV, D, kChunk, false>(kv, p, stream);
+  return zt_mma::launch_mma<TQ, TKV, D, CH, false>(kv, p, stream);
 }
 
+// D 256 (Gemma-1 on the q8 cache) takes chunks of 64 slots: two stages of
+// 128 rows of 256 would not fit a block's shared memory beside q's three
+// parts and the int8 chunk's bf16 tiles (K10's D 256 form does the same).
+// The running max advances a chunk; the probabilities are never rounded,
+// so the chunk size moves the result by f32 reassociation only.
 template <typename TQ, typename TKV>
 int launch_mma(int D, const void* k, const void* v, const float* ks, const float* vs,
                const zt_mma::Params& p, cudaStream_t stream) {
-  if (D == 64) return launch_mma_d<TQ, TKV, 64>(k, v, ks, vs, p, stream);
-  if (D == 128) return launch_mma_d<TQ, TKV, 128>(k, v, ks, vs, p, stream);
+  if (D == 64) return launch_mma_d<TQ, TKV, 64, kChunk>(k, v, ks, vs, p, stream);
+  if (D == 128) return launch_mma_d<TQ, TKV, 128, kChunk>(k, v, ks, vs, p, stream);
+  if (D == 256) return launch_mma_d<TQ, TKV, 256, 64>(k, v, ks, vs, p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -106,6 +116,7 @@ int launch_split(int D, const void* k, const void* v, const float* ks, const flo
                                   p.Hkv, p.S};
   if (D == 64) return zt_dc::launch<TQ, TKV, 64>(p, kv, B, stream);
   if (D == 128) return zt_dc::launch<TQ, TKV, 128>(p, kv, B, stream);
+  if (D == 256) return zt_dc::launch<TQ, TKV, 256>(p, kv, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,9 +24,13 @@
 //     is walked twice, once for its max, once for P.V.  The rounding points
 //     are the plain version's (`ops/attention.py::paged_online_plain`).
 //   * K7 (zllm `_attnb_kernel`): the max advances a chunk of CH = 128
-//     slots; K's scale multiplies the score, V's the probability, which is
-//     never rounded: p * vs is split into three bf16 parts and P.V is three
-//     products.  Sink logits join at the end.
+//     slots (64 at D 256); K's scale multiplies the score, V's the
+//     probability, which is never rounded: p * vs is split into three bf16
+//     parts and P.V is three products.  Sink logits join at the end.  At D
+//     256 the two warps of a row group split the output columns (128 each)
+//     and each scores every slot of a chunk (kSplitD), rather than each
+//     taking half the slots for all 256 columns: that accumulator, beside
+//     p's and q's three parts, spilled past 255 registers.
 //
 // Tensor cores without rounding the reference's f32 operands: K's int8
 // codes and bf16 K/V are exact in bf16, and an f32 x is split into three
@@ -320,9 +324,17 @@ __device__ __forceinline__ void cap_and_mask(float (&s)[NT][4], const Params& a,
 template <typename TQ, typename TKV, int D, int CH, bool kPage, typename KV>
 __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, const Params a) {
   using L = Layout<TQ, TKV, D, CH, KV::kScales>;
-  constexpr int QS = L::QS, RS = L::RS, ND = D / 8;
-  constexpr int HC = CH / kSlotWarps, NT = HC / 8;  // a warp's slots of a chunk, n-tiles of 8
-  static_assert(HC % 16 == 0 && D % 16 == 0, "shapes");
+  constexpr int QS = L::QS, RS = L::RS;
+  // K7 at D 256 (kSplitD): the warps of a row group split the output
+  // columns, each scoring every slot of the chunk (twice the score MMAs),
+  // not the slots: an f32 accumulator of all 256 columns (128 registers a
+  // thread) beside three parts of p and q spilled past 255 registers
+  constexpr bool kSplitD = !kPage && D > 128;
+  constexpr int DV = kSplitD ? D / kSlotWarps : D;  // output columns a warp
+  constexpr int ND = DV / 8;
+  // a warp's slots of a chunk, n-tiles of 8
+  constexpr int HC = kSplitD ? CH : CH / kSlotWarps, NT = HC / 8;
+  static_assert(HC % 16 == 0 && D % 16 == 0 && DV % 16 == 0, "shapes");
   static_assert((size_t)(kSlotWarps - 1) * QB * (D + 1) * 4 <= 2 * L::stage_bytes, "combine");
   static_assert(!(kPage && KV::kScales), "K10 takes no scales");
   // f16 K/V: K10's form (K7's would need its unrounded p scaled before an
@@ -394,7 +406,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
 
   // this thread's two rows (gid, gid + 8 of its row group's 16), and the
   // rows of the warp (for the chunks that need no mask)
-  const int wr0 = rg * 16, so = sh * HC;
+  const int wr0 = rg * 16, so = kSplitD ? 0 : sh * HC;
+  const int dv0 = kSplitD ? sh * DV : 0;  // this warp's first output column
   int qp[2];
   bool rv[2];
 #pragma unroll
@@ -567,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
         for (int dn = 0; dn < D / 16; ++dn) {
           uint32_t r[4];
           ldmatrix_x4_trans(r, vb + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS +
-                                   dn * 16 + (lane >> 4) * 8);
+                                   dv0 + dn * 16 + (lane >> 4) * 8);
           const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
           for (int part = 0; part < NP; ++part) {
@@ -581,9 +594,10 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
   __syncthreads();  // the last chunk is read: its stage takes the shares' partials
 
   // the other shares' acc and l join share 0's (the running max is the
-  // same in all), then sinks (K7) and acc / l
+  // same in all), then sinks (K7) and acc / l; kSplitD: each warp holds
+  // its columns' whole sums and writes them
   float* part = reinterpret_cast<float*>(stages);  // [SW - 1][QB][D + 1], copies done
-  if (sh > 0) {
+  if (!kSplitD && sh > 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float* row = part + ((sh - 1) * QB + wr0 + gid + 8 * i) * (D + 1);
@@ -596,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
     }
   }
   __syncthreads();
-  if (sh > 0) return;
+  if (!kSplitD && sh > 0) return;
   TQ* out = static_cast<TQ*>(a.out);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -609,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
       acc[n][1] = o[n][2 * i + 1];
     }
 #pragma unroll
-    for (int o2 = 0; o2 < kSlotWarps - 1; ++o2) {
+    for (int o2 = 0; o2 < (kSplitD ? 0 : kSlotWarps - 1); ++o2) {
       const float* row = part + (o2 * QB + wr0 + gid + 8 * i) * (D + 1);
       li += row[D];
 #pragma unroll
@@ -626,7 +640,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_mma_kernel(const KV kv, cons
       rs = expf(m[i] - mf);
       li = li * rs + expf(sk - mf);
     }
-    TQ* dst = out + (((size_t)b * a.T + t) * a.Hq + head) * D;
+    TQ* dst = out + (((size_t)b * a.T + t) * a.Hq + head) * D + dv0;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int d = n * 8 + tig * 2;

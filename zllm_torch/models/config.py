@@ -1,9 +1,11 @@
 """Model hyper-parameters resolved from GGUF metadata: the fields the
 llama path reads (counterpart of `zllm/models/config.py::ModelConfig`,
 whose `from_gguf` resolves the same keys the same way for plain llama,
-OLMo-2, Qwen2, Qwen3 and the Gemma text families: gemma, gemma2 and
+OLMo-2, Qwen2, Qwen3, the Gemma text families: gemma, gemma2 and
 gemma3, with their gelu, sliding windows, rope base of the windowed
-layers and `attention.query_pre_attn_scalar`)."""
+layers and `attention.query_pre_attn_scalar`, and the mixture-of-experts
+files: Mixtral-style llama with `expert_count`, qwen2moe and qwen3moe,
+whose expert keys resolve into `MoeConfig` as zllm resolves them)."""
 
 from __future__ import annotations
 
@@ -21,11 +23,19 @@ _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 # Qwen3 (per-head q/k RMS norms) and Gemma: the embedding scaled by
 # sqrt(n_embd), geglu, a tied head; gemma2 and gemma3 add the post-norms
 # (sandwich norms), a sliding window on all but every swa_pattern-th
-# layer, and gemma3 Qwen3's per-head q/k norms
-SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
+# layer, and gemma3 Qwen3's per-head q/k norms; qwen2moe and qwen3moe are
+# Qwen2's and Qwen3's attention with a mixture-of-experts FFN (qwen2moe
+# adds a shared expert behind a sigmoid gate)
+SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
+                    "qwen3moe")
 # architectures whose GGUFs carry half-split rope natively (zllm's
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
-NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
+NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
+                    "qwen3moe")
+# the architectures whose files may carry experts (`expert_count` > 0), and
+# zllm's default of expert_weights_norm for each (llama: Mixtral)
+MOE_ARCHES = {"llama": True, "qwen2moe": False, "qwen3moe": True}
+_MOE_ITEM = "ROADMAP queue 1 item 8"
 # the period of the windowed layers (zllm's swa_pattern: layer il is
 # windowed unless (il + 1) % pattern == 0); 1, the other arches': none
 SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
@@ -69,6 +79,67 @@ def _refuse_unported(kv):
 
 
 @dataclass(frozen=True)
+class MoeConfig:
+    """The expert keys zllm's `MoeConfig` resolves (its field names and
+    defaults); `moe_config` refuses the values the port's `moe_ffn` does
+    not apply."""
+
+    n_experts: int
+    n_experts_used: int
+    n_ff_exp: int
+    n_shared_experts: int = 0
+    gate_func: str = "softmax"  # softmax | sigmoid (| softmax_weight: refused)
+    norm_topk_prob: bool = True
+    scale: float = 1.0  # the routed experts' weight scale
+    n_dense_lead: int = 0
+    n_expert_groups: int = 1
+    n_group_used: int = 1
+    router_softcap: float = 0.0
+    group_experts: int = 0
+    group_scale: float = 0.0
+    n_ff_chexp: int = 0
+
+
+def moe_config(arch: str, kv) -> MoeConfig | None:
+    """The file's MoeConfig (None without `expert_count`), resolved as
+    zllm's from_gguf resolves it; NotImplementedError naming ROADMAP queue 1
+    item 8 for experts on an architecture the port runs densely and for
+    the routing options its `moe_ffn` does not apply."""
+    n_experts = int(kv("expert_count", 0) or 0)
+    if n_experts <= 0:
+        return None
+    if arch not in MOE_ARCHES:
+        raise NotImplementedError(f"experts on {arch} are not in zllm_torch yet ({_MOE_ITEM}: "
+                                  f"the port runs experts on {', '.join(MOE_ARCHES)})")
+    moe = MoeConfig(
+        n_experts=n_experts,
+        n_experts_used=int(kv("expert_used_count", 2)),
+        n_ff_exp=int(kv("expert_feed_forward_length", kv("feed_forward_length"))),
+        n_shared_experts=int(kv("expert_shared_count", 0)),
+        gate_func={1: "softmax", 2: "sigmoid", 3: "softmax_weight"}.get(
+            int(kv("expert_gating_func", 1)), "softmax"),
+        norm_topk_prob=bool(kv("expert_weights_norm", kv("norm_topk_prob", MOE_ARCHES[arch]))),
+        scale=float(kv("expert_weights_scale", 1.0)),
+        n_dense_lead=int(kv("leading_dense_block_count", 0)),
+        router_softcap=float(kv("router_logit_softcapping", 0.0)),
+        n_expert_groups=int(kv("expert_group_count", 1) or 1),
+        n_group_used=int(kv("expert_group_used_count", 1) or 1),
+        group_experts=int(kv("experts_per_group", 0) or 0),
+        group_scale=float(kv("expert_group_scale", 0.0) or 0.0),
+        n_ff_chexp=int(kv("expert_chunk_feed_forward_length", 0) or 0),
+    )
+    unported = {"expert_gating_func=3 (softmax_weight, gpt-oss)": moe.gate_func == "softmax_weight",
+                f"expert_group_count={moe.n_expert_groups}": moe.n_expert_groups > 1,
+                f"router_logit_softcapping={moe.router_softcap}": moe.router_softcap > 0,
+                f"leading_dense_block_count={moe.n_dense_lead}": moe.n_dense_lead > 0,
+                f"experts_per_group={moe.group_experts}": moe.group_experts > 0}
+    for what, refused in unported.items():
+        if refused:
+            raise NotImplementedError(f"{what} is not in zllm_torch yet ({_MOE_ITEM})")
+    return moe
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     arch: str
     n_layers: int
@@ -99,6 +170,9 @@ class ModelConfig:
     # True once loader.rope_to_neox has permuted wq/wk into the half-split
     # rope basis
     neox_permuted: bool = False
+    # the experts (`moe_ffn` runs a layer's FFN through them where the layer
+    # has a router, ffn_gate_inp), None for a dense model
+    moe: MoeConfig | None = None
 
     @property
     def q_dim(self) -> int:
@@ -158,8 +232,10 @@ class ModelConfig:
             high_freq_factor=float(kv("rope.scaling.high_freq_factor", 4.0)),
             attn_factor=float(kv("rope.scaling.attn_factor", 1.0)),
         )
-        if scaling == "longrope" or int(kv("expert_count", 0)) > 0:
-            raise NotImplementedError("longrope and MoE llama are not in zllm_torch yet")
+        if scaling == "longrope":
+            raise NotImplementedError("longrope rope scaling is not in zllm_torch yet (ROADMAP "
+                                      "queue 3)")
+        moe = moe_config(arch, kv)
         window = int(kv("attention.sliding_window", 0) or 0)
         swa_pattern = SWA_PATTERN.get(arch, 1)
         if window > 0 and swa_pattern == 1:
@@ -194,7 +270,8 @@ class ModelConfig:
             logit_scale=float(kv("logit_scale", 1.0)),
             attn_scale=((1.0 / float(qpas) ** 0.5) if qpas else 0.0)
             or float(kv("attention.scale", 0.0)),
-            qkv_bias=arch == "qwen2",
+            qkv_bias=arch in ("qwen2", "qwen2moe"),
+            moe=moe,
             rope_swa=rope_swa,
             sliding_window=window,
             swa_pattern=swa_pattern,

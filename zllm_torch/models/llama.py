@@ -45,8 +45,17 @@ step (`forward(..., verify=True)`) holds up to 1 + n_draft decode tokens a
 row: it runs the T=1 kernel once a column instead (no multi-row kernel),
 so every verified column gets a decode step's bits.  Lookahead's block
 mask (`forward(..., mask=, kv_positions=)`) attends through the plain
-`attention_ref`, as zllm's XLA reference does.  MoE, MLA, LoRA, ALiBi and
+`attention_ref`, as zllm's XLA reference does.  MLA, LoRA, ALiBi and
 sinks are not part of this block.
+
+A mixture-of-experts layer (`cfg.moe` set and the router ffn_gate_inp in
+the layer: Mixtral-style llama, qwen2moe, qwen3moe) runs `moe_ffn` in
+place of the gated FFN, at every T (the fused decode FFN is off there):
+the router's f32 scores, top-k, then the picked experts grouped by expert
+after one host read of the picks, each expert's rows through K3 (the
+nibble formats) or K5 (the others) at every M, M = 1 included, as zllm
+runs its experts: dequantize, then multiply, with no int8 rounding of the
+activations (K1/K4 never take an expert).
 
 Gemma (gemma, gemma2, gemma3) runs the llama block with zllm's changes:
 the embedding times sqrt(n_embd) rounded to the embedding's dtype; the
@@ -85,14 +94,17 @@ are off then, as in zllm.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ops import qmatmul as qmm
 from ..ops.attention import (
     attn_decode_qkv, attn_decode_update, flash_attention, flash_attention_blockwise,
     paged_attention, paged_attn_decode_update,
 )
 from ..ops.layers import apply_rope, attention_ref, geglu, rms_norm, rope_table, swiglu
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
+from ..quant.repack import QWeight, QWeightE
 from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, ring_mask
 from ..runtime.paged import PagedKVCache
 
@@ -251,10 +263,114 @@ def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
                       for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], dim=-1)
 
 
+# a dense product inside moe_ffn takes its rows in blocks of this many
+# on the card (`_rows_linear`)
+MOE_DENSE_ROWS = 16
+
+
+def _rows_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """linear(x, w) for x [M, K]; on the card a dense w takes x in blocks of
+    MOE_DENSE_ROWS rows (the last zero-padded), one matmul shape for every
+    M: the library picks its kernel by shape, so a row's bits then do not
+    depend on the rows beside it, as K3's and K5's do not (the router's
+    scores pick the experts; the engine batches rows of many requests)."""
+    if isinstance(w, QWeight) or x.device.type == "cpu":
+        return linear(x, w)
+    m, pad = x.shape[0], (-x.shape[0]) % MOE_DENSE_ROWS
+    xp = torch.cat([x, x.new_zeros((pad, x.shape[1]))]) if pad else x
+    return torch.cat([linear(xp[i:i + MOE_DENSE_ROWS], w)
+                      for i in range(0, m + pad, MOE_DENSE_ROWS)])[:m]
+
+
+def _expert_mm(x: torch.Tensor, w, e: int) -> torch.Tensor:
+    """x [M, K] @ expert e of a stack, in x's dtype: K3 or K5 on a
+    QWeightE's expert at any M (`qmm.gemm`; its f32 rounded to x's dtype,
+    as zllm's einsum in the activation dtype gives it), or torch.matmul on
+    a dense [E, K, N] stack (zllm's product outside any Pallas kernel)."""
+    if isinstance(w, QWeightE):
+        return qmm.gemm(x.contiguous(), w.expert(e)).to(x.dtype)
+    return _rows_linear(x, w[e]).to(x.dtype)
+
+
+def _gate_up(layer: dict, fused: str, gate: str, up: str, mm, act):
+    """act(gate, up) of the fused gate|up weight `fused` (its halves) or of
+    gate and up apart, each product through mm(weight)."""
+    if fused in layer:
+        gup = mm(layer[fused])
+        half = gup.shape[-1] // 2
+        return act(gup[..., :half], gup[..., half:])
+    return act(mm(layer[gate]), mm(layer[up]))
+
+
+def moe_ffn(layer: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+    """The mixture-of-experts FFN (zllm's `moe_ffn`, `zllm/models/llama.py`:
+    its sparse regime at T * k < E and its dense masked regime compute this
+    one function).  The router's logits through `linear`, scored in f32
+    (softmax or sigmoid), top-k, normalized over the k picks where
+    `norm_topk_prob`, times `scale`.  Dispatch by expert, one way at every
+    T: the (token, pick) pairs grouped by expert after one host read of the
+    picks; each expert used takes its rows through gate|up (one product, or
+    gate and up apart), the activation, then down, and writes its results
+    to the rows' (token, pick) slots of a [T * k, n_embd] buffer; the k
+    picks are then weighted and summed in pick order in f32 and cast.  No
+    index_add_ and no atomics: a row's bits do not depend on the rows
+    beside it, nor on the order of the launches (the dense products too:
+    `_rows_linear`).  qwen2moe's shared expert and its sigmoid gate are
+    added through `linear`.  `moe_ffn.routing`, when a list, receives a
+    call's (layer, the experts used ascending, the picks [T * k] on the
+    host, the router probabilities [T, E] f32)."""
+    moe = cfg.moe
+    lead, n_embd = h.shape[:-1], h.shape[-1]
+    hf = h.reshape(-1, n_embd)
+    t, k = hf.shape[0], moe.n_experts_used
+    scores = _rows_linear(hf, layer["ffn_gate_inp"]).float()
+    probs = torch.sigmoid(scores) if moe.gate_func == "sigmoid" else torch.softmax(scores, -1)
+    topv, topi = torch.topk(probs, k, dim=-1)  # [T, k], descending
+    if moe.norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    if moe.scale != 1.0:
+        topv = topv * moe.scale
+    act = _act(cfg)
+
+    picks = topi.reshape(-1).cpu().numpy()  # the layer's one host read
+    order = np.argsort(picks, kind="stable")  # pick slots t * k + j, grouped by expert
+    experts, starts = np.unique(picks[order], return_index=True)
+    bounds = [*starts.tolist(), t * k]
+    slots = torch.from_numpy(order).to(h.device)
+    out = torch.empty((t * k, n_embd), dtype=h.dtype, device=h.device)
+    for i, e in enumerate(experts.tolist()):
+        sl = slots[bounds[i]:bounds[i + 1]]
+        x = hf[sl // k]
+        gu = _gate_up(layer, "ffn_gateup_exps", "ffn_gate_exps", "ffn_up_exps",
+                      lambda w: _expert_mm(x, w, e), act)
+        out[sl] = _expert_mm(gu, layer["ffn_down_exps"], e)
+    if isinstance(moe_ffn.routing, list):
+        moe_ffn.routing.append((layer, experts.tolist(), picks, probs))
+    weighted = out.reshape(t, k, n_embd).float() * topv.to(h.dtype).float()[..., None]
+    y = weighted[:, 0]
+    for j in range(1, k):  # the picks in order
+        y = y + weighted[:, j]
+    y = y.to(h.dtype).reshape(*lead, n_embd)
+    if "ffn_down_shexp" in layer:
+        sh = _gate_up(layer, "ffn_gateup_shexp", "ffn_gate_shexp", "ffn_up_shexp",
+                      lambda w: _rows_linear(hf, w), act)
+        sh = _rows_linear(sh, layer["ffn_down_shexp"])
+        if "ffn_gate_inp_shexp" in layer:  # qwen2moe's sigmoid-gated shared expert
+            gate = _rows_linear(hf, layer["ffn_gate_inp_shexp"]).float()
+            sh = sh * torch.sigmoid(gate).to(sh.dtype)
+        y = y + sh.reshape(*lead, n_embd)
+    return y.to(h.dtype)
+
+
+moe_ffn.routing = None
+
+
 def _ffn_core(layer: dict, h: torch.Tensor, taps: dict | None = None,
-              tapname: str = "", act=swiglu) -> torch.Tensor:
+              tapname: str = "", act=swiglu, cfg=None) -> torch.Tensor:
     if taps is not None:
         taps[f"{tapname}.ffn_gate.weight"] = h
+    if cfg is not None and cfg.moe is not None and "ffn_gate_inp" in layer:
+        return moe_ffn(layer, cfg, h)  # zllm taps no expert's input
     gup = linear(h, layer["ffn_gateup"])
     half = gup.shape[-1] // 2
     gu = act(gup[..., :half], gup[..., half:])
@@ -373,7 +489,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     act = _act(cfg)
     ff = None
-    if fused and act is swiglu:  # decode: norm -> gate|up and swiglu -> down fused
+    if fused and act is swiglu and "ffn_gate_inp" not in layer:
+        # decode: norm -> gate|up and swiglu -> down fused (not an MoE layer)
         gup = fused_norm_linear(x.reshape(1, -1), layer["ffn_norm"], cfg.norm_eps,
                                 layer["ffn_gateup"])
         if gup is not None:
@@ -384,7 +501,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                             layer["ffn_down"])
             ff = ff.reshape(b, t, -1)
     if ff is None:
-        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname, act)
+        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname, act,
+                       cfg)
     if "ffn_post_norm" in layer:
         ff = rms_norm(ff, layer["ffn_post_norm"], cfg.norm_eps)
     x = x + ff

@@ -15,15 +15,23 @@ pre-norms, but attn_q_norm [q_dim] and attn_k_norm [kv_dim] (one RMS over
 the whole projection) and the post-norms attn_post_norm and ffn_post_norm;
 a Gemma layer has the pre-norms, a Gemma-2 or Gemma-3 one the post-norms
 beside them (sandwich norms), and Gemma-3's the per-head q/k norms of
-Qwen3; Gemma's head is tied to the embedding.
+Qwen3; Gemma's head is tied to the embedding.  A mixture-of-experts layer
+(Mixtral-style llama, qwen2moe with Qwen2's biases, qwen3moe with Qwen3's
+norms) has the router ffn_gate_inp, dense in the model dtype as zllm's
+`_load_matmul` loads an F32 tensor, and the expert stacks ffn_gate_exps,
+ffn_up_exps, ffn_down_exps: `QWeightE`s (GGUF [E, N, row_bytes], each
+expert's rows repacked as a 2-D weight's) or, from F32, F16 or BF16, dense
+[E, K, N] in the model dtype, as zllm keeps them; qwen2moe adds the shared
+expert ffn_{gate,up,down}_shexp and its gate ffn_gate_inp_shexp ([K, 1];
+llama.cpp writes it 1-D, zllm's converter [1, K]).
 A Llama-3 file's rope_freqs.weight is kept as `rope_freqs` and not read:
 zllm takes llama3 rope scaling from the metadata alone.  At load, as
 `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
 into half-split ("neox") rope by permuting the wq/wk columns (and bq/bk),
-wq|wk|wv (with bq|bk|bv) and gate|up are fused along N where the weights
-share one format (in a Q4_K_M or Q5_K_M file wq/wk are Q4_K or Q5_K and
-wv Q6_K, so they stay apart), and the output head is zero-padded to a
-multiple of 1024.
+wq|wk|wv (with bq|bk|bv) and gate|up (the experts' stacks and the shared
+expert's too) are fused along N where the weights share one format (in a
+Q4_K_M or Q5_K_M file wq/wk are Q4_K or Q5_K and wv Q6_K, so they stay
+apart), and the output head is zero-padded to a multiple of 1024.
 
 `params_from_jax` carries `zllm`'s loaded parameters (handed over as numpy
 arrays) into this layout, so a test can run both packages on the very
@@ -37,8 +45,9 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile, read_gguf
-from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, concat_n,
-                            from_planes, pack_crumbs, pack_nibbles, pad_n, repack)
+from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, QWeightE, concat_experts,
+                            concat_n, from_planes, pack_crumbs, pack_nibbles, pad_n, repack,
+                            repack_experts)
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
 
@@ -65,7 +74,17 @@ _LAYER_MAP = {
     "ffn_down.weight": "ffn_down",
     "ffn_post_norm.weight": "ffn_post_norm",
     "post_ffw_norm.weight": "ffn_post_norm",
+    "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_exps.weight": "ffn_gate_exps",
+    "ffn_up_exps.weight": "ffn_up_exps",
+    "ffn_down_exps.weight": "ffn_down_exps",
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
+    "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
 }
+# the expert stacks (3-D: GGUF [E, N, K])
+EXPERT_KEYS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # each architecture's norm vectors: a layer holds exactly these (Qwen3's
 # q/k norms are one a head, OLMo-2's one over the whole projection: told
 # apart by their length, as zllm tells them)
@@ -76,7 +95,9 @@ ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
               "gemma": {"attn_norm", "ffn_norm"},
               "gemma2": {"attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm"},
               "gemma3": {"attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm",
-                         "attn_q_norm", "attn_k_norm"}}
+                         "attn_q_norm", "attn_k_norm"},
+              "qwen2moe": {"attn_norm", "ffn_norm"},
+              "qwen3moe": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"}}
 _BIAS_KEYS = ("bq", "bk", "bv")
 _VECTOR_KEYS = ({"out_norm", "rope_freqs", "bqkv", *_BIAS_KEYS}
                 | set().union(*ARCH_NORMS.values()))
@@ -112,6 +133,20 @@ def _load_matmul(f: GGUFFile, name: str, dtype, device):
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
+def _load_experts(f: GGUFFile, name: str, dtype, device):
+    """A 3-D expert stack: GGUF [E, N, K] -> QWeightE (a format of
+    WEIGHT_CLASSES) or dense [E, K, N] in the model dtype (F32, F16, BF16)."""
+    meta = f.tensors[name]
+    if len(meta.shape) != 3:
+        raise ValueError(f"{name}: an expert stack must be 3-D, got {meta.shape}")
+    if meta.gtype in WEIGHT_CLASSES:
+        return repack_experts(f.tensor_bytes(name), meta.shape, meta.gtype, device)
+    if meta.gtype not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
+        raise NotImplementedError(f"{name}: {meta.gtype.name} experts are not in zllm_torch yet")
+    x = np.ascontiguousarray(np.swapaxes(f.tensor_f32(name), 1, 2))
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
 def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
     params: dict = {"layers": [dict() for _ in range(cfg.n_layers)]}
     for name in f.tensors:
@@ -128,13 +163,17 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             key = _LAYER_MAP[suffix]
             if key in _VECTOR_KEYS:
                 val = _load_dense(f, name, torch.float32, device)
+            elif key in EXPERT_KEYS:
+                val = _load_experts(f, name, dtype, device)
+            elif key == "ffn_gate_inp_shexp" and len(f.tensors[name].shape) == 1:
+                val = _load_dense(f, name, dtype, device)[:, None]  # llama.cpp's {n_embd}
             else:
                 val = _load_matmul(f, name, dtype, device)
             params["layers"][int(il)][key] = val
         else:
             raise NotImplementedError(f"tensor {name} is not part of the {cfg.arch} block")
     qk_norm_len = {"qwen3": (cfg.head_dim, cfg.head_dim), "gemma3": (cfg.head_dim, cfg.head_dim),
-                   "olmo2": (cfg.q_dim, cfg.kv_dim)}
+                   "qwen3moe": (cfg.head_dim, cfg.head_dim), "olmo2": (cfg.q_dim, cfg.kv_dim)}
     for il, layer in enumerate(params["layers"]):
         norms = {key for key in layer if key in _VECTOR_KEYS and key not in _BIAS_KEYS}
         if norms != ARCH_NORMS[cfg.arch]:
@@ -148,9 +187,36 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
         biases = [key for key in _BIAS_KEYS if key in layer]
         if biases and len(biases) != len(_BIAS_KEYS):
             raise NotImplementedError(f"layer {il} has the biases {biases}, not bq, bk and bv")
+        _check_ffn(layer, il, cfg)
     if "output" not in params:  # tied embedding
         params["output"] = params["tok_emb"].float().t().contiguous().to(dtype)
     return params
+
+
+_SHARED_KEYS = ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp")
+
+
+def _check_ffn(layer: dict, il: int, cfg: ModelConfig):
+    """A layer's FFN is dense (gate, up, down) or, in a file with experts,
+    the router and the three stacks, with the shared expert whole or
+    absent; anything else is refused rather than run as another model."""
+    dense = [key for key in ("ffn_gate", "ffn_up", "ffn_down") if key in layer]
+    moe = [key for key in ("ffn_gate_inp", *EXPERT_KEYS) if key in layer]
+    shared = [key for key in _SHARED_KEYS if key in layer]
+    if moe:
+        if cfg.moe is None or len(moe) != 4 or dense:
+            raise NotImplementedError(f"layer {il} has the FFN tensors {sorted(dense + moe)}: "
+                                      "an MoE layer is the router and three expert stacks in a "
+                                      "file with expert_count (ROADMAP queue 1 item 8)")
+        e = layer["ffn_gate_exps"].shape[0]
+        if e != cfg.moe.n_experts or layer["ffn_gate_inp"].shape[-1] != e:
+            raise NotImplementedError(f"layer {il}: {e} experts, the file says "
+                                      f"{cfg.moe.n_experts}")
+        if shared and len(shared) != len(_SHARED_KEYS):
+            raise NotImplementedError(f"layer {il} has the shared-expert tensors {shared}")
+    elif len(dense) != 3 or shared or "ffn_gate_inp_shexp" in layer:
+        raise NotImplementedError(f"layer {il} has the FFN tensors {sorted(dense + shared)}, "
+                                  "not ffn_gate, ffn_up and ffn_down")
 
 
 def neox_within_perm(d: int) -> np.ndarray:
@@ -189,21 +255,35 @@ def rope_to_neox(params: dict, cfg: ModelConfig) -> tuple[dict, ModelConfig]:
 
 
 def _fusable(ws) -> bool:
-    """One kernel can take the fused weight: one format and one K."""
-    if all(isinstance(w, QWeight) for w in ws):
-        return len({(w.fmt, w.shape[0]) for w in ws}) == 1
-    if not any(isinstance(w, QWeight) for w in ws):
-        return len({w.shape[0] for w in ws}) == 1 and len({w.dtype for w in ws}) == 1
+    """One kernel can take the fused weight: one format and one K (expert
+    stacks: one format, E and K)."""
+    for kind in (QWeight, QWeightE):
+        if all(isinstance(w, kind) for w in ws):
+            return len({(w.fmt, w.shape[:-1]) for w in ws}) == 1
+    if not any(isinstance(w, (QWeight, QWeightE)) for w in ws):
+        return len({w.shape[:-1] for w in ws}) == 1 and len({w.dtype for w in ws}) == 1
     return False
 
 
 def _cat(ws):
-    return concat_n(list(ws)) if isinstance(ws[0], QWeight) else torch.cat(ws, dim=-1)
+    if isinstance(ws[0], QWeight):
+        return concat_n(list(ws))
+    if isinstance(ws[0], QWeightE):
+        return concat_experts(list(ws))
+    return torch.cat(ws, dim=-1)
+
+
+# gate and up of the dense FFN, of the experts and of the shared expert:
+# fused along N into the second key where one kernel takes both
+_GATE_UP = (("ffn_gate", "ffn_up", "ffn_gateup"),
+            ("ffn_gate_exps", "ffn_up_exps", "ffn_gateup_exps"),
+            ("ffn_gate_shexp", "ffn_up_shexp", "ffn_gateup_shexp"))
 
 
 def fuse_projections(params: dict) -> dict:
-    """wq|wk|wv -> wqkv (bq|bk|bv -> bqkv with it) and ffn_gate|ffn_up ->
-    ffn_gateup along N."""
+    """wq|wk|wv -> wqkv (bq|bk|bv -> bqkv with it) and gate|up -> gateup
+    along N (`_GATE_UP`); an expert's fused rows are its gate rows, then
+    its up rows, so the fusion changes no value."""
     for layer in params["layers"]:
         ws = [layer["wq"], layer["wk"], layer["wv"]]
         if _fusable(ws):
@@ -211,10 +291,9 @@ def fuse_projections(params: dict) -> dict:
             del layer["wq"], layer["wk"], layer["wv"]
             if "bq" in layer:
                 layer["bqkv"] = torch.cat([layer.pop(key) for key in _BIAS_KEYS])
-        ws = [layer["ffn_gate"], layer["ffn_up"]]
-        if _fusable(ws):
-            layer["ffn_gateup"] = _cat(ws)
-            del layer["ffn_gate"], layer["ffn_up"]
+        for gate, up, fused in _GATE_UP:
+            if gate in layer and _fusable([layer[gate], layer[up]]):
+                layer[fused] = _cat([layer.pop(gate), layer.pop(up)])
     return params
 
 
@@ -395,11 +474,26 @@ _FROM_JAX = {GGMLType.Q4_K: _q4k_from_jax, GGMLType.Q4_0: _legacy_nibble_from_ja
                                              GGMLType.IQ1_M, GGMLType.TQ1_0, GGMLType.TQ2_0)}}
 
 
+def _experts_from_jax(desc: dict, device) -> QWeightE:
+    """A QTensorE's description (planes with a leading E axis, "shape" (E,
+    K, N)) -> QWeightE, one expert's planes at a time as a QTensor's."""
+    fmt, (e, k, n) = GGMLType(desc["fmt"]), desc["shape"]
+    per = [_FROM_JAX[fmt]({**desc, "shape": (k, n), "npack": False,
+                           "planes": {name: p[i] for name, p in desc["planes"].items()}})
+           for i in range(e)]
+    w = from_planes({name: np.concatenate([p[name] for p in per]) for name in per[0]},
+                    (k, e * n), fmt, device)
+    return QWeightE(fmt, (e, k, n), {name: p.reshape(e, n, *p.shape[1:])
+                                     for name, p in w.planes().items()})
+
+
 def _leaf_from_jax(key: str, val, *, dtype, device):
     if isinstance(val, dict):
         fmt = GGMLType(val["fmt"])
         if fmt not in _FROM_JAX:
             raise NotImplementedError(f"{key}: {fmt.name} does not carry across")
+        if len(val["shape"]) == 3:
+            return _experts_from_jax(val, device)
         return from_planes(_FROM_JAX[fmt](val), tuple(val["shape"]), fmt, device)
     t = torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device)
     return t if key in _VECTOR_KEYS else t.to(dtype)
@@ -410,8 +504,10 @@ def params_from_jax(jparams: dict, *, device="cuda", dtype=torch.bfloat16) -> di
 
     `jparams` mirrors zllm's params tree with numpy leaves: dense arrays as
     f32 numpy, and each QTensor as {"fmt", "shape" (K, N), "fold", "npack",
-    "planes": {name: numpy}}.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1, Q5_K, Q6_K,
-    Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats IQ2_XXS,
+    "planes": {name: numpy}}, and each QTensorE (expert stack) as the same
+    with "shape" (E, K, N) and planes with a leading E axis; a dense
+    expert stack is an [E, K, N] array.  Q4_0, Q4_1, Q4_K, Q5_0, Q5_1,
+    Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS, MXFP4, the IQ grid formats IQ2_XXS,
     IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M, and TQ1_0 and TQ2_0
     carry across."""
     dev = resolve_device(device)

@@ -714,8 +714,8 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in cuda.ACT_DTYPES or k.dtype not in KV_CODE or v.dtype != k.dtype:
         raise ValueError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the kernel takes f32/bf16 q "
                          "and bf16 or int8 K/V")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported by K7 ({_NO_256})")
+    if d not in (64, 128, 256):
+        raise ValueError(f"head_dim {d} not supported by K7 (64, 128 or 256)")
     pos0 = positions[:, 0].contiguous()
     if pos0.dtype != torch.int32:
         raise ValueError("positions must be int32")

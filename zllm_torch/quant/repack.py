@@ -1120,3 +1120,76 @@ def pad_n(qw: QWeight, mult: int) -> QWeight:
     if pad == 0:
         return qw
     return qw._replace(n + pad, lambda p: torch.cat([p, p.new_zeros((pad,) + p.shape[1:])]))
+
+
+class QWeightE:
+    """A stacked mixture-of-experts weight of logical shape (E, K, N), kept
+    quantized (zllm's `QTensorE`, `zllm/quant/repack.py`): the planes of
+    one format's `QWeight` with a leading expert axis, [E, N, K / kdiv],
+    expert e's rows as the GGUF's [E, N, row_bytes] has them.  `expert(e)`
+    is that format's QWeight over the views plane[e]: each is contiguous,
+    so the matmul kernels read an expert's planes in place, with no copy."""
+
+    def __init__(self, fmt, shape: tuple[int, int, int], planes: dict[str, torch.Tensor]):
+        self.fmt = GGMLType(fmt)
+        self.shape = tuple(shape)
+        self.planes = planes
+        self._experts: list[QWeight] | None = None
+        cls, (e, k, n) = _weight_class(self.fmt), self.shape
+        for name, (dtype, kdiv) in cls.PLANES.items():
+            p = planes[name]
+            if p.dtype != dtype or tuple(p.shape) != (e, n, k // kdiv) or not p.is_contiguous():
+                raise ValueError(f"{self.fmt.name} expert plane {name}: {p.dtype} "
+                                 f"{tuple(p.shape)}, want contiguous {dtype} {(e, n, k // kdiv)}")
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.planes.values())).device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.planes.values())
+
+    def expert(self, e: int) -> QWeight:
+        """Expert e as a (K, N) QWeight of views into the stack's planes."""
+        if self._experts is None:
+            cls, k, n = _weight_class(self.fmt), self.shape[1], self.shape[2]
+            self._experts = [cls((k, n), **{name: p[i] for name, p in self.planes.items()})
+                             for i in range(self.shape[0])]
+        return self._experts[e]
+
+    def dequant_gather(self, idx, dtype=torch.float32) -> torch.Tensor:
+        """The dense [..., K, N] weights of the experts idx [...] (zllm's
+        `QTensorE.dequant_gather`)."""
+        idx = torch.as_tensor(idx)
+        flat = [self.expert(int(e)).dequant(dtype) for e in idx.reshape(-1).tolist()]
+        k, n = self.shape[1:]
+        if not flat:
+            return torch.empty((*idx.shape, k, n), dtype=dtype, device=self.device)
+        return torch.stack(flat).reshape(*idx.shape, k, n)
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        """The dense [E, K, N] stack (zllm's `QTensorE.dequant`)."""
+        return self.dequant_gather(torch.arange(self.shape[0]), dtype)
+
+
+def repack_experts(raw: np.ndarray, gguf_shape: tuple[int, int, int], fmt: GGMLType,
+                   device) -> QWeightE:
+    """GGUF expert rows uint8 [E, N, row_bytes] -> QWeightE: every row is
+    repacked on its own, so the whole stack goes through `repack` as E * N
+    rows at once and its planes are cut into [E, N, ...]."""
+    e, n, k = gguf_shape
+    w = repack(np.ascontiguousarray(raw).reshape(e * n, -1), (e * n, k), fmt, device)
+    return QWeightE(w.fmt, (e, k, n), {name: p.reshape(e, n, *p.shape[1:])
+                                       for name, p in w.planes().items()})
+
+
+def concat_experts(ws: list[QWeightE]) -> QWeightE:
+    """Concatenate expert stacks of one format and K along N (gate|up ->
+    gateup): each expert's rows of ws[0], then of ws[1], ..."""
+    e, k = ws[0].shape[:2]
+    if any(w.fmt != ws[0].fmt or w.shape[:2] != (e, k) for w in ws):
+        raise ValueError("concat_experts needs one format, E and K")
+    planes = {name: torch.cat([w.planes[name] for w in ws], dim=1).contiguous()
+              for name in ws[0].planes}
+    return QWeightE(ws[0].fmt, (e, k, sum(w.shape[2] for w in ws)), planes)

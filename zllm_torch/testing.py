@@ -10,6 +10,16 @@ zllm's loader reads:
     attn_k_norm [kv_dim], post_attention_norm and post_ffw_norm;
   * `arch="qwen2"`: attn_q.bias, attn_k.bias, attn_v.bias;
   * `arch="qwen3"`: attn_q_norm and attn_k_norm of length head_dim;
+  * `n_experts` (any of llama, qwen2moe, qwen3moe): the router
+    ffn_gate_inp (F32) and the stacks ffn_{gate,up,down}_exps, as zllm's
+    factory writes them (in `ftype`'s types where one is given: the
+    stacks take their roles' types, ffn_down_exps bumped as ffn_down);
+    `arch="qwen2moe"`: Qwen2's biases and, with `n_ff_shexp`, the shared
+    expert ffn_{gate,up,down}_shexp and its gate ffn_gate_inp_shexp [1,
+    n_embd] (F32), as zllm's `convert_hf_llama` writes Qwen1.5-MoE;
+    `arch="qwen3moe"`: Qwen3's q/k norms.  A stack of more than 4 M
+    weights is tiled from one encoded block of 256 rows, expert e's rows
+    rotated by e, so that no two experts are equal;
   * `arch="gemma"`, `"gemma2"`, `"gemma3"`: what zllm's `convert_hf_llama`
     writes for Gemma-2 and Gemma-3: attn_norm and ffn_norm; Gemma-2/3 the
     post-norms attn_post_norm and ffn_post_norm; Gemma-3 attn_q_norm and
@@ -49,7 +59,12 @@ from .quantize import FTYPES, pick_type
 from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
 from .tokenizer.vocab import Vocab
 
-ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
+ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
+          "qwen3moe")
+# expert stacks of more elements than this are tiled from one encoded
+# block of rows (see `_expert_stack`); smaller ones are drawn whole, as
+# zllm's factory draws them
+_TILE_STACK_ELEMS = 1 << 22
 BPE_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
 BPE_MERGES = 3000
 # the text the synthetic BPE merges are learned from: prose, code, digits,
@@ -254,6 +269,7 @@ def make_llama_gguf(
     final_softcap: float = 0.0,
     rope_base_swa: float | None = None,
     rope_scale: float = 1.0,
+    n_ff_shexp: int = 0,
 ) -> str:
     if arch not in ARCHES:
         raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
@@ -284,6 +300,9 @@ def make_llama_gguf(
         w.add(f"{arch}.expert_count", n_experts)
         w.add(f"{arch}.expert_used_count", n_experts_used)
         w.add(f"{arch}.expert_feed_forward_length", n_ff)
+    if n_ff_shexp:
+        w.add(f"{arch}.expert_shared_count", 1)
+        w.add(f"{arch}.expert_shared_feed_forward_length", n_ff_shexp)
     if rope_freqs:
         for key, val in LLAMA31_ROPE_SCALING.items():
             w.add(f"{arch}.rope.scaling.{key}", val)
@@ -368,11 +387,11 @@ def make_llama_gguf(
         emit(o + "attn_q.weight", (q_dim, n_embd))
         emit(o + "attn_k.weight", (kv_dim, n_embd))
         emit(o + "attn_v.weight", (kv_dim, n_embd))
-        if arch == "qwen2":
+        if arch in ("qwen2", "qwen2moe"):
             emit(o + "attn_q.bias", (q_dim,), 0.5, force_f32=True)
             emit(o + "attn_k.bias", (kv_dim,), 0.5, force_f32=True)
             emit(o + "attn_v.bias", (kv_dim,), 0.5, force_f32=True)
-        if arch in ("qwen3", "gemma3"):
+        if arch in ("qwen3", "gemma3", "qwen3moe"):
             emit(o + "attn_q_norm.weight", (head_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (head_dim,), 1.0, force_f32=True)
         emit(o + "attn_output.weight", (n_embd, q_dim))
@@ -391,17 +410,18 @@ def make_llama_gguf(
                 ("ffn_up_exps", (n_ff, n_embd)),
                 ("ffn_down_exps", (n_embd, n_ff)),
             ):
-                x = rng.standard_normal((n_experts,) + shp).astype(np.float32) * 0.02
+                shape = (n_experts,) + shp
                 t = gtype
+                if ftype is not None:
+                    t = pick_type(o + stack + ".weight", shape, il, n_layers, FTYPES[ftype])
                 if shp[-1] % qb.GGML_BLOCK_SIZES[t][0] != 0:
                     t = GGMLType.F32
-                if t == GGMLType.F32:
-                    w.add_tensor(o + stack + ".weight", x)
-                else:
-                    w.add_tensor(
-                        o + stack + ".weight", qb.quantize(x, t),
-                        logical_shape=x.shape, gtype=t,
-                    )
+                _expert_stack(w, o + stack + ".weight", shape, t, rng)
+            if n_ff_shexp:
+                emit(o + "ffn_gate_shexp.weight", (n_ff_shexp, n_embd))
+                emit(o + "ffn_up_shexp.weight", (n_ff_shexp, n_embd))
+                emit(o + "ffn_down_shexp.weight", (n_embd, n_ff_shexp))
+                emit(o + "ffn_gate_inp_shexp.weight", (1, n_embd), force_f32=True)
         else:
             emit(o + "ffn_gate.weight", (n_ff, n_embd))
             emit(o + "ffn_up.weight", (n_ff, n_embd))
@@ -415,6 +435,39 @@ def make_llama_gguf(
         emit("output.weight", (vocab_size, n_embd))
     w.write()
     return path
+
+
+def _expert_stack(w: GGUFWriter, name: str, shape, t: GGMLType, rng: np.random.Generator):
+    """One expert stack [E, N, K] of type t: drawn whole (N(0, 0.02)) as
+    zllm's factory draws it, or, above _TILE_STACK_ELEMS weights, one block
+    of 256 rows drawn and encoded, expert e's row r the block's row (r + e)
+    % 256 (each expert a rotation of the block's rows, so no two are
+    equal)."""
+    e, n, k = shape
+    if math.prod(shape) <= _TILE_STACK_ELEMS:
+        if t in IQ_GRID_TYPES:
+            raw = random_iq_blocks(t, math.prod(shape) // 256, rng, 0.02)
+            w.add_tensor(name, raw.reshape(e, n, -1), logical_shape=shape, gtype=t)
+            return
+        x = rng.standard_normal(shape).astype(np.float32) * 0.02
+        if t == GGMLType.F32:
+            w.add_tensor(name, x)
+        else:
+            w.add_tensor(name, qb.quantize(x, t), logical_shape=x.shape, gtype=t)
+        return
+    base_rows = 256
+    if t in IQ_GRID_TYPES:
+        base = random_iq_blocks(t, base_rows * k // 256, rng, 0.02).reshape(base_rows, -1)
+    else:
+        base = rng.standard_normal((base_rows, k), dtype=np.float32) * 0.02
+        if t != GGMLType.F32:
+            base = qb.quantize(base, t)
+    rows = (np.arange(n)[None, :] + np.arange(e)[:, None]) % base_rows
+    data = np.ascontiguousarray(base[rows])  # [E, N, row]
+    if t == GGMLType.F32:
+        w.add_tensor(name, data)
+    else:
+        w.add_tensor(name, data, logical_shape=shape, gtype=t)
 
 
 # TinyLlama-1.1B geometry (22 layers, 2048 emb, 32 heads/4 kv, ff 5632),
@@ -476,4 +529,33 @@ GEMMA3_4B_SHAPE = dict(
 GEMMA_2B_SHAPE = dict(
     arch="gemma", n_layers=18, n_embd=2048, n_heads=8, n_kv_heads=1, head_dim=256, n_ff=16384,
     vocab_size=256000, norm_eps=1e-6, ctx_len=8192,
+)
+
+# Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): 48 layers,
+# 2048 emb, 32 heads / 4 kv of 128, 128 experts of 768 (8 used,
+# norm_topk_prob true), vocab 151936, rope theta 1e6, rms_norm_eps 1e-6,
+# untied head, a byte-level BPE vocab (pre "qwen2"); feed_forward_length is
+# written as the expert FFN (the dense 6144 no layer uses)
+QWEN3_30B_A3B_SHAPE = dict(
+    arch="qwen3moe", n_layers=48, n_embd=2048, n_heads=32, n_kv_heads=4, head_dim=128, n_ff=768,
+    n_experts=128, n_experts_used=8, vocab_size=151936, rope_base=1e6, norm_eps=1e-6,
+    ctx_len=40960, tokenizer="bpe", pre="qwen2",
+)
+
+# Mixtral-8x7B-v0.1 (huggingface.co/mistralai/Mixtral-8x7B-v0.1 config.json):
+# 32 layers, 4096 emb, 32 heads / 8 kv of 128, 8 experts of 14336 (2 used),
+# vocab 32000, rope theta 1e6, rms_norm_eps 1e-5, untied head, SPM vocab
+MIXTRAL_8X7B_SHAPE = dict(
+    arch="llama", n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, n_ff=14336, n_experts=8,
+    n_experts_used=2, vocab_size=32000, rope_base=1e6, norm_eps=1e-5, ctx_len=32768,
+)
+
+# Qwen1.5-MoE-A2.7B (huggingface.co/Qwen/Qwen1.5-MoE-A2.7B config.json): 24
+# layers, 2048 emb, 16 heads / 16 kv of 128, 60 experts of 1408 (4 used,
+# norm_topk_prob false), a shared expert of 5632 behind its sigmoid gate,
+# q/k/v biases, vocab 151936, rope theta 1e6, rms_norm_eps 1e-6, untied head
+QWEN15_MOE_A27B_SHAPE = dict(
+    arch="qwen2moe", n_layers=24, n_embd=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+    n_ff=1408, n_experts=60, n_experts_used=4, n_ff_shexp=5632, vocab_size=151936,
+    rope_base=1e6, norm_eps=1e-6, ctx_len=8192, tokenizer="bpe", pre="qwen2",
 )
