@@ -320,7 +320,27 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      layers (Qwen1.5's 1408-wide down stacks F16: the dense-stack path),
      the card against the CPU's plain forward from a child (`--moe-cpu
      NAME`), each token whose picks differ reported with its k-th to
-     (k+1)-th probability gap.
+     (k+1)-th probability gap;
+ 11. the layer-norm families (`python3 chip_smoke.py --layernorm` runs
+     this group alone; the factory's Q4_K_M preset): `main_path` Pythia-1.4B
+     at full depth (LayerNorms with biases, a parallel residual, exact-gelu
+     MLP, neox rope over 32 of 128 dims; a 500-token prompt in two chunks,
+     31 decode steps: 4 matvecs a layer + the head on K1/K4 unfused, 24 K2
+     a step and a chunk, 24 K6 a chunk), `serve_starcoder2_3b` (StarCoder2-3B
+     cut to 8 of 30 layers behind the paged server: K9/K10 at G 12, d 128,
+     concurrent texts equal sequential), `ln_2layer` (Pythia-1.4B,
+     StableLM-2-1.6B: neox rope over 16 of 64 dims, and StarCoder2-3B at
+     full width, 2 layers, Q4_K, the card against the CPU's plain forward
+     from a child, `--ln-cpu NAME`: nmse <= 1e-3 and the same greedy token
+     at every step, up to the tiled head's ties), `starcoder2_q8` (a
+     2-layer StarCoder2 file, 24 / 2 heads of 128, on the q8 cache: the
+     engine against the CPU's, K7 at G 12), and `kernel_layernorm`: K2
+     with partial neox rope at Pythia's and StableLM-2's shapes and at G
+     12, K6 over a Pythia chunk, K9, K10 and K7 at StarCoder2's G 12, each
+     against its plain version, SDPA and its bound, and the Pythia step's
+     K1/K4 matvecs and a chunk's K3/K5 GEMMs beside their bounds and
+     `torch.matmul`; the attention forms' outputs hashed (`form_digests`'
+     "layernorm").
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -392,8 +412,12 @@ SMALL_QWEN3 = dict(SMALL_BPE, arch="qwen3", head_dim=128, tied=True, norm_eps=1e
 SMALL_QWEN2 = dict(SMALL_BPE, arch="qwen2", n_heads=6, n_kv_heads=1, head_dim=128, tied=True,
                    norm_eps=1e-6, rope_base=1e6)
 SMALL_LLAMA3 = dict(SMALL_BPE, rope_freqs=True, pre="llama-bpe", rope_base=500000.0)
+# group 11's 2-layer StarCoder2 file for the q8 engine: 24 / 2 heads of 128
+# (G 12), LayerNorms, biases everywhere, the tanh-gelu MLP
+SMALL_STARCODER2 = dict(SMALL, arch="starcoder2", n_heads=24, n_kv_heads=2, head_dim=128)
 SMALL_SHAPES = {"small": SMALL, "small_olmo2": SMALL_OLMO2, "small_qwen3": SMALL_QWEN3,
-                "small_qwen2": SMALL_QWEN2, "small_llama3": SMALL_LLAMA3}
+                "small_qwen2": SMALL_QWEN2, "small_llama3": SMALL_LLAMA3,
+                "small_starcoder2": SMALL_STARCODER2}
 SWITCH_STEPS = 8  # decode steps of the phases under ZLLM_QMM_HBM / ZLLM_QMM_DUALDOT
 # the low-bit slice's files: Q3_K_M and IQ4_XS requantized, the others from
 # the factory (every matmul in the type)
@@ -429,6 +453,22 @@ MOE_LAYERS = 8
 MOE_CHECKS = ("mixtral_2layer", "qwen15_moe_2layer")
 MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 64, 6
 MOE_TIE_GAP = 1e-2
+# group 11, the layer-norm families: Pythia-1.4B at full depth (a
+# LN_PROMPT-token prompt in two chunks), StarCoder2-3B cut to
+# LN_SERVE_LAYERS of its 30 layers behind the paged server, and 2-layer
+# full-width Pythia, StableLM-2 and StarCoder2 checks against the CPU (a
+# LN_CHECK_PROMPT-token prompt, GEMMA_CHECK_STEPS greedy steps); the files
+# are the factory's Q4_K_M preset (Q4_K for the checks), made by children
+LN_MAIN, LN_PROMPT = "pythia_1_4b", 500
+LN_SERVE, LN_SERVE_LAYERS = "starcoder2_3b", 8
+LN_CHECKS = ("pythia_2layer", "stablelm2_2layer", "starcoder2_2layer")
+LN_CHECK_PROMPT = 64
+# a 2-layer check's card argmax other than the CPU's passes only where the
+# CPU scores the two picks less than LN_TIE_GAP apart: twice the largest
+# rms |card - CPU| logit difference of these checks' steps on an H100
+# (0.0145, StarCoder2-3B's; PERF.md, group 11), rounded up to one digit;
+# a tiled head's exact row copies score 0 apart
+LN_TIE_GAP = 3e-2
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -761,16 +801,17 @@ def f16_file(name: str, shape: dict) -> Path:
 
 
 def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
-    """A random-weight llama, OLMo-2, Qwen or Gemma GGUF (`shape` may name
-    the arch) in `ftype` (cached): the REQUANTIZED presets made by `python
-    -m zllm_torch.quantize` from the model's F16 file, the IQ_FTYPES
-    presets and a Gemma or MoE file's presets by the factory's `ftype=` (each
+    """A random-weight llama, OLMo-2, Qwen, Gemma, MoE or layer-norm GGUF
+    (`shape` may name the arch) in `ftype` (cached): the REQUANTIZED presets
+    made by `python -m zllm_torch.quantize` from the model's F16 file, the
+    IQ_FTYPES presets and a Gemma, MoE or layer-norm file's presets by the
+    factory's `ftype=` (each
     tensor in the type `pick_type` gives its role, as the quantizer's; a
     2.6B model's F16 file and its numpy requantization would take minutes),
     any other type written directly by the factory.  Returns (path,
     seconds to make it)."""
     from zllm_torch.gguf.constants import GGMLType
-    from zllm_torch.testing import make_llama_gguf
+    from zllm_torch.testing import LAYER_NORM_ARCHES, make_llama_gguf
 
     path = CACHE / f"{name}_{ftype.lower()}.gguf"
     shape = dict(shape, with_tokenizer=True)
@@ -782,7 +823,9 @@ def gguf_file(name: str, shape: dict, ftype: str) -> tuple[Path, float]:
         if child.returncode != 0:
             fail(f"making {path.name} failed: {child.err[-2000:]}")
     by_factory = ftype in IQ_FTYPES or ((shape.get("arch", "").startswith("gemma")
-                                         or shape.get("n_experts", 0)) and ftype in REQUANTIZED)
+                                         or shape.get("n_experts", 0)
+                                         or shape.get("arch") in LAYER_NORM_ARCHES)
+                                        and ftype in REQUANTIZED)
     if not path.exists():
         if ftype in REQUANTIZED and not by_factory:
             src = f16_file(name, shape)
@@ -873,7 +916,16 @@ def main_shapes() -> dict:
             "mixtral_2layer": (dict(zt.MIXTRAL_8X7B_SHAPE, n_layers=2),
                                "Mixtral-8x7B width, 2 layers"),
             "qwen15_moe_2layer": (dict(zt.QWEN15_MOE_A27B_SHAPE, n_layers=2),
-                                  "Qwen1.5-MoE-A2.7B width, 2 layers")}
+                                  "Qwen1.5-MoE-A2.7B width, 2 layers"),
+            LN_MAIN: (zt.PYTHIA_1_4B_SHAPE, "Pythia-1.4B geometry"),
+            LN_SERVE: (dict(zt.STARCODER2_3B_SHAPE, n_layers=LN_SERVE_LAYERS),
+                       f"StarCoder2-3B geometry ({LN_SERVE_LAYERS} of its 30 layers)"),
+            "pythia_2layer": (dict(zt.PYTHIA_1_4B_SHAPE, n_layers=2),
+                              "Pythia-1.4B width, 2 layers"),
+            "stablelm2_2layer": (dict(zt.STABLELM2_1_6B_SHAPE, n_layers=2),
+                                 "StableLM-2-1.6B width, 2 layers"),
+            "starcoder2_2layer": (dict(zt.STARCODER2_3B_SHAPE, n_layers=2),
+                                  "StarCoder2-3B width, 2 layers")}
 
 
 def f16_counts(kernels: dict, zero: bool = False) -> dict:
@@ -1067,6 +1119,10 @@ SMALL_ENGINE_LAYOUTS = {
     "tq2_0_paged": ("small", "TQ2_0", dict(kv_dtype="f32", n_slots=4),
                     ("paged_attention", "paged_attn_decode_update", "dequant_gemm")),
 }
+# group 11's engine check (run there, not with the layouts above): the
+# StarCoder2 file on the q8 cache, K7 at G 12, d 128
+LN_ENGINE_LAYOUTS = {"starcoder2_q8": ("small_starcoder2", "Q4_K", dict(kv_dtype="q8"),
+                                       ("flash_attention_blockwise",))}
 # the chat prompt a BPE-vocab engine check sends in a wave of its own after
 # the others, and whose streamed text (the IncrementalDecoder's pieces) it
 # prints
@@ -1098,13 +1154,13 @@ def small_engine_check(torch, kernels: dict, layout: str):
     request's tokens may part at one sampled step after its first: there
     the GPU must take the CPU's second token, and the CPU's top-two gap be
     at most TIE_GAP and at most twice that row's largest GPU-vs-CPU logit
-    difference."""
+    difference.  Returns the GPU run's launches."""
     from zllm_torch.models.loader import Model
     from zllm_torch.server.engine import Engine, Request
 
     from zllm_torch.tokenizer import IncrementalDecoder
 
-    name, ftype, kw, must = SMALL_ENGINE_LAYOUTS[layout]
+    name, ftype, kw, must = {**SMALL_ENGINE_LAYOUTS, **LN_ENGINE_LAYOUTS}[layout]
     shape = SMALL_SHAPES[name]
     path, _ = gguf_file(name, shape, ftype)
     rng = random.Random(0)
@@ -1215,6 +1271,7 @@ def small_engine_check(torch, kernels: dict, layout: str):
     if g_got[3][3] < 128 or not all(g_k[n] for n in must) or any(g_k[n] for n in must_not) \
             or any(g_k[n] != c for n, c in want.items()) or g_16 != want16:
         fail(f"small engine run ({layout}) reused no prefix or launched the wrong kernels: {res}")
+    return g_k
 
 
 def serve_expected(kernels: dict, cfg, steps: dict, q8: bool = False, contig: bool = False,
@@ -2905,6 +2962,7 @@ def form_digests(torch) -> dict:
     out["attention"] = attention_digests(torch)
     out["attention_f16"] = f16_attention_digests(torch)
     out.update(later_form_digests(torch))
+    out["layernorm"] = layernorm_form_digests(torch)
     return out
 
 
@@ -3023,7 +3081,8 @@ def gemm_counts(model) -> dict:
     from zllm_torch.quant.repack import QWeight
 
     ws = [w for layer in model.params["layers"] for k, w in layer.items()
-          if k in ("wqkv", "wq", "wk", "wv", "wo", "ffn_gateup", "ffn_down", "ffn_gate_inp",
+          if k in ("wqkv", "wq", "wk", "wv", "wo", "ffn_gateup", "ffn_gate", "ffn_up",
+                   "ffn_down", "ffn_gate_inp",
                    "ffn_gateup_shexp", "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp",
                    "ffn_gate_inp_shexp")]
     ws.append(model.params["output"])
@@ -3552,13 +3611,14 @@ def spec_phases():
 
 # ---- group 9: the Gemma text families ---------------------------------------
 
-def gemma_want(kernels: dict, model):
-    """`want(cfg, n_steps, n_chunks)` of a Gemma generate over the plain
-    stripe: each matmul weight once a decode step (K1 for the nibble
-    formats, K4 for the others: Gemma's FFN runs unfused, gate|up one
-    matvec) and once a chunk (K3, K5); the tied head is a dense matmul, no
-    kernel; every layer, windowed or not, K2 a step and a chunk (column 0)
-    and K6 a chunk."""
+def unfused_want(kernels: dict, model):
+    """`want(cfg, n_steps, n_chunks)` of a generate whose decode step runs
+    no fused matvec (Gemma's geglu FFN, the layer-norm families' blocks)
+    over the plain stripe: each matmul weight once a decode step (K1 for
+    the nibble formats, K4 for the others: gate|up or up one matvec) and
+    once a chunk (K3, K5); a tied head is a dense matmul, no kernel; every
+    layer, windowed or not, K2 a step and a chunk (column 0) and K6 a
+    chunk."""
     g = gemm_counts(model)
 
     def want(cfg, n_steps, n_chunks):
@@ -3576,9 +3636,11 @@ GEMMA_CHECKS = {"gemma2_2layer": GEMMA2_CHECK_WINDOW + 88, "gemma3_2layer": 1024
 _CPU_CHECKS: dict[str, subprocess.Popen] = {}
 
 
-def _gemma_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
-    """One side of a 2-layer check on `dev`: the prompt in 256-token chunks
-    (the last token's logits), then GEMMA_CHECK_STEPS decode steps, each
+def _two_layer_run(torch, name: str, dev: str, forced=None) -> dict:
+    """One side of a 2-layer check on `dev` (group 9's Gemma files, group
+    11's layer-norm ones): the prompt (GEMMA_CHECKS' length, or
+    LN_CHECK_PROMPT) in 256-token chunks (the last token's logits), then
+    GEMMA_CHECK_STEPS decode steps, each
     fed the argmax of the step before on this side (the CPU) or `forced`
     (the card: the CPU's tokens).  Returns the ids, the fed tokens and the
     logits."""
@@ -3586,7 +3648,7 @@ def _gemma_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.kvcache import KVCache
 
-    prompt_n = GEMMA_CHECKS[name]
+    prompt_n = GEMMA_CHECKS.get(name, LN_CHECK_PROMPT)
     path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K")
     m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
     cfg = m.cfg
@@ -3621,12 +3683,13 @@ def start_gemma_children():
 
 def gemma_cpu_reference(name: str):
     """`chip_smoke.py --gemma-cpu NAME` (a child, started after the build
-    so that it overlaps the card's earlier phases): the CPU's plain side of
-    a 2-layer check, saved for `gemma_2layer_check`."""
+    so that it overlaps the card's earlier phases; `--ln-cpu NAME` the same
+    at nice 19 on two threads): the CPU's plain side of a 2-layer check,
+    saved for `gemma_2layer_check` or `ln_2layer_check`."""
     import torch
 
     out = CACHE / f"{name}_cpu_reference.pt"
-    ref = _gemma_2layer_run(torch, name, "cpu")
+    ref = _two_layer_run(torch, name, "cpu")
     _write_atomic(out, lambda p: torch.save(ref, str(p)))
 
 
@@ -3641,45 +3704,65 @@ def start_gemma_cpu_checks():
     atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
 
 
-def gemma_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
-    """2 layers at a Gemma geometry's full width, Q4_K (the factory), bf16
-    weights and KV: the card against the CPU's plain forward (its child's
-    saved logits), the same ids fed to both, a prompt past the window in
-    256-token chunks (the last token's logits), then GEMMA_CHECK_STEPS
-    decode steps teacher-forced by the CPU's argmax; logits within nmse
-    1e-3 each, K2 and K6 launched in their d 256 forms."""
-    shape, label = main_shapes()[name]
+def two_layer_check(torch, kernels: dict, card: str, name: str, *, phase: str, info: dict,
+                    must: tuple, tie_gap: float | None = None) -> dict:
+    """2 layers at a model's full width, Q4_K (the factory's), bf16 weights
+    and KV: the card against the CPU's plain forward (its child's saved
+    logits), the CPU's greedy tokens fed to both (`_two_layer_run`);
+    logits within nmse 1e-3 at every step, the kernels `must` launched.
+    Each step whose card argmax is not the CPU's is listed with the CPU's
+    score gap between the two picks and the step's rms |card - CPU| logit
+    difference: with `tie_gap` (group 11) it passes only where that gap is
+    below `tie_gap` (a tiled head's exact row copies score 0 apart),
+    without (group 9) the agreement is reported."""
     t0 = time.perf_counter()
     child = _CPU_CHECKS.pop(name)
-    err = child.communicate(timeout=900)[1]
+    err = child.communicate(timeout=1200)[1]
     if child.returncode != 0:
         fail(f"{name}: the CPU reference failed: {err[-2000:]}")
     cpu = torch.load(str(CACHE / f"{name}_cpu_reference.pt"))
     waited = time.perf_counter() - t0
     before = {n: fn.launches for n, fn in kernels.items()}
-    gpu = _gemma_2layer_run(torch, name, "cuda", forced=cpu["fed"])
+    gpu = _two_layer_run(torch, name, "cuda", forced=cpu["fed"])
     launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
     if gpu["ids"] != cpu["ids"]:
         fail(f"{name}: the card's prompt ids differ from the CPU's")
     errs = [nmse(a, b) for a, b in zip(gpu["logits"], cpu["logits"])]
-    agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
-                for a, b in zip(gpu["logits"], cpu["logits"]))
-    res = {"phase": "gemma_2layer", "model": f"{label} Q4_K (random weights, seed 0)",
-           "window": shape["sliding_window"], "window_note": (
-               f"set to {GEMMA2_CHECK_WINDOW} for this check (the model's 4096)"
-               if shape["arch"] == "gemma2" else "the model's"),
-           "prompt_tokens": GEMMA_CHECKS[name], "decode_steps": GEMMA_CHECK_STEPS,
+    rms = [float((a - b).pow(2).mean().sqrt()) for a, b in zip(gpu["logits"], cpu["logits"])]
+    apart = []
+    for i, (a, b) in enumerate(zip(gpu["logits"], cpu["logits"])):
+        g, c = int(torch.argmax(a)), int(torch.argmax(b))
+        if g != c:
+            apart.append(dict(step=i, card=g, cpu=c, cpu_gap=float(b[c] - b[g]),
+                              same_head_row=(g - c) % 256 == 0))
+    res = {"phase": phase, **info, "decode_steps": GEMMA_CHECK_STEPS,
            "logits_nmse_max": max(errs), "logits_nmse_by_step": errs, "tolerance": 1e-3,
-           "argmax_agree": f"{agree}/{len(errs)}",
+           "logits_rms_diff_by_step": rms, "argmax_agree": f"{len(errs) - len(apart)}/{len(errs)}",
+           "picked_apart": apart, "tie_gap": tie_gap,
            "gpu_launches": {n: c for n, c in launched.items() if c},
            "finite": bool(torch.isfinite(gpu["logits"]).all()),
            "waited_for_cpu_s": waited, "seconds": time.perf_counter() - t0, "card": card}
     emit(res)
     if not res["finite"] or max(errs) > 1e-3:
         fail(f"{name}: GPU logits disagree with the CPU plain forward: {res}")
-    if not (launched["attn_decode_qkv"] and launched["flash_attention"]):
-        fail(f"{name}: the card's run launched {res['gpu_launches']}, not K2 and K6")
+    if tie_gap is not None and any(d["cpu_gap"] >= tie_gap for d in apart):
+        fail(f"{name}: the card's greedy tokens differ from the CPU's beyond a tie: {res}")
+    if not all(launched[n] for n in must):
+        fail(f"{name}: the card's run launched {res['gpu_launches']}, not {must}")
     return launched
+
+
+def gemma_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
+    """Group 9's 2-layer check (`two_layer_check`): a Gemma geometry, a
+    prompt past the window, K2 and K6 launched in their d 256 forms."""
+    shape, label = main_shapes()[name]
+    info = {"model": f"{label} Q4_K (random weights, seed 0)",
+            "window": shape["sliding_window"], "window_note": (
+                f"set to {GEMMA2_CHECK_WINDOW} for this check (the model's 4096)"
+                if shape["arch"] == "gemma2" else "the model's"),
+            "prompt_tokens": GEMMA_CHECKS[name]}
+    return two_layer_check(torch, kernels, card, name, phase="gemma_2layer", info=info,
+                           must=("attn_decode_qkv", "flash_attention"))
 
 
 def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -> list[dict]:
@@ -3717,49 +3800,16 @@ def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -
     # K2: one decode step (its q/k/v rows random, the caches the generate's)
     pos_v = GEMMA2_PROMPT + NEW_TOKENS - 1
     pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
-    ropes = {il: rope_table(pos, _layer_rope(cfg, il), d) for il in range(L)}
-    qkv3 = randn(1, hq + 2 * hkv, d)
-    kw2 = dict(scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
-    a = att.attn_decode_qkv(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
-                            window=windows[0], **kw2)
-    b = att.attn_decode_qkv_plain(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
-                                  window=windows[0], **kw2)
-    e2, m2 = agree(a, b)
+    lines.append(_k2_line(torch, F, att, name="attn_decode_qkv_d256", cfg=cfg, kcs=kcs,
+                          vcs=vcs, pos_v=pos_v, randn=randn, by_path=by_path,
+                          ropes=[rope_table(pos, _layer_rope(cfg, il), d) for il in range(L)],
+                          windows=windows, unit="one Gemma-2-2B decode step"))
 
-    def k2(fn):
-        def go():
-            for il in range(L):
-                fn(qkv3, kcs[il], vcs[il], pos, ropes[il], window=windows[il], **kw2)
-        return go
-
+    # K6: the generate's last prefill chunk (T 256 from 4096), its caches
     def visible(p_, w):
         return min(p_, s - 1) + 1 - (max(p_ - w + 1, 0) if w else 0)
 
-    q2b = qkv3[:, :hq, None].to(torch.bfloat16)  # [1, Hq, 1, D]
     cols = torch.arange(s, device="cuda")
-    masks2 = [((cols <= pos_v) & ((cols > pos_v - w) if w else True)).reshape(1, 1, 1, s)
-              for w in windows]
-
-    def k2_lib():
-        for il in range(L):
-            F.scaled_dot_product_attention(q2b, kcs[il], vcs[il], attn_mask=masks2[il],
-                                           scale=scale, enable_gqa=True)
-
-    seen2 = sum(visible(pos_v, w) for w in windows)
-    b2 = bound_ms(2 * hkv * seen2 * d * 2 + L * (qkv3.numel() * 4 + hq * d * 4),
-                  4 * hq * d * seen2, "bf16")
-    lines.append(dict(
-        name="attn_decode_qkv_d256", route="cuda", source="zllm_torch/csrc/attn_decode.cu",
-        replaces="zllm/ops/attention.py:970", launches=sum(by_path("attn_decode_qkv").values()),
-        max_abs_err=m2, nmse=e2, tolerance=1e-5, ms=cuda_ms(k2(att.attn_decode_qkv), 20),
-        plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 3), bound_ms=b2[0], bound_by=b2[1],
-        library_ms=cuda_ms(k2_lib, 20), library="scaled_dot_product_attention (attention "
-        "alone, no softcap: SDPA has none)", launches_by_path=by_path("attn_decode_qkv"),
-        unit=f"one Gemma-2-2B decode step ({L} launches)",
-        shapes=f"qkv3 [1,{hq + 2 * hkv},{d}] f32, caches [1,{hkv},{s},{d}] bf16 at {pos_v}, "
-               f"windows {sorted(set(windows))}, softcap {cfg.attn_logit_softcap}"))
-
-    # K6: the generate's last prefill chunk (T 256 from 4096), its caches
     t6, p6 = CHUNK, (GEMMA2_PROMPT // CHUNK) * CHUNK
     pos6 = (p6 + torch.arange(t6, dtype=torch.int32, device="cuda"))[None]
     q6 = randn(1, t6, hq, d)
@@ -3799,102 +3849,8 @@ def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -
                f"{sorted(set(windows))}"))
 
     # K9 / K10 at the Gemma-2B serve steps' shapes
-    cfg1 = model1.cfg
-    L1, hq1, hkv1 = cfg1.n_layers, cfg1.n_heads, cfg1.n_kv_heads
-    scale1 = cfg1.attn_scale or d ** -0.5
-    n_slots, ps, lp = 4, 128, MAX_LEN // 128
-    horizon = lp * ps
-    table = _paged_table(torch, n_slots, lp, 25)
-    pool_shape = (hkv1, (n_slots * lp + 1) * ps, d)
-    kpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
-    vpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
-    hrange = torch.arange(horizon, device="cuda")
-    rows = (table[:, :lp].long()[:, hrange // ps] * ps + hrange % ps).reshape(-1)
-
-    def gathered(pool):
-        return pool[:, rows].reshape(hkv1, n_slots, horizon, d).transpose(0, 1).contiguous()
-
-    gk, gv = [gathered(p_) for p_ in kpools], [gathered(p_) for p_ in vpools]
-    pos9 = torch.tensor([[255], [0], [300], [horizon]], dtype=torch.int32, device="cuda")
-    live = pos9[:, 0] < horizon
-    q9, kn9, vn9 = randn(n_slots, 1, hq1, d), randn(n_slots, 1, hkv1, d), randn(n_slots, 1, hkv1, d)
-    kw9 = dict(page_size=ps, scale=scale1)
-    a = att.paged_attn_decode_update(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(), table,
-                                     pos9, **kw9)
-    b = att.paged_attn_decode_update_plain(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(),
-                                           table, pos9, **kw9)
-    e9, m9 = agree(a[live], b[live])
-
-    def k9(fn):
-        def go():
-            for il in range(L1):
-                fn(q9, kn9, vn9, kpools[il], vpools[il], table, pos9, **kw9)
-        return go
-
-    q9b = q9.to(torch.bfloat16).transpose(1, 2)
-    mask9 = (hrange[None] <= pos9).reshape(n_slots, 1, 1, horizon)
-
-    def k9_lib():
-        for il in range(L1):
-            F.scaled_dot_product_attention(q9b, gk[il], gv[il], attn_mask=mask9, scale=scale1,
-                                           enable_gqa=True)
-
-    seen9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist() if p_ < horizon)
-    b9 = bound_ms(L1 * (2 * hkv1 * seen9 * d * 2 + 2 * q9.numel() * 4 + 2 * kn9.numel() * 4),
-                  L1 * 4 * hq1 * d * seen9, "bf16")
-    lines.append(dict(
-        name="paged_attn_decode_update_d256", route="cuda",
-        source="zllm_torch/csrc/paged_decode.cu", replaces="zllm/ops/attention.py:665",
-        launches=sum(by_path("paged_attn_decode_update").values()), max_abs_err=m9, nmse=e9,
-        tolerance=1e-6, ms=cuda_ms(k9(att.paged_attn_decode_update), 20),
-        plain_ms=cuda_ms(k9(att.paged_attn_decode_update_plain), 2), bound_ms=b9[0],
-        bound_by=b9[1], library_ms=cuda_ms(k9_lib, 20),
-        library="scaled_dot_product_attention on the pages gathered outside the timing",
-        launches_by_path=by_path("paged_attn_decode_update"),
-        unit=f"one Gemma-2B serve decode step ({L1} launches)",
-        shapes=f"q [4,1,{hq1},{d}] f32, pools [{hkv1},{pool_shape[1]},{d}] bf16, rows at "
-               f"{pos9[:, 0].tolist()}"))
-
-    t10 = 128
-    starts = torch.tensor([0, 256, 300, horizon], dtype=torch.int32, device="cuda")
-    pos10 = starts[:, None] + torch.arange(t10, dtype=torch.int32, device="cuda")[None]
-    q10 = randn(n_slots, t10, hq1, d)
-    kw10 = dict(page_size=ps, scale=scale1)
-    live10 = starts < horizon
-    a = att.paged_attention(q10, kpools[0], vpools[0], table, pos10, **kw10)
-    b = att.paged_attention_plain(q10, kpools[0], vpools[0], table, pos10, **kw10)
-    e10, m10 = agree(a[live10], b[live10])
-
-    def k10(fn):
-        def go():
-            for il in range(L1):
-                fn(q10, kpools[il], vpools[il], table, pos10, **kw10)
-        return go
-
-    q10b = q10.to(torch.bfloat16).transpose(1, 2)
-    mask10 = (hrange[None, None] <= pos10[:, :, None]).reshape(n_slots, 1, t10, horizon)
-
-    def k10_lib():
-        for il in range(L1):
-            F.scaled_dot_product_attention(q10b, gk[il], gv[il], attn_mask=mask10, scale=scale1,
-                                           enable_gqa=True)
-
-    live_starts = [int(p_) for p_ in starts.tolist() if p_ < horizon]
-    pairs10 = sum(min(p_ + i, horizon - 1) + 1 for p_ in live_starts for i in range(t10))
-    seen10 = sum(min(p_ + t10 - 1, horizon - 1) + 1 for p_ in live_starts)
-    b10 = bound_ms(L1 * (2 * hkv1 * seen10 * d * 2 + 2 * q10.numel() * 4),
-                   L1 * 4 * hq1 * d * pairs10, "bf16")
-    lines.append(dict(
-        name="paged_attention_d256", route="cuda", source="zllm_torch/csrc/paged_attn.cu",
-        replaces="zllm/ops/attention.py:350", launches=sum(by_path("paged_attention").values()),
-        max_abs_err=m10, nmse=e10, tolerance=1e-6, ms=cuda_ms(k10(att.paged_attention), 10),
-        plain_ms=cuda_ms(k10(att.paged_attention_plain), 2), bound_ms=b10[0], bound_by=b10[1],
-        library_ms=cuda_ms(k10_lib, 10),
-        library="scaled_dot_product_attention on the pages gathered outside the timing",
-        launches_by_path=by_path("paged_attention"),
-        unit=f"one Gemma-2B serve mixed step ({L1} launches)",
-        shapes=f"q [4,{t10},{hq1},{d}] f32 from {starts.tolist()}, pools "
-               f"[{hkv1},{pool_shape[1]},{d}] bf16"))
+    lines += _paged_lines(torch, F, att, model1.cfg, seed=25, randn=randn, by_path=by_path,
+                          suffix="d256", label="Gemma-2B")
     for ln in lines:
         emit({"phase": "kernel_gemma", "card": card, **ln})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
@@ -3921,14 +3877,14 @@ def gemma_group(torch, kernels: dict, card: str) -> dict:
 
     m2 = load("gemma2_2b")
     _, counts["gemma2_2b"], gen2, *_ = main_path(
-        torch, "Q4_K_M", kernels, gemma_want(kernels, m2), card, name="gemma2_2b", model=m2,
+        torch, "Q4_K_M", kernels, unfused_want(kernels, m2), card, name="gemma2_2b", model=m2,
         prompt_tokens=GEMMA2_PROMPT, max_len=GEMMA2_MAX_LEN)
     m3 = load("gemma3_4b")
     emit({"phase": "gemma3_depth", "layers": m3.cfg.n_layers, "of": 34,
           "windowed": [il for il in range(m3.cfg.n_layers) if m3.cfg.is_swa_layer(il)],
           "note": "Gemma-3-4B's geometry cut to 12 of its 34 layers: two full layers (5, 11)"})
     _, counts["gemma3_4b"], gen3, *_ = main_path(
-        torch, "Q4_K_M", kernels, gemma_want(kernels, m3), card, name="gemma3_4b", model=m3,
+        torch, "Q4_K_M", kernels, unfused_want(kernels, m3), card, name="gemma3_4b", model=m3,
         prompt_tokens=GEMMA3_PROMPT, max_len=GEMMA3_MAX_LEN)
     del gen3
     counts["serve_ring_gemma3"] = serve_phase(
@@ -4453,6 +4409,527 @@ def moe_phases():
     kernels = kernel_wrappers()
     moe_group(torch, kernels, card)
     print(card, flush=True)
+
+
+# ---- group 11: the layer-norm families (gptneox, stablelm, starcoder2) --------
+
+def start_ln_children():
+    """Group 11's files (the factory's Q4_K_M preset of Pythia-1.4B and of
+    StarCoder2-3B at LN_SERVE_LAYERS layers) and the 2-layer checks' CPU
+    sides (each makes its Q4_K file), all niced."""
+    import atexit
+
+    prepare_requantized([(LN_MAIN, ("Q4_K_M",)), (LN_SERVE, ("Q4_K_M",))])
+    for name in LN_CHECKS:
+        _CPU_CHECKS[name] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ln-cpu", name], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
+
+
+def ln_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
+    """Group 11's 2-layer check (`two_layer_check`): the same greedy token
+    at every step up to LN_TIE_GAP, K1, K2, K3 and K6 launched."""
+    shape, label = main_shapes()[name]
+    info = {"model": f"{label} Q4_K (random weights, seed 0)", "arch": shape["arch"],
+            "rope_dims": shape.get("rope_dim") or shape["head_dim"],
+            "head_dim": shape["head_dim"], "gqa_group": shape["n_heads"] // shape["n_kv_heads"],
+            "prompt_tokens": LN_CHECK_PROMPT}
+    return two_layer_check(torch, kernels, card, name, phase="ln_2layer", info=info,
+                           must=("q4k_matvec", "attn_decode_qkv", "q4k_gemm",
+                                 "flash_attention"), tie_gap=LN_TIE_GAP)
+
+
+def _k2_line(torch, F, att, *, name: str, unit: str, cfg, kcs, vcs, pos_v: int, randn,
+             by_path, ropes=None, windows=None) -> dict:
+    """K2 over one decode step of `cfg`'s geometry (a launch a layer, the
+    caches `kcs`/`vcs`, each layer's rope table at `pos_v` (`ropes`, by
+    default cfg.rope's) and window (`windows`, by default none), cfg's
+    softcap, random q/k/v rows) against its plain version and one SDPA call
+    a layer (attention alone)."""
+    from zllm_torch.ops.layers import rope_table
+
+    L, hq, hkv, d = len(kcs), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = kcs[0].shape[2]
+    scale = cfg.attn_scale or d ** -0.5
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    ropes = ropes or [rope_table(pos, cfg.rope, d)] * L
+    windows = windows or [0] * L
+    qkv3 = randn(1, hq + 2 * hkv, d)
+    kw = dict(scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
+    a = att.attn_decode_qkv(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
+                            window=windows[0], **kw)
+    b = att.attn_decode_qkv_plain(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
+                                  window=windows[0], **kw)
+    e, m = nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())
+
+    def k2(fn):
+        def go():
+            for il in range(L):
+                fn(qkv3, kcs[il], vcs[il], pos, ropes[il], window=windows[il], **kw)
+        return go
+
+    q2b = qkv3[:, :hq, None].to(torch.bfloat16)  # [1, Hq, 1, D]
+    cols = torch.arange(s, device="cuda")
+    masks = [((cols <= pos_v) & ((cols > pos_v - w) if w else True)).reshape(1, 1, 1, s)
+             for w in windows]
+
+    def lib():
+        for il in range(L):
+            F.scaled_dot_product_attention(q2b, kcs[il], vcs[il], attn_mask=masks[il],
+                                           scale=scale, enable_gqa=True)
+
+    seen = sum(min(pos_v, s - 1) + 1 - (max(pos_v - w + 1, 0) if w else 0) for w in windows)
+    bd = bound_ms(2 * hkv * seen * d * 2 + L * (qkv3.numel() * 4 + hq * d * 4),
+                  4 * hq * d * seen, "bf16")
+    return dict(
+        name=name, route="cuda", source="zllm_torch/csrc/attn_decode.cu",
+        replaces="zllm/ops/attention.py:970", launches=sum(by_path("attn_decode_qkv").values()),
+        max_abs_err=m, nmse=e, tolerance=1e-5, ms=cuda_ms(k2(att.attn_decode_qkv), 20),
+        plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 3), bound_ms=bd[0], bound_by=bd[1],
+        library_ms=cuda_ms(lib, 20), library="scaled_dot_product_attention on the caches "
+        "(attention alone: q not roped, nothing inserted"
+        + (", no softcap: SDPA has none)" if cfg.attn_logit_softcap else ")"),
+        launches_by_path=by_path("attn_decode_qkv"), unit=f"{unit} ({L} launches)",
+        shapes=f"qkv3 [1,{hq + 2 * hkv},{d}] f32, caches [1,{hkv},{s},{d}] "
+               f"{str(kcs[0].dtype)[6:]} at {pos_v}, {'neox' if ropes[0].neox else 'norm'} rope over "
+               f"{ropes[0].rot_dims} of {d} dims, G {hq // hkv}, windows "
+               f"{sorted(set(windows))}, softcap {cfg.attn_logit_softcap}")
+
+
+def _paged_lines(torch, F, att, cfg, *, seed: int, randn, by_path, suffix: str,
+                 label: str, shape_note: str = "") -> list[dict]:
+    """K9 and K10 at a serve's shapes (`cfg`'s layers and heads, 4 slots of
+    MAX_LEN // 128 pages of 128, bf16 pools, a page table of `seed`): K9
+    rows at 255, 0, 300 and a trash row, K10 a chunk of 128 from 0, 256,
+    300 and an idle row; each against its plain version and one SDPA call a
+    layer on the pages gathered outside the timing."""
+    L1, hq1, hkv1, d = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale1 = cfg.attn_scale or d ** -0.5
+    n_slots, ps, lp = 4, 128, MAX_LEN // 128
+    horizon = lp * ps
+    table = _paged_table(torch, n_slots, lp, seed)
+    pool_shape = (hkv1, (n_slots * lp + 1) * ps, d)
+    kpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
+    vpools = [randn(*pool_shape, dtype=torch.bfloat16) for _ in range(L1)]
+    hrange = torch.arange(horizon, device="cuda")
+    rows = (table[:, :lp].long()[:, hrange // ps] * ps + hrange % ps).reshape(-1)
+
+    def gathered(pool):
+        return pool[:, rows].reshape(hkv1, n_slots, horizon, d).transpose(0, 1).contiguous()
+
+    def agree(a, b):
+        return nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())
+
+    gk, gv = [gathered(p_) for p_ in kpools], [gathered(p_) for p_ in vpools]
+    pools = f"pools [{hkv1},{pool_shape[1]},{d}] bf16{shape_note}"
+    lines = []
+
+    pos9 = torch.tensor([[255], [0], [300], [horizon]], dtype=torch.int32, device="cuda")
+    live = pos9[:, 0] < horizon
+    q9, kn9, vn9 = (randn(n_slots, 1, h, d) for h in (hq1, hkv1, hkv1))
+    kw9 = dict(page_size=ps, scale=scale1)
+    e9, m9 = agree(*(r[live] for r in (
+        att.paged_attn_decode_update(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(), table,
+                                     pos9, **kw9),
+        att.paged_attn_decode_update_plain(q9, kn9, vn9, kpools[0].clone(), vpools[0].clone(),
+                                           table, pos9, **kw9))))
+
+    def k9(fn):
+        def go():
+            for il in range(L1):
+                fn(q9, kn9, vn9, kpools[il], vpools[il], table, pos9, **kw9)
+        return go
+
+    q9b = q9.to(torch.bfloat16).transpose(1, 2)
+    mask9 = (hrange[None] <= pos9).reshape(n_slots, 1, 1, horizon)
+
+    def k9_lib():
+        for il in range(L1):
+            F.scaled_dot_product_attention(q9b, gk[il], gv[il], attn_mask=mask9, scale=scale1,
+                                           enable_gqa=True)
+
+    seen9 = sum(min(int(p_), horizon - 1) + 1 for p_ in pos9[:, 0].tolist() if p_ < horizon)
+    b9 = bound_ms(L1 * (2 * hkv1 * seen9 * d * 2 + 2 * q9.numel() * 4 + 2 * kn9.numel() * 4),
+                  L1 * 4 * hq1 * d * seen9, "bf16")
+    lines.append(dict(
+        name=f"paged_attn_decode_update_{suffix}", route="cuda",
+        source="zllm_torch/csrc/paged_decode.cu", replaces="zllm/ops/attention.py:665",
+        launches=sum(by_path("paged_attn_decode_update").values()), max_abs_err=m9, nmse=e9,
+        tolerance=1e-6, ms=cuda_ms(k9(att.paged_attn_decode_update), 20),
+        plain_ms=cuda_ms(k9(att.paged_attn_decode_update_plain), 2), bound_ms=b9[0],
+        bound_by=b9[1], library_ms=cuda_ms(k9_lib, 20),
+        library="scaled_dot_product_attention on the pages gathered outside the timing",
+        launches_by_path=by_path("paged_attn_decode_update"),
+        unit=f"one {label} serve decode step ({L1} launches)",
+        shapes=f"q [4,1,{hq1},{d}] f32, {pools}, rows at {pos9[:, 0].tolist()}, "
+               f"G {hq1 // hkv1}"))
+
+    t10 = 128
+    starts = torch.tensor([0, 256, 300, horizon], dtype=torch.int32, device="cuda")
+    pos10 = starts[:, None] + torch.arange(t10, dtype=torch.int32, device="cuda")[None]
+    q10 = randn(n_slots, t10, hq1, d)
+    kw10 = dict(page_size=ps, scale=scale1)
+    live10 = starts < horizon
+    e10, m10 = agree(*(r[live10] for r in (
+        att.paged_attention(q10, kpools[0], vpools[0], table, pos10, **kw10),
+        att.paged_attention_plain(q10, kpools[0], vpools[0], table, pos10, **kw10))))
+
+    def k10(fn):
+        def go():
+            for il in range(L1):
+                fn(q10, kpools[il], vpools[il], table, pos10, **kw10)
+        return go
+
+    q10b = q10.to(torch.bfloat16).transpose(1, 2)
+    mask10 = (hrange[None, None] <= pos10[:, :, None]).reshape(n_slots, 1, t10, horizon)
+
+    def k10_lib():
+        for il in range(L1):
+            F.scaled_dot_product_attention(q10b, gk[il], gv[il], attn_mask=mask10, scale=scale1,
+                                           enable_gqa=True)
+
+    live_starts = [int(p_) for p_ in starts.tolist() if p_ < horizon]
+    pairs10 = sum(min(p_ + i, horizon - 1) + 1 for p_ in live_starts for i in range(t10))
+    seen10 = sum(min(p_ + t10 - 1, horizon - 1) + 1 for p_ in live_starts)
+    b10 = bound_ms(L1 * (2 * hkv1 * seen10 * d * 2 + 2 * q10.numel() * 4),
+                   L1 * 4 * hq1 * d * pairs10, "bf16")
+    lines.append(dict(
+        name=f"paged_attention_{suffix}", route="cuda", source="zllm_torch/csrc/paged_attn.cu",
+        replaces="zllm/ops/attention.py:350", launches=sum(by_path("paged_attention").values()),
+        max_abs_err=m10, nmse=e10, tolerance=1e-6, ms=cuda_ms(k10(att.paged_attention), 10),
+        plain_ms=cuda_ms(k10(att.paged_attention_plain), 2), bound_ms=b10[0], bound_by=b10[1],
+        library_ms=cuda_ms(k10_lib, 10),
+        library="scaled_dot_product_attention on the pages gathered outside the timing",
+        launches_by_path=by_path("paged_attention"),
+        unit=f"one {label} serve mixed step ({L1} launches)",
+        shapes=f"q [4,{t10},{hq1},{d}] f32 from {starts.tolist()}, {pools}, G {hq1 // hkv1}"))
+    return lines
+
+
+def ln_kernel_lines(torch, F, model_p, gen_p, pos_p: int, model_s, card: str,
+                    paths: dict) -> list[dict]:
+    """The forms this slice first runs, at its paths' shapes, each against
+    its plain version and one SDPA call a layer: K2 over a Pythia-1.4B
+    decode step (the generate's caches; neox rope over 32 of 128 dims),
+    over a StableLM-2-1.6B one (24 layers of random bf16 caches, S 2048;
+    16 of 64) and over a StarCoder2-3B one (30 layers, G 12 at d 128); K6
+    over the Pythia prompt's second chunk; K9 and K10 over the StarCoder2
+    serve steps' 8 layers (4 slots, 16 pages of 128, 24 / 2 heads), and K7
+    over the same steps on a q8 cache (`k7_case`)."""
+    from zllm_torch import testing as zt
+    from zllm_torch.models.config import ModelConfig
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import RopeParams
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(27)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def by_path(name):
+        return {p: c.get(name, 0) for p, c in paths.items()}
+
+    def agree(a, b):
+        return nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())
+
+    def geometry(shape, layers=None):
+        """A config of the factory `shape`'s heads and rope."""
+        return ModelConfig(arch=shape["arch"], n_layers=layers or shape["n_layers"],
+                           n_embd=shape["n_embd"], n_heads=shape["n_heads"],
+                           n_kv_heads=shape["n_kv_heads"], head_dim=shape["head_dim"],
+                           n_ff=shape["n_ff"], vocab_size=shape["vocab_size"],
+                           norm_eps=shape["norm_eps"],
+                           rope=RopeParams(dim=shape.get("rope_dim") or shape["head_dim"],
+                                           base=shape["rope_base"], style="neox"))
+
+    lines = []
+    cfg_p = model_p.cfg
+    lines.append(_k2_line(torch, F, att, name="attn_decode_qkv_neox_r32", cfg=cfg_p,
+                          kcs=gen_p.kv.k, vcs=gen_p.kv.v, pos_v=pos_p, randn=randn,
+                          by_path=by_path, unit="one Pythia-1.4B decode step"))
+    s = MAX_LEN
+    for label, shape, name in (("StableLM-2-1.6B", zt.STABLELM2_1_6B_SHAPE,
+                                "attn_decode_qkv_neox_r16_d64"),
+                               ("StarCoder2-3B", zt.STARCODER2_3B_SHAPE, "attn_decode_qkv_g12")):
+        cfg = geometry(shape)
+        kv_shape = (1, cfg.n_kv_heads, s, cfg.head_dim)
+        kcs = [randn(*kv_shape, dtype=torch.bfloat16) for _ in range(cfg.n_layers)]
+        vcs = [randn(*kv_shape, dtype=torch.bfloat16) for _ in range(cfg.n_layers)]
+        lines.append(_k2_line(torch, F, att, name=name, cfg=cfg, kcs=kcs, vcs=vcs, pos_v=pos_p,
+                              randn=randn, by_path=by_path,
+                              unit=f"one {label} decode step (random caches)"))
+        del kcs, vcs
+
+    # K6: the Pythia prompt's second chunk (T 256 from 256) over its caches
+    L, hq, hkv, d = cfg_p.n_layers, cfg_p.n_heads, cfg_p.n_kv_heads, cfg_p.head_dim
+    kcs, vcs = gen_p.kv.k, gen_p.kv.v
+    scale = d ** -0.5
+    t6, p6 = CHUNK, CHUNK
+    pos6 = (p6 + torch.arange(t6, dtype=torch.int32, device="cuda"))[None]
+    q6 = randn(1, t6, hq, d)
+    e6, m6 = agree(att.flash_attention(q6, kcs[0], vcs[0], pos6, scale=scale),
+                   att.flash_attention_plain(q6, kcs[0], vcs[0], pos6, scale=scale))
+
+    def k6(fn):
+        def go():
+            for il in range(L):
+                fn(q6, kcs[il], vcs[il], pos6, scale=scale)
+        return go
+
+    q6b = q6.to(torch.bfloat16).transpose(1, 2)
+    cols = torch.arange(kcs[0].shape[2], device="cuda")
+    mask6 = (cols[None] <= pos6[0][:, None]).reshape(1, 1, t6, -1)
+
+    def k6_lib():
+        for il in range(L):
+            F.scaled_dot_product_attention(q6b, kcs[il], vcs[il], attn_mask=mask6, scale=scale)
+
+    pairs = L * sum(p6 + i + 1 for i in range(t6))
+    b6 = bound_ms(L * (2 * q6.numel() * 4 + 2 * hkv * (p6 + t6) * d * 2), 4 * hq * d * pairs,
+                  "bf16")
+    lines.append(dict(
+        name="flash_attention_pythia", route="cuda", source="zllm_torch/csrc/flash_attn.cu",
+        replaces="zllm/ops/attention.py:33", launches=sum(by_path("flash_attention").values()),
+        max_abs_err=m6, nmse=e6, tolerance=1e-5, ms=cuda_ms(k6(att.flash_attention), 10),
+        plain_ms=cuda_ms(k6(att.flash_attention_plain), 2), bound_ms=b6[0], bound_by=b6[1],
+        library_ms=cuda_ms(k6_lib, 10), library="scaled_dot_product_attention (causal mask)",
+        launches_by_path=by_path("flash_attention"),
+        unit=f"one Pythia-1.4B prefill chunk ({L} launches)",
+        shapes=f"q [1,{t6},{hq},{d}] f32 from {p6}, k/v [1,{hkv},{kcs[0].shape[2]},{d}] bf16, "
+               "G 1"))
+
+    # K9 / K10 at the StarCoder2 serve steps' shapes (G 12, d 128)
+    cfg_s = model_s.cfg
+    L1, hq1, hkv1, d1 = cfg_s.n_layers, cfg_s.n_heads, cfg_s.n_kv_heads, cfg_s.head_dim
+    lines += _paged_lines(torch, F, att, cfg_s, seed=27, randn=randn, by_path=by_path,
+                          suffix="g12", label=f"StarCoder2-3B ({L1} layers)")
+    # K7 at the StarCoder2 serve's shapes over a q8 cache (int8 codes, S
+    # 2176): a decode step (G 12: the split form) and a mixed step
+    n_slots, scale1, s7 = 4, d1 ** -0.5, MAX_LEN + 128
+
+    def codes():
+        return torch.randint(-127, 128, (n_slots, hkv1, s7, d1), generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    kvs = [(codes(), codes(), randn(n_slots, hkv1, s7, 1).abs() * 0.01 + 1e-3,
+            randn(n_slots, hkv1, s7, 1).abs() * 0.01 + 1e-3) for _ in range(L1)]
+    k7 = {step: k7_case(torch, F, randn, kvs, t7, starts_, hq1, scale1)
+          for step, t7, starts_ in (("decode", 1, [255, 0, 300, MAX_LEN]),
+                                    ("mixed", 128, [0, 256, 300, MAX_LEN]))}
+    del kvs
+    lines.append(dict(
+        name="flash_attention_blockwise_g12", route="cuda",
+        source="zllm_torch/csrc/attn_blockwise.cu", replaces="zllm/ops/attention.py:165",
+        launches=sum(by_path("flash_attention_blockwise").values()),
+        **{k: k7["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "nmse", "max_abs_err", "tolerance", "shapes")},
+        library="scaled_dot_product_attention on K/V dequantized to bf16 outside the timing",
+        launches_by_path=by_path("flash_attention_blockwise"),
+        unit=f"one StarCoder2-3B ({L1} layers) q8 decode step ({L1} launches), int8 K/V",
+        mixed_step=k7["mixed"]))
+    for ln in lines:
+        emit({"phase": "kernel_layernorm", "card": card, **ln})
+    bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
+    if not k7["mixed"]["nmse"] <= k7["mixed"]["tolerance"]:
+        bad.append("flash_attention_blockwise_g12 mixed step")
+    if bad:
+        fail(f"this slice's forms disagree with their plain versions: {bad}")
+    return lines
+
+
+def ln_matmul_lines(torch, model, card: str, counts: dict) -> list[dict]:
+    """The Pythia-1.4B Q4_K_M path's matmul kernels at its own shapes
+    (random rows, seed 27): one decode step's 97 matvecs (wqkv, wo, up and
+    down a layer, the head; all fuse "q": a LayerNorm model fuses no
+    prologue) through K1 (Q4_K) and K4 (Q6_K: the first 12 ffn_down and
+    the head), and one 256-row chunk's GEMMs through K3 and K5, each beside
+    its bound (`matvec_phase`, `gemm_phase`: the head's real 50304
+    columns), its plain version on one call of each shape and
+    `torch.matmul` on the bf16-dequantized weights."""
+    from zllm_torch.gguf.constants import GGMLType
+    from zllm_torch.ops import qmatmul as qmm
+
+    cfg, layers, head = model.cfg, model.params["layers"], model.params["output"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(27)
+
+    def randn(*shape_, scale=1.0):
+        return torch.randn(*shape_, generator=g, device="cuda") * scale
+
+    def n_real(w):
+        return cfg.vocab_size if w is head else w.shape[1]
+
+    def first_of_each(calls, key):  # one call of each shape, for the plain check
+        seen = {}
+        for i, c in enumerate(calls):
+            seen.setdefault(key(c), i)
+        return tuple(seen.values())
+
+    d, ff = cfg.n_embd, cfg.n_ff
+    row = {k: randn(1, k, scale=3.0) for k in (d, cfg.q_dim, ff)}
+    rows = {k: randn(CHUNK, k) for k in (d, cfg.q_dim, ff)}
+    mv = {GGMLType.Q4_K: [], GGMLType.Q6_K: []}
+    gm = {GGMLType.Q4_K: [], GGMLType.Q6_K: []}
+    for layer in layers:
+        for k, w in ((d, layer["wqkv"]), (cfg.q_dim, layer["wo"]), (d, layer["ffn_up"]),
+                     (ff, layer["ffn_down"])):
+            mv[w.fmt].append((row[k], w, "q", None))
+            gm[w.fmt].append((rows[k], w))
+    mv[head.fmt].append((row[d], head, "q", None))
+    gm[head.fmt].append((rows[d], head))
+    label = main_shapes()[LN_MAIN][1] + " Q4_K_M"
+    lines = []
+    # kernel: its source and the TPU kernel it replaces
+    where = {"q4k_matvec": ("q4k_matvec.cu", "zllm/ops/qmatmul.py:683"),
+             "int8_matvec": ("int8_matvec.cu", "zllm/ops/qmatmul.py:501"),
+             "q4k_gemm": ("q4k_gemm.cu", "zllm/ops/qmatmul.py:1402"),
+             "dequant_gemm": ("dequant_gemm.cu", "zllm/ops/qmatmul.py:1542")}
+    for fmt, mv_name, fn, plain, gm_name, gfn, gplain in (
+            (GGMLType.Q4_K, "q4k_matvec", qmm.q4k_matvec, qmm.q4k_matvec_plain, "q4k_gemm",
+             qmm.q4k_gemm, qmm.q4k_gemm_plain),
+            (GGMLType.Q6_K, "int8_matvec", qmm.int8_matvec, qmm.int8_matvec_plain,
+             "dequant_gemm", qmm.dequant_gemm, qmm.dequant_gemm_plain)):
+        bpw = GGUF_BYTES_PER_WEIGHT[fmt.name]
+        step = matvec_phase(torch, fn, plain, mv[fmt], n_real, bpw, cfg.norm_eps,
+                            check=first_of_each(mv[fmt], lambda c: c[1].shape))
+        chunk = gemm_phase(torch, gfn, gplain, gm[fmt], n_real, bpw,
+                           check=first_of_each(gm[fmt], lambda c: c[1].shape))
+        for name, res, n, unit in (
+                (mv_name, step, len(mv[fmt]), "one decode step"),
+                (gm_name, chunk, len(gm[fmt]), f"one {CHUNK}-row prefill chunk")):
+            lines.append(dict(
+                name=f"{name}_pythia", route="cuda",
+                source=f"zllm_torch/csrc/{where[name][0]}", replaces=where[name][1],
+                launches=counts[name],
+                **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "nmse", "max_abs_err")},
+                tolerance=1e-6, library="torch.matmul on the bf16-dequantized weights",
+                unit=f"{unit} of {label}: {n} {fmt.name} launches",
+                shapes=f"K x N {sorted({tuple(w.shape) for _, w, *_ in mv[fmt]})}"))
+    for ln in lines:
+        emit({"phase": "kernel_layernorm", "card": card, **ln})
+    bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
+    if bad:
+        fail(f"the Pythia path's matmul kernels disagree with their plain versions: {bad}")
+    return lines
+
+
+def layernorm_group(torch, kernels: dict, card: str) -> dict:
+    """Group 11: Pythia-1.4B's generate at full depth, StarCoder2-3B (8
+    layers) behind the paged server, the 2-layer Pythia, StableLM-2 and
+    StarCoder2 checks against the CPU, a 2-layer StarCoder2 q8 engine
+    against the CPU's, and this slice's kernel lines (the attention forms
+    it first runs; the Pythia path's matmuls at their shapes).
+    Returns the paths' launch counts and the kernel lines."""
+    import torch.nn.functional as F
+
+    from zllm_torch.models.loader import Model
+
+    t0 = time.perf_counter()
+
+    def load(name):
+        path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K_M")
+        return Model.load(str(path), device="cuda", dtype=torch.bfloat16)
+
+    m_p = load(LN_MAIN)
+    counts = {}
+    _, counts[LN_MAIN], gen_p, _, tokens, _ = main_path(
+        torch, "Q4_K_M", kernels, unfused_want(kernels, m_p), card, name=LN_MAIN, model=m_p,
+        prompt_tokens=LN_PROMPT)
+    pos_p = LN_PROMPT + len(tokens) - 1  # the last decode step's position
+    m_s = load(LN_SERVE)
+    counts[f"serve_{LN_SERVE}"] = serve_phase(
+        torch, m_s, kernels, card, label=main_shapes()[LN_SERVE][1] + " Q4_K_M",
+        gemms=gemm_counts(m_s), tag=LN_SERVE)
+    for name in LN_CHECKS:
+        counts[name] = ln_2layer_check(torch, kernels, card, name)
+    for layout in LN_ENGINE_LAYOUTS:
+        counts[f"{layout}_engine"] = small_engine_check(torch, kernels, layout)
+    lines = ln_kernel_lines(torch, F, m_p, gen_p, pos_p, m_s, card, counts)
+    lines += ln_matmul_lines(torch, m_p, card, counts[LN_MAIN])
+    del m_p, gen_p, m_s
+    torch.cuda.empty_cache()
+    emit({"phase": "layernorm_group", "seconds": time.perf_counter() - t0, "card": card})
+    return {"counts": counts, "lines": lines}
+
+
+def layernorm_phases():
+    """`python3 chip_smoke.py --layernorm`: group 11 alone after building
+    the kernels (its files and CPU references made by children
+    meanwhile)."""
+    torch, card = setup_card()
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports)})
+    start_ln_children()
+    kernels = kernel_wrappers()
+    layernorm_group(torch, kernels, card)
+    emit({"phase": "form_digests", "tree": str(REPO),
+          "layernorm": layernorm_form_digests(torch)})
+    print(card, flush=True)
+
+
+def layernorm_form_digests(torch) -> dict:
+    """Digests of the forms this slice first runs, on a stream of their own
+    (seed 270), so that the earlier digests keep theirs: K2 with neox rope
+    over 32 of 128 and 16 of 64 dims and at G 12, d 128 (the output and
+    both caches after the insert), K9 at G 12 (output and pools), K10 and
+    K6 at G 12, each over f32, bf16 and f16 K/V (K9/K10: bf16 and f16
+    pools, K10's f32 pool the tile loop too)."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import RopeParams, rope_table
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(270)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            torch.cuda.synchronize()
+            h.update(t.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    kv_dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    out = {}
+    for form, (hq, hkv, d, r) in {"k2_neox_r32_d128": (16, 16, 128, 32),
+                                  "k2_neox_r16_d64": (32, 32, 64, 16),
+                                  "k2_g12_d128": (24, 2, 128, 128)}.items():
+        for cn, cd in kv_dtypes.items():
+            pos = torch.tensor([331, 0, 511], dtype=torch.int32, device="cuda")
+            qkv3 = randn(3, hq + 2 * hkv, d)
+            kc, vc = (randn(3, hkv, 512, d, dtype=cd) for _ in range(2))
+            rt = rope_table(pos, RopeParams(dim=r, style="neox"), d)
+            y = att.attn_decode_qkv(qkv3, kc, vc, pos, rt, scale=d ** -0.5)
+            out[f"{form}_{cn}"] = digest(y, kc, vc)
+    hq, hkv, d, ps, lp, n = 24, 2, 128, 128, 8, 3
+    table = _paged_table(torch, n, lp, 270)
+    for pn in ("bf16", "f16"):
+        pools = [randn(hkv, (n * lp + 1) * ps, d, dtype=kv_dtypes[pn]) for _ in range(2)]
+        pos9 = torch.tensor([[127], [0], [700]], dtype=torch.int32, device="cuda")
+        q9, kn, vn = (randn(n, 1, h, d) for h in (hq, hkv, hkv))
+        y = att.paged_attn_decode_update(q9, kn, vn, *pools, table, pos9, page_size=ps,
+                                         scale=d ** -0.5)
+        out[f"k9_g12_d128_{pn}"] = digest(y, *pools)
+    for pn, pd in kv_dtypes.items():
+        pools = [randn(hkv, (n * lp + 1) * ps, d, dtype=pd) for _ in range(2)]
+        starts = torch.tensor([0, 300, 900], dtype=torch.int32, device="cuda")
+        pos10 = starts[:, None] + torch.arange(64, dtype=torch.int32, device="cuda")[None]
+        y = att.paged_attention(randn(n, 64, hq, d), *pools, table, pos10, page_size=ps,
+                                scale=d ** -0.5)
+        out[f"k10_g12_d128_{pn}"] = digest(y)
+        k, v = (randn(1, hkv, 1024, d, dtype=pd) for _ in range(2))
+        pos6 = (256 + torch.arange(256, dtype=torch.int32, device="cuda"))[None]
+        y = att.flash_attention(randn(1, 256, hq, d), k, v, pos6, scale=d ** -0.5)
+        out[f"k6_g12_d128_{pn}"] = digest(y)
+    return out
 
 
 def kernel_wrappers() -> dict:
@@ -5038,9 +5515,13 @@ def main():
     counts_switches = switches_phase(torch, model_m, kernels, card)
     # group 8: speculative decoding, lookahead and the whole-cache shift
     spec = spec_group(torch, model_m, kernels, card)
+    # group 11's files and CPU references, two groups ahead of it
+    start_ln_children()
     # group 9: the Gemma text families (head_dim 256, windows, the ring)
     gemma = gemma_group(torch, kernels, card)
     moe = moe_group(torch, kernels, card)
+    # group 11: the layer-norm families (partial neox rope, G 12)
+    layernorm = layernorm_group(torch, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -6235,6 +6716,7 @@ def main():
 
     lines += gemma["lines"]  # the d 256 forms (group 9), each a line of its own
     lines += moe["lines"]  # the experts' K3 / K5 and K7's d 256 forms (group 10)
+    lines += layernorm["lines"]  # partial neox K2, G 12 K2 / K9 / K10, a Pythia K6 (group 11)
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
@@ -6258,6 +6740,13 @@ def main():
     forms.update(attn_decode_update=["float32", "bfloat16", "float16"],
                  flash_attention_blockwise=["bfloat16", "int8"],
                  flash_attention_blockwise_d256=["bfloat16", "int8"],
+                 **{name: ["float32", "bfloat16", "float16"] for name in (
+                     "attn_decode_qkv_neox_r32", "attn_decode_qkv_neox_r16_d64",
+                     "attn_decode_qkv_g12", "flash_attention_pythia",
+                     "paged_attn_decode_update_g12", "paged_attention_g12")},
+                 flash_attention_blockwise_g12=["bfloat16", "int8"],
+                 **{f"{name}_pythia": forms[name] for name in (
+                     "q4k_matvec", "int8_matvec", "q4k_gemm", "dequant_gemm")},
                  q4k_gemm_experts=forms["q4k_gemm"], dequant_gemm_experts=forms["dequant_gemm"])
     emit({"kernels": [dict({k: ln[k] for k in keys},
                            **({"forms": forms[ln["name"]]} if ln["name"] in forms else {}))
@@ -6289,6 +6778,15 @@ if __name__ == "__main__":
         os.nice(19)
         sys.path.insert(0, str(REPO))
         moe_cpu_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--layernorm"]:  # group 11 alone
+        layernorm_phases()
+    elif sys.argv[1:2] == ["--ln-cpu"]:  # a child of start_ln_children
+        os.nice(19)
+        sys.path.insert(0, str(REPO))
+        import torch
+
+        torch.set_num_threads(2)
+        gemma_cpu_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--serve-q8"]:  # serve_q8 and the q8 insert alone
         serve_q8_ab(int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1:2] == ["--digest"]:  # the earlier kernel forms' digests alone

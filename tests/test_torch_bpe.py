@@ -31,7 +31,8 @@ from hypothesis import strategies as st
 from zllm_torch.tokenizer.bpe import PRETOKENIZERS
 
 REPO = Path(__file__).resolve().parents[1]
-KINDS = {"gpt2": "gpt-2", "llama3": "llama-bpe", "qwen2": "qwen2"}  # kind -> a pre name
+KINDS = {"gpt2": "gpt-2", "llama3": "llama-bpe", "qwen2": "qwen2",
+         "starcoder": "starcoder"}  # kind -> a pre name
 CORPUS = [
     "", "Hello world", "Hello, World! How are you?",
     "It's we'RE THEY'LL you've I'M he'D it'S x'Ve 'll 'LL ''s '", "don't'll'd", "O'Neil's",
@@ -169,7 +170,7 @@ def test_tokenizer_needs_no_regex():
 
 
 @pytest.mark.parametrize("pre", ["default", "falcon", "deepseek-llm", "gpt-4o", "tekken",
-                                 "starcoder", "no-such-pre"])
+                                 "deepseek-coder", "no-such-pre"])
 def test_other_pretokenizers_are_refused(pre):
     from zllm_torch.tokenizer import Tokenizer
     from zllm_torch.tokenizer.vocab import Vocab

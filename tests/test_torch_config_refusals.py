@@ -6,6 +6,9 @@ the port's factory, adds one key, and asserts both that zllm's config
 takes the value (so zllm would compute another model) and that the port
 raises a typed NotImplementedError naming the key, for the llama and the
 OLMo-2 architecture.  The same keys at their defaults still load.
+`use_parallel_residual` applies to the llama block (GPT-NeoX's parallel
+residual): the llama case loads and its prefill logits equal zllm's
+forward's; OLMo-2's own block still refuses it.
 `attention.query_pre_attn_scalar` (Gemma-2/3's) applies: the port's score
 scale and logits equal zllm's for it, on both architectures."""
 
@@ -37,6 +40,8 @@ DEFAULTS = {"embedding_scale": 1.0, "residual_scale": 1.0, "attention.clamp_kqv"
             "use_parallel_residual": False, "swin_norm": False,
             "attention.max_alibi_bias": 0.0}
 ARCHES = ("llama", "olmo2")
+# the (arch, key) cases the port now runs: the llama block's parallel residual
+APPLIED = {("llama", "use_parallel_residual")}
 
 
 @pytest.fixture(scope="module")
@@ -94,8 +99,32 @@ def test_unported_metadata_is_refused(base_files, tmp_path, arch, key):
     value, field, held = CHANGED[key]
     path = _with_keys(base_files[arch], str(tmp_path / "k.gguf"), {key: value})
     assert getattr(_zllm_config(path), field) == held
+    if (arch, key) in APPLIED:
+        m = Model.load(path, device="cpu", dtype=torch.float32)
+        assert getattr(m.cfg, field) == held
+        _prefill_matches_zllm(path, m)
+        with pytest.raises(AssertionError):  # the key changes the logits beyond the tolerance
+            _prefill_matches_zllm(path, Model(m.cfg.with_(**{field: "none"}), m.params,
+                                              m.tokenizer, m.device))
+        return
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         Model.load(path, device="cpu", dtype=torch.float32)
+
+
+def _prefill_matches_zllm(path, m):
+    """A 20-token prefill's logits within nmse 1e-5 of zllm's forward."""
+    import jax.numpy as jnp
+
+    from zllm.models.llama import forward as zforward
+    from zllm.models.loader import Model as ZModel
+    from zllm_torch.models.llama import forward
+
+    zm = ZModel.load(path, dtype=jnp.float32)
+    toks = np.arange(3, 23, dtype=np.int32)[None]
+    pos = np.arange(20, dtype=np.int32)[None]
+    want = np.asarray(zforward(zm.params, zm.cfg, jnp.asarray(toks), jnp.asarray(pos), None)[0])
+    got = forward(m.params, m.cfg, torch.from_numpy(toks), torch.from_numpy(pos)).numpy()
+    assert np.mean((got - want) ** 2) <= 1e-5 * np.mean(want ** 2)
 
 
 def test_output_scale_beside_attention_scale_loads(base_files, tmp_path):
@@ -116,9 +145,7 @@ def test_query_pre_attn_scalar_applies(base_files, tmp_path, arch):
     prefill's logits within nmse 1e-5 of zllm's forward."""
     import jax.numpy as jnp
 
-    from zllm.models.llama import forward as zforward
     from zllm.models.loader import Model as ZModel
-    from zllm_torch.models.llama import forward
     from zllm_torch.models.loader import Model
 
     path = _with_keys(base_files[arch], str(tmp_path / "q.gguf"),
@@ -126,8 +153,4 @@ def test_query_pre_attn_scalar_applies(base_files, tmp_path, arch):
     zm = ZModel.load(path, dtype=jnp.float32)
     m = Model.load(path, device="cpu", dtype=torch.float32)
     assert m.cfg.attn_scale == zm.cfg.attn_scale == 0.25
-    toks = np.arange(3, 23, dtype=np.int32)[None]
-    pos = np.arange(20, dtype=np.int32)[None]
-    want = np.asarray(zforward(zm.params, zm.cfg, jnp.asarray(toks), jnp.asarray(pos), None)[0])
-    got = forward(m.params, m.cfg, torch.from_numpy(toks), torch.from_numpy(pos)).numpy()
-    assert np.mean((got - want) ** 2) <= 1e-5 * np.mean(want ** 2)
+    _prefill_matches_zllm(path, m)

@@ -294,16 +294,23 @@ def test_k4_k5_q6k_random_blocks(dev):
                          ids=["f32c", "bf16c", "f16c"])
 @pytest.mark.parametrize("case", ["plain", "qknorm", "softcap", "window", "b2", "d128",
                                   "norm_style", "partial", "trash", "pos0", "bf16q", "qwen3",
-                                  "g6_d128"])
+                                  "g6_d128", "partial_neox", "partial_neox_d64", "g12_d128"])
 def test_k2_matches_plain(dev, case, cdtype):
     """`qwen3`: Qwen3-1.7B's block (16 / 8 heads of 128, per-head q/k
     norms, neox rope); `g6_d128`: Qwen2.5-1.5B's (12 / 2 heads of 128: a
-    group of 6 leaves 2 of a block's 8 query rows idle)."""
+    group of 6 leaves 2 of a block's 8 query rows idle); `partial_neox`:
+    Pythia-1.4B's (16 / 16 heads of 128, neox rope over 32 dims, the other
+    96 passed through); `partial_neox_d64`: StableLM-2-1.6B's (32 / 32
+    heads of 64, neox rope over 16); `g12_d128`: StarCoder2-3B's (24 / 2
+    heads of 128: a group of 12 fills one block of 8 query rows and 4 of a
+    second)."""
     b = 2 if case == "b2" else 1
-    d = 128 if case in ("d128", "qwen3", "g6_d128") else 64
-    hq, hkv, s = {"qwen3": (16, 8), "g6_d128": (12, 2)}.get(case, (32, 4)) + (512,)
+    d = 128 if case in ("d128", "qwen3", "g6_d128", "partial_neox", "g12_d128") else 64
+    hq, hkv, s = {"qwen3": (16, 8), "g6_d128": (12, 2), "partial_neox": (16, 16),
+                  "partial_neox_d64": (32, 32), "g12_d128": (24, 2)}.get(case, (32, 4)) + (512,)
     style = "norm" if case in ("norm_style", "partial") else "neox"
-    rope = tl.RopeParams(dim=32 if case == "partial" else d, style=style)
+    rot = {"partial": 32, "partial_neox": 32, "partial_neox_d64": 16}.get(case, d)
+    rope = tl.RopeParams(dim=rot, style=style)
     pos_vals = {"trash": [s], "pos0": [0], "b2": [5, 400]}.get(case, [331])
     qdtype = torch.bfloat16 if case == "bf16q" else torch.float32
     qkv3 = _randn((b, hq + 2 * hkv, d), 4, dev, qdtype)
@@ -329,17 +336,19 @@ def test_k2_matches_plain(dev, case, cdtype):
 
 @pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16, torch.float16],
                          ids=["f32c", "bf16c", "f16c"])
-@pytest.mark.parametrize("style", ["norm", "neox"])
+@pytest.mark.parametrize("style", ["norm", "neox", "neox_r16"])
 def test_k2_rope_equals_apply_rope(dev, style, cdtype):
     """K2's in-kernel rope of the new k row gives apply_rope's bits (cast to
     the cache dtype), so a mixed step's re-insert of slot pos0 through K2
-    (models/llama.py) leaves a prompt row's slot as kv.update wrote it."""
+    (models/llama.py) leaves a prompt row's slot as kv.update wrote it;
+    `neox_r16`: neox rope over 16 of the 64 dims (StableLM-2's), the other
+    48 inserted as they came."""
     b, hq, hkv, d, s = 4, 32, 4, 64, 2176
     qkv3 = _randn((b, hq + 2 * hkv, d), 13, dev, scale=3.0)
     kc = _randn((b, hkv, s, d), 14, dev, cdtype)
     vc = _randn((b, hkv, s, d), 15, dev, cdtype)
     pos = torch.tensor([0, 256, 300, 2048], dtype=torch.int32, device=dev)
-    rope = tl.RopeParams(dim=d, style=style)
+    rope = tl.RopeParams(dim=16 if style == "neox_r16" else d, style=style[:4])
     ta.attn_decode_qkv(qkv3, kc, vc, pos, tl.rope_table(pos, rope, d), scale=d ** -0.5)
     want = tl.apply_rope(qkv3[:, None, hq:hq + hkv], pos[:, None], rope).to(cdtype)
     torch.cuda.synchronize()
@@ -348,19 +357,20 @@ def test_k2_rope_equals_apply_rope(dev, style, cdtype):
 
 
 K6_SHAPES = {"tinyllama": (32, 4, 64), "olmo2": (16, 16, 128),  # Hq, Hkv, D
-             "qwen25": (12, 2, 128), "qwen3": (16, 8, 128)}
+             "qwen25": (12, 2, 128), "qwen3": (16, 8, 128), "starcoder2": (24, 2, 128)}
 
 
 @pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16, torch.float16],
                          ids=["f32kv", "bf16kv", "f16kv"])
 @pytest.mark.parametrize("case", ["plain", "sinks", "softcap", "window", "base0", "b2",
-                                  "d128", "ragged", "bf16q", "olmo2", "qwen25", "qwen3"])
+                                  "d128", "ragged", "bf16q", "olmo2", "qwen25", "qwen3",
+                                  "starcoder2"])
 def test_k6_matches_plain(dev, case, kvdtype):
     b = 2 if case == "b2" else 1
     d = 128 if case == "d128" else 64
     t = 37 if case == "ragged" else 256
     hq, hkv, s = 32, 4, 1024
-    if case in ("olmo2", "qwen25", "qwen3"):  # OLMo-2-0425-1B: G = 1; Qwen2.5: G = 6
+    if case in K6_SHAPES:  # OLMo-2-0425-1B: G = 1; Qwen2.5: G = 6; StarCoder2-3B: G = 12
         hq, hkv, d = K6_SHAPES[case]
     base = 0 if case == "base0" else 256
     qdtype = torch.bfloat16 if case == "bf16q" else torch.float32
@@ -449,7 +459,7 @@ def _paged_inputs(b, hkv, d, lp, ps, pdtype, dev, seed):
                          ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
 @pytest.mark.parametrize("case", ["chunk", "t1", "window", "softcap", "d128", "ragged",
                                   "g1", "trash_row", "ps64", "ps256", "g16", "idle_first",
-                                  "gen_row", "g6_d128"])
+                                  "gen_row", "g6_d128", "g12_d128"])
 def test_k10_matches_plain(dev, case, qdtype, pdtype):
     """Horizon 1024 slots (ps 64, 128 or 256); bf16 and f16 pools take the
     tensor-core loop, f32 pools the tile loop.  `idle_first`: the engine's
@@ -458,11 +468,13 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
     b, hq, hkv = 3, 32, 4
     ps = {"ps64": 64, "ps256": 256}.get(case, 128)
     lp = 1024 // ps
-    d = 128 if case in ("d128", "g6_d128") else 64
+    d = 128 if case in ("d128", "g6_d128", "g12_d128") else 64
     if case == "g1":
         hq = hkv
     if case == "g6_d128":  # Qwen2.5-1.5B: 12 / 2 heads of 128
         hq, hkv = 12, 2
+    if case == "g12_d128":  # StarCoder2-3B: 24 / 2 heads of 128
+        hq, hkv = 24, 2
     if case == "g16":
         hq = 16 * hkv
     t = {"t1": 1, "ragged": 37}.get(case, 128)
@@ -503,7 +515,7 @@ def test_k10_matches_plain(dev, case, qdtype, pdtype):
                          ids=["f32-f32", "f32-bf16", "bf16-bf16", "f32-f16", "bf16-f16"])
 @pytest.mark.parametrize("case", ["serve", "page_edge", "start", "window", "softcap", "d128",
                                   "g4", "g16", "long", "ps64_window_softcap", "s8320",
-                                  "window_mid", "s20480", "g6_d128"])
+                                  "window_mid", "s20480", "g6_d128", "g12_d128"])
 def test_k9_matches_plain(dev, case, qdtype, pdtype):
     """Positions include a page edge, 0, a mid-page one and a trash row; the
     pools must come out bit-identical outside the trash page 0.  With bf16
@@ -521,11 +533,13 @@ def test_k9_matches_plain(dev, case, qdtype, pdtype):
         lp = 65
     if case == "s20480":
         lp = 160
-    d = 128 if case in ("d128", "g6_d128") else 64
+    d = 128 if case in ("d128", "g6_d128", "g12_d128") else 64
     if case == "g4":
         hq = 16
     if case == "g6_d128":  # Qwen2.5-1.5B: 12 / 2 heads of 128
         hq, hkv = 12, 2
+    if case == "g12_d128":  # StarCoder2-3B: 24 / 2 heads (a group of 12: two chunks of 8)
+        hq, hkv = 24, 2
     if case == "g16":  # a group wider than a block's 8 query rows: two chunks
         hq = 64
     pos_vals = {"page_edge": [127, 128, 255, lp * ps],

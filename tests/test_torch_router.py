@@ -247,26 +247,47 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_python_m_server_models_dir(models_dir):
+# the server's own start-up allowance: the import of torch and the
+# router's first listing run beside the suite's other workers
+STARTUP_S = 300
+
+
+def _start_server(models_dir, log):
+    """`python -m zllm_torch.server --models-dir` on a free port, its stderr
+    written to `log` (a pipe nobody reads fills and stalls the server).
+    Returns (process, port, the listed model ids); a start that loses its
+    port to another process between the probe and the bind is tried again
+    on a new one."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for _ in range(3):
+        port = _free_port()
+        with open(log, "wb") as err:
+            proc = subprocess.Popen([sys.executable, "-m", "zllm_torch.server", "--models-dir",
+                                     str(models_dir), "--models-max", "1", "--replicas", "2",
+                                     "--device", "cpu", "--port", str(port), "--slots", "1",
+                                     "--ctx", "256"], cwd=REPO, env=env,
+                                    stdout=subprocess.DEVNULL, stderr=err)
+        deadline = time.time() + STARTUP_S
+        while proc.poll() is None:
+            try:
+                return proc, port, [m["id"] for m in _get(port, "/v1/models")["data"]]
+            except OSError:
+                if time.time() > deadline:
+                    proc.terminate()
+                    proc.wait(timeout=30)
+                    pytest.fail(f"router did not come up in {STARTUP_S} s: "
+                                f"{log.read_text()[-2000:]}")
+                time.sleep(0.2)
+        if "address already in use" not in log.read_text().lower():
+            break
+    pytest.fail(f"the server exited with {proc.returncode}: {log.read_text()[-2000:]}")
+
+
+def test_python_m_server_models_dir(models_dir, tmp_path):
     """`python -m zllm_torch.server --models-dir DIR --device cpu` runs the
     router."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.Popen([sys.executable, "-m", "zllm_torch.server", "--models-dir",
-                             str(models_dir), "--models-max", "1", "--replicas", "2",
-                             "--device", "cpu", "--port", str(port), "--slots", "1",
-                             "--ctx", "256"], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
-                            stderr=subprocess.PIPE)
+    proc, port, ids = _start_server(models_dir, tmp_path / "server.err")
     try:
-        deadline = time.time() + 90
-        while True:
-            assert proc.poll() is None, proc.stderr.read().decode()
-            try:
-                ids = [m["id"] for m in _get(port, "/v1/models")["data"]]
-                break
-            except OSError:
-                assert time.time() < deadline, "router did not come up"
-                time.sleep(0.2)
         assert ids == ["alpha.gguf", "beta.gguf"]
         out = _post(port, "/v1/completions", {"model": "alpha.gguf", "prompt": "ab",
                                               "max_tokens": 3, "temperature": 0})

@@ -5,7 +5,9 @@ OLMo-2, Qwen2, Qwen3, the Gemma text families: gemma, gemma2 and
 gemma3, with their gelu, sliding windows, rope base of the windowed
 layers and `attention.query_pre_attn_scalar`, and the mixture-of-experts
 files: Mixtral-style llama with `expert_count`, qwen2moe and qwen3moe,
-whose expert keys resolve into `MoeConfig` as zllm resolves them)."""
+whose expert keys resolve into `MoeConfig` as zllm resolves them, and the
+layer-norm families gptneox, stablelm and starcoder2, with their norm
+kind, activation, `use_parallel_residual` and partial rope)."""
 
 from __future__ import annotations
 
@@ -25,13 +27,27 @@ _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 # (sandwich norms), a sliding window on all but every swa_pattern-th
 # layer, and gemma3 Qwen3's per-head q/k norms; qwen2moe and qwen3moe are
 # Qwen2's and Qwen3's attention with a mixture-of-experts FFN (qwen2moe
-# adds a shared expert behind a sigmoid gate)
+# adds a shared expert behind a sigmoid gate); gptneox, stablelm and
+# starcoder2 are the llama block with LayerNorms (weight and bias), neox
+# rope over the first rope.dimension_count dims of a head, biases on the
+# projections (gptneox and starcoder2 on all of them, stablelm on q/k/v)
+# and, gptneox and starcoder2, a non-gated gelu MLP; gptneox files set
+# use_parallel_residual (attention and MLP both read the layer's input)
 SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-                    "qwen3moe")
+                    "qwen3moe", "gptneox", "stablelm", "starcoder2")
 # architectures whose GGUFs carry half-split rope natively (zllm's
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
 NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-                    "qwen3moe")
+                    "qwen3moe", "gptneox", "stablelm", "starcoder2")
+# the architectures whose blocks normalize with LayerNorm (zllm's
+# norm_kind "layer"), and the activation of each architecture's FFN where
+# it is not SwiGLU's silu (zllm's `act`): the tanh-approximate gelu of
+# Gemma's geglu and StarCoder2's MLP, GPT-NeoX's exact (erf) one; the
+# non-gated MLP (ffn_up, ffn_down) belongs to gptneox and starcoder2
+LAYER_NORM_ARCHES = ("gptneox", "stablelm", "starcoder2")
+ACTS = {"gemma": "gelu", "gemma2": "gelu", "gemma3": "gelu", "starcoder2": "gelu",
+        "gptneox": "gelu_exact"}
+NON_GATED_ARCHES = ("gptneox", "starcoder2")
 # the architectures whose files may carry experts (`expert_count` > 0), and
 # zllm's default of expert_weights_norm for each (llama: Mixtral)
 MOE_ARCHES = {"llama": True, "qwen2moe": False, "qwen3moe": True}
@@ -47,7 +63,6 @@ _UNPORTED_OPTIONS = {
     "embedding_scale": lambda v: float(v) == 1.0,
     "residual_scale": lambda v: float(v) == 1.0,
     "attention.clamp_kqv": lambda v: not float(v or 0.0),
-    "use_parallel_residual": lambda v: not bool(v),
     "swin_norm": lambda v: not bool(v),
     "attention.max_alibi_bias": lambda v: not float(v or 0.0),
 }
@@ -160,8 +175,15 @@ class ModelConfig:
     rope_swa: RopeParams | None = None
     sliding_window: int = 0
     swa_pattern: int = 1
-    # the gated FFN's activation: "silu" (SwiGLU) or "gelu" (Gemma's geglu)
+    # the FFN's activation (`ACTS`): "silu" (SwiGLU), "gelu" (tanh-approximate:
+    # Gemma's geglu, StarCoder2's MLP) or "gelu_exact" (GPT-NeoX's MLP)
     act: str = "silu"
+    # the blocks' norms: "rms" or "layer" (LayerNorm, `LAYER_NORM_ARCHES`)
+    norm_kind: str = "rms"
+    # "separate": attention and FFN both read the layer's input, each
+    # through its own norm, and add into one residual (use_parallel_residual,
+    # zllm's "separate"); "none": one after the other
+    parallel_residual: str = "none"
     # the file has no output.weight: the head is the token embedding (set
     # by the loader)
     tie_embedding: bool = False
@@ -205,6 +227,11 @@ class ModelConfig:
             return f.metadata.get(f"{arch}.{suffix}", default)
 
         _refuse_unported(kv)
+        parallel = bool(kv("use_parallel_residual", False))
+        if parallel and arch == "olmo2":
+            raise NotImplementedError(f"use_parallel_residual={parallel!r} on olmo2 is not in "
+                                      f"zllm_torch yet ({_OPTIONS_ITEM}: the port runs OLMo-2's "
+                                      "own block)")
         n_heads = int(kv("attention.head_count", 1) or 1)
         n_embd = int(kv("embedding_length"))
         head_dim = int(kv("attention.key_length", n_embd // n_heads) or 1)
@@ -275,7 +302,9 @@ class ModelConfig:
             rope_swa=rope_swa,
             sliding_window=window,
             swa_pattern=swa_pattern,
-            act="gelu" if arch.startswith("gemma") else "silu",
+            act=ACTS.get(arch, "silu"),
+            norm_kind="layer" if arch in LAYER_NORM_ARCHES else "rms",
+            parallel_residual="separate" if parallel else "none",
         )
 
     def with_(self, **kw) -> "ModelConfig":

@@ -72,6 +72,22 @@ attends through `ring_mask` with the plain `attention_ref`, as zllm does
 (no kernel reads the ring), column 0 of a T>1 step once more at T=1 as
 on the other paths; its full layers are ordinary stripes (K2, K6).
 
+The layer-norm families (gptneox, stablelm, starcoder2; `cfg.norm_kind ==
+"layer"`) run the llama block with LayerNorms (`block_norm`: weight and
+bias, at the pre-norms and the final norm), wo's bias where the file has
+one, and, gptneox and starcoder2, the non-gated MLP: ffn_up (+ its bias),
+the gelu of the f32 values (GPT-NeoX's exact one, StarCoder2's tanh one),
+ffn_down (+ its bias); StableLM keeps the gated SwiGLU.  Their rope turns
+the first rope.dimension_count dims of a head (neox halves; Pythia 32 of
+128, StableLM-2 16 of 64), the rest pass through, in K2's table and in
+`apply_rope` alike.  `cfg.parallel_residual == "separate"` (GPT-NeoX's
+use_parallel_residual) feeds the FFN the layer's input through ffn_norm
+and sums x + attention + FFN in that order.  As in zllm, the decode
+fusions that carry K1's RMS prologue are off for them: no norm->wqkv
+matvec (RMS norms only, not with a parallel residual), no norm->gate|up
+and glu->down (RMS norms and SwiGLU only), no norm->head; each projection
+is K1 or K4 unfused.
+
 OLMo-2 (`cfg.arch == "olmo2"`, `_olmo2_layer`) has no pre-norms: the
 projections read the raw residual stream through `linear` (at T=1, B=1
 that is K1 with fuse="q"; zllm's fused-norm fast paths need the pre-norms),
@@ -102,7 +118,8 @@ from ..ops.attention import (
     attn_decode_qkv, attn_decode_update, flash_attention, flash_attention_blockwise,
     paged_attention, paged_attn_decode_update,
 )
-from ..ops.layers import apply_rope, attention_ref, geglu, rms_norm, rope_table, swiglu
+from ..ops.layers import (apply_rope, attention_ref, geglu, gelu, layer_norm, rms_norm,
+                          rope_table, swiglu)
 from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
 from ..quant.repack import QWeight, QWeightE
 from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, ring_mask
@@ -129,6 +146,15 @@ def _ring(kv, il: int) -> int:
 def _act(cfg):
     """The gated FFN's activation: SwiGLU, or Gemma's geglu."""
     return geglu if getattr(cfg, "act", "silu") == "gelu" else swiglu
+
+
+def block_norm(x: torch.Tensor, params: dict, key: str, cfg) -> torch.Tensor:
+    """The norm `params[key]` of x by the config's norm kind (zllm's
+    `block_norm`): a LayerNorm with the bias `params[key + "_b"]` where
+    the file has one, else an RMS norm."""
+    if getattr(cfg, "norm_kind", "rms") == "layer":
+        return layer_norm(x, params[key], params.get(key + "_b"), cfg.norm_eps)
+    return rms_norm(x, params[key], cfg.norm_eps)
 
 
 def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
@@ -367,16 +393,34 @@ moe_ffn.routing = None
 
 def _ffn_core(layer: dict, h: torch.Tensor, taps: dict | None = None,
               tapname: str = "", act=swiglu, cfg=None) -> torch.Tensor:
+    """The FFN of the normed h: the experts (`moe_ffn`), the gated act(gate,
+    up) -> down (gate|up fused, or apart where their formats differ), or
+    the non-gated up (+ ffn_up_b) -> gelu -> down (+ ffn_down_b) of gptneox
+    and starcoder2; tested in zllm's `_ffn_core` order."""
     if taps is not None:
         taps[f"{tapname}.ffn_gate.weight"] = h
     if cfg is not None and cfg.moe is not None and "ffn_gate_inp" in layer:
         return moe_ffn(layer, cfg, h)  # zllm taps no expert's input
-    gup = linear(h, layer["ffn_gateup"])
-    half = gup.shape[-1] // 2
-    gu = act(gup[..., :half], gup[..., half:])
+    if "ffn_gateup" in layer or "ffn_gate" in layer:
+        gu = _gate_up(layer, "ffn_gateup", "ffn_gate", "ffn_up", lambda w: linear(h, w), act)
+    else:
+        gu = gelu(linear(h, layer["ffn_up"], layer.get("ffn_up_b")),
+                  exact=cfg.act == "gelu_exact")
     if taps is not None:
         taps[f"{tapname}.ffn_down.weight"] = gu
-    return linear(gu, layer["ffn_down"])
+    ff = linear(gu, layer["ffn_down"])
+    if "ffn_down_b" in layer:
+        ff = ff + layer["ffn_down_b"].to(ff.dtype)
+    return ff
+
+
+def _wo(layer: dict, att: torch.Tensor) -> torch.Tensor:
+    """The attention output projection, plus its bias bo where the file
+    has one (added in the product's dtype, as zllm adds it)."""
+    o = linear(att, layer["wo"])
+    if "bo" in layer:
+        o = o + layer["bo"].to(o.dtype)
+    return o
 
 
 def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
@@ -396,7 +440,7 @@ def _olmo2_layer(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor, kv,
     att = _attend(q, k, v, kv, il, positions, cfg, scale, **attend).reshape(b, t, -1)
     if taps is not None:
         taps[f"{tapname}.attn_output.weight"] = att
-    x = x + rms_norm(linear(att, layer["wo"]), layer["attn_post_norm"], cfg.norm_eps)
+    x = x + rms_norm(_wo(layer, att), layer["attn_post_norm"], cfg.norm_eps)
     x = x + rms_norm(_ffn_core(layer, x, taps, tapname), layer["ffn_post_norm"], cfg.norm_eps)
     if taps is not None:
         taps[f"{tapname}.l_out"] = x
@@ -422,16 +466,19 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     b, t = x.shape[:2]
     scale = cfg.attn_scale if cfg.attn_scale else 1.0 / (cfg.head_dim ** 0.5)
     tapname = f"blk.{il}"
-    fused = t == 1 and b == 1 and taps is None
+    parallel = getattr(cfg, "parallel_residual", "none") != "none"
+    # K1's prologue is an RMS norm: the fused decode paths are the RMS blocks'
+    fused = (t == 1 and b == 1 and taps is None
+             and getattr(cfg, "norm_kind", "rms") == "rms")
 
     qkv = None
-    if "wqkv" in layer and fused:  # decode: norm fused into the qkv matvec
+    if "wqkv" in layer and fused and not parallel:  # decode: norm fused into the qkv matvec
         qkv = fused_norm_linear(x.reshape(1, -1), layer["attn_norm"], cfg.norm_eps,
                                 layer["wqkv"])
         if qkv is not None and "bqkv" in layer:
             qkv = qkv + layer["bqkv"].to(qkv.dtype)
     if qkv is None:
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        h = block_norm(x, layer, "attn_norm", cfg)
         if taps is not None:
             taps[f"{tapname}.attn_q.weight"] = h
         qkv = _projections(layer, h)
@@ -482,15 +529,19 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     att = att.reshape(b, t, -1)
     if taps is not None:
         taps[f"{tapname}.attn_output.weight"] = att
-    o = linear(att, layer["wo"])
+    o = _wo(layer, att)
     if "attn_post_norm" in layer:  # Gemma-2/3's sandwich norm
         o = rms_norm(o, layer["attn_post_norm"], cfg.norm_eps)
+    act = _act(cfg)
+    if parallel:  # the FFN reads the layer's input: x + attention + FFN, in that order
+        ff = _ffn_core(layer, block_norm(x, layer, "ffn_norm", cfg), taps, tapname, act, cfg)
+        return x + o + ff
     x = x + o
 
-    act = _act(cfg)
     ff = None
-    if fused and act is swiglu and "ffn_gate_inp" not in layer:
-        # decode: norm -> gate|up and swiglu -> down fused (not an MoE layer)
+    if fused and act is swiglu and "ffn_gateup" in layer:
+        # decode: norm -> gate|up and swiglu -> down fused (not an MoE layer,
+        # nor gate and up apart)
         gup = fused_norm_linear(x.reshape(1, -1), layer["ffn_norm"], cfg.norm_eps,
                                 layer["ffn_gateup"])
         if gup is not None:
@@ -501,8 +552,7 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                             layer["ffn_down"])
             ff = ff.reshape(b, t, -1)
     if ff is None:
-        ff = _ffn_core(layer, rms_norm(x, layer["ffn_norm"], cfg.norm_eps), taps, tapname, act,
-                       cfg)
+        ff = _ffn_core(layer, block_norm(x, layer, "ffn_norm", cfg), taps, tapname, act, cfg)
     if "ffn_post_norm" in layer:
         ff = rms_norm(ff, layer["ffn_post_norm"], cfg.norm_eps)
     x = x + ff
@@ -586,13 +636,14 @@ def forward(params: dict, cfg, tokens: torch.Tensor, positions: torch.Tensor,
                           kv_positions=kv_positions, verify=verify)
 
     logits = None
-    if logits_for == "last" and x.shape[0] == 1 and taps is None:  # norm fused into the head
+    if (logits_for == "last" and x.shape[0] == 1 and taps is None
+            and getattr(cfg, "norm_kind", "rms") == "rms"):  # norm fused into the head
         logits = fused_norm_linear(x[:, -1].reshape(1, -1), params["out_norm"], cfg.norm_eps,
                                    params["output"])
         if logits is not None:
             logits = logits.reshape(1, 1, -1).float()
     if logits is None:
-        x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+        x = block_norm(x, params, "out_norm", cfg)
         if taps is not None:
             taps["hidden"] = x
         if logits_for == "last":

@@ -24,6 +24,15 @@ expert's rows repacked as a 2-D weight's) or, from F32, F16 or BF16, dense
 [E, K, N] in the model dtype, as zllm keeps them; qwen2moe adds the shared
 expert ffn_{gate,up,down}_shexp and its gate ffn_gate_inp_shexp ([K, 1];
 llama.cpp writes it 1-D, zllm's converter [1, K]).
+The layer-norm families (gptneox, stablelm, starcoder2) add the norms'
+biases attn_norm_b, ffn_norm_b and out_norm_b (f32, as their weights);
+gptneox and starcoder2 the non-gated MLP ffn_up, ffn_down with its biases
+ffn_up_b, ffn_down_b, and wo's bias bo; the q/k/v biases of gptneox,
+stablelm and starcoder2 come as Qwen2's (bq, bk, bv), or, where llama.cpp
+writes GPT-NeoX's fused attn_qkv weight and bias, split at q_dim and kv_dim
+into wq, wk, wv and bq, bk, bv (quantized rows are whole blocks, so the
+split is exact), as zllm's loader splits the weight (zllm leaves the bias
+unmapped; the port loads it).
 A Llama-3 file's rope_freqs.weight is kept as `rope_freqs` and not read:
 zllm takes llama3 rope scaling from the metadata alone.  At load, as
 `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
@@ -49,7 +58,7 @@ from ..quant.repack import (WEIGHT_CLASSES, Q5Weight, Q6KWeight, QWeight, QWeigh
                             concat_n, from_planes, pack_crumbs, pack_nibbles, pad_n, repack,
                             repack_experts)
 from ..tokenizer import Tokenizer
-from .config import ModelConfig
+from .config import NON_GATED_ARCHES, ModelConfig
 
 # GGUF tensor suffix -> params key, per layer (the llama, Qwen2/3, OLMo-2
 # and Gemma blocks; llama.cpp writes OLMo-2's and Gemma-2/3's post-norms as
@@ -61,6 +70,8 @@ _LAYER_MAP = {
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_output.weight": "wo",
+    "attn_output.bias": "bo",
+    "attn_norm.bias": "attn_norm_b",
     "attn_q.bias": "bq",
     "attn_k.bias": "bk",
     "attn_v.bias": "bv",
@@ -69,9 +80,12 @@ _LAYER_MAP = {
     "attn_post_norm.weight": "attn_post_norm",
     "post_attention_norm.weight": "attn_post_norm",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_up.bias": "ffn_up_b",
+    "ffn_down.bias": "ffn_down_b",
     "ffn_post_norm.weight": "ffn_post_norm",
     "post_ffw_norm.weight": "ffn_post_norm",
     "ffn_gate_inp.weight": "ffn_gate_inp",
@@ -83,6 +97,8 @@ _LAYER_MAP = {
     "ffn_down_shexp.weight": "ffn_down_shexp",
     "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
 }
+# GPT-NeoX's fused q|k|v rows (llama.cpp's converter; split at load)
+_FUSED_QKV = ("attn_qkv.weight", "attn_qkv.bias")
 # the expert stacks (3-D: GGUF [E, N, K])
 EXPERT_KEYS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # each architecture's norm vectors: a layer holds exactly these (Qwen3's
@@ -97,9 +113,16 @@ ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
               "gemma3": {"attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm",
                          "attn_q_norm", "attn_k_norm"},
               "qwen2moe": {"attn_norm", "ffn_norm"},
-              "qwen3moe": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"}}
+              "qwen3moe": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"},
+              "gptneox": {"attn_norm", "ffn_norm"},
+              "stablelm": {"attn_norm", "ffn_norm"},
+              "starcoder2": {"attn_norm", "ffn_norm"}}
 _BIAS_KEYS = ("bq", "bk", "bv")
-_VECTOR_KEYS = ({"out_norm", "rope_freqs", "bqkv", *_BIAS_KEYS}
+# the LayerNorms' biases (each beside its weight) and the other
+# projections' (wo; the non-gated MLP's up and down)
+_NORM_BIAS_KEYS = ("attn_norm_b", "ffn_norm_b")
+_OTHER_BIAS_KEYS = ("bo", "ffn_up_b", "ffn_down_b", *_NORM_BIAS_KEYS)
+_VECTOR_KEYS = ({"out_norm", "out_norm_b", "rope_freqs", "bqkv", *_BIAS_KEYS, *_OTHER_BIAS_KEYS}
                 | set().union(*ARCH_NORMS.values()))
 
 
@@ -119,18 +142,36 @@ def _load_dense(f: GGUFFile, name: str, dtype, device) -> torch.Tensor:
     return torch.from_numpy(f.tensor_f32(name)).to(device=device, dtype=dtype)
 
 
-def _load_matmul(f: GGUFFile, name: str, dtype, device):
+def _load_matmul(f: GGUFFile, name: str, dtype, device, rows: tuple[int, int] | None = None):
     """2-D weight: GGUF [N, K] row-major -> QWeight (a format of
-    WEIGHT_CLASSES) or dense [K, N] in the model dtype (F32, F16, BF16)."""
+    WEIGHT_CLASSES) or dense [K, N] in the model dtype (F32, F16, BF16);
+    `rows` (lo, hi): those output rows alone."""
     meta = f.tensors[name]
     if len(meta.shape) != 2:
         raise ValueError(f"{name}: matmul weight must be 2-D, got {meta.shape}")
+    lo, hi = rows or (0, meta.shape[0])
     if meta.gtype in WEIGHT_CLASSES:
-        return repack(f.tensor_bytes(name), meta.shape, meta.gtype, device)
+        return repack(f.tensor_bytes(name)[lo:hi], (hi - lo, meta.shape[1]), meta.gtype, device)
     if meta.gtype not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
         raise NotImplementedError(f"{name}: {meta.gtype.name} weights are not in zllm_torch yet")
-    x = np.ascontiguousarray(f.tensor_f32(name).T)
+    x = np.ascontiguousarray(f.tensor_f32(name)[lo:hi].T)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def _split_qkv(f: GGUFFile, name: str, cfg: ModelConfig, dtype, device) -> dict:
+    """A fused attn_qkv weight or bias (q rows, then k, then v) -> wq, wk, wv
+    or bq, bk, bv, cut at q_dim and kv_dim."""
+    qd, kvd = cfg.q_dim, cfg.kv_dim
+    bounds = ((0, qd), (qd, qd + kvd), (qd + kvd, qd + 2 * kvd))
+    if f.tensors[name].shape[0] != qd + 2 * kvd:
+        raise ValueError(f"{name}: {f.tensors[name].shape[0]} rows, not q_dim + 2 kv_dim = "
+                         f"{qd + 2 * kvd}")
+    if name.endswith(".bias"):
+        x = f.tensor_f32(name)
+        return {key: torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(device)
+                for key, (lo, hi) in zip(_BIAS_KEYS, bounds)}
+    return {key: _load_matmul(f, name, dtype, device, rows)
+            for key, rows in zip(("wq", "wk", "wv"), bounds)}
 
 
 def _load_experts(f: GGUFFile, name: str, dtype, device):
@@ -149,15 +190,26 @@ def _load_experts(f: GGUFFile, name: str, dtype, device):
 
 def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
     params: dict = {"layers": [dict() for _ in range(cfg.n_layers)]}
+    if cfg.arch == "stablelm" and any(n.endswith(("attn_q_norm.weight", "attn_k_norm.weight"))
+                                      for n in f.tensors):
+        # zllm runs these [n_head, head_dim] weights as per-head RMS norms,
+        # where the model (StableLM-2-12B) applies per-head LayerNorms
+        raise NotImplementedError("StableLM-2-12B's per-head q/k LayerNorms are not in "
+                                  "zllm_torch yet (ROADMAP queue 1 item 8)")
     for name in f.tensors:
         if name == "token_embd.weight":
             params["tok_emb"] = _load_dense(f, name, dtype, device)
         elif name == "output_norm.weight":
             params["out_norm"] = _load_dense(f, name, torch.float32, device)
+        elif name == "output_norm.bias":
+            params["out_norm_b"] = _load_dense(f, name, torch.float32, device)
         elif name == "output.weight":
             params["output"] = _load_matmul(f, name, dtype, device)
         elif name == "rope_freqs.weight":  # loaded and not read, as zllm does
             params["rope_freqs"] = _load_dense(f, name, torch.float32, device)
+        elif name.startswith("blk.") and name.split(".", 2)[2] in _FUSED_QKV:
+            params["layers"][int(name.split(".")[1])].update(
+                _split_qkv(f, name, cfg, dtype, device))
         elif name.startswith("blk.") and name.split(".", 2)[2] in _LAYER_MAP:
             _, il, suffix = name.split(".", 2)
             key = _LAYER_MAP[suffix]
@@ -174,8 +226,12 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             raise NotImplementedError(f"tensor {name} is not part of the {cfg.arch} block")
     qk_norm_len = {"qwen3": (cfg.head_dim, cfg.head_dim), "gemma3": (cfg.head_dim, cfg.head_dim),
                    "qwen3moe": (cfg.head_dim, cfg.head_dim), "olmo2": (cfg.q_dim, cfg.kv_dim)}
+    layer_norm = cfg.norm_kind == "layer"
+    if "out_norm_b" in params and not layer_norm:
+        raise NotImplementedError(f"output_norm.bias on {cfg.arch}: its RMS norm has no bias")
     for il, layer in enumerate(params["layers"]):
-        norms = {key for key in layer if key in _VECTOR_KEYS and key not in _BIAS_KEYS}
+        norms = {key for key in layer if key in _VECTOR_KEYS
+                 and key not in _BIAS_KEYS + _OTHER_BIAS_KEYS}
         if norms != ARCH_NORMS[cfg.arch]:
             raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the norms "
                                       f"{sorted(norms)}, not {sorted(ARCH_NORMS[cfg.arch])}")
@@ -187,6 +243,10 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
         biases = [key for key in _BIAS_KEYS if key in layer]
         if biases and len(biases) != len(_BIAS_KEYS):
             raise NotImplementedError(f"layer {il} has the biases {biases}, not bq, bk and bv")
+        for key in _NORM_BIAS_KEYS:  # a LayerNorm's bias, beside its weight
+            if key in layer and not (layer_norm and key[:-2] in layer):
+                raise NotImplementedError(f"layer {il} of a {cfg.arch} file has {key}: its "
+                                          f"{cfg.norm_kind} norm takes no bias there")
         _check_ffn(layer, il, cfg)
     if "output" not in params:  # tied embedding
         params["output"] = params["tok_emb"].float().t().contiguous().to(dtype)
@@ -197,10 +257,17 @@ _SHARED_KEYS = ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp")
 
 
 def _check_ffn(layer: dict, il: int, cfg: ModelConfig):
-    """A layer's FFN is dense (gate, up, down) or, in a file with experts,
-    the router and the three stacks, with the shared expert whole or
-    absent; anything else is refused rather than run as another model."""
+    """A layer's FFN is dense (gate, up, down; on gptneox and starcoder2
+    the non-gated up and down, each with or without its bias) or, in a file
+    with experts, the router and the three stacks, with the shared expert
+    whole or absent; anything else is refused rather than run as another
+    model."""
     dense = [key for key in ("ffn_gate", "ffn_up", "ffn_down") if key in layer]
+    gated = cfg.arch not in NON_GATED_ARCHES
+    for key in ("ffn_up_b", "ffn_down_b"):
+        if key in layer and (gated or key[:-2] not in layer):
+            raise NotImplementedError(f"layer {il} has {key}: the port takes the FFN biases of "
+                                      f"the non-gated MLP ({', '.join(NON_GATED_ARCHES)})")
     moe = [key for key in ("ffn_gate_inp", *EXPERT_KEYS) if key in layer]
     shared = [key for key in _SHARED_KEYS if key in layer]
     if moe:
@@ -214,6 +281,10 @@ def _check_ffn(layer: dict, il: int, cfg: ModelConfig):
                                       f"{cfg.moe.n_experts}")
         if shared and len(shared) != len(_SHARED_KEYS):
             raise NotImplementedError(f"layer {il} has the shared-expert tensors {shared}")
+    elif not gated:
+        if dense != ["ffn_up", "ffn_down"] or shared:
+            raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the FFN tensors "
+                                      f"{sorted(dense + shared)}, not ffn_up and ffn_down")
     elif len(dense) != 3 or shared or "ffn_gate_inp_shexp" in layer:
         raise NotImplementedError(f"layer {il} has the FFN tensors {sorted(dense + shared)}, "
                                   "not ffn_gate, ffn_up and ffn_down")

@@ -26,6 +26,23 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+               eps: float) -> torch.Tensor:
+    """(x - mu) * rsqrt(var + eps) * weight (+ bias) in f32, cast back to
+    x's dtype (zllm's `layer_norm`).  The mean and the two-pass variance
+    (the mean of (x - mu)^2) are summed in f64 and rounded to f32, as
+    `rms_norm` sums its mean, so a row's bits do not depend on the rows
+    beside it."""
+    xf = x.float()
+    x64 = xf.double()
+    mu64 = torch.mean(x64, dim=-1, keepdim=True)
+    var = torch.mean((x64 - mu64).square(), dim=-1, keepdim=True).float()
+    out = (xf - mu64.float()) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 class RopeParams(NamedTuple):
     """Static rotary-embedding configuration (ggml rope NORM/NEOX modes with
     linear / yarn / llama3 frequency scaling)."""
@@ -209,3 +226,10 @@ def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """Gemma's gated FFN: the tanh-approximate gelu of the f32 gate, rounded
     to the gate's dtype, times up (zllm's `geglu`)."""
     return F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The non-gated MLP's activation: the gelu of the f32 values, exact
+    (erf: GPT-NeoX) or tanh-approximate (StarCoder2), rounded to x's dtype
+    (zllm's `jax.nn.gelu` in `_ffn_core`)."""
+    return F.gelu(x.float(), approximate="none" if exact else "tanh").to(x.dtype)

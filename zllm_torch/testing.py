@@ -27,6 +27,17 @@ zllm's loader reads:
     the keys `sliding_window`, `query_pre_attn_scalar`, `attn_softcap`,
     `final_softcap` and `rope_base_swa` set when given, and `rope_scale`
     as linear rope scaling (Gemma-3's full layers);
+  * `arch="gptneox"`, `"stablelm"`, `"starcoder2"`: what llama.cpp's
+    converter writes for GPT-NeoX (Pythia), StableLM-2 and StarCoder2,
+    which zllm's loader reads: LayerNorms (attn_norm, ffn_norm and
+    output_norm, each weight with its bias) and `attention.layer_norm_epsilon`;
+    gptneox the fused attn_qkv weight and bias (q rows, then k, then v),
+    attn_output.bias, the non-gated ffn_up and ffn_down with their biases
+    and `use_parallel_residual` (True unless `parallel_residual` says
+    otherwise); stablelm the q/k/v biases and the gated FFN; starcoder2
+    the q/k/v and attn_output biases and gptneox's MLP; `rope_dim`
+    (rope.dimension_count) the rotated dims of a head (partial rope);
+    `parallel_residual` writes `use_parallel_residual` on any arch;
   * `head_dim` (q_dim may differ from n_embd), `tied=True` (no
     output.weight), `rope_freqs=True` (Llama-3.1's rope_freqs.weight and
     its llama3 rope-scaling metadata);
@@ -54,13 +65,14 @@ import numpy as np
 
 from .gguf.constants import GGMLType
 from .gguf.writer import GGUFWriter
+from .models.config import LAYER_NORM_ARCHES, NON_GATED_ARCHES
 from .quant import blocks as qb
 from .quantize import FTYPES, pick_type
 from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
 from .tokenizer.vocab import Vocab
 
 ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-          "qwen3moe")
+          "qwen3moe", "gptneox", "stablelm", "starcoder2")
 # expert stacks of more elements than this are tiled from one encoded
 # block of rows (see `_expert_stack`); smaller ones are drawn whole, as
 # zllm's factory draws them
@@ -270,10 +282,15 @@ def make_llama_gguf(
     rope_base_swa: float | None = None,
     rope_scale: float = 1.0,
     n_ff_shexp: int = 0,
+    rope_dim: int | None = None,
+    parallel_residual: bool | None = None,
 ) -> str:
     if arch not in ARCHES:
         raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
     olmo2 = arch == "olmo2"
+    layer_norm = arch in LAYER_NORM_ARCHES
+    if parallel_residual is None and arch == "gptneox":
+        parallel_residual = True
     gemma = arch.startswith("gemma")
     tied = tied or gemma
     rng = np.random.default_rng(seed)
@@ -292,10 +309,12 @@ def make_llama_gguf(
     w.add(f"{arch}.attention.head_count_kv", n_kv_heads)
     w.add(f"{arch}.attention.key_length", head_dim)
     w.add(f"{arch}.attention.value_length", head_dim)
-    w.add(f"{arch}.attention.layer_norm_rms_epsilon", norm_eps)
+    w.add(f"{arch}.attention.layer_norm{'' if layer_norm else '_rms'}_epsilon", norm_eps)
     w.add(f"{arch}.rope.freq_base", rope_base)
-    w.add(f"{arch}.rope.dimension_count", head_dim)
+    w.add(f"{arch}.rope.dimension_count", rope_dim or head_dim)
     w.add(f"{arch}.vocab_size", vocab_size)
+    if parallel_residual is not None:
+        w.add(f"{arch}.use_parallel_residual", bool(parallel_residual))
     if n_experts:
         w.add(f"{arch}.expert_count", n_experts)
         w.add(f"{arch}.expert_used_count", n_experts_used)
@@ -344,18 +363,20 @@ def make_llama_gguf(
         w.add("tokenizer.ggml.add_bos_token", True)
         w.add("tokenizer.ggml.add_space_prefix", False)
 
-    def emit(name: str, shape, scale=0.02, force_f32=False):
+    def tensor_type(name: str, shape, force_f32=False) -> GGMLType:
         t = GGMLType.F32 if force_f32 else gtype
         if ftype is not None and not force_f32:
             il = int(name.split(".")[1]) if name.startswith("blk.") else 0
             t = pick_type(name, shape, il, n_layers, FTYPES[ftype])
         blk, _ = qb.GGML_BLOCK_SIZES[t]
-        if shape[-1] % blk != 0:
-            t = GGMLType.F32
+        return GGMLType.F32 if shape[-1] % blk != 0 else t
+
+    def draw(shape, scale, t: GGMLType) -> np.ndarray:
+        """Random rows of `shape` in type t: f32 values, or the encoded
+        rows (uint8 [rows, row bytes])."""
+        blk, _ = qb.GGML_BLOCK_SIZES[t]
         if t in IQ_GRID_TYPES:
-            raw = random_iq_blocks(t, math.prod(shape) // blk, rng, scale)
-            w.add_tensor(name, raw.reshape(shape[0], -1), logical_shape=shape, gtype=t)
-            return
+            return random_iq_blocks(t, math.prod(shape) // blk, rng, scale).reshape(shape[0], -1)
         # this image's numpy RNG runs at only ~2M elem/s, so big tensors are
         # synthesized by quantizing one random row-block and tiling the
         # encoded bytes — valid blocks, near-free, fine for perf/shape work
@@ -363,19 +384,21 @@ def make_llama_gguf(
         if len(shape) == 2 and rows > 512:
             base_rows = 256
             x = (rng.standard_normal((base_rows, shape[1]), dtype=np.float32) * scale)
-            if t == GGMLType.F32:
-                data = np.tile(x, (rows // base_rows + 1, 1))[:rows]
-                w.add_tensor(name, np.ascontiguousarray(data))
-            else:
-                raw = qb.quantize(x, t)
-                data = np.tile(raw, (rows // base_rows + 1, 1))[:rows]
-                w.add_tensor(name, np.ascontiguousarray(data), logical_shape=shape, gtype=t)
-            return
+            base = x if t == GGMLType.F32 else qb.quantize(x, t)
+            return np.ascontiguousarray(np.tile(base, (rows // base_rows + 1, 1))[:rows])
         x = (rng.standard_normal(shape, dtype=np.float32) * scale)
+        return x if t == GGMLType.F32 else qb.quantize(x, t)
+
+    def emit(name: str, shape, scale=0.02, force_f32=False, parts=None):
+        """One tensor of `shape`; `parts` (row counts): its rows drawn part
+        by part and joined (a fused projection whose parts differ)."""
+        t = tensor_type(name, shape, force_f32)
+        data = np.concatenate([draw((n, *shape[1:]), scale, t) for n in parts]) if parts \
+            else draw(shape, scale, t)
         if t == GGMLType.F32:
-            w.add_tensor(name, x)
+            w.add_tensor(name, data)
         else:
-            w.add_tensor(name, qb.quantize(x, t), logical_shape=x.shape, gtype=t)
+            w.add_tensor(name, data, logical_shape=tuple(shape), gtype=t)
 
     emit("token_embd.weight", (vocab_size, n_embd))
     if rope_freqs:
@@ -384,10 +407,17 @@ def make_llama_gguf(
         o = f"blk.{il}."
         if not olmo2:
             emit(o + "attn_norm.weight", (n_embd,), 1.0, force_f32=True)
-        emit(o + "attn_q.weight", (q_dim, n_embd))
-        emit(o + "attn_k.weight", (kv_dim, n_embd))
-        emit(o + "attn_v.weight", (kv_dim, n_embd))
-        if arch in ("qwen2", "qwen2moe"):
+        if layer_norm:
+            emit(o + "attn_norm.bias", (n_embd,), 0.1, force_f32=True)
+        if arch == "gptneox":  # llama.cpp's fused q|k|v rows and their bias
+            qkv = (q_dim + 2 * kv_dim, n_embd)
+            emit(o + "attn_qkv.weight", qkv, parts=(q_dim, kv_dim, kv_dim))
+            emit(o + "attn_qkv.bias", qkv[:1], 0.5, force_f32=True)
+        else:
+            emit(o + "attn_q.weight", (q_dim, n_embd))
+            emit(o + "attn_k.weight", (kv_dim, n_embd))
+            emit(o + "attn_v.weight", (kv_dim, n_embd))
+        if arch in ("qwen2", "qwen2moe", "stablelm", "starcoder2"):
             emit(o + "attn_q.bias", (q_dim,), 0.5, force_f32=True)
             emit(o + "attn_k.bias", (kv_dim,), 0.5, force_f32=True)
             emit(o + "attn_v.bias", (kv_dim,), 0.5, force_f32=True)
@@ -395,6 +425,8 @@ def make_llama_gguf(
             emit(o + "attn_q_norm.weight", (head_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (head_dim,), 1.0, force_f32=True)
         emit(o + "attn_output.weight", (n_embd, q_dim))
+        if arch in NON_GATED_ARCHES:
+            emit(o + "attn_output.bias", (n_embd,), 0.1, force_f32=True)
         if olmo2:
             emit(o + "attn_q_norm.weight", (q_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (kv_dim,), 1.0, force_f32=True)
@@ -403,7 +435,14 @@ def make_llama_gguf(
             if arch in ("gemma2", "gemma3"):
                 emit(o + "attn_post_norm.weight", (n_embd,), 1.0, force_f32=True)
             emit(o + "ffn_norm.weight", (n_embd,), 1.0, force_f32=True)
-        if n_experts:
+        if layer_norm:
+            emit(o + "ffn_norm.bias", (n_embd,), 0.1, force_f32=True)
+        if arch in NON_GATED_ARCHES:  # up -> gelu -> down, with biases
+            emit(o + "ffn_up.weight", (n_ff, n_embd))
+            emit(o + "ffn_up.bias", (n_ff,), 0.1, force_f32=True)
+            emit(o + "ffn_down.weight", (n_embd, n_ff))
+            emit(o + "ffn_down.bias", (n_embd,), 0.1, force_f32=True)
+        elif n_experts:
             emit(o + "ffn_gate_inp.weight", (n_experts, n_embd), force_f32=True)
             for stack, shp in (
                 ("ffn_gate_exps", (n_ff, n_embd)),
@@ -431,6 +470,8 @@ def make_llama_gguf(
         if arch in ("gemma2", "gemma3"):
             emit(o + "ffn_post_norm.weight", (n_embd,), 1.0, force_f32=True)
     emit("output_norm.weight", (n_embd,), 1.0, force_f32=True)
+    if layer_norm:
+        emit("output_norm.bias", (n_embd,), 0.1, force_f32=True)
     if not tied:
         emit("output.weight", (vocab_size, n_embd))
     w.write()
@@ -558,4 +599,38 @@ QWEN15_MOE_A27B_SHAPE = dict(
     arch="qwen2moe", n_layers=24, n_embd=2048, n_heads=16, n_kv_heads=16, head_dim=128,
     n_ff=1408, n_experts=60, n_experts_used=4, n_ff_shexp=5632, vocab_size=151936,
     rope_base=1e6, norm_eps=1e-6, ctx_len=8192, tokenizer="bpe", pre="qwen2",
+)
+
+# Pythia-1.4B (huggingface.co/EleutherAI/pythia-1.4b config.json): 24
+# layers, 2048 emb, 16 heads / 16 kv of 128, rotary_pct 0.25 (32 of 128
+# dims), rotary_emb_base 10000, ff 8192 (exact gelu), vocab 50304,
+# layer_norm_eps 1e-5, use_parallel_residual, biases everywhere, untied
+# head; GPT-NeoX's BPE vocab (pre "gpt-2")
+PYTHIA_1_4B_SHAPE = dict(
+    arch="gptneox", n_layers=24, n_embd=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+    n_ff=8192, vocab_size=50304, rope_dim=32, rope_base=10000.0, norm_eps=1e-5, ctx_len=2048,
+    tokenizer="bpe", pre="gpt-2",
+)
+
+# StableLM-2-1.6B (huggingface.co/stabilityai/stablelm-2-1_6b config.json):
+# 24 layers, 2048 emb, 32 heads / 32 kv of 64, partial_rotary_factor 0.25
+# (16 of 64 dims), rope theta 10000, ff 5632 (gated SiLU), vocab 100352,
+# layer_norm_eps 1e-5, q/k/v biases (no wo bias), untied head; pre
+# "stablelm2"
+STABLELM2_1_6B_SHAPE = dict(
+    arch="stablelm", n_layers=24, n_embd=2048, n_heads=32, n_kv_heads=32, head_dim=64,
+    n_ff=5632, vocab_size=100352, rope_dim=16, rope_base=10000.0, norm_eps=1e-5, ctx_len=4096,
+    tokenizer="bpe", pre="stablelm2",
+)
+
+# StarCoder2-3B (huggingface.co/bigcode/starcoder2-3b config.json): 30
+# layers, 3072 emb, 24 heads / 2 kv of 128 (G 12), full rope at theta
+# 999999.4420358813, ff 12288 (tanh gelu), vocab 49152, norm_epsilon 1e-5,
+# biases everywhere, the head written as its own output.weight; pre
+# "starcoder"; its 4096-token sliding window is not written (a file with
+# one is refused)
+STARCODER2_3B_SHAPE = dict(
+    arch="starcoder2", n_layers=30, n_embd=3072, n_heads=24, n_kv_heads=2, head_dim=128,
+    n_ff=12288, vocab_size=49152, rope_base=999999.4420358813, norm_eps=1e-5, ctx_len=16384,
+    tokenizer="bpe", pre="starcoder",
 )

@@ -9,13 +9,15 @@ alternatives tried in order at each position, the first that matches wins
 (leftmost-first), greedy runs backed off only as far as the pattern makes
 them; characters no alternative matches are kept as fragments of their
 own, as zllm's `pretokenize` keeps them.  The three patterns (HF
-tokenizer.json, the reference's src/llama-vocab.cpp):
+tokenizer.json, the reference's src/llama-vocab.cpp), and one pair of them:
 
   gpt2    's|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)
   llama3  (?:'[sS]|'[tT]|'[rR][eE]|'[vV][eE]|'[mM]|'[lL][lL]|'[dD])
           |[^\\r\\n\\p{L}\\p{N}]?\\p{L}+|\\p{N}{1,3}| ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*
           |\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+
   qwen2   llama3 with \\p{N} in place of \\p{N}{1,3}
+  starcoder  \\p{N}, then gpt2 over each fragment: every numeric character
+          a fragment of its own, gpt2's pattern on the runs between them
 
 `\\s` is Unicode White_Space (as in `regex`, which leaves out U+001C-U+001F
 where `str.isspace` takes them), `\\p{L}` the general categories L*,
@@ -36,12 +38,14 @@ _CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
 _CRLF = "\r\n"
 
 # pretokenizer of each ported tokenizer.ggml.pre name (zllm's PRE_PATTERNS
-# entries that hold exactly one of the three patterns)
+# entries that hold exactly one of the three patterns, or \p{N} then gpt2)
 PRETOKENIZERS = {
     **dict.fromkeys(("gpt-2", "mpt", "olmo", "jais"), "gpt2"),
     **dict.fromkeys(("llama3", "llama-bpe", "dbrx", "smaug-bpe", "llama4", "chatglm-bpe"),
                     "llama3"),
     **dict.fromkeys(("qwen2", "stablelm2"), "qwen2"),
+    **dict.fromkeys(("starcoder", "refact", "command-r", "smollm", "codeshell", "exaone"),
+                    "starcoder"),
 }
 
 
@@ -148,7 +152,10 @@ def _match_llama3(text: str, k: list[str], i: int, max_digits: int | None) -> in
 def pretokenize(text: str, kind: str) -> list[str]:
     """`text` split as `regex.finditer` splits it with pattern `kind`
     ("gpt2", "llama3" or "qwen2"), the unmatched characters between
-    matches kept as fragments."""
+    matches kept as fragments; "starcoder": each \\p{N} character a fragment,
+    then "gpt2" over every fragment (zllm's two passes)."""
+    if kind == "starcoder":
+        return [out for frag in _split_numerals(text) for out in pretokenize(frag, "gpt2")]
     k = [char_class(c) for c in text]
     if kind == "gpt2":
         def match(i):
@@ -171,6 +178,21 @@ def pretokenize(text: str, kind: str) -> list[str]:
         gap = i = end
     if gap < len(text):
         out.append(text[gap:])
+    return out
+
+
+def _split_numerals(text: str) -> list[str]:
+    """`text` cut around every \\p{N} character: each one a fragment, the
+    runs between them fragments."""
+    out, start = [], 0
+    for i, c in enumerate(text):
+        if char_class(c) == "N":
+            if i > start:
+                out.append(text[start:i])
+            out.append(c)
+            start = i + 1
+    if start < len(text):
+        out.append(text[start:])
     return out
 
 
