@@ -294,8 +294,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      Gemma-3's full widths, Q4_K, the card against the CPU's plain
      forward from a child, `--gemma-cpu NAME`, started after the build;
      prompts past the window, Gemma-2's set to 512), `main_path`
-     Gemma-2-2B Q4_K_M at full depth (a 4200-token prompt past its 4096
-     window, 26 K2 a step and 26 K6 a chunk) and Gemma-3-4B cut to 12
+     Gemma-2-2B Q4_K_M cut to 8 of its 26 layers (a 4200-token prompt past
+     its 4096 window, 8 K2 a step and 8 K6 a chunk) and Gemma-3-4B cut to 12
      layers (a 1100-token prompt past its 1024 window), `serve_ring_gemma3`
      (the Gemma-3 model behind ZllmServer at max_len 4096: the ring cache,
      K2/K6 in its 2 full layers only, a 1501-id prompt besides),
@@ -340,7 +340,26 @@ Phases, each fatal on failure (non-zero exit, no final result line):
      against its plain version, SDPA and its bound, and the Pythia step's
      K1/K4 matvecs and a chunk's K3/K5 GEMMs beside their bounds and
      `torch.matmul`; the attention forms' outputs hashed (`form_digests`'
-     "layernorm").
+     "layernorm");
+ 12. gpt-oss (`python3 chip_smoke.py --gpt-oss` runs this group alone):
+     `main_path` gpt-oss-20b at full width cut to 4 of its 24 layers (two
+     windowed at 128, two full), MXFP4 experts and Q8_0 elsewhere as
+     llama.cpp ships it, so every matmul (K 2880) takes zllm's dequantizing
+     `torch.matmul` route and no matmul kernel runs; a 300-token prompt past
+     the window in chunks, 31 greedy decode steps: 4 K2 a step and a chunk,
+     4 K6 a chunk, every one in its sinks form, from the recorded routing;
+     `q8_path_gpt_oss` (`forward` over the q8 cache: K7 with sinks, a chunk
+     twice a layer, a step once); `serve_ring_chat_gpt_oss` (the ring server,
+     4 slots, concurrent /v1/chat/completions whose prompts wrap the
+     256-slot ring: texts equal the sequential ones, K2/K6 with sinks in
+     the two full layers alone); `gpt_oss_2layer` (2 layers at full width
+     against the CPU's plain forward from a child, `--moe-cpu
+     gpt_oss_2layer`: nmse <= 1e-3, greedy picks under LN_TIE_GAP, the
+     routing's launch formula); and `kernel_gpt_oss`: K2's sinks form at
+     the decode step's shapes, K6 with sinks over a chunk (windows 128 and
+     0) and K7 with sinks over int8 K/V, each against its plain version,
+     SDPA without the sink and its bound; the sinks forms' outputs hashed
+     (`form_digests`' "gpt_oss").
 
 The main paths' requantized files (TinyLlama Q4_K_M, Q4_0, Q5_K_M,
 Q3_K_M, IQ4_XS, TQ2_0, TQ1_0 and BF16, Qwen2.5 Q4_K_M) and the TinyLlama Q5_0, Q5_1, Q2_K,
@@ -430,14 +449,17 @@ IQ_SHORT_TOKENS = 8
 # the ternary slice's files, by `python -m zllm_torch.quantize` (the head
 # Q6_K, the embedding Q4_K): TQ2_0 the full generate, TQ1_0 a short one
 TQ_FTYPES = ("TQ2_0", "TQ1_0")
-# group 9, the Gemma text families: Gemma-2-2B at full depth with a prompt
-# past its 4096 window, Gemma-3-4B cut to 12 of its 34 layers (two full
+# group 9, the Gemma text families: Gemma-2-2B cut to GEMMA2_LAYERS of its
+# 26 layers with a prompt past its 4096 window, Gemma-3-4B cut to 12 of its 34 layers (two full
 # layers, 5 and 11) past its 1024 window and then on the ring at max_len
 # 4096, Gemma-2B behind the server (paged: K9/K10 at d 256); the files are
 # the factory's Q4_K_M preset, made by children while the kernels build
 GEMMA_MODELS = ("gemma2_2b", "gemma3_4b", "gemma_2b")
 GEMMA3_LAYERS = 12
 GEMMA2_PROMPT, GEMMA2_MAX_LEN = 4200, 4352
+# Gemma-2-2B's 26 layers cut to 8 (4 windowed, 4 full), so that group 12
+# fits the smoke's time limit
+GEMMA2_LAYERS = 8
 GEMMA3_PROMPT, GEMMA3_MAX_LEN, GEMMA3_SERVE_MAX_LEN = 1100, 2048, 4096
 GEMMA3_LONG_BYTES = 1500  # the ring phase's prompt past the window (one id a byte)
 # the 2-layer GPU-vs-CPU checks at full width: Gemma-2's window set to 512
@@ -469,6 +491,21 @@ LN_CHECK_PROMPT = 64
 # (0.0145, StarCoder2-3B's; PERF.md, group 11), rounded up to one digit;
 # a tiled head's exact row copies score 0 apart
 LN_TIE_GAP = 3e-2
+# group 12, gpt-oss: gpt-oss-20b at full width cut to OSS_LAYERS of its 24
+# layers (layers 0 and 2 windowed at 128, 1 and 3 full), its files as
+# llama.cpp ships it (MXFP4 experts, Q8_0 elsewhere: K 2880, so every
+# matmul takes zllm's dequantizing route, no kernel); the ring server with
+# OSS_SLOTS slots and chat prompts of OSS_CHAT_TOKENS ids, past its ring of
+# 256 slots; a 2-layer full-width check against the CPU over a prompt past
+# the window (OSS_CHECK_PROMPT); K2's, K6's and K7's sinks forms at its
+# shapes
+OSS_MAIN, OSS_LAYERS, OSS_FTYPE = "gpt_oss_20b", 4, "Q8_0"
+OSS_CHECK, OSS_CHECK_PROMPT = "gpt_oss_2layer", 136
+OSS_SLOTS, OSS_CHAT_TOKENS, OSS_CHAT_NEW = 4, (420, 300, 270, 60), 24
+# the 2-layer MoE checks' files and prompts where not Q4_K_M and
+# MOE_CHECK_PROMPT
+CHECK_FTYPES = {OSS_CHECK: OSS_FTYPE}
+CHECK_PROMPTS = {OSS_CHECK: OSS_CHECK_PROMPT}
 SERVE_PROMPT_BYTES = (300, 200, 129, 40)
 SERVE_NEW_TOKENS = 32
 ENGINE_COUNTERS = ("tokens_generated_total", "tokens_prefilled_total",
@@ -901,7 +938,8 @@ def main_shapes() -> dict:
             "olmo2": (zt.OLMO2_1B_SHAPE, "OLMo-2-0425-1B geometry"),
             "qwen3": (zt.QWEN3_1_7B_SHAPE, "Qwen3-1.7B geometry"),
             "qwen25": (zt.QWEN25_1_5B_SHAPE, "Qwen2.5-1.5B geometry"),
-            "gemma2_2b": (zt.GEMMA2_2B_SHAPE, "Gemma-2-2B geometry"),
+            "gemma2_2b": (dict(zt.GEMMA2_2B_SHAPE, n_layers=GEMMA2_LAYERS),
+                          f"Gemma-2-2B geometry ({GEMMA2_LAYERS} of its 26 layers)"),
             "gemma3_4b": (dict(zt.GEMMA3_4B_SHAPE, n_layers=GEMMA3_LAYERS),
                           f"Gemma-3-4B geometry ({GEMMA3_LAYERS} of its 34 layers)"),
             "gemma_2b": (zt.GEMMA_2B_SHAPE, "Gemma-2B geometry"),
@@ -925,7 +963,10 @@ def main_shapes() -> dict:
             "stablelm2_2layer": (dict(zt.STABLELM2_1_6B_SHAPE, n_layers=2),
                                  "StableLM-2-1.6B width, 2 layers"),
             "starcoder2_2layer": (dict(zt.STARCODER2_3B_SHAPE, n_layers=2),
-                                  "StarCoder2-3B width, 2 layers")}
+                                  "StarCoder2-3B width, 2 layers"),
+            OSS_MAIN: (dict(zt.GPT_OSS_20B_SHAPE, n_layers=OSS_LAYERS),
+                       f"gpt-oss-20b geometry ({OSS_LAYERS} of its 24 layers)"),
+            OSS_CHECK: (dict(zt.GPT_OSS_20B_SHAPE, n_layers=2), "gpt-oss-20b width, 2 layers")}
 
 
 def f16_counts(kernels: dict, zero: bool = False) -> dict:
@@ -2963,6 +3004,7 @@ def form_digests(torch) -> dict:
     out["attention_f16"] = f16_attention_digests(torch)
     out.update(later_form_digests(torch))
     out["layernorm"] = layernorm_form_digests(torch)
+    out["gpt_oss"] = gpt_oss_form_digests(torch)
     return out
 
 
@@ -3086,7 +3128,9 @@ def gemm_counts(model) -> dict:
                    "ffn_gateup_shexp", "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp",
                    "ffn_gate_inp_shexp")]
     ws.append(model.params["output"])
-    ws = [w for w in ws if isinstance(w, QWeight)]
+    # a weight zllm's kernels do not take (K % 256, N % 128) is dequantized
+    # and multiplied by torch.matmul (`ops/linear.py`), no kernel
+    ws = [w for w in ws if isinstance(w, QWeight) and qmm.supports(w)]
     k3 = sum(w.fmt in qmm.NIBBLE_FMT_CODE for w in ws)
     return {"q4k_gemm": k3, "dequant_gemm": len(ws) - k3}
 
@@ -3767,7 +3811,7 @@ def gemma_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
 
 def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -> list[dict]:
     """The d 256 forms at their paths' shapes, each against its plain
-    version and one SDPA call: K2 over a Gemma-2-2B step's 26 layers (B 1,
+    version and one SDPA call: K2 over a Gemma-2-2B step's 8 layers (B 1,
     S 4352, every other layer windowed at 4096, the last decode position),
     K6 over its last prefill chunk's (T 256 from 4096), K9 and K10 over the
     Gemma-2B serve steps' 18 layers (4 slots, 16 pages of 128, 8 / 1 heads,
@@ -3861,7 +3905,7 @@ def gemma_kernel_lines(torch, F, model2, gen2, model1, card: str, paths: dict) -
 
 def gemma_group(torch, kernels: dict, card: str) -> dict:
     """Group 9: the 2-layer GPU-vs-CPU checks, then Gemma-2-2B's generate
-    at full depth, Gemma-3-4B's (12 layers) and its ring serve, Gemma-2B
+    at 8 layers, Gemma-3-4B's (12 layers) and its ring serve, Gemma-2B
     behind the server, and the d 256 forms' kernel lines.  Returns the
     paths' launch counts and the kernel lines."""
     import torch.nn.functional as F
@@ -3925,7 +3969,8 @@ def expert_launches(routing) -> dict:
     """The K3 and K5 launches the recorded routing implies (`moe_ffn.routing`
     entries: layer, the experts used, ...): each quantized stack of the
     layer (gate|up or gate and up, down) once an expert used, K3 for the
-    nibble formats, K5 for the others; a dense stack launches none."""
+    nibble formats, K5 for the others; a dense stack launches none, nor
+    does one that zllm's kernels would not take (`qmm.supports`)."""
     from zllm_torch.ops import qmatmul as qmm
     from zllm_torch.quant.repack import QWeightE
 
@@ -3933,7 +3978,8 @@ def expert_launches(routing) -> dict:
     for layer, used, *_ in routing:
         for key in ("ffn_gateup_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
             w = layer.get(key)
-            if isinstance(w, QWeightE):
+            # a stack the kernels do not take (gpt-oss's K 2880) is dequantized
+            if isinstance(w, QWeightE) and qmm.supports(w.expert(0)):
                 out["q4k_gemm" if w.fmt in qmm.NIBBLE_FMT_CODE else "dequant_gemm"] += len(used)
     return out
 
@@ -3971,19 +4017,22 @@ def _routing_rows(torch, model, routing) -> list[dict]:
 
 def _moe_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
     """One side of a 2-layer MoE check on `dev` (bf16 weights and KV): the
-    MOE_CHECK_PROMPT-token prompt as one chunk (the last token's logits),
-    then MOE_CHECK_STEPS decode steps fed this side's argmax (the CPU) or
-    `forced` (the card: the CPU's tokens).  Returns the ids, the fed tokens,
-    the logits and every moe_ffn call's picks and gaps."""
+    MOE_CHECK_PROMPT-token prompt (gpt-oss's: OSS_CHECK_PROMPT, past its
+    window) as one chunk (the last token's logits), then MOE_CHECK_STEPS
+    decode steps fed this side's argmax (the CPU) or `forced` (the card: the
+    CPU's tokens).  Returns the ids, the fed tokens, the logits, every
+    moe_ffn call's picks and gaps, and the kernel launches the run implies
+    (`moe_want` over the recorded routing)."""
     from zllm_torch.models.llama import forward, moe_ffn
     from zllm_torch.models.loader import Model
     from zllm_torch.runtime.kvcache import KVCache
 
-    path, _ = gguf_file(name, main_shapes()[name][0], "Q4_K_M")
+    path, _ = gguf_file(name, main_shapes()[name][0], CHECK_FTYPES.get(name, "Q4_K_M"))
     m = Model.load(str(path), device=dev, dtype=torch.bfloat16)
     cfg = m.cfg
-    ids = prompt_ids(m.tokenizer, MOE_CHECK_PROMPT)
-    kv = KVCache.create(cfg.n_layers, 1, MOE_CHECK_PROMPT + CHUNK, cfg.n_kv_heads, cfg.head_dim,
+    prompt_n = CHECK_PROMPTS.get(name, MOE_CHECK_PROMPT)
+    ids = prompt_ids(m.tokenizer, prompt_n)
+    kv = KVCache.create(cfg.n_layers, 1, prompt_n + CHUNK, cfg.n_kv_heads, cfg.head_dim,
                         torch.bfloat16, dev)
 
     def run(toks, start):
@@ -3997,13 +4046,15 @@ def _moe_2layer_run(torch, name: str, dev: str, forced=None) -> dict:
         logits, fed = [run(ids, 0)], []
         for i in range(MOE_CHECK_STEPS):
             fed.append(int(torch.argmax(logits[-1])) if forced is None else forced[i])
-            logits.append(run([fed[-1]], MOE_CHECK_PROMPT + i))
+            logits.append(run([fed[-1]], prompt_n + i))
         routing = _routing_rows(torch, m, moe_ffn.routing)
+        want = moe_want(kernel_wrappers(), m, MOE_CHECK_STEPS, 1, moe_ffn.routing)
     finally:
         moe_ffn.routing = None
     if dev == "cuda":
         torch.cuda.synchronize()
-    return {"ids": ids, "fed": fed, "logits": torch.stack(logits), "routing": routing}
+    return {"ids": ids, "fed": fed, "logits": torch.stack(logits), "routing": routing,
+            "want": want}
 
 
 def moe_cpu_reference(name: str):
@@ -4013,7 +4064,7 @@ def moe_cpu_reference(name: str):
     too."""
     import torch
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(4 if name == OSS_CHECK else 2)  # gpt-oss's bf16 experts: 4
 
     out = CACHE / f"{name}_cpu_reference.pt"
     ref = _moe_2layer_run(torch, name, "cpu")
@@ -4033,13 +4084,19 @@ def start_moe_children():
     atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
 
 
-def moe_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
-    """2 layers at an MoE model's full width, Q4_K_M (the factory's), bf16:
-    the card against the CPU's plain forward (its child's saved logits and
-    routing), the CPU's tokens fed to both.  Every token whose picks differ
-    is reported with the CPU's k-th to (k+1)-th probability gap, which must
-    be below MOE_TIE_GAP; the logits of every step before the first such
-    token within nmse 1e-3; K3 launched for the experts."""
+def moe_2layer_check(torch, kernels: dict, card: str, name: str, *, must=("q4k_gemm",),
+                     tie_gap: float | None = None, phase: str = "moe_2layer") -> dict:
+    """2 layers at an MoE model's full width, Q4_K_M (the factory's; gpt-oss:
+    MXFP4 experts, Q8_0 elsewhere), bf16: the card against the CPU's plain
+    forward (its child's saved logits and routing), the CPU's tokens fed to
+    both.  Every token whose picks differ is reported with the CPU's k-th to
+    (k+1)-th router score gap (a probability; gpt-oss's softmax_weight: a raw
+    logit), which must be below MOE_TIE_GAP; the logits of every step before
+    the first such token within nmse 1e-3; the kernels `must` launched
+    (K3 for the experts), every count as the recorded routing implies; with
+    `tie_gap` (gpt-oss: LN_TIE_GAP) each step whose card argmax is
+    not the CPU's passes only where the CPU scores the two picks less than
+    `tie_gap` apart."""
     shape, label = main_shapes()[name]
     t0 = time.perf_counter()
     child = _CPU_CHECKS.pop(name)
@@ -4054,8 +4111,15 @@ def moe_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
     if gpu["ids"] != cpu["ids"] or len(gpu["routing"]) != len(cpu["routing"]):
         fail(f"{name}: the card's ids or moe_ffn calls differ from the CPU's")
     errs = [nmse(a, b) for a, b in zip(gpu["logits"], cpu["logits"])]
+    rms = [float((a - b).pow(2).mean().sqrt()) for a, b in zip(gpu["logits"], cpu["logits"])]
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
                 for a, b in zip(gpu["logits"], cpu["logits"]))
+    apart = []
+    for i, (a, b) in enumerate(zip(gpu["logits"], cpu["logits"])):
+        g, c = int(torch.argmax(a)), int(torch.argmax(b))
+        if g != c:
+            apart.append(dict(step=i, card=g, cpu=c, cpu_gap=float(b[c] - b[g]),
+                              same_head_row=(g - c) % 256 == 0))
     n_layers = shape["n_layers"]
     differ = []
     for c, (g, r) in enumerate(zip(gpu["routing"], cpu["routing"])):
@@ -4064,11 +4128,15 @@ def moe_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
                 differ.append(dict(step=c // n_layers, layer=r["layer"], token=t, card=pg,
                                    cpu=pc, cpu_gap=r["gap"][t]))
     first = min([d["step"] for d in differ], default=len(errs))
-    res = {"phase": "moe_2layer", "model": f"{label} Q4_K_M (random weights, seed 0)",
-           "prompt_tokens": MOE_CHECK_PROMPT, "decode_steps": MOE_CHECK_STEPS,
+    ftype = CHECK_FTYPES.get(name, "Q4_K_M")
+    res = {"phase": phase, "model": f"{label} {ftype} (random weights, seed 0)",
+           "prompt_tokens": CHECK_PROMPTS.get(name, MOE_CHECK_PROMPT),
+           "decode_steps": MOE_CHECK_STEPS,
            "logits_nmse_by_step": errs, "logits_nmse_max_before_a_pick_differs":
                max(errs[:first], default=0.0), "tolerance": 1e-3,
-           "argmax_agree": f"{agree}/{len(errs)}", "picks_differ": differ,
+           "logits_rms_diff_by_step": rms, "argmax_agree": f"{agree}/{len(errs)}",
+           "picked_apart": apart, "tie_gap": tie_gap,
+           "launches_expected": gpu["want"], "picks_differ": differ,
            "tie_gap_bound": MOE_TIE_GAP, "gpu_launches": {n: c for n, c in launched.items() if c},
            "finite": bool(torch.isfinite(gpu["logits"]).all()),
            "waited_for_cpu_s": waited, "seconds": time.perf_counter() - t0, "card": card}
@@ -4077,25 +4145,33 @@ def moe_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
         fail(f"{name}: GPU logits disagree with the CPU plain forward: {res}")
     if any(d["cpu_gap"] >= MOE_TIE_GAP for d in differ):
         fail(f"{name}: the card picked other experts than the CPU where no tie explains it")
-    if not launched["q4k_gemm"]:
-        fail(f"{name}: the card's run launched no K3: {res['gpu_launches']}")
+    if tie_gap is not None and any(d["cpu_gap"] >= tie_gap for d in apart if d["step"] < first):
+        fail(f"{name}: the card's greedy tokens differ from the CPU's beyond a tie: {res}")
+    if not all(launched[n] for n in must) or (tie_gap is not None and launched != gpu["want"]):
+        fail(f"{name}: the card's run launched {res['gpu_launches']}, not {must}, or not the "
+             f"counts its routing implies {gpu['want']}")
     return launched
 
 
-def moe_main_path(torch, kernels: dict, card: str):
-    """Qwen3-30B-A3B (MOE_LAYERS layers) through the Generator: the prompt in
-    chunks, then NEW_TOKENS - 1 decode steps, the launch counts against the
-    routing recorded over the same window; one decode step profiled
+def moe_main_path(torch, kernels: dict, card: str, name: str = MOE_MAIN,
+                  ftype: str = "Q4_K_M"):
+    """Qwen3-30B-A3B (MOE_LAYERS layers; or gpt-oss-20b's `name`, OSS_LAYERS
+    layers) through the Generator: the prompt in chunks, then NEW_TOKENS -
+    1 decode steps, the launch counts against the routing recorded over the
+    same window (K2 and K6 all in their sinks form where the layers have
+    sinks; the dequantized matmuls counted apart); one decode step profiled
     eagerly (a CUDA graph cannot capture the per-layer host read of the
     picks), its wall time, and the host read alone.  Returns the model,
     the counts, the generator, the ids, the tokens and the expert launches
     (`expert_launches`)."""
     from zllm_torch.models.llama import forward, moe_ffn
     from zllm_torch.models.loader import Model
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.linear import dequant_linear
     from zllm_torch.runtime.generate import Generator
 
-    shape, label = main_shapes()[MOE_MAIN]
-    path, t_gguf = gguf_file(MOE_MAIN, shape, "Q4_K_M")
+    shape, label = main_shapes()[name]
+    path, t_gguf = gguf_file(name, shape, ftype)
     t0 = time.perf_counter()
     model = Model.load(str(path), device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -4107,14 +4183,22 @@ def moe_main_path(torch, kernels: dict, card: str):
     gen.reset()
     for fn in kernels.values():
         fn.launches = 0
+    sinks_fns = (att.attn_decode_qkv, att.flash_attention)
+    for fn in sinks_fns:
+        fn.sinks_launches = 0
+    dq0 = dequant_linear.calls
     moe_ffn.routing = []
     try:
         res = gen.generate(ids, max_new=NEW_TOKENS)
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in kernels.items()}
+        counts = {k: fn.launches for k, fn in kernels.items()}
         routing = moe_ffn.routing
     finally:
         moe_ffn.routing = None
+    dequant_calls = dequant_linear.calls - dq0
+    sinks = {fn.__name__: fn.sinks_launches for fn in sinks_fns}
+    has_sinks = "attn_sinks" in model.params["layers"][0]
+    sinks_expected = {k: counts[k] if has_sinks else 0 for k in sinks}
     n_chunks, n_steps = -(-PROMPT_TOKENS // CHUNK), len(res.tokens) - 1
     expected = moe_want(kernels, model, n_steps, n_chunks, routing)
     used = [len(u) for _, u, *_ in routing]
@@ -4142,13 +4226,18 @@ def moe_main_path(torch, kernels: dict, card: str):
         picks.cpu()
         reads.append(1e3 * (time.perf_counter() - t1))
     host_read_ms = sorted(reads)[len(reads) // 2]
-    emit({"phase": "main_path", "model": f"{label} Q4_K_M (random weights, seed 0)",
-          "shape": shape, "dtype": "bfloat16", "kv_dtype": "bfloat16",
+    emit({"phase": "main_path", "model": f"{label} {ftype} (random weights, seed 0)",
+          "shape": {k: str(v) if k == "expert_gtype" else v for k, v in shape.items()},
+          "dtype": "bfloat16", "kv_dtype": "bfloat16",
           "prompt_tokens": PROMPT_TOKENS, "max_len": MAX_LEN, "prefill_chunks": n_chunks,
           "new_tokens": len(res.tokens), "prefill_tok_s": PROMPT_TOKENS / res.t_prefill,
           "decode_tok_s": n_steps / res.t_decode, "t_prefill_s": res.t_prefill,
           "t_decode_s": res.t_decode, "gguf_build_s": t_gguf, "load_s": t_load,
           "launches": counts, "launches_expected": expected,
+          "sinks_launches": sinks, "sinks_launches_expected": sinks_expected,
+          "dequant_matmuls": dequant_calls,
+          "dense_dequant_matmuls_per_forward": dequant_calls and (
+              dequant_calls - sum(2 * len(u) for _, u, *_ in routing)) / (n_steps + n_chunks),
           "expert_launches": expert_launches(routing),
           "experts_used_per_call": {"decode_step_mean": sum(used[-cfg.n_layers * n_steps:])
                                     / (cfg.n_layers * n_steps), "chunks": used[:cfg.n_layers
@@ -4159,11 +4248,13 @@ def moe_main_path(torch, kernels: dict, card: str):
           "host_reads_per_step": cfg.n_layers, "host_read_ms": host_read_ms,
           "host_reads_ms_per_step": cfg.n_layers * host_read_ms, "card": card})
     if n_steps != NEW_TOKENS - 1:
-        fail(f"{MOE_MAIN}: generate stopped after {len(res.tokens)} tokens")
+        fail(f"{name}: generate stopped after {len(res.tokens)} tokens")
     if counts != expected:
-        fail(f"{MOE_MAIN}: kernel launch counts {counts} != expected {expected}")
+        fail(f"{name}: kernel launch counts {counts} != expected {expected}")
+    if sinks != sinks_expected:
+        fail(f"{name}: sinks-form launches {sinks} != expected {sinks_expected}")
     if last_logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last_logits).all()):
-        fail(f"{MOE_MAIN}: logits are not finite or have the wrong shape")
+        fail(f"{name}: logits are not finite or have the wrong shape")
     return model, counts, gen, ids, res.tokens, expert_launches(routing)
 
 
@@ -4255,29 +4346,36 @@ def moe_kernel_lines(torch, model, gen, ids: list, tokens: list, experts: dict,
     return lines
 
 
-def k7_case(torch, F, randn, kvs: list, t7: int, starts: list, hq: int, scale: float) -> dict:
+def k7_case(torch, F, randn, kvs: list, t7: int, starts: list, hq: int, scale: float,
+            sinks=None, windows=None) -> dict:
     """K7 over one engine step's layers `kvs` (each layer's k, v [B, Hkv,
     S, D] int8 codes with their f32 scales ks, vs [B, Hkv, S, 1], or bf16
     K/V with None), T = t7 query rows a slot from `starts` (hq heads, f32
-    q), against its plain version and one SDPA call a layer on K/V
-    dequantized to bf16 outside the timing, with its bound: the slots each
-    row reads (its widest query's span) and the (query, slot) pairs the
-    causal mask lets through, each query its own span."""
+    q), each layer's sink logits and window where given (`sinks`,
+    `windows`: gpt-oss's), against its plain version and one SDPA call a
+    layer on K/V dequantized to bf16 outside the timing (no sink: SDPA
+    takes none), with its bound: the slots each row reads (its widest
+    query's span) and the (query, slot) pairs the causal mask lets through,
+    each query its own span."""
     from zllm_torch.ops import attention as att
 
     n_slots, hkv, s7, hd = kvs[0][0].shape
     per_layer, int8 = len(kvs), kvs[0][2] is not None
+    sinks = sinks or [None] * per_layer
+    windows = windows or [0] * per_layer
     pos7 = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
             + torch.arange(t7, dtype=torch.int32, device="cuda")[None])
     q7 = randn(n_slots, t7, hq, hd)
     k_, v_, ks_, vs_ = kvs[0]
-    a = att.flash_attention_blockwise(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
-    b = att.flash_attention_blockwise_plain(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+    extra = dict(sinks=sinks[0], window=windows[0])
+    a = att.flash_attention_blockwise(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_, **extra)
+    b = att.flash_attention_blockwise_plain(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_,
+                                            **extra)
 
     def run(fn):
         def go():
-            for k_, v_, ks_, vs_ in kvs:
-                fn(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_)
+            for (k_, v_, ks_, vs_), sk, w in zip(kvs, sinks, windows):
+                fn(q7, k_, v_, pos7, scale=scale, ks=ks_, vs=vs_, sinks=sk, window=w)
         return go
 
     def bf16(x, sc):
@@ -4285,19 +4383,24 @@ def k7_case(torch, F, randn, kvs: list, t7: int, starts: list, hq: int, scale: f
 
     deq = [(bf16(k_, ks_), bf16(v_, vs_)) for k_, v_, ks_, vs_ in kvs]
     q7b = q7.to(torch.bfloat16).transpose(1, 2)
-    mask7 = (torch.arange(s7, device="cuda")[None, None, :]
-             <= pos7[:, :, None]).reshape(n_slots, 1, t7, s7)
+    cols = torch.arange(s7, device="cuda")[None, None, :]
+    masks = {w: ((cols <= pos7[:, :, None]) & ((cols > pos7[:, :, None] - w) if w else True))
+             .reshape(n_slots, 1, t7, s7) for w in set(windows)}
 
     def lib():
-        for k_, v_ in deq:
-            F.scaled_dot_product_attention(q7b, k_, v_, attn_mask=mask7, scale=scale,
+        for (k_, v_), w in zip(deq, windows):
+            F.scaled_dot_product_attention(q7b, k_, v_, attn_mask=masks[w], scale=scale,
                                            enable_gqa=True)
 
-    seen = sum(min(p_ + t7 - 1, s7 - 1) + 1 for p_ in starts)
-    pairs = sum(min(p_ + t, s7 - 1) + 1 for p_ in starts for t in range(t7))
+    def lo(p_, w):  # a query's first visible slot
+        return max(p_ - w + 1, 0) if w else 0
+
+    seen = sum(min(p_ + t7 - 1, s7 - 1) + 1 - lo(p_, w) for w in windows for p_ in starts)
+    pairs = sum(min(p_ + t, s7 - 1) + 1 - lo(p_ + t, w) for w in windows for p_ in starts
+                for t in range(t7))
     slot_bytes = 2 * hkv * (hd + 4) if int8 else 2 * hkv * hd * 2
-    nbytes = per_layer * (seen * slot_bytes + 2 * q7.numel() * 4)
-    bms, bby = bound_ms(nbytes, per_layer * 4 * hq * hd * pairs, "bf16")
+    nbytes = seen * slot_bytes + per_layer * 2 * q7.numel() * 4
+    bms, bby = bound_ms(nbytes, 4 * hq * hd * pairs, "bf16")
     reps = 20 if t7 == 1 else 5
     return dict(ms=cuda_ms(run(att.flash_attention_blockwise), reps),
                 plain_ms=cuda_ms(run(att.flash_attention_blockwise_plain), 2),
@@ -4441,12 +4544,13 @@ def ln_2layer_check(torch, kernels: dict, card: str, name: str) -> dict:
 
 
 def _k2_line(torch, F, att, *, name: str, unit: str, cfg, kcs, vcs, pos_v: int, randn,
-             by_path, ropes=None, windows=None) -> dict:
+             by_path, ropes=None, windows=None, sinks=None) -> dict:
     """K2 over one decode step of `cfg`'s geometry (a launch a layer, the
     caches `kcs`/`vcs`, each layer's rope table at `pos_v` (`ropes`, by
-    default cfg.rope's) and window (`windows`, by default none), cfg's
+    default cfg.rope's) and window (`windows`, by default none), each
+    layer's sink logits (`sinks`: the sinks form; by default none), cfg's
     softcap, random q/k/v rows) against its plain version and one SDPA call
-    a layer (attention alone)."""
+    a layer (attention alone; SDPA takes no sink)."""
     from zllm_torch.ops.layers import rope_table
 
     L, hq, hkv, d = len(kcs), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -4455,18 +4559,20 @@ def _k2_line(torch, F, att, *, name: str, unit: str, cfg, kcs, vcs, pos_v: int, 
     pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
     ropes = ropes or [rope_table(pos, cfg.rope, d)] * L
     windows = windows or [0] * L
+    sinks = sinks or [None] * L
     qkv3 = randn(1, hq + 2 * hkv, d)
     kw = dict(scale=scale, softcap=cfg.attn_logit_softcap, eps=cfg.norm_eps)
     a = att.attn_decode_qkv(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
-                            window=windows[0], **kw)
+                            window=windows[0], sinks=sinks[0], **kw)
     b = att.attn_decode_qkv_plain(qkv3, kcs[0].clone(), vcs[0].clone(), pos, ropes[0],
-                                  window=windows[0], **kw)
+                                  window=windows[0], sinks=sinks[0], **kw)
     e, m = nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())
 
     def k2(fn):
         def go():
             for il in range(L):
-                fn(qkv3, kcs[il], vcs[il], pos, ropes[il], window=windows[il], **kw)
+                fn(qkv3, kcs[il], vcs[il], pos, ropes[il], window=windows[il], sinks=sinks[il],
+                   **kw)
         return go
 
     q2b = qkv3[:, :hq, None].to(torch.bfloat16)  # [1, Hq, 1, D]
@@ -4489,7 +4595,8 @@ def _k2_line(torch, F, att, *, name: str, unit: str, cfg, kcs, vcs, pos_v: int, 
         plain_ms=cuda_ms(k2(att.attn_decode_qkv_plain), 3), bound_ms=bd[0], bound_by=bd[1],
         library_ms=cuda_ms(lib, 20), library="scaled_dot_product_attention on the caches "
         "(attention alone: q not roped, nothing inserted"
-        + (", no softcap: SDPA has none)" if cfg.attn_logit_softcap else ")"),
+        + (", no softcap: SDPA has none" if cfg.attn_logit_softcap else "")
+        + (", no sink: SDPA takes none" if sinks[0] is not None else "") + ")",
         launches_by_path=by_path("attn_decode_qkv"), unit=f"{unit} ({L} launches)",
         shapes=f"qkv3 [1,{hq + 2 * hkv},{d}] f32, caches [1,{hkv},{s},{d}] "
                f"{str(kcs[0].dtype)[6:]} at {pos_v}, {'neox' if ropes[0].neox else 'norm'} rope over "
@@ -4929,6 +5036,392 @@ def layernorm_form_digests(torch) -> dict:
         pos6 = (256 + torch.arange(256, dtype=torch.int32, device="cuda"))[None]
         y = att.flash_attention(randn(1, 256, hq, d), k, v, pos6, scale=d ** -0.5)
         out[f"k6_g12_d128_{pn}"] = digest(y)
+    return out
+
+# ---- group 12: gpt-oss (attention sinks, swiglu_oai experts with biases) --------
+
+def start_oss_children():
+    """Group 12's file (gpt-oss-20b at OSS_LAYERS layers, as llama.cpp ships
+    it) and the 2-layer check's CPU side (which makes its file), niced."""
+    import atexit
+
+    prepare_requantized([(OSS_MAIN, (OSS_FTYPE,))])
+    _CPU_CHECKS[OSS_CHECK] = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--moe-cpu", OSS_CHECK], cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: [c.kill() for c in _CPU_CHECKS.values() if c.poll() is None])
+
+
+def oss_chat_ring(torch, model, kernels: dict, card: str) -> dict:
+    """gpt-oss behind ZllmServer (OSS_SLOTS slots, the auto layout: the ring
+    cache, its windowed layers' rings of 256 slots): OSS_CHAT_TOKENS-id chat
+    prompts (the harmony template; all but the last past the ring) sent
+    together to /v1/chat/completions, then one at a time; the texts must
+    agree, the launches be K2 and K6 in the full layers alone, each in its
+    sinks form, as the engine's step counters imply, and no matmul kernel
+    (every weight takes the dequantizing route).  Returns the counts."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.runtime.kvcache import KVCacheSWA
+    from zllm_torch.server.http import ZllmServer
+
+    tok = model.tokenizer
+    base = tok.encode("The quick brown fox jumps over the lazy dog while the chip counts every "
+                      "byte it reads. " * 200)
+    bodies = [{"messages": [{"role": "user", "content": f"Request {i}: "
+                             + tok.decode(base[7 * i:7 * i + n])}],
+               "max_tokens": OSS_CHAT_NEW, "temperature": 0}
+              for i, n in enumerate(OSS_CHAT_TOKENS)]
+    srv = ZllmServer(model, port=0, n_slots=OSS_SLOTS)
+    srv.start_background()
+    eng = srv.engine
+    sinks_fns = (att.attn_decode_qkv, att.flash_attention)
+    try:
+        if not isinstance(eng.kv, KVCacheSWA) or eng.paged:
+            fail("gpt-oss's server did not take the ring cache")
+        http_post(srv.port, "/v1/chat/completions", dict(bodies[-1], max_tokens=4))  # warm-up
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in sinks_fns:
+            fn.sinks_launches = 0
+        m0 = dict(eng.metrics)
+        together = {}
+
+        def client(i):
+            together[i] = json.loads(http_post(srv.port, "/v1/chat/completions", bodies[i]))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        window = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or len(together) != len(bodies):
+            fail("serve_ring_gpt_oss: concurrent chat requests did not finish")
+        alone = {i: json.loads(http_post(srv.port, "/v1/chat/completions", b))
+                 for i, b in enumerate(bodies)}
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        sinks = {fn.__name__: fn.sinks_launches for fn in sinks_fns}
+        m1 = dict(eng.metrics)
+        ring, swa = eng.kv.ring, eng.kv.swa_mask
+    finally:
+        srv.shutdown()
+    steps = {k: m1[k] - m0[k] for k in ENGINE_COUNTERS}
+    n_full = sum(not w for w in swa)
+    expected = serve_expected(kernels, model.cfg, steps, contig=True, gemms={},
+                              att_layers=n_full)
+    texts = [together[i]["choices"][0]["message"]["content"] for i in range(len(bodies))]
+    same = texts == [alone[i]["choices"][0]["message"]["content"] for i in range(len(bodies))]
+    prompt_ids_n = [together[i]["usage"]["prompt_tokens"] for i in range(len(bodies))]
+    gen_tokens = sum(r["usage"]["completion_tokens"] for r in together.values())
+    finishes = [r["choices"][0]["finish_reason"] for r in (*together.values(), *alone.values())]
+    res = {"phase": "serve_ring_chat_gpt_oss",
+           "model": main_shapes()[OSS_MAIN][1] + f" {OSS_FTYPE} (random weights, seed 0)",
+           "route": "/v1/chat/completions (harmony template)", "n_slots": eng.n_slots,
+           "max_len": eng.max_len, "chunk": eng.prefill_chunk,
+           "kv_layout": "ring (KVCacheSWA)", "ring_slots": ring, "ring_layers": sum(swa),
+           "full_layers": n_full, "prompt_tokens": prompt_ids_n,
+           "prompts_past_the_ring": sum(n > ring for n in prompt_ids_n),
+           "max_tokens": OSS_CHAT_NEW, "concurrent_window_s": window,
+           "generated_tokens": gen_tokens, "generated_tok_s": gen_tokens / window,
+           "concurrent_equals_sequential": same, "finish_reasons": finishes,
+           "engine_counters": steps, "launches": counts, "launches_expected": expected,
+           "sinks_launches": sinks, "card": card}
+    emit(res)
+    if steps["engine_errors_total"] or "error" in finishes or "" in finishes:
+        fail(f"serve_ring_gpt_oss: engine errors {steps['engine_errors_total']}, "
+             f"finishes {finishes}")
+    if not same:
+        fail(f"serve_ring_gpt_oss: concurrent chat texts differ from sequential ones: {texts}")
+    if sum(n > ring for n in prompt_ids_n) < len(bodies) - 1:
+        fail(f"serve_ring_gpt_oss: prompts of {prompt_ids_n} ids do not wrap the {ring}-slot ring")
+    if counts != expected or not steps["decode_steps_total"] or not steps["prefill_steps_total"]:
+        fail(f"serve_ring_gpt_oss: kernel launch counts {counts} != expected {expected}")
+    if sinks != {"attn_decode_qkv": counts["attn_decode_qkv"],
+                 "flash_attention": counts["flash_attention"]}:
+        fail(f"serve_ring_gpt_oss: sinks-form launches {sinks} != the launches {counts}")
+    return counts
+
+
+def oss_q8_path(torch, model, ids: list, kernels: dict, card: str) -> dict:
+    """The q8 cache's route for gpt-oss (`forward` over KVCacheQ8: the engine
+    refuses a q8 cache on a windowed model, the Generator takes a dtype):
+    the prompt in chunks, then 8 greedy decode steps, over the q8 cache and
+    over a bf16 stripe fed the same tokens; every K7 launch in its sinks
+    form (a chunk: the multi-row form and column 0 once more; a step: the
+    split form), no other attention kernel; the q8 logits' nmse against the
+    bf16 stripe's reported."""
+    from zllm_torch.models.llama import forward
+    from zllm_torch.ops import attention as att
+    from zllm_torch.runtime.kvcache import KVCache, KVCacheQ8
+
+    cfg = model.cfg
+    n_steps = 8
+    caches = {"bf16": KVCache.create(cfg.n_layers, 1, MAX_LEN, cfg.n_kv_heads, cfg.head_dim,
+                                     torch.bfloat16, "cuda"),
+              "q8": KVCacheQ8.create(cfg.n_layers, 1, MAX_LEN, cfg.n_kv_heads, cfg.head_dim,
+                                     device="cuda")}
+
+    def run(kv, toks, start):
+        tt = torch.tensor([toks], dtype=torch.int32, device="cuda")
+        pp = torch.arange(start, start + len(toks), dtype=torch.int32, device="cuda")[None]
+        with torch.inference_mode():
+            return forward(model.params, cfg, tt, pp, kv, logits_for="last")[0, -1].float()
+
+    out = {}
+    for name, kv in caches.items():
+        if name == "q8":
+            for fn in kernels.values():
+                fn.launches = 0
+            att.flash_attention_blockwise.sinks_launches = 0
+        logits = [run(kv, ids[c:c + CHUNK], c) for c in range(0, len(ids), CHUNK)][-1:]
+        fed = out["bf16"]["fed"] if name == "q8" else []
+        for i in range(n_steps):
+            if name == "bf16":
+                fed.append(int(torch.argmax(logits[-1])))
+            logits.append(run(kv, [fed[i]], len(ids) + i))
+        torch.cuda.synchronize()
+        out[name] = dict(fed=fed, logits=torch.stack(logits))
+        if name == "q8":
+            counts = {n: fn.launches for n, fn in kernels.items()}
+            sinks7 = att.flash_attention_blockwise.sinks_launches
+    n_chunks = -(-len(ids) // CHUNK)
+    expected = dict({n: 0 for n in kernels},
+                    flash_attention_blockwise=cfg.n_layers * (2 * n_chunks + n_steps))
+    errs = [nmse(a, b) for a, b in zip(out["q8"]["logits"], out["bf16"]["logits"])]
+    agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
+                for a, b in zip(out["q8"]["logits"], out["bf16"]["logits"]))
+    res = {"phase": "q8_path_gpt_oss", "model": main_shapes()[OSS_MAIN][1],
+           "prompt_tokens": len(ids), "decode_steps": n_steps, "launches": counts,
+           "launches_expected": expected, "sinks_launches": sinks7,
+           "logits_nmse_vs_bf16_stripe_by_step": errs, "argmax_agree": f"{agree}/{len(errs)}",
+           "finite": bool(torch.isfinite(out["q8"]["logits"]).all()), "card": card}
+    emit(res)
+    if counts != expected or sinks7 != counts["flash_attention_blockwise"]:
+        fail(f"q8_path_gpt_oss: launches {counts} (sinks {sinks7}) != expected {expected}")
+    if not res["finite"]:
+        fail("q8_path_gpt_oss: the q8 cache's logits are not finite")
+    return counts
+
+
+def oss_kernel_lines(torch, F, model, gen, pos_v: int, card: str, paths: dict) -> list[dict]:
+    """The sinks forms at gpt-oss's shapes (64 / 8 heads of 64, G 8, its
+    yarn rope, windows 128 and 0 on alternate layers, the model's sink
+    logits), each against its plain version, one SDPA call a layer without
+    the sink (SDPA takes none) and its bound: K2 over the main path's decode
+    step (its caches at the last position), K6 over a 256-token chunk from
+    256 on those caches, and K7 over int8 K/V at a 4-slot engine's steps (a
+    decode step: the split form; a mixed step of 128 rows) (`k7_case`)."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import rope_table
+
+    cfg = model.cfg
+    L, hq, hkv, d = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = cfg.attn_scale or d ** -0.5
+    sinks = [layer["attn_sinks"] for layer in model.params["layers"]]
+    windows = [cfg.layer_window(il) for il in range(L)]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(28)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def by_path(name):
+        return {p: c.get(name, 0) for p, c in paths.items()}
+
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    lines = [_k2_line(torch, F, att, name="attn_decode_qkv_sinks", cfg=cfg, kcs=gen.kv.k,
+                      vcs=gen.kv.v, pos_v=pos_v, randn=randn, by_path=by_path,
+                      ropes=[rope_table(pos, cfg.layer_rope(il), d) for il in range(L)],
+                      windows=windows, sinks=sinks,
+                      unit=f"one {main_shapes()[OSS_MAIN][1]} decode step")]
+
+    # K6 with sinks: a chunk of 256 from 256 over the main path's caches
+    kcs, vcs = gen.kv.k, gen.kv.v
+    t6, p6 = CHUNK, CHUNK
+    pos6 = (p6 + torch.arange(t6, dtype=torch.int32, device="cuda"))[None]
+    q6 = randn(1, t6, hq, d)
+    errs = []
+    for il in (0, 1):  # a windowed layer and a full one
+        a = att.flash_attention(q6, kcs[il], vcs[il], pos6, scale=scale, window=windows[il],
+                                sinks=sinks[il])
+        b = att.flash_attention_plain(q6, kcs[il], vcs[il], pos6, scale=scale,
+                                      window=windows[il], sinks=sinks[il])
+        errs.append((nmse(a.float(), b.float()), float((a.float() - b.float()).abs().max())))
+
+    def k6(fn):
+        def go():
+            for il in range(L):
+                fn(q6, kcs[il], vcs[il], pos6, scale=scale, window=windows[il], sinks=sinks[il])
+        return go
+
+    q6b = q6.to(torch.bfloat16).transpose(1, 2)
+    cols = torch.arange(kcs[0].shape[2], device="cuda")[None]
+    qp = pos6[0][:, None]
+    masks = {w: ((cols <= qp) & ((cols > qp - w) if w else True)).reshape(1, 1, t6, -1)
+             for w in set(windows)}
+
+    def k6_lib():
+        for il in range(L):
+            F.scaled_dot_product_attention(q6b, kcs[il], vcs[il], attn_mask=masks[windows[il]],
+                                           scale=scale, enable_gqa=True)
+
+    pairs = sum(p6 + i + 1 - (max(p6 + i - w + 1, 0) if w else 0)
+                for w in windows for i in range(t6))
+    seen = sum(p6 + t6 - (max(p6 - w + 1, 0) if w else 0) for w in windows)
+    b6 = bound_ms(L * 2 * q6.numel() * 4 + 2 * hkv * seen * d * 2, 4 * hq * d * pairs, "bf16")
+    lines.append(dict(
+        name="flash_attention_sinks", route="cuda", source="zllm_torch/csrc/flash_attn.cu",
+        replaces="zllm/ops/attention.py:33", launches=sum(by_path("flash_attention").values()),
+        max_abs_err=max(m for _, m in errs), nmse=max(e for e, _ in errs), tolerance=1e-5,
+        ms=cuda_ms(k6(att.flash_attention), 10), plain_ms=cuda_ms(k6(att.flash_attention_plain), 2),
+        bound_ms=b6[0], bound_by=b6[1], library_ms=cuda_ms(k6_lib, 10),
+        library="scaled_dot_product_attention (causal and window masks; no sink: SDPA takes "
+                "none)",
+        launches_by_path=by_path("flash_attention"),
+        unit=f"one {main_shapes()[OSS_MAIN][1]} prefill chunk ({L} launches)",
+        shapes=f"q [1,{t6},{hq},{d}] f32 from {p6}, k/v [1,{hkv},{kcs[0].shape[2]},{d}] bf16, "
+               f"G {hq // hkv}, windows {windows}, sinks [{hq}] f32"))
+
+    # K7 with sinks over int8 K/V at a 4-slot engine's steps (S 2176)
+    n_slots, s7 = 4, MAX_LEN + 128
+
+    def codes():
+        return torch.randint(-127, 128, (n_slots, hkv, s7, d), generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    kvs = [(codes(), codes(), randn(n_slots, hkv, s7, 1).abs() * 0.01 + 1e-3,
+            randn(n_slots, hkv, s7, 1).abs() * 0.01 + 1e-3) for _ in range(L)]
+    k7 = {step: k7_case(torch, F, randn, kvs, t7, starts_, hq, scale, sinks=sinks,
+                        windows=windows)
+          for step, t7, starts_ in (("decode", 1, [255, 0, 300, MAX_LEN]),
+                                    ("mixed", 128, [0, 256, 300, MAX_LEN]))}
+    del kvs
+    lines.append(dict(
+        name="flash_attention_blockwise_sinks", route="cuda",
+        source="zllm_torch/csrc/attn_blockwise.cu", replaces="zllm/ops/attention.py:165",
+        launches=sum(by_path("flash_attention_blockwise").values()),
+        **{k: k7["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "nmse", "max_abs_err", "tolerance", "shapes")},
+        library="scaled_dot_product_attention on K/V dequantized to bf16 outside the timing "
+                "(no sink: SDPA takes none)",
+        launches_by_path=by_path("flash_attention_blockwise"),
+        unit=f"a 4-slot q8 decode step at gpt-oss's shapes ({L} launches), int8 K/V, windows "
+             f"{windows}", mixed_step=k7["mixed"]))
+    for ln in lines:
+        emit({"phase": "kernel_gpt_oss", "card": card, **ln})
+    bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
+    if not k7["mixed"]["nmse"] <= k7["mixed"]["tolerance"]:
+        bad.append("flash_attention_blockwise_sinks mixed step")
+    if bad:
+        fail(f"the sinks forms disagree with their plain versions: {bad}")
+    return lines
+
+
+def gpt_oss_group(torch, kernels: dict, card: str) -> dict:
+    """Group 12: gpt-oss-20b (OSS_LAYERS layers) through the Generator (the
+    prompt past its window in chunks, 31 decode steps, K2 and K6 in their
+    sinks forms and no matmul kernel, from the recorded routing), its q8
+    route (K7 with sinks), the ring server under concurrent chat requests,
+    the 2-layer full-width check against the CPU, and the sinks forms'
+    kernel lines.  Returns the paths' launch counts and the kernel lines."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    model, counts_main, gen, ids, tokens, _ = moe_main_path(torch, kernels, card, name=OSS_MAIN,
+                                                            ftype=OSS_FTYPE)
+    pos_v = PROMPT_TOKENS + len(tokens) - 1  # the last decode step's position
+    counts = {OSS_MAIN: counts_main,
+              "q8_path_gpt_oss": oss_q8_path(torch, model, ids, kernels, card),
+              "serve_ring_chat_gpt_oss": oss_chat_ring(torch, model, kernels, card)}
+    lines = oss_kernel_lines(torch, F, model, gen, pos_v, card, counts)
+    del model, gen
+    torch.cuda.empty_cache()
+    counts[OSS_CHECK] = moe_2layer_check(torch, kernels, card, OSS_CHECK, phase="gpt_oss_2layer",
+                                         must=("attn_decode_qkv", "flash_attention"),
+                                         tie_gap=LN_TIE_GAP)
+    torch.cuda.empty_cache()
+    emit({"phase": "gpt_oss_group", "seconds": time.perf_counter() - t0, "card": card})
+    return {"counts": counts, "lines": lines}
+
+
+def gpt_oss_phases():
+    """`python3 chip_smoke.py --gpt-oss`: group 12 alone after building the
+    kernels (its file and CPU reference made by children meanwhile), then
+    the sinks forms' digests."""
+    torch, card = setup_card()
+    from zllm_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    start_oss_children()
+    reports = cuda.build()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "built": sorted(reports),
+          "attn_decode": ptxas_entries({"attn_decode": reports.get("attn_decode", "")},
+                                       "attn_decode_qkv_kernel")})
+    kernels = kernel_wrappers()
+    gpt_oss_group(torch, kernels, card)
+    emit({"phase": "form_digests", "tree": str(REPO), "gpt_oss": gpt_oss_form_digests(torch)})
+    print(card, flush=True)
+
+
+def gpt_oss_form_digests(torch) -> dict:
+    """Digests of the sinks forms this slice first runs, on a stream of
+    their own (seed 280): K2 with sinks at G 8, d 64 (windows 0 and 128;
+    the output and both caches after the insert) over f32, bf16 and f16
+    caches, K6 with sinks over f32, bf16 and f16 K/V, and K7 with sinks over
+    int8 and bf16 K/V (a decode row set and a 64-row chunk)."""
+    from zllm_torch.ops import attention as att
+    from zllm_torch.ops.layers import RopeParams, rope_table
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(280)
+
+    def randn(*shape_, dtype=torch.float32):
+        return torch.randn(*shape_, generator=g, device="cuda").to(dtype)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            torch.cuda.synchronize()
+            h.update(t.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    hq, hkv, d = 16, 2, 64
+    kv_dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    sinks = randn(hq) * 2
+    out = {}
+    rope = RopeParams(dim=d, base=150000.0, style="neox", scaling="yarn", scale_factor=32.0,
+                      orig_ctx=4096)
+    for w in (0, 128):
+        for cn, cd in kv_dtypes.items():
+            pos = torch.tensor([331, 0, 1100], dtype=torch.int32, device="cuda")
+            qkv3 = randn(3, hq + 2 * hkv, d)
+            kc, vc = (randn(3, hkv, 1152, d, dtype=cd) for _ in range(2))
+            y = att.attn_decode_qkv(qkv3, kc, vc, pos, rope_table(pos, rope, d),
+                                    scale=d ** -0.5, window=w, sinks=sinks)
+            out[f"k2_sinks_w{w}_{cn}"] = digest(y, kc, vc)
+            k, v = (randn(1, hkv, 1024, d, dtype=cd) for _ in range(2))
+            pos6 = (256 + torch.arange(256, dtype=torch.int32, device="cuda"))[None]
+            y = att.flash_attention(randn(1, 256, hq, d), k, v, pos6, scale=d ** -0.5, window=w,
+                                    sinks=sinks)
+            out[f"k6_sinks_w{w}_{cn}"] = digest(y)
+        for kn in ("int8", "bf16"):
+            if kn == "int8":
+                k, v = (torch.randint(-127, 128, (3, hkv, 1152, d), generator=g, device="cuda",
+                                      dtype=torch.int8) for _ in range(2))
+                ks, vs = (randn(3, hkv, 1152, 1).abs() * 0.01 + 1e-3 for _ in range(2))
+            else:
+                (k, v), ks, vs = (randn(3, hkv, 1152, d, dtype=torch.bfloat16)
+                                  for _ in range(2)), None, None
+            for t in (1, 64):
+                starts = torch.tensor([0, 300, 1024], dtype=torch.int32, device="cuda")
+                pos7 = starts[:, None] + torch.arange(t, dtype=torch.int32, device="cuda")[None]
+                y = att.flash_attention_blockwise(randn(3, t, hq, d), k, v, pos7,
+                                                  scale=d ** -0.5, window=w, sinks=sinks, ks=ks,
+                                                  vs=vs)
+                out[f"k7_sinks_w{w}_{kn}_t{t}"] = digest(y)
     return out
 
 
@@ -5515,13 +6008,16 @@ def main():
     counts_switches = switches_phase(torch, model_m, kernels, card)
     # group 8: speculative decoding, lookahead and the whole-cache shift
     spec = spec_group(torch, model_m, kernels, card)
-    # group 11's files and CPU references, two groups ahead of it
+    # group 11's and group 12's files and CPU references, ahead of them
     start_ln_children()
+    start_oss_children()
     # group 9: the Gemma text families (head_dim 256, windows, the ring)
     gemma = gemma_group(torch, kernels, card)
     moe = moe_group(torch, kernels, card)
     # group 11: the layer-norm families (partial neox rope, G 12)
     layernorm = layernorm_group(torch, kernels, card)
+    # group 12: gpt-oss (sinks through K2, K6 and K7; the dequantizing route)
+    gpt_oss = gpt_oss_group(torch, kernels, card)
     paths = {"Q4_K": counts_q4k, "Q4_K_M": counts_q4km, "olmo2": counts_olmo2,
              "olmo2_hbm": counts_hbm, "Q4_0": counts_q40, "q4_0_dualdot": counts_q40_dd,
              "olmo2_q4_1": counts_o1, "olmo2_q4_1_dualdot": counts_o1_dd,
@@ -6717,6 +7213,7 @@ def main():
     lines += gemma["lines"]  # the d 256 forms (group 9), each a line of its own
     lines += moe["lines"]  # the experts' K3 / K5 and K7's d 256 forms (group 10)
     lines += layernorm["lines"]  # partial neox K2, G 12 K2 / K9 / K10, a Pythia K6 (group 11)
+    lines += gpt_oss["lines"]  # K2's, K6's and K7's sinks forms (group 12)
     for line in lines:
         emit({"phase": "kernel", "card": card, **line})
     bad = [ln["name"] for ln in lines if not ln["nmse"] <= ln["tolerance"]]
@@ -6745,6 +7242,9 @@ def main():
                      "attn_decode_qkv_g12", "flash_attention_pythia",
                      "paged_attn_decode_update_g12", "paged_attention_g12")},
                  flash_attention_blockwise_g12=["bfloat16", "int8"],
+                 attn_decode_qkv_sinks=["float32", "bfloat16", "float16"],
+                 flash_attention_sinks=["float32", "bfloat16", "float16"],
+                 flash_attention_blockwise_sinks=["bfloat16", "int8"],
                  **{f"{name}_pythia": forms[name] for name in (
                      "q4k_matvec", "int8_matvec", "q4k_gemm", "dequant_gemm")},
                  q4k_gemm_experts=forms["q4k_gemm"], dequant_gemm_experts=forms["dequant_gemm"])
@@ -6780,6 +7280,8 @@ if __name__ == "__main__":
         moe_cpu_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--layernorm"]:  # group 11 alone
         layernorm_phases()
+    elif sys.argv[1:2] == ["--gpt-oss"]:  # group 12 alone
+        gpt_oss_phases()
     elif sys.argv[1:2] == ["--ln-cpu"]:  # a child of start_ln_children
         os.nice(19)
         sys.path.insert(0, str(REPO))

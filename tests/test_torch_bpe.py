@@ -169,7 +169,7 @@ def test_tokenizer_needs_no_regex():
     assert int(out.stdout.strip()) > 0
 
 
-@pytest.mark.parametrize("pre", ["default", "falcon", "deepseek-llm", "gpt-4o", "tekken",
+@pytest.mark.parametrize("pre", ["default", "falcon", "deepseek-llm", "seed-coder", "tekken",
                                  "deepseek-coder", "no-such-pre"])
 def test_other_pretokenizers_are_refused(pre):
     from zllm_torch.tokenizer import Tokenizer

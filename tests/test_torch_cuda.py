@@ -1838,3 +1838,159 @@ def test_moe_ffn_rows_and_launches(dev):
     assert tq.q4k_gemm.launches - k3 == len(used) and tq.dequant_gemm.launches - k5 == len(used)
     assert torch.equal(moe_ffn(lay, cfg, h[:, :1])[0, 0], full[0, 0])
     assert torch.equal(moe_ffn(lay, cfg, h[:, 100:104]), full[:, 100:104])
+
+
+# K2's sinks form at gpt-oss's shapes (64 / 8 heads of 64: G 8; its yarn
+# rope): (rows' positions, S, window, sink shift)
+K2_SINKS_CASES = {
+    "decode": ([331], 2048, 0, 0.0),
+    "windowed": ([331], 2048, 128, 0.0),
+    "rows": ([0, 127, 1000, 2047], 2048, 128, 0.0),
+    "sink_above_all": ([331, 5], 2048, 0, 40.0),
+    "trash": ([2400], 2176, 128, 0.0),
+    "long_span": ([8000], 8192, 0, 0.0),
+}
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("cdtype", KV3, ids=KV3_IDS)
+@pytest.mark.parametrize("case", list(K2_SINKS_CASES))
+def test_k2_sinks_matches_plain(dev, case, cdtype, qdtype):
+    """K2's sinks form against its plain version: a sink above every score
+    (`sink_above_all`), a trash row so far past the horizon that its window
+    holds no slot (`trash`: the sink alone, an output of zeros), a span of
+    several chunks (`long_span`);
+    the insert as without sinks, and `.sinks_launches` counted."""
+    pos_vals, s, window, shift = K2_SINKS_CASES[case]
+    b, hq, hkv, d = len(pos_vals), 64, 8, 64
+    qkv3 = _randn((b, hq + 2 * hkv, d), 50, dev, qdtype)
+    kc, vc = _randn((b, hkv, s, d), 51, dev, cdtype), _randn((b, hkv, s, d), 52, dev, cdtype)
+    sinks = _randn((hq,), 53, dev) + shift
+    pos = torch.tensor(pos_vals, dtype=torch.int32, device=dev)
+    rope = tl.RopeParams(dim=d, base=150000.0, style="neox", scaling="yarn", scale_factor=32.0,
+                         orig_ctx=4096)
+    rt = tl.rope_table(pos, rope, d)
+    kw = dict(scale=d ** -0.5, window=window, sinks=sinks)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = ta.attn_decode_qkv.sinks_launches
+    got = ta.attn_decode_qkv(qkv3, k1, v1, pos, rt, **kw)
+    want = ta.attn_decode_qkv_plain(qkv3, k2, v2, pos, rt, **kw)
+    torch.cuda.synchronize()
+    assert ta.attn_decode_qkv.sinks_launches == before + 1
+    assert got.dtype == qdtype and bool(torch.isfinite(got).all())
+    assert _nmse(got.float(), want.float()) < 1e-5
+    assert torch.equal(v1, v2) and _nmse(k1.float(), k2.float()) < 1e-9
+    if case != "trash":  # the sinks move the output (the trash row's is all zero)
+        plain = ta.attn_decode_qkv(qkv3, kc.clone(), vc.clone(), pos, rt, scale=d ** -0.5,
+                                   window=window)
+        assert _nmse(plain.float(), got.float()) > 1e-10
+
+
+@pytest.mark.parametrize("kvdtype", KV3, ids=KV3_IDS)
+@pytest.mark.parametrize("window", [0, 128])
+def test_k6_sinks_at_gpt_oss_shapes(dev, window, kvdtype):
+    """K6 with sinks over a gpt-oss chunk (T 256 from 256, G 8, d 64)."""
+    hq, hkv, d, t, s = 64, 8, 64, 256, 1024
+    q = _randn((1, t, hq, d), 54, dev)
+    k, v = _randn((1, hkv, s, d), 55, dev, kvdtype), _randn((1, hkv, s, d), 56, dev, kvdtype)
+    positions = (256 + torch.arange(t, device=dev, dtype=torch.int32))[None]
+    kw = dict(scale=d ** -0.5, window=window, sinks=_randn((hq,), 57, dev))
+    before = ta.flash_attention.sinks_launches
+    got = ta.flash_attention(q, k, v, positions, **kw)
+    want = ta.flash_attention_plain(q, k, v, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention.sinks_launches == before + 1
+    assert _nmse(got.float(), want.float()) < 1e-5
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("t", [1, 128], ids=["decode", "chunk"])
+@pytest.mark.parametrize("window", [0, 128])
+def test_k7_sinks_at_gpt_oss_shapes(dev, window, t, kv):
+    """K7 with sinks at gpt-oss's heads (G 8, d 64) over a 4-slot q8 or bf16
+    cache (S 2176, rows at 255, 0, 300 and a trash row)."""
+    b, hq, hkv, d, s = 4, 64, 8, 64, 2176
+    q = _randn((b, t, hq, d), 58, dev)
+    if kv == "int8":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(59)
+        k, v = (torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks = _randn((b, hkv, s, 1), 60, dev).abs() * 0.01 + 1e-3
+        vs = _randn((b, hkv, s, 1), 61, dev).abs() * 0.01 + 1e-3
+    else:
+        k, v = _randn((b, hkv, s, d), 62, dev, torch.bfloat16), _randn((b, hkv, s, d), 63, dev,
+                                                                       torch.bfloat16)
+        ks = vs = None
+    starts = [255, 0, 300, 2048] if t == 1 else [0, 256, 300, 2048]
+    positions = (torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+                 + torch.arange(t, dtype=torch.int32, device=dev)[None])
+    kw = dict(scale=d ** -0.5, window=window, ks=ks, vs=vs, sinks=_randn((hq,), 64, dev))
+    before = ta.flash_attention_blockwise.sinks_launches
+    got = ta.flash_attention_blockwise(q, k, v, positions, **kw)
+    want = ta.flash_attention_blockwise_plain(q, k, v, positions, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention_blockwise.sinks_launches == before + 1
+    assert bool(torch.isfinite(got).all()) and _nmse(got.float(), want.float()) < 1e-6
+
+
+def test_dequant_route_rows_do_not_depend_on_m(dev):
+    """A weight zllm's kernels do not take (Q8_0 at K 2880, N 2880; MXFP4
+    at K 96) runs x @ dequant(w) by torch.matmul in fixed row blocks: a
+    row's bits are the same alone and among 37 rows, and no kernel wrapper
+    is launched."""
+    from zllm_torch.ops.linear import linear
+
+    launches = {n: getattr(tq, n).launches for n in ("q4k_matvec", "int8_matvec", "q4k_gemm",
+                                                     "dequant_gemm")}
+    for fmt, n, k in ((GGMLType.Q8_0, 2880, 2880), (GGMLType.MXFP4, 320, 96)):
+        w = repack(_qweight_raw(n, k, 70, fmt), (n, k), fmt, dev)
+        assert not tq.supports(w)
+        for xdtype in (torch.float32, torch.bfloat16):
+            x = _randn((37, k), 71, dev, xdtype)
+            full = linear(x, w)
+            assert full.dtype == torch.float32
+            assert torch.equal(linear(x[5:6], w), full[5:6])
+            assert torch.equal(linear(x[:4], w), full[:4])
+            want = x.float() @ w.dequant(torch.float32).to(xdtype).float()
+            assert _nmse(full, want) < 1e-5
+    torch.cuda.synchronize()
+    assert launches == {n: getattr(tq, n).launches for n in launches}
+
+
+def test_gpt_oss_model_on_card_matches_cpu(dev, tmp_path):
+    """A 2-layer gpt-oss file (320 wide, MXFP4 experts, Q8_0 elsewhere, a
+    window of 8, yarn) generated greedily on the card (f32 model and cache)
+    gives the CPU's tokens, its logits within nmse 1e-6, every K2 and K6
+    launch in its sinks form and no matmul kernel launched."""
+    from zllm_torch.models.loader import Model
+    from zllm_torch.runtime.generate import Generator
+    from zllm_torch.testing import make_llama_gguf
+
+    path = make_llama_gguf(str(tmp_path / "oss.gguf"), arch="gpt-oss", n_layers=2, n_embd=320,
+                           n_heads=4, n_kv_heads=2, head_dim=64, n_ff=96, n_experts=4,
+                           n_experts_used=2, vocab_size=512, sliding_window=8,
+                           rope_base=150000.0, rope_yarn=(32.0, 64), gtype=GGMLType.Q8_0,
+                           expert_gtype=GGMLType.MXFP4)
+    prompt = [1] + list(range(40, 79))
+    out = {}
+    for side in ("cpu", "cuda"):
+        m = Model.load(path, device=side, dtype=torch.float32)
+        gen = Generator(m, max_len=128, prefill_chunk=16, kv_dtype=torch.float32)
+        counters = [ta.attn_decode_qkv, ta.flash_attention, tq.q4k_gemm, tq.dequant_gemm,
+                    tq.int8_matvec, tq.q4k_matvec]
+        before = [(f.launches, getattr(f, "sinks_launches", 0)) for f in counters]
+        logits = [gen.prefill(prompt).float().cpu()]
+        toks = [int(torch.argmax(logits[0]))]
+        for i in range(8):
+            logits.append(gen._decode_one(toks[-1], len(prompt) + i).float().cpu())
+            toks.append(int(torch.argmax(logits[-1])))
+        out[side] = (toks, torch.stack(logits))
+        if side == "cuda":
+            torch.cuda.synchronize()
+            after = [(f.launches, getattr(f, "sinks_launches", 0)) for f in counters]
+            (k2, k2s), (k6, k6s), *mm = [(a - b, c - d) for (a, c), (b, d) in zip(after, before)]
+            assert k2 == k2s == 2 * (3 + 8) and k6 == k6s == 2 * 3
+            assert all(n == 0 for n, _ in mm)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert _nmse(out["cuda"][1], out["cpu"][1]) < 1e-6

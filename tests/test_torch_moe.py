@@ -78,6 +78,9 @@ CONFIG_CASES = {
     "qwen3moe_no_norm": ("qwen3moe", dict(MOE_KEYS, norm_topk_prob=False)),
     "llama_sigmoid_scale": ("llama", dict(MOE_KEYS, expert_gating_func=2,
                                           expert_weights_scale=2.5)),
+    "llama_softmax_weight": ("llama", dict(MOE_KEYS, expert_gating_func=3)),
+    "gpt_oss": ("gpt-oss", dict(expert_count=32, expert_used_count=4,
+                                expert_feed_forward_length=2880)),
     "dense_llama": ("llama", {}),
 }
 
@@ -98,7 +101,6 @@ def test_moe_config_equals_zllm(case):
 
 
 REFUSALS = {
-    "softmax_weight": ("llama", dict(MOE_KEYS, expert_gating_func=3)),
     "expert_groups": ("qwen3moe", dict(MOE_KEYS, expert_group_count=2,
                                        expert_group_used_count=1)),
     "router_softcap": ("llama", dict(MOE_KEYS, router_logit_softcapping=30.0)),

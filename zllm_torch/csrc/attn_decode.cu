@@ -6,7 +6,14 @@
 // per-row cos/sin table; it computes what the Pallas kernel's [D, D]
 // rotation matmul computes), write the new K/V row into the cache in place
 // at row pw = min(pos, S-1), then GQA attention over slots <= pos (and
-// > pos - window) with optional logit softcap.
+// > pos - window) with optional logit softcap and, in the sinks form,
+// per-head sink logits s_h (gpt-oss's): s_h joins the row's softmax as a
+// logit of its own that attends to nothing, the row max max(m, s_h) and
+// the denominator plus exp(s_h - max), as zllm's attention_ref takes it
+// (zllm runs no kernel there).  The sinks form is the same kernel: each
+// chunk's max takes s_h, and the row's denominator gains its term once,
+// so a sink above every score, or a span with no visible slot, still
+// counts; with no sinks every value keeps its bits.
 //
 // Rounding points kept from the Pallas kernel: the roped q and the new
 // K/V rows are cast to the cache dtype (rope's products and sums rounded
@@ -154,6 +161,7 @@ struct Params {
   const float* sinb;
   const float* qw;      // [D] or null (no q/k norm)
   const float* kw;
+  const float* sinks;   // [Hq] or null: the sinks form (a logit of its own a head)
   void* out;            // [B, Hq, D] in qkv3's dtype
   float* gsc;           // [B, Y, RM, S] scores of multi-chunk rows
   float2* gst;          // [B, Y, splits, RM] their chunks' (max, sum of exp)
@@ -387,6 +395,9 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
     const int r = tid % RM;
     float m = kNeg;
     for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w * RM + r]);
+    // the sinks form: every chunk's max takes the row's sink logit, so the
+    // row's max M is max(m, s_h) and e = exp(s - M) stays below 1
+    if (p.sinks != nullptr && r < nr) m = fmaxf(m, p.sinks[h * G + r0 + r]);
     float l = 0.f;
     for (int e = tid; e < n_c * RM; e += kThreads) {
       const float x = sc[e];
@@ -438,6 +449,7 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
                                  : __ldcg(&p.gst[(gy * p.splits + i) * RM + r]);
         if (st.x > kNeg) l += st.y * expf(st.x - M);
       }
+      if (p.sinks != nullptr && r < nr) l += expf(p.sinks[h * G + r0 + r] - M);
       row_m[r] = M;
       row_l[r] = l;
     }
@@ -448,7 +460,11 @@ __global__ void __launch_bounds__(kThreads) attn_decode_qkv_kernel(const Params 
   // combined one.  Read from shared memory where it is used (the f32 form's
   // P.V at D 256 has no registers to spare for a copy)
   if (nsp == 1) {
-    if (tid < RM) row_l[tid] = chunk_l(tid);
+    if (tid < RM) {
+      float l = chunk_l(tid);
+      if (p.sinks != nullptr && tid < nr) l += expf(p.sinks[h * G + r0 + tid] - cm[tid]);
+      row_l[tid] = l;
+    }
     __syncthreads();
   }
 
@@ -614,7 +630,8 @@ extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
 }
 
 // dtype codes: q 0 = float32 or 1 = bfloat16; the caches 0, 1 or 3 =
-// float16.  qw/kw may be null (no q/k norm).
+// float16.  qw/kw may be null (no q/k norm); sinks f32 [Hq] may be null
+// (no sinks).
 // gsc [B, Hkv * ceil(G / 8), 8, S] f32 and gst [B, Hkv * ceil(G / 8),
 // splits, 8] float2 are scratch (touched only by rows of more than one
 // chunk); counters [B, Hkv * ceil(G / 8)] int32 must be zero and are left
@@ -622,13 +639,14 @@ extern "C" int zt_attn_decode_chunk(int c_dtype, int D) {
 extern "C" int zt_attn_decode_qkv(const void* qkv3, int q_dtype, void* kc, void* vc,
                                   int c_dtype, const int* pos, const float* cosb,
                                   const float* sinb, const float* qw, const float* kw,
-                                  void* out, float* gsc, void* gst, int* counters, int B,
+                                  const float* sinks, void* out, float* gsc, void* gst,
+                                  int* counters, int B,
                                   int Hq, int Hkv, int S, int D, int R, int neox, float scale,
                                   float softcap, int window, float eps, void* stream) {
   const int chunk = zt_attn_decode_chunk(c_dtype, D);
   if (chunk == 0 || R > D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  Params p{qkv3, kc, vc, pos, cosb, sinb, qw, kw, out, gsc, static_cast<float2*>(gst), counters,
-           Hq, Hkv, S, R, neox, (S + chunk - 1) / chunk, window, scale, softcap, eps};
+  Params p{qkv3, kc, vc, pos, cosb, sinb, qw, kw, sinks, out, gsc, static_cast<float2*>(gst),
+           counters, Hq, Hkv, S, R, neox, (S + chunk - 1) / chunk, window, scale, softcap, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && c_dtype == 0) return launch_d<float, float>(p, B, D, s);
   if (q_dtype == 0 && c_dtype == 1) return launch_d<float, __nv_bfloat16>(p, B, D, s);

@@ -7,7 +7,11 @@ layers and `attention.query_pre_attn_scalar`, and the mixture-of-experts
 files: Mixtral-style llama with `expert_count`, qwen2moe and qwen3moe,
 whose expert keys resolve into `MoeConfig` as zllm resolves them, and the
 layer-norm families gptneox, stablelm and starcoder2, with their norm
-kind, activation, `use_parallel_residual` and partial rope)."""
+kind, activation, `use_parallel_residual` and partial rope, and gpt-oss:
+its experts' `softmax_weight` gating (zllm's default for the arch, which
+llama.cpp's files need not write), `swiglu_oai`, a window on every other
+layer and the file's yarn rope, whose magnitude scale zllm's `_rope_freqs`
+applies to cos and sin)."""
 
 from __future__ import annotations
 
@@ -32,29 +36,36 @@ _ROPE_SCALING_NAMES = {0: "none", 1: "linear", 2: "yarn", 3: "longrope"}
 # rope over the first rope.dimension_count dims of a head, biases on the
 # projections (gptneox and starcoder2 on all of them, stablelm on q/k/v)
 # and, gptneox and starcoder2, a non-gated gelu MLP; gptneox files set
-# use_parallel_residual (attention and MLP both read the layer's input)
+# use_parallel_residual (attention and MLP both read the layer's input);
+# gpt-oss is the llama block with q/k/v and wo biases, per-head attention
+# sinks, a window on every other layer (layer 0 first) and experts with
+# biases behind a biased router (softmax over the top-k raw logits) and the
+# clamped swiglu_oai
 SUPPORTED_ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-                    "qwen3moe", "gptneox", "stablelm", "starcoder2")
+                    "qwen3moe", "gptneox", "stablelm", "starcoder2", "gpt-oss")
 # architectures whose GGUFs carry half-split rope natively (zllm's
 # _NEOX_ROPE_ARCHES, restricted to those above): no q/k permutation at load
 NEOX_ROPE_ARCHES = ("olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-                    "qwen3moe", "gptneox", "stablelm", "starcoder2")
+                    "qwen3moe", "gptneox", "stablelm", "starcoder2", "gpt-oss")
 # the architectures whose blocks normalize with LayerNorm (zllm's
 # norm_kind "layer"), and the activation of each architecture's FFN where
 # it is not SwiGLU's silu (zllm's `act`): the tanh-approximate gelu of
 # Gemma's geglu and StarCoder2's MLP, GPT-NeoX's exact (erf) one; the
-# non-gated MLP (ffn_up, ffn_down) belongs to gptneox and starcoder2
+# non-gated MLP (ffn_up, ffn_down) belongs to gptneox and starcoder2;
+# gpt-oss's experts take the clamped "swiglu_oai"
 LAYER_NORM_ARCHES = ("gptneox", "stablelm", "starcoder2")
 ACTS = {"gemma": "gelu", "gemma2": "gelu", "gemma3": "gelu", "starcoder2": "gelu",
-        "gptneox": "gelu_exact"}
+        "gptneox": "gelu_exact", "gpt-oss": "swiglu_oai"}
 NON_GATED_ARCHES = ("gptneox", "starcoder2")
 # the architectures whose files may carry experts (`expert_count` > 0), and
-# zllm's default of expert_weights_norm for each (llama: Mixtral)
-MOE_ARCHES = {"llama": True, "qwen2moe": False, "qwen3moe": True}
+# zllm's default of expert_weights_norm for each (llama: Mixtral), and the
+# architectures whose gating defaults to zllm's 3, softmax_weight
+MOE_ARCHES = {"llama": True, "qwen2moe": False, "qwen3moe": True, "gpt-oss": False}
+SOFTMAX_WEIGHT_ARCHES = ("gpt-oss",)
 _MOE_ITEM = "ROADMAP queue 1 item 8"
 # the period of the windowed layers (zllm's swa_pattern: layer il is
 # windowed unless (il + 1) % pattern == 0); 1, the other arches': none
-SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
+SWA_PATTERN = {"gemma2": 2, "gemma3": 6, "gpt-oss": 2}
 
 # `{arch}.*` keys zllm's from_gguf reads for any architecture and its llama
 # forward applies, none of which the port's forward does: the key -> a test
@@ -103,7 +114,7 @@ class MoeConfig:
     n_experts_used: int
     n_ff_exp: int
     n_shared_experts: int = 0
-    gate_func: str = "softmax"  # softmax | sigmoid (| softmax_weight: refused)
+    gate_func: str = "softmax"  # softmax | sigmoid | softmax_weight (gpt-oss)
     norm_topk_prob: bool = True
     scale: float = 1.0  # the routed experts' weight scale
     n_dense_lead: int = 0
@@ -132,7 +143,7 @@ def moe_config(arch: str, kv) -> MoeConfig | None:
         n_ff_exp=int(kv("expert_feed_forward_length", kv("feed_forward_length"))),
         n_shared_experts=int(kv("expert_shared_count", 0)),
         gate_func={1: "softmax", 2: "sigmoid", 3: "softmax_weight"}.get(
-            int(kv("expert_gating_func", 1)), "softmax"),
+            int(kv("expert_gating_func", 3 if arch in SOFTMAX_WEIGHT_ARCHES else 1)), "softmax"),
         norm_topk_prob=bool(kv("expert_weights_norm", kv("norm_topk_prob", MOE_ARCHES[arch]))),
         scale=float(kv("expert_weights_scale", 1.0)),
         n_dense_lead=int(kv("leading_dense_block_count", 0)),
@@ -143,8 +154,7 @@ def moe_config(arch: str, kv) -> MoeConfig | None:
         group_scale=float(kv("expert_group_scale", 0.0) or 0.0),
         n_ff_chexp=int(kv("expert_chunk_feed_forward_length", 0) or 0),
     )
-    unported = {"expert_gating_func=3 (softmax_weight, gpt-oss)": moe.gate_func == "softmax_weight",
-                f"expert_group_count={moe.n_expert_groups}": moe.n_expert_groups > 1,
+    unported = {f"expert_group_count={moe.n_expert_groups}": moe.n_expert_groups > 1,
                 f"router_logit_softcapping={moe.router_softcap}": moe.router_softcap > 0,
                 f"leading_dense_block_count={moe.n_dense_lead}": moe.n_dense_lead > 0,
                 f"experts_per_group={moe.group_experts}": moe.group_experts > 0}

@@ -45,8 +45,8 @@ step (`forward(..., verify=True)`) holds up to 1 + n_draft decode tokens a
 row: it runs the T=1 kernel once a column instead (no multi-row kernel),
 so every verified column gets a decode step's bits.  Lookahead's block
 mask (`forward(..., mask=, kv_positions=)`) attends through the plain
-`attention_ref`, as zllm's XLA reference does.  MLA, LoRA, ALiBi and
-sinks are not part of this block.
+`attention_ref`, as zllm's XLA reference does.  MLA, LoRA and ALiBi are
+not part of this block.
 
 A mixture-of-experts layer (`cfg.moe` set and the router ffn_gate_inp in
 the layer: Mixtral-style llama, qwen2moe, qwen3moe) runs `moe_ffn` in
@@ -103,6 +103,19 @@ gate for its K8 (`use_decode_fused`: G % 8 == 0 or G == Hq) is not
 carried over: OLMo-2-1B (G = 1) fails it, so zllm on a TPU takes its
 unfused path there, while the port sends every such step to K8.
 
+gpt-oss runs the llama block with q/k/v and wo biases, a sliding window
+on every other layer (layer 0 first) and, in each layer, per-head sink
+logits `attn_sinks` that join every softmax (a logit of its own in the max
+and the denominator, attending to nothing): K2's sinks form at T=1 over a
+contiguous cache, K6 with sinks over a chunk (column 0 once more through
+K2), K7 with sinks over the q8 cache, `attention_ref` with sinks on the
+ring's windowed layers and under `mask=`; the paged cache refuses them
+(ROADMAP queue 2: K9's and K10's sinks forms).  Its FFN is `moe_ffn` with
+the router's bias, `softmax_weight` routing and the experts' biases, and
+the clamped `swiglu_oai`.  Its weights are 2880 wide, so zllm's kernels
+take none of them (`qmm.supports`): every matmul is the dequantizing
+`torch.matmul` route of `ops/linear.py`, as zllm computes it.
+
 `forward(..., taps=)` records each matmul's input under zllm's names for
 the importance matrix (`zllm_torch/imatrix.py`); the fused decode paths
 are off then, as in zllm.
@@ -119,8 +132,8 @@ from ..ops.attention import (
     paged_attention, paged_attn_decode_update,
 )
 from ..ops.layers import (apply_rope, attention_ref, geglu, gelu, layer_norm, rms_norm,
-                          rope_table, swiglu)
-from ..ops.linear import fused_glu_linear, fused_norm_linear, linear
+                          rope_table, swiglu, swiglu_oai)
+from ..ops.linear import dequant_linear, fused_glu_linear, fused_norm_linear, linear, rows_matmul
 from ..quant.repack import QWeight, QWeightE
 from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, ring_mask
 from ..runtime.paged import PagedKVCache
@@ -144,8 +157,10 @@ def _ring(kv, il: int) -> int:
 
 
 def _act(cfg):
-    """The gated FFN's activation: SwiGLU, or Gemma's geglu."""
-    return geglu if getattr(cfg, "act", "silu") == "gelu" else swiglu
+    """The gated FFN's activation: SwiGLU, Gemma's geglu, or gpt-oss's
+    clamped `swiglu_oai`."""
+    act = getattr(cfg, "act", "silu")
+    return geglu if act == "gelu" else swiglu_oai if act == "swiglu_oai" else swiglu
 
 
 def block_norm(x: torch.Tensor, params: dict, key: str, cfg) -> torch.Tensor:
@@ -174,16 +189,23 @@ def _one_token_rows(out: torch.Tensor, positions: torch.Tensor,
     return out
 
 
+PAGED_SINKS = ("paged attention with attention sinks is not in zllm_torch yet (ROADMAP "
+               "queue 2: the sinks forms of K9 and K10)")
+
+
 def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
             mask: torch.Tensor | None = None, kv_positions: torch.Tensor | None = None,
-            verify: bool = False, window: int = 0) -> torch.Tensor:
+            verify: bool = False, window: int = 0,
+            sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Attention of roped q [B, T, Hq, D] and k/v [B, T, Hkv, D] with the
     new rows inserted into `kv` (if any) at their positions (`kv_positions`
-    where given), over the slots > pos - `window` (0: all).  `mask` [B, T,
-    S]: attention over the whole contiguous cache under that mask
-    (`attention_ref`), no kernel; `verify`: each column through the T=1
-    kernel at its own position (see `forward`); a windowed layer of a
-    `KVCacheSWA`: its ring under `ring_mask` (`attention_ref`)."""
+    where given), over the slots > pos - `window` (0: all), with the
+    per-head sink logits `sinks` [Hq] in every softmax where given (gpt-oss;
+    the paged cache refuses them).  `mask` [B, T, S]: attention over the
+    whole contiguous cache under that mask (`attention_ref`), no kernel;
+    `verify`: each column through the T=1 kernel at its own position (see
+    `forward`); a windowed layer of a `KVCacheSWA`: its ring under
+    `ring_mask` (`attention_ref`)."""
     b, t = q.shape[:2]
     softcap = cfg.attn_logit_softcap
     if mask is not None:
@@ -194,18 +216,21 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
             k_all, v_all = kv.layer(il)
         else:
             raise ValueError("an explicit attention mask needs a contiguous KVCache")
-        return attention_ref(q, k_all, v_all, mask, scale, logit_softcap=softcap)
+        return attention_ref(q, k_all, v_all, mask, scale, logit_softcap=softcap, sinks=sinks)
     ring = _ring(kv, il)
     if ring:  # the ring's slots are not positions: its own mask, no kernel
         kv.update(il, k, v, positions)
         k_all, v_all = kv.layer(il)
         rmask = ring_mask(positions, ring, k_all.shape[2], window)
-        out = attention_ref(q, k_all, v_all, rmask, scale, logit_softcap=softcap)
+        out = attention_ref(q, k_all, v_all, rmask, scale, logit_softcap=softcap, sinks=sinks)
         if t == 1 or verify:
             return out
         # column 0 once more at T = 1, as a decode step computes it
-        first = attention_ref(q[:, :1], k_all, v_all, rmask[:, :1], scale, logit_softcap=softcap)
+        first = attention_ref(q[:, :1], k_all, v_all, rmask[:, :1], scale, logit_softcap=softcap,
+                              sinks=sinks)
         return _one_token_rows(out, positions, first)
+    if isinstance(kv, PagedKVCache) and sinks is not None:
+        raise NotImplementedError(PAGED_SINKS)
     if isinstance(kv, PagedKVCache):
         def k9(q_, k_, v_, pos):  # insert into the page, attend
             return paged_attn_decode_update(q_, k_, v_, kv.k[il], kv.v[il], kv.table, pos,
@@ -230,7 +255,7 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         def k7(q_, pos):
             return flash_attention_blockwise(q_.contiguous(), kq.q, vq.q, pos.contiguous(),
                                              scale=scale, softcap=softcap, window=window,
-                                             ks=kq.s, vs=vq.s)
+                                             sinks=sinks, ks=kq.s, vs=vq.s)
 
         if verify:  # every row is in the cache: each column reads its own prefix
             return torch.cat([k7(q[:, j:j + 1], positions[:, j:j + 1]) for j in range(t)],
@@ -251,7 +276,8 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         kv.update(il, k, v, positions)
         k_all, v_all = kv.layer(il)
         out = flash_attention(q.contiguous(), k_all.contiguous(), v_all.contiguous(),
-                              positions, scale=scale, softcap=softcap, window=window)
+                              positions, scale=scale, softcap=softcap, window=window,
+                              sinks=sinks)
         if cfg.arch != "olmo2":  # llama's T=1 kernel is K2, which layer_forward runs
             return out
         # column 0 once more through K8, which writes the k/v kv.update wrote
@@ -259,7 +285,7 @@ def _attend(q, k, v, kv, il: int, positions: torch.Tensor, cfg, scale: float, *,
         return _one_token_rows(out, positions, first)
     return flash_attention(q.contiguous(), k.transpose(1, 2).contiguous(),
                            v.transpose(1, 2).contiguous(), positions, scale=scale,
-                           softcap=softcap, window=window)
+                           softcap=softcap, window=window, sinks=sinks)
 
 
 def _per_column(kernel, q, k, v, positions) -> torch.Tensor:
@@ -289,43 +315,46 @@ def _projections(layer: dict, h: torch.Tensor) -> torch.Tensor:
                       for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], dim=-1)
 
 
-# a dense product inside moe_ffn takes its rows in blocks of this many
-# on the card (`_rows_linear`)
-MOE_DENSE_ROWS = 16
-
-
 def _rows_linear(x: torch.Tensor, w) -> torch.Tensor:
-    """linear(x, w) for x [M, K]; on the card a dense w takes x in blocks of
-    MOE_DENSE_ROWS rows (the last zero-padded), one matmul shape for every
-    M: the library picks its kernel by shape, so a row's bits then do not
-    depend on the rows beside it, as K3's and K5's do not (the router's
-    scores pick the experts; the engine batches rows of many requests)."""
-    if isinstance(w, QWeight) or x.device.type == "cpu":
+    """linear(x, w) for x [M, K]; a dense w through `rows_matmul` (on the
+    card x in fixed blocks of rows, so that a row's bits do not depend on
+    the rows beside it: the router's scores pick the experts; the engine
+    batches rows of many requests)."""
+    if isinstance(w, QWeight):
         return linear(x, w)
-    m, pad = x.shape[0], (-x.shape[0]) % MOE_DENSE_ROWS
-    xp = torch.cat([x, x.new_zeros((pad, x.shape[1]))]) if pad else x
-    return torch.cat([linear(xp[i:i + MOE_DENSE_ROWS], w)
-                      for i in range(0, m + pad, MOE_DENSE_ROWS)])[:m]
+    return rows_matmul(x, w.to(x.dtype))
 
 
 def _expert_mm(x: torch.Tensor, w, e: int) -> torch.Tensor:
     """x [M, K] @ expert e of a stack, in x's dtype: K3 or K5 on a
     QWeightE's expert at any M (`qmm.gemm`; its f32 rounded to x's dtype,
-    as zllm's einsum in the activation dtype gives it), or torch.matmul on
-    a dense [E, K, N] stack (zllm's product outside any Pallas kernel)."""
+    as zllm's einsum in the activation dtype gives it) where zllm's kernels
+    would take it (`qmm.supports`), else that expert alone dequantized and
+    multiplied (`dequant_linear`: gpt-oss's K 2880), or torch.matmul on a
+    dense [E, K, N] stack (zllm's product outside any Pallas kernel)."""
     if isinstance(w, QWeightE):
-        return qmm.gemm(x.contiguous(), w.expert(e)).to(x.dtype)
+        we = w.expert(e)
+        if not qmm.supports(we):
+            return dequant_linear(x, we).to(x.dtype)
+        return qmm.gemm(x.contiguous(), we).to(x.dtype)
     return _rows_linear(x, w[e]).to(x.dtype)
 
 
-def _gate_up(layer: dict, fused: str, gate: str, up: str, mm, act):
+def _gate_up(layer: dict, fused: str, gate: str, up: str, mm, act, biases=(None, None)):
     """act(gate, up) of the fused gate|up weight `fused` (its halves) or of
-    gate and up apart, each product through mm(weight)."""
+    gate and up apart, each product through mm(weight), each half plus its
+    bias in `biases` where given (gpt-oss's experts; in the product's dtype,
+    as zllm adds them)."""
     if fused in layer:
         gup = mm(layer[fused])
         half = gup.shape[-1] // 2
-        return act(gup[..., :half], gup[..., half:])
-    return act(mm(layer[gate]), mm(layer[up]))
+        g, u = gup[..., :half], gup[..., half:]
+    else:
+        g, u = mm(layer[gate]), mm(layer[up])
+    gb, ub = biases
+    if gb is not None:
+        g, u = g + gb.to(g.dtype), u + ub.to(u.dtype)
+    return act(g, u)
 
 
 def moe_ffn(layer: dict, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -333,11 +362,15 @@ def moe_ffn(layer: dict, cfg, h: torch.Tensor) -> torch.Tensor:
     its sparse regime at T * k < E and its dense masked regime compute this
     one function).  The router's logits through `linear`, scored in f32
     (softmax or sigmoid), top-k, normalized over the k picks where
-    `norm_topk_prob`, times `scale`.  Dispatch by expert, one way at every
+    `norm_topk_prob`, times `scale`; gpt-oss (`softmax_weight`): the
+    router's bias added to its logits, top-k over the raw logits, then a
+    softmax over the k picks.  Dispatch by expert, one way at every
     T: the (token, pick) pairs grouped by expert after one host read of the
     picks; each expert used takes its rows through gate|up (one product, or
     gate and up apart), the activation, then down, and writes its results
-    to the rows' (token, pick) slots of a [T * k, n_embd] buffer; the k
+    to the rows' (token, pick) slots of a [T * k, n_embd] buffer (gpt-oss:
+    each expert's biases after gate and up and after down, as zllm adds
+    them); the k
     picks are then weighted and summed in pick order in f32 and cast.  No
     index_add_ and no atomics: a row's bits do not depend on the rows
     beside it, nor on the order of the launches (the dense products too:
@@ -349,9 +382,19 @@ def moe_ffn(layer: dict, cfg, h: torch.Tensor) -> torch.Tensor:
     lead, n_embd = h.shape[:-1], h.shape[-1]
     hf = h.reshape(-1, n_embd)
     t, k = hf.shape[0], moe.n_experts_used
-    scores = _rows_linear(hf, layer["ffn_gate_inp"]).float()
-    probs = torch.sigmoid(scores) if moe.gate_func == "sigmoid" else torch.softmax(scores, -1)
+    scores = _rows_linear(hf, layer["ffn_gate_inp"])
+    if "ffn_gate_inp_b" in layer:  # gpt-oss's router bias
+        scores = scores + layer["ffn_gate_inp_b"].to(scores.dtype)
+    scores = scores.float()
+    if moe.gate_func == "sigmoid":
+        probs = torch.sigmoid(scores)
+    elif moe.gate_func == "softmax_weight":  # the raw logits pick; the picks' softmax weighs
+        probs = scores
+    else:
+        probs = torch.softmax(scores, -1)
     topv, topi = torch.topk(probs, k, dim=-1)  # [T, k], descending
+    if moe.gate_func == "softmax_weight":
+        topv = torch.softmax(topv, -1)
     if moe.norm_topk_prob:
         topv = topv / topv.sum(dim=-1, keepdim=True)
     if moe.scale != 1.0:
@@ -363,16 +406,23 @@ def moe_ffn(layer: dict, cfg, h: torch.Tensor) -> torch.Tensor:
     experts, starts = np.unique(picks[order], return_index=True)
     bounds = [*starts.tolist(), t * k]
     slots = torch.from_numpy(order).to(h.device)
-    out = torch.empty((t * k, n_embd), dtype=h.dtype, device=h.device)
+    out = None  # in the down products' dtype (swiglu_oai's is f32, as zllm's)
+    gb, ub, db = (layer.get(f"ffn_{w}_exps_b") for w in ("gate", "up", "down"))
     for i, e in enumerate(experts.tolist()):
         sl = slots[bounds[i]:bounds[i + 1]]
         x = hf[sl // k]
         gu = _gate_up(layer, "ffn_gateup_exps", "ffn_gate_exps", "ffn_up_exps",
-                      lambda w: _expert_mm(x, w, e), act)
-        out[sl] = _expert_mm(gu, layer["ffn_down_exps"], e)
+                      lambda w: _expert_mm(x, w, e), act,
+                      (None, None) if gb is None else (gb[e], ub[e]))
+        y = _expert_mm(gu, layer["ffn_down_exps"], e)
+        if db is not None:
+            y = y + db[e].to(y.dtype)
+        if out is None:
+            out = torch.empty((t * k, n_embd), dtype=y.dtype, device=h.device)
+        out[sl] = y
     if isinstance(moe_ffn.routing, list):
         moe_ffn.routing.append((layer, experts.tolist(), picks, probs))
-    weighted = out.reshape(t, k, n_embd).float() * topv.to(h.dtype).float()[..., None]
+    weighted = out.reshape(t, k, n_embd).float() * topv.to(out.dtype).float()[..., None]
     y = weighted[:, 0]
     for j in range(1, k):  # the picks in order
         y = y + weighted[:, j]
@@ -460,7 +510,9 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     fused decode paths off; so do `mask` and `kv_positions` (see
     `forward`)."""
     window = _layer_window(cfg, il)
-    attend = dict(mask=mask, kv_positions=kv_positions, verify=verify, window=window)
+    sinks = layer.get("attn_sinks")  # gpt-oss's per-head sink logits
+    attend = dict(mask=mask, kv_positions=kv_positions, verify=verify, window=window,
+                  sinks=sinks)
     if cfg.arch == "olmo2":
         return _olmo2_layer(layer, cfg, x, positions, kv, il, taps, **attend)
     b, t = x.shape[:2]
@@ -501,7 +553,8 @@ def layer_forward(layer: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         rt = rope[lrope][j] if verify else rope[lrope]
         return attn_decode_qkv(row.reshape(b, -1, cfg.head_dim).contiguous(), kv.k[il],
                                kv.v[il], cols[j], rt, qw, kw, scale=scale,
-                               softcap=cfg.attn_logit_softcap, window=window, eps=cfg.norm_eps)
+                               softcap=cfg.attn_logit_softcap, window=window, eps=cfg.norm_eps,
+                               sinks=sinks)
 
     if k2_step and t == 1:
         att = k2(qkv)

@@ -33,6 +33,12 @@ writes GPT-NeoX's fused attn_qkv weight and bias, split at q_dim and kv_dim
 into wq, wk, wv and bq, bk, bv (quantized rows are whole blocks, so the
 split is exact), as zllm's loader splits the weight (zllm leaves the bias
 unmapped; the port loads it).
+A gpt-oss layer adds to the llama block's tensors the per-head sink logits
+attn_sinks [Hq], the router's bias ffn_gate_inp_b [E] and the experts'
+biases ffn_{gate,up,down}_exps_b [E, N], all f32 as zllm loads them, beside
+q/k/v and wo biases; its 2880-wide matmul weights (MXFP4 experts, Q8_0
+elsewhere, as llama.cpp ships it) load quantized whatever their K, as any
+32-block format's, and run on `ops/linear.py`'s dequantizing route.
 A Llama-3 file's rope_freqs.weight is kept as `rope_freqs` and not read:
 zllm takes llama3 rope scaling from the metadata alone.  At load, as
 `zllm` does by default: the adjacent-pair rope of llama GGUFs is turned
@@ -96,6 +102,11 @@ _LAYER_MAP = {
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
     "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
+    "attn_sinks.weight": "attn_sinks",
+    "ffn_gate_inp.bias": "ffn_gate_inp_b",
+    "ffn_gate_exps.bias": "ffn_gate_exps_b",
+    "ffn_up_exps.bias": "ffn_up_exps_b",
+    "ffn_down_exps.bias": "ffn_down_exps_b",
 }
 # GPT-NeoX's fused q|k|v rows (llama.cpp's converter; split at load)
 _FUSED_QKV = ("attn_qkv.weight", "attn_qkv.bias")
@@ -116,14 +127,18 @@ ARCH_NORMS = {"llama": {"attn_norm", "ffn_norm"},
               "qwen3moe": {"attn_norm", "ffn_norm", "attn_q_norm", "attn_k_norm"},
               "gptneox": {"attn_norm", "ffn_norm"},
               "stablelm": {"attn_norm", "ffn_norm"},
-              "starcoder2": {"attn_norm", "ffn_norm"}}
+              "starcoder2": {"attn_norm", "ffn_norm"},
+              "gpt-oss": {"attn_norm", "ffn_norm"}}
 _BIAS_KEYS = ("bq", "bk", "bv")
 # the LayerNorms' biases (each beside its weight) and the other
 # projections' (wo; the non-gated MLP's up and down)
 _NORM_BIAS_KEYS = ("attn_norm_b", "ffn_norm_b")
 _OTHER_BIAS_KEYS = ("bo", "ffn_up_b", "ffn_down_b", *_NORM_BIAS_KEYS)
-_VECTOR_KEYS = ({"out_norm", "out_norm_b", "rope_freqs", "bqkv", *_BIAS_KEYS, *_OTHER_BIAS_KEYS}
-                | set().union(*ARCH_NORMS.values()))
+# gpt-oss's attention sinks [Hq], router bias [E] and expert biases [E, N]
+_MOE_BIAS_KEYS = ("ffn_gate_inp_b", "ffn_gate_exps_b", "ffn_up_exps_b", "ffn_down_exps_b")
+_GPT_OSS_KEYS = ("attn_sinks", *_MOE_BIAS_KEYS)
+_VECTOR_KEYS = ({"out_norm", "out_norm_b", "rope_freqs", "bqkv", *_BIAS_KEYS, *_OTHER_BIAS_KEYS,
+                 *_GPT_OSS_KEYS} | set().union(*ARCH_NORMS.values()))
 
 
 def resolve_device(device) -> torch.device:
@@ -230,8 +245,12 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
     if "out_norm_b" in params and not layer_norm:
         raise NotImplementedError(f"output_norm.bias on {cfg.arch}: its RMS norm has no bias")
     for il, layer in enumerate(params["layers"]):
+        if cfg.arch == "gpt-oss" and "attn_post_norm" in layer and "ffn_norm" not in layer:
+            # llama.cpp writes gpt-oss's FFN pre-norm (HF post_attention_layernorm)
+            # as post_attention_norm; zllm's converter writes ffn_norm
+            layer["ffn_norm"] = layer.pop("attn_post_norm")
         norms = {key for key in layer if key in _VECTOR_KEYS
-                 and key not in _BIAS_KEYS + _OTHER_BIAS_KEYS}
+                 and key not in _BIAS_KEYS + _OTHER_BIAS_KEYS + _GPT_OSS_KEYS}
         if norms != ARCH_NORMS[cfg.arch]:
             raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the norms "
                                       f"{sorted(norms)}, not {sorted(ARCH_NORMS[cfg.arch])}")
@@ -247,6 +266,12 @@ def load_params(f: GGUFFile, cfg: ModelConfig, *, dtype, device) -> dict:
             if key in layer and not (layer_norm and key[:-2] in layer):
                 raise NotImplementedError(f"layer {il} of a {cfg.arch} file has {key}: its "
                                           f"{cfg.norm_kind} norm takes no bias there")
+        if "attn_sinks" in layer and cfg.arch == "olmo2":  # its T=1 kernel, K8, has no sinks
+            raise NotImplementedError("attn_sinks on olmo2 is not in zllm_torch yet (ROADMAP "
+                                      "queue 1 item 8)")
+        if "attn_sinks" in layer and tuple(layer["attn_sinks"].shape) != (cfg.n_heads,):
+            raise NotImplementedError(f"layer {il}: attn_sinks of shape "
+                                      f"{tuple(layer['attn_sinks'].shape)}, not [{cfg.n_heads}]")
         _check_ffn(layer, il, cfg)
     if "output" not in params:  # tied embedding
         params["output"] = params["tok_emb"].float().t().contiguous().to(dtype)
@@ -270,6 +295,8 @@ def _check_ffn(layer: dict, il: int, cfg: ModelConfig):
                                       f"the non-gated MLP ({', '.join(NON_GATED_ARCHES)})")
     moe = [key for key in ("ffn_gate_inp", *EXPERT_KEYS) if key in layer]
     shared = [key for key in _SHARED_KEYS if key in layer]
+    if not moe and any(key in layer for key in _MOE_BIAS_KEYS):
+        raise NotImplementedError(f"layer {il} has router or expert biases and no experts")
     if moe:
         if cfg.moe is None or len(moe) != 4 or dense:
             raise NotImplementedError(f"layer {il} has the FFN tensors {sorted(dense + moe)}: "
@@ -281,6 +308,13 @@ def _check_ffn(layer: dict, il: int, cfg: ModelConfig):
                                       f"{cfg.moe.n_experts}")
         if shared and len(shared) != len(_SHARED_KEYS):
             raise NotImplementedError(f"layer {il} has the shared-expert tensors {shared}")
+        biases = [key for key in _MOE_BIAS_KEYS[1:] if key in layer]
+        if biases and len(biases) != 3:
+            raise NotImplementedError(f"layer {il} has the expert biases {biases}, not all three")
+        for key in biases:
+            if tuple(layer[key].shape) != (e, layer[key.replace("_b", "")].shape[2]):
+                raise NotImplementedError(f"layer {il}: {key} of shape "
+                                          f"{tuple(layer[key].shape)}")
     elif not gated:
         if dense != ["ffn_up", "ffn_down"] or shared:
             raise NotImplementedError(f"layer {il} of a {cfg.arch} file has the FFN tensors "

@@ -7,7 +7,9 @@ PyTorch version beside it.
   * `attn_decode_qkv` replaces `zllm/ops/attention.py::_attn_decode_qkv_kernel`
     (via `attn_decode_qkv`): split the fused [B, Hq+2Hkv, D] projection row,
     optional per-head RMS q/k norms, rope, write the new K/V row into the
-    cache in place, GQA attention with causal/window mask and softcap.
+    cache in place, GQA attention with causal/window mask and softcap, and
+    in its sinks form a per-head sink logit in each softmax (zllm runs no
+    kernel there: a decode step with sinks is its `attention_ref`).
     Source: `zllm_torch/csrc/attn_decode.cu` (a block a (row, kv head,
     8 query heads) and chunk of the span, scores and P.V on mma.sync,
     programmatic dependent launch; a span of several chunks finished by
@@ -56,8 +58,9 @@ over: on the card these kernels take every shape they are given.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each wrapper counts launches in
 `.launches`; K6, K7 and K10 also count in `.mma_launches` those of their
-tensor-core form, and K2, K6, K8, K9 and K10 in `.f16_launches` those of
-their f16 form (an f16 cache or pool).
+tensor-core form, K2, K6, K8, K9 and K10 in `.f16_launches` those of
+their f16 form (an f16 cache or pool), and K2, K6 and K7 in
+`.sinks_launches` those given per-head sink logits (gpt-oss's).
 
 KV caches and pools may be float32, bfloat16 or float16 (the f16 KV cache,
 llama.cpp's default `-ctk/-ctv f16`); q, the new K/V rows and the outputs
@@ -103,10 +106,13 @@ def _head_rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def attn_decode_qkv_plain(qkv3, kc, vc, positions, rope: RopeTable, qw=None, kw=None, *,
                           scale: float, softcap: float = 0.0, window: int = 0,
-                          eps: float = 1e-5) -> torch.Tensor:
+                          eps: float = 1e-5, sinks: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K2.  Updates kc/vc in place; returns att [B, 1, Hq, D].
     Rounding points: the roped q and the new K/V rows are cast to the cache
-    dtype, and the probabilities to the cache dtype before P.V."""
+    dtype, and the probabilities to the cache dtype before P.V.  `sinks`
+    [Hq] f32 (gpt-oss): head h's sink logit joins its softmax, the row max
+    max(m, s_h) and the denominator plus exp(s_h - max), as zllm's
+    `attention_ref` takes it."""
     b, hh, d = qkv3.shape
     hkv, s = kc.shape[1], kc.shape[2]
     hq = hh - 2 * hkv
@@ -132,8 +138,14 @@ def attn_decode_qkv_plain(qkv3, kc, vc, positions, rope: RopeTable, qw=None, kw=
     if window > 0:
         mask = mask & (cols > pos[:, None] - window)
     scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    probs = (e / e.sum(dim=-1, keepdim=True)).to(dtype)
+    if sinks is None:
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = (e / e.sum(dim=-1, keepdim=True)).to(dtype)
+    else:
+        sink = sinks.float().reshape(1, hkv, g, 1)
+        m = torch.maximum(scores.amax(dim=-1, keepdim=True), sink)
+        e = torch.exp(scores - m)
+        probs = (e / (e.sum(dim=-1, keepdim=True) + torch.exp(sink - m))).to(dtype)
     out = torch.einsum("bhgs,bhsd->bhgd", probs.float(), vc.float())
     return out.reshape(b, 1, hq, d).to(qkv3.dtype)
 
@@ -176,11 +188,12 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     positions: torch.Tensor, rope: RopeTable,
                     qw: torch.Tensor | None = None, kw: torch.Tensor | None = None, *,
                     scale: float, softcap: float = 0.0, window: int = 0,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    eps: float = 1e-5, sinks: torch.Tensor | None = None) -> torch.Tensor:
     """The whole T=1 attention block for one layer.  qkv3 [B, Hq+2Hkv, D]
     raw projection rows; kc/vc [B, Hkv, S, D] caches, updated in place at
-    row min(pos, S-1); positions [B] or [B, 1]; rope a per-row cos/sin table.
-    Returns att [B, 1, Hq, D] in qkv3's dtype."""
+    row min(pos, S-1); positions [B] or [B, 1]; rope a per-row cos/sin table;
+    sinks [Hq] f32 or None (the sinks form, gpt-oss's).  Returns att [B, 1,
+    Hq, D] in qkv3's dtype."""
     b, hh, d = qkv3.shape
     hkv, s = kc.shape[1], kc.shape[2]
     hq = hh - 2 * hkv
@@ -190,7 +203,7 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError("qw and kw go together")
     if qkv3.device.type == "cpu":
         return attn_decode_qkv_plain(qkv3, kc, vc, positions, rope, qw, kw, scale=scale,
-                                     softcap=softcap, window=window, eps=eps)
+                                     softcap=softcap, window=window, eps=eps, sinks=sinks)
     if qkv3.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv3.device}")
     if qkv3.dtype not in cuda.ACT_DTYPES or kc.dtype not in cuda.DTYPE_CODE or vc.dtype != kc.dtype:
@@ -200,9 +213,12 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     pos = positions.reshape(b)
     if pos.dtype != torch.int32:
         raise ValueError("positions must be int32")
-    extra = [rope.cos, rope.sin] + ([qw, kw] if qw is not None else [])
+    extra = ([rope.cos, rope.sin] + ([qw, kw] if qw is not None else [])
+             + ([sinks] if sinks is not None else []))
     if any(t.dtype != torch.float32 for t in extra):
-        raise ValueError("rope table and q/k norm weights must be float32")
+        raise ValueError("rope table, q/k norm weights and sinks must be float32")
+    if sinks is not None and sinks.numel() != hq:
+        raise ValueError(f"sinks must be [Hq] = [{hq}], not {tuple(sinks.shape)}")
     cuda.require_cuda(qkv3, kc, vc, pos, *extra, aligned=(kc, vc))
     out = torch.empty((b, 1, hq, d), dtype=qkv3.dtype, device=qkv3.device)
     c_code = cuda.DTYPE_CODE[kc.dtype]
@@ -213,22 +229,24 @@ def attn_decode_qkv(qkv3: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         gsc = torch.empty((b, groups, 8, s), dtype=torch.float32, device=qkv3.device)
         gst = torch.empty((b, groups, splits, 8, 2), dtype=torch.float32, device=qkv3.device)
     fn = cuda.bind("attn_decode", "zt_attn_decode_qkv",
-                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _P])
     err = fn(qkv3.data_ptr(), cuda.DTYPE_CODE[qkv3.dtype], kc.data_ptr(), vc.data_ptr(),
              c_code, pos.data_ptr(), rope.cos.data_ptr(), rope.sin.data_ptr(), cuda.ptr(qw),
-             cuda.ptr(kw), out.data_ptr(), cuda.ptr(gsc), cuda.ptr(gst),
+             cuda.ptr(kw), cuda.ptr(sinks), out.data_ptr(), cuda.ptr(gsc), cuda.ptr(gst),
              _k2_counters(qkv3.device, b * groups).data_ptr(), b, hq, hkv, s, d,
              rope.rot_dims, int(rope.neox), float(scale), float(softcap), int(window),
              float(eps), cuda.stream())
     cuda.check(err, "attn_decode_qkv")
     attn_decode_qkv.launches += 1
     attn_decode_qkv.f16_launches += kc.dtype == torch.float16
+    attn_decode_qkv.sinks_launches += sinks is not None
     return out
 
 
 attn_decode_qkv.launches = 0
 attn_decode_qkv.f16_launches = 0  # of them, launches of the f16 form (an f16 cache)
+attn_decode_qkv.sinks_launches = 0  # of them, launches of the sinks form
 
 
 # ---------------------------------------------------------------------------
@@ -301,12 +319,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
     flash_attention.launches += 1
     flash_attention.mma_launches += mma
     flash_attention.f16_launches += k.dtype == torch.float16
+    flash_attention.sinks_launches += sinks is not None
     return out
 
 
 flash_attention.launches = 0
 flash_attention.mma_launches = 0  # of them, launches of the tensor-core form (bf16/f16 K/V)
 flash_attention.f16_launches = 0  # of them, launches of the f16 form (f16 K/V)
+flash_attention.sinks_launches = 0  # of them, launches with sinks
 
 
 # ---------------------------------------------------------------------------
@@ -741,8 +761,10 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda.check(err, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1
     flash_attention_blockwise.mma_launches += mma
+    flash_attention_blockwise.sinks_launches += sinks is not None
     return out
 
 
 flash_attention_blockwise.launches = 0
 flash_attention_blockwise.mma_launches = 0  # of them, launches of the multi-row (tensor-core) form
+flash_attention_blockwise.sinks_launches = 0  # of them, launches with sinks

@@ -228,6 +228,17 @@ def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up
 
 
+def swiglu_oai(gate: torch.Tensor, up: torch.Tensor, alpha: float = 1.702,
+               limit: float = 7.0) -> torch.Tensor:
+    """gpt-oss's clamped SwiGLU (zllm's `swiglu_oai`): in f32, the gate
+    clamped above at `limit` and up to [-limit, limit], then g * sigmoid(alpha
+    g) * (u + 1), kept in f32 whatever the inputs' dtype (zllm casts the
+    product back to its clamped up's dtype, which is f32)."""
+    g = gate.float().clamp(max=limit)
+    u = up.float().clamp(-limit, limit)
+    return g * torch.sigmoid(alpha * g) * (u + 1.0)
+
+
 def gelu(x: torch.Tensor, exact: bool) -> torch.Tensor:
     """The non-gated MLP's activation: the gelu of the f32 values, exact
     (erf: GPT-NeoX) or tanh-approximate (StarCoder2), rounded to x's dtype

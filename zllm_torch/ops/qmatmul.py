@@ -624,9 +624,21 @@ def matvec(x: torch.Tensor, w: QWeight, fuse: str = "q", aux: torch.Tensor | Non
     return int8_matvec(x, w, fuse, aux, eps)
 
 
+def supports(w: QWeight) -> bool:
+    """zllm's `supports` (`zllm/ops/qmatmul.py`): its Pallas matmuls take a
+    weight whose K is a multiple of 256 (zllm's fold, `choose_fold`, is
+    then 256) and whose N is a multiple of 128.  `ops/linear.py` sends any
+    other weight (a 32-block format at K % 256 != 0, an N % 128 != 0) to
+    zllm's fallback, x @ dequant(w), and no kernel of this module sees it."""
+    k, n = w.shape
+    return k % 256 == 0 and n % 128 == 0
+
+
 def fuses(w: QWeight) -> bool:
-    """Whether `matvec` takes w with the "norm" and "glu" prologues."""
-    return w.fmt not in K5_ONLY
+    """Whether `matvec` takes w with the "norm" and "glu" prologues (not
+    IQ1_M's K5, nor a weight `supports` refuses, as zllm's hooks decline
+    both)."""
+    return w.fmt not in K5_ONLY and supports(w)
 
 
 def gemm(x: torch.Tensor, w: QWeight) -> torch.Tensor:

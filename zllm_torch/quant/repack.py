@@ -103,6 +103,12 @@ scale bytes.
 Every plane has one row per column, so `permute_n`, `concat_n` and `pad_n`
 work on rows alike for every format; a padded column is all zeros and
 dequantizes to zero.
+
+A 32-block format's weight may have any K a multiple of 32, as zllm keeps
+it (its fold 64 or 32): a last 32-block of K % 64 == 32 keeps, in the qs
+plane's last 16 bytes, the GGUF's pairing of codes i and i + 16 (the 5-bit
+formats' qh plane needs K % 64 == 0).  No kernel takes a weight whose K %
+256 != 0: `ops/linear.py` multiplies it dequantized, as zllm does.
 """
 
 from __future__ import annotations
@@ -166,9 +172,15 @@ class QWeight:
 
 def nibble_codes(qs: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """The shared qs plane [N, K/2] -> uint8 [N, K] 4-bit codes in natural
-    k order."""
-    b = qs.reshape(n, k // 64, 1, 32)
-    return torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, k)
+    k order (a last 32-block of K % 64 == 32: byte i its codes i and i +
+    16)."""
+    main = k - k % 64
+    b = qs[:, :main // 2].reshape(n, main // 64, 1, 32)
+    codes = torch.cat([b & 0xF, b >> 4], dim=2).reshape(n, main)
+    if main == k:
+        return codes
+    tail = qs[:, main // 2:]
+    return torch.cat([codes, tail & 0xF, tail >> 4], dim=1)
 
 
 def crumb_codes(qs: torch.Tensor, k: int, n: int) -> torch.Tensor:
@@ -191,8 +203,13 @@ def pack_nibbles(codes):
     """uint8 [N, K] 4-bit codes in natural k order (numpy or torch) -> the
     nibble formats' qs plane [N, K/2]."""
     n, k = codes.shape
-    c = codes.reshape(n, k // 64, 2, 32)
-    return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2)
+    main = k - k % 64
+    c = codes[:, :main].reshape(n, main // 64, 2, 32)
+    qs = (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, main // 2)
+    if main == k:
+        return qs
+    tail = codes[:, main:main + 16] | (codes[:, main + 16:] << 4)
+    return (torch.cat if isinstance(codes, torch.Tensor) else np.concatenate)([qs, tail], 1)
 
 
 def _f16_scaled(d: np.ndarray, sc: np.ndarray, per: int) -> np.ndarray:
@@ -240,10 +257,13 @@ class NibbleWeight(QWeight):
     def pair_legacy(qs: np.ndarray, n: int, k: int) -> np.ndarray:
         """Q4_0/Q4_1 nibbles (byte j of a 32-block holds codes j and j + 16)
         [N, K/2] -> the shared qs plane (byte 32c + i holds codes 64c + i
-        and 64c + 32 + i)."""
-        b = qs.reshape(n, k // 64, 2, 16)
+        and 64c + 32 + i; a last 32-block of K % 64 == 32 keeps its bytes)."""
+        qs = qs.reshape(n, k // 2)
+        main = k - k % 64
+        b = qs[:, :main // 2].reshape(n, main // 64, 2, 16)
         c = np.concatenate([b & 0xF, b >> 4], axis=3)  # the codes of blocks 2c, 2c + 1
-        return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2)
+        paired = (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, main // 2)
+        return np.concatenate([paired, qs[:, main // 2:]], axis=1) if main < k else paired
 
 
 @dataclass
@@ -1091,8 +1111,11 @@ def repack(raw: np.ndarray, gguf_shape: tuple[int, int], fmt: GGMLType, device) 
     NotImplementedError for a format the port does not keep quantized."""
     cls = _weight_class(fmt)
     n, k = gguf_shape
-    if k % QK_K:
-        raise ValueError(f"{cls.fmt.name} row of {k} is not a multiple of {QK_K}")
+    blk = GGML_BLOCK_SIZES[cls.fmt][0]
+    if k % blk:
+        raise ValueError(f"{cls.fmt.name} row of {k} is not a multiple of {blk}")
+    if issubclass(cls, Q5Weight) and k % 64:  # the qh plane's order is by 64-chunks
+        raise ValueError(f"{cls.fmt.name} row of {k} is not a multiple of 64")
     b = np.ascontiguousarray(raw).reshape(-1, GGML_BLOCK_SIZES[cls.fmt][1])
     if issubclass(cls, IQWeight):  # folded in torch on the device
         planes = cls.from_blocks(torch.from_numpy(b.copy()).to(device), n, k)

@@ -92,7 +92,7 @@ from enum import Enum
 import numpy as np
 import torch
 
-from ..models.llama import forward
+from ..models.llama import PAGED_SINKS, forward
 from ..runtime import state
 from ..runtime.kvcache import KVCache, KVCacheQ8, KVCacheSWA, shift_context_row
 from ..runtime.paged import PageAllocator, PagedKVCache
@@ -226,6 +226,11 @@ class Engine:
         if kv_layout == "auto":
             kv_layout = ("contiguous" if quant or windowed or speculative
                          or draft_model is not None or lookahead else "paged")
+        if kv_layout == "paged" and any("attn_sinks" in layer
+                                        for layer in model.params["layers"]):
+            # gpt-oss's sinks: K9 and K10 have no sinks form (zllm's paged
+            # route on a TPU drops them)
+            raise NotImplementedError(PAGED_SINKS)
         if quant:
             if kv_dtype.lower() not in ("q8", "q8_0"):
                 raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'q8' or a torch dtype)")

@@ -38,6 +38,16 @@ zllm's loader reads:
     the q/k/v and attn_output biases and gptneox's MLP; `rope_dim`
     (rope.dimension_count) the rotated dims of a head (partial rope);
     `parallel_residual` writes `use_parallel_residual` on any arch;
+  * `arch="gpt-oss"`: what zllm's `convert_hf_llama` writes for gpt-oss
+    (and llama.cpp's converter, but for its FFN norm's name): attn_norm,
+    the q/k/v projections and attn_output with their biases, attn_sinks
+    [n_heads] drawn from N(0, 1) (so they move the softmax), ffn_norm, the
+    router ffn_gate_inp (F32) with its bias ffn_gate_inp.bias, the expert
+    stacks with their biases ffn_{gate,up,down}_exps.bias [E, N] (F32);
+    `expert_gating_func` is left out (zllm's default for the arch is 3,
+    softmax over the top-k raw logits); `expert_gtype` the stacks' type
+    (gpt-oss ships MXFP4 experts beside Q8_0 elsewhere), `rope_yarn`
+    (factor, original context) writes yarn rope scaling;
   * `head_dim` (q_dim may differ from n_embd), `tied=True` (no
     output.weight), `rope_freqs=True` (Llama-3.1's rope_freqs.weight and
     its llama3 rope-scaling metadata);
@@ -72,7 +82,7 @@ from .tokenizer.bpe import PRETOKENIZERS, _byte_encoder, pretokenize
 from .tokenizer.vocab import Vocab
 
 ARCHES = ("llama", "olmo2", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "qwen2moe",
-          "qwen3moe", "gptneox", "stablelm", "starcoder2")
+          "qwen3moe", "gptneox", "stablelm", "starcoder2", "gpt-oss")
 # expert stacks of more elements than this are tiled from one encoded
 # block of rows (see `_expert_stack`); smaller ones are drawn whole, as
 # zllm's factory draws them
@@ -284,6 +294,8 @@ def make_llama_gguf(
     n_ff_shexp: int = 0,
     rope_dim: int | None = None,
     parallel_residual: bool | None = None,
+    expert_gtype: GGMLType | None = None,
+    rope_yarn: tuple[float, int] | None = None,
 ) -> str:
     if arch not in ARCHES:
         raise ValueError(f"arch {arch!r}: the factory writes {ARCHES}")
@@ -328,6 +340,10 @@ def make_llama_gguf(
     if rope_scale != 1.0:
         w.add(f"{arch}.rope.scaling.type", "linear")
         w.add(f"{arch}.rope.scaling.factor", float(rope_scale))
+    if rope_yarn is not None:
+        w.add(f"{arch}.rope.scaling.type", "yarn")
+        w.add(f"{arch}.rope.scaling.factor", float(rope_yarn[0]))
+        w.add(f"{arch}.rope.scaling.original_context_length", int(rope_yarn[1]))
     for key, val in (("attention.sliding_window", int(sliding_window)),
                      ("attention.query_pre_attn_scalar", float(query_pre_attn_scalar)),
                      ("attn_logit_softcapping", float(attn_softcap)),
@@ -417,7 +433,7 @@ def make_llama_gguf(
             emit(o + "attn_q.weight", (q_dim, n_embd))
             emit(o + "attn_k.weight", (kv_dim, n_embd))
             emit(o + "attn_v.weight", (kv_dim, n_embd))
-        if arch in ("qwen2", "qwen2moe", "stablelm", "starcoder2"):
+        if arch in ("qwen2", "qwen2moe", "stablelm", "starcoder2", "gpt-oss"):
             emit(o + "attn_q.bias", (q_dim,), 0.5, force_f32=True)
             emit(o + "attn_k.bias", (kv_dim,), 0.5, force_f32=True)
             emit(o + "attn_v.bias", (kv_dim,), 0.5, force_f32=True)
@@ -425,8 +441,10 @@ def make_llama_gguf(
             emit(o + "attn_q_norm.weight", (head_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (head_dim,), 1.0, force_f32=True)
         emit(o + "attn_output.weight", (n_embd, q_dim))
-        if arch in NON_GATED_ARCHES:
+        if arch in NON_GATED_ARCHES or arch == "gpt-oss":
             emit(o + "attn_output.bias", (n_embd,), 0.1, force_f32=True)
+        if arch == "gpt-oss":
+            emit(o + "attn_sinks.weight", (n_heads,), 1.0, force_f32=True)
         if olmo2:
             emit(o + "attn_q_norm.weight", (q_dim,), 1.0, force_f32=True)
             emit(o + "attn_k_norm.weight", (kv_dim,), 1.0, force_f32=True)
@@ -444,18 +462,22 @@ def make_llama_gguf(
             emit(o + "ffn_down.bias", (n_embd,), 0.1, force_f32=True)
         elif n_experts:
             emit(o + "ffn_gate_inp.weight", (n_experts, n_embd), force_f32=True)
+            if arch == "gpt-oss":
+                emit(o + "ffn_gate_inp.bias", (n_experts,), 0.5, force_f32=True)
             for stack, shp in (
                 ("ffn_gate_exps", (n_ff, n_embd)),
                 ("ffn_up_exps", (n_ff, n_embd)),
                 ("ffn_down_exps", (n_embd, n_ff)),
             ):
                 shape = (n_experts,) + shp
-                t = gtype
+                t = expert_gtype or gtype
                 if ftype is not None:
                     t = pick_type(o + stack + ".weight", shape, il, n_layers, FTYPES[ftype])
                 if shp[-1] % qb.GGML_BLOCK_SIZES[t][0] != 0:
                     t = GGMLType.F32
                 _expert_stack(w, o + stack + ".weight", shape, t, rng)
+                if arch == "gpt-oss":
+                    emit(o + stack + ".bias", shape[:2], 0.1, force_f32=True)
             if n_ff_shexp:
                 emit(o + "ffn_gate_shexp.weight", (n_ff_shexp, n_embd))
                 emit(o + "ffn_up_shexp.weight", (n_ff_shexp, n_embd))
@@ -599,6 +621,19 @@ QWEN15_MOE_A27B_SHAPE = dict(
     arch="qwen2moe", n_layers=24, n_embd=2048, n_heads=16, n_kv_heads=16, head_dim=128,
     n_ff=1408, n_experts=60, n_experts_used=4, n_ff_shexp=5632, vocab_size=151936,
     rope_base=1e6, norm_eps=1e-6, ctx_len=8192, tokenizer="bpe", pre="qwen2",
+)
+
+# gpt-oss-20b (huggingface.co/openai/gpt-oss-20b config.json): 24 layers,
+# 2880 emb, 64 heads / 8 kv of 64, 32 experts of 2880 (4 used), vocab
+# 201088, rope theta 150000 with yarn x32 over 4096, rms_norm_eps 1e-5, a
+# 128-token window on every other layer (layer 0 first), attention sinks,
+# biases on q/k/v/o, the router and the experts, untied head; pre "gpt-4o";
+# llama.cpp's files: MXFP4 experts, Q8_0 elsewhere (`gtype=Q8_0`)
+GPT_OSS_20B_SHAPE = dict(
+    arch="gpt-oss", n_layers=24, n_embd=2880, n_heads=64, n_kv_heads=8, head_dim=64, n_ff=2880,
+    n_experts=32, n_experts_used=4, expert_gtype=GGMLType.MXFP4, vocab_size=201088,
+    rope_base=150000.0, rope_yarn=(32.0, 4096), norm_eps=1e-5, ctx_len=131072,
+    sliding_window=128, tokenizer="bpe", pre="gpt-4o",
 )
 
 # Pythia-1.4B (huggingface.co/EleutherAI/pythia-1.4b config.json): 24

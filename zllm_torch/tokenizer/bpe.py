@@ -8,8 +8,8 @@ port).  Each scanner reproduces `regex.finditer` over its pattern:
 alternatives tried in order at each position, the first that matches wins
 (leftmost-first), greedy runs backed off only as far as the pattern makes
 them; characters no alternative matches are kept as fragments of their
-own, as zllm's `pretokenize` keeps them.  The three patterns (HF
-tokenizer.json, the reference's src/llama-vocab.cpp), and one pair of them:
+own, as zllm's `pretokenize` keeps them.  The patterns (HF tokenizer.json,
+the reference's src/llama-vocab.cpp), and one pair of them:
 
   gpt2    's|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)
   llama3  (?:'[sS]|'[tT]|'[rR][eE]|'[vV][eE]|'[mM]|'[lL][lL]|'[dD])
@@ -18,10 +18,19 @@ tokenizer.json, the reference's src/llama-vocab.cpp), and one pair of them:
   qwen2   llama3 with \\p{N} in place of \\p{N}{1,3}
   starcoder  \\p{N}, then gpt2 over each fragment: every numeric character
           a fragment of its own, gpt2's pattern on the runs between them
+  gpt-4o  [^\\r\\n\\p{L}\\p{N}]?[\\p{Lu}\\p{Lt}\\p{Lm}\\p{Lo}\\p{M}]*
+          [\\p{Ll}\\p{Lm}\\p{Lo}\\p{M}]+(?i:'s|'t|'re|'ve|'m|'ll|'d)?
+          |[^\\r\\n\\p{L}\\p{N}]?[\\p{Lu}\\p{Lt}\\p{Lm}\\p{Lo}\\p{M}]+
+          [\\p{Ll}\\p{Lm}\\p{Lo}\\p{M}]*(?i:'s|'t|'re|'ve|'m|'ll|'d)?
+          |\\p{N}{1,3}| ?[^\\s\\p{L}\\p{N}]+[\\r\\n/]*|\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+
 
 `\\s` is Unicode White_Space (as in `regex`, which leaves out U+001C-U+001F
 where `str.isspace` takes them), `\\p{L}` the general categories L*,
-`\\p{N}` N*, both from `unicodedata`.
+`\\p{N}` N*, `\\p{M}` M* and gpt-4o's letter classes Lu, Lt, Lm, Lo and Ll,
+all from `unicodedata` (Python 3.12's is Unicode 15.0: a character whose
+category a newer Unicode changed may split otherwise than `regex` splits
+it); `(?i:'s)` takes S and the long s U+017F, as `regex`'s case folding
+does.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ PRETOKENIZERS = {
     **dict.fromkeys(("qwen2", "stablelm2"), "qwen2"),
     **dict.fromkeys(("starcoder", "refact", "command-r", "smollm", "codeshell", "exaone"),
                     "starcoder"),
+    "gpt-4o": "gpt-4o",
 }
 
 
@@ -77,6 +87,22 @@ def char_class(c: str) -> str:
     return cat if cat in "LN" else "O"
 
 
+@functools.lru_cache(maxsize=None)
+def case_class(c: str) -> str:
+    """gpt-4o's classes: "S" for \\s, the letter's category (Lu, Ll, Lt, Lm,
+    Lo), "M" for \\p{M}, "N" for \\p{N}, "O" for anything else."""
+    if c in _WHITE_SPACE:
+        return "S"
+    cat = unicodedata.category(c)
+    return cat if cat[0] == "L" else cat[0] if cat[0] in "MN" else "O"
+
+
+# gpt-4o's [\p{Lu}\p{Lt}\p{Lm}\p{Lo}\p{M}] and [\p{Ll}\p{Lm}\p{Lo}\p{M}]
+_UPPERISH = frozenset(("Lu", "Lt", "Lm", "Lo", "M"))
+_LOWERISH = frozenset(("Ll", "Lm", "Lo", "M"))
+_CASE_FOLDS = {"s": "sS\u017f"}  # (?i): the characters each contraction letter matches
+
+
 def _run(k: list[str], i: int, cls: str, limit: int | None = None) -> int:
     """End of the run of class `cls` starting at i (at most `limit` long)."""
     n = len(k) if limit is None else min(len(k), i + limit)
@@ -92,6 +118,78 @@ def _contraction(text: str, i: int, any_case: bool) -> int:
         if len(seg) == len(suf) and all(
                 c == s or (any_case and c == s.upper()) for c, s in zip(seg, suf)):
             return i + 1 + len(suf)
+    return -1
+
+
+def _contraction_ci(text: str, i: int) -> int:
+    """End of the case-insensitive contraction at i ('s 't 're 've 'm 'll 'd,
+    the first that matches), or -1."""
+    for suf in _CONTRACTIONS:
+        seg = text[i + 1:i + 1 + len(suf)]
+        if len(seg) == len(suf) and all(c in _CASE_FOLDS.get(s, s + s.upper())
+                                        for c, s in zip(seg, suf)):
+            return i + 1 + len(suf)
+    return -1
+
+
+def _cased_word(text: str, k: list[str], j: int, upper_first: bool) -> int:
+    """End of gpt-4o's first (`upper_first` false: uppers* lowers+) or
+    second (uppers+ lowers*) word alternative from j, with its contraction,
+    or -1.  The first backs its greedy upper run off to the last character
+    a lower run can start on (Lm, Lo and M are both)."""
+    n = len(text)
+    u = j
+    while u < n and k[u] in _UPPERISH:
+        u += 1
+    if upper_first:
+        if u == j:
+            return -1
+        end = u
+        while end < n and k[end] in _LOWERISH:
+            end += 1
+    else:
+        p = u
+        while p >= j and not (p < n and k[p] in _LOWERISH):
+            p -= 1
+        if p < j:
+            return -1
+        end = p + 1
+        if p == u:  # an Ll after the upper run: the lower run goes on
+            while end < n and k[end] in _LOWERISH:
+                end += 1
+    if end < n and text[end] == "'":
+        end = max(end, _contraction_ci(text, end))
+    return end
+
+
+def _match_gpt4o(text: str, k: list[str], i: int) -> int:
+    n = len(text)
+    c = text[i]
+    prefix = c not in _CRLF and k[i][0] not in "LN"  # [^\r\n\p{L}\p{N}]
+    for upper_first in (False, True):  # the two word alternatives, each prefix first
+        for j in ((i + 1, i) if prefix else (i,)):
+            end = _cased_word(text, k, j, upper_first) if j < n else -1
+            if end > 0:
+                return end
+    if k[i] == "N":  # \p{N}{1,3}
+        return _run(k, i, "N", 3)
+    #  ?[^\s\p{L}\p{N}]+[\r\n/]*
+    other = ("O", "M")
+    j = i + 1 if c == " " and i + 1 < n and k[i + 1] in other else i
+    if k[j] in other:
+        while j < n and k[j] in other:
+            j += 1
+        while j < n and text[j] in "\r\n/":
+            j += 1
+        return j
+    if k[i] == "S":  # \s*[\r\n]+ | \s+(?!\S) | \s+, as llama3's
+        j = _run(k, i, "S")
+        last = max((p for p in range(i, j) if text[p] in _CRLF), default=-1)
+        if last >= 0:
+            return last + 1
+        if j == n or j - 1 == i:
+            return j
+        return j - 1
     return -1
 
 
@@ -156,10 +254,13 @@ def pretokenize(text: str, kind: str) -> list[str]:
     then "gpt2" over every fragment (zllm's two passes)."""
     if kind == "starcoder":
         return [out for frag in _split_numerals(text) for out in pretokenize(frag, "gpt2")]
-    k = [char_class(c) for c in text]
+    k = [(case_class if kind == "gpt-4o" else char_class)(c) for c in text]
     if kind == "gpt2":
         def match(i):
             return _match_gpt2(text, k, i)
+    elif kind == "gpt-4o":
+        def match(i):
+            return _match_gpt4o(text, k, i)
     else:
         digits = 3 if kind == "llama3" else 1
 
